@@ -1,0 +1,100 @@
+"""Op builder: compile the port's CUDA sources with nvcc, load with ctypes.
+
+Counterpart of ``deepspeed_tpu/op_builder/builder.py`` (``OpBuilder.load``:
+hash the sources and flags, build once into a content-addressed file,
+atomic tmp -> rename). Each ``csrc/*.cu`` exposes a plain ``extern "C"``
+interface, so the library is built with nvcc alone (no PyTorch headers,
+seconds instead of minutes) and bound with ctypes.
+
+Output: ``<repo>/build/deepspeed_tpu_torch/<name>-<hash>.so``. The build
+happens at first use. A missing nvcc or a failed build raises — there is
+no stub library and no fallback.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+from ..utils.logging import logger
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "deepspeed_tpu_torch")
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+
+def find_nvcc():
+    """Path of nvcc: on PATH, else the toolkit's default location, else
+    None."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    return default if os.path.exists(default) else None
+
+
+class CUDAOpBuilder:
+    NAME = None
+    SOURCES = ()
+
+    def __init__(self):
+        self._lib = None
+        self.build_log = ""        # nvcc's stderr (ptxas register report)
+        self.build_seconds = 0.0   # 0 when the library was already built
+
+    def absolute_sources(self):
+        return [os.path.join(CSRC, s) for s in self.SOURCES]
+
+    def build_hash(self):
+        h = hashlib.sha256()
+        for s in self.absolute_sources():
+            with open(s, "rb") as f:
+                h.update(f.read())
+        h.update(" ".join(NVCC_FLAGS).encode())
+        return h.hexdigest()[:16]
+
+    def so_path(self):
+        return os.path.join(BUILD_DIR, f"{self.NAME}-{self.build_hash()}.so")
+
+    def build(self):
+        """Compile (if the content-addressed library is missing); returns
+        its path."""
+        so = self.so_path()
+        if os.path.exists(so):
+            return so
+        nvcc = find_nvcc()
+        if nvcc is None:
+            raise RuntimeError(
+                f"cannot build CUDA op '{self.NAME}': nvcc not found "
+                f"(PATH or /usr/local/cuda/bin)")
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{so}.{os.getpid()}.tmp"
+        cmd = [nvcc] + NVCC_FLAGS + self.absolute_sources() + ["-o", tmp]
+        logger.info(f"building CUDA op '{self.NAME}': {' '.join(cmd)}")
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        self.build_seconds = time.perf_counter() - t0
+        self.build_log = res.stderr
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed for op '{self.NAME}' (rc={res.returncode}):\n"
+                f"{res.stdout}\n{res.stderr}")
+        os.replace(tmp, so)
+        return so
+
+    def load(self):
+        """Build if needed and return the loaded ctypes CDLL."""
+        if self._lib is None:
+            self._lib = ctypes.CDLL(self.build())
+        return self._lib
+
+
+class PagedAttentionBuilder(CUDAOpBuilder):
+    NAME = "paged_attention"
+    SOURCES = ("paged_attention.cu",)
+

@@ -1,0 +1,144 @@
+"""The port stands alone: no module of deepspeed_tpu_torch (nor
+chip_smoke.py) imports jax or the JAX package, the port imports and
+serves with both made unimportable, and its entry points refuse to fall
+back to the CPU on their own. Also the op builder's hygiene: a stable
+content hash and output path, and a clear error (never a stub library)
+without nvcc or on a failed build."""
+
+import dataclasses
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from deepspeed_tpu_torch import InferenceEngineV2, Llama
+from deepspeed_tpu_torch.models import LLAMA_TINY
+from deepspeed_tpu_torch.op_builder import builder
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "deepspeed_tpu_torch")
+
+_FORBIDDEN = re.compile(
+    r"^\s*(import\s+(jax|jaxlib|deepspeed_tpu)\b(?!_)"
+    r"|from\s+(jax|jaxlib|deepspeed_tpu)\b(?!_))", re.M)
+
+
+def _port_sources():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, files in os.walk(PKG):
+        out += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    return out
+
+
+def test_static_scan_no_jax_imports():
+    srcs = _port_sources()
+    assert len(srcs) > 10
+    bad = []
+    for path in srcs:
+        with open(path) as f:
+            text = f.read()
+        bad += [f"{path}: {m.group(0).strip()}"
+                for m in _FORBIDDEN.finditer(text)]
+        bad += [f"{path}: deepspeed_tpu. reference"
+                for _ in re.finditer(r"\bdeepspeed_tpu\.", text)]
+    assert not bad, bad
+
+
+_BLOCKED_RUN = r"""
+import sys, importlib.abc
+ROOTS = ("jax", "jaxlib", "deepspeed_tpu")
+for name in list(sys.modules):
+    if name.split(".")[0] in ROOTS:
+        del sys.modules[name]
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] in ROOTS:
+            raise ImportError("blocked: " + name)
+        return None
+
+sys.meta_path.insert(0, Block())
+import dataclasses
+import numpy as np
+import torch
+import deepspeed_tpu_torch
+from deepspeed_tpu_torch import InferenceEngineV2, Llama
+from deepspeed_tpu_torch.models import LLAMA_TINY
+cfg = dataclasses.replace(LLAMA_TINY, dtype="float32")
+eng = InferenceEngineV2(Llama(cfg, device="cpu"),
+                        dict(dtype="float32", kv_block_size=8,
+                             max_batch_size=2, splitfuse_tokens=8),
+                        device="cpu")
+out = eng.generate_all([np.arange(5), np.arange(12)], max_new_tokens=3)
+assert [len(o) for o in out] == [3, 3]
+assert not any(n.split(".")[0] in ROOTS for n in sys.modules)
+print("ISOLATED_OK")
+"""
+
+
+def test_port_runs_with_jax_unimportable():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run([sys.executable, "-c", _BLOCKED_RUN], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "ISOLATED_OK" in res.stdout
+
+
+def test_no_silent_cpu_fallback(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = dataclasses.replace(LLAMA_TINY, dtype="float32")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Llama(cfg)
+    model = Llama(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        InferenceEngineV2(model, dict(dtype="float32", kv_block_size=8))
+
+
+def test_engine_rejects_unported_config():
+    model = Llama(dataclasses.replace(LLAMA_TINY, dtype="float32"),
+                  device="cpu")
+    for over in (dict(tensor_parallel=2), dict(weight_quant="int8"),
+                 dict(quantize_weights=True), dict(kv_host_offload=True),
+                 dict(prefix_cache=True), dict(spec_draft=True),
+                 dict(telemetry=True)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            InferenceEngineV2(model, dict(dtype="float32", **over),
+                              device="cpu")
+    with pytest.raises(ValueError):
+        InferenceEngineV2(model, dict(paged_kernel="yes"), device="cpu")
+
+
+class TestOpBuilder:
+    def test_stable_hash_and_path(self, monkeypatch):
+        a = builder.PagedAttentionBuilder()
+        b = builder.PagedAttentionBuilder()
+        assert a.build_hash() == b.build_hash()
+        assert re.fullmatch(r"[0-9a-f]{16}", a.build_hash())
+        h = a.build_hash()
+        assert a.so_path() == os.path.join(
+            ROOT, "build", "deepspeed_tpu_torch", f"paged_attention-{h}.so")
+        monkeypatch.setattr(builder, "NVCC_FLAGS",
+                            builder.NVCC_FLAGS + ["-lineinfo"])
+        assert builder.PagedAttentionBuilder().build_hash() != h
+
+    def test_missing_nvcc_raises(self, monkeypatch, tmp_path):
+        monkeypatch.setattr(builder, "BUILD_DIR", str(tmp_path))
+        monkeypatch.setattr(builder, "find_nvcc", lambda: None)
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            builder.PagedAttentionBuilder().load()
+        assert os.listdir(tmp_path) == []
+
+    def test_failed_build_raises(self, monkeypatch, tmp_path):
+        fake = tmp_path / "nvcc"
+        fake.write_text("#!/bin/sh\necho 'error: no card here' >&2\nexit 2\n")
+        fake.chmod(0o755)
+        out = tmp_path / "out"
+        monkeypatch.setattr(builder, "BUILD_DIR", str(out))
+        monkeypatch.setattr(builder, "find_nvcc", lambda: str(fake))
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            builder.PagedAttentionBuilder().load()
+        assert not any(f.endswith(".so") for f in os.listdir(out))
