@@ -36,8 +36,11 @@
 //   diagonal and the limit takes the mask-free path. K/V blocks are staged
 //   in shared memory and the two products are SIMT micro-tiles with fp32
 //   accumulation.
-//   Bound: max(flops / 989 TFLOP/s, bytes / 3.35 TB/s) on an H100 SXM; at a
-//   256-token chunk over a long history the flops dominate. This first
+//   Bound: max(flops / 989 TFLOP/s, bytes / 3.35 TB/s) on an H100 SXM. Each
+//   bf16 K/V position costs 4*D bytes per kv head and serves at most C*G
+//   query rows at 4*D flops each, so a 256-token chunk is bound by bytes
+//   under MHA (G=1: at most 256 flop/byte, below the 295 ridge) and by
+//   flops under GQA (G=4, Mistral-7B: up to 1024). This first
 //   version runs on the CUDA cores (no wgmma/TMA yet), so it sits well
 //   above that bound; tensor cores are later work.
 //

@@ -24,6 +24,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.cuda.paged_attention import (paged_chunk_attention,
+                                        paged_chunk_attention_reference,
                                         paged_decode_attention,
                                         paged_decode_attention_reference)
 from ..utils.device import resolve_device
@@ -313,19 +314,14 @@ class Llama(nn.Module):
         cache)."""
         cfg = self.config
         T = input_ids.shape[1]
-        H, KVH, hd = cfg.n_head, cfg.n_kv_heads, cfg.d_head
-        dev = input_ids.device
+        H, hd = cfg.n_head, cfg.d_head
         length = int(length)
         x = F.embedding(input_ids.long(), self.wte)
-        pos = torch.arange(T, device=dev)[None, :]
+        pos = torch.arange(T, device=input_ids.device)[None, :]
         BS = cache["k"][0].shape[2]
         prefill_table = token_blocks[::BS].to(torch.int32).contiguous()
-        use_kernel = self._use_kernel()
-        if not use_kernel:
-            ar = torch.arange(T, device=dev)
-            mask = (ar[None, :] <= ar[:, None]) & (ar < length)[None, :]
-            if cfg.sliding_window:
-                mask = mask & (ar[:, None] - ar[None, :] < cfg.sliding_window)
+        attend = (paged_chunk_attention if self._use_kernel()
+                  else paged_chunk_attention_reference)
         for i in range(cfg.n_layer):
             kc, vc = cache["k"][i], cache["v"][i]
             q, k, v = self._attn_proj(x, i)
@@ -333,18 +329,8 @@ class Llama(nn.Module):
             k = self._rope(k, pos)
             _scatter_kv(kc, token_blocks, token_offsets, k[0])
             _scatter_kv(vc, token_blocks, token_offsets, v[0])
-            if use_kernel:
-                attn = paged_chunk_attention(
-                    q[0].contiguous(), kc, vc, prefill_table, 0, length,
-                    window=cfg.sliding_window)[None]
-            else:
-                ku = k.repeat_interleave(H // KVH, dim=2)
-                vu = v.repeat_interleave(H // KVH, dim=2)
-                s = torch.einsum("bthd,bshd->bhts", q.float(), ku.float())
-                s = s / math.sqrt(hd)
-                s = torch.where(mask[None, None], s, -1e30)
-                p = torch.softmax(s, dim=-1).to(x.dtype)
-                attn = torch.einsum("bhts,bshd->bthd", p, vu)
+            attn = attend(q[0].contiguous(), kc, vc, prefill_table, 0, length,
+                          window=cfg.sliding_window)
             x = self._block_tail(x, attn.reshape(1, T, H * hd), i)
         last = x[:, max(length - 1, 0)]
         return self.head(last), cache
@@ -363,22 +349,13 @@ class Llama(nn.Module):
         (logits (1, V) fp32 at chunk position true_len-1, cache)."""
         cfg = self.config
         C = input_ids.shape[1]
-        H, KVH, hd = cfg.n_head, cfg.n_kv_heads, cfg.d_head
-        dev = input_ids.device
+        H, hd = cfg.n_head, cfg.d_head
         start, true_len = int(start), int(true_len)
-        BS = cache["k"][0].shape[2]
         x = F.embedding(input_ids.long(), self.wte)
-        pos = start + torch.arange(C, device=dev)[None, :]
+        pos = start + torch.arange(C, device=input_ids.device)[None, :]
         table = table.to(torch.int32).contiguous()
-        use_kernel = self._use_kernel()
-        if not use_kernel:
-            S = table.shape[0] * BS
-            q_pos = (start + torch.arange(C, device=dev))[:, None]
-            k_pos = torch.arange(S, device=dev)[None, :]
-            mask = (k_pos <= q_pos) & (k_pos < start + true_len)
-            if cfg.sliding_window:
-                mask = mask & (q_pos - k_pos < cfg.sliding_window)
-            tl = table.long()
+        attend = (paged_chunk_attention if self._use_kernel()
+                  else paged_chunk_attention_reference)
         for i in range(cfg.n_layer):
             kc, vc = cache["k"][i], cache["v"][i]
             q, k, v = self._attn_proj(x, i)
@@ -386,20 +363,8 @@ class Llama(nn.Module):
             k = self._rope(k, pos)
             _scatter_kv(kc, token_blocks, token_offsets, k[0])
             _scatter_kv(vc, token_blocks, token_offsets, v[0])
-            if use_kernel:
-                attn = paged_chunk_attention(
-                    q[0].contiguous(), kc, vc, table, start, true_len,
-                    window=cfg.sliding_window)[None]
-            else:
-                gk = kc[tl].transpose(1, 2).reshape(S, KVH, hd)
-                gv = vc[tl].transpose(1, 2).reshape(S, KVH, hd)
-                gk = gk.repeat_interleave(H // KVH, dim=1)
-                gv = gv.repeat_interleave(H // KVH, dim=1)
-                s = torch.einsum("bthd,shd->bhts", q.float(), gk.float())
-                s = s / math.sqrt(hd)
-                s = torch.where(mask[None, None], s, -1e30)
-                p = torch.softmax(s, dim=-1).to(x.dtype)
-                attn = torch.einsum("bhts,shd->bthd", p, gv)
+            attn = attend(q[0].contiguous(), kc, vc, table, start, true_len,
+                          window=cfg.sliding_window)
             x = self._block_tail(x, attn.reshape(1, C, H * hd), i)
         last = x[:, max(true_len - 1, 0)]
         return self.head(last), cache

@@ -44,7 +44,16 @@ def alibi_slopes(n_head):
             for h in range(n_head)]
 
 
-alibi_slopes_formula = alibi_slopes
+def _check_bloom_slopes(slopes, n_head, name):
+    """The kernel computes bloom-formula slopes from the head index, so
+    it takes no others."""
+    expect = alibi_slopes(n_head)
+    if len(slopes) != n_head or any(
+            abs(a - b) > 1e-6 * max(abs(b), 1e-9)
+            for a, b in zip(slopes, expect)):
+        raise NotImplementedError(
+            f"{name} computes bloom-formula ALiBi slopes in-kernel; custom "
+            "per-head slopes are not supported")
 
 _builder = None
 
@@ -141,14 +150,7 @@ def paged_decode_attention(q, k_cache, v_cache, block_tables, lengths, *,
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     if alibi_slopes is not None:
-        expect = alibi_slopes_formula(H)
-        if len(alibi_slopes) != H or any(
-                abs(a - b) > 1e-6 * max(abs(b), 1e-9)
-                for a, b in zip(alibi_slopes, expect)):
-            raise NotImplementedError(
-                "paged_decode_attention computes bloom-formula ALiBi "
-                "slopes in-kernel; custom per-head slopes are not "
-                "supported")
+        _check_bloom_slopes(alibi_slopes, H, name)
     if q.device.type == "cpu":
         return paged_decode_attention_reference(
             q, k_cache, v_cache, block_tables, lengths, scale=scale,

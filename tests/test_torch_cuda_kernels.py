@@ -1,13 +1,16 @@
 """The Hopper paged-attention kernels on the card, held against their plain
-PyTorch versions at small shapes (bf16 at rtol=atol=5e-2, fp32 at 1e-4).
+PyTorch versions at small shapes (bf16 against the plain version in fp32
+on the same inputs, chip_smoke.bf16_mismatch; fp32 at 1e-4).
 Marked ``cuda``: skipped without an NVIDIA GPU; on the card run
-``python -m pytest tests/test_torch_cuda_kernels.py -m cuda``.
+``python -m pytest tests/test_torch_cuda_kernels.py -m cuda --noconftest``
+(the repo's conftest sets up the JAX test mesh).
 ``chip_smoke.py`` repeats these checks at the serving shapes."""
 
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from deepspeed_tpu_torch.ops.cuda import paged_attention as pa
 
 pytestmark = pytest.mark.cuda
@@ -19,9 +22,15 @@ def _card():
         pytest.skip("needs an NVIDIA GPU (the kernels are CUDA C++ only)")
 
 
-def _tol(dtype):
-    return (dict(rtol=5e-2, atol=5e-2) if dtype == torch.bfloat16
-            else dict(rtol=1e-4, atol=1e-4))
+def _assert_matches(out, plain, q, k, v):
+    """``plain(q, k, v)`` is the kernel's plain version on the same
+    inputs; a bf16 output is held against it run in fp32."""
+    if out.dtype == torch.bfloat16:
+        ref = plain(q.float(), k.float(), v.float())
+        assert chip_smoke.bf16_mismatch(out, ref) is None
+    else:
+        torch.testing.assert_close(out, plain(q, k, v), rtol=1e-4,
+                                   atol=1e-4)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -48,8 +57,8 @@ def test_decode_kernel(dtype, H, KVH, d, window, alibi):
     out = pa.paged_decode_attention(q, k, v, tb, ln, **kw)
     torch.cuda.synchronize()
     assert pa.LAUNCHES["paged_decode"] == n0 + 1
-    ref = pa.paged_decode_attention_reference(q, k, v, tb, ln, **kw)
-    torch.testing.assert_close(out.float(), ref.float(), **_tol(dtype))
+    _assert_matches(out, lambda q, k, v: pa.paged_decode_attention_reference(
+        q, k, v, tb, ln, **kw), q, k, v)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -71,11 +80,11 @@ def test_chunk_kernel(dtype, H, KVH, d, start, true_len, window, block_c):
     out = pa.paged_chunk_attention(q, k, v, table, start, true_len,
                                    window=window, block_c=block_c)
     torch.cuda.synchronize()
-    ref = pa.paged_chunk_attention_reference(q, k, v, table, start, true_len,
-                                             window=window)
     assert torch.isfinite(out).all()
-    torch.testing.assert_close(out[:true_len].float(),
-                               ref[:true_len].float(), **_tol(dtype))
+    _assert_matches(out[:true_len], lambda q, k, v:
+                    pa.paged_chunk_attention_reference(
+                        q, k, v, table, start, true_len,
+                        window=window)[:true_len], q, k, v)
 
 
 def test_cuda_tensor_never_takes_the_plain_path():
