@@ -5,7 +5,8 @@
 
 Phases (any failure raises and the script exits nonzero):
   1. card: the card's name and power limit (nvidia-smi), and the build of
-     every kernel of the serving path from csrc/ (nvcc, into build/).
+     every kernel from csrc/ (one nvcc per source, all started together,
+     into build/).
   2. kernels: each Hopper kernel against its plain PyTorch version on the
      card at the Llama-2-7B / Mistral-7B serving shapes (bf16 against the
      plain version run in fp32 on the same inputs, see bf16_mismatch; fp32
@@ -19,10 +20,23 @@ Phases (any failure raises and the script exits nonzero):
      serves 8 requests through InferenceEngineV2; every request returns
      its 64 tokens, and each kernel's launch count over this run equals
      the count the engine's dispatches imply.
+  5. training kernels: flash forward (K1), fused flash backward (K2) and
+     the fused CE unembed (K3) at the GPT-2 350M training shapes, bf16
+     against their plain versions run in fp32 on the same inputs (fp32
+     cases at 1e-4), one control per kernel that must fail its check, and
+     each timed beside its bound, plain version and one library call.
+  6. training parity: a small fp32 GPT-2 on the card with the kernels on
+     (flash + fused CE kernel, save_flash) and off (dense attention +
+     fused_linear_xent) gives the same loss and gradients.
+  7. training slice: initialize(GPT2 350M, the bench config) and 10
+     train_batch steps on one fixed batch; the loss falls and the kernels'
+     launch counts are exactly 24 flash forwards, 24 flash backwards and 2
+     fused CE calls per step (no flash forward re-run in backward).
 Then one JSON line of per-kernel numbers, and last the result line
 {"ok": true, "device": {...}}. Without a CUDA device it exits 2 and prints
-no result. ``--profile PATH`` also writes a torch.profiler breakdown of the
-slice's device time to PATH (the slice's timings then include the
+no result. ``--profile PATH`` also writes torch.profiler breakdowns of the
+serving slice's device time to PATH and of three extra training steps to
+PATH with "-train" before its extension (profiled timings include the
 profiler's overhead).
 """
 
@@ -49,10 +63,31 @@ BF16_FLOPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core peak
 BF16_TOL = dict(rtol=2 ** -7, atol=4e-3)
 BF16_REL_NORM = 1e-2
 FP32_TOL = dict(rtol=1e-4, atol=1e-4)
-SOURCE = "deepspeed_tpu_torch/csrc/paged_attention.cu"
+# bf16 flash gradients against the plain backward in fp32 on the same
+# inputs: p and ds are rounded to bf16 (2^-9 relative each) before products
+# over up to T terms whose signed sum cancels, so no element-wise rtol
+# holds near zero; the relative error norm of each (b, h) slab (T x d) is
+# held instead, ~2^-9 times a small factor when right, of order 1 for a
+# slab that lost a key or query tile.
+BF16_GRAD_REL_NORM = 2e-2
+# fused CE logz/gold (fp32) from bf16 h, w against the plain version in
+# fp32 on the same inputs: each bf16 product is exact in fp32, so only the
+# order of the D=1024-term sums differs; at h ~ N(0,1), w ~ 0.02 N(0,1) the
+# worst-case bound D * 2^-24 * sum|h w| is about 8e-4.
+CE_STAT_ATOL = 1e-3
+SOURCES = {
+    "paged_decode": "deepspeed_tpu_torch/csrc/paged_attention.cu",
+    "paged_chunk": "deepspeed_tpu_torch/csrc/paged_attention.cu",
+    "flash_fwd": "deepspeed_tpu_torch/csrc/flash_attention.cu",
+    "flash_bwd": "deepspeed_tpu_torch/csrc/flash_attention.cu",
+    "fused_ce": "deepspeed_tpu_torch/csrc/fused_ce.cu",
+}
 REPLACES = {
     "paged_decode": "deepspeed_tpu/ops/pallas/paged_attention.py:121",
     "paged_chunk": "deepspeed_tpu/ops/pallas/paged_attention.py:310",
+    "flash_fwd": "deepspeed_tpu/ops/pallas/flash_attention.py:360",
+    "flash_bwd": "deepspeed_tpu/ops/pallas/flash_attention.py:717",
+    "fused_ce": "deepspeed_tpu/ops/pallas/fused_ce.py:44",
 }
 
 
@@ -98,6 +133,25 @@ def bf16_mismatch(out, ref):
     return None
 
 
+def bf16_grad_mismatch(out, ref):
+    """None if the bf16 gradient ``out`` (B, H, T, d) holds against the fp32
+    ``ref`` (every (b, h) slab's relative error norm within
+    BF16_GRAD_REL_NORM), else why not."""
+    if not torch.isfinite(out).all():
+        return "non-finite output"
+    rel = grad_rel_norm(out, ref)
+    if rel > BF16_GRAD_REL_NORM:
+        return f"worst (b, h) slab relative error norm {rel:.3g}"
+    return None
+
+
+def grad_rel_norm(out, ref):
+    """The worst (b, h) slab's relative error norm of ``out`` vs ``ref``."""
+    diff = (out.float() - ref).flatten(2)
+    return (torch.linalg.vector_norm(diff, dim=-1)
+            / torch.linalg.vector_norm(ref.flatten(2), dim=-1)).max().item()
+
+
 def decode_with_blocks_dropped(pa, q, k, v, tables, lengths):
     """The output of a decode kernel that skipped every odd table block:
     the plain version over the even blocks alone (positions carry no
@@ -110,6 +164,30 @@ def decode_with_blocks_dropped(pa, q, k, v, tables, lengths):
                        (jb + 1) // 2 * BS - 1)
     return pa.paged_decode_attention_reference(
         q, k, v, tables[:, ::2].contiguous(), kept.to(torch.int32))
+
+
+def ptxas_summary(build_log):
+    """(kernel entry, registers, spill store bytes) for each instance in an
+    nvcc -Xptxas -v log."""
+    import re
+    out, entry = [], None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = m.group(1)
+            name = re.search(r"\d+([a-z_]+_kernel)(I\w*?)E", entry)
+            if name:
+                entry = name.group(1) + name.group(2)
+            spill = 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            out.append((entry, int(m.group(1)), spill))
+            entry = None
+    return out
 
 
 def bound(nbytes, flops):
@@ -448,6 +526,287 @@ def phase_slice(seed=0, profile=None):
     return launches
 
 
+# -------------------------------------------------------- training kernels
+
+
+def _causal_pairs(T):
+    return T * (T + 1) // 2
+
+
+def flash_with_key_tile_dropped(fa, q, k, v, tile=0, bk=64):
+    """The output of a forward kernel that skipped key tile ``tile`` for
+    every query past it: the plain version with those keys masked."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    T = q.shape[2]
+    i = torch.arange(T, device=q.device)[:, None]
+    j = torch.arange(T, device=q.device)[None, :]
+    ok = (j <= i) & ~((j >= tile * bk) & (j < (tile + 1) * bk)
+                      & (i >= (tile + 1) * bk))
+    p = torch.softmax(torch.where(ok, s, fa.NEG_INF), dim=-1)
+    return torch.matmul(p, v.float())
+
+
+def phase_train_kernels(fa, fce, seed=0):
+    """K1, K2, K3 at the GPT-2 350M bench shapes (B=24, H=16, T=1024, d=64;
+    CE over N = 24 * 512 rows, D=1024, V=50304), checked, controlled and
+    timed."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def randn(shape, dtype=bf, s=1.0):
+        return (torch.randn(shape, generator=g, device="cuda") * s).to(dtype)
+
+    rows, err = {}, {}
+    # ---- fp32 cases (the kernels' fp32 instances, at FP32_TOL)
+    for (B, H, T, d, window) in ((2, 4, 200, 64, 0), (1, 2, 333, 128, 100),
+                                 (2, 2, 130, 32, 0)):
+        q, k, v, do = (randn((B, T, H, d), f32).transpose(1, 2)
+                       for _ in range(4))
+        q = q * 0.3
+        o, lse = fa.flash_forward(q, k, v, window=window)
+        ro, rlse = fa.flash_forward_reference(q, k, v, window=window)
+        torch.testing.assert_close(o, ro, **FP32_TOL)
+        torch.testing.assert_close(lse, rlse, **FP32_TOL)
+        grads = fa.flash_backward(q, k, v, o, lse, do, window=window)
+        refs = fa.flash_backward_reference(q, k, v, o, lse, do,
+                                           window=window)
+        for got, ref in zip(grads, refs):
+            torch.testing.assert_close(got, ref, **FP32_TOL)
+    h32, w32 = randn((300, 128), f32), randn((1000, 128), f32, 0.1)
+    t32 = torch.randint(-2, 1002, (300,), generator=g, device="cuda")
+    for got, ref in zip(fce.unembed_logits_stats(h32, w32, t32),
+                        fce.unembed_logits_stats_reference(h32, w32, t32)):
+        torch.testing.assert_close(got, ref, **FP32_TOL)
+    log("training kernels: fp32 cases ok (flash fwd/bwd incl. window and "
+        "ragged T, fused CE with targets outside [0, V))")
+
+    # ---- bf16 at the slice shapes (the model's (B, T, H, d) layout)
+    B, H, T, d = 24, 16, 1024, 64
+    q, k, v, do = (randn((B, T, H, d)).transpose(1, 2) for _ in range(4))
+    q = fa.scale_q(q, 1.0 / math.sqrt(d))
+    q32, k32, v32, do32 = (x.float() for x in (q, k, v, do))
+    o, lse = fa.flash_forward(q, k, v)
+    ro, rlse = fa.flash_forward_reference(q32, k32, v32)
+    why = bf16_mismatch(o, ro)
+    assert why is None, f"flash_fwd: {why}"
+    torch.testing.assert_close(lse, rlse, rtol=0, atol=1e-4)
+    err["flash_fwd"] = bf16_errors(o, ro)
+    dropped = flash_with_key_tile_dropped(fa, q32, k32, v32).to(bf)
+    why = bf16_mismatch(dropped, ro)
+    assert why is not None, "bf16 check let a dropped key tile pass"
+    log(f"control: flash forward with key tile 0 skipped fails ({why})")
+    del dropped
+
+    grads = fa.flash_backward(q, k, v, o, lse, do)
+    refs = fa.flash_backward_reference(q32, k32, v32, o.float(), lse, do32)
+    for name, got, ref in zip(("dq", "dk", "dv"), grads, refs):
+        why = bf16_grad_mismatch(got, ref)
+        assert why is None, f"flash_bwd {name}: {why}"
+    err["flash_bwd"] = (0, max((a.float() - b).abs().max().item()
+                               for a, b in zip(grads, refs)),
+                        max(grad_rel_norm(a, b) for a, b in zip(grads, refs)))
+    do_cut = do32.clone()
+    do_cut[:, :, 512:576] = 0          # query tile 8 skipped
+    cut = fa.flash_backward_reference(q32, k32, v32, o.float(), lse, do_cut)
+    why = bf16_grad_mismatch(cut[0].to(bf), refs[0])
+    assert why is not None, "grad check let a skipped query tile pass"
+    log(f"control: flash backward with query tile 8 skipped fails dq "
+        f"({why})")
+    del refs, cut, do_cut, grads
+
+    N, D, V = B * 512, 1024, 50304
+    h, w = randn((N, D)), randn((V, D), s=0.02)
+    t = torch.randint(0, V, (N,), generator=g, device="cuda")
+    logits, logz, gold = fce.unembed_logits_stats(h, w, t)
+    rl, rz, rg = fce.unembed_logits_stats_reference(h.float(), w.float(), t)
+    why = bf16_mismatch(logits, rl)
+    assert why is None, f"fused_ce logits: {why}"
+    for name, got, ref in (("logz", logz, rz), ("gold", gold, rg)):
+        e = (got - ref).abs().max().item()
+        assert e <= CE_STAT_ATOL, f"fused_ce {name}: max |err| {e:.3g}"
+    err["fused_ce"] = bf16_errors(logits, rl)
+    # control: the vocab tile holding each row's target skipped
+    tile = t // 64
+    col = torch.arange(V, device="cuda")
+    skip = (col[None, :] // 64) == tile[:, None]
+    ctrl_z = torch.logsumexp(rl.masked_fill(skip, -1e30), dim=-1)
+    ctrl_e = max((ctrl_z - rz).abs().max().item(), rg.abs().max().item())
+    assert ctrl_e > CE_STAT_ATOL, "CE check let a skipped vocab tile pass"
+    log(f"control: fused CE with each row's target tile skipped fails "
+        f"(max |err| {ctrl_e:.3g} > {CE_STAT_ATOL})")
+    del rl, skip, col
+    log(f"training kernel checks ok at the slice shapes: max |err| flash "
+        f"fwd {err['flash_fwd'][1]:.3g}, flash bwd {err['flash_bwd'][1]:.3g} "
+        f"(worst slab rel norm {err['flash_bwd'][2]:.3g}), fused CE logits "
+        f"{err['fused_ce'][1]:.3g}; fused CE logz/gold within "
+        f"{CE_STAT_ATOL}")
+
+    # ---- timing
+    esz = 2
+    pairs = B * H * _causal_pairs(T)
+    act = B * T * H * d * esz
+    fwd_bytes = 4 * act + B * H * T * 4
+    bwd_bytes = 8 * act + B * H * T * 4
+    qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+    sdpa_o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                            scale=1.0)
+    rows["flash_fwd"] = dict(
+        ms=time_ms(lambda: fa.flash_forward(q, k, v), 20),
+        plain_ms=time_ms(lambda: fa.flash_forward_reference(q, k, v), 3),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, scale=1.0), 20),
+        bound=bound(fwd_bytes, 4 * d * pairs))
+    rows["flash_bwd"] = dict(
+        ms=time_ms(lambda: fa.flash_backward(q, k, v, o, lse, do), 10),
+        plain_ms=time_ms(lambda: fa.flash_backward_reference(
+            q, k, v, o, lse, do), 2),
+        library_ms=time_ms(lambda: torch.autograd.grad(
+            sdpa_o, (qs, ks, vs), do, retain_graph=True), 10),
+        bound=bound(bwd_bytes, 10 * d * pairs))
+    del sdpa_o, qs, ks, vs
+    ce_bytes = (N * D + V * D + N * V) * esz + N * 4 + 2 * N * 4
+    rows["fused_ce"] = dict(
+        ms=time_ms(lambda: fce.unembed_logits_stats(h, w, t), 5),
+        plain_ms=time_ms(lambda: fce.unembed_logits_stats_reference(
+            h, w, t), 2),
+        library_ms=time_ms(lambda: torch.mm(h, w.t()), 10),
+        bound=bound(ce_bytes, 2 * N * V * D))
+    log(f"flash timed case: B={B} H={H} T={T} d={d} causal, {pairs} (q, k) "
+        f"pairs, fwd {fwd_bytes} bytes / {4 * d * pairs} flops, bwd "
+        f"{bwd_bytes} bytes / {10 * d * pairs} flops; fused CE: N={N} D={D} "
+        f"V={V}, {ce_bytes} bytes / {2 * N * V * D} flops; library calls: "
+        f"SDPA is_causal forward, SDPA backward (autograd.grad), cuBLAS "
+        f"h @ w^T alone (no single call gives the CE stats)")
+    for name, r in rows.items():
+        r["max_abs_err"] = err[name][1]
+        log(f"{name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
+            f"{r['library_ms']:.4f}, bound {r['bound'][0]:.4f} by "
+            f"{r['bound'][1]})")
+    del h, w, q, k, v, do, o, lse
+    torch.cuda.empty_cache()
+    return rows
+
+
+# --------------------------------------------------------- training parity
+
+
+def phase_train_parity(seed=0):
+    """Small fp32 GPT-2: kernels on (flash + fused CE kernel, save_flash)
+    and off (dense attention + fused_linear_xent, no remat) give the same
+    loss (rtol 1e-5) and every gradient within a relative error norm of
+    1e-4 (fp32 sums in another order through two softmaxes and the CE)."""
+    from deepspeed_tpu_torch import GPT2, GPT2Config
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+    from deepspeed_tpu_torch.ops.cuda import fused_ce as fce
+    base = dict(n_layer=2, n_head=2, d_model=128, max_seq_len=256,
+                vocab_size=1000, dtype="float32", loss_chunk=100,
+                fused_loss=True)
+    on = dict(use_flash_attention=True, fused_loss_kernel=True, remat=True,
+              remat_policy="save_flash")
+    off = dict(use_flash_attention=False, fused_loss_kernel=False,
+               remat=False)
+    ids = torch.from_numpy(np.random.RandomState(seed).randint(
+        0, 1000, (4, 256))).cuda()
+    out = {}
+    for name, over in (("on", on), ("off", off)):
+        model = GPT2(GPT2Config(**base, **over), device="cuda", seed=seed)
+        fa.reset_launch_counts()
+        fce.reset_launch_counts()
+        loss = model.loss({"input_ids": ids})
+        loss.backward()
+        torch.cuda.synchronize()
+        launched = {**fa.LAUNCHES, **fce.LAUNCHES}
+        want = ({"flash_fwd": 2, "flash_bwd": 2, "fused_ce": 3}
+                if name == "on" else
+                {"flash_fwd": 0, "flash_bwd": 0, "fused_ce": 0})
+        assert launched == want, (name, launched)
+        out[name] = (loss.item(), {n: p.grad for n, p in
+                                   model.named_parameters()})
+    (l_on, g_on), (l_off, g_off) = out["on"], out["off"]
+    assert abs(l_on - l_off) <= 1e-5 * abs(l_off), (l_on, l_off)
+    worst = 0.0
+    for n, g in g_off.items():
+        rel = (torch.linalg.vector_norm(g_on[n] - g)
+               / torch.linalg.vector_norm(g)).item()
+        assert rel <= 1e-4, (n, rel)
+        worst = max(worst, rel)
+    log(f"training parity ok: kernels on vs off, loss {l_on:.7f} vs "
+        f"{l_off:.7f}, worst gradient relative error norm {worst:.3g}")
+
+
+# ----------------------------------------------------------- training slice
+
+
+def phase_train_slice(seed=0, steps=10, profile=None):
+    """GPT-2 350M through initialize -> train_batch with the bench config
+    (benchmarks/bench_engine.py:46-77, :182-206): T=1024, micro 24, gas 1,
+    AdamW lr 2e-4 wd 0.01, clip 1.0, bf16, ZeRO 2, save_flash, loss chunk
+    512 with the fused CE kernel. One fixed numpy-seeded batch, as bench.py
+    does."""
+    import dataclasses
+    from deepspeed_tpu_torch import GPT2, GPT2_PRESETS, initialize
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+    from deepspeed_tpu_torch.ops.cuda import fused_ce as fce
+    cfg = dataclasses.replace(
+        GPT2_PRESETS["350M"], max_seq_len=1024, use_flash_attention=True,
+        flash_block_q=1024, flash_block_k=1024, flash_block_h=1,
+        remat=True, remat_policy="save_flash", loss_chunk=512,
+        fused_loss=True, fused_loss_kernel=True)
+    t0 = time.perf_counter()
+    engine, _, _, _ = initialize(
+        model=GPT2(cfg, device="cuda", seed=seed),
+        config={"train_micro_batch_size_per_gpu": 24,
+                "gradient_accumulation_steps": 1, "steps_per_print": 0,
+                "optimizer": {"type": "AdamW",
+                              "params": {"lr": 2e-4, "weight_decay": 0.01}},
+                "gradient_clipping": 1.0, "bf16": {"enabled": True},
+                "zero_optimization": {"stage": 2}})
+    torch.cuda.synchronize()
+    bsz = engine.config.train_batch_size
+    log(f"gpt2-350M engine built in {time.perf_counter() - t0:.1f} s: "
+        f"{cfg.num_params() / 1e6:.1f}M params, batch {bsz} x 1024")
+    batch = {"input_ids": np.random.RandomState(seed).randint(
+        0, cfg.vocab_size, (bsz, cfg.max_seq_len)).astype(np.int32)}
+
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    fce.reset_launch_counts()
+    losses, times = [], []
+    for _ in range(steps):
+        t1 = time.perf_counter()
+        losses.append(float(engine.train_batch(batch)))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+    launches = {**fa.LAUNCHES, **fce.LAUNCHES}
+    want = {"flash_fwd": cfg.n_layer * steps, "flash_bwd": cfg.n_layer * steps,
+            "fused_ce": 2 * steps}
+    assert launches == want, (launches, want)
+    assert all(math.isfinite(x) for x in losses), losses
+    assert losses[-1] < losses[0], losses
+    step_s = float(np.median(times[1:]))
+    tokens = bsz * cfg.max_seq_len
+    stats = dict(
+        steps=steps, losses=losses, step_s=times,
+        step_s_median_after_first=step_s,
+        tokens_per_s=tokens / step_s,
+        model_tflops_per_s=cfg.flops_per_token() * tokens / step_s / 1e12,
+        launches=launches,
+        max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log("train slice " + json.dumps(stats))
+    if profile:
+        acts = [torch.profiler.ProfilerActivity.CUDA]
+        t1 = time.perf_counter()
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(3):
+                engine.train_batch(batch)
+            torch.cuda.synchronize()
+        write_profile(prof, profile, time.perf_counter() - t1)
+    del engine
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default="",
@@ -457,6 +816,9 @@ def main(argv=None):
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from deepspeed_tpu_torch.op_builder import build_all
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+    from deepspeed_tpu_torch.ops.cuda import fused_ce as fce
     from deepspeed_tpu_torch.ops.cuda import paged_attention as pa
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -467,26 +829,41 @@ def main(argv=None):
         check=True).stdout.strip().splitlines()[0]
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    from deepspeed_tpu_torch.op_builder import (FlashAttentionBuilder,
+                                                FusedCEBuilder,
+                                                PagedAttentionBuilder)
+    builders = [PagedAttentionBuilder(), FlashAttentionBuilder(),
+                FusedCEBuilder()]
     t0 = time.perf_counter()
-    builder = pa.kernel_builder()      # builds csrc/paged_attention.cu
-    log(f"kernels built in {time.perf_counter() - t0:.1f} s (nvcc "
-        f"{builder.build_seconds:.1f} s) -> {builder.so_path()}")
-    for line in builder.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log("  ptxas " + line.strip())
+    build_all(builders)                # one nvcc per source, together
+    log(f"kernels built in {time.perf_counter() - t0:.1f} s wall")
+    for b in builders:
+        log(f"  {b.NAME}: nvcc {b.build_seconds:.1f} s -> {b.so_path()}")
+        for entry, regs, spill in ptxas_summary(b.build_log):
+            log(f"    ptxas {entry}: {regs} registers, {spill} bytes "
+                f"spilled")
+    for mod in (pa, fa, fce):
+        mod.kernel_builder()           # bind the built libraries
 
     rows = phase_kernels(pa)
     phase_parity()
     launches = phase_slice(profile=args.profile)
+    rows.update(phase_train_kernels(fa, fce))
+    phase_train_parity()
+    train_profile = None
+    if args.profile:
+        root, ext = os.path.splitext(args.profile)
+        train_profile = f"{root}-train{ext}"
+    launches.update(phase_train_slice(profile=train_profile))
 
     kernels = []
     for name, r in rows.items():
         kernels.append(dict(
-            name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
-            launches=launches[name], max_abs_err=r["max_abs_err"],
-            ms=r["ms"], kernel_ms=r["ms"], plain_ms=r["plain_ms"],
-            bound_ms=r["bound"][0], bound_by=r["bound"][1],
-            library_ms=r["library_ms"]))
+            name=name, route="cuda", source=SOURCES[name],
+            replaces=REPLACES[name], launches=launches[name],
+            max_abs_err=r["max_abs_err"], ms=r["ms"], kernel_ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
+            bound_by=r["bound"][1], library_ms=r["library_ms"]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

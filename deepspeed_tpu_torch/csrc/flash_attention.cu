@@ -1,0 +1,625 @@
+// Flash attention forward and backward for the training path, CUDA C++ for sm_90a.
+//
+// Extern "C" launchers take a FlashArgs struct (mirrored by ctypes in
+// ops/cuda/flash_attention.py) and return cudaGetLastError() (0 = launched).
+// They never synchronize and never allocate: the wrapper allocates o, lse,
+// the delta scratch and dq/dk/dv with torch.empty and passes raw pointers and
+// the current stream.
+//
+// Layout: every (B, H, T, D) operand is addressed through its own element
+// strides (b, h, t) with the head dim contiguous, so the model's (B, T, H, D)
+// projections and the heads-major (B, H, T, D) API both reach the kernels
+// without a copy. lse and delta are (B, H, T) fp32, contiguous.
+// Element type: float or __nv_bfloat16 (template T). The softmax scale is
+// folded into q by the wrapper (flash_attention.py:1570-1580), so the kernels
+// run with scale 1.
+//
+// flash_fwd_kernel   replaces deepspeed_tpu/ops/pallas/flash_attention.py
+//                    _fwd_kernel_t (via _fwd_t) and its twin _fwd_kernel
+//                    (via _fwd): one contract, the T-minor layout is not
+//                    ported.
+//   One CTA (4 warps) per (64-query tile, b*h); each warp owns 16 query rows.
+//   A loop over 64-key tiles replaces the TPU's in-kernel fori_loop; it stops
+//   at the causal diagonal and starts at the window's first live tile
+//   (flash_attention.py:388-394). Online softmax (m, l, acc) in fp32
+//   registers; p is rounded to V's dtype before P.V, exactly as
+//   p.astype(vb.dtype) (:420). Writes o in the input dtype and
+//   lse = m + log(l) in fp32.
+//   Bound: at T=1024, d=64 a causal head does 2*T^2*d flops against the
+//   4*T*d bf16 elements it must move (q, k, v, o), ~256 flop/byte, just
+//   under the H100's 295 flop/byte ridge, so bytes and tensor-core time
+//   are close (chip_smoke.py computes which wins). The design keeps every
+//   score and probability on chip and feeds the tensor cores (mma.sync
+//   m16n8k16 bf16 -> fp32) from shared-memory tiles. Loads are synchronous
+//   (no cp.async/TMA pipeline yet, no wgmma): later work.
+//
+// flash_bwd (three launches, one contract) replaces _bwd_kernel_t (via
+//   _bwd_t) and its twin _bwd_kernel (via _bwd). The TPU kernel walks key
+//   blocks on a sequential grid and carries dq in an fp32 output across grid
+//   steps (:813); GPU blocks run in parallel, so the deterministic
+//   FlashAttention-2 split is used instead of atomics:
+//   flash_delta_kernel   delta = rowsum(do * o) in fp32 (:781), one warp/row.
+//   flash_dkdv_kernel    one CTA per 64-key tile, a loop over query tiles
+//                        from the diagonal on; recomputes p = exp(s - lse),
+//                        dv += round(p)^T do, ds = p (dp - delta),
+//                        dk += round(ds)^T q, fp32 accumulators.
+//   flash_dq_kernel      one CTA per 64-query tile, a loop over key tiles up
+//                        to the diagonal; dq += round(ds) k in fp32.
+//   Results are cast to the input dtype once at the end. Bound: operations
+//   (about 2.5x the forward's flops); same mma.sync design.
+//
+// Masks are the Pallas kernels' exactly: NEG_INF = -1e30 for masked scores
+// in the forward, p = 0 for masked pairs in the backward, keys and queries
+// beyond T masked (the ragged last tile), sliding window causal only.
+//
+// fp32 instances (the parity checks) run the same tiles with the products
+// done by scalar FMAs in the mma fragment layout, so the softmax code is
+// shared by both types.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+#define NEG_INF (-1e30f)
+
+struct Strides {
+  long long b, h, t;
+};
+
+struct FlashArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;            // forward output; backward input
+  float* lse;         // (B, H, T): forward output; backward input
+  const void* dout;   // backward: dL/do
+  float* delta;       // backward: (B, H, T) scratch, rowsum(do * o) - dlse
+  const float* dlse;  // backward: (B, H, T) cotangent of lse, or null
+  void* dq;
+  void* dk;
+  void* dv;
+  Strides sq, sk, sv, so, sdo, sdq, sdk, sdv;
+  int B, H, T, D, causal, window;
+};
+
+namespace {
+
+constexpr int BQ = 64;  // query rows per CTA
+constexpr int BK = 64;  // key rows per tile
+constexpr int NW = 4;   // warps per CTA, 16 rows each
+constexpr int NT = NW * 32;
+
+typedef __nv_bfloat16 bf16;
+
+template <typename T> __device__ __forceinline__ float to_f(T x);
+template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
+template <> __device__ __forceinline__ float to_f<bf16>(bf16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) { return __float2bfloat16(x); }
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// ------------------------------------------------------- warp tile products
+// C (16 x 8*N8) += A (16 x K) * B. Lane = 4*g + t owns C fragment elements
+// c[n][0..1] at (row g, cols 8n + 2t + {0,1}) and c[n][2..3] at row g + 8
+// (the mma.sync m16n8 accumulator layout). A is row-major [16][lda].
+// mma_nk: B stored [n][k] (k contiguous); mma_kn: B stored [k][n].
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack2(bf16 lo, bf16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
+__device__ __forceinline__ void mma16816(float* c, uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+template <int N8>
+__device__ __forceinline__ void mma_nk(float (&c)[N8][4], const bf16* A, int lda, const bf16* B,
+                                       int ldb, int K) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  for (int k0 = 0; k0 < K; k0 += 16) {
+    const uint32_t a0 = ld32(A + g * lda + k0 + 2 * t);
+    const uint32_t a1 = ld32(A + (g + 8) * lda + k0 + 2 * t);
+    const uint32_t a2 = ld32(A + g * lda + k0 + 8 + 2 * t);
+    const uint32_t a3 = ld32(A + (g + 8) * lda + k0 + 8 + 2 * t);
+#pragma unroll
+    for (int n = 0; n < N8; ++n) {
+      const bf16* bp = B + (n * 8 + g) * ldb + k0 + 2 * t;
+      mma16816(c[n], a0, a1, a2, a3, ld32(bp), ld32(bp + 8));
+    }
+  }
+}
+
+template <int N8>
+__device__ __forceinline__ void mma_kn(float (&c)[N8][4], const bf16* A, int lda, const bf16* B,
+                                       int ldb, int K) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  for (int k0 = 0; k0 < K; k0 += 16) {
+    const uint32_t a0 = ld32(A + g * lda + k0 + 2 * t);
+    const uint32_t a1 = ld32(A + (g + 8) * lda + k0 + 2 * t);
+    const uint32_t a2 = ld32(A + g * lda + k0 + 8 + 2 * t);
+    const uint32_t a3 = ld32(A + (g + 8) * lda + k0 + 8 + 2 * t);
+#pragma unroll
+    for (int n = 0; n < N8; ++n) {
+      const bf16* bp = B + (k0 + 2 * t) * ldb + n * 8 + g;
+      const uint32_t b0 = pack2(bp[0], bp[ldb]);
+      const uint32_t b1 = pack2(bp[8 * ldb], bp[9 * ldb]);
+      mma16816(c[n], a0, a1, a2, a3, b0, b1);
+    }
+  }
+}
+
+template <int N8>
+__device__ __forceinline__ void mma_nk(float (&c)[N8][4], const float* A, int lda, const float* B,
+                                       int ldb, int K) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  for (int k = 0; k < K; ++k) {
+    const float lo = A[g * lda + k], hi = A[(g + 8) * lda + k];
+#pragma unroll
+    for (int n = 0; n < N8; ++n) {
+      const float b0 = B[(n * 8 + 2 * t) * ldb + k], b1 = B[(n * 8 + 2 * t + 1) * ldb + k];
+      c[n][0] = fmaf(lo, b0, c[n][0]);
+      c[n][1] = fmaf(lo, b1, c[n][1]);
+      c[n][2] = fmaf(hi, b0, c[n][2]);
+      c[n][3] = fmaf(hi, b1, c[n][3]);
+    }
+  }
+}
+
+template <int N8>
+__device__ __forceinline__ void mma_kn(float (&c)[N8][4], const float* A, int lda, const float* B,
+                                       int ldb, int K) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  for (int k = 0; k < K; ++k) {
+    const float lo = A[g * lda + k], hi = A[(g + 8) * lda + k];
+#pragma unroll
+    for (int n = 0; n < N8; ++n) {
+      const float b0 = B[k * ldb + n * 8 + 2 * t], b1 = B[k * ldb + n * 8 + 2 * t + 1];
+      c[n][0] = fmaf(lo, b0, c[n][0]);
+      c[n][1] = fmaf(lo, b1, c[n][1]);
+      c[n][2] = fmaf(hi, b0, c[n][2]);
+      c[n][3] = fmaf(hi, b1, c[n][3]);
+    }
+  }
+}
+
+// -------------------------------------------------------------- tile I/O
+
+// rows [row0, row0 + 64) of a strided (T, D) slab into shared [64][ld]; rows
+// at or past T are zero (16-byte vectors; the wrapper guarantees alignment).
+template <typename T, int D>
+__device__ __forceinline__ void load_tile(T* dst, int ld, const T* src, long long st, int row0,
+                                          int T_) {
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int CPR = D / VEC;
+  for (int i = threadIdx.x; i < 64 * CPR; i += NT) {
+    const int r = i / CPR, c = (i - r * CPR) * VEC;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < T_) val = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * st + c);
+    *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
+  }
+}
+
+__device__ __forceinline__ bool pair_ok(int q, int k, int T_, int causal, int window) {
+  bool ok = (k < T_) && (q < T_);
+  if (causal) ok = ok && (k <= q);
+  if (window > 0) ok = ok && (q - k < window);
+  return ok;
+}
+
+// ------------------------------------------------------------------ forward
+
+template <typename T, int D>
+__global__ void __launch_bounds__(NT) flash_fwd_kernel(FlashArgs a) {
+  constexpr int PAD = 16 / sizeof(T);
+  constexpr int LD = D + PAD;
+  constexpr int LP = BK + PAD;
+  constexpr int NTD = D / 8, NTK = BK / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* qs = reinterpret_cast<T*>(smem_raw);  // [BQ][LD]
+  T* ks = qs + BQ * LD;                     // [BK][LD]
+  T* vs = ks + BK * LD;                     // [BK][LD]
+  T* ps = vs + BK * LD;                     // [NW][16][LP]
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // longest causal tiles first
+  const int bh = blockIdx.y, b = bh / a.H, h = bh - b * a.H;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t4 = lane & 3;
+  const int q0 = qt * BQ;
+  const T* qg = reinterpret_cast<const T*>(a.q) + b * a.sq.b + h * a.sq.h;
+  const T* kg = reinterpret_cast<const T*>(a.k) + b * a.sk.b + h * a.sk.h;
+  const T* vg = reinterpret_cast<const T*>(a.v) + b * a.sv.b + h * a.sv.h;
+
+  load_tile<T, D>(qs, LD, qg, a.sq.t, q0, a.T);
+  const int k_hi = a.causal ? min(a.T, q0 + BQ) : a.T;
+  const int k_lo = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
+  const int j_lo = k_lo / BK, j_hi = (k_hi + BK - 1) / BK;
+
+  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float acc[NTD][4];
+#pragma unroll
+  for (int n = 0; n < NTD; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  T* pw = ps + warp * 16 * LP;
+
+  for (int j = j_lo; j < j_hi; ++j) {
+    const int kb0 = j * BK;
+    __syncthreads();
+    load_tile<T, D>(ks, LD, kg, a.sk.t, kb0, a.T);
+    load_tile<T, D>(vs, LD, vg, a.sv.t, kb0, a.T);
+    __syncthreads();
+
+    float s[NTK][4];
+#pragma unroll
+    for (int n = 0; n < NTK; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    mma_nk<NTK>(s, qs + warp * 16 * LD, LD, ks, LD, D);
+
+    const bool full = (kb0 + BK <= a.T) && (!a.causal || kb0 + BK - 1 <= q0) &&
+                      (a.window == 0 || q0 + BQ - 1 - kb0 < a.window);
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int n = 0; n < NTK; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (!full) {
+          const int col = kb0 + n * 8 + 2 * t4 + (e & 1);
+          const int row = (e < 2) ? r0 : r1;
+          bool ok = col < a.T;
+          if (a.causal) ok = ok && (col <= row);
+          if (a.window > 0) ok = ok && (row - col < a.window);
+          if (!ok) s[n][e] = NEG_INF;
+        }
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+      }
+    }
+    float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      alpha[i] = expf(m[i] - m_new);
+      m[i] = m_new;
+    }
+#pragma unroll
+    for (int n = 0; n < NTK; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        const float p = expf(s[n][e] - m[i]);
+        sum[i] += p;
+        pw[(g + 8 * i) * LP + n * 8 + 2 * t4 + (e & 1)] = from_f<T>(p);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
+      l[i] = l[i] * alpha[i] + sum[i];
+    }
+#pragma unroll
+    for (int n = 0; n < NTD; ++n) {
+      acc[n][0] *= alpha[0];
+      acc[n][1] *= alpha[0];
+      acc[n][2] *= alpha[1];
+      acc[n][3] *= alpha[1];
+    }
+    __syncwarp();
+    mma_kn<NTD>(acc, pw, LP, vs, LD, BK);
+    __syncwarp();
+  }
+
+  T* og = reinterpret_cast<T*>(a.o) + b * a.so.b + h * a.so.h;
+  float* lg = a.lse + (long long)bh * a.T;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = i ? r1 : r0;
+    if (row >= a.T) continue;
+    const float inv = 1.f / l[i];
+#pragma unroll
+    for (int n = 0; n < NTD; ++n) {
+      T* op = og + (long long)row * a.so.t + n * 8 + 2 * t4;
+      op[0] = from_f<T>(acc[n][2 * i] * inv);
+      op[1] = from_f<T>(acc[n][2 * i + 1] * inv);
+    }
+    if (t4 == 0) lg[row] = m[i] + logf(l[i]);
+  }
+}
+
+// ----------------------------------------------------------------- backward
+
+template <typename T, int D>
+__global__ void __launch_bounds__(NT) flash_delta_kernel(FlashArgs a, long long rows) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long row = (long long)blockIdx.x * NW + warp;
+  if (row >= rows) return;
+  const int t = (int)(row % a.T);
+  const long long bh = row / a.T;
+  const int b = (int)(bh / a.H), h = (int)(bh % a.H);
+  const T* dp = reinterpret_cast<const T*>(a.dout) + b * a.sdo.b + h * a.sdo.h + t * a.sdo.t;
+  const T* op = reinterpret_cast<const T*>(a.o) + b * a.so.b + h * a.so.h + t * a.so.t;
+  float s = 0.f;
+  for (int e = lane; e < D; e += 32) s += to_f<T>(dp[e]) * to_f<T>(op[e]);
+  s = warp_sum(s);
+  // a cotangent on lse shifts delta by -dlse (flash_attention.py:1251-1254)
+  if (lane == 0) a.delta[row] = a.dlse ? s - a.dlse[row] : s;
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(NT) flash_dkdv_kernel(FlashArgs a) {
+  constexpr int PAD = 16 / sizeof(T);
+  constexpr int LD = D + PAD;
+  constexpr int LP = BQ + PAD;
+  constexpr int NTD = D / 8, NTQ = BQ / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ks = reinterpret_cast<T*>(smem_raw);  // [BK][LD]
+  T* vs = ks + BK * LD;                     // [BK][LD]
+  T* qs = vs + BK * LD;                     // [BQ][LD]
+  T* dos = qs + BQ * LD;                    // [BQ][LD]
+  T* pp = dos + BQ * LD;                    // [NW][16][LP] round(p)^T
+  T* pd = pp + NW * 16 * LP;                // [NW][16][LP] round(ds)^T
+  float* lse_s = reinterpret_cast<float*>(pd + NW * 16 * LP);  // [BQ]
+  float* dl_s = lse_s + BQ;                                    // [BQ]
+
+  const int kt = blockIdx.x, bh = blockIdx.y, b = bh / a.H, h = bh - b * a.H;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t4 = lane & 3;
+  const int k0 = kt * BK;
+  const T* qg = reinterpret_cast<const T*>(a.q) + b * a.sq.b + h * a.sq.h;
+  const T* kg = reinterpret_cast<const T*>(a.k) + b * a.sk.b + h * a.sk.h;
+  const T* vg = reinterpret_cast<const T*>(a.v) + b * a.sv.b + h * a.sv.h;
+  const T* dg = reinterpret_cast<const T*>(a.dout) + b * a.sdo.b + h * a.sdo.h;
+  const float* lg = a.lse + (long long)bh * a.T;
+  const float* delg = a.delta + (long long)bh * a.T;
+
+  load_tile<T, D>(ks, LD, kg, a.sk.t, k0, a.T);
+  load_tile<T, D>(vs, LD, vg, a.sv.t, k0, a.T);
+  const int q_lo = a.causal ? k0 : 0;
+  const int q_hi = a.window > 0 ? min(a.T, k0 + BK - 1 + a.window) : a.T;
+  const int i_lo = q_lo / BQ, i_hi = (q_hi + BQ - 1) / BQ;
+
+  const int kr0 = k0 + warp * 16 + g, kr1 = kr0 + 8;
+  float dk[NTD][4], dv[NTD][4];
+#pragma unroll
+  for (int n = 0; n < NTD; ++n)
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+  T* ppw = pp + warp * 16 * LP;
+  T* pdw = pd + warp * 16 * LP;
+
+  for (int i = i_lo; i < i_hi; ++i) {
+    const int qb0 = i * BQ;
+    __syncthreads();
+    load_tile<T, D>(qs, LD, qg, a.sq.t, qb0, a.T);
+    load_tile<T, D>(dos, LD, dg, a.sdo.t, qb0, a.T);
+    for (int r = threadIdx.x; r < BQ; r += NT) {
+      const bool in = qb0 + r < a.T;
+      lse_s[r] = in ? lg[qb0 + r] : 0.f;
+      dl_s[r] = in ? delg[qb0 + r] : 0.f;
+    }
+    __syncthreads();
+
+    float s[NTQ][4], dp[NTQ][4];
+#pragma unroll
+    for (int n = 0; n < NTQ; ++n)
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+    mma_nk<NTQ>(s, ks + warp * 16 * LD, LD, qs, LD, D);    // S^T [key][query]
+    mma_nk<NTQ>(dp, vs + warp * 16 * LD, LD, dos, LD, D);  // dP^T = V dO^T
+#pragma unroll
+    for (int n = 0; n < NTQ; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ql = n * 8 + 2 * t4 + (e & 1);
+        const int key = (e < 2) ? kr0 : kr1;
+        const float p =
+            pair_ok(qb0 + ql, key, a.T, a.causal, a.window) ? expf(s[n][e] - lse_s[ql]) : 0.f;
+        const float ds = p * (dp[n][e] - dl_s[ql]);
+        const int at = (g + 8 * (e >> 1)) * LP + ql;
+        ppw[at] = from_f<T>(p);
+        pdw[at] = from_f<T>(ds);
+      }
+    }
+    __syncwarp();
+    mma_kn<NTD>(dv, ppw, LP, dos, LD, BQ);
+    mma_kn<NTD>(dk, pdw, LP, qs, LD, BQ);
+    __syncwarp();
+  }
+
+  T* dkg = reinterpret_cast<T*>(a.dk) + b * a.sdk.b + h * a.sdk.h;
+  T* dvg = reinterpret_cast<T*>(a.dv) + b * a.sdv.b + h * a.sdv.h;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = i ? kr1 : kr0;
+    if (key >= a.T) continue;
+#pragma unroll
+    for (int n = 0; n < NTD; ++n) {
+      const int c = n * 8 + 2 * t4;
+      T* kp = dkg + (long long)key * a.sdk.t + c;
+      T* vp = dvg + (long long)key * a.sdv.t + c;
+      kp[0] = from_f<T>(dk[n][2 * i]);
+      kp[1] = from_f<T>(dk[n][2 * i + 1]);
+      vp[0] = from_f<T>(dv[n][2 * i]);
+      vp[1] = from_f<T>(dv[n][2 * i + 1]);
+    }
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(NT) flash_dq_kernel(FlashArgs a) {
+  constexpr int PAD = 16 / sizeof(T);
+  constexpr int LD = D + PAD;
+  constexpr int LP = BK + PAD;
+  constexpr int NTD = D / 8, NTK = BK / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* qs = reinterpret_cast<T*>(smem_raw);  // [BQ][LD]
+  T* dos = qs + BQ * LD;                    // [BQ][LD]
+  T* ks = dos + BQ * LD;                    // [BK][LD]
+  T* vs = ks + BK * LD;                     // [BK][LD]
+  T* pd = vs + BK * LD;                     // [NW][16][LP] round(ds)
+
+  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int bh = blockIdx.y, b = bh / a.H, h = bh - b * a.H;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t4 = lane & 3;
+  const int q0 = qt * BQ;
+  const T* qg = reinterpret_cast<const T*>(a.q) + b * a.sq.b + h * a.sq.h;
+  const T* kg = reinterpret_cast<const T*>(a.k) + b * a.sk.b + h * a.sk.h;
+  const T* vg = reinterpret_cast<const T*>(a.v) + b * a.sv.b + h * a.sv.h;
+  const T* dg = reinterpret_cast<const T*>(a.dout) + b * a.sdo.b + h * a.sdo.h;
+
+  load_tile<T, D>(qs, LD, qg, a.sq.t, q0, a.T);
+  load_tile<T, D>(dos, LD, dg, a.sdo.t, q0, a.T);
+  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
+  float lse_r[2], dl_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = i ? r1 : r0;
+    lse_r[i] = row < a.T ? a.lse[(long long)bh * a.T + row] : 0.f;
+    dl_r[i] = row < a.T ? a.delta[(long long)bh * a.T + row] : 0.f;
+  }
+  const int k_hi = a.causal ? min(a.T, q0 + BQ) : a.T;
+  const int k_lo = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
+  const int j_lo = k_lo / BK, j_hi = (k_hi + BK - 1) / BK;
+
+  float dq[NTD][4];
+#pragma unroll
+  for (int n = 0; n < NTD; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
+  T* pdw = pd + warp * 16 * LP;
+
+  for (int j = j_lo; j < j_hi; ++j) {
+    const int kb0 = j * BK;
+    __syncthreads();
+    load_tile<T, D>(ks, LD, kg, a.sk.t, kb0, a.T);
+    load_tile<T, D>(vs, LD, vg, a.sv.t, kb0, a.T);
+    __syncthreads();
+
+    float s[NTK][4], dp[NTK][4];
+#pragma unroll
+    for (int n = 0; n < NTK; ++n)
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+    mma_nk<NTK>(s, qs + warp * 16 * LD, LD, ks, LD, D);
+    mma_nk<NTK>(dp, dos + warp * 16 * LD, LD, vs, LD, D);
+#pragma unroll
+    for (int n = 0; n < NTK; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        const int kl = n * 8 + 2 * t4 + (e & 1);
+        const int row = i ? r1 : r0;
+        const float p =
+            pair_ok(row, kb0 + kl, a.T, a.causal, a.window) ? expf(s[n][e] - lse_r[i]) : 0.f;
+        pdw[(g + 8 * i) * LP + kl] = from_f<T>(p * (dp[n][e] - dl_r[i]));
+      }
+    }
+    __syncwarp();
+    mma_kn<NTD>(dq, pdw, LP, ks, LD, BK);
+    __syncwarp();
+  }
+
+  T* dqg = reinterpret_cast<T*>(a.dq) + b * a.sdq.b + h * a.sdq.h;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = i ? r1 : r0;
+    if (row >= a.T) continue;
+#pragma unroll
+    for (int n = 0; n < NTD; ++n) {
+      T* qp = dqg + (long long)row * a.sdq.t + n * 8 + 2 * t4;
+      qp[0] = from_f<T>(dq[n][2 * i]);
+      qp[1] = from_f<T>(dq[n][2 * i + 1]);
+    }
+  }
+}
+
+// ----------------------------------------------------------------- launch
+
+template <typename K>
+cudaError_t launch(K kernel, dim3 grid, size_t smem, cudaStream_t s, const FlashArgs& a) {
+  if (smem > 48 * 1024) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<grid, NT, smem, s>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t fwd(const FlashArgs& a, cudaStream_t s) {
+  constexpr int PAD = 16 / sizeof(T);
+  const size_t smem = sizeof(T) * ((size_t)(BQ + 2 * BK) * (D + PAD) + (size_t)NW * 16 * (BK + PAD));
+  const dim3 grid((a.T + BQ - 1) / BQ, a.B * a.H);
+  return launch(flash_fwd_kernel<T, D>, grid, smem, s, a);
+}
+
+template <typename T, int D>
+cudaError_t bwd(const FlashArgs& a, cudaStream_t s) {
+  constexpr int PAD = 16 / sizeof(T);
+  const long long rows = (long long)a.B * a.H * a.T;
+  flash_delta_kernel<T, D><<<(unsigned)((rows + NW - 1) / NW), NT, 0, s>>>(a, rows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t smem_kv = sizeof(T) * ((size_t)(2 * BK + 2 * BQ) * (D + PAD) +
+                                      (size_t)2 * NW * 16 * (BQ + PAD)) +
+                         sizeof(float) * 2 * BQ;
+  err = launch(flash_dkdv_kernel<T, D>, dim3((a.T + BK - 1) / BK, a.B * a.H), smem_kv, s, a);
+  if (err != cudaSuccess) return err;
+  const size_t smem_q =
+      sizeof(T) * ((size_t)(2 * BQ + 2 * BK) * (D + PAD) + (size_t)NW * 16 * (BK + PAD));
+  return launch(flash_dq_kernel<T, D>, dim3((a.T + BQ - 1) / BQ, a.B * a.H), smem_q, s, a);
+}
+
+template <typename T>
+cudaError_t fwd_by_d(const FlashArgs& a, cudaStream_t s) {
+  switch (a.D) {
+    case 32: return fwd<T, 32>(a, s);
+    case 64: return fwd<T, 64>(a, s);
+    case 128: return fwd<T, 128>(a, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+cudaError_t bwd_by_d(const FlashArgs& a, cudaStream_t s) {
+  switch (a.D) {
+    case 32: return bwd<T, 32>(a, s);
+    case 64: return bwd<T, 64>(a, s);
+    case 128: return bwd<T, 128>(a, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+bool bad_args(const FlashArgs* a) {
+  return a == nullptr || a->B <= 0 || a->H <= 0 || a->T <= 0 || a->window < 0 ||
+         (a->window > 0 && !a->causal) || (long long)a->B * a->H > 65535;  // gridDim.y
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = launched).
+extern "C" int flash_fwd_launch(const FlashArgs* a, int dtype, void* stream) {
+  if (bad_args(a)) return cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 1) return fwd_by_d<bf16>(*a, s);
+  if (dtype == 0) return fwd_by_d<float>(*a, s);
+  return cudaErrorInvalidValue;
+}
+
+// Three launches on one stream: delta, dk/dv, dq.
+extern "C" int flash_bwd_launch(const FlashArgs* a, int dtype, void* stream) {
+  if (bad_args(a)) return cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 1) return bwd_by_d<bf16>(*a, s);
+  if (dtype == 0) return bwd_by_d<float>(*a, s);
+  return cudaErrorInvalidValue;
+}

@@ -1,6 +1,10 @@
-from .convert import llama_params_from_numpy
+from .convert import gpt2_params_from_numpy, llama_params_from_numpy
+from .gpt2 import GPT2, GPT2_350M, GPT2_TINY, GPT2Config
+from .gpt2 import PRESETS as GPT2_PRESETS
 from .llama import (LLAMA2_7B, LLAMA_PRESETS, LLAMA_TINY, MISTRAL_7B, Llama,
                     LlamaConfig)
 
-__all__ = ["llama_params_from_numpy", "LLAMA2_7B", "LLAMA_PRESETS",
-           "LLAMA_TINY", "MISTRAL_7B", "Llama", "LlamaConfig"]
+__all__ = ["gpt2_params_from_numpy", "llama_params_from_numpy", "GPT2",
+           "GPT2_350M", "GPT2_TINY", "GPT2Config", "GPT2_PRESETS",
+           "LLAMA2_7B", "LLAMA_PRESETS", "LLAMA_TINY", "MISTRAL_7B", "Llama",
+           "LlamaConfig"]

@@ -1,8 +1,9 @@
-"""Parameter conversion from the JAX package's Llama tree.
+"""Parameter conversion from the JAX package's Llama and GPT-2 trees.
 
-The JAX tree (``jax.tree.map(np.asarray, params)``) and the port's
-``Llama`` state share names and shapes, so conversion is a dtype/device
-move: ``model.load_state_dict(llama_params_from_numpy(tree, dev, dt))``.
+The JAX tree (``jax.tree.map(np.asarray, params)``) and the port's module
+state share names and shapes, so conversion is a dtype/device move:
+``model.load_state_dict(llama_params_from_numpy(tree, dev, dt))`` (or
+``gpt2_params_from_numpy``).
 """
 
 import numpy as np
@@ -10,6 +11,9 @@ import torch
 
 _TOP = ("wte", "norm_f", "lm_head")
 _BLOCKS = ("rms1", "wq", "wk", "wv", "wo", "rms2", "wgate", "wup", "wdown")
+_GPT2_TOP = ("wte", "wpe", "lnf_scale", "lnf_bias")
+_GPT2_BLOCKS = ("ln1_scale", "ln1_bias", "wqkv", "bqkv", "wo", "bo",
+                "ln2_scale", "ln2_bias", "wup", "bup", "wdown", "bdown")
 
 
 def _tensor(a, device, dtype):
@@ -19,17 +23,29 @@ def _tensor(a, device, dtype):
     return torch.from_numpy(np.array(a)).to(device=device, dtype=dtype)
 
 
+def _from_numpy(tree, device, dtype, top, blocks, model):
+    extra = sorted(set(tree) - set(top) - {"blocks"})
+    extra += sorted(f"blocks.{k}" for k in set(tree["blocks"]) - set(blocks))
+    if extra:
+        raise NotImplementedError(
+            f"parameters the port's {model} does not carry: {extra}")
+    state = {k: _tensor(tree[k], device, dtype) for k in top if k in tree}
+    for k, v in tree["blocks"].items():
+        state[f"blocks.{k}"] = _tensor(v, device, dtype)
+    return state
+
+
 def llama_params_from_numpy(tree, device, dtype):
     """JAX Llama parameter tree of numpy arrays -> the port's state dict
     (``wte``, ``norm_f``, ``lm_head``, ``blocks.<name>``) on ``device`` in
     ``dtype``. Raises on keys the port's Llama does not carry (biases,
     LayerNorm biases, embedding norm, quantized leaves)."""
-    extra = sorted(set(tree) - set(_TOP) - {"blocks"})
-    extra += sorted(f"blocks.{k}" for k in set(tree["blocks"]) - set(_BLOCKS))
-    if extra:
-        raise NotImplementedError(
-            f"parameters the port's Llama does not carry: {extra}")
-    state = {k: _tensor(tree[k], device, dtype) for k in _TOP if k in tree}
-    for k, v in tree["blocks"].items():
-        state[f"blocks.{k}"] = _tensor(v, device, dtype)
-    return state
+    return _from_numpy(tree, device, dtype, _TOP, _BLOCKS, "Llama")
+
+
+def gpt2_params_from_numpy(tree, device, dtype):
+    """JAX GPT-2 parameter tree of numpy arrays -> the port's state dict
+    (``wte``, ``wpe``, ``lnf_*``, ``blocks.<name>``) on ``device`` in
+    ``dtype``, with no renames or transposes. Raises on keys the port's
+    GPT2 does not carry (MoE experts, quantized leaves)."""
+    return _from_numpy(tree, device, dtype, _GPT2_TOP, _GPT2_BLOCKS, "GPT2")

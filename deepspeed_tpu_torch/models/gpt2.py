@@ -1,0 +1,395 @@
+"""GPT-2 model family for training.
+
+Counterpart of ``deepspeed_tpu/models/gpt2.py`` (training surface: the
+config and presets, ``embed``, ``head``, the blocks, the dense MLP and
+``loss`` with its chunked and fused cross-entropy heads). Parameter names
+and shapes are the JAX package's, so weights move between the two through
+numpy with no renaming or transposes (``convert.gpt2_params_from_numpy``):
+
+  wte (V, D) | wpe (T, D) | lnf_{scale,bias} (D,)
+  blocks: ln1_{scale,bias} (L, D), wqkv (L, D, 3D), bqkv (L, 3D),
+          wo (L, D, D), bo (L, D), ln2_{scale,bias} (L, D),
+          wup (L, D, F), bup (L, F), wdown (L, F, D), bdown (L, D)
+                                                 — projections are ``x @ W``
+
+LayerNorm statistics and the logits are fp32, as in the JAX model;
+activations run in the parameters' dtype. Attention goes through the
+Hopper flash kernels (ops/cuda/flash_attention.py) when
+``use_flash_attention`` resolves on, else the dense path; the loss head
+through the fused CE kernel when ``fused_loss_kernel``.
+"""
+
+import math
+from dataclasses import dataclass
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from ..ops.cuda.flash_attention import (flash_attention, flash_backward,
+                                        flash_forward, scale_q)
+from ..utils.device import resolve_device
+from .common import (chunked_softmax_xent, fused_linear_xent,
+                     fused_linear_xent_kernel, mm_f32, next_token_xent,
+                     resolve_flash, resolve_remat_policy)
+
+
+@dataclass(frozen=True)
+class GPT2Config:
+    """Every field of the JAX ``GPT2Config`` (gpt2.py:42-150); the ones this
+    port does not carry raise in ``GPT2`` (see ``_unsupported``). The flash
+    tile knobs are accepted and change nothing."""
+    vocab_size: int = 50304
+    max_seq_len: int = 1024
+    n_layer: int = 12
+    n_head: int = 12
+    d_model: int = 768
+    dropout: float = 0.0
+    dtype: str = "bfloat16"
+    remat: bool = True
+    remat_policy: str = "nothing_saveable"
+    use_flash_attention: object = "auto"
+    flash_block_q: object = 128
+    flash_block_k: object = 128
+    flash_block_h: object = 2
+    flash_block_q_bwd: object = 0
+    flash_block_k_bwd: object = 0
+    flash_qkv_t: bool = True
+    attention_backend: str = "dense"
+    pipe_microbatches: int = 0
+    pipe_schedule: str = "gpipe"
+    loss_chunk: int = 0
+    fused_loss: bool = False
+    fused_loss_kernel: bool = False
+    scan_unroll: int = 1
+    activation: str = "gelu"
+    scale_attn: bool = True
+    attn_layer_windows: tuple = ()
+    mlp_kernel: object = False
+    mlp_kernel_fuse_dw: bool = True
+    flash_bwd_qmajor: object = False
+    fused_layernorm: object = False
+
+    @property
+    def d_head(self):
+        return self.d_model // self.n_head
+
+    @property
+    def d_ff(self):
+        return 4 * self.d_model
+
+    def num_params(self):
+        wte = self.vocab_size * self.d_model
+        wpe = self.max_seq_len * self.d_model
+        block = (4 * self.d_model
+                 + self.d_model * 3 * self.d_model + 3 * self.d_model
+                 + self.d_model * self.d_model + self.d_model
+                 + 2 * self.d_model * self.d_ff + self.d_ff + self.d_model)
+        return wte + wpe + self.n_layer * block + 2 * self.d_model
+
+    def flops_per_token(self):
+        """6*N + attention flops per token (training fwd+bwd)."""
+        n = self.num_params() - self.vocab_size * self.d_model
+        return 6 * n + 12 * self.n_layer * self.d_model * self.max_seq_len
+
+
+GPT2_TINY = GPT2Config(n_layer=2, n_head=4, d_model=128, max_seq_len=128,
+                       vocab_size=1024)
+GPT2_125M = GPT2Config(n_layer=12, n_head=12, d_model=768)
+GPT2_350M = GPT2Config(n_layer=24, n_head=16, d_model=1024)
+GPT2_1_3B = GPT2Config(n_layer=24, n_head=32, d_model=2048)
+GPT2_13B = GPT2Config(n_layer=40, n_head=40, d_model=5120,
+                      max_seq_len=2048)
+
+PRESETS = {"tiny": GPT2_TINY, "125M": GPT2_125M, "350M": GPT2_350M,
+           "1.3B": GPT2_1_3B, "13B": GPT2_13B}
+
+BLOCK_KEYS = ("ln1_scale", "ln1_bias", "wqkv", "bqkv", "wo", "bo",
+              "ln2_scale", "ln2_bias", "wup", "bup", "wdown", "bdown")
+_PRE = slice(0, 4)     # ln1 + qkv
+_WO = slice(4, 6)      # output projection
+_POST = slice(6, 12)   # ln2 + MLP
+
+_TODO = {
+    "dropout": "(ROADMAP Queue 1, M2: dropout)",
+    "attn_layer_windows": "(ROADMAP Queue 1, M2: per-layer windows)",
+    "mlp_kernel": "(ROADMAP Queue 2, K6)",
+    "fused_layernorm": "(ROADMAP Queue 2, K13)",
+    "ring": "(ROADMAP Queue 1, M12)",
+    "ltd": "(ROADMAP Queue 1, M14: random-LTD)",
+    "seq": "(ROADMAP Queue 1, M12: sequence parallelism)",
+}
+
+
+def _unsupported(cfg):
+    out = []
+    if cfg.dropout > 0:
+        out.append(("dropout > 0", _TODO["dropout"]))
+    if cfg.attn_layer_windows:
+        out.append(("attn_layer_windows", _TODO["attn_layer_windows"]))
+    if cfg.mlp_kernel:
+        out.append(("mlp_kernel", _TODO["mlp_kernel"]))
+    if cfg.fused_layernorm:
+        out.append(("fused_layernorm", _TODO["fused_layernorm"]))
+    if cfg.attention_backend == "ring":
+        out.append(("attention_backend='ring'", _TODO["ring"]))
+    return out
+
+
+def layernorm(x, scale, bias, eps=1e-5):
+    """LayerNorm with fp32 statistics (own copy of the JAX ``_ln_jnp``)."""
+    x32 = x.float()
+    mu = x32.mean(-1, keepdim=True)
+    var = (x32 - mu).square().mean(-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
+
+
+_ACTS = {"gelu": lambda u: F.gelu(u, approximate="tanh"), "relu": F.relu}
+
+
+class GPT2(nn.Module):
+    """Training-side GPT-2. ``device`` defaults to the card (raises without
+    one); ``dtype`` defaults to ``config.dtype``; weights are random from a
+    ``torch.Generator`` seeded with ``seed`` (load real or converted weights
+    with ``load_state_dict``). ``loss(batch)`` is the JAX ``loss`` over the
+    module's own parameters."""
+
+    def __init__(self, config: GPT2Config, device=None, dtype=None, seed=0):
+        super().__init__()
+        bad = _unsupported(config)
+        if bad:
+            raise NotImplementedError(
+                "GPT2 port does not carry "
+                + ", ".join(f"{what} {item}" for what, item in bad))
+        if config.activation not in _ACTS:
+            raise ValueError(f"unknown activation {config.activation!r}; "
+                             f"expected one of {sorted(_ACTS)}")
+        if config.flash_bwd_qmajor is True:
+            raise NotImplementedError(
+                "flash_bwd_qmajor is not ported yet (ROADMAP Queue 2, "
+                "K2-qmajor)")
+        if config.remat:
+            resolve_remat_policy(config.remat_policy)
+        self.config = config
+        dev = resolve_device(device)
+        dt = dtype if dtype is not None else getattr(torch, config.dtype)
+        L, D, Fd, V, T = (config.n_layer, config.d_model, config.d_ff,
+                          config.vocab_size, config.max_seq_len)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        std = 0.02
+        res_std = std / math.sqrt(2 * L)
+
+        def nrm(shape, s=std):
+            out = torch.empty(shape, dtype=dt, device=dev)
+            for i in range(shape[0]):
+                out[i].copy_(torch.randn(shape[1:], generator=gen,
+                                         device=dev) * s)
+            return nn.Parameter(out)
+
+        def const(shape, value):
+            return nn.Parameter(torch.full(shape, value, dtype=dt,
+                                           device=dev))
+
+        self.wte = nrm((V, D))
+        self.wpe = nrm((T, D))
+        self.lnf_scale = const((D,), 1.0)
+        self.lnf_bias = const((D,), 0.0)
+        self.blocks = nn.ParameterDict({
+            "ln1_scale": const((L, D), 1.0),
+            "ln1_bias": const((L, D), 0.0),
+            "wqkv": nrm((L, D, 3 * D)),
+            "bqkv": const((L, 3 * D), 0.0),
+            "wo": nrm((L, D, D), res_std),
+            "bo": const((L, D), 0.0),
+            "ln2_scale": const((L, D), 1.0),
+            "ln2_bias": const((L, D), 0.0),
+            "wup": nrm((L, D, Fd)),
+            "bup": const((L, Fd), 0.0),
+            "wdown": nrm((L, Fd, D), res_std),
+            "bdown": const((L, D), 0.0),
+        })
+
+    @property
+    def dtype(self):
+        return self.wte.dtype
+
+    @property
+    def device(self):
+        return self.wte.device
+
+    @property
+    def flash_on(self):
+        """Resolved use_flash_attention ("auto": on for a CUDA model)."""
+        return resolve_flash(self.config.use_flash_attention, self.device)
+
+    # --------------------------------------------------------------- pieces
+    def embed(self, ids):
+        """Token + position embedding (B, T) -> (B, T, D)."""
+        T = ids.shape[1]
+        x = F.embedding(ids.long(), self.wte) + self.wpe[:T]
+        return x.to(self.dtype)
+
+    def head(self, x):
+        """Final LN + tied-embedding unembed: (B, T, D) -> fp32 logits."""
+        return self._head([self.wte, self.lnf_scale, self.lnf_bias], x)
+
+    @staticmethod
+    def _head(ps, x):
+        wte, scale, bias = ps
+        h = layernorm(x, scale, bias)
+        lead = h.shape[:-1]
+        return mm_f32(h.reshape(-1, h.shape[-1]), wte.t()).reshape(
+            *lead, wte.shape[0])
+
+    def _qkv(self, x, ln1_scale, ln1_bias, wqkv, bqkv):
+        """ln1 + qkv projection: (B, T, D) -> q, k, v each (B, T, H, hd)
+        (views of one projection)."""
+        cfg = self.config
+        B, T = x.shape[0], x.shape[1]
+        h = layernorm(x, ln1_scale, ln1_bias)
+        qkv = h @ wqkv + bqkv
+        return qkv.view(B, T, 3, cfg.n_head, cfg.d_head).unbind(2)
+
+    def _attn(self, q, k, v):
+        """Attention dispatch: (B, T, H, hd) x3 -> (B, T, H, hd)."""
+        cfg = self.config
+        if self.flash_on:
+            return flash_attention(
+                q, k, v, causal=True,
+                scale=None if cfg.scale_attn else 1.0,
+                block_q=cfg.flash_block_q, block_k=cfg.flash_block_k,
+                block_h=cfg.flash_block_h).to(self.dtype)
+        T = q.shape[1]
+        s = torch.einsum("bthd,bshd->bhts", q.float(), k.float())
+        if cfg.scale_attn:
+            s = s / math.sqrt(cfg.d_head)
+        causal = torch.ones(T, T, dtype=torch.bool, device=q.device).tril()
+        s = torch.where(causal, s, -1e30)
+        probs = torch.softmax(s, dim=-1).to(self.dtype)
+        return torch.einsum("bhts,bshd->bthd", probs, v)
+
+    def _mlp(self, x, ln2_scale, ln2_bias, wup, bup, wdown, bdown):
+        h = layernorm(x, ln2_scale, ln2_bias)
+        up = _ACTS[self.config.activation](h @ wup + bup)
+        return up @ wdown + bdown
+
+    def _block(self, x, *layer):
+        """One transformer block: (B, T, D) -> (B, T, D)."""
+        B, T, D = x.shape
+        q, k, v = self._qkv(x, *layer[_PRE])
+        attn = self._attn(q, k, v)
+        wo, bo = layer[_WO]
+        mid = x + attn.reshape(B, T, D) @ wo + bo
+        return mid + self._mlp(mid, *layer[_POST])
+
+    def hidden(self, ids):
+        """Embedding + blocks: (B, T) -> (B, T, D) (no final LN)."""
+        cfg = self.config
+        x = self.embed(ids)
+        layers = [p.unbind(0) for p in
+                  (self.blocks[k] for k in BLOCK_KEYS)]
+        policy = resolve_remat_policy(cfg.remat_policy) if cfg.remat \
+            else None
+        for i in range(cfg.n_layer):
+            layer = [t[i] for t in layers]
+            if policy == "save_flash" and self.flash_on:
+                x = _SaveFlashBlock.apply(self, x, *layer)
+            elif policy is not None:
+                x = checkpoint(self._block, x, *layer, use_reentrant=False)
+            else:
+                x = self._block(x, *layer)
+        return x
+
+    def logits(self, ids):
+        """Logits (B, T, V) fp32 (the JAX ``apply``)."""
+        return self.head(self.hidden(ids))
+
+    # ------------------------------------------------------------------ loss
+    def loss(self, batch, *, rng=None, train=True, seq_sharded=False,
+             ltd_keep=None):
+        """Next-token cross entropy. batch: {"input_ids": (B, T) int}."""
+        if seq_sharded:
+            raise NotImplementedError(f"seq_sharded {_TODO['seq']}")
+        if ltd_keep is not None:
+            raise NotImplementedError(f"ltd_keep {_TODO['ltd']}")
+        ids = batch["input_ids"]
+        if not torch.is_tensor(ids):
+            ids = torch.as_tensor(ids)
+        ids = ids.to(self.device)
+        cfg = self.config
+        T = ids.shape[1]
+        chunk = cfg.loss_chunk
+        x = self.hidden(ids)
+        if chunk and T - 1 > chunk:
+            return self._chunked_head_loss(x[:, :-1], ids[:, 1:], chunk)
+        return next_token_xent(self.head(x), ids)
+
+    def _chunked_head_loss(self, hidden, targets, chunk):
+        """The big-vocab head: fused grad-in-forward CE when
+        cfg.fused_loss (over the fused CE kernel with
+        cfg.fused_loss_kernel), else the recomputed chunked path."""
+        cfg = self.config
+        if cfg.fused_loss and cfg.fused_loss_kernel:
+            return fused_linear_xent_kernel(
+                lambda ps, x: layernorm(x, ps[0], ps[1]), chunk,
+                {"lnf_scale": self.lnf_scale, "lnf_bias": self.lnf_bias},
+                self.wte, hidden, targets)
+        if cfg.fused_loss:
+            return fused_linear_xent(
+                self._head, chunk,
+                {"wte": self.wte, "lnf_scale": self.lnf_scale,
+                 "lnf_bias": self.lnf_bias}, hidden, targets)
+        return chunked_softmax_xent(self.head, hidden, targets, chunk)
+
+
+class _SaveFlashBlock(torch.autograd.Function):
+    """One block under the save_flash policy: keeps the block input, the
+    post-attention residual ``mid`` and the flash o/lse; backward recomputes
+    ln1 + qkv and ln2 + MLP and runs the fused flash backward on the saved
+    o/lse — the flash forward never runs again."""
+
+    @staticmethod
+    def forward(ctx, model, x, *layer):
+        cfg = model.config
+        B, T, D = x.shape
+        scale = 1.0 / math.sqrt(cfg.d_head) if cfg.scale_attn else 1.0
+        q, k, v = (t.transpose(1, 2) for t in model._qkv(x, *layer[_PRE]))
+        o, lse = flash_forward(scale_q(q, scale), k, v, causal=True)
+        o = o.transpose(1, 2).to(x.dtype)            # (B, T, H, hd)
+        wo, bo = layer[_WO]
+        mid = x + o.reshape(B, T, D) @ wo + bo
+        out = mid + model._mlp(mid, *layer[_POST])
+        ctx.model, ctx.scale = model, scale
+        ctx.save_for_backward(x, mid, o, lse, *layer)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        model, scale = ctx.model, ctx.scale
+        x, mid, o, lse, *layer = ctx.saved_tensors
+        B, T, D = x.shape
+        with torch.enable_grad():
+            mid_ = mid.detach().requires_grad_()
+            post = [p.detach().requires_grad_() for p in layer[_POST]]
+            out = mid_ + model._mlp(mid_, *post)
+            g_mid, *d_post = torch.autograd.grad(out, [mid_] + post, g)
+        wo, _ = layer[_WO]
+        g2 = g_mid.reshape(-1, D)
+        d_wo = o.reshape(-1, D).t() @ g2
+        d_bo = g2.sum(0)
+        d_o = (g2 @ wo.t()).view_as(o)
+        with torch.enable_grad():
+            x_ = x.detach().requires_grad_()
+            pre = [p.detach().requires_grad_() for p in layer[_PRE]]
+            q, k, v = (t.transpose(1, 2) for t in model._qkv(x_, *pre))
+            qs = scale_q(q, scale)
+            dqs, dk, dv = flash_backward(
+                qs.detach(), k.detach(), v.detach(), o.transpose(1, 2), lse,
+                d_o.transpose(1, 2), causal=True)
+            d_x, *d_pre = torch.autograd.grad([qs, k, v], [x_] + pre,
+                                              [dqs, dk, dv])
+        return (None, d_x + g_mid, *d_pre, d_wo, d_bo.to(layer[5].dtype),
+                *d_post)

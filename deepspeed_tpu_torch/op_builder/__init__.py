@@ -1,3 +1,5 @@
-from .builder import CUDAOpBuilder, PagedAttentionBuilder
+from .builder import (CUDAOpBuilder, FlashAttentionBuilder, FusedCEBuilder,
+                      PagedAttentionBuilder, build_all)
 
-__all__ = ["CUDAOpBuilder", "PagedAttentionBuilder"]
+__all__ = ["CUDAOpBuilder", "FlashAttentionBuilder", "FusedCEBuilder",
+           "PagedAttentionBuilder", "build_all"]

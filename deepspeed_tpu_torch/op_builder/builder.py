@@ -61,31 +61,46 @@ class CUDAOpBuilder:
     def so_path(self):
         return os.path.join(BUILD_DIR, f"{self.NAME}-{self.build_hash()}.so")
 
-    def build(self):
-        """Compile (if the content-addressed library is missing); returns
-        its path."""
+    def start_build(self):
+        """Start nvcc on this op's sources unless the content-addressed
+        library exists; returns the running process, or None when there is
+        nothing to build."""
         so = self.so_path()
         if os.path.exists(so):
-            return so
+            return None
         nvcc = find_nvcc()
         if nvcc is None:
             raise RuntimeError(
                 f"cannot build CUDA op '{self.NAME}': nvcc not found "
                 f"(PATH or /usr/local/cuda/bin)")
         os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{so}.{os.getpid()}.tmp"
-        cmd = [nvcc] + NVCC_FLAGS + self.absolute_sources() + ["-o", tmp]
+        self._tmp = f"{so}.{os.getpid()}.tmp"
+        cmd = [nvcc] + NVCC_FLAGS + self.absolute_sources() + ["-o", self._tmp]
         logger.info(f"building CUDA op '{self.NAME}': {' '.join(cmd)}")
-        t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        self.build_seconds = time.perf_counter() - t0
-        self.build_log = res.stderr
-        if res.returncode != 0:
+        self._t0 = time.perf_counter()
+        return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+
+    def finish_build(self, proc):
+        """Wait for ``proc`` (from start_build) and install the library;
+        returns its path."""
+        so = self.so_path()
+        if proc is None:
+            return so
+        out, err = proc.communicate()
+        self.build_seconds = time.perf_counter() - self._t0
+        self.build_log = err
+        if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed for op '{self.NAME}' (rc={res.returncode}):\n"
-                f"{res.stdout}\n{res.stderr}")
-        os.replace(tmp, so)
+                f"nvcc failed for op '{self.NAME}' (rc={proc.returncode}):\n"
+                f"{out}\n{err}")
+        os.replace(self._tmp, so)
         return so
+
+    def build(self):
+        """Compile (if the content-addressed library is missing); returns
+        its path."""
+        return self.finish_build(self.start_build())
 
     def load(self):
         """Build if needed and return the loaded ctypes CDLL."""
@@ -98,3 +113,31 @@ class PagedAttentionBuilder(CUDAOpBuilder):
     NAME = "paged_attention"
     SOURCES = ("paged_attention.cu",)
 
+
+class FlashAttentionBuilder(CUDAOpBuilder):
+    NAME = "flash_attention"
+    SOURCES = ("flash_attention.cu",)
+
+
+class FusedCEBuilder(CUDAOpBuilder):
+    NAME = "fused_ce"
+    SOURCES = ("fused_ce.cu",)
+
+
+def build_all(builders):
+    """Build every builder's library with one nvcc per source, all started
+    together, and wait for all of them; a failed build raises after every
+    process has ended."""
+    procs = []
+    try:
+        for b in builders:
+            procs.append((b, b.start_build()))
+    finally:
+        errors = []
+        for b, p in procs:
+            try:
+                b.finish_build(p)
+            except RuntimeError as e:
+                errors.append(e)
+    if errors:
+        raise errors[0]

@@ -1,0 +1,331 @@
+"""Flash attention (online softmax, fused backward): Hopper CUDA kernels and
+their plain versions.
+
+Counterpart of ``deepspeed_tpu/ops/pallas/flash_attention.py`` (K1 forward,
+K2 fused backward); the kernels are ``csrc/flash_attention.cu`` (design and
+bounds are noted there). Same public signatures and layouts as the JAX
+functions: q, k, v (B, T, H, d), or (B, H, T, d) with ``heads_major``, or
+(B, H, d, T) with ``qkv_t``; o comes back in the input layout and lse is
+(B, H, T) fp32. The softmax scale is folded into q outside the kernel in
+q's dtype, as the JAX wrapper does, so autograd chains dq through it.
+
+Dispatch is by the tensor's device only: a CPU tensor takes the plain
+PyTorch version (``flash_forward_reference`` / ``flash_backward_reference``);
+a CUDA tensor launches the kernel or raises — there is no fallback.
+``LAUNCHES`` counts kernel launches: ``flash_fwd`` one per forward,
+``flash_bwd`` one per backward call (its three kernels: delta, dk/dv, dq).
+
+The TPU tile knobs (block_q/k/h and their _bwd twins) are accepted and
+change nothing. Additive ``bias`` and ``alibi`` operands, ``bias_grad`` and
+the query-major backward raise, naming their ROADMAP items.
+"""
+
+import ctypes
+import math
+
+import torch
+
+NEG_INF = -1e30
+
+LAUNCHES = {"flash_fwd": 0, "flash_bwd": 0}
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD_DIMS = (32, 64, 128)
+_TODO_BIAS = "(ROADMAP Queue 2, K1/K2: bias and ALiBi operands)"
+_TODO_QMAJOR = "(ROADMAP Queue 2, K2-qmajor)"
+
+
+def reset_launch_counts():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+class _Strides(ctypes.Structure):
+    _fields_ = [("b", ctypes.c_longlong), ("h", ctypes.c_longlong),
+                ("t", ctypes.c_longlong)]
+
+
+class _FlashArgs(ctypes.Structure):
+    """Mirror of ``struct FlashArgs`` in csrc/flash_attention.cu."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in
+                 ("q", "k", "v", "o", "lse", "dout", "delta", "dlse", "dq",
+                  "dk", "dv")]
+                + [(n, _Strides) for n in
+                   ("sq", "sk", "sv", "so", "sdo", "sdq", "sdk", "sdv")]
+                + [(n, ctypes.c_int) for n in
+                   ("B", "H", "T", "D", "causal", "window")])
+
+
+_builder = None
+
+
+def kernel_builder():
+    """The flash-attention library's builder; the first call builds the
+    library (nvcc, see op_builder) and binds its ctypes signatures."""
+    global _builder
+    if _builder is None:
+        from ...op_builder.builder import FlashAttentionBuilder
+        b = FlashAttentionBuilder()
+        lib = b.load()
+        for fn in (lib.flash_fwd_launch, lib.flash_bwd_launch):
+            fn.argtypes = [ctypes.POINTER(_FlashArgs), ctypes.c_int,
+                           ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        _builder = b
+    return _builder
+
+
+# ------------------------------------------------------------------ plain
+
+
+def _mask(T, causal, window, device):
+    """(T, T) bool: query row i may attend key column j."""
+    i = torch.arange(T, device=device)[:, None]
+    j = torch.arange(T, device=device)[None, :]
+    ok = torch.ones(T, T, dtype=torch.bool, device=device)
+    if causal:
+        ok = ok & (j <= i)
+    if window:
+        ok = ok & (i - j < window)
+    return ok
+
+
+def flash_forward_reference(q, k, v, *, causal=True, window=0):
+    """Plain version of the forward kernel on (B, H, T, d) operands with the
+    scale already in q: fp32 scores, masked to NEG_INF, p rounded to v's
+    dtype before P.V and l summed from the unrounded p. Returns (o in q's
+    dtype, lse (B, H, T) fp32)."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    s = torch.where(_mask(q.shape[2], causal, window, q.device), s, NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    o = torch.matmul(p.to(v.dtype).float(), v.float()) / l
+    return o.to(q.dtype), (m + torch.log(l))[..., 0]
+
+
+def flash_backward_reference(q, k, v, o, lse, do, *, causal=True, window=0,
+                             dlse=None):
+    """Plain version of the fused backward on (B, H, T, d) operands (scale
+    already in q): p = exp(s - lse) (0 where masked), delta = rowsum(do*o)
+    (- dlse), dv = round(p)^T do, ds = p (dp - delta), dk = round(ds)^T q,
+    dq = round(ds) k, all accumulated in fp32 and cast to the inputs'
+    dtypes."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    ok = _mask(q.shape[2], causal, window, q.device)
+    p = torch.where(ok, torch.exp(s - lse[..., None]), 0.0)
+    delta = (do.float() * o.float()).sum(-1)
+    if dlse is not None:
+        delta = delta - dlse.float()
+    dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), do.float())
+    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    ds = (p * (dp - delta[..., None])).to(q.dtype).float()
+    dk = torch.matmul(ds.transpose(-1, -2), q.float())
+    dq = torch.matmul(ds, k.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def attention_reference(q, k, v, *, causal=True, scale=None, bias=None):
+    """Dense reference (own copy of the JAX ``attention_reference``): q, k, v
+    (B, T, H, d); fp32 scores times ``scale``, plus ``bias`` (B|1, H|1, T|1,
+    T) before the causal mask; p rounded to q's dtype before P.V."""
+    B, T, H, d = q.shape
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    s = torch.einsum("bthd,bshd->bhts", q.float(), k.float()) * scale
+    if bias is not None:
+        s = s + bias.float()
+    if causal:
+        s = torch.where(_mask(T, True, 0, q.device), s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhts,bshd->bthd", p.to(q.dtype), v)
+
+
+# ----------------------------------------------------------------- kernels
+
+
+def _check_cuda(tensors, name):
+    dev = tensors[0].device
+    dt = tensors[0].dtype
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name}: every operand must be on {dev}, got "
+                             f"one on {t.device}")
+        if t.dtype != dt:
+            raise TypeError(f"{name}: q, k, v (and o, do) must share a "
+                            f"dtype, got {dt} and {t.dtype}")
+    if dt not in _DTYPE_CODE:
+        raise TypeError(f"{name}: kernel takes float32 or bfloat16, got {dt}")
+    if tensors[0].shape[-1] not in _HEAD_DIMS:
+        raise ValueError(f"{name}: kernel takes head dim in {_HEAD_DIMS}, "
+                         f"got {tensors[0].shape[-1]}")
+
+
+def _kernel_view(x):
+    """x (B, H, T, d) as the kernel reads it: head dim contiguous, 16-byte
+    aligned base and (b, h, t) strides (else a contiguous copy)."""
+    vec = 16 // x.element_size()
+    if (x.stride(-1) != 1 or x.data_ptr() % 16
+            or any(s % vec for s in x.stride()[:3])):
+        x = x.contiguous()
+    return x
+
+
+def _strides(x):
+    return _Strides(*x.stride()[:3])
+
+
+def _args(B, H, T, D, causal, window, **tensors):
+    a = _FlashArgs()
+    a.B, a.H, a.T, a.D = B, H, T, D
+    a.causal, a.window = int(bool(causal)), int(window)
+    for name, t in tensors.items():
+        if t is None:
+            continue
+        setattr(a, name, t.data_ptr())
+        skey = {"q": "sq", "k": "sk", "v": "sv", "o": "so", "dout": "sdo",
+                "dq": "sdq", "dk": "sdk", "dv": "sdv"}.get(name)
+        if skey:
+            setattr(a, skey, _strides(t))
+    return a
+
+
+def _raise_on(rc, name):
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+
+
+def flash_forward(q, k, v, *, causal=True, window=0):
+    """Forward on (B, H, T, d) operands with the scale already in q (any
+    strides with the head dim contiguous). Returns (o laid out like q,
+    lse (B, H, T) fp32). CPU tensors take the plain version; CUDA tensors
+    launch the kernel or raise."""
+    if q.device.type == "cpu":
+        return flash_forward_reference(q, k, v, causal=causal, window=window)
+    name = "flash_forward"
+    _check_cuda((q, k, v), name)
+    q, k, v = (_kernel_view(x) for x in (q, k, v))
+    B, H, T, D = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty(B, H, T, dtype=torch.float32, device=q.device)
+    a = _args(B, H, T, D, causal, window, q=q, k=k, v=v, o=o, lse=lse)
+    rc = kernel_builder().load().flash_fwd_launch(
+        ctypes.byref(a), _DTYPE_CODE[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(rc, name)
+    LAUNCHES["flash_fwd"] += 1
+    return o, lse
+
+
+def flash_backward(q, k, v, o, lse, do, *, causal=True, window=0,
+                   dlse=None):
+    """Fused backward on (B, H, T, d) operands (scale already in q) from the
+    saved o and lse; ``dlse`` is an optional cotangent on lse. Returns
+    (dq, dk, dv) in the inputs' dtypes. CPU tensors take the plain version;
+    CUDA tensors launch the kernels (delta, dk/dv, dq) or raise."""
+    if q.device.type == "cpu":
+        return flash_backward_reference(q, k, v, o, lse, do, causal=causal,
+                                        window=window, dlse=dlse)
+    name = "flash_backward"
+    _check_cuda((q, k, v, o, do), name)
+    q, k, v, o, do = (_kernel_view(x) for x in (q, k, v, o, do))
+    B, H, T, D = q.shape
+    lse = lse.float().contiguous()
+    dlse = None if dlse is None else dlse.float().contiguous()
+    delta = torch.empty(B, H, T, dtype=torch.float32, device=q.device)
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    a = _args(B, H, T, D, causal, window, q=q, k=k, v=v, o=o, lse=lse,
+              dout=do, delta=delta, dlse=dlse, dq=dq, dk=dk, dv=dv)
+    rc = kernel_builder().load().flash_bwd_launch(
+        ctypes.byref(a), _DTYPE_CODE[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(rc, name)
+    LAUNCHES["flash_bwd"] += 1
+    return dq, dk, dv
+
+
+class _Flash(torch.autograd.Function):
+    """(q scaled, k, v) (B, H, T, d) -> (o, lse); saves q, k, v, o and lse
+    and runs the fused backward kernel on them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        o, lse = flash_forward(q, k, v, causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.window = causal, window
+        ctx.set_materialize_grads(False)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        if do is None:
+            do = torch.zeros_like(o)
+        dq, dk, dv = flash_backward(q, k, v, o, lse, do, causal=ctx.causal,
+                                    window=ctx.window, dlse=dlse)
+        return dq, dk, dv, None, None
+
+
+def scale_q(q, scale):
+    """q * scale with the scale rounded to q's dtype first, as the JAX
+    wrapper's ``q * jnp.asarray(scale, q.dtype)``."""
+    return q * torch.tensor(scale, dtype=q.dtype, device=q.device)
+
+
+def _to_bhtd(x, heads_major, qkv_t):
+    if qkv_t:
+        return x.transpose(-1, -2)          # (B, H, d, T) -> (B, H, T, d)
+    return x if heads_major else x.transpose(1, 2)
+
+
+def flash_attention_with_lse(q, k, v, *, causal=True, scale=None,
+                             block_q=128, block_k=128, block_h=2,
+                             interpret=None, heads_major=False,
+                             block_q_bwd=None, block_k_bwd=None, qkv_t=False,
+                             window=0, bias=None, bias_grad=False,
+                             alibi=None, alibi_scale=1.0, alibi_bf16=False,
+                             bwd_qmajor=False):
+    """Fused attention returning ``(o, lse)``; lse is the per-query
+    logsumexp (B, H, T) fp32 and is differentiable (its cotangent shifts
+    delta). Layouts as the JAX function: (B, T, H, d) by default, (B, H, T,
+    d) with ``heads_major``, (B, H, d, T) with ``qkv_t`` (o then comes back
+    (B, H, T, d), as in JAX). ``window`` > 0 is causal sliding-window
+    attention."""
+    if bias is not None or bias_grad or alibi is not None:
+        raise NotImplementedError(
+            f"flash_attention: additive bias / ALiBi operands are not "
+            f"ported yet {_TODO_BIAS}")
+    if bwd_qmajor:
+        raise NotImplementedError(
+            f"flash_attention: the query-major backward is not ported yet "
+            f"{_TODO_QMAJOR}")
+    if window and not causal:
+        raise ValueError("sliding window requires causal attention")
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"flash_attention: want q, k, v of one 4-d shape, "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    qb, kb, vb = (_to_bhtd(x, heads_major, qkv_t) for x in (q, k, v))
+    if scale is None:
+        scale = 1.0 / math.sqrt(qb.shape[-1])
+    o, lse = _Flash.apply(scale_q(qb, scale), kb, vb, bool(causal),
+                          int(window))
+    if qkv_t or heads_major:
+        return o, lse
+    return o.transpose(1, 2), lse
+
+
+def flash_attention(q, k, v, *, causal=True, scale=None, block_q=128,
+                    block_k=128, block_h=2, interpret=None,
+                    heads_major=False, block_q_bwd=None, block_k_bwd=None,
+                    qkv_t=False, window=0, bias=None, bias_grad=False,
+                    alibi=None, alibi_scale=1.0, alibi_bf16=False,
+                    bwd_qmajor=False):
+    """Fused attention; see :func:`flash_attention_with_lse` (this returns
+    o only)."""
+    o, _ = flash_attention_with_lse(
+        q, k, v, causal=causal, scale=scale, heads_major=heads_major,
+        qkv_t=qkv_t, window=window, bias=bias, bias_grad=bias_grad,
+        alibi=alibi, alibi_scale=alibi_scale, alibi_bf16=alibi_bf16,
+        bwd_qmajor=bwd_qmajor)
+    return o

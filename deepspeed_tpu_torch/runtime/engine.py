@@ -1,0 +1,214 @@
+"""DeepSpeedEngine — the training engine, eager PyTorch on one card.
+
+Counterpart of ``deepspeed_tpu/runtime/engine.py`` ``train_batch``
+(engine.py:599-695, :1315-1400): working parameters in the precision
+dtype cast from an fp32 master; the global batch split into
+``(gas, micro)``; per micro step the loss times the loss scale is
+backpropagated and the gradients, cast to ``grad_accum_dtype``, are
+accumulated as ``g / gas``; then unscale, an overflow check, global-norm
+clipping with the JAX formula, the optimizer update on the master (skipped
+on overflow) and the cast back to the parameters' dtype.
+
+The engine takes its initial parameters from the model module (so a JAX
+engine's initial master can be loaded through ``gpt2_params_from_numpy``)
+and drives ``model.loss(batch)``. ZeRO stages 0-3 are accepted: at world
+size 1 they partition nothing and give the same result. A multi-process
+world raises (ROADMAP Queue 1, M5).
+"""
+
+import os
+
+import numpy as np
+import torch
+
+from ..ops.optimizers import build_optimizer
+from ..utils.device import resolve_device
+from ..utils.logging import log_dist
+from .config import DeepSpeedConfig
+from .fp16.loss_scaler import create_loss_scaler, grads_finite
+
+_TODO_MP = "(ROADMAP Queue 1, M5: comm, ZeRO sharding over NCCL)"
+_TODO_CKPT = "(ROADMAP Queue 1, M7: checkpoints)"
+
+
+def _world_size():
+    if torch.distributed.is_available() and torch.distributed.is_initialized():
+        return torch.distributed.get_world_size()
+    return int(os.environ.get("WORLD_SIZE", "1"))
+
+
+def _jax_order(names):
+    """Parameter names in the JAX tree's leaf order (sorted keys, the
+    ``blocks`` subtree at its sorted place), so the global norm sums in the
+    same order."""
+    def key(n):
+        return n.split(".") if n.startswith("blocks.") else [n]
+    return sorted(names, key=key)
+
+
+class DeepSpeedEngine:
+    def __init__(self, model, config, optimizer=None, lr_scheduler=None,
+                 device=None):
+        if _world_size() > 1:
+            raise NotImplementedError(
+                f"the PyTorch engine runs one process on one card; a "
+                f"multi-process world is not ported yet {_TODO_MP}")
+        if lr_scheduler is not None:
+            raise NotImplementedError(
+                "lr_scheduler objects are not ported yet (ROADMAP Queue 1, "
+                "M4: LR schedules)")
+        self.config = (config if isinstance(config, DeepSpeedConfig)
+                       else DeepSpeedConfig(config, dp_world_size=1))
+        self.device = resolve_device(device)
+        self.model = model.to(self.device)
+        self.zero_stage = self.config.zero.stage
+        self.param_dtype = self.config.precision_dtype
+        model_dtype = getattr(getattr(model, "config", None), "dtype", None)
+        if model_dtype is not None and \
+                getattr(torch, model_dtype) != self.param_dtype:
+            raise ValueError(
+                f"model config dtype {model_dtype!r} != engine precision "
+                f"{self.param_dtype} (from the bf16/fp16 config blocks); set "
+                f"the model's dtype to match, or enable/disable bf16 "
+                f"accordingly")
+        self.global_step = 0
+        self.micro_steps = 0
+        self.skipped_steps = 0
+
+        if optimizer is None:
+            if self.config.optimizer is None:
+                raise ValueError(
+                    "no optimizer: pass one or set config['optimizer']")
+            optimizer = build_optimizer(self.config.optimizer.type,
+                                        self.config.optimizer.params)
+        self.optimizer = optimizer
+        self.lr_scheduler = None
+        self.loss_scaler = create_loss_scaler(self.config.fp16,
+                                              self.param_dtype)
+        self.grad_dtype = self.config.grad_accum_torch_dtype
+
+        # state: working params (the module's own tensors), fp32 master,
+        # optimizer state, loss-scale state, step
+        params = dict(model.named_parameters())
+        self._names = _jax_order(params)
+        with torch.no_grad():
+            for p in params.values():
+                p.data = p.data.to(self.param_dtype)
+            master = {n: params[n].detach().float().clone()
+                      for n in self._names}
+        self.state = {
+            "params": params,
+            "master": master,
+            "opt": self.optimizer.init(master),
+            "scale": self.loss_scaler.init_state(self.device),
+            "step": 0,
+        }
+        log_dist(
+            f"engine ready: zero_stage={self.zero_stage} "
+            f"dtype={self.param_dtype} dp=1 device={self.device} "
+            f"micro_bs={self.config.train_micro_batch_size_per_gpu} "
+            f"gas={self.config.gradient_accumulation_steps}", ranks=[0])
+
+    # ------------------------------------------------------------- batches
+    def _add_gas_dim(self, x):
+        """(train_batch_size, ...) -> (gas, train_batch_size//gas, ...) on
+        the engine's device."""
+        gas = self.config.gradient_accumulation_steps
+        x = x if torch.is_tensor(x) else torch.from_numpy(np.asarray(x))
+        if x.shape[0] != self.config.train_batch_size:
+            raise ValueError(f"batch dim {x.shape[0]} != train_batch_size "
+                             f"{self.config.train_batch_size}")
+        return x.to(self.device).reshape((gas, x.shape[0] // gas)
+                                         + tuple(x.shape[1:]))
+
+    def _micro_loss_and_grads(self, micro, scale):
+        params = self.state["params"]
+        for p in params.values():
+            p.grad = None
+        loss = self.model.loss(micro, train=True)
+        (loss * scale).backward()
+        grads = {n: params[n].grad.to(self.grad_dtype) for n in self._names}
+        return loss.detach(), grads
+
+    def _unscale_clip(self, grads, scale):
+        """Unscale, overflow check and global-norm clip (engine.py:609-628):
+        returns (grads, finite, gnorm)."""
+        grads = {n: (g / scale).to(g.dtype) for n, g in grads.items()}
+        finite = grads_finite(grads.values())
+        sq = torch.zeros((), dtype=torch.float32, device=self.device)
+        for n in self._names:
+            sq = sq + grads[n].float().square().sum()
+        gnorm = torch.sqrt(sq)
+        clip = self.config.gradient_clipping
+        if clip and clip > 0:
+            coef = torch.clamp(clip / (gnorm + 1e-6), max=1.0)
+            grads = {n: (g * coef).to(g.dtype) for n, g in grads.items()}
+        return grads, finite, gnorm
+
+    def train_batch(self, batch):
+        """One full optimizer step over a global batch. batch leaves:
+        (train_batch_size, ...) arrays or tensors, split into
+        (gas, train_batch_size // gas, ...). Returns the mean loss of the
+        micro steps (a 0-d tensor)."""
+        gas = self.config.gradient_accumulation_steps
+        batch = {k: self._add_gas_dim(v) for k, v in batch.items()}
+        scale = self.state["scale"]["scale"]
+        losses, acc = [], None
+        for i in range(gas):
+            loss, grads = self._micro_loss_and_grads(
+                {k: v[i] for k, v in batch.items()}, scale)
+            losses.append(loss)
+            if gas == 1:
+                acc = grads
+            elif acc is None:
+                acc = {n: g / gas for n, g in grads.items()}
+            else:
+                for n, g in grads.items():
+                    acc[n] += g / gas
+        loss = losses[0] if gas == 1 else torch.stack(losses).mean()
+        metrics = self._apply_update(acc)
+        metrics["loss"] = loss
+        self.global_step += 1
+        self.micro_steps += gas
+        self._maybe_print(metrics)
+        return loss
+
+    def _apply_update(self, grads):
+        state = self.state
+        scale = state["scale"]["scale"]
+        grads, finite, gnorm = self._unscale_clip(grads, scale)
+        overflow = not bool(finite)
+        if overflow:
+            # skip-on-overflow: master and optimizer state stay as they were
+            self.skipped_steps += 1
+        else:
+            with torch.no_grad():
+                self.optimizer.update(grads, state["opt"], state["master"],
+                                      lr=self.optimizer.lr)
+                for n in self._names:
+                    state["params"][n].copy_(state["master"][n])
+        state["scale"] = self.loss_scaler.update(state["scale"], overflow)
+        state["step"] += 1
+        return {"grad_norm": gnorm, "overflow": overflow,
+                "loss_scale": scale}
+
+    def _maybe_print(self, metrics):
+        if (self.config.steps_per_print
+                and self.global_step % self.config.steps_per_print == 0):
+            log_dist(
+                f"step={self.global_step} loss={float(metrics['loss']):.4f} "
+                f"lr={float(self.optimizer.lr):.3e} "
+                f"grad_norm={float(metrics['grad_norm']):.3f} "
+                f"scale={float(metrics['loss_scale']):.0f} "
+                f"overflow={metrics['overflow']}", ranks=[0])
+
+    def get_lr(self):
+        return [float(self.optimizer.lr)]
+
+    def save_checkpoint(self, *args, **kwargs):
+        raise NotImplementedError(
+            f"save_checkpoint is not ported yet {_TODO_CKPT}")
+
+    def load_checkpoint(self, *args, **kwargs):
+        raise NotImplementedError(
+            f"load_checkpoint is not ported yet {_TODO_CKPT}")

@@ -1,0 +1,126 @@
+"""The port's flash attention (deepspeed_tpu_torch/ops/cuda/flash_attention)
+held against the JAX package's: on CPU tensors the port's wrappers take
+their plain PyTorch versions, compared here with the JAX Pallas kernels in
+interpret mode and with the JAX dense ``attention_reference``, in fp32.
+
+Tolerances: forward o and lse at rtol=atol=1e-5 (the JAX flash tests' own
+fp32 tolerance, test_pallas_ops.py); gradients at rtol=atol=1e-4 (fp32
+sums over T keys taken in another order and through the softmax twice,
+tighter than the 1e-3 the JAX bf16 tests use)."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from deepspeed_tpu.ops.pallas import flash_attention as jfa
+from deepspeed_tpu_torch.ops.cuda import flash_attention as tfa
+
+FWD_TOL = dict(rtol=1e-5, atol=1e-5)
+GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _inputs(B, T, H, d, seed=0, n=4):
+    rs = np.random.RandomState(seed)
+    return [(rs.standard_normal((B, T, H, d)) * 0.5).astype(np.float32)
+            for _ in range(n)]
+
+
+@pytest.mark.parametrize("T,causal,window", [(64, True, 0), (40, True, 0),
+                                             (64, False, 0), (64, True, 24)])
+def test_forward_matches_jax_kernel_and_reference(T, causal, window):
+    q, k, v, _ = _inputs(2, T, 2, 32)
+    o, lse = tfa.flash_attention_with_lse(
+        *map(torch.from_numpy, (q, k, v)), causal=causal, window=window)
+    jo, jlse = jfa.flash_attention_with_lse(
+        *map(jnp.asarray, (q, k, v)), causal=causal, window=window,
+        block_q=32, block_k=32, interpret=True)
+    np.testing.assert_allclose(o.numpy(), np.asarray(jo), **FWD_TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), **FWD_TOL)
+    if not window:
+        ref = jfa.attention_reference(*map(jnp.asarray, (q, k, v)),
+                                      causal=causal)
+        np.testing.assert_allclose(o.numpy(), np.asarray(ref), **FWD_TOL)
+        tref = tfa.attention_reference(*map(torch.from_numpy, (q, k, v)),
+                                       causal=causal)
+        np.testing.assert_allclose(tref.numpy(), np.asarray(ref), **FWD_TOL)
+
+
+@pytest.mark.parametrize("causal,window,heads_major",
+                         [(True, 0, False), (False, 0, False),
+                          (True, 24, False), (True, 0, True)])
+def test_grads_match_jax(causal, window, heads_major):
+    q, k, v, cot = _inputs(2, 64, 2, 32, seed=1)
+    if heads_major:
+        q, k, v, cot = (np.ascontiguousarray(x.transpose(0, 2, 1, 3))
+                        for x in (q, k, v, cot))
+    kw = dict(causal=causal, window=window, heads_major=heads_major)
+
+    def jloss(q, k, v):
+        o = jfa.flash_attention(q, k, v, block_q=32, block_k=32,
+                                interpret=True, **kw)
+        return jnp.sum(o * jnp.asarray(cot))
+
+    jg = jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    (tfa.flash_attention(tq, tk, tv, **kw) * torch.from_numpy(cot)).sum() \
+        .backward()
+    for got, want in zip((tq.grad, tk.grad, tv.grad), jg):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   **GRAD_TOL)
+
+
+def test_lse_cotangent_matches_jax():
+    """A loss that reads lse too: its cotangent shifts delta."""
+    q, k, v, cot = _inputs(1, 64, 2, 32, seed=2)
+    lcot = np.random.RandomState(3).standard_normal((1, 2, 64)).astype(
+        np.float32)
+
+    def jloss(q, k, v):
+        o, lse = jfa.flash_attention_with_lse(q, k, v, block_q=32,
+                                              block_k=32, interpret=True)
+        return jnp.sum(o * jnp.asarray(cot)) + jnp.sum(lse * jnp.asarray(lcot))
+
+    jg = jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    o, lse = tfa.flash_attention_with_lse(tq, tk, tv)
+    ((o * torch.from_numpy(cot)).sum()
+     + (lse * torch.from_numpy(lcot)).sum()).backward()
+    for got, want in zip((tq.grad, tk.grad, tv.grad), jg):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   **GRAD_TOL)
+
+
+def test_plain_versions_agree_with_each_other():
+    """flash_forward/backward_reference (the kernels' plain versions) on
+    (B, H, T, d) equal autograd through the dense reference."""
+    q, k, v, do = (torch.from_numpy(x).transpose(1, 2)
+                   for x in _inputs(1, 48, 3, 32, seed=4))
+    qs = q * 0.25
+    o, lse = tfa.flash_forward_reference(qs, k, v)
+    dq, dk, dv = tfa.flash_backward_reference(qs, k, v, o, lse, do)
+    qr, kr, vr = (x.detach().clone().requires_grad_() for x in (qs, k, v))
+    ref = tfa.attention_reference(*(x.transpose(1, 2) for x in (qr, kr, vr)),
+                                  scale=1.0).transpose(1, 2)
+    (ref * do).sum().backward()
+    torch.testing.assert_close(o, ref.detach(), **FWD_TOL)
+    for got, want in zip((dq, dk, dv), (qr.grad, kr.grad, vr.grad)):
+        torch.testing.assert_close(got, want, **GRAD_TOL)
+
+
+def test_unported_operands_raise_and_cpu_launches_nothing():
+    q = torch.zeros(1, 8, 2, 32)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tfa.flash_attention(q, q, q, bias=torch.zeros(1, 1, 8, 8))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tfa.flash_attention(q, q, q, alibi=[0.5, 0.25])
+    with pytest.raises(NotImplementedError, match="K2-qmajor"):
+        tfa.flash_attention(q, q, q, bwd_qmajor=True)
+    with pytest.raises(ValueError, match="causal"):
+        tfa.flash_attention(q, q, q, causal=False, window=4)
+    tfa.reset_launch_counts()
+    o = tfa.flash_attention(q, q, q, block_q=999, block_h=7)   # knobs: no-op
+    assert o.shape == q.shape
+    assert tfa.LAUNCHES == {"flash_fwd": 0, "flash_bwd": 0}

@@ -14,7 +14,8 @@ import sys
 import pytest
 import torch
 
-from deepspeed_tpu_torch import InferenceEngineV2, Llama
+import deepspeed_tpu_torch
+from deepspeed_tpu_torch import GPT2, GPT2Config, InferenceEngineV2, Llama
 from deepspeed_tpu_torch.models import LLAMA_TINY
 from deepspeed_tpu_torch.op_builder import builder
 
@@ -64,8 +65,8 @@ sys.meta_path.insert(0, Block())
 import dataclasses
 import numpy as np
 import torch
-import deepspeed_tpu_torch
-from deepspeed_tpu_torch import InferenceEngineV2, Llama
+from deepspeed_tpu_torch import (GPT2, GPT2Config, InferenceEngineV2, Llama,
+                                 initialize)
 from deepspeed_tpu_torch.models import LLAMA_TINY
 cfg = dataclasses.replace(LLAMA_TINY, dtype="float32")
 eng = InferenceEngineV2(Llama(cfg, device="cpu"),
@@ -74,6 +75,16 @@ eng = InferenceEngineV2(Llama(cfg, device="cpu"),
                         device="cpu")
 out = eng.generate_all([np.arange(5), np.arange(12)], max_new_tokens=3)
 assert [len(o) for o in out] == [3, 3]
+gcfg = GPT2Config(n_layer=2, n_head=2, d_model=64, max_seq_len=32,
+                  vocab_size=128, dtype="float32", use_flash_attention=True,
+                  remat=True, remat_policy="save_flash", loss_chunk=8,
+                  fused_loss=True, fused_loss_kernel=True)
+trainer, *_ = initialize(model=GPT2(gcfg, device="cpu"), device="cpu",
+                         config={"train_batch_size": 2, "optimizer": {
+                             "type": "AdamW", "params": {"lr": 1e-3}}})
+ids = np.random.RandomState(0).randint(0, 128, (2, 32))
+losses = [float(trainer.train_batch({"input_ids": ids})) for _ in range(2)]
+assert losses[1] < losses[0], losses
 assert not any(n.split(".")[0] in ROOTS for n in sys.modules)
 print("ISOLATED_OK")
 """
@@ -98,6 +109,34 @@ def test_no_silent_cpu_fallback(monkeypatch):
         InferenceEngineV2(model, dict(dtype="float32", kv_block_size=8))
 
 
+_TRAIN_CFG = dict(n_layer=2, n_head=2, d_model=64, max_seq_len=32,
+                  vocab_size=128, dtype="float32")
+_TRAIN_CONFIG = {"train_batch_size": 2,
+                 "optimizer": {"type": "AdamW", "params": {"lr": 1e-3}}}
+
+
+def test_training_entry_points_default_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = GPT2Config(**_TRAIN_CFG)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        GPT2(cfg)
+    model = GPT2(cfg, device="cpu")
+    assert not model.flash_on          # "auto": the kernels only on a card
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        deepspeed_tpu_torch.initialize(model=model, config=_TRAIN_CONFIG)
+
+
+def test_training_rejects_unported_config():
+    model = GPT2(GPT2Config(**_TRAIN_CFG), device="cpu")
+    for over in ({"pipeline": {"stages": 2}}, {"moe": {"x": 1}},
+                 {"zero_optimization": {"offload_param": {"device": "nvme"}}},
+                 {"scheduler": {"type": "WarmupLR"}},
+                 {"optimizer": {"type": "Lion", "params": {}}}):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            deepspeed_tpu_torch.initialize(
+                model=model, config={**_TRAIN_CONFIG, **over}, device="cpu")
+
+
 def test_engine_rejects_unported_config():
     model = Llama(dataclasses.replace(LLAMA_TINY, dtype="float32"),
                   device="cpu")
@@ -113,6 +152,32 @@ def test_engine_rejects_unported_config():
 
 
 class TestOpBuilder:
+    @pytest.mark.parametrize("cls,name", [
+        (builder.FlashAttentionBuilder, "flash_attention"),
+        (builder.FusedCEBuilder, "fused_ce")])
+    def test_training_builders(self, cls, name):
+        b = cls()
+        assert b.so_path() == os.path.join(
+            ROOT, "build", "deepspeed_tpu_torch",
+            f"{name}-{b.build_hash()}.so")
+        assert all(os.path.exists(s) for s in b.absolute_sources())
+
+    def test_build_all_waits_for_every_build(self, monkeypatch, tmp_path):
+        fake = tmp_path / "nvcc"
+        fake.write_text("#!/bin/sh\nfor a; do out=$a; done\n"
+                        "case $* in *fused_ce*) exit 3;; esac\n"
+                        "touch $out\n")
+        fake.chmod(0o755)
+        monkeypatch.setattr(builder, "BUILD_DIR", str(tmp_path / "out"))
+        monkeypatch.setattr(builder, "find_nvcc", lambda: str(fake))
+        bs = [builder.FlashAttentionBuilder(), builder.FusedCEBuilder(),
+              builder.PagedAttentionBuilder()]
+        with pytest.raises(RuntimeError, match="fused_ce"):
+            builder.build_all(bs)
+        built = sorted(os.listdir(tmp_path / "out"))
+        assert [f.split("-")[0] for f in built] == ["flash_attention",
+                                                    "paged_attention"]
+
     def test_stable_hash_and_path(self, monkeypatch):
         a = builder.PagedAttentionBuilder()
         b = builder.PagedAttentionBuilder()
