@@ -32,15 +32,31 @@ Phases (any failure raises and the script exits nonzero):
      train_batch steps on one fixed batch; the loss falls and the kernels'
      launch counts are exactly 24 flash forwards, 24 flash backwards and 2
      fused CE calls per step (no flash forward re-run in backward).
+  8. MoE kernels: the grouped gate/up (swiglu_up) and down (gmm) kernels
+     (K8) at the Mixtral-8x7B serving shapes (D=4096, F=14336, E=8; 16
+     routed rows at decode, 512 at a 256-token chunk; uneven sizes, an
+     empty group, every row on one expert, a tail past the groups), bf16
+     against their plain versions run in fp32 on the same inputs, fp32
+     cases at 1e-4, the tail exactly 0, a control (one group's rows times
+     a neighbouring expert's weights) that must fail, each timed beside
+     its bound, plain version and one library call.
+  9. MoE parity: a small fp32 Mixtral served with grouped_kernel=True and
+     False gives identical greedy streams (split-fuse on and off).
+ 10. MoE slice: Mixtral-8x7B widths at 24 layers (random weights from a
+     seeded generator, bf16) serve phase 4's 8 requests; every request
+     returns 64 tokens, each grouped kernel launches once per layer and
+     forward, the paged kernels as in phase 4.
 Then one JSON line of per-kernel numbers, and last the result line
 {"ok": true, "device": {...}}. Without a CUDA device it exits 2 and prints
 no result. ``--profile PATH`` also writes torch.profiler breakdowns of the
-serving slice's device time to PATH and of three extra training steps to
-PATH with "-train" before its extension (profiled timings include the
-profiler's overhead).
+serving slice's device time to PATH, of three extra training steps to
+PATH with "-train" before its extension and of the MoE slice with "-moe"
+(profiled timings include the profiler's overhead).
 """
 
 import argparse
+import dataclasses
+import gc
 import json
 import math
 import os
@@ -81,6 +97,8 @@ SOURCES = {
     "flash_fwd": "deepspeed_tpu_torch/csrc/flash_attention.cu",
     "flash_bwd": "deepspeed_tpu_torch/csrc/flash_attention.cu",
     "fused_ce": "deepspeed_tpu_torch/csrc/fused_ce.cu",
+    "grouped_swiglu_up": "deepspeed_tpu_torch/csrc/grouped_matmul.cu",
+    "grouped_gmm": "deepspeed_tpu_torch/csrc/grouped_matmul.cu",
 }
 REPLACES = {
     "paged_decode": "deepspeed_tpu/ops/pallas/paged_attention.py:121",
@@ -88,6 +106,8 @@ REPLACES = {
     "flash_fwd": "deepspeed_tpu/ops/pallas/flash_attention.py:360",
     "flash_bwd": "deepspeed_tpu/ops/pallas/flash_attention.py:717",
     "fused_ce": "deepspeed_tpu/ops/pallas/fused_ce.py:44",
+    "grouped_swiglu_up": "deepspeed_tpu/ops/pallas/grouped_matmul.py:182",
+    "grouped_gmm": "deepspeed_tpu/ops/pallas/grouped_matmul.py:115",
 }
 
 
@@ -807,6 +827,326 @@ def phase_train_slice(seed=0, steps=10, profile=None):
     return launches
 
 
+# ------------------------------------------------------------- MoE kernels
+
+
+def routed_sizes(rs, tokens, E, k):
+    """Rows per expert when each of ``tokens`` tokens picks k distinct
+    experts uniformly (what top-k routing through random weights gives)."""
+    sizes = np.zeros(E, np.int64)
+    for _ in range(tokens):
+        sizes[rs.choice(E, k, replace=False)] += 1
+    return [int(s) for s in sizes]
+
+
+def grouped_bound(M, K, N, sizes, n_w):
+    """Bound of one grouped call: x read once, each touched expert's
+    ``n_w`` weight tensors read once, the output written once; operations
+    on the routed rows only."""
+    live = min(sum(sizes), M)
+    touched = sum(1 for s in sizes if s > 0)
+    nbytes = (M * K + n_w * touched * K * N + M * N) * 2 + len(sizes) * 4
+    return bound(nbytes, 2 * n_w * live * K * N)
+
+
+def grouped_library(x, w, sizes):
+    """(fn, name): one PyTorch call computing x w[g] per group, timed as a
+    yardstick only: ``torch._grouped_mm`` where this torch has it, else a
+    cuBLAS matmul per group."""
+    gmm_op = getattr(torch, "_grouped_mm", None)
+    if gmm_op is not None:
+        offs = torch.tensor(np.cumsum(sizes), dtype=torch.int32,
+                            device="cuda")
+        return (lambda: gmm_op(x, w, offs=offs)), "torch._grouped_mm"
+    bounds, start = [], 0
+    for e, n in enumerate(sizes):
+        if n:
+            bounds.append((e, start, start + n))
+        start += n
+    out = torch.empty(x.shape[0], w.shape[2], dtype=x.dtype, device="cuda")
+
+    def loop():
+        for e, lo, hi in bounds:
+            torch.mm(x[lo:hi], w[e], out=out[lo:hi])
+        return out
+    return loop, "cuBLAS torch.mm per group"
+
+
+class MoECases:
+    """The grouped kernels on Mixtral-8x7B-width experts, each call held
+    against its plain version: bf16 against the plain version in fp32 on
+    the same inputs (bf16_mismatch), fp32 at FP32_TOL; the rows past the
+    groups exactly 0."""
+
+    def __init__(self, gm, D=4096, Fd=14336, E=8, seed=0):
+        self.gm = gm
+        self.g = torch.Generator(device="cuda")
+        self.g.manual_seed(seed)
+        self.w1, self.w3 = (self.randn((E, D, Fd), s=0.02) for _ in range(2))
+        self.w2 = self.randn((E, Fd, D), s=0.02)
+        self.err = {"grouped_swiglu_up": 0.0, "grouped_gmm": 0.0}
+        self.rel = dict(self.err)
+
+    def randn(self, shape, dtype=torch.bfloat16, s=1.0):
+        return (torch.randn(shape, generator=self.g, device="cuda")
+                * s).to(dtype)
+
+    def run(self, M, sizes, dtype=torch.bfloat16):
+        gm = self.gm
+        ws = [w.to(dtype) for w in (self.w1, self.w3, self.w2)]
+        x = self.randn((M, ws[0].shape[1]), dtype)
+        gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+        h = gm.grouped_swiglu_up(x, ws[0], ws[1], gs)
+        out = gm.grouped_matmul(h, ws[2], gs)
+        torch.cuda.synchronize()
+        live = min(sum(sizes), M)
+        assert (h[live:] == 0).all() and (out[live:] == 0).all(), \
+            f"rows past the groups not zero (sizes {sizes})"
+        w32 = [w.float() for w in ws]
+        refs = {"grouped_swiglu_up": gm.grouped_swiglu_up_reference(
+                    x.float(), w32[0], w32[1], gs),
+                "grouped_gmm": gm.grouped_matmul_reference(
+                    h.float(), w32[2], gs)}
+        for name, got in (("grouped_swiglu_up", h), ("grouped_gmm", out)):
+            ref = refs[name]
+            if dtype == torch.float32:
+                torch.testing.assert_close(got, ref, **FP32_TOL)
+            elif live:
+                why = bf16_mismatch(got[:live], ref[:live])
+                assert why is None, f"{name} (sizes {sizes}): {why}"
+                _, e, r = bf16_errors(got[:live], ref[:live])
+                self.err[name] = max(self.err[name], e)
+                self.rel[name] = max(self.rel[name], r)
+        return dict(x=x, h=h, gs=gs, sizes=sizes, w32=w32, refs=refs)
+
+    def control(self, c):
+        """One group's rows multiplied by the next expert's weights (as a
+        kernel that read the wrong group's tile would give) must fail the
+        bf16 check, for each kernel."""
+        sizes, w32 = c["sizes"], c["w32"]
+        E = len(sizes)
+        e = next(i for i, n in enumerate(sizes) if n)
+        lo = sum(sizes[:e])
+        hi = lo + sizes[e]
+        nb = (e + 1) % E
+        xs, hs = c["x"][lo:hi].float(), c["h"][lo:hi].float()
+        wrong = {
+            "grouped_swiglu_up": F.silu(xs @ w32[0][nb]) * (xs @ w32[1][nb]),
+            "grouped_gmm": hs @ w32[2][nb]}
+        out = []
+        for name, rows in wrong.items():
+            ctrl = c["refs"][name].clone()
+            ctrl[lo:hi] = rows
+            why = bf16_mismatch(ctrl.to(torch.bfloat16), c["refs"][name])
+            assert why is not None, f"{name}: check let a wrong expert pass"
+            out.append(f"{name}: {why}")
+        return out
+
+
+def phase_moe_kernels(gm, seed=0):
+    """K8's two forward kernels at the Mixtral-8x7B serving shapes,
+    checked, controlled and timed (decode: 8 slots x top-2 = 16 rows;
+    chunk: 256 tokens x top-2 = 512 rows)."""
+    rs = np.random.RandomState(seed)
+    cases = MoECases(gm, seed=seed)
+    dec_sizes = routed_sizes(rs, 8, 8, 2)
+    chk_sizes = routed_sizes(rs, 256, 8, 2)
+    dec = cases.run(16, dec_sizes)
+    chk = cases.run(512, chk_sizes)
+    cases.run(512, [100, 0, 50, 30, 120, 80, 0, 132])     # empty groups
+    cases.run(512, [0, 0, 0, 512, 0, 0, 0, 0])            # one expert
+    cases.run(512, [0] * 8)                               # all empty
+    cases.run(512, [40, 60, 0, 20, 100, 0, 80, 50])       # 162-row tail
+    cases.run(16, dec_sizes, torch.float32)
+    cases.run(100, [30, 0, 20, 10, 5, 0, 15, 10], torch.float32)
+    log(f"MoE kernel cases ok: decode sizes {dec_sizes}, chunk sizes "
+        f"{chk_sizes}; max bf16 |err| swiglu_up "
+        f"{cases.err['grouped_swiglu_up']:.3g} (worst row relative error "
+        f"norm {cases.rel['grouped_swiglu_up']:.3g}), gmm "
+        f"{cases.err['grouped_gmm']:.3g} "
+        f"({cases.rel['grouped_gmm']:.3g}); fp32 cases at 1e-4; tails 0")
+    for line in cases.control(dec):
+        log(f"control: one group on its neighbour's expert fails ({line})")
+    for c in (dec, chk):
+        del c["w32"], c["refs"]
+    torch.cuda.empty_cache()
+
+    shapes = {}
+    for tag, c in (("decode", dec), ("chunk", chk)):
+        x, h, gs, sizes = c["x"], c["h"], c["gs"], c["sizes"]
+        M, D = x.shape
+        Fd = h.shape[1]
+        up_lib, up_name = grouped_library(x, cases.w1, sizes)
+        up_lib3, _ = grouped_library(x, cases.w3, sizes)
+        dn_lib, dn_name = grouped_library(h, cases.w2, sizes)
+        r = {
+            "grouped_swiglu_up": dict(
+                ms=time_ms(lambda: gm.grouped_swiglu_up(
+                    x, cases.w1, cases.w3, gs), 30),
+                plain_ms=time_ms(lambda: gm.grouped_swiglu_up_reference(
+                    x, cases.w1, cases.w3, gs), 3),
+                library_ms=time_ms(lambda: F.silu(up_lib()) * up_lib3(), 30),
+                bound=grouped_bound(M, D, Fd, sizes, 2)),
+            "grouped_gmm": dict(
+                ms=time_ms(lambda: gm.grouped_matmul(h, cases.w2, gs), 30),
+                plain_ms=time_ms(lambda: gm.grouped_matmul_reference(
+                    h, cases.w2, gs), 3),
+                library_ms=time_ms(dn_lib, 30),
+                bound=grouped_bound(M, Fd, D, sizes, 1))}
+        log(f"MoE {tag} ({M} rows, sizes {sizes}); library calls: "
+            f"{up_name} x2 + silu*mul, {dn_name}")
+        for name, t in r.items():
+            t["max_abs_err"] = cases.err[name]
+            t["shape"] = f"{tag}: {M} rows"
+            log(f"  {name}: {t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, "
+                f"library {t['library_ms']:.4f}, bound {t['bound'][0]:.4f} "
+                f"by {t['bound'][1]})")
+        shapes[tag] = r
+    rows = shapes["decode"]
+    for name in rows:
+        rows[name]["chunk"] = {k: shapes["chunk"][name][k] for k in
+                               ("ms", "plain_ms", "library_ms")}
+        rows[name]["chunk"]["bound_ms"] = shapes["chunk"][name]["bound"][0]
+    del cases, dec, chk
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+# -------------------------------------------------------------- MoE parity
+
+
+def phase_moe_parity():
+    """Small fp32 Mixtral: grouped_kernel on and off give identical greedy
+    streams; with the kernels on, each launches once per layer and
+    forward."""
+    from deepspeed_tpu_torch import MIXTRAL_TINY, InferenceEngineV2, Mixtral
+    from deepspeed_tpu_torch.ops.cuda import grouped_matmul as gm
+    cfg = dataclasses.replace(MIXTRAL_TINY, dtype="float32", max_seq_len=512)
+    model = Mixtral(cfg, device="cuda", dtype=torch.float32, seed=7)
+    rs = np.random.RandomState(3)
+    prompts = [rs.randint(0, 512, (n,)) for n in (5, 16, 37, 300)]
+    for splitfuse in (64, 0):
+        streams = {}
+        for gk in (True, False):
+            model.grouped_kernel = gk
+            gm.reset_launch_counts()
+            eng = InferenceEngineV2(model, dict(
+                dtype="float32", kv_block_size=16, max_batch_size=4,
+                prompt_bucket=64, splitfuse_tokens=splitfuse), device="cuda")
+            streams[gk] = eng.generate_all(prompts, max_new_tokens=24)
+            n = cfg.n_layer * sum(eng.forward_counts.values()) if gk else 0
+            assert gm.LAUNCHES == {"grouped_swiglu_up": n,
+                                   "grouped_gmm": n}, (gk, dict(gm.LAUNCHES))
+        for a, b in zip(streams[True], streams[False]):
+            np.testing.assert_array_equal(a, b)
+        log(f"MoE parity ok (splitfuse={splitfuse}): grouped kernels on == "
+            f"off greedy streams, {sum(len(s) for s in streams[True])} "
+            f"tokens")
+        del eng
+    torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------- MoE slice
+
+
+def phase_moe_slice(seed=0, n_layer=24, profile=None):
+    """Mixtral-8x7B widths at ``n_layer`` layers (the deepest that fits one
+    80 GB card in bf16 beside the KV pool) serving phase 4's traffic."""
+    from deepspeed_tpu_torch import MIXTRAL_8X7B, InferenceEngineV2, Mixtral
+    from deepspeed_tpu_torch.models import mixtral as mx
+    from deepspeed_tpu_torch.ops.cuda import grouped_matmul as gm
+    from deepspeed_tpu_torch.ops.cuda import paged_attention as pa
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated()
+    assert left < 1e9, f"earlier phases left {left / 1e9:.2f} GB allocated"
+    cfg = dataclasses.replace(MIXTRAL_8X7B, n_layer=n_layer)
+    t0 = time.perf_counter()
+    model = Mixtral(cfg, device="cuda", dtype=torch.bfloat16, seed=seed)
+    eng = InferenceEngineV2(model, dict(
+        dtype="bfloat16", kv_block_size=64, max_batch_size=8,
+        splitfuse_tokens=256, decode_steps_per_dispatch=8,
+        num_kv_blocks=513), device="cuda")
+    torch.cuda.synchronize()
+    log(f"mixtral-8x7b ({n_layer} layers) built in "
+        f"{time.perf_counter() - t0:.1f} s: {cfg.num_params() / 1e9:.2f}B "
+        f"params, {eng.state_mgr.allocator.total_blocks + 1} KV blocks, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+
+    # the group sizes of the first decode step, one per layer (device
+    # tensors kept as they are: no sync inside the serving loop)
+    first_decode = []
+    sort = mx.sort_by_expert
+
+    def recording_sort(experts, E):
+        order, sizes = sort(experts, E)
+        if experts.shape[0] == 8 and len(first_decode) < n_layer:
+            first_decode.append(sizes)
+        return order, sizes
+
+    rs = np.random.RandomState(seed)
+    lens = rs.randint(64, 2049, 8)
+    new = 64
+    torch.cuda.reset_peak_memory_stats()
+    pa.reset_launch_counts()
+    gm.reset_launch_counts()
+    for k in eng.forward_counts:
+        eng.forward_counts[k] = 0
+    mx.sort_by_expert = recording_sort
+    try:
+        t_start = time.perf_counter()
+        uids = []
+        for i, n in enumerate(lens):
+            sampled = i >= 6
+            uids.append(eng.put(rs.randint(0, cfg.vocab_size, (n,)), new,
+                                temperature=0.8 if sampled else None,
+                                top_k=40 if sampled else None))
+        if profile:
+            acts = [torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                first, done = serve(eng, uids)
+            e2e = time.perf_counter() - t_start
+            write_profile(prof, profile, e2e)
+        else:
+            first, done = serve(eng, uids)
+            e2e = time.perf_counter() - t_start
+    finally:
+        mx.sort_by_expert = sort
+    launches = {**pa.LAUNCHES, **gm.LAUNCHES}
+    outs = [eng.get(u) for u in uids]
+
+    for u, o in zip(uids, outs):
+        assert len(o) == new, (u, len(o))
+        assert ((o >= 0) & (o < cfg.vocab_size)).all(), u
+    fc = eng.forward_counts
+    forwards = fc["prefill"] + fc["chunk"] + fc["decode"]
+    want = {"paged_decode": n_layer * fc["decode"],
+            "paged_chunk": n_layer * (fc["chunk"] + fc["prefill"]),
+            "grouped_swiglu_up": n_layer * forwards,
+            "grouped_gmm": n_layer * forwards}
+    assert launches == want and min(launches.values()) > 0, (launches, want)
+
+    hist = [s.tolist() for s in first_decode]
+    ttft = sorted(first[u] - t_start for u in uids)
+    tpot = sorted((done[u] - first[u]) / (new - 1) for u in uids)
+    stats = dict(
+        n_layer=n_layer, requests=len(uids), prompt_tokens=int(lens.sum()),
+        generated_tokens=int(sum(len(o) for o in outs)),
+        ttft_p50_s=float(np.percentile(ttft, 50)),
+        tpot_p50_ms=float(np.percentile(tpot, 50)) * 1e3,
+        output_tok_per_s=float(sum(len(o) for o in outs) / e2e),
+        e2e_s=e2e, forwards=dict(fc), launches=launches,
+        max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+        first_decode_expert_load=hist)
+    log("moe slice " + json.dumps(stats))
+    assert len(hist) == n_layer and all(sum(h) == 16 for h in hist), hist
+    del eng, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: launches[k] for k in gm.LAUNCHES}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default="",
@@ -819,6 +1159,7 @@ def main(argv=None):
     from deepspeed_tpu_torch.op_builder import build_all
     from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
     from deepspeed_tpu_torch.ops.cuda import fused_ce as fce
+    from deepspeed_tpu_torch.ops.cuda import grouped_matmul as gm
     from deepspeed_tpu_torch.ops.cuda import paged_attention as pa
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -831,9 +1172,10 @@ def main(argv=None):
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
     from deepspeed_tpu_torch.op_builder import (FlashAttentionBuilder,
                                                 FusedCEBuilder,
+                                                GroupedMatmulBuilder,
                                                 PagedAttentionBuilder)
     builders = [PagedAttentionBuilder(), FlashAttentionBuilder(),
-                FusedCEBuilder()]
+                FusedCEBuilder(), GroupedMatmulBuilder()]
     t0 = time.perf_counter()
     build_all(builders)                # one nvcc per source, together
     log(f"kernels built in {time.perf_counter() - t0:.1f} s wall")
@@ -842,32 +1184,55 @@ def main(argv=None):
         for entry, regs, spill in ptxas_summary(b.build_log):
             log(f"    ptxas {entry}: {regs} registers, {spill} bytes "
                 f"spilled")
-    for mod in (pa, fa, fce):
+    for mod in (pa, fa, fce, gm):
         mod.kernel_builder()           # bind the built libraries
+
+    def profile_path(suffix):
+        if not args.profile:
+            return None
+        root, ext = os.path.splitext(args.profile)
+        return f"{root}-{suffix}{ext}"
+
+    t_phase = time.perf_counter()
+
+    def phase_done(name):
+        nonlocal t_phase
+        now = time.perf_counter()
+        log(f"phase {name} took {now - t_phase:.1f} s")
+        t_phase = now
 
     rows = phase_kernels(pa)
     phase_parity()
     launches = phase_slice(profile=args.profile)
+    phase_done("1-4 (serving)")
     rows.update(phase_train_kernels(fa, fce))
     phase_train_parity()
-    train_profile = None
-    if args.profile:
-        root, ext = os.path.splitext(args.profile)
-        train_profile = f"{root}-train{ext}"
-    launches.update(phase_train_slice(profile=train_profile))
+    launches.update(phase_train_slice(profile=profile_path("train")))
+    phase_done("5-7 (training)")
+    rows.update(phase_moe_kernels(gm))
+    phase_done("8 (MoE kernels)")
+    phase_moe_parity()
+    phase_done("9 (MoE parity)")
+    launches.update(phase_moe_slice(profile=profile_path("moe")))
+    phase_done("10 (MoE slice)")
 
     kernels = []
     for name, r in rows.items():
-        kernels.append(dict(
+        row = dict(
             name=name, route="cuda", source=SOURCES[name],
             replaces=REPLACES[name], launches=launches[name],
             max_abs_err=r["max_abs_err"], ms=r["ms"], kernel_ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
-            bound_by=r["bound"][1], library_ms=r["library_ms"]))
+            bound_by=r["bound"][1], library_ms=r["library_ms"])
+        for extra in ("shape", "chunk"):
+            if extra in r:
+                row[extra] = r[extra]
+        kernels.append(row)
     print(json.dumps({"kernels": kernels}))
+    # the cards this run used: every phase drives one
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": 1}}))
     return 0
 
 

@@ -3,9 +3,10 @@
 Imports torch and never jax; nothing of the JAX package is imported."""
 
 from .inference.v2 import InferenceEngineV2, RaggedInferenceEngineConfig
-from .models import (GPT2, GPT2_PRESETS, LLAMA_PRESETS, GPT2Config, Llama,
-                     LlamaConfig, gpt2_params_from_numpy,
-                     llama_params_from_numpy)
+from .models import (GPT2, GPT2_PRESETS, LLAMA_PRESETS, MIXTRAL_8X7B,
+                     MIXTRAL_TINY, GPT2Config, Llama, LlamaConfig, Mixtral,
+                     MixtralConfig, gpt2_params_from_numpy,
+                     llama_params_from_numpy, mixtral_params_from_numpy)
 from .runtime.config import DeepSpeedConfig
 from .runtime.engine import DeepSpeedEngine
 
@@ -41,5 +42,7 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
 
 __all__ = ["InferenceEngineV2", "RaggedInferenceEngineConfig", "GPT2",
            "GPT2_PRESETS", "GPT2Config", "LLAMA_PRESETS", "Llama",
-           "LlamaConfig", "gpt2_params_from_numpy", "llama_params_from_numpy",
+           "LlamaConfig", "MIXTRAL_8X7B", "MIXTRAL_TINY", "Mixtral",
+           "MixtralConfig", "gpt2_params_from_numpy",
+           "llama_params_from_numpy", "mixtral_params_from_numpy",
            "DeepSpeedConfig", "DeepSpeedEngine", "initialize"]

@@ -1,0 +1,374 @@
+// Grouped (ragged) matmul for the dropless-MoE expert FFN, CUDA C++ for
+// sm_90a.
+//
+// grouped_gmm_kernel        replaces deepspeed_tpu/ops/pallas/grouped_matmul.py
+//                           _gmm_kernel (via _gmm, forward, trans_w=False).
+//   out[s, n] = sum_k x[s, k] w[g(s), k, n], fp32 accumulation, one rounding
+//   to the output dtype. w is addressed through its (e, k, n) strides, so a
+//   transposed view (the dx product of training) needs no second kernel;
+//   w with a unit n stride is staged with 16-byte cp.async, any other
+//   stride element by element.
+// grouped_swiglu_up_kernel  replaces _swiglu_up_kernel (via _swiglu_up).
+//   h = silu(x w1[g]) * (x w3[g]): one staged x tile feeds both products;
+//   the silu*mul epilogue runs in fp32 and rounds h once (as
+//   grouped_matmul.py:204-210).
+//
+// Rows are sorted by group; group_sizes (E,) int32 stays in device memory
+// (no host sync). The grid is (tiles_m + E logical tiles) x (N / 64 column
+// tiles). Logical tile i is resolved in-kernel from the E sizes, replacing
+// the TPU's scalar-prefetched _group_metadata maps: the non-empty groups
+// and the tail [sum(group_sizes), M) partition the rows, each segment
+// visits every BM-row physical tile it touches (a boundary tile is visited
+// once per segment), so there are at most tiles_m + E visits. A visit
+// writes only its own segment's rows, so no atomics and no read-modify-
+// write are needed (the TPU kernel's `prev` carry exists only because a
+// TPU output block is revisited in order); a tail visit writes zeros (the
+// ragged_dot contract: rows past the groups are exactly 0). CTAs past the
+// live visit count exit at once. The logical index runs fastest in the
+// grid, so the visits that share a weight tile run side by side and the
+// second read comes from L2.
+//
+// Bound: bytes at the Mixtral-8x7B serving shapes. A decode step routes
+// 16 rows (8 slots x top-2) over up to 8 experts: swiglu_up streams
+// 2 x 4096 x 14336 bf16 weights per touched expert (1.88 GB for 8) against
+// 3.8 GFLOP. The design streams each touched expert's weight tile once per
+// call: BM = 16 at decode (one physical tile, one visit per group), BM = 64
+// for larger calls; 64 output columns per CTA give 224 (swiglu_up) or 64
+// (gmm) column tiles per group to load the card; a 4-stage cp.async ring
+// keeps ~3 weight tiles per CTA in flight. Products are mma.sync m16n8k16
+// (bf16 -> fp32), B fragments read from the row-major [k][n] weight tile
+// with ldmatrix.trans. TMA, wgmma and split-K are later work.
+//
+// The extern "C" launchers return cudaGetLastError() (0 = launched); they
+// never synchronize or allocate. fp32 instances do the products with
+// scalar FMAs in the same fragment layout (the parity checks).
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+struct GroupedArgs {
+  const void* x;           // (M, K) contiguous
+  const void* w1;          // (E, K, N) through strides (gmm: w; swiglu_up: w1)
+  const void* w3;          // swiglu_up: (E, K, N), w1's strides; gmm: unused
+  const int* group_sizes;  // (E,) int32, device memory
+  void* out;               // (M, N) contiguous
+  long long sw_e, sw_k, sw_n;  // w strides in elements
+  int M, K, N, E;
+  int vec_x;  // x rows may be staged as 16-byte vectors
+  int vec_w;  // w rows (unit n stride) may be staged as 16-byte vectors
+};
+
+namespace {
+
+constexpr int NW = 4;
+constexpr int NT = NW * 32;
+constexpr int BN = 64;      // output columns per CTA
+constexpr int STAGES = 4;   // cp.async ring depth
+
+typedef __nv_bfloat16 bf16;
+
+// K slice per stage: 128 bytes of a row either way
+template <typename T> struct Slice;
+template <> struct Slice<bf16> { static constexpr int BK = 64; };
+template <> struct Slice<float> { static constexpr int BK = 32; };
+
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) { return __float2bfloat16(x); }
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t& r0, uint32_t& r1, uint32_t& r2,
+                                              uint32_t& r3, const bf16* p) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(s));
+}
+
+__device__ __forceinline__ void mma16816(float* c, uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// C (16 x 8*N8) += A (16 x BK, row-major [m][k]) * B (BK x 8*N8, row-major
+// [k][n]); lane 4g+t owns c[n][0..1] at (row g, cols 8n+2t+{0,1}) and
+// c[n][2..3] at row g+8.
+template <int N8, int BK>
+__device__ __forceinline__ void mma_tile(float (&c)[N8][4], const bf16* A, int lda, const bf16* B,
+                                         int ldb) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int k0 = 0; k0 < BK; k0 += 16) {
+    const uint32_t a0 = ld32(A + g * lda + k0 + 2 * t);
+    const uint32_t a1 = ld32(A + (g + 8) * lda + k0 + 2 * t);
+    const uint32_t a2 = ld32(A + g * lda + k0 + 8 + 2 * t);
+    const uint32_t a3 = ld32(A + (g + 8) * lda + k0 + 8 + 2 * t);
+    // matrices 0/1: k rows k0..k0+15 at cols 16p..16p+7, 2/3: cols +8
+    const bf16* bp = B + (k0 + (lane & 15)) * ldb + (lane >> 4) * 8;
+#pragma unroll
+    for (int p = 0; p < N8 / 2; ++p) {
+      uint32_t b0, b1, b2, b3;
+      ldsm_x4_trans(b0, b1, b2, b3, bp + p * 16);
+      mma16816(c[2 * p], a0, a1, a2, a3, b0, b1);
+      mma16816(c[2 * p + 1], a0, a1, a2, a3, b2, b3);
+    }
+  }
+}
+
+template <int N8, int BK>
+__device__ __forceinline__ void mma_tile(float (&c)[N8][4], const float* A, int lda,
+                                         const float* B, int ldb) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll 4
+  for (int k = 0; k < BK; ++k) {
+    const float lo = A[g * lda + k], hi = A[(g + 8) * lda + k];
+#pragma unroll
+    for (int n = 0; n < N8; ++n) {
+      const float b0 = B[k * ldb + n * 8 + 2 * t], b1 = B[k * ldb + n * 8 + 2 * t + 1];
+      c[n][0] = fmaf(lo, b0, c[n][0]);
+      c[n][1] = fmaf(lo, b1, c[n][1]);
+      c[n][2] = fmaf(hi, b0, c[n][2]);
+      c[n][3] = fmaf(hi, b1, c[n][3]);
+    }
+  }
+}
+
+// rows [row0, row0+BM) x cols [k0, k0+BK) of x into shared [BM][lda];
+// rows >= M and cols >= K are zero.
+template <typename T, int BM, int BK>
+__device__ __forceinline__ void load_x(T* dst, int lda, const T* x, int M, int K, int row0,
+                                       int k0, bool vec) {
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int CPR = BK / VEC;
+  for (int i = threadIdx.x; i < BM * CPR; i += NT) {
+    const int r = i / CPR, c = (i - r * CPR) * VEC;
+    const int row = row0 + r, col = k0 + c;
+    T* d = dst + r * lda + c;
+    const T* s = x + (long long)row * K + col;
+    if (vec && row < M && col + VEC <= K) {
+      cp_async16(d, s);
+    } else {
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) d[v] = (row < M && col + v < K) ? s[v] : from_f<T>(0.f);
+    }
+  }
+}
+
+// k rows [k0, k0+BK) x cols [n0, n0+BN) of one expert's (K, N) weights,
+// through strides, into shared [BK][ldb]; k >= K and n >= N are zero.
+template <typename T, int BK>
+__device__ __forceinline__ void load_w(T* dst, int ldb, const T* w, long long sk, long long sn,
+                                       int K, int N, int k0, int n0, bool vec) {
+  constexpr int VEC = 16 / sizeof(T);
+  if (vec) {  // unit n stride, 16-byte aligned rows
+    constexpr int CPR = BN / VEC;
+    for (int i = threadIdx.x; i < BK * CPR; i += NT) {
+      const int r = i / CPR, c = (i - r * CPR) * VEC;
+      const int k = k0 + r, n = n0 + c;
+      T* d = dst + r * ldb + c;
+      const T* s = w + (long long)k * sk + n;
+      if (k < K && n + VEC <= N) {
+        cp_async16(d, s);
+      } else {
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) d[v] = (k < K && n + v < N) ? s[v] : from_f<T>(0.f);
+      }
+    }
+  } else {  // any strides: neighbouring threads walk k (unit k stride coalesces)
+    for (int i = threadIdx.x; i < BK * BN; i += NT) {
+      const int c = i / BK, r = i - c * BK;
+      const int k = k0 + r, n = n0 + c;
+      dst[r * ldb + c] = (k < K && n < N) ? w[(long long)k * sk + (long long)n * sn]
+                                          : from_f<T>(0.f);
+    }
+  }
+}
+
+// Resolve logical tile `idx` to (segment, physical m-tile, row range).
+// Segments: the non-empty groups in order, then the tail [total, M).
+// Returns the group (0..E-1), -1 for a tail visit, -2 past the live count.
+template <int BM>
+__device__ int resolve_tile(const GroupedArgs& a, int idx, int& mt, int& lo, int& hi) {
+  int start = 0;
+  for (int e = 0; e <= a.E; ++e) {
+    int s, en;
+    if (e < a.E) {
+      const int size = max(a.group_sizes[e], 0);
+      s = min(start, a.M);
+      en = min(start + size, a.M);
+      start = en;
+    } else {
+      s = min(start, a.M);
+      en = a.M;
+    }
+    if (en <= s) continue;
+    const int t0 = s / BM, t1 = (en + BM - 1) / BM;
+    if (idx < t1 - t0) {
+      mt = t0 + idx;
+      lo = max(s, mt * BM);
+      hi = min(en, mt * BM + BM);
+      return e < a.E ? e : -1;
+    }
+    idx -= t1 - t0;
+  }
+  return -2;
+}
+
+template <typename T, int BM, bool SWIGLU>
+__global__ void __launch_bounds__(NT) grouped_kernel(GroupedArgs a) {
+  constexpr int BK = Slice<T>::BK;
+  constexpr int PAD = 16 / sizeof(T);
+  constexpr int LDA = BK + PAD;
+  constexpr int LDB = BN + PAD;
+  constexpr int NWT = SWIGLU ? 2 : 1;  // weight tiles per stage
+  constexpr int WM = BM / 16;          // warps along m
+  constexpr int WN = NW / WM;          // warps along n
+  constexpr int N8 = BN / WN / 8;      // n8 tiles per warp
+  static_assert(WM * WN == NW && N8 % 2 == 0, "tile shape");
+
+  __shared__ int info[4];
+  if (threadIdx.x == 0) {
+    int mt = 0, lo = 0, hi = 0;
+    info[0] = resolve_tile<BM>(a, blockIdx.x, mt, lo, hi);
+    info[1] = mt;
+    info[2] = lo;
+    info[3] = hi;
+  }
+  __syncthreads();
+  const int g = info[0], mt = info[1], lo = info[2], hi = info[3];
+  if (g == -2) return;  // past the live visits
+  const int n0 = blockIdx.y * BN;
+  T* out = reinterpret_cast<T*>(a.out);
+
+  if (g == -1) {  // rows past the groups: exactly zero
+    for (int i = threadIdx.x; i < (hi - lo) * BN; i += NT) {
+      const int r = lo + i / BN, n = n0 + i % BN;
+      if (n < a.N) out[(long long)r * a.N + n] = from_f<T>(0.f);
+    }
+    return;
+  }
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* As = reinterpret_cast<T*>(smem_raw);  // [STAGES][BM][LDA]
+  T* Bs = As + STAGES * BM * LDA;           // [STAGES][NWT][BK][LDB]
+
+  const T* x = reinterpret_cast<const T*>(a.x);
+  const T* w[2] = {reinterpret_cast<const T*>(a.w1) + (long long)g * a.sw_e,
+                   SWIGLU ? reinterpret_cast<const T*>(a.w3) + (long long)g * a.sw_e : nullptr};
+  const int row0 = mt * BM;
+  const int nk = (a.K + BK - 1) / BK;
+  const bool vx = a.vec_x != 0, vw = a.vec_w != 0;
+
+  auto load_stage = [&](int slot, int kt) {
+    const int k0 = kt * BK;
+    load_x<T, BM, BK>(As + slot * BM * LDA, LDA, x, a.M, a.K, row0, k0, vx);
+#pragma unroll
+    for (int j = 0; j < NWT; ++j)
+      load_w<T, BK>(Bs + (slot * NWT + j) * BK * LDB, LDB, w[j], a.sw_k, a.sw_n, a.K, a.N, k0,
+                    n0, vw);
+  };
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = warp % WM, wn = warp / WM;
+  float acc[NWT][N8][4];
+#pragma unroll
+  for (int j = 0; j < NWT; ++j)
+#pragma unroll
+    for (int n = 0; n < N8; ++n) acc[j][n][0] = acc[j][n][1] = acc[j][n][2] = acc[j][n][3] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) load_stage(s, s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // tile kt landed; slot (kt - 1) % STAGES is free
+    const int nxt = kt + STAGES - 1;
+    if (nxt < nk) load_stage(nxt % STAGES, nxt);
+    cp_async_commit();
+    const int slot = kt % STAGES;
+    const T* at = As + slot * BM * LDA + wm * 16 * LDA;
+#pragma unroll
+    for (int j = 0; j < NWT; ++j)
+      mma_tile<N8, BK>(acc[j], at, LDA, Bs + (slot * NWT + j) * BK * LDB + wn * (BN / WN), LDB);
+  }
+  cp_async_wait<0>();
+
+  // epilogue: only this segment's rows; fp32 silu*mul, one rounding
+  const int gq = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int n = 0; n < N8; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = row0 + wm * 16 + gq + (e >> 1) * 8;
+      const int col = n0 + wn * (BN / WN) + n * 8 + 2 * t4 + (e & 1);
+      if (row < lo || row >= hi || col >= a.N) continue;
+      float v = acc[0][n][e];
+      if (SWIGLU) v = v / (1.f + expf(-v)) * acc[NWT - 1][n][e];
+      out[(long long)row * a.N + col] = from_f<T>(v);
+    }
+  }
+}
+
+template <typename T, int BM, bool SWIGLU>
+cudaError_t launch(const GroupedArgs& a, cudaStream_t s) {
+  constexpr int BK = Slice<T>::BK;
+  constexpr int PAD = 16 / sizeof(T);
+  const size_t smem =
+      sizeof(T) * (size_t)STAGES * ((size_t)BM * (BK + PAD) + (SWIGLU ? 2 : 1) * BK * (BN + PAD));
+  auto kernel = grouped_kernel<T, BM, SWIGLU>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const int tiles_m = (a.M + BM - 1) / BM;
+  const dim3 grid(tiles_m + a.E, (a.N + BN - 1) / BN);
+  kernel<<<grid, NT, smem, s>>>(a);
+  return cudaGetLastError();
+}
+
+template <bool SWIGLU>
+int dispatch(const GroupedArgs* a, int dtype, int block_m, void* stream) {
+  if (a == nullptr || a->M <= 0 || a->K <= 0 || a->N <= 0 || a->E <= 0 ||
+      (a->N + BN - 1) / BN > 65535 || (SWIGLU && a->w3 == nullptr))
+    return cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 1 && block_m == 16) return launch<bf16, 16, SWIGLU>(*a, s);
+  if (dtype == 1 && block_m == 64) return launch<bf16, 64, SWIGLU>(*a, s);
+  if (dtype == 0 && block_m == 16) return launch<float, 16, SWIGLU>(*a, s);
+  if (dtype == 0 && block_m == 64) return launch<float, 64, SWIGLU>(*a, s);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16; block_m: 16 or 64. Each returns a
+// cudaError_t (0 = launched).
+extern "C" int grouped_gmm_launch(const GroupedArgs* a, int dtype, int block_m, void* stream) {
+  return dispatch<false>(a, dtype, block_m, stream);
+}
+
+extern "C" int grouped_swiglu_up_launch(const GroupedArgs* a, int dtype, int block_m,
+                                        void* stream) {
+  return dispatch<true>(a, dtype, block_m, stream);
+}

@@ -10,7 +10,8 @@ Counterpart of ``deepspeed_tpu/inference/v2/engine_v2.py`` (the
     sequence, followed in the same dispatch by ``decode_steps_per_dispatch``
     decode steps of every running sequence) and the fused decode
     (``decode_steps_per_dispatch`` steps, each fed the token sampled by the
-    last). Attention in all three goes through the Hopper paged kernels.
+    last). Attention in all three goes through the Hopper paged kernels;
+    a Mixtral's expert FFN through the grouped-GEMM kernels.
   * Scheduling is the JAX engine's: admit pending requests while slots and
     blocks allow, stream prompts through chunks (or bucketed prefill), then
     batched decode; sequences retire on EOS or max_new_tokens and their
@@ -35,7 +36,7 @@ from .ragged import DSStateManager
 # the ROADMAP Queue 1 serving item that brings them)
 _NOT_YET = {
     "tensor_parallel": ((1,), "tensor parallel"),
-    "expert_parallel": ((1,), "MoE serving (M10)"),
+    "expert_parallel": ((1,), "MoE expert parallel (M10)"),
     "quantize_weights": ((False,), "weight_quant (K7/K9)"),
     "weight_quant": (("auto", False), "weight_quant (K7/K9)"),
     "kv_host_offload": ((False,), "KV host offload"),
@@ -134,11 +135,14 @@ class InferenceEngineV2:
     """``put(uid, prompt)`` then ``step()`` until ``is_done(uid)``;
     ``get(uid)`` returns the generated tokens.
 
-    ``model``: the port's ``Llama`` (moved to ``device`` in
-    ``config.dtype``); ``device`` defaults to the card and raises without
-    one. ``forward_counts`` counts the model forwards each program ran
-    (prefill, chunk, decode step) — with the kernels on, every forward
-    launches one paged kernel per layer."""
+    ``model``: the port's ``Llama`` or ``Mixtral`` (moved to ``device``
+    in ``config.dtype``, every floating parameter cast, the Mixtral router
+    too, as the JAX engine's ``shard_params`` does); ``device`` defaults to
+    the card and raises without one. ``forward_counts`` counts the model
+    forwards each program ran (prefill, chunk, decode step) — with the
+    kernels on, every forward launches one paged kernel per layer, and a
+    Mixtral forward one fused gate/up and one down grouped kernel per
+    layer (``model.grouped_kernel``)."""
 
     def __init__(self, model, config=None, device=None, monitor=None,
                  draft_model=None, **kwargs):

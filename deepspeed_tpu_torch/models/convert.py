@@ -1,9 +1,10 @@
-"""Parameter conversion from the JAX package's Llama and GPT-2 trees.
+"""Parameter conversion from the JAX package's Llama, Mixtral and GPT-2
+trees.
 
 The JAX tree (``jax.tree.map(np.asarray, params)``) and the port's module
 state share names and shapes, so conversion is a dtype/device move:
 ``model.load_state_dict(llama_params_from_numpy(tree, dev, dt))`` (or
-``gpt2_params_from_numpy``).
+``mixtral_params_from_numpy``, ``gpt2_params_from_numpy``).
 """
 
 import numpy as np
@@ -11,12 +12,18 @@ import torch
 
 _TOP = ("wte", "norm_f", "lm_head")
 _BLOCKS = ("rms1", "wq", "wk", "wv", "wo", "rms2", "wgate", "wup", "wdown")
+_MIXTRAL_BLOCKS = ("rms1", "wq", "wk", "wv", "wo", "rms2", "moe_gate",
+                   "moe_w1", "moe_w3", "moe_w2")
 _GPT2_TOP = ("wte", "wpe", "lnf_scale", "lnf_bias")
 _GPT2_BLOCKS = ("ln1_scale", "ln1_bias", "wqkv", "bqkv", "wo", "bo",
                 "ln2_scale", "ln2_bias", "wup", "bup", "wdown", "bdown")
 
 
 def _tensor(a, device, dtype):
+    if hasattr(a, "scale"):
+        raise NotImplementedError(
+            "quantized leaves (int8/int4 weights) are not ported yet "
+            "(weight_quant, K7/K9)")
     a = np.asarray(a)
     if a.dtype.kind == "V" or a.dtype.name == "bfloat16":
         a = a.astype(np.float32)      # ml_dtypes bf16 has no torch view
@@ -41,6 +48,15 @@ def llama_params_from_numpy(tree, device, dtype):
     ``dtype``. Raises on keys the port's Llama does not carry (biases,
     LayerNorm biases, embedding norm, quantized leaves)."""
     return _from_numpy(tree, device, dtype, _TOP, _BLOCKS, "Llama")
+
+
+def mixtral_params_from_numpy(tree, device, dtype):
+    """JAX Mixtral parameter tree of numpy arrays -> the port's state dict
+    (``wte``, ``norm_f``, ``lm_head``, ``blocks.<name>`` with the experts'
+    ``moe_gate``/``moe_w1``/``moe_w3``/``moe_w2``) on ``device`` in
+    ``dtype``. Raises on keys the port's Mixtral does not carry and on
+    quantized leaves."""
+    return _from_numpy(tree, device, dtype, _TOP, _MIXTRAL_BLOCKS, "Mixtral")
 
 
 def gpt2_params_from_numpy(tree, device, dtype):

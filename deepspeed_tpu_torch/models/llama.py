@@ -204,13 +204,14 @@ class Llama(nn.Module):
         std = 0.02
         res_std = std / math.sqrt(2 * L)
 
-        def nrm(shape, s=std):
-            # one leading slice at a time: the fp32 draw never holds a
-            # whole stacked tensor
-            out = torch.empty(shape, dtype=dt, device=dev)
-            for i in range(shape[0]):
-                out[i].copy_(torch.randn(shape[1:], generator=gen,
-                                         device=dev) * s)
+        def nrm(shape, s=std, dtype=dt):
+            # one (rows, cols) slice at a time (one row at a time for a
+            # 2-D table): the fp32 draw never holds a whole stacked tensor
+            out = torch.empty(shape, dtype=dtype, device=dev)
+            flat = out.view(-1, *shape[-2:]) if len(shape) > 2 else out
+            for i in range(flat.shape[0]):
+                flat[i].copy_(torch.randn(flat.shape[1:], generator=gen,
+                                          device=dev) * s)
             return nn.Parameter(out, requires_grad=False)
 
         def ones(shape):
@@ -226,14 +227,22 @@ class Llama(nn.Module):
             "wv": nrm((L, D, kvd)),
             "wo": nrm((L, D, D), res_std),
             "rms2": ones((L, D)),
-            "wup": nrm((L, D, Fd)),
-            "wdown": nrm((L, Fd, D), res_std),
         }
-        if config.mlp_gated:
-            blocks["wgate"] = nrm((L, D, Fd))
+        blocks.update(self._init_mlp(nrm, res_std))
         self.blocks = nn.ParameterDict(blocks)
         if not config.tie_embeddings:
             self.lm_head = nrm((V, D))
+
+    def _init_mlp(self, nrm, res_std):
+        """The blocks' FFN tensors (the dense SwiGLU or plain MLP), drawn
+        with ``nrm(shape, std=0.02, dtype=the model's)``; a subclass with
+        another FFN overrides this."""
+        L, D, Fd = self.config.n_layer, self.config.d_model, \
+            self.config.ffn_dim
+        out = {"wup": nrm((L, D, Fd)), "wdown": nrm((L, Fd, D), res_std)}
+        if self.config.mlp_gated:
+            out["wgate"] = nrm((L, D, Fd))
+        return out
 
     @property
     def dtype(self):

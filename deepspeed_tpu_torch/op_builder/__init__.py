@@ -1,5 +1,5 @@
 from .builder import (CUDAOpBuilder, FlashAttentionBuilder, FusedCEBuilder,
-                      PagedAttentionBuilder, build_all)
+                      GroupedMatmulBuilder, PagedAttentionBuilder, build_all)
 
 __all__ = ["CUDAOpBuilder", "FlashAttentionBuilder", "FusedCEBuilder",
-           "PagedAttentionBuilder", "build_all"]
+           "GroupedMatmulBuilder", "PagedAttentionBuilder", "build_all"]

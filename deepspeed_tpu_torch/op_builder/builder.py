@@ -124,6 +124,11 @@ class FusedCEBuilder(CUDAOpBuilder):
     SOURCES = ("fused_ce.cu",)
 
 
+class GroupedMatmulBuilder(CUDAOpBuilder):
+    NAME = "grouped_matmul"
+    SOURCES = ("grouped_matmul.cu",)
+
+
 def build_all(builders):
     """Build every builder's library with one nvcc per source, all started
     together, and wait for all of them; a failed build raises after every

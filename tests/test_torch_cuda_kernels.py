@@ -1,5 +1,5 @@
 """The Hopper kernels on the card (paged attention, flash attention forward
-and backward, fused CE), held against their plain PyTorch versions at
+and backward, fused CE, the MoE grouped matmuls), held against their plain PyTorch versions at
 small shapes (bf16 against the plain version in fp32
 on the same inputs, chip_smoke.bf16_mismatch; fp32 at 1e-4).
 Marked ``cuda``: skipped without an NVIDIA GPU; on the card run
@@ -14,6 +14,7 @@ import torch
 import chip_smoke
 from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
 from deepspeed_tpu_torch.ops.cuda import fused_ce as fce
+from deepspeed_tpu_torch.ops.cuda import grouped_matmul as gm
 from deepspeed_tpu_torch.ops.cuda import paged_attention as pa
 
 pytestmark = pytest.mark.cuda
@@ -168,3 +169,58 @@ def test_training_kernels_never_take_the_plain_path():
     with pytest.raises(ValueError, match="multiple of 8"):
         fce.unembed_logits_stats(h, h, torch.zeros(4, dtype=torch.long,
                                                    device="cuda"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N,sizes", [
+    (192, 128, 256, [50, 0, 120, 22]),      # uneven + an empty group
+    (192, 128, 256, [192, 0, 0, 0]),        # every row on one expert
+    (192, 128, 256, [0, 0, 0, 0]),          # all groups empty
+    (192, 128, 256, [40, 30, 0, 10]),       # a tail of 112 rows
+    (16, 256, 320, [2, 3, 1, 2, 4, 1, 2, 1]),   # decode: BM = 16
+    (100, 100, 90, [30, 20, 10, 35]),       # ragged K and N
+])
+def test_grouped_kernels(dtype, M, K, N, sizes):
+    rs = np.random.RandomState(4)
+    E = len(sizes)
+    x = _rand(rs, (M, K), dtype)
+    w1, w3 = ((_rand(rs, (E, K, N), torch.float32) * 0.1).to(dtype)
+              for _ in range(2))
+    gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+    n0 = dict(gm.LAUNCHES)
+    out = gm.grouped_matmul(x, w1, gs)
+    h = gm.grouped_swiglu_up(x, w1, w3, gs)
+    torch.cuda.synchronize()
+    assert gm.LAUNCHES["grouped_gmm"] == n0["grouped_gmm"] + 1
+    assert gm.LAUNCHES["grouped_swiglu_up"] == n0["grouped_swiglu_up"] + 1
+    live = sum(sizes)
+    assert torch.all(out[live:] == 0) and torch.all(h[live:] == 0)
+    f32 = [t.float() for t in (x, w1, w3)]
+    refs = (gm.grouped_matmul_reference(f32[0], f32[1], gs),
+            gm.grouped_swiglu_up_reference(*f32, gs))
+    for got, ref in zip((out, h), refs):
+        if live:
+            _assert_close(got[:live], ref[:live], dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_matmul_transposed_view(dtype):
+    """w as a transposed (E, N, K) view goes through the strided loads."""
+    rs = np.random.RandomState(5)
+    x = _rand(rs, (96, 80), dtype)
+    w = (_rand(rs, (3, 72, 80), torch.float32) * 0.1).to(dtype)
+    gs = torch.tensor([30, 0, 50], dtype=torch.int32, device="cuda")
+    out = gm.grouped_matmul(x, w.transpose(1, 2), gs)
+    torch.cuda.synchronize()
+    ref = gm.grouped_matmul_reference(x.float(), w.float().transpose(1, 2),
+                                      gs)
+    _assert_close(out[:80], ref[:80], dtype)
+    assert torch.all(out[80:] == 0)
+
+
+def test_grouped_kernels_never_take_the_plain_path():
+    x = torch.zeros(4, 16, device="cuda", dtype=torch.float16)
+    gs = torch.tensor([4], dtype=torch.int32, device="cuda")
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        gm.grouped_matmul(x, torch.zeros(1, 16, 8, device="cuda",
+                                         dtype=torch.float16), gs)

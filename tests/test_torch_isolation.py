@@ -15,8 +15,9 @@ import pytest
 import torch
 
 import deepspeed_tpu_torch
-from deepspeed_tpu_torch import GPT2, GPT2Config, InferenceEngineV2, Llama
-from deepspeed_tpu_torch.models import LLAMA_TINY
+from deepspeed_tpu_torch import (GPT2, GPT2Config, InferenceEngineV2, Llama,
+                                 Mixtral)
+from deepspeed_tpu_torch.models import LLAMA_TINY, MIXTRAL_TINY
 from deepspeed_tpu_torch.op_builder import builder
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -66,15 +67,17 @@ import dataclasses
 import numpy as np
 import torch
 from deepspeed_tpu_torch import (GPT2, GPT2Config, InferenceEngineV2, Llama,
-                                 initialize)
-from deepspeed_tpu_torch.models import LLAMA_TINY
-cfg = dataclasses.replace(LLAMA_TINY, dtype="float32")
-eng = InferenceEngineV2(Llama(cfg, device="cpu"),
-                        dict(dtype="float32", kv_block_size=8,
-                             max_batch_size=2, splitfuse_tokens=8),
-                        device="cpu")
-out = eng.generate_all([np.arange(5), np.arange(12)], max_new_tokens=3)
-assert [len(o) for o in out] == [3, 3]
+                                 Mixtral, initialize)
+from deepspeed_tpu_torch.models import LLAMA_TINY, MIXTRAL_TINY
+for model in (Llama(dataclasses.replace(LLAMA_TINY, dtype="float32"),
+                    device="cpu"),
+              Mixtral(dataclasses.replace(MIXTRAL_TINY, dtype="float32"),
+                      device="cpu")):
+    eng = InferenceEngineV2(model, dict(dtype="float32", kv_block_size=8,
+                                        max_batch_size=2, splitfuse_tokens=8),
+                            device="cpu")
+    out = eng.generate_all([np.arange(5), np.arange(12)], max_new_tokens=3)
+    assert [len(o) for o in out] == [3, 3]
 gcfg = GPT2Config(n_layer=2, n_head=2, d_model=64, max_seq_len=32,
                   vocab_size=128, dtype="float32", use_flash_attention=True,
                   remat=True, remat_policy="save_flash", loss_chunk=8,
@@ -104,6 +107,8 @@ def test_no_silent_cpu_fallback(monkeypatch):
     cfg = dataclasses.replace(LLAMA_TINY, dtype="float32")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Llama(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Mixtral(dataclasses.replace(MIXTRAL_TINY, dtype="float32"))
     model = Llama(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         InferenceEngineV2(model, dict(dtype="float32", kv_block_size=8))
@@ -140,7 +145,8 @@ def test_training_rejects_unported_config():
 def test_engine_rejects_unported_config():
     model = Llama(dataclasses.replace(LLAMA_TINY, dtype="float32"),
                   device="cpu")
-    for over in (dict(tensor_parallel=2), dict(weight_quant="int8"),
+    for over in (dict(tensor_parallel=2), dict(expert_parallel=2),
+                 dict(weight_quant="int8"),
                  dict(quantize_weights=True), dict(kv_host_offload=True),
                  dict(prefix_cache=True), dict(spec_draft=True),
                  dict(telemetry=True)):
@@ -154,7 +160,8 @@ def test_engine_rejects_unported_config():
 class TestOpBuilder:
     @pytest.mark.parametrize("cls,name", [
         (builder.FlashAttentionBuilder, "flash_attention"),
-        (builder.FusedCEBuilder, "fused_ce")])
+        (builder.FusedCEBuilder, "fused_ce"),
+        (builder.GroupedMatmulBuilder, "grouped_matmul")])
     def test_training_builders(self, cls, name):
         b = cls()
         assert b.so_path() == os.path.join(
