@@ -46,12 +46,27 @@ Phases (any failure raises and the script exits nonzero):
      seeded generator, bf16) serve phase 4's 8 requests; every request
      returns 64 tokens, each grouped kernel launches once per layer and
      forward, the paged kernels as in phase 4.
-Then one JSON line of per-kernel numbers, and last the result line
+ 11. MoE backward kernels: grouped_tgmm (K8's _tgmm) at the GPT2MoE 350M
+     shapes (49152 routed rows, E=4, (K, N) = (1024, 4096) and (4096,
+     1024); an empty expert and a row tail), bf16 against its plain
+     version in fp32 slab by slab, fp32 at 1e-4, a control that must fail;
+     the dx product through a transposed view of w; each timed beside its
+     bound, plain version and one library call; the grouped_swiglu
+     backward at Mixtral-8x7B expert widths against its plain version.
+ 12. MoE training parity: a small fp32 GPT2MoE gives the same loss, aux and
+     gradients with the grouped kernels on and off.
+ 13. MoE training slice: initialize(GPT2MoE over the 350M widths, E=4,
+     top-2, the bench config) and 10 train_batch steps on one fixed batch;
+     the loss falls and the launch counts are what the dispatches imply
+     (per layer and step: 6 gmm, 4 tgmm, one flash forward and backward).
+Then one JSON line of per-kernel numbers (launches summed over the main
+paths that ran each kernel, and per path), and last the result line
 {"ok": true, "device": {...}}. Without a CUDA device it exits 2 and prints
 no result. ``--profile PATH`` also writes torch.profiler breakdowns of the
 serving slice's device time to PATH, of three extra training steps to
-PATH with "-train" before its extension and of the MoE slice with "-moe"
-(profiled timings include the profiler's overhead).
+PATH with "-train" before its extension, of the MoE slice with "-moe" and
+of three extra MoE training steps with "-moe-train" (profiled timings
+include the profiler's overhead).
 """
 
 import argparse
@@ -99,6 +114,7 @@ SOURCES = {
     "fused_ce": "deepspeed_tpu_torch/csrc/fused_ce.cu",
     "grouped_swiglu_up": "deepspeed_tpu_torch/csrc/grouped_matmul.cu",
     "grouped_gmm": "deepspeed_tpu_torch/csrc/grouped_matmul.cu",
+    "grouped_tgmm": "deepspeed_tpu_torch/csrc/grouped_matmul.cu",
 }
 REPLACES = {
     "paged_decode": "deepspeed_tpu/ops/pallas/paged_attention.py:121",
@@ -108,6 +124,7 @@ REPLACES = {
     "fused_ce": "deepspeed_tpu/ops/pallas/fused_ce.py:44",
     "grouped_swiglu_up": "deepspeed_tpu/ops/pallas/grouped_matmul.py:182",
     "grouped_gmm": "deepspeed_tpu/ops/pallas/grouped_matmul.py:115",
+    "grouped_tgmm": "deepspeed_tpu/ops/pallas/grouped_matmul.py:246",
 }
 
 
@@ -1036,8 +1053,8 @@ def phase_moe_parity():
                 prompt_bucket=64, splitfuse_tokens=splitfuse), device="cuda")
             streams[gk] = eng.generate_all(prompts, max_new_tokens=24)
             n = cfg.n_layer * sum(eng.forward_counts.values()) if gk else 0
-            assert gm.LAUNCHES == {"grouped_swiglu_up": n,
-                                   "grouped_gmm": n}, (gk, dict(gm.LAUNCHES))
+            assert gm.LAUNCHES == {"grouped_swiglu_up": n, "grouped_gmm": n,
+                                   "grouped_tgmm": 0}, (gk, dict(gm.LAUNCHES))
         for a, b in zip(streams[True], streams[False]):
             np.testing.assert_array_equal(a, b)
         log(f"MoE parity ok (splitfuse={splitfuse}): grouped kernels on == "
@@ -1125,6 +1142,7 @@ def phase_moe_slice(seed=0, n_layer=24, profile=None):
             "paged_chunk": n_layer * (fc["chunk"] + fc["prefill"]),
             "grouped_swiglu_up": n_layer * forwards,
             "grouped_gmm": n_layer * forwards}
+    assert launches.pop("grouped_tgmm") == 0, "serving ran a backward kernel"
     assert launches == want and min(launches.values()) > 0, (launches, want)
 
     hist = [s.tolist() for s in first_decode]
@@ -1144,7 +1162,356 @@ def phase_moe_slice(seed=0, n_layer=24, profile=None):
     del eng, model
     gc.collect()
     torch.cuda.empty_cache()
-    return {k: launches[k] for k in gm.LAUNCHES}
+    return {k: launches[k] for k in ("grouped_swiglu_up", "grouped_gmm")}
+
+
+# ------------------------------------------------------ MoE backward kernels
+
+
+def slab_rel_norm(out, ref):
+    """The worst leading-dim slab's relative error norm of ``out`` vs the
+    fp32 ``ref`` (an all-zero slab of ``ref`` must come out exactly 0)."""
+    diff = (out.float() - ref).flatten(1)
+    den = torch.linalg.vector_norm(ref.flatten(1), dim=-1)
+    num = torch.linalg.vector_norm(diff, dim=-1)
+    assert bool((num[den == 0] == 0).all()), "an empty slab is not 0"
+    live = den > 0
+    return (num[live] / den[live]).max().item() if bool(live.any()) else 0.0
+
+
+def tgmm_library(x, dy, sizes, ref):
+    """(fn, name): one PyTorch call computing the per-expert x^T dy, timed
+    as a yardstick only: ``torch._grouped_mm`` in its 2-D x 2-D form with
+    offsets over the contracted row dim where this torch takes it (checked
+    against ``ref``), else a cuBLAS matmul per expert."""
+    gmm_op = getattr(torch, "_grouped_mm", None)
+    why = "torch has no _grouped_mm"
+    if gmm_op is not None:
+        xt = x.t()                          # (K, M), a column-major view
+        offs = torch.tensor(np.cumsum(sizes), dtype=torch.int32,
+                            device="cuda")
+        try:
+            got = gmm_op(xt, dy, offs=offs)
+            torch.cuda.synchronize()
+            rel = slab_rel_norm(got, ref)
+            if rel <= BF16_REL_NORM:
+                return (lambda: gmm_op(xt, dy, offs=offs)), \
+                    "torch._grouped_mm (2-D x 2-D, offsets over rows)"
+            why = f"torch._grouped_mm 2-D x 2-D disagrees ({rel:.3g})"
+        except RuntimeError as e:      # this build refuses the 2-D form
+            why = f"torch._grouped_mm 2-D x 2-D refused: {str(e)[:120]}"
+    ends = np.cumsum(sizes)
+    out = torch.empty(len(sizes), x.shape[1], dy.shape[1], dtype=x.dtype,
+                      device="cuda")
+
+    def loop():
+        for e, hi in enumerate(ends):
+            torch.mm(x[hi - sizes[e]:hi].t(), dy[hi - sizes[e]:hi],
+                     out=out[e])
+        return out
+    return loop, f"cuBLAS torch.mm per expert ({why})"
+
+
+def tgmm_bound(M, K, N, E, sizes):
+    """x and dy read once, dw written once; operations on the rows inside
+    the groups only."""
+    live = min(sum(sizes), M)
+    return bound((M * K + M * N + E * K * N) * 2 + E * 4,
+                 2 * live * K * N)
+
+
+def phase_moe_backward_kernels(gm, seed=0, tokens=24576, E=4, k=2):
+    """K8's backward at the GPT2MoE 350M training shapes (24 x 1024 tokens,
+    top-2 of 4 experts: 49152 routed rows): grouped_tgmm at (K, N) =
+    (1024, 4096) and (4096, 1024), bf16 against its plain version in fp32
+    (every expert slab's relative error norm within BF16_REL_NORM), fp32 at
+    1e-4, an empty expert exactly 0, a control (one expert's rows shifted
+    by a 64-row tile) that must fail; the dx product through a transposed
+    view of w; each timed beside its bound, plain version and one library
+    call. Then the grouped_swiglu backward at Mixtral-8x7B expert widths
+    (512 rows) against its plain version. Returns the tgmm row and the two
+    dx-view timings."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def randn(shape, dtype=bf, s=1.0):
+        return (torch.randn(shape, generator=g, device="cuda") * s).to(dtype)
+
+    rs = np.random.RandomState(seed)
+    sizes = routed_sizes(rs, tokens, E, k)
+    M = tokens * k
+    gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+    tail_sizes = [15000, 0, 20000, 10000]     # empty expert, 4152-row tail
+    tail_gs = torch.tensor(tail_sizes, dtype=torch.int32, device="cuda")
+    rows, worst, err = {}, 0.0, 0.0
+    for K, N in ((1024, 4096), (4096, 1024)):
+        x, dy = randn((M, K)), randn((M, N))
+        for sz, gsz in ((sizes, gs), (tail_sizes, tail_gs)):
+            out = gm.grouped_tgmm(x, dy, gsz)
+            ref = gm.grouped_tgmm_reference(x.float(), dy.float(), gsz)
+            torch.cuda.synchronize()
+            assert torch.isfinite(out).all(), f"tgmm {K}x{N}: non-finite"
+            rel = slab_rel_norm(out, ref)
+            assert rel <= BF16_REL_NORM, f"tgmm {K}x{N} {sz}: slab {rel:.3g}"
+            worst = max(worst, rel)
+            err = max(err, (out.float() - ref).abs().max().item())
+            for e, n in enumerate(sz):
+                if n == 0:
+                    assert (out[e] == 0).all(), f"tgmm: empty expert {e}"
+        # control: expert 0's rows taken one 64-row tile late
+        ctrl = ref.clone()
+        late = slice(64, sizes[0] + 64)
+        ctrl[0] = x[late].float().t() @ dy[late].float()
+        crel = slab_rel_norm(ctrl.to(bf), ref)
+        assert crel > BF16_REL_NORM, "tgmm check let a shifted group pass"
+        # fp32 (scaled so the 12k-row sums stay O(1)) at FP32_TOL
+        x32, dy32 = x.float() * 0.1, dy.float() * 0.1
+        for gsz in (gs, tail_gs):
+            torch.testing.assert_close(
+                gm.grouped_tgmm(x32, dy32, gsz),
+                gm.grouped_tgmm_reference(x32, dy32, gsz), **FP32_TOL)
+        del x32, dy32, ctrl
+        ref = gm.grouped_tgmm_reference(x.float(), dy.float(), gs)
+        lib, lib_name = tgmm_library(x, dy, sizes, ref)
+        del ref
+        # the dx product: dy (M, N) times w^T, a transposed (E, N, K) view
+        w = randn((E, K, N), s=0.02)
+        wt = w.transpose(1, 2)
+        dx = gm.grouped_matmul(dy, wt, gs)
+        dx_ref = gm.grouped_matmul_reference(dy.float(), wt.float(), gs)
+        why = bf16_mismatch(dx, dx_ref)
+        assert why is None, f"dx view {K}x{N}: {why}"
+        dx_err = bf16_errors(dx, dx_ref)
+        del dx, dx_ref
+        dx_lib, dx_lib_name = grouped_library(dy, wt, sizes)
+        tag = f"{M} rows, (K, N) = ({K}, {N})"
+        r = dict(
+            ms=time_ms(lambda: gm.grouped_tgmm(x, dy, gs), 10),
+            plain_ms=time_ms(lambda: gm.grouped_tgmm_reference(x, dy, gs), 3),
+            library_ms=time_ms(lib, 10), bound=tgmm_bound(M, K, N, E, sizes),
+            shape=tag, library=lib_name)
+        dxv = dict(
+            ms=time_ms(lambda: gm.grouped_matmul(dy, wt, gs), 10),
+            contiguous_ms=time_ms(lambda: gm.grouped_matmul(
+                dy, wt.contiguous(), gs), 10),
+            plain_ms=time_ms(lambda: gm.grouped_matmul_reference(
+                dy, wt, gs), 3),
+            library_ms=time_ms(dx_lib, 10),
+            bound_ms=grouped_bound(M, N, K, sizes, 1)[0],
+            max_abs_err=dx_err[1], shape=tag, library=dx_lib_name)
+        log(f"MoE backward {tag}, sizes {sizes}: tgmm {r['ms']:.4f} ms "
+            f"(plain {r['plain_ms']:.4f}, library {r['library_ms']:.4f} "
+            f"[{lib_name}], bound {r['bound'][0]:.4f} by {r['bound'][1]}); "
+            f"dx view gmm {dxv['ms']:.4f} ms (same product on a contiguous "
+            f"copy {dxv['contiguous_ms']:.4f}, plain {dxv['plain_ms']:.4f}, "
+            f"library {dxv['library_ms']:.4f} [{dx_lib_name}], bound "
+            f"{dxv['bound_ms']:.4f}); control: expert 0 a tile late fails "
+            f"(slab relative error norm {crel:.3g})")
+        rows[(K, N)] = (r, dxv)
+        del x, dy, w, wt
+        torch.cuda.empty_cache()
+    log(f"grouped_tgmm checks ok: worst bf16 slab relative error norm "
+        f"{worst:.3g}, fp32 at 1e-4, empty expert 0")
+
+    # the grouped_swiglu backward at Mixtral-8x7B expert widths
+    D, Fd, Em = 4096, 14336, 8
+    msz = routed_sizes(rs, 256, Em, 2)
+    mgs = torch.tensor(msz, dtype=torch.int32, device="cuda")
+    x = randn((512, D))
+    w1, w3 = (randn((Em, D, Fd), s=0.02) for _ in range(2))
+    w2 = randn((Em, Fd, D), s=0.02)
+    dy = randn((512, D))
+    ps = [t.detach().requires_grad_() for t in (x, w1, w3, w2)]
+    got = torch.autograd.grad(gm.grouped_swiglu(*ps, mgs), ps, dy)
+    ref = gm.grouped_swiglu_backward_reference(
+        *(t.float() for t in (x, w1, w3, w2)), mgs, dy.float())
+    for name, a, b in zip(("dx", "dw1", "dw3", "dw2"), got, ref):
+        assert torch.isfinite(a).all(), f"swiglu backward {name}"
+        rel = (grad_rel_norm(a[None], b[None]) if name == "dx"
+               else slab_rel_norm(a, b))
+        assert rel <= BF16_GRAD_REL_NORM, f"swiglu backward {name}: {rel:.3g}"
+    log(f"grouped_swiglu backward ok at D={D}, F={Fd}, E={Em}, 512 rows "
+        f"(sizes {msz}): dx and every expert slab within "
+        f"{BF16_GRAD_REL_NORM} of the plain backward in fp32")
+    del x, w1, w3, w2, dy, ps, got, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    main_r, main_dx = rows[(1024, 4096)]
+    main_r["max_abs_err"] = err
+    main_r["other"] = {k: rows[(4096, 1024)][0][k] for k in
+                       ("ms", "plain_ms", "library_ms", "shape")}
+    main_r["other"]["bound_ms"] = rows[(4096, 1024)][0]["bound"][0]
+    return main_r, [main_dx, rows[(4096, 1024)][1]]
+
+
+# ------------------------------------------------------ MoE training parity
+
+
+def moe_cfg(base, **over):
+    from deepspeed_tpu_torch import GPT2MoEConfig
+    return GPT2MoEConfig(**{**dataclasses.asdict(base), **over})
+
+
+def phase_moe_train_parity(seed=0):
+    """Small fp32 GPT2MoE (2 layers, E=4, top-2, save_flash, fused CE
+    kernel): the grouped kernels on and off give the same loss, aux and
+    every gradient (relative error norm 1e-4); the grouped kernels launch
+    only when on, 6 gmm and 4 tgmm per layer."""
+    from deepspeed_tpu_torch import GPT2Config, GPT2MoE
+    from deepspeed_tpu_torch.ops.cuda import grouped_matmul as gm
+    base = GPT2Config(n_layer=2, n_head=2, d_model=128, max_seq_len=256,
+                      vocab_size=1000, dtype="float32", loss_chunk=100,
+                      fused_loss=True, fused_loss_kernel=True,
+                      use_flash_attention=True, remat=True,
+                      remat_policy="save_flash")
+    ids = torch.from_numpy(np.random.RandomState(seed).randint(
+        0, 1000, (4, 256))).cuda()
+    out = {}
+    for on in (True, False):
+        cfg = moe_cfg(base, num_experts=4, moe_top_k=2, moe_backend="ragged",
+                      moe_grouped_kernel=on)
+        model = GPT2MoE(cfg, device="cuda", seed=seed)
+        gm.reset_launch_counts()
+        loss = model.loss({"input_ids": ids})
+        loss.backward()
+        torch.cuda.synchronize()
+        launched = dict(gm.LAUNCHES)
+        n = cfg.n_layer if on else 0
+        want = {"grouped_swiglu_up": 0, "grouped_gmm": 6 * n,
+                "grouped_tgmm": 4 * n}
+        assert launched == want, (on, launched, want)
+        with torch.no_grad():
+            aux = model.hidden_with_aux(ids)[1].item()
+        out[on] = (loss.item(), aux, {n: p.grad for n, p in
+                                      model.named_parameters()})
+    (l_on, a_on, g_on), (l_off, a_off, g_off) = out[True], out[False]
+    assert abs(l_on - l_off) <= 1e-5 * abs(l_off), (l_on, l_off)
+    assert abs(a_on - a_off) <= 1e-5 * abs(a_off), (a_on, a_off)
+    worst = 0.0
+    for n, g in g_off.items():
+        rel = (torch.linalg.vector_norm(g_on[n] - g)
+               / torch.linalg.vector_norm(g)).item()
+        assert rel <= 1e-4, (n, rel)
+        worst = max(worst, rel)
+    log(f"MoE training parity ok: grouped kernels on vs off, loss "
+        f"{l_on:.7f} vs {l_off:.7f}, aux {a_on:.7f} vs {a_off:.7f}, worst "
+        f"gradient relative error norm {worst:.3g}")
+
+
+# ------------------------------------------------------- MoE training slice
+
+
+def active_flops_per_token(cfg):
+    """Training flops per token counting the k routed experts only:
+    6 * (non-embedding params - L (E - k) expert params) + 12 L D T (the
+    ``flops_per_token`` formula with k of E experts active)."""
+    expert = 2 * cfg.d_model * cfg.d_ff + cfg.d_ff + cfg.d_model
+    active = (cfg.num_params() - cfg.vocab_size * cfg.d_model
+              - cfg.n_layer * (cfg.num_experts - cfg.moe_top_k) * expert)
+    return 6 * active + 12 * cfg.n_layer * cfg.d_model * cfg.max_seq_len
+
+
+def phase_moe_train_slice(seed=0, steps=10, profile=None):
+    """GPT2MoE over the 350M widths (E=4, top-2, ragged, the grouped kernels
+    on) through initialize -> train_batch with the bench config
+    (benchmarks/bench_engine.py:46-92, :182-206), 10 steps on one fixed
+    numpy-seeded batch."""
+    from deepspeed_tpu_torch import GPT2_PRESETS, GPT2MoE, initialize
+    from deepspeed_tpu_torch.moe import sharded_moe as sm
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+    from deepspeed_tpu_torch.ops.cuda import fused_ce as fce
+    from deepspeed_tpu_torch.ops.cuda import grouped_matmul as gm
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated()
+    assert left < 1e9, f"earlier phases left {left / 1e9:.2f} GB allocated"
+    cfg = moe_cfg(
+        GPT2_PRESETS["350M"], max_seq_len=1024, use_flash_attention=True,
+        flash_block_q=1024, flash_block_k=1024, flash_block_h=1,
+        remat=True, remat_policy="save_flash", loss_chunk=512,
+        fused_loss=True, fused_loss_kernel=True, num_experts=4, moe_top_k=2,
+        moe_backend="ragged")
+    t0 = time.perf_counter()
+    engine, _, _, _ = initialize(
+        model=GPT2MoE(cfg, device="cuda", seed=seed),
+        config={"train_micro_batch_size_per_gpu": 24,
+                "gradient_accumulation_steps": 1, "steps_per_print": 0,
+                "optimizer": {"type": "AdamW",
+                              "params": {"lr": 2e-4, "weight_decay": 0.01}},
+                "gradient_clipping": 1.0, "bf16": {"enabled": True},
+                "zero_optimization": {"stage": 2}})
+    torch.cuda.synchronize()
+    bsz = engine.config.train_batch_size
+    log(f"gpt2moe-350M (E=4, top-2) engine built in "
+        f"{time.perf_counter() - t0:.1f} s: {cfg.num_params() / 1e6:.1f}M "
+        f"params, batch {bsz} x 1024, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    batch = {"input_ids": np.random.RandomState(seed).randint(
+        0, cfg.vocab_size, (bsz, cfg.max_seq_len)).astype(np.int32)}
+
+    # the group sizes of step 1's forward, one per layer (device tensors:
+    # no sync inside the step)
+    first_step = []
+    sort = sm.sort_by_expert
+
+    def recording_sort(experts, E):
+        order, sizes = sort(experts, E)
+        if len(first_step) < cfg.n_layer:
+            first_step.append(sizes)
+        return order, sizes
+
+    torch.cuda.reset_peak_memory_stats()
+    for mod in (fa, fce, gm):
+        mod.reset_launch_counts()
+    losses, times = [], []
+    sm.sort_by_expert = recording_sort
+    try:
+        for _ in range(steps):
+            t1 = time.perf_counter()
+            losses.append(float(engine.train_batch(batch)))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+    finally:
+        sm.sort_by_expert = sort
+    launches = {**fa.LAUNCHES, **fce.LAUNCHES, **gm.LAUNCHES}
+    L = cfg.n_layer
+    # per layer and step: 2 forward gmm, 2 re-run by save_flash's backward,
+    # 2 dx gmm; 4 tgmm (wi, wo and their biases' per-expert row sums)
+    want = {"flash_fwd": L * steps, "flash_bwd": L * steps,
+            "fused_ce": 2 * steps, "grouped_swiglu_up": 0,
+            "grouped_gmm": 6 * L * steps, "grouped_tgmm": 4 * L * steps}
+    assert launches == want, (launches, want)
+    assert all(math.isfinite(x) for x in losses), losses
+    assert losses[-1] < losses[0], losses
+    load = [s.tolist() for s in first_step]
+    assert len(load) == L and all(sum(s) == bsz * 1024 * 2 for s in load)
+    step_s = float(np.median(times[1:]))
+    tokens = bsz * cfg.max_seq_len
+    stats = dict(
+        steps=steps, losses=losses, step_s=times,
+        step_s_median_after_first=step_s, tokens_per_s=tokens / step_s,
+        active_flops_per_token=active_flops_per_token(cfg),
+        model_tflops_per_s_active=active_flops_per_token(cfg) * tokens
+        / step_s / 1e12,
+        model_tflops_per_s_config_formula=cfg.flops_per_token() * tokens
+        / step_s / 1e12,
+        launches=launches,
+        max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+        first_step_expert_load_min_max=[[min(s), max(s)] for s in load])
+    log("moe train slice " + json.dumps(stats))
+    if profile:
+        acts = [torch.profiler.ProfilerActivity.CUDA]
+        t1 = time.perf_counter()
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(3):
+                engine.train_batch(batch)
+            torch.cuda.synchronize()
+        write_profile(prof, profile, time.perf_counter() - t1)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main(argv=None):
@@ -1201,30 +1568,43 @@ def main(argv=None):
         log(f"phase {name} took {now - t_phase:.1f} s")
         t_phase = now
 
+    # launch counts of each main path, read right after it ran
+    paths = {}
     rows = phase_kernels(pa)
     phase_parity()
-    launches = phase_slice(profile=args.profile)
+    paths["llama-serve"] = phase_slice(profile=args.profile)
     phase_done("1-4 (serving)")
     rows.update(phase_train_kernels(fa, fce))
     phase_train_parity()
-    launches.update(phase_train_slice(profile=profile_path("train")))
+    paths["gpt2-train"] = phase_train_slice(profile=profile_path("train"))
     phase_done("5-7 (training)")
     rows.update(phase_moe_kernels(gm))
     phase_done("8 (MoE kernels)")
     phase_moe_parity()
     phase_done("9 (MoE parity)")
-    launches.update(phase_moe_slice(profile=profile_path("moe")))
+    paths["mixtral-serve"] = phase_moe_slice(profile=profile_path("moe"))
     phase_done("10 (MoE slice)")
+    rows["grouped_tgmm"], rows["grouped_gmm"]["dx_view"] = \
+        phase_moe_backward_kernels(gm)
+    phase_done("11 (MoE backward kernels)")
+    phase_moe_train_parity()
+    phase_done("12 (MoE training parity)")
+    paths["gpt2moe-train"] = phase_moe_train_slice(
+        profile=profile_path("moe-train"))
+    phase_done("13 (MoE training slice)")
 
     kernels = []
     for name, r in rows.items():
+        by_path = {p: c[name] for p, c in paths.items() if c.get(name)}
+        assert by_path, f"{name}: no main path launched it"
         row = dict(
             name=name, route="cuda", source=SOURCES[name],
-            replaces=REPLACES[name], launches=launches[name],
-            max_abs_err=r["max_abs_err"], ms=r["ms"], kernel_ms=r["ms"],
-            plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
-            bound_by=r["bound"][1], library_ms=r["library_ms"])
-        for extra in ("shape", "chunk"):
+            replaces=REPLACES[name], launches=sum(by_path.values()),
+            launches_by_path=by_path, max_abs_err=r["max_abs_err"],
+            ms=r["ms"], kernel_ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound"][0], bound_by=r["bound"][1],
+            library_ms=r["library_ms"])
+        for extra in ("shape", "chunk", "other", "dx_view", "library"):
             if extra in r:
                 row[extra] = r[extra]
         kernels.append(row)

@@ -4,8 +4,9 @@ Imports torch and never jax; nothing of the JAX package is imported."""
 
 from .inference.v2 import InferenceEngineV2, RaggedInferenceEngineConfig
 from .models import (GPT2, GPT2_PRESETS, LLAMA_PRESETS, MIXTRAL_8X7B,
-                     MIXTRAL_TINY, GPT2Config, Llama, LlamaConfig, Mixtral,
-                     MixtralConfig, gpt2_params_from_numpy,
+                     MIXTRAL_TINY, GPT2Config, GPT2MoE, GPT2MoEConfig, Llama,
+                     LlamaConfig, Mixtral, MixtralConfig,
+                     gpt2_moe_params_from_numpy, gpt2_params_from_numpy,
                      llama_params_from_numpy, mixtral_params_from_numpy)
 from .runtime.config import DeepSpeedConfig
 from .runtime.engine import DeepSpeedEngine
@@ -21,9 +22,9 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
 
     Returns the reference's 4-tuple ``(engine, optimizer, dataloader,
     lr_scheduler)``; the dataloader is None. ``model`` is a module with
-    ``loss(batch)`` (``deepspeed_tpu_torch.GPT2``) whose parameters are the
-    initial weights; ``device`` defaults to the card and raises without
-    one."""
+    ``loss(batch)`` (``deepspeed_tpu_torch.GPT2``, ``GPT2MoE``) whose
+    parameters are the initial weights; ``device`` defaults to the card and
+    raises without one."""
     if config is None:
         config = config_params
     if config is None and args is not None:
@@ -41,8 +42,9 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
 
 
 __all__ = ["InferenceEngineV2", "RaggedInferenceEngineConfig", "GPT2",
-           "GPT2_PRESETS", "GPT2Config", "LLAMA_PRESETS", "Llama",
-           "LlamaConfig", "MIXTRAL_8X7B", "MIXTRAL_TINY", "Mixtral",
-           "MixtralConfig", "gpt2_params_from_numpy",
+           "GPT2_PRESETS", "GPT2Config", "GPT2MoE", "GPT2MoEConfig",
+           "LLAMA_PRESETS", "Llama", "LlamaConfig", "MIXTRAL_8X7B",
+           "MIXTRAL_TINY", "Mixtral", "MixtralConfig",
+           "gpt2_moe_params_from_numpy", "gpt2_params_from_numpy",
            "llama_params_from_numpy", "mixtral_params_from_numpy",
            "DeepSpeedConfig", "DeepSpeedEngine", "initialize"]

@@ -5,13 +5,18 @@
 //                           _gmm_kernel (via _gmm, forward, trans_w=False).
 //   out[s, n] = sum_k x[s, k] w[g(s), k, n], fp32 accumulation, one rounding
 //   to the output dtype. w is addressed through its (e, k, n) strides, so a
-//   transposed view (the dx product of training) needs no second kernel;
-//   w with a unit n stride is staged with 16-byte cp.async, any other
-//   stride element by element.
+//   transposed view (the dx product of training) needs no second kernel:
+//   w with a unit n stride is staged [k][n] with 16-byte cp.async; w with
+//   a unit k stride (the transposed view) is staged [n][k], also with
+//   16-byte cp.async, and its B fragments come by plain ldmatrix; any
+//   other stride is staged element by element.
 // grouped_swiglu_up_kernel  replaces _swiglu_up_kernel (via _swiglu_up).
 //   h = silu(x w1[g]) * (x w3[g]): one staged x tile feeds both products;
 //   the silu*mul epilogue runs in fp32 and rounds h once (as
 //   grouped_matmul.py:204-210).
+// grouped_tgmm_kernel       replaces _tgmm_kernel (via _tgmm, the weight
+//   gradient of training): dw[e, k, n] = sum over group e's rows s of
+//   x[s, k] dy[s, n], fp32 accumulation, one rounding (see its comment).
 //
 // Rows are sorted by group; group_sizes (E,) int32 stays in device memory
 // (no host sync). The grid is (tiles_m + E logical tiles) x (N / 64 column
@@ -55,8 +60,18 @@ struct GroupedArgs {
   void* out;               // (M, N) contiguous
   long long sw_e, sw_k, sw_n;  // w strides in elements
   int M, K, N, E;
-  int vec_x;  // x rows may be staged as 16-byte vectors
-  int vec_w;  // w rows (unit n stride) may be staged as 16-byte vectors
+  int vec_x;     // x rows may be staged as 16-byte vectors
+  int vec_w;     // w's unit-stride rows may be staged as 16-byte vectors
+  int w_kmajor;  // gmm only: w has a unit k stride (a transposed view)
+};
+
+struct TgmmArgs {
+  const void* x;           // (M, K) contiguous
+  const void* dy;          // (M, N) contiguous
+  const int* group_sizes;  // (E,) int32, device memory
+  void* out;               // (E, K, N) contiguous
+  int M, K, N, E;
+  int vec_x, vec_dy;       // rows may be staged as 16-byte vectors
 };
 
 namespace {
@@ -99,6 +114,14 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t& r0, uint32_t& r1, uint32
                : "r"(s));
 }
 
+__device__ __forceinline__ void ldsm_x4(uint32_t& r0, uint32_t& r1, uint32_t& r2, uint32_t& r3,
+                                        const bf16* p) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(s));
+}
+
 __device__ __forceinline__ void mma16816(float* c, uint32_t a0, uint32_t a1, uint32_t a2,
                                          uint32_t a3, uint32_t b0, uint32_t b1) {
   asm volatile(
@@ -108,41 +131,52 @@ __device__ __forceinline__ void mma16816(float* c, uint32_t a0, uint32_t a1, uin
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-// C (16 x 8*N8) += A (16 x BK, row-major [m][k]) * B (BK x 8*N8, row-major
-// [k][n]); lane 4g+t owns c[n][0..1] at (row g, cols 8n+2t+{0,1}) and
-// c[n][2..3] at row g+8.
-template <int N8, int BK>
+// C (16 x 8*N8) += A (16 x BK) * B (BK x 8*N8). A is stored [m][k] (row-
+// major), or [k][m] when AT; B is stored [k][n], or [n][k] when BT. Lane
+// 4g+t owns c[n][0..1] at (row g, cols 8n+2t+{0,1}) and c[n][2..3] at row
+// g+8. ldmatrix lane l addresses row l&7 of 8x8 matrix l>>3.
+template <int N8, int BK, bool AT, bool BT>
 __device__ __forceinline__ void mma_tile(float (&c)[N8][4], const bf16* A, int lda, const bf16* B,
                                          int ldb) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int lr = lane & 7, lm = (lane >> 3) & 1, lh = lane >> 4;
 #pragma unroll
   for (int k0 = 0; k0 < BK; k0 += 16) {
-    const uint32_t a0 = ld32(A + g * lda + k0 + 2 * t);
-    const uint32_t a1 = ld32(A + (g + 8) * lda + k0 + 2 * t);
-    const uint32_t a2 = ld32(A + g * lda + k0 + 8 + 2 * t);
-    const uint32_t a3 = ld32(A + (g + 8) * lda + k0 + 8 + 2 * t);
-    // matrices 0/1: k rows k0..k0+15 at cols 16p..16p+7, 2/3: cols +8
-    const bf16* bp = B + (k0 + (lane & 15)) * ldb + (lane >> 4) * 8;
+    uint32_t a0, a1, a2, a3;
+    if (AT) {  // matrices (m 0-7 | 8-15) x (k 0-7 | 8-15), each transposed
+      ldsm_x4_trans(a0, a1, a2, a3, A + (k0 + lh * 8 + lr) * lda + lm * 8);
+    } else {
+      a0 = ld32(A + g * lda + k0 + 2 * t);
+      a1 = ld32(A + (g + 8) * lda + k0 + 2 * t);
+      a2 = ld32(A + g * lda + k0 + 8 + 2 * t);
+      a3 = ld32(A + (g + 8) * lda + k0 + 8 + 2 * t);
+    }
 #pragma unroll
     for (int p = 0; p < N8 / 2; ++p) {
       uint32_t b0, b1, b2, b3;
-      ldsm_x4_trans(b0, b1, b2, b3, bp + p * 16);
+      if (BT)  // matrices (n 16p.. | 16p+8..) x (k 0-7 | 8-15)
+        ldsm_x4(b0, b1, b2, b3, B + (p * 16 + lh * 8 + lr) * ldb + k0 + lm * 8);
+      else     // matrices 0/1: k rows k0..k0+15 at cols 16p..16p+7, 2/3: cols +8
+        ldsm_x4_trans(b0, b1, b2, b3, B + (k0 + (lane & 15)) * ldb + p * 16 + lh * 8);
       mma16816(c[2 * p], a0, a1, a2, a3, b0, b1);
       mma16816(c[2 * p + 1], a0, a1, a2, a3, b2, b3);
     }
   }
 }
 
-template <int N8, int BK>
+template <int N8, int BK, bool AT, bool BT>
 __device__ __forceinline__ void mma_tile(float (&c)[N8][4], const float* A, int lda,
                                          const float* B, int ldb) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll 4
   for (int k = 0; k < BK; ++k) {
-    const float lo = A[g * lda + k], hi = A[(g + 8) * lda + k];
+    const float lo = AT ? A[k * lda + g] : A[g * lda + k];
+    const float hi = AT ? A[k * lda + g + 8] : A[(g + 8) * lda + k];
 #pragma unroll
     for (int n = 0; n < N8; ++n) {
-      const float b0 = B[k * ldb + n * 8 + 2 * t], b1 = B[k * ldb + n * 8 + 2 * t + 1];
+      const int col = n * 8 + 2 * t;
+      const float b0 = BT ? B[col * ldb + k] : B[k * ldb + col];
+      const float b1 = BT ? B[(col + 1) * ldb + k] : B[k * ldb + col + 1];
       c[n][0] = fmaf(lo, b0, c[n][0]);
       c[n][1] = fmaf(lo, b1, c[n][1]);
       c[n][2] = fmaf(hi, b0, c[n][2]);
@@ -202,6 +236,28 @@ __device__ __forceinline__ void load_w(T* dst, int ldb, const T* w, long long sk
   }
 }
 
+// The same tile from a w with a unit k stride (a transposed view), into
+// shared [BN][ldk] (k contiguous, read by plain ldmatrix); k >= K and
+// n >= N are zero.
+template <typename T, int BK>
+__device__ __forceinline__ void load_w_kmajor(T* dst, int ldk, const T* w, long long sn, int K,
+                                              int N, int k0, int n0, bool vec) {
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int CPR = BK / VEC;
+  for (int i = threadIdx.x; i < BN * CPR; i += NT) {
+    const int r = i / CPR, c = (i - r * CPR) * VEC;
+    const int n = n0 + r, k = k0 + c;
+    T* d = dst + r * ldk + c;
+    const T* s = w + (long long)n * sn + k;
+    if (vec && n < N && k + VEC <= K) {
+      cp_async16(d, s);
+    } else {
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) d[v] = (n < N && k + v < K) ? s[v] : from_f<T>(0.f);
+    }
+  }
+}
+
 // Resolve logical tile `idx` to (segment, physical m-tile, row range).
 // Segments: the non-empty groups in order, then the tail [total, M).
 // Returns the group (0..E-1), -1 for a tail visit, -2 past the live count.
@@ -232,17 +288,27 @@ __device__ int resolve_tile(const GroupedArgs& a, int idx, int& mt, int& lo, int
   return -2;
 }
 
-template <typename T, int BM, bool SWIGLU>
+// Shared elements of one stage's weight tile: [BK][BN + PAD], or
+// [BN][BK + PAD] when WT (w with a unit k stride).
+template <typename T, bool WT>
+__host__ __device__ constexpr int w_tile_elems() {
+  return WT ? BN * (Slice<T>::BK + 16 / (int)sizeof(T))
+            : Slice<T>::BK * (BN + 16 / (int)sizeof(T));
+}
+
+template <typename T, int BM, bool SWIGLU, bool WT>
 __global__ void __launch_bounds__(NT) grouped_kernel(GroupedArgs a) {
   constexpr int BK = Slice<T>::BK;
   constexpr int PAD = 16 / sizeof(T);
   constexpr int LDA = BK + PAD;
-  constexpr int LDB = BN + PAD;
+  constexpr int LDB = WT ? BK + PAD : BN + PAD;
+  constexpr int WTILE = w_tile_elems<T, WT>();
   constexpr int NWT = SWIGLU ? 2 : 1;  // weight tiles per stage
   constexpr int WM = BM / 16;          // warps along m
   constexpr int WN = NW / WM;          // warps along n
   constexpr int N8 = BN / WN / 8;      // n8 tiles per warp
   static_assert(WM * WN == NW && N8 % 2 == 0, "tile shape");
+  static_assert(!(SWIGLU && WT), "swiglu_up takes [k][n] weights");
 
   __shared__ int info[4];
   if (threadIdx.x == 0) {
@@ -268,7 +334,7 @@ __global__ void __launch_bounds__(NT) grouped_kernel(GroupedArgs a) {
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* As = reinterpret_cast<T*>(smem_raw);  // [STAGES][BM][LDA]
-  T* Bs = As + STAGES * BM * LDA;           // [STAGES][NWT][BK][LDB]
+  T* Bs = As + STAGES * BM * LDA;           // [STAGES][NWT][WTILE]
 
   const T* x = reinterpret_cast<const T*>(a.x);
   const T* w[2] = {reinterpret_cast<const T*>(a.w1) + (long long)g * a.sw_e,
@@ -281,13 +347,18 @@ __global__ void __launch_bounds__(NT) grouped_kernel(GroupedArgs a) {
     const int k0 = kt * BK;
     load_x<T, BM, BK>(As + slot * BM * LDA, LDA, x, a.M, a.K, row0, k0, vx);
 #pragma unroll
-    for (int j = 0; j < NWT; ++j)
-      load_w<T, BK>(Bs + (slot * NWT + j) * BK * LDB, LDB, w[j], a.sw_k, a.sw_n, a.K, a.N, k0,
-                    n0, vw);
+    for (int j = 0; j < NWT; ++j) {
+      T* dst = Bs + (slot * NWT + j) * WTILE;
+      if (WT)
+        load_w_kmajor<T, BK>(dst, LDB, w[j], a.sw_n, a.K, a.N, k0, n0, vw);
+      else
+        load_w<T, BK>(dst, LDB, w[j], a.sw_k, a.sw_n, a.K, a.N, k0, n0, vw);
+    }
   };
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wm = warp % WM, wn = warp / WM;
+  const int b_off = wn * (BN / WN) * (WT ? LDB : 1);  // this warp's first column
   float acc[NWT][N8][4];
 #pragma unroll
   for (int j = 0; j < NWT; ++j)
@@ -309,7 +380,7 @@ __global__ void __launch_bounds__(NT) grouped_kernel(GroupedArgs a) {
     const T* at = As + slot * BM * LDA + wm * 16 * LDA;
 #pragma unroll
     for (int j = 0; j < NWT; ++j)
-      mma_tile<N8, BK>(acc[j], at, LDA, Bs + (slot * NWT + j) * BK * LDB + wn * (BN / WN), LDB);
+      mma_tile<N8, BK, false, WT>(acc[j], at, LDA, Bs + (slot * NWT + j) * WTILE + b_off, LDB);
   }
   cp_async_wait<0>();
 
@@ -329,35 +400,142 @@ __global__ void __launch_bounds__(NT) grouped_kernel(GroupedArgs a) {
   }
 }
 
-template <typename T, int BM, bool SWIGLU>
+// The weight gradient dw[e, k, n] = sum_{s in group e} x[s, k] dy[s, n]
+// (_tgmm, grouped_matmul.py:246-301). The TPU kernel walks the logical
+// row tiles in order and carries one fp32 accumulator per group through
+// the sequential grid axis; here each CTA owns one (expert, 64 k x 64 n)
+// output tile and loops over that expert's rows itself, BS rows a stage
+// (a 4-stage cp.async ring of x and dy slices), so there is no host sync,
+// no atomics and no second pass, and every output element is written once
+// (deterministic, as K2 chose). Stages start at the group's first row;
+// rows of the last stage past the group are zero in shared memory (the
+// TPU kernel's jnp.where(mask, x, 0)); an empty group runs no stage and
+// writes zeros. A = x^T: the x slice is staged as it lies, [s][k], and
+// its fragments come by ldmatrix.trans; B = the dy slice, [s][n], as the
+// forward kernel's weight tile. Grid (N/64, K/64, E): at the GPT2-MoE
+// 350M shapes 4096 CTAs.
+//
+// Bound: operations. At (rows, K, N) = (49152, 1024, 4096) the work is
+// 412 GFLOP (0.42 ms at the bf16 peak) against 0.54 GB of x, dy and dw
+// (0.16 ms). The 64 x 64 output tile re-reads each x slice once per n
+// tile and each dy slice once per k tile (most of it from L2); larger
+// tiles and wgmma are later work.
+template <typename T>
+__global__ void __launch_bounds__(NT) grouped_tgmm_kernel(TgmmArgs a) {
+  constexpr int BS = Slice<T>::BK;  // routed rows per stage
+  constexpr int BKO = 64;           // output rows (k) per CTA, 16 per warp
+  constexpr int PAD = 16 / sizeof(T);
+  constexpr int LDA = BKO + PAD;
+  constexpr int LDB = BN + PAD;
+  constexpr int N8 = BN / 8;
+  static_assert(BKO == NW * 16, "one m16 tile per warp");
+
+  const int e = blockIdx.z, k0 = blockIdx.y * BKO, n0 = blockIdx.x * BN;
+  int lo = 0;  // group e's rows [lo, hi), clipped to M as resolve_tile does
+  for (int i = 0; i < e; ++i) lo = min(lo + max(a.group_sizes[i], 0), a.M);
+  const int hi = min(lo + max(a.group_sizes[e], 0), a.M);
+  const int ns = (hi - lo + BS - 1) / BS;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* As = reinterpret_cast<T*>(smem_raw);  // [STAGES][BS][LDA]: x, k contiguous
+  T* Bs = As + STAGES * BS * LDA;           // [STAGES][BS][LDB]: dy, n contiguous
+  const T* x = reinterpret_cast<const T*>(a.x);
+  const T* dy = reinterpret_cast<const T*>(a.dy);
+  const bool vx = a.vec_x != 0, vdy = a.vec_dy != 0;
+
+  auto load_stage = [&](int slot, int st) {
+    const int r0 = lo + st * BS;  // rows >= hi are zero
+    load_x<T, BS, BKO>(As + slot * BS * LDA, LDA, x, hi, a.K, r0, k0, vx);
+    load_x<T, BS, BN>(Bs + slot * BS * LDB, LDB, dy, hi, a.N, r0, n0, vdy);
+  };
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float acc[N8][4];
+#pragma unroll
+  for (int n = 0; n < N8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < ns) load_stage(s, s);
+    cp_async_commit();
+  }
+  for (int st = 0; st < ns; ++st) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // slice st landed; slot (st - 1) % STAGES is free
+    const int nxt = st + STAGES - 1;
+    if (nxt < ns) load_stage(nxt % STAGES, nxt);
+    cp_async_commit();
+    const int slot = st % STAGES;
+    mma_tile<N8, BS, true, false>(acc, As + slot * BS * LDA + warp * 16, LDA,
+                                  Bs + slot * BS * LDB, LDB);
+  }
+  cp_async_wait<0>();
+
+  T* out = reinterpret_cast<T*>(a.out) + (long long)e * a.K * a.N;
+  const int gq = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int n = 0; n < N8; ++n) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = k0 + warp * 16 + gq + (i >> 1) * 8;
+      const int col = n0 + n * 8 + 2 * t4 + (i & 1);
+      if (row < a.K && col < a.N) out[(long long)row * a.N + col] = from_f<T>(acc[n][i]);
+    }
+  }
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <typename T, int BM, bool SWIGLU, bool WT>
 cudaError_t launch(const GroupedArgs& a, cudaStream_t s) {
   constexpr int BK = Slice<T>::BK;
   constexpr int PAD = 16 / sizeof(T);
-  const size_t smem =
-      sizeof(T) * (size_t)STAGES * ((size_t)BM * (BK + PAD) + (SWIGLU ? 2 : 1) * BK * (BN + PAD));
-  auto kernel = grouped_kernel<T, BM, SWIGLU>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
+  const size_t smem = sizeof(T) * (size_t)STAGES *
+                      ((size_t)BM * (BK + PAD) + (SWIGLU ? 2 : 1) * w_tile_elems<T, WT>());
+  auto kernel = grouped_kernel<T, BM, SWIGLU, WT>;
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
   const int tiles_m = (a.M + BM - 1) / BM;
   const dim3 grid(tiles_m + a.E, (a.N + BN - 1) / BN);
   kernel<<<grid, NT, smem, s>>>(a);
   return cudaGetLastError();
 }
 
+template <typename T, bool SWIGLU>
+cudaError_t launch_bm(const GroupedArgs& a, int block_m, cudaStream_t s) {
+  if (block_m == 16) return a.w_kmajor ? launch<T, 16, false, true>(a, s)
+                                       : launch<T, 16, SWIGLU, false>(a, s);
+  if (block_m == 64) return a.w_kmajor ? launch<T, 64, false, true>(a, s)
+                                       : launch<T, 64, SWIGLU, false>(a, s);
+  return cudaErrorInvalidValue;
+}
+
 template <bool SWIGLU>
 int dispatch(const GroupedArgs* a, int dtype, int block_m, void* stream) {
   if (a == nullptr || a->M <= 0 || a->K <= 0 || a->N <= 0 || a->E <= 0 ||
-      (a->N + BN - 1) / BN > 65535 || (SWIGLU && a->w3 == nullptr))
+      (a->N + BN - 1) / BN > 65535 || (SWIGLU && (a->w3 == nullptr || a->w_kmajor)))
     return cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 1 && block_m == 16) return launch<bf16, 16, SWIGLU>(*a, s);
-  if (dtype == 1 && block_m == 64) return launch<bf16, 64, SWIGLU>(*a, s);
-  if (dtype == 0 && block_m == 16) return launch<float, 16, SWIGLU>(*a, s);
-  if (dtype == 0 && block_m == 64) return launch<float, 64, SWIGLU>(*a, s);
+  if (dtype == 1) return launch_bm<bf16, SWIGLU>(*a, block_m, s);
+  if (dtype == 0) return launch_bm<float, SWIGLU>(*a, block_m, s);
   return cudaErrorInvalidValue;
+}
+
+template <typename T>
+cudaError_t launch_tgmm(const TgmmArgs& a, cudaStream_t s) {
+  constexpr int BS = Slice<T>::BK;
+  constexpr int PAD = 16 / sizeof(T);
+  const size_t smem = sizeof(T) * (size_t)STAGES * BS * ((64 + PAD) + (BN + PAD));
+  auto kernel = grouped_tgmm_kernel<T>;
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.N + BN - 1) / BN, (a.K + 63) / 64, a.E);
+  kernel<<<grid, NT, smem, s>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -371,4 +549,15 @@ extern "C" int grouped_gmm_launch(const GroupedArgs* a, int dtype, int block_m, 
 extern "C" int grouped_swiglu_up_launch(const GroupedArgs* a, int dtype, int block_m,
                                         void* stream) {
   return dispatch<true>(a, dtype, block_m, stream);
+}
+
+// out (E, K, N) in x's dtype; M may be 0 (every group empty: zeros).
+extern "C" int grouped_tgmm_launch(const TgmmArgs* a, int dtype, void* stream) {
+  if (a == nullptr || a->M < 0 || a->K <= 0 || a->N <= 0 || a->E <= 0 ||
+      (a->K + 63) / 64 > 65535 || a->E > 65535)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 1) return launch_tgmm<bf16>(*a, s);
+  if (dtype == 0) return launch_tgmm<float>(*a, s);
+  return cudaErrorInvalidValue;
 }

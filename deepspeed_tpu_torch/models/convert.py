@@ -1,10 +1,11 @@
-"""Parameter conversion from the JAX package's Llama, Mixtral and GPT-2
-trees.
+"""Parameter conversion from the JAX package's Llama, Mixtral, GPT-2 and
+GPT2MoE trees.
 
 The JAX tree (``jax.tree.map(np.asarray, params)``) and the port's module
 state share names and shapes, so conversion is a dtype/device move:
 ``model.load_state_dict(llama_params_from_numpy(tree, dev, dt))`` (or
-``mixtral_params_from_numpy``, ``gpt2_params_from_numpy``).
+``mixtral_params_from_numpy``, ``gpt2_params_from_numpy``,
+``gpt2_moe_params_from_numpy``).
 """
 
 import numpy as np
@@ -17,6 +18,8 @@ _MIXTRAL_BLOCKS = ("rms1", "wq", "wk", "wv", "wo", "rms2", "moe_gate",
 _GPT2_TOP = ("wte", "wpe", "lnf_scale", "lnf_bias")
 _GPT2_BLOCKS = ("ln1_scale", "ln1_bias", "wqkv", "bqkv", "wo", "bo",
                 "ln2_scale", "ln2_bias", "wup", "bup", "wdown", "bdown")
+_GPT2_MOE_BLOCKS = _GPT2_BLOCKS[:8] + ("moe",)
+_MOE = ("gate_w", "wi", "bi", "wo", "bo")
 
 
 def _tensor(a, device, dtype):
@@ -65,3 +68,24 @@ def gpt2_params_from_numpy(tree, device, dtype):
     ``dtype``, with no renames or transposes. Raises on keys the port's
     GPT2 does not carry (MoE experts, quantized leaves)."""
     return _from_numpy(tree, device, dtype, _GPT2_TOP, _GPT2_BLOCKS, "GPT2")
+
+
+def gpt2_moe_params_from_numpy(tree, device, dtype):
+    """JAX GPT2MoE parameter tree of numpy arrays -> the port's state dict
+    (``wte``, ``wpe``, ``lnf_*``, ``blocks.<name>``, ``blocks.moe.<name>``)
+    on ``device`` in ``dtype``, except the router ``blocks.moe.gate_w``,
+    which stays fp32 as the JAX init keeps it. Raises on keys the port's
+    GPT2MoE does not carry and on quantized leaves."""
+    moe = tree["blocks"].get("moe", {})
+    extra = sorted(f"blocks.moe.{k}" for k in set(moe) - set(_MOE))
+    if extra:
+        raise NotImplementedError(
+            f"parameters the port's GPT2MoE does not carry: {extra}")
+    dense = dict(tree, blocks={k: v for k, v in tree["blocks"].items()
+                               if k != "moe"})
+    state = _from_numpy(dense, device, dtype, _GPT2_TOP, _GPT2_MOE_BLOCKS,
+                        "GPT2MoE")
+    for k, v in moe.items():
+        state[f"blocks.moe.{k}"] = _tensor(
+            v, device, torch.float32 if k == "gate_w" else dtype)
+    return state

@@ -13,7 +13,10 @@ numpy with no renaming or transposes (``convert.gpt2_params_from_numpy``):
                                                  — projections are ``x @ W``
 
 LayerNorm statistics and the logits are fp32, as in the JAX model;
-activations run in the parameters' dtype. Attention goes through the
+activations run in the parameters' dtype. Each block returns ``(x, aux)``
+and ``loss`` adds ``moe_loss_coeff`` times the aux summed over layers (the
+MoE load-balance loss of ``gpt2_moe.GPT2MoE``; a dense block's aux is None,
+where JAX's is 0.0 times a zero coefficient). Attention goes through the
 Hopper flash kernels (ops/cuda/flash_attention.py) when
 ``use_flash_attention`` resolves on, else the dense path; the loss head
 through the fused CE kernel when ``fused_loss_kernel``.
@@ -109,7 +112,7 @@ BLOCK_KEYS = ("ln1_scale", "ln1_bias", "wqkv", "bqkv", "wo", "bo",
               "ln2_scale", "ln2_bias", "wup", "bup", "wdown", "bdown")
 _PRE = slice(0, 4)     # ln1 + qkv
 _WO = slice(4, 6)      # output projection
-_POST = slice(6, 12)   # ln2 + MLP
+_POST = slice(6, None)  # ln2 + MLP
 
 _TODO = {
     "dropout": "(ROADMAP Queue 1, M2: dropout)",
@@ -155,6 +158,9 @@ class GPT2(nn.Module):
     ``torch.Generator`` seeded with ``seed`` (load real or converted weights
     with ``load_state_dict``). ``loss(batch)`` is the JAX ``loss`` over the
     module's own parameters."""
+
+    block_keys = BLOCK_KEYS    # per-layer parameters, in _block's order
+    moe_loss_coeff = 0.0       # overridden by GPT2MoE
 
     def __init__(self, config: GPT2Config, device=None, dtype=None, seed=0):
         super().__init__()
@@ -206,6 +212,13 @@ class GPT2(nn.Module):
             "bo": const((L, D), 0.0),
             "ln2_scale": const((L, D), 1.0),
             "ln2_bias": const((L, D), 0.0),
+        })
+        self._init_mlp(nrm, const, res_std, gen)
+
+    def _init_mlp(self, nrm, const, res_std, gen):
+        """Add the per-layer MLP parameters to ``self.blocks``."""
+        L, D, Fd = self.config.n_layer, self.config.d_model, self.config.d_ff
+        self.blocks.update({
             "wup": nrm((L, D, Fd)),
             "bup": const((L, Fd), 0.0),
             "wdown": nrm((L, Fd, D), res_std),
@@ -272,36 +285,48 @@ class GPT2(nn.Module):
         return torch.einsum("bhts,bshd->bthd", probs, v)
 
     def _mlp(self, x, ln2_scale, ln2_bias, wup, bup, wdown, bdown):
+        """ln2 + MLP: (B, T, D) -> ((B, T, D), aux); a dense MLP has no
+        aux (None)."""
         h = layernorm(x, ln2_scale, ln2_bias)
         up = _ACTS[self.config.activation](h @ wup + bup)
-        return up @ wdown + bdown
+        return up @ wdown + bdown, None
 
     def _block(self, x, *layer):
-        """One transformer block: (B, T, D) -> (B, T, D)."""
+        """One transformer block: (B, T, D) -> ((B, T, D), aux)."""
         B, T, D = x.shape
         q, k, v = self._qkv(x, *layer[_PRE])
         attn = self._attn(q, k, v)
         wo, bo = layer[_WO]
         mid = x + attn.reshape(B, T, D) @ wo + bo
-        return mid + self._mlp(mid, *layer[_POST])
+        out, aux = self._mlp(mid, *layer[_POST])
+        return mid + out, aux
 
-    def hidden(self, ids):
-        """Embedding + blocks: (B, T) -> (B, T, D) (no final LN)."""
+    def hidden_with_aux(self, ids):
+        """Embedding + blocks: (B, T) -> ((B, T, D) before the final LN,
+        the aux summed over layers or None)."""
         cfg = self.config
         x = self.embed(ids)
-        layers = [p.unbind(0) for p in
-                  (self.blocks[k] for k in BLOCK_KEYS)]
+        layers = [self.get_parameter(f"blocks.{k}").unbind(0)
+                  for k in self.block_keys]
         policy = resolve_remat_policy(cfg.remat_policy) if cfg.remat \
             else None
+        total = None
         for i in range(cfg.n_layer):
             layer = [t[i] for t in layers]
             if policy == "save_flash" and self.flash_on:
-                x = _SaveFlashBlock.apply(self, x, *layer)
+                x, aux = _SaveFlashBlock.apply(self, x, *layer)
             elif policy is not None:
-                x = checkpoint(self._block, x, *layer, use_reentrant=False)
+                x, aux = checkpoint(self._block, x, *layer,
+                                    use_reentrant=False)
             else:
-                x = self._block(x, *layer)
-        return x
+                x, aux = self._block(x, *layer)
+            if aux is not None:
+                total = aux if total is None else total + aux
+        return x, total
+
+    def hidden(self, ids):
+        """Embedding + blocks: (B, T) -> (B, T, D) (no final LN)."""
+        return self.hidden_with_aux(ids)[0]
 
     def logits(self, ids):
         """Logits (B, T, V) fp32 (the JAX ``apply``)."""
@@ -322,10 +347,12 @@ class GPT2(nn.Module):
         cfg = self.config
         T = ids.shape[1]
         chunk = cfg.loss_chunk
-        x = self.hidden(ids)
+        x, aux = self.hidden_with_aux(ids)
         if chunk and T - 1 > chunk:
-            return self._chunked_head_loss(x[:, :-1], ids[:, 1:], chunk)
-        return next_token_xent(self.head(x), ids)
+            loss = self._chunked_head_loss(x[:, :-1], ids[:, 1:], chunk)
+        else:
+            loss = next_token_xent(self.head(x), ids)
+        return loss if aux is None else loss + self.moe_loss_coeff * aux
 
     def _chunked_head_loss(self, hidden, targets, chunk):
         """The big-vocab head: fused grad-in-forward CE when
@@ -349,7 +376,9 @@ class _SaveFlashBlock(torch.autograd.Function):
     """One block under the save_flash policy: keeps the block input, the
     post-attention residual ``mid`` and the flash o/lse; backward recomputes
     ln1 + qkv and ln2 + MLP and runs the fused flash backward on the saved
-    o/lse — the flash forward never runs again."""
+    o/lse — the flash forward never runs again. Returns (out, aux) as
+    ``_block`` does; an MoE MLP's recomputed routing is deterministic, so it
+    equals the forward's."""
 
     @staticmethod
     def forward(ctx, model, x, *layer):
@@ -361,21 +390,25 @@ class _SaveFlashBlock(torch.autograd.Function):
         o = o.transpose(1, 2).to(x.dtype)            # (B, T, H, hd)
         wo, bo = layer[_WO]
         mid = x + o.reshape(B, T, D) @ wo + bo
-        out = mid + model._mlp(mid, *layer[_POST])
+        out, aux = model._mlp(mid, *layer[_POST])
         ctx.model, ctx.scale = model, scale
         ctx.save_for_backward(x, mid, o, lse, *layer)
-        return out
+        return mid + out, aux
 
     @staticmethod
-    def backward(ctx, g):
+    def backward(ctx, g, g_aux):
         model, scale = ctx.model, ctx.scale
         x, mid, o, lse, *layer = ctx.saved_tensors
         B, T, D = x.shape
         with torch.enable_grad():
             mid_ = mid.detach().requires_grad_()
             post = [p.detach().requires_grad_() for p in layer[_POST]]
-            out = mid_ + model._mlp(mid_, *post)
-            g_mid, *d_post = torch.autograd.grad(out, [mid_] + post, g)
+            out, aux = model._mlp(mid_, *post)
+            outs, grads = [mid_ + out], [g]
+            if aux is not None and g_aux is not None:
+                outs.append(aux)
+                grads.append(g_aux)
+            g_mid, *d_post = torch.autograd.grad(outs, [mid_] + post, grads)
         wo, _ = layer[_WO]
         g2 = g_mid.reshape(-1, D)
         d_wo = o.reshape(-1, D).t() @ g2

@@ -1,25 +1,31 @@
 """Grouped (ragged) matmul for the dropless-MoE expert FFN: Hopper CUDA
 kernels and their plain versions.
 
-Counterpart of ``deepspeed_tpu/ops/pallas/grouped_matmul.py`` (K8, the
-forward kernels ``_gmm`` and ``_swiglu_up``); the kernels are
-``csrc/grouped_matmul.cu`` (design and bound are noted there). Same
-signatures as the JAX functions:
+Counterpart of ``deepspeed_tpu/ops/pallas/grouped_matmul.py`` (K8: the
+forward kernels ``_gmm`` and ``_swiglu_up`` and the weight-gradient kernel
+``_tgmm``); the kernels are ``csrc/grouped_matmul.cu`` (design and bound
+are noted there). Same signatures as the JAX functions:
 
   grouped_matmul(x, w, group_sizes)         x (S, K) rows sorted by group,
       w (E, K, N), group_sizes (E,) int -> (S, N), the ``lax.ragged_dot``
       contract: rows past ``sum(group_sizes)`` are exactly 0;
   grouped_swiglu(x, w1, w3, w2, group_sizes) ``gmm(silu(x w1) * (x w3), w2)``
-      with the gate/up products fused into one launch (``_swiglu_diff``,
-      grouped_matmul.py:377-382).
+      with the gate/up products fused into one launch;
+  grouped_tgmm(x, dy, group_sizes)          the per-group weight gradient
+      (E, K, N): sum over group e's rows of x^T dy, fp32 accumulation.
+
+Both differentiable entry points carry the JAX custom VJPs as
+``torch.autograd.Function``s: ``_gmm_diff`` (grouped_matmul.py:323-349:
+dx = gmm(dy, w^T) through a transposed view of w, dw = tgmm(x, dy)) and
+``_swiglu_diff`` (:376-424, the remat backward: g and u recomputed, five
+gmm and three tgmm). ``group_sizes`` gets no gradient.
 
 Dispatch is by the tensor's device only: a CPU tensor takes the plain
 version; a CUDA tensor launches the kernel or raises (there is no
 shape-based fallback: the JAX ``_blocks_fit`` -> ``ragged_dot`` fallback is
 a TPU tiling limit the CUDA kernel does not share). ``group_sizes`` stays
 on the device: the kernels read it there, so a call never syncs the host.
-``LAUNCHES`` counts kernel launches. The backward (``_tgmm`` and the
-transposed ``gmm``) is not ported yet: inputs that require grad raise.
+``LAUNCHES`` counts kernel launches.
 """
 
 import ctypes
@@ -27,10 +33,9 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-LAUNCHES = {"grouped_swiglu_up": 0, "grouped_gmm": 0}
+LAUNCHES = {"grouped_swiglu_up": 0, "grouped_gmm": 0, "grouped_tgmm": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_TODO_TRAIN = "MoE training (K8 `_tgmm`, ROADMAP Queue 1)"
 
 
 def reset_launch_counts():
@@ -46,7 +51,16 @@ class _GroupedArgs(ctypes.Structure):
                 ("sw_k", ctypes.c_longlong), ("sw_n", ctypes.c_longlong),
                 ("M", ctypes.c_int), ("K", ctypes.c_int), ("N", ctypes.c_int),
                 ("E", ctypes.c_int), ("vec_x", ctypes.c_int),
-                ("vec_w", ctypes.c_int)]
+                ("vec_w", ctypes.c_int), ("w_kmajor", ctypes.c_int)]
+
+
+class _TgmmArgs(ctypes.Structure):
+    """Mirror of ``struct TgmmArgs`` in csrc/grouped_matmul.cu."""
+    _fields_ = [("x", ctypes.c_void_p), ("dy", ctypes.c_void_p),
+                ("group_sizes", ctypes.c_void_p), ("out", ctypes.c_void_p),
+                ("M", ctypes.c_int), ("K", ctypes.c_int), ("N", ctypes.c_int),
+                ("E", ctypes.c_int), ("vec_x", ctypes.c_int),
+                ("vec_dy", ctypes.c_int)]
 
 
 _builder = None
@@ -64,6 +78,9 @@ def kernel_builder():
             fn.argtypes = [ctypes.POINTER(_GroupedArgs), ctypes.c_int,
                            ctypes.c_int, ctypes.c_void_p]
             fn.restype = ctypes.c_int
+        lib.grouped_tgmm_launch.argtypes = [ctypes.POINTER(_TgmmArgs),
+                                            ctypes.c_int, ctypes.c_void_p]
+        lib.grouped_tgmm_launch.restype = ctypes.c_int
         _builder = b
     return _builder
 
@@ -112,6 +129,18 @@ def grouped_swiglu_up_reference(x, w1, w3, group_sizes):
     return out
 
 
+def grouped_tgmm_reference(x, dy, group_sizes):
+    """Plain version of ``grouped_tgmm``: per group, x^T dy in fp32 rounded
+    once to x's dtype; an empty group's slab is 0."""
+    E = group_sizes.shape[0]
+    out = torch.zeros(E, x.shape[1], dy.shape[1], dtype=x.dtype,
+                      device=x.device)
+    for e, lo, hi in _group_bounds(group_sizes, x.shape[0]):
+        out[e] = torch.matmul(x[lo:hi].float().t(),
+                              dy[lo:hi].float()).to(x.dtype)
+    return out
+
+
 def grouped_swiglu_reference(x, w1, w3, w2, group_sizes):
     """Plain version of ``grouped_swiglu``: the up chain, then the grouped
     down projection."""
@@ -122,6 +151,12 @@ def grouped_swiglu_reference(x, w1, w3, w2, group_sizes):
 # ---------------------------------------------------------------- kernels
 
 
+def _check_sizes(name, group_sizes, E):
+    if group_sizes.shape != (E,) or group_sizes.dtype.is_floating_point:
+        raise ValueError(f"{name}: want integer group_sizes ({E},), got "
+                         f"{group_sizes.dtype} {tuple(group_sizes.shape)}")
+
+
 def _check_grouped(name, x, ws, group_sizes):
     E, K, N = ws[0].shape
     if x.dim() != 2 or x.shape[1] != K or any(w.shape != ws[0].shape
@@ -129,24 +164,28 @@ def _check_grouped(name, x, ws, group_sizes):
         raise ValueError(f"{name}: want x (S, K) and weights (E, K, N), got "
                          f"x {tuple(x.shape)}, weights "
                          f"{[tuple(w.shape) for w in ws]}")
-    if group_sizes.shape != (E,) or group_sizes.dtype.is_floating_point:
-        raise ValueError(f"{name}: want integer group_sizes ({E},), got "
-                         f"{group_sizes.dtype} {tuple(group_sizes.shape)}")
+    _check_sizes(name, group_sizes, E)
     if any(w.dtype != x.dtype for w in ws):
         raise TypeError(f"{name}: x and the weights must share a dtype, got "
                         f"{x.dtype} and {[w.dtype for w in ws]}")
-    if x.requires_grad or any(w.requires_grad for w in ws):
-        raise NotImplementedError(f"{name}: no backward yet ({_TODO_TRAIN})")
+
+
+def _check_device(name, x, others):
+    if any(t.device != x.device for t in others):
+        raise ValueError(f"{name}: every operand must be on {x.device}")
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"{name}: kernel takes float32 or bfloat16, got "
+                        f"{x.dtype}")
+
+
+def _aligned(t):
+    return t.data_ptr() % 16 == 0
 
 
 def _launch(fn_name, name, x, ws, group_sizes):
     """Launch one grouped kernel on CUDA tensors, counting it under
     ``name``; returns its (M, N) output."""
-    if any(t.device != x.device for t in (*ws, group_sizes)):
-        raise ValueError(f"{name}: every operand must be on {x.device}")
-    if x.dtype not in _DTYPE_CODE:
-        raise TypeError(f"{name}: kernel takes float32 or bfloat16, got "
-                        f"{x.dtype}")
+    _check_device(name, x, (*ws, group_sizes))
     if ws[0].stride() != ws[-1].stride():
         raise ValueError(f"{name}: w1 and w3 must share their strides")
     M, K = x.shape
@@ -158,12 +197,17 @@ def _launch(fn_name, name, x, ws, group_sizes):
     gs = group_sizes.to(torch.int32).contiguous()
     vec = 16 // x.element_size()
     se, sk, sn = ws[0].stride()
-    vec_w = (sn == 1 and sk % vec == 0 and se % vec == 0
-             and all(w.data_ptr() % 16 == 0 for w in ws))
+    # a unit k stride (the transposed view of the dx product) is staged
+    # k-major by the gmm kernel; otherwise [k][n], vectorised on a unit n
+    # stride
+    kmajor = len(ws) == 1 and sk == 1 and sn != 1
+    unit, lead = (sk, sn) if kmajor else (sn, sk)
+    vec_w = (unit == 1 and lead % vec == 0 and se % vec == 0
+             and all(_aligned(w) for w in ws))
     a = _GroupedArgs(x.data_ptr(), ws[0].data_ptr(), ws[-1].data_ptr(),
                      gs.data_ptr(), out.data_ptr(), se, sk, sn, M, K, N, E,
-                     int(K % vec == 0 and x.data_ptr() % 16 == 0),
-                     int(vec_w))
+                     int(K % vec == 0 and _aligned(x)), int(vec_w),
+                     int(kmajor))
     rc = getattr(kernel_builder().load(), fn_name)(
         ctypes.byref(a), _DTYPE_CODE[x.dtype], block_m_for(M),
         torch.cuda.current_stream(x.device).cuda_stream)
@@ -173,33 +217,146 @@ def _launch(fn_name, name, x, ws, group_sizes):
     return out
 
 
-def grouped_matmul(x, w, group_sizes):
-    """x (S, K) rows sorted by group, w (E, K, N) (any strides),
-    group_sizes (E,) int -> (S, N) in x's dtype; rows past
-    ``sum(group_sizes)`` are 0."""
-    _check_grouped("grouped_matmul", x, (w,), group_sizes)
+def _gmm(x, w, group_sizes):
+    """The forward grouped product on x's device (no autograd)."""
     if x.device.type == "cpu":
         return grouped_matmul_reference(x, w, group_sizes)
     return _launch("grouped_gmm_launch", "grouped_gmm", x, (w,), group_sizes)
 
 
-def grouped_swiglu_up(x, w1, w3, group_sizes):
-    """h = silu(x w1[g]) * (x w3[g]): x (S, K), w1/w3 (E, K, F) -> (S, F)
-    in x's dtype, fp32 epilogue, rows past the groups 0."""
-    _check_grouped("grouped_swiglu_up", x, (w1, w3), group_sizes)
+def _swiglu_up(x, w1, w3, group_sizes):
     if x.device.type == "cpu":
         return grouped_swiglu_up_reference(x, w1, w3, group_sizes)
     return _launch("grouped_swiglu_up_launch", "grouped_swiglu_up", x,
                    (w1, w3), group_sizes)
 
 
+def _tgmm(x, dy, group_sizes):
+    if x.device.type == "cpu":
+        return grouped_tgmm_reference(x, dy, group_sizes)
+    name = "grouped_tgmm"
+    _check_device(name, x, (dy, group_sizes))
+    M, K = x.shape
+    N = dy.shape[1]
+    E = group_sizes.shape[0]
+    out = torch.empty(E, K, N, dtype=x.dtype, device=x.device)
+    x, dy = x.contiguous(), dy.contiguous()
+    gs = group_sizes.to(torch.int32).contiguous()
+    vec = 16 // x.element_size()
+    a = _TgmmArgs(x.data_ptr(), dy.data_ptr(), gs.data_ptr(), out.data_ptr(),
+                  M, K, N, E, int(K % vec == 0 and _aligned(x)),
+                  int(N % vec == 0 and _aligned(dy)))
+    rc = kernel_builder().load().grouped_tgmm_launch(
+        ctypes.byref(a), _DTYPE_CODE[x.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+    LAUNCHES[name] += 1
+    return out
+
+
+class _GroupedMatmulFn(torch.autograd.Function):
+    """``_gmm_diff``: dx = gmm(dy, w^T) on a transposed view of w (the
+    kernel stages it k-major, no (E, N, K) copy), dw = tgmm(x, dy)."""
+
+    @staticmethod
+    def forward(ctx, x, w, group_sizes):
+        ctx.save_for_backward(x, w, group_sizes)
+        return _gmm(x, w, group_sizes)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, gs = ctx.saved_tensors
+        dx = _gmm(dy, w.transpose(1, 2), gs) if ctx.needs_input_grad[0] \
+            else None
+        dw = _tgmm(x, dy, gs) if ctx.needs_input_grad[1] else None
+        return dx, dw, None
+
+
+class _GroupedSwigluFn(torch.autograd.Function):
+    """``_swiglu_diff``: forward = the fused up chain, then the down gmm;
+    backward recomputes g and u by two grouped products instead of keeping
+    them, and rounds sil, dg, du and h to x's dtype where JAX does
+    (grouped_matmul.py:391-421)."""
+
+    @staticmethod
+    def forward(ctx, x, w1, w3, w2, group_sizes):
+        ctx.save_for_backward(x, w1, w3, w2, group_sizes)
+        return _gmm(_swiglu_up(x, w1, w3, group_sizes), w2, group_sizes)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return (*_swiglu_backward(*ctx.saved_tensors, dy, _gmm, _tgmm), None)
+
+
+def _swiglu_backward(x, w1, w3, w2, gs, dy, gmm, tgmm):
+    """(dx, dw1, dw3, dw2) of the SwiGLU chain through the product
+    functions ``gmm`` (x, w, sizes) and ``tgmm`` (x, dy, sizes)."""
+    g = gmm(x, w1, gs)
+    u = gmm(x, w3, gs)
+    gf = g.float()
+    sg = torch.sigmoid(gf)
+    sil = (gf * sg).to(x.dtype)
+    dhf = gmm(dy, w2.transpose(1, 2), gs).float()
+    uf = u.float()
+    dg = (dhf * uf * (sg * (1 + gf * (1 - sg)))).to(x.dtype)
+    du = (dhf * sil.float()).to(x.dtype)
+    dx = gmm(dg, w1.transpose(1, 2), gs) + gmm(du, w3.transpose(1, 2), gs)
+    h = (sil.float() * uf).to(x.dtype)
+    return dx, tgmm(x, dg, gs), tgmm(x, du, gs), tgmm(h, dy, gs)
+
+
+def grouped_swiglu_backward_reference(x, w1, w3, w2, group_sizes, dy):
+    """Plain version of ``grouped_swiglu``'s backward: (dx, dw1, dw3, dw2)
+    through the plain grouped products, on any device."""
+    return _swiglu_backward(x, w1, w3, w2, group_sizes, dy,
+                            grouped_matmul_reference, grouped_tgmm_reference)
+
+
+def grouped_matmul(x, w, group_sizes):
+    """x (S, K) rows sorted by group, w (E, K, N) (any strides),
+    group_sizes (E,) int -> (S, N) in x's dtype; rows past
+    ``sum(group_sizes)`` are 0. Differentiable in x and w."""
+    _check_grouped("grouped_matmul", x, (w,), group_sizes)
+    return _GroupedMatmulFn.apply(x, w, group_sizes)
+
+
+def grouped_tgmm(x, dy, group_sizes):
+    """The per-group weight gradient: x (M, K), dy (M, N) rows sorted by
+    group, group_sizes (E,) int -> (E, K, N) in x's dtype, slab e = sum over
+    group e's rows of x^T dy with fp32 accumulation; rows past the groups
+    contribute nothing and an empty group's slab is 0."""
+    if x.dim() != 2 or dy.dim() != 2 or x.shape[0] != dy.shape[0]:
+        raise ValueError(f"grouped_tgmm: want x (M, K) and dy (M, N), got "
+                         f"{tuple(x.shape)} and {tuple(dy.shape)}")
+    _check_sizes("grouped_tgmm", group_sizes, group_sizes.shape[0])
+    if dy.dtype != x.dtype:
+        raise TypeError(f"grouped_tgmm: x and dy must share a dtype, got "
+                        f"{x.dtype} and {dy.dtype}")
+    return _tgmm(x, dy, group_sizes)
+
+
+def grouped_swiglu_up(x, w1, w3, group_sizes):
+    """h = silu(x w1[g]) * (x w3[g]): x (S, K), w1/w3 (E, K, F) -> (S, F)
+    in x's dtype, fp32 epilogue, rows past the groups 0. Forward only, as
+    the JAX ``_swiglu_up``: differentiate ``grouped_swiglu``."""
+    _check_grouped("grouped_swiglu_up", x, (w1, w3), group_sizes)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w1, w3)):
+        raise RuntimeError("grouped_swiglu_up has no backward; "
+                           "differentiate grouped_swiglu")
+    return _swiglu_up(x, w1, w3, group_sizes)
+
+
 def grouped_swiglu(x, w1, w3, w2, group_sizes):
     """The SwiGLU expert chain: x (S, K); w1/w3 (E, K, F); w2 (E, F, K')
-    -> (S, K'). Two launches on the card: the fused up chain, then the
-    grouped down projection."""
+    -> (S, K'). Two launches on the card forward (the fused up chain, then
+    the grouped down projection); five gmm and three tgmm backward."""
     E, K, Fd = w1.shape
     if w2.dim() != 3 or tuple(w2.shape[:2]) != (E, Fd):
         raise ValueError(f"grouped_swiglu: want w2 ({E}, {Fd}, K'), got "
                          f"{tuple(w2.shape)}")
-    h = grouped_swiglu_up(x, w1, w3, group_sizes)
-    return grouped_matmul(h, w2, group_sizes)
+    _check_grouped("grouped_swiglu", x, (w1, w3), group_sizes)
+    if w2.dtype != x.dtype:
+        raise TypeError(f"grouped_swiglu: x and w2 must share a dtype, got "
+                        f"{x.dtype} and {w2.dtype}")
+    return _GroupedSwigluFn.apply(x, w1, w3, w2, group_sizes)

@@ -3,9 +3,10 @@
 Own copy of ``deepspeed_tpu/runtime/config.py`` for the training slice:
 the batch-size triad with the same resolution rules and error text, the
 precision blocks, the ZeRO block, optimizer, gradient clipping,
-``data_types.grad_accum_dtype`` and ``steps_per_print``, with the same
-unknown-key warnings inside a block. A block the port does not carry yet
-raises NotImplementedError naming its ROADMAP item when it is enabled.
+``data_types.grad_accum_dtype``, ``steps_per_print`` and the ``moe`` block,
+with the same unknown-key warnings inside a block. A block the port does
+not carry yet raises NotImplementedError naming its ROADMAP item when it
+is enabled.
 """
 
 import json
@@ -110,6 +111,40 @@ class ZeroConfig:
 
 
 @dataclass
+class MoEConfig:
+    """Dropless-MoE block (the JAX ``MoEConfig``). The engine installs it
+    on the model as ``model._moe_cfg``; for GPT2MoE an explicit non-"auto"
+    ``grouped_kernel`` overrides the model-config knob:
+
+      grouped_kernel   "auto" (the Hopper grouped kernels: the port has no
+                       winner cache) | true (the kernels) | false (the
+                       ragged math).
+      hierarchical_a2a "auto" | true | false: the staging of the expert-
+                       parallel all_to_all; validated, inert at one expert
+                       shard (as in JAX without an outer mesh axis).
+      dcn_quantize     true | false | "auto": the int8 round trip on that
+                       exchange's cross-slice legs; validated, inert here.
+    """
+    grouped_kernel: object = "auto"    # "auto" | bool
+    hierarchical_a2a: object = "auto"  # "auto" | bool
+    dcn_quantize: object = False       # bool | "auto"
+
+    def __post_init__(self):
+        if self.grouped_kernel not in (True, False, "auto"):
+            raise DeepSpeedConfigError(
+                f"moe.grouped_kernel must be true|false|'auto', got "
+                f"{self.grouped_kernel!r}")
+        if self.hierarchical_a2a not in (True, False, "auto"):
+            raise DeepSpeedConfigError(
+                f"moe.hierarchical_a2a must be true|false|'auto', got "
+                f"{self.hierarchical_a2a!r}")
+        if self.dcn_quantize not in (True, False, "auto"):
+            raise DeepSpeedConfigError(
+                f"moe.dcn_quantize must be true|false|'auto', got "
+                f"{self.dcn_quantize!r}")
+
+
+@dataclass
 class OptimizerConfig:
     type: str = "AdamW"
     params: dict = field(default_factory=dict)
@@ -144,8 +179,8 @@ def _unported(raw, zero, fp16):
         out.append(("pipeline", "M13"))
     if raw.get("sequence") or raw.get(C.SEQUENCE_PARALLEL_SIZE, 1) > 1:
         out.append(("sequence / sequence_parallel_size", "M12"))
-    if raw.get("moe") or raw.get(C.EXPERT_PARALLEL_SIZE, 1) > 1:
-        out.append(("moe / expert_parallel_size", "M10"))
+    if raw.get(C.EXPERT_PARALLEL_SIZE, 1) > 1:
+        out.append(("expert_parallel_size > 1", "M10, MoE expert parallel"))
     if int(raw.get(C.TENSOR_PARALLEL, {}).get("size", 1)) > 1:
         out.append(("tensor_parallel", "M5"))
     if _enabled(raw.get("comm_overlap")):
@@ -214,6 +249,7 @@ class DeepSpeedConfig:
         if self.fp16.enabled and self.bf16.enabled:
             raise DeepSpeedConfigError("fp16 and bf16 cannot both be enabled")
         self.zero = _take(config, ZeroConfig, C.ZERO_OPTIMIZATION)
+        self.moe = _take(config, MoEConfig, "moe")
 
         opt = config.get(C.OPTIMIZER)
         self.optimizer = None if opt is None else _take(

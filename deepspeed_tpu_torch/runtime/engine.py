@@ -10,7 +10,11 @@ clipping with the JAX formula, the optimizer update on the master (skipped
 on overflow) and the cast back to the parameters' dtype.
 
 The engine takes its initial parameters from the model module (so a JAX
-engine's initial master can be loaded through ``gpt2_params_from_numpy``)
+engine's initial master can be loaded through ``gpt2_params_from_numpy``
+or ``gpt2_moe_params_from_numpy``), casts every one to the precision dtype
+and takes the fp32 master from those, as JAX's engine.py:468-474 does (so
+a router the model keeps in fp32 enters a bf16 engine's master rounded).
+It installs the config's ``moe`` block on the model as ``model._moe_cfg``
 and drives ``model.loss(batch)``. ZeRO stages 0-3 are accepted: at world
 size 1 they partition nothing and give the same result. A multi-process
 world raises (ROADMAP Queue 1, M5).
@@ -86,6 +90,15 @@ class DeepSpeedEngine:
         self.loss_scaler = create_loss_scaler(self.config.fp16,
                                               self.param_dtype)
         self.grad_dtype = self.config.grad_accum_torch_dtype
+        # the dropless-MoE knobs (config 'moe' block): MoE layers consult
+        # model._moe_cfg per dispatch (as the JAX engine.py:181-198)
+        try:
+            self.model._moe_cfg = self.config.moe
+        except (AttributeError, TypeError):   # frozen/slotted models
+            log_dist(
+                "moe config block could not be installed on the model "
+                "(attribute assignment rejected); MoE layers will use "
+                "the module defaults", ranks=[0])
 
         # state: working params (the module's own tensors), fp32 master,
         # optimizer state, loss-scale state, step

@@ -1,5 +1,6 @@
 """The Hopper kernels on the card (paged attention, flash attention forward
-and backward, fused CE, the MoE grouped matmuls), held against their plain PyTorch versions at
+and backward, fused CE, the MoE grouped matmuls and their backward), held
+against their plain PyTorch versions at
 small shapes (bf16 against the plain version in fp32
 on the same inputs, chip_smoke.bf16_mismatch; fp32 at 1e-4).
 Marked ``cuda``: skipped without an NVIDIA GPU; on the card run
@@ -224,3 +225,85 @@ def test_grouped_kernels_never_take_the_plain_path():
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         gm.grouped_matmul(x, torch.zeros(1, 16, 8, device="cuda",
                                          dtype=torch.float16), gs)
+
+
+def _slab_close(out, ref, dtype):
+    """Per leading-dim slab: bf16 within chip_smoke.BF16_REL_NORM of the
+    fp32 plain version, fp32 at 1e-4; an all-zero slab exactly 0."""
+    if dtype == torch.bfloat16:
+        assert chip_smoke.slab_rel_norm(out, ref) <= chip_smoke.BF16_REL_NORM
+    else:
+        torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N,sizes", [
+    (256, 128, 192, [50, 0, 120, 22]),      # empty group, 64-row tail
+    (300, 100, 90, [0, 0, 300, 0]),         # one expert holds all rows
+    (64, 64, 64, [0, 0, 0]),                # every group empty
+    (1000, 136, 72, [10, 500, 1, 400]),     # ragged K and N
+    (0, 64, 64, [0, 0]),                    # no rows at all
+])
+def test_grouped_tgmm_kernel(dtype, M, K, N, sizes):
+    rs = np.random.RandomState(6)
+    x, dy = _rand(rs, (M, K), dtype), _rand(rs, (M, N), dtype)
+    gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+    n0 = gm.LAUNCHES["grouped_tgmm"]
+    out = gm.grouped_tgmm(x, dy, gs)
+    torch.cuda.synchronize()
+    assert gm.LAUNCHES["grouped_tgmm"] == n0 + 1
+    assert out.shape == (len(sizes), K, N) and out.dtype == dtype
+    for e, n in enumerate(sizes):
+        if n == 0:
+            assert torch.all(out[e] == 0)
+    _slab_close(out, gm.grouped_tgmm_reference(x.float(), dy.float(), gs),
+                dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_autograd_on_the_card(dtype):
+    """grouped_matmul and grouped_swiglu gradients on CUDA tensors (dx
+    through the k-major transposed view, dw through tgmm) against the plain
+    pieces in fp32 on the same inputs."""
+    rs = np.random.RandomState(7)
+    M, K, N, E = 200, 128, 256, 4
+    gs = torch.tensor([60, 0, 90, 30], dtype=torch.int32, device="cuda")
+    x = _rand(rs, (M, K), dtype).requires_grad_()
+    w = (_rand(rs, (E, K, N), torch.float32) * 0.1).to(dtype).requires_grad_()
+    cot = _rand(rs, (M, N), dtype)
+    n0 = dict(gm.LAUNCHES)
+    dx, dw = torch.autograd.grad(gm.grouped_matmul(x, w, gs), (x, w), cot)
+    torch.cuda.synchronize()
+    assert gm.LAUNCHES["grouped_gmm"] == n0["grouped_gmm"] + 2
+    assert gm.LAUNCHES["grouped_tgmm"] == n0["grouped_tgmm"] + 1
+    xf, wf, cf = x.detach().float(), w.detach().float(), cot.float()
+    _assert_close(dx[:180], gm.grouped_matmul_reference(
+        cf, wf.transpose(1, 2), gs)[:180], dtype)
+    _slab_close(dw, gm.grouped_tgmm_reference(xf, cf, gs), dtype)
+    w1, w3 = ((_rand(rs, (E, K, N), torch.float32) * 0.1).to(dtype)
+              .requires_grad_() for _ in range(2))
+    w2 = (_rand(rs, (E, N, K), torch.float32) * 0.1).to(dtype)
+    w2.requires_grad_()
+    cot = _rand(rs, (M, K), dtype)
+    ps = (x, w1, w3, w2)
+    got = torch.autograd.grad(gm.grouped_swiglu(*ps, gs), ps, cot)
+    ref = gm.grouped_swiglu_backward_reference(
+        *(t.detach().float() for t in ps), gs, cot.float())
+    for a, b in zip(got, ref):
+        if dtype == torch.bfloat16:
+            assert chip_smoke.slab_rel_norm(a[None], b[None]) <= \
+                chip_smoke.BF16_GRAD_REL_NORM
+        else:
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def test_tgmm_never_takes_the_plain_path(monkeypatch):
+    def plain(*a, **k):
+        raise AssertionError("a CUDA tensor took the plain tgmm")
+
+    monkeypatch.setattr(gm, "grouped_tgmm_reference", plain)
+    x = torch.ones(8, 16, device="cuda")
+    gs = torch.tensor([8], dtype=torch.int32, device="cuda")
+    assert float(gm.grouped_tgmm(x, x, gs)[0, 0, 0]) == 8.0
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        gm.grouped_tgmm(x.half(), x.half(), gs)

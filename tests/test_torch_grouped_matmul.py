@@ -125,8 +125,9 @@ def test_bad_inputs_raise():
         gm.grouped_matmul(x, w.to(torch.bfloat16), gs)
     with pytest.raises(ValueError, match="w2"):
         gm.grouped_swiglu(x, w, w, torch.zeros(2, 16, 16), gs)
-    with pytest.raises(NotImplementedError, match="_tgmm"):
-        gm.grouped_matmul(x.requires_grad_(), w, gs)
+    with pytest.raises(TypeError, match="w2"):
+        gm.grouped_swiglu(x, w, w, torch.zeros(2, 24, 16,
+                                               dtype=torch.bfloat16), gs)
 
 
 def test_block_m_covers_decode_in_one_tile():

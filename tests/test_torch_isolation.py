@@ -15,8 +15,8 @@ import pytest
 import torch
 
 import deepspeed_tpu_torch
-from deepspeed_tpu_torch import (GPT2, GPT2Config, InferenceEngineV2, Llama,
-                                 Mixtral)
+from deepspeed_tpu_torch import (GPT2, GPT2Config, GPT2MoE, GPT2MoEConfig,
+                                 InferenceEngineV2, Llama, Mixtral)
 from deepspeed_tpu_torch.models import LLAMA_TINY, MIXTRAL_TINY
 from deepspeed_tpu_torch.op_builder import builder
 
@@ -66,8 +66,9 @@ sys.meta_path.insert(0, Block())
 import dataclasses
 import numpy as np
 import torch
-from deepspeed_tpu_torch import (GPT2, GPT2Config, InferenceEngineV2, Llama,
-                                 Mixtral, initialize)
+from deepspeed_tpu_torch import (GPT2, GPT2Config, GPT2MoE, GPT2MoEConfig,
+                                 InferenceEngineV2, Llama, Mixtral,
+                                 initialize)
 from deepspeed_tpu_torch.models import LLAMA_TINY, MIXTRAL_TINY
 for model in (Llama(dataclasses.replace(LLAMA_TINY, dtype="float32"),
                     device="cpu"),
@@ -86,6 +87,14 @@ trainer, *_ = initialize(model=GPT2(gcfg, device="cpu"), device="cpu",
                          config={"train_batch_size": 2, "optimizer": {
                              "type": "AdamW", "params": {"lr": 1e-3}}})
 ids = np.random.RandomState(0).randint(0, 128, (2, 32))
+losses = [float(trainer.train_batch({"input_ids": ids})) for _ in range(2)]
+assert losses[1] < losses[0], losses
+mcfg = GPT2MoEConfig(**{**gcfg.__dict__, "num_experts": 4, "moe_top_k": 2,
+                        "moe_backend": "ragged"})
+trainer, *_ = initialize(model=GPT2MoE(mcfg, device="cpu"), device="cpu",
+                         config={"train_batch_size": 2, "optimizer": {
+                             "type": "AdamW", "params": {"lr": 1e-3}},
+                             "moe": {"grouped_kernel": True}})
 losses = [float(trainer.train_batch({"input_ids": ids})) for _ in range(2)]
 assert losses[1] < losses[0], losses
 assert not any(n.split(".")[0] in ROOTS for n in sys.modules)
@@ -125,6 +134,8 @@ def test_training_entry_points_default_to_the_card(monkeypatch):
     cfg = GPT2Config(**_TRAIN_CFG)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         GPT2(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        GPT2MoE(GPT2MoEConfig(**_TRAIN_CFG, moe_backend="ragged"))
     model = GPT2(cfg, device="cpu")
     assert not model.flash_on          # "auto": the kernels only on a card
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -133,7 +144,7 @@ def test_training_entry_points_default_to_the_card(monkeypatch):
 
 def test_training_rejects_unported_config():
     model = GPT2(GPT2Config(**_TRAIN_CFG), device="cpu")
-    for over in ({"pipeline": {"stages": 2}}, {"moe": {"x": 1}},
+    for over in ({"pipeline": {"stages": 2}}, {"expert_parallel_size": 2},
                  {"zero_optimization": {"offload_param": {"device": "nvme"}}},
                  {"scheduler": {"type": "WarmupLR"}},
                  {"optimizer": {"type": "Lion", "params": {}}}):
