@@ -59,14 +59,33 @@ Phases (any failure raises and the script exits nonzero):
      top-2, the bench config) and 10 train_batch steps on one fixed batch;
      the loss falls and the launch counts are what the dispatches imply
      (per layer and step: 6 gmm, 4 tgmm, one flash forward and backward).
+ 14. wq kernels: K7 (wq_matmul) at the Llama-2-7B FFN shapes (8 decode
+     rows and a 256-token chunk, D=4096 -> F=11008 and back) and K9
+     (grouped_swiglu_up_wq, grouped_gmm_wq) at phase 8's Mixtral-8x7B
+     shapes and edge cases, int8 and int4, bf16 against their plain
+     versions in fp32 on the same inputs, fp32 at 1e-4, tails exactly 0;
+     controls that must fail (K7's scale shifted by one channel, int4
+     nibbles swapped, a K9 group on its neighbour expert's scales); each
+     timed beside its bound, plain version and library yardsticks (bf16
+     torch.matmul / torch._grouped_mm on the dequantized weights, and
+     torch._weight_int8pack_mm where this torch runs it).
+ 15. wq parity: small fp32 Llama and Mixtral, int8 and int4, served with
+     weight_quant give the same greedy streams as the same model with
+     its dequantized weights served unquantized (split-fuse on and off).
+ 16. Llama-2-7B int4 slice and 17. Mixtral-8x7B at all 32 layers in int8:
+     built quantized slice by slice, phase 4's settings and traffic;
+     every request returns 64 tokens, launches exactly 3 wq_matmul per
+     layer and forward (Llama) or one grouped_swiglu_up_wq and one
+     grouped_gmm_wq (Mixtral), the paged kernels as in phase 4.
 Then one JSON line of per-kernel numbers (launches summed over the main
 paths that ran each kernel, and per path), and last the result line
 {"ok": true, "device": {...}}. Without a CUDA device it exits 2 and prints
 no result. ``--profile PATH`` also writes torch.profiler breakdowns of the
 serving slice's device time to PATH, of three extra training steps to
-PATH with "-train" before its extension, of the MoE slice with "-moe" and
-of three extra MoE training steps with "-moe-train" (profiled timings
-include the profiler's overhead).
+PATH with "-train" before its extension, of the MoE slice with "-moe", of
+three extra MoE training steps with "-moe-train" and of the quantized
+slices with "-llama-int4" and "-mixtral-int8" (profiled timings include
+the profiler's overhead).
 """
 
 import argparse
@@ -106,6 +125,8 @@ BF16_GRAD_REL_NORM = 2e-2
 # order of the D=1024-term sums differs; at h ~ N(0,1), w ~ 0.02 N(0,1) the
 # worst-case bound D * 2^-24 * sum|h w| is about 8e-4.
 CE_STAT_ATOL = 1e-3
+# the grouped counters of the quantized kernels (K9): 0 on every bf16 path
+NO_WQ = {"grouped_swiglu_up_wq": 0, "grouped_gmm_wq": 0}
 SOURCES = {
     "paged_decode": "deepspeed_tpu_torch/csrc/paged_attention.cu",
     "paged_chunk": "deepspeed_tpu_torch/csrc/paged_attention.cu",
@@ -115,6 +136,9 @@ SOURCES = {
     "grouped_swiglu_up": "deepspeed_tpu_torch/csrc/grouped_matmul.cu",
     "grouped_gmm": "deepspeed_tpu_torch/csrc/grouped_matmul.cu",
     "grouped_tgmm": "deepspeed_tpu_torch/csrc/grouped_matmul.cu",
+    "wq_matmul": "deepspeed_tpu_torch/csrc/mlp_matmul.cu",
+    "grouped_swiglu_up_wq": "deepspeed_tpu_torch/csrc/grouped_matmul.cu",
+    "grouped_gmm_wq": "deepspeed_tpu_torch/csrc/grouped_matmul.cu",
 }
 REPLACES = {
     "paged_decode": "deepspeed_tpu/ops/pallas/paged_attention.py:121",
@@ -125,6 +149,9 @@ REPLACES = {
     "grouped_swiglu_up": "deepspeed_tpu/ops/pallas/grouped_matmul.py:182",
     "grouped_gmm": "deepspeed_tpu/ops/pallas/grouped_matmul.py:115",
     "grouped_tgmm": "deepspeed_tpu/ops/pallas/grouped_matmul.py:246",
+    "wq_matmul": "deepspeed_tpu/ops/pallas/mlp_matmul.py:284",
+    "grouped_swiglu_up_wq": "deepspeed_tpu/ops/pallas/grouped_matmul.py:536",
+    "grouped_gmm_wq": "deepspeed_tpu/ops/pallas/grouped_matmul.py:465",
 }
 
 
@@ -1054,7 +1081,8 @@ def phase_moe_parity():
             streams[gk] = eng.generate_all(prompts, max_new_tokens=24)
             n = cfg.n_layer * sum(eng.forward_counts.values()) if gk else 0
             assert gm.LAUNCHES == {"grouped_swiglu_up": n, "grouped_gmm": n,
-                                   "grouped_tgmm": 0}, (gk, dict(gm.LAUNCHES))
+                                   "grouped_tgmm": 0, **NO_WQ}, \
+                (gk, dict(gm.LAUNCHES))
         for a, b in zip(streams[True], streams[False]):
             np.testing.assert_array_equal(a, b)
         log(f"MoE parity ok (splitfuse={splitfuse}): grouped kernels on == "
@@ -1143,6 +1171,7 @@ def phase_moe_slice(seed=0, n_layer=24, profile=None):
             "grouped_swiglu_up": n_layer * forwards,
             "grouped_gmm": n_layer * forwards}
     assert launches.pop("grouped_tgmm") == 0, "serving ran a backward kernel"
+    assert all(launches.pop(k) == 0 for k in NO_WQ), "bf16 ran a wq kernel"
     assert launches == want and min(launches.values()) > 0, (launches, want)
 
     hist = [s.tolist() for s in first_decode]
@@ -1379,7 +1408,7 @@ def phase_moe_train_parity(seed=0):
         launched = dict(gm.LAUNCHES)
         n = cfg.n_layer if on else 0
         want = {"grouped_swiglu_up": 0, "grouped_gmm": 6 * n,
-                "grouped_tgmm": 4 * n}
+                "grouped_tgmm": 4 * n, **NO_WQ}
         assert launched == want, (on, launched, want)
         with torch.no_grad():
             aux = model.hidden_with_aux(ids)[1].item()
@@ -1480,7 +1509,8 @@ def phase_moe_train_slice(seed=0, steps=10, profile=None):
     # 2 dx gmm; 4 tgmm (wi, wo and their biases' per-expert row sums)
     want = {"flash_fwd": L * steps, "flash_bwd": L * steps,
             "fused_ce": 2 * steps, "grouped_swiglu_up": 0,
-            "grouped_gmm": 6 * L * steps, "grouped_tgmm": 4 * L * steps}
+            "grouped_gmm": 6 * L * steps, "grouped_tgmm": 4 * L * steps,
+            **NO_WQ}
     assert launches == want, (launches, want)
     assert all(math.isfinite(x) for x in losses), losses
     assert losses[-1] < losses[0], losses
@@ -1514,6 +1544,452 @@ def phase_moe_train_slice(seed=0, steps=10, profile=None):
     return launches
 
 
+# ------------------------------------------------ quantized kernels (K7, K9)
+
+
+def wq_bound(M, K, N, bits, touched=1, n_w=1, live=None):
+    """Bound of one quantized product: x (bf16) read once, each touched
+    weight's codes (1 byte, or half a byte at int4) and fp32 scales read
+    once, the output written once; operations on the live rows only."""
+    live = M if live is None else live
+    code = K * N * (1.0 if bits == 8 else 0.5) + N * 4
+    return bound(M * K * 2 + n_w * touched * code + M * N * 2,
+                 2 * n_w * live * K * N)
+
+
+def int8pack_library(x, w):
+    """(fn, name) of ``torch._weight_int8pack_mm`` (x @ (codes * scale) with
+    int8 codes (N, K) and bf16 scales) when this torch runs it on the card
+    and it computes the kernel's function here, else None."""
+    op = getattr(torch, "_weight_int8pack_mm", None)
+    if op is None or w.bits != 8:
+        return None
+    codes = w.q.t().contiguous()
+    scales = w.scale.reshape(-1).to(x.dtype)
+    try:
+        out = op(x, codes, scales)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as e:
+        log(f"  torch._weight_int8pack_mm unavailable: {str(e)[:120]}")
+        return None
+    ref = (x.float() @ w.q.float()) * w.scale.reshape(1, -1)
+    why = bf16_mismatch(out, ref)
+    if why is not None:
+        log(f"  torch._weight_int8pack_mm disagrees ({why}): not used")
+        return None
+    return (lambda: op(x, codes, scales)), "torch._weight_int8pack_mm"
+
+
+class WqCases:
+    """K7 and K9 on the card, each call held against its plain version:
+    bf16 against the plain version run in fp32 on the same inputs
+    (bf16_mismatch), fp32 at FP32_TOL, the rows past the groups exactly 0;
+    a control per kernel that must fail the check."""
+
+    def __init__(self, seed=0):
+        self.g = torch.Generator(device="cuda")
+        self.g.manual_seed(seed)
+        self.err = {n: 0.0 for n in ("wq_matmul", "grouped_swiglu_up_wq",
+                                     "grouped_gmm_wq")}
+        self.rel = dict(self.err)
+
+    def randn(self, shape, dtype=torch.bfloat16, s=1.0):
+        return (torch.randn(shape, generator=self.g, device="cuda")
+                * s).to(dtype)
+
+    def quantized(self, shape, bits, s=0.02):
+        """Codes of a seeded bf16 weight, drawn and quantized one (In, Out)
+        slice at a time."""
+        from deepspeed_tpu_torch.ops.int8_weights import quantize_slices
+        n = math.prod(shape[:-2])
+        return quantize_slices(shape, (self.randn(shape[-2:], s=s)
+                                       for _ in range(n)), bits, "cuda")
+
+    def hold(self, name, got, ref, what):
+        if got.dtype == torch.float32:
+            torch.testing.assert_close(got, ref, **FP32_TOL)
+            return
+        why = bf16_mismatch(got, ref)
+        assert why is None, f"{name} ({what}): {why}"
+        _, e, r = bf16_errors(got, ref)
+        self.err[name] = max(self.err[name], e)
+        self.rel[name] = max(self.rel[name], r)
+
+
+def wq_controls(mm, gm, dense, grouped):
+    """Each check must fail on a known-wrong answer: K7 with its scale
+    vector shifted by one channel; K9 with one group's rows on its
+    neighbour expert's scales; int4 with the two nibbles of every byte
+    swapped."""
+    out = []
+    x, w, ref = dense["x"], dense["w"], dense["ref"]
+    wrongs = [("wq_matmul scale shifted one channel",
+               type(w)(w.q, torch.roll(w.scale, 1, dims=-1)))]
+    if w.bits == 4:
+        b = w.q.to(torch.int16) & 0xFF
+        swapped = ((b & 0xF) << 4 | (b >> 4)).to(torch.uint8)
+        wrongs.append(("wq_matmul int4 nibbles swapped",
+                       type(w)(swapped.view(torch.int8), w.scale)))
+    for label, bad in wrongs:
+        ctrl = mm.wq_matmul_reference(x.float(), bad)
+        why = bf16_mismatch(ctrl.to(torch.bfloat16), ref)
+        assert why is not None, f"{label}: check let it pass"
+        out.append(f"{label}: {why}")
+    c = grouped
+    sizes, E = c["sizes"], len(c["sizes"])
+    e = next(i for i, n in enumerate(sizes) if n)
+    lo = sum(sizes[:e])
+    hi = lo + sizes[e]
+    nb = (e + 1) % E
+    for name, w, xin in (("grouped_swiglu_up_wq", c["w1"], c["x"]),
+                         ("grouped_gmm_wq", c["w2"], c["h"])):
+        scale = w.scale.clone()
+        scale[e] = scale[nb]
+        bad = type(w)(w.q, scale)
+        if name == "grouped_gmm_wq":
+            ctrl = gm.grouped_matmul_wq_reference(xin.float(), bad, c["gs"])
+        else:
+            ctrl = gm.grouped_swiglu_up_wq_reference(xin.float(), bad,
+                                                     c["w3"], c["gs"])
+        ref = c["refs"][name]
+        wrong = ref.clone()
+        wrong[lo:hi] = ctrl[lo:hi]
+        why = bf16_mismatch(wrong.to(torch.bfloat16), ref)
+        assert why is not None, f"{name}: a neighbour's scales passed"
+        out.append(f"{name} group {e} on expert {nb}'s scales: {why}")
+    return out
+
+
+def phase_wq_kernels(mm, gm, seed=0):
+    """K7 at the Llama-2-7B FFN shapes (8 decode rows and a 256-token
+    chunk; D=4096 -> F=11008 and back) and K9 at the Mixtral-8x7B expert
+    shapes (phase 8's routed sizes and edge cases), int8 and int4:
+    checked, controlled and timed. The main-path widths: K7 int4 (the
+    Llama slice), K9 int8 (the Mixtral slice)."""
+    rs = np.random.RandomState(seed)
+    cases = WqCases(seed)
+    bf, f32 = torch.bfloat16, torch.float32
+    D, Fl = 4096, 11008
+    timings = {}
+
+    # ---- K7
+    dense = {}
+    for bits in (4, 8):
+        for K, N, tag in ((D, Fl, "up"), (Fl, D, "down")):
+            w = cases.quantized((K, N), bits)
+            for M, shape in ((8, "decode"), (256, "chunk")):
+                x = cases.randn((1, M, K))
+                out = mm.wq_matmul(x, w)
+                ref = mm.wq_matmul_reference(x.float(), w)
+                torch.cuda.synchronize()
+                cases.hold("wq_matmul", out, ref, f"int{bits} {shape} {tag}")
+                x2 = x[0]
+                wdq = w.dequant(bf)
+                lib = (lambda x2=x2, wdq=wdq: torch.matmul(x2, wdq))
+                lib_name = "bf16 torch.matmul on the dequantized weight"
+                packed = int8pack_library(x2, w)
+                t = dict(
+                    ms=time_ms(lambda: mm.wq_matmul(x, w), 30),
+                    plain_ms=time_ms(lambda: mm.wq_matmul_reference(x, w),
+                                     3),
+                    bf16_matmul_ms=time_ms(lib, 30),
+                    bound=wq_bound(M, K, N, bits))
+                t["library_ms"] = t["bf16_matmul_ms"]
+                t["library"] = lib_name
+                if packed is not None:
+                    t["int8pack_ms"] = time_ms(packed[0], 30)
+                timings[("wq_matmul", bits, shape, tag)] = t
+                if bits == 4 and shape == "decode" and tag == "up":
+                    dense = dict(x=x, w=w, ref=ref)
+                del wdq
+            del w
+        xs = cases.randn((2, 40, 512), f32)
+        ws = cases.quantized((512, 384), bits)
+        cases.hold("wq_matmul", mm.wq_matmul(xs, ws),
+                   mm.wq_matmul_reference(xs, ws), f"int{bits} fp32")
+
+    # ---- K9
+    E, Fm = 8, 14336
+    dec_sizes = routed_sizes(rs, 8, E, 2)
+    chk_sizes = routed_sizes(rs, 256, E, 2)
+    grouped = None
+    for bits in (8, 4):
+        w1, w3 = (cases.quantized((E, D, Fm), bits) for _ in range(2))
+        w2 = cases.quantized((E, Fm, D), bits)
+        for M, sizes, what in (
+                (16, dec_sizes, "decode"), (512, chk_sizes, "chunk"),
+                (512, [100, 0, 50, 30, 120, 80, 0, 132], "empty groups"),
+                (512, [0, 0, 0, 512, 0, 0, 0, 0], "one expert"),
+                (512, [40, 60, 0, 20, 100, 0, 80, 50], "162-row tail")):
+            x = cases.randn((M, D))
+            gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+            h = gm.grouped_swiglu_up_wq(x, w1, w3, gs)
+            out = gm.grouped_matmul_wq(h, w2, gs)
+            torch.cuda.synchronize()
+            live = min(sum(sizes), M)
+            assert (h[live:] == 0).all() and (out[live:] == 0).all(), \
+                f"K9 rows past the groups not zero (sizes {sizes})"
+            refs = {"grouped_swiglu_up_wq": gm.grouped_swiglu_up_wq_reference(
+                        x.float(), w1, w3, gs),
+                    "grouped_gmm_wq": gm.grouped_matmul_wq_reference(
+                        h.float(), w2, gs)}
+            for name, got in (("grouped_swiglu_up_wq", h),
+                              ("grouped_gmm_wq", out)):
+                cases.hold(name, got[:live], refs[name][:live],
+                           f"int{bits} {what}, sizes {sizes}")
+            if what not in ("decode", "chunk"):
+                continue
+            if bits == 8 and what == "decode":
+                grouped = dict(x=x, h=h, gs=gs, sizes=sizes, w1=w1, w3=w3,
+                               w2=w2, refs=refs)
+            touched = sum(1 for s in sizes if s)
+            d1, d3, d2 = (w.dequant(bf) for w in (w1, w3, w2))
+            up_lib, up_name = grouped_library(x, d1, sizes)
+            up_lib3, _ = grouped_library(x, d3, sizes)
+            dn_lib, dn_name = grouped_library(h, d2, sizes)
+            timings[("grouped_swiglu_up_wq", bits, what, "")] = dict(
+                ms=time_ms(lambda: gm.grouped_swiglu_up_wq(x, w1, w3, gs),
+                           30),
+                plain_ms=time_ms(lambda: gm.grouped_swiglu_up_wq_reference(
+                    x, w1, w3, gs), 3),
+                library_ms=time_ms(lambda: F.silu(up_lib()) * up_lib3(), 30),
+                library=f"{up_name} x2 + silu*mul on the dequantized "
+                        f"bf16 experts",
+                bound=wq_bound(M, D, Fm, bits, touched, 2, live))
+            timings[("grouped_gmm_wq", bits, what, "")] = dict(
+                ms=time_ms(lambda: gm.grouped_matmul_wq(h, w2, gs), 30),
+                plain_ms=time_ms(lambda: gm.grouped_matmul_wq_reference(
+                    h, w2, gs), 3),
+                library_ms=time_ms(dn_lib, 30),
+                library=f"{dn_name} on the dequantized bf16 experts",
+                bound=wq_bound(M, Fm, D, bits, touched, 1, live))
+            del d1, d3, d2
+        for M, sizes in ((16, dec_sizes), (100, [30, 0, 20, 10, 5, 0, 15,
+                                                 10])):
+            xs = cases.randn((M, D), f32)
+            gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+            hs = gm.grouped_swiglu_up_wq(xs, w1, w3, gs)
+            cases.hold("grouped_swiglu_up_wq", hs,
+                       gm.grouped_swiglu_up_wq_reference(xs, w1, w3, gs),
+                       f"int{bits} fp32")
+            cases.hold("grouped_gmm_wq", gm.grouped_matmul_wq(hs, w2, gs),
+                       gm.grouped_matmul_wq_reference(hs, w2, gs),
+                       f"int{bits} fp32")
+        if bits == 4:
+            del w1, w3, w2
+    log(f"wq kernel cases ok: K9 decode sizes {dec_sizes}, chunk sizes "
+        f"{chk_sizes}; max bf16 |err| " + ", ".join(
+            f"{n} {cases.err[n]:.3g} (worst row relative error norm "
+            f"{cases.rel[n]:.3g})" for n in cases.err)
+        + "; fp32 cases at 1e-4; tails 0")
+    for line in wq_controls(mm, gm, dense, grouped):
+        log(f"control fails as it must: {line}")
+    del dense, grouped
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    for key, t in timings.items():
+        log(f"  {key[0]} int{key[1]} {key[2]} {key[3]}: {t['ms']:.4f} ms "
+            f"(plain {t['plain_ms']:.4f}, library {t['library_ms']:.4f}, "
+            f"bound {t['bound'][0]:.4f} by {t['bound'][1]})"
+            + (f", torch._weight_int8pack_mm {t['int8pack_ms']:.4f}"
+               if "int8pack_ms" in t else ""))
+    main = {"wq_matmul": (4, "decode", "up"),
+            "grouped_swiglu_up_wq": (8, "decode", ""),
+            "grouped_gmm_wq": (8, "decode", "")}
+    rows = {}
+    for name, (bits, shape, tag) in main.items():
+        r = dict(timings[(name, bits, shape, tag)])
+        r["max_abs_err"] = cases.err[name]
+        r["shape"] = f"int{bits} {shape} {tag}".strip()
+        r["other"] = {f"int{b} {s} {tg}".strip(): {
+            k: (v[0] if k == "bound" else v) for k, v in t.items()
+            if k != "library"}
+            for (n, b, s, tg), t in timings.items()
+            if n == name and (b, s, tg) != (bits, shape, tag)}
+        rows[name] = r
+    return rows
+
+
+# --------------------------------------------------------------- wq parity
+
+
+def dequantized_copy(model, cls, cfg):
+    """A float model holding ``model``'s quantized weights dequantized."""
+    from deepspeed_tpu_torch.ops.int8_weights import dequant_tree
+    tree = dequant_tree(model.params_tree(), torch.float32)
+    state = {k: v for k, v in tree.items() if k != "blocks"}
+    state.update({f"blocks.{k}": v for k, v in tree["blocks"].items()})
+    plain = cls(cfg, device="cuda", dtype=torch.float32)
+    plain.load_state_dict(state)
+    return plain
+
+
+def phase_wq_parity():
+    """Small fp32 Llama and Mixtral, int8 and int4: weight_quant serving
+    (K7 / K9 on the FFN) gives the same greedy streams as the same model
+    with its dequantized weights served unquantized, split-fuse on and
+    off; the wq kernels launch exactly as the forwards imply."""
+    from deepspeed_tpu_torch import (LLAMA_PRESETS, MIXTRAL_TINY,
+                                     InferenceEngineV2, Llama, Mixtral)
+    from deepspeed_tpu_torch.ops.cuda import grouped_matmul as gm
+    from deepspeed_tpu_torch.ops.cuda import mlp_matmul as mm
+    rs = np.random.RandomState(3)
+    prompts = [rs.randint(0, 512, (n,)) for n in (5, 16, 37, 300)]
+    for cls, base in ((Llama, LLAMA_PRESETS["tiny"]), (Mixtral, MIXTRAL_TINY)):
+        cfg = dataclasses.replace(base, dtype="float32", max_seq_len=512,
+                                  d_model=256)
+        for mode in ("int8", "int4"):
+            quant = cls(cfg, device="cuda", dtype=torch.float32, seed=7,
+                        quantize=mode)
+            plain = dequantized_copy(quant, cls, cfg)
+            for splitfuse in (64, 0):
+                streams = {}
+                for tag, model, wq in (("wq", quant, mode),
+                                       ("plain", plain, "auto")):
+                    mm.reset_launch_counts()
+                    gm.reset_launch_counts()
+                    eng = InferenceEngineV2(model, dict(
+                        dtype="float32", kv_block_size=16, max_batch_size=4,
+                        prompt_bucket=64, splitfuse_tokens=splitfuse,
+                        weight_quant=wq), device="cuda")
+                    streams[tag] = eng.generate_all(prompts,
+                                                    max_new_tokens=24)
+                    n = cfg.n_layer * sum(eng.forward_counts.values())
+                    n = n if tag == "wq" else 0
+                    got = (mm.LAUNCHES["wq_matmul"],
+                           gm.LAUNCHES["grouped_swiglu_up_wq"],
+                           gm.LAUNCHES["grouped_gmm_wq"])
+                    want = (3 * n, 0, 0) if cls is Llama else (0, n, n)
+                    assert got == want, (cls.__name__, mode, tag, got, want)
+                    del eng
+                for a, b in zip(streams["wq"], streams["plain"]):
+                    np.testing.assert_array_equal(a, b)
+                log(f"wq parity ok ({cls.__name__} {mode}, splitfuse="
+                    f"{splitfuse}): weight_quant == dequantized greedy "
+                    f"streams, {sum(len(s) for s in streams['wq'])} tokens")
+            del quant, plain
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------- wq slices
+
+
+def phase_wq_slice(kind, seed=0, profile=None):
+    """Full-depth serving through the fused wq path with phase 4's
+    settings and traffic: "llama" = Llama-2-7B in int4 (K7 on the FFN),
+    "mixtral" = Mixtral-8x7B at all 32 layers in int8 (K9 on the experts);
+    both built quantized slice by slice, so the bf16 model never exists.
+    ``profile``: a path for a torch.profiler breakdown of the serving
+    loop. Returns the launch counts of the wq kernels."""
+    from deepspeed_tpu_torch import (LLAMA_PRESETS, MIXTRAL_8X7B,
+                                     InferenceEngineV2, Llama, Mixtral)
+    from deepspeed_tpu_torch.models import mixtral as mx
+    from deepspeed_tpu_torch.ops.cuda import grouped_matmul as gm
+    from deepspeed_tpu_torch.ops.cuda import mlp_matmul as mm
+    from deepspeed_tpu_torch.ops.cuda import paged_attention as pa
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated()
+    assert left < 1e9, f"earlier phases left {left / 1e9:.2f} GB allocated"
+    if kind == "llama":
+        cls, cfg, mode = Llama, LLAMA_PRESETS["llama2-7b"], "int4"
+    else:
+        cls, cfg, mode = Mixtral, MIXTRAL_8X7B, "int8"
+    L = cfg.n_layer
+    t0 = time.perf_counter()
+    model = cls(cfg, device="cuda", dtype=torch.bfloat16, seed=seed,
+                quantize=mode)
+    eng = InferenceEngineV2(model, dict(
+        dtype="bfloat16", kv_block_size=64, max_batch_size=8,
+        splitfuse_tokens=256, decode_steps_per_dispatch=8,
+        num_kv_blocks=513, weight_quant=mode), device="cuda")
+    torch.cuda.synchronize()
+    codes = sum(w.q.numel() for w in model.qblocks.values())
+    log(f"{kind} {mode} ({L} layers) built in "
+        f"{time.perf_counter() - t0:.1f} s: {cfg.num_params() / 1e9:.2f}B "
+        f"params, {codes / 1e9:.2f} GB of codes, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+
+    first_decode = []
+    sort = mx.sort_by_expert
+
+    def recording_sort(experts, E):
+        order, sizes = sort(experts, E)
+        if experts.shape[0] == 8 and len(first_decode) < L:
+            first_decode.append(sizes)
+        return order, sizes
+
+    rs = np.random.RandomState(seed)
+    lens = rs.randint(64, 2049, 8)
+    new = 64
+    torch.cuda.reset_peak_memory_stats()
+    for mod in (pa, gm, mm):
+        mod.reset_launch_counts()
+    for k in eng.forward_counts:
+        eng.forward_counts[k] = 0
+    mx.sort_by_expert = recording_sort
+    try:
+        t_start = time.perf_counter()
+        uids = []
+        for i, n in enumerate(lens):
+            sampled = i >= 6
+            uids.append(eng.put(rs.randint(0, cfg.vocab_size, (n,)), new,
+                                temperature=0.8 if sampled else None,
+                                top_k=40 if sampled else None))
+        if profile:
+            acts = [torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                first, done = serve(eng, uids)
+            e2e = time.perf_counter() - t_start
+            write_profile(prof, profile, e2e)
+        else:
+            first, done = serve(eng, uids)
+            e2e = time.perf_counter() - t_start
+    finally:
+        mx.sort_by_expert = sort
+    launches = {**pa.LAUNCHES, **gm.LAUNCHES, **mm.LAUNCHES}
+    outs = [eng.get(u) for u in uids]
+    for u, o in zip(uids, outs):
+        assert len(o) == new, (u, len(o))
+        assert ((o >= 0) & (o < cfg.vocab_size)).all(), u
+    fc = eng.forward_counts
+    forwards = fc["prefill"] + fc["chunk"] + fc["decode"]
+    want = {k: 0 for k in launches}
+    want["paged_decode"] = L * fc["decode"]
+    want["paged_chunk"] = L * (fc["chunk"] + fc["prefill"])
+    if kind == "llama":
+        want["wq_matmul"] = 3 * L * forwards
+    else:
+        want["grouped_swiglu_up_wq"] = want["grouped_gmm_wq"] = L * forwards
+    assert launches == want, (launches, want)
+
+    hist = [s.tolist() for s in first_decode]
+    ttft = sorted(first[u] - t_start for u in uids)
+    tpot = sorted((done[u] - first[u]) / (new - 1) for u in uids)
+    stats = dict(
+        model=f"{kind} {mode}", n_layer=L, requests=len(uids),
+        prompt_tokens=int(lens.sum()),
+        generated_tokens=int(sum(len(o) for o in outs)),
+        ttft_p50_s=float(np.percentile(ttft, 50)),
+        tpot_p50_ms=float(np.percentile(tpot, 50)) * 1e3,
+        output_tok_per_s=float(sum(len(o) for o in outs) / e2e),
+        e2e_s=e2e, forwards=dict(fc),
+        launches={k: v for k, v in launches.items() if v},
+        code_gb=codes / 1e9,
+        max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if kind == "mixtral":
+        stats["first_decode_expert_load"] = hist
+        assert len(hist) == L and all(sum(h) == 16 for h in hist), hist
+    log("wq slice " + json.dumps(stats))
+    del eng, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: v for k, v in launches.items()
+            if k in ("wq_matmul", "grouped_swiglu_up_wq", "grouped_gmm_wq")
+            and v}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default="",
@@ -1527,6 +2003,7 @@ def main(argv=None):
     from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
     from deepspeed_tpu_torch.ops.cuda import fused_ce as fce
     from deepspeed_tpu_torch.ops.cuda import grouped_matmul as gm
+    from deepspeed_tpu_torch.ops.cuda import mlp_matmul as mm
     from deepspeed_tpu_torch.ops.cuda import paged_attention as pa
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1540,9 +2017,10 @@ def main(argv=None):
     from deepspeed_tpu_torch.op_builder import (FlashAttentionBuilder,
                                                 FusedCEBuilder,
                                                 GroupedMatmulBuilder,
+                                                MlpMatmulBuilder,
                                                 PagedAttentionBuilder)
     builders = [PagedAttentionBuilder(), FlashAttentionBuilder(),
-                FusedCEBuilder(), GroupedMatmulBuilder()]
+                FusedCEBuilder(), GroupedMatmulBuilder(), MlpMatmulBuilder()]
     t0 = time.perf_counter()
     build_all(builders)                # one nvcc per source, together
     log(f"kernels built in {time.perf_counter() - t0:.1f} s wall")
@@ -1551,7 +2029,7 @@ def main(argv=None):
         for entry, regs, spill in ptxas_summary(b.build_log):
             log(f"    ptxas {entry}: {regs} registers, {spill} bytes "
                 f"spilled")
-    for mod in (pa, fa, fce, gm):
+    for mod in (pa, fa, fce, gm, mm):
         mod.kernel_builder()           # bind the built libraries
 
     def profile_path(suffix):
@@ -1592,6 +2070,16 @@ def main(argv=None):
     paths["gpt2moe-train"] = phase_moe_train_slice(
         profile=profile_path("moe-train"))
     phase_done("13 (MoE training slice)")
+    rows.update(phase_wq_kernels(mm, gm))
+    phase_done("14 (wq kernels)")
+    phase_wq_parity()
+    phase_done("15 (wq parity)")
+    paths["llama-int4-serve"] = phase_wq_slice(
+        "llama", profile=profile_path("llama-int4"))
+    phase_done("16 (Llama-2-7B int4 slice)")
+    paths["mixtral-int8-serve"] = phase_wq_slice(
+        "mixtral", profile=profile_path("mixtral-int8"))
+    phase_done("17 (Mixtral-8x7B int8 slice)")
 
     kernels = []
     for name, r in rows.items():

@@ -37,8 +37,6 @@ from .ragged import DSStateManager
 _NOT_YET = {
     "tensor_parallel": ((1,), "tensor parallel"),
     "expert_parallel": ((1,), "MoE expert parallel (M10)"),
-    "quantize_weights": ((False,), "weight_quant (K7/K9)"),
-    "weight_quant": (("auto", False), "weight_quant (K7/K9)"),
     "kv_host_offload": ((False,), "KV host offload"),
     "device_kv_blocks": ((0,), "KV host offload"),
     "prefix_cache": (("auto", False), "prefix cache"),
@@ -64,10 +62,10 @@ class RaggedInferenceEngineConfig:
     """The JAX engine's config. Fields this slice carries: dtype,
     max_batch_size, kv_block_size, num_kv_blocks, prompt_bucket,
     temperature, top_k, seed, decode_steps_per_dispatch, splitfuse_tokens,
-    paged_kernel. The rest raise at a non-default value
-    ("auto" settings that the JAX engine resolves off on a cold winner
-    cache stay accepted and resolve off). ``telemetry`` defaults to False
-    here: the port has no serving telemetry yet."""
+    paged_kernel, quantize_weights, weight_quant. The rest raise at a
+    non-default value ("auto" settings that the JAX engine resolves off on
+    a cold winner cache stay accepted and resolve off). ``telemetry``
+    defaults to False here: the port has no serving telemetry yet."""
     dtype: str = "bfloat16"
     tensor_parallel: int = 1
     expert_parallel: int = 1
@@ -83,7 +81,12 @@ class RaggedInferenceEngineConfig:
     # tokens, each dispatch fused with the running decodes; 0 = bucketed
     # whole-prompt prefill
     splitfuse_tokens: int = 0
+    # ZeRO-Inference capacity mode: the block weights live as int8 codes +
+    # per-channel scales and dequantize one layer at a time
     quantize_weights: bool = False
+    # fused W8A16 / W4A16: "int8" | "int4" quantizes as above and keeps the
+    # FFN weights quantized into the fused-dequant kernels (K7, K9); "auto"
+    # resolves off; wins over quantize_weights
     weight_quant: object = "auto"
     kv_host_offload: bool = False
     device_kv_blocks: int = 0
@@ -114,6 +117,10 @@ class RaggedInferenceEngineConfig:
         if self.dtype not in ("bfloat16", "float32"):
             raise ValueError(
                 f"dtype must be 'bfloat16' or 'float32', got {self.dtype!r}")
+        if self.weight_quant not in (False, "auto", "int8", "int4"):
+            raise ValueError(
+                f"weight_quant must be false|'auto'|'int8'|'int4', got "
+                f"{self.weight_quant!r}")
         for name, (allowed, item) in _NOT_YET.items():
             value = getattr(self, name)
             if not any(value is a or (type(value) is type(a) and value == a)
@@ -138,11 +145,16 @@ class InferenceEngineV2:
     ``model``: the port's ``Llama`` or ``Mixtral`` (moved to ``device``
     in ``config.dtype``, every floating parameter cast, the Mixtral router
     too, as the JAX engine's ``shard_params`` does); ``device`` defaults to
-    the card and raises without one. ``forward_counts`` counts the model
-    forwards each program ran (prefill, chunk, decode step) — with the
-    kernels on, every forward launches one paged kernel per layer, and a
-    Mixtral forward one fused gate/up and one down grouped kernel per
-    layer (``model.grouped_kernel``)."""
+    the card and raises without one. Under ``weight_quant`` /
+    ``quantize_weights`` a float model is quantized here (``quantize_``)
+    and one built with ``quantize=`` must be in the same mode; codes,
+    scales and the router then keep their types (``to_serving``).
+    ``forward_counts`` counts the model forwards each program ran
+    (prefill, chunk, decode step) — with the kernels on, every forward
+    launches one paged kernel per layer, and a Mixtral forward one fused
+    gate/up and one down grouped kernel per layer (``model.grouped_kernel``;
+    the K9 pair under ``weight_quant``), a quantized Llama three K7
+    products per layer."""
 
     def __init__(self, model, config=None, device=None, monitor=None,
                  draft_model=None, **kwargs):
@@ -157,8 +169,23 @@ class InferenceEngineV2:
         self.config = config
         self.device = resolve_device(device)
         self.dtype = getattr(torch, config.dtype)
-        self.model = model.to(device=self.device, dtype=self.dtype)
+        # weight_quant wins over quantize_weights (int8, nothing kept
+        # quantized); "auto" resolves off
+        fused = (config.weight_quant if config.weight_quant
+                 in ("int8", "int4") else None)
+        quant = fused or ("int8" if config.quantize_weights else None)
+        built = model.weight_quant
+        if built and built != quant:
+            raise ValueError(
+                f"the model's weights are quantized as {built!r} but the "
+                f"engine config asks for {quant!r} (weight_quant="
+                f"{config.weight_quant!r}, quantize_weights="
+                f"{config.quantize_weights})")
+        if quant and not built:
+            model.quantize_(quant)
+        self.model = model.to_serving(self.device, self.dtype)
         model.paged_kernel = config.paged_kernel
+        model._weight_quant_fused = fused is not None
         self.max_seq_len = model.config.max_seq_len
 
         BS = config.kv_block_size

@@ -5,11 +5,18 @@ The JAX tree (``jax.tree.map(np.asarray, params)``) and the port's module
 state share names and shapes, so conversion is a dtype/device move:
 ``model.load_state_dict(llama_params_from_numpy(tree, dev, dt))`` (or
 ``mixtral_params_from_numpy``, ``gpt2_params_from_numpy``,
-``gpt2_moe_params_from_numpy``).
+``gpt2_moe_params_from_numpy``). A quantized Llama/Mixtral tree (JAX
+``Int8Weight`` / ``Int4Weight`` nodes, e.g. from ``quantize_tree``) carries
+across as it is: each node becomes the port's container of the same int8
+codes and fp32 scales.
 """
 
 import numpy as np
 import torch
+
+from ..ops.int8_weights import Int4Weight, Int8Weight
+
+_QUANTIZED = {"Int8Weight": Int8Weight, "Int4Weight": Int4Weight}
 
 _TOP = ("wte", "norm_f", "lm_head")
 _BLOCKS = ("rms1", "wq", "wk", "wv", "wo", "rms2", "wgate", "wup", "wdown")
@@ -22,18 +29,33 @@ _GPT2_MOE_BLOCKS = _GPT2_BLOCKS[:8] + ("moe",)
 _MOE = ("gate_w", "wi", "bi", "wo", "bo")
 
 
-def _tensor(a, device, dtype):
-    if hasattr(a, "scale"):
+def _quantized(a, device):
+    """A JAX Int8Weight/Int4Weight node -> the port's, (q, scale) as they
+    are (int8 codes, fp32 scales)."""
+    cls = _QUANTIZED.get(type(a).__name__)
+    if cls is None:
         raise NotImplementedError(
-            "quantized leaves (int8/int4 weights) are not ported yet "
-            "(weight_quant, K7/K9)")
+            f"unknown quantized leaf {type(a).__name__}: the port takes the "
+            f"JAX Int8Weight / Int4Weight (weight_quant, K7/K9)")
+    return cls(torch.from_numpy(np.array(a.q, np.int8)).to(device),
+               torch.from_numpy(np.array(a.scale, np.float32)).to(device))
+
+
+def _tensor(a, device, dtype, quantized_ok=False):
+    if hasattr(a, "scale"):
+        if quantized_ok:
+            return _quantized(a, device)
+        raise NotImplementedError(
+            "quantized leaves load only into the port's Llama and Mixtral "
+            "(weight_quant, K7/K9); GPT-2 with quantized weights is not "
+            "ported yet (ROADMAP Queue 1, serving: GPT-2 paged paths)")
     a = np.asarray(a)
     if a.dtype.kind == "V" or a.dtype.name == "bfloat16":
         a = a.astype(np.float32)      # ml_dtypes bf16 has no torch view
     return torch.from_numpy(np.array(a)).to(device=device, dtype=dtype)
 
 
-def _from_numpy(tree, device, dtype, top, blocks, model):
+def _from_numpy(tree, device, dtype, top, blocks, model, quantized_ok=False):
     extra = sorted(set(tree) - set(top) - {"blocks"})
     extra += sorted(f"blocks.{k}" for k in set(tree["blocks"]) - set(blocks))
     if extra:
@@ -41,25 +63,26 @@ def _from_numpy(tree, device, dtype, top, blocks, model):
             f"parameters the port's {model} does not carry: {extra}")
     state = {k: _tensor(tree[k], device, dtype) for k in top if k in tree}
     for k, v in tree["blocks"].items():
-        state[f"blocks.{k}"] = _tensor(v, device, dtype)
+        state[f"blocks.{k}"] = _tensor(v, device, dtype, quantized_ok)
     return state
 
 
 def llama_params_from_numpy(tree, device, dtype):
     """JAX Llama parameter tree of numpy arrays -> the port's state dict
     (``wte``, ``norm_f``, ``lm_head``, ``blocks.<name>``) on ``device`` in
-    ``dtype``. Raises on keys the port's Llama does not carry (biases,
-    LayerNorm biases, embedding norm, quantized leaves)."""
-    return _from_numpy(tree, device, dtype, _TOP, _BLOCKS, "Llama")
+    ``dtype``; quantized leaves stay quantized. Raises on keys the port's
+    Llama does not carry (biases, LayerNorm biases, embedding norm)."""
+    return _from_numpy(tree, device, dtype, _TOP, _BLOCKS, "Llama", True)
 
 
 def mixtral_params_from_numpy(tree, device, dtype):
     """JAX Mixtral parameter tree of numpy arrays -> the port's state dict
     (``wte``, ``norm_f``, ``lm_head``, ``blocks.<name>`` with the experts'
     ``moe_gate``/``moe_w1``/``moe_w3``/``moe_w2``) on ``device`` in
-    ``dtype``. Raises on keys the port's Mixtral does not carry and on
-    quantized leaves."""
-    return _from_numpy(tree, device, dtype, _TOP, _MIXTRAL_BLOCKS, "Mixtral")
+    ``dtype``; quantized leaves stay quantized. Raises on keys the port's
+    Mixtral does not carry."""
+    return _from_numpy(tree, device, dtype, _TOP, _MIXTRAL_BLOCKS, "Mixtral",
+                       True)
 
 
 def gpt2_params_from_numpy(tree, device, dtype):

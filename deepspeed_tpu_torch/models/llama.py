@@ -14,6 +14,15 @@ Norms, RoPE angles/products and the logits are fp32, as in the JAX model;
 activations run in the parameters' dtype. Attention goes through the
 Hopper paged kernels (ops/cuda/paged_attention.py) unless
 ``paged_kernel`` is False, the explicit dense-gather parity path.
+
+Weight-only quantization (``quantize="int8" | "int4"`` at build, or the
+serving engine's ``weight_quant`` / ``quantize_weights``): the ``blocks``
+leaves that ``ops/int8_weights.quantize_tree`` takes live in ``qblocks``
+as ``Int8Weight`` / ``Int4Weight`` nodes instead of parameters. Layer
+weights are read through ``_w`` (the JAX ``_layer_slice``): a quantized
+leaf dequantizes one layer at a time, except the FFN keys in ``_WQ_KEEP``
+when the engine set ``_weight_quant_fused``; those stay quantized into
+the fused-dequant kernel K7 (ops/cuda/mlp_matmul.wq_matmul).
 """
 
 import math
@@ -23,10 +32,13 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.cuda.mlp_matmul import wq_matmul
 from ..ops.cuda.paged_attention import (paged_chunk_attention,
                                         paged_chunk_attention_reference,
                                         paged_decode_attention,
                                         paged_decode_attention_reference)
+from ..ops.int8_weights import (EXCLUDE_KEYS, is_quantized, layer_slice,
+                                qualifies, quantize_slices, quantize_tensor)
 from ..utils.device import resolve_device
 
 _MODEL_TODO = "(ROADMAP Queue 1, serving: more Llama-family knobs)"
@@ -175,14 +187,31 @@ def _scatter_kv(pool, blocks, offsets, vals):
                                         vals.to(pool.dtype))
 
 
+_QUANT_BITS = {"int8": 8, "int4": 4}
+
+
+def _quant_bits(mode):
+    if mode not in _QUANT_BITS:
+        raise ValueError(f"quantize must be None|'int8'|'int4', got "
+                         f"{mode!r}")
+    return _QUANT_BITS[mode]
+
+
 class Llama(nn.Module):
     """Serving-side Llama. ``device`` defaults to the card (raises without
     one); ``dtype`` defaults to ``config.dtype``; weights are random from a
     ``torch.Generator`` seeded with ``seed`` (load real or converted
-    weights with ``load_state_dict``)."""
+    weights with ``load_state_dict``). ``quantize`` ("int8" | "int4")
+    quantizes each block leaf as it is drawn, one (In, Out) slice at a
+    time, so the float model never exists: bitwise
+    ``quantize_tree(Llama(config, seed=seed).params_tree())``."""
+
+    # FFN keys the fused path keeps quantized (engine weight_quant)
+    _WQ_KEEP = ("wgate", "wup", "wdown")
+    _weight_quant_fused = False
 
     def __init__(self, config: LlamaConfig, device=None, dtype=None,
-                 seed=0):
+                 seed=0, quantize=None):
         super().__init__()
         bad = _unsupported(config)
         if bad:
@@ -195,6 +224,7 @@ class Llama(nn.Module):
         # attention dispatch: "auto"/True = the paged kernels, False = the
         # dense-gather parity path
         self.paged_kernel = "auto"
+        bits = _quant_bits(quantize) if quantize else 0
 
         L, D, Fd, V = (config.n_layer, config.d_model, config.ffn_dim,
                        config.vocab_size)
@@ -204,9 +234,20 @@ class Llama(nn.Module):
         std = 0.02
         res_std = std / math.sqrt(2 * L)
 
-        def nrm(shape, s=std, dtype=dt):
+        def slices(shape, s, dtype):
+            for _ in range(math.prod(shape[:-2])):
+                yield (torch.randn(shape[-2:], generator=gen, device=dev)
+                       * s).to(dtype)
+
+        def nrm(shape, s=std, dtype=dt, key=None):
             # one (rows, cols) slice at a time (one row at a time for a
-            # 2-D table): the fp32 draw never holds a whole stacked tensor
+            # 2-D table): the fp32 draw never holds a whole stacked tensor.
+            # A block leaf (``key``) that quantize_tree takes is quantized
+            # slice by slice as it is drawn, from the same draws.
+            if (bits and key is not None and len(shape) > 2
+                    and qualifies(key, shape, dtype)):
+                return quantize_slices(shape, slices(shape, s, dtype), bits,
+                                       dev)
             out = torch.empty(shape, dtype=dtype, device=dev)
             flat = out.view(-1, *shape[-2:]) if len(shape) > 2 else out
             for i in range(flat.shape[0]):
@@ -222,26 +263,39 @@ class Llama(nn.Module):
         self.norm_f = ones((D,))
         blocks = {
             "rms1": ones((L, D)),
-            "wq": nrm((L, D, D)),
-            "wk": nrm((L, D, kvd)),
-            "wv": nrm((L, D, kvd)),
-            "wo": nrm((L, D, D), res_std),
+            "wq": nrm((L, D, D), key="wq"),
+            "wk": nrm((L, D, kvd), key="wk"),
+            "wv": nrm((L, D, kvd), key="wv"),
+            "wo": nrm((L, D, D), res_std, key="wo"),
             "rms2": ones((L, D)),
         }
         blocks.update(self._init_mlp(nrm, res_std))
-        self.blocks = nn.ParameterDict(blocks)
+        self.qblocks = {}
+        self.weight_quant = quantize or None
+        params = {}
+        for k, v in blocks.items():
+            # the (L, D) norm scales pass min_size at full width
+            if bits and not is_quantized(v) and qualifies(k, v.shape,
+                                                          v.dtype):
+                v = quantize_tensor(v.data, bits)
+            if is_quantized(v):
+                self.qblocks[k] = v
+            else:
+                params[k] = v
+        self.blocks = nn.ParameterDict(params)
         if not config.tie_embeddings:
             self.lm_head = nrm((V, D))
 
     def _init_mlp(self, nrm, res_std):
         """The blocks' FFN tensors (the dense SwiGLU or plain MLP), drawn
-        with ``nrm(shape, std=0.02, dtype=the model's)``; a subclass with
-        another FFN overrides this."""
+        with ``nrm(shape, std=0.02, dtype=the model's, key=leaf name)``; a
+        subclass with another FFN overrides this."""
         L, D, Fd = self.config.n_layer, self.config.d_model, \
             self.config.ffn_dim
-        out = {"wup": nrm((L, D, Fd)), "wdown": nrm((L, Fd, D), res_std)}
+        out = {"wup": nrm((L, D, Fd), key="wup"),
+               "wdown": nrm((L, Fd, D), res_std, key="wdown")}
         if self.config.mlp_gated:
-            out["wgate"] = nrm((L, D, Fd))
+            out["wgate"] = nrm((L, D, Fd), key="wgate")
         return out
 
     @property
@@ -251,6 +305,74 @@ class Llama(nn.Module):
     @property
     def device(self):
         return self.wte.device
+
+    # ---------------------------------------------------------- quantization
+    def params_tree(self):
+        """The JAX parameter tree: ``wte``, ``norm_f``, ``lm_head`` and
+        ``blocks`` (tensors and quantized nodes), sharing storage."""
+        tree = {k: getattr(self, k) for k in ("wte", "norm_f", "lm_head")
+                if hasattr(self, k)}
+        tree["blocks"] = {**dict(self.blocks.items()), **self.qblocks}
+        return tree
+
+    def quantize_(self, mode):
+        """Quantize the float model in place as the JAX engine's
+        ``shard_params(quantize=...)`` does (``quantize_tree``: the block
+        leaves with >= 2 dims and >= 2^16 elements, never the router), one
+        (In, Out) slice at a time, each float leaf freed once quantized."""
+        if self.qblocks:
+            raise ValueError(f"model is already quantized "
+                             f"({self.weight_quant})")
+        bits = _quant_bits(mode)
+        for k in list(self.blocks):
+            p = self.blocks[k]
+            if qualifies(k, p.shape, p.dtype):
+                self.qblocks[k] = quantize_tensor(p.data, bits)
+                del self.blocks[k]
+        self.weight_quant = mode
+        return self
+
+    def to_serving(self, device, dtype):
+        """The serving engine's cast. Unquantized: every floating parameter
+        to ``dtype``, the router included (the JAX ``shard_params`` does
+        the same). Quantized: codes and scales move as they are and the
+        router stays fp32 (the JAX ``cast_unquantized``); the other float
+        leaves take ``dtype``."""
+        if not self.qblocks:
+            return self.to(device=device, dtype=dtype)
+        self.to(device=device)
+        self.qblocks = {k: w.to(device) for k, w in self.qblocks.items()}
+        for name, p in self.named_parameters():
+            if (p.is_floating_point()
+                    and name.rsplit(".", 1)[-1] not in EXCLUDE_KEYS):
+                p.data = p.data.to(dtype)
+        return self
+
+    def load_state_dict(self, state_dict, strict=True, assign=False):
+        """``nn.Module.load_state_dict`` that also takes quantized block
+        leaves (``blocks.<name>`` -> ``Int8Weight`` / ``Int4Weight``, as
+        ``convert.llama_params_from_numpy`` gives them for a quantized JAX
+        tree); each replaces the leaf's parameter."""
+        state = dict(state_dict)
+        for key in [k for k, v in state.items() if is_quantized(v)]:
+            name = key[len("blocks."):]
+            if name in self.blocks:
+                del self.blocks[name]
+            self.qblocks[name] = state.pop(key).to(self.device)
+        if self.qblocks:
+            self.weight_quant = "int4" if any(
+                w.bits == 4 for w in self.qblocks.values()) else "int8"
+        return super().load_state_dict(state, strict=strict, assign=assign)
+
+    def _w(self, name, i):
+        """Layer ``i`` of block leaf ``name`` (the JAX ``_layer_slice``):
+        a quantized leaf is dequantized to the model's dtype, except a
+        ``_WQ_KEEP`` leaf under the fused path, which stays quantized."""
+        w = self.qblocks.get(name)
+        if w is None:
+            return self.blocks[name][i]
+        keep = self._weight_quant_fused and name in self._WQ_KEEP
+        return layer_slice(w, i, self.dtype, keep=keep)
 
     # --------------------------------------------------------------- pieces
     def head(self, x):
@@ -264,11 +386,10 @@ class Llama(nn.Module):
     def _attn_proj(self, x, i):
         cfg = self.config
         B, T = x.shape[0], x.shape[1]
-        blk = self.blocks
-        h = _rms_norm(x, blk["rms1"][i], cfg.rms_eps)
-        q = h @ blk["wq"][i]
-        k = h @ blk["wk"][i]
-        v = h @ blk["wv"][i]
+        h = _rms_norm(x, self._w("rms1", i), cfg.rms_eps)
+        q = h @ self._w("wq", i)
+        k = h @ self._w("wk", i)
+        v = h @ self._w("wv", i)
         return (q.reshape(B, T, cfg.n_head, cfg.d_head),
                 k.reshape(B, T, cfg.n_kv_heads, cfg.d_head),
                 v.reshape(B, T, cfg.n_kv_heads, cfg.d_head))
@@ -278,19 +399,21 @@ class Llama(nn.Module):
                      interleaved=self.config.rotary_interleaved)
 
     def _wo(self, attn, i):
-        return attn @ self.blocks["wo"][i]
+        return attn @ self._w("wo", i)
 
     def _mlp(self, x, i):
         cfg = self.config
-        blk = self.blocks
-        h = _rms_norm(x, blk["rms2"][i], cfg.rms_eps)
+        h = _rms_norm(x, self._w("rms2", i), cfg.rms_eps)
+        up, down = self._w("wup", i), self._w("wdown", i)
+        # quantized FFN weights under the fused path: K7 streams the codes
+        # and applies the scales in its epilogue (JAX llama.py:414-438)
+        mm = wq_matmul if is_quantized(up) else torch.matmul
         if not cfg.mlp_gated:
-            act = F.gelu(h @ blk["wup"][i],
+            act = F.gelu(mm(h, up),
                          approximate="tanh" if cfg.mlp_act == "gelu_tanh"
                          else "none")
-            return act @ blk["wdown"][i]
-        return (F.silu(h @ blk["wgate"][i]) * (h @ blk["wup"][i])) \
-            @ blk["wdown"][i]
+            return mm(act, down)
+        return mm(F.silu(mm(h, self._w("wgate", i))) * mm(h, up), down)
 
     def _block_tail(self, x, attn, i):
         x = x + self._wo(attn, i)

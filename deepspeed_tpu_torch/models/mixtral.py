@@ -18,6 +18,11 @@ layer. Every step stays on the device: no host sync per layer.
 ``grouped_kernel`` ("auto" | True | False) picks the expert-FFN backend as
 the JAX ``MoEConfig.grouped_kernel`` does; "auto" means the kernels (the
 port has no winner cache). False is the ragged-math parity path.
+
+Under weight quantization the experts stay quantized into K9
+(``grouped_swiglu_wq``) on the fused path (``_WQ_KEEP``), the router
+``moe_gate`` is never quantized and keeps fp32, and the attention
+weights dequantize one layer at a time as in the Llama.
 """
 
 from dataclasses import dataclass
@@ -52,16 +57,19 @@ MIXTRAL_8X7B = MixtralConfig(n_layer=32, n_head=32, n_kv_heads=8,
 
 class Mixtral(Llama):
     """Serving-side Mixtral (see the module docstring). ``device``,
-    ``dtype`` and ``seed`` as for ``Llama``."""
+    ``dtype``, ``seed`` and ``quantize`` as for ``Llama``."""
+
+    _WQ_KEEP = ("moe_w1", "moe_w3", "moe_w2")
 
     def __init__(self, config: MixtralConfig, device=None, dtype=None,
-                 seed=0):
+                 seed=0, quantize=None):
         if not config.mlp_gated:
             raise ValueError("Mixtral's experts are SwiGLU: mlp_gated=True")
         if not 1 <= config.moe_top_k <= config.num_experts:
             raise ValueError(f"moe_top_k must be in [1, num_experts], got "
                              f"{config.moe_top_k}")
-        super().__init__(config, device=device, dtype=dtype, seed=seed)
+        super().__init__(config, device=device, dtype=dtype, seed=seed,
+                         quantize=quantize)
         self.grouped_kernel = "auto"
 
     def _init_mlp(self, nrm, res_std):
@@ -70,28 +78,28 @@ class Mixtral(Llama):
         return {
             # the router stays fp32, as the JAX init keeps it (an engine
             # that casts the model casts it too, as the JAX engine does)
-            "moe_gate": nrm((L, D, E), dtype=torch.float32),
-            "moe_w1": nrm((L, E, D, Fd)),
-            "moe_w3": nrm((L, E, D, Fd)),
-            "moe_w2": nrm((L, E, Fd, D), res_std),
+            "moe_gate": nrm((L, D, E), dtype=torch.float32, key="moe_gate"),
+            "moe_w1": nrm((L, E, D, Fd), key="moe_w1"),
+            "moe_w3": nrm((L, E, D, Fd), key="moe_w3"),
+            "moe_w2": nrm((L, E, Fd, D), res_std, key="moe_w2"),
         }
 
     def _mlp(self, x, i):
         """Dropless top-k SwiGLU MoE over the flattened tokens
         (``deepspeed_tpu/models/mixtral.py:132-174`` step for step)."""
         cfg = self.config
-        blk = self.blocks
         D, E, k = x.shape[-1], cfg.num_experts, cfg.moe_top_k
-        h = _rms_norm(x, blk["rms2"][i], cfg.rms_eps)
+        h = _rms_norm(x, self._w("rms2", i), cfg.rms_eps)
         xs = h.reshape(-1, D)
         S = xs.shape[0]
-        weights, experts = route_top_k(xs, blk["moe_gate"][i], k)
+        weights, experts = route_top_k(xs, self._w("moe_gate", i), k)
         order, group_sizes = sort_by_expert(experts, E)
         # token-major repeat: routed row s*k + j is token s
         xr = xs.index_select(0, torch.div(order, k, rounding_mode="floor"))
         params = resolve_grouped_params(self.grouped_kernel)
-        o = _grouped_swiglu_ffn(xr, blk["moe_w1"][i], blk["moe_w3"][i],
-                                blk["moe_w2"][i], group_sizes, params)
+        o = _grouped_swiglu_ffn(xr, self._w("moe_w1", i),
+                                self._w("moe_w3", i), self._w("moe_w2", i),
+                                group_sizes, params)
         unsorted = torch.empty_like(o).index_copy_(0, order, o)
         y = (unsorted * weights.reshape(-1, 1).to(x.dtype)).reshape(
             S, k, D).sum(dim=1)

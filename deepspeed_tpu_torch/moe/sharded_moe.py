@@ -20,9 +20,10 @@ import torch.nn.functional as F
 
 from ..ops.cuda.grouped_matmul import (grouped_matmul,
                                        grouped_matmul_reference,
-                                       grouped_swiglu, grouped_tgmm)
+                                       grouped_swiglu, grouped_swiglu_wq,
+                                       grouped_tgmm)
+from ..ops.int8_weights import is_quantized
 
-_TODO_WQ = "quantized expert weights (K9 `grouped_swiglu_wq`, ROADMAP Queue 2)"
 _TODO_INT8 = "int8 expert compute (M11, ROADMAP Queue 1)"
 _TODO_EP = "MoE expert parallel (ROADMAP Queue 1, M10)"
 
@@ -75,16 +76,19 @@ def _expert_bias(b, experts, group_sizes, params):
     return b[experts]
 
 
-def _is_quantized(w):
-    return hasattr(w, "scale") or not w.dtype.is_floating_point
-
-
 def _grouped_swiglu_ffn(xs, w1, w3, w2, group_sizes, params):
     """``gmm(silu(gmm(xs, w1)) * gmm(xs, w3), w2)`` over rows sorted by
     expert: xs (S, D), w1/w3 (E, D, F), w2 (E, F, D) -> (S, D); rows past
-    ``sum(group_sizes)`` are 0."""
-    if any(_is_quantized(w) for w in (w1, w3, w2)):
-        raise NotImplementedError(f"{_TODO_WQ} is not ported yet")
+    ``sum(group_sizes)`` are 0. Quantized experts (``Int8Weight`` /
+    ``Int4Weight``, the serving engine's ``weight_quant``) go through K9
+    (``grouped_swiglu_wq``: codes streamed, scales in the epilogue); with
+    the ragged backend they take the JAX fallback math instead: each
+    expert dequantized to xs's dtype, then the ragged products."""
+    if any(is_quantized(w) for w in (w1, w3, w2)):
+        if params.get("backend") == "kernel":
+            return grouped_swiglu_wq(xs, w1, w3, w2, group_sizes)
+        w1, w3, w2 = (w.dequant(xs.dtype) if is_quantized(w) else w
+                      for w in (w1, w3, w2))
     if params.get("int8"):
         raise NotImplementedError(f"{_TODO_INT8} is not ported yet")
     if params.get("backend") == "kernel":

@@ -1,5 +1,7 @@
 from .builder import (CUDAOpBuilder, FlashAttentionBuilder, FusedCEBuilder,
-                      GroupedMatmulBuilder, PagedAttentionBuilder, build_all)
+                      GroupedMatmulBuilder, MlpMatmulBuilder,
+                      PagedAttentionBuilder, build_all)
 
 __all__ = ["CUDAOpBuilder", "FlashAttentionBuilder", "FusedCEBuilder",
-           "GroupedMatmulBuilder", "PagedAttentionBuilder", "build_all"]
+           "GroupedMatmulBuilder", "MlpMatmulBuilder", "PagedAttentionBuilder",
+           "build_all"]

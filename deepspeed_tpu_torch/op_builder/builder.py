@@ -41,6 +41,7 @@ def find_nvcc():
 class CUDAOpBuilder:
     NAME = None
     SOURCES = ()
+    DEPENDS = ()      # headers the sources include (hashed, not compiled)
 
     def __init__(self):
         self._lib = None
@@ -52,7 +53,8 @@ class CUDAOpBuilder:
 
     def build_hash(self):
         h = hashlib.sha256()
-        for s in self.absolute_sources():
+        for s in self.absolute_sources() + [os.path.join(CSRC, d)
+                                            for d in self.DEPENDS]:
             with open(s, "rb") as f:
                 h.update(f.read())
         h.update(" ".join(NVCC_FLAGS).encode())
@@ -127,6 +129,13 @@ class FusedCEBuilder(CUDAOpBuilder):
 class GroupedMatmulBuilder(CUDAOpBuilder):
     NAME = "grouped_matmul"
     SOURCES = ("grouped_matmul.cu",)
+    DEPENDS = ("gemm_common.cuh", "wq_gemm.cuh")
+
+
+class MlpMatmulBuilder(CUDAOpBuilder):
+    NAME = "mlp_matmul"
+    SOURCES = ("mlp_matmul.cu",)
+    DEPENDS = ("gemm_common.cuh", "wq_gemm.cuh")
 
 
 def build_all(builders):

@@ -14,6 +14,14 @@ are noted there). Same signatures as the JAX functions:
   grouped_tgmm(x, dy, group_sizes)          the per-group weight gradient
       (E, K, N): sum over group e's rows of x^T dy, fp32 accumulation.
 
+and the weight-only quantized forward (K9, ``_gmm_wq`` / ``_swiglu_up_wq``
+behind the JAX ``grouped_swiglu_wq``):
+
+  grouped_swiglu_wq(x, w1, w3, w2, group_sizes) the same chain with
+      ``Int8Weight`` / ``Int4Weight`` experts (codes (E, K | K/2, N), scales
+      (E, 1, N)): fp32 products of x and the codes, each expert's scales on
+      the accumulators, one rounding per product. Forward only (serving).
+
 Both differentiable entry points carry the JAX custom VJPs as
 ``torch.autograd.Function``s: ``_gmm_diff`` (grouped_matmul.py:323-349:
 dx = gmm(dy, w^T) through a transposed view of w, dw = tgmm(x, dy)) and
@@ -33,7 +41,10 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-LAUNCHES = {"grouped_swiglu_up": 0, "grouped_gmm": 0, "grouped_tgmm": 0}
+from ..int8_weights import is_quantized
+
+LAUNCHES = {"grouped_swiglu_up": 0, "grouped_gmm": 0, "grouped_tgmm": 0,
+            "grouped_swiglu_up_wq": 0, "grouped_gmm_wq": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -53,6 +64,19 @@ class _GroupedArgs(ctypes.Structure):
                 ("E", ctypes.c_int), ("vec_x", ctypes.c_int),
                 ("vec_w", ctypes.c_int), ("w_kmajor", ctypes.c_int)]
 
+
+class WqArgs(ctypes.Structure):
+    """Mirror of ``struct WqArgs`` in csrc/wq_gemm.cuh."""
+    _fields_ = [("x", ctypes.c_void_p), ("q1", ctypes.c_void_p),
+                ("q3", ctypes.c_void_p), ("s1", ctypes.c_void_p),
+                ("s3", ctypes.c_void_p), ("group_sizes", ctypes.c_void_p),
+                ("out", ctypes.c_void_p), ("M", ctypes.c_int),
+                ("K", ctypes.c_int), ("N", ctypes.c_int), ("E", ctypes.c_int),
+                ("vec_x", ctypes.c_int), ("vec_w", ctypes.c_int)]
+
+
+WQ_ARGTYPES = [ctypes.POINTER(WqArgs), ctypes.c_int, ctypes.c_int,
+               ctypes.c_int, ctypes.c_void_p]
 
 class _TgmmArgs(ctypes.Structure):
     """Mirror of ``struct TgmmArgs`` in csrc/grouped_matmul.cu."""
@@ -81,6 +105,9 @@ def kernel_builder():
         lib.grouped_tgmm_launch.argtypes = [ctypes.POINTER(_TgmmArgs),
                                             ctypes.c_int, ctypes.c_void_p]
         lib.grouped_tgmm_launch.restype = ctypes.c_int
+        for fn in (lib.grouped_gmm_wq_launch, lib.grouped_swiglu_up_wq_launch):
+            fn.argtypes = WQ_ARGTYPES
+            fn.restype = ctypes.c_int
         _builder = b
     return _builder
 
@@ -139,6 +166,39 @@ def grouped_tgmm_reference(x, dy, group_sizes):
         out[e] = torch.matmul(x[lo:hi].float().t(),
                               dy[lo:hi].float()).to(x.dtype)
     return out
+
+
+def grouped_matmul_wq_reference(x, w, group_sizes):
+    """Plain version of the quantized grouped product: per group, fp32
+    products of x and expert e's codes, times its scales, rounded once;
+    rows past the groups are 0."""
+    out = torch.zeros(x.shape[0], w.scale.shape[-1], dtype=x.dtype,
+                      device=x.device)
+    codes = w.codes()
+    for e, lo, hi in _group_bounds(group_sizes, x.shape[0]):
+        acc = torch.matmul(x[lo:hi].float(), codes[e].float())
+        out[lo:hi] = (acc * w.scale[e]).to(x.dtype)
+    return out
+
+
+def grouped_swiglu_up_wq_reference(x, w1, w3, group_sizes):
+    """Plain version of the quantized up chain: each expert's scales on
+    the fp32 products, then silu(g) * u in fp32, rounded once."""
+    out = torch.zeros(x.shape[0], w1.scale.shape[-1], dtype=x.dtype,
+                      device=x.device)
+    c1, c3 = w1.codes(), w3.codes()
+    for e, lo, hi in _group_bounds(group_sizes, x.shape[0]):
+        xs = x[lo:hi].float()
+        g = torch.matmul(xs, c1[e].float()) * w1.scale[e]
+        u = torch.matmul(xs, c3[e].float()) * w3.scale[e]
+        out[lo:hi] = (F.silu(g) * u).to(x.dtype)
+    return out
+
+
+def grouped_swiglu_wq_reference(x, w1, w3, w2, group_sizes):
+    """Plain version of ``grouped_swiglu_wq``."""
+    h = grouped_swiglu_up_wq_reference(x, w1, w3, group_sizes)
+    return grouped_matmul_wq_reference(h, w2, group_sizes)
 
 
 def grouped_swiglu_reference(x, w1, w3, w2, group_sizes):
@@ -214,6 +274,64 @@ def _launch(fn_name, name, x, ws, group_sizes):
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
     LAUNCHES[name] += 1
+    return out
+
+
+def check_quantized(name, ws, E, K, N, device):
+    """Raise unless every w in ``ws`` is a quantized weight of logical shape
+    (E, K, N) (E None: (K, N)) with int8 codes and (E, 1, N) fp32 scales on
+    ``device``."""
+    lead = () if E is None else (E,)
+    for w in ws:
+        if not is_quantized(w):
+            raise TypeError(f"{name}: want Int8Weight/Int4Weight, got "
+                            f"{type(w).__name__}")
+        if w.shape != lead + (K, N) or tuple(w.scale.shape) != lead + (1, N):
+            raise ValueError(f"{name}: want a quantized {lead + (K, N)} "
+                             f"weight, got {w!r}")
+        if (w.q.dtype != torch.int8 or w.scale.dtype != torch.float32
+                or w.q.device != device or w.scale.device != device):
+            raise TypeError(f"{name}: want int8 codes and fp32 scales on "
+                            f"{device}, got {w.q.dtype} / {w.scale.dtype} "
+                            f"on {w.q.device}")
+
+
+def launch_wq(lib_fn, name, counts, x, w1, w3=None, group_sizes=None):
+    """Launch one quantized-weight kernel (wq_gemm.cuh) on CUDA tensors,
+    counting it as ``counts[name]``: x (M, K) times w1's codes (w3's too
+    for the fused SwiGLU), grouped when ``group_sizes`` is given. Returns
+    the (M, N) output in x's dtype."""
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"{name}: kernel takes float32 or bfloat16, got "
+                        f"{x.dtype}")
+    M, K = x.shape
+    N = w1.scale.shape[-1]
+    out = torch.empty(M, N, dtype=x.dtype, device=x.device)
+    if M == 0:
+        return out
+    x = x.contiguous()
+    ws = (w1,) if w3 is None else (w1, w3)
+    q = [w.q.contiguous() for w in ws]
+    s = [w.scale.contiguous() for w in ws]
+    gs = None
+    E = 1
+    if group_sizes is not None:
+        if group_sizes.device != x.device:
+            raise ValueError(f"{name}: group_sizes must be on {x.device}")
+        gs = group_sizes.to(torch.int32).contiguous()
+        E = gs.shape[0]
+    vec_x = K % (16 // x.element_size()) == 0 and _aligned(x)
+    vec_w = N % 16 == 0 and all(_aligned(t) for t in q)
+    a = WqArgs(x.data_ptr(), q[0].data_ptr(), q[-1].data_ptr(),
+               s[0].data_ptr(), s[-1].data_ptr(),
+               None if gs is None else gs.data_ptr(), out.data_ptr(),
+               M, K, N, E, int(vec_x), int(vec_w))
+    rc = lib_fn(ctypes.byref(a), _DTYPE_CODE[x.dtype], w1.bits,
+                block_m_for(M),
+                torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+    counts[name] += 1
     return out
 
 
@@ -360,3 +478,59 @@ def grouped_swiglu(x, w1, w3, w2, group_sizes):
         raise TypeError(f"grouped_swiglu: x and w2 must share a dtype, got "
                         f"{x.dtype} and {w2.dtype}")
     return _GroupedSwigluFn.apply(x, w1, w3, w2, group_sizes)
+
+
+def _gmm_wq(x, w, group_sizes):
+    if x.device.type == "cpu":
+        return grouped_matmul_wq_reference(x, w, group_sizes)
+    return launch_wq(kernel_builder().load().grouped_gmm_wq_launch,
+                     "grouped_gmm_wq", LAUNCHES, x, w,
+                     group_sizes=group_sizes)
+
+
+def _swiglu_up_wq(x, w1, w3, group_sizes):
+    if x.device.type == "cpu":
+        return grouped_swiglu_up_wq_reference(x, w1, w3, group_sizes)
+    return launch_wq(kernel_builder().load().grouped_swiglu_up_wq_launch,
+                     "grouped_swiglu_up_wq", LAUNCHES, x, w1, w3,
+                     group_sizes=group_sizes)
+
+
+def _check_wq(name, x, ws, group_sizes):
+    E, K, N = ws[0].shape
+    if x.dim() != 2 or x.shape[1] != K:
+        raise ValueError(f"{name}: want x (S, {K}), got {tuple(x.shape)}")
+    check_quantized(name, ws, E, K, N, x.device)
+    _check_sizes(name, group_sizes, E)
+
+
+def grouped_matmul_wq(x, w, group_sizes):
+    """x (S, K) rows sorted by group times quantized experts w (logical
+    (E, K, N)) -> (S, N) in x's dtype; rows past the groups are 0. One
+    launch on the card; forward only."""
+    _check_wq("grouped_matmul_wq", x, (w,), group_sizes)
+    return _gmm_wq(x, w, group_sizes)
+
+
+def grouped_swiglu_up_wq(x, w1, w3, group_sizes):
+    """h = silu(s1 (x code1[g])) * (s3 (x code3[g])): x (S, K), quantized
+    w1/w3 of one type (logical (E, K, F)) -> (S, F) in x's dtype."""
+    if type(w1) is not type(w3):
+        raise TypeError("grouped_swiglu_up_wq: w1 and w3 must share a "
+                        "quantization type")
+    _check_wq("grouped_swiglu_up_wq", x, (w1, w3), group_sizes)
+    return _swiglu_up_wq(x, w1, w3, group_sizes)
+
+
+def grouped_swiglu_wq(x, w1, w3, w2, group_sizes):
+    """The SwiGLU expert chain over quantized experts (``Int8Weight`` /
+    ``Int4Weight``): x (S, K); w1/w3 (E, K, F); w2 (E, F, K') -> (S, K').
+    Two launches on the card, each product on its own weights' type (an
+    odd F puts w2 in int8 beside int4 w1/w3); no dequantized expert ever
+    exists. Forward only, as the JAX ``grouped_swiglu_wq``."""
+    E, K, Fd = w1.shape
+    if len(w2.shape) != 3 or tuple(w2.shape[:2]) != (E, Fd):
+        raise ValueError(f"grouped_swiglu_wq: want w2 ({E}, {Fd}, K'), got "
+                         f"{w2!r}")
+    h = grouped_swiglu_up_wq(x, w1, w3, group_sizes)
+    return grouped_matmul_wq(h, w2, group_sizes)

@@ -1,5 +1,6 @@
 """The Hopper kernels on the card (paged attention, flash attention forward
-and backward, fused CE, the MoE grouped matmuls and their backward), held
+and backward, fused CE, the MoE grouped matmuls and their backward, the
+weight-only int8/int4 products K7 and K9), held
 against their plain PyTorch versions at
 small shapes (bf16 against the plain version in fp32
 on the same inputs, chip_smoke.bf16_mismatch; fp32 at 1e-4).
@@ -15,7 +16,9 @@ import torch
 import chip_smoke
 from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
 from deepspeed_tpu_torch.ops.cuda import fused_ce as fce
+from deepspeed_tpu_torch.ops import int8_weights as iw
 from deepspeed_tpu_torch.ops.cuda import grouped_matmul as gm
+from deepspeed_tpu_torch.ops.cuda import mlp_matmul as mm
 from deepspeed_tpu_torch.ops.cuda import paged_attention as pa
 
 pytestmark = pytest.mark.cuda
@@ -307,3 +310,79 @@ def test_tgmm_never_takes_the_plain_path(monkeypatch):
     assert float(gm.grouped_tgmm(x, x, gs)[0, 0, 0]) == 8.0
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         gm.grouped_tgmm(x.half(), x.half(), gs)
+
+
+def _quantized(rs, shape, bits):
+    return iw.quantize_leaf(_rand(rs, shape, torch.float32) * 0.1, bits)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N,sizes", [
+    (192, 128, 256, [50, 0, 120, 22]),      # uneven + an empty group
+    (192, 128, 256, [192, 0, 0, 0]),        # every row on one expert
+    (192, 128, 256, [40, 30, 0, 10]),       # a tail of 112 rows
+    (16, 256, 320, [2, 3, 1, 2, 4, 1, 2, 1]),   # decode: BM = 16
+    (100, 100, 90, [30, 20, 10, 35]),       # ragged K and N
+])
+def test_grouped_wq_kernels(bits, dtype, M, K, N, sizes):
+    rs = np.random.RandomState(8)
+    E = len(sizes)
+    x = _rand(rs, (M, K), dtype)
+    w1, w3 = (_quantized(rs, (E, K, N), bits) for _ in range(2))
+    gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+    n0 = dict(gm.LAUNCHES)
+    h = gm.grouped_swiglu_up_wq(x, w1, w3, gs)
+    out = gm.grouped_matmul_wq(x, w1, gs)
+    torch.cuda.synchronize()
+    assert gm.LAUNCHES["grouped_swiglu_up_wq"] == \
+        n0["grouped_swiglu_up_wq"] + 1
+    assert gm.LAUNCHES["grouped_gmm_wq"] == n0["grouped_gmm_wq"] + 1
+    live = sum(sizes)
+    assert torch.all(out[live:] == 0) and torch.all(h[live:] == 0)
+    refs = (gm.grouped_swiglu_up_wq_reference(x.float(), w1, w3, gs),
+            gm.grouped_matmul_wq_reference(x.float(), w1, gs))
+    for got, ref in zip((h, out), refs):
+        _assert_close(got[:live], ref[:live], dtype)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,K,N", [
+    (8, 1, 256, 320),       # decode rows: BM = 16
+    (1, 40, 128, 192),
+    (2, 150, 200, 96),
+    (1, 5, 100, 90),        # ragged K and N
+])
+def test_wq_matmul_kernel(bits, dtype, B, T, K, N):
+    rs = np.random.RandomState(9)
+    x = _rand(rs, (B, T, K), dtype)
+    w = _quantized(rs, (K, N), bits)
+    n0 = mm.LAUNCHES["wq_matmul"]
+    out = mm.wq_matmul(x, w)
+    out_t = mm.wq_matmul(x.transpose(1, 2), w, x_t=True, out_t=True)
+    torch.cuda.synchronize()
+    assert mm.LAUNCHES["wq_matmul"] == n0 + 2
+    ref = mm.wq_matmul_reference(x.float(), w)
+    _assert_close(out, ref, dtype)
+    _assert_close(out_t.transpose(1, 2), ref, dtype)
+
+
+def test_wq_kernels_never_take_the_plain_path(monkeypatch):
+    def plain(*a, **k):
+        raise AssertionError("a CUDA tensor took a plain wq product")
+
+    for name in ("grouped_matmul_wq_reference",
+                 "grouped_swiglu_up_wq_reference"):
+        monkeypatch.setattr(gm, name, plain)
+    monkeypatch.setattr(mm, "_plain_rows", plain)
+    rs = np.random.RandomState(10)
+    w = _quantized(rs, (2, 32, 64), 4)
+    x = torch.ones(8, 32, device="cuda")
+    gs = torch.tensor([3, 5], dtype=torch.int32, device="cuda")
+    assert gm.grouped_swiglu_wq(x, w, w, _quantized(rs, (2, 64, 32), 8),
+                                gs).shape == (8, 32)
+    assert mm.wq_matmul(x, iw.Int4Weight(w.q[0], w.scale[0])).shape == \
+        (8, 64)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        gm.grouped_matmul_wq(x.half(), w, gs)

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 from deepspeed_tpu.ops.pallas.grouped_matmul import grouped_matmul as j_gmm
 from deepspeed_tpu.ops.pallas.grouped_matmul import grouped_swiglu as j_swiglu
 from deepspeed_tpu_torch.moe import sharded_moe as moe
+from deepspeed_tpu_torch.ops import int8_weights as iw
 from deepspeed_tpu_torch.ops.cuda import grouped_matmul as gm
 
 GMM_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -154,7 +155,9 @@ def test_resolve_rejects_unknown_knob(knob):
 
 def test_expert_ffn_backends_agree_and_unported_branches_raise():
     """The kernel backend (plain version on CPU) and the ragged math agree
-    in fp32; quantized experts (K9) and int8 compute (M11) raise."""
+    in fp32, on float and on quantized experts (K9: the quantized chain
+    against the ragged math on the dequantized experts); integer experts
+    without their scales and int8 compute (M11) raise."""
     rs = np.random.RandomState(5)
     S, K, Fd, E = 40, 32, 48, 4
     xs = torch.from_numpy(rs.standard_normal((S, K)).astype(np.float32))
@@ -166,7 +169,11 @@ def test_expert_ffn_backends_agree_and_unported_branches_raise():
     a = moe._grouped_swiglu_ffn(xs, w1, w3, w2, gs, {"backend": "kernel"})
     b = moe._grouped_swiglu_ffn(xs, w1, w3, w2, gs, {"backend": "ragged"})
     torch.testing.assert_close(a, b, **SWIGLU_TOL)
-    with pytest.raises(NotImplementedError, match="K9"):
+    qs = [iw.quantize_leaf(w, 8) for w in (w1, w3, w2)]
+    a = moe._grouped_swiglu_ffn(xs, *qs, gs, {"backend": "kernel"})
+    b = moe._grouped_swiglu_ffn(xs, *qs, gs, {"backend": "ragged"})
+    torch.testing.assert_close(a, b, **SWIGLU_TOL)
+    with pytest.raises(TypeError, match="share a dtype"):
         moe._grouped_swiglu_ffn(xs, w1.to(torch.int8), w3, w2, gs,
                                 {"backend": "kernel"})
     with pytest.raises(NotImplementedError, match="M11"):

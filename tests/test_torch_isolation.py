@@ -74,11 +74,16 @@ for model in (Llama(dataclasses.replace(LLAMA_TINY, dtype="float32"),
                     device="cpu"),
               Mixtral(dataclasses.replace(MIXTRAL_TINY, dtype="float32"),
                       device="cpu")):
-    eng = InferenceEngineV2(model, dict(dtype="float32", kv_block_size=8,
-                                        max_batch_size=2, splitfuse_tokens=8),
-                            device="cpu")
-    out = eng.generate_all([np.arange(5), np.arange(12)], max_new_tokens=3)
-    assert [len(o) for o in out] == [3, 3]
+    for quant in ({}, dict(weight_quant="int4"),
+                  dict(quantize_weights=True)):
+        eng = InferenceEngineV2(model, dict(dtype="float32", kv_block_size=8,
+                                            max_batch_size=2,
+                                            splitfuse_tokens=8, **quant),
+                                device="cpu")
+        out = eng.generate_all([np.arange(5), np.arange(12)],
+                               max_new_tokens=3)
+        assert [len(o) for o in out] == [3, 3]
+        model = type(model)(model.config, device="cpu")
 gcfg = GPT2Config(n_layer=2, n_head=2, d_model=64, max_seq_len=32,
                   vocab_size=128, dtype="float32", use_flash_attention=True,
                   remat=True, remat_policy="save_flash", loss_chunk=8,
@@ -109,6 +114,41 @@ def test_port_runs_with_jax_unimportable():
                          timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "ISOLATED_OK" in res.stdout
+
+
+def test_quantized_weights_off_the_cpu_take_the_kernel(monkeypatch,
+                                                      tmp_path):
+    """A tensor off the CPU with quantized weights goes to the K7 / K9
+    kernels and never to their plain versions: here, with no nvcc, the
+    build raises."""
+    from deepspeed_tpu_torch.moe import sharded_moe
+    from deepspeed_tpu_torch.ops import int8_weights as iw
+    from deepspeed_tpu_torch.ops.cuda import grouped_matmul as gm
+    from deepspeed_tpu_torch.ops.cuda import mlp_matmul as mm
+    monkeypatch.setattr(builder, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(builder, "find_nvcc", lambda: None)
+    monkeypatch.setattr(mm, "_builder", None)
+    monkeypatch.setattr(gm, "_builder", None)
+
+    def plain(*a, **k):
+        raise AssertionError("a tensor off the CPU took a plain version")
+
+    monkeypatch.setattr(mm, "_plain_rows", plain)
+    for name in ("grouped_matmul_wq_reference",
+                 "grouped_swiglu_up_wq_reference"):
+        monkeypatch.setattr(gm, name, plain)
+    x = torch.ones(6, 32, device="meta")
+    w = iw.quantize_leaf(torch.ones(32, 64, device="meta"), 4)
+    ws = [iw.quantize_leaf(torch.ones(s, device="meta"), 8)
+          for s in ((2, 32, 64), (2, 32, 64), (2, 64, 32))]
+    gs = torch.ones(2, dtype=torch.int32, device="meta")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        mm.wq_matmul(x, w)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        gm.grouped_swiglu_wq(x, *ws, gs)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        sharded_moe._grouped_swiglu_ffn(x, *ws, gs, {"backend": "kernel"})
+    assert os.listdir(tmp_path) == []
 
 
 def test_no_silent_cpu_fallback(monkeypatch):
@@ -157,8 +197,7 @@ def test_engine_rejects_unported_config():
     model = Llama(dataclasses.replace(LLAMA_TINY, dtype="float32"),
                   device="cpu")
     for over in (dict(tensor_parallel=2), dict(expert_parallel=2),
-                 dict(weight_quant="int8"),
-                 dict(quantize_weights=True), dict(kv_host_offload=True),
+                 dict(kv_host_offload=True),
                  dict(prefix_cache=True), dict(spec_draft=True),
                  dict(telemetry=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -172,13 +211,16 @@ class TestOpBuilder:
     @pytest.mark.parametrize("cls,name", [
         (builder.FlashAttentionBuilder, "flash_attention"),
         (builder.FusedCEBuilder, "fused_ce"),
-        (builder.GroupedMatmulBuilder, "grouped_matmul")])
+        (builder.GroupedMatmulBuilder, "grouped_matmul"),
+        (builder.MlpMatmulBuilder, "mlp_matmul")])
     def test_training_builders(self, cls, name):
         b = cls()
         assert b.so_path() == os.path.join(
             ROOT, "build", "deepspeed_tpu_torch",
             f"{name}-{b.build_hash()}.so")
         assert all(os.path.exists(s) for s in b.absolute_sources())
+        assert all(os.path.exists(os.path.join(builder.CSRC, d))
+                   for d in b.DEPENDS)
 
     def test_build_all_waits_for_every_build(self, monkeypatch, tmp_path):
         fake = tmp_path / "nvcc"

@@ -76,13 +76,21 @@ class TestConvert:
         with pytest.raises(NotImplementedError):
             mixtral_params_from_numpy(tree, "cpu", torch.float32)
 
-        class Quantized:              # an int8 expert leaf (q + scale)
+        class Int8Weight:             # an int8 expert leaf (q + scale)
             q = np.zeros((1, 2, 2, 2), np.int8)
             scale = np.ones((1, 2, 1, 2), np.float32)
+
+        class Quantized(Int8Weight):  # an unknown quantized node
+            pass
 
         tree = {"wte": np.zeros((4, 2)), "blocks": {"moe_w1": Quantized()}}
         with pytest.raises(NotImplementedError, match="K9"):
             mixtral_params_from_numpy(tree, "cpu", torch.float32)
+        # the JAX node carries across quantized (weight_quant, K9)
+        tree["blocks"]["moe_w1"] = Int8Weight()
+        w = mixtral_params_from_numpy(tree, "cpu", torch.float32)[
+            "blocks.moe_w1"]
+        assert w.q.dtype == torch.int8 and w.scale.dtype == torch.float32
 
     def test_unported_knobs_raise(self):
         for over in (dict(alibi=True), dict(norm_type="ln"),
