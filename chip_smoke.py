@@ -77,15 +77,33 @@ Phases (any failure raises and the script exits nonzero):
      every request returns 64 tokens, launches exactly 3 wq_matmul per
      layer and forward (Llama) or one grouped_swiglu_up_wq and one
      grouped_gmm_wq (Mixtral), the paged kernels as in phase 4.
+ 18. K13 / K6 kernels: the LayerNorm forward and backward (K13) at N =
+     24 * 1024, 24 * 512 and an odd row count, D = 1024, and the
+     layout-owning projection (K6: forward, dx, dW) at all four (x_t,
+     out_t) orientations at the GPT-2 350M MLP shapes, bf16 against the
+     plain versions run in fp32 (dscale, dbias and dW by relative error
+     norm), fp32 at 1e-4; controls that must fail (one CTA's rows dropped
+     from dscale, dW without its last row tile, an out_t output written
+     untransposed); each timed beside its bound, plain version and one
+     library call (F.layer_norm forward / backward, torch.matmul).
+ 19. K13 / K6 parity: a small fp32 GPT-2 with fused_layernorm in {True,
+     "bwd"}, mlp_kernel in {"down", "both"} and fuse_dw both ways, and a
+     GPT2MoE with fused_layernorm, give the knobs-off loss and gradients.
+ 20. K13 / K6 slice: phase 7 with fused_layernorm=True, mlp_kernel="both",
+     mlp_kernel_fuse_dw=True; the loss falls, the launch counts are exactly
+     98 LayerNorm forwards, 50 backwards, 144 K6 products and 48 dW a
+     step, and the step time is printed beside phase 7's and beside 10
+     steps with fused_layernorm=True alone.
 Then one JSON line of per-kernel numbers (launches summed over the main
 paths that ran each kernel, and per path), and last the result line
 {"ok": true, "device": {...}}. Without a CUDA device it exits 2 and prints
 no result. ``--profile PATH`` also writes torch.profiler breakdowns of the
 serving slice's device time to PATH, of three extra training steps to
 PATH with "-train" before its extension, of the MoE slice with "-moe", of
-three extra MoE training steps with "-moe-train" and of the quantized
-slices with "-llama-int4" and "-mixtral-int8" (profiled timings include
-the profiler's overhead).
+three extra MoE training steps with "-moe-train", of the quantized
+slices with "-llama-int4" and "-mixtral-int8" and of three extra
+knobs-on GPT-2 steps with "-kernels-train" (profiled timings include the
+profiler's overhead).
 """
 
 import argparse
@@ -139,6 +157,10 @@ SOURCES = {
     "wq_matmul": "deepspeed_tpu_torch/csrc/mlp_matmul.cu",
     "grouped_swiglu_up_wq": "deepspeed_tpu_torch/csrc/grouped_matmul.cu",
     "grouped_gmm_wq": "deepspeed_tpu_torch/csrc/grouped_matmul.cu",
+    "layernorm_fwd": "deepspeed_tpu_torch/csrc/layernorm.cu",
+    "layernorm_bwd": "deepspeed_tpu_torch/csrc/layernorm.cu",
+    "mlp_mm": "deepspeed_tpu_torch/csrc/mlp_matmul.cu",
+    "mlp_dw": "deepspeed_tpu_torch/csrc/mlp_matmul.cu",
 }
 REPLACES = {
     "paged_decode": "deepspeed_tpu/ops/pallas/paged_attention.py:121",
@@ -152,6 +174,10 @@ REPLACES = {
     "wq_matmul": "deepspeed_tpu/ops/pallas/mlp_matmul.py:284",
     "grouped_swiglu_up_wq": "deepspeed_tpu/ops/pallas/grouped_matmul.py:536",
     "grouped_gmm_wq": "deepspeed_tpu/ops/pallas/grouped_matmul.py:465",
+    "layernorm_fwd": "deepspeed_tpu/ops/pallas/layernorm.py:53",
+    "layernorm_bwd": "deepspeed_tpu/ops/pallas/layernorm.py:63",
+    "mlp_mm": "deepspeed_tpu/ops/pallas/mlp_matmul.py:70",
+    "mlp_dw": "deepspeed_tpu/ops/pallas/mlp_matmul.py:134",
 }
 
 
@@ -802,21 +828,29 @@ def phase_train_parity(seed=0):
 # ----------------------------------------------------------- training slice
 
 
-def phase_train_slice(seed=0, steps=10, profile=None):
+def phase_train_slice(seed=0, steps=10, profile=None, knobs=None,
+                      tag="train slice"):
     """GPT-2 350M through initialize -> train_batch with the bench config
     (benchmarks/bench_engine.py:46-77, :182-206): T=1024, micro 24, gas 1,
     AdamW lr 2e-4 wd 0.01, clip 1.0, bf16, ZeRO 2, save_flash, loss chunk
     512 with the fused CE kernel. One fixed numpy-seeded batch, as bench.py
-    does."""
+    does. ``knobs``: GPT2Config fields set on top (phase 20: the K13 and
+    K6 knobs); the launch counts they imply are checked too. The run's
+    numbers go to TRAIN_STATS[tag]."""
     import dataclasses
     from deepspeed_tpu_torch import GPT2, GPT2_PRESETS, initialize
     from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
     from deepspeed_tpu_torch.ops.cuda import fused_ce as fce
+    from deepspeed_tpu_torch.ops.cuda import layernorm as ln
+    from deepspeed_tpu_torch.ops.cuda import mlp_matmul as mm
+    knobs = knobs or {}
     cfg = dataclasses.replace(
         GPT2_PRESETS["350M"], max_seq_len=1024, use_flash_attention=True,
         flash_block_q=1024, flash_block_k=1024, flash_block_h=1,
         remat=True, remat_policy="save_flash", loss_chunk=512,
-        fused_loss=True, fused_loss_kernel=True)
+        fused_loss=True, fused_loss_kernel=True, **knobs)
+    gc.collect()
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     engine, _, _, _ = initialize(
         model=GPT2(cfg, device="cuda", seed=seed),
@@ -829,22 +863,26 @@ def phase_train_slice(seed=0, steps=10, profile=None):
     torch.cuda.synchronize()
     bsz = engine.config.train_batch_size
     log(f"gpt2-350M engine built in {time.perf_counter() - t0:.1f} s: "
-        f"{cfg.num_params() / 1e6:.1f}M params, batch {bsz} x 1024")
+        f"{cfg.num_params() / 1e6:.1f}M params, batch {bsz} x 1024"
+        + (f", knobs {knobs}" if knobs else ""))
     batch = {"input_ids": np.random.RandomState(seed).randint(
         0, cfg.vocab_size, (bsz, cfg.max_seq_len)).astype(np.int32)}
 
+    mods = (fa, fce, ln, mm)
     torch.cuda.reset_peak_memory_stats()
-    fa.reset_launch_counts()
-    fce.reset_launch_counts()
+    for mod in mods:
+        mod.reset_launch_counts()
     losses, times = [], []
     for _ in range(steps):
         t1 = time.perf_counter()
         losses.append(float(engine.train_batch(batch)))
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t1)
-    launches = {**fa.LAUNCHES, **fce.LAUNCHES}
-    want = {"flash_fwd": cfg.n_layer * steps, "flash_bwd": cfg.n_layer * steps,
-            "fused_ce": 2 * steps}
+    launches = {k: v for mod in mods for k, v in mod.LAUNCHES.items()}
+    L = cfg.n_layer
+    want = {"flash_fwd": L * steps, "flash_bwd": L * steps,
+            "fused_ce": 2 * steps, "wq_matmul": 0,
+            **knob_launches(cfg, L, steps, chunks=2)}
     assert launches == want, (launches, want)
     assert all(math.isfinite(x) for x in losses), losses
     assert losses[-1] < losses[0], losses
@@ -857,7 +895,8 @@ def phase_train_slice(seed=0, steps=10, profile=None):
         model_tflops_per_s=cfg.flops_per_token() * tokens / step_s / 1e12,
         launches=launches,
         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
-    log("train slice " + json.dumps(stats))
+    TRAIN_STATS[tag] = stats
+    log(f"{tag} " + json.dumps(stats))
     if profile:
         acts = [torch.profiler.ProfilerActivity.CUDA]
         t1 = time.perf_counter()
@@ -867,8 +906,31 @@ def phase_train_slice(seed=0, steps=10, profile=None):
             torch.cuda.synchronize()
         write_profile(prof, profile, time.perf_counter() - t1)
     del engine
+    gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+TRAIN_STATS = {}
+
+
+def knob_launches(cfg, L, steps, chunks):
+    """K13 / K6 launches a GPT-2 training run of ``steps`` steps implies
+    under save_flash with the fused CE head over ``chunks`` loss chunks:
+    LayerNorm forwards for ln1 and ln2 in the forward and in save_flash's
+    re-run, and for lnf per chunk; backwards for ln1, ln2 and lnf per
+    chunk (the "bwd" knob: backwards only). K6 per layer: each product
+    through it in the forward, its re-run and its dx; one dW each (none
+    with fuse_dw=False)."""
+    ln = cfg.fused_layernorm
+    fwd = ln not in (False, "bwd", "auto")
+    bwd = bool(ln) and ln != "auto"
+    mode = cfg.mlp_kernel
+    k6 = 0 if not mode or mode == "auto" else (2 if mode == "both" else 1)
+    return {"layernorm_fwd": (4 * L + chunks) * steps if fwd else 0,
+            "layernorm_bwd": (2 * L + chunks) * steps if bwd else 0,
+            "mlp_mm": 3 * k6 * L * steps,
+            "mlp_dw": k6 * L * steps if cfg.mlp_kernel_fuse_dw else 0}
 
 
 # ------------------------------------------------------------- MoE kernels
@@ -1990,6 +2052,346 @@ def phase_wq_slice(kind, seed=0, profile=None):
             and v}
 
 
+# ------------------------------------------- K13 / K6 kernels (phase 18)
+
+
+def rel_norm(out, ref):
+    """Relative error norm of ``out`` against the fp32 ``ref`` (a sum over
+    rows: dscale, dbias, dW)."""
+    return (torch.linalg.vector_norm(out.float() - ref)
+            / torch.linalg.vector_norm(ref)).item()
+
+
+def phase_knob_kernels(ln, mm, seed=0, P=24, T=1024, D=1024):
+    """K13 (LayerNorm forward / backward) and K6 (the projection _mm and
+    its dW) at the GPT-2 350M training shapes: LN over N = 24 * 1024 rows
+    (ln1, ln2), 24 * 512 (lnf per CE chunk) and an odd 24 * 1024 + 37, D =
+    1024; K6 at all four (x_t, out_t) pairs at (P, T) = (24, 1024), (K, M)
+    = (1024, 4096) and (4096, 1024), forward, dx and dW. bf16 against the
+    plain versions run in fp32 on the same inputs (bf16_mismatch; dscale,
+    dbias and dW by relative error norm within BF16_REL_NORM), fp32 at
+    1e-4; a control per kernel that must fail; each timed beside its bound,
+    plain version and one library call (F.layer_norm's forward and
+    backward ops, torch.matmul / einsum on the same operands)."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def randn(shape, dtype=bf, s=1.0, shift=0.0):
+        return (torch.randn(shape, generator=g, device="cuda") * s
+                + shift).to(dtype)
+
+    err = {"layernorm_fwd": 0.0, "layernorm_bwd": 0.0, "mlp_mm": 0.0,
+           "mlp_dw": 0.0}
+    worst = {"ds/db": 0.0, "dW": 0.0}
+
+    # ---- K13: fp32 at 1e-4 (incl. D > 1024, rows read again), then bf16
+    for N_, D_ in ((300, 384), (1000, 1024), (77, 2048)):
+        x, dy = randn((N_, D_), f32, 2.0, 0.5), randn((N_, D_), f32)
+        sc, bi = randn((D_,), f32, 0.1, 1.0), randn((D_,), f32, 0.1)
+        torch.testing.assert_close(ln._fwd(x, sc, bi, 1e-5),
+                                   ln.layernorm_reference(x, sc, bi),
+                                   **FP32_TOL)
+        for got, ref in zip(ln._bwd(x, sc, dy, 1e-5),
+                            ln.layernorm_bwd_reference(x, sc, dy)):
+            torch.testing.assert_close(got, ref, **FP32_TOL)
+    sc, bi = randn((D,), bf, 0.1, 1.0), randn((D,), bf, 0.1)
+    scf, bif = sc.float(), bi.float()
+    ln_cases = {}
+    for N_ in (P * T, P * 512, P * T + 37):
+        x, dy = randn((N_, D), bf, 2.0, 0.5), randn((N_, D))
+        xf, dyf = x.float(), dy.float()
+        y = ln._fwd(x, sc, bi, 1e-5)
+        dx, ds, db = ln._bwd(x, sc, dy, 1e-5)
+        again = ln._bwd(x, sc, dy, 1e-5)
+        torch.cuda.synchronize()
+        ry = ln.layernorm_reference(xf, scf, bif)
+        rdx, rds, rdb = ln.layernorm_bwd_reference(xf, scf, dyf)
+        for name, got, ref in (("layernorm_fwd", y, ry),
+                               ("layernorm_bwd", dx, rdx)):
+            why = bf16_mismatch(got, ref)
+            assert why is None, f"{name} N={N_}: {why}"
+            err[name] = max(err[name], bf16_errors(got, ref)[1])
+        for got, ref in ((ds, rds), (db, rdb)):
+            rel = rel_norm(got, ref)
+            assert rel <= BF16_REL_NORM, f"dscale/dbias N={N_}: {rel:.3g}"
+            worst["ds/db"] = max(worst["ds/db"], rel)
+        assert all(torch.equal(a, b) for a, b in zip((dx, ds, db), again)), \
+            "layernorm_bwd does not repeat bitwise"
+        # control: one CTA's 64 rows dropped from the dscale reduction
+        keep = torch.ones(N_, dtype=torch.bool, device="cuda")
+        keep[64 * (N_ // 128):64 * (N_ // 128) + 64] = False
+        ctrl = ln.layernorm_bwd_reference(xf[keep], scf, dyf[keep])[1]
+        crel = rel_norm(ctrl.to(bf), rds)
+        assert crel > BF16_REL_NORM, "dscale check let a dropped CTA pass"
+        ln_cases[N_] = (x, dy, crel)
+        del y, dx, again, ry, rdx, keep, xf, dyf
+    log(f"layernorm checks ok: fp32 at 1e-4 (D = 384, 1024, 2048), bf16 "
+        f"max |err| y {err['layernorm_fwd']:.3g} dx "
+        f"{err['layernorm_bwd']:.3g}, worst dscale/dbias relative error "
+        f"norm {worst['ds/db']:.3g}; the backward repeats bitwise; control: "
+        f"one CTA's rows dropped from dscale fails (relative error norm "
+        + ", ".join(f"N={n}: {c[2]:.3g}" for n, c in ln_cases.items())
+        + f" > {BF16_REL_NORM})")
+
+    rows = {}
+    for N_ in (P * T, P * 512):
+        x, dy, _ = ln_cases[N_]
+        nbytes = 2 * N_ * D * 2 + 2 * D * 2
+        w_ = sc.detach()
+        _, mean, rstd = torch.ops.aten.native_layer_norm(x, [D], w_, bi,
+                                                         1e-5)
+        tf = dict(
+            ms=time_ms(lambda: ln._fwd(x, sc, bi, 1e-5), 50),
+            plain_ms=time_ms(lambda: ln.layernorm_reference(x, sc, bi), 10),
+            library_ms=time_ms(lambda: F.layer_norm(x, [D], sc, bi, 1e-5),
+                               50),
+            bound=bound(nbytes, 8 * N_ * D))
+        tb = dict(
+            ms=time_ms(lambda: ln._bwd(x, sc, dy, 1e-5), 50),
+            plain_ms=time_ms(lambda: ln.layernorm_bwd_reference(x, sc, dy),
+                             10),
+            library_ms=time_ms(
+                lambda: torch.ops.aten.native_layer_norm_backward(
+                    dy, x, [D], mean, rstd, w_, bi, [True, True, True]), 50),
+            bound=bound(3 * N_ * D * 2 + 3 * D * 2, 16 * N_ * D))
+        for name, t in (("layernorm_fwd", tf), ("layernorm_bwd", tb)):
+            t["shape"] = f"N={N_} D={D}"
+            if name in rows:
+                rows[name]["other"] = {t["shape"]: {
+                    k: (v[0] if k == "bound" else v) for k, v in t.items()
+                    if k != "shape"}}
+            else:
+                rows[name] = t
+            log(f"{name} N={N_} D={D}: {t['ms']:.4f} ms (plain "
+                f"{t['plain_ms']:.4f}, library {t['library_ms']:.4f}, bound "
+                f"{t['bound'][0]:.4f} by {t['bound'][1]})")
+    rows["layernorm_fwd"]["library"] = "F.layer_norm (aten native_layer_norm)"
+    rows["layernorm_bwd"]["library"] = (
+        "aten native_layer_norm_backward (from saved mean / rstd)")
+    del ln_cases, x, dy, mean, rstd
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- K6: fp32 at 1e-4, small ragged shapes, every orientation
+    for x_t, out_t in ((False, False), (True, False), (False, True),
+                       (True, True)):
+        x = randn((2, 136, 200) if x_t else (2, 200, 136), f32)
+        w = randn((136, 96), f32, 0.1)
+        dy = randn((2, 96, 200) if out_t else (2, 200, 96), f32)
+        torch.testing.assert_close(
+            mm._mm(x, w, x_t, False, out_t, f32),
+            mm.mm_reference(x, w, x_t, False, out_t, f32), **FP32_TOL)
+        torch.testing.assert_close(
+            mm._mm(dy, w, out_t, True, x_t, f32),
+            mm.mm_reference(dy, w, out_t, True, x_t, f32), **FP32_TOL)
+        torch.testing.assert_close(
+            mm._dw(x, dy, x_t, out_t, f32),
+            mm.dw_reference(x, dy, x_t, out_t, f32), **FP32_TOL)
+
+    # ---- K6: bf16 at the MLP shapes; the main path's orientations timed
+    N = P * T
+    timings = {}
+    for K, M in ((D, 4 * D), (4 * D, D)):
+        w = randn((K, M), bf, 1 / math.sqrt(K))
+        wf = w.float()
+        for x_t, out_t in ((False, False), (True, False), (False, True),
+                           (True, True)):
+            x = randn((P, K, T) if x_t else (P, T, K))
+            dy = randn((P, M, T) if out_t else (P, T, M))
+            xf, dyf = x.float(), dy.float()
+            y = mm._mm(x, w, x_t, False, out_t, bf)
+            dx = mm._mm(dy, w, out_t, True, x_t, bf)
+            dw = mm._dw(x, dy, x_t, out_t, bf)
+            torch.cuda.synchronize()
+            tag = f"(K, M) = ({K}, {M}) x_t={x_t} out_t={out_t}"
+            for what, got, ref in (
+                    ("forward", y, mm.mm_reference(xf, wf, x_t, False, out_t,
+                                                   f32)),
+                    ("dx", dx, mm.mm_reference(dyf, wf, out_t, True, x_t,
+                                               f32))):
+                why = bf16_mismatch(got, ref)
+                assert why is None, f"mlp_mm {what} {tag}: {why}"
+                err["mlp_mm"] = max(err["mlp_mm"], bf16_errors(got, ref)[1])
+                if what == "forward" and out_t:
+                    # control: the (P, N, M) result written as it lies into
+                    # the (P, M, N) output
+                    flat = ref.transpose(1, 2).contiguous().view(ref.shape)
+                    assert bf16_mismatch(flat.to(bf), ref) is not None, \
+                        "out_t check let an untransposed output pass"
+                del ref
+            rdw = mm.dw_reference(xf, dyf, x_t, out_t, f32)
+            rel = rel_norm(dw, rdw)
+            assert torch.isfinite(dw).all() and rel <= BF16_REL_NORM, \
+                f"mlp_dw {tag}: relative error norm {rel:.3g}"
+            worst["dW"] = max(worst["dW"], rel)
+            err["mlp_dw"] = max(err["mlp_dw"],
+                                (dw.float() - rdw).abs().max().item())
+            # control: the contraction's last 64-row tile left out of dW
+            xl = mm._log_a(xf, x_t)[-1, -64:]
+            gl = mm._log_a(dyf, out_t)[-1, -64:]
+            crel = rel_norm((rdw - xl.t() @ gl).to(bf), rdw)
+            assert crel > BF16_REL_NORM, "dW check let a lost row tile pass"
+            del y, dx, dw, rdw, xl, gl, xf, dyf
+            # the main path ("both"): up (K=D) forward out_t, dx from the
+            # (B, F, T) cotangent, dW with g_t; down (K=F) forward x_t, dx
+            # out in x's (B, F, T) orientation, dW with a_t
+            up = K == D
+            if (x_t, out_t) != ((False, True) if up else (True, False)):
+                del x, dy
+                continue
+            x_log, dy_log = mm._log_a(x, x_t), mm._log_a(dy, out_t)
+            fwd_bytes = (N * K + K * M + N * M) * 2
+            flops = 2 * N * K * M
+            name = "up" if up else "down"
+            timings[("mlp_mm", f"{name} forward")] = dict(
+                ms=time_ms(lambda: mm._mm(x, w, x_t, False, out_t, bf), 10),
+                plain_ms=time_ms(lambda: mm.mm_reference(
+                    x, w, x_t, False, out_t, bf), 3),
+                library_ms=time_ms(lambda: torch.matmul(x_log, w), 10),
+                bound=bound(fwd_bytes, flops))
+            timings[("mlp_mm", f"{name} dx")] = dict(
+                ms=time_ms(lambda: mm._mm(dy, w, out_t, True, x_t, bf), 10),
+                plain_ms=time_ms(lambda: mm.mm_reference(
+                    dy, w, out_t, True, x_t, bf), 3),
+                library_ms=time_ms(lambda: torch.matmul(dy_log, w.t()), 10),
+                bound=bound(fwd_bytes, flops))
+            timings[("mlp_dw", f"{name} dW")] = dict(
+                ms=time_ms(lambda: mm._dw(x, dy, x_t, out_t, bf), 10),
+                plain_ms=time_ms(lambda: mm.dw_reference(
+                    x, dy, x_t, out_t, bf), 3),
+                library_ms=time_ms(lambda: torch.einsum(
+                    "pnk,pnm->km", x_log, dy_log), 10),
+                bound=bound(fwd_bytes, flops))
+            del x, dy, x_log, dy_log
+        del w, wf
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"K6 checks ok: fp32 at 1e-4 (ragged, every orientation), bf16 at "
+        f"every (x_t, out_t) and both MLP shapes: max |err| forward / dx "
+        f"{err['mlp_mm']:.3g}, worst dW relative error norm "
+        f"{worst['dW']:.3g}; controls fail as they must: an out_t output "
+        f"written untransposed, dW without its last 64-row tile")
+    for (name, what), t in timings.items():
+        log(f"{name} {what} (P, T) = ({P}, {T}): {t['ms']:.4f} ms (plain "
+            f"{t['plain_ms']:.4f}, library {t['library_ms']:.4f}, bound "
+            f"{t['bound'][0]:.4f} by {t['bound'][1]})")
+    for name, main in (("mlp_mm", "up forward"), ("mlp_dw", "up dW")):
+        r = dict(timings[(name, main)])
+        r["shape"] = f"{main}, (P, T) = ({P}, {T}), D = {D}, F = {4 * D}"
+        r["library"] = ("torch.matmul" if name == "mlp_mm" else
+                        "torch.einsum pnk,pnm->km")
+        r["other"] = {w: {k: (v[0] if k == "bound" else v)
+                          for k, v in t.items()}
+                      for (n, w), t in timings.items()
+                      if n == name and w != main}
+        rows[name] = r
+    for name in rows:
+        rows[name]["max_abs_err"] = err[name]
+    # the sums over rows are held by relative error norm
+    rows["layernorm_bwd"]["dscale_dbias_rel_norm"] = worst["ds/db"]
+    rows["mlp_dw"]["rel_norm"] = worst["dW"]
+    return rows
+
+
+# --------------------------------------------- K13 / K6 parity (phase 19)
+
+
+def phase_knob_parity(seed=0):
+    """Small fp32 GPT-2 (D=128, save_flash, the flash and fused CE
+    kernels) with fused_layernorm in {True, "bwd"}, mlp_kernel in {"down",
+    "both"} and fuse_dw both ways against the same model with the knobs
+    off: the same loss (rtol 2e-5) and every gradient (relative error norm
+    1e-4), with exactly the launches the knobs imply; then a small GPT2MoE
+    with fused_layernorm=True held the same way."""
+    from deepspeed_tpu_torch import GPT2, GPT2Config, GPT2MoE
+    from deepspeed_tpu_torch.ops.cuda import layernorm as ln
+    from deepspeed_tpu_torch.ops.cuda import mlp_matmul as mm
+    base = dict(n_layer=2, n_head=2, d_model=128, max_seq_len=256,
+                vocab_size=1000, dtype="float32", loss_chunk=100,
+                fused_loss=True, fused_loss_kernel=True,
+                use_flash_attention=True, remat=True,
+                remat_policy="save_flash")
+    ids = torch.from_numpy(np.random.RandomState(seed).randint(
+        0, 1000, (4, 256))).cuda()
+    chunks = -(-255 // 100)
+
+    def run(model):
+        for mod in (ln, mm):
+            mod.reset_launch_counts()
+        loss = model.loss({"input_ids": ids})
+        loss.backward()
+        torch.cuda.synchronize()
+        launched = {**ln.LAUNCHES, **mm.LAUNCHES}
+        return loss.item(), {n: p.grad for n, p in
+                             model.named_parameters()}, launched
+
+    def hold(name, got, ref):
+        (l_on, g_on, _), (l_off, g_off, _) = got, ref
+        assert abs(l_on - l_off) <= 2e-5 * abs(l_off), (name, l_on, l_off)
+        w = 0.0
+        for n, g in g_off.items():
+            rel = (torch.linalg.vector_norm(g_on[n] - g)
+                   / torch.linalg.vector_norm(g)).item()
+            assert rel <= 1e-4, (name, n, rel)
+            w = max(w, rel)
+        return w
+
+    off = run(GPT2(GPT2Config(**base), device="cuda", seed=seed))
+    assert not any(off[2].values()), off[2]
+    worst = 0.0
+    for ln_knob in (True, "bwd"):
+        for mode in ("down", "both"):
+            for fuse in (True, False):
+                cfg = GPT2Config(**base, fused_layernorm=ln_knob,
+                                 mlp_kernel=mode, mlp_kernel_fuse_dw=fuse)
+                got = run(GPT2(cfg, device="cuda", seed=seed))
+                want = {"wq_matmul": 0,
+                        **knob_launches(cfg, cfg.n_layer, 1, chunks)}
+                assert got[2] == want, (ln_knob, mode, fuse, got[2], want)
+                worst = max(worst, hold((ln_knob, mode, fuse), got, off))
+    moe = dict(num_experts=4, moe_top_k=2, moe_backend="ragged")
+    moe_off = run(GPT2MoE(moe_cfg(GPT2Config(**base), **moe), device="cuda",
+                          seed=seed))
+    cfg = moe_cfg(GPT2Config(**base, fused_layernorm=True), **moe)
+    moe_on = run(GPT2MoE(cfg, device="cuda", seed=seed))
+    L = cfg.n_layer
+    assert moe_on[2]["layernorm_fwd"] == 4 * L + chunks, moe_on[2]
+    assert moe_on[2]["layernorm_bwd"] == 2 * L + chunks, moe_on[2]
+    worst_moe = hold("moe", moe_on, moe_off)
+    log(f"K13/K6 parity ok: 8 knob settings against the knobs off, loss "
+        f"{off[0]:.7f}, worst gradient relative error norm {worst:.3g}; "
+        f"GPT2MoE with fused_layernorm, loss {moe_on[0]:.7f} vs "
+        f"{moe_off[0]:.7f}, worst {worst_moe:.3g}")
+
+
+# ---------------------------------------------- K13 / K6 slice (phase 20)
+
+
+def phase_knob_slice(seed=0, steps=10, profile=None):
+    """Phase 7's GPT-2 350M bench configuration with fused_layernorm=True,
+    mlp_kernel="both", mlp_kernel_fuse_dw=True: 10 train_batch steps, the
+    loss falling, the launches exactly what the knobs imply; its step time
+    beside phase 7's from this run, and beside 10 steps with
+    fused_layernorm=True alone."""
+    launches = phase_train_slice(
+        seed=seed, steps=steps, profile=profile, tag="knob train slice",
+        knobs=dict(fused_layernorm=True, mlp_kernel="both",
+                   mlp_kernel_fuse_dw=True))
+    # which knob moves the step: fused_layernorm alone, after the main path
+    # (its launches are checked, not counted for the path)
+    phase_train_slice(seed=seed, steps=steps, tag="layernorm-only slice",
+                      knobs=dict(fused_layernorm=True))
+    off = TRAIN_STATS["train slice"]
+    keys = ("step_s_median_after_first", "tokens_per_s",
+            "model_tflops_per_s", "max_memory_allocated_gb")
+    for tag in ("knob train slice", "layernorm-only slice"):
+        on = TRAIN_STATS[tag]
+        log(f"gpt2-350M {tag} vs phase 7 (knobs off), this run: "
+            + ", ".join(f"{k} {on[k]:.4f} vs {off[k]:.4f}" for k in keys))
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default="",
@@ -2003,6 +2405,7 @@ def main(argv=None):
     from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
     from deepspeed_tpu_torch.ops.cuda import fused_ce as fce
     from deepspeed_tpu_torch.ops.cuda import grouped_matmul as gm
+    from deepspeed_tpu_torch.ops.cuda import layernorm as ln
     from deepspeed_tpu_torch.ops.cuda import mlp_matmul as mm
     from deepspeed_tpu_torch.ops.cuda import paged_attention as pa
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2017,10 +2420,12 @@ def main(argv=None):
     from deepspeed_tpu_torch.op_builder import (FlashAttentionBuilder,
                                                 FusedCEBuilder,
                                                 GroupedMatmulBuilder,
+                                                LayerNormBuilder,
                                                 MlpMatmulBuilder,
                                                 PagedAttentionBuilder)
     builders = [PagedAttentionBuilder(), FlashAttentionBuilder(),
-                FusedCEBuilder(), GroupedMatmulBuilder(), MlpMatmulBuilder()]
+                FusedCEBuilder(), GroupedMatmulBuilder(), MlpMatmulBuilder(),
+                LayerNormBuilder()]
     t0 = time.perf_counter()
     build_all(builders)                # one nvcc per source, together
     log(f"kernels built in {time.perf_counter() - t0:.1f} s wall")
@@ -2029,7 +2434,7 @@ def main(argv=None):
         for entry, regs, spill in ptxas_summary(b.build_log):
             log(f"    ptxas {entry}: {regs} registers, {spill} bytes "
                 f"spilled")
-    for mod in (pa, fa, fce, gm, mm):
+    for mod in (pa, fa, fce, gm, mm, ln):
         mod.kernel_builder()           # bind the built libraries
 
     def profile_path(suffix):
@@ -2080,6 +2485,13 @@ def main(argv=None):
     paths["mixtral-int8-serve"] = phase_wq_slice(
         "mixtral", profile=profile_path("mixtral-int8"))
     phase_done("17 (Mixtral-8x7B int8 slice)")
+    rows.update(phase_knob_kernels(ln, mm))
+    phase_done("18 (K13 / K6 kernels)")
+    phase_knob_parity()
+    phase_done("19 (K13 / K6 parity)")
+    paths["gpt2-kernels-train"] = phase_knob_slice(
+        profile=profile_path("kernels-train"))
+    phase_done("20 (GPT-2 350M with K13 / K6)")
 
     kernels = []
     for name, r in rows.items():
@@ -2092,7 +2504,8 @@ def main(argv=None):
             ms=r["ms"], kernel_ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound"][0], bound_by=r["bound"][1],
             library_ms=r["library_ms"])
-        for extra in ("shape", "chunk", "other", "dx_view", "library"):
+        for extra in ("shape", "chunk", "other", "dx_view", "library",
+                      "dscale_dbias_rel_norm", "rel_norm"):
             if extra in r:
                 row[extra] = r[extra]
         kernels.append(row)

@@ -55,7 +55,8 @@ def _tensor(a, device, dtype, quantized_ok=False):
     return torch.from_numpy(np.array(a)).to(device=device, dtype=dtype)
 
 
-def _from_numpy(tree, device, dtype, top, blocks, model, quantized_ok=False):
+def _from_numpy(tree, device, dtype, top, blocks, model, quantized_ok=False,
+                fp32_blocks=()):
     extra = sorted(set(tree) - set(top) - {"blocks"})
     extra += sorted(f"blocks.{k}" for k in set(tree["blocks"]) - set(blocks))
     if extra:
@@ -63,7 +64,8 @@ def _from_numpy(tree, device, dtype, top, blocks, model, quantized_ok=False):
             f"parameters the port's {model} does not carry: {extra}")
     state = {k: _tensor(tree[k], device, dtype) for k in top if k in tree}
     for k, v in tree["blocks"].items():
-        state[f"blocks.{k}"] = _tensor(v, device, dtype, quantized_ok)
+        dt = torch.float32 if k in fp32_blocks else dtype
+        state[f"blocks.{k}"] = _tensor(v, device, dt, quantized_ok)
     return state
 
 
@@ -79,10 +81,11 @@ def mixtral_params_from_numpy(tree, device, dtype):
     """JAX Mixtral parameter tree of numpy arrays -> the port's state dict
     (``wte``, ``norm_f``, ``lm_head``, ``blocks.<name>`` with the experts'
     ``moe_gate``/``moe_w1``/``moe_w3``/``moe_w2``) on ``device`` in
-    ``dtype``; quantized leaves stay quantized. Raises on keys the port's
-    Mixtral does not carry."""
+    ``dtype``, except the router ``blocks.moe_gate``, which stays fp32 as
+    the JAX ``Mixtral.init`` keeps it (mixtral.py:73-75); quantized leaves
+    stay quantized. Raises on keys the port's Mixtral does not carry."""
     return _from_numpy(tree, device, dtype, _TOP, _MIXTRAL_BLOCKS, "Mixtral",
-                       True)
+                       True, fp32_blocks=("moe_gate",))
 
 
 def gpt2_params_from_numpy(tree, device, dtype):

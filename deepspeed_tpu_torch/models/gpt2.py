@@ -19,7 +19,10 @@ MoE load-balance loss of ``gpt2_moe.GPT2MoE``; a dense block's aux is None,
 where JAX's is 0.0 times a zero coefficient). Attention goes through the
 Hopper flash kernels (ops/cuda/flash_attention.py) when
 ``use_flash_attention`` resolves on, else the dense path; the loss head
-through the fused CE kernel when ``fused_loss_kernel``.
+through the fused CE kernel when ``fused_loss_kernel``; every LayerNorm
+through the K13 kernels (ops/cuda/layernorm.py) when ``fused_layernorm``
+(``_ln``); the MLP projections through K6 (ops/cuda/mlp_matmul.py) when
+``mlp_kernel`` (``_mlp``).
 """
 
 import math
@@ -32,6 +35,9 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.cuda.flash_attention import (flash_attention, flash_backward,
                                         flash_forward, scale_q)
+from ..ops.cuda.layernorm import (fused_layernorm, layernorm_fused_bwd,
+                                  layernorm_reference as layernorm)
+from ..ops.cuda.mlp_matmul import mlp_matmul
 from ..utils.device import resolve_device
 from .common import (chunked_softmax_xent, fused_linear_xent,
                      fused_linear_xent_kernel, mm_f32, next_token_xent,
@@ -117,8 +123,6 @@ _POST = slice(6, None)  # ln2 + MLP
 _TODO = {
     "dropout": "(ROADMAP Queue 1, M2: dropout)",
     "attn_layer_windows": "(ROADMAP Queue 1, M2: per-layer windows)",
-    "mlp_kernel": "(ROADMAP Queue 2, K6)",
-    "fused_layernorm": "(ROADMAP Queue 2, K13)",
     "ring": "(ROADMAP Queue 1, M12)",
     "ltd": "(ROADMAP Queue 1, M14: random-LTD)",
     "seq": "(ROADMAP Queue 1, M12: sequence parallelism)",
@@ -131,22 +135,9 @@ def _unsupported(cfg):
         out.append(("dropout > 0", _TODO["dropout"]))
     if cfg.attn_layer_windows:
         out.append(("attn_layer_windows", _TODO["attn_layer_windows"]))
-    if cfg.mlp_kernel:
-        out.append(("mlp_kernel", _TODO["mlp_kernel"]))
-    if cfg.fused_layernorm:
-        out.append(("fused_layernorm", _TODO["fused_layernorm"]))
     if cfg.attention_backend == "ring":
         out.append(("attention_backend='ring'", _TODO["ring"]))
     return out
-
-
-def layernorm(x, scale, bias, eps=1e-5):
-    """LayerNorm with fp32 statistics (own copy of the JAX ``_ln_jnp``)."""
-    x32 = x.float()
-    mu = x32.mean(-1, keepdim=True)
-    var = (x32 - mu).square().mean(-1, keepdim=True)
-    y = (x32 - mu) * torch.rsqrt(var + eps)
-    return (y * scale.float() + bias.float()).to(x.dtype)
 
 
 _ACTS = {"gelu": lambda u: F.gelu(u, approximate="tanh"), "relu": F.relu}
@@ -245,14 +236,26 @@ class GPT2(nn.Module):
         x = F.embedding(ids.long(), self.wte) + self.wpe[:T]
         return x.to(self.dtype)
 
+    def _ln(self, x, scale, bias):
+        """LayerNorm dispatch (gpt2.py:451-483): "bwd" = the plain forward
+        + the K13 backward kernel; True = the K13 forward and backward
+        kernels; False = plain; "auto" = plain: the JAX package resolves it
+        through its autotune winner cache and takes the plain form on a
+        miss, and the port has no winner cache yet."""
+        use = self.config.fused_layernorm
+        if use == "bwd":
+            return layernorm_fused_bwd(x, scale, bias)
+        if use and use != "auto":
+            return fused_layernorm(x, scale, bias)
+        return layernorm(x, scale, bias)
+
     def head(self, x):
         """Final LN + tied-embedding unembed: (B, T, D) -> fp32 logits."""
         return self._head([self.wte, self.lnf_scale, self.lnf_bias], x)
 
-    @staticmethod
-    def _head(ps, x):
+    def _head(self, ps, x):
         wte, scale, bias = ps
-        h = layernorm(x, scale, bias)
+        h = self._ln(x, scale, bias)
         lead = h.shape[:-1]
         return mm_f32(h.reshape(-1, h.shape[-1]), wte.t()).reshape(
             *lead, wte.shape[0])
@@ -262,7 +265,7 @@ class GPT2(nn.Module):
         (views of one projection)."""
         cfg = self.config
         B, T = x.shape[0], x.shape[1]
-        h = layernorm(x, ln1_scale, ln1_bias)
+        h = self._ln(x, ln1_scale, ln1_bias)
         qkv = h @ wqkv + bqkv
         return qkv.view(B, T, 3, cfg.n_head, cfg.d_head).unbind(2)
 
@@ -284,11 +287,35 @@ class GPT2(nn.Module):
         probs = torch.softmax(s, dim=-1).to(self.dtype)
         return torch.einsum("bhts,bshd->bthd", probs, v)
 
+    def _mlp_kernel_mode(self):
+        """Resolved ``mlp_kernel``: None (plain products) | "down" | "both".
+        True means "down"; "auto" is the plain path, the JAX package's
+        choice on an autotune winner-cache miss (the port has no winner
+        cache yet)."""
+        v = self.config.mlp_kernel
+        if not v or v == "auto":
+            return None
+        return "down" if v is True else v
+
     def _mlp(self, x, ln2_scale, ln2_bias, wup, bup, wdown, bdown):
         """ln2 + MLP: (B, T, D) -> ((B, T, D), aux); a dense MLP has no
-        aux (None)."""
-        h = layernorm(x, ln2_scale, ln2_bias)
-        up = _ACTS[self.config.activation](h @ wup + bup)
+        aux (None). With ``mlp_kernel`` the pre-activation is carried
+        (B, F, T), as gpt2.py:755-769: the up product through K6 emitting
+        (B, F, T) in "both" (else a plain einsum to that layout), the down
+        product through K6 reading it with ``x_t``."""
+        act = _ACTS[self.config.activation]
+        h = self._ln(x, ln2_scale, ln2_bias)
+        mode = self._mlp_kernel_mode()
+        if mode:
+            fuse = self.config.mlp_kernel_fuse_dw
+            if mode == "both":
+                u = mlp_matmul(h, wup, out_t=True, fuse_dw=fuse)
+            else:
+                u = torch.einsum("btd,df->bft", h, wup)
+            up = act(u + bup[None, :, None])
+            return mlp_matmul(up, wdown, x_t=True, fuse_dw=fuse) + bdown, \
+                None
+        up = act(h @ wup + bup)
         return up @ wdown + bdown, None
 
     def _block(self, x, *layer):
@@ -361,7 +388,7 @@ class GPT2(nn.Module):
         cfg = self.config
         if cfg.fused_loss and cfg.fused_loss_kernel:
             return fused_linear_xent_kernel(
-                lambda ps, x: layernorm(x, ps[0], ps[1]), chunk,
+                lambda ps, x: self._ln(x, ps[0], ps[1]), chunk,
                 {"lnf_scale": self.lnf_scale, "lnf_bias": self.lnf_bias},
                 self.wte, hidden, targets)
         if cfg.fused_loss:

@@ -20,7 +20,7 @@ from dataclasses import dataclass
 import torch.nn as nn
 
 from ..moe.layer import MoE
-from .gpt2 import BLOCK_KEYS, GPT2, GPT2Config, layernorm
+from .gpt2 import BLOCK_KEYS, GPT2, GPT2Config
 
 _MOE_KEYS = ("gate_w", "wi", "bi", "wo", "bo")
 
@@ -79,8 +79,10 @@ class GPT2MoE(GPT2):
             {k: nn.Parameter(v) for k, v in params.items()}))
 
     def _mlp(self, x, ln2_scale, ln2_bias, *moe):
-        """ln2 + the MoE layer -> (y, aux)."""
-        h = layernorm(x, ln2_scale, ln2_bias)
+        """ln2 (through ``_ln``, so ``fused_layernorm`` reaches it as in
+        the JAX GPT2MoE) + the MoE layer -> (y, aux). ``mlp_kernel`` does
+        not reach the experts, in JAX as here."""
+        h = self._ln(x, ln2_scale, ln2_bias)
         # an explicit (non-"auto") engine 'moe' block setting overrides
         # the model-config knob (gpt2_moe.py:95-106)
         moe_cfg = getattr(self, "_moe_cfg", None)

@@ -1,7 +1,7 @@
 from .builder import (CUDAOpBuilder, FlashAttentionBuilder, FusedCEBuilder,
-                      GroupedMatmulBuilder, MlpMatmulBuilder,
-                      PagedAttentionBuilder, build_all)
+                      GroupedMatmulBuilder, LayerNormBuilder,
+                      MlpMatmulBuilder, PagedAttentionBuilder, build_all)
 
 __all__ = ["CUDAOpBuilder", "FlashAttentionBuilder", "FusedCEBuilder",
-           "GroupedMatmulBuilder", "MlpMatmulBuilder", "PagedAttentionBuilder",
-           "build_all"]
+           "GroupedMatmulBuilder", "LayerNormBuilder", "MlpMatmulBuilder",
+           "PagedAttentionBuilder", "build_all"]

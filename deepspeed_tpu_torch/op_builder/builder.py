@@ -138,6 +138,11 @@ class MlpMatmulBuilder(CUDAOpBuilder):
     DEPENDS = ("gemm_common.cuh", "wq_gemm.cuh")
 
 
+class LayerNormBuilder(CUDAOpBuilder):
+    NAME = "layernorm"
+    SOURCES = ("layernorm.cu",)
+
+
 def build_all(builders):
     """Build every builder's library with one nvcc per source, all started
     together, and wait for all of them; a failed build raises after every

@@ -1,9 +1,31 @@
-"""Weight-only int8/int4 projection (K7): the Hopper CUDA kernel and its
-plain version.
+"""The MLP projection kernels: the layout-owning projection (K6) and the
+weight-only int8/int4 projection (K7), Hopper CUDA kernels and their plain
+versions (``csrc/mlp_matmul.cu``).
 
-Counterpart of ``deepspeed_tpu/ops/pallas/mlp_matmul.py`` ``wq_matmul``
-(the ``_mm_wq`` kernel; the kernel is ``csrc/mlp_matmul.cu``, design and
-bound in ``csrc/wq_gemm.cuh``):
+Counterpart of ``deepspeed_tpu/ops/pallas/mlp_matmul.py``. K6 (``_mm``,
+``_dw``, the ``_proj`` custom VJP and the public ``mlp_matmul``; design
+and bound in csrc/mlp_matmul.cu), with JAX's signature, shapes and
+ValueErrors:
+
+  mlp_matmul(x, w, x_t=False, out_t=False, block_t=256, block_o=256,
+             block_k=512, fuse_dw=True)
+      y[b, t, m] = sum_k x[b, t, k] w[k, m]: x (B, T, K), or (B, K, T)
+      with T minor when ``x_t``; w (K, M); y (B, T, M), or (B, M, T) when
+      ``out_t``; fp32 accumulation, one rounding to x's dtype. The
+      backward (``_proj_bwd``): dx through the same kernel (w read through
+      its transposed view, dx emitted in x's own orientation) and dW
+      through the dW kernel (fp32 over every (b, t) row, one rounding to
+      w's dtype), or, with ``fuse_dw=False``, a plain fp32 ``torch.einsum``
+      cast to w's dtype (JAX leaves that case to XLA).
+
+Every orientation is a stride: no operand is copied for ``x_t``,
+``out_t`` or the transposed w. The tile sizes are accepted and change
+nothing. On a CUDA tensor the kernel runs at every shape; JAX falls back
+to its jnp ``_ref_proj`` (the same math) for shapes its TPU tiles cannot
+cover.
+
+K7 (the ``_mm_wq`` kernel behind ``wq_matmul``; design and bound in
+``csrc/wq_gemm.cuh``):
 
   wq_matmul(x, w, x_t=False, out_t=False)   x (B, T, K) (or (T, K)) @
       dequant(w) for an ``Int8Weight`` / ``Int4Weight`` w with codes
@@ -25,7 +47,20 @@ import torch
 
 from .grouped_matmul import WQ_ARGTYPES, check_quantized, launch_wq
 
-LAUNCHES = {"wq_matmul": 0}
+LAUNCHES = {"wq_matmul": 0, "mlp_mm": 0, "mlp_dw": 0}
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+class _MmArgs(ctypes.Structure):
+    """Mirror of ``struct MmArgs`` in csrc/mlp_matmul.cu."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in ("a", "b", "out")]
+                + [(n, ctypes.c_longlong) for n in (
+                    "sa_z", "sa_q", "sa_i", "sa_c", "sb_z", "sb_q", "sb_c",
+                    "sb_j", "so_z", "so_i", "so_j")]
+                + [(n, ctypes.c_int) for n in (
+                    "Z", "Q", "I", "J", "C", "a_t", "b_t", "vec_a",
+                    "vec_b")])
 
 
 def reset_launch_counts():
@@ -37,7 +72,7 @@ _builder = None
 
 
 def kernel_builder():
-    """The K7 library's builder; the first call builds the library (nvcc,
+    """The K6 / K7 library's builder; the first call builds the library (nvcc,
     see op_builder) and binds its ctypes signature."""
     global _builder
     if _builder is None:
@@ -46,6 +81,9 @@ def kernel_builder():
         lib = b.load()
         lib.wq_matmul_launch.argtypes = WQ_ARGTYPES
         lib.wq_matmul_launch.restype = ctypes.c_int
+        lib.mlp_mm_launch.argtypes = [ctypes.POINTER(_MmArgs), ctypes.c_int,
+                                      ctypes.c_void_p]
+        lib.mlp_mm_launch.restype = ctypes.c_int
         _builder = b
     return _builder
 
@@ -97,3 +135,163 @@ def wq_matmul(x, w, x_t=False, out_t=False):
         out = launch_wq(kernel_builder().load().wq_matmul_launch,
                         "wq_matmul", LAUNCHES, x2, w)
     return _shape_out(out, B, T, out_t, squeeze)
+
+
+# ------------------------------------------------------------------- K6
+
+
+def _log_a(a, a_t):
+    """a (P, N, K), or its (P, K, N) layout when ``a_t`` -> the logical
+    (P, N, K) view."""
+    return a.transpose(1, 2) if a_t else a
+
+
+def mm_reference(a, b, a_t, b_t, out_t, out_dtype):
+    """Plain version of ``_mm``: out[p, n, m] = sum_k a[p, n, k] b[k, m] in
+    fp32, rounded once; a (P, K, N) when ``a_t``, b (M, K) when ``b_t``,
+    out (P, M, N) when ``out_t``."""
+    out = torch.matmul(_log_a(a, a_t).float(),
+                       (b.t() if b_t else b).float()).to(out_dtype)
+    return out.transpose(1, 2) if out_t else out
+
+
+def dw_reference(a, g, a_t, g_t, out_dtype):
+    """Plain version of ``_dw``: dw[k, m] = sum over (p, n) of a[p, n, k]
+    g[p, n, m] in fp32, rounded once; a (P, K, N) when ``a_t``, g
+    (P, M, N) when ``g_t``."""
+    return torch.einsum("pnk,pnm->km", _log_a(a, a_t).float(),
+                        _log_a(g, g_t).float()).to(out_dtype)
+
+
+def mlp_matmul_reference(x, w, x_t=False, out_t=False):
+    """Plain version of ``mlp_matmul`` (the JAX ``_ref_proj``)."""
+    return mm_reference(x, w, x_t, False, out_t, x.dtype)
+
+
+def _staged(t, dims):
+    """``t`` when one of its ``dims`` has stride 1 (the kernel stages along
+    it), else a contiguous copy."""
+    return t if any(t.stride(d) == 1 for d in dims) else t.contiguous()
+
+
+def _vec_ok(t, strides):
+    """16-byte cp.async staging: an aligned base and every non-unit stride
+    a whole number of 16-byte vectors."""
+    vec = 16 // t.element_size()
+    return t.data_ptr() % 16 == 0 and all(s % vec == 0 for s in strides
+                                          if s != 1)
+
+
+def _launch_k6(name, A, B, out, sa, sb, so, dims, a_t, b_t):
+    """One K6 launch: O[z, i, j] = sum_{q, c} A[z, q, i, c] B[z, q, c, j]
+    with strides ``sa`` / ``sb`` = (z, q, i, c) / (z, q, c, j), ``so`` =
+    (z, i, j) and ``dims`` = (Z, Q, I, J, C)."""
+    lib = kernel_builder().load()
+    args = _MmArgs(A.data_ptr(), B.data_ptr(), out.data_ptr(), *sa, *sb,
+                   *so, *dims, int(a_t), int(b_t), int(_vec_ok(A, sa)),
+                   int(_vec_ok(B, sb)))
+    rc = lib.mlp_mm_launch(ctypes.byref(args), _DTYPE_CODE[A.dtype],
+                           torch.cuda.current_stream(A.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+    LAUNCHES[name] += 1
+
+
+def _check_k6(name, a, b, out_dtype):
+    if b.device != a.device:
+        raise ValueError(f"{name}: every operand must be on {a.device}")
+    if a.dtype not in _DTYPE_CODE or b.dtype != a.dtype or \
+            out_dtype != a.dtype:
+        raise TypeError(f"{name}: kernel takes float32 or bfloat16 operands "
+                        f"and output of one dtype, got {a.dtype}, {b.dtype} "
+                        f"-> {out_dtype}")
+
+
+def _mm(a, b, a_t, b_t, out_t, out_dtype):
+    """``_mm`` on a's device: out[p, n, m] = sum_k a[p, n, k] b[k, m]
+    (orientations as ``mm_reference``)."""
+    if a.device.type == "cpu":
+        return mm_reference(a, b, a_t, b_t, out_t, out_dtype)
+    name = "mlp_mm"
+    _check_k6(name, a, b, out_dtype)
+    # A[z=p, i=n, c=k] staged [i][c] on a unit k stride, else [c][i];
+    # B[c=k, j=m] staged [c][j] on a unit m stride, else [j][c]
+    A = _staged(_log_a(a, a_t), (1, 2))
+    B = _staged(b.t() if b_t else b, (0, 1))
+    at, bt = int(A.stride(2) != 1), int(B.stride(1) != 1)
+    P, N, K = A.shape
+    M = B.shape[1]
+    out = torch.empty((P, M, N) if out_t else (P, N, M), dtype=out_dtype,
+                      device=a.device)
+    o = _log_a(out, out_t)
+    if out.numel():
+        _launch_k6(name, A, B, out,
+                   (A.stride(0), 0, A.stride(1), A.stride(2)),
+                   (0, 0, B.stride(0), B.stride(1)), o.stride(),
+                   (P, 1, N, M, K), at, bt)
+    return out
+
+
+def _dw(a, g, a_t, g_t, out_dtype):
+    """``_dw`` on a's device: dw[k, m] = sum over (p, n) of a[p, n, k]
+    g[p, n, m] (orientations as ``dw_reference``)."""
+    if a.device.type == "cpu":
+        return dw_reference(a, g, a_t, g_t, out_dtype)
+    name = "mlp_dw"
+    _check_k6(name, a, g, out_dtype)
+    # A[q=p, i=k, c=n] staged [c][i] on a unit k stride, else [i][c];
+    # B[q=p, c=n, j=m] staged [c][j] on a unit m stride, else [j][c]
+    A = _staged(_log_a(a, a_t), (1, 2))
+    G = _staged(_log_a(g, g_t), (1, 2))
+    at, gt = int(A.stride(2) == 1), int(G.stride(2) != 1)
+    P, N, K = A.shape
+    M = G.shape[2]
+    out = torch.empty(K, M, dtype=out_dtype, device=a.device)
+    if out.numel():
+        _launch_k6(name, A, G, out,
+                   (0, A.stride(0), A.stride(2), A.stride(1)),
+                   (0, G.stride(0), G.stride(1), G.stride(2)),
+                   (0, M, 1), (1, P, K, M, N), at, gt)
+    return out
+
+
+class _ProjFn(torch.autograd.Function):
+    """``_proj``: forward through ``_mm``; backward as ``_proj_bwd``."""
+
+    @staticmethod
+    def forward(ctx, x, w, x_t, out_t, fuse_dw):
+        ctx.save_for_backward(x, w)
+        ctx.cfg = (x_t, out_t, fuse_dw)
+        return _mm(x, w, x_t, False, out_t, x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        x_t, out_t, fuse_dw = ctx.cfg
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            # dx[p, n, k] = sum_m dy[p, n, m] w[k, m], in x's orientation
+            dx = _mm(dy, w, out_t, True, x_t, x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = (_dw if fuse_dw else dw_reference)(x, dy, x_t, out_t,
+                                                     w.dtype)
+        return dx, dw, None, None, None
+
+
+def mlp_matmul(x, w, *, x_t=False, out_t=False, block_t=256, block_o=256,
+               block_k=512, fuse_dw=True):
+    """Batched projection ``y[b, t, m] = sum_k x[b, t, k] w[k, m]`` with
+    caller-chosen layouts: x (B, T, K), or (B, K, T) when ``x_t``; w (K, M);
+    y (B, T, M), or (B, M, T) when ``out_t``. fp32 accumulation, y rounded
+    once to x's dtype. Differentiable: dx in x's orientation, dW fused
+    (``fuse_dw``) or a plain fp32 einsum. The block sizes change nothing;
+    a CUDA tensor takes the kernel at every shape."""
+    if x.dim() != 3 or w.dim() != 2:
+        raise ValueError(
+            f"mlp_matmul expects x (B, ., .) and w (K, M); got "
+            f"{tuple(x.shape)} / {tuple(w.shape)}")
+    K = x.shape[1] if x_t else x.shape[2]
+    if w.shape[0] != K:
+        raise ValueError(f"contract dim mismatch: x carries K={K}, w is "
+                         f"{tuple(w.shape)}")
+    return _ProjFn.apply(x, w, bool(x_t), bool(out_t), bool(fuse_dw))

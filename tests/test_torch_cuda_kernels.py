@@ -1,6 +1,7 @@
 """The Hopper kernels on the card (paged attention, flash attention forward
 and backward, fused CE, the MoE grouped matmuls and their backward, the
-weight-only int8/int4 products K7 and K9), held
+weight-only int8/int4 products K7 and K9, the LayerNorm forward and
+backward K13, the layout-owning projection and its dW K6), held
 against their plain PyTorch versions at
 small shapes (bf16 against the plain version in fp32
 on the same inputs, chip_smoke.bf16_mismatch; fp32 at 1e-4).
@@ -18,6 +19,7 @@ from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
 from deepspeed_tpu_torch.ops.cuda import fused_ce as fce
 from deepspeed_tpu_torch.ops import int8_weights as iw
 from deepspeed_tpu_torch.ops.cuda import grouped_matmul as gm
+from deepspeed_tpu_torch.ops.cuda import layernorm as ln
 from deepspeed_tpu_torch.ops.cuda import mlp_matmul as mm
 from deepspeed_tpu_torch.ops.cuda import paged_attention as pa
 
@@ -386,3 +388,149 @@ def test_wq_kernels_never_take_the_plain_path(monkeypatch):
         (8, 64)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         gm.grouped_matmul_wq(x.half(), w, gs)
+
+
+def _sums_close(out, ref, dtype):
+    """Sums over rows (dscale, dbias, dW): bf16 by relative error norm
+    (chip_smoke.BF16_REL_NORM), fp32 at 1e-4."""
+    if dtype == torch.bfloat16:
+        assert chip_smoke.rel_norm(out, ref) <= chip_smoke.BF16_REL_NORM
+    else:
+        torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype,s_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("N,D", [(37, 128), (200, 384), (130, 1024),
+                                 (65, 2048)])   # D > 1024: rows re-read
+def test_layernorm_kernels(dtype, s_dtype, N, D):
+    rs = np.random.RandomState(11)
+    x = _rand(rs, (N, D), dtype) * 2 + 0.5
+    s = (1 + 0.1 * _rand(rs, (D,), torch.float32)).to(s_dtype)
+    b = (0.1 * _rand(rs, (D,), torch.float32)).to(s_dtype)
+    dy = _rand(rs, (N, D), dtype)
+    n0 = dict(ln.LAUNCHES)
+    y = ln._fwd(x, s, b, 1e-5)
+    dx, ds, db = ln._bwd(x, s, dy, 1e-5)
+    dx2, ds2, db2 = ln._bwd(x, s, dy, 1e-5)
+    torch.cuda.synchronize()
+    assert ln.LAUNCHES["layernorm_fwd"] == n0["layernorm_fwd"] + 1
+    assert ln.LAUNCHES["layernorm_bwd"] == n0["layernorm_bwd"] + 2
+    assert y.dtype == dx.dtype == dtype and ds.dtype == db.dtype == s_dtype
+    xf, sf, bf, dyf = (t.float() for t in (x, s, b, dy))
+    _assert_close(y, ln.layernorm_reference(xf, sf, bf), dtype)
+    rdx, rds, rdb = ln.layernorm_bwd_reference(xf, sf, dyf)
+    _assert_close(dx, rdx, dtype)
+    _sums_close(ds, rds, s_dtype)
+    _sums_close(db, rdb, s_dtype)
+    # no atomics: a second run is bitwise the first
+    assert torch.equal(dx, dx2) and torch.equal(ds, ds2) and \
+        torch.equal(db, db2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layernorm_autograd_on_the_card(dtype):
+    rs = np.random.RandomState(12)
+    x = _rand(rs, (3, 50, 256), dtype).requires_grad_()
+    s = (1 + 0.1 * _rand(rs, (256,), torch.float32)).to(dtype)
+    b = (0.1 * _rand(rs, (256,), torch.float32)).to(dtype)
+    ps = [x, s.requires_grad_(), b.requires_grad_()]
+    cot = _rand(rs, (3, 50, 256), dtype)
+    for fn, fwd in ((ln.fused_layernorm, 1), (ln.layernorm_fused_bwd, 0)):
+        n0 = dict(ln.LAUNCHES)
+        got = torch.autograd.grad(fn(*ps), ps, cot)
+        torch.cuda.synchronize()
+        assert ln.LAUNCHES["layernorm_fwd"] == n0["layernorm_fwd"] + fwd
+        assert ln.LAUNCHES["layernorm_bwd"] == n0["layernorm_bwd"] + 1
+        ref = ln.layernorm_bwd_reference(
+            x.detach().float().reshape(-1, 256), s.detach().float(),
+            cot.float().reshape(-1, 256))
+        _assert_close(got[0].reshape(-1, 256), ref[0], dtype)
+        _sums_close(got[1], ref[1], dtype)
+        _sums_close(got[2], ref[2], dtype)
+
+
+def test_layernorm_never_takes_the_plain_path(monkeypatch):
+    def plain(*a, **k):
+        raise AssertionError("a CUDA tensor took a plain LayerNorm")
+
+    for name in ("layernorm_reference", "layernorm_bwd_reference"):
+        monkeypatch.setattr(ln, name, plain)
+    x = torch.ones(4, 128, device="cuda").requires_grad_()
+    s = torch.ones(128, device="cuda")
+    y = ln.fused_layernorm(x, s, s)
+    y.sum().backward()
+    assert float(y[0, 0]) == 1.0 and float(x.grad.abs().max()) < 1e-3
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ln.fused_layernorm(x.detach().half(), s.half(), s.half())
+
+
+def _k6_reference_grads(x, w, dy, x_t, out_t):
+    """(dx, dW) of ``mlp_matmul`` in fp32 on the same inputs."""
+    xf, wf, dyf = x.float(), w.float(), dy.float()
+    return (mm.mm_reference(dyf, wf, out_t, True, x_t, torch.float32),
+            mm.dw_reference(xf, dyf, x_t, out_t, torch.float32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("x_t,out_t", [(False, False), (True, False),
+                                       (False, True), (True, True)])
+@pytest.mark.parametrize("B,T,K,M", [(2, 64, 128, 256), (3, 200, 136, 96),
+                                     (1, 130, 512, 384)])
+def test_mlp_matmul_kernels(dtype, x_t, out_t, B, T, K, M):
+    rs = np.random.RandomState(13)
+    x = _rand(rs, (B, K, T) if x_t else (B, T, K), dtype).requires_grad_()
+    w = (_rand(rs, (K, M), torch.float32) / np.sqrt(K)).to(dtype)
+    w.requires_grad_()
+    dy = _rand(rs, (B, M, T) if out_t else (B, T, M), dtype)
+    n0 = dict(mm.LAUNCHES)
+    y = mm.mlp_matmul(x, w, x_t=x_t, out_t=out_t)
+    gx, gw = torch.autograd.grad(y, (x, w), dy)
+    torch.cuda.synchronize()
+    assert mm.LAUNCHES["mlp_mm"] == n0["mlp_mm"] + 2
+    assert mm.LAUNCHES["mlp_dw"] == n0["mlp_dw"] + 1
+    assert y.shape == ((B, M, T) if out_t else (B, T, M))
+    assert gx.shape == x.shape and gw.shape == w.shape
+    _assert_close(y, mm.mlp_matmul_reference(x.detach().float(), w.float(),
+                                             x_t, out_t), dtype)
+    rdx, rdw = _k6_reference_grads(x.detach(), w.detach(), dy, x_t, out_t)
+    _assert_close(gx, rdx, dtype)
+    _sums_close(gw, rdw, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mlp_matmul_strided_views_and_unfused_dw(dtype):
+    """Operands whose rows are not whole 16-byte vectors (element staging),
+    a transposed view of w, and fuse_dw=False (no dW kernel)."""
+    rs = np.random.RandomState(14)
+    x = _rand(rs, (2, 70, 129), dtype)[:, :, 1:].requires_grad_()
+    w = (_rand(rs, (96, 128), torch.float32) / 12).to(dtype).t()
+    w.requires_grad_()
+    dy = _rand(rs, (2, 70, 96), dtype)
+    n0 = dict(mm.LAUNCHES)
+    y = mm.mlp_matmul(x, w, fuse_dw=False)
+    gx, gw = torch.autograd.grad(y, (x, w), dy)
+    torch.cuda.synchronize()
+    assert mm.LAUNCHES["mlp_mm"] == n0["mlp_mm"] + 2
+    assert mm.LAUNCHES["mlp_dw"] == n0["mlp_dw"]
+    _assert_close(y, mm.mlp_matmul_reference(x.detach().float(), w.float()),
+                  dtype)
+    rdx, rdw = _k6_reference_grads(x.detach(), w.detach(), dy, False, False)
+    _assert_close(gx, rdx, dtype)
+    _sums_close(gw, rdw, dtype)
+
+
+def test_mlp_matmul_never_takes_the_plain_path(monkeypatch):
+    def plain(*a, **k):
+        raise AssertionError("a CUDA tensor took a plain K6 product")
+
+    for name in ("mm_reference", "dw_reference", "mlp_matmul_reference"):
+        monkeypatch.setattr(mm, name, plain)
+    x = torch.ones(1, 8, 32, device="cuda").requires_grad_()
+    w = torch.ones(32, 16, device="cuda").requires_grad_()
+    y = mm.mlp_matmul(x, w)
+    y.sum().backward()
+    assert float(y[0, 0, 0]) == 32.0 and float(w.grad[0, 0]) == 8.0
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        mm.mlp_matmul(x.detach().half(), w.detach().half())

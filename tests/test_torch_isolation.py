@@ -94,6 +94,13 @@ trainer, *_ = initialize(model=GPT2(gcfg, device="cpu"), device="cpu",
 ids = np.random.RandomState(0).randint(0, 128, (2, 32))
 losses = [float(trainer.train_batch({"input_ids": ids})) for _ in range(2)]
 assert losses[1] < losses[0], losses
+kcfg = GPT2Config(**{**gcfg.__dict__, "d_model": 128,
+                      "fused_layernorm": True, "mlp_kernel": "both"})
+trainer, *_ = initialize(model=GPT2(kcfg, device="cpu"), device="cpu",
+                         config={"train_batch_size": 2, "optimizer": {
+                             "type": "AdamW", "params": {"lr": 1e-3}}})
+losses = [float(trainer.train_batch({"input_ids": ids})) for _ in range(2)]
+assert losses[1] < losses[0], losses
 mcfg = GPT2MoEConfig(**{**gcfg.__dict__, "num_experts": 4, "moe_top_k": 2,
                         "moe_backend": "ragged"})
 trainer, *_ = initialize(model=GPT2MoE(mcfg, device="cpu"), device="cpu",
@@ -148,6 +155,40 @@ def test_quantized_weights_off_the_cpu_take_the_kernel(monkeypatch,
         gm.grouped_swiglu_wq(x, *ws, gs)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         sharded_moe._grouped_swiglu_ffn(x, *ws, gs, {"backend": "kernel"})
+    assert os.listdir(tmp_path) == []
+
+
+def test_training_kernels_off_the_cpu_take_the_kernel(monkeypatch,
+                                                     tmp_path):
+    """A tensor off the CPU goes to the K13 LayerNorm and K6 projection
+    kernels, forward and backward, and never to their plain versions:
+    here, with no nvcc, each build raises."""
+    from deepspeed_tpu_torch.ops.cuda import layernorm as ln
+    from deepspeed_tpu_torch.ops.cuda import mlp_matmul as mm
+    monkeypatch.setattr(builder, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(builder, "find_nvcc", lambda: None)
+    monkeypatch.setattr(mm, "_builder", None)
+    monkeypatch.setattr(ln, "_builder", None)
+
+    def plain(*a, **k):
+        raise AssertionError("a tensor off the CPU took a plain version")
+
+    for mod, names in ((ln, ("layernorm_reference",
+                             "layernorm_bwd_reference")),
+                       (mm, ("mm_reference", "dw_reference"))):
+        for name in names:
+            monkeypatch.setattr(mod, name, plain)
+    x = torch.ones(2, 8, 128, device="meta")
+    s = torch.ones(128, device="meta")
+    w = torch.ones(128, 64, device="meta")
+    for call in (lambda: ln.fused_layernorm(x, s, s),
+                 lambda: ln._bwd(x[0], s, x[0], 1e-5),
+                 lambda: mm.mlp_matmul(x, w),
+                 lambda: mm.mlp_matmul(x.transpose(1, 2), w, x_t=True,
+                                       out_t=True),
+                 lambda: mm._dw(x, x, False, False, torch.float32)):
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            call()
     assert os.listdir(tmp_path) == []
 
 
@@ -212,7 +253,8 @@ class TestOpBuilder:
         (builder.FlashAttentionBuilder, "flash_attention"),
         (builder.FusedCEBuilder, "fused_ce"),
         (builder.GroupedMatmulBuilder, "grouped_matmul"),
-        (builder.MlpMatmulBuilder, "mlp_matmul")])
+        (builder.MlpMatmulBuilder, "mlp_matmul"),
+        (builder.LayerNormBuilder, "layernorm")])
     def test_training_builders(self, cls, name):
         b = cls()
         assert b.so_path() == os.path.join(

@@ -77,3 +77,30 @@ def test_router_dtype_under_both_engines():
                                    telemetry=False))
     assert str(jeng.params["blocks"]["moe_gate"].dtype) == "float32"
     assert str(jeng.params["wte"].dtype) == "bfloat16"
+
+
+def test_converted_router_stays_fp32_bitwise():
+    """A bf16 JAX Mixtral converted at torch.bfloat16 keeps the fp32 router
+    leaf bit for bit (JAX Mixtral.init keeps it fp32), through the model's
+    state and through a weight_quant engine, which routes on it as the JAX
+    quantized engine does; the other leaves take the target dtype."""
+    jm = JMixtral(J_TINY)
+    assert J_TINY.dtype == "bfloat16"
+    tree = jax.tree.map(np.asarray, jm.init(jax.random.key(3)))
+    jgate = tree["blocks"]["moe_gate"]
+    assert jgate.dtype == np.float32
+    state = mixtral_params_from_numpy(tree, "cpu", torch.bfloat16)
+    assert state["blocks.moe_gate"].dtype == torch.float32
+    assert state["blocks.moe_w1"].dtype == torch.bfloat16
+    np.testing.assert_array_equal(state["blocks.moe_gate"].numpy(), jgate)
+    pm = Mixtral(MIXTRAL_TINY, device="cpu")
+    pm.load_state_dict(state)
+    np.testing.assert_array_equal(pm.blocks["moe_gate"].detach().numpy(),
+                                  jgate)
+    eng = InferenceEngineV2(pm, dict(dtype="bfloat16", kv_block_size=8,
+                                     max_batch_size=2, weight_quant="int8"),
+                            device="cpu")
+    gate = eng.model.blocks["moe_gate"]
+    assert gate.dtype == torch.float32
+    np.testing.assert_array_equal(gate.detach().numpy(), jgate)
+    assert len(eng.generate_all([np.arange(7)], max_new_tokens=2)[0]) == 2
