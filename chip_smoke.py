@@ -94,6 +94,31 @@ Phases (any failure raises and the script exits nonzero):
      98 LayerNorm forwards, 50 backwards, 144 K6 products and 48 dW a
      step, and the step time is printed beside phase 7's and beside 10
      steps with fused_layernorm=True alone.
+ 21. K2-qmajor kernel: the query-major fused backward at phase 5's shapes
+     (bf16, plus a window, T=1000 and an lse cotangent) against its plain
+     version in fp32, fp32 cases at 1e-4, a control (dk/dv without the last
+     query tile) that must fail, a bitwise repeat and bitwise equality with
+     the k-major K2; timed beside its bound, the k-major K2 and SDPA's
+     backward.
+ 22. K11 kernels: the block-sparse forward, dq and dk/dv at B=4, H=16,
+     d=64, bf16: (a) FixedSparsityConfig(block 64, 4 local, 1 global,
+     unidirectional) causal and (b) BigBirdSparsityConfig(block 64) at
+     T=8192, and block 16 at T=2048, against their plain versions in fp32;
+     fp32 at every block size at 1e-4; controls (a row list short by its
+     last id, dk/dv from the neighbour head's column lists) that must
+     fail; rows with no present block exactly 0; bitwise repeats; timed
+     beside their bounds, plain versions, SDPA on the dense causal problem
+     and the masked-dense op at T=2048.
+ 23. K2-qmajor / K11 parity: a small fp32 GPT-2 with flash_bwd_qmajor on
+     and off gives the same loss and gradients (save_flash and
+     nothing_saveable); SparseSelfAttention through the kernels equals the
+     masked-dense op at T=2048 in fp32, forward and gradients.
+ 24. slices: phase 7 with flash_bwd_qmajor=True (10 steps, exactly 24
+     flash forwards, 24 query-major and 0 k-major backwards and 2 fused CE
+     a step, beside phase 7's step); SparseSelfAttention (a) and (b) at
+     B=4, T=8192, 10 forward + backward calls each, no host sync in a
+     call, one launch of each K11 kernel a call, ms a call and peak
+     memory.
 Then one JSON line of per-kernel numbers (launches summed over the main
 paths that ran each kernel, and per path), and last the result line
 {"ok": true, "device": {...}}. Without a CUDA device it exits 2 and prints
@@ -102,7 +127,8 @@ serving slice's device time to PATH, of three extra training steps to
 PATH with "-train" before its extension, of the MoE slice with "-moe", of
 three extra MoE training steps with "-moe-train", of the quantized
 slices with "-llama-int4" and "-mixtral-int8" and of three extra
-knobs-on GPT-2 steps with "-kernels-train" (profiled timings include the
+knobs-on GPT-2 steps with "-kernels-train" and of three extra qmajor
+GPT-2 steps with "-qmajor-train" (profiled timings include the
 profiler's overhead).
 """
 
@@ -161,6 +187,10 @@ SOURCES = {
     "layernorm_bwd": "deepspeed_tpu_torch/csrc/layernorm.cu",
     "mlp_mm": "deepspeed_tpu_torch/csrc/mlp_matmul.cu",
     "mlp_dw": "deepspeed_tpu_torch/csrc/mlp_matmul.cu",
+    "flash_bwd_qmajor": "deepspeed_tpu_torch/csrc/flash_attention.cu",
+    "bsa_fwd": "deepspeed_tpu_torch/csrc/block_sparse_attention.cu",
+    "bsa_dq": "deepspeed_tpu_torch/csrc/block_sparse_attention.cu",
+    "bsa_dkv": "deepspeed_tpu_torch/csrc/block_sparse_attention.cu",
 }
 REPLACES = {
     "paged_decode": "deepspeed_tpu/ops/pallas/paged_attention.py:121",
@@ -178,6 +208,10 @@ REPLACES = {
     "layernorm_bwd": "deepspeed_tpu/ops/pallas/layernorm.py:63",
     "mlp_mm": "deepspeed_tpu/ops/pallas/mlp_matmul.py:70",
     "mlp_dw": "deepspeed_tpu/ops/pallas/mlp_matmul.py:134",
+    "flash_bwd_qmajor": "deepspeed_tpu/ops/pallas/flash_attention.py:828",
+    "bsa_fwd": "deepspeed_tpu/ops/pallas/block_sparse_attention.py:74",
+    "bsa_dq": "deepspeed_tpu/ops/pallas/block_sparse_attention.py:117",
+    "bsa_dkv": "deepspeed_tpu/ops/pallas/block_sparse_attention.py:150",
 }
 
 
@@ -810,6 +844,7 @@ def phase_train_parity(seed=0):
         want = ({"flash_fwd": 2, "flash_bwd": 2, "fused_ce": 3}
                 if name == "on" else
                 {"flash_fwd": 0, "flash_bwd": 0, "fused_ce": 0})
+        want["flash_bwd_qmajor"] = 0
         assert launched == want, (name, launched)
         out[name] = (loss.item(), {n: p.grad for n, p in
                                    model.named_parameters()})
@@ -835,7 +870,8 @@ def phase_train_slice(seed=0, steps=10, profile=None, knobs=None,
     AdamW lr 2e-4 wd 0.01, clip 1.0, bf16, ZeRO 2, save_flash, loss chunk
     512 with the fused CE kernel. One fixed numpy-seeded batch, as bench.py
     does. ``knobs``: GPT2Config fields set on top (phase 20: the K13 and
-    K6 knobs); the launch counts they imply are checked too. The run's
+    K6 knobs; phase 24: flash_bwd_qmajor); the launch counts they imply
+    are checked too. The run's
     numbers go to TRAIN_STATS[tag]."""
     import dataclasses
     from deepspeed_tpu_torch import GPT2, GPT2_PRESETS, initialize
@@ -880,7 +916,10 @@ def phase_train_slice(seed=0, steps=10, profile=None, knobs=None,
         times.append(time.perf_counter() - t1)
     launches = {k: v for mod in mods for k, v in mod.LAUNCHES.items()}
     L = cfg.n_layer
-    want = {"flash_fwd": L * steps, "flash_bwd": L * steps,
+    qmajor = cfg.flash_bwd_qmajor is True
+    want = {"flash_fwd": L * steps,
+            "flash_bwd": 0 if qmajor else L * steps,
+            "flash_bwd_qmajor": L * steps if qmajor else 0,
             "fused_ce": 2 * steps, "wq_matmul": 0,
             **knob_launches(cfg, L, steps, chunks=2)}
     assert launches == want, (launches, want)
@@ -1570,7 +1609,8 @@ def phase_moe_train_slice(seed=0, steps=10, profile=None):
     # per layer and step: 2 forward gmm, 2 re-run by save_flash's backward,
     # 2 dx gmm; 4 tgmm (wi, wo and their biases' per-expert row sums)
     want = {"flash_fwd": L * steps, "flash_bwd": L * steps,
-            "fused_ce": 2 * steps, "grouped_swiglu_up": 0,
+            "flash_bwd_qmajor": 0, "fused_ce": 2 * steps,
+            "grouped_swiglu_up": 0,
             "grouped_gmm": 6 * L * steps, "grouped_tgmm": 4 * L * steps,
             **NO_WQ}
     assert launches == want, (launches, want)
@@ -2392,6 +2432,501 @@ def phase_knob_slice(seed=0, steps=10, profile=None):
     return launches
 
 
+# --------------------------------------------- K2-qmajor kernel (phase 21)
+
+
+def phase_qmajor_kernel(fa, seed=0):
+    """K2-qmajor (``flash_backward_qmajor``) at phase 7's shapes (B=24,
+    H=16, T=1024, d=64, bf16, causal) against its plain version run in fp32
+    on the same inputs, with a window, a padded T and an lse cotangent;
+    fp32 cases at 1e-4; a control (dk/dv without the last query tile's
+    contribution) that must fail; a bitwise repeat, and bitwise equality
+    with the k-major K2 (the same 64 x 64 tile products accumulated in the
+    same order); timed beside its bound (row 7's work), the k-major K2 and
+    SDPA's backward."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def randn(shape, dtype=bf, s=1.0):
+        return (torch.randn(shape, generator=g, device="cuda") * s).to(dtype)
+
+    # ---- fp32 cases (the kernel's fp32 instances, at FP32_TOL)
+    for (B, H, T, d, causal, window, dl) in (
+            (2, 4, 200, 64, True, 0, True), (1, 2, 333, 128, True, 100, False),
+            (2, 2, 130, 32, False, 0, True), (1, 3, 64, 64, True, 0, False)):
+        q, k, v, do = (randn((B, T, H, d), f32).transpose(1, 2)
+                       for _ in range(4))
+        q = q * 0.3
+        o, lse = fa.flash_forward(q, k, v, causal=causal, window=window)
+        dlse = randn((B, H, T), f32) if dl else None
+        kw = dict(causal=causal, window=window, dlse=dlse)
+        got = fa.flash_backward_qmajor(q, k, v, o, lse, do, **kw)
+        refs = fa.flash_bwd_qmajor_reference(q, k, v, o, lse, do, **kw)
+        for a, r in zip(got, refs):
+            torch.testing.assert_close(a, r, **FP32_TOL)
+    log("K2-qmajor: fp32 cases ok (window, ragged T, non-causal, lse "
+        "cotangent)")
+
+    # ---- bf16 at the slice shapes: the main case, a window, a padded T
+    # and an lse cotangent
+    B, H, T, d = 24, 16, 1024, 64
+    worst, err = 0.0, 0.0
+    for case in (dict(), dict(window=256), dict(T=1000), dict(dlse=True)):
+        Tc, window = case.get("T", T), case.get("window", 0)
+        q, k, v, do = (randn((B, Tc, H, d)).transpose(1, 2)
+                       for _ in range(4))
+        q = fa.scale_q(q, 1.0 / math.sqrt(d))
+        o, lse = fa.flash_forward(q, k, v, window=window)
+        dlse = randn((B, H, Tc), f32, 0.1) if case.get("dlse") else None
+        got = fa.flash_backward_qmajor(q, k, v, o, lse, do, window=window,
+                                       dlse=dlse)
+        f32s = [x.float() for x in (q, k, v, o)]
+        refs = fa.flash_bwd_qmajor_reference(*f32s, lse, do.float(),
+                                             window=window, dlse=dlse)
+        for name, a, r in zip(("dq", "dk", "dv"), got, refs):
+            why = bf16_grad_mismatch(a, r)
+            assert why is None, f"flash_bwd_qmajor {case} {name}: {why}"
+            worst = max(worst, grad_rel_norm(a, r))
+            err = max(err, (a.float() - r).abs().max().item())
+        if case:
+            continue
+        again = fa.flash_backward_qmajor(q, k, v, o, lse, do)
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), \
+            "flash_bwd_qmajor is not bitwise repeatable"
+        # the same tile products in the same order as the k-major K2
+        kmajor = fa.flash_backward(q, k, v, o, lse, do)
+        assert all(torch.equal(a, b) for a, b in zip(got, kmajor)), \
+            "flash_bwd_qmajor differs from the k-major K2"
+        do_cut = do.float().clone()
+        do_cut[:, :, T - 64:] = 0      # the last query tile's dk/dv dropped
+        cut = fa.flash_bwd_qmajor_reference(*f32s, lse, do_cut)
+        for name, i in (("dk", 1), ("dv", 2)):
+            why = bf16_grad_mismatch(cut[i].to(bf), refs[i])
+            assert why is not None, \
+                f"grad check let {name} without the last query tile pass"
+            log(f"control: qmajor {name} without the last query tile's "
+                f"contribution fails ({why})")
+        main = (q, k, v, o, lse, do)
+        del cut, do_cut, again, kmajor
+    log(f"K2-qmajor checks ok at the slice shapes (+ window 256, T=1000, "
+        f"lse cotangent): max |err| {err:.3g}, worst slab relative error "
+        f"norm {worst:.3g}; bitwise repeat, bitwise equal to the k-major "
+        f"K2")
+
+    # ---- timing (row 7's work: the same bound)
+    q, k, v, o, lse, do = main
+    pairs = B * H * _causal_pairs(T)
+    act = B * T * H * d * 2
+    bwd_bytes = 8 * act + B * H * T * 4
+    qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+    sdpa_o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                            scale=1.0)
+    row = dict(
+        ms=time_ms(lambda: fa.flash_backward_qmajor(q, k, v, o, lse, do), 10),
+        kmajor_ms=time_ms(lambda: fa.flash_backward(q, k, v, o, lse, do), 10),
+        plain_ms=time_ms(lambda: fa.flash_bwd_qmajor_reference(
+            q, k, v, o, lse, do), 2),
+        library_ms=time_ms(lambda: torch.autograd.grad(
+            sdpa_o, (qs, ks, vs), do, retain_graph=True), 10),
+        bound=bound(bwd_bytes, 10 * d * pairs), max_abs_err=err,
+        rel_norm=worst)
+    log(f"flash_bwd_qmajor: {row['ms']:.4f} ms (k-major K2 "
+        f"{row['kmajor_ms']:.4f}, plain {row['plain_ms']:.4f}, SDPA "
+        f"backward {row['library_ms']:.4f}, bound {row['bound'][0]:.4f} by "
+        f"{row['bound'][1]}; fp32 dk/dv scratch "
+        f"{2 * B * H * T * d * 4 / 1e6:.1f} MB)")
+    del sdpa_o, qs, ks, vs, main, q, k, v, o, lse, do
+    torch.cuda.empty_cache()
+    return row
+
+
+# --------------------------------------------------- K11 kernels (phase 22)
+
+
+def bsa_config(kind):
+    """(SparsityConfig, causal, T) of the SparseSelfAttention cells: (a)
+    Fixed, unidirectional, block 64; (b) BigBird, block 64, non-causal;
+    block 16 at T=2048 (BigBird with a layout per head)."""
+    from deepspeed_tpu_torch.ops.sparse_attention import (
+        BigBirdSparsityConfig, FixedSparsityConfig)
+    if kind == "fixed":
+        return FixedSparsityConfig(
+            num_heads=16, block=64, num_local_blocks=4, num_global_blocks=1,
+            attention="unidirectional"), True, 8192
+    if kind == "bigbird":
+        return BigBirdSparsityConfig(num_heads=16, block=64), False, 8192
+    return BigBirdSparsityConfig(num_heads=16, block=16,
+                                 different_layout_per_head=True,
+                                 num_random_blocks=2), True, 2048
+
+
+def bsa_bounds(lists, B, blk, d, T):
+    """Each K11 kernel's bound from this layout's present block pairs
+    (row counts summed over heads, times B) at bf16: forward 4 blk^2 d
+    flops a pair (S, PV), dq 6 (S, dP, dQ), dk/dv 8 (S, dP, dV, dK); each
+    input read once, each output written once."""
+    H = lists["row_cnt"].shape[0]
+    pairs = int(lists["row_cnt"].sum().item()) * B
+    act = B * H * T * d * 2
+    rowf = B * H * T * 4
+    per = blk * blk * d
+    return pairs, {"bsa_fwd": bound(4 * act + rowf, 4 * per * pairs),
+                   "bsa_dq": bound(6 * act + 2 * rowf, 6 * per * pairs),
+                   "bsa_dkv": bound(6 * act + 2 * rowf, 8 * per * pairs)}
+
+
+def phase_bsa_kernels(bsa, seed=0):
+    """K11 (bsa_fwd, bsa_dq, bsa_dkv) at GPT-2 350M's attention widths (H=16,
+    d=64, bf16, B=4): (a) Fixed causal and (b) BigBird at T=8192, block 64,
+    and block 16 at T=2048, against their plain versions run in fp32 on the
+    same inputs; fp32 cases at every block size at 1e-4; controls (one
+    row's list short by its last id; dk/dv from the neighbour head's
+    column lists) that must fail; rows with no present block exactly 0;
+    bitwise repeats; (a) and (b) timed beside their bounds, their plain
+    versions and SDPA on the dense causal problem at the same shape, and
+    the masked-dense op beside the kernels at T=2048."""
+    from deepspeed_tpu_torch.ops.sparse_attention import (
+        BigBirdSparsityConfig, SparseSelfAttention, sparse_attention)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def randn(shape, dtype=bf, s=1.0):
+        return (torch.randn(shape, generator=g, device="cuda") * s).to(dtype)
+
+    def run(q, k, v, do, lists, blk, causal):
+        o, lse = bsa.bsa_forward(q, k, v, lists, blk, causal)
+        dq, delta = bsa.bsa_dq(q, k, v, o, lse, do, lists, blk, causal)
+        dk, dv = bsa.bsa_dkv(q, k, v, lse, delta, do, lists, blk, causal)
+        return o, lse, dq, delta, dk, dv
+
+    def plain(q, k, v, o, lse, do, lists, blk, causal):
+        ro, rlse = bsa.bsa_forward_reference(q, k, v, lists, blk, causal)
+        rdq, rdelta = bsa.bsa_dq_reference(q, k, v, o, lse, do, lists, blk,
+                                           causal)
+        rdk, rdv = bsa.bsa_dkv_reference(q, k, v, lse, rdelta, do, lists,
+                                         blk, causal)
+        return ro, rlse, rdq, rdelta, rdk, rdv
+
+    # ---- fp32 at every block size, causal and not (FP32_TOL)
+    for blk in bsa.BLOCKS:
+        for causal in (True, False):
+            cfg = BigBirdSparsityConfig(num_heads=2, block=blk,
+                                        different_layout_per_head=True)
+            T = 8 * blk
+            lists = SparseSelfAttention(cfg, causal=causal).lists(T, "cuda")
+            q, k, v, do = (randn((4, T, 64), f32) for _ in range(4))
+            q = q * 0.3
+            got = run(q, k, v, do, lists, blk, causal)
+            refs = plain(q, k, v, got[0], got[1], do, lists, blk, causal)
+            for a, r in zip(got, refs):
+                torch.testing.assert_close(a, r, **FP32_TOL)
+    log(f"K11: fp32 cases ok (blocks {bsa.BLOCKS}, causal and not)")
+
+    # ---- rows with no present block: o, dq exactly 0
+    lay = bsa_config("fixed")[0].make_layout(2048).copy()
+    lay[:, 5] = False
+    lay[:, 9] = False
+    lists = bsa.lists_on(bsa.layout_lists(lay, True, 32, 32), "cuda")
+    q, k, v, do = (randn((64, 2048, 64)) for _ in range(4))
+    o, lse, dq, _, _, _ = run(q, k, v, do, lists, 64, True)
+    for rows in (slice(320, 384), slice(576, 640)):
+        assert torch.count_nonzero(o[:, rows]) == 0, "masked row o != 0"
+        assert torch.count_nonzero(dq[:, rows]) == 0, "masked row dq != 0"
+        assert bool((lse[:, rows] == bsa.NEG_INF).all())
+    log("K11: rows with no present block give o = 0, dq = 0, lse = -1e30")
+
+    rows_out, err, rel = {}, {}, {}
+    B, H, d = 4, 16, 64
+    for kind in ("fixed", "bigbird", "block16"):
+        cfg, causal, T = bsa_config(kind)
+        blk = cfg.block
+        lists = SparseSelfAttention(cfg, causal=causal).lists(T, "cuda")
+        q, k, v, do = (randn((B * H, T, d)) for _ in range(4))
+        q = q * 0.125                      # the softmax scale, in bf16
+        got = run(q, k, v, do, lists, blk, causal)
+        o, lse, dq, delta, dk, dv = got
+        f32s = [x.float() for x in (q, k, v)]
+        refs = plain(*f32s, o.float(), lse, do.float(), lists, blk, causal)
+        ro, rlse, rdq, rdelta, rdk, rdv = refs
+        why = bf16_mismatch(o, ro)
+        assert why is None, f"bsa_fwd {kind}: {why}"
+        torch.testing.assert_close(lse, rlse, rtol=0, atol=1e-4)
+        torch.testing.assert_close(delta, rdelta, rtol=1e-4, atol=1e-4)
+        e = {"bsa_fwd": (o.float() - ro).abs().max().item()}
+        r = {"bsa_fwd": bf16_errors(o, ro)[2]}
+        for name, a, ref in (("bsa_dq", dq, rdq), ("bsa_dkv", dk, rdk),
+                             ("bsa_dkv", dv, rdv)):
+            why = bf16_grad_mismatch(a[:, None], ref[:, None])
+            assert why is None, f"{name} {kind}: {why}"
+            e[name] = max(e.get(name, 0.0),
+                          (a.float() - ref).abs().max().item())
+            r[name] = max(r.get(name, 0.0),
+                          grad_rel_norm(a[:, None], ref[:, None]))
+        err[kind], rel[kind] = e, r
+        again = run(q, k, v, do, lists, blk, causal)
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), \
+            f"K11 {kind} is not bitwise repeatable"
+        # control: head 0's last query block short by its last key block
+        short = {key: t.clone() for key, t in lists.items()}
+        n = T // blk
+        short["row_cnt"][0, n - 1] -= 1
+        cut, _ = bsa.bsa_forward_reference(*f32s, short, blk, causal)
+        why = bf16_mismatch(cut.to(bf), ro)
+        assert why is not None, f"{kind}: a short row list passed"
+        log(f"control: {kind}, one row's list short by its last id, fails "
+            f"({why})")
+        if kind == "block16":
+            # control: dk/dv from the neighbour head's column lists
+            nb = dict(lists, cols=lists["cols"].roll(-1, 0),
+                      col_cnt=lists["col_cnt"].roll(-1, 0))
+            ndk, ndv = bsa.bsa_dkv_reference(*f32s, lse, rdelta, do.float(),
+                                             nb, blk, causal)
+            for name, a, ref in (("dk", ndk, rdk), ("dv", ndv, rdv)):
+                why = bf16_grad_mismatch(a.to(bf)[:, None], ref[:, None])
+                assert why is not None, \
+                    f"{name} from the neighbour head's lists passed"
+                log(f"control: {name} from the neighbour head's column "
+                    f"lists fails ({why})")
+        pairs, bounds = bsa_bounds(lists, B, blk, d, T)
+        log(f"K11 {kind}: T={T} block {blk} causal={causal}, {pairs} block "
+            f"pairs ({pairs / (B * H):.0f} a head), max |err| "
+            + ", ".join(f"{n_} {x:.3g}" for n_, x in e.items())
+            + "; worst relative error norm "
+            + ", ".join(f"{n_} {x:.3g}" for n_, x in r.items()))
+        if kind != "block16":
+            t = {"bsa_fwd": time_ms(lambda: bsa.bsa_forward(
+                     q, k, v, lists, blk, causal), 20),
+                 "bsa_dq": time_ms(lambda: bsa.bsa_dq(
+                     q, k, v, o, lse, do, lists, blk, causal), 10),
+                 "bsa_dkv": time_ms(lambda: bsa.bsa_dkv(
+                     q, k, v, lse, delta, do, lists, blk, causal), 10)}
+            pt = {"bsa_fwd": time_ms(lambda: bsa.bsa_forward_reference(
+                      q, k, v, lists, blk, causal), 2),
+                  "bsa_dq": time_ms(lambda: bsa.bsa_dq_reference(
+                      q, k, v, o, lse, do, lists, blk, causal), 2),
+                  "bsa_dkv": time_ms(lambda: bsa.bsa_dkv_reference(
+                      q, k, v, lse, delta, do, lists, blk, causal), 2)}
+            for name in t:
+                rows_out.setdefault(name, {})[kind] = dict(
+                    ms=t[name], plain_ms=pt[name], bound=bounds[name],
+                    max_abs_err=e[name], rel_norm=r[name], pairs=pairs)
+        del got, refs, again, q, k, v, do, o, lse, dq, delta, dk, dv
+        torch.cuda.empty_cache()
+
+    # ---- yardsticks: SDPA on the dense causal problem at (B=4, H=16,
+    # T=8192, d=64), and the masked-dense op at T=2048 beside the kernels
+    q, k, v, do = (randn((B, H, 8192, d)) for _ in range(4))
+    qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+    sdpa_o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    lib = {"bsa_fwd": time_ms(lambda: F.scaled_dot_product_attention(
+               q, k, v, is_causal=True), 10),
+           "bsa_bwd": time_ms(lambda: torch.autograd.grad(
+               sdpa_o, (qs, ks, vs), do, retain_graph=True), 5)}
+    del sdpa_o, qs, ks, vs, q, k, v, do
+    cfg, causal, _ = bsa_config("fixed")
+    q, k, v = (randn((B, 2048, H, d)) for _ in range(3))
+    lay = cfg.make_layout(2048)
+    op = SparseSelfAttention(cfg, causal=causal)
+    op.lists(2048, "cuda")
+    dense_ms = time_ms(lambda: sparse_attention(q, k, v, lay, 64,
+                                                causal=causal), 3)
+    kern_ms = time_ms(lambda: op(q, k, v), 10)
+    log(f"K11 yardsticks: SDPA dense causal at B=4 H=16 T=8192 d=64 forward "
+        f"{lib['bsa_fwd']:.4f} ms, backward {lib['bsa_bwd']:.4f} ms; at "
+        f"T=2048 (a)'s layout: masked-dense op forward {dense_ms:.4f} ms, "
+        f"SparseSelfAttention forward (kernel) {kern_ms:.4f} ms")
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    out = {}
+    for name, by in rows_out.items():
+        a = by["fixed"]
+        out[name] = dict(
+            ms=a["ms"], plain_ms=a["plain_ms"], bound=a["bound"],
+            library_ms=lib["bsa_fwd" if name == "bsa_fwd" else "bsa_bwd"],
+            max_abs_err=max(err[k_][name] for k_ in err),
+            rel_norm=max(rel[k_][name] for k_ in rel),
+            shape=dict(B=B, H=H, T=8192, d=d, block=64, pairs=a["pairs"],
+                       layout="fixed causal"),
+            other={"bigbird": {k_: (v_ if k_ != "bound" else list(v_))
+                               for k_, v_ in by["bigbird"].items()},
+                   "masked_dense_fwd_ms_T2048": dense_ms,
+                   "kernel_fwd_ms_T2048": kern_ms})
+        b = by["bigbird"]
+        log(f"{name}: (a) {a['ms']:.4f} ms (plain {a['plain_ms']:.4f}, "
+            f"bound {a['bound'][0]:.4f} by {a['bound'][1]}); (b) "
+            f"{b['ms']:.4f} ms (plain {b['plain_ms']:.4f}, bound "
+            f"{b['bound'][0]:.4f} by {b['bound'][1]}); SDPA dense causal "
+            f"{out[name]['library_ms']:.4f}")
+    return out
+
+
+# ---------------------------------------- K2-qmajor / K11 parity (phase 23)
+
+
+def phase_qmajor_bsa_parity(seed=0):
+    """fp32 on the card: a small GPT-2 (flash + fused CE kernels) with
+    flash_bwd_qmajor on gives the knob-off loss (rtol 1e-5) and every
+    gradient (relative error norm 1e-4) under save_flash and
+    nothing_saveable, with the launches the knob implies; SparseSelfAttention
+    at T=2048 (H=16, d=64) through the K11 kernels gives the masked-dense
+    op's output and gradients (1e-4) for (a)'s and (b)'s layouts."""
+    from deepspeed_tpu_torch import GPT2, GPT2Config
+    from deepspeed_tpu_torch.ops.cuda import block_sparse_attention as bsa
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+    from deepspeed_tpu_torch.ops.sparse_attention import SparseSelfAttention
+    base = dict(n_layer=2, n_head=2, d_model=128, max_seq_len=256,
+                vocab_size=1000, dtype="float32", loss_chunk=100,
+                fused_loss=True, fused_loss_kernel=True,
+                use_flash_attention=True, remat=True)
+    ids = torch.from_numpy(np.random.RandomState(seed).randint(
+        0, 1000, (4, 256))).cuda()
+    worst = 0.0
+    for policy in ("save_flash", "nothing_saveable"):
+        out = {}
+        for qm in (True, False):
+            model = GPT2(GPT2Config(**base, remat_policy=policy,
+                                    flash_bwd_qmajor=qm), device="cuda",
+                         seed=seed)
+            fa.reset_launch_counts()
+            loss = model.loss({"input_ids": ids})
+            loss.backward()
+            torch.cuda.synchronize()
+            L = base["n_layer"]
+            assert fa.LAUNCHES["flash_bwd_qmajor"] == (L if qm else 0), \
+                (policy, qm, fa.LAUNCHES)
+            assert fa.LAUNCHES["flash_bwd"] == (0 if qm else L), \
+                (policy, qm, fa.LAUNCHES)
+            out[qm] = (loss.item(), {n: p.grad for n, p in
+                                     model.named_parameters()})
+        (l_on, g_on), (l_off, g_off) = out[True], out[False]
+        assert abs(l_on - l_off) <= 1e-5 * abs(l_off), (policy, l_on, l_off)
+        for n, gr in g_off.items():
+            r = (torch.linalg.vector_norm(g_on[n] - gr)
+                 / torch.linalg.vector_norm(gr)).item()
+            assert r <= 1e-4, (policy, n, r)
+            worst = max(worst, r)
+    log(f"qmajor parity ok: flash_bwd_qmajor on vs off (save_flash, "
+        f"nothing_saveable), loss {l_on:.7f} vs {l_off:.7f}, worst gradient "
+        f"relative error norm {worst:.3g}")
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    for kind in ("fixed", "bigbird"):
+        cfg, causal, _ = bsa_config(kind)
+        q, k, v = ((torch.randn((2, 2048, 16, 64), generator=g,
+                                device="cuda") * 0.5).requires_grad_()
+                   for _ in range(3))
+        w = torch.randn((2, 2048, 16, 64), generator=g, device="cuda")
+        res = {}
+        for use_kernel in (True, False):
+            bsa.reset_launch_counts()
+            op = SparseSelfAttention(cfg, causal=causal,
+                                     use_kernel=use_kernel)
+            o = op(q, k, v)
+            grads = torch.autograd.grad((o * w).sum(), (q, k, v))
+            torch.cuda.synchronize()
+            n = 1 if use_kernel else 0
+            assert bsa.LAUNCHES == {"bsa_fwd": n, "bsa_dq": n,
+                                    "bsa_dkv": n}, bsa.LAUNCHES
+            res[use_kernel] = (o.detach(),) + grads
+        for name, a, b in zip(("o", "dq", "dk", "dv"), res[True],
+                              res[False]):
+            torch.testing.assert_close(a, b, **FP32_TOL, msg=f"{kind} {name}")
+    log("K11 parity ok: SparseSelfAttention kernel == masked-dense op at "
+        "T=2048, fp32, (a) and (b) layouts, output and gradients at 1e-4")
+
+
+# -------------------------------- qmajor GPT-2 / K11 slices (phase 24)
+
+
+def phase_qmajor_slice(seed=0, steps=10, profile=None):
+    """Phase 7's GPT-2 350M bench configuration with flash_bwd_qmajor=True:
+    10 train_batch steps, the loss falling, exactly 24 flash forwards, 24
+    query-major backwards, 0 k-major and 2 fused CE a step; its step time
+    beside phase 7's from this run."""
+    launches = phase_train_slice(seed=seed, steps=steps, profile=profile,
+                                 tag="qmajor train slice",
+                                 knobs=dict(flash_bwd_qmajor=True))
+    off, on = TRAIN_STATS["train slice"], TRAIN_STATS["qmajor train slice"]
+    keys = ("step_s_median_after_first", "tokens_per_s",
+            "model_tflops_per_s", "max_memory_allocated_gb")
+    log("gpt2-350M qmajor train slice vs phase 7 (k-major), this run: "
+        + ", ".join(f"{k} {on[k]:.4f} vs {off[k]:.4f}" for k in keys))
+    return launches
+
+
+BSA_STATS = {}
+
+
+def phase_bsa_slice(kind, seed=0, calls=10):
+    """SparseSelfAttention over GPT-2 350M's attention widths (B=4, T=8192,
+    H=16, d=64, bf16) with (a)'s or (b)'s layout: ``calls`` forward +
+    backward calls through the op (its lists uploaded once beforehand, as
+    set-up); no host sync inside a call (torch.cuda.set_sync_debug_mode
+    "error"); exactly one launch of each K11 kernel a call; the output
+    finite and equal to the plain forward's within the bf16 check; ms a
+    call (host clock around a synchronised call, median after the first)
+    and peak memory."""
+    from deepspeed_tpu_torch.ops.cuda import block_sparse_attention as bsa
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+    from deepspeed_tpu_torch.ops.sparse_attention import SparseSelfAttention
+    cfg, causal, T = bsa_config(kind)
+    B, H, d = 4, 16, 64
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    q, k, v, do = (torch.randn((B, T, H, d), generator=g,
+                               device="cuda").to(torch.bfloat16)
+                   for _ in range(4))
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    op = SparseSelfAttention(cfg, causal=causal)
+    lists = op.lists(T, "cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in (bsa, fa):
+        mod.reset_launch_counts()
+    times = []
+    for _ in range(calls):
+        t1 = time.perf_counter()
+        # a call makes no host sync: any synchronising operation raises
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            o = op(q, k, v)
+            grads = torch.autograd.grad(o, (q, k, v), do)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+    launches = {**bsa.LAUNCHES, **fa.LAUNCHES}
+    want = {"bsa_fwd": calls, "bsa_dq": calls, "bsa_dkv": calls,
+            "flash_fwd": 0, "flash_bwd": 0, "flash_bwd_qmajor": 0}
+    assert launches == want, (launches, want)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    assert o.shape == q.shape and all(torch.isfinite(x).all()
+                                      for x in (o,) + grads)
+
+    def fold(x):
+        return x.detach().transpose(1, 2).reshape(B * H, T, d).float()
+
+    ro, _ = bsa.bsa_forward_reference(fold(q) * 0.125, fold(k), fold(v),
+                                      lists, cfg.block, causal)
+    why = bf16_mismatch(fold(o).to(torch.bfloat16), ro)
+    assert why is None, f"{kind} slice output: {why}"
+    stats = dict(calls=calls, call_s=times,
+                 call_ms_median_after_first=float(np.median(times[1:])) * 1e3,
+                 density=op.density(T), launches=launches,
+                 max_memory_allocated_gb=peak)
+    BSA_STATS[kind] = stats
+    log(f"SparseSelfAttention {kind} slice " + json.dumps(stats))
+    del o, grads, q, k, v, do, ro
+    torch.cuda.empty_cache()
+    return {k_: v_ for k_, v_ in launches.items() if k_.startswith("bsa")}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default="",
@@ -2402,6 +2937,7 @@ def main(argv=None):
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from deepspeed_tpu_torch.op_builder import build_all
+    from deepspeed_tpu_torch.ops.cuda import block_sparse_attention as bsa
     from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
     from deepspeed_tpu_torch.ops.cuda import fused_ce as fce
     from deepspeed_tpu_torch.ops.cuda import grouped_matmul as gm
@@ -2417,7 +2953,8 @@ def main(argv=None):
         check=True).stdout.strip().splitlines()[0]
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
-    from deepspeed_tpu_torch.op_builder import (FlashAttentionBuilder,
+    from deepspeed_tpu_torch.op_builder import (BlockSparseAttentionBuilder,
+                                                FlashAttentionBuilder,
                                                 FusedCEBuilder,
                                                 GroupedMatmulBuilder,
                                                 LayerNormBuilder,
@@ -2425,7 +2962,7 @@ def main(argv=None):
                                                 PagedAttentionBuilder)
     builders = [PagedAttentionBuilder(), FlashAttentionBuilder(),
                 FusedCEBuilder(), GroupedMatmulBuilder(), MlpMatmulBuilder(),
-                LayerNormBuilder()]
+                LayerNormBuilder(), BlockSparseAttentionBuilder()]
     t0 = time.perf_counter()
     build_all(builders)                # one nvcc per source, together
     log(f"kernels built in {time.perf_counter() - t0:.1f} s wall")
@@ -2434,7 +2971,7 @@ def main(argv=None):
         for entry, regs, spill in ptxas_summary(b.build_log):
             log(f"    ptxas {entry}: {regs} registers, {spill} bytes "
                 f"spilled")
-    for mod in (pa, fa, fce, gm, mm, ln):
+    for mod in (pa, fa, fce, gm, mm, ln, bsa):
         mod.kernel_builder()           # bind the built libraries
 
     def profile_path(suffix):
@@ -2492,6 +3029,17 @@ def main(argv=None):
     paths["gpt2-kernels-train"] = phase_knob_slice(
         profile=profile_path("kernels-train"))
     phase_done("20 (GPT-2 350M with K13 / K6)")
+    rows["flash_bwd_qmajor"] = phase_qmajor_kernel(fa)
+    phase_done("21 (K2-qmajor kernel)")
+    rows.update(phase_bsa_kernels(bsa))
+    phase_done("22 (K11 kernels)")
+    phase_qmajor_bsa_parity()
+    phase_done("23 (K2-qmajor / K11 parity)")
+    paths["gpt2-qmajor-train"] = phase_qmajor_slice(
+        profile=profile_path("qmajor-train"))
+    paths["bsa-fixed"] = phase_bsa_slice("fixed")
+    paths["bsa-bigbird"] = phase_bsa_slice("bigbird")
+    phase_done("24 (qmajor GPT-2 and SparseSelfAttention slices)")
 
     kernels = []
     for name, r in rows.items():
@@ -2505,7 +3053,7 @@ def main(argv=None):
             bound_ms=r["bound"][0], bound_by=r["bound"][1],
             library_ms=r["library_ms"])
         for extra in ("shape", "chunk", "other", "dx_view", "library",
-                      "dscale_dbias_rel_norm", "rel_norm"):
+                      "dscale_dbias_rel_norm", "rel_norm", "kmajor_ms"):
             if extra in r:
                 row[extra] = r[extra]
         kernels.append(row)

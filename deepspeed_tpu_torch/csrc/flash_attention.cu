@@ -48,6 +48,25 @@
 //   Results are cast to the input dtype once at the end. Bound: operations
 //   (about 2.5x the forward's flops); same mma.sync design.
 //
+// flash_bwd_qmajor_kernel (one launch) replaces _bwd_kernel_t_qmajor (via
+//   _bwd_t_qmajor, flash_attention.py:828-916). The TPU kernel walks query
+//   blocks on its sequential grid and keeps dk/dv for the whole sequence in
+//   fp32 VMEM scratch (2*T*d*4 bytes a head: 512 KB at T=1024, d=64, over a
+//   CTA's 227 KB of shared memory). Here one CTA per (b, h) walks the query
+//   tiles itself and keeps its dk/dv accumulators in a global fp32 scratch
+//   slice that no other CTA touches: per (query, key) tile pair S and dP are
+//   formed once, dq is carried in registers and written once per query tile
+//   in the input dtype, and dk/dv are read, updated and written back in fp32
+//   and cast once at the end. No atomics: a run repeats bitwise, and since
+//   it forms the same 64 x 64 tile products as flash_bwd and accumulates
+//   each output in the same order, its results equal flash_bwd's bitwise
+//   (chip_smoke.py checks both). Bound: the
+//   same operations as flash_bwd with S and dP formed once (about 2x the
+//   forward's flops); what holds it back is the scratch round trip (each
+//   pair reads and writes 2*64*d*4 bytes of dk/dv) and B*H CTAs, one wave
+//   at B*H = 384. A cluster that keeps dk/dv in distributed shared memory
+//   is later work.
+//
 // Masks are the Pallas kernels' exactly: NEG_INF = -1e30 for masked scores
 // in the forward, p = 0 for masked pairs in the backward, keys and queries
 // beyond T masked (the ragged last tile), sliding window causal only.
@@ -56,11 +75,7 @@
 // done by scalar FMAs in the mma fragment layout, so the softmax code is
 // shared by both types.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
-
-#define NEG_INF (-1e30f)
+#include "attention_tiles.cuh"
 
 struct Strides {
   long long b, h, t;
@@ -78,6 +93,7 @@ struct FlashArgs {
   void* dq;
   void* dk;
   void* dv;
+  float* acc;         // query-major backward: (B*H, 2, Tp, D) fp32 dk/dv scratch
   Strides sq, sk, sv, so, sdo, sdq, sdk, sdv;
   int B, H, T, D, causal, window;
 };
@@ -88,132 +104,6 @@ constexpr int BQ = 64;  // query rows per CTA
 constexpr int BK = 64;  // key rows per tile
 constexpr int NW = 4;   // warps per CTA, 16 rows each
 constexpr int NT = NW * 32;
-
-typedef __nv_bfloat16 bf16;
-
-template <typename T> __device__ __forceinline__ float to_f(T x);
-template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f<bf16>(bf16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) { return __float2bfloat16(x); }
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// ------------------------------------------------------- warp tile products
-// C (16 x 8*N8) += A (16 x K) * B. Lane = 4*g + t owns C fragment elements
-// c[n][0..1] at (row g, cols 8n + 2t + {0,1}) and c[n][2..3] at row g + 8
-// (the mma.sync m16n8 accumulator layout). A is row-major [16][lda].
-// mma_nk: B stored [n][k] (k contiguous); mma_kn: B stored [k][n].
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack2(bf16 lo, bf16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-__device__ __forceinline__ void mma16816(float* c, uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-template <int N8>
-__device__ __forceinline__ void mma_nk(float (&c)[N8][4], const bf16* A, int lda, const bf16* B,
-                                       int ldb, int K) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  for (int k0 = 0; k0 < K; k0 += 16) {
-    const uint32_t a0 = ld32(A + g * lda + k0 + 2 * t);
-    const uint32_t a1 = ld32(A + (g + 8) * lda + k0 + 2 * t);
-    const uint32_t a2 = ld32(A + g * lda + k0 + 8 + 2 * t);
-    const uint32_t a3 = ld32(A + (g + 8) * lda + k0 + 8 + 2 * t);
-#pragma unroll
-    for (int n = 0; n < N8; ++n) {
-      const bf16* bp = B + (n * 8 + g) * ldb + k0 + 2 * t;
-      mma16816(c[n], a0, a1, a2, a3, ld32(bp), ld32(bp + 8));
-    }
-  }
-}
-
-template <int N8>
-__device__ __forceinline__ void mma_kn(float (&c)[N8][4], const bf16* A, int lda, const bf16* B,
-                                       int ldb, int K) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  for (int k0 = 0; k0 < K; k0 += 16) {
-    const uint32_t a0 = ld32(A + g * lda + k0 + 2 * t);
-    const uint32_t a1 = ld32(A + (g + 8) * lda + k0 + 2 * t);
-    const uint32_t a2 = ld32(A + g * lda + k0 + 8 + 2 * t);
-    const uint32_t a3 = ld32(A + (g + 8) * lda + k0 + 8 + 2 * t);
-#pragma unroll
-    for (int n = 0; n < N8; ++n) {
-      const bf16* bp = B + (k0 + 2 * t) * ldb + n * 8 + g;
-      const uint32_t b0 = pack2(bp[0], bp[ldb]);
-      const uint32_t b1 = pack2(bp[8 * ldb], bp[9 * ldb]);
-      mma16816(c[n], a0, a1, a2, a3, b0, b1);
-    }
-  }
-}
-
-template <int N8>
-__device__ __forceinline__ void mma_nk(float (&c)[N8][4], const float* A, int lda, const float* B,
-                                       int ldb, int K) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  for (int k = 0; k < K; ++k) {
-    const float lo = A[g * lda + k], hi = A[(g + 8) * lda + k];
-#pragma unroll
-    for (int n = 0; n < N8; ++n) {
-      const float b0 = B[(n * 8 + 2 * t) * ldb + k], b1 = B[(n * 8 + 2 * t + 1) * ldb + k];
-      c[n][0] = fmaf(lo, b0, c[n][0]);
-      c[n][1] = fmaf(lo, b1, c[n][1]);
-      c[n][2] = fmaf(hi, b0, c[n][2]);
-      c[n][3] = fmaf(hi, b1, c[n][3]);
-    }
-  }
-}
-
-template <int N8>
-__device__ __forceinline__ void mma_kn(float (&c)[N8][4], const float* A, int lda, const float* B,
-                                       int ldb, int K) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  for (int k = 0; k < K; ++k) {
-    const float lo = A[g * lda + k], hi = A[(g + 8) * lda + k];
-#pragma unroll
-    for (int n = 0; n < N8; ++n) {
-      const float b0 = B[k * ldb + n * 8 + 2 * t], b1 = B[k * ldb + n * 8 + 2 * t + 1];
-      c[n][0] = fmaf(lo, b0, c[n][0]);
-      c[n][1] = fmaf(lo, b1, c[n][1]);
-      c[n][2] = fmaf(hi, b0, c[n][2]);
-      c[n][3] = fmaf(hi, b1, c[n][3]);
-    }
-  }
-}
-
-// -------------------------------------------------------------- tile I/O
-
-// rows [row0, row0 + 64) of a strided (T, D) slab into shared [64][ld]; rows
-// at or past T are zero (16-byte vectors; the wrapper guarantees alignment).
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(T* dst, int ld, const T* src, long long st, int row0,
-                                          int T_) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int CPR = D / VEC;
-  for (int i = threadIdx.x; i < 64 * CPR; i += NT) {
-    const int r = i / CPR, c = (i - r * CPR) * VEC;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < T_) val = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * st + c);
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
-  }
-}
 
 __device__ __forceinline__ bool pair_ok(int q, int k, int T_, int causal, int window) {
   bool ok = (k < T_) && (q < T_);
@@ -244,7 +134,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(FlashArgs a) {
   const T* kg = reinterpret_cast<const T*>(a.k) + b * a.sk.b + h * a.sk.h;
   const T* vg = reinterpret_cast<const T*>(a.v) + b * a.sv.b + h * a.sv.h;
 
-  load_tile<T, D>(qs, LD, qg, a.sq.t, q0, a.T);
+  load_tile<T, D, 64, NT>(qs, LD, qg, a.sq.t, q0, a.T);
   const int k_hi = a.causal ? min(a.T, q0 + BQ) : a.T;
   const int k_lo = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
   const int j_lo = k_lo / BK, j_hi = (k_hi + BK - 1) / BK;
@@ -259,8 +149,8 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(FlashArgs a) {
   for (int j = j_lo; j < j_hi; ++j) {
     const int kb0 = j * BK;
     __syncthreads();
-    load_tile<T, D>(ks, LD, kg, a.sk.t, kb0, a.T);
-    load_tile<T, D>(vs, LD, vg, a.sv.t, kb0, a.T);
+    load_tile<T, D, 64, NT>(ks, LD, kg, a.sk.t, kb0, a.T);
+    load_tile<T, D, 64, NT>(vs, LD, vg, a.sv.t, kb0, a.T);
     __syncthreads();
 
     float s[NTK][4];
@@ -385,8 +275,8 @@ __global__ void __launch_bounds__(NT) flash_dkdv_kernel(FlashArgs a) {
   const float* lg = a.lse + (long long)bh * a.T;
   const float* delg = a.delta + (long long)bh * a.T;
 
-  load_tile<T, D>(ks, LD, kg, a.sk.t, k0, a.T);
-  load_tile<T, D>(vs, LD, vg, a.sv.t, k0, a.T);
+  load_tile<T, D, 64, NT>(ks, LD, kg, a.sk.t, k0, a.T);
+  load_tile<T, D, 64, NT>(vs, LD, vg, a.sv.t, k0, a.T);
   const int q_lo = a.causal ? k0 : 0;
   const int q_hi = a.window > 0 ? min(a.T, k0 + BK - 1 + a.window) : a.T;
   const int i_lo = q_lo / BQ, i_hi = (q_hi + BQ - 1) / BQ;
@@ -402,8 +292,8 @@ __global__ void __launch_bounds__(NT) flash_dkdv_kernel(FlashArgs a) {
   for (int i = i_lo; i < i_hi; ++i) {
     const int qb0 = i * BQ;
     __syncthreads();
-    load_tile<T, D>(qs, LD, qg, a.sq.t, qb0, a.T);
-    load_tile<T, D>(dos, LD, dg, a.sdo.t, qb0, a.T);
+    load_tile<T, D, 64, NT>(qs, LD, qg, a.sq.t, qb0, a.T);
+    load_tile<T, D, 64, NT>(dos, LD, dg, a.sdo.t, qb0, a.T);
     for (int r = threadIdx.x; r < BQ; r += NT) {
       const bool in = qb0 + r < a.T;
       lse_s[r] = in ? lg[qb0 + r] : 0.f;
@@ -478,8 +368,8 @@ __global__ void __launch_bounds__(NT) flash_dq_kernel(FlashArgs a) {
   const T* vg = reinterpret_cast<const T*>(a.v) + b * a.sv.b + h * a.sv.h;
   const T* dg = reinterpret_cast<const T*>(a.dout) + b * a.sdo.b + h * a.sdo.h;
 
-  load_tile<T, D>(qs, LD, qg, a.sq.t, q0, a.T);
-  load_tile<T, D>(dos, LD, dg, a.sdo.t, q0, a.T);
+  load_tile<T, D, 64, NT>(qs, LD, qg, a.sq.t, q0, a.T);
+  load_tile<T, D, 64, NT>(dos, LD, dg, a.sdo.t, q0, a.T);
   const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
   float lse_r[2], dl_r[2];
 #pragma unroll
@@ -500,8 +390,8 @@ __global__ void __launch_bounds__(NT) flash_dq_kernel(FlashArgs a) {
   for (int j = j_lo; j < j_hi; ++j) {
     const int kb0 = j * BK;
     __syncthreads();
-    load_tile<T, D>(ks, LD, kg, a.sk.t, kb0, a.T);
-    load_tile<T, D>(vs, LD, vg, a.sv.t, kb0, a.T);
+    load_tile<T, D, 64, NT>(ks, LD, kg, a.sk.t, kb0, a.T);
+    load_tile<T, D, 64, NT>(vs, LD, vg, a.sv.t, kb0, a.T);
     __syncthreads();
 
     float s[NTK][4], dp[NTK][4];
@@ -538,6 +428,168 @@ __global__ void __launch_bounds__(NT) flash_dq_kernel(FlashArgs a) {
       qp[0] = from_f<T>(dq[n][2 * i]);
       qp[1] = from_f<T>(dq[n][2 * i + 1]);
     }
+  }
+}
+
+// ------------------------------------------------------ query-major backward
+
+// The mma fragment of a 16 x 8*NTD fp32 tile at p (row stride ld) in the
+// accumulator layout: c[n][0..1] at (row g, cols 8n + 2t + {0,1}), c[n][2..3]
+// at row g + 8. Each thread touches only its own elements.
+template <int NTD>
+__device__ __forceinline__ void frag_load(float (&c)[NTD][4], const float* p, int ld, bool zero) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int n = 0; n < NTD; ++n) {
+    float2 lo = make_float2(0.f, 0.f), hi = lo;
+    if (!zero) {
+      lo = *reinterpret_cast<const float2*>(p + g * ld + n * 8 + 2 * t4);
+      hi = *reinterpret_cast<const float2*>(p + (g + 8) * ld + n * 8 + 2 * t4);
+    }
+    c[n][0] = lo.x;
+    c[n][1] = lo.y;
+    c[n][2] = hi.x;
+    c[n][3] = hi.y;
+  }
+}
+
+template <int NTD>
+__device__ __forceinline__ void frag_store(const float (&c)[NTD][4], float* p, int ld) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int n = 0; n < NTD; ++n) {
+    *reinterpret_cast<float2*>(p + g * ld + n * 8 + 2 * t4) = make_float2(c[n][0], c[n][1]);
+    *reinterpret_cast<float2*>(p + (g + 8) * ld + n * 8 + 2 * t4) = make_float2(c[n][2], c[n][3]);
+  }
+}
+
+// One CTA per (b, h) walks the query tiles in order, as the TPU kernel's
+// sequential grid does. Per query tile: delta once (warp_row_delta), then
+// per key tile between the forward's bounds S and dP once, p, ds, and
+// dq += round(ds) k in registers (written once per query tile); dv += round(p)^T do
+// and dk += round(ds)^T q go to this CTA's own fp32 slice of a.acc, which
+// carries them across the whole walk (a key tile's first visit starts it
+// at zero: the diagonal tile when causal, query tile 0 otherwise). During
+// the walk each thread reads and writes only its own fragment elements of
+// a.acc; the epilogue casts the slice after one barrier.
+template <typename T, int D>
+__global__ void __launch_bounds__(NT) flash_bwd_qmajor_kernel(FlashArgs a) {
+  constexpr int PAD = 16 / sizeof(T);
+  constexpr int LD = D + PAD;
+  constexpr int LP = BK + PAD;
+  constexpr int NTD = D / 8, NTK = BK / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* qs = reinterpret_cast<T*>(smem_raw);  // [BQ][LD]
+  T* dos = qs + BQ * LD;                    // [BQ][LD]
+  T* ks = dos + BQ * LD;                    // [BK][LD]
+  T* vs = ks + BK * LD;                     // [BK][LD]
+  T* pt = vs + BK * LD;                     // [BK][LP] round(p)^T, every warp's queries
+  T* dst = pt + BK * LP;                    // [BK][LP] round(ds)^T
+  T* dsq = dst + BK * LP;                   // [NW][16][LP] round(ds), this warp's queries
+
+  const int bh = blockIdx.x, b = bh / a.H, h = bh - b * a.H;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t4 = lane & 3;
+  const int nq = (a.T + BQ - 1) / BQ;
+  const long long tp = (long long)nq * BQ;
+  const T* qg = reinterpret_cast<const T*>(a.q) + b * a.sq.b + h * a.sq.h;
+  const T* kg = reinterpret_cast<const T*>(a.k) + b * a.sk.b + h * a.sk.h;
+  const T* vg = reinterpret_cast<const T*>(a.v) + b * a.sv.b + h * a.sv.h;
+  const T* dg = reinterpret_cast<const T*>(a.dout) + b * a.sdo.b + h * a.sdo.h;
+  const T* og = reinterpret_cast<const T*>(a.o) + b * a.so.b + h * a.so.h;
+  T* dqg = reinterpret_cast<T*>(a.dq) + b * a.sdq.b + h * a.sdq.h;
+  const float* lg = a.lse + (long long)bh * a.T;
+  const float* dlg = a.dlse ? a.dlse + (long long)bh * a.T : nullptr;
+  float* dk_acc = a.acc + (long long)bh * 2 * tp * D;
+  float* dv_acc = dk_acc + tp * D;
+  T* dsw = dsq + warp * 16 * LP;
+
+  for (int i = 0; i < nq; ++i) {
+    const int q0 = i * BQ;
+    __syncthreads();
+    load_tile<T, D, 64, NT>(qs, LD, qg, a.sq.t, q0, a.T);
+    load_tile<T, D, 64, NT>(dos, LD, dg, a.sdo.t, q0, a.T);
+    const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
+    float dl_r[2];
+    warp_row_delta<T, D>(dl_r, dg, a.sdo.t, og, a.so.t, dlg, q0 + warp * 16, a.T);
+    const float lse_r[2] = {r0 < a.T ? lg[r0] : 0.f, r1 < a.T ? lg[r1] : 0.f};
+    const int k_hi = a.causal ? min(a.T, q0 + BQ) : a.T;
+    const int k_lo = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
+    const int j_lo = k_lo / BK, j_hi = (k_hi + BK - 1) / BK;
+
+    float dq[NTD][4];
+#pragma unroll
+    for (int n = 0; n < NTD; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
+
+    for (int j = j_lo; j < j_hi; ++j) {
+      const int kb0 = j * BK;
+      __syncthreads();
+      load_tile<T, D, 64, NT>(ks, LD, kg, a.sk.t, kb0, a.T);
+      load_tile<T, D, 64, NT>(vs, LD, vg, a.sv.t, kb0, a.T);
+      __syncthreads();
+
+      float s[NTK][4], dp[NTK][4];
+#pragma unroll
+      for (int n = 0; n < NTK; ++n)
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+      mma_nk<NTK>(s, qs + warp * 16 * LD, LD, ks, LD, D);    // S = Q K^T, once
+      mma_nk<NTK>(dp, dos + warp * 16 * LD, LD, vs, LD, D);  // dP = dO V^T, once
+#pragma unroll
+      for (int n = 0; n < NTK; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i2 = e >> 1;
+          const int kl = n * 8 + 2 * t4 + (e & 1);
+          const int ql = warp * 16 + g + 8 * i2;
+          const int row = i2 ? r1 : r0;
+          const float p =
+              pair_ok(row, kb0 + kl, a.T, a.causal, a.window) ? expf(s[n][e] - lse_r[i2]) : 0.f;
+          const T dsb = from_f<T>(p * (dp[n][e] - dl_r[i2]));
+          pt[kl * LP + ql] = from_f<T>(p);
+          dst[kl * LP + ql] = dsb;
+          dsw[(g + 8 * i2) * LP + kl] = dsb;
+        }
+      }
+      __syncthreads();
+      mma_kn<NTD>(dq, dsw, LP, ks, LD, BK);
+
+      const bool first = a.causal ? (j == i) : (i == 0);
+      const long long key0 = kb0 + warp * 16;
+      float acc[NTD][4];
+      frag_load<NTD>(acc, dv_acc + key0 * D, D, first);
+      mma_kn<NTD>(acc, pt + warp * 16 * LP, LP, dos, LD, BQ);
+      frag_store<NTD>(acc, dv_acc + key0 * D, D);
+      frag_load<NTD>(acc, dk_acc + key0 * D, D, first);
+      mma_kn<NTD>(acc, dst + warp * 16 * LP, LP, qs, LD, BQ);
+      frag_store<NTD>(acc, dk_acc + key0 * D, D);
+    }
+
+#pragma unroll
+    for (int i2 = 0; i2 < 2; ++i2) {
+      const int row = i2 ? r1 : r0;
+      if (row >= a.T) continue;
+#pragma unroll
+      for (int n = 0; n < NTD; ++n) {
+        T* qp = dqg + (long long)row * a.sdq.t + n * 8 + 2 * t4;
+        qp[0] = from_f<T>(dq[n][2 * i2]);
+        qp[1] = from_f<T>(dq[n][2 * i2 + 1]);
+      }
+    }
+  }
+
+  // epilogue: every key's dk/dv, cast once from the fp32 slice
+  __syncthreads();
+  T* dkg = reinterpret_cast<T*>(a.dk) + b * a.sdk.b + h * a.sdk.h;
+  T* dvg = reinterpret_cast<T*>(a.dv) + b * a.sdv.b + h * a.sdv.h;
+  for (int idx = threadIdx.x; idx < a.T * (D / 2); idx += NT) {
+    const int key = idx / (D / 2), c = (idx - key * (D / 2)) * 2;
+    const float2 k2 = *reinterpret_cast<const float2*>(dk_acc + (long long)key * D + c);
+    const float2 v2 = *reinterpret_cast<const float2*>(dv_acc + (long long)key * D + c);
+    T* kp = dkg + (long long)key * a.sdk.t + c;
+    T* vp = dvg + (long long)key * a.sdv.t + c;
+    kp[0] = from_f<T>(k2.x);
+    kp[1] = from_f<T>(k2.y);
+    vp[0] = from_f<T>(v2.x);
+    vp[1] = from_f<T>(v2.y);
   }
 }
 
@@ -579,6 +631,14 @@ cudaError_t bwd(const FlashArgs& a, cudaStream_t s) {
   return launch(flash_dq_kernel<T, D>, dim3((a.T + BQ - 1) / BQ, a.B * a.H), smem_q, s, a);
 }
 
+template <typename T, int D>
+cudaError_t bwd_qmajor(const FlashArgs& a, cudaStream_t s) {
+  constexpr int PAD = 16 / sizeof(T);
+  const size_t smem = sizeof(T) * ((size_t)(2 * BQ + 2 * BK) * (D + PAD) +
+                                   (size_t)(2 * BK + NW * 16) * (BK + PAD));
+  return launch(flash_bwd_qmajor_kernel<T, D>, dim3(a.B * a.H), smem, s, a);
+}
+
 template <typename T>
 cudaError_t fwd_by_d(const FlashArgs& a, cudaStream_t s) {
   switch (a.D) {
@@ -595,6 +655,16 @@ cudaError_t bwd_by_d(const FlashArgs& a, cudaStream_t s) {
     case 32: return bwd<T, 32>(a, s);
     case 64: return bwd<T, 64>(a, s);
     case 128: return bwd<T, 128>(a, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+cudaError_t bwd_qmajor_by_d(const FlashArgs& a, cudaStream_t s) {
+  switch (a.D) {
+    case 32: return bwd_qmajor<T, 32>(a, s);
+    case 64: return bwd_qmajor<T, 64>(a, s);
+    case 128: return bwd_qmajor<T, 128>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -621,5 +691,15 @@ extern "C" int flash_bwd_launch(const FlashArgs* a, int dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 1) return bwd_by_d<bf16>(*a, s);
   if (dtype == 0) return bwd_by_d<float>(*a, s);
+  return cudaErrorInvalidValue;
+}
+
+// One launch: the query-major backward; a->acc is its (B*H, 2, Tp, D) fp32
+// scratch, Tp = T rounded up to 64.
+extern "C" int flash_bwd_qmajor_launch(const FlashArgs* a, int dtype, void* stream) {
+  if (bad_args(a) || a->acc == nullptr) return cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 1) return bwd_qmajor_by_d<bf16>(*a, s);
+  if (dtype == 0) return bwd_qmajor_by_d<float>(*a, s);
   return cudaErrorInvalidValue;
 }

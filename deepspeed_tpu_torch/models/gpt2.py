@@ -18,7 +18,9 @@ and ``loss`` adds ``moe_loss_coeff`` times the aux summed over layers (the
 MoE load-balance loss of ``gpt2_moe.GPT2MoE``; a dense block's aux is None,
 where JAX's is 0.0 times a zero coefficient). Attention goes through the
 Hopper flash kernels (ops/cuda/flash_attention.py) when
-``use_flash_attention`` resolves on, else the dense path; the loss head
+``use_flash_attention`` resolves on, else the dense path; its backward
+through the query-major kernel when ``flash_bwd_qmajor`` resolves on
+(``flash_qmajor``); the loss head
 through the fused CE kernel when ``fused_loss_kernel``; every LayerNorm
 through the K13 kernels (ops/cuda/layernorm.py) when ``fused_layernorm``
 (``_ln``); the MLP projections through K6 (ops/cuda/mlp_matmul.py) when
@@ -34,7 +36,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.cuda.flash_attention import (flash_attention, flash_backward,
-                                        flash_forward, scale_q)
+                                        flash_backward_qmajor, flash_forward,
+                                        resolve_bwd_qmajor, scale_q)
 from ..ops.cuda.layernorm import (fused_layernorm, layernorm_fused_bwd,
                                   layernorm_reference as layernorm)
 from ..ops.cuda.mlp_matmul import mlp_matmul
@@ -163,10 +166,6 @@ class GPT2(nn.Module):
         if config.activation not in _ACTS:
             raise ValueError(f"unknown activation {config.activation!r}; "
                              f"expected one of {sorted(_ACTS)}")
-        if config.flash_bwd_qmajor is True:
-            raise NotImplementedError(
-                "flash_bwd_qmajor is not ported yet (ROADMAP Queue 2, "
-                "K2-qmajor)")
         if config.remat:
             resolve_remat_policy(config.remat_policy)
         self.config = config
@@ -229,6 +228,14 @@ class GPT2(nn.Module):
         """Resolved use_flash_attention ("auto": on for a CUDA model)."""
         return resolve_flash(self.config.use_flash_attention, self.device)
 
+    @property
+    def flash_qmajor(self):
+        """Whether the flash backward is the query-major kernel: resolved
+        ``flash_bwd_qmajor`` ("auto": False, the JAX choice on a winner-cache
+        miss) on the ``flash_qkv_t`` layout, as gpt2.py:591-596 passes it."""
+        return (resolve_bwd_qmajor(self.config.flash_bwd_qmajor)
+                and self.config.flash_qkv_t)
+
     # --------------------------------------------------------------- pieces
     def embed(self, ids):
         """Token + position embedding (B, T) -> (B, T, D)."""
@@ -273,11 +280,17 @@ class GPT2(nn.Module):
         """Attention dispatch: (B, T, H, hd) x3 -> (B, T, H, hd)."""
         cfg = self.config
         if self.flash_on:
-            return flash_attention(
-                q, k, v, causal=True,
-                scale=None if cfg.scale_attn else 1.0,
-                block_q=cfg.flash_block_q, block_k=cfg.flash_block_k,
-                block_h=cfg.flash_block_h).to(self.dtype)
+            kw = dict(causal=True, scale=None if cfg.scale_attn else 1.0,
+                      block_q=cfg.flash_block_q, block_k=cfg.flash_block_k,
+                      block_h=cfg.flash_block_h,
+                      bwd_qmajor=cfg.flash_bwd_qmajor)
+            if cfg.flash_qkv_t:
+                # (B, H, hd, T) views, as the JAX model feeds the kernel;
+                # o comes back (B, H, T, hd)
+                q, k, v = (t.permute(0, 2, 3, 1) for t in (q, k, v))
+                o = flash_attention(q, k, v, qkv_t=True, **kw)
+                return o.transpose(1, 2).to(self.dtype)
+            return flash_attention(q, k, v, **kw).to(self.dtype)
         T = q.shape[1]
         s = torch.einsum("bthd,bshd->bhts", q.float(), k.float())
         if cfg.scale_attn:
@@ -402,8 +415,9 @@ class GPT2(nn.Module):
 class _SaveFlashBlock(torch.autograd.Function):
     """One block under the save_flash policy: keeps the block input, the
     post-attention residual ``mid`` and the flash o/lse; backward recomputes
-    ln1 + qkv and ln2 + MLP and runs the fused flash backward on the saved
-    o/lse — the flash forward never runs again. Returns (out, aux) as
+    ln1 + qkv and ln2 + MLP and runs the fused flash backward (query-major
+    when ``model.flash_qmajor``) on the saved o/lse — the flash forward
+    never runs again. Returns (out, aux) as
     ``_block`` does; an MoE MLP's recomputed routing is deterministic, so it
     equals the forward's."""
 
@@ -446,7 +460,9 @@ class _SaveFlashBlock(torch.autograd.Function):
             pre = [p.detach().requires_grad_() for p in layer[_PRE]]
             q, k, v = (t.transpose(1, 2) for t in model._qkv(x_, *pre))
             qs = scale_q(q, scale)
-            dqs, dk, dv = flash_backward(
+            bwd = (flash_backward_qmajor if model.flash_qmajor
+                   else flash_backward)
+            dqs, dk, dv = bwd(
                 qs.detach(), k.detach(), v.detach(), o.transpose(1, 2), lse,
                 d_o.transpose(1, 2), causal=True)
             d_x, *d_pre = torch.autograd.grad([qs, k, v], [x_] + pre,

@@ -1,7 +1,9 @@
-from .builder import (CUDAOpBuilder, FlashAttentionBuilder, FusedCEBuilder,
+from .builder import (BlockSparseAttentionBuilder, CUDAOpBuilder,
+                      FlashAttentionBuilder, FusedCEBuilder,
                       GroupedMatmulBuilder, LayerNormBuilder,
                       MlpMatmulBuilder, PagedAttentionBuilder, build_all)
 
-__all__ = ["CUDAOpBuilder", "FlashAttentionBuilder", "FusedCEBuilder",
-           "GroupedMatmulBuilder", "LayerNormBuilder", "MlpMatmulBuilder",
-           "PagedAttentionBuilder", "build_all"]
+__all__ = ["BlockSparseAttentionBuilder", "CUDAOpBuilder",
+           "FlashAttentionBuilder", "FusedCEBuilder", "GroupedMatmulBuilder",
+           "LayerNormBuilder", "MlpMatmulBuilder", "PagedAttentionBuilder",
+           "build_all"]

@@ -119,6 +119,13 @@ class PagedAttentionBuilder(CUDAOpBuilder):
 class FlashAttentionBuilder(CUDAOpBuilder):
     NAME = "flash_attention"
     SOURCES = ("flash_attention.cu",)
+    DEPENDS = ("attention_tiles.cuh",)
+
+
+class BlockSparseAttentionBuilder(CUDAOpBuilder):
+    NAME = "block_sparse_attention"
+    SOURCES = ("block_sparse_attention.cu",)
+    DEPENDS = ("attention_tiles.cuh",)
 
 
 class FusedCEBuilder(CUDAOpBuilder):

@@ -2,22 +2,29 @@
 their plain versions.
 
 Counterpart of ``deepspeed_tpu/ops/pallas/flash_attention.py`` (K1 forward,
-K2 fused backward); the kernels are ``csrc/flash_attention.cu`` (design and
-bounds are noted there). Same public signatures and layouts as the JAX
-functions: q, k, v (B, T, H, d), or (B, H, T, d) with ``heads_major``, or
-(B, H, d, T) with ``qkv_t``; o comes back in the input layout and lse is
-(B, H, T) fp32. The softmax scale is folded into q outside the kernel in
+K2 fused backward, K2's query-major variant); the kernels are
+``csrc/flash_attention.cu`` (design and bounds are noted there). Same
+public signatures and layouts as the JAX functions: q, k, v (B, T, H, d),
+or (B, H, T, d) with ``heads_major``, or (B, H, d, T) with ``qkv_t``; o
+comes back in the input layout and lse is (B, H, T) fp32. The softmax scale is folded into q outside the kernel in
 q's dtype, as the JAX wrapper does, so autograd chains dq through it.
 
 Dispatch is by the tensor's device only: a CPU tensor takes the plain
-PyTorch version (``flash_forward_reference`` / ``flash_backward_reference``);
-a CUDA tensor launches the kernel or raises — there is no fallback.
-``LAUNCHES`` counts kernel launches: ``flash_fwd`` one per forward,
-``flash_bwd`` one per backward call (its three kernels: delta, dk/dv, dq).
+PyTorch version (``flash_forward_reference`` / ``flash_backward_reference``
+/ ``flash_bwd_qmajor_reference``); a CUDA tensor launches the kernel or
+raises — there is no fallback. ``LAUNCHES`` counts kernel launches:
+``flash_fwd`` one per forward, ``flash_bwd`` one per k-major backward call
+(its three kernels: delta, dk/dv, dq), ``flash_bwd_qmajor`` one per
+query-major backward (one kernel).
 
-The TPU tile knobs (block_q/k/h and their _bwd twins) are accepted and
-change nothing. Additive ``bias`` and ``alibi`` operands, ``bias_grad`` and
-the query-major backward raise, naming their ROADMAP items.
+``bwd_qmajor`` picks the query-major backward under the JAX rule
+(flash_attention.py:1578): ``qkv_t`` layouts with no bias or ALiBi only,
+every other call k-major; "auto" resolves to False, the JAX choice on a
+winner-cache miss (``TUNE_DEFAULTS["bwd_qmajor"]``,
+flash_attention.py:46-47; the port has no winner cache). The TPU tile
+knobs (block_q/k/h and their _bwd twins) are accepted and change
+nothing. Additive ``bias`` and ``alibi`` operands and ``bias_grad``
+raise, naming their ROADMAP item.
 """
 
 import ctypes
@@ -27,12 +34,12 @@ import torch
 
 NEG_INF = -1e30
 
-LAUNCHES = {"flash_fwd": 0, "flash_bwd": 0}
+LAUNCHES = {"flash_fwd": 0, "flash_bwd": 0, "flash_bwd_qmajor": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
 _TODO_BIAS = "(ROADMAP Queue 2, K1/K2: bias and ALiBi operands)"
-_TODO_QMAJOR = "(ROADMAP Queue 2, K2-qmajor)"
+_QMAJOR_TILE = 64      # the kernel's query tile; the plain version walks it
 
 
 def reset_launch_counts():
@@ -49,7 +56,7 @@ class _FlashArgs(ctypes.Structure):
     """Mirror of ``struct FlashArgs`` in csrc/flash_attention.cu."""
     _fields_ = ([(n, ctypes.c_void_p) for n in
                  ("q", "k", "v", "o", "lse", "dout", "delta", "dlse", "dq",
-                  "dk", "dv")]
+                  "dk", "dv", "acc")]
                 + [(n, _Strides) for n in
                    ("sq", "sk", "sv", "so", "sdo", "sdq", "sdk", "sdv")]
                 + [(n, ctypes.c_int) for n in
@@ -67,7 +74,8 @@ def kernel_builder():
         from ...op_builder.builder import FlashAttentionBuilder
         b = FlashAttentionBuilder()
         lib = b.load()
-        for fn in (lib.flash_fwd_launch, lib.flash_bwd_launch):
+        for fn in (lib.flash_fwd_launch, lib.flash_bwd_launch,
+                   lib.flash_bwd_qmajor_launch):
             fn.argtypes = [ctypes.POINTER(_FlashArgs), ctypes.c_int,
                            ctypes.c_void_p]
             fn.restype = ctypes.c_int
@@ -123,6 +131,55 @@ def flash_backward_reference(q, k, v, o, lse, do, *, causal=True, window=0,
     dk = torch.matmul(ds.transpose(-1, -2), q.float())
     dq = torch.matmul(ds, k.float())
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_bwd_qmajor_reference(q, k, v, o, lse, do, *, causal=True,
+                               window=0, dlse=None):
+    """Plain version of the query-major backward on (B, H, T, d) operands
+    (scale already in q), walked as the kernel walks: per 64-query tile,
+    delta = rowsum(do*o) (- dlse) once, then per 64-key tile between the
+    forward's causal / window / padding bounds, in order, p = exp(s - lse)
+    (0 where masked), dv += round(p)^T do, dp = do v^T, ds = p (dp -
+    delta), dk += round(ds)^T q, dq += round(ds) k, all in fp32; dq is cast
+    once per query tile, dk/dv once at the end, to the inputs' dtypes."""
+    B, H, T, d = q.shape
+    bt = _QMAJOR_TILE
+    qf, kf, vf, of, dof = (x.float() for x in (q, k, v, o, do))
+    dk = torch.zeros(B, H, T, d, dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    dq = torch.empty_like(q)
+    pos = torch.arange(T, device=q.device)
+    for q0 in range(0, T, bt):
+        q1 = min(T, q0 + bt)
+        rows = slice(q0, q1)
+        delta = (dof[:, :, rows] * of[:, :, rows]).sum(-1)
+        if dlse is not None:
+            delta = delta - dlse[:, :, rows].float()
+        lse_t = lse[:, :, rows, None].float()
+        k_hi = min(T, q0 + bt) if causal else T
+        k_lo = max(0, q0 - window + 1) if window else 0
+        acc = torch.zeros(B, H, q1 - q0, d, dtype=torch.float32,
+                          device=q.device)
+        for k0 in range(k_lo // bt * bt, k_hi, bt):
+            keys = slice(k0, min(T, k0 + bt))
+            i, j = pos[rows, None], pos[None, keys]
+            ok = torch.ones_like(i >= j)
+            if causal:
+                ok = ok & (j <= i)
+            if window:
+                ok = ok & (i - j < window)
+            s = torch.matmul(qf[:, :, rows],
+                             kf[:, :, keys].transpose(-1, -2))
+            p = torch.where(ok, torch.exp(s - lse_t), 0.0)
+            dv[:, :, keys] += torch.matmul(
+                p.to(do.dtype).float().transpose(-1, -2), dof[:, :, rows])
+            dp = torch.matmul(dof[:, :, rows],
+                              vf[:, :, keys].transpose(-1, -2))
+            ds = (p * (dp - delta[..., None])).to(q.dtype).float()
+            dk[:, :, keys] += torch.matmul(ds.transpose(-1, -2), qf[:, :, rows])
+            acc += torch.matmul(ds, kf[:, :, keys])
+        dq[:, :, rows] = acc.to(q.dtype)
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
 
 
 def attention_reference(q, k, v, *, causal=True, scale=None, bias=None):
@@ -244,15 +301,53 @@ def flash_backward(q, k, v, o, lse, do, *, causal=True, window=0,
     return dq, dk, dv
 
 
+def flash_backward_qmajor(q, k, v, o, lse, do, *, causal=True, window=0,
+                          dlse=None):
+    """Query-major fused backward on (B, H, T, d) operands (scale already
+    in q): the same (dq, dk, dv) as :func:`flash_backward`, from one kernel
+    that forms S and dP once per tile pair, writes dq once and carries
+    dk/dv in an fp32 scratch of (B*H, 2, Tp, d) (Tp = T rounded up to 64).
+    CPU tensors take the plain version; CUDA tensors launch the kernel or
+    raise."""
+    if q.device.type == "cpu":
+        return flash_bwd_qmajor_reference(q, k, v, o, lse, do, causal=causal,
+                                          window=window, dlse=dlse)
+    name = "flash_backward_qmajor"
+    lib = kernel_builder().load()
+    _check_cuda((q, k, v, o, do), name)
+    q, k, v, o, do = (_kernel_view(x) for x in (q, k, v, o, do))
+    B, H, T, D = q.shape
+    lse = lse.float().contiguous()
+    dlse = None if dlse is None else dlse.float().contiguous()
+    tp = -(-T // _QMAJOR_TILE) * _QMAJOR_TILE
+    acc = torch.empty(B * H, 2, tp, D, dtype=torch.float32, device=q.device)
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    a = _args(B, H, T, D, causal, window, q=q, k=k, v=v, o=o, lse=lse,
+              dout=do, dlse=dlse, dq=dq, dk=dk, dv=dv, acc=acc)
+    rc = lib.flash_bwd_qmajor_launch(
+        ctypes.byref(a), _DTYPE_CODE[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(rc, name)
+    LAUNCHES["flash_bwd_qmajor"] += 1
+    return dq, dk, dv
+
+
+def resolve_bwd_qmajor(value):
+    """A ``bwd_qmajor`` / ``flash_bwd_qmajor`` value: "auto" -> False (see
+    the module docstring); otherwise its truth value."""
+    return value != "auto" and bool(value)
+
+
 class _Flash(torch.autograd.Function):
     """(q scaled, k, v) (B, H, T, d) -> (o, lse); saves q, k, v, o and lse
-    and runs the fused backward kernel on them."""
+    and runs the fused backward kernel on them: the query-major one when
+    ``qmajor``, else the k-major one."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
+    def forward(ctx, q, k, v, causal, window, qmajor):
         o, lse = flash_forward(q, k, v, causal=causal, window=window)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.window = causal, window
+        ctx.causal, ctx.window, ctx.qmajor = causal, window, qmajor
         ctx.set_materialize_grads(False)
         return o, lse
 
@@ -261,15 +356,18 @@ class _Flash(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         if do is None:
             do = torch.zeros_like(o)
-        dq, dk, dv = flash_backward(q, k, v, o, lse, do, causal=ctx.causal,
-                                    window=ctx.window, dlse=dlse)
-        return dq, dk, dv, None, None
+        bwd = flash_backward_qmajor if ctx.qmajor else flash_backward
+        dq, dk, dv = bwd(q, k, v, o, lse, do, causal=ctx.causal,
+                         window=ctx.window, dlse=dlse)
+        return dq, dk, dv, None, None, None
 
 
 def scale_q(q, scale):
     """q * scale with the scale rounded to q's dtype first, as the JAX
-    wrapper's ``q * jnp.asarray(scale, q.dtype)``."""
-    return q * torch.tensor(scale, dtype=q.dtype, device=q.device)
+    wrapper's ``q * jnp.asarray(scale, q.dtype)``. The rounded scale goes
+    in as a Python number: no tensor is copied to the card, so the call
+    makes no host sync."""
+    return q * torch.tensor(scale, dtype=q.dtype).item()
 
 
 def _to_bhtd(x, heads_major, qkv_t):
@@ -290,15 +388,12 @@ def flash_attention_with_lse(q, k, v, *, causal=True, scale=None,
     delta). Layouts as the JAX function: (B, T, H, d) by default, (B, H, T,
     d) with ``heads_major``, (B, H, d, T) with ``qkv_t`` (o then comes back
     (B, H, T, d), as in JAX). ``window`` > 0 is causal sliding-window
-    attention."""
+    attention. ``bwd_qmajor``: the query-major backward, for ``qkv_t``
+    only (see the module docstring)."""
     if bias is not None or bias_grad or alibi is not None:
         raise NotImplementedError(
             f"flash_attention: additive bias / ALiBi operands are not "
             f"ported yet {_TODO_BIAS}")
-    if bwd_qmajor:
-        raise NotImplementedError(
-            f"flash_attention: the query-major backward is not ported yet "
-            f"{_TODO_QMAJOR}")
     if window and not causal:
         raise ValueError("sliding window requires causal attention")
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
@@ -308,8 +403,11 @@ def flash_attention_with_lse(q, k, v, *, causal=True, scale=None,
     qb, kb, vb = (_to_bhtd(x, heads_major, qkv_t) for x in (q, k, v))
     if scale is None:
         scale = 1.0 / math.sqrt(qb.shape[-1])
+    # the query-major backward serves qkv_t only (bias and ALiBi raise
+    # above), flash_attention.py:1578
+    qmajor = resolve_bwd_qmajor(bwd_qmajor) and bool(qkv_t)
     o, lse = _Flash.apply(scale_q(qb, scale), kb, vb, bool(causal),
-                          int(window))
+                          int(window), qmajor)
     if qkv_t or heads_major:
         return o, lse
     return o.transpose(1, 2), lse

@@ -1,7 +1,9 @@
 """The Hopper kernels on the card (paged attention, flash attention forward
 and backward, fused CE, the MoE grouped matmuls and their backward, the
 weight-only int8/int4 products K7 and K9, the LayerNorm forward and
-backward K13, the layout-owning projection and its dW K6), held
+backward K13, the layout-owning projection and its dW K6, the
+query-major flash backward and the block-sparse forward, dq and dk/dv
+K11), held
 against their plain PyTorch versions at
 small shapes (bf16 against the plain version in fp32
 on the same inputs, chip_smoke.bf16_mismatch; fp32 at 1e-4).
@@ -15,6 +17,7 @@ import pytest
 import torch
 
 import chip_smoke
+from deepspeed_tpu_torch.ops.cuda import block_sparse_attention as bsa
 from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
 from deepspeed_tpu_torch.ops.cuda import fused_ce as fce
 from deepspeed_tpu_torch.ops import int8_weights as iw
@@ -22,6 +25,8 @@ from deepspeed_tpu_torch.ops.cuda import grouped_matmul as gm
 from deepspeed_tpu_torch.ops.cuda import layernorm as ln
 from deepspeed_tpu_torch.ops.cuda import mlp_matmul as mm
 from deepspeed_tpu_torch.ops.cuda import paged_attention as pa
+from deepspeed_tpu_torch.ops.sparse_attention import (
+    BigBirdSparsityConfig, FixedSparsityConfig, SparseSelfAttention)
 
 pytestmark = pytest.mark.cuda
 
@@ -534,3 +539,165 @@ def test_mlp_matmul_never_takes_the_plain_path(monkeypatch):
     assert float(y[0, 0, 0]) == 32.0 and float(w.grad[0, 0]) == 8.0
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         mm.mlp_matmul(x.detach().half(), w.detach().half())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,T,d,causal,window,dlse",
+                         [(2, 3, 64, 64, True, 0, False),
+                          (1, 2, 200, 32, True, 0, True),
+                          (2, 2, 130, 128, False, 0, False),
+                          (1, 4, 256, 64, True, 70, True)])
+def test_flash_bwd_qmajor_kernel(dtype, B, H, T, d, causal, window, dlse):
+    rs = np.random.RandomState(5)
+    q, k, v, do = (_rand(rs, (B, T, H, d), dtype).transpose(1, 2)
+                   for _ in range(4))
+    q = q * 0.3
+    o, lse = fa.flash_forward(q, k, v, causal=causal, window=window)
+    dl = (torch.from_numpy(rs.standard_normal((B, H, T))).float().cuda()
+          if dlse else None)
+    n0 = dict(fa.LAUNCHES)
+    got = fa.flash_backward_qmajor(q, k, v, o, lse, do, causal=causal,
+                                   window=window, dlse=dl)
+    again = fa.flash_backward_qmajor(q, k, v, o, lse, do, causal=causal,
+                                     window=window, dlse=dl)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_bwd_qmajor"] == n0["flash_bwd_qmajor"] + 2
+    assert fa.LAUNCHES["flash_bwd"] == n0["flash_bwd"]
+    kmajor = fa.flash_backward(q, k, v, o, lse, do, causal=causal,
+                               window=window, dlse=dl)
+    refs = fa.flash_bwd_qmajor_reference(
+        *(x.float() for x in (q, k, v, o)), lse, do.float(), causal=causal,
+        window=window, dlse=dl)
+    for name, g, a, km, ref in zip(("dq", "dk", "dv"), got, again, kmajor,
+                                   refs):
+        assert torch.equal(g, a), f"{name} not bitwise repeatable"
+        # the same tile products, accumulated in the same order
+        assert torch.equal(g, km), f"{name} differs from the k-major K2"
+        if dtype == torch.bfloat16:
+            assert chip_smoke.bf16_grad_mismatch(g, ref) is None, name
+        else:
+            torch.testing.assert_close(g, ref, rtol=1e-4, atol=1e-4)
+
+
+def _bsa_case(rs, cfg, causal, B, T, dtype):
+    H, d = cfg.num_heads, 32
+    q, k, v, do = (_rand(rs, (B * H, T, d), dtype) for _ in range(4))
+    q = q * 0.3
+    n = T // cfg.block
+    lists = bsa.lists_on(bsa.layout_lists(cfg.make_layout(T), causal, n, n),
+                         "cuda")
+    return q, k, v, do, lists
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("block", [16, 32, 64, 128])
+@pytest.mark.parametrize("kind,causal", [("fixed", True), ("fixed", False),
+                                         ("bigbird", False)])
+def test_block_sparse_kernels(dtype, block, kind, causal):
+    rs = np.random.RandomState(6)
+    T = 8 * block
+    cfg = (FixedSparsityConfig(num_heads=2, block=block,
+                               different_layout_per_head=True,
+                               attention="unidirectional" if causal
+                               else "bidirectional")
+           if kind == "fixed" else
+           BigBirdSparsityConfig(num_heads=2, block=block))
+    q, k, v, do, lists = _bsa_case(rs, cfg, causal, 2, T, dtype)
+    n0 = dict(bsa.LAUNCHES)
+    o, lse = bsa.bsa_forward(q, k, v, lists, block, causal)
+    grads = bsa.bsa_backward(q, k, v, o, lse, do, lists, block, causal)
+    o2, _ = bsa.bsa_forward(q, k, v, lists, block, causal)
+    grads2 = bsa.bsa_backward(q, k, v, o, lse, do, lists, block, causal)
+    torch.cuda.synchronize()
+    assert {n: bsa.LAUNCHES[n] - n0[n] for n in n0} == {
+        "bsa_fwd": 2, "bsa_dq": 2, "bsa_dkv": 2}
+    assert torch.equal(o, o2)
+    f32 = [x.float() for x in (q, k, v)]
+    ro, rlse = bsa.bsa_forward_reference(*f32, lists, block, causal)
+    _assert_close(o, ro, dtype)
+    torch.testing.assert_close(lse, rlse, rtol=1e-4, atol=1e-3)
+    refs = bsa.bsa_backward_reference(*f32, o.float(), lse, do.float(),
+                                      lists, block, causal)
+    for name, g, a, ref in zip(("dq", "dk", "dv"), grads, grads2, refs):
+        assert torch.equal(g, a), f"{name} not bitwise repeatable"
+        if dtype == torch.bfloat16:
+            assert chip_smoke.bf16_grad_mismatch(g[:, None], ref[:, None]) \
+                is None, name
+        else:
+            torch.testing.assert_close(g, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_sparse_fully_masked_rows_zero(dtype):
+    rs = np.random.RandomState(7)
+    B, T, H, d = 2, 64, 4, 32
+    q, k, v = (_rand(rs, (B, T, H, d), dtype) for _ in range(3))
+    layout = np.zeros((H, 2, 2), bool)
+    layout[:, 1, :] = True              # rows in block 0 fully masked
+    qs, ks, vs = (x.requires_grad_() for x in (q, k, v))
+    out = bsa.block_sparse_attention(qs, ks, vs, layout, 32)
+    out.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert torch.count_nonzero(out[:, :32]) == 0
+    assert float(out[:, 32:].detach().abs().max()) > 0
+    assert torch.count_nonzero(qs.grad[:, :32]) == 0
+
+
+def test_sparse_self_attention_kernel_matches_masked_dense():
+    """fp32 on the card: the kernels give the masked-dense op's output and
+    gradients."""
+    rs = np.random.RandomState(8)
+    q, k, v = (_rand(rs, (2, 256, 4, 32), torch.float32).requires_grad_()
+               for _ in range(3))
+    cfg = BigBirdSparsityConfig(num_heads=4, block=32)
+    outs = []
+    for use_kernel in (True, False):
+        op = SparseSelfAttention(cfg, causal=True, use_kernel=use_kernel)
+        o = op(q, k, v)
+        outs.append((o,) + torch.autograd.grad(o.square().sum(), (q, k, v)))
+    for a, b in zip(*outs):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def test_sparse_self_attention_call_makes_no_host_sync():
+    """With its lists cached (under "cuda", which the call finds as
+    q.device), a forward + backward call of the op runs under
+    torch.cuda.set_sync_debug_mode("error")."""
+    rs = np.random.RandomState(9)
+    q, k, v, do = (_rand(rs, (2, 512, 4, 64), torch.bfloat16)
+                   for _ in range(4))
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    op = SparseSelfAttention(FixedSparsityConfig(num_heads=4, block=64),
+                             causal=True)
+    op.lists(512, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        o = op(q, k, v)
+        torch.autograd.grad(o, (q, k, v), do)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def test_new_attention_kernels_never_take_the_plain_path(monkeypatch):
+    def plain(*a, **k):
+        raise AssertionError("a CUDA tensor took a plain version")
+
+    for mod, names in ((fa, ("flash_bwd_qmajor_reference",
+                             "flash_backward_reference")),
+                       (bsa, ("bsa_forward_reference", "bsa_dq_reference",
+                              "bsa_dkv_reference"))):
+        for name in names:
+            monkeypatch.setattr(mod, name, plain)
+    q = torch.ones(1, 64, 2, 32, device="cuda").requires_grad_()
+    o = fa.flash_attention(q.permute(0, 2, 3, 1), q.permute(0, 2, 3, 1),
+                           q.permute(0, 2, 3, 1), qkv_t=True,
+                           bwd_qmajor=True)
+    o.sum().backward()
+    lay = np.ones((2, 2, 2), bool)
+    o = bsa.block_sparse_attention(q, q, q, lay, 32, causal=True)
+    o.sum().backward()
+    torch.cuda.synchronize()
+    with pytest.raises(ValueError, match="block"):
+        bsa.block_sparse_attention(q, q, q, np.ones((2, 8, 8), bool), 8)

@@ -8,6 +8,8 @@ fp32 tolerance, test_pallas_ops.py); gradients at rtol=atol=1e-4 (fp32
 sums over T keys taken in another order and through the softmax twice,
 tighter than the 1e-3 the JAX bf16 tests use)."""
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -116,11 +118,27 @@ def test_unported_operands_raise_and_cpu_launches_nothing():
         tfa.flash_attention(q, q, q, bias=torch.zeros(1, 1, 8, 8))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tfa.flash_attention(q, q, q, alibi=[0.5, 0.25])
-    with pytest.raises(NotImplementedError, match="K2-qmajor"):
-        tfa.flash_attention(q, q, q, bwd_qmajor=True)
     with pytest.raises(ValueError, match="causal"):
         tfa.flash_attention(q, q, q, causal=False, window=4)
     tfa.reset_launch_counts()
     o = tfa.flash_attention(q, q, q, block_q=999, block_h=7)   # knobs: no-op
     assert o.shape == q.shape
-    assert tfa.LAUNCHES == {"flash_fwd": 0, "flash_bwd": 0}
+    assert tfa.LAUNCHES == {"flash_fwd": 0, "flash_bwd": 0,
+                            "flash_bwd_qmajor": 0}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("scale", [0.125, 1 / 3, 1 / math.sqrt(80)])
+def test_scale_q_rounds_the_scale_like_jax(dtype, scale):
+    """scale_q is bitwise the JAX wrapper's q * jnp.asarray(scale,
+    q.dtype), and bitwise a product with the scale as a 0-dim tensor of
+    q's dtype."""
+    x = np.random.RandomState(5).randn(4, 33).astype(np.float32)
+    q = torch.from_numpy(x).to(getattr(torch, dtype))
+    got = tfa.scale_q(q, scale)
+    assert got.dtype == q.dtype
+    assert torch.equal(got, q * torch.tensor(scale, dtype=q.dtype))
+    jq = jnp.asarray(x, getattr(jnp, dtype))
+    want = np.asarray((jq * jnp.asarray(scale, jq.dtype)).astype(
+        jnp.float32))
+    np.testing.assert_array_equal(got.float().numpy(), want)

@@ -109,6 +109,19 @@ trainer, *_ = initialize(model=GPT2MoE(mcfg, device="cpu"), device="cpu",
                              "moe": {"grouped_kernel": True}})
 losses = [float(trainer.train_batch({"input_ids": ids})) for _ in range(2)]
 assert losses[1] < losses[0], losses
+qcfg = GPT2Config(**{**gcfg.__dict__, "flash_bwd_qmajor": True})
+trainer, *_ = initialize(model=GPT2(qcfg, device="cpu"), device="cpu",
+                         config={"train_batch_size": 2, "optimizer": {
+                             "type": "AdamW", "params": {"lr": 1e-3}}})
+losses = [float(trainer.train_batch({"input_ids": ids})) for _ in range(2)]
+assert losses[1] < losses[0], losses
+from deepspeed_tpu_torch.ops.sparse_attention import (
+    BigBirdSparsityConfig, SparseSelfAttention)
+op = SparseSelfAttention(BigBirdSparsityConfig(num_heads=2, block=16))
+q = torch.randn(1, 64, 2, 32, requires_grad=True)
+out = op(q, q, q)
+out.square().sum().backward()
+assert out.shape == q.shape and torch.isfinite(q.grad).all()
 assert not any(n.split(".")[0] in ROOTS for n in sys.modules)
 print("ISOLATED_OK")
 """
@@ -192,6 +205,41 @@ def test_training_kernels_off_the_cpu_take_the_kernel(monkeypatch,
     assert os.listdir(tmp_path) == []
 
 
+def test_attention_kernels_off_the_cpu_take_the_kernel(monkeypatch,
+                                                      tmp_path):
+    """A tensor off the CPU goes to the query-major flash backward and the
+    K11 block-sparse kernels and never to their plain versions: here, with
+    no nvcc, each build raises."""
+    from deepspeed_tpu_torch.ops.cuda import block_sparse_attention as bsa
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+    monkeypatch.setattr(builder, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(builder, "find_nvcc", lambda: None)
+    monkeypatch.setattr(fa, "_builder", None)
+    monkeypatch.setattr(bsa, "_builder", None)
+
+    def plain(*a, **k):
+        raise AssertionError("a tensor off the CPU took a plain version")
+
+    for mod, names in ((fa, ("flash_bwd_qmajor_reference",
+                             "flash_backward_reference")),
+                       (bsa, ("bsa_forward_reference", "bsa_dq_reference",
+                              "bsa_dkv_reference"))):
+        for name in names:
+            monkeypatch.setattr(mod, name, plain)
+    x = torch.ones(2, 4, 64, 32, device="meta")
+    lse = torch.ones(2, 4, 64, device="meta")
+    f = torch.ones(8, 64, 32, device="meta")
+    lists = bsa.lists_on(bsa.layout_lists(torch.ones(4, 4, 4).bool().numpy(),
+                                          True, 4, 4), "meta")
+    for call in (lambda: fa.flash_backward_qmajor(x, x, x, x, lse, x),
+                 lambda: bsa.bsa_forward(f, f, f, lists, 16, True),
+                 lambda: bsa.bsa_backward(f, f, f, f, lse.view(8, 64), f,
+                                          lists, 16, True)):
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            call()
+    assert os.listdir(tmp_path) == []
+
+
 def test_no_silent_cpu_fallback(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = dataclasses.replace(LLAMA_TINY, dtype="float32")
@@ -254,7 +302,8 @@ class TestOpBuilder:
         (builder.FusedCEBuilder, "fused_ce"),
         (builder.GroupedMatmulBuilder, "grouped_matmul"),
         (builder.MlpMatmulBuilder, "mlp_matmul"),
-        (builder.LayerNormBuilder, "layernorm")])
+        (builder.LayerNormBuilder, "layernorm"),
+        (builder.BlockSparseAttentionBuilder, "block_sparse_attention")])
     def test_training_builders(self, cls, name):
         b = cls()
         assert b.so_path() == os.path.join(
