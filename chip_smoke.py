@@ -119,6 +119,38 @@ Phases (any failure raises and the script exits nonzero):
      B=4, T=8192, 10 forward + backward calls each, no host sync in a
      call, one launch of each K11 kernel a call, ms a call and peak
      memory.
+ 25. K10 (``flash_block_fwd``, the ring's chunk-pair step with carried
+     online-softmax state): fp32 cases at 1e-4; bf16 at (B*H, C, d) =
+     (64, 2048, 64), diagonal-causal and full, from a carried state, against
+     its plain version in fp32; a control (the carry's m perturbed) that
+     must fail; the zigzag schedule of R = 4 emulated in one process with
+     the ring's step functions on one (B=4, T=8192, H=16, d=64) problem,
+     against K1 on the whole sequence and the dense plain version;
+     ``flash_block_bwd`` (K2 from the global o / lse) against the plain
+     backward; timed beside its bound, plain version and SDPA's forward.
+ 26. K12 (blockwise int8 quantize / dequantize) on a buffer of GPT-2 350M's
+     parameter count in fp32 and bf16: codes, scales and dequantized values
+     bitwise equal to the plain versions (and the reduce-scatter's summing
+     dequantize); a control (scales by IEEE division, the eager jnp form)
+     that the bitwise check must catch; timed beside bound, plain version
+     and the shortest torch expression of the same math.
+ 27. NCCL world of one on cuda:0: every comm op, the four quantized
+     collectives (K12) equal to their plain versions bitwise, ring_attention
+     at R = 1 (one K10 a call), and initialize(sequence_parallel_size=1,
+     attention_backend="ring") taking K1 with no K10, as JAX.
+ 28. two processes sharing cuda:0 over gloo (named by the caller; NCCL
+     refuses two ranks on one card): GPT-2 at the 350M widths, 2 layers,
+     fp32, seq = 2, ring and Ulysses, loss and every gradient against the
+     same model at seq = 1 (2e-5, relative error norm 1e-4);
+     quantized_all_gather / quantized_reduce_scatter at world 2 bitwise
+     equal to their plain versions.
+ 29. the slice: GPT-2 350M (24 layers, T=4096, micro 4, ring,
+     sequence_parallel_size=2, ZeRO-2, bf16) through initialize ->
+     train_batch for 10 steps in two processes on cuda:0 over gloo; the
+     loss falls and agrees on both ranks; exactly 6 K10 and 3 K2 a layer
+     and step on each rank (3 pairs forward, 3 in the remat re-run, 3
+     backward pairs); step time, tokens/s, each process's peak memory, and
+     what went through host memory.
 Then one JSON line of per-kernel numbers (launches summed over the main
 paths that ran each kernel, and per path), and last the result line
 {"ok": true, "device": {...}}. Without a CUDA device it exits 2 and prints
@@ -191,6 +223,9 @@ SOURCES = {
     "bsa_fwd": "deepspeed_tpu_torch/csrc/block_sparse_attention.cu",
     "bsa_dq": "deepspeed_tpu_torch/csrc/block_sparse_attention.cu",
     "bsa_dkv": "deepspeed_tpu_torch/csrc/block_sparse_attention.cu",
+    "flash_block_fwd": "deepspeed_tpu_torch/csrc/flash_attention.cu",
+    "quantize_blockwise": "deepspeed_tpu_torch/csrc/quantization.cu",
+    "dequantize_blockwise": "deepspeed_tpu_torch/csrc/quantization.cu",
 }
 REPLACES = {
     "paged_decode": "deepspeed_tpu/ops/pallas/paged_attention.py:121",
@@ -212,6 +247,9 @@ REPLACES = {
     "bsa_fwd": "deepspeed_tpu/ops/pallas/block_sparse_attention.py:74",
     "bsa_dq": "deepspeed_tpu/ops/pallas/block_sparse_attention.py:117",
     "bsa_dkv": "deepspeed_tpu/ops/pallas/block_sparse_attention.py:150",
+    "flash_block_fwd": "deepspeed_tpu/ops/pallas/flash_attention.py:1033",
+    "quantize_blockwise": "deepspeed_tpu/ops/pallas/quantization.py:60",
+    "dequantize_blockwise": "deepspeed_tpu/ops/pallas/quantization.py:69",
 }
 
 
@@ -844,7 +882,7 @@ def phase_train_parity(seed=0):
         want = ({"flash_fwd": 2, "flash_bwd": 2, "fused_ce": 3}
                 if name == "on" else
                 {"flash_fwd": 0, "flash_bwd": 0, "fused_ce": 0})
-        want["flash_bwd_qmajor"] = 0
+        want.update(flash_bwd_qmajor=0, flash_block_fwd=0)
         assert launched == want, (name, launched)
         out[name] = (loss.item(), {n: p.grad for n, p in
                                    model.named_parameters()})
@@ -920,7 +958,7 @@ def phase_train_slice(seed=0, steps=10, profile=None, knobs=None,
     want = {"flash_fwd": L * steps,
             "flash_bwd": 0 if qmajor else L * steps,
             "flash_bwd_qmajor": L * steps if qmajor else 0,
-            "fused_ce": 2 * steps, "wq_matmul": 0,
+            "flash_block_fwd": 0, "fused_ce": 2 * steps, "wq_matmul": 0,
             **knob_launches(cfg, L, steps, chunks=2)}
     assert launches == want, (launches, want)
     assert all(math.isfinite(x) for x in losses), losses
@@ -1609,8 +1647,8 @@ def phase_moe_train_slice(seed=0, steps=10, profile=None):
     # per layer and step: 2 forward gmm, 2 re-run by save_flash's backward,
     # 2 dx gmm; 4 tgmm (wi, wo and their biases' per-expert row sums)
     want = {"flash_fwd": L * steps, "flash_bwd": L * steps,
-            "flash_bwd_qmajor": 0, "fused_ce": 2 * steps,
-            "grouped_swiglu_up": 0,
+            "flash_bwd_qmajor": 0, "flash_block_fwd": 0,
+            "fused_ce": 2 * steps, "grouped_swiglu_up": 0,
             "grouped_gmm": 6 * L * steps, "grouped_tgmm": 4 * L * steps,
             **NO_WQ}
     assert launches == want, (launches, want)
@@ -2903,7 +2941,8 @@ def phase_bsa_slice(kind, seed=0, calls=10):
         times.append(time.perf_counter() - t1)
     launches = {**bsa.LAUNCHES, **fa.LAUNCHES}
     want = {"bsa_fwd": calls, "bsa_dq": calls, "bsa_dkv": calls,
-            "flash_fwd": 0, "flash_bwd": 0, "flash_bwd_qmajor": 0}
+            "flash_fwd": 0, "flash_bwd": 0, "flash_bwd_qmajor": 0,
+            "flash_block_fwd": 0}
     assert launches == want, (launches, want)
     peak = torch.cuda.max_memory_allocated() / 1e9
     assert o.shape == q.shape and all(torch.isfinite(x).all()
@@ -2927,15 +2966,640 @@ def phase_bsa_slice(kind, seed=0, calls=10):
     return {k_: v_ for k_, v_ in launches.items() if k_.startswith("bsa")}
 
 
+# ------------------------------------------------- K10 ring step (phase 25)
+
+
+def ring_block_bound(BH, C, d, causal):
+    """(bytes, flops) of one K10 pair: q, k, v bf16 read once, the fp32
+    state (m, l, acc) read and written once; QK^T and PV over the pair's
+    live (q, k) entries."""
+    nbytes = 3 * BH * C * d * 2 + 2 * (2 * BH * C * 4 + BH * C * d * 4)
+    pairs = BH * (_causal_pairs(C) if causal else C * C)
+    return nbytes, 4 * d * pairs
+
+
+def dense_plain_in_chunks(fa, q, k, v, heads=8):
+    """The dense plain forward in fp32 over (BH, T, d) folded operands,
+    ``heads`` rows of BH at a time (the (T, T) scores of all 64 would not
+    fit)."""
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    for i in range(0, q.shape[0], heads):
+        sl = slice(i, i + heads)
+        out[sl] = fa.flash_forward_reference(
+            q[sl][None].float(), k[sl][None].float(),
+            v[sl][None].float())[0][0]
+    return out
+
+
+def phase_ring_kernel(fa, seed=0):
+    """K10 (``flash_block_fwd``): chained fp32 cases at FP32_TOL; bf16 at
+    the slice's step-0 shape (B*H, C, d) = (64, 2048, 64) in both modes from
+    a carried state, against its plain version in fp32 on the same inputs
+    (the finalized o by bf16_mismatch, lse at 1e-4); a control (the carry's
+    m perturbed) that must fail; the zigzag schedule of R = 4 emulated in
+    this process with the ring's step functions on one global (B=4, T=8192,
+    H=16, d=64) problem, against K1 on the whole sequence and the dense
+    plain version; ``flash_block_bwd`` (K2 from the global o / lse) against
+    the plain backward; timed beside its bound, plain version and SDPA's
+    forward on the same full pair."""
+    from deepspeed_tpu_torch.sequence import ring as ring_mod
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def randn(shape, dtype=bf, s=1.0):
+        return (torch.randn(shape, generator=g, device="cuda") * s).to(dtype)
+
+    def state(st):
+        return tuple(x.clone() for x in st)
+
+    # ---- fp32: two chained pairs (diagonal-causal, then full)
+    for (BH, C, d) in ((4, 200, 64), (3, 130, 32), (2, 64, 128)):
+        q = randn((BH, C, d), f32, 0.3)
+        st = fa.flash_block_state(BH, C, d, device="cuda")
+        ref = state(st)
+        for causal in (True, False):
+            k, v = randn((BH, C, d), f32), randn((BH, C, d), f32)
+            fa.flash_block_fwd(q, k, v, st, causal=causal)
+            ref = fa.flash_block_fwd_reference(q, k, v, ref, causal=causal)
+            for a, b in zip(st, ref):
+                torch.testing.assert_close(a, b, **FP32_TOL)
+    log("K10: fp32 cases ok (chained causal + full pairs, ragged C, "
+        "d = 32 / 64 / 128)")
+
+    # ---- bf16 at the step-0 shape, both modes, from a carried state
+    BH, C, d = 64, 2048, 64
+    q = fa.scale_q(randn((BH, C, d)), d ** -0.5)
+    k0, v0, k, v = (randn((BH, C, d)) for _ in range(4))
+    carry = fa.flash_block_fwd_reference(
+        q.float(), k0.float(), v0.float(),
+        fa.flash_block_state(BH, C, d, device="cuda"), causal=False)
+    err = 0.0
+    for causal in (True, False):
+        st = fa.flash_block_fwd(q, k, v, state(carry), causal=causal)
+        ref = fa.flash_block_fwd_reference(q.float(), k.float(), v.float(),
+                                           carry, causal=causal)
+        o, lse = fa.flash_block_finalize(st)
+        ro, rlse = fa.flash_block_finalize(ref)
+        why = bf16_mismatch(o.to(bf), ro)
+        assert why is None, f"flash_block_fwd causal={causal}: {why}"
+        torch.testing.assert_close(lse, rlse, rtol=0, atol=1e-4)
+        err = max(err, (o - ro).abs().max().item())
+    bad = state(carry)
+    bad[0][:, :64] += 2.0                    # one query tile's running max
+    co, _ = fa.flash_block_finalize(fa.flash_block_fwd_reference(
+        q.float(), k.float(), v.float(), bad, causal=False))
+    why = bf16_mismatch(co.to(bf), ro)
+    assert why is not None, "K10 check let a perturbed carry m pass"
+    log(f"control: K10 with the carry's m of query tile 0 raised by 2 "
+        f"fails ({why})")
+    log(f"K10 bf16 at (B*H, C, d) = ({BH}, {C}, {d}), causal and full from "
+        f"a carried state: max |err| of the finalized o {err:.3g}")
+
+    # ---- the zigzag schedule of R = 4 on one (4, 8192, 16, 64) problem
+    B, T, H, R = 4, 8192, 16, 4
+    Cz = T // (2 * R)
+    qg = fa.scale_q(randn((B * H, T, d)), d ** -0.5)
+    kg, vg = randn((B * H, T, d)), randn((B * H, T, d))
+
+    def local(x, r):                          # zigzag chunks r, 2R-1-r
+        return torch.cat([x[:, r * Cz:(r + 1) * Cz],
+                          x[:, (2 * R - 1 - r) * Cz:(2 * R - r) * Cz]], 1)
+
+    before = fa.LAUNCHES["flash_block_fwd"]
+    o_ring = torch.empty(B * H, T, d, dtype=f32, device="cuda")
+    for r in range(R):
+        qf = local(qg, r)
+        st = fa.flash_block_state(B * H, 2 * Cz, d, device="cuda")
+        st = ring_mod._step_kernel(qf, local(kg, r), local(vg, r), st, True)
+        for s in range(1, R):
+            src = (r - s) % R
+            kvb = torch.stack([local(kg, src), local(vg, src)])
+            st = ring_mod._zig_step(st, kvb, s, qf=qf, r=r, C=Cz,
+                                    step=ring_mod._step_kernel)
+        o_r, _ = fa.flash_block_finalize(st)
+        o_ring[:, r * Cz:(r + 1) * Cz] = o_r[:, :Cz]
+        o_ring[:, (2 * R - 1 - r) * Cz:(2 * R - r) * Cz] = o_r[:, Cz:]
+    pairs = fa.LAUNCHES["flash_block_fwd"] - before
+    assert pairs == R * (1 + 2 * (R - 1)), pairs
+    k1, _ = fa.flash_forward(qg[None], kg[None], vg[None])
+    dense = dense_plain_in_chunks(fa, qg, kg, vg)
+    for name, out in (("zigzag ring", o_ring.to(bf)), ("K1", k1[0])):
+        why = bf16_mismatch(out, dense)
+        assert why is None, f"{name} vs the dense plain version: {why}"
+    why = bf16_mismatch(o_ring.to(bf), k1[0].float())
+    assert why is None, f"zigzag ring vs K1: {why}"
+    zig_err = (o_ring - dense).abs().max().item()
+    log(f"zigzag R={R} emulated on (B, T, H, d) = ({B}, {T}, {H}, {d}): "
+        f"{pairs} K10 pairs ({R} causal + {2 * R * (R - 1)} full), equal "
+        f"to K1 on the whole sequence and to the dense plain version "
+        f"(max |err| {zig_err:.3g})")
+    del qg, kg, vg, o_ring, k1, dense
+
+    # ---- flash_block_bwd: K2 from the global o / lse, both modes
+    do = randn((BH, C, d))
+    gerr = 0.0
+    for causal in (True, False):
+        o, lse = fa.flash_block_finalize(fa.flash_block_fwd(
+            q, k, v, state(carry), causal=causal))
+        o = o.to(bf)
+        got = fa.flash_block_bwd(q, k, v, o, lse, do, causal=causal)
+        refs = fa.flash_backward_reference(
+            *(x.float()[None] for x in (q, k, v, o)), lse[None],
+            do.float()[None], causal=causal)
+        for name, a, b in zip(("dq", "dk", "dv"), got, refs):
+            why = bf16_grad_mismatch(a[None], b)
+            assert why is None, f"flash_block_bwd causal={causal} {name}: " \
+                f"{why}"
+            gerr = max(gerr, grad_rel_norm(a[None], b))
+    log(f"flash_block_bwd (K2 from the global o / lse) ok, causal and full: "
+        f"worst slab relative error norm {gerr:.3g}")
+
+    # ---- timing: the full pair at the step-0 shape; SDPA's forward on it
+    st = state(carry)
+    nbytes, flops = ring_block_bound(BH, C, d, causal=False)
+    row = dict(
+        ms=time_ms(lambda: fa.flash_block_fwd(q, k, v, st), 20),
+        causal_ms=time_ms(lambda: fa.flash_block_fwd(q, k, v, st,
+                                                     causal=True), 20),
+        plain_ms=time_ms(lambda: fa.flash_block_fwd_reference(q, k, v, st),
+                         3),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            q[None], k[None], v[None], scale=1.0), 20),
+        bound=bound(nbytes, flops), max_abs_err=err,
+        shape=[BH, C, d])
+    log(f"flash_block_fwd full pair (B*H, C, d) = ({BH}, {C}, {d}) bf16: "
+        f"{row['ms']:.4f} ms (causal pair {row['causal_ms']:.4f}, plain "
+        f"{row['plain_ms']:.4f}, SDPA forward {row['library_ms']:.4f}, bound "
+        f"{row['bound'][0]:.4f} by {row['bound'][1]}: {nbytes} bytes / "
+        f"{flops} flops)")
+    del q, k, v, k0, v0, do, carry, st
+    torch.cuda.empty_cache()
+    return row
+
+
+# --------------------------------------------------- K12 kernels (phase 26)
+
+
+def phase_quant_kernels(qz, seed=0):
+    """K12 on a buffer of one GPT-2 350M model's gradients (its parameter
+    count, ragged against the 2048 block) in fp32 and in bf16: codes and
+    scales bitwise equal to the plain version, dequantize (to fp32 and to
+    the input type) bitwise, the reduce-scatter's summing dequantize over
+    two rows bitwise; a control (scales from IEEE division by 127, the
+    eager jnp form the compiled JAX programs do not use) that the bitwise
+    check must catch; each timed beside its bound, plain version and the
+    shortest torch expression of the same math (no single PyTorch call
+    quantizes blockwise)."""
+    from deepspeed_tpu_torch import GPT2_PRESETS
+    n = GPT2_PRESETS["350M"].num_params()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    x = torch.randn(n, generator=g, device="cuda") * 1e-3
+    block = qz.QUANT_BLOCK
+    for dtype in (torch.float32, torch.bfloat16):
+        xs = x.to(dtype)
+        q, s, meta = qz.quantize_blockwise(xs)
+        rq, rs = qz.quantize_rows_reference(xs.view(1, n), block)
+        assert torch.equal(q, rq) and torch.equal(s, rs), \
+            f"quantize_blockwise {dtype}: codes or scales differ"
+        for out in (torch.float32, dtype):
+            d = qz.dequantize_rows(q, s, 1, n, out)
+            assert torch.equal(d, qz.dequantize_rows_reference(
+                q, s, 1, n, out)), f"dequantize_blockwise {dtype} -> {out}"
+        del rq, rs, d
+        if dtype == torch.float32:
+            absmax = xs[:n // block * block].view(-1, block).abs().amax(
+                -1, keepdim=True)
+            # a tensor divisor: PyTorch turns division by a scalar on the
+            # card into a product with its reciprocal
+            div = torch.where(absmax > 0,
+                              absmax / torch.full_like(absmax, 127.0), 1.0)
+            flips = int((div != s[:div.shape[0]]).sum())
+            assert flips > 0, "bitwise check let a division scale pass"
+            log(f"control: scales from IEEE division by 127 differ from "
+                f"the kernel's in {flips} of {div.shape[0]} blocks")
+            del absmax, div
+    half = n // 2
+    q2, s2 = qz.quantize_rows(x[:2 * half].view(2, half), block)
+    assert torch.equal(
+        qz.dequantize_rows(q2, s2, 2, half, torch.float32, sum_rows=True),
+        qz.dequantize_rows_reference(q2, s2, 2, half, torch.float32,
+                                     sum_rows=True)), "summing dequantize"
+    del q2, s2
+    log(f"K12 bitwise at {n} elements (fp32 and bf16): codes, scales, "
+        f"dequantize to fp32 and to the input type, the summing dequantize "
+        f"of two rows")
+
+    q, s, meta = qz.quantize_blockwise(x)
+    nb = q.shape[0]
+    xa = x[:n // block * block].view(-1, block)
+
+    def torch_quant():
+        sc = xa.abs().amax(-1, keepdim=True) / 127
+        return torch.clamp(torch.round(xa / sc), -127, 127).to(torch.int8)
+
+    rows = {
+        "quantize_blockwise": dict(
+            ms=time_ms(lambda: qz.quantize_rows(x.view(1, n)), 20),
+            plain_ms=time_ms(lambda: qz.quantize_rows_reference(
+                x.view(1, n), block), 3),
+            library_ms=time_ms(torch_quant, 5),
+            library="amax + divide + round + clamp on the block-aligned "
+                    "prefix",
+            bound=bound(n * 4 + n + nb * 4, 4 * n), max_abs_err=0.0),
+        "dequantize_blockwise": dict(
+            ms=time_ms(lambda: qz.dequantize_rows(q, s, 1, n,
+                                                  torch.float32), 20),
+            plain_ms=time_ms(lambda: qz.dequantize_rows_reference(
+                q, s, 1, n, torch.float32), 3),
+            library_ms=time_ms(lambda: q.float() * s, 5),
+            library="q.float() * s",
+            bound=bound(n + nb * 4 + n * 4, n), max_abs_err=0.0)}
+    for name, r in rows.items():
+        r["shape"] = [n]
+        log(f"{name} ({n} fp32 elements): {r['ms']:.4f} ms (plain "
+            f"{r['plain_ms']:.4f}, torch expression {r['library_ms']:.4f}, "
+            f"bound {r['bound'][0]:.4f} by {r['bound'][1]})")
+    del x, q, s, xa
+    torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------- NCCL world of one (phase 27)
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def plain_qdq(qz, x, block=2048):
+    """The plain quantize -> dequantize of one flat tensor."""
+    q, s = qz.quantize_rows_reference(x.reshape(1, -1), block)
+    return qz.dequantize_rows_reference(q, s, 1, x.numel(),
+                                        x.dtype).view_as(x)
+
+
+def phase_nccl_world(fa, qz, seed=0):
+    """One process, NCCL, world size 1, cuda:0: every comm op gives its
+    one-rank result; the four quantized collectives launch K12 and equal
+    their plain versions bitwise (the path's launches are returned);
+    ring_attention at R = 1 launches K10 once a call (causal) and equals
+    the flash forward's plain version; initialize with
+    sequence_parallel_size=1 and attention_backend="ring" takes K1 and
+    launches no K10, as JAX."""
+    import dataclasses
+    from deepspeed_tpu_torch import GPT2, GPT2_PRESETS, comm, initialize
+    from deepspeed_tpu_torch.sequence import ring_attention
+    from deepspeed_tpu_torch.utils import groups
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()))
+    comm.init_distributed(device="cuda:0", verbose=False)
+    assert comm.get_backend() == "nccl", comm.get_backend()
+    groups.reset()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    x = torch.randn(4, 6, generator=g, device="cuda")
+    outs = [comm.all_reduce(x, "data", op=op)
+            for op in ("sum", "avg", "max", "min")]
+    outs += [comm.reduce_scatter(x, "seq"), comm.all_gather(x, "data", 1),
+             comm.all_to_all(x, "seq", 0, 1), comm.broadcast(x, "seq"),
+             comm.ppermute(x, "seq", [(0, 0)]), comm.send_forward(x, "seq"),
+             comm.send_backward(x, groups.GRAD_REDUCE_AXES)]
+    assert all(torch.equal(o, x) for o in outs)
+    assert comm.axis_index("seq") == 0 and comm.get_world_size() == 1
+    assert comm.ring_exchange_bytes(b"x") == (None, None)
+    assert comm.allgather_bytes(b"x") is None
+    comm.barrier()
+    log("NCCL world of 1 on cuda:0: all_reduce (sum/avg/max/min), "
+        "reduce_scatter, all_gather, all_to_all, broadcast, ppermute, "
+        "send_forward/backward, axis_index, the byte transports and barrier "
+        "give the one-rank results")
+
+    xq = torch.randn(4_000_000, generator=g, device="cuda")
+    qz.reset_launch_counts()
+    got = {"all_gather": comm.quantized_all_gather(xq, "data"),
+           "reduce_scatter": comm.quantized_reduce_scatter(xq, "data"),
+           "clamp": comm.dcn_precision_clamp(xq),
+           "hierarchical": comm.all_to_all_quant_reduce(xq)}
+    torch.cuda.synchronize()
+    launches = dict(qz.LAUNCHES)
+    once = plain_qdq(qz, xq)
+    want = {"all_gather": once[None], "reduce_scatter": once,
+            "clamp": once, "hierarchical": plain_qdq(qz, once)}
+    for name, w in want.items():
+        assert torch.equal(got[name], w), f"quantized {name} at world 1"
+    assert launches == {"quantize_blockwise": 5,
+                        "dequantize_blockwise": 5}, launches
+    log(f"quantized collectives at world 1 equal their plain versions "
+        f"bitwise; K12 launches {launches}")
+
+    q, k, v, do = (torch.randn((4, 2048, 16, 64), generator=g,
+                               device="cuda").to(torch.bfloat16)
+                   for _ in range(4))
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    fa.reset_launch_counts()
+    o = ring_attention(q, k, v, "seq")
+    torch.autograd.grad(o, (q, k, v), do)
+    torch.cuda.synchronize()
+    ring_launches = dict(fa.LAUNCHES)
+    assert ring_launches == {"flash_fwd": 0, "flash_bwd": 1,
+                             "flash_bwd_qmajor": 0, "flash_block_fwd": 1}, \
+        ring_launches
+
+    def heads(t):
+        return fa.scale_q(t.detach().transpose(1, 2), 0.125).float()
+
+    ref, _ = fa.flash_forward_reference(heads(q), k.detach().transpose(
+        1, 2).float(), v.detach().transpose(1, 2).float())
+    why = bf16_mismatch(o.detach().transpose(1, 2), ref)
+    assert why is None, f"ring_attention at R=1: {why}"
+    log("ring_attention at R=1 (B=4, T=2048, H=16, d=64, bf16): one K10 "
+        "launch (causal) and one K2, equal to the plain forward")
+    del q, k, v, do, o, ref
+
+    cfg = dataclasses.replace(
+        GPT2_PRESETS["350M"], n_layer=2, max_seq_len=1024,
+        attention_backend="ring", use_flash_attention=True, remat=True,
+        remat_policy="save_flash")
+    engine, *_ = initialize(
+        model=GPT2(cfg, device="cuda:0", seed=seed), device="cuda:0",
+        config={"train_micro_batch_size_per_gpu": 4, "steps_per_print": 0,
+                "optimizer": {"type": "AdamW", "params": {"lr": 2e-4}},
+                "bf16": {"enabled": True}, "zero_optimization": {"stage": 2},
+                "sequence_parallel_size": 1})
+    ids = np.random.RandomState(seed).randint(0, cfg.vocab_size, (4, 1024))
+    fa.reset_launch_counts()
+    losses = [float(engine.train_batch({"input_ids": ids}))
+              for _ in range(2)]
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_block_fwd"] == 0 and \
+        fa.LAUNCHES["flash_fwd"] == 2 * cfg.n_layer, fa.LAUNCHES
+    assert all(math.isfinite(v) for v in losses), losses
+    log(f"initialize(sequence_parallel_size=1, attention_backend='ring'): "
+        f"K1 {fa.LAUNCHES['flash_fwd']} launches, K10 0 (the flash path, "
+        f"as JAX at seq = 1); losses {losses}")
+    del engine
+    torch.distributed.destroy_process_group()
+    groups.reset()
+    for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_PORT"):
+        os.environ.pop(key)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"comm-nccl-w1": launches, "ring-nccl-w1": ring_launches}
+
+
+# ------------------------ two processes on cuda:0 over gloo (phases 28-29)
+
+
+def run_children(role, world=2, timeout=900):
+    """``world`` processes of ``chip_smoke.py --child ROLE`` sharing
+    cuda:0 in a gloo world (NCCL refuses two ranks on one card); returns
+    their JSON reports in rank order. Every child is waited for, and
+    killed if the run fails."""
+    import tempfile
+    port = free_port()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build"))
+    procs = []
+    try:
+        for r in range(world):
+            env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
+                       LOCAL_RANK=str(r), MASTER_ADDR="127.0.0.1",
+                       MASTER_PORT=str(port))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--child", role,
+                 "--child-out", os.path.join(tmp, f"{r}.json")], env=env))
+        deadline = time.time() + timeout
+        for p in procs:
+            p.wait(timeout=max(1, deadline - time.time()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    rcs = [p.returncode for p in procs]
+    assert rcs == [0] * world, f"{role} children exited {rcs}"
+    reports = []
+    for r in range(world):
+        with open(os.path.join(tmp, f"{r}.json")) as f:
+            reports.append(json.load(f))
+    return reports
+
+
+def child_world():
+    """Join the two-process gloo world on cuda:0 as the caller names it."""
+    from deepspeed_tpu_torch import comm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    comm.init_distributed(dist_backend="gloo", device="cuda:0",
+                          verbose=False)
+    return comm.get_rank(), comm.get_world_size()
+
+
+def child_parity():
+    """Phase 28 in one rank: GPT-2 at the 350M widths with 2 layers, fp32,
+    seq = 2, ring and Ulysses: the loss and every gradient (summed over the
+    two ranks) against the same model at seq = 1 on the same batch; then
+    quantized_all_gather / quantized_reduce_scatter at world 2 against
+    their plain versions, bitwise (both ranks' inputs are made here from
+    one seed)."""
+    import dataclasses
+    from deepspeed_tpu_torch import GPT2, GPT2_PRESETS, comm
+    from deepspeed_tpu_torch.ops.cuda import quantization as qz
+    from deepspeed_tpu_torch.utils import groups
+    rank, world = child_world()
+    groups.initialize(groups.TopologyConfig(seq_parallel_size=world))
+    cfg = dataclasses.replace(GPT2_PRESETS["350M"], n_layer=2,
+                              max_seq_len=1024, dtype="float32", remat=False,
+                              use_flash_attention=False)
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (2, 1024))).cuda()
+
+    def loss_grads(model, seq_sharded):
+        loss = model.loss({"input_ids": ids}, seq_sharded=seq_sharded)
+        loss.backward()
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        if seq_sharded:
+            grads = {n: comm.all_reduce(g_, "seq") for n, g_ in grads.items()}
+        return loss.item(), grads
+
+    ref_loss, ref = loss_grads(GPT2(cfg, device="cuda:0", seed=1), False)
+    out = {"rank": rank, "ref_loss": ref_loss}
+    for backend in ("ring", "dense"):
+        model = GPT2(dataclasses.replace(cfg, attention_backend=backend),
+                     device="cuda:0", seed=1)
+        loss, grads = loss_grads(model, True)
+        rel = {n: (torch.linalg.vector_norm(grads[n] - ref[n])
+                   / torch.linalg.vector_norm(ref[n])).item() for n in ref}
+        out[backend] = {"loss": loss, "worst_grad": max(rel.items(),
+                                                       key=lambda t: t[1])}
+        del model, grads
+    del ref
+    g = torch.Generator(device="cuda")
+    g.manual_seed(7)
+    xs = [torch.randn(4_000_000, generator=g, device="cuda")
+          for _ in range(world)]
+    qz.reset_launch_counts()
+    ag = comm.quantized_all_gather(xs[rank], "seq")
+    rs = comm.quantized_reduce_scatter(xs[rank], "seq")
+    torch.cuda.synchronize()
+    out["quant_launches"] = dict(qz.LAUNCHES)
+    P = xs[0].numel() // world
+    pieces = [qz.quantize_rows_reference(x.view(world, P), 2048)
+              for x in xs]
+    nb = pieces[0][0].shape[0] // world
+    mine_q = torch.cat([q[rank * nb:(rank + 1) * nb] for q, _ in pieces])
+    mine_s = torch.cat([s[rank * nb:(rank + 1) * nb] for _, s in pieces])
+    out["quant_equal"] = {
+        "all_gather": bool(torch.equal(
+            ag, torch.stack([plain_qdq(qz, x) for x in xs]))),
+        "reduce_scatter": bool(torch.equal(
+            rs, qz.dequantize_rows_reference(mine_q, mine_s, world, P,
+                                             torch.float32, sum_rows=True)))}
+    out["staged"] = {k: list(v) for k, v in
+                     comm.get_comms_logger().host_staged.items()}
+    return out
+
+
+PHASE29 = dict(steps=10, micro=4, seq_len=4096, sp=2)
+
+
+def child_train():
+    """Phase 29 in one rank: GPT-2 350M (24 layers, T=4096, micro 4,
+    attention_backend="ring", sequence_parallel_size=2, ZeRO-2, bf16)
+    through initialize -> train_batch for PHASE29["steps"] steps on one
+    numpy-seeded batch; reports losses, step times, this process's peak
+    memory, the kernels' launches and what went through host memory."""
+    import dataclasses
+    from deepspeed_tpu_torch import GPT2, GPT2_PRESETS, comm, initialize
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+    from deepspeed_tpu_torch.ops.cuda import fused_ce as fce
+    from deepspeed_tpu_torch.ops.cuda import quantization as qz
+    rank, world = child_world()
+    p = PHASE29
+    cfg = dataclasses.replace(
+        GPT2_PRESETS["350M"], max_seq_len=p["seq_len"],
+        attention_backend="ring", use_flash_attention=True, remat=True,
+        remat_policy="save_flash", loss_chunk=512, fused_loss=True,
+        fused_loss_kernel=True)
+    t0 = time.perf_counter()
+    engine, *_ = initialize(
+        model=GPT2(cfg, device="cuda:0", seed=0), device="cuda:0",
+        config={"train_micro_batch_size_per_gpu": p["micro"],
+                "gradient_accumulation_steps": 1, "steps_per_print": 0,
+                "optimizer": {"type": "AdamW",
+                              "params": {"lr": 2e-4, "weight_decay": 0.01}},
+                "gradient_clipping": 1.0, "bf16": {"enabled": True},
+                "zero_optimization": {"stage": 2},
+                "sequence_parallel_size": p["sp"]})
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    batch = {"input_ids": np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (p["micro"], p["seq_len"])).astype(np.int32)}
+    comm.get_comms_logger().reset()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in (fa, fce, qz):
+        mod.reset_launch_counts()
+    losses, times = [], []
+    for _ in range(p["steps"]):
+        t1 = time.perf_counter()
+        losses.append(float(engine.train_batch(batch)))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+    return {"rank": rank, "losses": losses, "step_s": times,
+            "build_s": build_s, "params": cfg.num_params(),
+            "launches": {**fa.LAUNCHES, **fce.LAUNCHES, **qz.LAUNCHES},
+            "max_memory_allocated_gb":
+                torch.cuda.max_memory_allocated() / 1e9,
+            "staged": {k: list(v) for k, v in
+                       comm.get_comms_logger().host_staged.items()}}
+
+
+def phase_seq_parity():
+    """Phase 28: two processes on cuda:0 over gloo (child_parity)."""
+    reps = run_children("parity")
+    for r in reps:
+        for backend in ("ring", "dense"):
+            res = r[backend]
+            assert abs(res["loss"] - r["ref_loss"]) <= 2e-5 * abs(
+                r["ref_loss"]), (backend, res["loss"], r["ref_loss"])
+            assert res["worst_grad"][1] <= 1e-4, (backend, res)
+        assert all(r["quant_equal"].values()), r["quant_equal"]
+    log("seq = 2 over gloo on cuda:0, GPT-2 at the 350M widths, 2 layers, "
+        "fp32: " + "; ".join(
+            f"{b} loss {reps[0][b]['loss']:.7f} vs seq=1 "
+            f"{reps[0]['ref_loss']:.7f}, worst gradient relative error norm "
+            f"{max(r[b]['worst_grad'][1] for r in reps):.3g} "
+            f"({reps[0][b]['worst_grad'][0]})" for b in ("ring", "dense")))
+    log("quantized_all_gather / quantized_reduce_scatter at world 2 equal "
+        "their plain versions bitwise on both ranks")
+    return {k: sum(r["quant_launches"][k] for r in reps)
+            for k in reps[0]["quant_launches"]}
+
+
+def phase_seq_slice():
+    """Phase 29: GPT-2 350M at T=4096 over two processes on cuda:0
+    (child_train): the loss falls and is the same on both ranks, and each
+    step launches exactly 6 K10 a layer on each rank (3 pairs in the
+    forward, 3 again in the remat re-run) and 3 K2 (the backward's pairs),
+    no K1, K3 or K12; step time, tokens/s and each process's peak
+    memory."""
+    reps = run_children("train")
+    p = PHASE29
+    L, steps = 24, p["steps"]
+    want = {"flash_fwd": 0, "flash_bwd": 3 * L * steps,
+            "flash_bwd_qmajor": 0, "flash_block_fwd": 6 * L * steps,
+            "fused_ce": 0, "quantize_blockwise": 0,
+            "dequantize_blockwise": 0}
+    for r in reps:
+        assert r["launches"] == want, (r["rank"], r["launches"], want)
+        assert all(math.isfinite(x) for x in r["losses"]), r["losses"]
+        assert r["losses"][-1] < r["losses"][0], r["losses"]
+    assert reps[0]["losses"] == reps[1]["losses"], \
+        (reps[0]["losses"], reps[1]["losses"])
+    step_s = float(np.median(reps[0]["step_s"][1:]))
+    tokens = p["micro"] * p["seq_len"]
+    stats = dict(
+        steps=steps, losses=reps[0]["losses"],
+        step_s=[max(a, b) for a, b in zip(reps[0]["step_s"],
+                                          reps[1]["step_s"])],
+        step_s_median_after_first=step_s, tokens_per_s=tokens / step_s,
+        engine_build_s=[r["build_s"] for r in reps],
+        max_memory_allocated_gb=[r["max_memory_allocated_gb"] for r in reps],
+        launches_per_step_per_rank={k: v // steps for k, v in want.items()},
+        params=reps[0]["params"])
+    log("gpt2-350M seq-parallel slice " + json.dumps(stats))
+    log(f"the ring's collectives went through host memory over gloo "
+        f"because this machine has one card (NCCL refuses two ranks on "
+        f"one card): per rank, {steps} steps, op -> [calls, bytes] "
+        f"{reps[0]['staged']}")
+    return {k: sum(r["launches"][k] for r in reps) for k in
+            ("flash_block_fwd", "flash_bwd")}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default="",
                     help="write a torch.profiler breakdown of the slice here")
+    ap.add_argument("--child", choices=("parity", "train"),
+                    help=argparse.SUPPRESS)      # phases 28-29's processes
+    ap.add_argument("--child-out", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if args.child:
+        report = {"parity": child_parity, "train": child_train}[args.child]()
+        with open(args.child_out, "w") as f:
+            json.dump(report, f)
+        torch.distributed.barrier()
+        torch.distributed.destroy_process_group()
+        return 0
     from deepspeed_tpu_torch.op_builder import build_all
     from deepspeed_tpu_torch.ops.cuda import block_sparse_attention as bsa
     from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
@@ -2944,6 +3608,7 @@ def main(argv=None):
     from deepspeed_tpu_torch.ops.cuda import layernorm as ln
     from deepspeed_tpu_torch.ops.cuda import mlp_matmul as mm
     from deepspeed_tpu_torch.ops.cuda import paged_attention as pa
+    from deepspeed_tpu_torch.ops.cuda import quantization as qz
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -2959,10 +3624,12 @@ def main(argv=None):
                                                 GroupedMatmulBuilder,
                                                 LayerNormBuilder,
                                                 MlpMatmulBuilder,
-                                                PagedAttentionBuilder)
+                                                PagedAttentionBuilder,
+                                                QuantizationBuilder)
     builders = [PagedAttentionBuilder(), FlashAttentionBuilder(),
                 FusedCEBuilder(), GroupedMatmulBuilder(), MlpMatmulBuilder(),
-                LayerNormBuilder(), BlockSparseAttentionBuilder()]
+                LayerNormBuilder(), BlockSparseAttentionBuilder(),
+                QuantizationBuilder()]
     t0 = time.perf_counter()
     build_all(builders)                # one nvcc per source, together
     log(f"kernels built in {time.perf_counter() - t0:.1f} s wall")
@@ -2971,7 +3638,7 @@ def main(argv=None):
         for entry, regs, spill in ptxas_summary(b.build_log):
             log(f"    ptxas {entry}: {regs} registers, {spill} bytes "
                 f"spilled")
-    for mod in (pa, fa, fce, gm, mm, ln, bsa):
+    for mod in (pa, fa, fce, gm, mm, ln, bsa, qz):
         mod.kernel_builder()           # bind the built libraries
 
     def profile_path(suffix):
@@ -3040,6 +3707,17 @@ def main(argv=None):
     paths["bsa-fixed"] = phase_bsa_slice("fixed")
     paths["bsa-bigbird"] = phase_bsa_slice("bigbird")
     phase_done("24 (qmajor GPT-2 and SparseSelfAttention slices)")
+    rows["flash_block_fwd"] = phase_ring_kernel(fa)
+    phase_done("25 (K10 kernel)")
+    rows.update(phase_quant_kernels(qz))
+    phase_done("26 (K12 kernels)")
+    paths.update(phase_nccl_world(fa, qz))
+    phase_done("27 (NCCL world of one)")
+    paths["comm-gloo-w2"] = phase_seq_parity()
+    phase_done("28 (two processes on cuda:0: seq = 2 parity, quantized "
+               "collectives)")
+    paths["gpt2-seq-train"] = phase_seq_slice()
+    phase_done("29 (GPT-2 350M at T=4096, seq = 2)")
 
     kernels = []
     for name, r in rows.items():
@@ -3053,7 +3731,8 @@ def main(argv=None):
             bound_ms=r["bound"][0], bound_by=r["bound"][1],
             library_ms=r["library_ms"])
         for extra in ("shape", "chunk", "other", "dx_view", "library",
-                      "dscale_dbias_rel_norm", "rel_norm", "kmajor_ms"):
+                      "dscale_dbias_rel_norm", "rel_norm", "kmajor_ms",
+                      "causal_ms"):
             if extra in r:
                 row[extra] = r[extra]
         kernels.append(row)

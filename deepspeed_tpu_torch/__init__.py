@@ -2,6 +2,8 @@
 
 Imports torch and never jax; nothing of the JAX package is imported."""
 
+from . import comm
+from .comm import init_distributed
 from .inference.v2 import InferenceEngineV2, RaggedInferenceEngineConfig
 from .models import (GPT2, GPT2_PRESETS, LLAMA_PRESETS, MIXTRAL_8X7B,
                      MIXTRAL_TINY, GPT2Config, GPT2MoE, GPT2MoEConfig, Llama,
@@ -15,16 +17,23 @@ _TODO_DATA = "(ROADMAP Queue 1, M14: data loader)"
 
 
 def initialize(args=None, model=None, optimizer=None, model_parameters=None,
-               training_data=None, lr_scheduler=None, config=None,
-               config_params=None, seed=0, device=None):
+               training_data=None, lr_scheduler=None, topology=None,
+               config=None, config_params=None, seed=0,
+               dist_init_required=None, device=None):
     """Initialize the training engine (the JAX package's ``initialize``,
-    reference deepspeed/__init__.py:69).
+    __init__.py:29-52, reference deepspeed/__init__.py:69).
 
     Returns the reference's 4-tuple ``(engine, optimizer, dataloader,
     lr_scheduler)``; the dataloader is None. ``model`` is a module with
     ``loss(batch)`` (``deepspeed_tpu_torch.GPT2``, ``GPT2MoE``) whose
-    parameters are the initial weights; ``device`` defaults to the card and
-    raises without one."""
+    parameters are the initial weights (rank 0's, in a multi-process
+    world); ``device`` defaults to this process's card
+    (``cuda:$LOCAL_RANK``) and raises without one. Unless
+    ``dist_init_required`` is False it joins the world first
+    (``comm.init_distributed``: ``env://``, a no-op without
+    ``WORLD_SIZE`` or when already joined); ``topology`` is a
+    ``utils.groups.ParallelTopology`` (default: from the config's
+    ``sequence_parallel_size``)."""
     if config is None:
         config = config_params
     if config is None and args is not None:
@@ -36,8 +45,11 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
         raise NotImplementedError(
             f"training_data (the data loader) is not ported yet "
             f"{_TODO_DATA}")
+    if dist_init_required is None or dist_init_required:
+        init_distributed(device=device)
     engine = DeepSpeedEngine(model=model, config=config, optimizer=optimizer,
-                             lr_scheduler=lr_scheduler, device=device)
+                             lr_scheduler=lr_scheduler, device=device,
+                             topology=topology)
     return engine, engine.optimizer, None, engine.lr_scheduler
 
 
@@ -47,4 +59,5 @@ __all__ = ["InferenceEngineV2", "RaggedInferenceEngineConfig", "GPT2",
            "MIXTRAL_TINY", "Mixtral", "MixtralConfig",
            "gpt2_moe_params_from_numpy", "gpt2_params_from_numpy",
            "llama_params_from_numpy", "mixtral_params_from_numpy",
-           "DeepSpeedConfig", "DeepSpeedEngine", "initialize"]
+           "DeepSpeedConfig", "DeepSpeedEngine", "comm", "init_distributed",
+           "initialize"]

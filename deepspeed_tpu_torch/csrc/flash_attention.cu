@@ -33,6 +33,19 @@
 //   m16n8k16 bf16 -> fp32) from shared-memory tiles. Loads are synchronous
 //   (no cp.async/TMA pipeline yet, no wgmma): later work.
 //
+// flash_block_fwd_kernel (flash_fwd_kernel with CARRY = true) replaces
+//   _fwd_block_kernel (via flash_block_fwd, flash_attention.py:1033-1087,
+//   :1106-1161): one chunk pair of a ring-attention schedule. The same CTA
+//   shape and tile loop as the forward, but the online-softmax state is the
+//   caller's: each CTA reads its 64 rows' running max m, running sum l
+//   ((B*H, T) fp32) and unnormalized accumulator acc ((B*H, T, D) fp32),
+//   walks the kv tiles, and writes m, l and acc back in place (each CTA
+//   owns its rows, so nothing races); no o or lse. causal = 1 is the
+//   diagonal pair (equal lengths, shared offset: only the diagonal tiles
+//   mask); causal = 0 masks nothing but the keys past T. The wrapper folds
+//   (B*H) into B with H = 1. Bound: as the forward, plus 2*(4*D + 8) bytes
+//   a row of fp32 state read and written.
+//
 // flash_bwd (three launches, one contract) replaces _bwd_kernel_t (via
 //   _bwd_t) and its twin _bwd_kernel (via _bwd). The TPU kernel walks key
 //   blocks on a sequential grid and carries dq in an fp32 output across grid
@@ -93,9 +106,14 @@ struct FlashArgs {
   void* dq;
   void* dk;
   void* dv;
-  float* acc;         // query-major backward: (B*H, 2, Tp, D) fp32 dk/dv scratch
+  float* acc;         // query-major backward: (B*H, 2, Tp, D) fp32 dk/dv scratch;
+                      // ring block forward: the (B*H, T, D) fp32 carry, strides sacc
   Strides sq, sk, sv, so, sdo, sdq, sdk, sdv;
   int B, H, T, D, causal, window;
+  float* m;           // ring block forward: (B*H, T) running max, read and written
+  float* l;           // ring block forward: (B*H, T) running sum, read and written
+  long long sml;      // m and l stride per b*h (unit stride along T)
+  Strides sacc;
 };
 
 namespace {
@@ -114,7 +132,7 @@ __device__ __forceinline__ bool pair_ok(int q, int k, int T_, int causal, int wi
 
 // ------------------------------------------------------------------ forward
 
-template <typename T, int D>
+template <typename T, int D, bool CARRY>
 __global__ void __launch_bounds__(NT) flash_fwd_kernel(FlashArgs a) {
   constexpr int PAD = 16 / sizeof(T);
   constexpr int LD = D + PAD;
@@ -144,6 +162,24 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(FlashArgs a) {
   float acc[NTD][4];
 #pragma unroll
   for (int n = 0; n < NTD; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float* cm = a.m + (long long)bh * a.sml;
+  float* cl = a.l + (long long)bh * a.sml;
+  float* ca = a.acc + b * a.sacc.b + h * a.sacc.h;
+  if (CARRY) {  // the caller's running state for rows r0 and r1
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = i ? r1 : r0;
+      if (row >= a.T) continue;
+      m[i] = cm[row];
+      l[i] = cl[row];
+#pragma unroll
+      for (int n = 0; n < NTD; ++n) {
+        const float* ap = ca + (long long)row * a.sacc.t + n * 8 + 2 * t4;
+        acc[n][2 * i] = ap[0];
+        acc[n][2 * i + 1] = ap[1];
+      }
+    }
+  }
   T* pw = ps + warp * 16 * LP;
 
   for (int j = j_lo; j < j_hi; ++j) {
@@ -213,6 +249,24 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(FlashArgs a) {
     __syncwarp();
   }
 
+  if (CARRY) {  // the state goes back unnormalized; finalize divides
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = i ? r1 : r0;
+      if (row >= a.T) continue;
+#pragma unroll
+      for (int n = 0; n < NTD; ++n) {
+        float* ap = ca + (long long)row * a.sacc.t + n * 8 + 2 * t4;
+        ap[0] = acc[n][2 * i];
+        ap[1] = acc[n][2 * i + 1];
+      }
+      if (t4 == 0) {
+        cm[row] = m[i];
+        cl[row] = l[i];
+      }
+    }
+    return;
+  }
   T* og = reinterpret_cast<T*>(a.o) + b * a.so.b + h * a.so.h;
   float* lg = a.lse + (long long)bh * a.T;
 #pragma unroll
@@ -606,12 +660,12 @@ cudaError_t launch(K kernel, dim3 grid, size_t smem, cudaStream_t s, const Flash
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, bool CARRY>
 cudaError_t fwd(const FlashArgs& a, cudaStream_t s) {
   constexpr int PAD = 16 / sizeof(T);
   const size_t smem = sizeof(T) * ((size_t)(BQ + 2 * BK) * (D + PAD) + (size_t)NW * 16 * (BK + PAD));
   const dim3 grid((a.T + BQ - 1) / BQ, a.B * a.H);
-  return launch(flash_fwd_kernel<T, D>, grid, smem, s, a);
+  return launch(flash_fwd_kernel<T, D, CARRY>, grid, smem, s, a);
 }
 
 template <typename T, int D>
@@ -639,12 +693,12 @@ cudaError_t bwd_qmajor(const FlashArgs& a, cudaStream_t s) {
   return launch(flash_bwd_qmajor_kernel<T, D>, dim3(a.B * a.H), smem, s, a);
 }
 
-template <typename T>
+template <typename T, bool CARRY>
 cudaError_t fwd_by_d(const FlashArgs& a, cudaStream_t s) {
   switch (a.D) {
-    case 32: return fwd<T, 32>(a, s);
-    case 64: return fwd<T, 64>(a, s);
-    case 128: return fwd<T, 128>(a, s);
+    case 32: return fwd<T, 32, CARRY>(a, s);
+    case 64: return fwd<T, 64, CARRY>(a, s);
+    case 128: return fwd<T, 128, CARRY>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -680,8 +734,20 @@ bool bad_args(const FlashArgs* a) {
 extern "C" int flash_fwd_launch(const FlashArgs* a, int dtype, void* stream) {
   if (bad_args(a)) return cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 1) return fwd_by_d<bf16>(*a, s);
-  if (dtype == 0) return fwd_by_d<float>(*a, s);
+  if (dtype == 1) return fwd_by_d<bf16, false>(*a, s);
+  if (dtype == 0) return fwd_by_d<float, false>(*a, s);
+  return cudaErrorInvalidValue;
+}
+
+// One ring chunk pair: a->m, a->l and a->acc carry the online-softmax state
+// in and out (updated in place); o and lse are not touched.
+extern "C" int flash_block_fwd_launch(const FlashArgs* a, int dtype, void* stream) {
+  if (bad_args(a) || a->window != 0 || a->m == nullptr || a->l == nullptr ||
+      a->acc == nullptr)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 1) return fwd_by_d<bf16, true>(*a, s);
+  if (dtype == 0) return fwd_by_d<float, true>(*a, s);
   return cudaErrorInvalidValue;
 }
 

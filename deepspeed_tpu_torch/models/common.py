@@ -49,14 +49,37 @@ def resolve_remat_policy(name):
     raise ValueError(f"unknown remat_policy {name!r}")
 
 
+class _MmF32(torch.autograd.Function):
+    """a @ b in fp32 from bf16 operands on the card (``torch.mm`` with
+    ``out_dtype``, which has no autograd formula), with the gradient JAX
+    gives a dot with ``preferred_element_type=float32``: the fp32
+    cotangent times the other operand in fp32, rounded to each operand's
+    dtype (what the CPU path's ``a.float() @ b.float()`` computes)."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.mm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = torch.mm(g, b.float().t()).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            db = torch.mm(a.float().t(), g).to(b.dtype)
+        return da, db
+
+
 def mm_f32(a, b):
     """a @ b with an fp32 result: bf16 operands accumulate in fp32 on the
     card (``preferred_element_type=float32``) without an fp32 copy of
-    either; fp32 operands multiply as they are."""
+    either in the forward; fp32 operands multiply as they are."""
     if a.dtype == torch.float32 and b.dtype == torch.float32:
         return a @ b
     if a.is_cuda:
-        return torch.mm(a, b, out_dtype=torch.float32)
+        return _MmF32.apply(a, b)
     return a.float() @ b.float()
 
 

@@ -25,7 +25,21 @@ through the fused CE kernel when ``fused_loss_kernel``; every LayerNorm
 through the K13 kernels (ops/cuda/layernorm.py) when ``fused_layernorm``
 (``_ln``); the MLP projections through K6 (ops/cuda/mlp_matmul.py) when
 ``mlp_kernel`` (``_mlp``).
+
+Sequence parallelism (``loss(seq_sharded=True)``, JAX gpt2.py:543-617,
+:1226-1259): every rank of the ``seq`` process group passes the same
+global batch, takes its contiguous block of the sequence (positions from
+its offset, labels from the global ids, so a block's last label comes from
+the next block) and runs the blocks with attention over the group:
+``attention_backend="ring"`` through the zigzag ring (sequence/ring.py,
+K10 / K2), otherwise Ulysses around the dense attention
+(sequence/layer.py). The flash kernels, K6 and the chunked / fused loss
+heads are not taken when seq-sharded, as in JAX; the loss is the global
+mean over B * (T - 1) predictions on every rank, and each rank's
+gradients are its blocks' share (the engine sums them over the group).
 """
+
+import functools
 
 import math
 from dataclasses import dataclass
@@ -41,6 +55,11 @@ from ..ops.cuda.flash_attention import (flash_attention, flash_backward,
 from ..ops.cuda.layernorm import (fused_layernorm, layernorm_fused_bwd,
                                   layernorm_reference as layernorm)
 from ..ops.cuda.mlp_matmul import mlp_matmul
+from ..comm import comm
+from ..runtime.config import SequenceConfig
+from ..sequence.layer import DistributedAttention
+from ..sequence.ring import ring_attention
+from ..utils import groups
 from ..utils.device import resolve_device
 from .common import (chunked_softmax_xent, fused_linear_xent,
                      fused_linear_xent_kernel, mm_f32, next_token_xent,
@@ -126,9 +145,8 @@ _POST = slice(6, None)  # ln2 + MLP
 _TODO = {
     "dropout": "(ROADMAP Queue 1, M2: dropout)",
     "attn_layer_windows": "(ROADMAP Queue 1, M2: per-layer windows)",
-    "ring": "(ROADMAP Queue 1, M12)",
     "ltd": "(ROADMAP Queue 1, M14: random-LTD)",
-    "seq": "(ROADMAP Queue 1, M12: sequence parallelism)",
+    "seq_moe": "(ROADMAP Queue 1, M12: MoE under sequence parallelism)",
 }
 
 
@@ -138,8 +156,6 @@ def _unsupported(cfg):
         out.append(("dropout > 0", _TODO["dropout"]))
     if cfg.attn_layer_windows:
         out.append(("attn_layer_windows", _TODO["attn_layer_windows"]))
-    if cfg.attention_backend == "ring":
-        out.append(("attention_backend='ring'", _TODO["ring"]))
     return out
 
 
@@ -237,10 +253,11 @@ class GPT2(nn.Module):
                 and self.config.flash_qkv_t)
 
     # --------------------------------------------------------------- pieces
-    def embed(self, ids):
-        """Token + position embedding (B, T) -> (B, T, D)."""
+    def embed(self, ids, offset=0):
+        """Token + position embedding (B, T) -> (B, T, D); the positions
+        start at ``offset`` (a sequence block's place in the sequence)."""
         T = ids.shape[1]
-        x = F.embedding(ids.long(), self.wte) + self.wpe[:T]
+        x = F.embedding(ids.long(), self.wte) + self.wpe[offset:offset + T]
         return x.to(self.dtype)
 
     def _ln(self, x, scale, bias):
@@ -276,9 +293,25 @@ class GPT2(nn.Module):
         qkv = h @ wqkv + bqkv
         return qkv.view(B, T, 3, cfg.n_head, cfg.d_head).unbind(2)
 
-    def _attn(self, q, k, v):
-        """Attention dispatch: (B, T, H, hd) x3 -> (B, T, H, hd)."""
+    def _attn(self, q, k, v, seq_sharded=False):
+        """Attention dispatch: (B, T, H, hd) x3 -> (B, T, H, hd); with
+        ``seq_sharded`` T is this rank's block: the zigzag ring for
+        ``attention_backend="ring"``, else Ulysses around the dense
+        attention (gpt2.py:557-617)."""
         cfg = self.config
+        if seq_sharded and cfg.attention_backend == "ring":
+            if not cfg.scale_attn:
+                raise ValueError(
+                    "ring attention supports neither per-layer local "
+                    "windows nor unscaled (gpt-neo) scores")
+            scfg = getattr(self, "_sequence_cfg", None) or SequenceConfig()
+            return ring_attention(
+                q, k, v, "seq", causal=True, layout=scfg.layout,
+                block_kernel=scfg.block_kernel,
+                double_buffer=scfg.double_buffer,
+                rotate_chunks=scfg.rotate_chunks).to(self.dtype)
+        if seq_sharded:
+            return DistributedAttention(self._dense_attn, "seq")(q, k, v)
         if self.flash_on:
             kw = dict(causal=True, scale=None if cfg.scale_attn else 1.0,
                       block_q=cfg.flash_block_q, block_k=cfg.flash_block_k,
@@ -291,6 +324,12 @@ class GPT2(nn.Module):
                 o = flash_attention(q, k, v, qkv_t=True, **kw)
                 return o.transpose(1, 2).to(self.dtype)
             return flash_attention(q, k, v, **kw).to(self.dtype)
+        return self._dense_attn(q, k, v)
+
+    def _dense_attn(self, q, k, v):
+        """Dense causal attention, fp32 scores: (B, T, H, hd) x3 ->
+        (B, T, H, hd)."""
+        cfg = self.config
         T = q.shape[1]
         s = torch.einsum("bthd,bshd->bhts", q.float(), k.float())
         if cfg.scale_attn:
@@ -310,7 +349,8 @@ class GPT2(nn.Module):
             return None
         return "down" if v is True else v
 
-    def _mlp(self, x, ln2_scale, ln2_bias, wup, bup, wdown, bdown):
+    def _mlp(self, x, ln2_scale, ln2_bias, wup, bup, wdown, bdown, *,
+             seq_sharded=False):
         """ln2 + MLP: (B, T, D) -> ((B, T, D), aux); a dense MLP has no
         aux (None). With ``mlp_kernel`` the pre-activation is carried
         (B, F, T), as gpt2.py:755-769: the up product through K6 emitting
@@ -318,7 +358,7 @@ class GPT2(nn.Module):
         product through K6 reading it with ``x_t``."""
         act = _ACTS[self.config.activation]
         h = self._ln(x, ln2_scale, ln2_bias)
-        mode = self._mlp_kernel_mode()
+        mode = None if seq_sharded else self._mlp_kernel_mode()
         if mode:
             fuse = self.config.mlp_kernel_fuse_dw
             if mode == "both":
@@ -331,21 +371,23 @@ class GPT2(nn.Module):
         up = act(h @ wup + bup)
         return up @ wdown + bdown, None
 
-    def _block(self, x, *layer):
+    def _block(self, x, *layer, seq_sharded=False):
         """One transformer block: (B, T, D) -> ((B, T, D), aux)."""
         B, T, D = x.shape
         q, k, v = self._qkv(x, *layer[_PRE])
-        attn = self._attn(q, k, v)
+        attn = self._attn(q, k, v, seq_sharded)
         wo, bo = layer[_WO]
         mid = x + attn.reshape(B, T, D) @ wo + bo
-        out, aux = self._mlp(mid, *layer[_POST])
+        kw = {"seq_sharded": True} if seq_sharded else {}
+        out, aux = self._mlp(mid, *layer[_POST], **kw)
         return mid + out, aux
 
-    def hidden_with_aux(self, ids):
+    def hidden_with_aux(self, ids, offset=0, seq_sharded=False):
         """Embedding + blocks: (B, T) -> ((B, T, D) before the final LN,
-        the aux summed over layers or None)."""
+        the aux summed over layers or None); positions start at
+        ``offset``."""
         cfg = self.config
-        x = self.embed(ids)
+        x = self.embed(ids, offset)
         layers = [self.get_parameter(f"blocks.{k}").unbind(0)
                   for k in self.block_keys]
         policy = resolve_remat_policy(cfg.remat_policy) if cfg.remat \
@@ -353,13 +395,14 @@ class GPT2(nn.Module):
         total = None
         for i in range(cfg.n_layer):
             layer = [t[i] for t in layers]
-            if policy == "save_flash" and self.flash_on:
+            block = functools.partial(self._block, seq_sharded=seq_sharded)
+            if (policy == "save_flash" and self.flash_on
+                    and not seq_sharded):
                 x, aux = _SaveFlashBlock.apply(self, x, *layer)
             elif policy is not None:
-                x, aux = checkpoint(self._block, x, *layer,
-                                    use_reentrant=False)
+                x, aux = checkpoint(block, x, *layer, use_reentrant=False)
             else:
-                x, aux = self._block(x, *layer)
+                x, aux = block(x, *layer)
             if aux is not None:
                 total = aux if total is None else total + aux
         return x, total
@@ -375,15 +418,18 @@ class GPT2(nn.Module):
     # ------------------------------------------------------------------ loss
     def loss(self, batch, *, rng=None, train=True, seq_sharded=False,
              ltd_keep=None):
-        """Next-token cross entropy. batch: {"input_ids": (B, T) int}."""
-        if seq_sharded:
-            raise NotImplementedError(f"seq_sharded {_TODO['seq']}")
+        """Next-token cross entropy. batch: {"input_ids": (B, T) int};
+        ``seq_sharded``: the global batch on every rank of the ``seq``
+        group, this rank computing its sequence block (module
+        docstring)."""
         if ltd_keep is not None:
             raise NotImplementedError(f"ltd_keep {_TODO['ltd']}")
         ids = batch["input_ids"]
         if not torch.is_tensor(ids):
             ids = torch.as_tensor(ids)
         ids = ids.to(self.device)
+        if seq_sharded:
+            return self._seq_sharded_loss(ids)
         cfg = self.config
         T = ids.shape[1]
         chunk = cfg.loss_chunk
@@ -393,6 +439,31 @@ class GPT2(nn.Module):
         else:
             loss = next_token_xent(self.head(x), ids)
         return loss if aux is None else loss + self.moe_loss_coeff * aux
+
+    def _seq_sharded_loss(self, ids):
+        """This rank's block of the global next-token CE over the ``seq``
+        group, full logits (gpt2.py:1247 takes no chunked head when
+        seq-sharded): the block's summed CE over B * (T - 1), summed over
+        the group in the forward (the backward passes each rank its own
+        share)."""
+        if self.block_keys != BLOCK_KEYS:
+            raise NotImplementedError(
+                f"seq_sharded {type(self).__name__} {_TODO['seq_moe']}")
+        topo = groups.get_topology()
+        R, r = topo.axis_size("seq"), topo.axis_index("seq")
+        B, T = ids.shape
+        if T % R:
+            raise ValueError(f"sequence length {T} does not split over "
+                             f"{R} seq ranks")
+        off = r * (T // R)
+        x, _ = self.hidden_with_aux(ids[:, off:off + T // R], offset=off,
+                                    seq_sharded=True)
+        targets = ids[:, off + 1:off + T // R + 1].long()
+        logits = self.head(x[:, :targets.shape[1]])
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+        return _SumOverAxis.apply((logz - gold).sum() / (B * (T - 1)),
+                                  "seq")
 
     def _chunked_head_loss(self, hidden, targets, chunk):
         """The big-vocab head: fused grad-in-forward CE when
@@ -410,6 +481,19 @@ class GPT2(nn.Module):
                 {"wte": self.wte, "lnf_scale": self.lnf_scale,
                  "lnf_bias": self.lnf_bias}, hidden, targets)
         return chunked_softmax_xent(self.head, hidden, targets, chunk)
+
+
+class _SumOverAxis(torch.autograd.Function):
+    """Sum over the ranks of an axis in the forward; the backward passes
+    the cotangent through (each rank's share of a summed loss)."""
+
+    @staticmethod
+    def forward(ctx, x, axis_name):
+        return comm.all_reduce(x, axis_name)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
 
 
 class _SaveFlashBlock(torch.autograd.Function):

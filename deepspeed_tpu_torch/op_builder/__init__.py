@@ -1,9 +1,10 @@
 from .builder import (BlockSparseAttentionBuilder, CUDAOpBuilder,
                       FlashAttentionBuilder, FusedCEBuilder,
                       GroupedMatmulBuilder, LayerNormBuilder,
-                      MlpMatmulBuilder, PagedAttentionBuilder, build_all)
+                      MlpMatmulBuilder, PagedAttentionBuilder,
+                      QuantizationBuilder, build_all)
 
 __all__ = ["BlockSparseAttentionBuilder", "CUDAOpBuilder",
            "FlashAttentionBuilder", "FusedCEBuilder", "GroupedMatmulBuilder",
            "LayerNormBuilder", "MlpMatmulBuilder", "PagedAttentionBuilder",
-           "build_all"]
+           "QuantizationBuilder", "build_all"]

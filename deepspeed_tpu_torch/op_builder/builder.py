@@ -150,6 +150,11 @@ class LayerNormBuilder(CUDAOpBuilder):
     SOURCES = ("layernorm.cu",)
 
 
+class QuantizationBuilder(CUDAOpBuilder):
+    NAME = "quantization"
+    SOURCES = ("quantization.cu",)
+
+
 def build_all(builders):
     """Build every builder's library with one nvcc per source, all started
     together, and wait for all of them; a failed build raises after every

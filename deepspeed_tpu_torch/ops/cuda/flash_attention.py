@@ -9,13 +9,20 @@ or (B, H, T, d) with ``heads_major``, or (B, H, d, T) with ``qkv_t``; o
 comes back in the input layout and lse is (B, H, T) fp32. The softmax scale is folded into q outside the kernel in
 q's dtype, as the JAX wrapper does, so autograd chains dq through it.
 
+The ring-attention block step (K10, flash_attention.py:1020-1189):
+``flash_block_state`` / ``flash_block_fwd`` / ``flash_block_finalize`` carry
+the online-softmax state (m, l, acc) across the chunk pairs of a ring
+schedule on folded (B*H, T, d) operands, and ``flash_block_bwd`` replays a
+pair through K2 (``flash_backward``) from the global lse and o.
+
 Dispatch is by the tensor's device only: a CPU tensor takes the plain
 PyTorch version (``flash_forward_reference`` / ``flash_backward_reference``
-/ ``flash_bwd_qmajor_reference``); a CUDA tensor launches the kernel or
-raises — there is no fallback. ``LAUNCHES`` counts kernel launches:
-``flash_fwd`` one per forward, ``flash_bwd`` one per k-major backward call
-(its three kernels: delta, dk/dv, dq), ``flash_bwd_qmajor`` one per
-query-major backward (one kernel).
+/ ``flash_bwd_qmajor_reference`` / ``flash_block_fwd_reference``); a CUDA
+tensor launches the kernel or raises — there is no fallback. ``LAUNCHES``
+counts kernel launches: ``flash_fwd`` one per forward, ``flash_bwd`` one
+per k-major backward call (its three kernels: delta, dk/dv, dq),
+``flash_bwd_qmajor`` one per query-major backward (one kernel),
+``flash_block_fwd`` one per ring chunk pair.
 
 ``bwd_qmajor`` picks the query-major backward under the JAX rule
 (flash_attention.py:1578): ``qkv_t`` layouts with no bias or ALiBi only,
@@ -34,7 +41,8 @@ import torch
 
 NEG_INF = -1e30
 
-LAUNCHES = {"flash_fwd": 0, "flash_bwd": 0, "flash_bwd_qmajor": 0}
+LAUNCHES = {"flash_fwd": 0, "flash_bwd": 0, "flash_bwd_qmajor": 0,
+            "flash_block_fwd": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
@@ -60,7 +68,9 @@ class _FlashArgs(ctypes.Structure):
                 + [(n, _Strides) for n in
                    ("sq", "sk", "sv", "so", "sdo", "sdq", "sdk", "sdv")]
                 + [(n, ctypes.c_int) for n in
-                   ("B", "H", "T", "D", "causal", "window")])
+                   ("B", "H", "T", "D", "causal", "window")]
+                + [("m", ctypes.c_void_p), ("l", ctypes.c_void_p),
+                   ("sml", ctypes.c_longlong), ("sacc", _Strides)])
 
 
 _builder = None
@@ -75,7 +85,7 @@ def kernel_builder():
         b = FlashAttentionBuilder()
         lib = b.load()
         for fn in (lib.flash_fwd_launch, lib.flash_bwd_launch,
-                   lib.flash_bwd_qmajor_launch):
+                   lib.flash_bwd_qmajor_launch, lib.flash_block_fwd_launch):
             fn.argtypes = [ctypes.POINTER(_FlashArgs), ctypes.c_int,
                            ctypes.c_void_p]
             fn.restype = ctypes.c_int
@@ -330,6 +340,104 @@ def flash_backward_qmajor(q, k, v, o, lse, do, *, causal=True, window=0,
     _raise_on(rc, name)
     LAUNCHES["flash_bwd_qmajor"] += 1
     return dq, dk, dv
+
+
+# ------------------------------------------- blockwise (ring) variant (K10)
+
+
+def flash_block_state(BH, T, d, device=None):
+    """Fresh (m, l, acc) carry for :func:`flash_block_fwd`: per-query
+    running max / sum-exp ((BH, T) fp32) and the unnormalized output
+    accumulator ((BH, T, d) fp32)."""
+    return (torch.full((BH, T), NEG_INF, dtype=torch.float32, device=device),
+            torch.zeros(BH, T, dtype=torch.float32, device=device),
+            torch.zeros(BH, T, d, dtype=torch.float32, device=device))
+
+
+def flash_block_finalize(state):
+    """(m, l, acc) -> (o fp32, lse fp32); call after the last chunk pair."""
+    m, l, acc = state
+    ls = l.clamp_min(1e-30)
+    return acc / ls[..., None], m + torch.log(ls)
+
+
+def flash_block_fwd_reference(q, k, v, state, *, causal=False):
+    """Plain version of the K10 kernel: one chunk pair's online-softmax
+    update of ``state`` (m, l, acc) from folded (BH, T, d) q (scale already
+    in), k, v: fp32 scores, NEG_INF where masked (``causal``: the diagonal
+    pair), p rounded to v's dtype before P.V and l summed from the
+    unrounded p, as _fwd_block_kernel. Returns the new (m, l, acc)."""
+    m, l, acc = state
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    if causal:
+        s = torch.where(_mask(q.shape[1], True, 0, q.device), s, NEG_INF)
+    m_new = torch.maximum(m, s.amax(-1))
+    p = torch.exp(s - m_new[..., None])
+    alpha = torch.exp(m - m_new)
+    l_new = l * alpha + p.sum(-1)
+    acc_new = acc * alpha[..., None] + torch.matmul(p.to(v.dtype).float(),
+                                                    v.float())
+    return m_new, l_new, acc_new
+
+
+def flash_block_fwd(q, k, v, state, *, causal=False, block_q=128,
+                    block_k=128, block_h=2, interpret=None):
+    """One ring chunk pair: q/k/v (BH, T, d) folded operands (q scaled by
+    the caller), ``state`` from :func:`flash_block_state` (or a previous
+    pair). Updates ``state`` IN PLACE and returns it: each tensor may be a
+    view (the ring updates the halves of one buffer), with unit stride
+    along T for m and l (one shared row stride) and along d for acc.
+    ``causal=True`` is the diagonal pair (equal chunk lengths, shared
+    offset); fully-masked pairs are the schedule's to skip. The tile knobs
+    are accepted and change nothing. CPU tensors take the plain version;
+    CUDA tensors launch the kernel or raise."""
+    BH, T, d = q.shape
+    if k.shape[1] != T:
+        raise ValueError(
+            f"flash_block_fwd needs equal chunk lengths, got q {T} vs kv "
+            f"{k.shape[1]} (the ring schedule pairs equal chunks)")
+    m, l, acc = state
+    if q.device.type == "cpu":
+        for dst, new in zip(state, flash_block_fwd_reference(
+                q, k, v, state, causal=causal)):
+            dst.copy_(new)
+        return state
+    name = "flash_block_fwd"
+    _check_cuda((q, k, v), name)
+    if (any(t.dtype != torch.float32 or t.device != q.device
+            for t in state)
+            or m.stride(1) != 1 or l.stride(1) != 1
+            or m.stride(0) != l.stride(0) or acc.stride(2) != 1
+            or m.shape != (BH, T) or l.shape != (BH, T)
+            or acc.shape != (BH, T, d)):
+        raise ValueError(
+            f"{name}: state must be fp32 m, l (BH, T) with one row stride "
+            f"and unit stride along T, and acc (BH, T, d) with unit stride "
+            f"along d, on {q.device}")
+    q, k, v = (_kernel_view(x.unsqueeze(1)) for x in (q, k, v))
+    a = _args(BH, 1, T, d, causal, 0, q=q, k=k, v=v)
+    a.m, a.l, a.acc = m.data_ptr(), l.data_ptr(), acc.data_ptr()
+    a.sml = m.stride(0)
+    a.sacc = _Strides(acc.stride(0), 0, acc.stride(1))
+    rc = kernel_builder().load().flash_block_fwd_launch(
+        ctypes.byref(a), _DTYPE_CODE[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(rc, name)
+    LAUNCHES["flash_block_fwd"] += 1
+    return state
+
+
+def flash_block_bwd(q, k, v, o, lse, do, *, causal=False, block_q=128,
+                    block_k=128, block_h=2, interpret=None):
+    """Ring chunk-pair backward through K2 (:func:`flash_backward`, scale
+    1: q already carries it): given the GLOBAL per-query ``lse`` ((BH, T)
+    fp32) and the final ``o``, K2 recomputes this pair's probabilities as
+    exp(s - lse) and its delta = rowsum(do * o) is the global delta, so
+    (dq, dk, dv) are this pair's exact contributions, in q's dtype."""
+    cast = [x.to(q.dtype)[None] for x in (q, k, v, o, do)]
+    dq, dk, dv = flash_backward(*cast[:4], lse.float()[None], cast[4],
+                                causal=causal)
+    return dq[0], dk[0], dv[0]
 
 
 def resolve_bwd_qmajor(value):

@@ -3,8 +3,9 @@
 Own copy of ``deepspeed_tpu/runtime/config.py`` for the training slice:
 the batch-size triad with the same resolution rules and error text, the
 precision blocks, the ZeRO block, optimizer, gradient clipping,
-``data_types.grad_accum_dtype``, ``steps_per_print`` and the ``moe`` block,
-with the same unknown-key warnings inside a block. A block the port does
+``data_types.grad_accum_dtype``, ``steps_per_print``, the ``moe`` block,
+``sequence_parallel_size`` with the ``sequence`` block and the
+``comms_logger`` block, with the same unknown-key warnings inside a block. A block the port does
 not carry yet raises NotImplementedError naming its ROADMAP item when it
 is enabled.
 """
@@ -145,6 +146,53 @@ class MoEConfig:
 
 
 @dataclass
+class SequenceConfig:
+    """Sequence/context-parallelism block (the JAX ``SequenceConfig``,
+    runtime/config.py:443-488), read by models with
+    ``attention_backend='ring'`` when seq > 1 (sequence/ring.py):
+
+      layout        'zigzag' (default) | 'contiguous' (every pair computed
+                    and positionally masked).
+      block_kernel  'auto' (default: the K10 / K2 steps; the JAX winner
+                    cache's choice on a miss) | true (the same) | false
+                    (dense einsum block steps, the reference path).
+      double_buffer post each step's KV exchange before the step's
+                    kernels; false serializes rotate-then-compute.
+      rotate_chunks split each KV rotation into this many head-dim
+                    exchanges: int >= 1 | "auto" (1).
+    """
+    layout: str = "zigzag"
+    block_kernel: object = "auto"
+    double_buffer: bool = True
+    rotate_chunks: object = "auto"
+
+    def __post_init__(self):
+        if self.layout not in ("zigzag", "contiguous"):
+            raise DeepSpeedConfigError(
+                f"sequence.layout must be 'zigzag'|'contiguous', got "
+                f"{self.layout!r}")
+        if self.block_kernel not in (True, False, "auto"):
+            raise DeepSpeedConfigError(
+                f"sequence.block_kernel must be true|false|'auto', got "
+                f"{self.block_kernel!r}")
+        if self.rotate_chunks != "auto" and (
+                not isinstance(self.rotate_chunks, int)
+                or isinstance(self.rotate_chunks, bool)
+                or self.rotate_chunks < 1):
+            raise DeepSpeedConfigError(
+                f"sequence.rotate_chunks must be an int >= 1 or 'auto', "
+                f"got {self.rotate_chunks!r}")
+
+
+@dataclass
+class CommsLoggerConfig:
+    enabled: bool = False
+    verbose: bool = False
+    prof_all: bool = True
+    debug: bool = False
+
+
+@dataclass
 class OptimizerConfig:
     type: str = "AdamW"
     params: dict = field(default_factory=dict)
@@ -177,16 +225,12 @@ def _unported(raw, zero, fp16):
                     "M14, offload"))
     if int(raw.get(C.PIPELINE, {}).get("stages", 1)) > 1:
         out.append(("pipeline", "M13"))
-    if raw.get("sequence") or raw.get(C.SEQUENCE_PARALLEL_SIZE, 1) > 1:
-        out.append(("sequence / sequence_parallel_size", "M12"))
     if raw.get(C.EXPERT_PARALLEL_SIZE, 1) > 1:
         out.append(("expert_parallel_size > 1", "M10, MoE expert parallel"))
     if int(raw.get(C.TENSOR_PARALLEL, {}).get("size", 1)) > 1:
         out.append(("tensor_parallel", "M5"))
     if _enabled(raw.get("comm_overlap")):
         out.append(("comm_overlap", "M5"))
-    if _enabled(raw.get(C.COMMS_LOGGER)):
-        out.append(("comms_logger", "M5"))
     if raw.get("quantize"):
         out.append(("quantize", "M11"))
     if _enabled(raw.get("telemetry")):
@@ -250,6 +294,11 @@ class DeepSpeedConfig:
             raise DeepSpeedConfigError("fp16 and bf16 cannot both be enabled")
         self.zero = _take(config, ZeroConfig, C.ZERO_OPTIMIZATION)
         self.moe = _take(config, MoEConfig, "moe")
+        self.sequence = _take(config, SequenceConfig, "sequence")
+        self.sequence_parallel_size = int(
+            config.get(C.SEQUENCE_PARALLEL_SIZE, 1))
+        self.comms_logger = _take(config, CommsLoggerConfig,
+                                  C.COMMS_LOGGER)
 
         opt = config.get(C.OPTIMIZER)
         self.optimizer = None if opt is None else _take(

@@ -1,4 +1,5 @@
-"""DeepSpeedEngine — the training engine, eager PyTorch on one card.
+"""DeepSpeedEngine — the training engine, eager PyTorch, one card a
+process.
 
 Counterpart of ``deepspeed_tpu/runtime/engine.py`` ``train_batch``
 (engine.py:599-695, :1315-1400): working parameters in the precision
@@ -15,9 +16,18 @@ or ``gpt2_moe_params_from_numpy``), casts every one to the precision dtype
 and takes the fp32 master from those, as JAX's engine.py:468-474 does (so
 a router the model keeps in fp32 enters a bf16 engine's master rounded).
 It installs the config's ``moe`` block on the model as ``model._moe_cfg``
-and drives ``model.loss(batch)``. ZeRO stages 0-3 are accepted: at world
-size 1 they partition nothing and give the same result. A multi-process
-world raises (ROADMAP Queue 1, M5).
+and drives ``model.loss(batch)``. ZeRO stages 0-3 are accepted: with one
+data-parallel rank they partition nothing and give the same result.
+
+A multi-process world (``utils/groups.py``) is one of
+``sequence_parallel_size`` ranks with dp = 1; a data-parallel world of
+more than one rank raises (ROADMAP Queue 1, S9). As the JAX engine
+(engine.py:1298-1312), every rank passes the same global batch; with
+seq > 1 the model's loss runs seq-sharded (``_model_loss``, JAX
+engine.py:565-567), each rank computing its sequence block, and the
+gradients are summed over the group in fp32 before the overflow check,
+clipping and the update, so every rank applies the same step. Rank 0's
+initial parameters are broadcast at construction.
 """
 
 import os
@@ -25,20 +35,16 @@ import os
 import numpy as np
 import torch
 
+from .. import comm
 from ..ops.optimizers import build_optimizer
+from ..utils import groups
 from ..utils.device import resolve_device
 from ..utils.logging import log_dist
 from .config import DeepSpeedConfig
 from .fp16.loss_scaler import create_loss_scaler, grads_finite
 
-_TODO_MP = "(ROADMAP Queue 1, M5: comm, ZeRO sharding over NCCL)"
+_TODO_DP = "(ROADMAP Queue 1, S9: ZeRO sharding at dp > 1)"
 _TODO_CKPT = "(ROADMAP Queue 1, M7: checkpoints)"
-
-
-def _world_size():
-    if torch.distributed.is_available() and torch.distributed.is_initialized():
-        return torch.distributed.get_world_size()
-    return int(os.environ.get("WORLD_SIZE", "1"))
 
 
 def _jax_order(names):
@@ -52,17 +58,32 @@ def _jax_order(names):
 
 class DeepSpeedEngine:
     def __init__(self, model, config, optimizer=None, lr_scheduler=None,
-                 device=None):
-        if _world_size() > 1:
-            raise NotImplementedError(
-                f"the PyTorch engine runs one process on one card; a "
-                f"multi-process world is not ported yet {_TODO_MP}")
+                 device=None, topology=None):
         if lr_scheduler is not None:
             raise NotImplementedError(
                 "lr_scheduler objects are not ported yet (ROADMAP Queue 1, "
                 "M4: LR schedules)")
         self.config = (config if isinstance(config, DeepSpeedConfig)
                        else DeepSpeedConfig(config, dp_world_size=1))
+        if int(os.environ.get("WORLD_SIZE", "1")) > 1 and \
+                not comm.is_initialized():
+            raise RuntimeError(
+                f"WORLD_SIZE={os.environ['WORLD_SIZE']} but this process "
+                f"has joined no world: call deepspeed_tpu_torch.initialize "
+                f"(or comm.init_distributed) first")
+        if topology is None:
+            topology = groups.initialize(groups.TopologyConfig(
+                seq_parallel_size=self.config.sequence_parallel_size))
+        dp = topology.get_data_parallel_world_size()
+        if dp > 1:
+            raise NotImplementedError(
+                f"a data-parallel world of {dp} ranks (world "
+                f"{topology.world_size}, seq "
+                f"{topology.get_sequence_parallel_world_size()}) is not "
+                f"ported yet {_TODO_DP}")
+        self.topology = topology
+        self.seq_parallel = topology.get_sequence_parallel_world_size()
+        comm.configure(self.config)
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.zero_stage = self.config.zero.stage
@@ -99,6 +120,14 @@ class DeepSpeedEngine:
                 "moe config block could not be installed on the model "
                 "(attribute assignment rejected); MoE layers will use "
                 "the module defaults", ranks=[0])
+        # the 'sequence' block: ring attention reads it when seq-sharded
+        try:
+            self.model._sequence_cfg = self.config.sequence
+        except (AttributeError, TypeError):
+            log_dist(
+                "sequence config block could not be installed on the model "
+                "(attribute assignment rejected); ring attention will use "
+                "the module defaults", ranks=[0])
 
         # state: working params (the module's own tensors), fp32 master,
         # optimizer state, loss-scale state, step
@@ -107,6 +136,8 @@ class DeepSpeedEngine:
         with torch.no_grad():
             for p in params.values():
                 p.data = p.data.to(self.param_dtype)
+            if topology.world_size > 1:     # every rank starts from rank 0's
+                self._broadcast(params)
             master = {n: params[n].detach().float().clone()
                       for n in self._names}
         self.state = {
@@ -118,9 +149,32 @@ class DeepSpeedEngine:
         }
         log_dist(
             f"engine ready: zero_stage={self.zero_stage} "
-            f"dtype={self.param_dtype} dp=1 device={self.device} "
+            f"dtype={self.param_dtype} dp=1 sp={self.seq_parallel} "
+            f"device={self.device} "
             f"micro_bs={self.config.train_micro_batch_size_per_gpu} "
             f"gas={self.config.gradient_accumulation_steps}", ranks=[0])
+
+    def _broadcast(self, params):
+        """Rank 0's parameters to every rank, one flat buffer a dtype."""
+        by_dtype = {}
+        for n in self._names:
+            by_dtype.setdefault(params[n].dtype, []).append(params[n])
+        for ps in by_dtype.values():
+            flat = comm.broadcast(torch.cat([p.reshape(-1) for p in ps]),
+                                  groups.GRAD_REDUCE_AXES)
+            for p, f in zip(ps, flat.split([p.numel() for p in ps])):
+                p.copy_(f.view_as(p))
+
+    def _sum_over_seq(self, grads):
+        """Each rank's gradient share summed over the seq group in fp32
+        (one flat all-reduce), back in the accumulation dtype."""
+        flat = torch.cat([grads[n].float().reshape(-1) for n in self._names])
+        flat = comm.all_reduce(flat, "seq")
+        out = {}
+        for n, f in zip(self._names, flat.split(
+                [grads[n].numel() for n in self._names])):
+            out[n] = f.view_as(grads[n]).to(grads[n].dtype)
+        return out
 
     # ------------------------------------------------------------- batches
     def _add_gas_dim(self, x):
@@ -138,10 +192,14 @@ class DeepSpeedEngine:
         params = self.state["params"]
         for p in params.values():
             p.grad = None
-        loss = self.model.loss(micro, train=True)
+        loss = self._model_loss(micro)
         (loss * scale).backward()
         grads = {n: params[n].grad.to(self.grad_dtype) for n in self._names}
         return loss.detach(), grads
+
+    def _model_loss(self, micro):
+        kwargs = {"seq_sharded": True} if self.seq_parallel > 1 else {}
+        return self.model.loss(micro, train=True, **kwargs)
 
     def _unscale_clip(self, grads, scale):
         """Unscale, overflow check and global-norm clip (engine.py:609-628):
@@ -179,6 +237,8 @@ class DeepSpeedEngine:
                 for n, g in grads.items():
                     acc[n] += g / gas
         loss = losses[0] if gas == 1 else torch.stack(losses).mean()
+        if self.seq_parallel > 1:
+            acc = self._sum_over_seq(acc)
         metrics = self._apply_update(acc)
         metrics["loss"] = loss
         self.global_step += 1

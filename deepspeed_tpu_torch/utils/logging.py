@@ -1,8 +1,8 @@
 """Logging for the PyTorch port.
 
-Own copy of ``deepspeed_tpu/utils/logging.py`` (``logger``, ``log_dist``),
-single-process: the serving slice runs one process on one card, so every
-message is logged as rank 0.
+Own copy of ``deepspeed_tpu/utils/logging.py`` (``logger``, ``log_dist``):
+``log_dist`` logs on the listed ranks of the ``torch.distributed`` world
+(rank 0 when no world is initialized).
 """
 
 import logging
@@ -35,7 +35,16 @@ logger = _create_logger(
                          logging.INFO))
 
 
+def _rank():
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank()
+    return 0
+
+
 def log_dist(message, ranks=None, level=logging.INFO):
-    """Log ``message`` when rank 0 is among ``ranks`` (None / [-1] = all)."""
-    if ranks is None or -1 in ranks or 0 in ranks:
-        logger.log(level, f"[Rank 0] {message}")
+    """Log ``message`` when this process's rank is among ``ranks`` (None /
+    [-1] = all)."""
+    rank = _rank()
+    if ranks is None or -1 in ranks or rank in ranks:
+        logger.log(level, f"[Rank {rank}] {message}")

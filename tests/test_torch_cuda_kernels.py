@@ -3,7 +3,8 @@ and backward, fused CE, the MoE grouped matmuls and their backward, the
 weight-only int8/int4 products K7 and K9, the LayerNorm forward and
 backward K13, the layout-owning projection and its dW K6, the
 query-major flash backward and the block-sparse forward, dq and dk/dv
-K11), held
+K11, the ring block step K10 and the blockwise int8 quantize /
+dequantize K12, bitwise for K12), held
 against their plain PyTorch versions at
 small shapes (bf16 against the plain version in fp32
 on the same inputs, chip_smoke.bf16_mismatch; fp32 at 1e-4).
@@ -25,6 +26,7 @@ from deepspeed_tpu_torch.ops.cuda import grouped_matmul as gm
 from deepspeed_tpu_torch.ops.cuda import layernorm as ln
 from deepspeed_tpu_torch.ops.cuda import mlp_matmul as mm
 from deepspeed_tpu_torch.ops.cuda import paged_attention as pa
+from deepspeed_tpu_torch.ops.cuda import quantization as qz
 from deepspeed_tpu_torch.ops.sparse_attention import (
     BigBirdSparsityConfig, FixedSparsityConfig, SparseSelfAttention)
 
@@ -701,3 +703,90 @@ def test_new_attention_kernels_never_take_the_plain_path(monkeypatch):
     torch.cuda.synchronize()
     with pytest.raises(ValueError, match="block"):
         bsa.block_sparse_attention(q, q, q, np.ones((2, 8, 8), bool), 8)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("BH,C,d", [(4, 200, 64), (3, 130, 32),
+                                    (2, 64, 128), (8, 1024, 64)])
+def test_flash_block_fwd_kernel(dtype, BH, C, d):
+    """K10 chained over a diagonal-causal pair and a full pair, in place on
+    views of one state (the zigzag halves), against its plain version."""
+    g = torch.Generator(device="cuda").manual_seed(C)
+    q, k1, v1, k2, v2 = (torch.randn(BH, C, d, generator=g,
+                                     device="cuda").to(dtype)
+                         for _ in range(5))
+    q = fa.scale_q(q, d ** -0.5)
+    big = fa.flash_block_state(BH, 2 * C, d, device="cuda")
+    st = tuple(x[:, C:] for x in big)
+    ref = fa.flash_block_state(BH, C, d, device="cuda")
+    for k, v, causal in ((k1, v1, True), (k2, v2, False)):
+        assert fa.flash_block_fwd(q, k, v, st, causal=causal) is st
+        ref = fa.flash_block_fwd_reference(q.float(), k.float(), v.float(),
+                                           ref, causal=causal)
+    o, lse = fa.flash_block_finalize(st)
+    ro, rlse = fa.flash_block_finalize(ref)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(lse, rlse, rtol=0, atol=1e-4)
+    if dtype == torch.bfloat16:
+        assert chip_smoke.bf16_mismatch(o.to(dtype), ro) is None
+    else:
+        torch.testing.assert_close(o, ro, rtol=1e-4, atol=1e-4)
+    assert torch.equal(big[1][:, :C], torch.zeros_like(big[1][:, :C]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("R,P,block", [(1, 10_000_123, 2048), (3, 5000, 2048),
+                                       (4, 333, 64), (1, 5, 2048)])
+def test_quantize_kernels_bitwise(dtype, R, P, block):
+    g = torch.Generator(device="cuda").manual_seed(P)
+    x = (torch.randn(R, P + 7, generator=g, device="cuda") * 5).to(dtype)
+    x = x[:, :P]                        # a row stride past the row
+    x[0, :min(P, block)] = 0            # an all-zero block: scale 1
+    q, s = qz.quantize_rows(x, block)
+    rq, rs = qz.quantize_rows_reference(x, block)
+    assert torch.equal(q, rq) and torch.equal(s, rs)
+    for out in (torch.float32, dtype):
+        assert torch.equal(qz.dequantize_rows(q, s, R, P, out),
+                           qz.dequantize_rows_reference(q, s, R, P, out))
+    assert torch.equal(
+        qz.dequantize_rows(q, s, R, P, torch.float32, sum_rows=True),
+        qz.dequantize_rows_reference(q, s, R, P, torch.float32,
+                                     sum_rows=True))
+
+
+def test_ring_and_quantize_kernels_never_take_the_plain_path(monkeypatch):
+    def plain(*a, **k):
+        raise AssertionError("a CUDA tensor took a plain version")
+
+    monkeypatch.setattr(fa, "flash_block_fwd_reference", plain)
+    monkeypatch.setattr(qz, "quantize_rows_reference", plain)
+    monkeypatch.setattr(qz, "dequantize_rows_reference", plain)
+    x = torch.randn(2, 64, 64, device="cuda")
+    fa.flash_block_fwd(x, x, x, fa.flash_block_state(2, 64, 64, "cuda"))
+    q, s, meta = qz.quantize_blockwise(x)
+    qz.dequantize_blockwise(q, s, meta)
+    torch.cuda.synchronize()
+
+
+def test_mm_f32_gradient_on_the_card():
+    """The bf16 full-logits head (``models/common.mm_f32``) backpropagates
+    on the card: the gradient equals the CPU path's a.float() @ b.float()
+    computed on the card."""
+    from deepspeed_tpu_torch.models.common import mm_f32
+    g = torch.Generator(device="cuda").manual_seed(0)
+    a, b = (torch.randn(s, generator=g, device="cuda").to(torch.bfloat16)
+            for s in ((64, 96), (96, 200)))
+    gout = torch.randn(64, 200, generator=g, device="cuda")
+    a1, b1 = a.clone().requires_grad_(), b.clone().requires_grad_()
+    out = mm_f32(a1, b1.t().contiguous().t())
+    assert out.dtype == torch.float32
+    da, db = torch.autograd.grad(out, (a1, b1), gout)
+    a2, b2 = a.clone().requires_grad_(), b.clone().requires_grad_()
+    ra, rb = torch.autograd.grad(a2.float() @ b2.float(), (a2, b2), gout)
+    torch.testing.assert_close(out, a.float() @ b.float(), rtol=1e-5,
+                               atol=1e-5)
+    torch.testing.assert_close(da.float(), ra.float(), rtol=2 ** -7,
+                               atol=1e-3)
+    torch.testing.assert_close(db.float(), rb.float(), rtol=2 ** -7,
+                               atol=1e-3)

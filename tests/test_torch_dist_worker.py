@@ -1,0 +1,299 @@
+"""Worker processes for the port's multi-process tests; holds no tests.
+
+``run_world(suite, world, inputs, tmpdir)`` starts ``world`` processes of
+
+    python tests/test_torch_dist_worker.py <suite> <tmpdir>
+
+with ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and
+``MASTER_PORT`` set. Each joins a gloo world on the CPU through
+``deepspeed_tpu_torch.comm.init_distributed`` (``env://``), runs the suite
+on the inputs the parent saved (numpy arrays), and saves its results; the
+parent returns them in rank order. The workers import ``torch`` and the
+port only, never ``jax`` or the JAX package (each result says whether one
+got imported).
+
+The ``*_program`` functions take a comm module and run the same calls on
+either side: the parent passes ``deepspeed_tpu.comm`` inside a JAX
+``shard_map`` body, the workers ``deepspeed_tpu_torch.comm`` on their
+rank's block.
+"""
+
+import os
+import socket
+import subprocess
+import sys
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+# ----------------------------------------------------------------- programs
+
+def comm_program(c, x, world):
+    """Every comm op over the data axes on this rank's block ``x`` (4, 6)
+    float32; ``world`` > 2 lays the ranks out as data_outer=2 x data."""
+    out = {
+        "sum": c.all_reduce(x, "data"),
+        "avg": c.all_reduce(x, "data", op="avg"),
+        "max": c.all_reduce(x, "data", op="max"),
+        "min": c.all_reduce(x, "data", op="min"),
+        "rs0": c.reduce_scatter(x, "data", scatter_dimension=0),
+        "rs1": c.reduce_scatter(x[:, :4], "data", scatter_dimension=1),
+        "ag0": c.all_gather(x, "data", gather_dimension=0),
+        "ag1": c.all_gather(x, "data", gather_dimension=1),
+        "a2a": c.all_to_all(x, "data", 0, 1),
+        "a2a_back": c.all_to_all(x[:, :4], "data", 1, 0),
+        "bcast": c.broadcast(x, "data", src=1),
+        "fwd": c.send_forward(x, "data"),
+        "bwd": c.send_backward(x, "data"),
+        "perm": c.ppermute(x, "data", [(0, 1)]),
+        "index": x * 0 + c.axis_index("data"),
+    }
+    if world > 2:
+        both = ("data_outer", "data")
+        out.update({
+            "sum_both": c.all_reduce(x, both),
+            "ag_both": c.all_gather(x, both, gather_dimension=1),
+            "rs_outer": c.reduce_scatter(x, "data_outer"),
+            "index_both": x * 0 + c.axis_index(both),
+        })
+    return out
+
+
+def quant_program(q, x, world):
+    """The four quantized collectives (``q``: a ``comm.quantized``
+    module) on this rank's block ``x`` (N,) float32."""
+    return {
+        "rs": q.quantized_reduce_scatter(x, "data"),
+        "rs_avg": q.quantized_reduce_scatter(x.reshape(-1, 10), "data",
+                                             average=True),
+        "ag": q.quantized_all_gather(x, "data"),
+        "ag_small": q.quantized_all_gather(x[:100], "data", block=64),
+        "clamp": q.dcn_precision_clamp(x),
+        "hier": q.all_to_all_quant_reduce(x, "data", "data_outer"),
+        "hier_avg": q.all_to_all_quant_reduce(x, "data", "data_outer",
+                                              average=True, block=256),
+    }
+
+
+# ------------------------------------------------------------------ parent
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_world(suite, world, inputs, tmpdir, timeout=300):
+    """Run ``suite`` on ``world`` gloo ranks; returns their results."""
+    import torch
+    tmpdir = str(tmpdir)
+    os.makedirs(tmpdir, exist_ok=True)
+    torch.save(inputs, os.path.join(tmpdir, "inputs.pt"))
+    port = _free_port()
+    procs = []
+    for rank in range(world):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world),
+                   LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(port), OMP_NUM_THREADS="1",
+                   PYTHONPATH=ROOT)
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), suite, tmpdir],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    bad = [(i, p.returncode) for i, p in enumerate(procs) if p.returncode]
+    assert not bad, f"{suite} world {world}: ranks {bad} failed:\n" + \
+        "\n".join(log[-3000:] for log in logs)
+    outs = [torch.load(os.path.join(tmpdir, f"out_{r}.pt"),
+                       weights_only=False) for r in range(world)]
+    for r, o in enumerate(outs):
+        assert o["isolated"], f"rank {r} imported jax or deepspeed_tpu"
+    return outs
+
+
+# ----------------------------------------------------------------- workers
+
+SUITES = {}
+
+
+def _suite(fn):
+    SUITES[fn.__name__] = fn
+    return fn
+
+
+def _np(tree):
+    import torch
+    if torch.is_tensor(tree):
+        return tree.detach().float().numpy() if tree.dtype in (
+            torch.bfloat16, torch.float16) else tree.detach().numpy()
+    if isinstance(tree, dict):
+        return {k: _np(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_np(v) for v in tree)
+    return tree
+
+
+def _topology(**kw):
+    from deepspeed_tpu_torch.utils import groups
+    groups.reset()
+    return groups.initialize(groups.TopologyConfig(**kw))
+
+
+@_suite
+def comm(inp, rank, world):
+    import torch
+    from deepspeed_tpu_torch import comm as c
+    from deepspeed_tpu_torch.comm import get_comms_logger
+    from deepspeed_tpu_torch.runtime.config import CommsLoggerConfig
+    _topology(zero_shard_size=2 if world > 2 else -1)
+    lg = get_comms_logger()
+    lg.reset()
+    lg.configure(CommsLoggerConfig(enabled=True))
+    res = comm_program(c, torch.from_numpy(inp["x"][rank]), world)
+    log = {op: {ax: list(v) for ax, v in axes.items()}
+           for op, axes in lg.comms_dict.items()}
+    lg.configure(CommsLoggerConfig(enabled=False))
+    payload = bytes([rank]) * (3 * rank)           # rank 0 sends b""
+    c.barrier()
+    return {"res": _np(res), "log": log,
+            "ring": c.ring_exchange_bytes(payload),
+            "ring2": c.ring_exchange_bytes(payload, shift=2 % world),
+            "gather": c.allgather_bytes(payload),
+            "rank": c.get_rank(), "world": c.get_world_size()}
+
+
+@_suite
+def quant(inp, rank, world):
+    import torch
+    from deepspeed_tpu_torch.comm import get_comms_logger
+    from deepspeed_tpu_torch.comm import quantized as q
+    from deepspeed_tpu_torch.runtime.config import CommsLoggerConfig
+    _topology(zero_shard_size=2 if world > 2 else -1)
+    lg = get_comms_logger()
+    lg.reset()
+    lg.configure(CommsLoggerConfig(enabled=True))
+    res = quant_program(q, torch.from_numpy(inp["x"][rank]), world)
+    log = {op: {ax: list(v) for ax, v in axes.items()}
+           for op, axes in lg.comms_dict.items()}
+    return {"res": _np(res), "log": log}
+
+
+def _attn_grads(fn, q, k, v, do):
+    import torch
+    q, k, v = (x.clone().requires_grad_() for x in (q, k, v))
+    o = fn(q, k, v)
+    grads = torch.autograd.grad(o, (q, k, v), do)
+    return {"o": o, "dq": grads[0], "dk": grads[1], "dv": grads[2]}
+
+
+@_suite
+def ring(inp, rank, world):
+    import torch
+    from deepspeed_tpu_torch.sequence import ring_attention
+    from deepspeed_tpu_torch.sequence.layer import shard_sequence
+    from deepspeed_tpu_torch.sequence.ring import ring_attention_sharded
+    _topology(seq_parallel_size=world)
+    q, k, v, do = (shard_sequence(torch.from_numpy(inp[n]))
+                   for n in ("q", "k", "v", "do"))
+    out = {}
+    for name, kw in inp["cases"].items():
+        out[name] = _attn_grads(
+            lambda a, b, c: ring_attention(a, b, c, "seq", **kw), q, k, v, do)
+    # the global-tensor entry: the gathered output on every rank
+    g = [torch.from_numpy(inp[n]) for n in ("q", "k", "v")]
+    out["sharded"] = ring_attention_sharded(*g, block_kernel=False)
+    return {"res": _np(out)}
+
+
+@_suite
+def ulysses(inp, rank, world):
+    import torch
+    from deepspeed_tpu_torch.sequence import (DistributedAttention,
+                                              ulysses_attention)
+    from deepspeed_tpu_torch.sequence.layer import (_dense_causal_attention,
+                                                    shard_sequence)
+    _topology(seq_parallel_size=world)
+    q, k, v, do = (shard_sequence(torch.from_numpy(inp[n]))
+                   for n in ("q", "k", "v", "do"))
+    dist_attn = DistributedAttention(_dense_causal_attention, "seq")
+    out = {"local": _attn_grads(dist_attn, q, k, v, do),
+           "sharded": ulysses_attention(
+               *(torch.from_numpy(inp[n]) for n in ("q", "k", "v")))}
+    return {"res": _np(out)}
+
+
+def _gpt2(cfg, params):
+    import torch
+    from deepspeed_tpu_torch.models import (GPT2, GPT2Config,
+                                            gpt2_params_from_numpy)
+    model = GPT2(GPT2Config(**cfg), device="cpu")
+    model.load_state_dict(gpt2_params_from_numpy(params, "cpu",
+                                                 torch.float32))
+    return model
+
+
+@_suite
+def gpt2(inp, rank, world):
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.runtime.config import SequenceConfig
+    _topology(seq_parallel_size=world)
+    ids = torch.from_numpy(inp["ids"])
+    out = {}
+    for name, cfg in inp["models"].items():
+        model = _gpt2(cfg, inp["params"])
+        model._sequence_cfg = SequenceConfig(**inp["sequence"])
+        loss = model.loss({"input_ids": ids}, seq_sharded=True)
+        loss.backward()
+        out[name] = {"loss": loss.detach(),
+                     "grads": {n: p.grad for n, p in
+                               model.named_parameters()}}
+    for name, run in inp.get("engines", {}).items():
+        model = _gpt2(run["model"], run["params"])
+        engine, *_ = deepspeed_tpu_torch.initialize(
+            model=model, config=run["config"], device="cpu")
+        assert engine.seq_parallel == world
+        assert engine.model._sequence_cfg.block_kernel is False
+        losses = [engine.train_batch(b) for b in run["batches"]]
+        out[name] = {"losses": losses, "master": engine.state["master"]}
+    try:
+        model = _gpt2(inp["models"]["ring"], inp["params"])
+        deepspeed_tpu_torch.initialize(
+            model=model, config={"train_batch_size": 2, "optimizer": {
+                "type": "Adam", "params": {"lr": 1e-3}}}, device="cpu")
+    except NotImplementedError as e:
+        out["dp_error"] = str(e)
+    return {"res": _np(out)}
+
+
+def main():
+    suite, tmpdir = sys.argv[1], sys.argv[2]
+    sys.path.insert(0, ROOT)
+    import torch
+    torch.set_num_threads(1)
+    from deepspeed_tpu_torch import comm
+    comm.init_distributed(device="cpu", verbose=False)
+    rank, world = comm.get_rank(), comm.get_world_size()
+    inputs = torch.load(os.path.join(tmpdir, "inputs.pt"),
+                        weights_only=False)
+    out = SUITES[suite](inputs, rank, world)
+    out["isolated"] = not any(m.split(".")[0] in ("jax", "jaxlib",
+                                                   "deepspeed_tpu")
+                              for m in sys.modules)
+    torch.save(out, os.path.join(tmpdir, f"out_{rank}.pt"))
+    comm.barrier()
+    torch.distributed.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()

@@ -114,8 +114,8 @@ def test_config_errors_and_warnings_like_jax(monkeypatch):
 
 @pytest.mark.parametrize("over", [
     {"zero_optimization": {"stage": 2, "offload_optimizer": {"device": "cpu"}}},
-    {"pipeline": {"stages": 2}}, {"sequence": {"layout": "zigzag"}},
-    {"sequence_parallel_size": 2},
+    {"pipeline": {"stages": 2}}, {"tensorboard": {"enabled": True}},
+    {"parallelism": "auto"},
     {"moe": {"grouped_kernel": True}, "expert_parallel_size": 2},
     {"comm_overlap": {"enabled": True}}, {"quantize": {"int8_matmul": True}},
     {"telemetry": {"enabled": True}},

@@ -124,7 +124,7 @@ def test_unported_operands_raise_and_cpu_launches_nothing():
     o = tfa.flash_attention(q, q, q, block_q=999, block_h=7)   # knobs: no-op
     assert o.shape == q.shape
     assert tfa.LAUNCHES == {"flash_fwd": 0, "flash_bwd": 0,
-                            "flash_bwd_qmajor": 0}
+                            "flash_bwd_qmajor": 0, "flash_block_fwd": 0}
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -137,7 +137,7 @@ def test_config_and_presets_mirror_jax():
 
 def test_unported_knobs_raise():
     for over in (dict(dropout=0.1), dict(attn_layer_windows=(0, 4)),
-                 dict(attention_backend="ring"),
+                 dict(remat=True, remat_policy="save_attn"),
                  dict(remat=True, remat_policy="save_mid")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             GPT2(GPT2Config(**{**BASE, **over}), device="cpu")

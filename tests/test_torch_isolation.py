@@ -240,6 +240,90 @@ def test_attention_kernels_off_the_cpu_take_the_kernel(monkeypatch,
     assert os.listdir(tmp_path) == []
 
 
+def test_ring_and_quantize_kernels_off_the_cpu_take_the_kernel(
+        monkeypatch, tmp_path):
+    """A tensor off the CPU goes to K10 (flash_block_fwd, through the ring)
+    and the K12 quantize / dequantize kernels, and never to their plain
+    versions: here, with no nvcc, each build raises."""
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+    from deepspeed_tpu_torch.ops.cuda import quantization as qz
+    from deepspeed_tpu_torch.sequence import ring_attention
+    from deepspeed_tpu_torch.utils import groups
+    monkeypatch.setattr(builder, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(builder, "find_nvcc", lambda: None)
+    monkeypatch.setattr(fa, "_builder", None)
+    monkeypatch.setattr(qz, "_builder", None)
+
+    def plain(*a, **k):
+        raise AssertionError("a tensor off the CPU took a plain version")
+
+    monkeypatch.setattr(fa, "flash_block_fwd_reference", plain)
+    monkeypatch.setattr(qz, "quantize_rows_reference", plain)
+    monkeypatch.setattr(qz, "dequantize_rows_reference", plain)
+    groups.reset()
+    x = torch.ones(2, 64, 4, 32, device="meta")
+    f = torch.ones(8, 64, 32, device="meta")
+    q8 = torch.ones(2, 2048, dtype=torch.int8, device="meta")
+    s = torch.ones(2, 1, device="meta")
+    for call in (lambda: ring_attention(x, x, x, "seq"),
+                 lambda: fa.flash_block_fwd(
+                     f, f, f, fa.flash_block_state(8, 64, 32, "meta")),
+                 lambda: qz.quantize_blockwise(x),
+                 lambda: qz.dequantize_rows(q8, s, 2, 2048, torch.float32,
+                                            sum_rows=True)):
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            call()
+    assert os.listdir(tmp_path) == []
+
+
+_BLOCKED_SEQ_RUN = _BLOCKED_RUN.split("import dataclasses")[0] + r"""
+import torch
+from deepspeed_tpu_torch import comm, initialize
+from deepspeed_tpu_torch.comm import quantized
+from deepspeed_tpu_torch.models import GPT2, GPT2Config
+from deepspeed_tpu_torch.ops.cuda import quantization
+from deepspeed_tpu_torch.sequence import (DistributedAttention,
+                                          ring_attention, ulysses_attention)
+from deepspeed_tpu_torch.utils import groups
+comm.init_distributed(device="cpu")
+x = torch.randn(2, 16, 4, 8)
+o = ring_attention(x, x, x, "seq")
+assert torch.allclose(o, ulysses_attention(x, x, x), atol=1e-5)
+q = quantized.quantized_all_gather(x, "data")
+assert q.shape == (1,) + x.shape
+cfg = GPT2Config(n_layer=2, n_head=2, d_model=64, max_seq_len=32,
+                 vocab_size=128, dtype="float32", attention_backend="ring")
+trainer, *_ = initialize(model=GPT2(cfg, device="cpu"), device="cpu",
+                         config={"train_batch_size": 2, "optimizer": {
+                             "type": "AdamW", "params": {"lr": 1e-3}}})
+import numpy as np
+ids = np.random.RandomState(0).randint(0, 128, (2, 32))
+losses = [float(trainer.train_batch({"input_ids": ids})) for _ in range(2)]
+assert losses[1] < losses[0], losses
+assert groups.get_topology().world_size == 1
+assert not any(n.split(".")[0] in ROOTS for n in sys.modules)
+print("ISOLATED_OK")
+"""
+
+
+def test_comm_and_sequence_run_with_jax_unimportable():
+    """comm/, sequence/, utils/groups.py and ops/cuda/quantization.py
+    import and run (ring and Ulysses at one rank, a quantized gather, an
+    engine with attention_backend="ring") with the JAX package blocked;
+    the static scan above covers their sources."""
+    assert {os.path.join(PKG, f) for f in (
+        "comm/comm.py", "comm/quantized.py", "comm/logging.py",
+        "sequence/ring.py", "sequence/layer.py", "utils/groups.py",
+        "ops/cuda/quantization.py")} <= set(_port_sources())
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    env.pop("WORLD_SIZE", None)
+    res = subprocess.run([sys.executable, "-c", _BLOCKED_SEQ_RUN], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "ISOLATED_OK" in res.stdout
+
+
 def test_no_silent_cpu_fallback(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = dataclasses.replace(LLAMA_TINY, dtype="float32")
@@ -303,7 +387,8 @@ class TestOpBuilder:
         (builder.GroupedMatmulBuilder, "grouped_matmul"),
         (builder.MlpMatmulBuilder, "mlp_matmul"),
         (builder.LayerNormBuilder, "layernorm"),
-        (builder.BlockSparseAttentionBuilder, "block_sparse_attention")])
+        (builder.BlockSparseAttentionBuilder, "block_sparse_attention"),
+        (builder.QuantizationBuilder, "quantization")])
     def test_training_builders(self, cls, name):
         b = cls()
         assert b.so_path() == os.path.join(
