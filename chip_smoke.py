@@ -151,6 +151,25 @@ Phases (any failure raises and the script exits nonzero):
      and step on each rank (3 pairs forward, 3 in the remat re-run, 3
      backward pairs); step time, tokens/s, each process's peak memory, and
      what went through host memory.
+ 30. K13 RMSNorm (``fused_rmsnorm``, the last Pallas site): fp32 at 1e-4
+     (D up to 4096), bf16 and fp32 at (8, 1024, 1024) and (4, 2048, 4096)
+     against its plain version, bitwise repeats, a control (one row with
+     the scale a column off) that must fail; timed from CUDA graph replays
+     (the call is shorter than its Python launch path; the eager call is
+     timed too) beside its bound, the plain version, F.rms_norm and the
+     torch expression; then the op's
+     path: 10 calls at (8, 1024, 1024) bf16, one launch each.
+ 31. two processes sharing cuda:0 over gloo: GPT-2 at the 350M widths, 2
+     layers, fp32, ZeRO stages 0-3 at dp = 2 (gas 2, 3 steps) against the
+     same run at dp = 1: losses at 2e-5, global gradient norms at 1e-5,
+     the master within a relative error norm of 1e-4, the same loss on
+     both ranks.
+ 32. the slice: GPT-2 350M (24 layers, the bench configuration, micro 24 a
+     rank, T=1024) at dp = 2 through initialize -> train_batch, ZeRO-2 for
+     10 steps and ZeRO-3 for 3; the loss falls and agrees on both ranks;
+     exactly 24 K1, 24 K2 and 2 K3 a step on each rank; step time,
+     tokens/s, each process's peak memory and the bytes each rank staged
+     through host memory a step.
 Then one JSON line of per-kernel numbers (launches summed over the main
 paths that ran each kernel, and per path), and last the result line
 {"ok": true, "device": {...}}. Without a CUDA device it exits 2 and prints
@@ -167,6 +186,7 @@ profiler's overhead).
 import argparse
 import dataclasses
 import gc
+import itertools
 import json
 import math
 import os
@@ -226,6 +246,7 @@ SOURCES = {
     "flash_block_fwd": "deepspeed_tpu_torch/csrc/flash_attention.cu",
     "quantize_blockwise": "deepspeed_tpu_torch/csrc/quantization.cu",
     "dequantize_blockwise": "deepspeed_tpu_torch/csrc/quantization.cu",
+    "rmsnorm_fwd": "deepspeed_tpu_torch/csrc/layernorm.cu",
 }
 REPLACES = {
     "paged_decode": "deepspeed_tpu/ops/pallas/paged_attention.py:121",
@@ -250,6 +271,7 @@ REPLACES = {
     "flash_block_fwd": "deepspeed_tpu/ops/pallas/flash_attention.py:1033",
     "quantize_blockwise": "deepspeed_tpu/ops/pallas/quantization.py:60",
     "dequantize_blockwise": "deepspeed_tpu/ops/pallas/quantization.py:69",
+    "rmsnorm_fwd": "deepspeed_tpu/ops/pallas/layernorm.py:225",
 }
 
 
@@ -270,6 +292,33 @@ def time_ms(fn, iters):
         fn()
     t1.record()
     torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / iters
+
+
+def time_graph_ms(fn, iters):
+    """Mean device time of one call with the host out of the way:
+    ``iters`` calls captured in one CUDA graph, replayed between CUDA
+    events. A call shorter than its Python launch path is otherwise timed
+    at the host's pace (time_ms)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    graph.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    del graph
     return t0.elapsed_time(t1) / iters
 
 
@@ -1007,7 +1056,8 @@ def knob_launches(cfg, L, steps, chunks):
     return {"layernorm_fwd": (4 * L + chunks) * steps if fwd else 0,
             "layernorm_bwd": (2 * L + chunks) * steps if bwd else 0,
             "mlp_mm": 3 * k6 * L * steps,
-            "mlp_dw": k6 * L * steps if cfg.mlp_kernel_fuse_dw else 0}
+            "mlp_dw": k6 * L * steps if cfg.mlp_kernel_fuse_dw else 0,
+            "rmsnorm_fwd": 0}
 
 
 # ------------------------------------------------------------- MoE kernels
@@ -3581,12 +3631,339 @@ def phase_seq_slice():
             ("flash_block_fwd", "flash_bwd")}
 
 
+# ----------------------------------------------- K13 RMSNorm (phase 30)
+
+
+def phase_rmsnorm_kernel(ln, seed=0):
+    """K13's RMSNorm forward (``fused_rmsnorm``): fp32 at 1e-4 on small
+    shapes (D up to 4096, where the row is read again); bf16 and fp32 at
+    the JAX microbenchmark's (8, 1024, 1024) and at (4, 2048, 4096)
+    (Llama-2-7B's width) against the plain version (bf16: run in fp32 on
+    the same inputs, bf16_mismatch); bitwise repeats; a control (one row
+    normalised with the scale shifted by one column) that must fail; each
+    timed (device time of calls replayed from a CUDA graph, time_graph_ms;
+    the kernel also eagerly) beside its bound, the plain version,
+    ``F.rms_norm`` (the one PyTorch call) and the torch expression
+    ``x * rsqrt(x.float().pow(2).mean(-1) + eps) * scale``."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def randn(shape, dtype, s=1.0, shift=0.0):
+        return (torch.randn(shape, generator=g, device="cuda") * s
+                + shift).to(dtype)
+
+    for N, D in ((300, 384), (1000, 1024), (77, 4096)):
+        x, sc = randn((N, D), f32, 2.0, 0.5), randn((D,), f32, 0.1, 1.0)
+        torch.testing.assert_close(ln.fused_rmsnorm(x, sc),
+                                   ln.rmsnorm_reference(x, sc), **FP32_TOL)
+    err, ctrl_log, timed = 0.0, [], {}
+    for shape in ((8, 1024, 1024), (4, 2048, 4096)):
+        D = shape[-1]
+        for dt in (bf, f32):
+            x, sc = randn(shape, dt, 2.0, 0.5), randn((D,), dt, 0.1, 1.0)
+            y, again = ln.fused_rmsnorm(x, sc), ln.fused_rmsnorm(x, sc)
+            torch.cuda.synchronize()
+            assert torch.equal(y, again), f"rmsnorm {shape} does not repeat"
+            ref = ln.rmsnorm_reference(x.float(), sc.float())
+            # control: one row normalised with the scale a column off
+            ctrl = y.clone().view(-1, D)
+            r = ctrl.shape[0] // 2
+            ctrl[r] = ln.rmsnorm_reference(x.view(-1, D)[r].float(),
+                                           sc.float().roll(1)).to(dt)
+            ctrl = ctrl.view(shape)
+            if dt == bf:
+                why = bf16_mismatch(y, ref)
+                assert why is None, f"rmsnorm_fwd {shape}: {why}"
+                err = max(err, bf16_errors(y, ref)[1])
+                caught = bf16_mismatch(ctrl, ref)
+            else:
+                torch.testing.assert_close(y, ref, **FP32_TOL)
+                caught = not torch.allclose(ctrl, ref, **FP32_TOL)
+            assert caught, f"rmsnorm check let a shifted scale pass {shape}"
+            ctrl_log.append(f"{tuple(shape)} {str(dt)[6:]}")
+            # timed over 4 inputs in turn (> 50 MB together), so no call
+            # finds its x in L2 left there by the call before
+            eps, xs = 1e-5, [x] + [randn(shape, dt, 2.0, 0.5)
+                                   for _ in range(3)]
+            nxt = itertools.cycle(xs).__next__
+
+            def expression(x_):
+                return x_ * torch.rsqrt(
+                    x_.float().pow(2).mean(-1, keepdim=True) + eps) * sc
+
+            t = dict(
+                ms=time_graph_ms(lambda: ln.fused_rmsnorm(nxt(), sc), 20),
+                eager_ms=time_ms(lambda: ln.fused_rmsnorm(nxt(), sc), 50),
+                plain_ms=time_graph_ms(
+                    lambda: ln.rmsnorm_reference(nxt(), sc), 8),
+                library_ms=time_graph_ms(
+                    lambda: F.rms_norm(nxt(), [D], sc, eps), 20),
+                expression_ms=time_graph_ms(lambda: expression(nxt()), 8),
+                bound=bound(2 * x.numel() * x.element_size()
+                            + D * sc.element_size(), 4 * x.numel()))
+            timed[f"{tuple(shape)} {str(dt)[6:]}"] = t
+            log(f"rmsnorm_fwd {tuple(shape)} {dt}: {t['ms']:.4f} ms (eager "
+                f"call {t['eager_ms']:.4f}, plain {t['plain_ms']:.4f}, "
+                f"F.rms_norm {t['library_ms']:.4f}, torch expression "
+                f"{t['expression_ms']:.4f}, bound {t['bound'][0]:.4f} by "
+                f"{t['bound'][1]})")
+            del x, xs, y, again, ref, ctrl
+    log(f"rmsnorm checks ok: fp32 at 1e-4 (D = 384, 1024, 4096), bf16 max "
+        f"|err| {err:.3g}, bitwise repeats; control: one row with the "
+        f"scale a column off fails at " + ", ".join(ctrl_log))
+    main_key = "(8, 1024, 1024) bfloat16"
+    row = dict(timed.pop(main_key), shape=main_key, max_abs_err=err,
+               library="F.rms_norm")
+    row["other"] = {k: {k2: (v2[0] if k2 == "bound" else v2)
+                        for k2, v2 in v.items()} for k, v in timed.items()}
+    torch.cuda.empty_cache()
+    return {"rmsnorm_fwd": row}
+
+
+def phase_rmsnorm_op(ln, seed=0, calls=10):
+    """The op's path: ``fused_rmsnorm`` called ``calls`` times at the JAX
+    microbenchmark's (8, 1024, 1024) bf16 (the public op is the entry
+    point: no JAX model calls it); one launch a call; the output holds
+    against the plain version."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    x = torch.randn((8, 1024, 1024), generator=g, device="cuda").to(
+        torch.bfloat16)
+    sc = (1 + 0.1 * torch.randn((1024,), generator=g, device="cuda")).to(
+        torch.bfloat16)
+    ln.reset_launch_counts()
+    for _ in range(calls):
+        y = ln.fused_rmsnorm(x, sc)
+    torch.cuda.synchronize()
+    launches = dict(ln.LAUNCHES)
+    assert launches == {"layernorm_fwd": 0, "layernorm_bwd": 0,
+                        "rmsnorm_fwd": calls}, launches
+    why = bf16_mismatch(y, ln.rmsnorm_reference(x.float(), sc.float()))
+    assert why is None, f"rmsnorm op: {why}"
+    log(f"fused_rmsnorm op: {calls} calls at (8, 1024, 1024) bf16, "
+        f"launches {launches}")
+    return {"rmsnorm_fwd": launches["rmsnorm_fwd"]}
+
+
+# ------------------------- ZeRO at dp = 2 over gloo on cuda:0 (31-32)
+
+
+def zero_config(stage, **over):
+    """The JAX bench configuration (benchmarks/bench_engine.py:182-206)
+    at ZeRO ``stage``."""
+    return {"gradient_accumulation_steps": 1, "steps_per_print": 0,
+            "optimizer": {"type": "AdamW",
+                          "params": {"lr": 2e-4, "weight_decay": 0.01}},
+            "gradient_clipping": 1.0, "bf16": {"enabled": True},
+            "zero_optimization": {"stage": stage}, **over}
+
+
+def child_zero_parity():
+    """Phase 31 in one rank: GPT-2 at the 350M widths with 2 layers, fp32,
+    3 train_batch steps (gas 2) at dp = 2 for ZeRO stages 0-3 against the
+    same run at dp = 1 (a one-rank topology, no collectives) in the same
+    process: every step's loss and global gradient norm, and the gathered
+    fp32 master (the whole master's relative error norm, and the three
+    leaves with the largest)."""
+    from deepspeed_tpu_torch import GPT2, GPT2_PRESETS, comm, initialize
+    from deepspeed_tpu_torch.utils import groups
+    rank, world = child_world()
+    cfg = dataclasses.replace(GPT2_PRESETS["350M"], n_layer=2,
+                              max_seq_len=1024, dtype="float32", remat=False,
+                              use_flash_attention=False)
+    rs = np.random.RandomState(0)
+    batches = [{"input_ids": rs.randint(0, cfg.vocab_size, (4, 1024))
+                .astype(np.int32)} for _ in range(3)]
+
+    def run(stage, topology=None):
+        engine, *_ = initialize(
+            model=GPT2(cfg, device="cuda:0", seed=1), device="cuda:0",
+            topology=topology, config=zero_config(
+                stage, train_batch_size=4, gradient_accumulation_steps=2,
+                bf16={"enabled": False}))
+        losses, norms = [], []
+        for b in batches:
+            losses.append(float(engine.train_batch(b)))
+            norms.append(engine.get_global_grad_norm())
+        return engine.dp, losses, norms, engine.gathered_master()
+
+    one = groups.ParallelTopology(groups.TopologyConfig(), world_size=1,
+                                  rank=0)
+    _, ref_losses, ref_norms, ref = run(0, one)
+    ref_sq = sum(float(r.square().sum()) for r in ref.values())
+    out = {"rank": rank, "ref_losses": ref_losses, "ref_norms": ref_norms,
+           "stages": {}}
+    comm.get_comms_logger().reset()
+    for stage in range(4):
+        dp, losses, norms, master = run(stage)
+        leaves = sorted(((n, rel_norm(master[n], ref[n])) for n in ref),
+                        key=lambda t: -t[1])
+        diff_sq = sum(float((master[n] - ref[n]).square().sum())
+                      for n in ref)
+        out["stages"][stage] = {"dp": dp, "losses": losses,
+                                "grad_norms": norms,
+                                "master_rel_norm": (diff_sq / ref_sq) ** 0.5,
+                                "worst_leaves": leaves[:3]}
+        del master
+    out["staged"] = {k: list(v) for k, v in
+                     comm.get_comms_logger().host_staged.items()}
+    return out
+
+
+def phase_zero_parity():
+    """Phase 31: two processes on cuda:0 over gloo (child_zero_parity):
+    each ZeRO stage at dp = 2 gives dp = 1's losses (2e-5 relative), global
+    gradient norms (1e-5 relative: the reduced gradients, counted once)
+    and master (relative error norm 1e-4), the same loss on both ranks.
+    The per-leaf figures are logged, not held: Adam turns fp32 noise in a
+    gradient that is zero in exact arithmetic (the key bias's: softmax
+    ignores a shift common to a row's scores) into steps of up to lr, so
+    a leaf holding it differs by more than its own rounding."""
+    reps = run_children("zero-parity")
+    for r in reps:
+        for stage, res in r["stages"].items():
+            assert res["dp"] == 2, res
+            for got, want in zip(res["losses"], r["ref_losses"]):
+                assert abs(got - want) <= 2e-5 * abs(want),                     (stage, res["losses"], r["ref_losses"])
+            for got, want in zip(res["grad_norms"], r["ref_norms"]):
+                assert abs(got - want) <= 1e-5 * want, \
+                    (stage, res["grad_norms"], r["ref_norms"])
+            assert res["master_rel_norm"] <= 1e-4, (stage, res)
+    for stage in reps[0]["stages"]:
+        assert reps[0]["stages"][stage]["losses"] == \
+            reps[1]["stages"][stage]["losses"], stage
+    log("ZeRO at dp = 2 over gloo on cuda:0, GPT-2 at the 350M widths, 2 "
+        "layers, fp32, 3 steps (gas 2) against dp = 1: " + "; ".join(
+            f"stage {st} losses {res['losses']} (dp = 1 "
+            f"{reps[0]['ref_losses']}), grad norms {res['grad_norms']} "
+            f"(dp = 1 {reps[0]['ref_norms']}), master relative error norm "
+            f"{max(r['stages'][st]['master_rel_norm'] for r in reps):.3g}, "
+            f"largest leaves {res['worst_leaves']}"
+            for st, res in reps[0]["stages"].items()))
+    log(f"phase 31 host-staged per rank, stages 0-3, op -> [calls, bytes] "
+        f"{reps[0]['staged']}")
+
+
+PHASE32 = dict(micro=24, seq_len=1024, steps={2: 10, 3: 3})
+
+
+def child_zero_train():
+    """Phase 32 in one rank: GPT-2 350M (all 24 layers, the JAX bench
+    configuration: bf16 + fp32 master, AdamW, clip 1.0, save_flash, fused
+    CE kernel, micro 24, T=1024) at dp = 2 through initialize ->
+    train_batch, ZeRO-2 for 10 steps and ZeRO-3 for 3, each on one
+    numpy-seeded global batch; reports per stage the losses, step times,
+    this process's peak memory after the engine's build, the kernels'
+    launches and what went through host memory."""
+    from deepspeed_tpu_torch import GPT2, GPT2_PRESETS, comm, initialize
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+    from deepspeed_tpu_torch.ops.cuda import fused_ce as fce
+    from deepspeed_tpu_torch.ops.cuda import quantization as qz
+    rank, world = child_world()
+    p = PHASE32
+    cfg = dataclasses.replace(
+        GPT2_PRESETS["350M"], max_seq_len=p["seq_len"],
+        use_flash_attention=True, remat=True, remat_policy="save_flash",
+        loss_chunk=512, fused_loss=True, fused_loss_kernel=True)
+    batch = {"input_ids": np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (world * p["micro"], p["seq_len"])).astype(
+            np.int32)}
+    out = {"rank": rank, "params": cfg.num_params()}
+    for stage, steps in p["steps"].items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        engine, *_ = initialize(
+            model=GPT2(cfg, device="cuda:0", seed=0), device="cuda:0",
+            config=zero_config(
+                stage, train_micro_batch_size_per_gpu=p["micro"]))
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        comm.get_comms_logger().reset()
+        torch.cuda.reset_peak_memory_stats()
+        for mod in (fa, fce, qz):
+            mod.reset_launch_counts()
+        losses, times = [], []
+        for _ in range(steps):
+            t1 = time.perf_counter()
+            losses.append(float(engine.train_batch(batch)))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+        out[f"zero{stage}"] = {
+            "dp": engine.dp, "losses": losses, "step_s": times,
+            "build_s": build_s,
+            "launches": {**fa.LAUNCHES, **fce.LAUNCHES, **qz.LAUNCHES},
+            "max_memory_allocated_gb":
+                torch.cuda.max_memory_allocated() / 1e9,
+            "staged": {k: list(v) for k, v in
+                       comm.get_comms_logger().host_staged.items()}}
+        del engine
+    return out
+
+
+def phase_zero_slice():
+    """Phase 32: GPT-2 350M at dp = 2 over two processes on cuda:0
+    (child_zero_train): for ZeRO-2 and ZeRO-3, the loss falls and is the
+    same on both ranks, and each step launches exactly 24 K1, 24 K2 and 2
+    K3 on each rank (no K2-qmajor, K10 or K12); step time, tokens/s, each
+    process's peak memory and the bytes each rank staged through host
+    memory a step."""
+    reps = run_children("zero-train")
+    p = PHASE32
+    L, total = 24, {}
+    for stage, steps in p["steps"].items():
+        key = f"zero{stage}"
+        want = {"flash_fwd": L * steps, "flash_bwd": L * steps,
+                "flash_bwd_qmajor": 0, "flash_block_fwd": 0,
+                "fused_ce": 2 * steps, "quantize_blockwise": 0,
+                "dequantize_blockwise": 0}
+        for r in reps:
+            res = r[key]
+            assert res["dp"] == 2, res["dp"]
+            assert res["launches"] == want, (r["rank"], key,
+                                             res["launches"], want)
+            assert all(math.isfinite(x) for x in res["losses"]), res
+            assert res["losses"][-1] < res["losses"][0], res["losses"]
+        assert reps[0][key]["losses"] == reps[1][key]["losses"], \
+            (key, reps[0][key]["losses"], reps[1][key]["losses"])
+        for k, v in want.items():
+            total[k] = total.get(k, 0) + 2 * v
+        times = [max(a, b) for a, b in zip(reps[0][key]["step_s"],
+                                           reps[1][key]["step_s"])]
+        step_s = float(np.median(times[1:]))
+        tokens = 2 * p["micro"] * p["seq_len"]
+        staged = reps[0][key]["staged"]
+        stats = dict(
+            stage=stage, steps=steps, losses=reps[0][key]["losses"],
+            step_s=times, step_s_median_after_first=step_s,
+            tokens_per_s=tokens / step_s,
+            engine_build_s=[r[key]["build_s"] for r in reps],
+            max_memory_allocated_gb=[r[key]["max_memory_allocated_gb"]
+                                     for r in reps],
+            host_staged_gb_per_rank_step=sum(
+                b for _, b in staged.values()) / steps / 1e9,
+            launches_per_step_per_rank={k: v // steps
+                                        for k, v in want.items()},
+            params=reps[0]["params"])
+        ZERO_STATS[key] = stats
+        log(f"gpt2-350M dp = 2 ZeRO-{stage} slice " + json.dumps(stats))
+        log(f"ZeRO-{stage}: per rank, {steps} steps, op -> [calls, bytes] "
+            f"through host memory over gloo (one card: NCCL refuses two "
+            f"ranks on it) {staged}")
+    return {k: v for k, v in total.items() if v}
+
+
+ZERO_STATS = {}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default="",
                     help="write a torch.profiler breakdown of the slice here")
-    ap.add_argument("--child", choices=("parity", "train"),
-                    help=argparse.SUPPRESS)      # phases 28-29's processes
+    ap.add_argument("--child", choices=("parity", "train", "zero-parity",
+                                        "zero-train"),
+                    help=argparse.SUPPRESS)      # phases 28-29, 31-32
     ap.add_argument("--child-out", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -3594,7 +3971,9 @@ def main(argv=None):
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     if args.child:
-        report = {"parity": child_parity, "train": child_train}[args.child]()
+        report = {"parity": child_parity, "train": child_train,
+                  "zero-parity": child_zero_parity,
+                  "zero-train": child_zero_train}[args.child]()
         with open(args.child_out, "w") as f:
             json.dump(report, f)
         torch.distributed.barrier()
@@ -3612,6 +3991,7 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    t_start = time.perf_counter()
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -3718,6 +4098,13 @@ def main(argv=None):
                "collectives)")
     paths["gpt2-seq-train"] = phase_seq_slice()
     phase_done("29 (GPT-2 350M at T=4096, seq = 2)")
+    rows.update(phase_rmsnorm_kernel(ln))
+    paths["rmsnorm-op"] = phase_rmsnorm_op(ln)
+    phase_done("30 (K13 RMSNorm)")
+    phase_zero_parity()
+    phase_done("31 (two processes on cuda:0: ZeRO 0-3 at dp = 2 parity)")
+    paths["gpt2-zero-train"] = phase_zero_slice()
+    phase_done("32 (GPT-2 350M at dp = 2, ZeRO-2 and ZeRO-3)")
 
     kernels = []
     for name, r in rows.items():
@@ -3732,10 +4119,14 @@ def main(argv=None):
             library_ms=r["library_ms"])
         for extra in ("shape", "chunk", "other", "dx_view", "library",
                       "dscale_dbias_rel_norm", "rel_norm", "kmajor_ms",
-                      "causal_ms"):
+                      "causal_ms", "expression_ms", "eager_ms"):
             if extra in r:
                 row[extra] = r[extra]
         kernels.append(row)
+    # again at the end, where a caller that keeps only the output's tail
+    # finds it beside the numbers
+    log(f"card: {card}; all phases took "
+        f"{time.perf_counter() - t_start:.1f} s (kernel build included)")
     print(json.dumps({"kernels": kernels}))
     # the cards this run used: every phase drives one
     print(json.dumps({"ok": True, "device": {

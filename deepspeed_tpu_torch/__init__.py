@@ -31,9 +31,14 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     (``cuda:$LOCAL_RANK``) and raises without one. Unless
     ``dist_init_required`` is False it joins the world first
     (``comm.init_distributed``: ``env://``, a no-op without
-    ``WORLD_SIZE`` or when already joined); ``topology`` is a
-    ``utils.groups.ParallelTopology`` (default: from the config's
-    ``sequence_parallel_size``)."""
+    ``WORLD_SIZE`` or when already joined). ``topology`` is a
+    ``utils.groups.ParallelTopology``; by default it is built from the
+    config as the JAX ``initialize`` builds its mesh: ``seq`` from
+    ``sequence_parallel_size``, data parallelism over the rest of
+    ``WORLD_SIZE`` (dp = WORLD_SIZE / sequence_parallel_size), split by
+    ``mics_shard_size`` / ``hpz_partition_size``; the batch triad
+    resolves against that dp. ZeRO stages 0-3 partition over the
+    data-parallel ranks (``runtime/engine.py``)."""
     if config is None:
         config = config_params
     if config is None and args is not None:

@@ -231,6 +231,21 @@ class GPT2(nn.Module):
             "bdown": const((L, D), 0.0),
         })
 
+    def partition_specs(self):
+        """The JAX model's tensor-parallel specs (gpt2.py:251-275) by
+        parameter name: "tensor" on the column-parallel out dims (wqkv,
+        wup and their biases) and the row-parallel in dims (wo, wdown).
+        The port runs no tensor axis; ZeRO's plan reads these so it leaves
+        the same dims whole as JAX (runtime/zero/partitioning.py)."""
+        col, row = (None, None, "tensor"), (None, "tensor", None)
+        vec, vec_t = (None, None), (None, "tensor")
+        blocks = {"ln1_scale": vec, "ln1_bias": vec, "wqkv": col,
+                  "bqkv": vec_t, "wo": row, "bo": vec, "ln2_scale": vec,
+                  "ln2_bias": vec, "wup": col, "bup": vec_t, "wdown": row,
+                  "bdown": vec}
+        return {"wte": (), "wpe": (), "lnf_scale": (), "lnf_bias": (),
+                **{f"blocks.{k}": v for k, v in blocks.items()}}
+
     @property
     def dtype(self):
         return self.wte.dtype

@@ -1,16 +1,21 @@
-"""One-pass LayerNorm forward and backward (K13): the Hopper CUDA kernels
-and their plain versions.
+"""One-pass LayerNorm forward and backward and the RMSNorm forward (K13):
+the Hopper CUDA kernels and their plain versions.
 
 Counterpart of ``deepspeed_tpu/ops/pallas/layernorm.py`` (``_run_fwd`` /
 ``_run_bwd``, the ``_ln`` and ``_ln_hybrid`` custom VJPs and the public
-``fused_layernorm`` / ``layernorm_fused_bwd``); the kernels are
-``csrc/layernorm.cu`` (design and bound are noted there). Same signatures:
+``fused_layernorm`` / ``layernorm_fused_bwd`` / ``fused_rmsnorm``); the
+kernels are ``csrc/layernorm.cu`` (design and bound are noted there). Same
+signatures:
 
   fused_layernorm(x, scale, bias, eps=1e-5, block_rows="auto")
       LayerNorm over the last dim, fp32 statistics, output in x's dtype;
       the kernel forward and the kernel backward (``_ln``).
   layernorm_fused_bwd(x, scale, bias, eps=1e-5, block_rows="auto")
       the plain forward and the kernel backward (``_ln_hybrid``).
+  fused_rmsnorm(x, scale, eps=1e-5, block_rows=256)
+      RMSNorm over the last dim, fp32 statistics, output in x's dtype;
+      forward only, as the TPU kernel (no JAX model calls it: the serving
+      models keep their plain norm).
 
 The backward recomputes the statistics from x (nothing but x and scale
 is saved) and returns dscale / dbias as fp32 sums over all rows cast to the
@@ -30,7 +35,7 @@ import ctypes
 
 import torch
 
-LAUNCHES = {"layernorm_fwd": 0, "layernorm_bwd": 0}
+LAUNCHES = {"layernorm_fwd": 0, "layernorm_bwd": 0, "rmsnorm_fwd": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -60,13 +65,14 @@ def kernel_builder():
         from ...op_builder.builder import LayerNormBuilder
         b = LayerNormBuilder()
         lib = b.load()
-        lib.ln_fwd_launch.argtypes = [ctypes.POINTER(_LnArgs), ctypes.c_int,
-                                      ctypes.c_void_p]
+        for fn in (lib.ln_fwd_launch, lib.rms_fwd_launch):
+            fn.argtypes = [ctypes.POINTER(_LnArgs), ctypes.c_int,
+                           ctypes.c_void_p]
         lib.ln_bwd_launch.argtypes = [ctypes.POINTER(_LnArgs), ctypes.c_int,
                                       ctypes.c_void_p, ctypes.c_void_p,
                                       ctypes.c_void_p]
         lib.ln_bwd_partial_rows.argtypes = [ctypes.c_int]
-        for fn in (lib.ln_fwd_launch, lib.ln_bwd_launch,
+        for fn in (lib.ln_fwd_launch, lib.rms_fwd_launch, lib.ln_bwd_launch,
                    lib.ln_bwd_partial_rows, lib.ln_bwd_max_d):
             fn.restype = ctypes.c_int
         _builder = b
@@ -84,6 +90,15 @@ def layernorm_reference(x, scale, bias, eps=1e-5):
     var = (x32 - mu).square().mean(-1, keepdim=True)
     y = (x32 - mu) * torch.rsqrt(var + eps)
     return (y * scale.float() + bias.float()).to(x.dtype)
+
+
+def rmsnorm_reference(x, scale, eps=1e-5):
+    """Plain RMSNorm forward (own copy of the JAX ``_rms_fwd_kernel``'s
+    math, as the Llama ``_rms_norm``): fp32 statistics, output in x's
+    dtype."""
+    x32 = x.float()
+    var = x32.square().mean(-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 
 def layernorm_bwd_reference(x, scale, dy, eps=1e-5):
@@ -132,24 +147,37 @@ def _param(p):
 
 
 def _fwd(x2, scale, bias, eps):
-    """Forward over rows (N, D) on x's device."""
+    """LayerNorm forward over rows (N, D) on x's device."""
     if x2.device.type == "cpu":
         return layernorm_reference(x2, scale, bias, eps)
-    name = "layernorm_fwd"
-    _check(name, x2, (scale, bias))
+    return _launch_fwd("layernorm_fwd", x2, scale, bias, eps)
+
+
+def _rms_fwd(x2, scale, eps):
+    """RMSNorm forward over rows (N, D) on x's device."""
+    if x2.device.type == "cpu":
+        return rmsnorm_reference(x2, scale, eps)
+    return _launch_fwd("rmsnorm_fwd", x2, scale, None, eps)
+
+
+def _launch_fwd(name, x2, scale, bias, eps):
+    """One forward kernel (``ln_fwd_launch``, or ``rms_fwd_launch`` with
+    no bias) over the rows of a CUDA ``x2``."""
+    params = (scale,) if bias is None else (scale, bias)
+    _check(name, x2, params)
     lib = kernel_builder().load()
     x2 = _rows(x2)
     N, D = x2.shape
     out = torch.empty_like(x2)
     if N == 0:
         return out
-    s, b = _param(scale), _param(bias)
-    a = _LnArgs(x2.data_ptr(), s.data_ptr(), b.data_ptr(), None,
-                out.data_ptr(), None, N, D, float(eps),
-                int(s.dtype == torch.bfloat16))
-    rc = lib.ln_fwd_launch(
-        ctypes.byref(a), _DTYPE_CODE[x2.dtype],
-        torch.cuda.current_stream(x2.device).cuda_stream)
+    s = _param(scale)
+    b = None if bias is None else _param(bias).data_ptr()
+    a = _LnArgs(x2.data_ptr(), s.data_ptr(), b, None, out.data_ptr(), None,
+                N, D, float(eps), int(s.dtype == torch.bfloat16))
+    launch = lib.ln_fwd_launch if bias is not None else lib.rms_fwd_launch
+    rc = launch(ctypes.byref(a), _DTYPE_CODE[x2.dtype],
+                torch.cuda.current_stream(x2.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
     LAUNCHES[name] += 1
@@ -247,3 +275,13 @@ def layernorm_fused_bwd(x, scale, bias, *, eps=1e-5, block_rows="auto"):
     128. ``block_rows`` changes nothing."""
     _check_d(x)
     return _LnHybridFn.apply(x, scale, bias, float(eps))
+
+
+def fused_rmsnorm(x, scale, *, eps=1e-5, block_rows=256):
+    """RMSNorm over the last dim of ``x`` (any leading shape):
+    ``x * rsqrt(mean(x^2) + eps) * scale`` with fp32 statistics, output in
+    x's dtype. Forward only, as the JAX ``fused_rmsnorm``. D must be a
+    multiple of 128. ``block_rows`` changes nothing."""
+    _check_d(x)
+    D = x.shape[-1]
+    return _rms_fwd(x.reshape(-1, D), scale, float(eps)).reshape(x.shape)

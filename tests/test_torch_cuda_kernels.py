@@ -1,7 +1,7 @@
 """The Hopper kernels on the card (paged attention, flash attention forward
 and backward, fused CE, the MoE grouped matmuls and their backward, the
 weight-only int8/int4 products K7 and K9, the LayerNorm forward and
-backward K13, the layout-owning projection and its dW K6, the
+backward and the RMSNorm forward K13, the layout-owning projection and its dW K6, the
 query-major flash backward and the block-sparse forward, dq and dk/dv
 K11, the ring block step K10 and the blockwise int8 quantize /
 dequantize K12, bitwise for K12), held
@@ -434,6 +434,26 @@ def test_layernorm_kernels(dtype, s_dtype, N, D):
     # no atomics: a second run is bitwise the first
     assert torch.equal(dx, dx2) and torch.equal(ds, ds2) and \
         torch.equal(db, db2)
+
+
+@pytest.mark.parametrize("dtype,s_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("N,D", [(37, 128), (1000, 1024), (77, 4096)])
+def test_rmsnorm_kernel(dtype, s_dtype, N, D):
+    """K13's RMSNorm against its plain version on the same inputs; one
+    launch a call; a second run is bitwise the first; D > 1024 re-reads
+    the row."""
+    rs = np.random.RandomState(13)
+    x = _rand(rs, (N, D), dtype) * 2 + 0.5
+    s = (1 + 0.1 * _rand(rs, (D,), torch.float32)).to(s_dtype)
+    n0 = ln.LAUNCHES["rmsnorm_fwd"]
+    y = ln.fused_rmsnorm(x, s)
+    y2 = ln.fused_rmsnorm(x.view(N, 1, D), s).view(N, D)
+    torch.cuda.synchronize()
+    assert ln.LAUNCHES["rmsnorm_fwd"] == n0 + 2
+    assert y.dtype == dtype and torch.equal(y, y2)
+    _assert_close(y, ln.rmsnorm_reference(x.float(), s.float()), dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

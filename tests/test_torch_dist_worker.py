@@ -266,13 +266,45 @@ def gpt2(inp, rank, world):
         assert engine.model._sequence_cfg.block_kernel is False
         losses = [engine.train_batch(b) for b in run["batches"]]
         out[name] = {"losses": losses, "master": engine.state["master"]}
-    try:
-        model = _gpt2(inp["models"]["ring"], inp["params"])
+    try:                 # GPT2MoE over a data-parallel world of `world`
+        from deepspeed_tpu_torch.models import GPT2MoE, GPT2MoEConfig
+        cfg = dict(inp["models"]["dense"], num_experts=2, moe_top_k=1,
+                   moe_backend="ragged")
         deepspeed_tpu_torch.initialize(
-            model=model, config={"train_batch_size": 2, "optimizer": {
+            model=GPT2MoE(GPT2MoEConfig(**cfg), device="cpu"),
+            config={"train_micro_batch_size_per_gpu": 1, "optimizer": {
                 "type": "Adam", "params": {"lr": 1e-3}}}, device="cpu")
     except NotImplementedError as e:
         out["dp_error"] = str(e)
+    return {"res": _np(out)}
+
+
+@_suite
+def zero(inp, rank, world):
+    """Each run of ``inp["runs"]`` through initialize -> train_batch on
+    this world (the engine builds its topology from the config): the
+    losses and global gradient norms, the gathered fp32 master, this
+    rank's master and stage-3 parameter shard shapes."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.utils import groups
+    out = {}
+    for name, run in inp["runs"].items():
+        groups.reset()
+        engine, *_ = deepspeed_tpu_torch.initialize(
+            model=_gpt2(run["model"], run["params"]), config=run["config"],
+            device="cpu")
+        losses, norms = [], []
+        for b in run["batches"]:
+            losses.append(engine.train_batch(b))
+            norms.append(engine.get_global_grad_norm())
+        out[name] = {
+            "losses": losses, "grad_norms": norms,
+            "master": engine.gathered_master(),
+            "dp": engine.dp,
+            "shard_shapes": {n: tuple(m.shape) for n, m in
+                             engine.state["master"].items()},
+            "param_shards": {n: tuple(p.shape) for n, p in
+                             engine.state["param_shards"].items()}}
     return {"res": _np(out)}
 
 

@@ -5,6 +5,13 @@ mode) on CPU: values and the gradients of (x, scale, bias), through
 ``layernorm_fused_bwd`` (plain forward + kernel backward), the port's
 kernels in their plain versions. Inputs from numpy seeds.
 
+K13's RMSNorm (``fused_rmsnorm``, forward only) against the JAX
+``fused_rmsnorm`` in interpret mode and the Llama ``_rms_norm``: (3, 37,
+256) fp32 at 1e-5 (TestFusedRMSNorm's shape and tolerance), bf16 at 2e-2
+as the LayerNorm. The kernel itself is held against its plain version on
+a card in test_torch_cuda_kernels.py (which the card's machine runs: it
+has no JAX).
+
 Shapes and tolerances are test_pallas_ops.py's (TestFusedLayerNorm,
 :682-757): (4, 37, 256) and (300, 384) fp32 at 1e-5 (values) / 1e-4
 (gradients); (2, 128, 128) bf16 at 2e-2 / 5e-2 (the outputs' own bf16
@@ -19,6 +26,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from deepspeed_tpu.models.llama import _rms_norm as jrms_norm
 from deepspeed_tpu.ops.pallas import layernorm as jln
 from deepspeed_tpu_torch.ops.cuda import layernorm as tln
 
@@ -122,3 +130,43 @@ def test_scale_grads_take_the_scale_dtype_and_no_padding_is_needed():
     for a, b in zip((gx, gs, gb), jg):
         np.testing.assert_allclose(a.float().numpy(), np.asarray(b),
                                    rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------------------------------------ RMSNorm
+
+RMS_CASES = [((3, 37, 256), "float32"), ((2, 128, 128), "bfloat16"),
+             ((300, 384), "float32"), ((4, 5, 1024), "bfloat16")]
+
+
+@pytest.mark.parametrize("shape,dt", RMS_CASES, ids=[
+    "3x37x256_f32", "2x128x128_bf16", "300x384_f32", "4x5x1024_bf16"])
+def test_rmsnorm_matches_jax(shape, dt):
+    (jx, js, _), (tx, ts, _) = _inputs(shape, dt, seed=3)
+    tol = 2e-2 if dt == "bfloat16" else 1e-5
+    ty = tln.fused_rmsnorm(tx, ts)
+    assert ty.dtype == tx.dtype and ty.shape == tx.shape
+    for want in (jln.fused_rmsnorm(jx, js, interpret=True),
+                 jrms_norm(jx, js, 1e-5)):
+        np.testing.assert_allclose(_f32(ty), _f32(want), rtol=tol,
+                                   atol=tol)
+
+
+def test_rmsnorm_eps_and_block_rows():
+    """eps reaches the statistic; ``block_rows`` changes nothing."""
+    (jx, js, _), (tx, ts, _) = _inputs((2, 9, 128), "float32", seed=4)
+    tx = tx * 1e-2
+    jx = jnp.asarray(tx.numpy())
+    for block_rows in (8, 256):
+        np.testing.assert_allclose(
+            _f32(tln.fused_rmsnorm(tx, ts, eps=1e-3, block_rows=block_rows)),
+            _f32(jln.fused_rmsnorm(jx, js, eps=1e-3, interpret=True)),
+            rtol=1e-5, atol=1e-5)
+
+
+def test_rmsnorm_rejects_untileable_feature_dim():
+    with pytest.raises(ValueError, match="128"):
+        tln.fused_rmsnorm(torch.zeros(8, 100), torch.ones(100))
+    with pytest.raises(ValueError, match="128"):
+        jln.fused_rmsnorm(jnp.zeros((8, 100)), jnp.ones(100),
+                          interpret=True)
+
