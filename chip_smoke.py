@@ -7,6 +7,10 @@ Phases (any failure raises and the script exits nonzero):
   1. card: the card's name and power limit (nvidia-smi), and the build of
      every kernel from csrc/ (one nvcc per source, all started together,
      into build/).
+ 0b. SASS: cuobjdump -sass of the fused-CE and MLP libraries; every
+     instance of the Hopper designs on sm90_gemm.cuh
+     (fused_ce_sm90_kernel, proj_mm_sm90_kernel) holds HGMMA (wgmma) and
+     UTMALDG (TMA loads); their registers and spills from ptxas.
   2. kernels: each Hopper kernel against its plain PyTorch version on the
      card at the Llama-2-7B / Mistral-7B serving shapes (bf16 against the
      plain version run in fp32 on the same inputs, see bf16_mismatch; fp32
@@ -24,7 +28,9 @@ Phases (any failure raises and the script exits nonzero):
      the fused CE unembed (K3) at the GPT-2 350M training shapes, bf16
      against their plain versions run in fp32 on the same inputs (fp32
      cases at 1e-4), one control per kernel that must fail its check, and
-     each timed beside its bound, plain version and one library call.
+     each timed beside its bound, plain version and one library call; K3's
+     bf16 design (sm90) also at a ragged N=1000, V=50000 and repeated
+     bitwise.
   6. training parity: a small fp32 GPT-2 on the card with the kernels on
      (flash + fused CE kernel, save_flash) and off (dense attention +
      fused_linear_xent) gives the same loss and gradients.
@@ -85,7 +91,9 @@ Phases (any failure raises and the script exits nonzero):
      norm), fp32 at 1e-4; controls that must fail (one CTA's rows dropped
      from dscale, dW without its last row tile, an out_t output written
      untransposed); each timed beside its bound, plain version and one
-     library call (F.layer_norm forward / backward, torch.matmul).
+     library call (F.layer_norm forward / backward, torch.matmul); K6's
+     bf16 design (sm90) also at ragged I, J and C in every orientation,
+     and each product repeated bitwise.
  19. K13 / K6 parity: a small fp32 GPT-2 with fused_layernorm in {True,
      "bwd"}, mlp_kernel in {"down", "both"} and fuse_dw both ways, and a
      GPT2MoE with fused_layernorm, give the knobs-off loss and gradients.
@@ -170,8 +178,12 @@ Phases (any failure raises and the script exits nonzero):
      exactly 24 K1, 24 K2 and 2 K3 a step on each rank; step time,
      tokens/s, each process's peak memory and the bytes each rank staged
      through host memory a step.
+Phases 7, 13, 20, 24 and 32 also hold every bf16 K3 / K6 launch to the
+sm90 design (the wrappers' DESIGN_LAUNCHES).
 Then one JSON line of per-kernel numbers (launches summed over the main
-paths that ran each kernel, and per path), and last the result line
+paths that ran each kernel, and per path; the sm90 rows with the design
+their main-path launches went to and their SASS counts), and last the
+result line
 {"ok": true, "device": {...}}. Without a CUDA device it exits 2 and prints
 no result. ``--profile PATH`` also writes torch.profiler breakdowns of the
 serving slice's device time to PATH, of three extra training steps to
@@ -378,17 +390,14 @@ def decode_with_blocks_dropped(pa, q, k, v, tables, lengths):
 
 
 def ptxas_summary(build_log):
-    """(kernel entry, registers, spill store bytes) for each instance in an
-    nvcc -Xptxas -v log."""
+    """(mangled kernel symbol, registers, spill store bytes) for each
+    instance in an nvcc -Xptxas -v log."""
     import re
     out, entry = [], None
     for line in build_log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             entry = m.group(1)
-            name = re.search(r"\d+([a-z_]+_kernel)(I\w*?)E", entry)
-            if name:
-                entry = name.group(1) + name.group(2)
             spill = 0
             continue
         m = re.search(r"(\d+) bytes spill stores", line)
@@ -399,6 +408,88 @@ def ptxas_summary(build_log):
             out.append((entry, int(m.group(1)), spill))
             entry = None
     return out
+
+
+# the Hopper designs (sm90_gemm.cuh) by library: their SASS must hold
+# wgmma (HGMMA) and TMA loads (UTMALDG)
+SM90_KERNELS = {"fused_ce": "fused_ce_sm90_kernel",
+                "mlp_matmul": "proj_mm_sm90_kernel"}
+
+
+def find_cuobjdump():
+    """cuobjdump from the CUDA toolkit, else the copy in Triton's package;
+    raises when neither has it."""
+    found = ["/usr/local/cuda/bin/cuobjdump"]
+    try:
+        import triton
+        found.append(os.path.join(os.path.dirname(triton.__file__),
+                                  "backends", "nvidia", "bin", "cuobjdump"))
+    except ImportError:
+        pass
+    for path in found:
+        if os.path.exists(path):
+            return path
+    raise RuntimeError(f"cuobjdump not found (looked at {found})")
+
+
+def phase_sass(builders):
+    """Phase 0b: the SASS of every sm90 kernel instance (cuobjdump -sass on
+    the built libraries) holds HGMMA and UTMALDG; logs each instance's
+    counts of both and its registers and spilled bytes from ptxas."""
+    import re
+    tool = find_cuobjdump()
+    report = {}
+    for b in builders:
+        want = SM90_KERNELS.get(b.NAME)
+        if want is None:
+            continue
+        regs = {e: (r, sp) for e, r, sp in ptxas_summary(b.build_log)}
+        sass = subprocess.run([tool, "-sass", b.so_path()],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        counts, cur = {}, None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                cur = m.group(1) if want in m.group(1) else None
+                if cur:
+                    counts[cur] = [0, 0]
+            elif cur:
+                counts[cur][0] += "HGMMA" in line
+                counts[cur][1] += "UTMALDG" in line
+        assert counts, f"{b.NAME}: no {want} in the SASS of {b.so_path()}"
+        for name, (hgmma, utmaldg) in counts.items():
+            assert hgmma and utmaldg, \
+                f"{name}: {hgmma} HGMMA, {utmaldg} UTMALDG in its SASS"
+            r, sp = regs.get(name, (None, None))
+            report[name] = dict(hgmma=hgmma, utmaldg=utmaldg, registers=r,
+                                spill_bytes=sp)
+            log(f"SASS {name}: {hgmma} HGMMA, {utmaldg} UTMALDG; ptxas "
+                f"{r} registers, {sp} bytes spilled")
+    return report
+
+
+# K3 / K6 launches of the main paths by design: {kernel: {design: n}}
+PATH_DESIGNS = {}
+
+
+def count_designs(name, by):
+    acc = PATH_DESIGNS.setdefault(name, {})
+    for k, v in by.items():
+        acc[k] = acc.get(k, 0) + v
+
+
+def assert_sm90(tag, *mods, main_path=False):
+    """Every K3 / K6 launch of the run just read (the ``LAUNCHES`` of the
+    wrapper modules ``mods``) went to the sm90 design; ``main_path``: the
+    run was a main path, whose counts go to PATH_DESIGNS."""
+    for mod in mods:
+        for name, by in mod.DESIGN_LAUNCHES.items():
+            assert by["sm90"] == mod.LAUNCHES[name] and not any(
+                v for k, v in by.items() if k != "sm90"), \
+                (tag, name, by, mod.LAUNCHES[name])
+            if main_path:
+                count_designs(name, by)
 
 
 def bound(nbytes, flops):
@@ -651,10 +742,28 @@ def serve(eng, uids):
     return first, done
 
 
+# the kernel families PERF.md reports for the GPT-2 training profiles, by
+# a substring of the kernel's name (the first family that matches)
+PROFILE_FAMILIES = (
+    ("K6", ("proj_mm",)), ("fused CE", ("fused_ce",)), ("flash", ("flash",)),
+    ("K13", ("ln_fwd", "ln_bwd", "ln_reduce", "rms_fwd")),
+    ("cuBLAS", ("nvjet", "gemm", "cutlass")), ("reductions", ("reduce",)),
+    ("elementwise", ("elementwise", "copy", "fill", "Memset", "Memcpy",
+                     "CatArray")))
+
+
+def profile_family(key):
+    for family, marks in PROFILE_FAMILIES:
+        if any(m in key for m in marks):
+            return family
+    return "other"
+
+
 def write_profile(prof, path, wall_s):
-    """Device time by kernel name and the device's busy share of the
-    profiled run's wall time (one stream, so kernel times do not overlap;
-    the profiler's overhead lengthens that wall)."""
+    """Device time by kernel name and by family (PROFILE_FAMILIES), and the
+    device's busy share of the profiled run's wall time (one stream, so
+    kernel times do not overlap; the profiler's overhead lengthens that
+    wall)."""
     from torch.autograd import DeviceType
     rows = [(e.key, e.self_device_time_total, e.count)
             for e in prof.key_averages()
@@ -662,9 +771,15 @@ def write_profile(prof, path, wall_s):
             and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     busy_us = sum(r[1] for r in rows)
+    families = {}
+    for key, us, _ in rows:
+        family = profile_family(key)
+        families[family] = families.get(family, 0) + us
     with open(path, "w") as f:
         f.write(f"wall_s {wall_s:.6f} device_busy_s {busy_us / 1e6:.6f} "
                 f"busy_share {busy_us / 1e6 / wall_s:.4f}\n")
+        for family, us in sorted(families.items(), key=lambda r: -r[1]):
+            f.write(f"family {family}: {us / 1e3:.3f} ms\n")
         for key, us, n in rows:
             f.write(f"{us / 1e3:12.3f} ms {100 * us / busy_us:6.2f}% "
                     f"{n:8d}  {key[:110]}\n")
@@ -826,10 +941,39 @@ def phase_train_kernels(fa, fce, seed=0):
         f"({why})")
     del refs, cut, do_cut, grads
 
+    # K3 bf16 (the sm90 design) at a ragged N and V: rows and vocab tiles
+    # cut by the 128 x 256 tile, targets outside [0, V) and in the ragged
+    # last vocab tile
+    Nr, Vr = 1000, 50000
+    hr, wr = randn((Nr, 1024)), randn((Vr, 1024), s=0.02)
+    tr = torch.randint(0, Vr, (Nr,), generator=g, device="cuda")
+    tr[:4] = torch.tensor([-1, Vr, Vr + 7, Vr - 1])
+    tr[4:40] = torch.randint(Vr - Vr % fce.SM90_BLOCK_V, Vr, (36,),
+                             generator=g, device="cuda")
+    fce.reset_launch_counts()
+    got = fce.unembed_logits_stats(hr, wr, tr)
+    assert_sm90("fused_ce ragged", fce)
+    ref = fce.unembed_logits_stats_reference(hr.float(), wr.float(), tr)
+    why = bf16_mismatch(got[0], ref[0])
+    assert why is None, f"fused_ce logits N={Nr} V={Vr}: {why}"
+    for name, a, b in zip(("logz", "gold"), got[1:], ref[1:]):
+        e = (a - b).abs().max().item()
+        assert e <= CE_STAT_ATOL, f"fused_ce {name} N={Nr} V={Vr}: {e:.3g}"
+    assert (got[2][:3] == 0).all(), "gold of a target outside [0, V)"
+    log(f"fused CE bf16 at N={Nr} V={Vr} (ragged rows and vocab tiles, "
+        f"targets outside [0, V) and in the last tile) ok")
+    del hr, wr, got, ref
+
     N, D, V = B * 512, 1024, 50304
     h, w = randn((N, D)), randn((V, D), s=0.02)
     t = torch.randint(0, V, (N,), generator=g, device="cuda")
     logits, logz, gold = fce.unembed_logits_stats(h, w, t)
+    again = fce.unembed_logits_stats(h, w, t)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip((logits, logz, gold),
+                                                 again)), \
+        "fused_ce does not repeat bitwise"
+    del again
     rl, rz, rg = fce.unembed_logits_stats_reference(h.float(), w.float(), t)
     why = bf16_mismatch(logits, rl)
     assert why is None, f"fused_ce logits: {why}"
@@ -838,9 +982,9 @@ def phase_train_kernels(fa, fce, seed=0):
         assert e <= CE_STAT_ATOL, f"fused_ce {name}: max |err| {e:.3g}"
     err["fused_ce"] = bf16_errors(logits, rl)
     # control: the vocab tile holding each row's target skipped
-    tile = t // 64
+    tile = t // fce.SM90_BLOCK_V
     col = torch.arange(V, device="cuda")
-    skip = (col[None, :] // 64) == tile[:, None]
+    skip = (col[None, :] // fce.SM90_BLOCK_V) == tile[:, None]
     ctrl_z = torch.logsumexp(rl.masked_fill(skip, -1e30), dim=-1)
     ctrl_e = max((ctrl_z - rz).abs().max().item(), rg.abs().max().item())
     assert ctrl_e > CE_STAT_ATOL, "CE check let a skipped vocab tile pass"
@@ -851,7 +995,7 @@ def phase_train_kernels(fa, fce, seed=0):
         f"fwd {err['flash_fwd'][1]:.3g}, flash bwd {err['flash_bwd'][1]:.3g} "
         f"(worst slab rel norm {err['flash_bwd'][2]:.3g}), fused CE logits "
         f"{err['fused_ce'][1]:.3g}; fused CE logz/gold within "
-        f"{CE_STAT_ATOL}")
+        f"{CE_STAT_ATOL}, repeats bitwise")
 
     # ---- timing
     esz = 2
@@ -1010,6 +1154,7 @@ def phase_train_slice(seed=0, steps=10, profile=None, knobs=None,
             "flash_block_fwd": 0, "fused_ce": 2 * steps, "wq_matmul": 0,
             **knob_launches(cfg, L, steps, chunks=2)}
     assert launches == want, (launches, want)
+    assert_sm90(tag, fce, mm, main_path=True)
     assert all(math.isfinite(x) for x in losses), losses
     assert losses[-1] < losses[0], losses
     step_s = float(np.median(times[1:]))
@@ -1702,6 +1847,7 @@ def phase_moe_train_slice(seed=0, steps=10, profile=None):
             "grouped_gmm": 6 * L * steps, "grouped_tgmm": 4 * L * steps,
             **NO_WQ}
     assert launches == want, (launches, want)
+    assert_sm90("moe train slice", fce, main_path=True)
     assert all(math.isfinite(x) for x in losses), losses
     assert losses[-1] < losses[0], losses
     load = [s.tolist() for s in first_step]
@@ -2317,9 +2463,40 @@ def phase_knob_kernels(ln, mm, seed=0, P=24, T=1024, D=1024):
             mm._dw(x, dy, x_t, out_t, f32),
             mm.dw_reference(x, dy, x_t, out_t, f32), **FP32_TOL)
 
+    # ---- K6: bf16 (the sm90 design) at ragged I, J and C, every
+    # orientation: multiples of 8, none a multiple of the 128 x 256 tile or
+    # the 64-deep k slice (forward (I, J, C) = (T, M, K), dW (K, M, T))
+    Pr, Tr, Kr, Mr = 3, 200, 136, 264
+    wr = randn((Kr, Mr), bf, 1 / math.sqrt(Kr))
+    for x_t, out_t in ((False, False), (True, False), (False, True),
+                       (True, True)):
+        x = randn((Pr, Kr, Tr) if x_t else (Pr, Tr, Kr))
+        dy = randn((Pr, Mr, Tr) if out_t else (Pr, Tr, Mr))
+        xf, dyf, wf = x.float(), dy.float(), wr.float()
+        mm.reset_launch_counts()
+        y = mm._mm(x, wr, x_t, False, out_t, bf)
+        dx = mm._mm(dy, wr, out_t, True, x_t, bf)
+        dw = mm._dw(x, dy, x_t, out_t, bf)
+        torch.cuda.synchronize()
+        assert mm.LAUNCHES["mlp_mm"] == 2 and mm.LAUNCHES["mlp_dw"] == 1
+        assert_sm90(f"K6 ragged x_t={x_t} out_t={out_t}", mm)
+        tag = f"ragged (P, T, K, M) = ({Pr}, {Tr}, {Kr}, {Mr}) x_t={x_t} " \
+              f"out_t={out_t}"
+        for what, got, ref in (
+                ("forward", y, mm.mm_reference(xf, wf, x_t, False, out_t,
+                                               f32)),
+                ("dx", dx, mm.mm_reference(dyf, wf, out_t, True, x_t, f32))):
+            why = bf16_mismatch(got, ref)
+            assert why is None, f"mlp_mm {what} {tag}: {why}"
+        rel = rel_norm(dw, mm.dw_reference(xf, dyf, x_t, out_t, f32))
+        assert torch.isfinite(dw).all() and rel <= BF16_REL_NORM, \
+            f"mlp_dw {tag}: relative error norm {rel:.3g}"
+    del wr, x, dy, xf, dyf, y, dx, dw
+
     # ---- K6: bf16 at the MLP shapes; the main path's orientations timed
     N = P * T
     timings = {}
+    mm.reset_launch_counts()
     for K, M in ((D, 4 * D), (4 * D, D)):
         w = randn((K, M), bf, 1 / math.sqrt(K))
         wf = w.float()
@@ -2331,7 +2508,15 @@ def phase_knob_kernels(ln, mm, seed=0, P=24, T=1024, D=1024):
             y = mm._mm(x, w, x_t, False, out_t, bf)
             dx = mm._mm(dy, w, out_t, True, x_t, bf)
             dw = mm._dw(x, dy, x_t, out_t, bf)
+            again = (mm._mm(x, w, x_t, False, out_t, bf),
+                     mm._mm(dy, w, out_t, True, x_t, bf),
+                     mm._dw(x, dy, x_t, out_t, bf))
             torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip((y, dx, dw),
+                                                         again)), \
+                f"K6 (K, M) = ({K}, {M}) x_t={x_t} out_t={out_t} does not " \
+                f"repeat bitwise"
+            del again
             tag = f"(K, M) = ({K}, {M}) x_t={x_t} out_t={out_t}"
             for what, got, ref in (
                     ("forward", y, mm.mm_reference(xf, wf, x_t, False, out_t,
@@ -2395,11 +2580,13 @@ def phase_knob_kernels(ln, mm, seed=0, P=24, T=1024, D=1024):
         del w, wf
         gc.collect()
         torch.cuda.empty_cache()
-    log(f"K6 checks ok: fp32 at 1e-4 (ragged, every orientation), bf16 at "
-        f"every (x_t, out_t) and both MLP shapes: max |err| forward / dx "
-        f"{err['mlp_mm']:.3g}, worst dW relative error norm "
-        f"{worst['dW']:.3g}; controls fail as they must: an out_t output "
-        f"written untransposed, dW without its last 64-row tile")
+    assert_sm90("K6 at the MLP shapes", mm)
+    log(f"K6 checks ok: fp32 at 1e-4 (ragged, every orientation), bf16 "
+        f"(sm90) ragged and at every (x_t, out_t) and both MLP shapes: max "
+        f"|err| forward / dx {err['mlp_mm']:.3g}, worst dW relative error "
+        f"norm {worst['dW']:.3g}; bitwise repeats; controls fail as they "
+        f"must: an out_t output written untransposed, dW without its last "
+        f"64-row tile")
     for (name, what), t in timings.items():
         log(f"{name} {what} (P, T) = ({P}, {T}): {t['ms']:.4f} ms (plain "
             f"{t['plain_ms']:.4f}, library {t['library_ms']:.4f}, bound "
@@ -3894,6 +4081,7 @@ def child_zero_train():
             "dp": engine.dp, "losses": losses, "step_s": times,
             "build_s": build_s,
             "launches": {**fa.LAUNCHES, **fce.LAUNCHES, **qz.LAUNCHES},
+            "designs": dict(fce.DESIGN_LAUNCHES["fused_ce"]),
             "max_memory_allocated_gb":
                 torch.cuda.max_memory_allocated() / 1e9,
             "staged": {k: list(v) for k, v in
@@ -3923,6 +4111,9 @@ def phase_zero_slice():
             assert res["dp"] == 2, res["dp"]
             assert res["launches"] == want, (r["rank"], key,
                                              res["launches"], want)
+            assert res["designs"] == {"sm90": 2 * steps, "fp32": 0}, \
+                (r["rank"], key, res["designs"])
+            count_designs("fused_ce", res["designs"])
             assert all(math.isfinite(x) for x in res["losses"]), res
             assert res["losses"][-1] < res["losses"][0], res["losses"]
         assert reps[0][key]["losses"] == reps[1][key]["losses"], \
@@ -4020,6 +4211,9 @@ def main(argv=None):
                 f"spilled")
     for mod in (pa, fa, fce, gm, mm, ln, bsa, qz):
         mod.kernel_builder()           # bind the built libraries
+    sass = phase_sass(builders)
+    log(f"phase 0b (SASS of the sm90 kernels) ok: {len(sass)} instances "
+        f"hold HGMMA and UTMALDG")
 
     def profile_path(suffix):
         if not args.profile:
@@ -4122,6 +4316,12 @@ def main(argv=None):
                       "causal_ms", "expression_ms", "eager_ms"):
             if extra in r:
                 row[extra] = r[extra]
+        if name in PATH_DESIGNS:
+            want = SM90_KERNELS["fused_ce" if name == "fused_ce"
+                                else "mlp_matmul"]
+            row.update(design="+".join(sorted(
+                k for k, v in PATH_DESIGNS[name].items() if v)),
+                sass={k: v for k, v in sass.items() if want in k})
         kernels.append(row)
     # again at the end, where a caller that keeps only the output's tail
     # finds it beside the numbers

@@ -1,33 +1,45 @@
-// Fused unembed + online-softmax statistics for the training head, CUDA C++
-// for sm_90a.
+// Fused unembed + softmax statistics for the training head, CUDA C++ for
+// sm_90a. Replaces deepspeed_tpu/ops/pallas/fused_ce.py _ce_kernel (via
+// unembed_logits_stats): for h (N, D) and w (V, D), the fp32 scores h w^T,
+// columns >= V masked to -1e30 (the ragged last vocab tile is masked here;
+// w is never copied padded as fused_ce.py:110-112 does), the logits written
+// once in h's dtype, logz = m + log(l) from the pre-round fp32 scores and
+// gold = the score at the target (0 for targets outside [0, V),
+// fused_ce.py:57-60).
 //
-// fused_ce_kernel  replaces deepspeed_tpu/ops/pallas/fused_ce.py _ce_kernel
-//                  (via unembed_logits_stats).
-//   h (N, D) rows times w (V, D)^T over vocab tiles: one CTA (4 warps) per
-//   64-row tile of h, each warp owning 16 rows; a loop over 64-column vocab
-//   tiles replaces the TPU's sequential vocab grid axis, and an inner loop
-//   over 64-wide slices of D stages h and w in shared memory for mma.sync
-//   (m16n8k16, bf16 -> fp32). Per vocab tile the fp32 scores are masked to
-//   -1e30 at columns >= V (the ragged last tile is masked here, w is never
-//   copied padded as fused_ce.py:110-112 does), written once as logits in
-//   h's dtype, and folded into an online max / sum-exp and a gold readout
-//   (col == target and col < V, so targets outside [0, V) give 0,
-//   fused_ce.py:57-60). Each lane keeps the statistics of its own columns;
-//   the four lanes of a row merge them at the end, so logz = m + log(l)
-//   comes from the pre-round fp32 scores.
-//   Bound: operations at the training shapes (N=12288, V=50304, D=1024:
-//   2*N*V*D = 1.27 TFLOP against 1.27 GB of bf16 logits written, ~1000
-//   flop/byte, above the 295 ridge). This first version loads synchronously
-//   and re-reads w from L2 once per row tile; cp.async/TMA pipelining,
-//   larger row tiles and wgmma are later work.
+// bf16: fused_ce_sm90_kernel + fused_ce_merge_kernel. The product is
+// sm90_gemm.cuh's mainloop (TMA + wgmma, warp-specialised, persistent)
+// walking vocab-major: all 128-row tiles of one 256-wide vocab tile in a
+// row, so each tile of w comes from device memory once and h (25 MB at the
+// training shapes) stays in the 50 MB L2. The TPU kernel carries m, l and
+// gold in scratch along its sequential vocab axis; CTAs here run in no
+// order, so the carry becomes two passes:
+//   the tile epilogue (each consumer warpgroup, 64 rows x 256 columns):
+//     masks its columns >= V, writes the bf16 logits through a shared
+//     staging tile with 16-byte stores, and forms each row's tile max, sum
+//     of exp(s - max) and gold with the 4-lane quad shuffles of the wgmma
+//     fragment, written to partials (N, ceil(V / 256), 3) fp32;
+//   fused_ce_merge_kernel (one warp per row): folds a row's partials in
+//     vocab-tile order (coalesced loads of 32 tiles, the fold broadcast by
+//     shuffles), logz = M + log(L), gold = the sum of the tiles' golds. The
+//     order is fixed and there are no atomics, so a call repeats bitwise.
+// Bound: operations at the training shapes (N = 12288, V = 50304, D = 1024:
+// 2 N V D = 1.27 TFLOP, 1.28 ms at 989 TFLOP/s, against 1.36 GB moved,
+// 0.41 ms). The epilogue's exp (0.6 G a call) and logits stores run while
+// the producer loads the next tile.
 //
-// The extern "C" launcher returns cudaGetLastError() (0 = launched); it
-// never synchronizes or allocates. fp32 instances do the products with
-// scalar FMAs in the same fragment layout (the parity checks).
+// fp32: fused_ce_kernel, scalar FMAs in the mma.sync m16n8 fragment layout
+// (one CTA of 4 warps per 64-row tile of h, a loop over 64-column vocab
+// tiles with an online max / sum-exp; the parity checks use it: wgmma has no
+// fp32 mode, and TF32 would miss their 1e-4).
+//
+// The extern "C" launcher returns a cudaError_t (0 = launched); it never
+// synchronizes or allocates (the wrapper allocates the partials).
 
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "sm90_gemm.cuh"
 
 #define NEG_INF (-1e30f)
 
@@ -44,50 +56,156 @@ struct CEArgs {
 
 namespace {
 
+typedef __nv_bfloat16 bf16;
+
+// ------------------------------------------------------------ bf16: sm90
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+struct CEEpilogue {
+  bf16* logits;
+  float* partials;  // (N, n_vt, 3): tile max, sum of exp(s - max), gold
+  const int* targets;
+  int N, V, n_vt, vec;
+
+  __device__ __forceinline__ void operator()(float (&acc)[sm90::BN / 2], int, int i0, int j0,
+                                             bf16* stage, int tid, int bar) const {
+    constexpr float LOG2E = 1.4426950408889634f;
+    int row[2], tc[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      row[h] = i0 + sm90::frag_row(tid, 2 * h);
+      const int t = row[h] < N ? targets[row[h]] : -1;
+      tc[h] = t >= 0 && t < V ? t - j0 : -1;  // the target's column in this tile
+    }
+    if (j0 + sm90::BN > V) {  // the ragged last vocab tile: columns >= V masked
+#pragma unroll
+      for (int b = 0; b < sm90::BN / 8; ++b)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (j0 + sm90::frag_col(tid, b, e) >= V) acc[4 * b + e] = NEG_INF;
+    }
+    float mx[2] = {NEG_INF, NEG_INF}, sum[2] = {0.f, 0.f}, gold[2] = {0.f, 0.f};
+#pragma unroll
+    for (int b = 0; b < sm90::BN / 8; ++b)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], acc[4 * b + e]);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    }
+    const float ms[2] = {mx[0] * LOG2E, mx[1] * LOG2E};
+#pragma unroll
+    for (int b = 0; b < sm90::BN / 8; ++b)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sum[e >> 1] += ex2(fmaf(acc[4 * b + e], LOG2E, -ms[e >> 1]));
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      // the lane holding the target's column reads it (one vocab tile in
+      // ~200 has it, so the branch is rarely taken)
+      if (tc[h] >= 0 && tc[h] < sm90::BN && (tc[h] & 6) == 2 * (tid & 3)) {
+#pragma unroll
+        for (int b = 0; b < sm90::BN / 8; ++b)
+          if (b == tc[h] >> 3) gold[h] = tc[h] & 1 ? acc[4 * b + 2 * h + 1] : acc[4 * b + 2 * h];
+      }
+      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+      gold[h] += __shfl_xor_sync(0xffffffffu, gold[h], 1);
+      gold[h] += __shfl_xor_sync(0xffffffffu, gold[h], 2);
+      if ((tid & 3) == 0 && row[h] < N) {
+        float* p = partials + ((long long)row[h] * n_vt + j0 / sm90::BN) * 3;
+        p[0] = mx[h];
+        p[1] = sum[h];
+        p[2] = gold[h];
+      }
+    }
+    sm90::store_tile<false>(acc, stage, logits + (long long)i0 * V + j0, V, N - i0, V - j0,
+                            vec != 0, bar, tid);
+  }
+};
+
+__global__ void __launch_bounds__(sm90::THREADS, 1)
+    fused_ce_sm90_kernel(const __grid_constant__ CUtensorMap mh, const __grid_constant__ CUtensorMap mw,
+                         sm90::Problem p, CEEpilogue epi) {
+  sm90::gemm<0, 0>(mh, mw, p, epi);
+}
+
+// One warp per row: logz = M + log(L) and gold from the row's partials,
+// folded in vocab-tile order.
+__global__ void __launch_bounds__(256) fused_ce_merge_kernel(const float* partials, int n_vt,
+                                                             long long N, float* logz, float* gold) {
+  const long long row = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= N) return;
+  const float* pr = partials + row * n_vt * 3;
+  float M = NEG_INF, L = 0.f, G = 0.f;
+  for (int t0 = 0; t0 < n_vt; t0 += 32) {
+    float pm = NEG_INF, pl = 0.f, pg = 0.f;
+    if (t0 + lane < n_vt) {
+      pm = pr[(t0 + lane) * 3];
+      pl = pr[(t0 + lane) * 3 + 1];
+      pg = pr[(t0 + lane) * 3 + 2];
+    }
+    const int n = min(32, n_vt - t0);
+    for (int k = 0; k < n; ++k) {
+      const float mk = __shfl_sync(0xffffffffu, pm, k);
+      const float lk = __shfl_sync(0xffffffffu, pl, k);
+      const float gk = __shfl_sync(0xffffffffu, pg, k);
+      const float m2 = fmaxf(M, mk);
+      L = L * expf(M - m2) + lk * expf(mk - m2);
+      M = m2;
+      G += gk;
+    }
+  }
+  if (lane == 0) {
+    logz[row] = M + logf(L);
+    gold[row] = G;
+  }
+}
+
+cudaError_t launch_sm90(const CEArgs& a, float* partials, int n_vt, cudaStream_t s) {
+  if (((uintptr_t)a.h | (uintptr_t)a.w) % 16 != 0 || partials == nullptr ||
+      n_vt != (a.V + sm90::BN - 1) / sm90::BN || a.N > 0x7fffffffLL || a.V > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  sm90::Problem p{};
+  p.Z = 1;
+  p.Q = 1;
+  p.I = (int)a.N;
+  p.J = (int)a.V;
+  p.C = a.D;
+  CUtensorMap mh, mw;
+  const long long sh[4] = {0, 0, a.D, 1}, sw[4] = {0, 0, 1, a.D};
+  cudaError_t e = sm90::make_maps(&mh, &mw, &p, a.h, sh, 0, a.w, sw, 0);
+  if (e != cudaSuccess) return e;
+  const int grid = sm90::plan(&p, 1 << 30);  // vocab-major: every row tile per vocab tile
+  if (grid <= 0) return cudaErrorInvalidValue;
+  const int vec = a.V % 8 == 0 && (uintptr_t)a.logits % 16 == 0;
+  const CEEpilogue epi{(bf16*)a.logits, partials, a.targets, (int)a.N, (int)a.V, n_vt, vec};
+  e = sm90::allow_sm90_smem(fused_ce_sm90_kernel);
+  if (e != cudaSuccess) return e;
+  fused_ce_sm90_kernel<<<grid, sm90::THREADS, sm90::SMEM_BYTES, s>>>(mh, mw, p, epi);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  fused_ce_merge_kernel<<<(unsigned)((a.N + 7) / 8), 256, 0, s>>>(partials, n_vt, a.N, a.logz,
+                                                                    a.gold);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------------------ fp32: FMAs
+
 constexpr int BM = 64;   // rows of h per CTA
 constexpr int BN = 64;   // vocab columns per tile
 constexpr int BKD = 64;  // slice of D staged per step
 constexpr int NW = 4;
 constexpr int NT = NW * 32;
 
-typedef __nv_bfloat16 bf16;
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) { return __float2bfloat16(x); }
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ void mma16816(float* c, uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
 // C (16 x 8*N8) += A (16 x K) * B^T with B stored [n][k]; lane 4g+t owns
 // c[n][0..1] at (row g, cols 8n+2t+{0,1}) and c[n][2..3] at row g+8.
-template <int N8>
-__device__ __forceinline__ void mma_nk(float (&c)[N8][4], const bf16* A, int lda, const bf16* B,
-                                       int ldb, int K) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  for (int k0 = 0; k0 < K; k0 += 16) {
-    const uint32_t a0 = ld32(A + g * lda + k0 + 2 * t);
-    const uint32_t a1 = ld32(A + (g + 8) * lda + k0 + 2 * t);
-    const uint32_t a2 = ld32(A + g * lda + k0 + 8 + 2 * t);
-    const uint32_t a3 = ld32(A + (g + 8) * lda + k0 + 8 + 2 * t);
-#pragma unroll
-    for (int n = 0; n < N8; ++n) {
-      const bf16* bp = B + (n * 8 + g) * ldb + k0 + 2 * t;
-      mma16816(c[n], a0, a1, a2, a3, ld32(bp), ld32(bp + 8));
-    }
-  }
-}
-
 template <int N8>
 __device__ __forceinline__ void mma_nk(float (&c)[N8][4], const float* A, int lda, const float* B,
                                        int ldb, int K) {
@@ -108,10 +226,9 @@ __device__ __forceinline__ void mma_nk(float (&c)[N8][4], const float* A, int ld
 // rows [row0, row0+64) x cols [d0, d0+BKD) of a contiguous (rows, D) matrix
 // into shared [64][ld]; rows >= n_rows and cols >= D are zero. D is a
 // multiple of the 16-byte vector (the wrapper checks).
-template <typename T>
-__device__ __forceinline__ void load_slice(T* dst, int ld, const T* src, long long n_rows,
+__device__ __forceinline__ void load_slice(float* dst, int ld, const float* src, long long n_rows,
                                            int D, long long row0, int d0) {
-  constexpr int VEC = 16 / sizeof(T);
+  constexpr int VEC = 4;
   constexpr int CPR = BKD / VEC;
   for (int i = threadIdx.x; i < 64 * CPR; i += NT) {
     const int r = i / CPR, c = (i - r * CPR) * VEC;
@@ -122,14 +239,12 @@ __device__ __forceinline__ void load_slice(T* dst, int ld, const T* src, long lo
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(NT) fused_ce_kernel(CEArgs a) {
-  constexpr int PAD = 16 / sizeof(T);
-  constexpr int LD = BKD + PAD;
+  constexpr int LD = BKD + 4;
   constexpr int NTN = BN / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* hs = reinterpret_cast<T*>(smem_raw);  // [BM][LD]
-  T* ws = hs + BM * LD;                     // [BN][LD]
+  float* hs = reinterpret_cast<float*>(smem_raw);  // [BM][LD]
+  float* ws = hs + BM * LD;                         // [BN][LD]
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t4 = lane & 3;
   const long long row0 = (long long)blockIdx.x * BM;
@@ -137,9 +252,9 @@ __global__ void __launch_bounds__(NT) fused_ce_kernel(CEArgs a) {
   int tgt[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) tgt[i] = rows[i] < a.N ? a.targets[rows[i]] : -1;
-  const T* hg = reinterpret_cast<const T*>(a.h);
-  const T* wg = reinterpret_cast<const T*>(a.w);
-  T* lg = reinterpret_cast<T*>(a.logits);
+  const float* hg = reinterpret_cast<const float*>(a.h);
+  const float* wg = reinterpret_cast<const float*>(a.w);
+  float* lg = reinterpret_cast<float*>(a.logits);
 
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, gold[2] = {0.f, 0.f};
   for (long long v0 = 0; v0 < a.V; v0 += BN) {
@@ -148,8 +263,8 @@ __global__ void __launch_bounds__(NT) fused_ce_kernel(CEArgs a) {
     for (int n = 0; n < NTN; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
     for (int d0 = 0; d0 < a.D; d0 += BKD) {
       __syncthreads();
-      load_slice<T>(hs, LD, hg, a.N, a.D, row0, d0);
-      load_slice<T>(ws, LD, wg, a.V, a.D, v0, d0);
+      load_slice(hs, LD, hg, a.N, a.D, row0, d0);
+      load_slice(ws, LD, wg, a.V, a.D, v0, d0);
       __syncthreads();
       mma_nk<NTN>(s, hs + warp * 16 * LD, LD, ws, LD, BKD);
     }
@@ -161,7 +276,7 @@ __global__ void __launch_bounds__(NT) fused_ce_kernel(CEArgs a) {
         const int i = e >> 1;
         const long long col = v0 + n * 8 + 2 * t4 + (e & 1);
         if (col >= a.V) s[n][e] = NEG_INF;
-        if (rows[i] < a.N && col < a.V) lg[rows[i] * a.V + col] = from_f<T>(s[n][e]);
+        if (rows[i] < a.N && col < a.V) lg[rows[i] * a.V + col] = s[n][e];
         if (col == tgt[i] && col < a.V) gold[i] += s[n][e];
         mx[i] = fmaxf(mx[i], s[n][e]);
       }
@@ -200,24 +315,25 @@ __global__ void __launch_bounds__(NT) fused_ce_kernel(CEArgs a) {
   }
 }
 
-template <typename T>
-cudaError_t launch(const CEArgs& a, cudaStream_t s) {
-  constexpr int PAD = 16 / sizeof(T);
-  const size_t smem = sizeof(T) * (size_t)(BM + BN) * (BKD + PAD);
+cudaError_t launch_fp32(const CEArgs& a, cudaStream_t s) {
+  const size_t smem = sizeof(float) * (size_t)(BM + BN) * (BKD + 4);
   const long long grid = (a.N + BM - 1) / BM;
-  fused_ce_kernel<T><<<(unsigned)grid, NT, smem, s>>>(a);
+  if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
+  fused_ce_kernel<<<(unsigned)grid, NT, smem, s>>>(a);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = launched).
-extern "C" int fused_ce_launch(const CEArgs* a, int dtype, void* stream) {
-  if (a == nullptr || a->N <= 0 || a->V <= 0 || a->D <= 0 || a->D % 8 != 0 ||
-      (a->N + BM - 1) / BM > 0x7fffffffLL)
+// dtype: 0 = float32 (fused_ce_kernel; partials null), 1 = bfloat16
+// (fused_ce_sm90_kernel + fused_ce_merge_kernel; partials (N, n_vt, 3)
+// fp32 with n_vt = ceil(V / 256)). Returns a cudaError_t (0 = launched).
+extern "C" int fused_ce_launch(const CEArgs* a, int dtype, float* partials, int n_vt,
+                               void* stream) {
+  if (a == nullptr || a->N <= 0 || a->V <= 0 || a->D <= 0 || a->D % 8 != 0)
     return cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 1) return launch<bf16>(*a, s);
-  if (dtype == 0) return launch<float>(*a, s);
+  if (dtype == 1) return launch_sm90(*a, partials, n_vt, s);
+  if (dtype == 0) return launch_fp32(*a, s);
   return cudaErrorInvalidValue;
 }

@@ -12,6 +12,7 @@
 // orientations are layouts, not contracts: the wrapper serves them through
 // transposed views.
 
+#include "sm90_gemm.cuh"
 #include "wq_gemm.cuh"
 
 // dtype: 0 = float32, 1 = bfloat16; bits: 8 or 4 (K even); block_m: 16 or
@@ -23,10 +24,10 @@ extern "C" int wq_matmul_launch(const WqArgs* a, int dtype, int bits, int block_
 }
 
 // ---------------------------------------------------------------------------
-// Layout-owning projection (K6): proj_mm_kernel replaces both
-// deepspeed_tpu/ops/pallas/mlp_matmul.py _mm_kernel (via _mm: the forward
-// and the dx product) and _dw_kernel (via _dw: the weight gradient). One
-// strided GEMM covers both:
+// Layout-owning projection (K6): proj_mm_sm90_kernel and proj_mm_kernel
+// replace both deepspeed_tpu/ops/pallas/mlp_matmul.py _mm_kernel (via _mm:
+// the forward and the dx product) and _dw_kernel (via _dw: the weight
+// gradient). One strided GEMM covers both:
 //
 //   O[z, i, j] = sum_q sum_c A[z, q, i, c] * B[z, q, c, j]
 //
@@ -40,24 +41,40 @@ extern "C" int wq_matmul_launch(const WqArgs* a, int dtype, int bits, int block_
 //   _dw:  Z = 1, Q = P, (I, J, C) = (K, M, N): the contraction runs over
 //         every (p, n) row, so the TPU kernel's fp32 accumulator carried
 //         along its sequential (p, n) grid axes becomes this CTA's loop.
-// A is staged in shared memory as it lies: [i][c] when its c stride is 1
-// (A fragments by ldmatrix), [c][i] when its i stride is 1 (the T-minor
-// operand of x_t, and x^T in dW; fragments by ldmatrix.trans). B likewise:
-// [c][j] (ldmatrix.trans) or [j][c] (ldmatrix). The output tile is written
-// from the fragments through O's strides, so out_t writes columns.
+// proj_mm_kernel stages A in shared memory as it lies: [i][c] when its c
+// stride is 1 (A fragments by ldmatrix), [c][i] when its i stride is 1 (the
+// T-minor operand of x_t, and x^T in dW; fragments by ldmatrix.trans). B
+// likewise: [c][j] (ldmatrix.trans) or [j][c] (ldmatrix). Its output tile
+// is written from the fragments through O's strides, so out_t writes
+// columns.
 //
-// Tiles: 128 threads = 4 warps (2 along i x 2 along j), a 64 x 128 output
-// tile per CTA, 32 x 64 per warp (2 x 8 mma.sync m16n8k16, bf16 -> fp32),
-// a 4-stage cp.async ring of 64-deep (bf16) k slices; fp32 instances do
-// scalar FMAs in the same fragment layout (the parity checks). Each output
-// element is written once by one CTA: no atomics, no split-K.
+// Two designs serve it (the wrapper's _k6_design picks one per call):
+//
+// sm90 (bf16 operands TMA can address: 16-byte aligned bases, every
+// stride the tensor map holds a whole number of 16 bytes; every GPT-2
+// 350M call):
+// proj_mm_sm90_kernel, sm90_gemm.cuh's mainloop (TMA into a 4-stage ring,
+// wgmma m64n256k16 from 128-byte swizzled shared memory, a producer and
+// two consumer warpgroups, one persistent CTA per SM walking 128 x 256
+// tiles in groups of 8 row tiles per column band). Each orientation is a
+// TMA box plus the wgmma transpose bit: A [i][c] K-major, A [c][i] (x_t, x
+// in dW) MN-major, B [j][c] (b_t, dy in dW under out_t) K-major, B [c][j]
+// MN-major; _dw's q is a third map dim whose coordinate advances
+// the k-loop over Q x ceil(C / 64) slices. The epilogue rounds to bf16
+// into a shared staging tile laid along O's contiguous axis (transposed
+// for out_t) and writes 16-byte runs.
+//
+// mma_sync (other bf16 operands, e.g. K = 100) and fp32: proj_mm_kernel,
+// 128 threads = 4 warps (2 along i x 2 along j), a 64 x 128 output tile
+// per CTA, 32 x 64 per warp (2 x 8 mma.sync m16n8k16, bf16 -> fp32), a
+// 4-stage cp.async ring of 64-deep (bf16) k slices; fp32 instances do
+// scalar FMAs in the same fragment layout (the parity checks). Each
+// output element is written once by one CTA: no atomics, no split-K.
 //
 // Bound: operations. At the GPT-2 350M MLP (P = 24, T = 1024, D = 1024,
 // F = 4096, bf16) each of the forward, dx and dW products is 2.06e11
 // flops (0.208 ms at 989 TFLOP/s) against 58-109 MB of operands
-// (0.017-0.033 ms at 3.35 TB/s). mma.sync from shared memory reaches a
-// fraction of the card's wgmma rate; TMA, wgmma and larger tiles are later
-// work.
+// (0.017-0.033 ms at 3.35 TB/s).
 
 struct MmArgs {
   const void* a;
@@ -284,4 +301,74 @@ extern "C" int mlp_mm_launch(const MmArgs* a, int dtype, void* stream) {
   if (dtype == 1) return mm_dispatch<bf16>(*a, s);
   if (dtype == 0) return mm_dispatch<float>(*a, s);
   return cudaErrorInvalidValue;
+}
+
+// --------------------------------------------------------- K6, bf16: sm90
+
+namespace {
+
+struct MmEpilogue {
+  bf16* out;
+  long long so_z, so_i, so_j;
+  int I, J;
+  int trans;  // O's contiguous axis is i (out_t)
+  int vec;    // 16-byte stores allowed
+
+  __device__ __forceinline__ void operator()(float (&acc)[sm90::BN / 2], int z, int i0, int j0,
+                                             bf16* stage, int tid, int bar) const {
+    bf16* o = out + z * so_z + i0 * so_i + j0 * so_j;
+    if (trans)
+      sm90::store_tile<true>(acc, stage, o, so_j, I - i0, J - j0, vec != 0, bar, tid);
+    else
+      sm90::store_tile<false>(acc, stage, o, so_i, I - i0, J - j0, vec != 0, bar, tid);
+  }
+};
+
+template <int TA, int TB>
+__global__ void __launch_bounds__(sm90::THREADS, 1)
+    proj_mm_sm90_kernel(const __grid_constant__ CUtensorMap ma, const __grid_constant__ CUtensorMap mb,
+                        sm90::Problem p, MmEpilogue epi) {
+  sm90::gemm<TA, TB>(ma, mb, p, epi);
+}
+
+template <int TA, int TB>
+cudaError_t launch_mm_sm90(const MmArgs& a, cudaStream_t s) {
+  sm90::Problem p{};
+  p.Z = a.Z;
+  p.Q = a.Q;
+  p.I = a.I;
+  p.J = a.J;
+  p.C = a.C;
+  CUtensorMap ma, mb;
+  const long long sa[4] = {a.sa_z, a.sa_q, a.sa_i, a.sa_c};
+  const long long sb[4] = {a.sb_z, a.sb_q, a.sb_c, a.sb_j};
+  cudaError_t e = sm90::make_maps(&ma, &mb, &p, a.a, sa, TA, a.b, sb, TB);
+  if (e != cudaSuccess) return e;
+  const int grid = sm90::plan(&p, 8);
+  if (grid < 0) return cudaErrorInvalidValue;
+  if (grid == 0) return cudaSuccess;
+  const int trans = a.so_j != 1;
+  const long long ld = trans ? a.so_j : a.so_i;
+  const MmEpilogue epi{(bf16*)a.out, a.so_z, a.so_i, a.so_j, a.I, a.J, trans,
+                       (uintptr_t)a.out % 16 == 0 && ld % 8 == 0 && a.so_z % 8 == 0};
+  auto kernel = proj_mm_sm90_kernel<TA, TB>;
+  e = sm90::allow_sm90_smem(kernel);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, sm90::THREADS, sm90::SMEM_BYTES, s>>>(ma, mb, p, epi);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// The bf16 sm90 design (A, B and O bf16). a_t: A MN-major (sa_i == 1);
+// b_t: B K-major (sb_c == 1); O needs a unit stride along i or j. Returns a
+// cudaError_t (0 = launched); never synchronizes or allocates.
+extern "C" int mlp_mm_sm90_launch(const MmArgs* a, void* stream) {
+  if (a == nullptr || a->Z <= 0 || a->I <= 0 || a->J <= 0 || a->Q < 0 || a->C < 0 ||
+      (a->a_t ? a->sa_i != 1 : a->sa_c != 1) || (a->b_t ? a->sb_c != 1 : a->sb_j != 1) ||
+      (a->so_i != 1 && a->so_j != 1))
+    return cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (a->a_t) return a->b_t ? launch_mm_sm90<1, 0>(*a, s) : launch_mm_sm90<1, 1>(*a, s);
+  return a->b_t ? launch_mm_sm90<0, 0>(*a, s) : launch_mm_sm90<0, 1>(*a, s);
 }

@@ -131,6 +131,7 @@ class BlockSparseAttentionBuilder(CUDAOpBuilder):
 class FusedCEBuilder(CUDAOpBuilder):
     NAME = "fused_ce"
     SOURCES = ("fused_ce.cu",)
+    DEPENDS = ("sm90_gemm.cuh",)
 
 
 class GroupedMatmulBuilder(CUDAOpBuilder):
@@ -142,7 +143,7 @@ class GroupedMatmulBuilder(CUDAOpBuilder):
 class MlpMatmulBuilder(CUDAOpBuilder):
     NAME = "mlp_matmul"
     SOURCES = ("mlp_matmul.cu",)
-    DEPENDS = ("gemm_common.cuh", "wq_gemm.cuh")
+    DEPENDS = ("gemm_common.cuh", "wq_gemm.cuh", "sm90_gemm.cuh")
 
 
 class LayerNormBuilder(CUDAOpBuilder):

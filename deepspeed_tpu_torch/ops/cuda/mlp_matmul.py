@@ -22,7 +22,11 @@ Every orientation is a stride: no operand is copied for ``x_t``,
 ``out_t`` or the transposed w. The tile sizes are accepted and change
 nothing. On a CUDA tensor the kernel runs at every shape; JAX falls back
 to its jnp ``_ref_proj`` (the same math) for shapes its TPU tiles cannot
-cover.
+cover. Each K6 launch takes one of three designs (``_k6_design``): bf16
+operands that TMA can address go to the Hopper wgmma kernel
+(``proj_mm_sm90_kernel``), other bf16 operands to the mma.sync kernel,
+fp32 to the scalar-FMA instance; ``DESIGN_LAUNCHES["mlp_mm" | "mlp_dw"]``
+counts launches by design.
 
 K7 (the ``_mm_wq`` kernel behind ``wq_matmul``; design and bound in
 ``csrc/wq_gemm.cuh``):
@@ -48,6 +52,8 @@ import torch
 from .grouped_matmul import WQ_ARGTYPES, check_quantized, launch_wq
 
 LAUNCHES = {"wq_matmul": 0, "mlp_mm": 0, "mlp_dw": 0}
+DESIGN_LAUNCHES = {name: {"sm90": 0, "mma_sync": 0, "fp32": 0}
+                   for name in ("mlp_mm", "mlp_dw")}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -66,6 +72,9 @@ class _MmArgs(ctypes.Structure):
 def reset_launch_counts():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for by_design in DESIGN_LAUNCHES.values():
+        for k in by_design:
+            by_design[k] = 0
 
 
 _builder = None
@@ -84,6 +93,9 @@ def kernel_builder():
         lib.mlp_mm_launch.argtypes = [ctypes.POINTER(_MmArgs), ctypes.c_int,
                                       ctypes.c_void_p]
         lib.mlp_mm_launch.restype = ctypes.c_int
+        lib.mlp_mm_sm90_launch.argtypes = [ctypes.POINTER(_MmArgs),
+                                           ctypes.c_void_p]
+        lib.mlp_mm_sm90_launch.restype = ctypes.c_int
         _builder = b
     return _builder
 
@@ -182,19 +194,53 @@ def _vec_ok(t, strides):
                                           if s != 1)
 
 
+def _tma_ok(t):
+    """TMA can address ``t`` as ``make_operand_map`` encodes it: not empty
+    (a tensor map needs a base and extents of at least 1), a 16-byte
+    aligned base, a unit stride on the axis the kernel reads along (the
+    last, else the one before it), the stride of the other of the last two
+    axes (always in the map, whatever its extent) and that of each leading
+    axis longer than 1 (the map keeps those) a whole number of 16 bytes."""
+    vec = 16 // t.element_size()
+    inner = t.dim() - 1 if t.stride(-1) == 1 else t.dim() - 2
+    outer = 2 * t.dim() - 3 - inner
+    return (t.numel() > 0 and t.data_ptr() % 16 == 0
+            and t.stride(inner) == 1 and t.stride(outer) % vec == 0
+            and all(t.stride(d) % vec == 0 for d in range(t.dim() - 2)
+                    if t.shape[d] > 1))
+
+
+def _k6_design(A, B, out):
+    """The K6 design for operands ``A``, ``B`` and output ``out`` as the
+    launch reads them: "fp32" for fp32; "sm90" (TMA + wgmma) for bf16 that
+    TMA can address (``_tma_ok``: every GPT-2 350M call); else
+    "mma_sync" (e.g. K = 100, rows of 200 bytes; a dW over no rows)."""
+    if A.dtype == torch.float32:
+        return "fp32"
+    return "sm90" if all(map(_tma_ok, (A, B, out))) else "mma_sync"
+
+
 def _launch_k6(name, A, B, out, sa, sb, so, dims, a_t, b_t):
     """One K6 launch: O[z, i, j] = sum_{q, c} A[z, q, i, c] B[z, q, c, j]
     with strides ``sa`` / ``sb`` = (z, q, i, c) / (z, q, c, j), ``so`` =
-    (z, i, j) and ``dims`` = (Z, Q, I, J, C)."""
+    (z, i, j) and ``dims`` = (Z, Q, I, J, C), through the design
+    ``_k6_design`` picks."""
     lib = kernel_builder().load()
     args = _MmArgs(A.data_ptr(), B.data_ptr(), out.data_ptr(), *sa, *sb,
                    *so, *dims, int(a_t), int(b_t), int(_vec_ok(A, sa)),
                    int(_vec_ok(B, sb)))
-    rc = lib.mlp_mm_launch(ctypes.byref(args), _DTYPE_CODE[A.dtype],
-                           torch.cuda.current_stream(A.device).cuda_stream)
+    stream = torch.cuda.current_stream(A.device).cuda_stream
+    design = _k6_design(A, B, out)
+    if design == "sm90":
+        rc = lib.mlp_mm_sm90_launch(ctypes.byref(args), stream)
+    else:
+        rc = lib.mlp_mm_launch(ctypes.byref(args), _DTYPE_CODE[A.dtype],
+                               stream)
     if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+        raise RuntimeError(f"{name} kernel launch failed ({design}): "
+                           f"cudaError {rc}")
     LAUNCHES[name] += 1
+    DESIGN_LAUNCHES[name][design] += 1
 
 
 def _check_k6(name, a, b, out_dtype):
@@ -207,6 +253,36 @@ def _check_k6(name, a, b, out_dtype):
                         f"-> {out_dtype}")
 
 
+def _mm_operands(a, b, a_t, b_t, out_t, out_dtype):
+    """``_mm``'s K6 launch: (A, B, out, A's (z, q, i, c) strides, B's (z, q,
+    c, j), O's (z, i, j), (Z, Q, I, J, C), a_t, b_t), out allocated."""
+    # A[z=p, i=n, c=k] staged [i][c] on a unit k stride, else [c][i];
+    # B[c=k, j=m] staged [c][j] on a unit m stride, else [j][c]
+    A = _staged(_log_a(a, a_t), (1, 2))
+    B = _staged(b.t() if b_t else b, (0, 1))
+    P, N, K = A.shape
+    M = B.shape[1]
+    out = torch.empty((P, M, N) if out_t else (P, N, M), dtype=out_dtype,
+                      device=a.device)
+    return (A, B, out, (A.stride(0), 0, A.stride(1), A.stride(2)),
+            (0, 0, B.stride(0), B.stride(1)), _log_a(out, out_t).stride(),
+            (P, 1, N, M, K), int(A.stride(2) != 1), int(B.stride(1) != 1))
+
+
+def _dw_operands(a, g, a_t, g_t, out_dtype):
+    """``_dw``'s K6 launch, as ``_mm_operands``."""
+    # A[q=p, i=k, c=n] staged [c][i] on a unit k stride, else [i][c];
+    # B[q=p, c=n, j=m] staged [c][j] on a unit m stride, else [j][c]
+    A = _staged(_log_a(a, a_t), (1, 2))
+    G = _staged(_log_a(g, g_t), (1, 2))
+    P, N, K = A.shape
+    M = G.shape[2]
+    out = torch.empty(K, M, dtype=out_dtype, device=a.device)
+    return (A, G, out, (0, A.stride(0), A.stride(2), A.stride(1)),
+            (0, G.stride(0), G.stride(1), G.stride(2)), (0, M, 1),
+            (1, P, K, M, N), int(A.stride(2) == 1), int(G.stride(2) != 1))
+
+
 def _mm(a, b, a_t, b_t, out_t, out_dtype):
     """``_mm`` on a's device: out[p, n, m] = sum_k a[p, n, k] b[k, m]
     (orientations as ``mm_reference``)."""
@@ -214,22 +290,10 @@ def _mm(a, b, a_t, b_t, out_t, out_dtype):
         return mm_reference(a, b, a_t, b_t, out_t, out_dtype)
     name = "mlp_mm"
     _check_k6(name, a, b, out_dtype)
-    # A[z=p, i=n, c=k] staged [i][c] on a unit k stride, else [c][i];
-    # B[c=k, j=m] staged [c][j] on a unit m stride, else [j][c]
-    A = _staged(_log_a(a, a_t), (1, 2))
-    B = _staged(b.t() if b_t else b, (0, 1))
-    at, bt = int(A.stride(2) != 1), int(B.stride(1) != 1)
-    P, N, K = A.shape
-    M = B.shape[1]
-    out = torch.empty((P, M, N) if out_t else (P, N, M), dtype=out_dtype,
-                      device=a.device)
-    o = _log_a(out, out_t)
-    if out.numel():
-        _launch_k6(name, A, B, out,
-                   (A.stride(0), 0, A.stride(1), A.stride(2)),
-                   (0, 0, B.stride(0), B.stride(1)), o.stride(),
-                   (P, 1, N, M, K), at, bt)
-    return out
+    launch = _mm_operands(a, b, a_t, b_t, out_t, out_dtype)
+    if launch[2].numel():
+        _launch_k6(name, *launch)
+    return launch[2]
 
 
 def _dw(a, g, a_t, g_t, out_dtype):
@@ -239,20 +303,10 @@ def _dw(a, g, a_t, g_t, out_dtype):
         return dw_reference(a, g, a_t, g_t, out_dtype)
     name = "mlp_dw"
     _check_k6(name, a, g, out_dtype)
-    # A[q=p, i=k, c=n] staged [c][i] on a unit k stride, else [i][c];
-    # B[q=p, c=n, j=m] staged [c][j] on a unit m stride, else [j][c]
-    A = _staged(_log_a(a, a_t), (1, 2))
-    G = _staged(_log_a(g, g_t), (1, 2))
-    at, gt = int(A.stride(2) == 1), int(G.stride(2) != 1)
-    P, N, K = A.shape
-    M = G.shape[2]
-    out = torch.empty(K, M, dtype=out_dtype, device=a.device)
-    if out.numel():
-        _launch_k6(name, A, G, out,
-                   (0, A.stride(0), A.stride(2), A.stride(1)),
-                   (0, G.stride(0), G.stride(1), G.stride(2)),
-                   (0, M, 1), (1, P, K, M, N), at, gt)
-    return out
+    launch = _dw_operands(a, g, a_t, g_t, out_dtype)
+    if launch[2].numel():
+        _launch_k6(name, *launch)
+    return launch[2]
 
 
 class _ProjFn(torch.autograd.Function):

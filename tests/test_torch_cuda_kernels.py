@@ -1,7 +1,9 @@
 """The Hopper kernels on the card (paged attention, flash attention forward
 and backward, fused CE, the MoE grouped matmuls and their backward, the
 weight-only int8/int4 products K7 and K9, the LayerNorm forward and
-backward and the RMSNorm forward K13, the layout-owning projection and its dW K6, the
+backward and the RMSNorm forward K13, the layout-owning projection and its
+dW K6 (K3 and K6 in bf16 through their wgmma designs, at ragged shapes
+and repeated bitwise), the
 query-major flash backward and the block-sparse forward, dq and dk/dv
 K11, the ring block step K10 and the blockwise int8 quantize /
 dequantize K12, bitwise for K12), held
@@ -164,14 +166,49 @@ def test_fused_ce_kernel(dtype, N, D, V):
     h = _rand(rs, (N, D), dtype)
     w = (_rand(rs, (V, D), torch.float32) * 0.1).to(dtype)
     t = torch.from_numpy(rs.randint(-3, V + 3, N)).cuda()
-    n0 = fce.LAUNCHES["fused_ce"]
+    fce.reset_launch_counts()
     logits, logz, gold = fce.unembed_logits_stats(h, w, t)
     torch.cuda.synchronize()
-    assert fce.LAUNCHES["fused_ce"] == n0 + 1
+    assert fce.LAUNCHES["fused_ce"] == 1
+    design = "sm90" if dtype == torch.bfloat16 else "fp32"
+    assert fce.DESIGN_LAUNCHES["fused_ce"][design] == 1
     rl, rz, rg = fce.unembed_logits_stats_reference(h.float(), w.float(), t)
     _assert_close(logits, rl, dtype)
     torch.testing.assert_close(logz, rz, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(gold, rg, rtol=1e-4, atol=1e-4)
+    again = fce.unembed_logits_stats(h, w, t)
+    assert all(torch.equal(a, b) for a, b in zip((logits, logz, gold), again))
+
+
+@pytest.mark.parametrize("N,D,V", [(1000, 256, 5000), (300, 64, 50000),
+                                   (129, 1024, 513)])
+def test_fused_ce_sm90_ragged(N, D, V):
+    """The bf16 design (wgmma tiles of 128 rows x 256 vocab columns, then
+    the merge) at N and V that cut tiles, targets outside [0, V) and in the
+    ragged last vocab tile: logits against the plain version in fp32, logz
+    and gold at chip_smoke.CE_STAT_ATOL and against the tiled plain
+    version (the same two passes), a bitwise repeat."""
+    rs = np.random.RandomState(N)
+    h = _rand(rs, (N, D), torch.bfloat16)
+    w = (_rand(rs, (V, D), torch.float32) * 0.05).to(torch.bfloat16)
+    t = rs.randint(0, V, N)
+    t[:3] = [-1, V, V + 11]
+    t[3:20] = V - 1 - rs.randint(0, V % fce.SM90_BLOCK_V or 256, 17)
+    t = torch.from_numpy(t).cuda()
+    fce.reset_launch_counts()
+    got = fce.unembed_logits_stats(h, w, t)
+    again = fce.unembed_logits_stats(h, w, t)
+    torch.cuda.synchronize()
+    assert fce.DESIGN_LAUNCHES["fused_ce"] == {"sm90": 2, "fp32": 0}
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ref = fce.unembed_logits_stats_reference(h.float(), w.float(), t)
+    tiled = fce.unembed_logits_stats_tiled_reference(
+        h.float(), w.float(), t, fce.SM90_BLOCK_V)
+    assert chip_smoke.bf16_mismatch(got[0], ref[0]) is None
+    for a, b, c in zip(got[1:], ref[1:], tiled[1:]):
+        assert (a - b).abs().max().item() <= chip_smoke.CE_STAT_ATOL
+        assert (a - c).abs().max().item() <= chip_smoke.CE_STAT_ATOL
+    assert (got[2][:3] == 0).all()
 
 
 def test_training_kernels_never_take_the_plain_path():
@@ -511,12 +548,17 @@ def test_mlp_matmul_kernels(dtype, x_t, out_t, B, T, K, M):
     w = (_rand(rs, (K, M), torch.float32) / np.sqrt(K)).to(dtype)
     w.requires_grad_()
     dy = _rand(rs, (B, M, T) if out_t else (B, T, M), dtype)
-    n0 = dict(mm.LAUNCHES)
+    mm.reset_launch_counts()
     y = mm.mlp_matmul(x, w, x_t=x_t, out_t=out_t)
     gx, gw = torch.autograd.grad(y, (x, w), dy)
     torch.cuda.synchronize()
-    assert mm.LAUNCHES["mlp_mm"] == n0["mlp_mm"] + 2
-    assert mm.LAUNCHES["mlp_dw"] == n0["mlp_dw"] + 1
+    assert mm.LAUNCHES["mlp_mm"] == 2
+    assert mm.LAUNCHES["mlp_dw"] == 1
+    if dtype == torch.float32:
+        assert mm.DESIGN_LAUNCHES["mlp_mm"]["fp32"] == 2
+    elif T % 8 == 0:    # every stride a whole number of 16 bytes
+        assert mm.DESIGN_LAUNCHES["mlp_mm"]["sm90"] == 2
+        assert mm.DESIGN_LAUNCHES["mlp_dw"]["sm90"] == 1
     assert y.shape == ((B, M, T) if out_t else (B, T, M))
     assert gx.shape == x.shape and gw.shape == w.shape
     _assert_close(y, mm.mlp_matmul_reference(x.detach().float(), w.float(),
@@ -546,6 +588,81 @@ def test_mlp_matmul_strided_views_and_unfused_dw(dtype):
     rdx, rdw = _k6_reference_grads(x.detach(), w.detach(), dy, False, False)
     _assert_close(gx, rdx, dtype)
     _sums_close(gw, rdw, dtype)
+
+
+@pytest.mark.parametrize("x_t,out_t", [(False, False), (True, False),
+                                       (False, True), (True, True)])
+@pytest.mark.parametrize("P,T,K,M", [(3, 200, 136, 264), (1, 8, 1032, 8),
+                                     (2, 136, 64, 520)])
+def test_k6_sm90_ragged(x_t, out_t, P, T, K, M):
+    """K6's bf16 sm90 design at I, J and C that are multiples of 8 but not of
+    the 128 x 256 tile or the 64-deep slice (forward (I, J, C) = (T, M, K),
+    dx (T, K, M), dW (K, M, T)): forward and dx against the plain version
+    in fp32, dW by relative error norm, each launch on sm90 and repeated
+    bitwise."""
+    rs = np.random.RandomState(T + K)
+    bf = torch.bfloat16
+    x = _rand(rs, (P, K, T) if x_t else (P, T, K), bf)
+    w = (_rand(rs, (K, M), torch.float32) / np.sqrt(K)).to(bf)
+    dy = _rand(rs, (P, M, T) if out_t else (P, T, M), bf)
+    mm.reset_launch_counts()
+    outs = [(mm._mm(x, w, x_t, False, out_t, bf),
+             mm._mm(dy, w, out_t, True, x_t, bf),
+             mm._dw(x, dy, x_t, out_t, bf)) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert mm.DESIGN_LAUNCHES == {"mlp_mm": {"sm90": 4, "mma_sync": 0,
+                                             "fp32": 0},
+                                  "mlp_dw": {"sm90": 2, "mma_sync": 0,
+                                             "fp32": 0}}
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+    y, dx, dw = outs[0]
+    xf, wf, dyf = x.float(), w.float(), dy.float()
+    _assert_close(y, mm.mm_reference(xf, wf, x_t, False, out_t,
+                                     torch.float32), bf)
+    _assert_close(dx, mm.mm_reference(dyf, wf, out_t, True, x_t,
+                                      torch.float32), bf)
+    _sums_close(dw, mm.dw_reference(xf, dyf, x_t, out_t, torch.float32), bf)
+
+
+@pytest.mark.parametrize("P,T", [(0, 64), (2, 0)])
+def test_k6_dw_over_no_rows(P, T):
+    """dW over no (p, n) rows is zeros (a bf16 operand TMA cannot address:
+    the mma_sync design)."""
+    bf = torch.bfloat16
+    x = torch.ones(P, T, 128, dtype=bf, device="cuda")
+    dy = torch.ones(P, T, 64, dtype=bf, device="cuda")
+    mm.reset_launch_counts()
+    dw = mm._dw(x, dy, False, False, bf)
+    torch.cuda.synchronize()
+    assert mm.DESIGN_LAUNCHES["mlp_dw"]["mma_sync"] == 1
+    assert dw.shape == (128, 64) and not dw.any()
+
+
+def test_k6_one_unaligned_row():
+    """One bf16 row of K = 100 (200 bytes: a tensor map cannot hold that
+    row stride, even for one row): forward, dx and dW take the mma_sync
+    design and match the plain version in fp32."""
+    rs = np.random.RandomState(100)
+    bf = torch.bfloat16
+    x = _rand(rs, (1, 1, 100), bf)
+    w = (_rand(rs, (100, 64), torch.float32) / 10).to(bf)
+    dy = _rand(rs, (1, 1, 64), bf)
+    mm.reset_launch_counts()
+    y = mm._mm(x, w, False, False, False, bf)
+    dx = mm._mm(dy, w, False, True, False, bf)
+    dw = mm._dw(x, dy, False, False, bf)
+    torch.cuda.synchronize()
+    assert mm.DESIGN_LAUNCHES == {"mlp_mm": {"sm90": 0, "mma_sync": 2,
+                                             "fp32": 0},
+                                  "mlp_dw": {"sm90": 0, "mma_sync": 1,
+                                             "fp32": 0}}
+    xf, wf, dyf = x.float(), w.float(), dy.float()
+    _assert_close(y, mm.mm_reference(xf, wf, False, False, False,
+                                     torch.float32), bf)
+    _assert_close(dx, mm.mm_reference(dyf, wf, False, True, False,
+                                      torch.float32), bf)
+    _sums_close(dw, mm.dw_reference(xf, dyf, False, False, torch.float32),
+                bf)
 
 
 def test_mlp_matmul_never_takes_the_plain_path(monkeypatch):

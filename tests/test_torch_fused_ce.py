@@ -140,3 +140,47 @@ def test_chunked_softmax_xent_matches_dense():
     np.testing.assert_allclose(float(loss.detach()), float(jl), **TOL)
     for got, want in zip((tw.grad, tx.grad), jg):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **GRAD_TOL)
+
+
+@pytest.mark.parametrize("ragged", [False, True], ids=["whole", "ragged"])
+@pytest.mark.parametrize("block_v", [64, 128, 256])
+def test_tiled_partials_merge_matches_jax(block_v, ragged):
+    """The bf16 Hopper design's two passes in plain PyTorch (per-vocab-tile
+    partials, then their merge in tile order) against the JAX kernel in
+    interpret mode and the one-pass plain version: logz and gold at 1e-5,
+    logits bitwise the plain version's; each tile's partials against the
+    plain scores of its columns."""
+    rs = np.random.RandomState(block_v + ragged)
+    N, D = 40, 32
+    V = 2 * block_v + (37 if ragged else 0)
+    h = rs.standard_normal((N, D)).astype(np.float32)
+    w = (rs.standard_normal((V, D)) * 0.3).astype(np.float32)
+    t = rs.randint(0, V, N).astype(np.int32)
+    t[:4] = [-1, V, V + 9, -block_v]            # outside [0, V): gold 0
+    t[4:8] = V - 1 - np.arange(4)               # in the last vocab tile
+    th, tw, tt = map(torch.from_numpy, (h, w, t))
+    got = tce.unembed_logits_stats_tiled_reference(th, tw, tt, block_v)
+    plain = tce.unembed_logits_stats_reference(th, tw, tt)
+    want = jce.unembed_logits_stats(*map(jnp.asarray, (h, w, t)),
+                                    block_m=8, block_n=128, interpret=True)
+    assert torch.equal(got[0], plain[0])
+    for g, p, j in zip(got[1:], plain[1:], want[1:]):
+        np.testing.assert_allclose(g.numpy(), np.asarray(j), **TOL)
+        np.testing.assert_allclose(g.numpy(), p.numpy(), **TOL)
+    assert (got[2][:4] == 0).all()
+
+    s = th @ tw.t()
+    parts = tce.ce_tile_partials(s, tt, block_v)
+    n_vt = -(-V // block_v)
+    assert parts.shape == (N, n_vt, 3)
+    for k in range(n_vt):
+        cols = s[:, k * block_v:(k + 1) * block_v]
+        m = cols.amax(dim=1)
+        np.testing.assert_allclose(parts[:, k, 0].numpy(), m.numpy(), **TOL)
+        np.testing.assert_allclose(
+            parts[:, k, 1].numpy(),
+            torch.exp(cols - m[:, None]).sum(dim=1).numpy(), **TOL)
+        here = (tt >= k * block_v) & (tt < min(V, (k + 1) * block_v))
+        gold = torch.where(here, s[torch.arange(N), tt.clamp(0, V - 1)], 0.)
+        np.testing.assert_allclose(parts[:, k, 2].numpy(), gold.numpy(),
+                                   **TOL)

@@ -104,3 +104,42 @@ def test_shape_validation_matches_jax():
             fn(mk((1, 8, 16)), mk((8, 16)))
         with pytest.raises(ValueError, match="contract dim"):
             fn(mk((1, 8, 16)), mk((16, 4)), x_t=True)
+
+
+@pytest.mark.parametrize("x_t,out_t", list(itertools.product(
+    [False, True], repeat=2)))
+def test_k6_design_rule(x_t, out_t):
+    """``_k6_design`` on the operands each K6 launch of ``mlp_matmul`` reads
+    (``_mm_operands`` / ``_dw_operands``, built on CPU tensors): every
+    product of the GPT-2 350M MLP (P = 24, T = 1024, D = 1024, F = 4096) in
+    bf16 takes the sm90 design (TMA + wgmma); a bf16 operand TMA cannot
+    address (a row of 100 values = 200 bytes, also as the only row; a base
+    one element off) takes mma_sync; fp32 takes fp32."""
+    bf = torch.bfloat16
+
+    def designs(x, w, dy, dtype):
+        return {tmm._k6_design(*launch[:3]) for launch in (
+            tmm._mm_operands(x, w, x_t, False, out_t, dtype),
+            tmm._mm_operands(dy, w, out_t, True, x_t, dtype),
+            tmm._dw_operands(x, dy, x_t, out_t, dtype))}
+
+    def case(P, T, K, M, dtype=bf):
+        return (torch.empty((P, K, T) if x_t else (P, T, K), dtype=dtype),
+                torch.empty(K, M, dtype=dtype),
+                torch.empty((P, M, T) if out_t else (P, T, M), dtype=dtype))
+
+    for K, M in ((1024, 4096), (4096, 1024)):
+        assert designs(*case(24, 1024, K, M), bf) == {"sm90"}
+    assert designs(*case(2, 64, 64, 100), bf) == {"mma_sync"}   # M = 100
+    # one row of K = 100: a tensor map holds the row stride even at one row
+    assert designs(*case(1, 1, 100, 64), bf) == {"mma_sync"}
+    x, w, dy = case(2, 64, 128, 64)
+    x = torch.empty(x.numel() + 1, dtype=bf)[1:].view(x.shape)  # base + 2 B
+    assert tmm._k6_design(*tmm._mm_operands(x, w, x_t, False, out_t,
+                                            bf)[:3]) == "mma_sync"
+    assert designs(*case(2, 64, 128, 64, torch.float32),
+                   torch.float32) == {"fp32"}
+    for P, T in ((0, 64), (2, 0)):                  # dW over no (p, n) rows
+        x, w, dy = case(P, T, 128, 64)
+        assert tmm._k6_design(*tmm._dw_operands(x, dy, x_t, out_t,
+                                                bf)[:3]) == "mma_sync"
