@@ -7,17 +7,22 @@ Phases (any failure raises and the script exits nonzero):
   1. card: the card's name and power limit (nvidia-smi), and the build of
      every kernel from csrc/ (one nvcc per source, all started together,
      into build/).
- 0b. SASS: cuobjdump -sass of the fused-CE and MLP libraries; every
-     instance of the Hopper designs on sm90_gemm.cuh
-     (fused_ce_sm90_kernel, proj_mm_sm90_kernel) holds HGMMA (wgmma) and
-     UTMALDG (TMA loads); their registers and spills from ptxas.
+ 0b. SASS: cuobjdump -sass of the fused-CE, MLP and grouped-matmul
+     libraries; every instance of the Hopper designs on sm90_gemm.cuh
+     (fused_ce_sm90_kernel, proj_mm_sm90_kernel, grouped_tgmm_sm90_kernel)
+     holds HGMMA (wgmma) and UTMALDG (TMA loads); their registers and
+     spills from ptxas.
   2. kernels: each Hopper kernel against its plain PyTorch version on the
      card at the Llama-2-7B / Mistral-7B serving shapes (bf16 against the
      plain version run in fp32 on the same inputs, see bf16_mismatch; fp32
      at 1e-4, allowing for another summation order), a control that an
-     output with half its blocks dropped fails that check, then each kernel
-     timed with CUDA events beside its plain version, its bound and one
-     library call (SDPA on the gathered K/V, a yardstick only).
+     output with half its blocks dropped fails that check; the split
+     decode (K4) also repeated bitwise, equal to its split-and-merge plain
+     version, and a control (that plain version's merge without one live
+     split's partial) that must fail; then each kernel timed with CUDA
+     events beside its plain version, its bound and one library call
+     (SDPA on the gathered K/V, a yardstick only), K4 also at Mixtral's
+     GQA G = 4 shape beside its bound.
   3. parity: a small fp32 Llama served with paged_kernel=True and False on
      the card must give identical greedy streams (split-fuse on and off).
   4. slice: full-width Llama-2-7B (random weights from a seeded generator)
@@ -54,17 +59,22 @@ Phases (any failure raises and the script exits nonzero):
      forward, the paged kernels as in phase 4.
  11. MoE backward kernels: grouped_tgmm (K8's _tgmm) at the GPT2MoE 350M
      shapes (49152 routed rows, E=4, (K, N) = (1024, 4096) and (4096,
-     1024); an empty expert and a row tail), bf16 against its plain
-     version in fp32 slab by slab, fp32 at 1e-4, a control that must fail;
-     the dx product through a transposed view of w; each timed beside its
-     bound, plain version and one library call; the grouped_swiglu
-     backward at Mixtral-8x7B expert widths against its plain version.
+     1024); an empty expert and a row tail), bf16 on its sm90 design
+     against its plain version in fp32 slab by slab and repeated bitwise,
+     fp32 at 1e-4, controls that must fail (a group a tile late, a slab
+     summed 64 rows into the next expert); the dx product through a
+     transposed view of w; each timed beside its bound, plain version and
+     one library call (tgmm also beside its mma_sync design); the
+     grouped_swiglu backward at Mixtral-8x7B expert widths against its
+     plain version.
  12. MoE training parity: a small fp32 GPT2MoE gives the same loss, aux and
      gradients with the grouped kernels on and off.
  13. MoE training slice: initialize(GPT2MoE over the 350M widths, E=4,
      top-2, the bench config) and 10 train_batch steps on one fixed batch;
      the loss falls and the launch counts are what the dispatches imply
-     (per layer and step: 6 gmm, 4 tgmm, one flash forward and backward).
+     (per layer and step: 6 gmm, 4 tgmm, one flash forward and backward;
+     of the tgmm, wi and wo on sm90, the expert-bias row sums on
+     mma_sync).
  14. wq kernels: K7 (wq_matmul) at the Llama-2-7B FFN shapes (8 decode
      rows and a 256-token chunk, D=4096 -> F=11008 and back) and K9
      (grouped_swiglu_up_wq, grouped_gmm_wq) at phase 8's Mixtral-8x7B
@@ -179,11 +189,12 @@ Phases (any failure raises and the script exits nonzero):
      tokens/s, each process's peak memory and the bytes each rank staged
      through host memory a step.
 Phases 7, 13, 20, 24 and 32 also hold every bf16 K3 / K6 launch to the
-sm90 design (the wrappers' DESIGN_LAUNCHES).
+sm90 design (the wrappers' DESIGN_LAUNCHES); the serving slices count
+K4's launches by design (split / single).
 Then one JSON line of per-kernel numbers (launches summed over the main
-paths that ran each kernel, and per path; the sm90 rows with the design
-their main-path launches went to and their SASS counts), and last the
-result line
+paths that ran each kernel, and per path; the rows with more than one
+design with the designs their main-path launches went to, the sm90 rows
+with their SASS counts), and last the result line
 {"ok": true, "device": {...}}. Without a CUDA device it exits 2 and prints
 no result. ``--profile PATH`` also writes torch.profiler breakdowns of the
 serving slice's device time to PATH, of three extra training steps to
@@ -196,6 +207,7 @@ profiler's overhead).
 """
 
 import argparse
+import ctypes
 import dataclasses
 import gc
 import itertools
@@ -413,7 +425,11 @@ def ptxas_summary(build_log):
 # the Hopper designs (sm90_gemm.cuh) by library: their SASS must hold
 # wgmma (HGMMA) and TMA loads (UTMALDG)
 SM90_KERNELS = {"fused_ce": "fused_ce_sm90_kernel",
-                "mlp_matmul": "proj_mm_sm90_kernel"}
+                "mlp_matmul": "proj_mm_sm90_kernel",
+                "grouped_matmul": "grouped_tgmm_sm90_kernel"}
+# the library of each kernel of the kernels line with an sm90 design
+SM90_LIBRARY = {"fused_ce": "fused_ce", "mlp_mm": "mlp_matmul",
+                "mlp_dw": "mlp_matmul", "grouped_tgmm": "grouped_matmul"}
 
 
 def find_cuobjdump():
@@ -469,7 +485,8 @@ def phase_sass(builders):
     return report
 
 
-# K3 / K6 launches of the main paths by design: {kernel: {design: n}}
+# K3 / K6 / K8 tgmm / K4 launches of the main paths by design: {kernel:
+# {design: n}}
 PATH_DESIGNS = {}
 
 
@@ -490,6 +507,14 @@ def assert_sm90(tag, *mods, main_path=False):
                 (tag, name, by, mod.LAUNCHES[name])
             if main_path:
                 count_designs(name, by)
+
+
+def count_decode_designs(pa, launches):
+    """A serving main path's decode launches by design (split / single),
+    which must add up to its paged_decode count, into PATH_DESIGNS."""
+    by = pa.DESIGN_LAUNCHES["paged_decode"]
+    assert sum(by.values()) == launches["paged_decode"], (by, launches)
+    count_designs("paged_decode", by)
 
 
 def bound(nbytes, flops):
@@ -613,7 +638,32 @@ def phase_kernels(pa):
     assert why is not None, "bf16 check let half the blocks drop"
     log(f"control: half the decode blocks dropped fails the bf16 check "
         f"({why})")
-    del d32, dropped
+    # the split design at the main-path width: calls repeat bitwise, the
+    # kernel agrees with the split-and-merge plain version, and a merge
+    # that drops one live split's partial (from that plain version's fp32
+    # partials) fails the check
+    S, bps = pa.decode_splits(main_dec["tables"].shape[1], 64)
+    args = [main_dec[n] for n in ("q", "k", "v", "tables", "lengths")]
+    pa.reset_launch_counts()
+    again = [pa.paged_decode_attention(*args) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(again[0], again[1]), "paged_decode: calls differ"
+    assert pa.DESIGN_LAUNCHES["paged_decode"] == {"split": 2, "single": 0}
+    m, l, acc = pa.paged_decode_split_partials(*d32)
+    split_ref = pa.merge_decode_partials(m, l, acc, torch.float32)
+    why = bf16_mismatch(again[0], split_ref)
+    assert why is None, f"paged_decode vs the split plain version: {why}"
+    live = [(b, s) for b in range(m.shape[0]) for s in range(1, S)
+            if bool((l[b, :, s] > 0).all())]
+    b, s = live[len(live) // 2]
+    m[b, :, s], l[b, :, s], acc[b, :, s] = pa.NEG_INF, 0.0, 0.0
+    why = bf16_mismatch(pa.merge_decode_partials(m, l, acc, bf),
+                        pa.paged_decode_attention_reference(*d32))
+    assert why is not None, "bf16 check let a live split's partial drop"
+    log(f"split decode: {S} splits of {bps} blocks, calls repeat bitwise, "
+        f"equal to the split plain version; control: the merge without "
+        f"slot {b}'s split {s} fails the bf16 check ({why})")
+    del d32, dropped, again, m, l, acc, split_ref
 
     # chunk — Llama-2-7B widths, 256-token chunks
     main_chk = None
@@ -654,8 +704,20 @@ def phase_kernels(pa):
             d["q"], d["k"], d["v"], d["tables"], d["lengths"]), 10),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             qd, gk, gv, attn_mask=dmask), 50),
-        bound=bound(dec_bytes, dec_flops))
+        bound=bound(dec_bytes, dec_flops),
+        splits=dict(zip(("S", "blocks_per_split"),
+                        pa.decode_splits(d["tables"].shape[1], 64))))
     del gk, gv, dmask
+    # Mixtral-8x7B's decode shape (GQA G = 4, 8 kv heads) on the same table
+    g4 = cases.decode(8, 32, 8, 128, 64, 64, llama_len, bf)
+    g4_bytes = (2 * n_pos * 8 * hd * esz + 2 * g4["q"].numel() * esz
+                + g4["tables"].numel() * 4 + g4["lengths"].numel() * 4)
+    rows["paged_decode"]["gqa"] = dict(
+        shape="Mixtral-8x7B widths: 8 slots, H = 32, KVH = 8, d = 128",
+        ms=time_ms(lambda: pa.paged_decode_attention(
+            g4["q"], g4["k"], g4["v"], g4["tables"], g4["lengths"]), 50),
+        bound_ms=bound(g4_bytes, dec_flops)[0])
+    del g4
 
     c = main_chk
     C, H, hd = c["q"].shape
@@ -689,6 +751,10 @@ def phase_kernels(pa):
         log(f"{name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, sdpa "
             f"{r['library_ms']:.4f}, bound {r['bound'][0]:.4f} by "
             f"{r['bound'][1]})")
+    r = rows["paged_decode"]
+    log(f"paged_decode / sdpa = {r['ms'] / r['library_ms']:.3f}; at GQA G=4 "
+        f"({r['gqa']['shape']}): {r['gqa']['ms']:.4f} ms, bound "
+        f"{r['gqa']['bound_ms']:.4f} by bytes")
     return rows
 
 
@@ -837,6 +903,7 @@ def phase_slice(seed=0, profile=None):
     want = {"paged_decode": cfg.n_layer * fc["decode"],
             "paged_chunk": cfg.n_layer * (fc["chunk"] + fc["prefill"])}
     assert launches == want and min(launches.values()) > 0, (launches, want)
+    count_decode_designs(pa, launches)
 
     ttft = sorted(first[u] - t_start for u in uids)
     tpot = sorted((done[u] - first[u]) / (new - 1) for u in uids)
@@ -1507,6 +1574,7 @@ def phase_moe_slice(seed=0, n_layer=24, profile=None):
     assert launches.pop("grouped_tgmm") == 0, "serving ran a backward kernel"
     assert all(launches.pop(k) == 0 for k in NO_WQ), "bf16 ran a wq kernel"
     assert launches == want and min(launches.values()) > 0, (launches, want)
+    count_decode_designs(pa, launches)
 
     hist = [s.tolist() for s in first_decode]
     ttft = sorted(first[u] - t_start for u in uids)
@@ -1575,6 +1643,25 @@ def tgmm_library(x, dy, sizes, ref):
     return loop, f"cuBLAS torch.mm per expert ({why})"
 
 
+def tgmm_mma_sync(gm, x, dy, gs):
+    """A call of grouped_tgmm's mma_sync kernel (the design the sm90 one
+    replaces at these shapes) on the same bf16 operands, timed beside it
+    only."""
+    M, K = x.shape
+    N, E = dy.shape[1], gs.shape[0]
+    out = torch.empty(E, K, N, dtype=x.dtype, device="cuda")
+    args = gm._TgmmArgs(x.data_ptr(), dy.data_ptr(), gs.data_ptr(),
+                        out.data_ptr(), M, K, N, E, 1, 1)
+    lib = gm.kernel_builder().load()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call():
+        rc = lib.grouped_tgmm_launch(ctypes.byref(args), 1, stream)
+        assert rc == 0, f"grouped_tgmm mma_sync launch: cudaError {rc}"
+        return out
+    return call
+
+
 def tgmm_bound(M, K, N, E, sizes):
     """x and dy read once, dw written once; operations on the rows inside
     the groups only."""
@@ -1610,10 +1697,17 @@ def phase_moe_backward_kernels(gm, seed=0, tokens=24576, E=4, k=2):
     rows, worst, err = {}, 0.0, 0.0
     for K, N in ((1024, 4096), (4096, 1024)):
         x, dy = randn((M, K)), randn((M, N))
+        refs = []
         for sz, gsz in ((sizes, gs), (tail_sizes, tail_gs)):
+            gm.reset_launch_counts()
             out = gm.grouped_tgmm(x, dy, gsz)
+            again = gm.grouped_tgmm(x, dy, gsz)
             ref = gm.grouped_tgmm_reference(x.float(), dy.float(), gsz)
+            refs.append(ref)
             torch.cuda.synchronize()
+            assert gm.DESIGN_LAUNCHES["grouped_tgmm"]["sm90"] == 2, \
+                gm.DESIGN_LAUNCHES
+            assert torch.equal(out, again), f"tgmm {K}x{N}: calls differ"
             assert torch.isfinite(out).all(), f"tgmm {K}x{N}: non-finite"
             rel = slab_rel_norm(out, ref)
             assert rel <= BF16_REL_NORM, f"tgmm {K}x{N} {sz}: slab {rel:.3g}"
@@ -1622,12 +1716,22 @@ def phase_moe_backward_kernels(gm, seed=0, tokens=24576, E=4, k=2):
             for e, n in enumerate(sz):
                 if n == 0:
                     assert (out[e] == 0).all(), f"tgmm: empty expert {e}"
+            del again
         # control: expert 0's rows taken one 64-row tile late
         ctrl = ref.clone()
         late = slice(64, sizes[0] + 64)
         ctrl[0] = x[late].float().t() @ dy[late].float()
         crel = slab_rel_norm(ctrl.to(bf), ref)
         assert crel > BF16_REL_NORM, "tgmm check let a shifted group pass"
+        # control (routed sizes): expert 1's slab summed over rows running
+        # one 64-row slice past its end into expert 2 (its x rows left
+        # unmasked)
+        ctrl = refs[0].clone()
+        over = slice(sizes[0], sizes[0] + sizes[1] + 64)
+        ctrl[1] = x[over].float().t() @ dy[over].float()
+        orel = slab_rel_norm(ctrl.to(bf), refs[0])
+        assert orel > BF16_REL_NORM, "tgmm check let rows past a group pass"
+        del refs
         # fp32 (scaled so the 12k-row sums stay O(1)) at FP32_TOL
         x32, dy32 = x.float() * 0.1, dy.float() * 0.1
         for gsz in (gs, tail_gs):
@@ -1653,6 +1757,7 @@ def phase_moe_backward_kernels(gm, seed=0, tokens=24576, E=4, k=2):
             ms=time_ms(lambda: gm.grouped_tgmm(x, dy, gs), 10),
             plain_ms=time_ms(lambda: gm.grouped_tgmm_reference(x, dy, gs), 3),
             library_ms=time_ms(lib, 10), bound=tgmm_bound(M, K, N, E, sizes),
+            mma_sync_ms=time_ms(tgmm_mma_sync(gm, x, dy, gs), 10),
             shape=tag, library=lib_name)
         dxv = dict(
             ms=time_ms(lambda: gm.grouped_matmul(dy, wt, gs), 10),
@@ -1664,18 +1769,21 @@ def phase_moe_backward_kernels(gm, seed=0, tokens=24576, E=4, k=2):
             bound_ms=grouped_bound(M, N, K, sizes, 1)[0],
             max_abs_err=dx_err[1], shape=tag, library=dx_lib_name)
         log(f"MoE backward {tag}, sizes {sizes}: tgmm {r['ms']:.4f} ms "
-            f"(plain {r['plain_ms']:.4f}, library {r['library_ms']:.4f} "
+            f"(sm90; the mma_sync design {r['mma_sync_ms']:.4f}, plain "
+            f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f} "
             f"[{lib_name}], bound {r['bound'][0]:.4f} by {r['bound'][1]}); "
             f"dx view gmm {dxv['ms']:.4f} ms (same product on a contiguous "
             f"copy {dxv['contiguous_ms']:.4f}, plain {dxv['plain_ms']:.4f}, "
             f"library {dxv['library_ms']:.4f} [{dx_lib_name}], bound "
-            f"{dxv['bound_ms']:.4f}); control: expert 0 a tile late fails "
-            f"(slab relative error norm {crel:.3g})")
+            f"{dxv['bound_ms']:.4f}); controls: expert 0 a tile late fails "
+            f"(slab relative error norm {crel:.3g}), expert 1 over 64 rows "
+            f"of expert 2 fails ({orel:.3g})")
         rows[(K, N)] = (r, dxv)
         del x, dy, w, wt
         torch.cuda.empty_cache()
-    log(f"grouped_tgmm checks ok: worst bf16 slab relative error norm "
-        f"{worst:.3g}, fp32 at 1e-4, empty expert 0")
+    log(f"grouped_tgmm checks ok (sm90 design, calls repeat bitwise): worst "
+        f"bf16 slab relative error norm {worst:.3g}, fp32 at 1e-4, empty "
+        f"expert 0")
 
     # the grouped_swiglu backward at Mixtral-8x7B expert widths
     D, Fd, Em = 4096, 14336, 8
@@ -1703,7 +1811,8 @@ def phase_moe_backward_kernels(gm, seed=0, tokens=24576, E=4, k=2):
     main_r, main_dx = rows[(1024, 4096)]
     main_r["max_abs_err"] = err
     main_r["other"] = {k: rows[(4096, 1024)][0][k] for k in
-                       ("ms", "plain_ms", "library_ms", "shape")}
+                       ("ms", "plain_ms", "library_ms", "shape",
+                        "mma_sync_ms")}
     main_r["other"]["bound_ms"] = rows[(4096, 1024)][0]["bound"][0]
     return main_r, [main_dx, rows[(4096, 1024)][1]]
 
@@ -1848,6 +1957,12 @@ def phase_moe_train_slice(seed=0, steps=10, profile=None):
             **NO_WQ}
     assert launches == want, (launches, want)
     assert_sm90("moe train slice", fce, main_path=True)
+    # wi and wo on sm90; the two expert-bias row sums (x = ones (M, 1)) on
+    # mma_sync
+    by = dict(gm.DESIGN_LAUNCHES["grouped_tgmm"])
+    assert by == {"sm90": 2 * L * steps, "mma_sync": 2 * L * steps,
+                  "fp32": 0}, by
+    count_designs("grouped_tgmm", by)
     assert all(math.isfinite(x) for x in losses), losses
     assert losses[-1] < losses[0], losses
     load = [s.tolist() for s in first_step]
@@ -2299,6 +2414,7 @@ def phase_wq_slice(kind, seed=0, profile=None):
     else:
         want["grouped_swiglu_up_wq"] = want["grouped_gmm_wq"] = L * forwards
     assert launches == want, (launches, want)
+    count_decode_designs(pa, launches)
 
     hist = [s.tolist() for s in first_decode]
     ttft = sorted(first[u] - t_start for u in uids)
@@ -4313,15 +4429,18 @@ def main(argv=None):
             library_ms=r["library_ms"])
         for extra in ("shape", "chunk", "other", "dx_view", "library",
                       "dscale_dbias_rel_norm", "rel_norm", "kmajor_ms",
-                      "causal_ms", "expression_ms", "eager_ms"):
+                      "causal_ms", "expression_ms", "eager_ms", "gqa",
+                      "splits", "mma_sync_ms"):
             if extra in r:
                 row[extra] = r[extra]
         if name in PATH_DESIGNS:
-            want = SM90_KERNELS["fused_ce" if name == "fused_ce"
-                                else "mlp_matmul"]
-            row.update(design="+".join(sorted(
-                k for k, v in PATH_DESIGNS[name].items() if v)),
-                sass={k: v for k, v in sass.items() if want in k})
+            row["design"] = "+".join(sorted(
+                k for k, v in PATH_DESIGNS[name].items() if v))
+            row["launches_by_design"] = {
+                k: v for k, v in PATH_DESIGNS[name].items() if v}
+        if name in SM90_LIBRARY:
+            want = SM90_KERNELS[SM90_LIBRARY[name]]
+            row["sass"] = {k: v for k, v in sass.items() if want in k}
         kernels.append(row)
     # again at the end, where a caller that keeps only the output's tail
     # finds it beside the numbers

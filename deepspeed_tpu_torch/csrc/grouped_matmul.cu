@@ -14,9 +14,13 @@
 //   h = silu(x w1[g]) * (x w3[g]): one staged x tile feeds both products;
 //   the silu*mul epilogue runs in fp32 and rounds h once (as
 //   grouped_matmul.py:204-210).
-// grouped_tgmm_kernel       replaces _tgmm_kernel (via _tgmm, the weight
-//   gradient of training): dw[e, k, n] = sum over group e's rows s of
-//   x[s, k] dy[s, n], fp32 accumulation, one rounding (see its comment).
+// grouped_tgmm_sm90_kernel / grouped_tgmm_kernel replace _tgmm_kernel (via
+//   _tgmm, the weight gradient of training): dw[e, k, n] = sum over group
+//   e's rows s of x[s, k] dy[s, n], fp32 accumulation, one rounding. bf16
+//   operands TMA can address take the Hopper design (sm90_gemm.cuh's
+//   mainloop with each expert's row range resolved on the device; see its
+//   comment), other bf16 and fp32 the mma.sync / scalar-FMA kernel (the
+//   wrapper's _tgmm_design picks one per call).
 // grouped_gmm_wq / grouped_swiglu_up_wq (K9) replace _gmm_wq_kernel and
 //   _swiglu_up_wq_kernel: the same two forward products with int8 or
 //   packed-int4 expert codes and per-(expert, channel) scales; the kernel
@@ -53,6 +57,7 @@
 // scalar FMAs in the same fragment layout (the parity checks).
 
 #include "gemm_common.cuh"
+#include "sm90_gemm.cuh"
 #include "wq_gemm.cuh"
 
 struct GroupedArgs {
@@ -261,8 +266,10 @@ __global__ void __launch_bounds__(NT) grouped_kernel(GroupedArgs a) {
 // Bound: operations. At (rows, K, N) = (49152, 1024, 4096) the work is
 // 412 GFLOP (0.42 ms at the bf16 peak) against 0.54 GB of x, dy and dw
 // (0.16 ms). The 64 x 64 output tile re-reads each x slice once per n
-// tile and each dy slice once per k tile (most of it from L2); larger
-// tiles and wgmma are later work.
+// tile and each dy slice once per k tile (most of it from L2). bf16
+// operands TMA can address take grouped_tgmm_sm90_kernel below; this
+// kernel serves fp32 and the rest of bf16 (x of width 1: the expert-bias
+// row sums).
 template <typename T>
 __global__ void __launch_bounds__(NT) grouped_tgmm_kernel(TgmmArgs a) {
   constexpr int BS = Slice<T>::BK;  // routed rows per stage
@@ -327,6 +334,75 @@ __global__ void __launch_bounds__(NT) grouped_tgmm_kernel(TgmmArgs a) {
   }
 }
 
+// The weight gradient on the Hopper mainloop (bf16 operands TMA can
+// address): O[z = e, i = k, j = n] = sum over c in expert e's rows of
+// A[i, c] B[c, j] with A = x^T and B = dy, both MN-major (x's k and dy's n
+// contiguous): the operand pair of K6's _dw. The tile walk runs over (e, k
+// tile of 128, n tile of 256): 512 tiles at both GPT2-MoE 350M shapes,
+// expert-major, so the CTAs in flight read one expert's rows together and
+// each x / dy slice comes from device memory about once a wave. Each
+// tile's row range [lo_e, hi_e) is clipped to M as grouped_tgmm_kernel
+// clips it; x's rows at or past hi_e in the last 64-row slice (the next
+// expert's, or the tail's) are zeroed in shared memory (the TPU kernel's
+// jnp.where(mask, x, 0)); an empty expert runs no slice and stores zeros.
+// The epilogue rounds the fp32 accumulator to bf16 once (store_tile).
+// Bound: operations, 412 GFLOP at (rows, K, N) = (49152, 1024, 4096)
+// against 0.54 GB moved (0.42 ms vs 0.16 ms).
+struct ExpertRows {
+  const int* group_sizes;  // (E,) int32, device memory
+  int M;
+  static constexpr bool MASK_A = true;
+  __device__ __forceinline__ void operator()(const sm90::Problem&, int e, int& lo, int& hi) const {
+    int start = 0;
+    for (int i = 0; i < e; ++i) start = min(start + max(group_sizes[i], 0), M);
+    lo = start;
+    hi = min(start + max(group_sizes[e], 0), M);
+  }
+};
+
+struct TgmmEpilogue {
+  bf16* out;  // (E, K, N) contiguous
+  int K, N;
+  int vec;    // 16-byte stores allowed
+
+  __device__ __forceinline__ void operator()(float (&acc)[sm90::BN / 2], int e, int i0, int j0,
+                                             bf16* stage, int tid, int bar) const {
+    bf16* o = out + ((long long)e * K + i0) * N + j0;
+    sm90::store_tile<false>(acc, stage, o, N, K - i0, N - j0, vec != 0, bar, tid);
+  }
+};
+
+__global__ void __launch_bounds__(sm90::THREADS, 1)
+    grouped_tgmm_sm90_kernel(const __grid_constant__ CUtensorMap mx,
+                             const __grid_constant__ CUtensorMap mdy, sm90::Problem p,
+                             TgmmEpilogue epi, ExpertRows rows) {
+  sm90::gemm<1, 1>(mx, mdy, p, epi, rows);
+}
+
+cudaError_t launch_tgmm_sm90(const TgmmArgs& a, cudaStream_t s) {
+  sm90::Problem p{};
+  p.Z = a.E;
+  p.Q = 1;
+  p.I = a.K;
+  p.J = a.N;
+  p.C = a.M;
+  CUtensorMap mx, mdy;
+  // strides in elements: A (z, q, i, c) = (0, 0, 1, K), B (z, q, c, j) = (0, 0, N, 1)
+  const long long sx[4] = {0, 0, 1, a.K}, sdy[4] = {0, 0, a.N, 1};
+  cudaError_t e = sm90::make_maps(&mx, &mdy, &p, a.x, sx, 1, a.dy, sdy, 1);
+  if (e != cudaSuccess) return e;
+  const int grid = sm90::plan(&p, 8);
+  if (grid <= 0) return cudaErrorInvalidValue;
+  const TgmmEpilogue epi{(bf16*)a.out, a.K, a.N,
+                         (uintptr_t)a.out % 16 == 0 && a.N % 8 == 0};
+  auto kernel = grouped_tgmm_sm90_kernel;
+  e = sm90::allow_sm90_smem(kernel);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, sm90::THREADS, sm90::SMEM_BYTES, s>>>(mx, mdy, p, epi,
+                                                      ExpertRows{a.group_sizes, a.M});
+  return cudaGetLastError();
+}
+
 template <typename T, int BM, bool SWIGLU, bool WT>
 cudaError_t launch(const GroupedArgs& a, cudaStream_t s) {
   constexpr int BK = Slice<T>::BK;
@@ -386,6 +462,16 @@ extern "C" int grouped_gmm_launch(const GroupedArgs* a, int dtype, int block_m, 
 extern "C" int grouped_swiglu_up_launch(const GroupedArgs* a, int dtype, int block_m,
                                         void* stream) {
   return dispatch<true>(a, dtype, block_m, stream);
+}
+
+// The bf16 Hopper design: x, dy and out bf16 with 16-byte aligned bases and
+// rows (K and N multiples of 8), M > 0. Returns a cudaError_t (0 =
+// launched).
+extern "C" int grouped_tgmm_sm90_launch(const TgmmArgs* a, void* stream) {
+  if (a == nullptr || a->M <= 0 || a->K <= 0 || a->N <= 0 || a->E <= 0 || a->K % 8 != 0 ||
+      a->N % 8 != 0 || (uintptr_t)a->x % 16 != 0 || (uintptr_t)a->dy % 16 != 0)
+    return cudaErrorInvalidValue;
+  return launch_tgmm_sm90(*a, (cudaStream_t)stream);
 }
 
 // out (E, K, N) in x's dtype; M may be 0 (every group empty: zeros).

@@ -1,9 +1,9 @@
 // Paged (blocked-KV) attention for the v2 serving path, CUDA C++ for sm_90a.
 //
-// Two kernels, each with an extern "C" launcher that returns
-// cudaGetLastError() (0 = launched). Launchers never synchronize and never
-// allocate: the Python wrapper (ops/cuda/paged_attention.py) allocates the
-// output with torch.empty and passes raw pointers and the current stream.
+// Extern "C" launchers return cudaGetLastError() (0 = launched). They never
+// synchronize and never allocate: the Python wrapper
+// (ops/cuda/paged_attention.py) allocates the output and the decode's split
+// partials with torch.empty and passes raw pointers and the current stream.
 //
 // Layouts (the JAX package's, unchanged):
 //   pools k/v  (NB, KVH, BS, D)  heads-major, contiguous
@@ -11,19 +11,45 @@
 //   chunk      q (C, H, D), table (MB,) i32, start/true_len ints -> out (C, H, D)
 // Element type: float or __nv_bfloat16 (template T). Scores, softmax state
 // and the output accumulator are fp32; p is rounded to T before the PV
-// product, exactly as the Pallas kernels do (p.astype(v.dtype)).
+// product, exactly as the Pallas kernels do (p.astype(v.dtype)), and l sums
+// the unrounded p.
 //
 // paged_decode  replaces deepspeed_tpu/ops/pallas/paged_attention.py
-//               _decode_kernel (via paged_decode_attention).
-//   One CTA per (slot b, kv head). Its G = H/KVH query heads share every
-//   K/V row read (GQA-native, no repeat). A loop inside the CTA walks the
-//   table's live blocks (j*BS <= L, and with a window j*BS+BS > L-window+1)
-//   and keeps the online-softmax state (m, l, acc) in shared memory: the
-//   TPU grid's sequential j axis and its VMEM scratch become that loop.
-//   Bound: bytes. It must read K+V = sum_b (L_b+1) * KVH * D * 2 *
-//   sizeof(T) once (min(L_b+1, window) positions with a window) at about
-//   4*H*D flops per position — far below the card's 295 flop/byte ridge,
-//   so the design reads each K/V element once per CTA and nothing else.
+//               _decode_kernel (via paged_decode_attention): split decode.
+//   Bound: bytes. It must read K+V of every valid position once (sum_b
+//   (L_b+1) * KVH * D * 2 * sizeof(T); min(L_b+1, window) positions with a
+//   window) at 4*H*D flops per position: far below the card's 295
+//   flop/byte ridge. So the design's one aim is to keep HBM busy:
+//   - grid (S, KVH, B): each CTA (4 warps) takes one contiguous run of bps
+//     table blocks of one slot and kv head (a split). S = ceil(MB / bps)
+//     and bps come from the table's shape (the wrapper's decode_splits),
+//     never from lengths: no host sync. The split's valid positions
+//     [lo, hi) (pos <= L, pos > L - window, inside the table) are computed
+//     in the CTA; a split with none writes an empty partial (m = -1e30,
+//     l = 0, acc = 0) and exits;
+//   - the valid positions stream in steps of 64 (16 keys a warp) through a
+//     3-step ring of shared memory filled by 16-byte cp.async (each row is
+//     one (block, kv head, position) row of the pool, found through the
+//     split's table entries, staged once in shared memory), so two steps'
+//     K and V are in flight while one is scored; rows past hi are zero;
+//   - the G = H / KVH query heads of the kv head (up to 16 a CTA: the m16
+//     rows of mma.sync m16n8k16, heads past G zero) share every K/V read;
+//     bf16 keeps q's A fragments in registers, the scores' accumulator
+//     becomes PV's A fragment (p rounded to bf16) and V's B fragments come
+//     by ldmatrix.trans from rows padded by 16 bytes (no bank conflicts);
+//     fp32 (the parity checks) runs scalar FMAs in the same fragment
+//     layout (attention_tiles.cuh);
+//   - the online softmax is the JAX kernel's with a step of 64 positions
+//     in place of a block: the four warps exchange their rows' maxima
+//     through shared memory once a step, so (m, l, acc) are the split's
+//     own; at the end the warps' acc and l are summed in warp order and
+//     written as the split's fp32 partial (acc (B, H, S, D), m and l
+//     (B, H, S)).
+//   paged_decode_merge_kernel folds a (slot, head)'s S partials in split
+//   order: m* = max m_s, l = sum l_s e^(m_s - m*), acc likewise, out =
+//   acc / max(l, 1e-30) rounded once to T. No atomics: calls repeat
+//   bitwise. A table of one split (S = 1) skips the merge: its CTA writes
+//   the output itself (the same arithmetic: e^0 = 1).
 //
 // paged_chunk   replaces deepspeed_tpu/ops/pallas/paged_attention.py
 //               _chunk_kernel (via paged_chunk_attention).
@@ -47,34 +73,29 @@
 // Masks are the Pallas kernels' exactly: NEG_INF = -1e30 for masked scores,
 // and the output divides by max(l, 1e-30).
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "attention_tiles.cuh"
 
-#define NEG_INF (-1e30f)
+struct DecodeArgs {
+  const void* q;        // (B, H, D)
+  const void* k;        // (NB, KVH, BS, D) pools, 16-byte aligned
+  const void* v;
+  const int* tables;    // (B, MB)
+  const int* lengths;   // (B,)
+  void* out;            // (B, H, D) in q's dtype
+  float* part;          // S > 1: acc (B, H, S, D), then m (B, H, S), then l (B, H, S)
+  int B, H, KVH, BS, MB;
+  int S, bps;           // splits, table blocks a split
+  float scale;
+  int window, alibi;
+  float alibi_scale;
+  int alibi_bf16;
+  float alibi_cp;       // leading power of two of H (the bloom slopes)
+};
 
 namespace {
 
-template <typename T> __device__ __forceinline__ float to_f(T x);
-template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as astype(bf16)
-}
-
 template <typename T> __device__ __forceinline__ float round_to(float x) {
   return to_f<T>(from_f<T>(x));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -85,125 +106,371 @@ __device__ __forceinline__ float warp_max(float v) {
 
 // ------------------------------------------------------------------ decode
 
-constexpr int DEC_NT = 128;
-constexpr int DEC_NW = DEC_NT / 32;
+constexpr int DEC_NT = 128;   // 4 warps
+constexpr int DEC_STEP = 64;  // cache positions a pipeline step: 16 keys a warp
+constexpr int DEC_NST = 3;    // ring depth in steps
+constexpr int DEC_HG = 16;    // query heads a CTA: the m16 rows of the products
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t& r0, uint32_t& r1, uint32_t& r2,
+                                              uint32_t& r3, const bf16* p) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(s));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // round to nearest even
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The CTA's 16 query rows (q, [16][ld] in shared memory, rows past G zero)
+// and the scores of one warp's 16 keys ks [16][ld]: s[n][e] in the m16n8
+// accumulator layout (keys 8n .. 8n + 7).
+template <typename T, int D> struct QTile;
+
+template <int D> struct QTile<bf16, D> {  // q's A fragments, held in registers
+  uint32_t a[D / 16][4];
+  __device__ __forceinline__ void load(const bf16* qs, int ld) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int k = 0; k < D / 16; ++k) {
+      a[k][0] = ld32(qs + g * ld + 16 * k + 2 * t);
+      a[k][1] = ld32(qs + (g + 8) * ld + 16 * k + 2 * t);
+      a[k][2] = ld32(qs + g * ld + 16 * k + 8 + 2 * t);
+      a[k][3] = ld32(qs + (g + 8) * ld + 16 * k + 8 + 2 * t);
+    }
+  }
+  __device__ __forceinline__ void scores(float (&s)[2][4], const bf16* ks, int ld) const {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int k = 0; k < D / 16; ++k)
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        const bf16* bp = ks + (n * 8 + g) * ld + 16 * k + 2 * t;
+        mma16816(s[n], a[k][0], a[k][1], a[k][2], a[k][3], ld32(bp), ld32(bp + 8));
+      }
+  }
+};
+
+template <int D> struct QTile<float, D> {  // fp32: scalar FMAs from shared q
+  const float* qs;
+  int ld;
+  __device__ __forceinline__ void load(const float* q, int l) {
+    qs = q;
+    ld = l;
+  }
+  __device__ __forceinline__ void scores(float (&s)[2][4], const float* ks, int ldk) const {
+    mma_nk<2>(s, qs, ld, ks, ldk, D);
+  }
+};
+
+// o (16 rows x D) += p (16 rows x the warp's 16 keys) v (16 keys x D), vs
+// [16][ld]; p in the scores' accumulator layout. bf16: p rounded to bf16
+// (round to nearest even) as PV's A fragment, V's B fragments by
+// ldmatrix.trans.
+template <int D>
+__device__ __forceinline__ void pv_tile(float (&o)[D / 8][4], const float (&p)[2][4],
+                                        const bf16* vs, int ld) {
+  const int lane = threadIdx.x & 31;
+  const uint32_t a0 = pack_bf16(p[0][0], p[0][1]), a1 = pack_bf16(p[0][2], p[0][3]);
+  const uint32_t a2 = pack_bf16(p[1][0], p[1][1]), a3 = pack_bf16(p[1][2], p[1][3]);
+#pragma unroll
+  for (int n = 0; n < D / 16; ++n) {
+    uint32_t b0, b1, b2, b3;
+    ldsm_x4_trans(b0, b1, b2, b3, vs + (lane & 15) * ld + n * 16 + (lane >> 4) * 8);
+    mma16816(o[2 * n], a0, a1, a2, a3, b0, b1);
+    mma16816(o[2 * n + 1], a0, a1, a2, a3, b2, b3);
+  }
+}
+
+// fp32: each lane gathers its rows' 16 p values from its quad by shuffles.
+template <int D>
+__device__ __forceinline__ void pv_tile(float (&o)[D / 8][4], const float (&p)[2][4],
+                                        const float* vs, int ld) {
+  const int lane = threadIdx.x & 31, t = lane & 3;
+#pragma unroll
+  for (int kk = 0; kk < 16; ++kk) {
+    const int src = (lane & ~3) | ((kk & 7) >> 1);
+    const float lo = __shfl_sync(0xffffffffu, p[kk >> 3][kk & 1], src);
+    const float hi = __shfl_sync(0xffffffffu, p[kk >> 3][2 + (kk & 1)], src);
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const float b0 = vs[kk * ld + n * 8 + 2 * t], b1 = vs[kk * ld + n * 8 + 2 * t + 1];
+      o[n][0] = fmaf(lo, b0, o[n][0]);
+      o[n][1] = fmaf(lo, b1, o[n][1]);
+      o[n][2] = fmaf(hi, b0, o[n][2]);
+      o[n][3] = fmaf(hi, b1, o[n][3]);
+    }
+  }
+}
 
 template <typename T, int D>
-__global__ void __launch_bounds__(DEC_NT)
-paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
-                    const T* __restrict__ vc, const int* __restrict__ tables,
-                    const int* __restrict__ lengths, T* __restrict__ out,
-                    int H, int KVH, int BS, int MB, float scale, int window,
-                    int alibi, float alibi_scale, int alibi_bf16, float alibi_cp) {
-  constexpr int VEC = D / 32;  // head-dim elements per lane in the score dot
-  const int b = blockIdx.x, kvh = blockIdx.y;
-  const int G = H / KVH;
-  const int h0 = kvh * G;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+__host__ __device__ constexpr int dec_ld() {
+  return D + 16 / (int)sizeof(T);  // row pitch: one 16-byte pad
+}
 
-  extern __shared__ float smem[];
-  float* qs = smem;             // [G][D]
-  float* acc = qs + G * D;      // [G][D]
-  float* ps = acc + G * D;      // [G][BS] scores, then p
-  float* m_s = ps + G * BS;     // [G]
-  float* l_s = m_s + G;         // [G]
-  float* a_s = l_s + G;         // [G] alpha of the current block
+template <typename T, int D>
+__global__ void __launch_bounds__(DEC_NT) paged_decode_kernel(DecodeArgs a) {
+  constexpr int LD = dec_ld<T, D>();
+  constexpr int VEC = 16 / (int)sizeof(T);
+  constexpr int CH = D / VEC;             // 16-byte chunks a row
+  constexpr int RPI = DEC_NT / CH;        // rows a load pass
+  constexpr int NP = DEC_STEP / RPI;      // load passes a step
+  constexpr int SLOT = 2 * DEC_STEP * LD; // K then V of one step
+  static_assert(DEC_NT % CH == 0 && DEC_STEP % RPI == 0, "load mapping");
 
-  const int L = lengths[b];
-  for (int i = tid; i < G * D; i += DEC_NT) {
-    qs[i] = to_f<T>(q[((size_t)b * H + h0) * D + i]);
-    acc[i] = 0.f;
-  }
-  for (int g = tid; g < G; g += DEC_NT) {
-    m_s[g] = NEG_INF;
-    l_s[g] = 0.f;
-  }
-  __syncthreads();
+  const int s = blockIdx.x, b = blockIdx.z;
+  const int G = a.H / a.KVH, HC = (G + DEC_HG - 1) / DEC_HG;
+  const int kvh = blockIdx.y / HC, g0 = (blockIdx.y - kvh * HC) * DEC_HG;
+  const int ng = min(DEC_HG, G - g0), h0 = kvh * G + g0;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const long long row0 = (long long)b * a.H + h0;  // (slot, head) row of query 0
+  const long long BH = (long long)a.B * a.H;
+  float* pm = a.part + BH * a.S * D;               // split design: (B, H, S) maxima
+  float* pl = pm + BH * a.S;                       //                and sums
+  T* out = reinterpret_cast<T*>(a.out);
 
-  // live blocks: j*BS <= L; with a window also j*BS + BS > L - window + 1
-  const int j_hi = min(MB - 1, L / BS);
-  int j_lo = 0;
-  if (window > 0) {
-    const int thr = L - window + 1 - BS;  // live needs j*BS > thr
-    j_lo = thr < 0 ? 0 : thr / BS + 1;
-  }
+  // the split's valid positions [lo, hi): pos <= L, pos > L - window, and
+  // inside both the split's table blocks and the table
+  const int L = a.lengths[b];
+  const int p0 = s * a.bps * a.BS;
+  const int hi = min(min(s * a.bps + a.bps, a.MB) * a.BS, L + 1);
+  const int lo = a.window > 0 ? max(p0, L - a.window + 1) : p0;
 
-  for (int j = j_lo; j <= j_hi; ++j) {
-    const int blk = tables[(size_t)b * MB + j];
-    const T* kb = kc + ((size_t)blk * KVH + kvh) * BS * D;
-    const T* vb = vc + ((size_t)blk * KVH + kvh) * BS * D;
-
-    // scores: one warp per key row, lanes split the head dim
-    for (int t = warp; t < BS; t += DEC_NW) {
-      float kr[VEC];
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) kr[e] = to_f<T>(kb[t * D + lane * VEC + e]);
-      const int pos = j * BS + t;
-      bool ok = pos <= L;
-      if (window > 0) ok = ok && (pos > L - window);
-      for (int g = 0; g < G; ++g) {
-        float s = 0.f;
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) s += qs[g * D + lane * VEC + e] * kr[e];
-        s = warp_sum(s) * scale;
-        if (lane == 0) {
-          if (alibi) {
-            // bloom slopes from the head index, split at the leading
-            // power of two cp (paged_attention.py _decode_kernel)
-            const float h = (float)(h0 + g);
-            const float expo = h < alibi_cp ? -(h + 1.f) * (8.f / alibi_cp)
-                                            : -(2.f * (h - alibi_cp) + 1.f) * (4.f / alibi_cp);
-            float ab = exp2f(expo) * (float)pos;
-            if (alibi_bf16) ab = __bfloat162float(__float2bfloat16(ab));
-            if (alibi_scale != 1.f) ab *= alibi_scale;
-            s += ab;
-          }
-          ps[g * BS + t] = ok ? s : NEG_INF;
+  if (hi <= lo) {  // nothing live: an empty partial (S = 1: the output is 0)
+    for (int i = tid; i < ng * D; i += DEC_NT) {
+      const int gg = i / D, d = i - gg * D;
+      const long long r = row0 + gg;
+      if (a.S == 1) {
+        out[r * D + d] = from_f<T>(0.f);
+      } else {
+        a.part[(r * a.S + s) * D + d] = 0.f;
+        if (d == 0) {
+          pm[r * a.S + s] = NEG_INF;
+          pl[r * a.S + s] = 0.f;
         }
       }
     }
-    __syncthreads();
-
-    // online softmax: one warp per query head
-    for (int g = warp; g < G; g += DEC_NW) {
-      float mx = NEG_INF;
-      for (int t = lane; t < BS; t += 32) mx = fmaxf(mx, ps[g * BS + t]);
-      mx = warp_max(mx);
-      const float m_prev = m_s[g];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int t = lane; t < BS; t += 32) {
-        const float p = expf(ps[g * BS + t] - m_new);
-        sum += p;
-        ps[g * BS + t] = round_to<T>(p);
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        a_s[g] = alpha;
-        l_s[g] = l_s[g] * alpha + sum;
-        m_s[g] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // PV: each thread owns (g, d) outputs; V rows read coalesced
-    for (int i = tid; i < G * D; i += DEC_NT) {
-      const int g = i / D, dd = i - g * D;
-      float a = acc[i] * a_s[g];
-      const float* p = ps + g * BS;
-#pragma unroll 8
-      for (int t = 0; t < BS; ++t) a += p[t] * to_f<T>(vb[t * D + dd]);
-      acc[i] = a;
-    }
-    __syncthreads();
+    return;
   }
 
-  for (int i = tid; i < G * D; i += DEC_NT) {
-    const int g = i / D;
-    const float l = fmaxf(l_s[g], 1e-30f);
-    out[((size_t)b * H + h0) * D + i] = from_f<T>(acc[i] / l);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ring = reinterpret_cast<T*>(smem_raw);                   // [NST][K | V][STEP][LD]
+  T* qs = ring + DEC_NST * SLOT;                              // [16][LD]
+  float* red = reinterpret_cast<float*>(qs + DEC_HG * LD);   // [2][4 warps][16] step maxima
+  int* tbl = reinterpret_cast<int*>(red + 2 * 4 * DEC_HG);  // [bps] the split's blocks
+
+  const T* q = reinterpret_cast<const T*>(a.q);
+  for (int i = tid; i < DEC_HG * D; i += DEC_NT) {
+    const int gg = i / D, d = i - gg * D;
+    qs[gg * LD + d] = gg < ng ? q[(row0 + gg) * D + d] : from_f<T>(0.f);
   }
+  for (int i = tid; i < a.bps; i += DEC_NT) {
+    const int j = s * a.bps + i;
+    tbl[i] = j < a.MB ? a.tables[(long long)b * a.MB + j] : 0;
+  }
+  __syncthreads();
+
+  // step st: positions lo + 64 st + r, r < 64; this thread stages chunk c16
+  // of rows r0, r0 + RPI, ... of K and V (rows at or past hi are zero)
+  const T* kc = reinterpret_cast<const T*>(a.k);
+  const T* vc = reinterpret_cast<const T*>(a.v);
+  const int c16 = tid % CH, r0 = tid / CH;
+  auto load_step = [&](int slot, int st) {
+    T* kd = ring + slot * SLOT + r0 * LD + c16 * VEC;
+    T* vd = kd + DEC_STEP * LD;
+    int pos = lo + st * DEC_STEP + r0;
+    int jb = pos / a.BS, off = pos - jb * a.BS;
+    jb -= s * a.bps;
+#pragma unroll
+    for (int i = 0; i < NP; ++i) {
+      if (pos < hi) {
+        const long long src =
+            (((long long)tbl[jb] * a.KVH + kvh) * a.BS + off) * D + c16 * VEC;
+        cp_async16(kd, kc + src);
+        cp_async16(vd, vc + src);
+      } else {
+        *reinterpret_cast<uint4*>(kd) = make_uint4(0u, 0u, 0u, 0u);
+        *reinterpret_cast<uint4*>(vd) = make_uint4(0u, 0u, 0u, 0u);
+      }
+      kd += RPI * LD;
+      vd += RPI * LD;
+      pos += RPI;
+      for (off += RPI; off >= a.BS; off -= a.BS) ++jb;
+    }
+  };
+
+  QTile<T, D> qt;
+  qt.load(qs, LD);
+  // ALiBi slopes of rows g and g + 8 (the bloom formula from the head
+  // index, split at the leading power of two cp; paged_attention.py
+  // _decode_kernel)
+  float slope[2] = {0.f, 0.f};
+  if (a.alibi) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float hf = (float)(h0 + g + 8 * h), cp = a.alibi_cp;
+      const float expo = hf < cp ? -(hf + 1.f) * (8.f / cp) : -(2.f * (hf - cp) + 1.f) * (4.f / cp);
+      slope[h] = exp2f(expo);
+    }
+  }
+  float o[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m_run[2] = {NEG_INF, NEG_INF}, l_run[2] = {0.f, 0.f};  // rows g, g + 8
+
+  const int n_steps = (hi - lo + DEC_STEP - 1) / DEC_STEP;
+#pragma unroll
+  for (int st = 0; st < DEC_NST - 1; ++st) {
+    if (st < n_steps) load_step(st, st);
+    cp_async_commit();
+  }
+  for (int st = 0; st < n_steps; ++st) {
+    cp_async_wait<DEC_NST - 2>();
+    __syncthreads();  // step st landed; slot (st - 1) % NST is free
+    {
+      const int nxt = st + DEC_NST - 1;
+      if (nxt < n_steps) load_step(nxt % DEC_NST, nxt);
+      cp_async_commit();
+    }
+    const T* ks = ring + (st % DEC_NST) * SLOT + warp * 16 * LD;
+    const T* vs = ks + DEC_STEP * LD;
+    float sc[2][4];
+#pragma unroll
+    for (int n = 0; n < 2; ++n) sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
+    qt.scores(sc, ks, LD);
+
+    const int pb = lo + st * DEC_STEP + warp * 16 + 2 * t4;  // position of sc[0][0]
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int pos = pb + 8 * n + (e & 1), h = e >> 1;
+        float v = sc[n][e] * a.scale;
+        if (a.alibi) {
+          float ab = slope[h] * (float)pos;
+          if (a.alibi_bf16) ab = __bfloat162float(__float2bfloat16(ab));
+          if (a.alibi_scale != 1.f) ab *= a.alibi_scale;
+          v += ab;
+        }
+        sc[n][e] = pos < hi ? v : NEG_INF;
+        mx[h] = fmaxf(mx[h], sc[n][e]);
+      }
+    float* rb = red + (st & 1) * 4 * DEC_HG;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      if (t4 == 0) rb[warp * DEC_HG + g + 8 * h] = mx[h];
+    }
+    __syncthreads();  // every warp's row maxima of this step
+    float alpha[2], ps[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float m_new = m_run[h];
+#pragma unroll
+      for (int w = 0; w < 4; ++w) m_new = fmaxf(m_new, rb[w * DEC_HG + g + 8 * h]);
+      alpha[h] = expf(m_run[h] - m_new);
+      m_run[h] = m_new;
+    }
+    float p[2][4];
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        p[n][e] = pb + 8 * n + (e & 1) < hi ? expf(sc[n][e] - m_run[h]) : 0.f;
+        ps[h] += p[n][e];
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l_run[h] = l_run[h] * alpha[h] + ps[h];
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      o[n][0] *= alpha[0];
+      o[n][1] *= alpha[0];
+      o[n][2] *= alpha[1];
+      o[n][3] *= alpha[1];
+    }
+    pv_tile<D>(o, p, vs, LD);
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the ring
+
+  // the warps' partial acc and l, summed in warp order
+  float* ored = reinterpret_cast<float*>(ring);  // [4 warps][16][D]
+  float* lred = ored + 4 * DEC_HG * D;           // [4 warps][16]
+  float* mrow = lred + 4 * DEC_HG;               // [16]
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l_run[h] += __shfl_xor_sync(0xffffffffu, l_run[h], 1);
+    l_run[h] += __shfl_xor_sync(0xffffffffu, l_run[h], 2);
+  }
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      ored[(warp * DEC_HG + g + 8 * (e >> 1)) * D + 8 * n + 2 * t4 + (e & 1)] = o[n][e];
+  if (t4 == 0) {
+    lred[warp * DEC_HG + g] = l_run[0];
+    lred[warp * DEC_HG + g + 8] = l_run[1];
+    if (warp == 0) {
+      mrow[g] = m_run[0];
+      mrow[g + 8] = m_run[1];
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < ng * D; i += DEC_NT) {
+    const int gg = i / D, d = i - gg * D;
+    float acc = 0.f, l = 0.f;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      acc += ored[(w * DEC_HG + gg) * D + d];
+      l += lred[w * DEC_HG + gg];
+    }
+    const long long r = row0 + gg;
+    if (a.S == 1) {
+      out[r * D + d] = from_f<T>(acc / fmaxf(l, 1e-30f));
+    } else {
+      a.part[(r * a.S + s) * D + d] = acc;
+      if (d == 0) {
+        pm[r * a.S + s] = mrow[gg];
+        pl[r * a.S + s] = l;
+      }
+    }
+  }
+}
+
+// One (slot, head) row a CTA, one head-dim element a thread: the S
+// partials folded in split order.
+template <typename T, int D>
+__global__ void __launch_bounds__(D) paged_decode_merge_kernel(DecodeArgs a) {
+  const long long r = blockIdx.x, BH = (long long)a.B * a.H;
+  const int d = threadIdx.x, S = a.S;
+  const float* acc_s = a.part + r * S * D + d;
+  const float* m_s = a.part + BH * S * D + r * S;
+  const float* l_s = m_s + BH * S;
+  float m = NEG_INF;
+  for (int s = 0; s < S; ++s) m = fmaxf(m, m_s[s]);
+  float l = 0.f, acc = 0.f;
+  for (int s = 0; s < S; ++s) {
+    const float w = expf(m_s[s] - m);
+    l += l_s[s] * w;
+    acc += acc_s[(long long)s * D] * w;
+  }
+  reinterpret_cast<T*>(a.out)[r * D + d] = from_f<T>(acc / fmaxf(l, 1e-30f));
 }
 
 // ------------------------------------------------------------------- chunk
@@ -392,18 +659,18 @@ cudaError_t set_smem(K kernel, size_t bytes) {
 }
 
 template <typename T, int D>
-cudaError_t launch_decode(const void* q, const void* k, const void* v, const int* tables,
-                          const int* lengths, void* out, int B, int H, int KVH, int BS,
-                          int MB, float scale, int window, int alibi, float alibi_scale,
-                          int alibi_bf16, float alibi_cp, cudaStream_t stream) {
-  const int G = H / KVH;
-  const size_t smem = sizeof(float) * ((size_t)2 * G * D + (size_t)G * BS + 3 * G);
+cudaError_t launch_decode(const DecodeArgs& a, cudaStream_t stream) {
+  constexpr int LD = dec_ld<T, D>();
+  const size_t smem = sizeof(T) * ((size_t)DEC_NST * 2 * DEC_STEP * LD + (size_t)DEC_HG * LD) +
+                      sizeof(float) * 2 * 4 * DEC_HG + sizeof(int) * (size_t)a.bps;
   auto kern = paged_decode_kernel<T, D>;
   cudaError_t err = set_smem(kern, smem);
   if (err != cudaSuccess) return err;
-  kern<<<dim3(B, KVH), DEC_NT, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, tables, lengths, (T*)out, H, KVH, BS, MB,
-      scale, window, alibi, alibi_scale, alibi_bf16, alibi_cp);
+  const int HC = (a.H / a.KVH + DEC_HG - 1) / DEC_HG;
+  kern<<<dim3(a.S, a.KVH * HC, a.B), DEC_NT, smem, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || a.S == 1) return err;
+  paged_decode_merge_kernel<T, D><<<a.B * a.H, D, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -426,15 +693,11 @@ cudaError_t launch_chunk(const void* q, const void* k, const void* v, const int*
 }
 
 template <typename T>
-cudaError_t decode_by_d(int D, const void* q, const void* k, const void* v,
-                        const int* tables, const int* lengths, void* out, int B, int H,
-                        int KVH, int BS, int MB, float scale, int window, int alibi,
-                        float alibi_scale, int alibi_bf16, float alibi_cp,
-                        cudaStream_t s) {
+cudaError_t decode_by_d(int D, const DecodeArgs& a, cudaStream_t s) {
   switch (D) {
-    case 32: return launch_decode<T, 32>(q, k, v, tables, lengths, out, B, H, KVH, BS, MB, scale, window, alibi, alibi_scale, alibi_bf16, alibi_cp, s);
-    case 64: return launch_decode<T, 64>(q, k, v, tables, lengths, out, B, H, KVH, BS, MB, scale, window, alibi, alibi_scale, alibi_bf16, alibi_cp, s);
-    case 128: return launch_decode<T, 128>(q, k, v, tables, lengths, out, B, H, KVH, BS, MB, scale, window, alibi, alibi_scale, alibi_bf16, alibi_cp, s);
+    case 32: return launch_decode<T, 32>(a, s);
+    case 64: return launch_decode<T, 64>(a, s);
+    case 128: return launch_decode<T, 128>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -463,22 +726,18 @@ cudaError_t chunk_by_d(int D, int RT, const void* q, const void* k, const void* 
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = launched).
-extern "C" int paged_decode_launch(const void* q, const void* k, const void* v,
-                                   const int* tables, const int* lengths, void* out,
-                                   int B, int H, int KVH, int D, int BS, int MB,
-                                   float scale, int window, int alibi, float alibi_scale,
-                                   int alibi_bf16, float alibi_cp, int dtype,
-                                   void* stream) {
+// dtype: 0 = float32, 1 = bfloat16; D the head dim. S = ceil(MB / bps)
+// splits; S > 1 needs a.part (the merge kernel then runs on the same
+// stream). Returns a cudaError_t (0 = launched).
+extern "C" int paged_decode_launch(const DecodeArgs* a, int D, int dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (B <= 0 || KVH <= 0 || H % KVH != 0 || BS <= 0 || MB <= 0) return cudaErrorInvalidValue;
-  if (dtype == 1)
-    return decode_by_d<__nv_bfloat16>(D, q, k, v, tables, lengths, out, B, H, KVH, BS, MB,
-                                      scale, window, alibi, alibi_scale, alibi_bf16,
-                                      alibi_cp, s);
-  if (dtype == 0)
-    return decode_by_d<float>(D, q, k, v, tables, lengths, out, B, H, KVH, BS, MB, scale,
-                              window, alibi, alibi_scale, alibi_bf16, alibi_cp, s);
+  if (a == nullptr || a->B <= 0 || a->B > 65535 || a->KVH <= 0 || a->H % a->KVH != 0 ||
+      a->BS <= 0 || a->MB <= 0 || a->bps <= 0 || a->S != (a->MB + a->bps - 1) / a->bps ||
+      (a->S > 1 && a->part == nullptr) ||
+      (long long)a->KVH * ((a->H / a->KVH + DEC_HG - 1) / DEC_HG) > 65535)
+    return cudaErrorInvalidValue;
+  if (dtype == 1) return decode_by_d<bf16>(D, *a, s);
+  if (dtype == 0) return decode_by_d<float>(D, *a, s);
   return cudaErrorInvalidValue;
 }
 

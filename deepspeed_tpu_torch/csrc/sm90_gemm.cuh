@@ -1,7 +1,8 @@
 // A Hopper GEMM mainloop (sm_90a): TMA loads into a shared-memory ring,
 // wgmma from shared memory, warp-specialised and persistent. K3's bf16
-// instance (fused_ce.cu, fused_ce_sm90_kernel) and K6's (mlp_matmul.cu,
-// proj_mm_sm90_kernel) are this loop with their own epilogues.
+// instance (fused_ce.cu, fused_ce_sm90_kernel), K6's (mlp_matmul.cu,
+// proj_mm_sm90_kernel) and K8's expert dW (grouped_matmul.cu,
+// grouped_tgmm_sm90_kernel) are this loop with their own epilogues.
 //
 // Problem: O[z, i, j] = sum_q sum_c A[z, q, i, c] * B[z, q, c, j] in bf16
 // with fp32 accumulation. Each operand is addressed by a TMA tensor map
@@ -32,6 +33,18 @@
 // Tile order is a parameter: group_m row tiles per column band (K6: 8, for
 // L2 reuse; K3: every row tile, so each vocab tile of w is read from device
 // memory once while h stays in L2).
+//
+// The contraction range of a tile is a functor of its z (``Range``): the
+// whole of [0, C) by default, or a range only the device knows
+// (grouped_tgmm: expert z's rows, from the group sizes in device memory).
+// The k-loop's TMA coordinates start at the range's first c, which needs
+// no alignment. TMA zero-fills only past the tensor's bounds, so where the
+// range ends inside the tensor (Range::MASK_A) the consumers zero their
+// A lines at or past its end in the last slice before any wgmma reads them:
+// in the MN-major A box each c is one whole 128-byte swizzle line, so the
+// zeroing does not depend on the swizzle; a fence.proxy.async orders the
+// generic stores before wgmma's async-proxy reads, and the warpgroup's
+// named barrier makes every thread's stores visible.
 //
 // Shared memory: 4 stages x (16 KB A + 32 KB B) = 192 KB, two 9 KB epilogue
 // staging tiles (64 x 64 bf16 with a 16-byte row pad), 8 barriers and up to
@@ -271,15 +284,26 @@ __device__ __forceinline__ void tile_coords(const Problem& p, int t, int& z, int
   tj = r / gm;
 }
 
+// The default contraction range: every c of every q.
+struct FullRange {
+  static constexpr bool MASK_A = false;
+  __device__ __forceinline__ void operator()(const Problem& p, int, int& lo, int& hi) const {
+    lo = 0;
+    hi = p.C;
+  }
+};
+
 extern __shared__ __align__(128) unsigned char sm90_smem[];  // aligned to 1024 at run time
 
 // The kernel body: ``epi(acc, z, i0, j0, stage, tid, bar)`` is called by
 // each consumer warpgroup on its 64 rows (from i0) x 256 columns (from j0)
 // of a finished tile; ``stage`` is its own staging tile, ``tid`` its thread
 // in the warpgroup and ``bar`` its named barrier.
-template <int TA, int TB, class Epi>
+template <int TA, int TB, class Epi, class Range = FullRange>
 __device__ __forceinline__ void gemm(const CUtensorMap& ma, const CUtensorMap& mb,
-                                     const Problem& p, const Epi& epi) {
+                                     const Problem& p, const Epi& epi,
+                                     const Range& range = Range()) {
+  static_assert(!Range::MASK_A || TA, "A rows are zeroed by whole lines: A MN-major");
   unsigned char* base = sm90_smem + ((1024 - (smem_u32(sm90_smem) & 1023)) & 1023);
   unsigned char* sa = base;
   unsigned char* sb = base + STAGES * A_BYTES;
@@ -295,8 +319,6 @@ __device__ __forceinline__ void gemm(const CUtensorMap& ma, const CUtensorMap& m
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  const int nc = (p.C + BK - 1) / BK;
-  const int steps = p.Q * nc;
 
   if (wg == 0) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
@@ -307,8 +329,12 @@ __device__ __forceinline__ void gemm(const CUtensorMap& ma, const CUtensorMap& m
         int z, ti, tj;
         tile_coords(p, t, z, ti, tj);
         const int i0 = ti * BM, j0 = tj * BN;
+        int lo, hi;
+        range(p, z, lo, hi);
+        const int nc = hi > lo ? (hi - lo + BK - 1) / BK : 0;
+        const int steps = p.Q * nc;
         for (int s = 0; s < steps; ++s) {
-          const int q = s / nc, c0 = (s - q * nc) * BK;
+          const int q = s / nc, c0 = lo + (s - q * nc) * BK;
           mbar_wait(&empty[stage], phase ^ 1);
           mbar_expect_tx(&full[stage], A_BYTES + B_BYTES);
           unsigned char* a = sa + stage * A_BYTES;
@@ -345,13 +371,27 @@ __device__ __forceinline__ void gemm(const CUtensorMap& ma, const CUtensorMap& m
     for (int t = blockIdx.x; t < p.num_tiles; t += gridDim.x) {
       int z, ti, tj;
       tile_coords(p, t, z, ti, tj);
+      int lo, hi;
+      range(p, z, lo, hi);
+      const int nc = hi > lo ? (hi - lo + BK - 1) / BK : 0;
+      const int steps = p.Q * nc;
 #pragma unroll
       for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
       int prev = -1;
       for (int s = 0; s < steps; ++s) {
         mbar_wait(&full[stage], phase);
-        const unsigned char* a = sa + stage * A_BYTES + cw * (A_BYTES / 2);
+        unsigned char* a = sa + stage * A_BYTES + cw * (A_BYTES / 2);
         const unsigned char* b = sb + stage * B_BYTES;
+        if (Range::MASK_A) {
+          // lines c >= hi of the range's last slice (this consumer's 64 i)
+          const int live = hi - (lo + (s % nc) * BK);
+          if (live < BK) {
+            for (int u = live * 8 + tid; u < BK * 8; u += 128)
+              reinterpret_cast<uint4*>(a)[u] = make_uint4(0u, 0u, 0u, 0u);
+            asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+            named_sync(1 + cw);
+          }
+        }
         fence_acc(acc);
         wgmma_fence();
 #pragma unroll

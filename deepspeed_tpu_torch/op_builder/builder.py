@@ -114,6 +114,7 @@ class CUDAOpBuilder:
 class PagedAttentionBuilder(CUDAOpBuilder):
     NAME = "paged_attention"
     SOURCES = ("paged_attention.cu",)
+    DEPENDS = ("attention_tiles.cuh",)
 
 
 class FlashAttentionBuilder(CUDAOpBuilder):
@@ -137,7 +138,7 @@ class FusedCEBuilder(CUDAOpBuilder):
 class GroupedMatmulBuilder(CUDAOpBuilder):
     NAME = "grouped_matmul"
     SOURCES = ("grouped_matmul.cu",)
-    DEPENDS = ("gemm_common.cuh", "wq_gemm.cuh")
+    DEPENDS = ("gemm_common.cuh", "wq_gemm.cuh", "sm90_gemm.cuh")
 
 
 class MlpMatmulBuilder(CUDAOpBuilder):

@@ -33,7 +33,12 @@ version; a CUDA tensor launches the kernel or raises (there is no
 shape-based fallback: the JAX ``_blocks_fit`` -> ``ragged_dot`` fallback is
 a TPU tiling limit the CUDA kernel does not share). ``group_sizes`` stays
 on the device: the kernels read it there, so a call never syncs the host.
-``LAUNCHES`` counts kernel launches.
+``LAUNCHES`` counts kernel launches. ``grouped_tgmm`` takes one of three
+designs (``_tgmm_design``): bf16 operands TMA can address go to the Hopper
+wgmma kernel (``grouped_tgmm_sm90_kernel``), other bf16 (the expert-bias
+row sums ``grouped_tgmm(ones, dy)``) to the mma.sync kernel, fp32 to the
+scalar-FMA instance; ``DESIGN_LAUNCHES["grouped_tgmm"]`` counts launches
+by design.
 """
 
 import ctypes
@@ -45,6 +50,7 @@ from ..int8_weights import is_quantized
 
 LAUNCHES = {"grouped_swiglu_up": 0, "grouped_gmm": 0, "grouped_tgmm": 0,
             "grouped_swiglu_up_wq": 0, "grouped_gmm_wq": 0}
+DESIGN_LAUNCHES = {"grouped_tgmm": {"sm90": 0, "mma_sync": 0, "fp32": 0}}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -52,6 +58,9 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 def reset_launch_counts():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for by_design in DESIGN_LAUNCHES.values():
+        for k in by_design:
+            by_design[k] = 0
 
 
 class _GroupedArgs(ctypes.Structure):
@@ -105,6 +114,9 @@ def kernel_builder():
         lib.grouped_tgmm_launch.argtypes = [ctypes.POINTER(_TgmmArgs),
                                             ctypes.c_int, ctypes.c_void_p]
         lib.grouped_tgmm_launch.restype = ctypes.c_int
+        lib.grouped_tgmm_sm90_launch.argtypes = [ctypes.POINTER(_TgmmArgs),
+                                                 ctypes.c_void_p]
+        lib.grouped_tgmm_sm90_launch.restype = ctypes.c_int
         for fn in (lib.grouped_gmm_wq_launch, lib.grouped_swiglu_up_wq_launch):
             fn.argtypes = WQ_ARGTYPES
             fn.restype = ctypes.c_int
@@ -242,6 +254,35 @@ def _aligned(t):
     return t.data_ptr() % 16 == 0
 
 
+def tma_ok(t):
+    """TMA can address ``t`` as sm90_gemm.cuh's ``make_operand_map`` encodes
+    it: not empty (a tensor map needs a base and extents of at least 1), a
+    16-byte aligned base, a unit stride on the axis the kernel reads along
+    (the last, else the one before it), the stride of the other of the last
+    two axes (always in the map, whatever its extent) and that of each
+    leading axis longer than 1 (the map keeps those) a whole number of 16
+    bytes."""
+    vec = 16 // t.element_size()
+    inner = t.dim() - 1 if t.stride(-1) == 1 else t.dim() - 2
+    outer = 2 * t.dim() - 3 - inner
+    return (t.numel() > 0 and t.data_ptr() % 16 == 0
+            and t.stride(inner) == 1 and t.stride(outer) % vec == 0
+            and all(t.stride(d) % vec == 0 for d in range(t.dim() - 2)
+                    if t.shape[d] > 1))
+
+
+def _tgmm_design(x, dy, out):
+    """The ``grouped_tgmm`` design for contiguous x (M, K), dy (M, N) and out
+    (E, K, N): "fp32" for fp32; "sm90" (TMA + wgmma, the group's row range
+    resolved on the device) for bf16 that TMA can address (``tma_ok``: K
+    and N multiples of 8, aligned bases, M > 0; both GPT2-MoE 350M expert
+    products); else "mma_sync" (the expert-bias row sums of x = ones (M, 1),
+    an odd K, an unaligned base, no rows)."""
+    if x.dtype == torch.float32:
+        return "fp32"
+    return "sm90" if all(map(tma_ok, (x, dy, out))) else "mma_sync"
+
+
 def _launch(fn_name, name, x, ws, group_sizes):
     """Launch one grouped kernel on CUDA tensors, counting it under
     ``name``; returns its (M, N) output."""
@@ -364,12 +405,19 @@ def _tgmm(x, dy, group_sizes):
     a = _TgmmArgs(x.data_ptr(), dy.data_ptr(), gs.data_ptr(), out.data_ptr(),
                   M, K, N, E, int(K % vec == 0 and _aligned(x)),
                   int(N % vec == 0 and _aligned(dy)))
-    rc = kernel_builder().load().grouped_tgmm_launch(
-        ctypes.byref(a), _DTYPE_CODE[x.dtype],
-        torch.cuda.current_stream(x.device).cuda_stream)
+    lib = kernel_builder().load()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    design = _tgmm_design(x, dy, out)
+    if design == "sm90":
+        rc = lib.grouped_tgmm_sm90_launch(ctypes.byref(a), stream)
+    else:
+        rc = lib.grouped_tgmm_launch(ctypes.byref(a), _DTYPE_CODE[x.dtype],
+                                     stream)
     if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+        raise RuntimeError(f"{name} kernel launch failed ({design}): "
+                           f"cudaError {rc}")
     LAUNCHES[name] += 1
+    DESIGN_LAUNCHES[name][design] += 1
     return out
 
 

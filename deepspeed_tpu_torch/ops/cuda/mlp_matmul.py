@@ -49,7 +49,7 @@ import ctypes
 
 import torch
 
-from .grouped_matmul import WQ_ARGTYPES, check_quantized, launch_wq
+from .grouped_matmul import WQ_ARGTYPES, check_quantized, launch_wq, tma_ok
 
 LAUNCHES = {"wq_matmul": 0, "mlp_mm": 0, "mlp_dw": 0}
 DESIGN_LAUNCHES = {name: {"sm90": 0, "mma_sync": 0, "fp32": 0}
@@ -194,30 +194,14 @@ def _vec_ok(t, strides):
                                           if s != 1)
 
 
-def _tma_ok(t):
-    """TMA can address ``t`` as ``make_operand_map`` encodes it: not empty
-    (a tensor map needs a base and extents of at least 1), a 16-byte
-    aligned base, a unit stride on the axis the kernel reads along (the
-    last, else the one before it), the stride of the other of the last two
-    axes (always in the map, whatever its extent) and that of each leading
-    axis longer than 1 (the map keeps those) a whole number of 16 bytes."""
-    vec = 16 // t.element_size()
-    inner = t.dim() - 1 if t.stride(-1) == 1 else t.dim() - 2
-    outer = 2 * t.dim() - 3 - inner
-    return (t.numel() > 0 and t.data_ptr() % 16 == 0
-            and t.stride(inner) == 1 and t.stride(outer) % vec == 0
-            and all(t.stride(d) % vec == 0 for d in range(t.dim() - 2)
-                    if t.shape[d] > 1))
-
-
 def _k6_design(A, B, out):
     """The K6 design for operands ``A``, ``B`` and output ``out`` as the
     launch reads them: "fp32" for fp32; "sm90" (TMA + wgmma) for bf16 that
-    TMA can address (``_tma_ok``: every GPT-2 350M call); else
+    TMA can address (``tma_ok``: every GPT-2 350M call); else
     "mma_sync" (e.g. K = 100, rows of 200 bytes; a dW over no rows)."""
     if A.dtype == torch.float32:
         return "fp32"
-    return "sm90" if all(map(_tma_ok, (A, B, out))) else "mma_sync"
+    return "sm90" if all(map(tma_ok, (A, B, out))) else "mma_sync"
 
 
 def _launch_k6(name, A, B, out, sa, sb, so, dims, a_t, b_t):

@@ -11,6 +11,13 @@ Dispatch is by the tensor's device only: a CPU tensor takes the plain
 PyTorch version (``*_reference``); a CUDA tensor launches the kernel or
 raises — there is no fallback. Each wrapper counts its kernel launches in
 ``LAUNCHES`` (plain-version calls are not counted).
+
+The decode kernel splits the cache (``decode_splits``: S runs of table
+blocks from the table's shape alone) into fp32 partials that a second
+kernel merges in split order; a table of one split is written directly.
+``DESIGN_LAUNCHES["paged_decode"]`` counts calls by that rule ("split" /
+"single"). ``paged_decode_split_partials`` and ``merge_decode_partials``
+are the plain version of that arithmetic.
 """
 
 import ctypes
@@ -23,7 +30,14 @@ NEG_INF = -1e30
 # a 256-token chunk then spreads over 4 tiles x KVH heads
 PAGED_CHUNK_BLOCK_C = 64
 
+# cache positions a decode split covers (rounded down to whole table
+# blocks, at least one)
+DECODE_SPLIT_POSITIONS = 512
+# positions a step of the decode kernel's pipeline (16 keys a warp)
+DECODE_STEP = 64
+
 LAUNCHES = {"paged_decode": 0, "paged_chunk": 0}
+DESIGN_LAUNCHES = {"paged_decode": {"split": 0, "single": 0}}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
@@ -32,6 +46,9 @@ _HEAD_DIMS = (32, 64, 128)
 def reset_launch_counts():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for by_design in DESIGN_LAUNCHES.values():
+        for k in by_design:
+            by_design[k] = 0
 
 
 def alibi_slopes(n_head):
@@ -55,6 +72,18 @@ def _check_bloom_slopes(slopes, n_head, name):
             f"{name} computes bloom-formula ALiBi slopes in-kernel; custom "
             "per-head slopes are not supported")
 
+
+class _DecodeArgs(ctypes.Structure):
+    """Mirror of ``struct DecodeArgs`` in csrc/paged_attention.cu."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in (
+        "q", "k", "v", "tables", "lengths", "out", "part")]
+        + [(n, ctypes.c_int) for n in ("B", "H", "KVH", "BS", "MB", "S",
+                                       "bps")]
+        + [("scale", ctypes.c_float), ("window", ctypes.c_int),
+           ("alibi", ctypes.c_int), ("alibi_scale", ctypes.c_float),
+           ("alibi_bf16", ctypes.c_int), ("alibi_cp", ctypes.c_float)])
+
+
 _builder = None
 
 
@@ -67,8 +96,8 @@ def kernel_builder():
         b = PagedAttentionBuilder()
         lib = b.load()
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.paged_decode_launch.argtypes = [
-            P, P, P, P, P, P, I, I, I, I, I, I, F, I, I, F, I, F, I, P]
+        lib.paged_decode_launch.argtypes = [ctypes.POINTER(_DecodeArgs), I,
+                                            I, P]
         lib.paged_decode_launch.restype = I
         lib.paged_chunk_launch.argtypes = [
             P, P, P, P, P, I, I, I, I, I, I, I, I, F, I, I, I, I, P]
@@ -157,18 +186,36 @@ def paged_decode_attention(q, k_cache, v_cache, block_tables, lengths, *,
             window=window, alibi_slopes=alibi_slopes,
             alibi_scale=alibi_scale, alibi_bf16=alibi_bf16)
     _check_cuda((q, k_cache, v_cache, block_tables, lengths), q, name)
+    if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
+        raise ValueError(f"{name}: the kernel stages K/V rows by 16-byte "
+                         "copies; the pools must be 16-byte aligned")
+    S, bps = decode_splits(MB, BS)
     out = torch.empty_like(q)
-    cp = float(2 ** math.floor(math.log2(H)))
-    rc = _kernels().paged_decode_launch(
+    part = (torch.empty(B * H * S * (d + 2), dtype=torch.float32,
+                        device=q.device) if S > 1 else None)
+    args = _DecodeArgs(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        B, H, KVH, d, BS, MB, float(scale), int(window),
-        int(alibi_slopes is not None), float(alibi_scale), int(alibi_bf16),
-        cp, _DTYPE_CODE[q.dtype], torch.cuda.current_stream(q.device)
-        .cuda_stream)
+        None if part is None else part.data_ptr(), B, H, KVH, BS, MB, S,
+        bps, float(scale), int(window), int(alibi_slopes is not None),
+        float(alibi_scale), int(alibi_bf16),
+        float(2 ** math.floor(math.log2(H))))
+    rc = _kernels().paged_decode_launch(
+        ctypes.byref(args), d, _DTYPE_CODE[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(rc, name)
     LAUNCHES["paged_decode"] += 1
+    DESIGN_LAUNCHES["paged_decode"]["split" if S > 1 else "single"] += 1
     return out
+
+
+def decode_splits(MB, BS):
+    """(S, bps): the decode kernel's splits of a (B, MB) table of BS-position
+    blocks, from the shape alone (no host sync): bps whole blocks a split
+    (DECODE_SPLIT_POSITIONS positions rounded down, at least one) and
+    S = ceil(MB / bps) splits."""
+    bps = max(1, DECODE_SPLIT_POSITIONS // BS)
+    return -(-MB // bps), bps
 
 
 def paged_decode_attention_reference(q, k_cache, v_cache, block_tables,
@@ -204,6 +251,92 @@ def paged_decode_attention_reference(q, k_cache, v_cache, block_tables,
     s = torch.where(mask[:, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1).to(q.dtype)
     return torch.einsum("bhs,bshd->bhd", p, gv)
+
+
+def paged_decode_split_partials(q, k_cache, v_cache, block_tables, lengths,
+                                *, scale=None, window=0, alibi_slopes=None,
+                                alibi_scale=1.0, alibi_bf16=False,
+                                splits=None):
+    """The decode kernel's split partials, in torch: for each split s of
+    ``splits`` = (S, bps) (default ``decode_splits``), its valid positions
+    [lo, hi) (pos <= L, pos > L - window, inside the split's blocks) in
+    steps of DECODE_STEP, each step one online-softmax update (scores in
+    fp32, p rounded to q's dtype for PV, l summing the unrounded p).
+    Returns fp32 (m (B, H, S), l (B, H, S), acc (B, H, S, d)); a split with
+    no valid position has m = -1e30, l = 0, acc = 0."""
+    B, H, d = q.shape
+    NB, KVH, BS, _ = k_cache.shape
+    MB = block_tables.shape[1]
+    S, bps = decode_splits(MB, BS) if splits is None else splits
+    G = H // KVH
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    dev = q.device
+    qf = q.float()
+    L = lengths.long()
+    tb = block_tables.long()
+    if alibi_slopes is not None:
+        slopes = torch.tensor(alibi_slopes, dtype=torch.float32, device=dev)
+    m = torch.full((B, H, S), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros(B, H, S, dtype=torch.float32, device=dev)
+    acc = torch.zeros(B, H, S, d, dtype=torch.float32, device=dev)
+    for s in range(S):
+        p0 = s * bps * BS
+        hi = torch.clamp(L + 1, max=min(s * bps + bps, MB) * BS)
+        lo = torch.clamp(L - window + 1, min=p0) if window else \
+            torch.full_like(L, p0)
+        for t in range(-(-bps * BS // DECODE_STEP)):
+            pos = lo[:, None] + t * DECODE_STEP + torch.arange(
+                DECODE_STEP, device=dev)                       # (B, STEP)
+            valid = pos < hi[:, None]
+            pc = pos.clamp(0, MB * BS - 1)
+            blk = tb.gather(1, pc // BS)
+            kr = k_cache[blk, :, pc % BS]                      # (B, STEP, KVH, d)
+            vr = v_cache[blk, :, pc % BS]
+            kr = torch.where(valid[..., None, None], kr, 0)
+            vr = torch.where(valid[..., None, None], vr, 0)
+            kr = kr.repeat_interleave(G, dim=2).float()
+            vr = vr.repeat_interleave(G, dim=2).float()
+            sc = torch.einsum("bhd,bthd->bht", qf, kr) * scale
+            if alibi_slopes is not None:
+                ab = slopes[None, :, None] * pos.float()[:, None, :]
+                if alibi_bf16:
+                    ab = ab.to(torch.bfloat16).float()
+                if alibi_scale != 1.0:
+                    ab = ab * alibi_scale
+                sc = sc + ab
+            sc = torch.where(valid[:, None, :], sc, NEG_INF)
+            m_new = torch.maximum(m[..., s], sc.amax(-1))
+            alpha = torch.exp(m[..., s] - m_new)
+            p = torch.where(valid[:, None, :],
+                            torch.exp(sc - m_new[..., None]), 0.0)
+            l[..., s] = l[..., s] * alpha + p.sum(-1)
+            pv = torch.einsum("bht,bthd->bhd", p.to(q.dtype).float(), vr)
+            acc[..., s, :] = acc[..., s, :] * alpha[..., None] + pv
+            m[..., s] = m_new
+    return m, l, acc
+
+
+def merge_decode_partials(m, l, acc, dtype):
+    """The decode kernel's merge, in torch: the S partials of each (slot,
+    head) folded in split order (m* = max m_s; l = sum l_s e^(m_s - m*),
+    acc likewise), out = acc / max(l, 1e-30) rounded once to ``dtype``."""
+    mx = m.amax(-1)
+    w = torch.exp(m - mx[..., None])
+    lt = torch.zeros_like(mx)
+    at = torch.zeros_like(acc[..., 0, :])
+    for s in range(m.shape[-1]):
+        lt = lt + l[..., s] * w[..., s]
+        at = at + acc[..., s, :] * w[..., s, None]
+    return (at / torch.clamp(lt, min=1e-30)[..., None]).to(dtype)
+
+
+def paged_decode_split_reference(q, k_cache, v_cache, block_tables, lengths,
+                                 **kw):
+    """Plain version of the decode kernel's split-and-merge arithmetic
+    (``paged_decode_split_partials`` then ``merge_decode_partials``)."""
+    return merge_decode_partials(*paged_decode_split_partials(
+        q, k_cache, v_cache, block_tables, lengths, **kw), q.dtype)
 
 
 # ------------------------------------------------------------------- chunk

@@ -2,8 +2,9 @@
 and backward, fused CE, the MoE grouped matmuls and their backward, the
 weight-only int8/int4 products K7 and K9, the LayerNorm forward and
 backward and the RMSNorm forward K13, the layout-owning projection and its
-dW K6 (K3 and K6 in bf16 through their wgmma designs, at ragged shapes
-and repeated bitwise), the
+dW K6 (K3, K6 and K8's grouped_tgmm in bf16 through their wgmma
+designs, at ragged shapes and repeated bitwise; K4's split decode at
+several split sizes, repeated bitwise), the
 query-major flash backward and the block-sparse forward, dq and dk/dv
 K11, the ring block step K10 and the blockwise int8 quantize /
 dequantize K12, bitwise for K12), held
@@ -78,6 +79,68 @@ def test_decode_kernel(dtype, H, KVH, d, window, alibi):
     assert pa.LAUNCHES["paged_decode"] == n0 + 1
     _assert_matches(out, lambda q, k, v: pa.paged_decode_attention_reference(
         q, k, v, tb, ln, **kw), q, k, v)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,KVH,d,window,alibi",
+                         [(4, 2, 32, 0, False), (8, 8, 64, 10, False),
+                          (8, 2, 128, 0, False), (6, 6, 128, 0, True),
+                          (32, 1, 64, 40, False)])
+def test_decode_kernel_splits(monkeypatch, dtype, H, KVH, d, window, alibi):
+    """K4's split design (partials + merge) at 16, 32 and 64 positions a
+    split over a 16-block table of 16 positions (a 64-position step then
+    spans table blocks; G = 32 takes two CTAs of 16 heads): against the
+    dense plain version and the split plain version on the same splits,
+    every call on the split design, and repeated bitwise."""
+    rs = np.random.RandomState(5)
+    B, BS, MB = 5, 16, 16
+    NB = 1 + B * MB
+    q = _rand(rs, (B, H, d), dtype)
+    k, v = (_rand(rs, (NB, KVH, BS, d), dtype) for _ in range(2))
+    tables = rs.permutation(np.arange(1, NB)).reshape(B, MB).astype(np.int32)
+    lengths = np.array([0, 7, 100, 255, 262], np.int32)  # 262: past the table
+    tables[0] = 0
+    tb = torch.from_numpy(tables).cuda()
+    ln = torch.from_numpy(lengths).cuda()
+    kw = dict(window=window, alibi_slopes=pa.alibi_slopes(H) if alibi
+              else None)
+    for positions in (16, 32, 64):
+        monkeypatch.setattr(pa, "DECODE_SPLIT_POSITIONS", positions)
+        pa.reset_launch_counts()
+        outs = [pa.paged_decode_attention(q, k, v, tb, ln, **kw)
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        assert pa.DESIGN_LAUNCHES["paged_decode"] == {"split": 2,
+                                                      "single": 0}
+        assert torch.equal(outs[0], outs[1])
+        _assert_matches(outs[0], lambda q, k, v:
+                        pa.paged_decode_attention_reference(
+                            q, k, v, tb, ln, **kw), q, k, v)
+        _assert_matches(outs[0], lambda q, k, v:
+                        pa.paged_decode_split_reference(
+                            q, k, v, tb, ln, **kw), q, k, v)
+
+
+def test_decode_kernel_single_split_and_empty_window():
+    """A table of one split writes the output in one launch ("single"); a
+    window past every table position leaves a slot's output 0."""
+    rs = np.random.RandomState(6)
+    q = _rand(rs, (2, 4, 64), torch.bfloat16)
+    k, v = (_rand(rs, (9, 2, 16, 64), torch.bfloat16) for _ in range(2))
+    tb = torch.arange(1, 9, dtype=torch.int32, device="cuda").view(2, 4)
+    ln = torch.tensor([40, 500], dtype=torch.int32, device="cuda")
+    pa.reset_launch_counts()
+    out = pa.paged_decode_attention(q, k, v, tb, ln, window=16)
+    torch.cuda.synchronize()
+    assert pa.DESIGN_LAUNCHES["paged_decode"] == {"split": 0, "single": 1}
+    assert torch.all(out[1] == 0)
+    # the JAX kernel's 0 (no live block); the dense plain version spreads
+    # a softmax over all-masked scores there, so it holds slot 0 only
+    _assert_matches(out, lambda q, k, v: pa.paged_decode_split_reference(
+        q, k, v, tb, ln, window=16), q, k, v)
+    _assert_matches(out[:1], lambda q, k, v:
+                    pa.paged_decode_attention_reference(
+                        q, k, v, tb, ln, window=16)[:1], q, k, v)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -307,6 +370,59 @@ def test_grouped_tgmm_kernel(dtype, M, K, N, sizes):
             assert torch.all(out[e] == 0)
     _slab_close(out, gm.grouped_tgmm_reference(x.float(), dy.float(), gs),
                 dtype)
+
+
+@pytest.mark.parametrize("M,K,N,sizes", [
+    (1000, 136, 72, [10, 500, 1, 400]),      # a group under 64 rows, 1-row group
+    (777, 256, 520, [130, 0, 300, 200]),     # boundaries off 64, empty, 147-row tail
+    (640, 128, 256, [0, 640, 0, 0]),         # one group holds every row
+    (300, 1032, 8, [100, 100, 100]),         # K past one 1024 row band, N = 8
+    (96, 8, 264, [33, 31, 32]),              # K = 8, N past one 256 tile
+])
+def test_grouped_tgmm_sm90(M, K, N, sizes):
+    """grouped_tgmm's bf16 sm90 design (TMA + wgmma, each expert's row range
+    resolved on the device, x's rows past it zeroed in shared memory) at
+    ragged group boundaries and tiles: every slab within the bf16 relative
+    error norm of the plain version in fp32, an empty expert exactly 0,
+    every launch on sm90, and repeated bitwise."""
+    rs = np.random.RandomState(M + K)
+    bf = torch.bfloat16
+    x, dy = _rand(rs, (M, K), bf), _rand(rs, (M, N), bf)
+    gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+    gm.reset_launch_counts()
+    outs = [gm.grouped_tgmm(x, dy, gs) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert gm.DESIGN_LAUNCHES["grouped_tgmm"] == {"sm90": 2, "mma_sync": 0,
+                                                  "fp32": 0}
+    assert torch.equal(outs[0], outs[1])
+    for e, n in enumerate(sizes):
+        if n == 0:
+            assert torch.all(outs[0][e] == 0)
+    _slab_close(outs[0], gm.grouped_tgmm_reference(x.float(), dy.float(), gs),
+                bf)
+
+
+def test_grouped_tgmm_design_split():
+    """The expert-bias row sums (x = ones (M, 1)) and a 200-byte row take
+    mma_sync; fp32 takes the fp32 instance."""
+    rs = np.random.RandomState(8)
+    gs = torch.tensor([40, 0, 60], dtype=torch.int32, device="cuda")
+    dy = _rand(rs, (100, 64), torch.bfloat16)
+    gm.reset_launch_counts()
+    sums = gm.grouped_tgmm(torch.ones(100, 1, dtype=torch.bfloat16,
+                                      device="cuda"), dy, gs)
+    x100 = _rand(rs, (100, 100), torch.bfloat16)
+    odd = gm.grouped_tgmm(x100, dy, gs)
+    f32 = gm.grouped_tgmm(x100.float(), dy.float(), gs)
+    torch.cuda.synchronize()
+    assert gm.DESIGN_LAUNCHES["grouped_tgmm"] == {"sm90": 0, "mma_sync": 2,
+                                                  "fp32": 1}
+    _slab_close(sums, gm.grouped_tgmm_reference(
+        torch.ones(100, 1, device="cuda"), dy.float(), gs), torch.bfloat16)
+    _slab_close(odd, gm.grouped_tgmm_reference(x100.float(), dy.float(), gs),
+                torch.bfloat16)
+    _slab_close(f32, gm.grouped_tgmm_reference(x100.float(), dy.float(), gs),
+                torch.float32)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -145,6 +145,35 @@ def test_swiglu_up_alone_has_no_backward():
             (8, 24)
 
 
+def test_tgmm_design_rule():
+    """``_tgmm_design`` on the operands a launch reads (contiguous x (M, K),
+    dy (M, N), out (E, K, N), built on CPU tensors): both GPT2-MoE 350M
+    expert products (49152 routed rows, E = 4, (K, N) = (1024, 4096) and
+    (4096, 1024)) in bf16 take the sm90 design; the expert-bias row sums
+    (x = ones (M, 1)), an odd K, an unaligned base and no rows take
+    mma_sync; fp32 takes fp32."""
+    bf = torch.bfloat16
+
+    def design(M, K, N, E=4, dtype=bf, x=None):
+        x = torch.empty(M, K, dtype=dtype) if x is None else x
+        return gm._tgmm_design(x, torch.empty(M, N, dtype=dtype),
+                               torch.empty(E, K, N, dtype=dtype))
+
+    for K, N in ((1024, 4096), (4096, 1024)):
+        assert design(49152, K, N) == "sm90"
+    assert design(300, 136, 72) == "sm90"           # ragged tiles, 16-byte rows
+    assert design(49152, 1, 1024) == "mma_sync"     # ones (M, 1): 2-byte rows
+    assert design(49152, 1, 4096) == "mma_sync"
+    assert design(256, 100, 128) == "mma_sync"      # K = 100: 200-byte rows
+    assert design(256, 127, 128) == "mma_sync"      # odd K
+    assert design(256, 128, 100) == "mma_sync"      # N = 100
+    x = torch.empty(256 * 128 + 1, dtype=bf)[1:].view(256, 128)  # base + 2 B
+    assert design(256, 128, 128, x=x) == "mma_sync"
+    assert design(0, 128, 128) == "mma_sync"        # no rows
+    assert design(256, 128, 128, dtype=torch.float32) == "fp32"
+    assert design(256, 1, 128, dtype=torch.float32) == "fp32"
+
+
 def test_tgmm_bad_inputs_raise():
     x, dy = torch.zeros(8, 16), torch.zeros(8, 24)
     with pytest.raises(ValueError, match="want x"):

@@ -95,6 +95,95 @@ class TestDecodeParity:
                 torch.zeros(1, dtype=torch.int32), alibi_slopes=[0.5, 0.1])
 
 
+def _split_case(B, H, KVH, d, NB, BS, MB, lengths, splits, window=0,
+                alibi=False, alibi_scale=1.0, alibi_bf16=False, seed=0):
+    """The decode kernel's split-and-merge arithmetic in torch
+    (``paged_decode_split_reference``, splits = (S, table blocks a split))
+    against the JAX Pallas decode kernel in interpret mode and against the
+    port's dense plain version, fp32 at 1e-5. Returns the partials."""
+    rs = np.random.RandomState(seed)
+    q = rs.standard_normal((B, H, d)).astype(np.float32)
+    k, v = _pools(rs, NB, KVH, BS, d)
+    tables = rs.randint(1, NB, (B, MB)).astype(np.int32)
+    lengths = np.asarray(lengths, np.int32)
+    tables[lengths == 0] = 0            # inactive slots: scratch block 0
+    kw = dict(window=window, alibi_slopes=jpa.alibi_slopes(H) if alibi
+              else None, alibi_scale=alibi_scale, alibi_bf16=alibi_bf16)
+    tq, tk, tv, tt, tl = map(torch.from_numpy, (q, k, v, tables, lengths))
+    got = tpa.paged_decode_split_reference(tq, tk, tv, tt, tl, splits=splits,
+                                           **kw).numpy()
+    jk = np.asarray(jpa.paged_decode_attention(
+        *map(jnp.asarray, (q, k, v, tables, lengths)), interpret=True, **kw))
+    np.testing.assert_allclose(got, jk, **TOL)
+    plain = tpa.paged_decode_attention_reference(tq, tk, tv, tt, tl,
+                                                 **kw).numpy()
+    np.testing.assert_allclose(got, plain, **TOL)
+    return tpa.paged_decode_split_partials(tq, tk, tv, tt, tl, splits=splits,
+                                           **kw)
+
+
+class TestDecodeSplitParity:
+    """The split decode's plain version (partials + fixed-order merge)."""
+
+    def test_splits_with_no_live_block(self):
+        # one block a split: slot 0 lives in split 0 alone, slot 1 ends
+        # in split 2 of 6
+        m, l, acc = _split_case(3, 4, 2, 32, 24, 8, 6, lengths=[5, 17, 47],
+                                splits=(6, 1))
+        assert (m[0, :, 1:] == tpa.NEG_INF).all() and (l[0, :, 1:] == 0).all()
+        assert (acc[1, :, 3:] == 0).all() and (l[1, :, :3] > 0).all()
+
+    def test_inactive_slot(self):
+        m, l, _ = _split_case(4, 4, 4, 32, 24, 8, 4, lengths=[0, 9, 0, 30],
+                              splits=(2, 2))
+        # length 0 attends position 0 only: split 0 holds it
+        assert (l[0, :, 0] > 0).all() and (m[0, :, 1] == tpa.NEG_INF).all()
+
+    def test_window_drops_whole_splits(self):
+        m, _, _ = _split_case(2, 4, 2, 32, 40, 8, 16, lengths=[100, 127],
+                              splits=(8, 2), window=20)
+        # positions > L - 20 lie in splits 5-7 of 8
+        assert (m[:, :, :5] == tpa.NEG_INF).all()
+        _split_case(2, 4, 2, 32, 40, 8, 16, lengths=[100, 127],
+                    splits=(3, 6), window=20)
+
+    @pytest.mark.parametrize("bf16_scaled", [False, True])
+    def test_alibi(self, bf16_scaled):
+        kw = (dict(alibi_scale=1.0 / np.sqrt(32), alibi_bf16=True)
+              if bf16_scaled else {})
+        _split_case(2, 6, 6 if not bf16_scaled else 3, 32, 24, 8, 8,
+                    lengths=[11, 60], splits=(4, 2), alibi=True, **kw)
+
+    def test_gqa(self):
+        _split_case(3, 8, 2, 32, 30, 8, 8, lengths=[5, 33, 63],
+                    splits=(3, 3))
+
+    def test_steps_span_blocks_and_splits_cut_blocks(self):
+        # 4-position blocks: a 64-position step covers 16 of them
+        _split_case(2, 4, 2, 32, 80, 4, 36, lengths=[70, 143],
+                    splits=(2, 18), window=100)
+
+    def test_kernel_rule_is_the_default(self):
+        """``decode_splits`` from the table's shape alone; the default
+        partials follow it (the Llama-2-7B serving table: 8 splits of 8
+        blocks of 64)."""
+        assert tpa.decode_splits(64, 64) == (8, 8)
+        assert tpa.decode_splits(4, 8) == (1, 64)
+        assert tpa.decode_splits(3, 1024) == (3, 1)
+        m, _, _ = _split_case(2, 4, 2, 32, 12, 8, 4, lengths=[3, 20],
+                              splits=None)
+        assert m.shape == (2, 4, 1)
+
+    def test_merge_of_one_split_is_the_direct_output(self):
+        rs = np.random.RandomState(3)
+        m = torch.from_numpy(rs.standard_normal((2, 3, 1)).astype(np.float32))
+        l = torch.from_numpy(rs.uniform(1, 2, (2, 3, 1)).astype(np.float32))
+        acc = torch.from_numpy(rs.standard_normal((2, 3, 1, 8))
+                               .astype(np.float32))
+        assert torch.equal(tpa.merge_decode_partials(m, l, acc, torch.float32),
+                           acc[:, :, 0] / l)
+
+
 class TestChunkParity:
     def test_gqa(self):
         _chunk_case(16, 8, 2, 32, 12, 16, 4, start=17, true_len=16)
