@@ -7,11 +7,12 @@ Phases (any failure raises and the script exits nonzero):
   1. card: the card's name and power limit (nvidia-smi), and the build of
      every kernel from csrc/ (one nvcc per source, all started together,
      into build/).
- 0b. SASS: cuobjdump -sass of the fused-CE, MLP and grouped-matmul
-     libraries; every instance of the Hopper designs on sm90_gemm.cuh
-     (fused_ce_sm90_kernel, proj_mm_sm90_kernel, grouped_tgmm_sm90_kernel)
-     holds HGMMA (wgmma) and UTMALDG (TMA loads); their registers and
-     spills from ptxas.
+ 0b. SASS: cuobjdump -sass of the fused-CE, MLP, grouped-matmul and
+     flash-attention libraries; every instance of the Hopper designs on
+     sm90_gemm.cuh / sm90_attention.cuh (fused_ce_sm90_kernel,
+     proj_mm_sm90_kernel, grouped_tgmm_sm90_kernel, grouped_gmm_sm90_kernel,
+     flash_fwd_sm90_kernel) holds HGMMA (wgmma) and UTMALDG (TMA loads) and
+     spills nothing (ptxas); their registers logged.
   2. kernels: each Hopper kernel against its plain PyTorch version on the
      card at the Llama-2-7B / Mistral-7B serving shapes (bf16 against the
      plain version run in fp32 on the same inputs, see bf16_mismatch; fp32
@@ -35,14 +36,18 @@ Phases (any failure raises and the script exits nonzero):
      cases at 1e-4), one control per kernel that must fail its check, and
      each timed beside its bound, plain version and one library call; K3's
      bf16 design (sm90) also at a ragged N=1000, V=50000 and repeated
-     bitwise.
+     bitwise; K1's bf16 design (sm90) also at d = 64 and 128, causal,
+     window and not, T off the 128-row tile, model and heads-major strides,
+     repeated bitwise, a control (one 128-key K/V tile skipped) that must
+     fail, and timed beside its mma_sync design.
   6. training parity: a small fp32 GPT-2 on the card with the kernels on
      (flash + fused CE kernel, save_flash) and off (dense attention +
      fused_linear_xent) gives the same loss and gradients.
   7. training slice: initialize(GPT2 350M, the bench config) and 10
      train_batch steps on one fixed batch; the loss falls and the kernels'
-     launch counts are exactly 24 flash forwards, 24 flash backwards and 2
-     fused CE calls per step (no flash forward re-run in backward).
+     launch counts are exactly 24 flash forwards (every one on sm90), 24
+     flash backwards and 2 fused CE calls per step (no flash forward re-run
+     in backward).
   8. MoE kernels: the grouped gate/up (swiglu_up) and down (gmm) kernels
      (K8) at the Mixtral-8x7B serving shapes (D=4096, F=14336, E=8; 16
      routed rows at decode, 512 at a 256-token chunk; uneven sizes, an
@@ -50,7 +55,9 @@ Phases (any failure raises and the script exits nonzero):
      against their plain versions run in fp32 on the same inputs, fp32
      cases at 1e-4, the tail exactly 0, a control (one group's rows times
      a neighbouring expert's weights) that must fail, each timed beside
-     its bound, plain version and one library call.
+     its bound, plain version and one library call; gmm also under both
+     of its bf16 designs (sm90, mma_sync) beside the one _gmm_design
+     picks at each row count.
   9. MoE parity: a small fp32 Mixtral served with grouped_kernel=True and
      False gives identical greedy streams (split-fuse on and off).
  10. MoE slice: Mixtral-8x7B widths at 24 layers (random weights from a
@@ -62,9 +69,13 @@ Phases (any failure raises and the script exits nonzero):
      1024); an empty expert and a row tail), bf16 on its sm90 design
      against its plain version in fp32 slab by slab and repeated bitwise,
      fp32 at 1e-4, controls that must fail (a group a tile late, a slab
-     summed 64 rows into the next expert); the dx product through a
-     transposed view of w; each timed beside its bound, plain version and
-     one library call (tgmm also beside its mma_sync design); the
+     summed 64 rows into the next expert); grouped_gmm's forward and its
+     dx product through a transposed view of w, on the sm90 design, at
+     the routed sizes and at [15000, 0, 20000, 10000] (an empty expert,
+     boundaries off the 128-row tile, a 4152-row tail exactly 0), repeated
+     bitwise, a control (expert 0's rows read one tile late) that must
+     fail; each timed beside its bound, plain version, one library call
+     and its mma_sync design; the
      grouped_swiglu backward at Mixtral-8x7B expert widths against its
      plain version.
  12. MoE training parity: a small fp32 GPT2MoE gives the same loss, aux and
@@ -72,9 +83,9 @@ Phases (any failure raises and the script exits nonzero):
  13. MoE training slice: initialize(GPT2MoE over the 350M widths, E=4,
      top-2, the bench config) and 10 train_batch steps on one fixed batch;
      the loss falls and the launch counts are what the dispatches imply
-     (per layer and step: 6 gmm, 4 tgmm, one flash forward and backward;
-     of the tgmm, wi and wo on sm90, the expert-bias row sums on
-     mma_sync).
+     (per layer and step: 6 gmm, all on sm90; 4 tgmm, wi and wo on sm90,
+     the expert-bias row sums on mma_sync; one flash forward, on sm90, and
+     one backward).
  14. wq kernels: K7 (wq_matmul) at the Llama-2-7B FFN shapes (8 decode
      rows and a 256-token chunk, D=4096 -> F=11008 and back) and K9
      (grouped_swiglu_up_wq, grouped_gmm_wq) at phase 8's Mixtral-8x7B
@@ -188,9 +199,10 @@ Phases (any failure raises and the script exits nonzero):
      exactly 24 K1, 24 K2 and 2 K3 a step on each rank; step time,
      tokens/s, each process's peak memory and the bytes each rank staged
      through host memory a step.
-Phases 7, 13, 20, 24 and 32 also hold every bf16 K3 / K6 launch to the
-sm90 design (the wrappers' DESIGN_LAUNCHES); the serving slices count
-K4's launches by design (split / single).
+Phases 7, 13, 20, 24 and 32 also hold every bf16 K1 / K3 / K6 launch to
+the sm90 design (the wrappers' DESIGN_LAUNCHES); the serving slices count
+K4's launches by design (split / single), the Mixtral slice K8's gmm
+(all sm90).
 Then one JSON line of per-kernel numbers (launches summed over the main
 paths that ran each kernel, and per path; the rows with more than one
 design with the designs their main-path launches went to, the sm90 rows
@@ -422,14 +434,19 @@ def ptxas_summary(build_log):
     return out
 
 
-# the Hopper designs (sm90_gemm.cuh) by library: their SASS must hold
-# wgmma (HGMMA) and TMA loads (UTMALDG)
-SM90_KERNELS = {"fused_ce": "fused_ce_sm90_kernel",
-                "mlp_matmul": "proj_mm_sm90_kernel",
-                "grouped_matmul": "grouped_tgmm_sm90_kernel"}
-# the library of each kernel of the kernels line with an sm90 design
-SM90_LIBRARY = {"fused_ce": "fused_ce", "mlp_mm": "mlp_matmul",
-                "mlp_dw": "mlp_matmul", "grouped_tgmm": "grouped_matmul"}
+# the Hopper designs (sm90_gemm.cuh, sm90_attention.cuh) of each kernel of
+# the kernels line that has one: (library, kernel symbol); their SASS must
+# hold wgmma (HGMMA) and TMA loads (UTMALDG)
+SM90_DESIGNS = {"fused_ce": ("fused_ce", "fused_ce_sm90_kernel"),
+                "mlp_mm": ("mlp_matmul", "proj_mm_sm90_kernel"),
+                "mlp_dw": ("mlp_matmul", "proj_mm_sm90_kernel"),
+                "grouped_tgmm": ("grouped_matmul", "grouped_tgmm_sm90_kernel"),
+                "grouped_gmm": ("grouped_matmul", "grouped_gmm_sm90_kernel"),
+                "flash_fwd": ("flash_attention", "flash_fwd_sm90_kernel")}
+# library -> the sm90 kernel symbols it must hold
+SM90_KERNELS = {}
+for _lib, _sym in SM90_DESIGNS.values():
+    SM90_KERNELS.setdefault(_lib, set()).add(_sym)
 
 
 def find_cuobjdump():
@@ -450,14 +467,14 @@ def find_cuobjdump():
 
 def phase_sass(builders):
     """Phase 0b: the SASS of every sm90 kernel instance (cuobjdump -sass on
-    the built libraries) holds HGMMA and UTMALDG; logs each instance's
-    counts of both and its registers and spilled bytes from ptxas."""
+    the built libraries) holds HGMMA and UTMALDG and ptxas spilled none of
+    its registers; logs each instance's counts of both and its registers."""
     import re
     tool = find_cuobjdump()
     report = {}
     for b in builders:
-        want = SM90_KERNELS.get(b.NAME)
-        if want is None:
+        wants = SM90_KERNELS.get(b.NAME)
+        if wants is None:
             continue
         regs = {e: (r, sp) for e, r, sp in ptxas_summary(b.build_log)}
         sass = subprocess.run([tool, "-sass", b.so_path()],
@@ -467,17 +484,21 @@ def phase_sass(builders):
         for line in sass.splitlines():
             m = re.search(r"Function : (\S+)", line)
             if m:
-                cur = m.group(1) if want in m.group(1) else None
+                cur = m.group(1) if any(w in m.group(1) for w in wants) \
+                    else None
                 if cur:
                     counts[cur] = [0, 0]
             elif cur:
                 counts[cur][0] += "HGMMA" in line
                 counts[cur][1] += "UTMALDG" in line
-        assert counts, f"{b.NAME}: no {want} in the SASS of {b.so_path()}"
+        for want in wants:
+            assert any(want in k for k in counts), \
+                f"{b.NAME}: no {want} in the SASS of {b.so_path()}"
         for name, (hgmma, utmaldg) in counts.items():
             assert hgmma and utmaldg, \
                 f"{name}: {hgmma} HGMMA, {utmaldg} UTMALDG in its SASS"
             r, sp = regs.get(name, (None, None))
+            assert sp == 0, f"{name}: ptxas reports {sp} bytes spilled"
             report[name] = dict(hgmma=hgmma, utmaldg=utmaldg, registers=r,
                                 spill_bytes=sp)
             log(f"SASS {name}: {hgmma} HGMMA, {utmaldg} UTMALDG; ptxas "
@@ -812,6 +833,7 @@ def serve(eng, uids):
 # a substring of the kernel's name (the first family that matches)
 PROFILE_FAMILIES = (
     ("K6", ("proj_mm",)), ("fused CE", ("fused_ce",)), ("flash", ("flash",)),
+    ("K8", ("grouped_",)),
     ("K13", ("ln_fwd", "ln_bwd", "ln_reduce", "rms_fwd")),
     ("cuBLAS", ("nvjet", "gemm", "cutlass")), ("reductions", ("reduce",)),
     ("elementwise", ("elementwise", "copy", "fill", "Memset", "Memcpy",
@@ -939,6 +961,63 @@ def flash_with_key_tile_dropped(fa, q, k, v, tile=0, bk=64):
     return torch.matmul(p, v.float())
 
 
+def flash_fwd_mma_sync(fa, q, k, v):
+    """A call of K1's mma_sync kernel (the design flash_fwd_sm90_kernel
+    replaces for bf16 at d = 64 / 128) on the same (B, H, T, d) operands,
+    causal; timed beside it only."""
+    B, H, T, D = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty(B, H, T, dtype=torch.float32, device="cuda")
+    a = fa._args(B, H, T, D, True, 0, q=q, k=k, v=v, o=o, lse=lse)
+    lib = fa.kernel_builder().load()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call():
+        rc = lib.flash_fwd_launch(ctypes.byref(a), 1, stream)
+        assert rc == 0, f"flash_fwd mma_sync launch: cudaError {rc}"
+        return o, lse
+    return call
+
+
+def flash_sm90_cases(fa, randn):
+    """K1's sm90 design (bf16, d = 64 and 128) against its plain version in
+    fp32 at the bf16 limits: causal, window and non-causal, T not a
+    multiple of the 128-row tile, in the model's (B, T, H, d) strides and
+    heads-major; each call repeated bitwise; every launch on sm90."""
+    cases = ((4, 8, 1000, 64, True, 0, False),
+             (2, 4, 777, 128, True, 300, False),
+             (2, 4, 640, 128, False, 0, True),
+             (3, 2, 333, 64, True, 100, True),
+             (1, 16, 2048, 128, True, 0, False))
+    worst = 0.0
+    for B, H, T, d, causal, window, heads_major in cases:
+        shape = (B, H, T, d) if heads_major else (B, T, H, d)
+        q, k, v = (randn(shape) for _ in range(3))
+        if not heads_major:
+            q, k, v = (x.transpose(1, 2) for x in (q, k, v))
+        q = fa.scale_q(q, 1.0 / math.sqrt(d))
+        fa.reset_launch_counts()
+        o, lse = fa.flash_forward(q, k, v, causal=causal, window=window)
+        o2, lse2 = fa.flash_forward(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        assert fa.DESIGN_LAUNCHES["flash_fwd"]["sm90"] == 2, \
+            fa.DESIGN_LAUNCHES
+        assert torch.equal(o, o2) and torch.equal(lse, lse2), \
+            f"flash_fwd sm90 {shape}: calls differ"
+        ro, rlse = fa.flash_forward_reference(
+            q.float(), k.float(), v.float(), causal=causal, window=window)
+        why = bf16_mismatch(o, ro)
+        assert why is None, f"flash_fwd sm90 {shape} causal={causal} " \
+            f"window={window}: {why}"
+        torch.testing.assert_close(lse, rlse, rtol=0, atol=1e-4)
+        worst = max(worst, bf16_errors(o, ro)[1])
+        del q, k, v, o, o2, ro
+    log(f"flash_fwd sm90 cases ok ({len(cases)}: d 64 / 128, causal, window "
+        f"and not, T 333-2048 off the 128-row tile, model and heads-major "
+        f"strides; repeats bitwise): max |err| {worst:.3g}")
+    return worst
+
+
 def phase_train_kernels(fa, fce, seed=0):
     """K1, K2, K3 at the GPT-2 350M bench shapes (B=24, H=16, T=1024, d=64;
     CE over N = 24 * 512 rows, D=1024, V=50304), checked, controlled and
@@ -979,17 +1058,32 @@ def phase_train_kernels(fa, fce, seed=0):
     q, k, v, do = (randn((B, T, H, d)).transpose(1, 2) for _ in range(4))
     q = fa.scale_q(q, 1.0 / math.sqrt(d))
     q32, k32, v32, do32 = (x.float() for x in (q, k, v, do))
+    fa.reset_launch_counts()
     o, lse = fa.flash_forward(q, k, v)
+    again = fa.flash_forward(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.DESIGN_LAUNCHES["flash_fwd"]["sm90"] == 2, fa.DESIGN_LAUNCHES
+    assert all(torch.equal(a, b) for a, b in zip((o, lse), again)), \
+        "flash_fwd does not repeat bitwise"
+    del again
     ro, rlse = fa.flash_forward_reference(q32, k32, v32)
     why = bf16_mismatch(o, ro)
     assert why is None, f"flash_fwd: {why}"
     torch.testing.assert_close(lse, rlse, rtol=0, atol=1e-4)
-    err["flash_fwd"] = bf16_errors(o, ro)
-    dropped = flash_with_key_tile_dropped(fa, q32, k32, v32).to(bf)
-    why = bf16_mismatch(dropped, ro)
-    assert why is not None, "bf16 check let a dropped key tile pass"
-    log(f"control: flash forward with key tile 0 skipped fails ({why})")
-    del dropped
+    sm90_err = flash_sm90_cases(fa, randn)
+    n_over, e, rel = bf16_errors(o, ro)
+    err["flash_fwd"] = (n_over, max(e, sm90_err), rel)
+    # controls: one 128-key K/V tile of the sm90 design skipped (tile 1,
+    # for every query past it), and the first 64-key tile
+    for tile, bk in ((1, 128), (0, 64)):
+        dropped = flash_with_key_tile_dropped(fa, q32, k32, v32, tile,
+                                              bk).to(bf)
+        why = bf16_mismatch(dropped, ro)
+        assert why is not None, \
+            f"bf16 check let a dropped {bk}-key tile {tile} pass"
+        log(f"control: flash forward with {bk}-key tile {tile} skipped "
+            f"fails ({why})")
+        del dropped
 
     grads = fa.flash_backward(q, k, v, o, lse, do)
     refs = fa.flash_backward_reference(q32, k32, v32, o.float(), lse, do32)
@@ -1075,6 +1169,7 @@ def phase_train_kernels(fa, fce, seed=0):
                                             scale=1.0)
     rows["flash_fwd"] = dict(
         ms=time_ms(lambda: fa.flash_forward(q, k, v), 20),
+        mma_sync_ms=time_ms(flash_fwd_mma_sync(fa, q, k, v), 20),
         plain_ms=time_ms(lambda: fa.flash_forward_reference(q, k, v), 3),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, scale=1.0), 20),
@@ -1102,8 +1197,10 @@ def phase_train_kernels(fa, fce, seed=0):
         f"h @ w^T alone (no single call gives the CE stats)")
     for name, r in rows.items():
         r["max_abs_err"] = err[name][1]
-        log(f"{name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
-            f"{r['library_ms']:.4f}, bound {r['bound'][0]:.4f} by "
+        mma = (f"the mma_sync design {r['mma_sync_ms']:.4f}, "
+               if "mma_sync_ms" in r else "")
+        log(f"{name}: {r['ms']:.4f} ms ({mma}plain {r['plain_ms']:.4f}, "
+            f"library {r['library_ms']:.4f}, bound {r['bound'][0]:.4f} by "
             f"{r['bound'][1]})")
     del h, w, q, k, v, do, o, lse
     torch.cuda.empty_cache()
@@ -1162,15 +1259,15 @@ def phase_train_parity(seed=0):
 
 
 def phase_train_slice(seed=0, steps=10, profile=None, knobs=None,
-                      tag="train slice"):
+                      tag="train slice", main_path=True):
     """GPT-2 350M through initialize -> train_batch with the bench config
     (benchmarks/bench_engine.py:46-77, :182-206): T=1024, micro 24, gas 1,
     AdamW lr 2e-4 wd 0.01, clip 1.0, bf16, ZeRO 2, save_flash, loss chunk
     512 with the fused CE kernel. One fixed numpy-seeded batch, as bench.py
     does. ``knobs``: GPT2Config fields set on top (phase 20: the K13 and
     K6 knobs; phase 24: flash_bwd_qmajor); the launch counts they imply
-    are checked too. The run's
-    numbers go to TRAIN_STATS[tag]."""
+    are checked too (``main_path``: and its launches by design counted
+    for the kernels line). The run's numbers go to TRAIN_STATS[tag]."""
     import dataclasses
     from deepspeed_tpu_torch import GPT2, GPT2_PRESETS, initialize
     from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
@@ -1221,7 +1318,7 @@ def phase_train_slice(seed=0, steps=10, profile=None, knobs=None,
             "flash_block_fwd": 0, "fused_ce": 2 * steps, "wq_matmul": 0,
             **knob_launches(cfg, L, steps, chunks=2)}
     assert launches == want, (launches, want)
-    assert_sm90(tag, fce, mm, main_path=True)
+    assert_sm90(tag, fa, fce, mm, main_path=main_path)
     assert all(math.isfinite(x) for x in losses), losses
     assert losses[-1] < losses[0], losses
     step_s = float(np.median(times[1:]))
@@ -1424,6 +1521,12 @@ def phase_moe_kernels(gm, seed=0):
         up_lib, up_name = grouped_library(x, cases.w1, sizes)
         up_lib3, _ = grouped_library(x, cases.w3, sizes)
         dn_lib, dn_name = grouped_library(h, cases.w2, sizes)
+        # the design _gmm_design picks at this row count, as launched
+        gmm_design = gm._gmm_design(h, cases.w2)
+        gm.reset_launch_counts()
+        gm.grouped_matmul(h, cases.w2, gs)
+        assert gm.DESIGN_LAUNCHES["grouped_gmm"][gmm_design] == 1, \
+            (tag, gmm_design, gm.DESIGN_LAUNCHES)
         r = {
             "grouped_swiglu_up": dict(
                 ms=time_ms(lambda: gm.grouped_swiglu_up(
@@ -1434,6 +1537,10 @@ def phase_moe_kernels(gm, seed=0):
                 bound=grouped_bound(M, D, Fd, sizes, 2)),
             "grouped_gmm": dict(
                 ms=time_ms(lambda: gm.grouped_matmul(h, cases.w2, gs), 30),
+                design=gmm_design,
+                sm90_ms=time_ms(gmm_call(gm, h, cases.w2, gs, "sm90"), 30),
+                mma_sync_ms=time_ms(gmm_call(gm, h, cases.w2, gs,
+                                             "mma_sync"), 30),
                 plain_ms=time_ms(lambda: gm.grouped_matmul_reference(
                     h, cases.w2, gs), 3),
                 library_ms=time_ms(dn_lib, 30),
@@ -1443,14 +1550,19 @@ def phase_moe_kernels(gm, seed=0):
         for name, t in r.items():
             t["max_abs_err"] = cases.err[name]
             t["shape"] = f"{tag}: {M} rows"
+            designs = (f"; {t['design']} by the rule: sm90 "
+                       f"{t['sm90_ms']:.4f}, mma_sync {t['mma_sync_ms']:.4f}"
+                       if "design" in t else "")
             log(f"  {name}: {t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, "
                 f"library {t['library_ms']:.4f}, bound {t['bound'][0]:.4f} "
-                f"by {t['bound'][1]})")
+                f"by {t['bound'][1]}{designs})")
         shapes[tag] = r
     rows = shapes["decode"]
     for name in rows:
         rows[name]["chunk"] = {k: shapes["chunk"][name][k] for k in
-                               ("ms", "plain_ms", "library_ms")}
+                               ("ms", "plain_ms", "library_ms", "design",
+                                "sm90_ms", "mma_sync_ms")
+                               if k in shapes["chunk"][name]}
         rows[name]["chunk"]["bound_ms"] = shapes["chunk"][name]["bound"][0]
     del cases, dec, chk
     gc.collect()
@@ -1575,6 +1687,12 @@ def phase_moe_slice(seed=0, n_layer=24, profile=None):
     assert all(launches.pop(k) == 0 for k in NO_WQ), "bf16 ran a wq kernel"
     assert launches == want and min(launches.values()) > 0, (launches, want)
     count_decode_designs(pa, launches)
+    # grouped_gmm by _gmm_design: every bf16 forward, decode and chunk, on
+    # sm90
+    gmm_by = dict(gm.DESIGN_LAUNCHES["grouped_gmm"])
+    assert gmm_by == {"sm90": launches["grouped_gmm"], "mma_sync": 0,
+                      "fp32": 0}, (gmm_by, launches)
+    count_designs("grouped_gmm", gmm_by)
 
     hist = [s.tolist() for s in first_decode]
     ttft = sorted(first[u] - t_start for u in uids)
@@ -1586,6 +1704,7 @@ def phase_moe_slice(seed=0, n_layer=24, profile=None):
         tpot_p50_ms=float(np.percentile(tpot, 50)) * 1e3,
         output_tok_per_s=float(sum(len(o) for o in outs) / e2e),
         e2e_s=e2e, forwards=dict(fc), launches=launches,
+        grouped_gmm_designs=gmm_by,
         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
         first_decode_expert_load=hist)
     log("moe slice " + json.dumps(stats))
@@ -1660,6 +1779,67 @@ def tgmm_mma_sync(gm, x, dy, gs):
         assert rc == 0, f"grouped_tgmm mma_sync launch: cudaError {rc}"
         return out
     return call
+
+
+def gmm_call(gm, x, w, gs, design):
+    """A call of grouped_gmm's ``design`` kernel ("sm90" or "mma_sync") on
+    bf16 x (M, K) and w (E, K, N) through its strides, past the design
+    rule; timed beside the wrapper only."""
+    M, K = x.shape
+    E, _, N = w.shape
+    out = torch.empty(M, N, dtype=x.dtype, device="cuda")
+    se, sk, sn = w.stride()
+    args = gm._GroupedArgs(x.data_ptr(), w.data_ptr(), w.data_ptr(),
+                           gs.data_ptr(), out.data_ptr(), se, sk, sn, M, K,
+                           N, E, 1, 1, int(sk == 1 and sn != 1))
+    lib = gm.kernel_builder().load()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call():
+        if design == "sm90":
+            rc = lib.grouped_gmm_sm90_launch(ctypes.byref(args), stream)
+        else:
+            rc = lib.grouped_gmm_launch(ctypes.byref(args), 1,
+                                        gm.block_m_for(M), stream)
+        assert rc == 0, f"grouped_gmm {design} launch: cudaError {rc}"
+        return out
+    return call
+
+
+def gmm_training_checks(gm, x, w, cases, tag):
+    """grouped_gmm at a GPT2MoE training shape for each (sizes, gs) of
+    ``cases`` (the routed sizes; an empty expert, group boundaries off the
+    128-row tile and a tail): every call on sm90 and repeated bitwise, the
+    rows inside the groups within the bf16 limits of the plain version in
+    fp32, the rows past them exactly 0. Control (the last case): expert 0's
+    rows read one 128-row tile late must fail the check. Returns (max
+    |err|, the control's failure)."""
+    worst = 0.0
+    for sizes, gs in cases:
+        gm.reset_launch_counts()
+        out = gm.grouped_matmul(x, w, gs)
+        again = gm.grouped_matmul(x, w, gs)
+        torch.cuda.synchronize()
+        assert gm.DESIGN_LAUNCHES["grouped_gmm"] == {
+            "sm90": 2, "mma_sync": 0, "fp32": 0}, (tag, gm.DESIGN_LAUNCHES)
+        assert torch.equal(out, again), f"gmm {tag} {sizes}: calls differ"
+        live = min(sum(sizes), x.shape[0])
+        assert bool((out[live:] == 0).all()), f"gmm {tag}: tail not 0"
+        del again
+        ref = gm.grouped_matmul_reference(x.float(), w.float(), gs)
+        why = bf16_mismatch(out[:live], ref[:live])
+        assert why is None, f"gmm {tag} {sizes}: {why}"
+        worst = max(worst, bf16_errors(out[:live], ref[:live])[1])
+        del out
+    e = next(i for i, n in enumerate(sizes) if n)
+    lo = sum(sizes[:e])
+    hi = lo + sizes[e]
+    ctrl = ref.clone()
+    ctrl[lo:hi] = x[lo + 128:hi + 128].float() @ w[e].float()
+    why = bf16_mismatch(ctrl[:live].to(torch.bfloat16), ref[:live])
+    assert why is not None, f"gmm {tag}: check let a shifted segment pass"
+    del ctrl, ref
+    return worst, why
 
 
 def tgmm_bound(M, K, N, E, sizes):
@@ -1742,15 +1922,16 @@ def phase_moe_backward_kernels(gm, seed=0, tokens=24576, E=4, k=2):
         ref = gm.grouped_tgmm_reference(x.float(), dy.float(), gs)
         lib, lib_name = tgmm_library(x, dy, sizes, ref)
         del ref
-        # the dx product: dy (M, N) times w^T, a transposed (E, N, K) view
+        # grouped_gmm: the forward x (M, K) times w (E, K, N), and the dx
+        # product dy (M, N) times w^T, a transposed (E, N, K) view
         w = randn((E, K, N), s=0.02)
         wt = w.transpose(1, 2)
-        dx = gm.grouped_matmul(dy, wt, gs)
-        dx_ref = gm.grouped_matmul_reference(dy.float(), wt.float(), gs)
-        why = bf16_mismatch(dx, dx_ref)
-        assert why is None, f"dx view {K}x{N}: {why}"
-        dx_err = bf16_errors(dx, dx_ref)
-        del dx, dx_ref
+        gmm_cases = [(sizes, gs), (tail_sizes, tail_gs)]
+        fwd_err, fwd_ctrl = gmm_training_checks(gm, x, w, gmm_cases,
+                                                f"forward {K}x{N}")
+        dx_err, dx_ctrl = gmm_training_checks(gm, dy, wt, gmm_cases,
+                                              f"dx view {K}x{N}")
+        fwd_lib, fwd_lib_name = grouped_library(x, w, sizes)
         dx_lib, dx_lib_name = grouped_library(dy, wt, sizes)
         tag = f"{M} rows, (K, N) = ({K}, {N})"
         r = dict(
@@ -1759,26 +1940,43 @@ def phase_moe_backward_kernels(gm, seed=0, tokens=24576, E=4, k=2):
             library_ms=time_ms(lib, 10), bound=tgmm_bound(M, K, N, E, sizes),
             mma_sync_ms=time_ms(tgmm_mma_sync(gm, x, dy, gs), 10),
             shape=tag, library=lib_name)
+        fwd = dict(
+            ms=time_ms(lambda: gm.grouped_matmul(x, w, gs), 10),
+            mma_sync_ms=time_ms(gmm_call(gm, x, w, gs, "mma_sync"), 10),
+            plain_ms=time_ms(lambda: gm.grouped_matmul_reference(
+                x, w, gs), 3),
+            library_ms=time_ms(fwd_lib, 10),
+            bound_ms=grouped_bound(M, K, N, sizes, 1)[0],
+            max_abs_err=fwd_err, design="sm90", shape=tag,
+            library=fwd_lib_name)
         dxv = dict(
             ms=time_ms(lambda: gm.grouped_matmul(dy, wt, gs), 10),
+            mma_sync_ms=time_ms(gmm_call(gm, dy, wt, gs, "mma_sync"), 10),
             contiguous_ms=time_ms(lambda: gm.grouped_matmul(
                 dy, wt.contiguous(), gs), 10),
             plain_ms=time_ms(lambda: gm.grouped_matmul_reference(
                 dy, wt, gs), 3),
             library_ms=time_ms(dx_lib, 10),
             bound_ms=grouped_bound(M, N, K, sizes, 1)[0],
-            max_abs_err=dx_err[1], shape=tag, library=dx_lib_name)
+            max_abs_err=dx_err, design="sm90", shape=tag,
+            library=dx_lib_name)
         log(f"MoE backward {tag}, sizes {sizes}: tgmm {r['ms']:.4f} ms "
             f"(sm90; the mma_sync design {r['mma_sync_ms']:.4f}, plain "
             f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f} "
             f"[{lib_name}], bound {r['bound'][0]:.4f} by {r['bound'][1]}); "
-            f"dx view gmm {dxv['ms']:.4f} ms (same product on a contiguous "
-            f"copy {dxv['contiguous_ms']:.4f}, plain {dxv['plain_ms']:.4f}, "
-            f"library {dxv['library_ms']:.4f} [{dx_lib_name}], bound "
-            f"{dxv['bound_ms']:.4f}); controls: expert 0 a tile late fails "
-            f"(slab relative error norm {crel:.3g}), expert 1 over 64 rows "
-            f"of expert 2 fails ({orel:.3g})")
-        rows[(K, N)] = (r, dxv)
+            f"forward gmm {fwd['ms']:.4f} ms (sm90; the mma_sync design "
+            f"{fwd['mma_sync_ms']:.4f}, plain {fwd['plain_ms']:.4f}, library "
+            f"{fwd['library_ms']:.4f} [{fwd_lib_name}], bound "
+            f"{fwd['bound_ms']:.4f}); dx view gmm {dxv['ms']:.4f} ms (sm90; "
+            f"the mma_sync design {dxv['mma_sync_ms']:.4f}, same product on "
+            f"a contiguous copy {dxv['contiguous_ms']:.4f}, plain "
+            f"{dxv['plain_ms']:.4f}, library {dxv['library_ms']:.4f} "
+            f"[{dx_lib_name}], bound {dxv['bound_ms']:.4f}); controls: tgmm "
+            f"expert 0 a tile late fails (slab relative error norm "
+            f"{crel:.3g}), expert 1 over 64 rows of expert 2 fails "
+            f"({orel:.3g}); gmm expert 0's rows read one 128-row tile late "
+            f"fails (forward: {fwd_ctrl}; dx view: {dx_ctrl})")
+        rows[(K, N)] = (r, fwd, dxv)
         del x, dy, w, wt
         torch.cuda.empty_cache()
     log(f"grouped_tgmm checks ok (sm90 design, calls repeat bitwise): worst "
@@ -1808,13 +2006,15 @@ def phase_moe_backward_kernels(gm, seed=0, tokens=24576, E=4, k=2):
     del x, w1, w3, w2, dy, ps, got, ref
     gc.collect()
     torch.cuda.empty_cache()
-    main_r, main_dx = rows[(1024, 4096)]
+    main_r = rows[(1024, 4096)][0]
     main_r["max_abs_err"] = err
     main_r["other"] = {k: rows[(4096, 1024)][0][k] for k in
                        ("ms", "plain_ms", "library_ms", "shape",
                         "mma_sync_ms")}
     main_r["other"]["bound_ms"] = rows[(4096, 1024)][0]["bound"][0]
-    return main_r, [main_dx, rows[(4096, 1024)][1]]
+    # (the tgmm row, the dx view rows, the forward rows)
+    return (main_r, [rows[s][2] for s in ((1024, 4096), (4096, 1024))],
+            [rows[s][1] for s in ((1024, 4096), (4096, 1024))])
 
 
 # ------------------------------------------------------ MoE training parity
@@ -1956,13 +2156,18 @@ def phase_moe_train_slice(seed=0, steps=10, profile=None):
             "grouped_gmm": 6 * L * steps, "grouped_tgmm": 4 * L * steps,
             **NO_WQ}
     assert launches == want, (launches, want)
-    assert_sm90("moe train slice", fce, main_path=True)
-    # wi and wo on sm90; the two expert-bias row sums (x = ones (M, 1)) on
-    # mma_sync
-    by = dict(gm.DESIGN_LAUNCHES["grouped_tgmm"])
-    assert by == {"sm90": 2 * L * steps, "mma_sync": 2 * L * steps,
-                  "fp32": 0}, by
-    count_designs("grouped_tgmm", by)
+    assert_sm90("moe train slice", fa, fce, main_path=True)
+    # every grouped_gmm (forward, re-run, dx view: 49152 rows) on sm90; wi
+    # and wo's tgmm on sm90, the two expert-bias row sums (x = ones (M, 1))
+    # on mma_sync
+    for name, want_by in (
+            ("grouped_gmm", {"sm90": 6 * L * steps, "mma_sync": 0,
+                             "fp32": 0}),
+            ("grouped_tgmm", {"sm90": 2 * L * steps,
+                              "mma_sync": 2 * L * steps, "fp32": 0})):
+        by = dict(gm.DESIGN_LAUNCHES[name])
+        assert by == want_by, (name, by, want_by)
+        count_designs(name, by)
     assert all(math.isfinite(x) for x in losses), losses
     assert losses[-1] < losses[0], losses
     load = [s.tolist() for s in first_step]
@@ -2812,7 +3017,7 @@ def phase_knob_slice(seed=0, steps=10, profile=None):
     # which knob moves the step: fused_layernorm alone, after the main path
     # (its launches are checked, not counted for the path)
     phase_train_slice(seed=seed, steps=steps, tag="layernorm-only slice",
-                      knobs=dict(fused_layernorm=True))
+                      knobs=dict(fused_layernorm=True), main_path=False)
     off = TRAIN_STATS["train slice"]
     keys = ("step_s_median_after_first", "tokens_per_s",
             "model_tflops_per_s", "max_memory_allocated_gb")
@@ -4198,6 +4403,7 @@ def child_zero_train():
             "build_s": build_s,
             "launches": {**fa.LAUNCHES, **fce.LAUNCHES, **qz.LAUNCHES},
             "designs": dict(fce.DESIGN_LAUNCHES["fused_ce"]),
+            "flash_designs": dict(fa.DESIGN_LAUNCHES["flash_fwd"]),
             "max_memory_allocated_gb":
                 torch.cuda.max_memory_allocated() / 1e9,
             "staged": {k: list(v) for k, v in
@@ -4229,7 +4435,11 @@ def phase_zero_slice():
                                              res["launches"], want)
             assert res["designs"] == {"sm90": 2 * steps, "fp32": 0}, \
                 (r["rank"], key, res["designs"])
+            assert res["flash_designs"] == {"sm90": L * steps,
+                                            "mma_sync": 0, "fp32": 0}, \
+                (r["rank"], key, res["flash_designs"])
             count_designs("fused_ce", res["designs"])
+            count_designs("flash_fwd", res["flash_designs"])
             assert all(math.isfinite(x) for x in res["losses"]), res
             assert res["losses"][-1] < res["losses"][0], res["losses"]
         assert reps[0][key]["losses"] == reps[1][key]["losses"], \
@@ -4361,8 +4571,8 @@ def main(argv=None):
     phase_done("9 (MoE parity)")
     paths["mixtral-serve"] = phase_moe_slice(profile=profile_path("moe"))
     phase_done("10 (MoE slice)")
-    rows["grouped_tgmm"], rows["grouped_gmm"]["dx_view"] = \
-        phase_moe_backward_kernels(gm)
+    (rows["grouped_tgmm"], rows["grouped_gmm"]["dx_view"],
+     rows["grouped_gmm"]["training_forward"]) = phase_moe_backward_kernels(gm)
     phase_done("11 (MoE backward kernels)")
     phase_moe_train_parity()
     phase_done("12 (MoE training parity)")
@@ -4427,7 +4637,8 @@ def main(argv=None):
             ms=r["ms"], kernel_ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound"][0], bound_by=r["bound"][1],
             library_ms=r["library_ms"])
-        for extra in ("shape", "chunk", "other", "dx_view", "library",
+        for extra in ("shape", "chunk", "other", "dx_view",
+                      "training_forward", "library",
                       "dscale_dbias_rel_norm", "rel_norm", "kmajor_ms",
                       "causal_ms", "expression_ms", "eager_ms", "gqa",
                       "splits", "mma_sync_ms"):
@@ -4438,8 +4649,8 @@ def main(argv=None):
                 k for k, v in PATH_DESIGNS[name].items() if v))
             row["launches_by_design"] = {
                 k: v for k, v in PATH_DESIGNS[name].items() if v}
-        if name in SM90_LIBRARY:
-            want = SM90_KERNELS[SM90_LIBRARY[name]]
+        if name in SM90_DESIGNS:
+            want = SM90_DESIGNS[name][1]
             row["sass"] = {k: v for k, v in sass.items() if want in k}
         kernels.append(row)
     # again at the end, where a caller that keeps only the output's tail

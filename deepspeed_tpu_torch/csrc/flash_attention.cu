@@ -14,10 +14,14 @@
 // folded into q by the wrapper (flash_attention.py:1570-1580), so the kernels
 // run with scale 1.
 //
-// flash_fwd_kernel   replaces deepspeed_tpu/ops/pallas/flash_attention.py
-//                    _fwd_kernel_t (via _fwd_t) and its twin _fwd_kernel
-//                    (via _fwd): one contract, the T-minor layout is not
-//                    ported.
+// flash_fwd_sm90_kernel / flash_fwd_kernel replace
+//   deepspeed_tpu/ops/pallas/flash_attention.py _fwd_kernel_t (via _fwd_t)
+//   and its twin _fwd_kernel (via _fwd): one contract, the T-minor layout is
+//   not ported. bf16 with D = 64 or 128 takes the Hopper design
+//   (flash_fwd_sm90_kernel, below); D = 32 and fp32 the mma.sync /
+//   scalar-FMA flash_fwd_kernel (the wrapper's _fwd_design picks one per
+//   call).
+// flash_fwd_kernel:
 //   One CTA (4 warps) per (64-query tile, b*h); each warp owns 16 query rows.
 //   A loop over 64-key tiles replaces the TPU's in-kernel fori_loop; it stops
 //   at the causal diagonal and starts at the window's first live tile
@@ -30,8 +34,37 @@
 //   under the H100's 295 flop/byte ridge, so bytes and tensor-core time
 //   are close (chip_smoke.py computes which wins). The design keeps every
 //   score and probability on chip and feeds the tensor cores (mma.sync
-//   m16n8k16 bf16 -> fp32) from shared-memory tiles. Loads are synchronous
-//   (no cp.async/TMA pipeline yet, no wgmma): later work.
+//   m16n8k16 bf16 -> fp32) from shared-memory tiles with synchronous loads.
+//
+// flash_fwd_sm90_kernel (bf16, D = 64 or 128): persistent, one CTA of
+//   three warpgroups per SM. The work items are the (b*h, 128-query tile)
+//   pairs, heads in order and each head's last (longest causal) query
+//   tiles first, so a head's K/V is read from L2 by its tiles side by side
+//   and the causal imbalance leaves no tail; the producer takes the next
+//   item from a counter in device memory. One producer thread issues TMA
+//   loads (sm90_attention.cuh's maps over the (b, h, t) strides) of an
+//   item's q tile, then of its 128-key K/V tiles into a 3-stage mbarrier
+//   ring (2 at D = 128); the next item's q loads as soon as the last S
+//   product has read this one's. Two consumer warpgroups own 64 query rows
+//   each; at D = 64 they issue their products in turns (named barriers),
+//   so one's softmax overlaps the other's wgmma. Per key tile a consumer
+//   forms S = Q K^T by wgmma from shared memory (m64n128k16, both
+//   K-major) while the previous tile's O += P V (m64nDk16, P in
+//   registers, V MN-major by the transpose bit) runs, then
+//   the online softmax on the fp32 accumulator fragments (row max and sum
+//   over the four threads of a row, exp by ex2 of log2(e)-scaled scores),
+//   rounding p to bf16 exactly as p.astype(vb.dtype) (:420) into the next
+//   P V's register operand. Only the tiles the causal diagonal or the
+//   window cuts (and the ragged last one) are masked; the loop stops at
+//   the diagonal and starts at the window's first live tile, as
+//   flash_fwd_kernel. The epilogue divides O by l, rounds once, stages it
+//   in the TMA box layout and stores it by TMA through o's strides (rows
+//   past T are not written; the store drains while the next item runs);
+//   lse = m + log l in fp32. Bound: bytes at the GPT-2 350M shape (q, k,
+//   v, o: 0.0606 ms) against 0.052 ms of causal tensor-core work; a
+//   launch of one CTA per item spent about 3.4 us an item outside its
+//   tiles (start-up, the q load, the epilogue), which the persistent walk
+//   overlaps with the previous item.
 //
 // flash_block_fwd_kernel (flash_fwd_kernel with CARRY = true) replaces
 //   _fwd_block_kernel (via flash_block_fwd, flash_attention.py:1033-1087,
@@ -89,6 +122,7 @@
 // shared by both types.
 
 #include "attention_tiles.cuh"
+#include "sm90_attention.cuh"
 
 struct Strides {
   long long b, h, t;
@@ -281,6 +315,333 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(FlashArgs a) {
       op[1] = from_f<T>(acc[n][2 * i + 1] * inv);
     }
     if (t4 == 0) lg[row] = m[i] + logf(l[i]);
+  }
+}
+
+// ------------------------------------------------------ forward (Hopper)
+
+constexpr int SM90_TILE = 128;             // query rows per work item, keys per stage
+constexpr int SM90_HALF = SM90_TILE * 128;  // one 64-d half of a 128-row tile: 16 KB
+constexpr float LOG2E = 1.4426950408889634f;
+
+// K/V stages: 3 at d = 64 (128 KB with q and the o staging), 2 at d = 128
+// (192 KB; 3 would need 256)
+template <int D>
+__host__ __device__ constexpr int sm90_stages() {
+  return D == 64 ? 3 : 2;
+}
+
+template <int D>
+constexpr int sm90_fwd_smem() {
+  // q, the K/V ring, the o staging (64 rows a consumer), barriers, the item slot
+  return 1024 + (D / 64) * SM90_HALF * (2 + 2 * sm90_stages<D>()) +
+         (2 * sm90_stages<D>() + 2) * 8 + 16;
+}
+
+// Work item w of (B*H) x nq: heads in order, each head's query tiles longest
+// (last) first; q0 = its first row, [j_lo, j_hi) its key tiles.
+__device__ __forceinline__ void sm90_item(int w, int nq, int T, int causal, int window, int& bh,
+                                          int& q0, int& j_lo, int& j_hi) {
+  bh = w / nq;
+  q0 = (nq - 1 - (w - bh * nq)) * SM90_TILE;
+  const int k_hi = causal ? min(T, q0 + SM90_TILE) : T;
+  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  j_lo = k_lo / SM90_TILE;
+  j_hi = (k_hi + SM90_TILE - 1) / SM90_TILE;
+}
+
+template <int D>
+__global__ void __launch_bounds__(384, 1)
+    flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap mq,
+                          const __grid_constant__ CUtensorMap mk,
+                          const __grid_constant__ CUtensorMap mv,
+                          const __grid_constant__ CUtensorMap mo, float* lse, int* next_item,
+                          int items, int H, int T, int causal, int window) {
+  constexpr int HALVES = D / 64;
+  constexpr int STAGES = sm90_stages<D>();
+  constexpr bool PINGPONG = D == 64;
+  constexpr int TILE_BYTES = HALVES * SM90_HALF;  // a 128-row q, k or v tile
+  unsigned char* base = sm90::sm90_smem + ((1024 - (sm90::smem_u32(sm90::sm90_smem) & 1023)) & 1023);
+  unsigned char* qs = base;
+  unsigned char* ks = qs + TILE_BYTES;           // [STAGES][TILE_BYTES]
+  unsigned char* vs = ks + STAGES * TILE_BYTES;  // [STAGES][TILE_BYTES]
+  unsigned char* os = vs + STAGES * TILE_BYTES;  // o staging, 64 rows a consumer
+  uint64_t* full = reinterpret_cast<uint64_t*>(os + TILE_BYTES);
+  uint64_t* empty = full + STAGES;
+  uint64_t* qfull = empty + STAGES;
+  uint64_t* qempty = qfull + 1;
+  volatile int* item_slot = reinterpret_cast<volatile int*>(qempty + 1);
+
+  const int nq = (T + SM90_TILE - 1) / SM90_TILE;
+  const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 8);  // one arrive per consumer warp
+    }
+    sm90::mbar_init(qfull, 1);
+    sm90::mbar_init(qempty, 8);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (tid == 0) {
+      // items come from a counter in device memory, in order (no CTA
+      // waits on a short item while long ones are left); each item's
+      // index goes to the consumers through the q buffer's barrier
+      int stage = 0;
+      uint32_t phase = 0, qphase = 0;
+      for (;;) {
+        const int w = atomicAdd(next_item, 1);
+        sm90::mbar_wait(qempty, qphase ^ 1);  // the last item's S products are done
+        *item_slot = w;
+        if (w >= items) {
+          sm90::mbar_arrive(qfull);
+          break;
+        }
+        int bh, q0, j_lo, j_hi;
+        sm90_item(w, nq, T, causal, window, bh, q0, j_lo, j_hi);
+        const int b = bh / H, h = bh - b * H;
+        sm90::mbar_expect_tx(qfull, TILE_BYTES);
+#pragma unroll
+        for (int hh = 0; hh < HALVES; ++hh)
+          sm90::tma_load(qs + hh * SM90_HALF, &mq, qfull, 4, 64 * hh, q0, h, b);
+        qphase ^= 1;
+        for (int j = j_lo; j < j_hi; ++j) {
+          sm90::mbar_wait(&empty[stage], phase ^ 1);
+          sm90::mbar_expect_tx(&full[stage], 2 * TILE_BYTES);
+#pragma unroll
+          for (int hh = 0; hh < HALVES; ++hh) {
+            sm90::tma_load(ks + stage * TILE_BYTES + hh * SM90_HALF, &mk, &full[stage], 4,
+                           64 * hh, j * SM90_TILE, h, b);
+            sm90::tma_load(vs + stage * TILE_BYTES + hh * SM90_HALF, &mv, &full[stage], 4,
+                           64 * hh, j * SM90_TILE, h, b);
+          }
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int cw = wg - 1, lane = tid & 31;
+    const unsigned char* qa = qs + cw * (SM90_HALF / 2);  // this consumer's 64 rows of each half
+    unsigned char* oa = os + cw * (SM90_HALF / 2);
+    float o[D / 2];
+    float s[64];      // S of the tile in hand
+    uint32_t pa[32];  // p in bf16 pairs: PV's A fragments, 16-key slice kk in pa[4 kk .. 4 kk + 3]
+    float m0, m1, l0, l1;  // l: this thread's partial sums
+    int q0, r0, r1;
+
+    // S = Q K^T of the tile in ``stg`` (issued and committed, not waited)
+    auto issue_s = [&](int stg) {
+      const unsigned char* kt = ks + stg * TILE_BYTES;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int off = (kk >> 2) * SM90_HALF + (kk & 3) * 32;
+        sm90::wgmma_m64n128k16_ss(s, sm90::smem_desc(qa + off, 16, 1024),
+                                  sm90::smem_desc(kt + off, 16, 1024), kk > 0);
+      }
+      sm90::wgmma_commit();
+    };
+    // O += P V of the tile in ``stg`` from ``p`` (issued and committed)
+    auto issue_pv = [&](int stg, const uint32_t (&p)[32]) {
+      const unsigned char* vt = vs + stg * TILE_BYTES;
+#pragma unroll
+      for (int kk = 0; kk < SM90_TILE / 16; ++kk) {
+        const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3]};
+        sm90::wgmma_pv<D>(o, a, sm90::smem_desc(vt + kk * 2048, SM90_HALF, 1024));
+      }
+      sm90::wgmma_commit();
+    };
+    // the online softmax of S for key tile kb0: masks the tiles the
+    // diagonal, the window or T cut; new running maxima; p into ``p``
+    // (bf16 pairs); the old state's rescale factors and p's row sums out
+    auto softmax = [&](int kb0, uint32_t (&p)[32], float& alpha0, float& alpha1, float& sum0,
+                       float& sum1) {
+      const bool whole = (kb0 + SM90_TILE <= T) && (!causal || kb0 + SM90_TILE - 1 <= q0) &&
+                         (window == 0 || q0 + SM90_TILE - 1 - kb0 < window);
+      if (!whole) {
+#pragma unroll
+        for (int n = 0; n < 16; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = kb0 + sm90::frag_col(tid, n, e), row = e < 2 ? r0 : r1;
+            bool ok = col < T;
+            if (causal) ok = ok && col <= row;
+            if (window > 0) ok = ok && row - col < window;
+            if (!ok) s[4 * n + e] = NEG_INF;
+          }
+        }
+      }
+      float mx0 = NEG_INF, mx1 = NEG_INF;
+#pragma unroll
+      for (int n = 0; n < 16; ++n) {
+        mx0 = fmaxf(mx0, fmaxf(s[4 * n], s[4 * n + 1]));
+        mx1 = fmaxf(mx1, fmaxf(s[4 * n + 2], s[4 * n + 3]));
+      }
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      const float n0 = fmaxf(m0, mx0), n1 = fmaxf(m1, mx1);
+      alpha0 = sm90::ex2((m0 - n0) * LOG2E);
+      alpha1 = sm90::ex2((m1 - n1) * LOG2E);
+      m0 = n0;
+      m1 = n1;
+      // p = exp(s - m) as ex2(s log2(e) - m log2(e)) in one FMA; a row with
+      // every key masked so far (m = NEG_INF) takes p = 0, not the rounding
+      // residue of NEG_INF log2(e): its state is discarded (alpha = 0) at
+      // its first live key, as the mma_sync kernel's is
+      const float ms0 = m0 == NEG_INF ? 0.f : m0 * LOG2E;
+      const float ms1 = m1 == NEG_INF ? 0.f : m1 * LOG2E;
+      sum0 = sum1 = 0.f;
+#pragma unroll
+      for (int n = 0; n < 16; ++n) {
+        const float p0 = sm90::ex2(fmaf(s[4 * n], LOG2E, -ms0));
+        const float p1 = sm90::ex2(fmaf(s[4 * n + 1], LOG2E, -ms0));
+        const float p2 = sm90::ex2(fmaf(s[4 * n + 2], LOG2E, -ms1));
+        const float p3 = sm90::ex2(fmaf(s[4 * n + 3], LOG2E, -ms1));
+        sum0 += p0 + p1;
+        sum1 += p2 + p3;
+        p[2 * n] = sm90::pack_bf16(p0, p1);
+        p[2 * n + 1] = sm90::pack_bf16(p2, p3);
+      }
+    };
+
+    // at d = 64 the two consumers issue their wgmma in turns (named
+    // barriers 3 and 4), so one's softmax runs while the other's products
+    // do (at d = 128, whose P V products are twice as long, the turns cost
+    // more than they overlap)
+    auto my_turn = [&]() {
+      if constexpr (PINGPONG) asm volatile("bar.sync %0, 256;\n" ::"r"(3 + cw) : "memory");
+    };
+    auto your_turn = [&]() {
+      if constexpr (PINGPONG) asm volatile("bar.arrive %0, 256;\n" ::"r"(4 - cw) : "memory");
+    };
+    if (cw == 1) your_turn();  // consumer 0 goes first
+    int stage = 0;
+    uint32_t phase = 0, qphase = 0;
+    for (;;) {
+      sm90::mbar_wait(qfull, qphase);
+      qphase ^= 1;
+      const int w = *item_slot;
+      if (w >= items) break;
+      int bh, j_lo, j_hi;
+      sm90_item(w, nq, T, causal, window, bh, q0, j_lo, j_hi);
+      const int b = bh / H, h = bh - b * H;
+      r0 = q0 + 64 * cw + sm90::frag_row(tid, 0);
+      r1 = r0 + 8;
+      m0 = m1 = NEG_INF;
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+      float alpha0, alpha1, sum0, sum1;
+      // the first tile: S, then its softmax (O is still zero)
+      sm90::mbar_wait(&full[stage], phase);
+      my_turn();
+      sm90::wgmma_fence();
+      issue_s(stage);
+      your_turn();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(s);
+      if (j_lo + 1 == j_hi && lane == 0) sm90::mbar_arrive(qempty);  // q read for the last time
+      softmax(j_lo * SM90_TILE, pa, alpha0, alpha1, sum0, sum1);
+      l0 = sum0;
+      l1 = sum1;
+      // each further tile: its S and the previous tile's PV in flight
+      // together; the softmax of S runs while PV does
+      for (int j = j_lo + 1; j < j_hi; ++j) {
+        int next = stage + 1;
+        uint32_t next_phase = phase;
+        if (next == STAGES) {
+          next = 0;
+          next_phase ^= 1;
+        }
+        sm90::mbar_wait(&full[next], next_phase);
+        my_turn();
+        sm90::wgmma_fence();
+        issue_s(next);
+        issue_pv(stage, pa);
+        your_turn();
+        sm90::wgmma_wait<1>();  // S (committed first) has landed
+        sm90::fence_regs(s);
+        if (j + 1 == j_hi && lane == 0) sm90::mbar_arrive(qempty);
+        uint32_t pn[32];
+        softmax(j * SM90_TILE, pn, alpha0, alpha1, sum0, sum1);
+        sm90::wgmma_wait<0>();  // PV has read pa and written o
+        sm90::fence_regs(o);
+        sm90::keep_regs(pa);
+        if (lane == 0) sm90::mbar_arrive(&empty[stage]);
+        l0 = l0 * alpha0 + sum0;
+        l1 = l1 * alpha1 + sum1;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          o[4 * n] *= alpha0;
+          o[4 * n + 1] *= alpha0;
+          o[4 * n + 2] *= alpha1;
+          o[4 * n + 3] *= alpha1;
+        }
+#pragma unroll
+        for (int i = 0; i < 32; ++i) pa[i] = pn[i];
+        stage = next;
+        phase = next_phase;
+      }
+      my_turn();
+      sm90::wgmma_fence();
+      issue_pv(stage, pa);
+      your_turn();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(o);
+      sm90::keep_regs(pa);
+      if (lane == 0) sm90::mbar_arrive(&empty[stage]);
+      if (++stage == STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+
+      // the row sums over the four threads of each row, then o / l rounded
+      // once into this consumer's staging rows in the TMA box layout
+      // (16-byte chunk c of row r at c ^ (r % 8)), stored by TMA; the
+      // previous item's store must have read the staging rows first
+      l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+      l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+      const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+      if (tid == 0) sm90::tma_store_wait_read();
+      sm90::named_sync(1 + cw);
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int r = sm90::frag_row(tid, 2 * i), c = sm90::frag_col(tid, n, 0) & 63;
+          const float inv = i ? inv1 : inv0;
+          unsigned char* dst = oa + (n >> 3) * SM90_HALF + r * 128 +
+                               (((c >> 3) ^ (r & 7)) << 4) + (c & 7) * 2;
+          *reinterpret_cast<uint32_t*>(dst) =
+              sm90::pack_bf16(o[4 * n + 2 * i] * inv, o[4 * n + 2 * i + 1] * inv);
+        }
+      }
+      sm90::fence_proxy_async();
+      sm90::named_sync(1 + cw);
+      if (tid == 0) {
+#pragma unroll
+        for (int hh = 0; hh < HALVES; ++hh)
+          sm90::tma_store_4d(&mo, oa + hh * SM90_HALF, 64 * hh, q0 + 64 * cw, h, b);
+        sm90::tma_store_commit();
+      }
+      if ((tid & 3) == 0) {
+        float* lg = lse + (long long)bh * T;
+        if (r0 < T) lg[r0] = m0 + logf(l0);
+        if (r1 < T) lg[r1] = m1 + logf(l1);
+      }
+    }
+    if (cw == 0) my_turn();  // consumer 1's last turn handed back
+    if (tid == 0) sm90::tma_store_wait_all();
   }
 }
 
@@ -668,6 +1029,32 @@ cudaError_t fwd(const FlashArgs& a, cudaStream_t s) {
   return launch(flash_fwd_kernel<T, D, CARRY>, grid, smem, s, a);
 }
 
+// q, k, v and o through their strides; lse (B, H, T) contiguous;
+// next_item an int32 in device memory, 0 at the launch.
+template <int D>
+cudaError_t fwd_sm90(const FlashArgs& a, int* next_item, cudaStream_t s) {
+  CUtensorMap mq, mk, mv, mo;
+  cudaError_t err = sm90::make_bhtd_map(&mq, a.q, a.B, a.H, a.T, D, a.sq.b, a.sq.h, a.sq.t,
+                                        SM90_TILE);
+  if (err == cudaSuccess)
+    err = sm90::make_bhtd_map(&mk, a.k, a.B, a.H, a.T, D, a.sk.b, a.sk.h, a.sk.t, SM90_TILE);
+  if (err == cudaSuccess)
+    err = sm90::make_bhtd_map(&mv, a.v, a.B, a.H, a.T, D, a.sv.b, a.sv.h, a.sv.t, SM90_TILE);
+  if (err == cudaSuccess)  // each consumer stores its own 64 rows
+    err = sm90::make_bhtd_map(&mo, a.o, a.B, a.H, a.T, D, a.so.b, a.so.h, a.so.t, 64);
+  if (err != cudaSuccess) return err;
+  auto kernel = flash_fwd_sm90_kernel<D>;
+  constexpr int smem = sm90_fwd_smem<D>();
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const long long items = (long long)a.B * a.H * ((a.T + SM90_TILE - 1) / SM90_TILE);
+  if (items > 0x7fffffffLL - 65536) return cudaErrorInvalidValue;
+  const int grid = sm90::persistent_grid((int)items);
+  kernel<<<grid, 384, smem, s>>>(mq, mk, mv, mo, a.lse, next_item, (int)items, a.H, a.T,
+                                 a.causal, a.window);
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
 cudaError_t bwd(const FlashArgs& a, cudaStream_t s) {
   constexpr int PAD = 16 / sizeof(T);
@@ -737,6 +1124,26 @@ extern "C" int flash_fwd_launch(const FlashArgs* a, int dtype, void* stream) {
   if (dtype == 1) return fwd_by_d<bf16, false>(*a, s);
   if (dtype == 0) return fwd_by_d<float, false>(*a, s);
   return cudaErrorInvalidValue;
+}
+
+// The bf16 Hopper forward (flash_fwd_sm90_kernel): D = 64 or 128; q, k, v
+// and o with 16-byte aligned bases, t strides and (b, h) strides of extent
+// > 1 that are multiples of 8 elements; ``next_item`` one int32 of device memory set to
+// 0 (the persistent CTAs' work counter). Returns a cudaError_t (0 =
+// launched).
+extern "C" int flash_fwd_sm90_launch(const FlashArgs* a, int* next_item, void* stream) {
+  if (bad_args(a) || (a->D != 64 && a->D != 128) || next_item == nullptr)
+    return cudaErrorInvalidValue;
+  const void* ptrs[4] = {a->q, a->k, a->v, a->o};
+  const Strides* strides[4] = {&a->sq, &a->sk, &a->sv, &a->so};
+  for (int i = 0; i < 4; ++i) {
+    const Strides& st = *strides[i];
+    if ((uintptr_t)ptrs[i] % 16 != 0 || (a->B > 1 && st.b % 8 != 0) ||
+        (a->H > 1 && st.h % 8 != 0) || st.t % 8 != 0)
+      return cudaErrorInvalidValue;
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+  return a->D == 64 ? fwd_sm90<64>(*a, next_item, s) : fwd_sm90<128>(*a, next_item, s);
 }
 
 // One ring chunk pair: a->m, a->l and a->acc carry the online-softmax state

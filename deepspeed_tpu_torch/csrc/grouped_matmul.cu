@@ -1,15 +1,20 @@
 // Grouped (ragged) matmul for the dropless-MoE expert FFN, CUDA C++ for
 // sm_90a.
 //
-// grouped_gmm_kernel        replaces deepspeed_tpu/ops/pallas/grouped_matmul.py
-//                           _gmm_kernel (via _gmm, forward, trans_w=False).
+// grouped_gmm_sm90_kernel / grouped_kernel<T, BM, false, WT> replace
+//   deepspeed_tpu/ops/pallas/grouped_matmul.py _gmm_kernel (via _gmm, both
+//   trans_w: the forward and the dx product of training).
 //   out[s, n] = sum_k x[s, k] w[g(s), k, n], fp32 accumulation, one rounding
-//   to the output dtype. w is addressed through its (e, k, n) strides, so a
-//   transposed view (the dx product of training) needs no second kernel:
-//   w with a unit n stride is staged [k][n] with 16-byte cp.async; w with
-//   a unit k stride (the transposed view) is staged [n][k], also with
-//   16-byte cp.async, and its B fragments come by plain ldmatrix; any
-//   other stride is staged element by element.
+//   to the output dtype; rows past sum(group_sizes) exactly 0. w is
+//   addressed through its (e, k, n) strides, so a transposed view (the dx
+//   product) needs no second kernel and no (E, N, K) copy. bf16 operands
+//   TMA can address, above a row count, take the Hopper design
+//   (grouped_gmm_sm90_kernel: sm90_gemm.cuh's mainloop with the tiles
+//   resolved on the device, below); other bf16 and fp32 the mma.sync /
+//   scalar-FMA grouped_kernel, where w with a unit n stride is staged
+//   [k][n] with 16-byte cp.async, w with a unit k stride (the transposed
+//   view) [n][k], its B fragments by plain ldmatrix, and any other stride
+//   element by element (the wrapper's _gmm_design picks one per call).
 // grouped_swiglu_up_kernel  replaces _swiglu_up_kernel (via _swiglu_up).
 //   h = silu(x w1[g]) * (x w3[g]): one staged x tile feeds both products;
 //   the silu*mul epilogue runs in fp32 and rounds h once (as
@@ -50,7 +55,8 @@
 // (gmm) column tiles per group to load the card; a 4-stage cp.async ring
 // keeps ~3 weight tiles per CTA in flight. Products are mma.sync m16n8k16
 // (bf16 -> fp32), B fragments read from the row-major [k][n] weight tile
-// with ldmatrix.trans. TMA, wgmma and split-K are later work.
+// with ldmatrix.trans. The training shapes, bound by operations, take
+// grouped_gmm_sm90_kernel (TMA + wgmma); split-K is later work.
 //
 // The extern "C" launchers return cudaGetLastError() (0 = launched); they
 // never synchronize or allocate. fp32 instances do the products with
@@ -403,6 +409,169 @@ cudaError_t launch_tgmm_sm90(const TgmmArgs& a, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+// The grouped product on the Hopper mainloop (bf16 operands TMA can
+// address): O[z = segment, i = row, j = n] = sum_k x[i, k] w[e, k, n] with
+// A = x K-major (box 64 k x 128 rows) and B = w[e]: MN-major (TB = 1, the
+// forward's unit n stride) or K-major (TB = 0, the dx product's transposed
+// view with a unit k stride), the expert a dim of B's map. The walk runs
+// over (row visit, n tile of 256) in bands of 8 visits; visit v resolves
+// on the device, from group_sizes, to a segment of a 128-row physical tile
+// exactly as grouped_kernel's logical tiles do (resolve_tile): the
+// non-empty experts in order, then the tail [sum, M); a boundary tile is
+// visited once per segment, so at most ceil(M / 128) + E visits. A visit
+// of expert e runs the whole k loop on its physical tile's rows; the
+// epilogue stores only its segment's rows (store_tile's lower bound), so
+// every output row is written by one visit, with no atomics, and calls
+// repeat bitwise. A tail visit loads nothing and stores zeros; a visit past
+// the live count (a dead tile) loads and stores nothing.
+// Bound: operations at the GPT2-MoE 350M training shapes: 412 GFLOP at
+// (rows, K, N) = (49152, 1024, 4096) against 0.54 GB moved (0.42 ms vs
+// 0.16 ms); a row tile shared by two experts costs its k loop twice.
+struct GmmWalk {
+  const int* group_sizes;  // (E,) int32, device memory
+  int M, E;
+  __device__ __forceinline__ bool operator()(const sm90::Problem& p, int t, int& z, int& ti,
+                                             int& tj) const {
+    int band_z, v, lo, hi;
+    sm90::tile_coords(p, t, band_z, v, tj);
+    const int g = resolve_tile<sm90::BM>(group_sizes, E, M, v, ti, lo, hi);
+    z = g < 0 ? E : g;  // the tail is segment E
+    return g != -2;
+  }
+};
+
+struct GmmRange {  // the whole k range for an expert's visit, none for the tail
+  int E;
+  static constexpr bool MASK_A = false;
+  __device__ __forceinline__ void operator()(const sm90::Problem& p, int z, int& lo,
+                                             int& hi) const {
+    lo = 0;
+    hi = z < E ? p.C : 0;
+  }
+};
+
+// The epilogue: a consumer's 64 rows of a visit, rounded to bf16 once. Where
+// the segment holds all 64 rows (every visit but the boundary ones) they
+// go out by TMA store, 64 columns a pass, through the two halves of the
+// consumer's staging tile in turn, in the box's swizzled layout. The
+// consumer waits only until a store has read its half, two passes later
+// (its thread 0 waits while the others write the next pass), so the rows
+// drain to memory while the next passes and the next tile's products run.
+// A boundary visit stores its segment's rows alone through store_tile.
+struct GmmEpilogue {
+  CUtensorMap map;         // out as (N, M), box 64 columns x 64 rows (when tma)
+  bf16* out;               // (M, N) contiguous
+  const int* group_sizes;  // (E,) int32, device memory
+  int M, N, E;
+  int vec;                 // 16-byte stores allowed
+  int tma;                 // ``map`` is encoded
+
+  __device__ __forceinline__ void operator()(float (&acc)[sm90::BN / 2], int z, int i0, int j0,
+                                             bf16* stage, int tid, int bar) const {
+    int start = 0;  // segment z's rows [start, end), clipped to M as resolve_tile clips them
+    for (int i = 0; i < z; ++i) start = min(start + max(group_sizes[i], 0), M);
+    const int end = z < E ? min(start + max(group_sizes[z], 0), M) : M;
+    const int lo = max(start, i0), hi = min(end, i0 + 64);
+    if (hi <= lo) return;  // uniform across the warpgroup
+    if (tid == 0) sm90::tma_store_wait_read();  // the last tile's stores have read the staging
+    if (!tma || lo != i0 || hi != i0 + 64) {
+      sm90::store_tile<false>(acc, stage, out + (long long)i0 * N + j0, N, hi - i0, N - j0,
+                              vec != 0, bar, tid, lo - i0);
+      return;
+    }
+    sm90::named_sync(bar);
+#pragma unroll
+    for (int pass = 0; pass < sm90::BN / sm90::EPI_COLS; ++pass) {
+      if (pass * sm90::EPI_COLS >= N - j0) break;  // uniform across the warpgroup
+      unsigned char* st = reinterpret_cast<unsigned char*>(stage) + (pass & 1) * 64 * 128;
+#pragma unroll
+      for (int b = 0; b < sm90::EPI_COLS / 8; ++b) {
+        const int k = (pass * sm90::EPI_COLS / 8 + b) * 4;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          // (r, c) at r * 128 bytes, 16-byte chunk c / 8 ^ r % 8
+          const int r = sm90::frag_row(tid, 2 * h), c = sm90::frag_col(tid, b, 0);
+          const __nv_bfloat162 v = __floats2bfloat162_rn(acc[k + 2 * h], acc[k + 2 * h + 1]);
+          *reinterpret_cast<__nv_bfloat162*>(st + r * 128 + (((c >> 3) ^ (r & 7)) << 4) +
+                                              (c & 7) * 2) = v;
+        }
+      }
+      sm90::fence_proxy_async();
+      // the last pass's store has read the other half, which the next pass
+      // writes after this barrier
+      if (tid == 0) sm90::tma_store_wait_read();
+      sm90::named_sync(bar);
+      if (tid == 0) {
+        sm90::tma_store_2d(&map, st, j0 + pass * sm90::EPI_COLS, i0);
+        sm90::tma_store_commit();
+      }
+    }
+  }
+
+  __device__ __forceinline__ void finish(int tid) const {
+    if (tid == 0) sm90::tma_store_wait_all();
+  }
+};
+
+template <int TB>
+__global__ void __launch_bounds__(sm90::THREADS, 1)
+    grouped_gmm_sm90_kernel(const __grid_constant__ CUtensorMap mx,
+                            const __grid_constant__ CUtensorMap mw, sm90::Problem p,
+                            const __grid_constant__ GmmEpilogue epi, GmmRange range,
+                            GmmWalk walk) {
+  sm90::gemm<0, TB>(mx, mw, p, epi, range, walk);
+}
+
+cudaError_t launch_gmm_sm90(const GroupedArgs& a, cudaStream_t s) {
+  sm90::Problem p{};
+  p.Z = a.E;
+  p.Q = 1;
+  p.I = a.M;
+  p.J = a.N;
+  p.C = a.K;
+  const int tb = a.w_kmajor ? 0 : 1;
+  CUtensorMap mx, mw;
+  // strides in elements: A (z, q, i, c) = (0, 0, K, 1), B (z, q, c, j) = w's (e, -, k, n)
+  const long long sx[4] = {0, 0, a.K, 1}, sw[4] = {a.sw_e, 0, a.sw_k, a.sw_n};
+  cudaError_t e = sm90::make_maps(&mx, &mw, &p, a.x, sx, 0, a.w1, sw, tb);
+  if (e != cudaSuccess) return e;
+  p.tiles_i = (a.M + sm90::BM - 1) / sm90::BM + a.E;  // row visits, live or not
+  p.tiles_j = (a.N + sm90::BN - 1) / sm90::BN;
+  p.group_m = p.tiles_i < 8 ? p.tiles_i : 8;
+  const long long tiles = (long long)p.tiles_i * p.tiles_j;
+  if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  p.num_tiles = (int)tiles;
+  const int grid = sm90::persistent_grid(p.num_tiles);
+  GmmEpilogue epi{};
+  epi.out = (bf16*)a.out;
+  epi.group_sizes = a.group_sizes;
+  epi.M = a.M;
+  epi.N = a.N;
+  epi.E = a.E;
+  epi.vec = (uintptr_t)a.out % 16 == 0 && a.N % 8 == 0;
+  if (epi.vec) {  // the output as a 2-d map (N, M), box 64 x 64: the TMA store
+    int rank, dim2;
+    e = sm90::make_operand_map(&epi.map, a.out, a.N, a.M, a.N, 1, 0, 1, 0, sm90::EPI_COLS,
+                               &rank, &dim2);
+    if (e != cudaSuccess) return e;
+    epi.tma = 1;
+  }
+  const GmmRange range{a.E};
+  const GmmWalk walk{a.group_sizes, a.M, a.E};
+  if (tb) {
+    auto kernel = grouped_gmm_sm90_kernel<1>;
+    e = sm90::allow_sm90_smem(kernel);
+    if (e != cudaSuccess) return e;
+    kernel<<<grid, sm90::THREADS, sm90::SMEM_BYTES, s>>>(mx, mw, p, epi, range, walk);
+  } else {
+    auto kernel = grouped_gmm_sm90_kernel<0>;
+    e = sm90::allow_sm90_smem(kernel);
+    if (e != cudaSuccess) return e;
+    kernel<<<grid, sm90::THREADS, sm90::SMEM_BYTES, s>>>(mx, mw, p, epi, range, walk);
+  }
+  return cudaGetLastError();
+}
+
 template <typename T, int BM, bool SWIGLU, bool WT>
 cudaError_t launch(const GroupedArgs& a, cudaStream_t s) {
   constexpr int BK = Slice<T>::BK;
@@ -462,6 +631,23 @@ extern "C" int grouped_gmm_launch(const GroupedArgs* a, int dtype, int block_m, 
 extern "C" int grouped_swiglu_up_launch(const GroupedArgs* a, int dtype, int block_m,
                                         void* stream) {
   return dispatch<true>(a, dtype, block_m, stream);
+}
+
+// The bf16 Hopper design of grouped_gmm: x (M, K) contiguous and w through
+// its strides, bf16, 16-byte aligned bases, K a multiple of 8, w with a
+// unit n stride (the forward) or a unit k stride (w_kmajor: the dx
+// product's transposed view), its other two strides (the expert's where E
+// > 1) multiples of 8 elements, M > 0. Returns a cudaError_t (0 =
+// launched).
+extern "C" int grouped_gmm_sm90_launch(const GroupedArgs* a, void* stream) {
+  if (a == nullptr || a->M <= 0 || a->K <= 0 || a->N <= 0 || a->E <= 0 || a->K % 8 != 0 ||
+      (uintptr_t)a->x % 16 != 0 || (uintptr_t)a->w1 % 16 != 0)
+    return cudaErrorInvalidValue;
+  const long long unit = a->w_kmajor ? a->sw_k : a->sw_n;
+  const long long outer = a->w_kmajor ? a->sw_n : a->sw_k;
+  if (unit != 1 || outer % 8 != 0 || (a->E > 1 && a->sw_e % 8 != 0))
+    return cudaErrorInvalidValue;
+  return launch_gmm_sm90(*a, (cudaStream_t)stream);
 }
 
 // The bf16 Hopper design: x, dy and out bf16 with 16-byte aligned bases and

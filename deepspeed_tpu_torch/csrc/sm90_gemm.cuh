@@ -1,8 +1,9 @@
 // A Hopper GEMM mainloop (sm_90a): TMA loads into a shared-memory ring,
 // wgmma from shared memory, warp-specialised and persistent. K3's bf16
 // instance (fused_ce.cu, fused_ce_sm90_kernel), K6's (mlp_matmul.cu,
-// proj_mm_sm90_kernel) and K8's expert dW (grouped_matmul.cu,
-// grouped_tgmm_sm90_kernel) are this loop with their own epilogues.
+// proj_mm_sm90_kernel) and K8's expert dW and forward / dx products
+// (grouped_matmul.cu, grouped_tgmm_sm90_kernel, grouped_gmm_sm90_kernel)
+// are this loop with their own epilogues.
 //
 // Problem: O[z, i, j] = sum_q sum_c A[z, q, i, c] * B[z, q, c, j] in bf16
 // with fp32 accumulation. Each operand is addressed by a TMA tensor map
@@ -34,6 +35,12 @@
 // L2 reuse; K3: every row tile, so each vocab tile of w is read from device
 // memory once while h stays in L2).
 //
+// The walk is a functor too (``Walk``): by default the static order above;
+// grouped_gmm_sm90_kernel resolves a logical tile on the device to an
+// expert's row segment of a physical row tile (or to nothing: a dead tile,
+// which loads and stores nothing). Producer and consumers call the same
+// functor on the same t, so they agree on every tile without a message.
+//
 // The contraction range of a tile is a functor of its z (``Range``): the
 // whole of [0, C) by default, or a range only the device knows
 // (grouped_tgmm: expert z's rows, from the group sizes in device memory).
@@ -46,9 +53,10 @@
 // generic stores before wgmma's async-proxy reads, and the warpgroup's
 // named barrier makes every thread's stores visible.
 //
-// Shared memory: 4 stages x (16 KB A + 32 KB B) = 192 KB, two 9 KB epilogue
-// staging tiles (64 x 64 bf16 with a 16-byte row pad), 8 barriers and up to
-// 1 KB to align the ring to the 1024-byte swizzle atom: 211 KB of 227.
+// Shared memory: 4 stages x (16 KB A + 32 KB B) = 192 KB, two 16 KB epilogue
+// staging tiles (64 x 64 bf16 with a 16-byte row pad, or two 64 x 64 TMA
+// boxes), 8 barriers and up to 1 KB to align the ring to the 1024-byte
+// swizzle atom: 225 KB of 227.
 
 #pragma once
 
@@ -70,7 +78,10 @@ constexpr int A_BYTES = BM * BK * 2;
 constexpr int B_BYTES = BN * BK * 2;
 constexpr int EPI_COLS = 64;               // columns staged per epilogue pass
 constexpr int EPI_PITCH = EPI_COLS + 8;    // bf16 per staged line (16-byte pad)
-constexpr int EPI_BYTES = 64 * EPI_PITCH * 2;
+// a consumer's staging tile: one padded 64 x 64 bf16 tile (store_tile), or
+// two 64 x 64 TMA boxes (grouped_gmm's double-buffered TMA store)
+constexpr int EPI_BYTES = 2 * 64 * EPI_COLS * 2;
+static_assert(64 * EPI_PITCH * 2 <= EPI_BYTES, "store_tile's padded tile fits");
 constexpr int SMEM_BYTES = 1024 + STAGES * (A_BYTES + B_BYTES) + 2 * EPI_BYTES + 2 * STAGES * 8;
 static_assert(SMEM_BYTES <= 232448, "one CTA per SM");
 
@@ -142,6 +153,34 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
         " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(d),
         "l"(m), "r"(b), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
         : "memory");
+}
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// One TMA store of a box at (c0, c1) from shared memory, in the issuing
+// thread's bulk group.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// TMA store completion, per issuing thread: commit its stores as a group;
+// wait until every committed group has read its shared-memory source; wait
+// until every committed group has finished.
+__device__ __forceinline__ void tma_store_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void tma_store_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 // wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
@@ -225,14 +264,14 @@ __device__ __forceinline__ int frag_row(int tid, int e) {
 __device__ __forceinline__ int frag_col(int tid, int b, int e) { return b * 8 + 2 * (tid & 3) + (e & 1); }
 
 // Writes a consumer's 64 x 256 accumulator as bf16: element (r, c) to
-// out[r * ld + c], or out[c * ld + r] when TRANS, for r < rows and c <
-// cols. 64 columns at a time go through ``stage`` (laid out along the
+// out[r * ld + c], or out[c * ld + r] when TRANS, for row_lo <= r < rows
+// (row_lo: not TRANS) and c < cols. 64 columns at a time go through ``stage`` (laid out along the
 // output's contiguous axis) so that each thread stores 16 contiguous bytes
 // (``vec``: out and ld allow it; else element stores).
 template <bool TRANS>
 __device__ __forceinline__ void store_tile(const float (&acc)[BN / 2], bf16* stage, bf16* out,
                                            long long ld, int rows, int cols, bool vec, int bar,
-                                           int tid) {
+                                           int tid, int row_lo = 0) {
 #pragma unroll
   for (int pass = 0; pass < BN / EPI_COLS; ++pass) {
     if (pass * EPI_COLS >= cols) break;  // uniform across the warpgroup
@@ -258,7 +297,8 @@ __device__ __forceinline__ void store_tile(const float (&acc)[BN / 2], bf16* sta
     for (int k = 0; k < 4; ++k) {
       const int run = tid + 128 * k, line = run >> 3, off = (run & 7) * 8;
       const int r = TRANS ? off : line, c = pass * EPI_COLS + (TRANS ? line : off);
-      const int n = TRANS ? (c < cols ? rows - r : 0) : (r < rows ? cols - c : 0);
+      const int n = TRANS ? (c < cols ? rows - r : 0)
+                          : (r >= row_lo && r < rows ? cols - c : 0);
       if (n <= 0) continue;
       const uint4 v = *reinterpret_cast<const uint4*>(stage + line * EPI_PITCH + off);
       bf16* dst = TRANS ? out + (long long)c * ld + r : out + (long long)r * ld + c;
@@ -284,6 +324,15 @@ __device__ __forceinline__ void tile_coords(const Problem& p, int t, int& z, int
   tj = r / gm;
 }
 
+// The default walk: every tile of the static order, each live.
+struct StaticWalk {
+  __device__ __forceinline__ bool operator()(const Problem& p, int t, int& z, int& ti,
+                                             int& tj) const {
+    tile_coords(p, t, z, ti, tj);
+    return true;
+  }
+};
+
 // The default contraction range: every c of every q.
 struct FullRange {
   static constexpr bool MASK_A = false;
@@ -295,14 +344,24 @@ struct FullRange {
 
 extern __shared__ __align__(128) unsigned char sm90_smem[];  // aligned to 1024 at run time
 
+// An epilogue's optional ``finish(tid)``, called by each consumer thread
+// once its last tile is stored (an epilogue that stores by TMA drains its
+// stores there).
+template <class E>
+__device__ __forceinline__ auto epilogue_finish(const E& e, int tid, int) -> decltype(e.finish(tid)) {
+  return e.finish(tid);
+}
+template <class E>
+__device__ __forceinline__ void epilogue_finish(const E&, int, long) {}
+
 // The kernel body: ``epi(acc, z, i0, j0, stage, tid, bar)`` is called by
 // each consumer warpgroup on its 64 rows (from i0) x 256 columns (from j0)
-// of a finished tile; ``stage`` is its own staging tile, ``tid`` its thread
-// in the warpgroup and ``bar`` its named barrier.
-template <int TA, int TB, class Epi, class Range = FullRange>
+// of a finished tile; ``stage`` is its own staging tile (1024-aligned),
+// ``tid`` its thread in the warpgroup and ``bar`` its named barrier.
+template <int TA, int TB, class Epi, class Range = FullRange, class Walk = StaticWalk>
 __device__ __forceinline__ void gemm(const CUtensorMap& ma, const CUtensorMap& mb,
                                      const Problem& p, const Epi& epi,
-                                     const Range& range = Range()) {
+                                     const Range& range = Range(), const Walk& walk = Walk()) {
   static_assert(!Range::MASK_A || TA, "A rows are zeroed by whole lines: A MN-major");
   unsigned char* base = sm90_smem + ((1024 - (smem_u32(sm90_smem) & 1023)) & 1023);
   unsigned char* sa = base;
@@ -327,7 +386,7 @@ __device__ __forceinline__ void gemm(const CUtensorMap& ma, const CUtensorMap& m
       uint32_t phase = 0;
       for (int t = blockIdx.x; t < p.num_tiles; t += gridDim.x) {
         int z, ti, tj;
-        tile_coords(p, t, z, ti, tj);
+        if (!walk(p, t, z, ti, tj)) continue;
         const int i0 = ti * BM, j0 = tj * BN;
         int lo, hi;
         range(p, z, lo, hi);
@@ -370,7 +429,7 @@ __device__ __forceinline__ void gemm(const CUtensorMap& ma, const CUtensorMap& m
     uint32_t phase = 0;
     for (int t = blockIdx.x; t < p.num_tiles; t += gridDim.x) {
       int z, ti, tj;
-      tile_coords(p, t, z, ti, tj);
+      if (!walk(p, t, z, ti, tj)) continue;
       int lo, hi;
       range(p, z, lo, hi);
       const int nc = hi > lo ? (hi - lo + BK - 1) / BK : 0;
@@ -415,6 +474,7 @@ __device__ __forceinline__ void gemm(const CUtensorMap& ma, const CUtensorMap& m
       if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
       epi(acc, z, ti * BM + 64 * cw, tj * BN, stage_tile, tid, 1 + cw);
     }
+    epilogue_finish(epi, tid, 0);
   }
 }
 
@@ -491,8 +551,16 @@ inline cudaError_t make_maps(CUtensorMap* ma, CUtensorMap* mb, Problem* p, const
                                &p->b_dim2_q);
 }
 
-// Fills the walk and returns the persistent grid: one CTA per SM, at most
-// one per tile.
+// The persistent grid of ``num_tiles`` tiles: one CTA per SM, at most one
+// per tile.
+inline int persistent_grid(int num_tiles) {
+  int dev = 0, sms = 132;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return num_tiles < sms ? num_tiles : sms;
+}
+
+// Fills the walk and returns the persistent grid.
 inline int plan(Problem* p, int group_m) {
   p->tiles_i = (p->I + BM - 1) / BM;
   p->tiles_j = (p->J + BN - 1) / BN;
@@ -500,10 +568,7 @@ inline int plan(Problem* p, int group_m) {
   const long long tiles = (long long)p->Z * p->tiles_i * p->tiles_j;
   if (tiles > 0x7fffffffLL) return -1;
   p->num_tiles = (int)tiles;
-  int dev = 0, sms = 132;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  return p->num_tiles < sms ? p->num_tiles : sms;
+  return persistent_grid(p->num_tiles);
 }
 
 template <typename Kernel>

@@ -120,7 +120,7 @@ class PagedAttentionBuilder(CUDAOpBuilder):
 class FlashAttentionBuilder(CUDAOpBuilder):
     NAME = "flash_attention"
     SOURCES = ("flash_attention.cu",)
-    DEPENDS = ("attention_tiles.cuh",)
+    DEPENDS = ("attention_tiles.cuh", "sm90_gemm.cuh", "sm90_attention.cuh")
 
 
 class BlockSparseAttentionBuilder(CUDAOpBuilder):

@@ -22,7 +22,12 @@ tensor launches the kernel or raises — there is no fallback. ``LAUNCHES``
 counts kernel launches: ``flash_fwd`` one per forward, ``flash_bwd`` one
 per k-major backward call (its three kernels: delta, dk/dv, dq),
 ``flash_bwd_qmajor`` one per query-major backward (one kernel),
-``flash_block_fwd`` one per ring chunk pair.
+``flash_block_fwd`` one per ring chunk pair. The forward takes one of
+three designs (``_fwd_design``): bf16 with D = 64 or 128 that TMA can
+address goes to the Hopper wgmma kernel (``flash_fwd_sm90_kernel``), other
+bf16 (D = 32) to the mma.sync kernel, fp32 to the scalar-FMA instance;
+``DESIGN_LAUNCHES["flash_fwd"]`` counts launches by design. K10
+(``flash_block_fwd``) stays on the mma.sync kernel.
 
 ``bwd_qmajor`` picks the query-major backward under the JAX rule
 (flash_attention.py:1578): ``qkv_t`` layouts with no bias or ALiBi only,
@@ -39,13 +44,17 @@ import math
 
 import torch
 
+from .grouped_matmul import tma_ok
+
 NEG_INF = -1e30
 
 LAUNCHES = {"flash_fwd": 0, "flash_bwd": 0, "flash_bwd_qmajor": 0,
             "flash_block_fwd": 0}
+DESIGN_LAUNCHES = {"flash_fwd": {"sm90": 0, "mma_sync": 0, "fp32": 0}}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
+_SM90_HEAD_DIMS = (64, 128)
 _TODO_BIAS = "(ROADMAP Queue 2, K1/K2: bias and ALiBi operands)"
 _QMAJOR_TILE = 64      # the kernel's query tile; the plain version walks it
 
@@ -53,6 +62,9 @@ _QMAJOR_TILE = 64      # the kernel's query tile; the plain version walks it
 def reset_launch_counts():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for by_design in DESIGN_LAUNCHES.values():
+        for k in by_design:
+            by_design[k] = 0
 
 
 class _Strides(ctypes.Structure):
@@ -89,6 +101,9 @@ def kernel_builder():
             fn.argtypes = [ctypes.POINTER(_FlashArgs), ctypes.c_int,
                            ctypes.c_void_p]
             fn.restype = ctypes.c_int
+        lib.flash_fwd_sm90_launch.argtypes = [ctypes.POINTER(_FlashArgs),
+                                              ctypes.c_void_p, ctypes.c_void_p]
+        lib.flash_fwd_sm90_launch.restype = ctypes.c_int
         _builder = b
     return _builder
 
@@ -242,6 +257,21 @@ def _strides(x):
     return _Strides(*x.stride()[:3])
 
 
+def _fwd_design(q, k, v):
+    """The forward's design for (B, H, T, d) operands as the kernel reads
+    them: "fp32" for fp32; "sm90" (TMA + wgmma) for bf16 with d = 64 or 128
+    that TMA can address (``tma_ok``: d contiguous, a 16-byte aligned base,
+    the t stride and each (b, h) stride of extent > 1 whole multiples of 16
+    bytes, as sm90_attention.cuh's ``make_bhtd_map`` encodes them; every
+    GPT-2 training call); else "mma_sync" (d = 32, or bf16 operands TMA
+    cannot address)."""
+    if q.dtype == torch.float32:
+        return "fp32"
+    if q.shape[-1] in _SM90_HEAD_DIMS and all(map(tma_ok, (q, k, v))):
+        return "sm90"
+    return "mma_sync"
+
+
 def _args(B, H, T, D, causal, window, **tensors):
     a = _FlashArgs()
     a.B, a.H, a.T, a.D = B, H, T, D
@@ -276,11 +306,19 @@ def flash_forward(q, k, v, *, causal=True, window=0):
     o = torch.empty_like(q)
     lse = torch.empty(B, H, T, dtype=torch.float32, device=q.device)
     a = _args(B, H, T, D, causal, window, q=q, k=k, v=v, o=o, lse=lse)
-    rc = kernel_builder().load().flash_fwd_launch(
-        ctypes.byref(a), _DTYPE_CODE[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(rc, name)
+    lib = kernel_builder().load()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    design = _fwd_design(q, k, v)
+    if design == "sm90":
+        # the persistent CTAs' work counter
+        next_item = torch.zeros(1, dtype=torch.int32, device=q.device)
+        rc = lib.flash_fwd_sm90_launch(ctypes.byref(a), next_item.data_ptr(),
+                                       stream)
+    else:
+        rc = lib.flash_fwd_launch(ctypes.byref(a), _DTYPE_CODE[q.dtype], stream)
+    _raise_on(rc, f"{name} ({design})")
     LAUNCHES["flash_fwd"] += 1
+    DESIGN_LAUNCHES["flash_fwd"][design] += 1
     return o, lse
 
 

@@ -37,8 +37,12 @@ on the device: the kernels read it there, so a call never syncs the host.
 designs (``_tgmm_design``): bf16 operands TMA can address go to the Hopper
 wgmma kernel (``grouped_tgmm_sm90_kernel``), other bf16 (the expert-bias
 row sums ``grouped_tgmm(ones, dy)``) to the mma.sync kernel, fp32 to the
-scalar-FMA instance; ``DESIGN_LAUNCHES["grouped_tgmm"]`` counts launches
-by design.
+scalar-FMA instance. ``grouped_gmm`` (the forward and the dx product on
+w's transposed view) likewise (``_gmm_design``): bf16 that TMA can address
+goes to ``grouped_gmm_sm90_kernel``, other bf16 to the mma.sync
+``grouped_kernel``.
+``DESIGN_LAUNCHES`` counts launches by design; ``grouped_swiglu_up`` and
+the quantized kernels have one design each.
 """
 
 import ctypes
@@ -50,7 +54,8 @@ from ..int8_weights import is_quantized
 
 LAUNCHES = {"grouped_swiglu_up": 0, "grouped_gmm": 0, "grouped_tgmm": 0,
             "grouped_swiglu_up_wq": 0, "grouped_gmm_wq": 0}
-DESIGN_LAUNCHES = {"grouped_tgmm": {"sm90": 0, "mma_sync": 0, "fp32": 0}}
+DESIGN_LAUNCHES = {name: {"sm90": 0, "mma_sync": 0, "fp32": 0}
+                   for name in ("grouped_gmm", "grouped_tgmm")}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -117,6 +122,9 @@ def kernel_builder():
         lib.grouped_tgmm_sm90_launch.argtypes = [ctypes.POINTER(_TgmmArgs),
                                                  ctypes.c_void_p]
         lib.grouped_tgmm_sm90_launch.restype = ctypes.c_int
+        lib.grouped_gmm_sm90_launch.argtypes = [
+            ctypes.POINTER(_GroupedArgs), ctypes.c_void_p]
+        lib.grouped_gmm_sm90_launch.restype = ctypes.c_int
         for fn in (lib.grouped_gmm_wq_launch, lib.grouped_swiglu_up_wq_launch):
             fn.argtypes = WQ_ARGTYPES
             fn.restype = ctypes.c_int
@@ -283,9 +291,26 @@ def _tgmm_design(x, dy, out):
     return "sm90" if all(map(tma_ok, (x, dy, out))) else "mma_sync"
 
 
+def _gmm_design(x, w):
+    """The ``grouped_gmm`` design for a contiguous x (M, K) and w (E, K, N)
+    through its strides: "fp32" for fp32; "sm90" (TMA + wgmma, the tiles
+    resolved on the device) for bf16 that TMA can address (``tma_ok``: rows,
+    K a multiple of 8, aligned bases, w with a unit n stride (the forward)
+    or a unit k stride (the dx product's transposed view) and its other
+    strides multiples of 8): both GPT2-MoE 350M training shapes and
+    Mixtral's decode and chunk; else "mma_sync" (no rows, an odd K, any
+    other stride). No row count splits bf16: at Mixtral-8x7B's down
+    projection sm90 is the faster design at the 16-row decode as at the
+    512-row chunk (chip_smoke.py phase 8 times both)."""
+    if x.dtype == torch.float32:
+        return "fp32"
+    return "sm90" if tma_ok(x) and tma_ok(w) else "mma_sync"
+
+
 def _launch(fn_name, name, x, ws, group_sizes):
     """Launch one grouped kernel on CUDA tensors, counting it under
-    ``name``; returns its (M, N) output."""
+    ``name`` (and by design for ``grouped_gmm``); returns its (M, N)
+    output."""
     _check_device(name, x, (*ws, group_sizes))
     if ws[0].stride() != ws[-1].stride():
         raise ValueError(f"{name}: w1 and w3 must share their strides")
@@ -309,12 +334,20 @@ def _launch(fn_name, name, x, ws, group_sizes):
                      gs.data_ptr(), out.data_ptr(), se, sk, sn, M, K, N, E,
                      int(K % vec == 0 and _aligned(x)), int(vec_w),
                      int(kmajor))
-    rc = getattr(kernel_builder().load(), fn_name)(
-        ctypes.byref(a), _DTYPE_CODE[x.dtype], block_m_for(M),
-        torch.cuda.current_stream(x.device).cuda_stream)
+    lib = kernel_builder().load()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    design = _gmm_design(x, ws[0]) if name in DESIGN_LAUNCHES else None
+    if design == "sm90":
+        rc = lib.grouped_gmm_sm90_launch(ctypes.byref(a), stream)
+    else:
+        rc = getattr(lib, fn_name)(ctypes.byref(a), _DTYPE_CODE[x.dtype],
+                                   block_m_for(M), stream)
     if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+        raise RuntimeError(f"{name} kernel launch failed ({design}): "
+                           f"cudaError {rc}")
     LAUNCHES[name] += 1
+    if design:
+        DESIGN_LAUNCHES[name][design] += 1
     return out
 
 

@@ -222,6 +222,40 @@ def test_flash_kernels(dtype, B, H, T, d, causal, window):
             torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("B,H,T,d,causal,window,heads_major", [
+    (2, 3, 256, 64, True, 0, False),        # the model's (B, T, H, d) strides
+    (1, 2, 333, 128, True, 100, False),     # ragged T, a window
+    (2, 2, 200, 64, False, 0, True),        # non-causal, heads-major
+    (1, 4, 130, 128, True, 0, True),        # a 2-row last tile
+    (2, 2, 640, 64, True, 200, False),      # window past one key tile
+])
+def test_flash_fwd_sm90(B, H, T, d, causal, window, heads_major):
+    """K1's bf16 sm90 design (TMA + wgmma, online softmax on the
+    accumulator fragments): o within the bf16 limits and lse within 1e-3
+    of the plain version in fp32, every launch on sm90, repeated
+    bitwise."""
+    rs = np.random.RandomState(T + d)
+    bf = torch.bfloat16
+    shape = (B, H, T, d) if heads_major else (B, T, H, d)
+    q, k, v = (_rand(rs, shape, bf) for _ in range(3))
+    if not heads_major:
+        q, k, v = (x.transpose(1, 2) for x in (q, k, v))
+    q = fa.scale_q(q, d ** -0.5)
+    fa.reset_launch_counts()
+    runs = [fa.flash_forward(q, k, v, causal=causal, window=window)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert fa.DESIGN_LAUNCHES["flash_fwd"] == {"sm90": 2, "mma_sync": 0,
+                                               "fp32": 0}
+    (o, lse), (o2, lse2) = runs
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert o.stride() == q.stride()
+    ro, rlse = fa.flash_forward_reference(q.float(), k.float(), v.float(),
+                                          causal=causal, window=window)
+    _assert_close(o, ro, bf)
+    torch.testing.assert_close(lse, rlse, rtol=0, atol=1e-3)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("N,D,V", [(100, 64, 200), (256, 128, 1000)])
 def test_fused_ce_kernel(dtype, N, D, V):
@@ -314,6 +348,43 @@ def test_grouped_kernels(dtype, M, K, N, sizes):
     for got, ref in zip((out, h), refs):
         if live:
             _assert_close(got[:live], ref[:live], dtype)
+
+
+@pytest.mark.parametrize("M,K,N,sizes", [
+    (1000, 136, 72, [10, 500, 1, 400]),      # groups under a tile, a 1-row group, ragged K, N
+    (777, 256, 520, [130, 0, 300, 200]),     # boundaries off 128, empty expert, 147-row tail
+    (640, 128, 256, [0, 640, 0, 0]),         # one group holds every row
+    (300, 1032, 8, [100, 100, 100]),         # K past 1024, N = 8
+    (512, 64, 264, [0, 0, 0, 0]),            # every group empty: all rows 0
+])
+@pytest.mark.parametrize("view", [False, True])
+def test_grouped_gmm_sm90(M, K, N, sizes, view):
+    """grouped_gmm's bf16 sm90 design (TMA + wgmma, each row visit resolved
+    to its expert's segment on the device) for the forward (w with a unit n
+    stride) and the dx product on a transposed view (a unit k stride): the
+    rows inside the groups within the bf16 limits of the plain version in
+    fp32, the rows past them exactly 0, every launch on sm90 and repeated
+    bitwise."""
+    rs = np.random.RandomState(M + K + view)
+    bf = torch.bfloat16
+    E = len(sizes)
+    x = _rand(rs, (M, K), bf)
+    if view:
+        w = (_rand(rs, (E, N, K), torch.float32) * 0.1).to(bf).transpose(1, 2)
+    else:
+        w = (_rand(rs, (E, K, N), torch.float32) * 0.1).to(bf)
+    gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+    gm.reset_launch_counts()
+    outs = [gm.grouped_matmul(x, w, gs) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert gm.DESIGN_LAUNCHES["grouped_gmm"] == {"sm90": 2, "mma_sync": 0,
+                                                 "fp32": 0}
+    assert torch.equal(outs[0], outs[1])
+    live = sum(sizes)
+    assert torch.all(outs[0][live:] == 0)
+    if live:
+        ref = gm.grouped_matmul_reference(x.float(), w.float(), gs)
+        _assert_close(outs[0][:live], ref[:live], bf)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

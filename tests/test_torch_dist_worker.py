@@ -283,9 +283,11 @@ def gpt2(inp, rank, world):
 def zero(inp, rank, world):
     """Each run of ``inp["runs"]`` through initialize -> train_batch on
     this world (the engine builds its topology from the config): the
-    losses and global gradient norms, the gathered fp32 master, this
-    rank's master and stage-3 parameter shard shapes."""
+    losses and global gradient norms, each step's clipped gradients (what
+    the optimizer is given, gathered whole), the gathered fp32 master,
+    this rank's master and stage-3 parameter shard shapes."""
     import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.runtime import engine as eng
     from deepspeed_tpu_torch.utils import groups
     out = {}
     for name, run in inp["runs"].items():
@@ -293,12 +295,27 @@ def zero(inp, rank, world):
         engine, *_ = deepspeed_tpu_torch.initialize(
             model=_gpt2(run["model"], run["params"]), config=run["config"],
             device="cpu")
+        steps = []
+        unscale_clip = engine._unscale_clip
+
+        def record(grads, scale, engine=engine, unscale_clip=unscale_clip,
+                   steps=steps):
+            got = unscale_clip(grads, scale)
+            whole = dict(got[0])
+            parts = engine.plan.parts["grad"]
+            for axes, names in eng._by_axes(whole, parts).items():
+                whole.update(zip(names, eng.flat_all_gather(
+                    [whole[n] for n in names], [parts[n][0] for n in names],
+                    axes)))
+            steps.append(whole)
+            return got
+        engine._unscale_clip = record
         losses, norms = [], []
         for b in run["batches"]:
             losses.append(engine.train_batch(b))
             norms.append(engine.get_global_grad_norm())
         out[name] = {
-            "losses": losses, "grad_norms": norms,
+            "losses": losses, "grad_norms": norms, "grads": steps,
             "master": engine.gathered_master(),
             "dp": engine.dp,
             "shard_shapes": {n: tuple(m.shape) for n, m in

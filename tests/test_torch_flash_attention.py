@@ -127,6 +127,37 @@ def test_unported_operands_raise_and_cpu_launches_nothing():
                             "flash_bwd_qmajor": 0, "flash_block_fwd": 0}
 
 
+def test_fwd_design_rule():
+    """``_fwd_design`` on (B, H, T, d) operands as the kernel reads them
+    (CPU tensors): bf16 at d = 64 and 128 in the model's (B, T, H, d)
+    layout (GPT-2 350M's B=24, T=1024, H=16, d=64) and heads-major, at a
+    ragged T, takes the sm90 design; d = 32, an unaligned base and a (b, h,
+    t) stride TMA cannot address take mma_sync; fp32 takes fp32."""
+    bf = torch.bfloat16
+
+    def design(B, T, H, d, dtype=bf, heads_major=False, views=None):
+        if views is None:
+            shape = (B, H, T, d) if heads_major else (B, T, H, d)
+            views = [torch.empty(shape, dtype=dtype) for _ in range(3)]
+            if not heads_major:
+                views = [x.transpose(1, 2) for x in views]
+        return tfa._fwd_design(*views)
+
+    assert design(24, 1024, 16, 64) == "sm90"
+    assert design(2, 333, 4, 128) == "sm90"
+    assert design(2, 333, 4, 128, heads_major=True) == "sm90"
+    assert design(1, 40, 1, 64, heads_major=True) == "sm90"
+    assert design(2, 200, 4, 32) == "mma_sync"
+    assert design(24, 1024, 16, 64, dtype=torch.float32) == "fp32"
+    assert design(2, 64, 4, 32, dtype=torch.float32) == "fp32"
+    q = torch.empty(2 * 4 * 64 * 64 + 1, dtype=bf)[1:].view(2, 4, 64, 64)
+    k = torch.empty(2, 4, 64, 64, dtype=bf)
+    assert design(0, 0, 0, 0, views=(q, k, k)) == "mma_sync"  # base + 2 B
+    # heads 68 values apart: a (b, h, t) stride of 136 bytes
+    wide = torch.empty(2, 64, 4, 68, dtype=bf)[..., :64].transpose(1, 2)
+    assert design(0, 0, 0, 0, views=(wide, k, k)) == "mma_sync"
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("scale", [0.125, 1 / 3, 1 / math.sqrt(80)])
 def test_scale_q_rounds_the_scale_like_jax(dtype, scale):

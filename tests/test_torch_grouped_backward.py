@@ -174,6 +174,47 @@ def test_tgmm_design_rule():
     assert design(256, 1, 128, dtype=torch.float32) == "fp32"
 
 
+def test_gmm_design_rule():
+    """``_gmm_design`` on the operands a launch reads (contiguous x (M, K),
+    w (E, K, N) through its strides, built on CPU tensors): the GPT2-MoE
+    350M forward (49152 routed rows, E = 4, (K, N) = (1024, 4096) and
+    (4096, 1024), w with a unit n stride) and its dx product on w's
+    transposed view (a unit k stride) in bf16 take the sm90 design, as do
+    Mixtral-8x7B's 512-row chunk and 16-row decode; no rows, an odd K, a w
+    with neither unit stride and an unaligned base take mma_sync; fp32
+    takes fp32."""
+    bf = torch.bfloat16
+
+    def design(M, K, N, E=4, dtype=bf, x=None, w=None):
+        x = torch.empty(M, K, dtype=dtype) if x is None else x
+        w = torch.empty(E, K, N, dtype=dtype) if w is None else w
+        return gm._gmm_design(x, w)
+
+    def wt(E, K, N):           # the dx product's (E, K, N) view of (E, N, K)
+        return torch.empty(E, N, K, dtype=bf).transpose(1, 2)
+
+    for K, N in ((1024, 4096), (4096, 1024)):
+        assert design(49152, K, N) == "sm90"
+        assert design(49152, K, N, w=wt(4, K, N)) == "sm90"
+    assert design(512, 14336, 4096, E=8) == "sm90"      # Mixtral chunk
+    assert design(16, 14336, 4096, E=8) == "sm90"       # Mixtral decode
+    assert design(1, 128, 256) == "sm90"                # one row
+    assert design(0, 128, 256) == "mma_sync"            # no rows
+    assert design(300, 136, 72) == "sm90"           # ragged tiles, 16-byte rows
+    assert design(300, 100, 128) == "mma_sync"      # K = 100: 200-byte x rows
+    assert design(300, 128, 100) == "mma_sync"      # N = 100: 200-byte w rows
+    # the dx view reads w along k: N = 100 is only the output's width, but
+    # K = 100 makes 200-byte w lines
+    assert design(300, 128, 100, w=wt(4, 128, 100)) == "sm90"
+    assert design(300, 100, 128, w=wt(4, 100, 128)) == "mma_sync"
+    every_other = torch.empty(4, 256, 256, dtype=bf)[:, :, ::2]  # no unit stride
+    assert design(300, 256, 128, w=every_other) == "mma_sync"
+    x = torch.empty(300 * 128 + 1, dtype=bf)[1:].view(300, 128)  # base + 2 B
+    assert design(300, 128, 128, x=x) == "mma_sync"
+    assert design(49152, 1024, 4096, dtype=torch.float32) == "fp32"
+    assert design(16, 64, 64, dtype=torch.float32) == "fp32"
+
+
 def test_tgmm_bad_inputs_raise():
     x, dy = torch.zeros(8, 16), torch.zeros(8, 24)
     with pytest.raises(ValueError, match="want x"):
