@@ -9,10 +9,12 @@ Phases (any failure raises and the script exits nonzero):
      into build/).
  0b. SASS: cuobjdump -sass of the fused-CE, MLP, grouped-matmul and
      flash-attention libraries; every instance of the Hopper designs on
-     sm90_gemm.cuh / sm90_attention.cuh (fused_ce_sm90_kernel,
+     sm90_gemm.cuh / sm90_attention.cuh / wq_sm90.cuh (fused_ce_sm90_kernel,
      proj_mm_sm90_kernel, grouped_tgmm_sm90_kernel, grouped_gmm_sm90_kernel,
-     flash_fwd_sm90_kernel) holds HGMMA (wgmma) and UTMALDG (TMA loads) and
-     spills nothing (ptxas); their registers logged.
+     flash_fwd_sm90_kernel<D, CARRY> for K1 and K10,
+     wq_matmul_sm90_kernel<BITS, NR> for K7) is there, holds HGMMA (wgmma)
+     and UTMALDG (TMA loads) and spills nothing (ptxas); their registers
+     logged.
   2. kernels: each Hopper kernel against its plain PyTorch version on the
      card at the Llama-2-7B / Mistral-7B serving shapes (bf16 against the
      plain version run in fp32 on the same inputs, see bf16_mismatch; fp32
@@ -23,7 +25,7 @@ Phases (any failure raises and the script exits nonzero):
      split's partial) that must fail; then each kernel timed with CUDA
      events beside its plain version, its bound and one library call
      (SDPA on the gathered K/V, a yardstick only), K4 also at Mixtral's
-     GQA G = 4 shape beside its bound.
+     GQA G = 4 shape beside its bound and SDPA (kv heads repeated).
   3. parity: a small fp32 Llama served with paged_kernel=True and False on
      the card must give identical greedy streams (split-fuse on and off).
   4. slice: full-width Llama-2-7B (random weights from a seeded generator)
@@ -87,23 +89,32 @@ Phases (any failure raises and the script exits nonzero):
      the expert-bias row sums on mma_sync; one flash forward, on sm90, and
      one backward).
  14. wq kernels: K7 (wq_matmul) at the Llama-2-7B FFN shapes (8 decode
-     rows and a 256-token chunk, D=4096 -> F=11008 and back) and K9
-     (grouped_swiglu_up_wq, grouped_gmm_wq) at phase 8's Mixtral-8x7B
-     shapes and edge cases, int8 and int4, bf16 against their plain
-     versions in fp32 on the same inputs, fp32 at 1e-4, tails exactly 0;
-     controls that must fail (K7's scale shifted by one channel, int4
+     rows, a 256-token chunk and 1, 200, 300 rows; D=4096 -> F=11008 and
+     back) on the design _wq_design picks (sm90 for bf16: every call
+     counted there, held also against its split-order plain version at
+     the plan's K split, repeated bitwise) and K9 (grouped_swiglu_up_wq,
+     grouped_gmm_wq) at phase 8's Mixtral-8x7B shapes and edge cases, int8
+     and int4, bf16 against their plain versions in fp32 on the same
+     inputs, fp32 at 1e-4, tails exactly 0; controls that must fail (K7's
+     scale shifted by one channel, one k slice of its codes skipped, int4
      nibbles swapped, a K9 group on its neighbour expert's scales); each
      timed beside its bound, plain version and library yardsticks (bf16
      torch.matmul / torch._grouped_mm on the dequantized weights, and
-     torch._weight_int8pack_mm where this torch runs it).
+     torch._weight_int8pack_mm where this torch runs it), K7 also beside
+     its mma_sync design (wq_kernel) and the sm90 kernel at the plan's
+     other K split, each with its launches queued behind a device spin
+     (the eager call is about as long as its Python launch path: its
+     time and the host's launch path are logged beside).
  15. wq parity: small fp32 Llama and Mixtral, int8 and int4, served with
      weight_quant give the same greedy streams as the same model with
      its dequantized weights served unquantized (split-fuse on and off).
  16. Llama-2-7B int4 slice and 17. Mixtral-8x7B at all 32 layers in int8:
      built quantized slice by slice, phase 4's settings and traffic;
      every request returns 64 tokens, launches exactly 3 wq_matmul per
-     layer and forward (Llama) or one grouped_swiglu_up_wq and one
-     grouped_gmm_wq (Mixtral), the paged kernels as in phase 4.
+     layer and forward (Llama; each call on the design its rows give:
+     every call of at least WQ_SM90_MIN_ROWS rows on sm90) or one
+     grouped_swiglu_up_wq and one grouped_gmm_wq (Mixtral), the paged
+     kernels as in phase 4.
  18. K13 / K6 kernels: the LayerNorm forward and backward (K13) at N =
      24 * 1024, 24 * 512 and an odd row count, D = 1024, and the
      layout-owning projection (K6: forward, dx, dW) at all four (x_t,
@@ -149,14 +160,18 @@ Phases (any failure raises and the script exits nonzero):
      call, one launch of each K11 kernel a call, ms a call and peak
      memory.
  25. K10 (``flash_block_fwd``, the ring's chunk-pair step with carried
-     online-softmax state): fp32 cases at 1e-4; bf16 at (B*H, C, d) =
-     (64, 2048, 64), diagonal-causal and full, from a carried state, against
-     its plain version in fp32; a control (the carry's m perturbed) that
-     must fail; the zigzag schedule of R = 4 emulated in one process with
-     the ring's step functions on one (B=4, T=8192, H=16, d=64) problem,
+     online-softmax state): fp32 cases at 1e-4; bf16 on its sm90 design
+     (every launch counted there): three chained pairs on the late half of
+     one state at d = 64 and 128 and ragged C, repeated bitwise, and at
+     (B*H, C, d) = (64, 2048, 64), diagonal-causal and full, from a carried
+     state, against its plain version in fp32 (the finalized o by the bf16
+     check, lse at 1e-4); a control (the carry's m perturbed) that must
+     fail; the zigzag schedule of R = 4 emulated in one process with the
+     ring's step functions on one (B=4, T=8192, H=16, d=64) problem,
      against K1 on the whole sequence and the dense plain version;
      ``flash_block_bwd`` (K2 from the global o / lse) against the plain
-     backward; timed beside its bound, plain version and SDPA's forward.
+     backward; the full and causal pairs timed beside their bounds, the
+     mma_sync design, the plain version and SDPA's forward (causal too).
  26. K12 (blockwise int8 quantize / dequantize) on a buffer of GPT-2 350M's
      parameter count in fp32 and bf16: codes, scales and dequantized values
      bitwise equal to the plain versions (and the reduce-scatter's summing
@@ -165,7 +180,7 @@ Phases (any failure raises and the script exits nonzero):
      and the shortest torch expression of the same math.
  27. NCCL world of one on cuda:0: every comm op, the four quantized
      collectives (K12) equal to their plain versions bitwise, ring_attention
-     at R = 1 (one K10 a call), and initialize(sequence_parallel_size=1,
+     at R = 1 (one K10 a call, on sm90), and initialize(sequence_parallel_size=1,
      attention_backend="ring") taking K1 with no K10, as JAX.
  28. two processes sharing cuda:0 over gloo (named by the caller; NCCL
      refuses two ranks on one card): GPT-2 at the 350M widths, 2 layers,
@@ -176,10 +191,11 @@ Phases (any failure raises and the script exits nonzero):
  29. the slice: GPT-2 350M (24 layers, T=4096, micro 4, ring,
      sequence_parallel_size=2, ZeRO-2, bf16) through initialize ->
      train_batch for 10 steps in two processes on cuda:0 over gloo; the
-     loss falls and agrees on both ranks; exactly 6 K10 and 3 K2 a layer
-     and step on each rank (3 pairs forward, 3 in the remat re-run, 3
-     backward pairs); step time, tokens/s, each process's peak memory, and
-     what went through host memory.
+     loss falls and agrees on both ranks; exactly 6 K10 (every one on its
+     sm90 design, as each child reports) and 3 K2 a layer and step on each
+     rank (3 pairs forward, 3 in the remat re-run, 3 backward pairs); step
+     time, tokens/s, each process's peak memory, and what went through
+     host memory.
  30. K13 RMSNorm (``fused_rmsnorm``, the last Pallas site): fp32 at 1e-4
      (D up to 4096), bf16 and fp32 at (8, 1024, 1024) and (4, 2048, 4096)
      against its plain version, bitwise repeats, a control (one row with
@@ -202,7 +218,8 @@ Phases (any failure raises and the script exits nonzero):
 Phases 7, 13, 20, 24 and 32 also hold every bf16 K1 / K3 / K6 launch to
 the sm90 design (the wrappers' DESIGN_LAUNCHES); the serving slices count
 K4's launches by design (split / single), the Mixtral slice K8's gmm
-(all sm90).
+(all sm90), the Llama int4 slice K7's (phase 16), phases 27 and 29
+K10's (all sm90).
 Then one JSON line of per-kernel numbers (launches summed over the main
 paths that ran each kernel, and per path; the rows with more than one
 design with the designs their main-path launches went to, the sm90 rows
@@ -331,6 +348,31 @@ def time_ms(fn, iters):
     return t0.elapsed_time(t1) / iters
 
 
+def time_queued(fn, iters):
+    """(device ms, host ms) of one call with the host out of the way: the
+    device spins (torch.cuda._sleep) while the host queues ``iters`` calls
+    behind it, so CUDA events around them see the calls back to back, and
+    the host clock around the queueing sees the launch path alone. For
+    calls about as short as their Python launch path, which CUDA events
+    around eager calls time at the host's pace (time_ms), and which a CUDA
+    graph cannot capture as they are (a launcher that sets a kernel
+    attribute)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)      # ~25 ms at 2 GHz
+    t0.record()
+    h0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host = (time.perf_counter() - h0) * 1e3 / iters
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / iters, host
+
+
 def time_graph_ms(fn, iters):
     """Mean device time of one call with the host out of the way:
     ``iters`` calls captured in one CUDA graph, replayed between CUDA
@@ -434,19 +476,29 @@ def ptxas_summary(build_log):
     return out
 
 
-# the Hopper designs (sm90_gemm.cuh, sm90_attention.cuh) of each kernel of
-# the kernels line that has one: (library, kernel symbol); their SASS must
+# the Hopper designs (sm90_gemm.cuh, sm90_attention.cuh, wq_sm90.cuh) of
+# each kernel of the kernels line that has one: (library, substrings of the
+# mangled symbols, one per instance that must be there); their SASS must
 # hold wgmma (HGMMA) and TMA loads (UTMALDG)
-SM90_DESIGNS = {"fused_ce": ("fused_ce", "fused_ce_sm90_kernel"),
-                "mlp_mm": ("mlp_matmul", "proj_mm_sm90_kernel"),
-                "mlp_dw": ("mlp_matmul", "proj_mm_sm90_kernel"),
-                "grouped_tgmm": ("grouped_matmul", "grouped_tgmm_sm90_kernel"),
-                "grouped_gmm": ("grouped_matmul", "grouped_gmm_sm90_kernel"),
-                "flash_fwd": ("flash_attention", "flash_fwd_sm90_kernel")}
+SM90_DESIGNS = {
+    "fused_ce": ("fused_ce", ("fused_ce_sm90_kernel",)),
+    "mlp_mm": ("mlp_matmul", ("proj_mm_sm90_kernel",)),
+    "mlp_dw": ("mlp_matmul", ("proj_mm_sm90_kernel",)),
+    "grouped_tgmm": ("grouped_matmul", ("grouped_tgmm_sm90_kernel",)),
+    "grouped_gmm": ("grouped_matmul", ("grouped_gmm_sm90_kernel",)),
+    "flash_fwd": ("flash_attention", tuple(
+        f"flash_fwd_sm90_kernelILi{d}ELb0E" for d in (64, 128))),
+    # K10: flash_fwd_sm90_kernel<D, CARRY = true>
+    "flash_block_fwd": ("flash_attention", tuple(
+        f"flash_fwd_sm90_kernelILi{d}ELb1E" for d in (64, 128))),
+    # K7: wq_matmul_sm90_kernel<BITS, row tile>
+    "wq_matmul": ("mlp_matmul", tuple(
+        f"wq_matmul_sm90_kernelILi{b}ELi{n}E" for b in (4, 8)
+        for n in (8, 64, 128, 256)))}
 # library -> the sm90 kernel symbols it must hold
 SM90_KERNELS = {}
-for _lib, _sym in SM90_DESIGNS.values():
-    SM90_KERNELS.setdefault(_lib, set()).add(_sym)
+for _lib, _syms in SM90_DESIGNS.values():
+    SM90_KERNELS.setdefault(_lib, set()).update(_syms)
 
 
 def find_cuobjdump():
@@ -733,12 +785,22 @@ def phase_kernels(pa):
     g4 = cases.decode(8, 32, 8, 128, 64, 64, llama_len, bf)
     g4_bytes = (2 * n_pos * 8 * hd * esz + 2 * g4["q"].numel() * esz
                 + g4["tables"].numel() * 4 + g4["lengths"].numel() * 4)
+    # its library call: SDPA on the gathered K/V, each kv head repeated
+    # for its G = 4 query heads (gathered and repeated outside the timing)
+    gk, gv = (t.repeat_interleave(4, dim=1)
+              for t in dense_kv(g4["k"], g4["v"], g4["tables"]))
+    S = gk.shape[2]
+    gmask = (torch.arange(S, device="cuda")[None, :]
+             <= g4["lengths"].long()[:, None])[:, None, None, :]
+    gq = g4["q"][:, :, None, :]
     rows["paged_decode"]["gqa"] = dict(
         shape="Mixtral-8x7B widths: 8 slots, H = 32, KVH = 8, d = 128",
         ms=time_ms(lambda: pa.paged_decode_attention(
             g4["q"], g4["k"], g4["v"], g4["tables"], g4["lengths"]), 50),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            gq, gk, gv, attn_mask=gmask), 50),
         bound_ms=bound(g4_bytes, dec_flops)[0])
-    del g4
+    del g4, gk, gv, gmask
 
     c = main_chk
     C, H, hd = c["q"].shape
@@ -774,8 +836,9 @@ def phase_kernels(pa):
             f"{r['bound'][1]})")
     r = rows["paged_decode"]
     log(f"paged_decode / sdpa = {r['ms'] / r['library_ms']:.3f}; at GQA G=4 "
-        f"({r['gqa']['shape']}): {r['gqa']['ms']:.4f} ms, bound "
-        f"{r['gqa']['bound_ms']:.4f} by bytes")
+        f"({r['gqa']['shape']}): {r['gqa']['ms']:.4f} ms, sdpa "
+        f"{r['gqa']['library_ms']:.4f}, bound {r['gqa']['bound_ms']:.4f} "
+        f"by bytes")
     return rows
 
 
@@ -2274,13 +2337,18 @@ class WqCases:
 
 def wq_controls(mm, gm, dense, grouped):
     """Each check must fail on a known-wrong answer: K7 with its scale
-    vector shifted by one channel; K9 with one group's rows on its
-    neighbour expert's scales; int4 with the two nibbles of every byte
-    swapped."""
+    vector shifted by one channel, or with one 64-deep k slice of its
+    codes skipped; K9 with one group's rows on its neighbour expert's
+    scales; int4 with the two nibbles of every byte swapped."""
     out = []
     x, w, ref = dense["x"], dense["w"], dense["ref"]
+    rows = 64 if w.bits == 8 else 32       # code rows of one k slice
+    skipped = w.q.clone()
+    skipped[rows:2 * rows] = 0
     wrongs = [("wq_matmul scale shifted one channel",
-               type(w)(w.q, torch.roll(w.scale, 1, dims=-1)))]
+               type(w)(w.q, torch.roll(w.scale, 1, dims=-1))),
+              ("wq_matmul k slice 1 of the codes skipped",
+               type(w)(skipped, w.scale))]
     if w.bits == 4:
         b = w.q.to(torch.int16) & 0xFF
         swapped = ((b & 0xF) << 4 | (b >> 4)).to(torch.uint8)
@@ -2328,32 +2396,72 @@ def phase_wq_kernels(mm, gm, seed=0):
     D, Fl = 4096, 11008
     timings = {}
 
-    # ---- K7
+    # ---- K7: the design _wq_design picks (sm90 for bf16), checked against
+    # the plain version and its split-order version, repeated bitwise, and
+    # timed beside wq_kernel (mma_sync), the library calls and the sm90
+    # kernel at the plan's other K split
     dense = {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for bits in (4, 8):
         for K, N, tag in ((D, Fl, "up"), (Fl, D, "down")):
             w = cases.quantized((K, N), bits)
-            for M, shape in ((8, "decode"), (256, "chunk")):
+            for M, shape in ((8, "decode"), (256, "chunk"), (1, "1 row"),
+                             (200, "200 rows"), (300, "300 rows")):
                 x = cases.randn((1, M, K))
+                x2 = x[0]
+                mm.reset_launch_counts()
                 out = mm.wq_matmul(x, w)
+                again = mm.wq_matmul(x, w)
+                design = mm._wq_design(x2, w)
+                rt, S = mm.wq_plan(M, K, N, sms)
                 ref = mm.wq_matmul_reference(x.float(), w)
                 torch.cuda.synchronize()
-                cases.hold("wq_matmul", out, ref, f"int{bits} {shape} {tag}")
-                x2 = x[0]
+                assert mm.DESIGN_LAUNCHES["wq_matmul"][design] == 2, \
+                    (M, K, N, design, mm.DESIGN_LAUNCHES)
+                assert torch.equal(out, again), \
+                    f"wq_matmul int{bits} {shape} {tag}: repeat differs"
+                what = f"int{bits} {shape} {tag} ({design}, row tile {rt}, " \
+                       f"{S} splits)"
+                cases.hold("wq_matmul", out, ref, what)
+                if design == "sm90":
+                    cases.hold("wq_matmul", out[0],
+                               mm.wq_matmul_split_reference(x2.float(), w, S),
+                               what + " vs its split-order plain version")
+                if shape not in ("decode", "chunk"):
+                    continue
                 wdq = w.dequant(bf)
                 lib = (lambda x2=x2, wdq=wdq: torch.matmul(x2, wdq))
                 lib_name = "bf16 torch.matmul on the dequantized weight"
                 packed = int8pack_library(x2, w)
+                # device times with the launches queued (a call is about
+                # as short as its Python launch path, so CUDA events
+                # around eager wq_matmul calls time the host: eager_ms),
+                # each design, the sm90 kernel at the other K split and
+                # the library call; each design's host launch path (the
+                # same entry, _wq_cuda, for both) beside them
+                ms, host_ms = time_queued(lambda: mm._wq_cuda(x2, w), 30)
+                mma_ms, mma_host_ms = time_queued(
+                    lambda: mm._wq_cuda(x2, w, "mma_sync"), 30)
                 t = dict(
-                    ms=time_ms(lambda: mm.wq_matmul(x, w), 30),
+                    ms=ms, host_ms=host_ms, mma_sync_ms=mma_ms,
+                    mma_sync_host_ms=mma_host_ms,
+                    eager_ms=time_ms(lambda: mm.wq_matmul(x, w), 30),
                     plain_ms=time_ms(lambda: mm.wq_matmul_reference(x, w),
                                      3),
-                    bf16_matmul_ms=time_ms(lib, 30),
-                    bound=wq_bound(M, K, N, bits))
+                    bf16_matmul_ms=time_queued(lib, 30)[0],
+                    bound=wq_bound(M, K, N, bits), design=design,
+                    row_tile=rt, splits=S)
+                if design == "sm90":
+                    # the plan's other choice: unsplit where it splits K,
+                    # else three splits (a second wave at 86 tiles)
+                    t["alt_splits"] = 1 if S > 1 else 3
+                    t["alt_splits_ms"] = time_queued(
+                        lambda: mm._launch_wq_sm90(x2, w, t["alt_splits"]),
+                        30)[0]
                 t["library_ms"] = t["bf16_matmul_ms"]
                 t["library"] = lib_name
                 if packed is not None:
-                    t["int8pack_ms"] = time_ms(packed[0], 30)
+                    t["int8pack_ms"] = time_queued(packed[0], 30)[0]
                 timings[("wq_matmul", bits, shape, tag)] = t
                 if bits == 4 and shape == "decode" and tag == "up":
                     dense = dict(x=x, w=w, ref=ref)
@@ -2449,13 +2557,32 @@ def phase_wq_kernels(mm, gm, seed=0):
             f"(plain {t['plain_ms']:.4f}, library {t['library_ms']:.4f}, "
             f"bound {t['bound'][0]:.4f} by {t['bound'][1]})"
             + (f", torch._weight_int8pack_mm {t['int8pack_ms']:.4f}"
-               if "int8pack_ms" in t else ""))
+               if "int8pack_ms" in t else "")
+            + (f"; launches queued; design {t['design']} (row tile "
+               f"{t['row_tile']}, {t['splits']} splits), wq_kernel "
+               f"(mma_sync) {t['mma_sync_ms']:.4f}; eager calls "
+               f"{t['eager_ms']:.4f}; host launch path {t['host_ms']:.4f} "
+               f"(mma_sync {t['mma_sync_host_ms']:.4f})"
+               if "design" in t else "")
+            + (f", sm90 at {t['alt_splits']} splits "
+               f"{t['alt_splits_ms']:.4f}" if "alt_splits" in t else ""))
+    for bits in (4, 8):
+        for shape in ("decode", "chunk"):
+            for tag in ("up", "down"):
+                t = timings[("wq_matmul", bits, shape, tag)]
+                faster = "sm90" if t["ms"] < t["mma_sync_ms"] else \
+                    "mma_sync"
+                log(f"  K7 {shape} int{bits} {tag}: the faster design on "
+                    f"the card is {faster}, the rule picks {t['design']}; "
+                    f"{t['ms'] / t['library_ms']:.2f}x the library call, "
+                    f"{t['ms'] / t['mma_sync_ms']:.2f}x wq_kernel")
     main = {"wq_matmul": (4, "decode", "up"),
             "grouped_swiglu_up_wq": (8, "decode", ""),
             "grouped_gmm_wq": (8, "decode", "")}
     rows = {}
     for name, (bits, shape, tag) in main.items():
         r = dict(timings[(name, bits, shape, tag)])
+        r.pop("design", None)           # the row's design: the main path's
         r["max_abs_err"] = cases.err[name]
         r["shape"] = f"int{bits} {shape} {tag}".strip()
         r["other"] = {f"int{b} {s} {tg}".strip(): {
@@ -2576,6 +2703,14 @@ def phase_wq_slice(kind, seed=0, profile=None):
             first_decode.append(sizes)
         return order, sizes
 
+    k7_calls = []                # (rows, design) of every K7 call
+    wq_design = mm._wq_design
+
+    def recording_design(x2, w):
+        design = wq_design(x2, w)
+        k7_calls.append((x2.shape[0], design))
+        return design
+
     rs = np.random.RandomState(seed)
     lens = rs.randint(64, 2049, 8)
     new = 64
@@ -2585,6 +2720,7 @@ def phase_wq_slice(kind, seed=0, profile=None):
     for k in eng.forward_counts:
         eng.forward_counts[k] = 0
     mx.sort_by_expert = recording_sort
+    mm._wq_design = recording_design
     try:
         t_start = time.perf_counter()
         uids = []
@@ -2604,7 +2740,10 @@ def phase_wq_slice(kind, seed=0, profile=None):
             e2e = time.perf_counter() - t_start
     finally:
         mx.sort_by_expert = sort
+        mm._wq_design = wq_design
     launches = {**pa.LAUNCHES, **gm.LAUNCHES, **mm.LAUNCHES}
+    k7_by_design = {k: v for k, v in mm.DESIGN_LAUNCHES["wq_matmul"].items()
+                    if v}
     outs = [eng.get(u) for u in uids]
     for u, o in zip(uids, outs):
         assert len(o) == new, (u, len(o))
@@ -2620,6 +2759,19 @@ def phase_wq_slice(kind, seed=0, profile=None):
         want["grouped_swiglu_up_wq"] = want["grouped_gmm_wq"] = L * forwards
     assert launches == want, (launches, want)
     count_decode_designs(pa, launches)
+    # K7 by design: every bf16 call of at least WQ_SM90_MIN_ROWS rows (each
+    # chunk's products among them) on sm90, the rest on mma_sync
+    k7_rows = {}
+    if kind == "llama":
+        assert len(k7_calls) == launches["wq_matmul"], len(k7_calls)
+        for rows, design in k7_calls:
+            assert design == ("sm90" if rows >= mm.WQ_SM90_MIN_ROWS
+                              else "mma_sync"), (rows, design)
+            k7_rows.setdefault(design, set()).add(rows)
+        assert sum(k7_by_design.values()) == launches["wq_matmul"] and \
+            k7_by_design.get("sm90", 0) == sum(
+                1 for _, d in k7_calls if d == "sm90"), k7_by_design
+        count_designs("wq_matmul", k7_by_design)
 
     hist = [s.tolist() for s in first_decode]
     ttft = sorted(first[u] - t_start for u in uids)
@@ -2635,6 +2787,12 @@ def phase_wq_slice(kind, seed=0, profile=None):
         launches={k: v for k, v in launches.items() if v},
         code_gb=codes / 1e9,
         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if k7_rows:
+        stats["wq_matmul_launches_by_design"] = k7_by_design
+        stats["wq_matmul_rows_by_design"] = {
+            k: [min(v), max(v)] for k, v in k7_rows.items()}
+        stats["wq_matmul_chunk_launches"] = sum(
+            1 for rows, _ in k7_calls if rows > 8)
     if kind == "mixtral":
         stats["first_decode_expert_load"] = hist
         assert len(hist) == L and all(sum(h) == 16 for h in hist), hist
@@ -3549,6 +3707,19 @@ def dense_plain_in_chunks(fa, q, k, v, heads=8):
     return out
 
 
+def block_fwd_as(fa, design):
+    """flash_block_fwd through ``design`` whatever _block_design says (the
+    other design timed beside the picked one)."""
+    def run(q, k, v, st, causal=False):
+        orig = fa._block_design
+        fa._block_design = lambda *_: design
+        try:
+            return fa.flash_block_fwd(q, k, v, st, causal=causal)
+        finally:
+            fa._block_design = orig
+    return run
+
+
 def phase_ring_kernel(fa, seed=0):
     """K10 (``flash_block_fwd``): chained fp32 cases at FP32_TOL; bf16 at
     the slice's step-0 shape (B*H, C, d) = (64, 2048, 64) in both modes from
@@ -3585,6 +3756,41 @@ def phase_ring_kernel(fa, seed=0):
     log("K10: fp32 cases ok (chained causal + full pairs, ragged C, "
         "d = 32 / 64 / 128)")
 
+    # ---- bf16 on the sm90 design: chained pairs on views of one state
+    # (the zigzag's late half), ragged C, d = 64 / 128, repeated bitwise
+    for (BH, C, d) in ((8, 1000, 64), (4, 777, 128), (16, 2048, 128)):
+        q = fa.scale_q(randn((BH, C, d)), d ** -0.5)
+        kv = [(randn((BH, C, d)), randn((BH, C, d)), causal)
+              for causal in (True, False, False)]
+        fa.reset_launch_counts()
+        runs = []
+        for _ in range(2):
+            big = fa.flash_block_state(BH, 2 * C, d, device="cuda")
+            st = tuple(x[:, C:] for x in big)
+            for k, v, causal in kv:
+                fa.flash_block_fwd(q, k, v, st, causal=causal)
+            runs.append(big)
+        torch.cuda.synchronize()
+        assert fa.DESIGN_LAUNCHES["flash_block_fwd"]["sm90"] == 6, \
+            fa.DESIGN_LAUNCHES
+        assert all(torch.equal(a, b) for a, b in zip(*runs)), \
+            f"K10 sm90 ({BH}, {C}, {d}): a repeat differs"
+        assert torch.equal(runs[0][1][:, :C], torch.zeros_like(
+            runs[0][1][:, :C])), "K10 wrote outside its state view"
+        ref = fa.flash_block_state(BH, C, d, device="cuda")
+        for k, v, causal in kv:
+            ref = fa.flash_block_fwd_reference(q.float(), k.float(),
+                                               v.float(), ref, causal=causal)
+        o, lse = fa.flash_block_finalize(tuple(x[:, C:] for x in runs[0]))
+        ro, rlse = fa.flash_block_finalize(ref)
+        why = bf16_mismatch(o.to(bf), ro)
+        assert why is None, f"K10 sm90 ({BH}, {C}, {d}) chained: {why}"
+        torch.testing.assert_close(lse, rlse, rtol=0, atol=1e-4)
+    log("K10 sm90: three chained pairs (causal, full, full) on the late "
+        "half of one state at (B*H, C, d) = (8, 1000, 64), (4, 777, 128), "
+        "(16, 2048, 128): within the bf16 limits, lse at 1e-4, repeated "
+        "bitwise, the early half untouched")
+
     # ---- bf16 at the step-0 shape, both modes, from a carried state
     BH, C, d = 64, 2048, 64
     q = fa.scale_q(randn((BH, C, d)), d ** -0.5)
@@ -3593,8 +3799,12 @@ def phase_ring_kernel(fa, seed=0):
         q.float(), k0.float(), v0.float(),
         fa.flash_block_state(BH, C, d, device="cuda"), causal=False)
     err = 0.0
+    fa.reset_launch_counts()
     for causal in (True, False):
         st = fa.flash_block_fwd(q, k, v, state(carry), causal=causal)
+        st2 = fa.flash_block_fwd(q, k, v, state(carry), causal=causal)
+        assert all(torch.equal(a, b) for a, b in zip(st, st2)), \
+            f"flash_block_fwd causal={causal}: a repeat differs"
         ref = fa.flash_block_fwd_reference(q.float(), k.float(), v.float(),
                                            carry, causal=causal)
         o, lse = fa.flash_block_finalize(st)
@@ -3611,8 +3821,11 @@ def phase_ring_kernel(fa, seed=0):
     assert why is not None, "K10 check let a perturbed carry m pass"
     log(f"control: K10 with the carry's m of query tile 0 raised by 2 "
         f"fails ({why})")
+    designs = dict(fa.DESIGN_LAUNCHES["flash_block_fwd"])
+    assert designs["sm90"] == 4, designs
     log(f"K10 bf16 at (B*H, C, d) = ({BH}, {C}, {d}), causal and full from "
-        f"a carried state: max |err| of the finalized o {err:.3g}")
+        f"a carried state on {designs}: max |err| of the finalized o "
+        f"{err:.3g}, repeated bitwise")
 
     # ---- the zigzag schedule of R = 4 on one (4, 8192, 16, 64) problem
     B, T, H, R = 4, 8192, 16, 4
@@ -3640,6 +3853,8 @@ def phase_ring_kernel(fa, seed=0):
         o_ring[:, (2 * R - 1 - r) * Cz:(2 * R - r) * Cz] = o_r[:, Cz:]
     pairs = fa.LAUNCHES["flash_block_fwd"] - before
     assert pairs == R * (1 + 2 * (R - 1)), pairs
+    assert fa.DESIGN_LAUNCHES["flash_block_fwd"]["sm90"] == \
+        fa.LAUNCHES["flash_block_fwd"], fa.DESIGN_LAUNCHES
     k1, _ = fa.flash_forward(qg[None], kg[None], vg[None])
     dense = dense_plain_in_chunks(fa, qg, kg, vg)
     for name, out in (("zigzag ring", o_ring.to(bf)), ("K1", k1[0])):
@@ -3673,24 +3888,34 @@ def phase_ring_kernel(fa, seed=0):
     log(f"flash_block_bwd (K2 from the global o / lse) ok, causal and full: "
         f"worst slab relative error norm {gerr:.3g}")
 
-    # ---- timing: the full pair at the step-0 shape; SDPA's forward on it
+    # ---- timing: the full and the causal pair at the step-0 shape, each
+    # beside the mma_sync design and SDPA's forward on the same pair
     st = state(carry)
     nbytes, flops = ring_block_bound(BH, C, d, causal=False)
+    mma_sync = block_fwd_as(fa, "mma_sync")
     row = dict(
         ms=time_ms(lambda: fa.flash_block_fwd(q, k, v, st), 20),
+        mma_sync_ms=time_ms(lambda: mma_sync(q, k, v, st), 20),
         causal_ms=time_ms(lambda: fa.flash_block_fwd(q, k, v, st,
                                                      causal=True), 20),
+        causal_mma_sync_ms=time_ms(lambda: mma_sync(q, k, v, st, True), 20),
         plain_ms=time_ms(lambda: fa.flash_block_fwd_reference(q, k, v, st),
                          3),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             q[None], k[None], v[None], scale=1.0), 20),
-        bound=bound(nbytes, flops), max_abs_err=err,
-        shape=[BH, C, d])
+        causal_library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            q[None], k[None], v[None], scale=1.0, is_causal=True), 20),
+        bound=bound(nbytes, flops),
+        causal_bound_ms=bound(*ring_block_bound(BH, C, d, causal=True))[0],
+        max_abs_err=err, shape=[BH, C, d])
     log(f"flash_block_fwd full pair (B*H, C, d) = ({BH}, {C}, {d}) bf16: "
-        f"{row['ms']:.4f} ms (causal pair {row['causal_ms']:.4f}, plain "
-        f"{row['plain_ms']:.4f}, SDPA forward {row['library_ms']:.4f}, bound "
-        f"{row['bound'][0]:.4f} by {row['bound'][1]}: {nbytes} bytes / "
-        f"{flops} flops)")
+        f"{row['ms']:.4f} ms on sm90 (mma_sync {row['mma_sync_ms']:.4f}; "
+        f"plain {row['plain_ms']:.4f}, SDPA forward {row['library_ms']:.4f}, "
+        f"bound {row['bound'][0]:.4f} by {row['bound'][1]}: {nbytes} bytes "
+        f"/ {flops} flops); causal pair {row['causal_ms']:.4f} (mma_sync "
+        f"{row['causal_mma_sync_ms']:.4f}, SDPA causal forward "
+        f"{row['causal_library_ms']:.4f}, bound "
+        f"{row['causal_bound_ms']:.4f})")
     del q, k, v, k0, v0, do, carry, st
     torch.cuda.empty_cache()
     return row
@@ -3867,6 +4092,9 @@ def phase_nccl_world(fa, qz, seed=0):
     assert ring_launches == {"flash_fwd": 0, "flash_bwd": 1,
                              "flash_bwd_qmajor": 0, "flash_block_fwd": 1}, \
         ring_launches
+    assert fa.DESIGN_LAUNCHES["flash_block_fwd"] == {
+        "sm90": 1, "mma_sync": 0, "fp32": 0}, fa.DESIGN_LAUNCHES
+    count_designs("flash_block_fwd", fa.DESIGN_LAUNCHES["flash_block_fwd"])
 
     def heads(t):
         return fa.scale_q(t.detach().transpose(1, 2), 0.125).float()
@@ -3876,7 +4104,7 @@ def phase_nccl_world(fa, qz, seed=0):
     why = bf16_mismatch(o.detach().transpose(1, 2), ref)
     assert why is None, f"ring_attention at R=1: {why}"
     log("ring_attention at R=1 (B=4, T=2048, H=16, d=64, bf16): one K10 "
-        "launch (causal) and one K2, equal to the plain forward")
+        "launch (causal, sm90) and one K2, equal to the plain forward")
     del q, k, v, do, o, ref
 
     cfg = dataclasses.replace(
@@ -4071,6 +4299,7 @@ def child_train():
     return {"rank": rank, "losses": losses, "step_s": times,
             "build_s": build_s, "params": cfg.num_params(),
             "launches": {**fa.LAUNCHES, **fce.LAUNCHES, **qz.LAUNCHES},
+            "block_designs": dict(fa.DESIGN_LAUNCHES["flash_block_fwd"]),
             "max_memory_allocated_gb":
                 torch.cuda.max_memory_allocated() / 1e9,
             "staged": {k: list(v) for k, v in
@@ -4115,6 +4344,11 @@ def phase_seq_slice():
             "dequantize_blockwise": 0}
     for r in reps:
         assert r["launches"] == want, (r["rank"], r["launches"], want)
+        # every K10 pair on the sm90 design
+        assert r["block_designs"] == {"sm90": want["flash_block_fwd"],
+                                      "mma_sync": 0, "fp32": 0}, \
+            (r["rank"], r["block_designs"])
+        count_designs("flash_block_fwd", r["block_designs"])
         assert all(math.isfinite(x) for x in r["losses"]), r["losses"]
         assert r["losses"][-1] < r["losses"][0], r["losses"]
     assert reps[0]["losses"] == reps[1]["losses"], \
@@ -4129,6 +4363,7 @@ def phase_seq_slice():
         engine_build_s=[r["build_s"] for r in reps],
         max_memory_allocated_gb=[r["max_memory_allocated_gb"] for r in reps],
         launches_per_step_per_rank={k: v // steps for k, v in want.items()},
+        k10_launches_by_design_per_rank=reps[0]["block_designs"],
         params=reps[0]["params"])
     log("gpt2-350M seq-parallel slice " + json.dumps(stats))
     log(f"the ring's collectives went through host memory over gloo "
@@ -4641,7 +4876,11 @@ def main(argv=None):
                       "training_forward", "library",
                       "dscale_dbias_rel_norm", "rel_norm", "kmajor_ms",
                       "causal_ms", "expression_ms", "eager_ms", "gqa",
-                      "splits", "mma_sync_ms"):
+                      "splits", "mma_sync_ms", "causal_mma_sync_ms",
+                      "causal_library_ms", "causal_bound_ms", "row_tile",
+                      "alt_splits", "alt_splits_ms", "int8pack_ms",
+                      "bf16_matmul_ms",
+                      "host_ms", "mma_sync_host_ms"):
             if extra in r:
                 row[extra] = r[extra]
         if name in PATH_DESIGNS:
@@ -4651,7 +4890,8 @@ def main(argv=None):
                 k: v for k, v in PATH_DESIGNS[name].items() if v}
         if name in SM90_DESIGNS:
             want = SM90_DESIGNS[name][1]
-            row["sass"] = {k: v for k, v in sass.items() if want in k}
+            row["sass"] = {k: v for k, v in sass.items()
+                           if any(w in k for w in want)}
         kernels.append(row)
     # again at the end, where a caller that keeps only the output's tail
     # finds it beside the numbers

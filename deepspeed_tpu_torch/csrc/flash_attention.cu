@@ -66,18 +66,32 @@
 //   tiles (start-up, the q load, the epilogue), which the persistent walk
 //   overlaps with the previous item.
 //
-// flash_block_fwd_kernel (flash_fwd_kernel with CARRY = true) replaces
-//   _fwd_block_kernel (via flash_block_fwd, flash_attention.py:1033-1087,
-//   :1106-1161): one chunk pair of a ring-attention schedule. The same CTA
-//   shape and tile loop as the forward, but the online-softmax state is the
-//   caller's: each CTA reads its 64 rows' running max m, running sum l
-//   ((B*H, T) fp32) and unnormalized accumulator acc ((B*H, T, D) fp32),
-//   walks the kv tiles, and writes m, l and acc back in place (each CTA
-//   owns its rows, so nothing races); no o or lse. causal = 1 is the
-//   diagonal pair (equal lengths, shared offset: only the diagonal tiles
-//   mask); causal = 0 masks nothing but the keys past T. The wrapper folds
-//   (B*H) into B with H = 1. Bound: as the forward, plus 2*(4*D + 8) bytes
-//   a row of fp32 state read and written.
+// K10 replaces _fwd_block_kernel (via flash_block_fwd,
+//   flash_attention.py:1033-1087, :1106-1161): one chunk pair of a
+//   ring-attention schedule, the online-softmax state the caller's: each
+//   query row's running max m, running sum l ((B*H, T) fp32) and
+//   unnormalized accumulator acc ((B*H, T, D) fp32) are read at the start
+//   and written back in place at the end (no o, no lse, no division by l).
+//   causal = 1 is the diagonal pair (equal lengths, shared offset: only the
+//   diagonal tiles mask); causal = 0 masks nothing but the keys past T. The
+//   wrapper folds (B*H) into B with H = 1 and picks one of three designs
+//   (_block_design), passed to flash_block_fwd_launch:
+//   sm90 (bf16, D = 64 or 128, operands TMA can address):
+//     flash_fwd_sm90_kernel<D, true>, the Hopper forward below with its
+//     item walk, TMA ring and consumer loop unchanged; at an item's start
+//     each consumer thread loads its rows' carried m (in place of NEG_INF),
+//     l (into one of the row's four partial sums) and its own accumulator
+//     elements in the wgmma fragment layout (in place of 0), rescales them
+//     by the first tile's alpha, and at the end writes m, l and those
+//     elements back. Every element is read and written by one thread, so
+//     state tensors that are views of one buffer are safe. A carried m of
+//     NEG_INF gives alpha = ex2(-1.4e30) = 0; both at NEG_INF give alpha =
+//     1 and p = 0 (the masked-row rule of the forward), never inf or NaN.
+//   mma_sync (bf16 at D = 32, or operands TMA cannot address) and fp32:
+//     flash_fwd_kernel<T, D, true>, the forward's CTA shape and tile loop
+//     with the state read into and written from its registers.
+//   Bound: as the forward, plus 2*(4*D + 8) bytes a row of fp32 state read
+//   and written; operations at the ring's (64, 2048, 64) pairs.
 //
 // flash_bwd (three launches, one contract) replaces _bwd_kernel_t (via
 //   _bwd_t) and its twin _bwd_kernel (via _bwd). The TPU kernel walks key
@@ -350,13 +364,22 @@ __device__ __forceinline__ void sm90_item(int w, int nq, int T, int causal, int 
   j_hi = (k_hi + SM90_TILE - 1) / SM90_TILE;
 }
 
-template <int D>
+// K10's carried online-softmax state: m and l (B*H, T) fp32 at row stride
+// ``sml``, acc (B*H, T, D) fp32 at strides (b, t) (d contiguous).
+struct Carry {
+  float* m;
+  float* l;
+  float* acc;
+  long long sml, sacc_b, sacc_t;
+};
+
+template <int D, bool CARRY>
 __global__ void __launch_bounds__(384, 1)
     flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap mq,
                           const __grid_constant__ CUtensorMap mk,
                           const __grid_constant__ CUtensorMap mv,
                           const __grid_constant__ CUtensorMap mo, float* lse, int* next_item,
-                          int items, int H, int T, int causal, int window) {
+                          int items, int H, int T, int causal, int window, Carry carry) {
   constexpr int HALVES = D / 64;
   constexpr int STAGES = sm90_stages<D>();
   constexpr bool PINGPONG = D == 64;
@@ -537,10 +560,32 @@ __global__ void __launch_bounds__(384, 1)
       r0 = q0 + 64 * cw + sm90::frag_row(tid, 0);
       r1 = r0 + 8;
       m0 = m1 = NEG_INF;
+      l0 = l1 = 0.f;
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+      if constexpr (CARRY) {
+        // the caller's state of rows r0 and r1: m, l (held by one of the
+        // row's four threads: l0 / l1 are partial sums), and this thread's
+        // own accumulator elements
+        const float* cm = carry.m + (long long)bh * carry.sml;
+        const float* cl = carry.l + (long long)bh * carry.sml;
+        const float* ca = carry.acc + (long long)bh * carry.sacc_b;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int row = i ? r1 : r0;
+          if (row >= T) continue;
+          (i ? m1 : m0) = cm[row];
+          if ((tid & 3) == 0) (i ? l1 : l0) = cl[row];
+#pragma unroll
+          for (int n = 0; n < D / 8; ++n) {
+            const float* ap = ca + (long long)row * carry.sacc_t + sm90::frag_col(tid, n, 0);
+            o[4 * n + 2 * i] = ap[0];
+            o[4 * n + 2 * i + 1] = ap[1];
+          }
+        }
+      }
       float alpha0, alpha1, sum0, sum1;
-      // the first tile: S, then its softmax (O is still zero)
+      // the first tile: S, then its softmax (O is zero, or the carry)
       sm90::mbar_wait(&full[stage], phase);
       my_turn();
       sm90::wgmma_fence();
@@ -550,8 +595,20 @@ __global__ void __launch_bounds__(384, 1)
       sm90::fence_regs(s);
       if (j_lo + 1 == j_hi && lane == 0) sm90::mbar_arrive(qempty);  // q read for the last time
       softmax(j_lo * SM90_TILE, pa, alpha0, alpha1, sum0, sum1);
-      l0 = sum0;
-      l1 = sum1;
+      if constexpr (CARRY) {  // the carried state rescaled to the new max
+        l0 = l0 * alpha0 + sum0;
+        l1 = l1 * alpha1 + sum1;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          o[4 * n] *= alpha0;
+          o[4 * n + 1] *= alpha0;
+          o[4 * n + 2] *= alpha1;
+          o[4 * n + 3] *= alpha1;
+        }
+      } else {
+        l0 = sum0;
+        l1 = sum1;
+      }
       // each further tile: its S and the previous tile's PV in flight
       // together; the softmax of S runs while PV does
       for (int j = j_lo + 1; j < j_hi; ++j) {
@@ -611,6 +668,27 @@ __global__ void __launch_bounds__(384, 1)
       l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
       l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
       l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+      if constexpr (CARRY) {  // the state goes back unnormalized, in place
+        float* cm = carry.m + (long long)bh * carry.sml;
+        float* cl = carry.l + (long long)bh * carry.sml;
+        float* ca = carry.acc + (long long)bh * carry.sacc_b;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int row = i ? r1 : r0;
+          if (row >= T) continue;
+          if ((tid & 3) == 0) {
+            cm[row] = i ? m1 : m0;
+            cl[row] = i ? l1 : l0;
+          }
+#pragma unroll
+          for (int n = 0; n < D / 8; ++n) {
+            float* ap = ca + (long long)row * carry.sacc_t + sm90::frag_col(tid, n, 0);
+            ap[0] = o[4 * n + 2 * i];
+            ap[1] = o[4 * n + 2 * i + 1];
+          }
+        }
+        continue;
+      }
       const float inv0 = 1.f / l0, inv1 = 1.f / l1;
       if (tid == 0) sm90::tma_store_wait_read();
       sm90::named_sync(1 + cw);
@@ -641,7 +719,7 @@ __global__ void __launch_bounds__(384, 1)
       }
     }
     if (cw == 0) my_turn();  // consumer 1's last turn handed back
-    if (tid == 0) sm90::tma_store_wait_all();
+    if (!CARRY && tid == 0) sm90::tma_store_wait_all();
   }
 }
 
@@ -1030,8 +1108,9 @@ cudaError_t fwd(const FlashArgs& a, cudaStream_t s) {
 }
 
 // q, k, v and o through their strides; lse (B, H, T) contiguous;
-// next_item an int32 in device memory, 0 at the launch.
-template <int D>
+// next_item an int32 in device memory, 0 at the launch. CARRY (K10): o and
+// lse are not touched; a.m, a.l and a.acc carry the state in and out.
+template <int D, bool CARRY>
 cudaError_t fwd_sm90(const FlashArgs& a, int* next_item, cudaStream_t s) {
   CUtensorMap mq, mk, mv, mo;
   cudaError_t err = sm90::make_bhtd_map(&mq, a.q, a.B, a.H, a.T, D, a.sq.b, a.sq.h, a.sq.t,
@@ -1040,19 +1119,39 @@ cudaError_t fwd_sm90(const FlashArgs& a, int* next_item, cudaStream_t s) {
     err = sm90::make_bhtd_map(&mk, a.k, a.B, a.H, a.T, D, a.sk.b, a.sk.h, a.sk.t, SM90_TILE);
   if (err == cudaSuccess)
     err = sm90::make_bhtd_map(&mv, a.v, a.B, a.H, a.T, D, a.sv.b, a.sv.h, a.sv.t, SM90_TILE);
-  if (err == cudaSuccess)  // each consumer stores its own 64 rows
+  if (CARRY)
+    mo = mq;  // no o: the kernel never stores through it
+  else if (err == cudaSuccess)  // each consumer stores its own 64 rows
     err = sm90::make_bhtd_map(&mo, a.o, a.B, a.H, a.T, D, a.so.b, a.so.h, a.so.t, 64);
   if (err != cudaSuccess) return err;
-  auto kernel = flash_fwd_sm90_kernel<D>;
+  auto kernel = flash_fwd_sm90_kernel<D, CARRY>;
   constexpr int smem = sm90_fwd_smem<D>();
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const long long items = (long long)a.B * a.H * ((a.T + SM90_TILE - 1) / SM90_TILE);
   if (items > 0x7fffffffLL - 65536) return cudaErrorInvalidValue;
   const int grid = sm90::persistent_grid((int)items);
+  const Carry carry{a.m, a.l, a.acc, a.sml, a.sacc.b, a.sacc.t};
   kernel<<<grid, 384, smem, s>>>(mq, mk, mv, mo, a.lse, next_item, (int)items, a.H, a.T,
-                                 a.causal, a.window);
+                                 a.causal, a.window, carry);
   return cudaGetLastError();
+}
+
+// The Hopper design's operand rules: D = 64 or 128; the 16-byte aligned
+// bases and (b, h, t) strides of ``n`` operands (q, k, v[, o]) that TMA can
+// address (t strides and (b, h) strides of extent > 1 multiples of 8
+// elements).
+bool sm90_args_ok(const FlashArgs* a, int n) {
+  if (a->D != 64 && a->D != 128) return false;
+  const void* ptrs[4] = {a->q, a->k, a->v, a->o};
+  const Strides* strides[4] = {&a->sq, &a->sk, &a->sv, &a->so};
+  for (int i = 0; i < n; ++i) {
+    const Strides& st = *strides[i];
+    if ((uintptr_t)ptrs[i] % 16 != 0 || (a->B > 1 && st.b % 8 != 0) ||
+        (a->H > 1 && st.h % 8 != 0) || st.t % 8 != 0)
+      return false;
+  }
+  return true;
 }
 
 template <typename T, int D>
@@ -1132,29 +1231,29 @@ extern "C" int flash_fwd_launch(const FlashArgs* a, int dtype, void* stream) {
 // 0 (the persistent CTAs' work counter). Returns a cudaError_t (0 =
 // launched).
 extern "C" int flash_fwd_sm90_launch(const FlashArgs* a, int* next_item, void* stream) {
-  if (bad_args(a) || (a->D != 64 && a->D != 128) || next_item == nullptr)
-    return cudaErrorInvalidValue;
-  const void* ptrs[4] = {a->q, a->k, a->v, a->o};
-  const Strides* strides[4] = {&a->sq, &a->sk, &a->sv, &a->so};
-  for (int i = 0; i < 4; ++i) {
-    const Strides& st = *strides[i];
-    if ((uintptr_t)ptrs[i] % 16 != 0 || (a->B > 1 && st.b % 8 != 0) ||
-        (a->H > 1 && st.h % 8 != 0) || st.t % 8 != 0)
-      return cudaErrorInvalidValue;
-  }
+  if (bad_args(a) || next_item == nullptr || !sm90_args_ok(a, 4)) return cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  return a->D == 64 ? fwd_sm90<64>(*a, next_item, s) : fwd_sm90<128>(*a, next_item, s);
+  return a->D == 64 ? fwd_sm90<64, false>(*a, next_item, s) : fwd_sm90<128, false>(*a, next_item, s);
 }
 
 // One ring chunk pair: a->m, a->l and a->acc carry the online-softmax state
-// in and out (updated in place); o and lse are not touched.
-extern "C" int flash_block_fwd_launch(const FlashArgs* a, int dtype, void* stream) {
+// in and out (updated in place); o and lse are not touched. ``design`` is
+// the wrapper's _block_design: 0 = fp32 (flash_fwd_kernel<float, D, true>),
+// 1 = mma_sync (flash_fwd_kernel<bf16, D, true>), 2 = sm90
+// (flash_fwd_sm90_kernel<D, true>, bf16 q, k, v that TMA can address, D =
+// 64 or 128; ``next_item`` one int32 of device memory set to 0).
+extern "C" int flash_block_fwd_launch(const FlashArgs* a, int design, int* next_item,
+                                      void* stream) {
   if (bad_args(a) || a->window != 0 || a->m == nullptr || a->l == nullptr ||
       a->acc == nullptr)
     return cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 1) return fwd_by_d<bf16, true>(*a, s);
-  if (dtype == 0) return fwd_by_d<float, true>(*a, s);
+  if (design == 2) {
+    if (next_item == nullptr || !sm90_args_ok(a, 3)) return cudaErrorInvalidValue;
+    return a->D == 64 ? fwd_sm90<64, true>(*a, next_item, s) : fwd_sm90<128, true>(*a, next_item, s);
+  }
+  if (design == 1) return fwd_by_d<bf16, true>(*a, s);
+  if (design == 0) return fwd_by_d<float, true>(*a, s);
   return cudaErrorInvalidValue;
 }
 

@@ -6,14 +6,19 @@
 // int8 (K, N) or int4 packed two per byte along k (K/2, N) and the (1, N)
 // fp32 scale multiplies the fp32 accumulator in the epilogue. One GEMM
 // over all B*T rows at every shape, decode's 8 rows included (the JAX
-// wrapper falls back to its jnp _ref_proj_wq there, the same math). The
-// kernel is wq_gemm.cuh's wq_kernel in its dense mode (one weight, E = 1);
-// design and bound are noted there. The TPU kernel's x_t / out_t operand
-// orientations are layouts, not contracts: the wrapper serves them through
-// transposed views.
+// wrapper falls back to its jnp _ref_proj_wq there, the same math). Two
+// designs (the wrapper's _wq_design picks one per call):
+//   sm90 (bf16 x and codes that TMA can address): wq_matmul_sm90_kernel
+//     (+ wq_merge_kernel when K is split), wq_sm90.cuh: the widened codes
+//     are wgmma's register operand, x TMA-loaded; design and bound there;
+//   mma_sync (other bf16) and fp32: wq_gemm.cuh's wq_kernel in its dense
+//     mode (one weight, E = 1), cp.async + mma.sync.
+// The TPU kernel's x_t / out_t operand orientations are layouts, not
+// contracts: the wrapper serves them through transposed views.
 
 #include "sm90_gemm.cuh"
 #include "wq_gemm.cuh"
+#include "wq_sm90.cuh"
 
 // dtype: 0 = float32, 1 = bfloat16; bits: 8 or 4 (K even); block_m: 16 or
 // 64; WqArgs.group_sizes must be null and E 1. Returns a cudaError_t (0 =
@@ -21,6 +26,27 @@
 extern "C" int wq_matmul_launch(const WqArgs* a, int dtype, int bits, int block_m, void* stream) {
   if (a == nullptr || a->group_sizes != nullptr || a->E != 1) return cudaErrorInvalidValue;
   return wq_dispatch<false>(a, dtype, bits, block_m, stream);
+}
+
+// The bf16 sm90 design: x (M, K) bf16 contiguous, K % 8 == 0, 16-byte
+// aligned; codes (K | K / 2, N) int8 contiguous, N % 16 == 0, 16-byte
+// aligned; scale (N,) fp32 16-byte aligned; out (M, N) bf16; row_tile 8,
+// 64, 128 or 256 (wgmma's n); splits S in [1, ceil(K / 64)] and, when S >
+// 1, part an (S, M, N) fp32 scratch. Returns a cudaError_t (0 =
+// launched); never synchronizes or allocates.
+extern "C" int wq_matmul_sm90_launch(const void* x, const int8_t* q, const float* scale,
+                                     void* out, float* part, int M, int K, int N, int bits,
+                                     int row_tile, int splits, void* stream) {
+  const int nst = (K + wq90::KS - 1) / wq90::KS;
+  if (x == nullptr || q == nullptr || scale == nullptr || out == nullptr || M <= 0 || K <= 0 ||
+      N <= 0 || K % 8 || N % 16 || (uintptr_t)x % 16 || (uintptr_t)q % 16 ||
+      (uintptr_t)scale % 16 || (uintptr_t)out % 16 || (bits != 4 && bits != 8) || splits < 1 ||
+      splits > nst || splits > 65535 || (splits > 1 && (part == nullptr || (uintptr_t)part % 16)))
+    return cudaErrorInvalidValue;
+  const wq90::Args a{scale, (wq90::bf16*)out, part, M, K, N, splits};
+  cudaStream_t s = (cudaStream_t)stream;
+  return bits == 8 ? wq90::launch_bits<8>(x, q, a, row_tile, s)
+                   : wq90::launch_bits<4>(x, q, a, row_tile, s);
 }
 
 // ---------------------------------------------------------------------------

@@ -35,8 +35,10 @@
 // once (Llama-2-7B int4: 22.5 MB per FFN product at 8 rows), against
 // 16 x 2 FLOP per code. BM = 16 at decode (an 8-stage ring for the
 // one-weight products: a call is a few long-K streams), 64 above with 4
-// stages; 64 output columns per CTA. TMA, wgmma and split-K (the
-// dense down projection has only 64 column tiles) are later work.
+// stages; 64 output columns per CTA. K7's bf16 products have a Hopper
+// design (wq_sm90.cuh: the widened codes as wgmma's register operand, TMA
+// loads, split K); this kernel serves K9, K7's fp32 instance and the bf16
+// operands TMA cannot address.
 
 #pragma once
 

@@ -144,7 +144,8 @@ class GroupedMatmulBuilder(CUDAOpBuilder):
 class MlpMatmulBuilder(CUDAOpBuilder):
     NAME = "mlp_matmul"
     SOURCES = ("mlp_matmul.cu",)
-    DEPENDS = ("gemm_common.cuh", "wq_gemm.cuh", "sm90_gemm.cuh")
+    DEPENDS = ("gemm_common.cuh", "wq_gemm.cuh", "sm90_gemm.cuh",
+               "sm90_attention.cuh", "wq_sm90.cuh")
 
 
 class LayerNormBuilder(CUDAOpBuilder):

@@ -25,9 +25,11 @@ per k-major backward call (its three kernels: delta, dk/dv, dq),
 ``flash_block_fwd`` one per ring chunk pair. The forward takes one of
 three designs (``_fwd_design``): bf16 with D = 64 or 128 that TMA can
 address goes to the Hopper wgmma kernel (``flash_fwd_sm90_kernel``), other
-bf16 (D = 32) to the mma.sync kernel, fp32 to the scalar-FMA instance;
-``DESIGN_LAUNCHES["flash_fwd"]`` counts launches by design. K10
-(``flash_block_fwd``) stays on the mma.sync kernel.
+bf16 (D = 32) to the mma.sync kernel, fp32 to the scalar-FMA instance.
+K10 (``flash_block_fwd``) takes the same rule on its folded (BH, 1, T, d)
+views (``_block_design``): sm90 is ``flash_fwd_sm90_kernel`` with the
+caller's (m, l, acc) carried in and out. ``DESIGN_LAUNCHES["flash_fwd" |
+"flash_block_fwd"]`` counts launches by design.
 
 ``bwd_qmajor`` picks the query-major backward under the JAX rule
 (flash_attention.py:1578): ``qkv_t`` layouts with no bias or ALiBi only,
@@ -50,7 +52,9 @@ NEG_INF = -1e30
 
 LAUNCHES = {"flash_fwd": 0, "flash_bwd": 0, "flash_bwd_qmajor": 0,
             "flash_block_fwd": 0}
-DESIGN_LAUNCHES = {"flash_fwd": {"sm90": 0, "mma_sync": 0, "fp32": 0}}
+DESIGN_LAUNCHES = {name: {"sm90": 0, "mma_sync": 0, "fp32": 0}
+                   for name in ("flash_fwd", "flash_block_fwd")}
+_BLOCK_DESIGN_CODE = {"fp32": 0, "mma_sync": 1, "sm90": 2}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
@@ -97,10 +101,14 @@ def kernel_builder():
         b = FlashAttentionBuilder()
         lib = b.load()
         for fn in (lib.flash_fwd_launch, lib.flash_bwd_launch,
-                   lib.flash_bwd_qmajor_launch, lib.flash_block_fwd_launch):
+                   lib.flash_bwd_qmajor_launch):
             fn.argtypes = [ctypes.POINTER(_FlashArgs), ctypes.c_int,
                            ctypes.c_void_p]
             fn.restype = ctypes.c_int
+        lib.flash_block_fwd_launch.argtypes = [
+            ctypes.POINTER(_FlashArgs), ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p]
+        lib.flash_block_fwd_launch.restype = ctypes.c_int
         lib.flash_fwd_sm90_launch.argtypes = [ctypes.POINTER(_FlashArgs),
                                               ctypes.c_void_p, ctypes.c_void_p]
         lib.flash_fwd_sm90_launch.restype = ctypes.c_int
@@ -270,6 +278,14 @@ def _fwd_design(q, k, v):
     if q.shape[-1] in _SM90_HEAD_DIMS and all(map(tma_ok, (q, k, v))):
         return "sm90"
     return "mma_sync"
+
+
+def _block_design(q, k, v):
+    """K10's design for its folded (BH, 1, T, d) views as the kernel reads
+    them: ``_fwd_design``'s rule ("sm90" for bf16 at d = 64 or 128 that TMA
+    can address, the state read and written by plain loads; "mma_sync" for
+    d = 32 or what TMA cannot address; "fp32")."""
+    return _fwd_design(q, k, v)
 
 
 def _args(B, H, T, D, causal, window, **tensors):
@@ -457,11 +473,17 @@ def flash_block_fwd(q, k, v, state, *, causal=False, block_q=128,
     a.m, a.l, a.acc = m.data_ptr(), l.data_ptr(), acc.data_ptr()
     a.sml = m.stride(0)
     a.sacc = _Strides(acc.stride(0), 0, acc.stride(1))
+    design = _block_design(q, k, v)
+    # the persistent CTAs' work counter (sm90)
+    next_item = (torch.zeros(1, dtype=torch.int32, device=q.device)
+                 if design == "sm90" else None)
     rc = kernel_builder().load().flash_block_fwd_launch(
-        ctypes.byref(a), _DTYPE_CODE[q.dtype],
+        ctypes.byref(a), _BLOCK_DESIGN_CODE[design],
+        None if next_item is None else next_item.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(rc, name)
+    _raise_on(rc, f"{name} ({design})")
     LAUNCHES["flash_block_fwd"] += 1
+    DESIGN_LAUNCHES["flash_block_fwd"][design] += 1
     return state
 
 

@@ -28,8 +28,8 @@ operands that TMA can address go to the Hopper wgmma kernel
 fp32 to the scalar-FMA instance; ``DESIGN_LAUNCHES["mlp_mm" | "mlp_dw"]``
 counts launches by design.
 
-K7 (the ``_mm_wq`` kernel behind ``wq_matmul``; design and bound in
-``csrc/wq_gemm.cuh``):
+K7 (the ``_mm_wq`` kernel behind ``wq_matmul``; designs and bounds in
+``csrc/wq_sm90.cuh`` and ``csrc/wq_gemm.cuh``):
 
   wq_matmul(x, w, x_t=False, out_t=False)   x (B, T, K) (or (T, K)) @
       dequant(w) for an ``Int8Weight`` / ``Int4Weight`` w with codes
@@ -42,10 +42,17 @@ Forward only (serving; the training path keeps full-precision weights).
 Dispatch is by the tensor's device only: a CPU tensor takes the plain
 version; a CUDA tensor launches the kernel or raises, at every shape
 (decode's 8 rows included, where the JAX wrapper takes its jnp fallback:
-the same math). ``LAUNCHES`` counts kernel launches.
+the same math). ``LAUNCHES`` counts kernel launches. Each K7 call takes
+one of three designs (``_wq_design``): bf16 x and codes that TMA can
+address go to the Hopper kernel (``wq_matmul_sm90_kernel``: the codes as
+wgmma's register operand; ``wq_plan`` picks its row tile and K split from
+the shape, and a split call adds ``wq_merge_kernel``), other bf16 to the
+mma.sync ``wq_kernel``, fp32 to its scalar-FMA instance;
+``DESIGN_LAUNCHES["wq_matmul"]`` counts calls by design.
 """
 
 import ctypes
+import functools
 
 import torch
 
@@ -53,7 +60,18 @@ from .grouped_matmul import WQ_ARGTYPES, check_quantized, launch_wq, tma_ok
 
 LAUNCHES = {"wq_matmul": 0, "mlp_mm": 0, "mlp_dw": 0}
 DESIGN_LAUNCHES = {name: {"sm90": 0, "mma_sync": 0, "fp32": 0}
-                   for name in ("mlp_mm", "mlp_dw")}
+                   for name in ("mlp_mm", "mlp_dw", "wq_matmul")}
+
+# K7's sm90 design (csrc/wq_sm90.cuh): 128 features a CTA, 64 k a slice,
+# the row tile (wgmma's n) one of WQ_ROW_TILES; bf16 calls of at least
+# WQ_SM90_MIN_ROWS rows take it (the card measured it faster than wq_kernel
+# at decode's 8 rows and at the 256-row chunk: chip_smoke.py phase 14)
+WQ_FEATURE_TILE = 128
+WQ_K_SLICE = 64
+WQ_ROW_TILES = (8, 64, 128, 256)
+WQ_SM90_MIN_ROWS = 1
+WQ_MAX_SPLITS = 8             # bounds the (S, M, N) fp32 partials
+WQ_SMS = 132                  # H100 SXM; the wrapper reads the card's own
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -90,6 +108,9 @@ def kernel_builder():
         lib = b.load()
         lib.wq_matmul_launch.argtypes = WQ_ARGTYPES
         lib.wq_matmul_launch.restype = ctypes.c_int
+        lib.wq_matmul_sm90_launch.argtypes = (
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        lib.wq_matmul_sm90_launch.restype = ctypes.c_int
         lib.mlp_mm_launch.argtypes = [ctypes.POINTER(_MmArgs), ctypes.c_int,
                                       ctypes.c_void_p]
         lib.mlp_mm_launch.restype = ctypes.c_int
@@ -128,6 +149,87 @@ def wq_matmul_reference(x, w, x_t=False, out_t=False):
     return _shape_out(_plain_rows(x2, w), B, T, out_t, squeeze)
 
 
+@functools.lru_cache(maxsize=None)
+def wq_plan(M, K, N, sms=WQ_SMS):
+    """(row tile, splits) of the sm90 design for an (M, K) x (K, N) call:
+    the smallest row tile of WQ_ROW_TILES that holds M rows (else 256);
+    K splits in the most parts S <= WQ_MAX_SPLITS (at least 4 k slices
+    each) whose (128-feature, row tile, split) items still run in one wave
+    of ``sms`` CTAs (one CTA an SM: 384 threads of 168 registers): a
+    second wave's start and the partials' round trip outweigh the work a
+    split takes off each CTA (chip_smoke.py phase 14 times the other
+    choice beside each call), so 86 tiles -> 1, 32 -> 4. Shape only."""
+    rt = next((t for t in WQ_ROW_TILES if M <= t), WQ_ROW_TILES[-1])
+    tiles = -(-N // WQ_FEATURE_TILE) * -(-M // rt)
+    nst = -(-K // WQ_K_SLICE)
+    most = min(WQ_MAX_SPLITS, nst // 4, sms // tiles)
+    return rt, max(1, most)
+
+
+def wq_split_bounds(K, splits):
+    """The k ranges [lo, hi) of the sm90 design's ``splits`` K splits: split
+    z takes the 64-deep slices [z nst / S, (z + 1) nst / S)."""
+    nst = -(-K // WQ_K_SLICE)
+    return [(min(K, z * nst // splits * WQ_K_SLICE),
+             min(K, (z + 1) * nst // splits * WQ_K_SLICE))
+            for z in range(splits)]
+
+
+def wq_matmul_split_reference(x2, w, splits):
+    """Plain version of the sm90 design's split arithmetic on (M, K) rows:
+    each split's fp32 partial over its k range, the partials summed in
+    split order, then the scale, then one rounding to x's dtype."""
+    codes = w.codes().float()
+    acc = None
+    for lo, hi in wq_split_bounds(x2.shape[1], splits):
+        p = torch.matmul(x2[:, lo:hi].float(), codes[lo:hi])
+        acc = p if acc is None else acc + p
+    return (acc * w.scale.reshape(1, -1)).to(x2.dtype)
+
+
+def _wq_design(x2, w):
+    """K7's design for x rows (M, K) and a quantized w, read from dtype,
+    shape and ``tma_ok`` only: "fp32" for fp32 x; "sm90" for bf16 x of at
+    least WQ_SM90_MIN_ROWS rows when TMA can address x (a 16-byte aligned
+    base, K a multiple of 8) and the codes (N a multiple of 16), and the
+    codes and scale are contiguous, the scale's base 16-byte aligned; else
+    "mma_sync" (other bf16; other dtypes raise in its launch)."""
+    if x2.dtype == torch.float32:
+        return "fp32"
+    if (x2.dtype == torch.bfloat16 and x2.shape[0] >= WQ_SM90_MIN_ROWS
+            and tma_ok(x2) and w.q.is_contiguous() and tma_ok(w.q)
+            and w.scale.is_contiguous() and w.scale.data_ptr() % 16 == 0):
+        return "sm90"
+    return "mma_sync"
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _launch_wq_sm90(x2, w, splits=None):
+    """One sm90 K7 call on contiguous bf16 rows ``x2`` (M, K): the plan of
+    ``wq_plan`` (``splits`` overrides its K split, for measurement), the
+    fp32 partials of a split call in a ``torch.empty`` scratch."""
+    M, K = x2.shape
+    N = w.scale.shape[-1]
+    rt, S = wq_plan(M, K, N, _sm_count(x2.device.index))
+    if splits is not None:
+        S = splits
+    out = torch.empty(M, N, dtype=x2.dtype, device=x2.device)
+    part = (torch.empty(S, M, N, dtype=torch.float32, device=x2.device)
+            if S > 1 else None)
+    rc = kernel_builder().load().wq_matmul_sm90_launch(
+        x2.data_ptr(), w.q.data_ptr(), w.scale.data_ptr(), out.data_ptr(),
+        None if part is None else part.data_ptr(), M, K, N, w.bits, rt, S,
+        torch.cuda.current_stream(x2.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"wq_matmul kernel launch failed (sm90): "
+                           f"cudaError {rc}")
+    return out
+
+
 def wq_matmul(x, w, x_t=False, out_t=False):
     """Forward-only ``x @ dequant(w)`` for a quantized weight: x (B, T, K)
     (or (T, K); (B, K, T) when ``x_t``), w an ``Int8Weight`` (codes (K, M))
@@ -143,10 +245,26 @@ def wq_matmul(x, w, x_t=False, out_t=False):
     B, T, x2 = _rows(x3, x_t)
     if x.device.type == "cpu":
         out = _plain_rows(x2, w)
+    elif x2.shape[0] == 0:
+        out = torch.empty(0, w.shape[-1], dtype=x.dtype, device=x.device)
+    else:
+        out = _wq_cuda(x2, w)
+    return _shape_out(out, B, T, out_t, squeeze)
+
+
+def _wq_cuda(x2, w, design=None):
+    """K7 on CUDA rows ``x2`` (M > 0, K) through ``_wq_design``'s design
+    (``design`` overrides it, for measurement), counted."""
+    x2 = x2.contiguous()
+    design = design or _wq_design(x2, w)
+    if design == "sm90":
+        out = _launch_wq_sm90(x2, w)
+        LAUNCHES["wq_matmul"] += 1
     else:
         out = launch_wq(kernel_builder().load().wq_matmul_launch,
                         "wq_matmul", LAUNCHES, x2, w)
-    return _shape_out(out, B, T, out_t, squeeze)
+    DESIGN_LAUNCHES["wq_matmul"][design] += 1
+    return out
 
 
 # ------------------------------------------------------------------- K6

@@ -601,6 +601,41 @@ def test_wq_matmul_kernel(bits, dtype, B, T, K, N):
     _assert_close(out_t.transpose(1, 2), ref, dtype)
 
 
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("M,K,N,splits", [
+    (8, 4096, 1024, None),     # decode rows: row tile 8, K split by the plan
+    (256, 1024, 768, None),    # a chunk: row tile 256
+    (1, 512, 256, None),
+    (200, 640, 384, None),     # ragged rows, 10 k slices
+    (300, 600, 256, None),     # two row tiles, a 24-deep last k slice
+    (256, 1024, 768, 1),       # one split: the scale in the main kernel
+    (64, 1024, 512, 5),        # uneven split ranges, then the merge
+])
+def test_wq_matmul_sm90(bits, M, K, N, splits):
+    """K7's bf16 sm90 design: every call on sm90, within the bf16 limits
+    of the plain version in fp32 and of the split-order plain version,
+    repeated bitwise."""
+    rs = np.random.RandomState(M + K + bits)
+    x = _rand(rs, (M, K), torch.bfloat16)
+    w = _quantized(rs, (K, N), bits)
+    mm.reset_launch_counts()
+    if splits is None:
+        runs = [mm.wq_matmul(x, w) for _ in range(2)]
+        assert mm.DESIGN_LAUNCHES["wq_matmul"] == {"sm90": 2, "mma_sync": 0,
+                                                   "fp32": 0}
+        splits = mm.wq_plan(M, K, N, torch.cuda.get_device_properties(
+            0).multi_processor_count)[1]
+    else:
+        runs = [mm._launch_wq_sm90(x, w, splits) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1])
+    _assert_close(runs[0], mm.wq_matmul_reference(x.float(), w),
+                  torch.bfloat16)
+    _assert_close(runs[0], mm.wq_matmul_split_reference(x.float(), w,
+                                                        splits),
+                  torch.bfloat16)
+
+
 def test_wq_kernels_never_take_the_plain_path(monkeypatch):
     def plain(*a, **k):
         raise AssertionError("a CUDA tensor took a plain wq product")
@@ -800,7 +835,9 @@ def test_k6_sm90_ragged(x_t, out_t, P, T, K, M):
     assert mm.DESIGN_LAUNCHES == {"mlp_mm": {"sm90": 4, "mma_sync": 0,
                                              "fp32": 0},
                                   "mlp_dw": {"sm90": 2, "mma_sync": 0,
-                                             "fp32": 0}}
+                                             "fp32": 0},
+                                  "wq_matmul": {"sm90": 0, "mma_sync": 0,
+                                                "fp32": 0}}
     assert all(torch.equal(a, b) for a, b in zip(*outs))
     y, dx, dw = outs[0]
     xf, wf, dyf = x.float(), w.float(), dy.float()
@@ -842,7 +879,9 @@ def test_k6_one_unaligned_row():
     assert mm.DESIGN_LAUNCHES == {"mlp_mm": {"sm90": 0, "mma_sync": 2,
                                              "fp32": 0},
                                   "mlp_dw": {"sm90": 0, "mma_sync": 1,
-                                             "fp32": 0}}
+                                             "fp32": 0},
+                                  "wq_matmul": {"sm90": 0, "mma_sync": 0,
+                                                "fp32": 0}}
     xf, wf, dyf = x.float(), w.float(), dy.float()
     _assert_close(y, mm.mm_reference(xf, wf, False, False, False,
                                      torch.float32), bf)
@@ -1056,6 +1095,44 @@ def test_flash_block_fwd_kernel(dtype, BH, C, d):
     else:
         torch.testing.assert_close(o, ro, rtol=1e-4, atol=1e-4)
     assert torch.equal(big[1][:, :C], torch.zeros_like(big[1][:, :C]))
+
+
+@pytest.mark.parametrize("BH,C,d", [(4, 200, 64), (2, 130, 128),
+                                    (8, 1024, 64), (3, 64, 128)])
+def test_flash_block_fwd_sm90(BH, C, d):
+    """K10's bf16 sm90 design: a diagonal-causal pair then a full pair,
+    chained on views of one state (the zigzag's late half), every launch
+    on sm90, against the plain version in fp32 (the finalized o by the
+    bf16 check, lse at 1e-4) and repeated bitwise."""
+    g = torch.Generator(device="cuda").manual_seed(C + d)
+    q, k1, v1, k2, v2 = (torch.randn(BH, C, d, generator=g,
+                                     device="cuda").to(torch.bfloat16)
+                         for _ in range(5))
+    q = fa.scale_q(q, d ** -0.5)
+    fa.reset_launch_counts()
+    finals = []
+    for _ in range(2):
+        big = fa.flash_block_state(BH, 2 * C, d, device="cuda")
+        st = tuple(x[:, C:] for x in big)
+        for k, v, causal in ((k1, v1, True), (k2, v2, False)):
+            fa.flash_block_fwd(q, k, v, st, causal=causal)
+        finals.append((big, st))
+    torch.cuda.synchronize()
+    assert fa.DESIGN_LAUNCHES["flash_block_fwd"] == {
+        "sm90": 4, "mma_sync": 0, "fp32": 0}
+    (big, st), (big2, _) = finals
+    assert all(torch.equal(a, b) for a, b in zip(big, big2))
+    assert torch.equal(big[1][:, :C], torch.zeros_like(big[1][:, :C]))
+    assert torch.equal(big[0][:, :C],
+                       torch.full_like(big[0][:, :C], fa.NEG_INF))
+    ref = fa.flash_block_state(BH, C, d, device="cuda")
+    for k, v, causal in ((k1, v1, True), (k2, v2, False)):
+        ref = fa.flash_block_fwd_reference(q.float(), k.float(), v.float(),
+                                           ref, causal=causal)
+    o, lse = fa.flash_block_finalize(st)
+    ro, rlse = fa.flash_block_finalize(ref)
+    torch.testing.assert_close(lse, rlse, rtol=0, atol=1e-4)
+    assert chip_smoke.bf16_mismatch(o.to(torch.bfloat16), ro) is None
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,

@@ -205,3 +205,24 @@ def test_flash_block_fwd_updates_views_of_one_state():
     assert torch.equal(st[1][:, :32], torch.zeros(2, 32))
     with pytest.raises(ValueError, match="equal chunk"):
         tfa.flash_block_fwd(tq, tk[:, :32], tv[:, :32], st)
+
+
+@pytest.mark.parametrize("dtype,T,d,view,want", [
+    (torch.bfloat16, 2048, 64, "whole", "sm90"),
+    (torch.bfloat16, 200, 128, "whole", "sm90"),
+    (torch.bfloat16, 256, 64, "late half", "sm90"),   # a zigzag half
+    (torch.bfloat16, 256, 32, "whole", "mma_sync"),   # d = 32
+    (torch.bfloat16, 64, 64, "t stride 68", "mma_sync"),
+    (torch.float32, 256, 64, "whole", "fp32"),
+])
+def test_block_design_rule(dtype, T, d, view, want):
+    """``_block_design`` on K10's folded (BH, 1, T, d) views: K1's rule
+    (bf16 at d = 64 / 128 that TMA can address -> sm90)."""
+    if view == "late half":
+        x = torch.zeros(4, 2 * T, d, dtype=dtype)[:, T:]
+    elif view == "t stride 68":
+        x = torch.zeros(4, T, 68, dtype=dtype)[..., :d]
+    else:
+        x = torch.zeros(4, T, d, dtype=dtype)
+    v = x.unsqueeze(1)
+    assert tfa._block_design(v, v, v) == want
