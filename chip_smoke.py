@@ -12,6 +12,8 @@ Phases (any failure raises and the script exits nonzero):
      sm90_gemm.cuh / sm90_attention.cuh / wq_sm90.cuh (fused_ce_sm90_kernel,
      proj_mm_sm90_kernel, grouped_tgmm_sm90_kernel, grouped_gmm_sm90_kernel,
      flash_fwd_sm90_kernel<D, CARRY> for K1 and K10,
+     flash_dkdv_sm90_kernel<D> and flash_dq_sm90_kernel<D> for K2,
+     flash_bwd_qmajor_sm90_kernel<D> for K2-qmajor, D = 64 and 128,
      wq_matmul_sm90_kernel<BITS, NR> for K7) is there, holds HGMMA (wgmma)
      and UTMALDG (TMA loads) and spills nothing (ptxas); their registers
      logged.
@@ -41,7 +43,13 @@ Phases (any failure raises and the script exits nonzero):
      bitwise; K1's bf16 design (sm90) also at d = 64 and 128, causal,
      window and not, T off the 128-row tile, model and heads-major strides,
      repeated bitwise, a control (one 128-key K/V tile skipped) that must
-     fail, and timed beside its mma_sync design.
+     fail, and timed beside its mma_sync design; K2's bf16 design (sm90)
+     likewise: d = 64 and 128, causal and not, windows 256 and 100, T =
+     1000 and others off the tile, both layouts, lse cotangents, per (b, h)
+     slab against the plain backward in fp32, repeated bitwise, a control
+     (the dK/dV walk without one query tile) that must fail, timed beside
+     its mma_sync design, with each design's delta, dK/dV and dQ kernels
+     timed apart (torch.profiler).
   6. training parity: a small fp32 GPT-2 on the card with the kernels on
      (flash + fused CE kernel, save_flash) and off (dense attention +
      fused_linear_xent) gives the same loss and gradients.
@@ -138,8 +146,9 @@ Phases (any failure raises and the script exits nonzero):
      (bf16, plus a window, T=1000 and an lse cotangent) against its plain
      version in fp32, fp32 cases at 1e-4, a control (dk/dv without the last
      query tile) that must fail, a bitwise repeat and bitwise equality with
-     the k-major K2; timed beside its bound, the k-major K2 and SDPA's
-     backward.
+     the k-major K2; its bf16 design (sm90) in phase 5's cases, each output
+     bitwise equal to K2's sm90 output; timed beside its bound, its mma_sync
+     design, the k-major K2 and SDPA's backward.
  22. K11 kernels: the block-sparse forward, dq and dk/dv at B=4, H=16,
      d=64, bf16: (a) FixedSparsityConfig(block 64, 4 local, 1 global,
      unidirectional) causal and (b) BigBirdSparsityConfig(block 64) at
@@ -158,7 +167,8 @@ Phases (any failure raises and the script exits nonzero):
      a step, beside phase 7's step); SparseSelfAttention (a) and (b) at
      B=4, T=8192, 10 forward + backward calls each, no host sync in a
      call, one launch of each K11 kernel a call, ms a call and peak
-     memory.
+     memory; every bf16 K1 / K2-qmajor / K3 launch of the GPT-2 slice on
+     sm90.
  25. K10 (``flash_block_fwd``, the ring's chunk-pair step with carried
      online-softmax state): fp32 cases at 1e-4; bf16 on its sm90 design
      (every launch counted there): three chained pairs on the late half of
@@ -169,8 +179,10 @@ Phases (any failure raises and the script exits nonzero):
      fail; the zigzag schedule of R = 4 emulated in one process with the
      ring's step functions on one (B=4, T=8192, H=16, d=64) problem,
      against K1 on the whole sequence and the dense plain version;
-     ``flash_block_bwd`` (K2 from the global o / lse) against the plain
-     backward; the full and causal pairs timed beside their bounds, the
+     ``flash_block_bwd`` (K2 from the global o / lse, on K2's sm90 design)
+     against the plain backward at the ring's (64, 2048, 64) pairs, full
+     and diagonal-causal; the full and causal pairs timed beside their
+     bounds, the
      mma_sync design, the plain version and SDPA's forward (causal too).
  26. K12 (blockwise int8 quantize / dequantize) on a buffer of GPT-2 350M's
      parameter count in fp32 and bf16: codes, scales and dequantized values
@@ -191,9 +203,9 @@ Phases (any failure raises and the script exits nonzero):
  29. the slice: GPT-2 350M (24 layers, T=4096, micro 4, ring,
      sequence_parallel_size=2, ZeRO-2, bf16) through initialize ->
      train_batch for 10 steps in two processes on cuda:0 over gloo; the
-     loss falls and agrees on both ranks; exactly 6 K10 (every one on its
-     sm90 design, as each child reports) and 3 K2 a layer and step on each
-     rank (3 pairs forward, 3 in the remat re-run, 3 backward pairs); step
+     loss falls and agrees on both ranks; exactly 6 K10 and 3 K2 (every
+     one on its sm90 design, as each child reports) a layer and step on
+     each rank (3 pairs forward, 3 in the remat re-run, 3 backward pairs); step
      time, tokens/s, each process's peak memory, and what went through
      host memory.
  30. K13 RMSNorm (``fused_rmsnorm``, the last Pallas site): fp32 at 1e-4
@@ -212,14 +224,15 @@ Phases (any failure raises and the script exits nonzero):
  32. the slice: GPT-2 350M (24 layers, the bench configuration, micro 24 a
      rank, T=1024) at dp = 2 through initialize -> train_batch, ZeRO-2 for
      10 steps and ZeRO-3 for 3; the loss falls and agrees on both ranks;
-     exactly 24 K1, 24 K2 and 2 K3 a step on each rank; step time,
+     exactly 24 K1, 24 K2 and 2 K3 a step on each rank (every one on
+     sm90, as each child reports); step time,
      tokens/s, each process's peak memory and the bytes each rank staged
      through host memory a step.
-Phases 7, 13, 20, 24 and 32 also hold every bf16 K1 / K3 / K6 launch to
-the sm90 design (the wrappers' DESIGN_LAUNCHES); the serving slices count
-K4's launches by design (split / single), the Mixtral slice K8's gmm
-(all sm90), the Llama int4 slice K7's (phase 16), phases 27 and 29
-K10's (all sm90).
+Phases 7, 13, 20, 24 and 32 also hold every bf16 K1 / K2 / K2-qmajor /
+K3 / K6 launch to the sm90 design (the wrappers' DESIGN_LAUNCHES); the
+serving slices count K4's launches by design (split / single), the
+Mixtral slice K8's gmm (all sm90), the Llama int4 slice K7's (phase 16),
+phases 27 and 29 K10's and K2's (all sm90).
 Then one JSON line of per-kernel numbers (launches summed over the main
 paths that ran each kernel, and per path; the rows with more than one
 design with the designs their main-path launches went to, the sm90 rows
@@ -491,6 +504,13 @@ SM90_DESIGNS = {
     # K10: flash_fwd_sm90_kernel<D, CARRY = true>
     "flash_block_fwd": ("flash_attention", tuple(
         f"flash_fwd_sm90_kernelILi{d}ELb1E" for d in (64, 128))),
+    # K2: flash_dkdv_sm90_kernel<D> + flash_dq_sm90_kernel<D> (after the
+    # delta kernel); K2-qmajor: flash_bwd_qmajor_sm90_kernel<D>
+    "flash_bwd": ("flash_attention", tuple(
+        f"flash_{k}_sm90_kernelILi{d}E" for k in ("dkdv", "dq")
+        for d in (64, 128))),
+    "flash_bwd_qmajor": ("flash_attention", tuple(
+        f"flash_bwd_qmajor_sm90_kernelILi{d}E" for d in (64, 128))),
     # K7: wq_matmul_sm90_kernel<BITS, row tile>
     "wq_matmul": ("mlp_matmul", tuple(
         f"wq_matmul_sm90_kernelILi{b}ELi{n}E" for b in (4, 8)
@@ -570,9 +590,10 @@ def count_designs(name, by):
 
 
 def assert_sm90(tag, *mods, main_path=False):
-    """Every K3 / K6 launch of the run just read (the ``LAUNCHES`` of the
-    wrapper modules ``mods``) went to the sm90 design; ``main_path``: the
-    run was a main path, whose counts go to PATH_DESIGNS."""
+    """Every launch of the run just read of a kernel with designs (the
+    ``LAUNCHES`` / ``DESIGN_LAUNCHES`` of the wrapper modules ``mods``: K1,
+    K2, K2-qmajor, K10, K3, K6, K7) went to the sm90 design; ``main_path``:
+    the run was a main path, whose counts go to PATH_DESIGNS."""
     for mod in mods:
         for name, by in mod.DESIGN_LAUNCHES.items():
             assert by["sm90"] == mod.LAUNCHES[name] and not any(
@@ -1081,6 +1102,120 @@ def flash_sm90_cases(fa, randn):
     return worst
 
 
+def flash_bwd_as(fa, design, qmajor=False):
+    """K2's backward (``qmajor``: K2-qmajor's) through ``design`` whatever
+    _bwd_design says (the mma_sync design timed beside the sm90 one)."""
+    bwd = fa.flash_backward_qmajor if qmajor else fa.flash_backward
+
+    def run(*args, **kw):
+        orig = fa._bwd_design
+        fa._bwd_design = lambda *_a, **_k: design
+        try:
+            return bwd(*args, **kw)
+        finally:
+            fa._bwd_design = orig
+    return run
+
+
+def kernel_split_ms(fn, iters=10):
+    """{kernel name: device ms a launch} of ``fn`` (torch.profiler over
+    ``iters`` calls after a warm-up call, each kernel's time over its own
+    launch count): how a call of kernels launched once each divides."""
+    from torch.autograd import DeviceType
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / 1e3 / e.count
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0}
+
+
+def flash_kernel_ms(split, marks):
+    """The device ms a call spent in the kernels whose names hold one of
+    ``marks`` (from kernel_split_ms), by mark."""
+    return {m: sum(ms for k, ms in split.items() if f"{m}<" in k)
+            for m in marks}
+
+
+def bwd_with_query_tile_dropped(fa, q, k, v, o, lse, do, rows):
+    """(dk, dv) in fp32 of a dK/dV kernel whose walk skipped the query rows
+    ``rows`` (one tile): the plain backward (causal) with those rows' p and
+    ds left out of dk and dv."""
+    s = torch.matmul(q, k.transpose(-1, -2))
+    ok = fa._mask(q.shape[2], True, 0, q.device)
+    p = torch.where(ok, torch.exp(s - lse[..., None]), 0.0)
+    del s
+    ds = p * (torch.matmul(do, v.transpose(-1, -2))
+              - (do * o).sum(-1)[..., None])
+    p[:, :, rows] = 0
+    ds[:, :, rows] = 0
+    dv = torch.matmul(p.to(torch.bfloat16).float().transpose(-1, -2), do)
+    del p
+    dk = torch.matmul(ds.to(torch.bfloat16).float().transpose(-1, -2), q)
+    return dk, dv
+
+
+def flash_bwd_sm90_cases(fa, randn, qmajor=False):
+    """K2's sm90 design (``qmajor``: K2-qmajor's) against the plain backward
+    in fp32 by the bf16 check per (b, h) slab: d = 64 and 128, causal and
+    not, windows 256 and 100, T = 1000 and others off the 128-row tile, the
+    model's (B, T, H, d) strides and heads-major, an lse cotangent; each
+    call repeated bitwise, every launch on sm90; K2-qmajor's output bitwise
+    equal to K2's sm90 output. Returns the worst slab relative error
+    norm."""
+    cases = ((4, 8, 1000, 64, True, 0, False, True),
+             (2, 8, 1024, 64, True, 256, False, False),
+             (2, 4, 777, 128, True, 256, False, True),
+             (2, 4, 640, 128, False, 0, True, True),
+             (3, 2, 333, 64, True, 100, True, False),
+             (2, 4, 640, 64, False, 0, False, False),
+             (1, 16, 2048, 128, True, 0, False, False))
+    name = "flash_bwd_qmajor" if qmajor else "flash_bwd"
+    bwd = fa.flash_backward_qmajor if qmajor else fa.flash_backward
+    worst = 0.0
+    for B, H, T, d, causal, window, heads_major, dl in cases:
+        shape = (B, H, T, d) if heads_major else (B, T, H, d)
+        q, k, v, do = (randn(shape) for _ in range(4))
+        if not heads_major:
+            q, k, v, do = (x.transpose(1, 2) for x in (q, k, v, do))
+        q = fa.scale_q(q, 1.0 / math.sqrt(d))
+        o, lse = fa.flash_forward(q, k, v, causal=causal, window=window)
+        dlse = randn((B, H, T), torch.float32, 0.1) if dl else None
+        kw = dict(causal=causal, window=window, dlse=dlse)
+        fa.reset_launch_counts()
+        got = bwd(q, k, v, o, lse, do, **kw)
+        again = bwd(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        assert fa.DESIGN_LAUNCHES[name]["sm90"] == 2, fa.DESIGN_LAUNCHES
+        tag = f"{name} sm90 {shape} causal={causal} window={window}"
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), \
+            f"{tag}: calls differ"
+        if qmajor:
+            kmajor = fa.flash_backward(q, k, v, o, lse, do, **kw)
+            assert fa.DESIGN_LAUNCHES["flash_bwd"]["sm90"] == 1
+            assert all(torch.equal(a, b) for a, b in zip(got, kmajor)), \
+                f"{tag}: differs from K2's sm90 output"
+            del kmajor
+        refs = fa.flash_backward_reference(
+            *(x.float() for x in (q, k, v, o)), lse, do.float(), **kw)
+        for gname, a, r in zip(("dq", "dk", "dv"), got, refs):
+            why = bf16_grad_mismatch(a, r)
+            assert why is None, f"{tag} {gname}: {why}"
+            worst = max(worst, grad_rel_norm(a, r))
+        del q, k, v, do, o, got, again, refs
+    log(f"{name} sm90 cases ok ({len(cases)}: d 64 / 128, causal and not, "
+        f"windows 256 / 100, T 333-2048 off the 128-row tile, model and "
+        f"heads-major strides, lse cotangents; repeats bitwise"
+        + ("; bitwise equal to K2's sm90" if qmajor else "")
+        + f"): worst slab relative error norm {worst:.3g}")
+    return worst
+
+
 def phase_train_kernels(fa, fce, seed=0):
     """K1, K2, K3 at the GPT-2 350M bench shapes (B=24, H=16, T=1024, d=64;
     CE over N = 24 * 512 rows, D=1024, V=50304), checked, controlled and
@@ -1148,7 +1283,14 @@ def phase_train_kernels(fa, fce, seed=0):
             f"fails ({why})")
         del dropped
 
+    fa.reset_launch_counts()
     grads = fa.flash_backward(q, k, v, o, lse, do)
+    again = fa.flash_backward(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    assert fa.DESIGN_LAUNCHES["flash_bwd"]["sm90"] == 2, fa.DESIGN_LAUNCHES
+    assert all(torch.equal(a, b) for a, b in zip(grads, again)), \
+        "flash_bwd does not repeat bitwise"
+    del again
     refs = fa.flash_backward_reference(q32, k32, v32, o.float(), lse, do32)
     for name, got, ref in zip(("dq", "dk", "dv"), grads, refs):
         why = bf16_grad_mismatch(got, ref)
@@ -1163,7 +1305,20 @@ def phase_train_kernels(fa, fce, seed=0):
     assert why is not None, "grad check let a skipped query tile pass"
     log(f"control: flash backward with query tile 8 skipped fails dq "
         f"({why})")
-    del refs, cut, do_cut, grads
+    del cut, do_cut, grads
+    # control: the dK/dV walk without its second 128-query tile
+    cut = bwd_with_query_tile_dropped(fa, q32, k32, v32, o.float(), lse,
+                                      do32, slice(128, 256))
+    for name, c, ref in zip(("dk", "dv"), cut, refs[1:]):
+        why = bf16_grad_mismatch(c.to(bf), ref)
+        assert why is not None, \
+            f"grad check let {name} without query tile 1 pass"
+        log(f"control: flash backward's {name} without query tile 1 of "
+            f"the dK/dV walk fails ({why})")
+    del refs, cut
+    sm90_bwd = flash_bwd_sm90_cases(fa, randn)
+    err["flash_bwd"] = err["flash_bwd"][:2] + (
+        max(err["flash_bwd"][2], sm90_bwd),)
 
     # K3 bf16 (the sm90 design) at a ragged N and V: rows and vocab tiles
     # cut by the 128 x 256 tile, targets outside [0, V) and in the ragged
@@ -1237,13 +1392,27 @@ def phase_train_kernels(fa, fce, seed=0):
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, scale=1.0), 20),
         bound=bound(fwd_bytes, 4 * d * pairs))
+    bwd_mma_sync = flash_bwd_as(fa, "mma_sync")
     rows["flash_bwd"] = dict(
         ms=time_ms(lambda: fa.flash_backward(q, k, v, o, lse, do), 10),
+        mma_sync_ms=time_ms(lambda: bwd_mma_sync(q, k, v, o, lse, do), 10),
         plain_ms=time_ms(lambda: fa.flash_backward_reference(
             q, k, v, o, lse, do), 2),
         library_ms=time_ms(lambda: torch.autograd.grad(
             sdpa_o, (qs, ks, vs), do, retain_graph=True), 10),
         bound=bound(bwd_bytes, 10 * d * pairs))
+    # each design's three kernels, from the profiler
+    split = flash_kernel_ms(
+        kernel_split_ms(lambda: fa.flash_backward(q, k, v, o, lse, do)),
+        ("flash_delta_kernel", "flash_dkdv_sm90_kernel",
+         "flash_dq_sm90_kernel"))
+    rows["flash_bwd"]["delta_ms"] = split["flash_delta_kernel"]
+    rows["flash_bwd"]["split_ms"] = split
+    rows["flash_bwd"]["mma_sync_split_ms"] = flash_kernel_ms(
+        kernel_split_ms(lambda: bwd_mma_sync(q, k, v, o, lse, do)),
+        ("flash_delta_kernel", "flash_dkdv_kernel", "flash_dq_kernel"))
+    log(f"flash_bwd kernels a call (device ms, profiler): sm90 {split}, "
+        f"mma_sync {rows['flash_bwd']['mma_sync_split_ms']}")
     del sdpa_o, qs, ks, vs
     ce_bytes = (N * D + V * D + N * V) * esz + N * 4 + 2 * N * 4
     rows["fused_ce"] = dict(
@@ -3267,6 +3436,7 @@ def phase_qmajor_kernel(fa, seed=0):
         f"lse cotangent): max |err| {err:.3g}, worst slab relative error "
         f"norm {worst:.3g}; bitwise repeat, bitwise equal to the k-major "
         f"K2")
+    worst = max(worst, flash_bwd_sm90_cases(fa, randn, qmajor=True))
 
     # ---- timing (row 7's work: the same bound)
     q, k, v, o, lse, do = main
@@ -3276,8 +3446,12 @@ def phase_qmajor_kernel(fa, seed=0):
     qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
     sdpa_o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
                                             scale=1.0)
+    qmajor_mma_sync = flash_bwd_as(fa, "mma_sync", qmajor=True)
+    fa.reset_launch_counts()
     row = dict(
         ms=time_ms(lambda: fa.flash_backward_qmajor(q, k, v, o, lse, do), 10),
+        mma_sync_ms=time_ms(lambda: qmajor_mma_sync(q, k, v, o, lse, do),
+                            10),
         kmajor_ms=time_ms(lambda: fa.flash_backward(q, k, v, o, lse, do), 10),
         plain_ms=time_ms(lambda: fa.flash_bwd_qmajor_reference(
             q, k, v, o, lse, do), 2),
@@ -3285,7 +3459,15 @@ def phase_qmajor_kernel(fa, seed=0):
             sdpa_o, (qs, ks, vs), do, retain_graph=True), 10),
         bound=bound(bwd_bytes, 10 * d * pairs), max_abs_err=err,
         rel_norm=worst)
-    log(f"flash_bwd_qmajor: {row['ms']:.4f} ms (k-major K2 "
+    assert fa.DESIGN_LAUNCHES["flash_bwd_qmajor"]["sm90"] == 13 and \
+        fa.DESIGN_LAUNCHES["flash_bwd"]["sm90"] == 13, fa.DESIGN_LAUNCHES
+    row["split_ms"] = flash_kernel_ms(
+        kernel_split_ms(lambda: fa.flash_backward_qmajor(q, k, v, o, lse,
+                                                         do)),
+        ("flash_delta_kernel", "flash_bwd_qmajor_sm90_kernel"))
+    log(f"flash_bwd_qmajor: {row['ms']:.4f} ms on sm90 (its mma_sync design "
+        f"{row['mma_sync_ms']:.4f}; kernels a call {row['split_ms']}; "
+        f"k-major K2 "
         f"{row['kmajor_ms']:.4f}, plain {row['plain_ms']:.4f}, SDPA "
         f"backward {row['library_ms']:.4f}, bound {row['bound'][0]:.4f} by "
         f"{row['bound'][1]}; fp32 dk/dv scratch "
@@ -3869,9 +4051,11 @@ def phase_ring_kernel(fa, seed=0):
         f"(max |err| {zig_err:.3g})")
     del qg, kg, vg, o_ring, k1, dense
 
-    # ---- flash_block_bwd: K2 from the global o / lse, both modes
+    # ---- flash_block_bwd: K2 from the global o / lse, both modes, on
+    # its sm90 design
     do = randn((BH, C, d))
     gerr = 0.0
+    fa.reset_launch_counts()
     for causal in (True, False):
         o, lse = fa.flash_block_finalize(fa.flash_block_fwd(
             q, k, v, state(carry), causal=causal))
@@ -3885,8 +4069,11 @@ def phase_ring_kernel(fa, seed=0):
             assert why is None, f"flash_block_bwd causal={causal} {name}: " \
                 f"{why}"
             gerr = max(gerr, grad_rel_norm(a[None], b))
-    log(f"flash_block_bwd (K2 from the global o / lse) ok, causal and full: "
-        f"worst slab relative error norm {gerr:.3g}")
+    assert fa.DESIGN_LAUNCHES["flash_bwd"] == {
+        "sm90": 2, "mma_sync": 0, "fp32": 0}, fa.DESIGN_LAUNCHES
+    log(f"flash_block_bwd (K2 from the global o / lse) ok on sm90, causal "
+        f"and full at (B*H, C, d) = ({BH}, {C}, {d}): worst slab relative "
+        f"error norm {gerr:.3g}")
 
     # ---- timing: the full and the causal pair at the step-0 shape, each
     # beside the mma_sync design and SDPA's forward on the same pair
@@ -4092,9 +4279,10 @@ def phase_nccl_world(fa, qz, seed=0):
     assert ring_launches == {"flash_fwd": 0, "flash_bwd": 1,
                              "flash_bwd_qmajor": 0, "flash_block_fwd": 1}, \
         ring_launches
-    assert fa.DESIGN_LAUNCHES["flash_block_fwd"] == {
-        "sm90": 1, "mma_sync": 0, "fp32": 0}, fa.DESIGN_LAUNCHES
-    count_designs("flash_block_fwd", fa.DESIGN_LAUNCHES["flash_block_fwd"])
+    for name in ("flash_block_fwd", "flash_bwd"):
+        assert fa.DESIGN_LAUNCHES[name] == {
+            "sm90": 1, "mma_sync": 0, "fp32": 0}, fa.DESIGN_LAUNCHES
+        count_designs(name, fa.DESIGN_LAUNCHES[name])
 
     def heads(t):
         return fa.scale_q(t.detach().transpose(1, 2), 0.125).float()
@@ -4104,7 +4292,8 @@ def phase_nccl_world(fa, qz, seed=0):
     why = bf16_mismatch(o.detach().transpose(1, 2), ref)
     assert why is None, f"ring_attention at R=1: {why}"
     log("ring_attention at R=1 (B=4, T=2048, H=16, d=64, bf16): one K10 "
-        "launch (causal, sm90) and one K2, equal to the plain forward")
+        "launch (causal, sm90) and one K2 (sm90), equal to the plain "
+        "forward")
     del q, k, v, do, o, ref
 
     cfg = dataclasses.replace(
@@ -4300,6 +4489,7 @@ def child_train():
             "build_s": build_s, "params": cfg.num_params(),
             "launches": {**fa.LAUNCHES, **fce.LAUNCHES, **qz.LAUNCHES},
             "block_designs": dict(fa.DESIGN_LAUNCHES["flash_block_fwd"]),
+            "bwd_designs": dict(fa.DESIGN_LAUNCHES["flash_bwd"]),
             "max_memory_allocated_gb":
                 torch.cuda.max_memory_allocated() / 1e9,
             "staged": {k: list(v) for k, v in
@@ -4349,6 +4539,11 @@ def phase_seq_slice():
                                       "mma_sync": 0, "fp32": 0}, \
             (r["rank"], r["block_designs"])
         count_designs("flash_block_fwd", r["block_designs"])
+        # and every K2 pair (flash_block_bwd)
+        assert r["bwd_designs"] == {"sm90": want["flash_bwd"],
+                                    "mma_sync": 0, "fp32": 0}, \
+            (r["rank"], r["bwd_designs"])
+        count_designs("flash_bwd", r["bwd_designs"])
         assert all(math.isfinite(x) for x in r["losses"]), r["losses"]
         assert r["losses"][-1] < r["losses"][0], r["losses"]
     assert reps[0]["losses"] == reps[1]["losses"], \
@@ -4364,6 +4559,7 @@ def phase_seq_slice():
         max_memory_allocated_gb=[r["max_memory_allocated_gb"] for r in reps],
         launches_per_step_per_rank={k: v // steps for k, v in want.items()},
         k10_launches_by_design_per_rank=reps[0]["block_designs"],
+        k2_launches_by_design_per_rank=reps[0]["bwd_designs"],
         params=reps[0]["params"])
     log("gpt2-350M seq-parallel slice " + json.dumps(stats))
     log(f"the ring's collectives went through host memory over gloo "
@@ -4639,6 +4835,7 @@ def child_zero_train():
             "launches": {**fa.LAUNCHES, **fce.LAUNCHES, **qz.LAUNCHES},
             "designs": dict(fce.DESIGN_LAUNCHES["fused_ce"]),
             "flash_designs": dict(fa.DESIGN_LAUNCHES["flash_fwd"]),
+            "bwd_designs": dict(fa.DESIGN_LAUNCHES["flash_bwd"]),
             "max_memory_allocated_gb":
                 torch.cuda.max_memory_allocated() / 1e9,
             "staged": {k: list(v) for k, v in
@@ -4673,8 +4870,12 @@ def phase_zero_slice():
             assert res["flash_designs"] == {"sm90": L * steps,
                                             "mma_sync": 0, "fp32": 0}, \
                 (r["rank"], key, res["flash_designs"])
+            assert res["bwd_designs"] == {"sm90": L * steps,
+                                          "mma_sync": 0, "fp32": 0}, \
+                (r["rank"], key, res["bwd_designs"])
             count_designs("fused_ce", res["designs"])
             count_designs("flash_fwd", res["flash_designs"])
+            count_designs("flash_bwd", res["bwd_designs"])
             assert all(math.isfinite(x) for x in res["losses"]), res
             assert res["losses"][-1] < res["losses"][0], res["losses"]
         assert reps[0][key]["losses"] == reps[1][key]["losses"], \
@@ -4879,7 +5080,8 @@ def main(argv=None):
                       "splits", "mma_sync_ms", "causal_mma_sync_ms",
                       "causal_library_ms", "causal_bound_ms", "row_tile",
                       "alt_splits", "alt_splits_ms", "int8pack_ms",
-                      "bf16_matmul_ms",
+                      "bf16_matmul_ms", "delta_ms", "split_ms",
+                      "mma_sync_split_ms",
                       "host_ms", "mma_sync_host_ms"):
             if extra in r:
                 row[extra] = r[extra]

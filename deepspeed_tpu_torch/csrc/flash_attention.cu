@@ -97,35 +97,97 @@
 //   _bwd_t) and its twin _bwd_kernel (via _bwd). The TPU kernel walks key
 //   blocks on a sequential grid and carries dq in an fp32 output across grid
 //   steps (:813); GPU blocks run in parallel, so the deterministic
-//   FlashAttention-2 split is used instead of atomics:
-//   flash_delta_kernel   delta = rowsum(do * o) in fp32 (:781), one warp/row.
-//   flash_dkdv_kernel    one CTA per 64-key tile, a loop over query tiles
-//                        from the diagonal on; recomputes p = exp(s - lse),
-//                        dv += round(p)^T do, ds = p (dp - delta),
-//                        dk += round(ds)^T q, fp32 accumulators.
-//   flash_dq_kernel      one CTA per 64-query tile, a loop over key tiles up
-//                        to the diagonal; dq += round(ds) k in fp32.
-//   Results are cast to the input dtype once at the end. Bound: operations
-//   (about 2.5x the forward's flops); same mma.sync design.
+//   FlashAttention-2 split is used instead of atomics: dk/dv by key tiles,
+//   dq by query tiles, each output summed by one CTA in a fixed order, so a
+//   run repeats bitwise. The wrapper's _bwd_design picks one of three
+//   designs, passed to flash_bwd_launch:
+//   flash_delta_kernel   delta = rowsum(do * o) - dlse in fp32 (:781), one
+//                        warp a row; every design launches it first.
+//   sm90 (bf16, D = 64 or 128, q, k, v, do, dq, dk, dv TMA can address):
+//     flash_dkdv_sm90_kernel<D>: persistent, one CTA of three warpgroups an
+//       SM; an item is (b*h, 128-key tile), each head's first key tiles
+//       (the longest causal walks) first, from a counter in device memory.
+//       Warp 0 of the producer warpgroup loads the item's K and V by TMA,
+//       then streams the walk's q and do tiles (128 queries at D = 64, 64
+//       at D = 128) through an mbarrier ring (3 / 2 stages) with each
+//       tile's lse log2(e) and delta rows. Two consumer warpgroups own 64
+//       keys each: per query tile S^T = K Q^T and dP^T = V dO^T by SS wgmma
+//       (both K-major), p = exp(s - lse) and ds = p (dp - delta) on the
+//       accumulator fragments, rounded to bf16 in pairs straight into the A
+//       fragments of dV += P^T dO and dK += dS^T Q (RS, do / q MN-major by
+//       the transpose bit). The walk starts at the causal diagonal or ends
+//       at the window's last live query, as flash_dkdv_kernel's; only
+//       tiles the diagonal, the window or T cut are masked. dk, dv stay in
+//       fp32 registers and are stored once by TMA.
+//     flash_dq_sm90_kernel<D>: persistent over (b*h, 128-query tile), the
+//       forward's item order; the producer loads q and do, then streams K
+//       / V tiles (128 keys at D = 64, 64 at D = 128); per key tile S =
+//       Q K^T and dP = dO V^T (SS), p and ds by the same instruction
+//       sequence (bwd_p_ds), dQ += dS K (RS, K MN-major); dq stored once.
+//     Registers (a consumer thread, setmaxnreg 232; the producer 40): at
+//       D = 64 S^T and dP^T take 64 + 64 fp32 at 128 queries, dK and dV
+//       32 + 32 (192); at D = 128 the 64-query tiles keep it at 32 + 32 +
+//       64 + 64 (192, where 128-query tiles would need 256). dq: 64 + 64 +
+//       32 at D = 64, 32 + 32 + 64 at D = 128. ptxas spills nothing
+//       (chip_smoke.py phase 0b).
+//     Bound: operations, 10 d flops a live (q, k) pair (S, dP, dV, dK, dQ;
+//       the split forms S and dP twice, 14 d); at B=24, H=16, T=1024, d=64
+//       causal 0.1304 ms against 0.1207 ms of bytes.
+//   mma_sync (bf16 at D = 32, or operands TMA cannot address) and fp32:
+//     flash_dkdv_kernel    one CTA per 64-key tile, a loop over query tiles
+//                          from the diagonal on; recomputes p = exp(s - lse),
+//                          dv += round(p)^T do, ds = p (dp - delta),
+//                          dk += round(ds)^T q, fp32 accumulators.
+//     flash_dq_kernel      one CTA per 64-query tile, a loop over key tiles
+//                          up to the diagonal; dq += round(ds) k in fp32.
+//     Results are cast to the input dtype once at the end; mma.sync
+//     m16n8k16 from shared-memory tiles with synchronous loads.
 //
-// flash_bwd_qmajor_kernel (one launch) replaces _bwd_kernel_t_qmajor (via
-//   _bwd_t_qmajor, flash_attention.py:828-916). The TPU kernel walks query
-//   blocks on its sequential grid and keeps dk/dv for the whole sequence in
-//   fp32 VMEM scratch (2*T*d*4 bytes a head: 512 KB at T=1024, d=64, over a
-//   CTA's 227 KB of shared memory). Here one CTA per (b, h) walks the query
-//   tiles itself and keeps its dk/dv accumulators in a global fp32 scratch
-//   slice that no other CTA touches: per (query, key) tile pair S and dP are
-//   formed once, dq is carried in registers and written once per query tile
-//   in the input dtype, and dk/dv are read, updated and written back in fp32
-//   and cast once at the end. No atomics: a run repeats bitwise, and since
-//   it forms the same 64 x 64 tile products as flash_bwd and accumulates
-//   each output in the same order, its results equal flash_bwd's bitwise
-//   (chip_smoke.py checks both). Bound: the
-//   same operations as flash_bwd with S and dP formed once (about 2x the
-//   forward's flops); what holds it back is the scratch round trip (each
-//   pair reads and writes 2*64*d*4 bytes of dk/dv) and B*H CTAs, one wave
-//   at B*H = 384. A cluster that keeps dk/dv in distributed shared memory
-//   is later work.
+// flash_bwd_qmajor replaces _bwd_kernel_t_qmajor (via _bwd_t_qmajor,
+//   flash_attention.py:828-916). The TPU kernel walks query blocks on its
+//   sequential grid and keeps dk/dv for the whole sequence in fp32 VMEM
+//   scratch (2*T*d*4 bytes a head: 512 KB at T=1024, d=64, over a CTA's
+//   227 KB of shared memory). Here one CTA per (b, h) walks the query tiles
+//   itself and keeps its dk/dv accumulators in a global fp32 scratch slice
+//   that no other CTA touches (no atomics: a run repeats bitwise); per
+//   (query, key) tile pair S and dP are formed once, dq is carried in
+//   registers and written once per query tile, dk/dv are read, updated
+//   and written back in fp32 and cast once. Two designs
+//   (flash_bwd_qmajor_launch, the same _bwd_design):
+//   sm90: flash_delta_kernel, then flash_bwd_qmajor_sm90_kernel<D>: the
+//     producer loads each 128-query tile's q and do by TMA and streams its
+//     K / V tiles (128 keys at D = 64, 64 at D = 128) through a 2-stage
+//     ring; the consumers form S, dP, p, ds and dQ with flash_dq_sm90_kernel's
+//     code, store round(p)^T and round(ds)^T to swizzled shared memory as
+//     K-major A tiles (keys x 128 queries), and then consumer 0 forms dV +=
+//     P^T dO and consumer 1 dK += dS^T Q by SS wgmma (B MN-major) on the
+//     scratch slice (Tp = T rounded up to 128), each thread reading and
+//     writing only its own accumulator fragment elements (zero at a key
+//     tile's first visit; at its last visit the thread writes dv or dk in
+//     bf16 instead of the scratch, so no pass casts the slice).
+//     Registers: dq's, plus a 64-key accumulator half (two at D = 64: 64
+//     fp32; one at D = 128: 64).
+//   mma_sync / fp32: flash_bwd_qmajor_kernel, 64 x 64 tiles on mma.sync
+//     (delta formed in the kernel).
+//   Bound: the same operations as flash_bwd with S and dP formed once (10
+//   d flops a pair); what holds it back is the scratch round trip (each
+//   tile pair but a key tile's first and last visits reads and writes
+//   2 * keys * d * 4 bytes of dk/dv, most of it
+//   past the 50 MB L2 at 132 concurrent heads of 512 KB) and B*H CTAs
+//   (2.9 waves at B*H = 384). A cluster that keeps dk/dv in distributed
+//   shared memory is later work.
+//   Why K2-qmajor equals K2 bitwise, design for design (chip_smoke.py
+//   phases 5 and 21 check it): both read delta from flash_delta_kernel;
+//   p and ds come from one instruction sequence (bwd_p_ds: ex2 of
+//   fma(s, log2 e, -lse log2 e), the masks of pair_ok, round to nearest
+//   bf16) on the same S values (a bf16 product is exact in fp32, and a
+//   wgmma / mma.sync slice sums its 16 products in an order fixed by k, so
+//   S^T's and S's elements agree); and every output element accumulates
+//   the same 16-deep slices in the same order from zero: dk and dv over
+//   queries ascending from 0 (the fp32 scratch round trip is exact, a
+//   slice left out by one walk adds exact zeros in the other), dq over
+//   keys ascending. The RS and SS forms of one product give the same
+//   bits (the card checks it in phase 21).
 //
 // Masks are the Pallas kernels' exactly: NEG_INF = -1e30 for masked scores
 // in the forward, p = 0 for masked pairs in the backward, keys and queries
@@ -1086,6 +1148,798 @@ __global__ void __launch_bounds__(NT) flash_bwd_qmajor_kernel(FlashArgs a) {
   }
 }
 
+// ------------------------------------------------------ backward (Hopper)
+
+constexpr int BWD_ROWS = 128;  // rows an item owns (keys, or queries): 64 a consumer
+constexpr int BOX_BYTES = 64 * 128;  // a 64-row, 64-d TMA box (one consumer's output half)
+
+// rows of a streamed tile: the queries of a dK/dV step, the keys of a dQ
+// step (64 at D = 128, so S, dP and the D-wide accumulators fit the
+// consumers' registers)
+template <int D>
+__host__ __device__ constexpr int bwd_cols() {
+  return D == 64 ? 128 : 64;
+}
+template <int D>
+__host__ __device__ constexpr int dkdv_stages() {
+  return D == 64 ? 3 : 2;
+}
+constexpr int DQ_STAGES = 3;
+constexpr int QMAJOR_STAGES = 2;
+
+template <int D>
+constexpr int dkdv_smem() {
+  // K and V (128 keys), the q / do ring, the dk / dv staging (64 rows a
+  // consumer each), lse log2(e) and delta per stage, barriers, the item slot
+  return 1024 + (D / 64) * 128 * (2 * BWD_ROWS + 2 * dkdv_stages<D>() * bwd_cols<D>() + 4 * 64) +
+         2 * dkdv_stages<D>() * bwd_cols<D>() * 4 + (2 * dkdv_stages<D>() + 2) * 8 + 16;
+}
+template <int D>
+constexpr int dq_smem() {
+  // q and do (128 queries), the K / V ring, the dq staging, barriers, the slot
+  return 1024 + (D / 64) * 128 * (2 * BWD_ROWS + 2 * DQ_STAGES * bwd_cols<D>() + 2 * 64) +
+         (2 * DQ_STAGES + 2) * 8 + 16;
+}
+template <int D>
+constexpr int qmajor_smem() {
+  // q and do, the K / V ring, P^T and dS^T (keys x 128 queries), the dq
+  // staging, barriers
+  return 1024 + (D / 64) * 128 * (2 * BWD_ROWS + 2 * QMAJOR_STAGES * bwd_cols<D>() + 2 * 64) +
+         2 * bwd_cols<D>() * 2 * 128 + (2 * QMAJOR_STAGES + 2) * 8;
+}
+static_assert(dkdv_smem<64>() <= 232448 && dkdv_smem<128>() <= 232448, "dk/dv smem");
+static_assert(dq_smem<64>() <= 232448 && dq_smem<128>() <= 232448, "dq smem");
+static_assert(qmajor_smem<64>() <= 232448 && qmajor_smem<128>() <= 232448, "qmajor smem");
+
+// The query tiles [i_lo, i_hi) of ``bq`` rows that key rows [k0, k0 + 128)
+// meet: from the causal diagonal, up to the window's last live query.
+__device__ __forceinline__ void dkdv_walk(int k0, int T, int causal, int window, int bq, int& i_lo,
+                                          int& i_hi) {
+  const int q_lo = causal ? k0 : 0;
+  const int q_hi = window > 0 ? min(T, k0 + BWD_ROWS - 1 + window) : T;
+  i_lo = q_lo / bq;
+  i_hi = (q_hi + bq - 1) / bq;
+}
+
+// The key tiles [j_lo, j_hi) of ``bk`` rows that query rows [q0, q0 + 128)
+// meet: from the window's first live key, up to the causal diagonal.
+__device__ __forceinline__ void dq_walk(int q0, int T, int causal, int window, int bk, int& j_lo,
+                                        int& j_hi) {
+  const int k_hi = causal ? min(T, q0 + BWD_ROWS) : T;
+  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  j_lo = k_lo / bk;
+  j_hi = (k_hi + bk - 1) / bk;
+}
+
+// p = exp(s - lse) (0 on a masked pair) from lse2 = lse log2(e), and
+// ds = p (dp - delta): one instruction sequence for every backward kernel,
+// so that the query-major and the k-major designs agree bitwise.
+__device__ __forceinline__ void bwd_p_ds(float& s, float& dp, float lse2, float dl, bool ok) {
+  const float p = ok ? sm90::ex2(fmaf(s, LOG2E, -lse2)) : 0.f;
+  dp = p * (dp - dl);
+  s = p;
+}
+
+// p, ds of a consumer's 64 x BQ S^T / dP^T fragments (rows: keys from kr;
+// columns: queries from qb0), in place; lsq / dlq: the tile's lse log2(e)
+// and delta by query, read once for each of a thread's column pairs
+// (c, c + 1); MASK: the tile is cut by the diagonal, the window or T.
+template <bool MASK, int BQ>
+__device__ __forceinline__ void dkdv_p_ds(float (&s)[BQ / 2], float (&dp)[BQ / 2], const float* lsq,
+                                          const float* dlq, int tid, int qb0, int kr, int T,
+                                          int causal, int window) {
+#pragma unroll
+  for (int n = 0; n < BQ / 8; ++n) {
+    const int c = sm90::frag_col(tid, n, 0);
+    const float2 l2 = make_float2(lsq[c], lsq[c + 1]);
+    const float2 d2 = make_float2(dlq[c], dlq[c + 1]);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const bool ok =
+          !MASK || pair_ok(qb0 + c + (e & 1), kr + sm90::frag_row(tid, e), T, causal, window);
+      bwd_p_ds(s[4 * n + e], dp[4 * n + e], e & 1 ? l2.y : l2.x, e & 1 ? d2.y : d2.x, ok);
+    }
+  }
+}
+
+// A consumer's 64 x D fp32 accumulator rounded to bf16 into ``st`` in the
+// TMA box layout (64-d halves one box apart, 16-byte chunk c of row r at
+// c ^ (r % 8)).
+template <int D>
+__device__ __forceinline__ void stage_bf16(const float (&acc)[D / 2], unsigned char* st, int tid) {
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = sm90::frag_row(tid, 2 * i), c = sm90::frag_col(tid, n, 0) & 63;
+      unsigned char* dst =
+          st + (n >> 3) * BOX_BYTES + r * 128 + (((c >> 3) ^ (r & 7)) << 4) + (c & 7) * 2;
+      *reinterpret_cast<uint32_t*>(dst) = sm90::pack_bf16(acc[4 * n + 2 * i], acc[4 * n + 2 * i + 1]);
+    }
+  }
+}
+
+// The TMA store of a consumer's staged 64 rows from ``row0`` (rows past T
+// are not written), committed in the calling thread's bulk group.
+template <int D>
+__device__ __forceinline__ void store_rows(const CUtensorMap* map, const unsigned char* st, int row0,
+                                           int h, int b) {
+#pragma unroll
+  for (int hh = 0; hh < D / 64; ++hh) sm90::tma_store_4d(map, st + hh * BOX_BYTES, 64 * hh, row0, h, b);
+}
+
+// bf16 pairs of a 64 x N fp32 fragment: the A fragments of an RS product
+// over its N columns (16-deep slice kk in a[4 kk .. 4 kk + 3]).
+template <int N>
+__device__ __forceinline__ void pack_frag(const float (&x)[N / 2], uint32_t (&a)[N / 4]) {
+#pragma unroll
+  for (int n = 0; n < N / 8; ++n) {
+    a[2 * n] = sm90::pack_bf16(x[4 * n], x[4 * n + 1]);
+    a[2 * n + 1] = sm90::pack_bf16(x[4 * n + 2], x[4 * n + 3]);
+  }
+}
+
+// flash_dkdv_sm90_kernel: persistent; an item is (b*h, 128-key tile), heads
+// in order and each head's first key tiles (the longest causal walks)
+// first, taken from a counter in device memory. Warp 0 of the producer
+// warpgroup loads the item's K and V by TMA, then streams the walk's q and
+// do tiles (``bwd_cols`` queries) through an mbarrier ring, each with its
+// rows' lse log2(e) and delta (plain loads into the stage, completed by the
+// warp's arrivals on the stage's barrier). Each consumer warpgroup owns 64
+// keys: per query tile S^T = K Q^T and dP^T = V dO^T (SS, both K-major),
+// p and ds in registers (bwd_p_ds), rounded to bf16 in pairs straight into
+// the A fragments of dV += P^T dO and dK += dS^T Q (RS, B MN-major); dk and
+// dv in fp32 registers across the walk, stored once by TMA.
+template <int D>
+__global__ void __launch_bounds__(384, 1)
+    flash_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap mq,
+                           const __grid_constant__ CUtensorMap mk,
+                           const __grid_constant__ CUtensorMap mv,
+                           const __grid_constant__ CUtensorMap mdo,
+                           const __grid_constant__ CUtensorMap mdk,
+                           const __grid_constant__ CUtensorMap mdv, const float* lse,
+                           const float* delta, int* next_item, int items, int H, int T, int causal,
+                           int window) {
+  constexpr int HALVES = D / 64;
+  constexpr int BQ = bwd_cols<D>();
+  constexpr int STAGES = dkdv_stages<D>();
+  constexpr int KV_HALF = BWD_ROWS * 128;  // one 64-d half of the K or V tile
+  constexpr int Q_HALF = BQ * 128;         // one 64-d half of a q or do tile
+  constexpr int Q_BYTES = HALVES * Q_HALF;
+  constexpr int ST_BYTES = HALVES * BOX_BYTES;
+  unsigned char* base = sm90::sm90_smem + ((1024 - (sm90::smem_u32(sm90::sm90_smem) & 1023)) & 1023);
+  unsigned char* ks = base;
+  unsigned char* vs = ks + HALVES * KV_HALF;
+  unsigned char* qs = vs + HALVES * KV_HALF;   // [STAGES][Q_BYTES]
+  unsigned char* dos = qs + STAGES * Q_BYTES;  // [STAGES][Q_BYTES]
+  unsigned char* outs = dos + STAGES * Q_BYTES;  // [consumer][dk, dv][ST_BYTES]
+  float* ls = reinterpret_cast<float*>(outs + 4 * ST_BYTES);  // [STAGES][BQ] lse log2(e)
+  float* dls = ls + STAGES * BQ;                               // [STAGES][BQ] delta
+  uint64_t* full = reinterpret_cast<uint64_t*>(dls + STAGES * BQ);
+  uint64_t* empty = full + STAGES;
+  uint64_t* kvfull = empty + STAGES;
+  uint64_t* kvempty = kvfull + 1;
+  volatile int* item_slot = reinterpret_cast<volatile int*>(kvempty + 1);
+
+  const int nk = (T + BWD_ROWS - 1) / BWD_ROWS;
+  const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      sm90::mbar_init(&full[s], 33);  // the producer warp's lanes and the expect_tx
+      sm90::mbar_init(&empty[s], 8);  // one arrive per consumer warp
+    }
+    sm90::mbar_init(kvfull, 1);
+    sm90::mbar_init(kvempty, 8);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (tid < 32) {
+      const int lane = tid;
+      int stage = 0;
+      uint32_t phase = 0, kvphase = 0;
+      for (;;) {
+        int w = 0;
+        if (lane == 0) w = atomicAdd(next_item, 1);
+        w = __shfl_sync(0xffffffffu, w, 0);
+        sm90::mbar_wait(kvempty, kvphase ^ 1);  // the last item's S^T / dP^T are done
+        if (lane == 0) *item_slot = w;
+        if (w >= items) {
+          if (lane == 0) sm90::mbar_arrive(kvfull);
+          break;
+        }
+        const int bh = w / nk, k0 = (w - bh * nk) * BWD_ROWS;
+        const int b = bh / H, h = bh - b * H;
+        int i_lo, i_hi;
+        dkdv_walk(k0, T, causal, window, BQ, i_lo, i_hi);
+        if (lane == 0) {
+          sm90::mbar_expect_tx(kvfull, 2 * HALVES * KV_HALF);
+#pragma unroll
+          for (int hh = 0; hh < HALVES; ++hh) {
+            sm90::tma_load(ks + hh * KV_HALF, &mk, kvfull, 4, 64 * hh, k0, h, b);
+            sm90::tma_load(vs + hh * KV_HALF, &mv, kvfull, 4, 64 * hh, k0, h, b);
+          }
+        }
+        kvphase ^= 1;
+        const float* lg = lse + (long long)bh * T;
+        const float* dg = delta + (long long)bh * T;
+        for (int i = i_lo; i < i_hi; ++i) {
+          sm90::mbar_wait(&empty[stage], phase ^ 1);
+          if (lane == 0) {
+            sm90::mbar_expect_tx(&full[stage], 2 * Q_BYTES);
+#pragma unroll
+            for (int hh = 0; hh < HALVES; ++hh) {
+              sm90::tma_load(qs + stage * Q_BYTES + hh * Q_HALF, &mq, &full[stage], 4, 64 * hh,
+                             i * BQ, h, b);
+              sm90::tma_load(dos + stage * Q_BYTES + hh * Q_HALF, &mdo, &full[stage], 4, 64 * hh,
+                             i * BQ, h, b);
+            }
+          }
+          for (int r = lane; r < BQ; r += 32) {
+            const int row = i * BQ + r;
+            ls[stage * BQ + r] = row < T ? lg[row] * LOG2E : 0.f;
+            dls[stage * BQ + r] = row < T ? dg[row] : 0.f;
+          }
+          sm90::mbar_arrive(&full[stage]);
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int cw = wg - 1, lane = tid & 31;
+    const unsigned char* ka = ks + cw * BOX_BYTES;  // this consumer's 64 keys of each half
+    const unsigned char* va = vs + cw * BOX_BYTES;
+    unsigned char* sk = outs + cw * 2 * ST_BYTES;
+    unsigned char* sv = sk + ST_BYTES;
+    float dk[D / 2], dv[D / 2];
+    int stage = 0;
+    uint32_t phase = 0, kvphase = 0;
+    for (;;) {
+      sm90::mbar_wait(kvfull, kvphase);
+      kvphase ^= 1;
+      const int w = *item_slot;
+      if (w >= items) break;
+      const int bh = w / nk, k0 = (w - bh * nk) * BWD_ROWS;
+      const int b = bh / H, h = bh - b * H;
+      int i_lo, i_hi;
+      dkdv_walk(k0, T, causal, window, BQ, i_lo, i_hi);
+      const int kr = k0 + 64 * cw;  // this consumer's first key
+#pragma unroll
+      for (int x = 0; x < D / 2; ++x) dk[x] = dv[x] = 0.f;
+      for (int i = i_lo; i < i_hi; ++i) {
+        const int qb0 = i * BQ;
+        const unsigned char* qt = qs + stage * Q_BYTES;
+        const unsigned char* dt = dos + stage * Q_BYTES;
+        float s[BQ / 2], dp[BQ / 2];
+        sm90::mbar_wait(&full[stage], phase);
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {  // S^T = K Q^T
+          sm90::wgmma_nt<BQ>(s, sm90::smem_desc(ka + (kk >> 2) * KV_HALF + (kk & 3) * 32, 16, 1024),
+                             sm90::smem_desc(qt + (kk >> 2) * Q_HALF + (kk & 3) * 32, 16, 1024),
+                             kk > 0);
+        }
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {  // dP^T = V dO^T
+          sm90::wgmma_nt<BQ>(dp, sm90::smem_desc(va + (kk >> 2) * KV_HALF + (kk & 3) * 32, 16, 1024),
+                             sm90::smem_desc(dt + (kk >> 2) * Q_HALF + (kk & 3) * 32, 16, 1024),
+                             kk > 0);
+        }
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(s);
+        sm90::fence_regs(dp);
+        if (i + 1 == i_hi && lane == 0) sm90::mbar_arrive(kvempty);  // K, V read for the last time
+        const bool whole = (kr + 64 <= T) && (qb0 + BQ <= T) && (!causal || kr + 63 <= qb0) &&
+                           (window == 0 || qb0 + BQ - 1 - kr < window);
+        if (whole)
+          dkdv_p_ds<false, BQ>(s, dp, ls + stage * BQ, dls + stage * BQ, tid, qb0, kr, T, causal,
+                               window);
+        else
+          dkdv_p_ds<true, BQ>(s, dp, ls + stage * BQ, dls + stage * BQ, tid, qb0, kr, T, causal,
+                              window);
+        uint32_t pa[BQ / 4], da[BQ / 4];
+        pack_frag<BQ>(s, pa);
+        pack_frag<BQ>(dp, da);
+        sm90::fence_regs(dk);
+        sm90::fence_regs(dv);
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk) {  // dV += P^T dO
+          const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3]};
+          sm90::wgmma_pv<D>(dv, a, sm90::smem_desc(dt + kk * 2048, Q_HALF, 1024));
+        }
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk) {  // dK += dS^T Q
+          const uint32_t a[4] = {da[4 * kk], da[4 * kk + 1], da[4 * kk + 2], da[4 * kk + 3]};
+          sm90::wgmma_pv<D>(dk, a, sm90::smem_desc(qt + kk * 2048, Q_HALF, 1024));
+        }
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(dv);
+        sm90::fence_regs(dk);
+        sm90::keep_regs(pa);
+        sm90::keep_regs(da);
+        if (lane == 0) sm90::mbar_arrive(&empty[stage]);
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      if (i_lo >= i_hi && lane == 0) sm90::mbar_arrive(kvempty);
+      // dk and dv rounded once into this consumer's staging rows and stored
+      // by TMA; the previous item's store must have read them first
+      if (tid == 0) sm90::tma_store_wait_read();
+      sm90::named_sync(1 + cw);
+      stage_bf16<D>(dk, sk, tid);
+      stage_bf16<D>(dv, sv, tid);
+      sm90::fence_proxy_async();
+      sm90::named_sync(1 + cw);
+      if (tid == 0) {
+        store_rows<D>(&mdk, sk, kr, h, b);
+        store_rows<D>(&mdv, sv, kr, h, b);
+        sm90::tma_store_commit();
+      }
+    }
+    if (tid == 0) sm90::tma_store_wait_all();
+  }
+}
+
+// p, ds of a consumer's 64 x BK S / dP fragments (rows: queries r0 and r0 + 8;
+// columns: keys from kb0), in place; then ds in bf16 pairs into ``da``.
+template <bool MASK, int BK>
+__device__ __forceinline__ void dq_p_ds_tile(float (&s)[BK / 2], float (&dp)[BK / 2], int tid, int r0,
+                                             int kb0, const float (&lse2)[2], const float (&dl)[2],
+                                             int T, int causal, int window) {
+#pragma unroll
+  for (int n = 0; n < BK / 8; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = e >> 1;
+      const bool ok =
+          !MASK || pair_ok(r0 + 8 * i, kb0 + sm90::frag_col(tid, n, e), T, causal, window);
+      bwd_p_ds(s[4 * n + e], dp[4 * n + e], lse2[i], dl[i], ok);
+    }
+  }
+}
+
+template <int BK>
+__device__ __forceinline__ void dq_p_ds(float (&s)[BK / 2], float (&dp)[BK / 2], uint32_t (&da)[BK / 4],
+                                        int tid, int r0, int kb0, bool whole, const float (&lse2)[2],
+                                        const float (&dl)[2], int T, int causal, int window) {
+  if (whole)
+    dq_p_ds_tile<false, BK>(s, dp, tid, r0, kb0, lse2, dl, T, causal, window);
+  else
+    dq_p_ds_tile<true, BK>(s, dp, tid, r0, kb0, lse2, dl, T, causal, window);
+  pack_frag<BK>(dp, da);
+}
+
+// S = Q K^T and dP = dO V^T of a consumer's 64 queries (qa, doa: its rows of
+// the 128-query q and do tiles) against a BK-key K / V tile (issued,
+// committed and waited).
+template <int D, int BK>
+__device__ __forceinline__ void dq_s_dp(float (&s)[BK / 2], float (&dp)[BK / 2], const unsigned char* qa,
+                                        const unsigned char* doa, const unsigned char* kt,
+                                        const unsigned char* vt) {
+  sm90::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    sm90::wgmma_nt<BK>(s, sm90::smem_desc(qa + (kk >> 2) * (BWD_ROWS * 128) + (kk & 3) * 32, 16, 1024),
+                       sm90::smem_desc(kt + (kk >> 2) * (BK * 128) + (kk & 3) * 32, 16, 1024), kk > 0);
+  }
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    sm90::wgmma_nt<BK>(dp, sm90::smem_desc(doa + (kk >> 2) * (BWD_ROWS * 128) + (kk & 3) * 32, 16, 1024),
+                       sm90::smem_desc(vt + (kk >> 2) * (BK * 128) + (kk & 3) * 32, 16, 1024), kk > 0);
+  }
+  sm90::wgmma_commit();
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(s);
+  sm90::fence_regs(dp);
+}
+
+// dQ += dS K over a BK-key tile: ds in bf16 pairs (RS), K MN-major (issued
+// and committed, not waited).
+template <int D, int BK>
+__device__ __forceinline__ void dq_issue(float (&dq)[D / 2], const uint32_t (&da)[BK / 4],
+                                         const unsigned char* kt) {
+  sm90::fence_regs(dq);
+  sm90::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    const uint32_t a[4] = {da[4 * kk], da[4 * kk + 1], da[4 * kk + 2], da[4 * kk + 3]};
+    sm90::wgmma_pv<D>(dq, a, sm90::smem_desc(kt + kk * 2048, BK * 128, 1024));
+  }
+  sm90::wgmma_commit();
+}
+
+// lse log2(e) and delta of rows r0 and r0 + 8 (0 past T).
+__device__ __forceinline__ void row_stats(float (&lse2)[2], float (&dl)[2], const float* lse,
+                                          const float* delta, long long bh, int r0, int T) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + 8 * i;
+    lse2[i] = row < T ? lse[bh * T + row] * LOG2E : 0.f;
+    dl[i] = row < T ? delta[bh * T + row] : 0.f;
+  }
+}
+
+// flash_dq_sm90_kernel: persistent, the forward's item walk (b*h, 128-query
+// tile; each head's last, longest causal tiles first). The producer loads
+// the item's q and do by TMA, then streams its K / V tiles (``bwd_cols``
+// keys) through the ring. Each consumer owns 64 queries: per key tile
+// S = Q K^T and dP = dO V^T (SS), p and ds (bwd_p_ds), dQ += dS K (RS, K
+// MN-major); dq stored once by TMA.
+template <int D>
+__global__ void __launch_bounds__(384, 1)
+    flash_dq_sm90_kernel(const __grid_constant__ CUtensorMap mq,
+                         const __grid_constant__ CUtensorMap mk,
+                         const __grid_constant__ CUtensorMap mv,
+                         const __grid_constant__ CUtensorMap mdo,
+                         const __grid_constant__ CUtensorMap mdq, const float* lse,
+                         const float* delta, int* next_item, int items, int H, int T, int causal,
+                         int window) {
+  constexpr int HALVES = D / 64;
+  constexpr int BK = bwd_cols<D>();
+  constexpr int STAGES = DQ_STAGES;
+  constexpr int Q_HALF = BWD_ROWS * 128;
+  constexpr int KV_HALF = BK * 128;
+  constexpr int KV_BYTES = HALVES * KV_HALF;
+  unsigned char* base = sm90::sm90_smem + ((1024 - (sm90::smem_u32(sm90::sm90_smem) & 1023)) & 1023);
+  unsigned char* qs = base;
+  unsigned char* dos = qs + HALVES * Q_HALF;
+  unsigned char* ks = dos + HALVES * Q_HALF;   // [STAGES][KV_BYTES]
+  unsigned char* vs = ks + STAGES * KV_BYTES;  // [STAGES][KV_BYTES]
+  unsigned char* outs = vs + STAGES * KV_BYTES;  // [consumer][HALVES * BOX_BYTES]
+  uint64_t* full = reinterpret_cast<uint64_t*>(outs + 2 * HALVES * BOX_BYTES);
+  uint64_t* empty = full + STAGES;
+  uint64_t* qfull = empty + STAGES;
+  uint64_t* qempty = qfull + 1;
+  volatile int* item_slot = reinterpret_cast<volatile int*>(qempty + 1);
+
+  const int nq = (T + BWD_ROWS - 1) / BWD_ROWS;
+  const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 8);
+    }
+    sm90::mbar_init(qfull, 1);
+    sm90::mbar_init(qempty, 8);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (tid == 0) {
+      int stage = 0;
+      uint32_t phase = 0, qphase = 0;
+      for (;;) {
+        const int w = atomicAdd(next_item, 1);
+        sm90::mbar_wait(qempty, qphase ^ 1);
+        *item_slot = w;
+        if (w >= items) {
+          sm90::mbar_arrive(qfull);
+          break;
+        }
+        const int bh = w / nq, q0 = (nq - 1 - (w - bh * nq)) * BWD_ROWS;
+        const int b = bh / H, h = bh - b * H;
+        int j_lo, j_hi;
+        dq_walk(q0, T, causal, window, BK, j_lo, j_hi);
+        sm90::mbar_expect_tx(qfull, 2 * HALVES * Q_HALF);
+#pragma unroll
+        for (int hh = 0; hh < HALVES; ++hh) {
+          sm90::tma_load(qs + hh * Q_HALF, &mq, qfull, 4, 64 * hh, q0, h, b);
+          sm90::tma_load(dos + hh * Q_HALF, &mdo, qfull, 4, 64 * hh, q0, h, b);
+        }
+        qphase ^= 1;
+        for (int j = j_lo; j < j_hi; ++j) {
+          sm90::mbar_wait(&empty[stage], phase ^ 1);
+          sm90::mbar_expect_tx(&full[stage], 2 * KV_BYTES);
+#pragma unroll
+          for (int hh = 0; hh < HALVES; ++hh) {
+            sm90::tma_load(ks + stage * KV_BYTES + hh * KV_HALF, &mk, &full[stage], 4, 64 * hh,
+                           j * BK, h, b);
+            sm90::tma_load(vs + stage * KV_BYTES + hh * KV_HALF, &mv, &full[stage], 4, 64 * hh,
+                           j * BK, h, b);
+          }
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int cw = wg - 1, lane = tid & 31;
+    const unsigned char* qa = qs + cw * BOX_BYTES;  // this consumer's 64 queries of each half
+    const unsigned char* doa = dos + cw * BOX_BYTES;
+    unsigned char* sq = outs + cw * HALVES * BOX_BYTES;
+    float dq[D / 2];
+    int stage = 0;
+    uint32_t phase = 0, qphase = 0;
+    for (;;) {
+      sm90::mbar_wait(qfull, qphase);
+      qphase ^= 1;
+      const int w = *item_slot;
+      if (w >= items) break;
+      const int bh = w / nq, q0 = (nq - 1 - (w - bh * nq)) * BWD_ROWS;
+      const int b = bh / H, h = bh - b * H;
+      int j_lo, j_hi;
+      dq_walk(q0, T, causal, window, BK, j_lo, j_hi);
+      const int qr = q0 + 64 * cw, r0 = qr + sm90::frag_row(tid, 0);
+      float lse2[2], dl[2];
+      row_stats(lse2, dl, lse, delta, bh, r0, T);
+#pragma unroll
+      for (int x = 0; x < D / 2; ++x) dq[x] = 0.f;
+      for (int j = j_lo; j < j_hi; ++j) {
+        const int kb0 = j * BK;
+        const unsigned char* kt = ks + stage * KV_BYTES;
+        float s[BK / 2], dp[BK / 2];
+        uint32_t da[BK / 4];
+        sm90::mbar_wait(&full[stage], phase);
+        dq_s_dp<D, BK>(s, dp, qa, doa, kt, vs + stage * KV_BYTES);
+        if (j + 1 == j_hi && lane == 0) sm90::mbar_arrive(qempty);  // q, do read for the last time
+        const bool whole = (kb0 + BK <= T) && (qr + 64 <= T) && (!causal || kb0 + BK - 1 <= qr) &&
+                           (window == 0 || qr + 63 - kb0 < window);
+        dq_p_ds<BK>(s, dp, da, tid, r0, kb0, whole, lse2, dl, T, causal, window);
+        dq_issue<D, BK>(dq, da, kt);
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(dq);
+        sm90::keep_regs(da);
+        if (lane == 0) sm90::mbar_arrive(&empty[stage]);
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      if (j_lo >= j_hi && lane == 0) sm90::mbar_arrive(qempty);
+      if (tid == 0) sm90::tma_store_wait_read();
+      sm90::named_sync(1 + cw);
+      stage_bf16<D>(dq, sq, tid);
+      sm90::fence_proxy_async();
+      sm90::named_sync(1 + cw);
+      if (tid == 0) {
+        store_rows<D>(&mdq, sq, qr, h, b);
+        sm90::tma_store_commit();
+      }
+    }
+    if (tid == 0) sm90::tma_store_wait_all();
+  }
+}
+
+// flash_bwd_qmajor_sm90_kernel: one CTA per (b, h) walks its 128-query tiles
+// in order and, inside each, the key tiles (``bwd_cols`` keys) between the
+// forward's bounds; the producer loads each query tile's q and do by TMA and
+// streams the K / V tiles through the ring. Per tile pair the consumers
+// (64 queries each) form S and dP once and p, ds as flash_dq_sm90_kernel
+// does (the same code), carry dq in registers (RS, written once per query
+// tile by TMA), and store round(p)^T and round(ds)^T to shared memory as
+// K-major A tiles (keys x 128 queries, consumer c's queries in half c).
+// Then consumer 0 forms dV += P^T dO and consumer 1 dK += dS^T Q (SS, B
+// MN-major) on the tile's keys, carried in this CTA's slice of the fp32
+// scratch ``acc`` ((B*H, 2, Tp, D), Tp = T rounded up to 128): each thread
+// reads and writes only its own fragment elements, starting from zero at a
+// key tile's first visit; at its last visit it writes dv or dk in bf16
+// instead (the scratch round trip is the kernel's bound: each other visit
+// reads and writes 2 * keys * D * 4 bytes).
+template <int D>
+__global__ void __launch_bounds__(384, 1)
+    flash_bwd_qmajor_sm90_kernel(const __grid_constant__ CUtensorMap mq,
+                                 const __grid_constant__ CUtensorMap mk,
+                                 const __grid_constant__ CUtensorMap mv,
+                                 const __grid_constant__ CUtensorMap mdo,
+                                 const __grid_constant__ CUtensorMap mdq, const float* lse,
+                                 const float* delta, float* acc, bf16* dkg, bf16* dvg, Strides sdk,
+                                 Strides sdv, int H, int T, int causal, int window) {
+  constexpr int HALVES = D / 64;
+  constexpr int BK = bwd_cols<D>();
+  constexpr int MH = BK / 64;  // 64-key row halves of a key tile
+  constexpr int STAGES = QMAJOR_STAGES;
+  constexpr int Q_HALF = BWD_ROWS * 128;
+  constexpr int KV_HALF = BK * 128;
+  constexpr int KV_BYTES = HALVES * KV_HALF;
+  constexpr int PT_HALF = BK * 128;  // 64 queries of P^T / dS^T: BK key rows of 128 bytes
+  unsigned char* base = sm90::sm90_smem + ((1024 - (sm90::smem_u32(sm90::sm90_smem) & 1023)) & 1023);
+  unsigned char* qs = base;
+  unsigned char* dos = qs + HALVES * Q_HALF;
+  unsigned char* ks = dos + HALVES * Q_HALF;   // [STAGES][KV_BYTES]
+  unsigned char* vs = ks + STAGES * KV_BYTES;  // [STAGES][KV_BYTES]
+  unsigned char* pt = vs + STAGES * KV_BYTES;  // round(p)^T [2][PT_HALF]
+  unsigned char* dst = pt + 2 * PT_HALF;       // round(ds)^T [2][PT_HALF]
+  unsigned char* outs = dst + 2 * PT_HALF;     // [consumer][HALVES * BOX_BYTES]
+  uint64_t* full = reinterpret_cast<uint64_t*>(outs + 2 * HALVES * BOX_BYTES);
+  uint64_t* empty = full + STAGES;
+  uint64_t* qfull = empty + STAGES;
+  uint64_t* qempty = qfull + 1;
+
+  const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
+  const int nq = (T + BWD_ROWS - 1) / BWD_ROWS;
+  const long long tp = (long long)nq * BWD_ROWS;
+  float* dk_acc = acc + (long long)bh * 2 * tp * D;
+  float* dv_acc = dk_acc + tp * D;
+  const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 8);
+    }
+    sm90::mbar_init(qfull, 1);
+    sm90::mbar_init(qempty, 8);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (tid == 0) {
+      int stage = 0;
+      uint32_t phase = 0, qphase = 0;
+      for (int i = 0; i < nq; ++i) {
+        const int q0 = i * BWD_ROWS;
+        int j_lo, j_hi;
+        dq_walk(q0, T, causal, window, BK, j_lo, j_hi);
+        sm90::mbar_wait(qempty, qphase ^ 1);  // the last query tile's products are done
+        sm90::mbar_expect_tx(qfull, 2 * HALVES * Q_HALF);
+#pragma unroll
+        for (int hh = 0; hh < HALVES; ++hh) {
+          sm90::tma_load(qs + hh * Q_HALF, &mq, qfull, 4, 64 * hh, q0, h, b);
+          sm90::tma_load(dos + hh * Q_HALF, &mdo, qfull, 4, 64 * hh, q0, h, b);
+        }
+        qphase ^= 1;
+        for (int j = j_lo; j < j_hi; ++j) {
+          sm90::mbar_wait(&empty[stage], phase ^ 1);
+          sm90::mbar_expect_tx(&full[stage], 2 * KV_BYTES);
+#pragma unroll
+          for (int hh = 0; hh < HALVES; ++hh) {
+            sm90::tma_load(ks + stage * KV_BYTES + hh * KV_HALF, &mk, &full[stage], 4, 64 * hh,
+                           j * BK, h, b);
+            sm90::tma_load(vs + stage * KV_BYTES + hh * KV_HALF, &mv, &full[stage], 4, 64 * hh,
+                           j * BK, h, b);
+          }
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int cw = wg - 1, lane = tid & 31;
+    const unsigned char* qa = qs + cw * BOX_BYTES;
+    const unsigned char* doa = dos + cw * BOX_BYTES;
+    unsigned char* sq = outs + cw * HALVES * BOX_BYTES;
+    // consumer 0: dV += P^T dO; consumer 1: dK += dS^T Q
+    const unsigned char* at = cw == 0 ? pt : dst;
+    const unsigned char* bt = cw == 0 ? dos : qs;
+    float* sc = cw == 0 ? dv_acc : dk_acc;
+    bf16* out = cw == 0 ? dvg + b * sdv.b + h * sdv.h : dkg + b * sdk.b + h * sdk.h;
+    const long long out_t = cw == 0 ? sdv.t : sdk.t;
+    float dq[D / 2];
+    int stage = 0;
+    uint32_t phase = 0, qphase = 0;
+    for (int i = 0; i < nq; ++i) {
+      const int q0 = i * BWD_ROWS;
+      int j_lo, j_hi, j_next = 0;
+      dq_walk(q0, T, causal, window, BK, j_lo, j_hi);
+      if (i + 1 < nq) {  // the next query tile's first key tile (the window's)
+        int jh;
+        dq_walk(q0 + BWD_ROWS, T, causal, window, BK, j_next, jh);
+      }
+      sm90::mbar_wait(qfull, qphase);
+      qphase ^= 1;
+      const int qr = q0 + 64 * cw, r0 = qr + sm90::frag_row(tid, 0);
+      float lse2[2], dl[2];
+      row_stats(lse2, dl, lse, delta, bh, r0, T);
+#pragma unroll
+      for (int x = 0; x < D / 2; ++x) dq[x] = 0.f;
+      for (int j = j_lo; j < j_hi; ++j) {
+        const int kb0 = j * BK;
+        const unsigned char* kt = ks + stage * KV_BYTES;
+        float s[BK / 2], dp[BK / 2];
+        uint32_t da[BK / 4];
+        sm90::mbar_wait(&full[stage], phase);
+        dq_s_dp<D, BK>(s, dp, qa, doa, kt, vs + stage * KV_BYTES);
+        const bool whole = (kb0 + BK <= T) && (qr + 64 <= T) && (!causal || kb0 + BK - 1 <= qr) &&
+                           (window == 0 || qr + 63 - kb0 < window);
+        dq_p_ds<BK>(s, dp, da, tid, r0, kb0, whole, lse2, dl, T, causal, window);
+        // the last pair's dV / dK products have read P^T and dS^T
+        asm volatile("bar.sync 3, 256;\n" ::: "memory");
+#pragma unroll
+        for (int n = 0; n < BK / 8; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = sm90::frag_col(tid, n, e), qq = sm90::frag_row(tid, e);
+            const int off = cw * PT_HALF + key * 128 + ((((qq >> 3) ^ (key & 7)) << 4) | ((qq & 7) * 2));
+            *reinterpret_cast<bf16*>(pt + off) = __float2bfloat16(s[4 * n + e]);
+            *reinterpret_cast<bf16*>(dst + off) = __float2bfloat16(dp[4 * n + e]);
+          }
+        }
+        sm90::fence_proxy_async();
+        dq_issue<D, BK>(dq, da, kt);
+        const bool first = causal ? (kb0 / BWD_ROWS == i) : (i == 0);
+        float ac[MH][D / 2];
+#pragma unroll
+        for (int mh = 0; mh < MH; ++mh) {
+#pragma unroll
+          for (int n = 0; n < D / 8; ++n) {
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const long long row = kb0 + 64 * mh + sm90::frag_row(tid, 2 * r);
+              float2 x = make_float2(0.f, 0.f);
+              if (!first) x = *reinterpret_cast<const float2*>(sc + row * D + sm90::frag_col(tid, n, 0));
+              ac[mh][4 * n + 2 * r] = x.x;
+              ac[mh][4 * n + 2 * r + 1] = x.y;
+            }
+          }
+          sm90::fence_regs(ac[mh]);
+        }
+        asm volatile("bar.sync 3, 256;\n" ::: "memory");  // both halves of P^T, dS^T stored
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int mh = 0; mh < MH; ++mh) {
+#pragma unroll
+          for (int kk = 0; kk < BWD_ROWS / 16; ++kk) {
+            sm90::wgmma_pv_ss<D>(
+                ac[mh], sm90::smem_desc(at + (kk >> 2) * PT_HALF + mh * BOX_BYTES + (kk & 3) * 32, 16, 1024),
+                sm90::smem_desc(bt + kk * 2048, Q_HALF, 1024));
+          }
+        }
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();  // dQ's and this consumer's dV / dK products
+        sm90::fence_regs(dq);
+        sm90::keep_regs(da);
+        // a key tile's last visit (no later query tile walks it) writes dv or
+        // dk in the input dtype, every other one the fp32 scratch
+        const bool last = i + 1 == nq || j < j_next;
+#pragma unroll
+        for (int mh = 0; mh < MH; ++mh) {
+          sm90::fence_regs(ac[mh]);
+#pragma unroll
+          for (int n = 0; n < D / 8; ++n) {
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const int row = kb0 + 64 * mh + sm90::frag_row(tid, 2 * r);
+              const int col = sm90::frag_col(tid, n, 0);
+              const float x = ac[mh][4 * n + 2 * r], y = ac[mh][4 * n + 2 * r + 1];
+              if (!last)
+                *reinterpret_cast<float2*>(sc + (long long)row * D + col) = make_float2(x, y);
+              else if (row < T)
+                *reinterpret_cast<__nv_bfloat162*>(out + row * out_t + col) =
+                    __floats2bfloat162_rn(x, y);
+            }
+          }
+        }
+        if (lane == 0) sm90::mbar_arrive(&empty[stage]);
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      if (lane == 0) sm90::mbar_arrive(qempty);  // q, do read for the last time
+      if (tid == 0) sm90::tma_store_wait_read();
+      sm90::named_sync(1 + cw);
+      stage_bf16<D>(dq, sq, tid);
+      sm90::fence_proxy_async();
+      sm90::named_sync(1 + cw);
+      if (tid == 0) {
+        store_rows<D>(&mdq, sq, qr, h, b);
+        sm90::tma_store_commit();
+      }
+    }
+    if (tid == 0) sm90::tma_store_wait_all();
+  }
+}
+
 // ----------------------------------------------------------------- launch
 
 template <typename K>
@@ -1137,29 +1991,49 @@ cudaError_t fwd_sm90(const FlashArgs& a, int* next_item, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-// The Hopper design's operand rules: D = 64 or 128; the 16-byte aligned
-// bases and (b, h, t) strides of ``n`` operands (q, k, v[, o]) that TMA can
-// address (t strides and (b, h) strides of extent > 1 multiples of 8
-// elements).
+// A bf16 operand TMA can address through its (b, h, t) strides: a 16-byte
+// aligned base, the t stride and (b, h) strides of extent > 1 multiples of
+// 8 elements.
+bool tma_operand_ok(const void* p, const Strides& st, const FlashArgs* a) {
+  return p != nullptr && (uintptr_t)p % 16 == 0 && (a->B == 1 || st.b % 8 == 0) &&
+         (a->H == 1 || st.h % 8 == 0) && st.t % 8 == 0;
+}
+
+// The Hopper design's operand rules: D = 64 or 128; ``n`` operands (q, k,
+// v[, o]) TMA can address.
 bool sm90_args_ok(const FlashArgs* a, int n) {
   if (a->D != 64 && a->D != 128) return false;
   const void* ptrs[4] = {a->q, a->k, a->v, a->o};
   const Strides* strides[4] = {&a->sq, &a->sk, &a->sv, &a->so};
-  for (int i = 0; i < n; ++i) {
-    const Strides& st = *strides[i];
-    if ((uintptr_t)ptrs[i] % 16 != 0 || (a->B > 1 && st.b % 8 != 0) ||
-        (a->H > 1 && st.h % 8 != 0) || st.t % 8 != 0)
-      return false;
-  }
+  for (int i = 0; i < n; ++i)
+    if (!tma_operand_ok(ptrs[i], *strides[i], a)) return false;
   return true;
+}
+
+// The Hopper backward's operand rules: D = 64 or 128; q, k, v, do and the
+// gradients dq, dk, dv TMA can address (o and lse are read by plain loads);
+// the delta scratch given.
+bool sm90_bwd_args_ok(const FlashArgs* a) {
+  if ((a->D != 64 && a->D != 128) || a->delta == nullptr || a->lse == nullptr) return false;
+  const void* ptrs[7] = {a->q, a->k, a->v, a->dout, a->dq, a->dk, a->dv};
+  const Strides* strides[7] = {&a->sq, &a->sk, &a->sv, &a->sdo, &a->sdq, &a->sdk, &a->sdv};
+  for (int i = 0; i < 7; ++i)
+    if (!tma_operand_ok(ptrs[i], *strides[i], a)) return false;
+  return true;
+}
+
+// delta = rowsum(do * o) - dlse into a.delta
+template <typename T, int D>
+cudaError_t delta_launch(const FlashArgs& a, cudaStream_t s) {
+  const long long rows = (long long)a.B * a.H * a.T;
+  flash_delta_kernel<T, D><<<(unsigned)((rows + NW - 1) / NW), NT, 0, s>>>(a, rows);
+  return cudaGetLastError();
 }
 
 template <typename T, int D>
 cudaError_t bwd(const FlashArgs& a, cudaStream_t s) {
   constexpr int PAD = 16 / sizeof(T);
-  const long long rows = (long long)a.B * a.H * a.T;
-  flash_delta_kernel<T, D><<<(unsigned)((rows + NW - 1) / NW), NT, 0, s>>>(a, rows);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = delta_launch<T, D>(a, s);
   if (err != cudaSuccess) return err;
   const size_t smem_kv = sizeof(T) * ((size_t)(2 * BK + 2 * BQ) * (D + PAD) +
                                       (size_t)2 * NW * 16 * (BQ + PAD)) +
@@ -1178,6 +2052,76 @@ cudaError_t bwd_qmajor(const FlashArgs& a, cudaStream_t s) {
                                    (size_t)(2 * BK + NW * 16) * (BK + PAD));
   return launch(flash_bwd_qmajor_kernel<T, D>, dim3(a.B * a.H), smem, s, a);
 }
+
+// A (B, H, T, D) bf16 operand's map through its strides, ``rows`` rows a box.
+#define BHTD_MAP(map, ptr, st, rows)                                                       \
+  if (err == cudaSuccess)                                                                  \
+  err = sm90::make_bhtd_map(&map, ptr, a.B, a.H, a.T, D, st.b, st.h, st.t, rows)
+
+// The Hopper backward: delta, then flash_dkdv_sm90_kernel and
+// flash_dq_sm90_kernel, each persistent with its work counter
+// (next_item[0], next_item[1]: int32 in device memory, 0 at the launch).
+template <int D>
+cudaError_t bwd_sm90(const FlashArgs& a, int* next_item, cudaStream_t s) {
+  constexpr int BC = bwd_cols<D>();
+  cudaError_t err = delta_launch<bf16, D>(a, s);
+  CUtensorMap mq, mk, mv, mdo, mdk, mdv;
+  BHTD_MAP(mq, a.q, a.sq, BC);
+  BHTD_MAP(mdo, a.dout, a.sdo, BC);
+  BHTD_MAP(mk, a.k, a.sk, BWD_ROWS);
+  BHTD_MAP(mv, a.v, a.sv, BWD_ROWS);
+  BHTD_MAP(mdk, a.dk, a.sdk, 64);
+  BHTD_MAP(mdv, a.dv, a.sdv, 64);
+  if (err != cudaSuccess) return err;
+  const long long bh = (long long)a.B * a.H;
+  const long long kv_items = bh * ((a.T + BWD_ROWS - 1) / BWD_ROWS);
+  if (kv_items > 0x7fffffffLL - 65536) return cudaErrorInvalidValue;
+  auto dkdv = flash_dkdv_sm90_kernel<D>;
+  err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, dkdv_smem<D>());
+  if (err != cudaSuccess) return err;
+  dkdv<<<sm90::persistent_grid((int)kv_items), 384, dkdv_smem<D>(), s>>>(
+      mq, mk, mv, mdo, mdk, mdv, a.lse, a.delta, next_item, (int)kv_items, a.H, a.T, a.causal,
+      a.window);
+  err = cudaGetLastError();
+  // dq's maps: the 128-query q and do tiles, BC-key K / V tiles
+  CUtensorMap mq2, mk2, mv2, mdo2, mdq;
+  BHTD_MAP(mq2, a.q, a.sq, BWD_ROWS);
+  BHTD_MAP(mdo2, a.dout, a.sdo, BWD_ROWS);
+  BHTD_MAP(mk2, a.k, a.sk, BC);
+  BHTD_MAP(mv2, a.v, a.sv, BC);
+  BHTD_MAP(mdq, a.dq, a.sdq, 64);
+  if (err != cudaSuccess) return err;
+  auto dq = flash_dq_sm90_kernel<D>;
+  err = cudaFuncSetAttribute(dq, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_smem<D>());
+  if (err != cudaSuccess) return err;
+  dq<<<sm90::persistent_grid((int)kv_items), 384, dq_smem<D>(), s>>>(
+      mq2, mk2, mv2, mdo2, mdq, a.lse, a.delta, next_item + 1, (int)kv_items, a.H, a.T, a.causal,
+      a.window);
+  return cudaGetLastError();
+}
+
+// The Hopper query-major backward: delta, then one CTA per (b, h).
+template <int D>
+cudaError_t bwd_qmajor_sm90(const FlashArgs& a, cudaStream_t s) {
+  constexpr int BC = bwd_cols<D>();
+  cudaError_t err = delta_launch<bf16, D>(a, s);
+  CUtensorMap mq, mk, mv, mdo, mdq;
+  BHTD_MAP(mq, a.q, a.sq, BWD_ROWS);
+  BHTD_MAP(mdo, a.dout, a.sdo, BWD_ROWS);
+  BHTD_MAP(mk, a.k, a.sk, BC);
+  BHTD_MAP(mv, a.v, a.sv, BC);
+  BHTD_MAP(mdq, a.dq, a.sdq, 64);
+  if (err != cudaSuccess) return err;
+  auto kernel = flash_bwd_qmajor_sm90_kernel<D>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, qmajor_smem<D>());
+  if (err != cudaSuccess) return err;
+  kernel<<<a.B * a.H, 384, qmajor_smem<D>(), s>>>(
+      mq, mk, mv, mdo, mdq, a.lse, a.delta, a.acc, reinterpret_cast<bf16*>(a.dk),
+      reinterpret_cast<bf16*>(a.dv), a.sdk, a.sdv, a.H, a.T, a.causal, a.window);
+  return cudaGetLastError();
+}
+
+#undef BHTD_MAP
 
 template <typename T, bool CARRY>
 cudaError_t fwd_by_d(const FlashArgs& a, cudaStream_t s) {
@@ -1257,21 +2201,37 @@ extern "C" int flash_block_fwd_launch(const FlashArgs* a, int design, int* next_
   return cudaErrorInvalidValue;
 }
 
-// Three launches on one stream: delta, dk/dv, dq.
-extern "C" int flash_bwd_launch(const FlashArgs* a, int dtype, void* stream) {
-  if (bad_args(a)) return cudaErrorInvalidValue;
+// Three launches on one stream: delta, dk/dv, dq. ``design`` is the
+// wrapper's _bwd_design: 0 = fp32 (flash_dkdv_kernel / flash_dq_kernel
+// <float, D>), 1 = mma_sync (the same kernels in bf16), 2 = sm90
+// (flash_dkdv_sm90_kernel / flash_dq_sm90_kernel<D>: bf16, D = 64 or 128,
+// q, k, v, do, dq, dk, dv TMA can address; ``next_item`` two int32 of
+// device memory set to 0). a->delta is the (B, H, T) fp32 scratch.
+extern "C" int flash_bwd_launch(const FlashArgs* a, int design, int* next_item, void* stream) {
+  if (bad_args(a) || a->delta == nullptr) return cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 1) return bwd_by_d<bf16>(*a, s);
-  if (dtype == 0) return bwd_by_d<float>(*a, s);
+  if (design == 2) {
+    if (next_item == nullptr || !sm90_bwd_args_ok(a)) return cudaErrorInvalidValue;
+    return a->D == 64 ? bwd_sm90<64>(*a, next_item, s) : bwd_sm90<128>(*a, next_item, s);
+  }
+  if (design == 1) return bwd_by_d<bf16>(*a, s);
+  if (design == 0) return bwd_by_d<float>(*a, s);
   return cudaErrorInvalidValue;
 }
 
-// One launch: the query-major backward; a->acc is its (B*H, 2, Tp, D) fp32
-// scratch, Tp = T rounded up to 64.
-extern "C" int flash_bwd_qmajor_launch(const FlashArgs* a, int dtype, void* stream) {
+// The query-major backward; ``design`` as flash_bwd_launch's. mma_sync and
+// fp32: one launch (flash_bwd_qmajor_kernel, delta formed in the kernel),
+// a->acc its (B*H, 2, Tp, D) fp32 scratch, Tp = T rounded up to 64. sm90:
+// delta into a->delta, then flash_bwd_qmajor_sm90_kernel<D>, Tp = T rounded
+// up to 128.
+extern "C" int flash_bwd_qmajor_launch(const FlashArgs* a, int design, void* stream) {
   if (bad_args(a) || a->acc == nullptr) return cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 1) return bwd_qmajor_by_d<bf16>(*a, s);
-  if (dtype == 0) return bwd_qmajor_by_d<float>(*a, s);
+  if (design == 2) {
+    if (!sm90_bwd_args_ok(a)) return cudaErrorInvalidValue;
+    return a->D == 64 ? bwd_qmajor_sm90<64>(*a, s) : bwd_qmajor_sm90<128>(*a, s);
+  }
+  if (design == 1) return bwd_qmajor_by_d<bf16>(*a, s);
+  if (design == 0) return bwd_qmajor_by_d<float>(*a, s);
   return cudaErrorInvalidValue;
 }

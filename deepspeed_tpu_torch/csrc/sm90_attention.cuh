@@ -13,6 +13,12 @@
 //     A's fragments of the same rows and keys) and B = V MN-major (d
 //     contiguous; the transpose bit).
 //
+// K2's Hopper backward (flash_dkdv_sm90_kernel, flash_dq_sm90_kernel,
+// flash_bwd_qmajor_sm90_kernel) adds the m64n64k16 SS form (S, S^T and dP
+// over 64-row streamed tiles at D = 128) and the SS forms with B MN-major
+// (dV += P^T dO and dK += dS^T Q with P^T, dS^T staged in shared memory as
+// K-major A tiles, wgmma_pv_ss).
+//
 // A (B, H, T, D) operand's map has dims (D, T, H, B), the 128-byte swizzle
 // and a box of 64 d x ``rows``: one box covers a 64-wide half of the head
 // dim, so D = 128 takes two boxes a tile. A box row is 128 bytes and rows
@@ -46,14 +52,15 @@ __device__ __forceinline__ void keep_regs(const uint32_t (&r)[N]) {
 }
 
 // d (64 x 128, fp32 fragments) = A (64 x 16) * B (16 x 128) + (scale_d ? d : 0),
-// A and B K-major from shared memory.
+// A K-major and B K-major (TB = 0) or MN-major (TB = 1) from shared memory.
+template <int TB = 0>
 __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da, uint64_t db,
                                                     int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -62,7 +69,44 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+}
+
+// d (64 x 64, fp32 fragments) = A (64 x 16) * B (16 x 64) + (scale_d ? d : 0),
+// A K-major and B K-major (TB = 0) or MN-major (TB = 1) from shared memory.
+template <int TB = 0>
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+}
+
+// One 16-deep slice of an S-shaped product, d (64 x N) = A B^T (+ d), A and
+// B K-major (N = 64 or 128 rows of B).
+template <int N>
+__device__ __forceinline__ void wgmma_nt(float (&d)[N / 2], uint64_t da, uint64_t db, int scale_d) {
+  if constexpr (N == 64)
+    wgmma_m64n64k16_ss<0>(d, da, db, scale_d);
+  else
+    wgmma_m64n128k16_ss<0>(d, da, db, scale_d);
+}
+
+// d (64 x D) += A (64 x 16, K-major) * B (16 x D, MN-major), both from
+// shared memory.
+template <int D>
+__device__ __forceinline__ void wgmma_pv_ss(float (&d)[D / 2], uint64_t da, uint64_t db) {
+  if constexpr (D == 64)
+    wgmma_m64n64k16_ss<1>(d, da, db, 1);
+  else
+    wgmma_m64n128k16_ss<1>(d, da, db, 1);
 }
 
 // d (64 x 64, fp32 fragments) += A (64 x 16, bf16 pairs in registers, the

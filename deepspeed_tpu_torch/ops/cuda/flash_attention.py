@@ -28,7 +28,12 @@ address goes to the Hopper wgmma kernel (``flash_fwd_sm90_kernel``), other
 bf16 (D = 32) to the mma.sync kernel, fp32 to the scalar-FMA instance.
 K10 (``flash_block_fwd``) takes the same rule on its folded (BH, 1, T, d)
 views (``_block_design``): sm90 is ``flash_fwd_sm90_kernel`` with the
-caller's (m, l, acc) carried in and out. ``DESIGN_LAUNCHES["flash_fwd" |
+caller's (m, l, acc) carried in and out. Both backwards take the same rule
+on their operands and gradients (``_bwd_design``): sm90 is
+``flash_dkdv_sm90_kernel`` + ``flash_dq_sm90_kernel`` (k-major) or
+``flash_bwd_qmajor_sm90_kernel`` (query-major), after the delta kernel;
+``flash_block_bwd`` reaches it through ``flash_backward``.
+``DESIGN_LAUNCHES["flash_fwd" | "flash_bwd" | "flash_bwd_qmajor" |
 "flash_block_fwd"]`` counts launches by design.
 
 ``bwd_qmajor`` picks the query-major backward under the JAX rule
@@ -53,14 +58,18 @@ NEG_INF = -1e30
 LAUNCHES = {"flash_fwd": 0, "flash_bwd": 0, "flash_bwd_qmajor": 0,
             "flash_block_fwd": 0}
 DESIGN_LAUNCHES = {name: {"sm90": 0, "mma_sync": 0, "fp32": 0}
-                   for name in ("flash_fwd", "flash_block_fwd")}
-_BLOCK_DESIGN_CODE = {"fp32": 0, "mma_sync": 1, "sm90": 2}
+                   for name in ("flash_fwd", "flash_bwd", "flash_bwd_qmajor",
+                                "flash_block_fwd")}
+# the launchers' design codes (flash_block_fwd_launch, flash_bwd_launch,
+# flash_bwd_qmajor_launch)
+_DESIGN_CODE = {"fp32": 0, "mma_sync": 1, "sm90": 2}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
 _SM90_HEAD_DIMS = (64, 128)
 _TODO_BIAS = "(ROADMAP Queue 2, K1/K2: bias and ALiBi operands)"
 _QMAJOR_TILE = 64      # the kernel's query tile; the plain version walks it
+_SM90_TILE = 128       # the Hopper query-major kernel's query tile
 
 
 def reset_launch_counts():
@@ -100,15 +109,14 @@ def kernel_builder():
         from ...op_builder.builder import FlashAttentionBuilder
         b = FlashAttentionBuilder()
         lib = b.load()
-        for fn in (lib.flash_fwd_launch, lib.flash_bwd_launch,
-                   lib.flash_bwd_qmajor_launch):
+        for fn in (lib.flash_fwd_launch, lib.flash_bwd_qmajor_launch):
             fn.argtypes = [ctypes.POINTER(_FlashArgs), ctypes.c_int,
                            ctypes.c_void_p]
             fn.restype = ctypes.c_int
-        lib.flash_block_fwd_launch.argtypes = [
-            ctypes.POINTER(_FlashArgs), ctypes.c_int, ctypes.c_void_p,
-            ctypes.c_void_p]
-        lib.flash_block_fwd_launch.restype = ctypes.c_int
+        for fn in (lib.flash_block_fwd_launch, lib.flash_bwd_launch):
+            fn.argtypes = [ctypes.POINTER(_FlashArgs), ctypes.c_int,
+                           ctypes.c_void_p, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
         lib.flash_fwd_sm90_launch.argtypes = [ctypes.POINTER(_FlashArgs),
                                               ctypes.c_void_p, ctypes.c_void_p]
         lib.flash_fwd_sm90_launch.restype = ctypes.c_int
@@ -280,6 +288,23 @@ def _fwd_design(q, k, v):
     return "mma_sync"
 
 
+def _bwd_design(q, k, v, o, do, grads=()):
+    """The backward's design (both walks) for (B, H, T, d) operands as the
+    kernels read them: ``_fwd_design``'s rule over every operand the Hopper
+    kernels map by TMA (q, k, v, do and the gradients ``grads`` = (dq, dk,
+    dv), each with d contiguous; o is read by the delta kernel's plain
+    loads): "fp32" for fp32; "sm90" for bf16 at d = 64 or 128 that TMA can
+    address (every GPT-2 training call, the ring's folded pairs); else
+    "mma_sync" (d = 32, or strides TMA cannot address)."""
+    if q.dtype == torch.float32:
+        return "fp32"
+    mapped = (q, k, v, do, *grads)
+    if (q.shape[-1] in _SM90_HEAD_DIMS
+            and all(x.stride(-1) == 1 and tma_ok(x) for x in mapped)):
+        return "sm90"
+    return "mma_sync"
+
+
 def _block_design(q, k, v):
     """K10's design for its folded (BH, 1, T, d) views as the kernel reads
     them: ``_fwd_design``'s rule ("sm90" for bf16 at d = 64 or 128 that TMA
@@ -355,24 +380,31 @@ def flash_backward(q, k, v, o, lse, do, *, causal=True, window=0,
     dlse = None if dlse is None else dlse.float().contiguous()
     delta = torch.empty(B, H, T, dtype=torch.float32, device=q.device)
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    design = _bwd_design(q, k, v, o, do, (dq, dk, dv))
     a = _args(B, H, T, D, causal, window, q=q, k=k, v=v, o=o, lse=lse,
               dout=do, delta=delta, dlse=dlse, dq=dq, dk=dk, dv=dv)
+    # the persistent dk/dv and dq kernels' work counters (sm90)
+    next_item = (torch.zeros(2, dtype=torch.int32, device=q.device)
+                 if design == "sm90" else None)
     rc = kernel_builder().load().flash_bwd_launch(
-        ctypes.byref(a), _DTYPE_CODE[q.dtype],
+        ctypes.byref(a), _DESIGN_CODE[design],
+        None if next_item is None else next_item.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(rc, name)
+    _raise_on(rc, f"{name} ({design})")
     LAUNCHES["flash_bwd"] += 1
+    DESIGN_LAUNCHES["flash_bwd"][design] += 1
     return dq, dk, dv
 
 
 def flash_backward_qmajor(q, k, v, o, lse, do, *, causal=True, window=0,
                           dlse=None):
     """Query-major fused backward on (B, H, T, d) operands (scale already
-    in q): the same (dq, dk, dv) as :func:`flash_backward`, from one kernel
-    that forms S and dP once per tile pair, writes dq once and carries
-    dk/dv in an fp32 scratch of (B*H, 2, Tp, d) (Tp = T rounded up to 64).
-    CPU tensors take the plain version; CUDA tensors launch the kernel or
-    raise."""
+    in q): the same (dq, dk, dv) as :func:`flash_backward` (bitwise, design
+    for design), from one kernel that forms S and dP once per tile pair,
+    writes dq once and carries dk/dv in an fp32 scratch of (B*H, 2, Tp, d)
+    (Tp = T rounded up to the kernel's query tile: 128 on sm90, after the
+    delta kernel; 64 otherwise). CPU tensors take the plain version; CUDA
+    tensors launch the kernel or raise."""
     if q.device.type == "cpu":
         return flash_bwd_qmajor_reference(q, k, v, o, lse, do, causal=causal,
                                           window=window, dlse=dlse)
@@ -383,16 +415,21 @@ def flash_backward_qmajor(q, k, v, o, lse, do, *, causal=True, window=0,
     B, H, T, D = q.shape
     lse = lse.float().contiguous()
     dlse = None if dlse is None else dlse.float().contiguous()
-    tp = -(-T // _QMAJOR_TILE) * _QMAJOR_TILE
-    acc = torch.empty(B * H, 2, tp, D, dtype=torch.float32, device=q.device)
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    design = _bwd_design(q, k, v, o, do, (dq, dk, dv))
+    tile = _SM90_TILE if design == "sm90" else _QMAJOR_TILE
+    tp = -(-T // tile) * tile
+    acc = torch.empty(B * H, 2, tp, D, dtype=torch.float32, device=q.device)
+    delta = (torch.empty(B, H, T, dtype=torch.float32, device=q.device)
+             if design == "sm90" else None)
     a = _args(B, H, T, D, causal, window, q=q, k=k, v=v, o=o, lse=lse,
-              dout=do, dlse=dlse, dq=dq, dk=dk, dv=dv, acc=acc)
+              dout=do, delta=delta, dlse=dlse, dq=dq, dk=dk, dv=dv, acc=acc)
     rc = lib.flash_bwd_qmajor_launch(
-        ctypes.byref(a), _DTYPE_CODE[q.dtype],
+        ctypes.byref(a), _DESIGN_CODE[design],
         torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(rc, name)
+    _raise_on(rc, f"{name} ({design})")
     LAUNCHES["flash_bwd_qmajor"] += 1
+    DESIGN_LAUNCHES["flash_bwd_qmajor"][design] += 1
     return dq, dk, dv
 
 
@@ -478,7 +515,7 @@ def flash_block_fwd(q, k, v, state, *, causal=False, block_q=128,
     next_item = (torch.zeros(1, dtype=torch.int32, device=q.device)
                  if design == "sm90" else None)
     rc = kernel_builder().load().flash_block_fwd_launch(
-        ctypes.byref(a), _BLOCK_DESIGN_CODE[design],
+        ctypes.byref(a), _DESIGN_CODE[design],
         None if next_item is None else next_item.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(rc, f"{name} ({design})")
@@ -493,7 +530,9 @@ def flash_block_bwd(q, k, v, o, lse, do, *, causal=False, block_q=128,
     1: q already carries it): given the GLOBAL per-query ``lse`` ((BH, T)
     fp32) and the final ``o``, K2 recomputes this pair's probabilities as
     exp(s - lse) and its delta = rowsum(do * o) is the global delta, so
-    (dq, dk, dv) are this pair's exact contributions, in q's dtype."""
+    (dq, dk, dv) are this pair's exact contributions, in q's dtype. The
+    folded (1, BH, T, d) views take ``_bwd_design``'s rule (bf16 pairs at
+    d = 64 / 128: sm90)."""
     cast = [x.to(q.dtype)[None] for x in (q, k, v, o, do)]
     dq, dk, dv = flash_backward(*cast[:4], lse.float()[None], cast[4],
                                 causal=causal)

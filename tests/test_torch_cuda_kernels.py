@@ -1,5 +1,6 @@
 """The Hopper kernels on the card (paged attention, flash attention forward
-and backward, fused CE, the MoE grouped matmuls and their backward, the
+and backward (K1 and K2 also on their sm90 designs, K2-qmajor's bitwise
+equal to K2's), fused CE, the MoE grouped matmuls and their backward, the
 weight-only int8/int4 products K7 and K9, the LayerNorm forward and
 backward and the RMSNorm forward K13, the layout-owning projection and its
 dW K6 (K3, K6 and K8's grouped_tgmm in bf16 through their wgmma
@@ -15,6 +16,8 @@ Marked ``cuda``: skipped without an NVIDIA GPU; on the card run
 ``python -m pytest tests/test_torch_cuda_kernels.py -m cuda --noconftest``
 (the repo's conftest sets up the JAX test mesh).
 ``chip_smoke.py`` repeats these checks at the serving shapes."""
+
+import ctypes
 
 import numpy as np
 import pytest
@@ -254,6 +257,77 @@ def test_flash_fwd_sm90(B, H, T, d, causal, window, heads_major):
                                           causal=causal, window=window)
     _assert_close(o, ro, bf)
     torch.testing.assert_close(lse, rlse, rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("B,H,T,d,causal,window,heads_major,dl", [
+    (2, 3, 256, 64, True, 0, False, False),  # the model's strides
+    (1, 2, 333, 128, True, 100, False, True),  # ragged T, window, dlse
+    (2, 2, 200, 64, False, 0, True, True),   # non-causal, heads-major
+    (1, 4, 130, 128, True, 0, True, False),  # a 2-row last tile
+    (2, 2, 640, 64, True, 200, False, False),  # window past a key tile
+])
+def test_flash_bwd_sm90(B, H, T, d, causal, window, heads_major, dl):
+    """K2's and K2-qmajor's bf16 sm90 designs (TMA + wgmma) against the
+    plain backward in fp32 on the same inputs (each (b, h) slab's relative
+    error norm, chip_smoke.bf16_grad_mismatch), every launch on sm90, each
+    repeated bitwise, and K2-qmajor's output bitwise equal to K2's."""
+    rs = np.random.RandomState(T + d)
+    bf = torch.bfloat16
+    shape = (B, H, T, d) if heads_major else (B, T, H, d)
+    q, k, v, do = (_rand(rs, shape, bf) for _ in range(4))
+    if not heads_major:
+        q, k, v, do = (x.transpose(1, 2) for x in (q, k, v, do))
+    q = fa.scale_q(q, d ** -0.5)
+    o, lse = fa.flash_forward(q, k, v, causal=causal, window=window)
+    dlse = (torch.from_numpy(rs.randn(B, H, T).astype(np.float32) * 0.1)
+            .cuda() if dl else None)
+    kw = dict(causal=causal, window=window, dlse=dlse)
+    fa.reset_launch_counts()
+    kmajor = [fa.flash_backward(q, k, v, o, lse, do, **kw)
+              for _ in range(2)]
+    qmajor = [fa.flash_backward_qmajor(q, k, v, o, lse, do, **kw)
+              for _ in range(2)]
+    torch.cuda.synchronize()
+    for name in ("flash_bwd", "flash_bwd_qmajor"):
+        assert fa.DESIGN_LAUNCHES[name] == {"sm90": 2, "mma_sync": 0,
+                                            "fp32": 0}
+    for runs in (kmajor, qmajor):
+        assert all(torch.equal(a, b) for a, b in zip(*runs))
+    assert all(torch.equal(a, b) for a, b in zip(kmajor[0], qmajor[0]))
+    refs = fa.flash_backward_reference(*(x.float() for x in (q, k, v, o)),
+                                       lse, do.float(), **kw)
+    for name, got, ref in zip(("dq", "dk", "dv"), kmajor[0], refs):
+        assert got.stride() == {"dq": q, "dk": k, "dv": v}[name].stride()
+        assert chip_smoke.bf16_grad_mismatch(got, ref) is None, name
+
+
+def test_flash_bwd_launchers_refuse_a_wrong_design():
+    """A design code the backward launchers do not know, and the sm90
+    design on operands it does not take (d = 32), return an error and
+    launch nothing; the wrappers raise on a launcher's error."""
+    lib = fa.kernel_builder().load()
+    stream = torch.cuda.current_stream().cuda_stream
+    q = torch.zeros(1, 2, 64, 32, dtype=torch.bfloat16, device="cuda")
+    lse = torch.zeros(1, 2, 64, device="cuda")
+    delta, acc = torch.zeros_like(lse), torch.zeros(2, 2, 128, 32,
+                                                    device="cuda")
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    a = fa._args(1, 2, 64, 32, True, 0, q=q, k=q, v=q, o=q, lse=lse,
+                 dout=q, delta=delta, dq=dq, dk=dk, dv=dv, acc=acc)
+    counter = torch.zeros(2, dtype=torch.int32, device="cuda")
+    for design in (3, -1, 2):
+        assert lib.flash_bwd_launch(ctypes.byref(a), design,
+                                    counter.data_ptr(), stream) != 0
+        assert lib.flash_bwd_qmajor_launch(ctypes.byref(a), design,
+                                           stream) != 0
+    torch.cuda.synchronize()
+    assert torch.equal(counter, torch.zeros_like(counter))
+    fa._bwd_design, real = (lambda *_a, **_k: "sm90"), fa._bwd_design
+    try:
+        with pytest.raises(RuntimeError, match="sm90"):
+            fa.flash_backward(q, q, q, q, lse, q)
+    finally:
+        fa._bwd_design = real
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -158,6 +158,52 @@ def test_fwd_design_rule():
     assert design(0, 0, 0, 0, views=(wide, k, k)) == "mma_sync"
 
 
+def test_bwd_design_rule():
+    """``_bwd_design`` on (B, H, T, d) operands and gradients as the kernels
+    read them (CPU tensors): GPT-2 350M's model-layout (B, T, H, d) and
+    heads-major views, a ragged T at d = 128, and the ring's folded (1,
+    B*H, C, d) chunk pairs (halves of one (B*H, 2C, d) buffer) take the
+    sm90 design; d = 32, a (b, h, t) stride that is not a whole 16 bytes
+    (in an operand or in a gradient) or a d that is not contiguous take
+    mma_sync; fp32 takes fp32. Every design is one the launchers have a
+    code for."""
+    bf = torch.bfloat16
+
+    def views(B, T, H, d, dtype=bf, heads_major=False):
+        shape = (B, H, T, d) if heads_major else (B, T, H, d)
+        xs = [torch.empty(shape, dtype=dtype) for _ in range(5)]
+        return xs if heads_major else [x.transpose(1, 2) for x in xs]
+
+    def design(xs, grads=None):
+        if grads is None:
+            grads = [torch.empty_like(x) for x in xs[:3]]
+        got = tfa._bwd_design(*xs, grads)
+        assert got in tfa._DESIGN_CODE
+        return got
+
+    assert design(views(24, 1024, 16, 64)) == "sm90"
+    assert design(views(24, 1024, 16, 64, heads_major=True)) == "sm90"
+    assert design(views(2, 333, 4, 128)) == "sm90"
+    # the ring's pairs at its step-0 shape: (B*H, C, d) = (64, 2048, 64)
+    # halves of the zigzag's (B*H, 2C, d) chunks, folded as flash_block_bwd
+    # folds them
+    chunks = [torch.empty(64, 2 * 2048, 64, dtype=bf) for _ in range(5)]
+    for half in (slice(0, 2048), slice(2048, None)):
+        assert design([x[:, half][None] for x in chunks]) == "sm90"
+    assert design(views(2, 200, 4, 32)) == "mma_sync"
+    assert design(views(24, 1024, 16, 64, dtype=torch.float32)) == "fp32"
+    assert design(views(2, 64, 4, 32, dtype=torch.float32)) == "fp32"
+    # heads 68 values apart: a (b, h, t) stride of 136 bytes
+    wide = torch.empty(2, 64, 4, 68, dtype=bf)[..., :64].transpose(1, 2)
+    good = views(2, 64, 4, 64)
+    assert design([wide] + good[1:]) == "mma_sync"
+    assert design(good, [wide, good[1], good[2]]) == "mma_sync"
+    # d not contiguous: the (B, H, d, T) layout seen as (B, H, T, d)
+    qkv_t = [x.transpose(-1, -2) for x in
+             (torch.empty(2, 4, 64, 128, dtype=bf) for _ in range(5))]
+    assert design(qkv_t) == "mma_sync"
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("scale", [0.125, 1 / 3, 1 / math.sqrt(80)])
 def test_scale_q_rounds_the_scale_like_jax(dtype, scale):

@@ -132,6 +132,26 @@ def test_qmajor_serves_qkv_t_only_and_auto_is_kmajor(monkeypatch):
     assert tfa.LAUNCHES["flash_bwd_qmajor"] == 0     # CPU: plain versions
 
 
+@pytest.mark.parametrize("d,dtype,want", [
+    (64, torch.bfloat16, "sm90"), (128, torch.bfloat16, "sm90"),
+    (32, torch.bfloat16, "mma_sync"), (64, torch.float32, "fp32")])
+def test_qmajor_bwd_design_rule(d, dtype, want):
+    """flash_backward_qmajor's operands as it hands them to the launcher:
+    the qkv_t layout (B, H, d, T) seen as (B, H, T, d), made d-contiguous
+    by ``_kernel_view``, with ``empty_like`` gradients, take
+    ``_bwd_design``'s rule: bf16 at d = 64 / 128 (GPT-2 350M's query-major
+    path at H=16, T=1024) -> sm90, d = 32 -> mma_sync, fp32 -> fp32; the
+    raw views, whose d is not contiguous, are never sm90."""
+    x = torch.empty(2, 16, d, 1024, dtype=dtype)
+    raw = [tfa._to_bhtd(x, False, True) for _ in range(5)]
+    views = [tfa._kernel_view(t) for t in raw]
+    grads = [torch.empty_like(t) for t in views[:3]]
+    assert tfa._bwd_design(*views, grads) == want
+    assert want in tfa._DESIGN_CODE
+    assert tfa._bwd_design(*raw) == ("fp32" if want == "fp32" else
+                                     "mma_sync")
+
+
 @pytest.mark.parametrize("B,H,T,d,causal,window,dlse", [
     (2, 3, 200, 32, True, 0, False), (1, 2, 130, 64, True, 100, True),
     (2, 2, 100, 32, False, 0, True), (1, 2, 64, 128, True, 0, False)])
