@@ -7,16 +7,18 @@ Phases (any failure raises and the script exits nonzero):
   1. card: the card's name and power limit (nvidia-smi), and the build of
      every kernel from csrc/ (one nvcc per source, all started together,
      into build/).
- 0b. SASS: cuobjdump -sass of the fused-CE, MLP, grouped-matmul and
-     flash-attention libraries; every instance of the Hopper designs on
-     sm90_gemm.cuh / sm90_attention.cuh / wq_sm90.cuh (fused_ce_sm90_kernel,
-     proj_mm_sm90_kernel, grouped_tgmm_sm90_kernel, grouped_gmm_sm90_kernel,
-     flash_fwd_sm90_kernel<D, CARRY> for K1 and K10,
-     flash_dkdv_sm90_kernel<D> and flash_dq_sm90_kernel<D> for K2,
-     flash_bwd_qmajor_sm90_kernel<D> for K2-qmajor, D = 64 and 128,
-     wq_matmul_sm90_kernel<BITS, NR> for K7) is there, holds HGMMA (wgmma)
-     and UTMALDG (TMA loads) and spills nothing (ptxas); their registers
-     logged.
+ 0b. SASS: cuobjdump -sass of the paged-attention, fused-CE, MLP,
+     grouped-matmul and flash-attention libraries; every instance of the
+     Hopper designs on sm90_gemm.cuh / sm90_attention.cuh / wq_sm90.cuh
+     (fused_ce_sm90_kernel, proj_mm_sm90_kernel, grouped_tgmm_sm90_kernel,
+     grouped_gmm_sm90_kernel, flash_fwd_sm90_kernel<D, CARRY> for K1 and
+     K10, flash_dkdv_sm90_kernel<D> and flash_dq_sm90_kernel<D> for K2,
+     flash_bwd_qmajor_sm90_kernel<D> for K2-qmajor,
+     paged_chunk_sm90_kernel<D> for K5, D = 64 and 128,
+     wq_matmul_sm90_kernel<BITS, NR> for K7, and the twelve
+     wq_grouped_sm90_kernel<BITS, NR, SWIGLU, WIDE> for K9) is there, holds
+     HGMMA (wgmma) and UTMALDG (TMA loads) and spills nothing (ptxas);
+     their registers logged.
   2. kernels: each Hopper kernel against its plain PyTorch version on the
      card at the Llama-2-7B / Mistral-7B serving shapes (bf16 against the
      plain version run in fp32 on the same inputs, see bf16_mismatch; fp32
@@ -27,7 +29,17 @@ Phases (any failure raises and the script exits nonzero):
      split's partial) that must fail; then each kernel timed with CUDA
      events beside its plain version, its bound and one library call
      (SDPA on the gathered K/V, a yardstick only), K4 also at Mixtral's
-     GQA G = 4 shape beside its bound and SDPA (kv heads repeated).
+     GQA G = 4 shape beside its bound and SDPA (kv heads repeated). K5's
+     bf16 cases (block_c 16 and 64, start 0 / 1000 / 3800, true_len 256
+     and 100, window 0 and 512, Mistral GQA with window 4096) all run on
+     its sm90 design (counted), each repeated bitwise; fp32 cases on the
+     fp32 kernel at 1e-4; a control (the plain version reading one live
+     block through another table entry) that must fail; the sm90 design
+     timed with its launches queued beside its SIMT design, the plain
+     version, SDPA and the bound at Llama-2-7B's start-1000 chunk, and at
+     Mixtral's chunk (G = 4), a prompt's first chunk and a start-3800
+     chunk (a split key walk) beside SDPA, the bound and the other split
+     choice.
   3. parity: a small fp32 Llama served with paged_kernel=True and False on
      the card must give identical greedy streams (split-fuse on and off).
   4. slice: full-width Llama-2-7B (random weights from a seeded generator)
@@ -112,7 +124,14 @@ Phases (any failure raises and the script exits nonzero):
      its mma_sync design (wq_kernel) and the sm90 kernel at the plan's
      other K split, each with its launches queued behind a device spin
      (the eager call is about as long as its Python launch path: its
-     time and the host's launch path are logged beside).
+     time and the host's launch path are logged beside). K9's every case
+     (int8 and int4: decode, chunk, empty groups, one expert, the 162-row
+     tail) on the design _wq_grouped_design picks (sm90 for bf16: counted),
+     repeated bitwise, tails exactly 0; its controls (a group on its
+     neighbour's scales, a group's codes with one k slice skipped) at the
+     decode and the chunk shapes; decode and chunk timed on both designs
+     (sm90 and wq_kernel, launches queued) beside the library calls and
+     the bound.
  15. wq parity: small fp32 Llama and Mixtral, int8 and int4, served with
      weight_quant give the same greedy streams as the same model with
      its dequantized weights served unquantized (split-fuse on and off).
@@ -122,7 +141,10 @@ Phases (any failure raises and the script exits nonzero):
      layer and forward (Llama; each call on the design its rows give:
      every call of at least WQ_SM90_MIN_ROWS rows on sm90) or one
      grouped_swiglu_up_wq and one grouped_gmm_wq (Mixtral), the paged
-     kernels as in phase 4.
+     kernels as in phase 4; in phase 17 every K9 launch on the design its
+     rows give (sm90 for every call of at least WQ_GROUPED_SM90_MIN_ROWS
+     rows, decode and chunk), counted. In phases 4, 10, 16 and 17 every K5
+     launch (bf16, d = 128) is counted on its sm90 design.
  18. K13 / K6 kernels: the LayerNorm forward and backward (K13) at N =
      24 * 1024, 24 * 512 and an odd row count, D = 1024, and the
      layout-owning projection (K6: forward, dx, dW) at all four (x_t,
@@ -514,7 +536,17 @@ SM90_DESIGNS = {
     # K7: wq_matmul_sm90_kernel<BITS, row tile>
     "wq_matmul": ("mlp_matmul", tuple(
         f"wq_matmul_sm90_kernelILi{b}ELi{n}E" for b in (4, 8)
-        for n in (8, 64, 128, 256)))}
+        for n in (8, 64, 128, 256))),
+    # K5: paged_chunk_sm90_kernel<D>
+    "paged_chunk": ("paged_attention", tuple(
+        f"paged_chunk_sm90_kernelILi{d}E" for d in (64, 128))),
+    # K9: wq_grouped_sm90_kernel<BITS, row tile, SWIGLU, WIDE>
+    "grouped_gmm_wq": ("grouped_matmul", tuple(
+        f"wq_grouped_sm90_kernelILi{b}ELi{n}ELb0E" for b in (4, 8)
+        for n in (16, 80, 128))),
+    "grouped_swiglu_up_wq": ("grouped_matmul", tuple(
+        f"wq_grouped_sm90_kernelILi{b}ELi{n}ELb1E" for b in (4, 8)
+        for n in (16, 80, 128)))}
 # library -> the sm90 kernel symbols it must hold
 SM90_KERNELS = {}
 for _lib, _syms in SM90_DESIGNS.values():
@@ -603,12 +635,18 @@ def assert_sm90(tag, *mods, main_path=False):
                 count_designs(name, by)
 
 
-def count_decode_designs(pa, launches):
-    """A serving main path's decode launches by design (split / single),
-    which must add up to its paged_decode count, into PATH_DESIGNS."""
+def count_paged_designs(pa, launches):
+    """A serving main path's paged launches by design, into PATH_DESIGNS:
+    the decode's (split / single) must add up to its paged_decode count,
+    and every chunk launch (bf16 at d = 128 over 64-position blocks) must
+    be on sm90."""
     by = pa.DESIGN_LAUNCHES["paged_decode"]
     assert sum(by.values()) == launches["paged_decode"], (by, launches)
     count_designs("paged_decode", by)
+    by = pa.DESIGN_LAUNCHES["paged_chunk"]
+    assert by == {"sm90": launches["paged_chunk"], "simt": 0, "fp32": 0}, \
+        (by, launches)
+    count_designs("paged_chunk", by)
 
 
 def bound(nbytes, flops):
@@ -683,8 +721,19 @@ class KernelCases:
         table = torch.from_numpy(
             self.rs.permutation(np.arange(1, NB))[:MB].astype(np.int32)).cuda()
         q = self.randn((C, H, d), dtype)
+        self.pa.reset_launch_counts()
         out = self.pa.paged_chunk_attention(q, k, v, table, start, true_len,
                                             window=window, block_c=block_c)
+        again = self.pa.paged_chunk_attention(q, k, v, table, start,
+                                              true_len, window=window,
+                                              block_c=block_c)
+        torch.cuda.synchronize()
+        # every bf16 case (d = 128, 64-position blocks) on sm90, fp32 on
+        # the fp32 kernel; calls repeat bitwise
+        want = "sm90" if dtype == torch.bfloat16 else "fp32"
+        by = self.pa.DESIGN_LAUNCHES["paged_chunk"]
+        assert by[want] == 2 and sum(by.values()) == 2, (want, by)
+        assert torch.equal(out, again), "paged_chunk: calls differ"
         assert torch.isfinite(out).all(), "paged_chunk: non-finite pad rows"
         self.check("paged_chunk", out[:true_len], lambda q, k, v:
                    self.pa.paged_chunk_attention_reference(
@@ -773,8 +822,25 @@ def phase_kernels(pa):
     # Mistral-7B GQA chunk with its window biting
     cases.chunk(32, 8, 128, 64, 128, 256, 5000, 256, 64, bf, window=4096)
     cases.chunk(32, 8, 128, 64, 128, 256, 5000, 200, 16, f32, window=4096)
-    log(f"chunk cases ok, max bf16 |err| {cases.err['paged_chunk']:.3g}, "
-        f"worst row relative error norm {cases.rel['paged_chunk']:.3g}")
+    log(f"chunk cases ok (every bf16 case on sm90, each repeated bitwise), "
+        f"max bf16 |err| {cases.err['paged_chunk']:.3g}, worst row "
+        f"relative error norm {cases.rel['paged_chunk']:.3g}")
+    # control: the plain version reading one live block through another
+    # table entry (the block past the walk) must fail the check
+    c = main_chk
+    c32 = [c[n].float() for n in ("q", "k", "v")]
+    ref = pa.paged_chunk_attention_reference(*c32, c["table"], c["start"],
+                                             c["true_len"])
+    swapped = c["table"].clone()
+    live = (c["start"] + c["true_len"]) // 64
+    swapped[live // 2] = c["table"][-1]
+    ctrl = pa.paged_chunk_attention_reference(*c32, swapped, c["start"],
+                                              c["true_len"]).to(bf)
+    why = bf16_mismatch(ctrl[:c["true_len"]], ref[:c["true_len"]])
+    assert why is not None, "bf16 check let a swapped table entry pass"
+    log(f"control: the chunk's live block {live // 2} read through another "
+        f"table entry fails the bf16 check ({why})")
+    del c32, ref, ctrl
 
     # ---- timing at the main-path shapes (bf16, Llama-2-7B)
     rows = {}
@@ -823,33 +889,16 @@ def phase_kernels(pa):
         bound_ms=bound(g4_bytes, dec_flops)[0])
     del g4, gk, gv, gmask
 
-    c = main_chk
-    C, H, hd = c["q"].shape
-    KVH = c["k"].shape[1]
-    start, tl = c["start"], c["true_len"]
-    n_keys = start + tl
-    pairs = sum(start + t + 1 for t in range(tl))
-    chk_bytes = (2 * n_keys * KVH * hd * esz + 2 * c["q"].numel() * esz
-                 + c["table"].numel() * 4)
-    chk_flops = 4 * H * hd * pairs
-    gk, gv = dense_kv(c["k"], c["v"], c["table"][None])
-    S = gk.shape[2]
-    qpos = start + torch.arange(C, device="cuda")[:, None]
-    kpos = torch.arange(S, device="cuda")[None, :]
-    cmask = ((kpos <= qpos) & (kpos < start + tl))[None, None]
-    qc = c["q"].transpose(0, 1)[None]
-    rows["paged_chunk"] = dict(
-        ms=time_ms(lambda: pa.paged_chunk_attention(
-            c["q"], c["k"], c["v"], c["table"], start, tl,
-            block_c=c["block_c"]), 20),
-        plain_ms=time_ms(lambda: pa.paged_chunk_attention_reference(
-            c["q"], c["k"], c["v"], c["table"], start, tl), 5),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            qc, gk, gv, attn_mask=cmask), 20),
-        bound=bound(chk_bytes, chk_flops))
+    rows["paged_chunk"] = chunk_timing(pa, main_chk, with_plain=True)
+    # Mixtral-8x7B's chunk (G = 4, 8 kv heads), a prompt's first chunk and
+    # a chunk deep into a long prompt (a split key walk)
+    for key, args in (("gqa", (32, 8, 1000)), ("first_chunk", (32, 32, 0)),
+                      ("long_walk", (32, 32, 3800))):
+        H_, KVH_, start_ = args
+        rows["paged_chunk"][key] = chunk_timing(pa, cases.chunk(
+            H_, KVH_, 128, 64, 64, 256, start_, 256, 64, bf))
     log(f"decode timed case: {n_pos} positions, {dec_bytes} bytes, "
-        f"{dec_flops} flops; chunk timed case: {pairs} (q, k) pairs, "
-        f"{chk_bytes} bytes, {chk_flops} flops")
+        f"{dec_flops} flops")
     for name, r in rows.items():
         r["max_abs_err"] = cases.err[name]
         log(f"{name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, sdpa "
@@ -860,7 +909,69 @@ def phase_kernels(pa):
         f"({r['gqa']['shape']}): {r['gqa']['ms']:.4f} ms, sdpa "
         f"{r['gqa']['library_ms']:.4f}, bound {r['gqa']['bound_ms']:.4f} "
         f"by bytes")
+    r = rows["paged_chunk"]
+    log(f"paged_chunk (Llama-2-7B, start 1000): sm90 {r['ms']:.4f} ms "
+        f"({r['splits']} splits; launches queued, host launch path "
+        f"{r['host_ms']:.4f}), simt {r['simt_ms']:.4f} "
+        f"({r['simt_ms'] / r['ms']:.2f}x sm90), sdpa {r['library_ms']:.4f} "
+        f"({r['ms'] / r['library_ms']:.3f}x), sm90 at {r['alt_splits']} "
+        f"splits {r['alt_splits_ms']:.4f}")
+    for key in ("gqa", "first_chunk", "long_walk"):
+        t = r[key]
+        log(f"  paged_chunk {t['shape']}: sm90 {t['ms']:.4f} ms "
+            f"({t['splits']} splits; at {t['alt_splits']} "
+            f"{t['alt_splits_ms']:.4f}), simt {t['simt_ms']:.4f}, sdpa "
+            f"{t['library_ms']:.4f}, bound {t['bound_ms']:.4f} by "
+            f"{t['bound_by']}")
     return rows
+
+
+def chunk_timing(pa, c, with_plain=False):
+    """K5 on a ``KernelCases.chunk`` case: the design the rule picks (sm90)
+    and its SIMT design with their launches queued behind a device spin
+    (time_queued: a call is about as short as its Python launch path), the
+    sm90 design at the other key-walk split choice (2 where the rule takes
+    one, else 1), SDPA on the gathered K/V (kv heads repeated for G > 1; a
+    yardstick only) and the bound; ``with_plain``: the plain version too."""
+    C, H, hd = c["q"].shape
+    KVH = c["k"].shape[1]
+    G = H // KVH
+    start, tl = c["start"], c["true_len"]
+    q, k, v, table = c["q"], c["k"], c["v"], c["table"]
+    esz = q.element_size()
+    n_keys = start + tl
+    pairs = sum(start + t + 1 for t in range(tl))
+    nbytes = (2 * n_keys * KVH * hd * esz + 2 * q.numel() * esz
+              + table.numel() * 4)
+    sc = 1 / math.sqrt(hd)
+    S = pa.chunk_splits(C, H, KVH, k.shape[2], table.shape[0], start, tl, 0)
+    alt = 2 if S == 1 else 1
+
+    def run(design, splits=None):
+        return lambda: pa.paged_chunk_launch(q, k, v, table, start, tl, sc, 0,
+                                             c["block_c"], design, splits)
+    ms, host_ms = time_queued(run("sm90"), 50)
+    gk, gv = (t.repeat_interleave(G, dim=1)
+              for t in dense_kv(k, v, table[None]))
+    qpos = start + torch.arange(C, device="cuda")[:, None]
+    kpos = torch.arange(gk.shape[2], device="cuda")[None, :]
+    mask = ((kpos <= qpos) & (kpos < start + tl))[None, None]
+    qc = q.transpose(0, 1)[None]
+    b = bound(nbytes, 4 * H * hd * pairs)
+    r = dict(shape=f"H = {H}, KVH = {KVH}, d = {hd}, C = {C}, start {start}",
+             ms=ms, host_ms=host_ms, splits=S,
+             simt_ms=time_queued(run("simt"), 20)[0],
+             alt_splits=alt, alt_splits_ms=time_queued(run("sm90", alt),
+                                                       50)[0],
+             library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                 qc, gk, gv, attn_mask=mask), 20),
+             bound=b, bound_ms=b[0], bound_by=b[1])
+    if with_plain:
+        r["plain_ms"] = time_ms(lambda: pa.paged_chunk_attention_reference(
+            q, k, v, table, start, tl), 5)
+    log(f"chunk timed case ({r['shape']}): {pairs} (q, k) pairs, {nbytes} "
+        f"bytes, {4 * H * hd * pairs} flops")
+    return r
 
 
 # ------------------------------------------------------------------ parity
@@ -1009,7 +1120,7 @@ def phase_slice(seed=0, profile=None):
     want = {"paged_decode": cfg.n_layer * fc["decode"],
             "paged_chunk": cfg.n_layer * (fc["chunk"] + fc["prefill"])}
     assert launches == want and min(launches.values()) > 0, (launches, want)
-    count_decode_designs(pa, launches)
+    count_paged_designs(pa, launches)
 
     ttft = sorted(first[u] - t_start for u in uids)
     tpot = sorted((done[u] - first[u]) / (new - 1) for u in uids)
@@ -1918,7 +2029,7 @@ def phase_moe_slice(seed=0, n_layer=24, profile=None):
     assert launches.pop("grouped_tgmm") == 0, "serving ran a backward kernel"
     assert all(launches.pop(k) == 0 for k in NO_WQ), "bf16 ran a wq kernel"
     assert launches == want and min(launches.values()) > 0, (launches, want)
-    count_decode_designs(pa, launches)
+    count_paged_designs(pa, launches)
     # grouped_gmm by _gmm_design: every bf16 forward, decode and chunk, on
     # sm90
     gmm_by = dict(gm.DESIGN_LAUNCHES["grouped_gmm"])
@@ -2507,8 +2618,11 @@ class WqCases:
 def wq_controls(mm, gm, dense, grouped):
     """Each check must fail on a known-wrong answer: K7 with its scale
     vector shifted by one channel, or with one 64-deep k slice of its
-    codes skipped; K9 with one group's rows on its neighbour expert's
-    scales; int4 with the two nibbles of every byte swapped."""
+    codes skipped; K9 (``grouped``: [(label, case)], the decode and the
+    chunk shapes whose kernels ran on sm90) with one group's rows on its
+    neighbour expert's scales, or on its own expert's codes with one
+    64-deep k slice skipped; int4 with the two nibbles of every byte
+    swapped."""
     out = []
     x, w, ref = dense["x"], dense["w"], dense["ref"]
     rows = 64 if w.bits == 8 else 32       # code rows of one k slice
@@ -2528,28 +2642,37 @@ def wq_controls(mm, gm, dense, grouped):
         why = bf16_mismatch(ctrl.to(torch.bfloat16), ref)
         assert why is not None, f"{label}: check let it pass"
         out.append(f"{label}: {why}")
-    c = grouped
-    sizes, E = c["sizes"], len(c["sizes"])
-    e = next(i for i, n in enumerate(sizes) if n)
-    lo = sum(sizes[:e])
-    hi = lo + sizes[e]
-    nb = (e + 1) % E
-    for name, w, xin in (("grouped_swiglu_up_wq", c["w1"], c["x"]),
-                         ("grouped_gmm_wq", c["w2"], c["h"])):
-        scale = w.scale.clone()
-        scale[e] = scale[nb]
-        bad = type(w)(w.q, scale)
-        if name == "grouped_gmm_wq":
-            ctrl = gm.grouped_matmul_wq_reference(xin.float(), bad, c["gs"])
-        else:
-            ctrl = gm.grouped_swiglu_up_wq_reference(xin.float(), bad,
-                                                     c["w3"], c["gs"])
-        ref = c["refs"][name]
-        wrong = ref.clone()
-        wrong[lo:hi] = ctrl[lo:hi]
-        why = bf16_mismatch(wrong.to(torch.bfloat16), ref)
-        assert why is not None, f"{name}: a neighbour's scales passed"
-        out.append(f"{name} group {e} on expert {nb}'s scales: {why}")
+    for shape, c in grouped:
+        sizes, E = c["sizes"], len(c["sizes"])
+        e = next(i for i, n in enumerate(sizes) if n)
+        lo = sum(sizes[:e])
+        hi = lo + sizes[e]
+        nb = (e + 1) % E
+        for name, w, xin in (("grouped_swiglu_up_wq", c["w1"], c["x"]),
+                             ("grouped_gmm_wq", c["w2"], c["h"])):
+            scale = w.scale.clone()
+            scale[e] = scale[nb]
+            rows = 64 if w.bits == 8 else 32   # code rows of one k slice
+            skipped = w.q.clone()
+            skipped[e, rows:2 * rows] = 0
+            ref = c["refs"][name]
+            for label, bad in (
+                    (f"group {e} on expert {nb}'s scales",
+                     type(w)(w.q, scale)),
+                    (f"group {e} with k slice 1 of its codes skipped",
+                     type(w)(skipped, w.scale))):
+                if name == "grouped_gmm_wq":
+                    ctrl = gm.grouped_matmul_wq_reference(xin.float(), bad,
+                                                          c["gs"])
+                else:
+                    ctrl = gm.grouped_swiglu_up_wq_reference(
+                        xin.float(), bad, c["w3"], c["gs"])
+                wrong = ref.clone()
+                wrong[lo:hi] = ctrl[lo:hi]
+                why = bf16_mismatch(wrong.to(torch.bfloat16), ref)
+                assert why is not None, f"{name} {shape}: {label} passed"
+                out.append(f"{name} {shape} {label}: {why}")
+            del skipped
     return out
 
 
@@ -2641,11 +2764,14 @@ def phase_wq_kernels(mm, gm, seed=0):
         cases.hold("wq_matmul", mm.wq_matmul(xs, ws),
                    mm.wq_matmul_reference(xs, ws), f"int{bits} fp32")
 
-    # ---- K9
+    # ---- K9: every case on the design _wq_grouped_design picks (sm90 for
+    # bf16), repeated bitwise, against the plain version; the decode and
+    # chunk shapes timed on both designs (launches queued) beside the
+    # library calls and the bound
     E, Fm = 8, 14336
     dec_sizes = routed_sizes(rs, 8, E, 2)
     chk_sizes = routed_sizes(rs, 256, E, 2)
-    grouped = None
+    grouped = []
     for bits in (8, 4):
         w1, w3 = (cases.quantized((E, D, Fm), bits) for _ in range(2))
         w2 = cases.quantized((E, Fm, D), bits)
@@ -2656,9 +2782,18 @@ def phase_wq_kernels(mm, gm, seed=0):
                 (512, [40, 60, 0, 20, 100, 0, 80, 50], "162-row tail")):
             x = cases.randn((M, D))
             gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+            gm.reset_launch_counts()
             h = gm.grouped_swiglu_up_wq(x, w1, w3, gs)
             out = gm.grouped_matmul_wq(h, w2, gs)
+            again = (gm.grouped_swiglu_up_wq(x, w1, w3, gs),
+                     gm.grouped_matmul_wq(h, w2, gs))
             torch.cuda.synchronize()
+            design = gm._wq_grouped_design(x, w1)
+            for name in ("grouped_swiglu_up_wq", "grouped_gmm_wq"):
+                by = gm.DESIGN_LAUNCHES[name]
+                assert by[design] == 2 == sum(by.values()), (name, by)
+            assert torch.equal(h, again[0]) and torch.equal(out, again[1]), \
+                f"K9 int{bits} {what}: repeat differs"
             live = min(sum(sizes), M)
             assert (h[live:] == 0).all() and (out[live:] == 0).all(), \
                 f"K9 rows past the groups not zero (sizes {sizes})"
@@ -2669,33 +2804,43 @@ def phase_wq_kernels(mm, gm, seed=0):
             for name, got in (("grouped_swiglu_up_wq", h),
                               ("grouped_gmm_wq", out)):
                 cases.hold(name, got[:live], refs[name][:live],
-                           f"int{bits} {what}, sizes {sizes}")
+                           f"int{bits} {what} ({design}), sizes {sizes}")
             if what not in ("decode", "chunk"):
                 continue
-            if bits == 8 and what == "decode":
-                grouped = dict(x=x, h=h, gs=gs, sizes=sizes, w1=w1, w3=w3,
-                               w2=w2, refs=refs)
+            if bits == 8:
+                grouped.append((what, dict(x=x, h=h, gs=gs, sizes=sizes,
+                                           w1=w1, w3=w3, w2=w2, refs=refs)))
             touched = sum(1 for s in sizes if s)
             d1, d3, d2 = (w.dequant(bf) for w in (w1, w3, w2))
             up_lib, up_name = grouped_library(x, d1, sizes)
             up_lib3, _ = grouped_library(x, d3, sizes)
             dn_lib, dn_name = grouped_library(h, d2, sizes)
-            timings[("grouped_swiglu_up_wq", bits, what, "")] = dict(
-                ms=time_ms(lambda: gm.grouped_swiglu_up_wq(x, w1, w3, gs),
-                           30),
-                plain_ms=time_ms(lambda: gm.grouped_swiglu_up_wq_reference(
-                    x, w1, w3, gs), 3),
-                library_ms=time_ms(lambda: F.silu(up_lib()) * up_lib3(), 30),
-                library=f"{up_name} x2 + silu*mul on the dequantized "
-                        f"bf16 experts",
-                bound=wq_bound(M, D, Fm, bits, touched, 2, live))
-            timings[("grouped_gmm_wq", bits, what, "")] = dict(
-                ms=time_ms(lambda: gm.grouped_matmul_wq(h, w2, gs), 30),
-                plain_ms=time_ms(lambda: gm.grouped_matmul_wq_reference(
-                    h, w2, gs), 3),
-                library_ms=time_ms(dn_lib, 30),
-                library=f"{dn_name} on the dequantized bf16 experts",
-                bound=wq_bound(M, Fm, D, bits, touched, 1, live))
+            for name, fn, xin, ws, lib, lib_name, dims in (
+                    ("grouped_swiglu_up_wq", "grouped_swiglu_up_wq_launch",
+                     x, (w1, w3), lambda: F.silu(up_lib()) * up_lib3(),
+                     f"{up_name} x2 + silu*mul on the dequantized bf16 "
+                     f"experts", (D, Fm, 2)),
+                    ("grouped_gmm_wq", "grouped_gmm_wq_launch", h, (w2,),
+                     dn_lib, f"{dn_name} on the dequantized bf16 experts",
+                     (Fm, D, 1))):
+                def call(design=None, fn=fn, name=name, xin=xin, ws=ws):
+                    return gm._launch_wq_grouped(fn, name, xin, ws, gs,
+                                                 design)
+                ms, host_ms = time_queued(call, 30)
+                mma_ms, mma_host_ms = time_queued(
+                    lambda call=call: call("mma_sync"), 30)
+                plain = (gm.grouped_swiglu_up_wq_reference
+                         if name == "grouped_swiglu_up_wq"
+                         else gm.grouped_matmul_wq_reference)
+                timings[(name, bits, what, "")] = dict(
+                    ms=ms, host_ms=host_ms, mma_sync_ms=mma_ms,
+                    mma_sync_host_ms=mma_host_ms, design=design,
+                    row_tile=gm.wq_grouped_plan(M, E),
+                    plain_ms=time_ms(lambda plain=plain, xin=xin, ws=ws:
+                                     plain(xin, *ws, gs), 3),
+                    library_ms=time_ms(lib, 30), library=lib_name,
+                    bound=wq_bound(M, dims[0], dims[1], bits, touched,
+                                   dims[2], live))
             del d1, d3, d2
         for M, sizes in ((16, dec_sizes), (100, [30, 0, 20, 10, 5, 0, 15,
                                                  10])):
@@ -2732,7 +2877,12 @@ def phase_wq_kernels(mm, gm, seed=0):
                f"(mma_sync) {t['mma_sync_ms']:.4f}; eager calls "
                f"{t['eager_ms']:.4f}; host launch path {t['host_ms']:.4f} "
                f"(mma_sync {t['mma_sync_host_ms']:.4f})"
-               if "design" in t else "")
+               if "splits" in t else "")
+            + (f"; launches queued; design {t['design']} (row tile "
+               f"{t['row_tile']}), wq_kernel (mma_sync) "
+               f"{t['mma_sync_ms']:.4f}; host launch path {t['host_ms']:.4f} "
+               f"(mma_sync {t['mma_sync_host_ms']:.4f})"
+               if "design" in t and "splits" not in t else "")
             + (f", sm90 at {t['alt_splits']} splits "
                f"{t['alt_splits_ms']:.4f}" if "alt_splits" in t else ""))
     for bits in (4, 8):
@@ -2745,6 +2895,17 @@ def phase_wq_kernels(mm, gm, seed=0):
                     f"the card is {faster}, the rule picks {t['design']}; "
                     f"{t['ms'] / t['library_ms']:.2f}x the library call, "
                     f"{t['ms'] / t['mma_sync_ms']:.2f}x wq_kernel")
+    for name in ("grouped_swiglu_up_wq", "grouped_gmm_wq"):
+        for bits in (8, 4):
+            for shape in ("decode", "chunk"):
+                t = timings[(name, bits, shape, "")]
+                faster = "sm90" if t["ms"] < t["mma_sync_ms"] else \
+                    "mma_sync"
+                log(f"  K9 {name} {shape} int{bits}: the faster design on "
+                    f"the card is {faster}, the rule picks {t['design']}; "
+                    f"{t['ms'] / t['library_ms']:.2f}x the library call, "
+                    f"{t['ms'] / t['mma_sync_ms']:.2f}x wq_kernel, "
+                    f"{t['bound'][0] / t['ms']:.2f} of the bound")
     main = {"wq_matmul": (4, "decode", "up"),
             "grouped_swiglu_up_wq": (8, "decode", ""),
             "grouped_gmm_wq": (8, "decode", "")}
@@ -2874,10 +3035,17 @@ def phase_wq_slice(kind, seed=0, profile=None):
 
     k7_calls = []                # (rows, design) of every K7 call
     wq_design = mm._wq_design
+    k9_rows = {}                 # K9's design -> the row counts it took
+    k9_design = gm._wq_grouped_design
 
     def recording_design(x2, w):
         design = wq_design(x2, w)
         k7_calls.append((x2.shape[0], design))
+        return design
+
+    def recording_k9_design(x, w):
+        design = k9_design(x, w)
+        k9_rows.setdefault(design, set()).add(x.shape[0])
         return design
 
     rs = np.random.RandomState(seed)
@@ -2890,6 +3058,7 @@ def phase_wq_slice(kind, seed=0, profile=None):
         eng.forward_counts[k] = 0
     mx.sort_by_expert = recording_sort
     mm._wq_design = recording_design
+    gm._wq_grouped_design = recording_k9_design
     try:
         t_start = time.perf_counter()
         uids = []
@@ -2910,6 +3079,7 @@ def phase_wq_slice(kind, seed=0, profile=None):
     finally:
         mx.sort_by_expert = sort
         mm._wq_design = wq_design
+        gm._wq_grouped_design = k9_design
     launches = {**pa.LAUNCHES, **gm.LAUNCHES, **mm.LAUNCHES}
     k7_by_design = {k: v for k, v in mm.DESIGN_LAUNCHES["wq_matmul"].items()
                     if v}
@@ -2927,7 +3097,7 @@ def phase_wq_slice(kind, seed=0, profile=None):
     else:
         want["grouped_swiglu_up_wq"] = want["grouped_gmm_wq"] = L * forwards
     assert launches == want, (launches, want)
-    count_decode_designs(pa, launches)
+    count_paged_designs(pa, launches)
     # K7 by design: every bf16 call of at least WQ_SM90_MIN_ROWS rows (each
     # chunk's products among them) on sm90, the rest on mma_sync
     k7_rows = {}
@@ -2941,6 +3111,18 @@ def phase_wq_slice(kind, seed=0, profile=None):
             k7_by_design.get("sm90", 0) == sum(
                 1 for _, d in k7_calls if d == "sm90"), k7_by_design
         count_designs("wq_matmul", k7_by_design)
+    else:
+        # K9 by design: every bf16 call of at least WQ_GROUPED_SM90_MIN_ROWS
+        # rows (decode and chunk) on sm90, the rest on mma_sync
+        assert all(r >= gm.WQ_GROUPED_SM90_MIN_ROWS
+                   for r in k9_rows.get("sm90", ())) and all(
+            r < gm.WQ_GROUPED_SM90_MIN_ROWS
+            for r in k9_rows.get("mma_sync", ())), k9_rows
+        for name in ("grouped_swiglu_up_wq", "grouped_gmm_wq"):
+            by = dict(gm.DESIGN_LAUNCHES[name])
+            assert sum(by.values()) == launches[name] and not by["fp32"], \
+                (name, by)
+            count_designs(name, by)
 
     hist = [s.tolist() for s in first_decode]
     ttft = sorted(first[u] - t_start for u in uids)
@@ -2964,6 +3146,11 @@ def phase_wq_slice(kind, seed=0, profile=None):
             1 for rows, _ in k7_calls if rows > 8)
     if kind == "mixtral":
         stats["first_decode_expert_load"] = hist
+        stats["k9_launches_by_design"] = {
+            n: {k: v for k, v in gm.DESIGN_LAUNCHES[n].items() if v}
+            for n in ("grouped_swiglu_up_wq", "grouped_gmm_wq")}
+        stats["k9_rows_by_design"] = {k: [min(v), max(v)]
+                                      for k, v in k9_rows.items()}
         assert len(hist) == L and all(sum(h) == 16 for h in hist), hist
     log("wq slice " + json.dumps(stats))
     del eng, model
@@ -5082,7 +5269,8 @@ def main(argv=None):
                       "alt_splits", "alt_splits_ms", "int8pack_ms",
                       "bf16_matmul_ms", "delta_ms", "split_ms",
                       "mma_sync_split_ms",
-                      "host_ms", "mma_sync_host_ms"):
+                      "host_ms", "mma_sync_host_ms", "simt_ms",
+                      "first_chunk", "long_walk"):
             if extra in r:
                 row[extra] = r[extra]
         if name in PATH_DESIGNS:

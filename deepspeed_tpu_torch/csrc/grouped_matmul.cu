@@ -28,8 +28,11 @@
 //   wrapper's _tgmm_design picks one per call).
 // grouped_gmm_wq / grouped_swiglu_up_wq (K9) replace _gmm_wq_kernel and
 //   _swiglu_up_wq_kernel: the same two forward products with int8 or
-//   packed-int4 expert codes and per-(expert, channel) scales; the kernel
-//   is wq_gemm.cuh's wq_kernel on this file's grid and group resolution.
+//   packed-int4 expert codes and per-(expert, channel) scales. bf16 x and
+//   codes TMA can address take the Hopper design (wq_grouped_sm90_kernel,
+//   below, on wq_sm90.cuh); fp32 and the rest of bf16 wq_gemm.cuh's
+//   wq_kernel on this file's grid and group resolution (the wrapper's
+//   _wq_grouped_design picks one per call).
 //
 // Rows are sorted by group; group_sizes (E,) int32 stays in device memory
 // (no host sync). The grid is (tiles_m + E logical tiles) x (N / 64 column
@@ -65,6 +68,7 @@
 #include "gemm_common.cuh"
 #include "sm90_gemm.cuh"
 #include "wq_gemm.cuh"
+#include "wq_sm90.cuh"
 
 struct GroupedArgs {
   const void* x;           // (M, K) contiguous
@@ -572,6 +576,179 @@ cudaError_t launch_gmm_sm90(const GroupedArgs& a, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+// K9's Hopper design (bf16 x and codes TMA can address): K7's CTA
+// (wq_sm90.cuh wq_cta: the widened codes as wgmma's register operand, x
+// from swizzled shared memory) on a grouped walk. CTA (v, f) takes run v
+// of the features from f * FT (FT = 128, or 256 for the wide down
+// projection). Runs resolve on the device from the E sizes
+// (resolve_run): each non-empty group's rows, then the tail, cut into
+// runs of NR rows from the segment's own first row, so x's box starts
+// there and an evenly routed expert's rows are one run (at most
+// ceil(M / NR) + E + 1 runs). An expert's run loads its NR x rows from
+// its first and that expert's code boxes (the code maps' third dim) over
+// every k slice, computes all NR rows and stores only its own, with its
+// own expert's scales; a tail run stores zeros; a dead run exits. The run
+// index runs fastest, so the runs that share an expert's code tile run
+// side by side and the second read comes from L2. SWIGLU: w1's and w3's
+// code boxes share each x slice, two accumulators, s1 and s3 on the fp32
+// sums, then silu * mul in fp32 and one rounding. WIDE (the down
+// projection above decode): two 128-feature boxes of the one weight share
+// each x slice, halving the x slices read a feature.
+template <int NR>
+__device__ __forceinline__ int resolve_run(const int* group_sizes, int E, int M, int idx, int& lo,
+                                           int& hi) {
+  int start = 0;
+  for (int e = 0; e <= E; ++e) {
+    int s, en;
+    if (e < E) {
+      s = min(start, M);
+      en = min(start + max(group_sizes[e], 0), M);
+      start = en;
+    } else {
+      s = min(start, M);
+      en = M;
+    }
+    if (en <= s) continue;
+    const int n = (en - s + NR - 1) / NR;
+    if (idx < n) {
+      lo = s + idx * NR;
+      hi = min(en, lo + NR);
+      return e < E ? e : -1;
+    }
+    idx -= n;
+  }
+  return -2;
+}
+
+template <bool SWIGLU>
+struct RunEpi {
+  bf16* out;  // (M, N) contiguous
+  const float* s1;
+  const float* s3;
+  int N, f0, lo, hi;
+  // acc[j][4 b + e]: box j's feature f + (e >> 1) at row lo + 8 b + 2 t + (e & 1)
+  template <int NQ, int NA>
+  __device__ __forceinline__ void operator()(const float (&acc)[NQ][NA], int f, int t4) const {
+#pragma unroll
+    for (int j = 0; j < (SWIGLU ? 1 : NQ); ++j) {
+      const int F = f0 + j * wq90::FT + f;
+      if (F >= N) continue;
+      const float a0 = s1[F], a1 = s1[F + 1];
+      const float c0 = SWIGLU ? s3[F] : 0.f, c1 = SWIGLU ? s3[F + 1] : 0.f;
+#pragma unroll
+      for (int b = 0; b < NA / 4; ++b)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int r = lo + 8 * b + 2 * t4 + e;
+          if (r >= hi) continue;
+          float v0 = acc[j][4 * b + e] * a0, v1 = acc[j][4 * b + 2 + e] * a1;
+          if constexpr (SWIGLU) {
+            v0 = v0 / (1.f + expf(-v0)) * (acc[NQ - 1][4 * b + e] * c0);
+            v1 = v1 / (1.f + expf(-v1)) * (acc[NQ - 1][4 * b + 2 + e] * c1);
+          }
+          *reinterpret_cast<uint32_t*>(out + (long long)r * N + F) = sm90::pack_bf16(v0, v1);
+        }
+    }
+  }
+};
+
+// features a CTA of the K9 design: two boxes of the one weight (WIDE) or one
+template <bool SWIGLU, bool WIDE>
+__host__ __device__ constexpr int wq_run_features() {
+  return WIDE && !SWIGLU ? 2 * wq90::FT : wq90::FT;
+}
+
+template <int BITS, int NR, bool SWIGLU, bool WIDE>
+__global__ void __launch_bounds__(wq90::THREADS, 1)
+    wq_grouped_sm90_kernel(const __grid_constant__ CUtensorMap mx,
+                           const __grid_constant__ CUtensorMap mq1,
+                           const __grid_constant__ CUtensorMap mq3, WqArgs a, int q_rank) {
+  constexpr int FT = wq_run_features<SWIGLU, WIDE>();
+  __shared__ int info[3];
+  if (threadIdx.x == 0) {
+    int lo = 0, hi = 0;
+    info[0] = resolve_run<NR>(a.group_sizes, a.E, a.M, blockIdx.x, lo, hi);
+    info[1] = lo;
+    info[2] = hi;
+  }
+  __syncthreads();
+  const int g = info[0], lo = info[1], hi = info[2];
+  if (g == -2) return;  // past the live runs
+  const int f0 = blockIdx.y * FT;
+  bf16* out = reinterpret_cast<bf16*>(a.out);
+  if (g == -1) {  // rows past the groups: exactly zero
+    for (int i = threadIdx.x; i < (hi - lo) * FT; i += wq90::THREADS) {
+      const int r = lo + i / FT, n = f0 + i % FT;
+      if (n < a.N) out[(long long)r * a.N + n] = __float2bfloat16(0.f);
+    }
+    return;
+  }
+  const RunEpi<SWIGLU> epi{out, a.s1 + (long long)g * a.N,
+                           SWIGLU ? a.s3 + (long long)g * a.N : nullptr, a.N, f0, lo, hi};
+  wq90::wq_cta<BITS, NR, SWIGLU || WIDE ? 2 : 1>(mx, mq1, mq3, q_rank, f0,
+                                                 SWIGLU ? f0 : f0 + wq90::FT, lo, g, 0,
+                                                 (a.K + wq90::KS - 1) / wq90::KS, epi);
+}
+
+template <int BITS, int NR, bool SWIGLU, bool WIDE>
+cudaError_t launch_wq_grouped(const WqArgs& a, cudaStream_t s) {
+  constexpr int KR_DIV = BITS == 8 ? 1 : 2;
+  constexpr int FT = wq_run_features<SWIGLU, WIDE>();
+  CUtensorMap mx, mq1, mq3;
+  int rank, dim2;
+  cudaError_t e = sm90::make_operand_map(&mx, a.x, a.K, a.M, a.K, 1, 0, 1, 0, NR, &rank, &dim2);
+  if (e == cudaSuccess)
+    e = wq90::make_code_map(&mq1, a.q1, a.K / KR_DIV, a.N, wq90::q_rows<BITS>(), a.E);
+  if (e == cudaSuccess && SWIGLU)
+    e = wq90::make_code_map(&mq3, a.q3, a.K / KR_DIV, a.N, wq90::q_rows<BITS>(), a.E);
+  if (e != cudaSuccess) return e;
+  if (!SWIGLU) mq3 = mq1;
+  auto kernel = wq_grouped_sm90_kernel<BITS, NR, SWIGLU, WIDE>;
+  constexpr int smem = wq90::smem_bytes<BITS, NR, SWIGLU || WIDE ? 2 : 1>();
+  static bool smem_set = false;  // once: later calls may be captured in a graph
+  if (!smem_set) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    smem_set = true;
+  }
+  const long long runs = (a.M + NR - 1) / NR + a.E + 1;
+  if (runs > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const dim3 grid((unsigned)runs, (a.N + FT - 1) / FT);
+  kernel<<<grid, wq90::THREADS, smem, s>>>(mx, mq1, mq3, a, a.E > 1 ? 3 : 2);
+  return cudaGetLastError();
+}
+
+// the row tile; the down projection is wide at row tiles above decode's
+template <int BITS, bool SWIGLU>
+cudaError_t wq_grouped_by_tile(const WqArgs& a, int row_tile, cudaStream_t s) {
+  switch (row_tile) {
+    case 16: return launch_wq_grouped<BITS, 16, SWIGLU, false>(a, s);
+    case 80: return launch_wq_grouped<BITS, 80, SWIGLU, !SWIGLU>(a, s);
+    case 128: return launch_wq_grouped<BITS, 128, SWIGLU, !SWIGLU>(a, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// K9's launchers: design 0 = fp32 and 1 = mma_sync (wq_kernel<float | bf16>
+// at block_m = ``tile``, 16 or 64), 2 = sm90 (wq_grouped_sm90_kernel at the
+// row tile ``tile``, 16, 64 or 128: bf16 x with K a multiple of 8, codes
+// with N a multiple of 16, 16-byte aligned x, codes, scales and out).
+template <bool SWIGLU>
+int grouped_wq(const WqArgs* a, int design, int bits, int tile, void* stream) {
+  if (a == nullptr || a->group_sizes == nullptr) return cudaErrorInvalidValue;
+  if (design == 0 || design == 1) return wq_dispatch<SWIGLU>(a, design, bits, tile, stream);
+  if (design != 2 || a->M <= 0 || a->K <= 0 || a->N <= 0 || a->E <= 0 || a->K % 8 != 0 ||
+      a->N % 16 != 0 || (bits != 4 && bits != 8) || (a->N + wq90::FT - 1) / wq90::FT > 65535 ||
+      (uintptr_t)a->x % 16 || (uintptr_t)a->q1 % 16 || (uintptr_t)a->s1 % 16 ||
+      (uintptr_t)a->out % 16 ||
+      (SWIGLU && (a->q3 == nullptr || a->s3 == nullptr || (uintptr_t)a->q3 % 16 ||
+                  (uintptr_t)a->s3 % 16)))
+    return cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  return bits == 8 ? wq_grouped_by_tile<8, SWIGLU>(*a, tile, s)
+                   : wq_grouped_by_tile<4, SWIGLU>(*a, tile, s);
+}
+
 template <typename T, int BM, bool SWIGLU, bool WT>
 cudaError_t launch(const GroupedArgs& a, cudaStream_t s) {
   constexpr int BK = Slice<T>::BK;
@@ -672,15 +849,14 @@ extern "C" int grouped_tgmm_launch(const TgmmArgs* a, int dtype, void* stream) {
 }
 
 // K9: x (M, K) times one expert's codes per group, WqArgs.group_sizes set;
-// bits 8 or 4, other arguments as above.
-extern "C" int grouped_gmm_wq_launch(const WqArgs* a, int dtype, int bits, int block_m,
+// design and tile as grouped_wq; bits 8 or 4. Returns a cudaError_t (0 =
+// launched).
+extern "C" int grouped_gmm_wq_launch(const WqArgs* a, int design, int bits, int tile,
                                      void* stream) {
-  if (a == nullptr || a->group_sizes == nullptr) return cudaErrorInvalidValue;
-  return wq_dispatch<false>(a, dtype, bits, block_m, stream);
+  return grouped_wq<false>(a, design, bits, tile, stream);
 }
 
-extern "C" int grouped_swiglu_up_wq_launch(const WqArgs* a, int dtype, int bits, int block_m,
+extern "C" int grouped_swiglu_up_wq_launch(const WqArgs* a, int design, int bits, int tile,
                                            void* stream) {
-  if (a == nullptr || a->group_sizes == nullptr) return cudaErrorInvalidValue;
-  return wq_dispatch<true>(a, dtype, bits, block_m, stream);
+  return grouped_wq<true>(a, design, bits, tile, stream);
 }

@@ -52,28 +52,66 @@
 //   the output itself (the same arithmetic: e^0 = 1).
 //
 // paged_chunk   replaces deepspeed_tpu/ops/pallas/paged_attention.py
-//               _chunk_kernel (via paged_chunk_attention).
-//   One CTA per (q tile of block_c chunk tokens, kv head): its rows are the
-//   tile's block_c*G (token, head) pairs, read straight from the (C, H, D)
-//   layout (the TPU (KVH, C*G, D) fold and 128-lane m/l scratch are not
-//   ported). Rows are processed in sub-tiles of RT (16 or 64); each sub-tile
-//   walks the table's live blocks: live = k_lo < start+true_len and
-//   k_lo <= q_hi (and k_hi > q_lo - window); a block fully before the
-//   diagonal and the limit takes the mask-free path. K/V blocks are staged
-//   in shared memory and the two products are SIMT micro-tiles with fp32
-//   accumulation.
+//               _chunk_kernel (via paged_chunk_attention). Its math, not
+//   its layout (the TPU (KVH, C*G, D) fold and 128-lane m/l scratch are not
+//   ported): the C queries of one sequence at positions start .. start + C
+//   - 1 attend over the keys the table names; a key is real below start +
+//   true_len, causal at kpos <= qpos, inside the window at kpos > qpos -
+//   window; s = (q.k) * scale in fp32, masked -1e30; p = exp(s - m), l
+//   sums the unrounded p, PV takes p rounded to T; out = acc / max(l,
+//   1e-30), rounded once. The wrapper's _chunk_design picks one of three
+//   designs (paged_chunk_launch's design code):
+//   sm90 (bf16, D = 64 or 128, BS = 64 or 128): paged_chunk_sm90_kernel<D>,
+//     K1's Hopper forward (flash_attention.cu flash_fwd_sm90_kernel, on
+//     sm90_attention.cuh) on a paged producer. An item is 128 rows of the
+//     JAX fold of one kv head (row r = chunk token t0 + r / G, head kvh G +
+//     r % G): q comes by TMA from a map over (C, H, D) as (D, H, C) with a
+//     box of (64 d, G heads, 128 / G tokens), which lands the rows in the
+//     fold's order with no copy; the output goes out from the fragments
+//     (bf16 pairs; rows of tokens past C are not written). Warp 0 of
+//     the producer walks the item's live table blocks, holding 32 entries
+//     at a time in its lanes' registers, and lane 0 TMA-loads each block's
+//     K and V from maps over the pools as (D, BS, KVH, NB) at (64 half, 0,
+//     kvh, table[j]) into a 128-key stage (two blocks at BS = 64; two
+//     64-wide halves at D = 128), 4 stages at D = 64, 3 at D = 128. The
+//     walk visits the blocks from the one holding the item's first live
+//     key (the window's start) to the one holding its last (the causal
+//     diagonal or the limit); a block of the last tile past the walk reads
+//     a valid entry whose keys are all masked. Two consumer warpgroups own
+//     64 rows each: S = Q K^T by wgmma m64n128k16 (both K-major) while the
+//     previous tile's O += P V (P in registers, V MN-major) runs, then the
+//     online softmax on the fp32 fragments with the raw maxima and the
+//     scale inside the exp's FMA (p = ex2(s sl2e - m sl2e), sl2e = scale
+//     log2 e: q is never scaled in bf16); only tiles the diagonal, the
+//     limit or the window cut build the per-element mask, and a row with
+//     nothing live so far takes p = 0. Filling the card: a 256-token chunk
+//     is KVH ceil(C G / 128) = 64 items (Llama-2-7B's MHA and Mixtral's G =
+//     4 alike) on 132 SMs, persistent, longest walks first; where the
+//     longest walk has at least 16 tiles (a chunk deep into a long prompt)
+//     the wrapper (chunk_splits, from the shape and the host's start /
+//     true_len) cuts each walk into S runs, each unit's fp32 (m, l, acc)
+//     written unnormalized and paged_chunk_merge_kernel folding them in
+//     split order: no atomics, calls repeat bitwise. At Llama-2-7B's
+//     start-1000 chunk the split's partial round trip and second launch
+//     cost more than the idle SMs (chip_smoke.py phase 2 times both).
+//   simt (other bf16: D = 32, other block sizes) and fp32 (the parity
+//     checks): paged_chunk_kernel<T, D, RT>, one CTA per (q tile of
+//     block_c chunk tokens, kv head), rows in sub-tiles of RT (16 or 64)
+//     walking the table's live blocks (live = k_lo < start + true_len and
+//     k_lo <= q_hi, and k_hi > q_lo - window; a block fully before the
+//     diagonal and the limit takes the mask-free path), K/V staged in
+//     shared memory, both products SIMT micro-tiles on the CUDA cores.
 //   Bound: max(flops / 989 TFLOP/s, bytes / 3.35 TB/s) on an H100 SXM. Each
 //   bf16 K/V position costs 4*D bytes per kv head and serves at most C*G
 //   query rows at 4*D flops each, so a 256-token chunk is bound by bytes
 //   under MHA (G=1: at most 256 flop/byte, below the 295 ridge) and by
-//   flops under GQA (G=4, Mistral-7B: up to 1024). This first
-//   version runs on the CUDA cores (no wgmma/TMA yet), so it sits well
-//   above that bound; tensor cores are later work.
+//   flops under GQA (G=4, Mistral-7B: up to 1024).
 //
 // Masks are the Pallas kernels' exactly: NEG_INF = -1e30 for masked scores,
 // and the output divides by max(l, 1e-30).
 
 #include "attention_tiles.cuh"
+#include "sm90_attention.cuh"
 
 struct DecodeArgs {
   const void* q;        // (B, H, D)
@@ -651,6 +689,398 @@ paged_chunk_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   }
 }
 
+// ------------------------------------------------------------ chunk (Hopper)
+
+constexpr int C90_TILE = 128;               // folded query rows an item, keys a stage
+constexpr int C90_HALF = C90_TILE * 128;    // one 64-d half of a 128-row tile: 16 KB
+constexpr float C90_LOG2E = 1.4426950408889634f;
+
+// K / V stages: 4 at d = 64, 3 at d = 128 (225 KB with q: the output goes
+// out from registers, so no staging tile takes a stage's room)
+template <int D>
+__host__ __device__ constexpr int c90_stages() {
+  return D == 64 ? 4 : 3;
+}
+
+template <int D>
+constexpr int c90_smem() {
+  // q, the K / V ring, barriers; up to 1 KB to align
+  return 1024 + (D / 64) * C90_HALF * (1 + 2 * c90_stages<D>()) + (2 * c90_stages<D>() + 2) * 8;
+}
+
+struct ChunkArgs {
+  const int* table;  // (MB,) int32
+  bf16* out;         // (C, H, D)
+  int C, H, G, MB, BS;
+  int start;
+  int kmax;          // keys below min(start + true_len, MB * BS) are real
+  int window;
+  int nq, items;     // 128-row items a kv head, items in all
+  int S;             // key-walk splits an item (S > 1: fp32 partials in part)
+  float* part;       // S > 1: acc (items * S, 128, D), then m and l (items * S, 128)
+  float sl2e;        // scale * log2(e)
+};
+
+// Item w: kv head ``kvh`` and its first chunk token t0 (each head's last,
+// longest, item first).
+__device__ __forceinline__ void c90_head(const ChunkArgs& a, int w, int& kvh, int& t0) {
+  kvh = w / a.nq;
+  t0 = (a.nq - 1 - (w - kvh * a.nq)) * (C90_TILE / a.G);
+}
+
+// Work unit u = (item u / S, split u % S): the item's kv head, first chunk
+// token and query positions [q_lo, q_hi]; its walk of 128 / BS table blocks
+// a tile from block ``b_lo``, of which the split takes tiles [i0, i1). An
+// item with no live key walks one tile with every score masked (its rows
+// come out 0); a split may take no tile (an empty partial).
+__device__ __forceinline__ void c90_unit(const ChunkArgs& a, int u, int& kvh, int& t0, int& q_lo,
+                                         int& q_hi, int& b_lo, int& i0, int& i1) {
+  const int w = u / a.S, z = u - w * a.S;
+  const int tt = C90_TILE / a.G;  // chunk tokens an item
+  c90_head(a, w, kvh, t0);
+  q_lo = a.start + t0;
+  q_hi = a.start + min(a.C, t0 + tt) - 1;
+  const int k_hi = min(a.kmax, q_hi + 1);
+  const int k_lo = a.window > 0 ? max(0, q_lo - a.window + 1) : 0;
+  const int bpt = C90_TILE / a.BS;
+  int nt = 1;
+  b_lo = 0;
+  if (k_hi > k_lo) {
+    b_lo = k_lo / a.BS;
+    nt = ((k_hi + a.BS - 1) / a.BS - b_lo + bpt - 1) / bpt;
+  }
+  i0 = z * nt / a.S;
+  i1 = (z + 1) * nt / a.S;
+}
+
+template <int D>
+__global__ void __launch_bounds__(384, 1)
+    paged_chunk_sm90_kernel(const __grid_constant__ CUtensorMap mq,
+                            const __grid_constant__ CUtensorMap mk,
+                            const __grid_constant__ CUtensorMap mv, ChunkArgs a) {
+  constexpr int HALVES = D / 64;
+  constexpr int STAGES = c90_stages<D>();
+  constexpr bool PINGPONG = D == 64;
+  constexpr int TILE_BYTES = HALVES * C90_HALF;  // a 128-row q, k or v tile
+  unsigned char* base = sm90::sm90_smem + ((1024 - (sm90::smem_u32(sm90::sm90_smem) & 1023)) & 1023);
+  unsigned char* qs = base;
+  unsigned char* ks = qs + TILE_BYTES;           // [STAGES][TILE_BYTES]
+  unsigned char* vs = ks + STAGES * TILE_BYTES;  // [STAGES][TILE_BYTES]
+  uint64_t* full = reinterpret_cast<uint64_t*>(vs + STAGES * TILE_BYTES);
+  uint64_t* empty = full + STAGES;
+  uint64_t* qfull = empty + STAGES;
+  uint64_t* qempty = qfull + 1;
+
+  const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 8);  // one arrive per consumer warp
+    }
+    sm90::mbar_init(qfull, 1);
+    sm90::mbar_init(qempty, 8);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (tid < 32) {
+      // warp 0: its lanes hold 32 table entries at a time (a register
+      // window moved along the walk); lane 0 issues the TMA loads
+      const int lane = tid, bpt = C90_TILE / a.BS;
+      int stage = 0, win = -1 << 30, ent = 0;
+      uint32_t phase = 0, qphase = 0;
+      for (int u = blockIdx.x; u < a.items * a.S; u += gridDim.x) {
+        int kvh, t0, q_lo, q_hi, b_lo, i0, i1;
+        c90_unit(a, u, kvh, t0, q_lo, q_hi, b_lo, i0, i1);
+        if (i0 == i1) continue;
+        if (lane == 0) {
+          sm90::mbar_wait(qempty, qphase ^ 1);  // the last item's S products are done
+          sm90::mbar_expect_tx(qfull, TILE_BYTES);
+#pragma unroll
+          for (int hh = 0; hh < HALVES; ++hh)
+            sm90::tma_load(qs + hh * C90_HALF, &mq, qfull, 3, 64 * hh, kvh * a.G, t0, 0);
+        }
+        qphase ^= 1;
+        for (int i = i0; i < i1; ++i) {
+          int blk[2] = {0, 0};
+          for (int b = 0; b < bpt; ++b) {
+            const int jb = b_lo + i * bpt + b;
+            if (jb - win >= 32 || jb < win) {  // warp-uniform: move the window
+              win = jb;
+              ent = a.table[min(win + lane, a.MB - 1)];
+            }
+            // blocks past the table read its last entry: masked keys
+            blk[b] = __shfl_sync(0xffffffffu, ent, jb - win);
+          }
+          if (lane == 0) {
+            sm90::mbar_wait(&empty[stage], phase ^ 1);
+            sm90::mbar_expect_tx(&full[stage], 2 * TILE_BYTES);
+            for (int b = 0; b < bpt; ++b)
+#pragma unroll
+              for (int hh = 0; hh < HALVES; ++hh) {
+                const int off = stage * TILE_BYTES + hh * C90_HALF + b * a.BS * 128;
+                sm90::tma_load(ks + off, &mk, &full[stage], 4, 64 * hh, 0, kvh, blk[b]);
+                sm90::tma_load(vs + off, &mv, &full[stage], 4, 64 * hh, 0, kvh, blk[b]);
+              }
+          }
+          __syncwarp();
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int cw = wg - 1, lane = tid & 31;
+    const unsigned char* qa = qs + cw * (C90_HALF / 2);  // this consumer's 64 rows of each half
+    float o[D / 2];
+    float s[64];      // raw S = q k of the tile in hand (the scale goes into the exp)
+    uint32_t pa[32];  // p in bf16 pairs: PV's A fragments, 16-key slice kk in pa[4 kk .. 4 kk + 3]
+    float m0, m1, l0, l1;  // m: raw running maxima; l: this thread's partial sums
+    int q_lo, q_hi, qp0, qp1;
+
+    auto issue_s = [&](int stg) {
+      const unsigned char* kt = ks + stg * TILE_BYTES;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int off = (kk >> 2) * C90_HALF + (kk & 3) * 32;
+        sm90::wgmma_m64n128k16_ss(s, sm90::smem_desc(qa + off, 16, 1024),
+                                  sm90::smem_desc(kt + off, 16, 1024), kk > 0);
+      }
+      sm90::wgmma_commit();
+    };
+    auto issue_pv = [&](int stg, const uint32_t (&p)[32]) {
+      const unsigned char* vt = vs + stg * TILE_BYTES;
+#pragma unroll
+      for (int kk = 0; kk < C90_TILE / 16; ++kk) {
+        const uint32_t f[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3]};
+        sm90::wgmma_pv<D>(o, f, sm90::smem_desc(vt + kk * 2048, C90_HALF, 1024));
+      }
+      sm90::wgmma_commit();
+    };
+    // the online softmax of the tile whose first key is kb0: the mask
+    // (causal, the limit, the window) only where it cuts the tile; new raw
+    // maxima; p = exp(scale (s - m)) as ex2(s sl2e - m sl2e) into ``p``
+    // (bf16 pairs, p.astype(vb.dtype)); the rescale factors and p's
+    // unrounded row sums out. A row with nothing live so far (m = NEG_INF)
+    // takes p = 0.
+    auto softmax = [&](int kb0, uint32_t (&p)[32], float& alpha0, float& alpha1, float& sum0,
+                       float& sum1) {
+      const bool whole = kb0 + C90_TILE <= a.kmax && kb0 + C90_TILE - 1 <= q_lo &&
+                         (a.window == 0 || q_hi - kb0 < a.window);
+      if (!whole) {
+#pragma unroll
+        for (int n = 0; n < 16; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = kb0 + sm90::frag_col(tid, n, e), qp = e < 2 ? qp0 : qp1;
+            bool ok = col < a.kmax && col <= qp;
+            if (a.window > 0) ok = ok && qp - col < a.window;
+            if (!ok) s[4 * n + e] = NEG_INF;
+          }
+        }
+      }
+      float mx0 = NEG_INF, mx1 = NEG_INF;
+#pragma unroll
+      for (int n = 0; n < 16; ++n) {
+        mx0 = fmaxf(mx0, fmaxf(s[4 * n], s[4 * n + 1]));
+        mx1 = fmaxf(mx1, fmaxf(s[4 * n + 2], s[4 * n + 3]));
+      }
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      const float n0 = fmaxf(m0, mx0), n1 = fmaxf(m1, mx1);
+      alpha0 = sm90::ex2((m0 - n0) * a.sl2e);
+      alpha1 = sm90::ex2((m1 - n1) * a.sl2e);
+      m0 = n0;
+      m1 = n1;
+      const float ms0 = m0 == NEG_INF ? 0.f : m0 * a.sl2e;
+      const float ms1 = m1 == NEG_INF ? 0.f : m1 * a.sl2e;
+      sum0 = sum1 = 0.f;
+#pragma unroll
+      for (int n = 0; n < 16; ++n) {
+        const float p0 = sm90::ex2(fmaf(s[4 * n], a.sl2e, -ms0));
+        const float p1 = sm90::ex2(fmaf(s[4 * n + 1], a.sl2e, -ms0));
+        const float p2 = sm90::ex2(fmaf(s[4 * n + 2], a.sl2e, -ms1));
+        const float p3 = sm90::ex2(fmaf(s[4 * n + 3], a.sl2e, -ms1));
+        sum0 += p0 + p1;
+        sum1 += p2 + p3;
+        p[2 * n] = sm90::pack_bf16(p0, p1);
+        p[2 * n + 1] = sm90::pack_bf16(p2, p3);
+      }
+    };
+
+    // unit u's fp32 partial of this thread's rows r0, r0 + 8 (of the
+    // item's 128): its own acc elements, and m, l (the row sums, from the
+    // row's first thread)
+    auto write_partial = [&](int u, int r0) {
+      float* acc = a.part + ((long long)u * C90_TILE + r0) * D;
+      float* pm = a.part + (long long)a.items * a.S * C90_TILE * D + (long long)u * C90_TILE;
+      float* pl = pm + (long long)a.items * a.S * C90_TILE;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          *reinterpret_cast<float2*>(acc + i * 8 * D + sm90::frag_col(tid, n, 0)) =
+              make_float2(o[4 * n + 2 * i], o[4 * n + 2 * i + 1]);
+      if ((tid & 3) == 0) {
+        pm[r0] = m0;
+        pm[r0 + 8] = m1;
+        pl[r0] = l0;
+        pl[r0 + 8] = l1;
+      }
+    };
+
+    // at d = 64 the two consumers issue their wgmma in turns (K1's ping-pong)
+    auto my_turn = [&]() {
+      if constexpr (PINGPONG) asm volatile("bar.sync %0, 256;\n" ::"r"(3 + cw) : "memory");
+    };
+    auto your_turn = [&]() {
+      if constexpr (PINGPONG) asm volatile("bar.arrive %0, 256;\n" ::"r"(4 - cw) : "memory");
+    };
+    if (cw == 1) your_turn();  // consumer 0 goes first
+    int stage = 0;
+    uint32_t phase = 0, qphase = 0;
+    const int bpt = C90_TILE / a.BS;
+    for (int u = blockIdx.x; u < a.items * a.S; u += gridDim.x) {
+      int kvh, t0, b_lo, i0, i1;
+      c90_unit(a, u, kvh, t0, q_lo, q_hi, b_lo, i0, i1);
+      // the query positions of this thread's two rows (folded row r is
+      // chunk token t0 + r / G)
+      const int r0 = 64 * cw + sm90::frag_row(tid, 0);
+      qp0 = q_lo + r0 / a.G;
+      qp1 = q_lo + (r0 + 8) / a.G;
+      m0 = m1 = NEG_INF;
+      l0 = l1 = 0.f;
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+      if (i0 == i1) {  // a split with no tile: an empty partial
+        write_partial(u, r0);
+        continue;
+      }
+      sm90::mbar_wait(qfull, qphase);
+      qphase ^= 1;
+      float alpha0, alpha1, sum0, sum1;
+      sm90::mbar_wait(&full[stage], phase);
+      my_turn();
+      sm90::wgmma_fence();
+      issue_s(stage);
+      your_turn();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(s);
+      if (i0 + 1 == i1 && lane == 0) sm90::mbar_arrive(qempty);  // q read for the last time
+      softmax((b_lo + i0 * bpt) * a.BS, pa, alpha0, alpha1, sum0, sum1);
+      l0 = sum0;
+      l1 = sum1;
+      for (int i = i0 + 1; i < i1; ++i) {
+        int next = stage + 1;
+        uint32_t next_phase = phase;
+        if (next == STAGES) {
+          next = 0;
+          next_phase ^= 1;
+        }
+        sm90::mbar_wait(&full[next], next_phase);
+        my_turn();
+        sm90::wgmma_fence();
+        issue_s(next);
+        issue_pv(stage, pa);
+        your_turn();
+        sm90::wgmma_wait<1>();  // S (committed first) has landed
+        sm90::fence_regs(s);
+        if (i + 1 == i1 && lane == 0) sm90::mbar_arrive(qempty);
+        uint32_t pn[32];
+        softmax((b_lo + i * bpt) * a.BS, pn, alpha0, alpha1, sum0, sum1);
+        sm90::wgmma_wait<0>();  // PV has read pa and written o
+        sm90::fence_regs(o);
+        sm90::keep_regs(pa);
+        if (lane == 0) sm90::mbar_arrive(&empty[stage]);
+        l0 = l0 * alpha0 + sum0;
+        l1 = l1 * alpha1 + sum1;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          o[4 * n] *= alpha0;
+          o[4 * n + 1] *= alpha0;
+          o[4 * n + 2] *= alpha1;
+          o[4 * n + 3] *= alpha1;
+        }
+#pragma unroll
+        for (int j = 0; j < 32; ++j) pa[j] = pn[j];
+        stage = next;
+        phase = next_phase;
+      }
+      my_turn();
+      sm90::wgmma_fence();
+      issue_pv(stage, pa);
+      your_turn();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(o);
+      sm90::keep_regs(pa);
+      if (lane == 0) sm90::mbar_arrive(&empty[stage]);
+      if (++stage == STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+
+      // the row sums over the four threads of each row, then acc / max(l,
+      // 1e-30) rounded once and stored from the fragments: bf16 pairs, a
+      // warp 8 rows x 16 bytes a store (rows of tokens past C not written)
+      l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+      l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+      if (a.S > 1) {  // the split's fp32 partial, unnormalized
+        write_partial(u, r0);
+        continue;
+      }
+      const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = r0 + 8 * i, tok = t0 + r / a.G;
+        if (tok >= a.C) continue;
+        bf16* orow = a.out + ((long long)tok * a.H + kvh * a.G + r % a.G) * D;
+        const float inv = i ? inv1 : inv0;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n)
+          *reinterpret_cast<uint32_t*>(orow + sm90::frag_col(tid, n, 0)) =
+              sm90::pack_bf16(o[4 * n + 2 * i] * inv, o[4 * n + 2 * i + 1] * inv);
+      }
+    }
+    if (cw == 0) my_turn();  // consumer 1's last turn handed back
+  }
+}
+
+// The S fp32 partials of one folded row (block: item w's row r, one head-dim
+// element a thread) folded in split order as paged_decode_merge_kernel folds
+// the decode's (the maxima raw, the scale in the exp), rounded once into
+// (C, H, D); rows past C are not written.
+template <int D>
+__global__ void __launch_bounds__(D) paged_chunk_merge_kernel(ChunkArgs a) {
+  const int w = blockIdx.x / C90_TILE, r = blockIdx.x - w * C90_TILE, d = threadIdx.x;
+  int kvh, t0;
+  c90_head(a, w, kvh, t0);
+  const int tok = t0 + r / a.G;
+  if (tok >= a.C) return;
+  const long long rows = (long long)a.items * a.S * C90_TILE;
+  const float* acc_s = a.part + ((long long)w * a.S * C90_TILE + r) * D + d;
+  const float* m_s = a.part + rows * D + (long long)w * a.S * C90_TILE + r;
+  const float* l_s = m_s + rows;
+  float m = NEG_INF;
+  for (int z = 0; z < a.S; ++z) m = fmaxf(m, m_s[z * C90_TILE]);
+  float l = 0.f, acc = 0.f;
+  for (int z = 0; z < a.S; ++z) {
+    const float wt = sm90::ex2((m_s[z * C90_TILE] - m) * a.sl2e);
+    l += l_s[z * C90_TILE] * wt;
+    acc += acc_s[(long long)z * C90_TILE * D] * wt;
+  }
+  a.out[((long long)tok * a.H + kvh * a.G + r % a.G) * D + d] =
+      __float2bfloat16(acc / fmaxf(l, 1e-30f));
+}
+
 template <typename K>
 cudaError_t set_smem(K kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
@@ -689,6 +1119,61 @@ cudaError_t launch_chunk(const void* q, const void* k, const void* v, const int*
   kern<<<dim3(n_tiles, KVH), CH_NT, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, table, (T*)out, C, H, KVH, BS, MB, start,
       true_len, scale, window, BC);
+  return cudaGetLastError();
+}
+
+// K5's Hopper design: a map over q (C, H, D) as (D, H, C) with a box of
+// (64 d, G heads, 128 / G tokens), so a box's rows are the (token, head)
+// rows of the JAX fold in its order, and maps over the pools as
+// (D, BS, KVH, NB) with a box of one block's 64-wide half; a persistent
+// grid of at most one CTA an SM walks the items.
+template <int D>
+cudaError_t launch_chunk_sm90(const void* q, const void* k, const void* v, const int* table,
+                              void* out, int C, int H, int KVH, int BS, int NB, int MB, int start,
+                              int true_len, float scale, int window, int splits, float* part,
+                              cudaStream_t stream) {
+  const int G = H / KVH;
+  CUtensorMap mq, mk, mv;
+  const long long qdims[3] = {D, H, C}, qstr[2] = {D, (long long)H * D};
+  const int qbox[3] = {64, G, C90_TILE / G};
+  const long long kdims[4] = {D, BS, KVH, NB};
+  const long long kstr[3] = {D, (long long)BS * D, (long long)KVH * BS * D};
+  const int kbox[4] = {64, BS, 1, 1};
+  cudaError_t err = sm90::make_tiled_map(&mq, q, 3, qdims, qstr, qbox);
+  if (err == cudaSuccess) err = sm90::make_tiled_map(&mk, k, 4, kdims, kstr, kbox);
+  if (err == cudaSuccess) err = sm90::make_tiled_map(&mv, v, 4, kdims, kstr, kbox);
+  if (err != cudaSuccess) return err;
+  auto kernel = paged_chunk_sm90_kernel<D>;
+  constexpr int smem = c90_smem<D>();
+  static bool smem_set = false;  // once: later calls may be captured in a graph
+  if (!smem_set) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    smem_set = true;
+  }
+  ChunkArgs a;
+  a.table = table;
+  a.out = (bf16*)out;
+  a.C = C;
+  a.H = H;
+  a.G = G;
+  a.MB = MB;
+  a.BS = BS;
+  a.start = start;
+  const long long limit = (long long)start + true_len, keys = (long long)MB * BS;
+  a.kmax = (int)(limit < keys ? limit : keys);
+  a.window = window > 0 ? window : 0;
+  a.nq = (C + C90_TILE / G - 1) / (C90_TILE / G);
+  const long long items = (long long)KVH * a.nq;
+  if (items * splits * C90_TILE > 0x7fffffffLL) return cudaErrorInvalidValue;
+  a.items = (int)items;
+  a.S = splits;
+  a.part = part;
+  a.sl2e = scale * C90_LOG2E;
+  kernel<<<sm90::persistent_grid(a.items * splits), 384, smem, stream>>>(mq, mk, mv, a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  paged_chunk_merge_kernel<D><<<a.items * C90_TILE, D, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -741,21 +1226,42 @@ extern "C" int paged_decode_launch(const DecodeArgs* a, int D, int dtype, void* 
   return cudaErrorInvalidValue;
 }
 
-// rt: rows per sub-tile (16 or 64), chosen by the wrapper from block_c * G.
+// design: 0 = fp32 (paged_chunk_kernel<float>), 1 = simt
+// (paged_chunk_kernel<bf16>), 2 = sm90 (paged_chunk_sm90_kernel<D>: bf16,
+// D = 64 or 128, BS = 64 or 128, G = H / KVH dividing 64, 16-byte aligned
+// q, pools and out, scale > 0; ``splits`` key-walk splits an item, and
+// splits > 1 needs ``part``, fp32 (KVH ceil(C G / 128) splits 128 (D + 2))
+// for the partials that paged_chunk_merge_kernel folds); any other code is
+// refused. NB: the pools' block count. rt: rows per sub-tile of the SIMT kernel (16 or 64), chosen
+// by the wrapper from block_c * G (block_c and rt are the SIMT kernel's
+// tiles; the sm90 design has its own). Returns a cudaError_t (0 =
+// launched).
 extern "C" int paged_chunk_launch(const void* q, const void* k, const void* v,
                                   const int* table, void* out, int C, int H, int KVH,
-                                  int D, int BS, int MB, int start, int true_len,
-                                  float scale, int window, int block_c, int rt, int dtype,
-                                  void* stream) {
+                                  int D, int BS, int NB, int MB, int start, int true_len,
+                                  float scale, int window, int block_c, int rt, int design,
+                                  int splits, float* part, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (C <= 0 || KVH <= 0 || H % KVH != 0 || BS <= 0 || BS % 16 != 0 ||
-      BS > 16 * CH_KJ || MB <= 0 || block_c <= 0 || (rt != 16 && rt != 64))
+  if (C <= 0 || KVH <= 0 || H % KVH != 0 || BS <= 0 || NB <= 0 || MB <= 0 || start < 0 ||
+      true_len < 0)
     return cudaErrorInvalidValue;
-  if (dtype == 1)
+  if (design == 2) {
+    const int G = H / KVH;
+    if ((D != 64 && D != 128) || (BS != 64 && BS != 128) || 64 % G != 0 || !(scale > 0.f) ||
+        (uintptr_t)q % 16 || (uintptr_t)k % 16 || (uintptr_t)v % 16 || (uintptr_t)out % 16 ||
+        splits < 1 || (splits > 1 && (part == nullptr || (uintptr_t)part % 16)))
+      return cudaErrorInvalidValue;
+    return D == 64 ? launch_chunk_sm90<64>(q, k, v, table, out, C, H, KVH, BS, NB, MB, start,
+                                           true_len, scale, window, splits, part, s)
+                   : launch_chunk_sm90<128>(q, k, v, table, out, C, H, KVH, BS, NB, MB, start,
+                                            true_len, scale, window, splits, part, s);
+  }
+  if (design != 0 && design != 1) return cudaErrorInvalidValue;
+  if (BS % 16 != 0 || BS > 16 * CH_KJ || block_c <= 0 || (rt != 16 && rt != 64))
+    return cudaErrorInvalidValue;
+  if (design == 1)
     return chunk_by_d<__nv_bfloat16>(D, rt, q, k, v, table, out, C, H, KVH, BS, MB, start,
                                      true_len, scale, window, block_c, s);
-  if (dtype == 0)
-    return chunk_by_d<float>(D, rt, q, k, v, table, out, C, H, KVH, BS, MB, start,
-                             true_len, scale, window, block_c, s);
-  return cudaErrorInvalidValue;
+  return chunk_by_d<float>(D, rt, q, k, v, table, out, C, H, KVH, BS, MB, start, true_len,
+                           scale, window, block_c, s);
 }

@@ -19,6 +19,10 @@
 // (dV += P^T dO and dK += dS^T Q with P^T, dS^T staged in shared memory as
 // K-major A tiles, wgmma_pv_ss).
 //
+// K5's paged forward (paged_attention.cu, paged_chunk_sm90_kernel) runs
+// K1's consumer loop on K / V blocks found through a block table:
+// make_tiled_map gives the maps over its pools and its (C, H, D) q.
+//
 // A (B, H, T, D) operand's map has dims (D, T, H, B), the 128-byte swizzle
 // and a box of 64 d x ``rows``: one box covers a 64-wide half of the head
 // dim, so D = 128 takes two boxes a tile. A box row is 128 bytes and rows
@@ -179,6 +183,30 @@ __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void*
           reinterpret_cast<uint64_t>(map)),
       "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// A map over a bf16 tensor of ``rank`` dims, innermost first (dims[0]
+// contiguous), through the element strides of dims 1 .. rank - 1 (each a
+// multiple of 8), with the 128-byte swizzle and the box ``box`` (box[0] =
+// 64: one 128-byte swizzle row). K5's paged forward reads its pools and
+// its (C, H, D) q through such maps.
+inline cudaError_t make_tiled_map(CUtensorMap* map, const void* base, int rank,
+                                  const long long* dims, const long long* strides,
+                                  const int* box) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  cuuint64_t d[5], st[4];
+  cuuint32_t bx[5], unit[5];
+  for (int i = 0; i < rank; ++i) {
+    d[i] = (cuuint64_t)dims[i];
+    bx[i] = (cuuint32_t)box[i];
+    unit[i] = 1;
+    if (i > 0) st[i - 1] = (cuuint64_t)strides[i - 1] * 2;
+  }
+  const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), d,
+                          st, bx, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                          CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 // A map over a bf16 (B, H, T, D) operand through its element strides (b, h,

@@ -35,10 +35,13 @@
 // once (Llama-2-7B int4: 22.5 MB per FFN product at 8 rows), against
 // 16 x 2 FLOP per code. BM = 16 at decode (an 8-stage ring for the
 // one-weight products: a call is a few long-K streams), 64 above with 4
-// stages; 64 output columns per CTA. K7's bf16 products have a Hopper
-// design (wq_sm90.cuh: the widened codes as wgmma's register operand, TMA
-// loads, split K); this kernel serves K9, K7's fp32 instance and the bf16
-// operands TMA cannot address.
+// stages; 64 output columns per CTA. K7's and K9's bf16 products have
+// Hopper designs (wq_sm90.cuh: the widened codes as wgmma's register
+// operand, TMA loads; K7 with a K split, K9 on a grouped walk), faster on
+// the card at every K9 row count chip_smoke.py phase 14 times (Mixtral's
+// 16-row decode and 512-row chunk); this kernel serves K7's and K9's fp32
+// instances and the bf16 operands TMA cannot address (K not a multiple of
+// 8, N not a multiple of 16, bases off 16 bytes).
 
 #pragma once
 

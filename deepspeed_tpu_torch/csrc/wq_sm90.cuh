@@ -58,6 +58,25 @@
 // Llama-2-7B's FFN products), bytes at decode (the codes read once: 22.5 MB
 // int4, 45.1 MB int8 a product). The ring is as deep as 227 KB allows (5-6
 // stages at NR = 256, 16 at NR = 8) to keep enough bytes in flight.
+//
+// The CTA body is wq_cta, shared with K9's grouped design
+// (grouped_matmul.cu wq_grouped_sm90_kernel, replacing grouped_matmul.py
+// _gmm_wq_kernel and _swiglu_up_wq_kernel), which adds:
+//   the grouped walk: the code maps gain the expert dim ((N, K or K / 2,
+//     E) bytes), and a CTA's run (a group's NR rows from its segment's
+//     first row, resolved on the device from the sizes) selects the expert
+//     coordinate and x's first row; the epilogue stores only the run's rows
+//     with its expert's scales;
+//   two code boxes a stage (NQ = 2) sharing each x slice: the fused
+//     SwiGLU's w1 and w3 at the same 128 features (two accumulators, s1 and
+//     s3 on the fp32 sums, silu * mul in fp32, one rounding), or the down
+//     projection's one weight at 256 features (wide: half the x slices a
+//     feature);
+//   the register budget: a consumer holds NQ accumulators of NR / 2 and two
+//     fragment buffers of 16 registers a box (the slice in flight, the next
+//     one widening): 2 x 64 + 64 = 192 at NR = 128 under the 232 that
+//     setmaxnreg gives the consumers (ptxas: 168 at the launch bound, 0
+//     spilled, chip_smoke.py phase 0b).
 
 #pragma once
 
@@ -83,14 +102,16 @@ template <int BITS>
 __host__ __device__ constexpr int q_bytes() {
   return q_rows<BITS>() * FT;
 }
-template <int BITS, int NR>
+// ring depth and shared memory with NQ code boxes a stage (2: K9's fused
+// SwiGLU, w1's and w3's)
+template <int BITS, int NR, int NQ = 1>
 __host__ __device__ constexpr int stages() {
-  constexpr int fit = (232448 - 1024 - 512) / (x_bytes<NR>() + q_bytes<BITS>());
+  constexpr int fit = (232448 - 1024 - 512) / (x_bytes<NR>() + NQ * q_bytes<BITS>());
   return fit < 16 ? fit : 16;
 }
-template <int BITS, int NR>
+template <int BITS, int NR, int NQ = 1>
 __host__ __device__ constexpr int smem_bytes() {
-  return 1024 + stages<BITS, NR>() * (x_bytes<NR>() + q_bytes<BITS>() + 16);
+  return 1024 + stages<BITS, NR, NQ>() * (x_bytes<NR>() + NQ * q_bytes<BITS>() + 16);
 }
 
 struct Args {
@@ -115,6 +136,20 @@ __device__ __forceinline__ void wgmma_m64n8k16_rs_k(float (&d)[4], const uint32_
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (64 x 16, fp32 fragments) += A (64 x 16, bf16 pairs in registers, the
+// accumulator layout) * B (16 x 16) from shared memory, K-major.
+__device__ __forceinline__ void wgmma_m64n16k16_rs_k(float (&d)[8], const uint32_t (&a)[4],
+                                                    uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // d (64 x 64, fp32 fragments) += A (64 x 16, bf16 pairs in registers, the
 // accumulator layout) * B (16 x 64) from shared memory, K-major.
 __device__ __forceinline__ void wgmma_m64n64k16_rs_k(float (&d)[32], const uint32_t (&a)[4],
@@ -129,6 +164,19 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_k(float (&d)[32], const uint3
         "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
         "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 80, fp32 fragments) += A (64 x 16, bf16 pairs in registers, the
+// accumulator layout) * B (16 x 80) from shared memory, K-major.
+__device__ __forceinline__ void wgmma_m64n80k16_rs_k(float (&d)[40], const uint32_t (&a)[4],
+                                                    uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
@@ -190,8 +238,12 @@ template <int NR>
 __device__ __forceinline__ void wgmma_rs(float (&d)[NR / 2], const uint32_t (&a)[4], uint64_t db) {
   if constexpr (NR == 8)
     wgmma_m64n8k16_rs_k(d, a, db);
+  else if constexpr (NR == 16)
+    wgmma_m64n16k16_rs_k(d, a, db);
   else if constexpr (NR == 64)
     wgmma_m64n64k16_rs_k(d, a, db);
+  else if constexpr (NR == 80)
+    wgmma_m64n80k16_rs_k(d, a, db);
   else if constexpr (NR == 128)
     wgmma_m64n128k16_rs_k(d, a, db);
   else
@@ -236,22 +288,28 @@ __device__ __forceinline__ uint32_t widen_int8(uint32_t w, int lo, int hi) {
   return sm90::pack_bf16(a, b);
 }
 
-template <int BITS, int NR>
-__global__ void __launch_bounds__(THREADS, 1)
-    wq_matmul_sm90_kernel(const __grid_constant__ CUtensorMap mx,
-                          const __grid_constant__ CUtensorMap mq, Args a) {
-  constexpr int ST = stages<BITS, NR>();
+// One CTA's product: the NR x rows from ``row0`` times NQ code boxes of
+// 128 features (box 0 of map mq at features from ``f0``; box 1 of map mq3
+// at features from ``f1``) over the k slices [s_lo, s_lo + steps) of the
+// codes of expert ``e`` (the code maps' third coordinate; 0 and a rank-2
+// map for K7's dense weight). NQ = 2 is K9's fused SwiGLU (w1's and w3's
+// codes at the same features) or its wide down projection (one weight's
+// codes at f0 and f0 + 128): either way both boxes share each x slice.
+// Each consumer thread ends by calling ``epi(acc, F, t)``: acc[j][4 b + e]
+// is box j's sum for its feature F + (e >> 1) (F counted from f0 for box
+// 0, from f1 for box 1) at row row0 + 8 b + 2 t + (e & 1).
+template <int BITS, int NR, int NQ, class Epi>
+__device__ __forceinline__ void wq_cta(const CUtensorMap& mx, const CUtensorMap& mq,
+                                       const CUtensorMap& mq3, int q_rank, int f0, int f1,
+                                       int row0, int e, int s_lo, int steps, const Epi& epi) {
+  constexpr int ST = stages<BITS, NR, NQ>();
   constexpr int XB = x_bytes<NR>(), QB = q_bytes<BITS>(), QR = q_rows<BITS>();
   unsigned char* base =
       sm90::sm90_smem + ((1024 - (sm90::smem_u32(sm90::sm90_smem) & 1023)) & 1023);
   unsigned char* xs = base;            // [ST][XB]
-  unsigned char* qs = base + ST * XB;  // [ST][QB]
-  uint64_t* full = reinterpret_cast<uint64_t*>(qs + ST * QB);
+  unsigned char* qs = base + ST * XB;  // [ST][NQ][QB]
+  uint64_t* full = reinterpret_cast<uint64_t*>(qs + ST * NQ * QB);
   uint64_t* empty = full + ST;
-  const int f0 = blockIdx.x * FT, row0 = blockIdx.y * NR, z = blockIdx.z;
-  const int nst = (a.K + KS - 1) / KS;
-  const int s_lo = (int)((long long)z * nst / a.S);
-  const int steps = (int)((long long)(z + 1) * nst / a.S) - s_lo;
   const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
   if (threadIdx.x == 0) {
     for (int s = 0; s < ST; ++s) {
@@ -269,9 +327,12 @@ __global__ void __launch_bounds__(THREADS, 1)
       uint32_t phase = 0;
       for (int s = 0; s < steps; ++s) {
         sm90::mbar_wait(&empty[stage], phase ^ 1);
-        sm90::mbar_expect_tx(&full[stage], XB + QB);
+        sm90::mbar_expect_tx(&full[stage], XB + NQ * QB);
+        const int kq = (s_lo + s) * QR;
         sm90::tma_load(xs + stage * XB, &mx, &full[stage], 2, (s_lo + s) * KS, row0, 0, 0);
-        sm90::tma_load(qs + stage * QB, &mq, &full[stage], 2, f0, (s_lo + s) * QR, 0, 0);
+        sm90::tma_load(qs + stage * NQ * QB, &mq, &full[stage], q_rank, f0, kq, e, 0);
+        if constexpr (NQ == 2)
+          sm90::tma_load(qs + (stage * NQ + 1) * QB, &mq3, &full[stage], q_rank, f1, kq, e, 0);
         if (++stage == ST) {
           stage = 0;
           phase ^= 1;
@@ -290,9 +351,10 @@ __global__ void __launch_bounds__(THREADS, 1)
     const uint32_t q_off = row * FT + ((chunk ^ (row & 7)) << 4);
     const uint32_t q_base = sm90::smem_u32(qs) + q_off;
 
-    // A fragments of slice ``stg``: 16-k slice kk in f[4 kk .. 4 kk + 3]
-    auto load_a = [&](int stg, uint32_t (&f)[16]) {
-      const uint32_t q = q_base + stg * QB;
+    // A fragments of code operand ``op`` in slice ``stg``: 16-k slice kk
+    // in f[4 kk .. 4 kk + 3]
+    auto load_a = [&](int stg, int op, uint32_t (&f)[16]) {
+      const uint32_t q = q_base + (stg * NQ + op) * QB;
       if constexpr (BITS == 4) {
         uint32_t r[4];
         ldsm_x4_trans(r, q);
@@ -314,29 +376,40 @@ __global__ void __launch_bounds__(THREADS, 1)
       }
     };
 
-    float acc[NR / 2];
+    float acc[NQ][NR / 2];
 #pragma unroll
-    for (int e = 0; e < NR / 2; ++e) acc[e] = 0.f;
-    uint32_t fa[16], fb[16];
+    for (int o = 0; o < NQ; ++o)
 #pragma unroll
-    for (int e = 0; e < 16; ++e) fb[e] = 0u;
+      for (int x = 0; x < NR / 2; ++x) acc[o][x] = 0.f;
+    uint32_t fa[NQ][16], fb[NQ][16];
+#pragma unroll
+    for (int o = 0; o < NQ; ++o)
+#pragma unroll
+      for (int x = 0; x < 16; ++x) fb[o][x] = 0u;
     int stage = 0, prev = -1;
     uint32_t phase = 0;
     // slice s from ``cur`` (issued), then slice s + 1's fragments into
     // ``nxt`` while it runs; ``nxt`` held slice s - 1's, retired by the wait
-    auto step = [&](uint32_t (&cur)[16], uint32_t (&nxt)[16], int s) {
-      sm90::fence_regs(acc);
+    auto step = [&](uint32_t (&cur)[NQ][16], uint32_t (&nxt)[NQ][16], int s) {
+#pragma unroll
+      for (int o = 0; o < NQ; ++o) sm90::fence_regs(acc[o]);
       sm90::wgmma_fence();
       const unsigned char* xb = xs + stage * XB;
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const uint32_t f4[4] = {cur[4 * kk], cur[4 * kk + 1], cur[4 * kk + 2], cur[4 * kk + 3]};
-        wgmma_rs<NR>(acc, f4, sm90::smem_desc(xb + kk * 32, 16, 1024));
-      }
+      for (int o = 0; o < NQ; ++o)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint32_t f4[4] = {cur[o][4 * kk], cur[o][4 * kk + 1], cur[o][4 * kk + 2],
+                                  cur[o][4 * kk + 3]};
+          wgmma_rs<NR>(acc[o], f4, sm90::smem_desc(xb + kk * 32, 16, 1024));
+        }
       sm90::wgmma_commit();
       sm90::wgmma_wait<1>();
-      sm90::fence_regs(acc);
-      sm90::keep_regs(nxt);
+#pragma unroll
+      for (int o = 0; o < NQ; ++o) {
+        sm90::fence_regs(acc[o]);
+        sm90::keep_regs(nxt[o]);
+      }
       if (prev >= 0 && lane == 0) sm90::mbar_arrive(&empty[prev]);
       prev = stage;
       if (++stage == ST) {
@@ -345,49 +418,75 @@ __global__ void __launch_bounds__(THREADS, 1)
       }
       if (s + 1 < steps) {
         sm90::mbar_wait(&full[stage], phase);
-        load_a(stage, nxt);
+#pragma unroll
+        for (int o = 0; o < NQ; ++o) load_a(stage, o, nxt[o]);
       }
     };
     if (steps > 0) {
       sm90::mbar_wait(&full[0], 0);
-      load_a(0, fa);
+#pragma unroll
+      for (int o = 0; o < NQ; ++o) load_a(0, o, fa[o]);
     }
     for (int s = 0; s < steps; s += 2) {
       step(fa, fb, s);
       if (s + 1 < steps) step(fb, fa, s + 1);
     }
     sm90::wgmma_wait<0>();
-    sm90::fence_regs(acc);
-    sm90::keep_regs(fa);
-    sm90::keep_regs(fb);
+#pragma unroll
+    for (int o = 0; o < NQ; ++o) {
+      sm90::fence_regs(acc[o]);
+      sm90::keep_regs(fa[o]);
+      sm90::keep_regs(fb[o]);
+    }
+    epi(acc, 64 * cw + 16 * warp + 2 * (lane >> 2), lane & 3);
+  }
+}
 
-    // d[4 b + e]: feature F + (e >> 1) at row 8 b + 2 t + (e & 1)
-    const int F = f0 + 64 * cw + 16 * warp + 2 * (lane >> 2), t4 = lane & 3;
+// K7's epilogue: the scale and one rounding to bf16 (one split), or the
+// split's fp32 partial; rows below M.
+struct DenseEpi {
+  Args a;
+  int row0, z;
+  int f0;
+  template <int N>
+  __device__ __forceinline__ void operator()(const float (&acc)[1][N], int f, int t4) const {
+    const int F = f0 + f;
     if (F >= a.N) return;
     if (a.S == 1) {
       const float s0 = a.scale[F], s1 = a.scale[F + 1];
 #pragma unroll
-      for (int b = 0; b < NR / 8; ++b)
+      for (int b = 0; b < N / 4; ++b)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int r = row0 + 8 * b + 2 * t4 + e;
           if (r < a.M)
             *reinterpret_cast<uint32_t*>(a.out + (long long)r * a.N + F) =
-                sm90::pack_bf16(acc[4 * b + e] * s0, acc[4 * b + 2 + e] * s1);
+                sm90::pack_bf16(acc[0][4 * b + e] * s0, acc[0][4 * b + 2 + e] * s1);
         }
     } else {
       float* p = a.part + (long long)z * a.M * a.N;
 #pragma unroll
-      for (int b = 0; b < NR / 8; ++b)
+      for (int b = 0; b < N / 4; ++b)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int r = row0 + 8 * b + 2 * t4 + e;
           if (r < a.M)
             *reinterpret_cast<float2*>(p + (long long)r * a.N + F) =
-                make_float2(acc[4 * b + e], acc[4 * b + 2 + e]);
+                make_float2(acc[0][4 * b + e], acc[0][4 * b + 2 + e]);
         }
     }
   }
+};
+
+template <int BITS, int NR>
+__global__ void __launch_bounds__(THREADS, 1)
+    wq_matmul_sm90_kernel(const __grid_constant__ CUtensorMap mx,
+                          const __grid_constant__ CUtensorMap mq, Args a) {
+  const int f0 = blockIdx.x * FT, row0 = blockIdx.y * NR, z = blockIdx.z;
+  const int nst = (a.K + KS - 1) / KS;
+  const int s_lo = (int)((long long)z * nst / a.S);
+  const int steps = (int)((long long)(z + 1) * nst / a.S) - s_lo;
+  wq_cta<BITS, NR, 1>(mx, mq, mq, 2, f0, f0, row0, 0, s_lo, steps, DenseEpi{a, row0, z, f0});
 }
 
 // out = round(scale * sum_z part[z]) with the partials summed in split
@@ -413,16 +512,17 @@ __global__ void __launch_bounds__(256) wq_merge_kernel(Args a) {
   }
 }
 
-// A map over the (KR, N) code bytes: box 128 features x QR rows, 128-byte
-// swizzle.
-inline cudaError_t make_code_map(CUtensorMap* map, const void* q, int KR, int N, int rows) {
+// A map over the (KR, N) code bytes of each of E experts (contiguous (E,
+// KR, N); rank 2 when E = 1): box 128 features x QR rows, 128-byte swizzle.
+inline cudaError_t make_code_map(CUtensorMap* map, const void* q, int KR, int N, int rows,
+                                 int E = 1) {
   const sm90::EncodeTiledFn fn = sm90::encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {(cuuint64_t)N, (cuuint64_t)KR};
-  const cuuint64_t strides[1] = {(cuuint64_t)N};
-  const cuuint32_t box[2] = {FT, (cuuint32_t)rows}, unit[2] = {1, 1};
-  const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(q), dims,
-                          strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+  const cuuint64_t dims[3] = {(cuuint64_t)N, (cuuint64_t)KR, (cuuint64_t)E};
+  const cuuint64_t strides[2] = {(cuuint64_t)N, (cuuint64_t)KR * N};
+  const cuuint32_t box[3] = {FT, (cuuint32_t)rows, 1}, unit[3] = {1, 1, 1};
+  const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, E > 1 ? 3 : 2, const_cast<void*>(q),
+                          dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                           CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;

@@ -114,7 +114,7 @@ class CUDAOpBuilder:
 class PagedAttentionBuilder(CUDAOpBuilder):
     NAME = "paged_attention"
     SOURCES = ("paged_attention.cu",)
-    DEPENDS = ("attention_tiles.cuh",)
+    DEPENDS = ("attention_tiles.cuh", "sm90_gemm.cuh", "sm90_attention.cuh")
 
 
 class FlashAttentionBuilder(CUDAOpBuilder):
@@ -138,7 +138,8 @@ class FusedCEBuilder(CUDAOpBuilder):
 class GroupedMatmulBuilder(CUDAOpBuilder):
     NAME = "grouped_matmul"
     SOURCES = ("grouped_matmul.cu",)
-    DEPENDS = ("gemm_common.cuh", "wq_gemm.cuh", "sm90_gemm.cuh")
+    DEPENDS = ("gemm_common.cuh", "wq_gemm.cuh", "sm90_gemm.cuh",
+               "sm90_attention.cuh", "wq_sm90.cuh")
 
 
 class MlpMatmulBuilder(CUDAOpBuilder):

@@ -41,8 +41,12 @@ scalar-FMA instance. ``grouped_gmm`` (the forward and the dx product on
 w's transposed view) likewise (``_gmm_design``): bf16 that TMA can address
 goes to ``grouped_gmm_sm90_kernel``, other bf16 to the mma.sync
 ``grouped_kernel``.
-``DESIGN_LAUNCHES`` counts launches by design; ``grouped_swiglu_up`` and
-the quantized kernels have one design each.
+The quantized kernels (K9) likewise (``_wq_grouped_design``): bf16 x and
+codes that TMA can address go to ``wq_grouped_sm90_kernel`` (K7's Hopper
+CTA on the grouped walk, its row tile from ``wq_grouped_plan``), other
+bf16 to the mma.sync ``wq_kernel``, fp32 to its scalar-FMA instance.
+``DESIGN_LAUNCHES`` counts launches by design; ``grouped_swiglu_up`` has
+one design.
 """
 
 import ctypes
@@ -55,9 +59,18 @@ from ..int8_weights import is_quantized
 LAUNCHES = {"grouped_swiglu_up": 0, "grouped_gmm": 0, "grouped_tgmm": 0,
             "grouped_swiglu_up_wq": 0, "grouped_gmm_wq": 0}
 DESIGN_LAUNCHES = {name: {"sm90": 0, "mma_sync": 0, "fp32": 0}
-                   for name in ("grouped_gmm", "grouped_tgmm")}
+                   for name in ("grouped_gmm", "grouped_tgmm",
+                                "grouped_gmm_wq", "grouped_swiglu_up_wq")}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# K9's designs, as grouped_{gmm,swiglu_up}_wq_launch's design codes (0 and
+# 1 are wq_kernel's fp32 and bf16 instances)
+WQ_DESIGN_CODE = {"fp32": 0, "mma_sync": 1, "sm90": 2}
+# K9's sm90 design (wq_grouped_sm90_kernel on csrc/wq_sm90.cuh): the row
+# tiles (wgmma's n) of its visits; bf16 calls of at least
+# WQ_GROUPED_SM90_MIN_ROWS rows take it
+WQ_GROUPED_ROW_TILES = (16, 80, 128)
+WQ_GROUPED_SM90_MIN_ROWS = 1
 
 
 def reset_launch_counts():
@@ -370,11 +383,14 @@ def check_quantized(name, ws, E, K, N, device):
                             f"on {w.q.device}")
 
 
-def launch_wq(lib_fn, name, counts, x, w1, w3=None, group_sizes=None):
-    """Launch one quantized-weight kernel (wq_gemm.cuh) on CUDA tensors,
-    counting it as ``counts[name]``: x (M, K) times w1's codes (w3's too
-    for the fused SwiGLU), grouped when ``group_sizes`` is given. Returns
-    the (M, N) output in x's dtype."""
+def launch_wq(lib_fn, name, counts, x, w1, w3=None, group_sizes=None,
+              code=None, tile=None):
+    """Launch one quantized-weight kernel on CUDA tensors, counting it as
+    ``counts[name]``: x (M, K) times w1's codes (w3's too for the fused
+    SwiGLU), grouped when ``group_sizes`` is given. ``code`` and ``tile``
+    are the launcher's second and fourth arguments (default: x's dtype
+    code and ``block_m_for`` rows, wq_gemm.cuh's wq_kernel). Returns the
+    (M, N) output in x's dtype."""
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"{name}: kernel takes float32 or bfloat16, got "
                         f"{x.dtype}")
@@ -400,8 +416,9 @@ def launch_wq(lib_fn, name, counts, x, w1, w3=None, group_sizes=None):
                s[0].data_ptr(), s[-1].data_ptr(),
                None if gs is None else gs.data_ptr(), out.data_ptr(),
                M, K, N, E, int(vec_x), int(vec_w))
-    rc = lib_fn(ctypes.byref(a), _DTYPE_CODE[x.dtype], w1.bits,
-                block_m_for(M),
+    rc = lib_fn(ctypes.byref(a),
+                _DTYPE_CODE[x.dtype] if code is None else code, w1.bits,
+                block_m_for(M) if tile is None else tile,
                 torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
@@ -561,20 +578,70 @@ def grouped_swiglu(x, w1, w3, w2, group_sizes):
     return _GroupedSwigluFn.apply(x, w1, w3, w2, group_sizes)
 
 
+def wq_grouped_plan(M, E):
+    """The sm90 K9 design's row tile for M routed rows over E experts: the
+    smallest of WQ_GROUPED_ROW_TILES that holds ceil(M / E) rows and a
+    quarter more (top-k routing is uneven: a second run of a few rows
+    costs a whole run's code and x reads), else the largest. So 16 at
+    Mixtral's 16-row decode (one run a touched expert) and 80 at its
+    512-row chunk (64 a group on average). Shape only: the sizes stay on
+    the device."""
+    per = -(-M // max(E, 1))
+    per += -(-per // 4)
+    return next((t for t in WQ_GROUPED_ROW_TILES if per <= t),
+                WQ_GROUPED_ROW_TILES[-1])
+
+
+def _wq_grouped_design(x, w):
+    """K9's design for x rows (M, K) and quantized experts w, read from
+    dtype, shape and addresses only: "fp32" for fp32 x; "sm90" for bf16 x
+    of at least WQ_GROUPED_SM90_MIN_ROWS rows when TMA can address x (a
+    16-byte aligned base, K a multiple of 8) and the codes (contiguous, N a
+    multiple of 16), the scales are contiguous with a 16-byte aligned base;
+    else "mma_sync" (wq_kernel)."""
+    if x.dtype == torch.float32:
+        return "fp32"
+    if (x.dtype == torch.bfloat16 and x.shape[0] >= WQ_GROUPED_SM90_MIN_ROWS
+            and tma_ok(x) and w.q.is_contiguous() and tma_ok(w.q)
+            and w.scale.is_contiguous() and w.scale.data_ptr() % 16 == 0):
+        return "sm90"
+    return "mma_sync"
+
+
+def _launch_wq_grouped(fn_name, name, x, ws, group_sizes, design=None):
+    """One K9 launch on CUDA tensors under ``design`` (default
+    ``_wq_grouped_design``'s; a name WQ_DESIGN_CODE lacks raises), counted
+    in LAUNCHES and by design."""
+    x = x.contiguous()
+    if design is None:
+        design = _wq_grouped_design(x, ws[0])
+        if len(ws) > 1 and _wq_grouped_design(x, ws[1]) != design:
+            design = "mma_sync"
+    if design not in WQ_DESIGN_CODE:
+        raise ValueError(f"{name}: unknown design {design!r}")
+    tile = (wq_grouped_plan(x.shape[0], group_sizes.shape[0])
+            if design == "sm90" else None)
+    out = launch_wq(getattr(kernel_builder().load(), fn_name), name,
+                    LAUNCHES, x, *ws, group_sizes=group_sizes,
+                    code=WQ_DESIGN_CODE[design], tile=tile)
+    if x.shape[0]:
+        DESIGN_LAUNCHES[name][design] += 1
+    return out
+
+
 def _gmm_wq(x, w, group_sizes):
     if x.device.type == "cpu":
         return grouped_matmul_wq_reference(x, w, group_sizes)
-    return launch_wq(kernel_builder().load().grouped_gmm_wq_launch,
-                     "grouped_gmm_wq", LAUNCHES, x, w,
-                     group_sizes=group_sizes)
+    return _launch_wq_grouped("grouped_gmm_wq_launch", "grouped_gmm_wq", x,
+                              (w,), group_sizes)
 
 
 def _swiglu_up_wq(x, w1, w3, group_sizes):
     if x.device.type == "cpu":
         return grouped_swiglu_up_wq_reference(x, w1, w3, group_sizes)
-    return launch_wq(kernel_builder().load().grouped_swiglu_up_wq_launch,
-                     "grouped_swiglu_up_wq", LAUNCHES, x, w1, w3,
-                     group_sizes=group_sizes)
+    return _launch_wq_grouped("grouped_swiglu_up_wq_launch",
+                              "grouped_swiglu_up_wq", x, (w1, w3),
+                              group_sizes)
 
 
 def _check_wq(name, x, ws, group_sizes):

@@ -12,6 +12,12 @@ PyTorch version (``*_reference``); a CUDA tensor launches the kernel or
 raises — there is no fallback. Each wrapper counts its kernel launches in
 ``LAUNCHES`` (plain-version calls are not counted).
 
+The chunk kernel has three designs (``_chunk_design``): bf16 at d = 64 /
+128 over 64- or 128-position blocks goes to the Hopper kernel
+(``paged_chunk_sm90_kernel``: wgmma + TMA, the pools read through the
+table by TMA), other bf16 to the SIMT ``paged_chunk_kernel``, fp32 to its
+fp32 instance; ``DESIGN_LAUNCHES["paged_chunk"]`` counts calls by design.
+
 The decode kernel splits the cache (``decode_splits``: S runs of table
 blocks from the table's shape alone) into fp32 partials that a second
 kernel merges in split order; a table of one split is written directly.
@@ -21,6 +27,7 @@ are the plain version of that arithmetic.
 """
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -37,7 +44,20 @@ DECODE_SPLIT_POSITIONS = 512
 DECODE_STEP = 64
 
 LAUNCHES = {"paged_decode": 0, "paged_chunk": 0}
-DESIGN_LAUNCHES = {"paged_decode": {"split": 0, "single": 0}}
+DESIGN_LAUNCHES = {"paged_decode": {"split": 0, "single": 0},
+                   "paged_chunk": {"sm90": 0, "simt": 0, "fp32": 0}}
+
+# the chunk kernel's designs, as paged_chunk_launch's design codes
+CHUNK_DESIGN_CODE = {"fp32": 0, "simt": 1, "sm90": 2}
+# the sm90 chunk design's head dims and KV block sizes (one or two blocks
+# make its 128-key tile), its items' folded rows, and its key-walk splits:
+# at most CHUNK_MAX_SPLITS, each of at least CHUNK_SPLIT_TILES key tiles
+CHUNK_SM90_HEAD_DIMS = (64, 128)
+CHUNK_SM90_BLOCK_SIZES = (64, 128)
+CHUNK_TILE = 128
+CHUNK_MAX_SPLITS = 8
+CHUNK_SPLIT_TILES = 8
+CHUNK_SMS = 132               # H100 SXM; the wrapper reads the card's own
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
@@ -100,7 +120,8 @@ def kernel_builder():
                                             I, P]
         lib.paged_decode_launch.restype = I
         lib.paged_chunk_launch.argtypes = [
-            P, P, P, P, P, I, I, I, I, I, I, I, I, F, I, I, I, I, P]
+            P, P, P, P, P, I, I, I, I, I, I, I, I, I, F, I, I, I, I, I, P,
+            P]
         lib.paged_chunk_launch.restype = I
         _builder = b
     return _builder
@@ -356,34 +377,115 @@ def paged_chunk_attention(q, k_cache, v_cache, table, start, true_len, *,
     PAGED_CHUNK_BLOCK_C). Returns (C, H, d) in q's dtype."""
     name = "paged_chunk_attention"
     _check_common(q, k_cache, v_cache, table, name)
-    C, H, d = q.shape
-    NB, KVH, BS, _ = k_cache.shape
     if table.dim() != 1:
         raise ValueError(f"{name}: table must be (MB,), got "
                          f"{tuple(table.shape)}")
-    MB = table.shape[0]
     start, true_len = int(start), int(true_len)
     if scale is None:
-        scale = 1.0 / math.sqrt(d)
+        scale = 1.0 / math.sqrt(q.shape[2])
     if q.device.type == "cpu":
         return paged_chunk_attention_reference(
             q, k_cache, v_cache, table, start, true_len, scale=scale,
             window=window)
     _check_cuda((q, k_cache, v_cache, table), q, name)
-    if BS % 16 or BS > 128:
+    return paged_chunk_launch(q, k_cache, v_cache, table, start, true_len,
+                              scale, window, block_c,
+                              _chunk_design(q, k_cache, v_cache, scale))
+
+
+def _chunk_design(q, k_cache, v_cache, scale=None):
+    """The chunk kernel's design, from dtypes, shapes and addresses only:
+    "fp32" for fp32; "sm90" (``paged_chunk_sm90_kernel``: wgmma + TMA) for
+    bf16 at a head dim of CHUNK_SM90_HEAD_DIMS and a KV block size of
+    CHUNK_SM90_BLOCK_SIZES, G = H / KVH dividing 64 (its q box holds G
+    heads of 128 / G tokens), q and both pools contiguous with 16-byte
+    aligned bases (TMA), and a positive scale (it goes into the exp's FMA);
+    else "simt" (``paged_chunk_kernel`` on the CUDA cores: d = 32, other
+    block sizes)."""
+    if q.dtype == torch.float32:
+        return "fp32"
+    G = q.shape[1] // k_cache.shape[1]
+    if (q.dtype == torch.bfloat16 and q.shape[-1] in CHUNK_SM90_HEAD_DIMS
+            and k_cache.shape[2] in CHUNK_SM90_BLOCK_SIZES and 64 % G == 0
+            and (scale is None or scale > 0)
+            and all(t.is_contiguous() and t.data_ptr() % 16 == 0
+                    for t in (q, k_cache, v_cache))):
+        return "sm90"
+    return "simt"
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=4096)
+def chunk_splits(C, H, KVH, BS, MB, start, true_len, window, sms=CHUNK_SMS):
+    """Key-walk splits S of the sm90 chunk design, from the call's shape
+    and its host-side start / true_len alone: the design runs KVH ceil(C G
+    / 128) items of 128 folded rows, one CTA an SM, so a 256-token chunk
+    (64 items under MHA or G = 4) leaves half of 132 SMs idle; each item's
+    walk of 128-key tiles is then cut in S runs (as many as fill the SMs,
+    at most CHUNK_MAX_SPLITS, each of at least CHUNK_SPLIT_TILES tiles of
+    the longest walk, the last item's) whose fp32 partials a second kernel
+    merges in split order."""
+    G = H // KVH
+    tt = CHUNK_TILE // G
+    nq = -(-C // tt)
+    items = KVH * nq
+    q_lo, q_hi = start + (nq - 1) * tt, start + C - 1
+    k_hi = min(start + true_len, MB * BS, q_hi + 1)
+    k_lo = max(0, q_lo - window + 1) if window > 0 else 0
+    nt = 1
+    if k_hi > k_lo:
+        bpt = CHUNK_TILE // BS
+        nt = -(-(-(-k_hi // BS) - k_lo // BS) // bpt)
+    return max(1, min(CHUNK_MAX_SPLITS, sms // items,
+                      nt // CHUNK_SPLIT_TILES))
+
+
+def paged_chunk_launch(q, k_cache, v_cache, table, start, true_len, scale,
+                       window, block_c, design, splits=None):
+    """One launch of the chunk kernel on CUDA tensors under ``design`` (a
+    key of CHUNK_DESIGN_CODE; anything else raises here, and the launcher
+    refuses a code it does not know), counted in LAUNCHES and by design.
+    ``block_c`` is the SIMT kernel's query tile; the sm90 design has its
+    own, and its key-walk splits (``chunk_splits``; ``splits`` overrides
+    them, for measurement)."""
+    name = "paged_chunk_attention"
+    if design not in CHUNK_DESIGN_CODE:
+        raise ValueError(f"{name}: unknown design {design!r}")
+    C, H, d = q.shape
+    NB, KVH, BS, _ = k_cache.shape
+    if design != "sm90" and (BS % 16 or BS > 128):
         raise ValueError(f"{name}: kernel takes a KV block size that is a "
                          f"multiple of 16 up to 128, got {BS}")
     bc = PAGED_CHUNK_BLOCK_C if block_c == "auto" else int(block_c)
     bc = max(1, min(bc, C))
     rt = 16 if bc * (H // KVH) <= 16 else 64
+    S, part = 1, None
+    if design == "sm90":
+        S = chunk_splits(C, H, KVH, BS, table.shape[0], start, true_len,
+                         window, _sm_count(q.device.index))
+        if splits is not None:
+            S = splits
+        if S > 1:
+            units = KVH * -(-C * (H // KVH) // CHUNK_TILE) * S
+            part = torch.empty(units * CHUNK_TILE * (d + 2),
+                               dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
     rc = _kernels().paged_chunk_launch(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        table.data_ptr(), out.data_ptr(), C, H, KVH, d, BS, MB, start,
-        true_len, float(scale), int(window), bc, rt, _DTYPE_CODE[q.dtype],
+        table.data_ptr(), out.data_ptr(), C, H, KVH, d, BS, NB,
+        table.shape[0], int(start), int(true_len), float(scale), int(window),
+        bc, rt, CHUNK_DESIGN_CODE[design], S,
+        None if part is None else part.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(rc, name)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed ({design}): "
+                           f"cudaError {rc}")
     LAUNCHES["paged_chunk"] += 1
+    DESIGN_LAUNCHES["paged_chunk"][design] += 1
     return out
 
 

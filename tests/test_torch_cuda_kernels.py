@@ -172,6 +172,99 @@ def test_chunk_kernel(dtype, H, KVH, d, start, true_len, window, block_c):
                         window=window)[:true_len], q, k, v)
 
 
+@pytest.mark.parametrize("H,KVH,d,BS,C,start,true_len,window", [
+    (4, 4, 128, 64, 200, 100, 200, 0),      # MHA, a chunk after a prefix
+    (8, 2, 128, 64, 256, 300, 100, 130),    # G = 4, pad rows, a window
+    (4, 4, 64, 128, 130, 0, 130, 0),        # d = 64, BS = 128, first chunk
+    (16, 1, 64, 64, 50, 37, 50, 0),         # G = 16: 8 tokens an item
+    (4, 4, 128, 64, 256, 0, 20, 16),        # an item the window leaves empty
+])
+def test_chunk_sm90(H, KVH, d, BS, C, start, true_len, window):
+    """K5's bf16 sm90 design: every call counted there, the real rows
+    within the bf16 limits of the plain version in fp32, pad rows finite,
+    repeated bitwise."""
+    rs = np.random.RandomState(C + start)
+    MB = (start + C + BS - 1) // BS + 1
+    NB = 1 + MB
+    bf = torch.bfloat16
+    q = _rand(rs, (C, H, d), bf)
+    k, v = _rand(rs, (NB, KVH, BS, d), bf), _rand(rs, (NB, KVH, BS, d), bf)
+    table = torch.from_numpy(
+        rs.permutation(np.arange(1, NB)).astype(np.int32)).cuda()
+    pa.reset_launch_counts()
+    runs = [pa.paged_chunk_attention(q, k, v, table, start, true_len,
+                                     window=window) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert pa.DESIGN_LAUNCHES["paged_chunk"] == {"sm90": 2, "simt": 0,
+                                                 "fp32": 0}
+    assert torch.equal(runs[0], runs[1])
+    assert torch.isfinite(runs[0]).all()
+    _assert_matches(runs[0][:true_len], lambda q, k, v:
+                    pa.paged_chunk_attention_reference(
+                        q, k, v, table, start, true_len,
+                        window=window)[:true_len], q, k, v)
+
+
+@pytest.mark.parametrize("H,KVH,d,start,true_len,window", [
+    (4, 4, 128, 900, 200, 0), (8, 2, 64, 700, 150, 300)])
+def test_chunk_sm90_splits(H, KVH, d, start, true_len, window):
+    """K5's sm90 design at forced key-walk splits (fp32 partials merged in
+    split order, more splits than some walks have tiles): each within the
+    bf16 limits of the plain version in fp32, repeated bitwise."""
+    rs = np.random.RandomState(start)
+    C, BS = 200, 64
+    MB = (start + C + BS - 1) // BS
+    bf = torch.bfloat16
+    q = _rand(rs, (C, H, d), bf)
+    k, v = _rand(rs, (MB + 1, KVH, BS, d), bf), _rand(rs, (MB + 1, KVH, BS,
+                                                           d), bf)
+    table = torch.from_numpy(
+        rs.permutation(np.arange(1, MB + 1)).astype(np.int32)).cuda()
+    sc = 1 / np.sqrt(d)
+    for S in (1, 2, 3, 16):
+        runs = [pa.paged_chunk_launch(q, k, v, table, start, true_len, sc,
+                                      window, "auto", "sm90", splits=S)
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        assert torch.equal(runs[0], runs[1]), S
+        assert torch.isfinite(runs[0]).all(), S
+        _assert_matches(runs[0][:true_len], lambda q, k, v:
+                        pa.paged_chunk_attention_reference(
+                            q, k, v, table, start, true_len,
+                            window=window)[:true_len], q, k, v)
+
+
+def test_chunk_and_grouped_wq_launchers_refuse_a_wrong_design():
+    """A design code K5's and K9's launchers do not know returns an error
+    and launches nothing."""
+    stream = torch.cuda.current_stream().cuda_stream
+    bf = torch.bfloat16
+    q = torch.zeros(8, 4, 64, dtype=bf, device="cuda")
+    k = torch.zeros(3, 4, 64, 64, dtype=bf, device="cuda")
+    out = torch.full_like(q, 7.0)
+    table = torch.tensor([1, 2], dtype=torch.int32, device="cuda")
+    lib = pa.kernel_builder().load()
+    for design in (3, -1):
+        assert lib.paged_chunk_launch(
+            q.data_ptr(), k.data_ptr(), k.data_ptr(), table.data_ptr(),
+            out.data_ptr(), 8, 4, 4, 64, 64, 3, 2, 0, 8, 0.125, 0, 8, 16,
+            design, 1, None, stream) != 0
+    rs = np.random.RandomState(3)
+    w = _quantized(rs, (2, 64, 32), 8)
+    x = torch.ones(4, 64, dtype=bf, device="cuda")
+    gs = torch.tensor([2, 2], dtype=torch.int32, device="cuda")
+    h = torch.full((4, 32), 7.0, dtype=bf, device="cuda")
+    a = gm.WqArgs(x.data_ptr(), w.q.data_ptr(), w.q.data_ptr(),
+                  w.scale.data_ptr(), w.scale.data_ptr(), gs.data_ptr(),
+                  h.data_ptr(), 4, 64, 32, 2, 1, 1)
+    glib = gm.kernel_builder().load()
+    for fn in (glib.grouped_gmm_wq_launch, glib.grouped_swiglu_up_wq_launch):
+        for design in (3, -1):
+            assert fn(ctypes.byref(a), design, 8, 16, stream) != 0
+    torch.cuda.synchronize()
+    assert bool((out == 7).all()) and bool((h == 7).all())
+
+
 def test_cuda_tensor_never_takes_the_plain_path():
     q = torch.zeros(1, 4, 48, device="cuda")          # head dim 48: no kernel
     k = torch.zeros(3, 2, 16, 48, device="cuda")
@@ -708,6 +801,40 @@ def test_wq_matmul_sm90(bits, M, K, N, splits):
     _assert_close(runs[0], mm.wq_matmul_split_reference(x.float(), w,
                                                         splits),
                   torch.bfloat16)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("M,K,N,sizes", [
+    (16, 256, 384, [2, 3, 1, 2, 4, 1, 2, 1]),   # decode: row tile 16
+    (192, 512, 256, [50, 0, 120, 22]),          # row tile 80, an empty group
+    (192, 512, 256, [192, 0, 0, 0]),            # every row on one expert
+    (162, 256, 384, [40, 30, 0, 10]),           # a 82-row tail
+    (700, 320, 128, [300, 200, 100, 100]),      # row tile 128
+])
+def test_grouped_wq_sm90(bits, M, K, N, sizes):
+    """K9's bf16 sm90 design: every call counted there, within the bf16
+    limits of the plain version in fp32, rows past the groups exactly 0,
+    repeated bitwise."""
+    rs = np.random.RandomState(M + K + bits)
+    E = len(sizes)
+    x = _rand(rs, (M, K), torch.bfloat16)
+    w1, w3 = (_quantized(rs, (E, K, N), bits) for _ in range(2))
+    gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+    gm.reset_launch_counts()
+    runs = [(gm.grouped_swiglu_up_wq(x, w1, w3, gs),
+             gm.grouped_matmul_wq(x, w1, gs)) for _ in range(2)]
+    torch.cuda.synchronize()
+    for name in ("grouped_swiglu_up_wq", "grouped_gmm_wq"):
+        assert gm.DESIGN_LAUNCHES[name] == {"sm90": 2, "mma_sync": 0,
+                                            "fp32": 0}, name
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    h, out = runs[0]
+    live = sum(sizes)
+    assert torch.all(out[live:] == 0) and torch.all(h[live:] == 0)
+    refs = (gm.grouped_swiglu_up_wq_reference(x.float(), w1, w3, gs),
+            gm.grouped_matmul_wq_reference(x.float(), w1, gs))
+    for got, ref in zip((h, out), refs):
+        _assert_close(got[:live], ref[:live], torch.bfloat16)
 
 
 def test_wq_kernels_never_take_the_plain_path(monkeypatch):

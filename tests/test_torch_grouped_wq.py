@@ -115,3 +115,71 @@ def test_rejects_what_the_kernels_do_not_take():
         gm.grouped_matmul_wq(x, w, torch.tensor([5], dtype=torch.int32))
     with pytest.raises(ValueError, match="w2"):
         gm.grouped_swiglu_wq(x, w, w, w, gs)
+
+
+def _codes(E, K, N, bits, offset=0):
+    """Quantized experts (E, K, N); ``offset`` bytes off an aligned base
+    puts the codes off 16 bytes."""
+    w = iw.quantize_leaf(torch.ones(E, K, N), bits)
+    if offset:
+        q = torch.empty(w.q.numel() + offset, dtype=torch.int8)[offset:]
+        w = type(w)(q.view(w.q.shape), w.scale)
+    return w
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("dtype,M,K,N,offset,want", [
+    (torch.bfloat16, 16, 4096, 14336, 0, "sm90"),    # Mixtral decode, up
+    (torch.bfloat16, 512, 14336, 4096, 0, "sm90"),   # the 512-row chunk, down
+    (torch.bfloat16, 162, 256, 384, 0, "sm90"),
+    (torch.float32, 512, 256, 384, 0, "fp32"),
+    (torch.bfloat16, 16, 100, 96, 0, "mma_sync"),    # K % 8
+    (torch.bfloat16, 16, 128, 90, 0, "mma_sync"),    # N % 16
+    (torch.bfloat16, 16, 128, 96, 1, "mma_sync"),    # codes off 16 bytes
+])
+def test_wq_grouped_design_rule(bits, dtype, M, K, N, offset, want):
+    """``_wq_grouped_design``: dtype, shape and TMA addressability only."""
+    x = torch.zeros(M, K, dtype=dtype)
+    assert gm._wq_grouped_design(x, _codes(2, K, N, bits, offset)) == want
+
+
+def test_wq_grouped_design_rule_row_threshold(monkeypatch):
+    w = _codes(2, 256, 128, 8)
+    monkeypatch.setattr(gm, "WQ_GROUPED_SM90_MIN_ROWS", 32)
+    assert gm._wq_grouped_design(torch.zeros(16, 256, dtype=torch.bfloat16),
+                                 w) == "mma_sync"
+    assert gm._wq_grouped_design(torch.zeros(512, 256, dtype=torch.bfloat16),
+                                 w) == "sm90"
+    x = torch.zeros(1 + 512 * 256, dtype=torch.bfloat16)[1:].view(512, 256)
+    assert gm._wq_grouped_design(x, w) == "mma_sync"   # x off 16 bytes
+
+
+@pytest.mark.parametrize("M,E,want", [
+    (16, 8, 16),       # Mixtral decode: one run a touched expert
+    (512, 8, 80),      # the 256-token chunk's 512 routed rows: 64 + 16
+    (1, 8, 16),
+    (96, 8, 16),       # 12 + 3
+    (104, 8, 80),      # 13 + 4
+    (162, 4, 80),      # 41 + 11
+    (513, 8, 128),     # 65 + 17
+    (4096, 8, 128),    # more than 128 a group: the largest tile
+    (64, 1, 80),
+    (65, 1, 128),
+])
+def test_wq_grouped_plan(M, E, want):
+    assert gm.wq_grouped_plan(M, E) == want
+
+
+def test_wq_grouped_launch_refuses_an_unknown_design():
+    """A design name K9's launchers do not know raises before anything
+    launches (the C launchers refuse an unknown code likewise: the card
+    test)."""
+    w = _codes(2, 64, 32, 8)
+    x = torch.zeros(4, 64, dtype=torch.bfloat16)
+    gs = torch.tensor([2, 2], dtype=torch.int32)
+    for fn, name, ws in (("grouped_gmm_wq_launch", "grouped_gmm_wq", (w,)),
+                         ("grouped_swiglu_up_wq_launch",
+                          "grouped_swiglu_up_wq", (w, w))):
+        with pytest.raises(ValueError, match="unknown design"):
+            gm._launch_wq_grouped(fn, name, x, ws, gs, design="wgmma")
+        assert gm.LAUNCHES[name] == 0

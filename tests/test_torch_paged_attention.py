@@ -228,3 +228,58 @@ class TestWrapperChecks:
         _decode_case(2, 4, 2, 32, 6, 8, 2, lengths=[3, 9])
         _chunk_case(8, 4, 2, 32, 6, 16, 2, start=0, true_len=8)
         assert tpa.LAUNCHES == {"paged_decode": 0, "paged_chunk": 0}
+
+
+def _chunk_operands(H, KVH, d, BS, dtype, offset=0):
+    """(q, k, v) for the design rule: q (8, H, d); ``offset`` elements off
+    an aligned base puts q's data off 16 bytes."""
+    q = torch.zeros(8 * H * d + offset, dtype=dtype)[offset:].view(8, H, d)
+    k = torch.zeros(3, KVH, BS, d, dtype=dtype)
+    return q, k, torch.zeros_like(k)
+
+
+@pytest.mark.parametrize("H,KVH,d,BS,dtype,offset,want", [
+    (32, 32, 128, 64, torch.bfloat16, 0, "sm90"),   # Llama-2-7B pools
+    (32, 8, 128, 64, torch.bfloat16, 0, "sm90"),    # Mixtral-8x7B: G = 4
+    (32, 32, 64, 128, torch.bfloat16, 0, "sm90"),   # d = 64, BS = 128
+    (8, 8, 32, 64, torch.bfloat16, 0, "simt"),      # d = 32
+    (32, 32, 128, 16, torch.bfloat16, 0, "simt"),   # BS = 16
+    (32, 32, 128, 64, torch.bfloat16, 1, "simt"),   # q off 16 bytes
+    (128, 1, 64, 64, torch.bfloat16, 0, "simt"),    # G = 128: no q box
+    (32, 32, 128, 64, torch.float32, 0, "fp32"),
+    (8, 2, 32, 16, torch.float32, 0, "fp32"),
+])
+def test_chunk_design_rule(H, KVH, d, BS, dtype, offset, want):
+    """``_chunk_design``: dtype, shapes and addresses only."""
+    q, k, v = _chunk_operands(H, KVH, d, BS, dtype, offset)
+    assert tpa._chunk_design(q, k, v) == want
+
+
+def test_chunk_design_rule_scale_and_unknown_design():
+    """A non-positive scale (it goes into the sm90 design's exp) takes the
+    SIMT design; a design name the launcher does not know raises before
+    anything launches."""
+    q, k, v = _chunk_operands(32, 8, 128, 64, torch.bfloat16)
+    assert tpa._chunk_design(q, k, v, 0.125) == "sm90"
+    assert tpa._chunk_design(q, k, v, -0.125) == "simt"
+    table = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="unknown design"):
+        tpa.paged_chunk_launch(q, k, v, table, 0, 8, 0.125, 0, "auto",
+                               "wgmma")
+    assert tpa.LAUNCHES["paged_chunk"] == 0
+
+
+@pytest.mark.parametrize("C,H,KVH,MB,start,true_len,window,want", [
+    (256, 32, 32, 64, 1000, 256, 0, 1),    # Llama-2-7B chunk: 64 items,
+    (256, 32, 8, 128, 1000, 256, 0, 1),    # Mixtral-8x7B (G = 4): 10 tiles
+    (256, 32, 32, 64, 0, 256, 0, 1),       # a prompt's first chunk: 2 tiles
+    (256, 32, 32, 64, 2000, 256, 0, 2),    # 18 tiles
+    (256, 32, 32, 64, 3800, 256, 0, 2),    # 32 tiles: 2 fill the SMs
+    (64, 8, 8, 64, 3000, 64, 0, 3),        # 8 items of a 24-tile walk
+    (64, 8, 8, 64, 3000, 64, 100, 1),      # a window: 2 tiles a walk
+    (2048, 32, 32, 64, 0, 2048, 0, 1),     # a long prefill: 512 items
+])
+def test_chunk_splits(C, H, KVH, MB, start, true_len, window, want):
+    """The sm90 chunk design's key-walk splits: shape and host ints only."""
+    assert tpa.chunk_splits(C, H, KVH, 64, MB, start, true_len,
+                            window) == want
