@@ -8,15 +8,18 @@ Phases (any failure raises and the script exits nonzero):
      every kernel from csrc/ (one nvcc per source, all started together,
      into build/).
  0b. SASS: cuobjdump -sass of the paged-attention, fused-CE, MLP,
-     grouped-matmul and flash-attention libraries; every instance of the
+     grouped-matmul, flash-attention and block-sparse libraries; every
+     instance of the
      Hopper designs on sm90_gemm.cuh / sm90_attention.cuh / wq_sm90.cuh
      (fused_ce_sm90_kernel, proj_mm_sm90_kernel, grouped_tgmm_sm90_kernel,
      grouped_gmm_sm90_kernel, flash_fwd_sm90_kernel<D, CARRY> for K1 and
      K10, flash_dkdv_sm90_kernel<D> and flash_dq_sm90_kernel<D> for K2,
      flash_bwd_qmajor_sm90_kernel<D> for K2-qmajor,
      paged_chunk_sm90_kernel<D> for K5, D = 64 and 128,
-     wq_matmul_sm90_kernel<BITS, NR> for K7, and the twelve
-     wq_grouped_sm90_kernel<BITS, NR, SWIGLU, WIDE> for K9) is there, holds
+     wq_matmul_sm90_kernel<BITS, NR> for K7, the twelve
+     wq_grouped_sm90_kernel<BITS, NR, SWIGLU, WIDE> for K9,
+     grouped_swiglu_up_sm90_kernel<NR> for K8's up chain, NR = 16, 80 and
+     128, and bsa_fwd_sm90_kernel<D> for K11's forward) is there, holds
      HGMMA (wgmma) and UTMALDG (TMA loads) and spills nothing (ptxas);
      their registers logged.
   2. kernels: each Hopper kernel against its plain PyTorch version on the
@@ -75,17 +78,22 @@ Phases (any failure raises and the script exits nonzero):
      routed rows at decode, 512 at a 256-token chunk; uneven sizes, an
      empty group, every row on one expert, a tail past the groups), bf16
      against their plain versions run in fp32 on the same inputs, fp32
-     cases at 1e-4, the tail exactly 0, a control (one group's rows times
-     a neighbouring expert's weights) that must fail, each timed beside
-     its bound, plain version and one library call; gmm also under both
-     of its bf16 designs (sm90, mma_sync) beside the one _gmm_design
-     picks at each row count.
+     cases at 1e-4, the tail exactly 0, controls (one group's rows times
+     a neighbouring expert's weights; for swiglu_up also w1's 64-feature
+     halves swapped and one 64-deep k slice of w1 and w3 dropped) that
+     must fail, each timed beside its bound, plain version and one library
+     call; gmm also under both of its bf16 designs (sm90, mma_sync) beside
+     the one _gmm_design picks at each row count; swiglu_up's every case
+     on the design _swiglu_up_design picks (counted) and repeated bitwise,
+     both its bf16 designs timed with their launches queued.
   9. MoE parity: a small fp32 Mixtral served with grouped_kernel=True and
      False gives identical greedy streams (split-fuse on and off).
  10. MoE slice: Mixtral-8x7B widths at 24 layers (random weights from a
      seeded generator, bf16) serve phase 4's 8 requests; every request
      returns 64 tokens, each grouped kernel launches once per layer and
-     forward, the paged kernels as in phase 4.
+     forward, the paged kernels as in phase 4; gmm's launches all on sm90,
+     swiglu_up's each on the design its rows give (sm90 from
+     SWIGLU_UP_SM90_MIN_ROWS rows), counted.
  11. MoE backward kernels: grouped_tgmm (K8's _tgmm) at the GPT2MoE 350M
      shapes (49152 routed rows, E=4, (K, N) = (1024, 4096) and (4096,
      1024); an empty expert and a row tail), bf16 on its sm90 design
@@ -99,7 +107,7 @@ Phases (any failure raises and the script exits nonzero):
      fail; each timed beside its bound, plain version, one library call
      and its mma_sync design; the
      grouped_swiglu backward at Mixtral-8x7B expert widths against its
-     plain version.
+     plain version, its forward's up product on sm90 (counted).
  12. MoE training parity: a small fp32 GPT2MoE gives the same loss, aux and
      gradients with the grouped kernels on and off.
  13. MoE training slice: initialize(GPT2MoE over the 350M widths, E=4,
@@ -175,11 +183,14 @@ Phases (any failure raises and the script exits nonzero):
      d=64, bf16: (a) FixedSparsityConfig(block 64, 4 local, 1 global,
      unidirectional) causal and (b) BigBirdSparsityConfig(block 64) at
      T=8192, and block 16 at T=2048, against their plain versions in fp32;
-     fp32 at every block size at 1e-4; controls (a row list short by its
-     last id, dk/dv from the neighbour head's column lists) that must
-     fail; rows with no present block exactly 0; bitwise repeats; timed
-     beside their bounds, plain versions, SDPA on the dense causal problem
-     and the masked-dense op at T=2048.
+     fp32 at every block size at 1e-4; controls (the forward on its design
+     with a row list short by its last id, dk/dv from the neighbour head's
+     column lists) that must fail; rows with no present block exactly 0;
+     bitwise repeats; the forward on the design _bsa_fwd_design picks
+     (sm90 at block 64: (a), (b); mma_sync at block 16; counted), the union
+     walk's extra block pairs logged; timed beside their bounds, plain
+     versions, SDPA on the dense causal problem and the masked-dense op at
+     T=2048, the forward's two bf16 designs with their launches queued.
  23. K2-qmajor / K11 parity: a small fp32 GPT-2 with flash_bwd_qmajor on
      and off gives the same loss and gradients (save_flash and
      nothing_saveable); SparseSelfAttention through the kernels equals the
@@ -188,9 +199,9 @@ Phases (any failure raises and the script exits nonzero):
      flash forwards, 24 query-major and 0 k-major backwards and 2 fused CE
      a step, beside phase 7's step); SparseSelfAttention (a) and (b) at
      B=4, T=8192, 10 forward + backward calls each, no host sync in a
-     call, one launch of each K11 kernel a call, ms a call and peak
-     memory; every bf16 K1 / K2-qmajor / K3 launch of the GPT-2 slice on
-     sm90.
+     call, one launch of each K11 kernel a call (every forward on sm90),
+     ms a call and peak memory; every bf16 K1 / K2-qmajor / K3 launch of
+     the GPT-2 slice on sm90.
  25. K10 (``flash_block_fwd``, the ring's chunk-pair step with carried
      online-softmax state): fp32 cases at 1e-4; bf16 on its sm90 design
      (every launch counted there): three chained pairs on the late half of
@@ -253,8 +264,9 @@ Phases (any failure raises and the script exits nonzero):
 Phases 7, 13, 20, 24 and 32 also hold every bf16 K1 / K2 / K2-qmajor /
 K3 / K6 launch to the sm90 design (the wrappers' DESIGN_LAUNCHES); the
 serving slices count K4's launches by design (split / single), the
-Mixtral slice K8's gmm (all sm90), the Llama int4 slice K7's (phase 16),
-phases 27 and 29 K10's and K2's (all sm90).
+Mixtral slice K8's gmm (all sm90) and swiglu_up, the Llama int4 slice
+K7's (phase 16), phases 27 and 29 K10's and K2's (all sm90), phase 24
+K11's forward (all sm90).
 Then one JSON line of per-kernel numbers (launches summed over the main
 paths that ran each kernel, and per path; the rows with more than one
 design with the designs their main-path launches went to, the sm90 rows
@@ -546,7 +558,13 @@ SM90_DESIGNS = {
         for n in (16, 80, 128))),
     "grouped_swiglu_up_wq": ("grouped_matmul", tuple(
         f"wq_grouped_sm90_kernelILi{b}ELi{n}ELb1E" for b in (4, 8)
-        for n in (16, 80, 128)))}
+        for n in (16, 80, 128))),
+    # K8's SwiGLU up chain: grouped_swiglu_up_sm90_kernel<row tile>
+    "grouped_swiglu_up": ("grouped_matmul", tuple(
+        f"grouped_swiglu_up_sm90_kernelILi{n}E" for n in (16, 80, 128))),
+    # K11's forward: bsa_fwd_sm90_kernel<D>
+    "bsa_fwd": ("block_sparse_attention", tuple(
+        f"bsa_fwd_sm90_kernelILi{d}E" for d in (64, 128)))}
 # library -> the sm90 kernel symbols it must hold
 SM90_KERNELS = {}
 for _lib, _syms in SM90_DESIGNS.values():
@@ -1028,7 +1046,9 @@ def serve(eng, uids):
 # a substring of the kernel's name (the first family that matches)
 PROFILE_FAMILIES = (
     ("K6", ("proj_mm",)), ("fused CE", ("fused_ce",)), ("flash", ("flash",)),
-    ("K8", ("grouped_",)),
+    ("K11", ("bsa_",)), ("K4 / K5", ("paged_",)),
+    ("K7 / K9", ("wq_",)),             # before K8: wq_grouped_sm90_kernel
+    ("K8", ("grouped_",)), ("K12", ("quant_blockwise",)),
     ("K13", ("ln_fwd", "ln_bwd", "ln_reduce", "rms_fwd")),
     ("cuBLAS", ("nvjet", "gemm", "cutlass")), ("reductions", ("reduce",)),
     ("elementwise", ("elementwise", "copy", "fill", "Memset", "Memcpy",
@@ -1761,7 +1781,8 @@ class MoECases:
     """The grouped kernels on Mixtral-8x7B-width experts, each call held
     against its plain version: bf16 against the plain version in fp32 on
     the same inputs (bf16_mismatch), fp32 at FP32_TOL; the rows past the
-    groups exactly 0."""
+    groups exactly 0; grouped_swiglu_up on the design its rule names
+    (``designs``: (rows, design) of each case) and repeated bitwise."""
 
     def __init__(self, gm, D=4096, Fd=14336, E=8, seed=0):
         self.gm = gm
@@ -1771,6 +1792,7 @@ class MoECases:
         self.w2 = self.randn((E, Fd, D), s=0.02)
         self.err = {"grouped_swiglu_up": 0.0, "grouped_gmm": 0.0}
         self.rel = dict(self.err)
+        self.designs = []
 
     def randn(self, shape, dtype=torch.bfloat16, s=1.0):
         return (torch.randn(shape, generator=self.g, device="cuda")
@@ -1781,9 +1803,17 @@ class MoECases:
         ws = [w.to(dtype) for w in (self.w1, self.w3, self.w2)]
         x = self.randn((M, ws[0].shape[1]), dtype)
         gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+        design = gm._swiglu_up_design(x, ws[0], ws[1])
+        gm.reset_launch_counts()
         h = gm.grouped_swiglu_up(x, ws[0], ws[1], gs)
         out = gm.grouped_matmul(h, ws[2], gs)
+        again = gm.grouped_swiglu_up(x, ws[0], ws[1], gs)
         torch.cuda.synchronize()
+        assert gm.DESIGN_LAUNCHES["grouped_swiglu_up"][design] == 2 == \
+            gm.LAUNCHES["grouped_swiglu_up"], (sizes, gm.DESIGN_LAUNCHES)
+        assert torch.equal(h, again), f"swiglu_up {sizes}: calls differ"
+        self.designs.append((M, design))
+        del again
         live = min(sum(sizes), M)
         assert (h[live:] == 0).all() and (out[live:] == 0).all(), \
             f"rows past the groups not zero (sizes {sizes})"
@@ -1815,16 +1845,28 @@ class MoECases:
         hi = lo + sizes[e]
         nb = (e + 1) % E
         xs, hs = c["x"][lo:hi].float(), c["h"][lo:hi].float()
-        wrong = {
-            "grouped_swiglu_up": F.silu(xs @ w32[0][nb]) * (xs @ w32[1][nb]),
-            "grouped_gmm": hs @ w32[2][nb]}
+        w1, w3 = w32[0][e], w32[1][e]
+        K, Fd = w1.shape
+        # the sm90 design's weight boxes: 64 features a consumer, 64 k a
+        # slice
+        swapped = w1.view(K, Fd // 128, 2, 64).flip(2).reshape(K, Fd)
+        kept = torch.ones(K, 1, device="cuda")
+        kept[64:128] = 0
+        wrong = [
+            ("grouped_swiglu_up", "a wrong expert",
+             F.silu(xs @ w32[0][nb]) * (xs @ w32[1][nb])),
+            ("grouped_swiglu_up", "w1's 64-feature halves swapped",
+             F.silu(xs @ swapped) * (xs @ w3)),
+            ("grouped_swiglu_up", "k slice 1 of w1 and w3 dropped",
+             F.silu(xs @ (w1 * kept)) * (xs @ (w3 * kept))),
+            ("grouped_gmm", "a wrong expert", hs @ w32[2][nb])]
         out = []
-        for name, rows in wrong.items():
+        for name, label, rows in wrong:
             ctrl = c["refs"][name].clone()
             ctrl[lo:hi] = rows
             why = bf16_mismatch(ctrl.to(torch.bfloat16), c["refs"][name])
-            assert why is not None, f"{name}: check let a wrong expert pass"
-            out.append(f"{name}: {why}")
+            assert why is not None, f"{name}: check let {label} pass"
+            out.append(f"{name}, {label}: {why}")
         return out
 
 
@@ -1850,8 +1892,10 @@ def phase_moe_kernels(gm, seed=0):
         f"norm {cases.rel['grouped_swiglu_up']:.3g}), gmm "
         f"{cases.err['grouped_gmm']:.3g} "
         f"({cases.rel['grouped_gmm']:.3g}); fp32 cases at 1e-4; tails 0")
+    log(f"grouped_swiglu_up by the rule (rows, design): {cases.designs}; "
+        f"every call repeated bitwise")
     for line in cases.control(dec):
-        log(f"control: one group on its neighbour's expert fails ({line})")
+        log(f"control: one group's rows fail ({line})")
     for c in (dec, chk):
         del c["w32"], c["refs"]
     torch.cuda.empty_cache()
@@ -1864,16 +1908,25 @@ def phase_moe_kernels(gm, seed=0):
         up_lib, up_name = grouped_library(x, cases.w1, sizes)
         up_lib3, _ = grouped_library(x, cases.w3, sizes)
         dn_lib, dn_name = grouped_library(h, cases.w2, sizes)
-        # the design _gmm_design picks at this row count, as launched
+        # the designs _gmm_design and _swiglu_up_design pick at this row
+        # count, as launched
         gmm_design = gm._gmm_design(h, cases.w2)
+        up_design = gm._swiglu_up_design(x, cases.w1, cases.w3)
         gm.reset_launch_counts()
         gm.grouped_matmul(h, cases.w2, gs)
         assert gm.DESIGN_LAUNCHES["grouped_gmm"][gmm_design] == 1, \
             (tag, gmm_design, gm.DESIGN_LAUNCHES)
         r = {
             "grouped_swiglu_up": dict(
-                ms=time_ms(lambda: gm.grouped_swiglu_up(
-                    x, cases.w1, cases.w3, gs), 30),
+                # device time with the launches queued, each design
+                ms=time_queued(lambda: gm.grouped_swiglu_up(
+                    x, cases.w1, cases.w3, gs), 30)[0],
+                design=up_design,
+                row_tile=gm.wq_grouped_plan(M, len(sizes)),
+                sm90_ms=time_queued(lambda: gm._swiglu_up(
+                    x, cases.w1, cases.w3, gs, design="sm90"), 30)[0],
+                mma_sync_ms=time_queued(lambda: gm._swiglu_up(
+                    x, cases.w1, cases.w3, gs, design="mma_sync"), 30)[0],
                 plain_ms=time_ms(lambda: gm.grouped_swiglu_up_reference(
                     x, cases.w1, cases.w3, gs), 3),
                 library_ms=time_ms(lambda: F.silu(up_lib()) * up_lib3(), 30),
@@ -1904,7 +1957,7 @@ def phase_moe_kernels(gm, seed=0):
     for name in rows:
         rows[name]["chunk"] = {k: shapes["chunk"][name][k] for k in
                                ("ms", "plain_ms", "library_ms", "design",
-                                "sm90_ms", "mma_sync_ms")
+                                "sm90_ms", "mma_sync_ms", "row_tile")
                                if k in shapes["chunk"][name]}
         rows[name]["chunk"]["bound_ms"] = shapes["chunk"][name]["bound"][0]
     del cases, dec, chk
@@ -1986,6 +2039,14 @@ def phase_moe_slice(seed=0, n_layer=24, profile=None):
             first_decode.append(sizes)
         return order, sizes
 
+    up_rows = {}                 # grouped_swiglu_up's design -> its row counts
+    up_design = gm._swiglu_up_design
+
+    def recording_up_design(x, w1, w3):
+        design = up_design(x, w1, w3)
+        up_rows.setdefault(design, set()).add(x.shape[0])
+        return design
+
     rs = np.random.RandomState(seed)
     lens = rs.randint(64, 2049, 8)
     new = 64
@@ -1995,6 +2056,7 @@ def phase_moe_slice(seed=0, n_layer=24, profile=None):
     for k in eng.forward_counts:
         eng.forward_counts[k] = 0
     mx.sort_by_expert = recording_sort
+    gm._swiglu_up_design = recording_up_design
     try:
         t_start = time.perf_counter()
         uids = []
@@ -2014,6 +2076,7 @@ def phase_moe_slice(seed=0, n_layer=24, profile=None):
             e2e = time.perf_counter() - t_start
     finally:
         mx.sort_by_expert = sort
+        gm._swiglu_up_design = up_design
     launches = {**pa.LAUNCHES, **gm.LAUNCHES}
     outs = [eng.get(u) for u in uids]
 
@@ -2036,6 +2099,17 @@ def phase_moe_slice(seed=0, n_layer=24, profile=None):
     assert gmm_by == {"sm90": launches["grouped_gmm"], "mma_sync": 0,
                       "fp32": 0}, (gmm_by, launches)
     count_designs("grouped_gmm", gmm_by)
+    # grouped_swiglu_up by _swiglu_up_design: every bf16 call of at least
+    # SWIGLU_UP_SM90_MIN_ROWS rows (each chunk's among them) on sm90, the
+    # rest on mma_sync
+    up_by = dict(gm.DESIGN_LAUNCHES["grouped_swiglu_up"])
+    assert sum(up_by.values()) == launches["grouped_swiglu_up"] and \
+        not up_by["fp32"] and up_by["sm90"], (up_by, launches)
+    assert all(r >= gm.SWIGLU_UP_SM90_MIN_ROWS
+               for r in up_rows.get("sm90", ())) and all(
+        r < gm.SWIGLU_UP_SM90_MIN_ROWS
+        for r in up_rows.get("mma_sync", ())), up_rows
+    count_designs("grouped_swiglu_up", up_by)
 
     hist = [s.tolist() for s in first_decode]
     ttft = sorted(first[u] - t_start for u in uids)
@@ -2047,7 +2121,8 @@ def phase_moe_slice(seed=0, n_layer=24, profile=None):
         tpot_p50_ms=float(np.percentile(tpot, 50)) * 1e3,
         output_tok_per_s=float(sum(len(o) for o in outs) / e2e),
         e2e_s=e2e, forwards=dict(fc), launches=launches,
-        grouped_gmm_designs=gmm_by,
+        grouped_gmm_designs=gmm_by, grouped_swiglu_up_designs=up_by,
+        grouped_swiglu_up_rows={k: sorted(v) for k, v in up_rows.items()},
         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
         first_decode_expert_load=hist)
     log("moe slice " + json.dumps(stats))
@@ -2335,7 +2410,11 @@ def phase_moe_backward_kernels(gm, seed=0, tokens=24576, E=4, k=2):
     w2 = randn((Em, Fd, D), s=0.02)
     dy = randn((512, D))
     ps = [t.detach().requires_grad_() for t in (x, w1, w3, w2)]
+    gm.reset_launch_counts()
     got = torch.autograd.grad(gm.grouped_swiglu(*ps, mgs), ps, dy)
+    # the chain's forward up product through _swiglu_up_design: sm90
+    assert gm.DESIGN_LAUNCHES["grouped_swiglu_up"] == {
+        "sm90": 1, "mma_sync": 0, "fp32": 0}, gm.DESIGN_LAUNCHES
     ref = gm.grouped_swiglu_backward_reference(
         *(t.float() for t in (x, w1, w3, w2)), mgs, dy.float())
     for name, a, b in zip(("dx", "dw1", "dw3", "dw2"), got, ref):
@@ -2344,8 +2423,9 @@ def phase_moe_backward_kernels(gm, seed=0, tokens=24576, E=4, k=2):
                else slab_rel_norm(a, b))
         assert rel <= BF16_GRAD_REL_NORM, f"swiglu backward {name}: {rel:.3g}"
     log(f"grouped_swiglu backward ok at D={D}, F={Fd}, E={Em}, 512 rows "
-        f"(sizes {msz}): dx and every expert slab within "
-        f"{BF16_GRAD_REL_NORM} of the plain backward in fp32")
+        f"(sizes {msz}; the forward's up product on sm90): dx and every "
+        f"expert slab within {BF16_GRAD_REL_NORM} of the plain backward in "
+        f"fp32")
     del x, w1, w3, w2, dy, ps, got, ref
     gc.collect()
     torch.cuda.empty_cache()
@@ -3699,6 +3779,14 @@ def bsa_bounds(lists, B, blk, d, T):
                    "bsa_dkv": bound(6 * act + 2 * rowf, 8 * per * pairs)}
 
 
+def union_waste(lists):
+    """The Hopper K11 forward's extra block pairs over the present ones:
+    each of its consumers runs every entry of its pair's union walk, so
+    (2 sum(ucnt) - sum(row_cnt)) / sum(row_cnt)."""
+    cnt = int(lists["row_cnt"].sum().item())
+    return (2 * int(lists["ucnt"].sum().item()) - cnt) / max(1, cnt)
+
+
 def phase_bsa_kernels(bsa, seed=0):
     """K11 (bsa_fwd, bsa_dq, bsa_dkv) at GPT-2 350M's attention widths (H=16,
     d=64, bf16, B=4): (a) Fixed causal and (b) BigBird at T=8192, block 64,
@@ -3760,14 +3848,20 @@ def phase_bsa_kernels(bsa, seed=0):
         assert bool((lse[:, rows] == bsa.NEG_INF).all())
     log("K11: rows with no present block give o = 0, dq = 0, lse = -1e30")
 
-    rows_out, err, rel = {}, {}, {}
+    rows_out, err, rel, waste = {}, {}, {}, {}
     B, H, d = 4, 16, 64
     for kind in ("fixed", "bigbird", "block16"):
         cfg, causal, T = bsa_config(kind)
         blk = cfg.block
         lists = SparseSelfAttention(cfg, causal=causal).lists(T, "cuda")
+        waste[kind] = union_waste(lists)
         q, k, v, do = (randn((B * H, T, d)) for _ in range(4))
         q = q * 0.125                      # the softmax scale, in bf16
+        # the forward's design by its rule: sm90 at block 64, mma_sync at 16
+        design = bsa._bsa_fwd_design(q, k, v, blk, H)
+        assert design == ("mma_sync" if kind == "block16" else "sm90"), \
+            (kind, design)
+        bsa.reset_launch_counts()
         got = run(q, k, v, do, lists, blk, causal)
         o, lse, dq, delta, dk, dv = got
         f32s = [x.float() for x in (q, k, v)]
@@ -3791,15 +3885,21 @@ def phase_bsa_kernels(bsa, seed=0):
         again = run(q, k, v, do, lists, blk, causal)
         assert all(torch.equal(a, b) for a, b in zip(got, again)), \
             f"K11 {kind} is not bitwise repeatable"
-        # control: head 0's last query block short by its last key block
-        short = {key: t.clone() for key, t in lists.items()}
+        assert bsa.DESIGN_LAUNCHES["bsa_fwd"][design] == 2, \
+            (kind, bsa.DESIGN_LAUNCHES)
+        # control: the forward (on its design) with head 0's last query
+        # block's list short by its last key block (the union walk rebuilt
+        # from the short lists)
+        short = {key: lists[key].cpu().numpy() for key in
+                 ("rows", "row_cnt", "cols", "col_cnt")}
         n = T // blk
         short["row_cnt"][0, n - 1] -= 1
-        cut, _ = bsa.bsa_forward_reference(*f32s, short, blk, causal)
-        why = bf16_mismatch(cut.to(bf), ro)
+        cut, _ = bsa.bsa_forward(q, k, v, bsa.lists_on(short, "cuda"), blk,
+                                 causal)
+        why = bf16_mismatch(cut, ro)
         assert why is not None, f"{kind}: a short row list passed"
-        log(f"control: {kind}, one row's list short by its last id, fails "
-            f"({why})")
+        log(f"control: {kind}, the {design} forward with one row's list "
+            f"short by its last id, fails ({why})")
         if kind == "block16":
             # control: dk/dv from the neighbour head's column lists
             nb = dict(lists, cols=lists["cols"].roll(-1, 0),
@@ -3814,13 +3914,18 @@ def phase_bsa_kernels(bsa, seed=0):
                     f"lists fails ({why})")
         pairs, bounds = bsa_bounds(lists, B, blk, d, T)
         log(f"K11 {kind}: T={T} block {blk} causal={causal}, {pairs} block "
-            f"pairs ({pairs / (B * H):.0f} a head), max |err| "
+            f"pairs ({pairs / (B * H):.0f} a head), forward on {design} "
+            f"(the union walk's extra pairs {100 * waste[kind]:.1f} %), max "
+            f"|err| "
             + ", ".join(f"{n_} {x:.3g}" for n_, x in e.items())
             + "; worst relative error norm "
             + ", ".join(f"{n_} {x:.3g}" for n_, x in r.items()))
         if kind != "block16":
-            t = {"bsa_fwd": time_ms(lambda: bsa.bsa_forward(
-                     q, k, v, lists, blk, causal), 20),
+            # the forward's designs with their launches queued
+            fwd_mma_ms = time_queued(lambda: bsa.bsa_forward(
+                q, k, v, lists, blk, causal, design="mma_sync"), 20)[0]
+            t = {"bsa_fwd": time_queued(lambda: bsa.bsa_forward(
+                     q, k, v, lists, blk, causal), 20)[0],
                  "bsa_dq": time_ms(lambda: bsa.bsa_dq(
                      q, k, v, o, lse, do, lists, blk, causal), 10),
                  "bsa_dkv": time_ms(lambda: bsa.bsa_dkv(
@@ -3835,6 +3940,9 @@ def phase_bsa_kernels(bsa, seed=0):
                 rows_out.setdefault(name, {})[kind] = dict(
                     ms=t[name], plain_ms=pt[name], bound=bounds[name],
                     max_abs_err=e[name], rel_norm=r[name], pairs=pairs)
+            rows_out["bsa_fwd"][kind].update(
+                design=design, mma_sync_ms=fwd_mma_ms,
+                union_waste=waste[kind])
         del got, refs, again, q, k, v, do, o, lse, dq, delta, dk, dv
         torch.cuda.empty_cache()
 
@@ -3877,12 +3985,18 @@ def phase_bsa_kernels(bsa, seed=0):
                                for k_, v_ in by["bigbird"].items()},
                    "masked_dense_fwd_ms_T2048": dense_ms,
                    "kernel_fwd_ms_T2048": kern_ms})
+        if name == "bsa_fwd":
+            out[name].update(mma_sync_ms=a["mma_sync_ms"],
+                             union_waste=waste)
         b = by["bigbird"]
+        designs = (f"; sm90 by the rule, mma_sync (a) {a['mma_sync_ms']:.4f}"
+                   f", (b) {b['mma_sync_ms']:.4f}"
+                   if name == "bsa_fwd" else "")
         log(f"{name}: (a) {a['ms']:.4f} ms (plain {a['plain_ms']:.4f}, "
             f"bound {a['bound'][0]:.4f} by {a['bound'][1]}); (b) "
             f"{b['ms']:.4f} ms (plain {b['plain_ms']:.4f}, bound "
             f"{b['bound'][0]:.4f} by {b['bound'][1]}); SDPA dense causal "
-            f"{out[name]['library_ms']:.4f}")
+            f"{out[name]['library_ms']:.4f}{designs}")
     return out
 
 
@@ -4029,6 +4143,10 @@ def phase_bsa_slice(kind, seed=0, calls=10):
             "flash_fwd": 0, "flash_bwd": 0, "flash_bwd_qmajor": 0,
             "flash_block_fwd": 0}
     assert launches == want, (launches, want)
+    # every bf16 block-64 forward on sm90
+    fwd_by = dict(bsa.DESIGN_LAUNCHES["bsa_fwd"])
+    assert fwd_by == {"sm90": calls, "mma_sync": 0, "fp32": 0}, fwd_by
+    count_designs("bsa_fwd", fwd_by)
     peak = torch.cuda.max_memory_allocated() / 1e9
     assert o.shape == q.shape and all(torch.isfinite(x).all()
                                       for x in (o,) + grads)
@@ -4043,6 +4161,7 @@ def phase_bsa_slice(kind, seed=0, calls=10):
     stats = dict(calls=calls, call_s=times,
                  call_ms_median_after_first=float(np.median(times[1:])) * 1e3,
                  density=op.density(T), launches=launches,
+                 bsa_fwd_designs=fwd_by,
                  max_memory_allocated_gb=peak)
     BSA_STATS[kind] = stats
     log(f"SparseSelfAttention {kind} slice " + json.dumps(stats))
@@ -5264,7 +5383,8 @@ def main(argv=None):
                       "training_forward", "library",
                       "dscale_dbias_rel_norm", "rel_norm", "kmajor_ms",
                       "causal_ms", "expression_ms", "eager_ms", "gqa",
-                      "splits", "mma_sync_ms", "causal_mma_sync_ms",
+                      "splits", "mma_sync_ms", "sm90_ms",
+                      "causal_mma_sync_ms", "union_waste",
                       "causal_library_ms", "causal_bound_ms", "row_tile",
                       "alt_splits", "alt_splits_ms", "int8pack_ms",
                       "bf16_matmul_ms", "delta_ms", "split_ms",

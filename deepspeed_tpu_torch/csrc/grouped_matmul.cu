@@ -15,10 +15,15 @@
 //   [k][n] with 16-byte cp.async, w with a unit k stride (the transposed
 //   view) [n][k], its B fragments by plain ldmatrix, and any other stride
 //   element by element (the wrapper's _gmm_design picks one per call).
-// grouped_swiglu_up_kernel  replaces _swiglu_up_kernel (via _swiglu_up).
+// grouped_swiglu_up_sm90_kernel / grouped_kernel<T, BM, true, false>
+//   replace _swiglu_up_kernel (via _swiglu_up).
 //   h = silu(x w1[g]) * (x w3[g]): one staged x tile feeds both products;
 //   the silu*mul epilogue runs in fp32 and rounds h once (as
-//   grouped_matmul.py:204-210).
+//   grouped_matmul.py:204-210). bf16 operands TMA can address, from a row
+//   count the card sets, take the Hopper design (grouped_swiglu_up_sm90_kernel,
+//   below: the transposed product on wgmma with the weight boxes as A,
+//   K9's runs); other bf16 and fp32 the mma.sync / scalar-FMA
+//   grouped_kernel (the wrapper's _swiglu_up_design picks one per call).
 // grouped_tgmm_sm90_kernel / grouped_tgmm_kernel replace _tgmm_kernel (via
 //   _tgmm, the weight gradient of training): dw[e, k, n] = sum over group
 //   e's rows s of x[s, k] dy[s, n], fp32 accumulation, one rounding. bf16
@@ -749,6 +754,228 @@ int grouped_wq(const WqArgs* a, int design, int bits, int tile, void* stream) {
                    : wq_grouped_by_tile<4, SWIGLU>(*a, tile, s);
 }
 
+// K8's bf16 Hopper design of grouped_swiglu_up (x, w1, w3 bf16 that TMA
+// can address, w with a unit n stride): h = silu(x w1[g]) * (x w3[g]) as
+// the transposed product h^T = w^T x^T, K9's walk (resolve_run: runs of NR
+// rows from each group segment's own first row, so x's box starts there
+// and an evenly routed expert is one run) with bf16 weights in place of
+// codes. CTA (v, f) takes run v at the features from f * SW_FT (SW_FT =
+// 128):
+//   warpgroup 0, the producer: one thread TMA-loads each 64-deep k slice
+//     into an mbarrier ring: x's box (64 k x NR rows from the run's first,
+//     K-major, 128-byte swizzle) and two 64-feature x 64-k boxes of each of
+//     w1 and w3 (the expert the map's third coordinate; f is w's unit
+//     stride, so a box holds a 128-byte line of 64 features per k: the
+//     MN-major layout). No copy of a weight is written anywhere.
+//   warpgroups 1 and 2, the consumers: each owns 64 features, wgmma's M,
+//     the run's rows are N (16, 80 or 128): per 16-deep slice one wgmma
+//     m64nNRk16 from shared memory with A = its w1 box transposed (the
+//     transpose bit) and B = x, and one with its w3 box, into two fp32
+//     accumulators; one wgmma group stays in flight and the wait that
+//     retires the previous slice frees its slot (one arrive per consumer
+//     warp).
+//   Epilogue: silu(g) * u in fp32 and one rounding; a thread holds features
+//     (F, F + 8) at rows (s, s + 1), so a shuffle with the neighbouring
+//     feature's lane pairs them up and each thread stores one bf16 pair a
+//     (row, feature pair), only the run's own rows [lo, hi). A tail run
+//     stores zeros; a run past the live ones exits. Every output element
+//     has one writer and there are no atomics: calls repeat bitwise.
+// Bound: bytes, each touched expert's w1 and w3 streamed once (1.88 GB for
+// Mixtral-8x7B's 8 experts, 0.56 ms): the ring is as deep as 227 KB allows
+// (6 stages of 34 KB at NR = 16, 5 of 42 KB at 80, 4 of 48 KB at 128). The
+// run index runs fastest in the grid, so an expert's second run reads its
+// weight tile from L2.
+constexpr int SW_FT = 128;               // features a CTA (two consumers of 64)
+constexpr int SW_KS = 64;                // k a slice: one 128-byte swizzle line of x
+constexpr int SW_WBOX = 64 * SW_KS * 2;  // one 64-feature x 64-k weight box: 8 KB
+constexpr int SW_WBYTES = 4 * SW_WBOX;   // w1's and w3's two boxes each a stage
+
+template <int NR>
+__host__ __device__ constexpr int sw_stages() {
+  constexpr int fit = (232448 - 1024 - 512) / (NR * SW_KS * 2 + SW_WBYTES);
+  return fit < 8 ? fit : 8;
+}
+template <int NR>
+__host__ __device__ constexpr int sw_smem_bytes() {
+  return 1024 + sw_stages<NR>() * (NR * SW_KS * 2 + SW_WBYTES + 16);
+}
+
+template <int NR>
+__global__ void __launch_bounds__(384, 1)
+    grouped_swiglu_up_sm90_kernel(const __grid_constant__ CUtensorMap mx,
+                                  const __grid_constant__ CUtensorMap mw1,
+                                  const __grid_constant__ CUtensorMap mw3, GroupedArgs a,
+                                  int w_rank) {
+  constexpr int ST = sw_stages<NR>();
+  constexpr int XB = NR * SW_KS * 2;
+  __shared__ int info[3];
+  if (threadIdx.x == 0) {
+    int lo = 0, hi = 0;
+    info[0] = resolve_run<NR>(a.group_sizes, a.E, a.M, blockIdx.x, lo, hi);
+    info[1] = lo;
+    info[2] = hi;
+  }
+  __syncthreads();
+  const int g = info[0], lo = info[1], hi = info[2];
+  if (g == -2) return;  // past the live runs
+  const int f0 = blockIdx.y * SW_FT;
+  bf16* out = reinterpret_cast<bf16*>(a.out);
+  if (g == -1) {  // rows past the groups: exactly zero
+    for (int i = threadIdx.x; i < (hi - lo) * SW_FT; i += 384) {
+      const int r = lo + i / SW_FT, n = f0 + i % SW_FT;
+      if (n < a.N) out[(long long)r * a.N + n] = __float2bfloat16(0.f);
+    }
+    return;
+  }
+
+  unsigned char* base =
+      sm90::sm90_smem + ((1024 - (sm90::smem_u32(sm90::sm90_smem) & 1023)) & 1023);
+  unsigned char* xs = base;            // [ST][XB]
+  unsigned char* ws = base + ST * XB;  // [ST][w1 lo, w1 hi, w3 lo, w3 hi][SW_WBOX]
+  uint64_t* full = reinterpret_cast<uint64_t*>(ws + ST * SW_WBYTES);
+  uint64_t* empty = full + ST;
+  const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  const int steps = (a.K + SW_KS - 1) / SW_KS;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 8);  // one arrive per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (tid == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int s = 0; s < steps; ++s) {
+        sm90::mbar_wait(&empty[stage], phase ^ 1);
+        sm90::mbar_expect_tx(&full[stage], XB + SW_WBYTES);
+        const int k0 = s * SW_KS;
+        unsigned char* w = ws + stage * SW_WBYTES;
+        sm90::tma_load(xs + stage * XB, &mx, &full[stage], 2, k0, lo, 0, 0);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          sm90::tma_load(w + h * SW_WBOX, &mw1, &full[stage], w_rank, f0 + 64 * h, k0, g, 0);
+          sm90::tma_load(w + (2 + h) * SW_WBOX, &mw3, &full[stage], w_rank, f0 + 64 * h, k0, g,
+                         0);
+        }
+        if (++stage == ST) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int cw = wg - 1, warp = tid >> 5, lane = tid & 31;
+    float g1[NR / 2], g3[NR / 2];
+#pragma unroll
+    for (int i = 0; i < NR / 2; ++i) g1[i] = g3[i] = 0.f;
+    int stage = 0, prev = -1;
+    uint32_t phase = 0;
+    for (int s = 0; s < steps; ++s) {
+      sm90::mbar_wait(&full[stage], phase);
+      const unsigned char* xb = xs + stage * XB;
+      const unsigned char* w1 = ws + stage * SW_WBYTES + cw * SW_WBOX;
+      const unsigned char* w3 = w1 + 2 * SW_WBOX;
+      sm90::fence_regs(g1);
+      sm90::fence_regs(g3);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < SW_KS / 16; ++kk) {
+        // A: 16 k lines (2048 bytes) a slice of the MN-major box; B: 32
+        // bytes a slice along x's swizzled k rows
+        const uint64_t db = sm90::smem_desc(xb + kk * 32, 16, 1024);
+        sm90::wgmma_tn<NR>(g1, sm90::smem_desc(w1 + kk * 2048, SW_WBOX, 1024), db);
+        sm90::wgmma_tn<NR>(g3, sm90::smem_desc(w3 + kk * 2048, SW_WBOX, 1024), db);
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<1>();  // the previous slice's products are done
+      sm90::fence_regs(g1);
+      sm90::fence_regs(g3);
+      if (prev >= 0 && lane == 0) sm90::mbar_arrive(&empty[prev]);
+      prev = stage;
+      if (++stage == ST) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(g1);
+    sm90::fence_regs(g3);
+    // (no arrive for the last slot: nothing loads after it)
+
+    // g1[4 b + e]: feature F + 8 (e >> 1) at row lo + 8 b + 2 t + (e & 1),
+    // F = f0 + 64 cw + 16 warp + lane / 4. The lane of feature F ^ 1 (lane
+    // ^ 4) swaps one value with this one, so a lane of even F stores row s
+    // at (F, F + 1) and one of odd F row s + 1 at (F - 1, F).
+    const int t4 = lane & 3, odd = (lane >> 2) & 1;
+    const int F = f0 + 64 * cw + 16 * warp + (lane >> 2) - odd;
+#pragma unroll
+    for (int b = 0; b < NR / 8; ++b)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int i0 = 4 * b + 2 * hf;
+        const float v0 = g1[i0] / (1.f + expf(-g1[i0])) * g3[i0];              // row s
+        const float v1 = g1[i0 + 1] / (1.f + expf(-g1[i0 + 1])) * g3[i0 + 1];  // row s + 1
+        const float got = __shfl_xor_sync(0xffffffffu, odd ? v0 : v1, 4);
+        const int r = lo + 8 * b + 2 * t4 + odd, f = F + 8 * hf;
+        if (r < hi && f < a.N)
+          *reinterpret_cast<uint32_t*>(out + (long long)r * a.N + f) =
+              odd ? sm90::pack_bf16(got, v1) : sm90::pack_bf16(v0, got);
+      }
+  }
+}
+
+template <int NR>
+cudaError_t launch_swiglu_up_sm90(const GroupedArgs& a, cudaStream_t s) {
+  CUtensorMap mx, mw1, mw3;
+  int rank, w_rank, dim2;
+  cudaError_t e = sm90::make_operand_map(&mx, a.x, a.K, a.M, a.K, 1, 0, 1, 0, NR, &rank, &dim2);
+  if (e == cudaSuccess)
+    e = sm90::make_operand_map(&mw1, a.w1, a.N, a.K, a.sw_k, 1, 0, a.E, a.sw_e, SW_KS, &w_rank,
+                               &dim2);
+  if (e == cudaSuccess)
+    e = sm90::make_operand_map(&mw3, a.w3, a.N, a.K, a.sw_k, 1, 0, a.E, a.sw_e, SW_KS, &w_rank,
+                               &dim2);
+  if (e != cudaSuccess) return e;
+  auto kernel = grouped_swiglu_up_sm90_kernel<NR>;
+  constexpr int smem = sw_smem_bytes<NR>();
+  static bool smem_set = false;  // once: later calls may be captured in a graph
+  if (!smem_set) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    smem_set = true;
+  }
+  const long long runs = (a.M + NR - 1) / NR + a.E + 1;
+  if (runs > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const dim3 grid((unsigned)runs, (a.N + SW_FT - 1) / SW_FT);
+  kernel<<<grid, 384, smem, s>>>(mx, mw1, mw3, a, w_rank);
+  return cudaGetLastError();
+}
+
+// bf16 x (M, K) contiguous, w1 and w3 (E, K, N) with a unit n stride and
+// shared strides, 16-byte aligned bases, K and N multiples of 8, the k
+// stride and (E > 1) the expert stride multiples of 8 elements; the row
+// tile NR = 16, 80 or 128.
+cudaError_t swiglu_up_sm90(const GroupedArgs& a, int row_tile, cudaStream_t s) {
+  if (a.M <= 0 || a.K <= 0 || a.N <= 0 || a.E <= 0 || a.K % 8 != 0 || a.N % 8 != 0 ||
+      a.w3 == nullptr || a.w_kmajor || a.sw_n != 1 || a.sw_k % 8 != 0 ||
+      (a.E > 1 && a.sw_e % 8 != 0) || (a.N + SW_FT - 1) / SW_FT > 65535 ||
+      (uintptr_t)a.x % 16 || (uintptr_t)a.w1 % 16 || (uintptr_t)a.w3 % 16 ||
+      (uintptr_t)a.out % 16)
+    return cudaErrorInvalidValue;
+  switch (row_tile) {
+    case 16: return launch_swiglu_up_sm90<16>(a, s);
+    case 80: return launch_swiglu_up_sm90<80>(a, s);
+    case 128: return launch_swiglu_up_sm90<128>(a, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 template <typename T, int BM, bool SWIGLU, bool WT>
 cudaError_t launch(const GroupedArgs& a, cudaStream_t s) {
   constexpr int BK = Slice<T>::BK;
@@ -799,15 +1026,22 @@ cudaError_t launch_tgmm(const TgmmArgs& a, cudaStream_t s) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; block_m: 16 or 64. Each returns a
+// dtype: 0 = float32, 1 = bfloat16; block_m: 16 or 64. Returns a
 // cudaError_t (0 = launched).
 extern "C" int grouped_gmm_launch(const GroupedArgs* a, int dtype, int block_m, void* stream) {
   return dispatch<false>(a, dtype, block_m, stream);
 }
 
-extern "C" int grouped_swiglu_up_launch(const GroupedArgs* a, int dtype, int block_m,
+// design: 0 = fp32 and 1 = mma_sync (grouped_kernel<float | bf16, block_m,
+// true, false>, block_m 16 or 64), 2 = sm90 (grouped_swiglu_up_sm90_kernel
+// at the row tile ``block_m``, 16, 80 or 128; see swiglu_up_sm90); any
+// other code is refused. Returns a cudaError_t (0 = launched).
+extern "C" int grouped_swiglu_up_launch(const GroupedArgs* a, int design, int block_m,
                                         void* stream) {
-  return dispatch<true>(a, dtype, block_m, stream);
+  if (a == nullptr) return cudaErrorInvalidValue;
+  if (design == 0 || design == 1) return dispatch<true>(a, design, block_m, stream);
+  if (design == 2) return swiglu_up_sm90(*a, block_m, (cudaStream_t)stream);
+  return cudaErrorInvalidValue;
 }
 
 // The bf16 Hopper design of grouped_gmm: x (M, K) contiguous and w through

@@ -126,7 +126,7 @@ class FlashAttentionBuilder(CUDAOpBuilder):
 class BlockSparseAttentionBuilder(CUDAOpBuilder):
     NAME = "block_sparse_attention"
     SOURCES = ("block_sparse_attention.cu",)
-    DEPENDS = ("attention_tiles.cuh",)
+    DEPENDS = ("attention_tiles.cuh", "sm90_gemm.cuh", "sm90_attention.cuh")
 
 
 class FusedCEBuilder(CUDAOpBuilder):

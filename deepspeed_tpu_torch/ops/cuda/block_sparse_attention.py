@@ -20,7 +20,13 @@ PyTorch version (``bsa_forward_reference``, ``bsa_dq_reference``,
 T x T buffer); a CUDA
 tensor launches the kernels or raises — there is no fallback.
 ``LAUNCHES`` counts kernel launches: ``bsa_fwd`` one per forward,
-``bsa_dq`` and ``bsa_dkv`` one each per backward.
+``bsa_dq`` and ``bsa_dkv`` one each per backward. The forward takes one of
+three designs (``_bsa_fwd_design``): bf16 at d = 64 or 128 and block 64
+that TMA can address goes to the Hopper kernel (``bsa_fwd_sm90_kernel``,
+which walks the union of two query blocks' lists: :func:`union_lists`,
+kept with the lists by :func:`lists_on`), other bf16 to the mma.sync
+kernel, fp32 to its scalar-FMA instance; ``DESIGN_LAUNCHES["bsa_fwd"]``
+counts them.
 """
 
 import ctypes
@@ -29,20 +35,29 @@ import math
 import numpy as np
 import torch
 
-from .flash_attention import _DTYPE_CODE, scale_q
+from .flash_attention import scale_q
 from .flash_attention import _check_cuda as _check_operands
+from .grouped_matmul import tma_ok
 
 NEG_INF = -1e30
 
 LAUNCHES = {"bsa_fwd": 0, "bsa_dq": 0, "bsa_dkv": 0}
+DESIGN_LAUNCHES = {"bsa_fwd": {"sm90": 0, "mma_sync": 0, "fp32": 0}}
+# bsa_launch's design codes (0 and 1 are the mma.sync kernels' fp32 and
+# bf16 instances; the backward passes take those two)
+DESIGN_CODE = {"fp32": 0, "mma_sync": 1, "sm90": 2}
 
 BLOCKS = (16, 32, 64, 128)
 _LIST_KEYS = ("rows", "row_cnt", "cols", "col_cnt")
+_UNION_KEYS = ("urows", "ubits", "ucnt", "uorder")
 
 
 def reset_launch_counts():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for by_design in DESIGN_LAUNCHES.values():
+        for k in by_design:
+            by_design[k] = 0
 
 
 class _BsaArgs(ctypes.Structure):
@@ -52,7 +67,10 @@ class _BsaArgs(ctypes.Structure):
                   "dv", "rows", "row_cnt", "cols", "col_cnt")]
                 + [(n, ctypes.c_int) for n in
                    ("BH", "H", "T", "D", "block", "causal", "max_row",
-                    "max_col")])
+                    "max_col")]
+                + [(n, ctypes.c_void_p) for n in
+                   ("urows", "ubits", "ucnt", "uorder", "next_item")]
+                + [("max_u", ctypes.c_int)])
 
 
 _builder = None
@@ -107,12 +125,56 @@ def layout_lists(layout, causal, nq, nk):
             "cols": cols, "col_cnt": col_cnt}
 
 
+def union_lists(rows, row_cnt):
+    """The Hopper forward's walk: per head h and pair p of query blocks (2p,
+    2p + 1; a last block without a partner pairs with an empty list), the
+    sorted union of the two rows' present key blocks and, per entry, which
+    of the two lists hold it.
+
+    Returns dict of int32 arrays: urows (H, n2, mu) the union ascending,
+    ubits (H, n2, mu) bit 0 set where row 2p's list holds the entry, bit 1
+    where row 2p + 1's does, ucnt (H, n2) the union's length, and uorder
+    (H * n2,) the entries h * n2 + p longest union first (ties in index
+    order): the persistent kernel's item order (each entry's instances
+    side by side). n2 = ceil(n / 2), mu the longest union (at least 1)."""
+    rows, row_cnt = np.asarray(rows), np.asarray(row_cnt)
+    H, n = row_cnt.shape
+    n2 = (n + 1) // 2
+    walks = []
+    for h in range(H):
+        for p in range(n2):
+            even = rows[h, 2 * p, :row_cnt[h, 2 * p]]
+            odd = (rows[h, 2 * p + 1, :row_cnt[h, 2 * p + 1]]
+                   if 2 * p + 1 < n else even[:0])
+            u = np.union1d(even, odd)
+            walks.append((u, np.isin(u, even) | (np.isin(u, odd) << 1)))
+    mu = max(1, max(len(u) for u, _ in walks))
+    urows = np.zeros((H * n2, mu), np.int32)
+    ubits = np.zeros((H * n2, mu), np.int32)
+    ucnt = np.zeros(H * n2, np.int32)
+    for i, (u, bits) in enumerate(walks):
+        urows[i, :len(u)] = u
+        ubits[i, :len(u)] = bits
+        ucnt[i] = len(u)
+    order = np.argsort(-ucnt, kind="stable").astype(np.int32)
+    return {"urows": urows.reshape(H, n2, mu),
+            "ubits": ubits.reshape(H, n2, mu),
+            "ucnt": ucnt.reshape(H, n2), "uorder": order}
+
+
 def lists_on(lists, device):
-    """The lists as contiguous int32 tensors on ``device`` (numpy arrays are
-    uploaded; tensors already there are kept)."""
+    """The lists and their union walk (:func:`union_lists`, built from the
+    row lists where ``lists`` lacks it) as contiguous int32 tensors on
+    ``device`` (numpy arrays are uploaded; tensors already there are
+    kept)."""
+    if not all(k in lists for k in _UNION_KEYS):
+        host = {k: np.asarray(torch.as_tensor(lists[k]).cpu())
+                for k in ("rows", "row_cnt")}
+        lists = dict(lists, **union_lists(host["rows"], host["row_cnt"]))
     return {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v)
                                else v).to(device=device, dtype=torch.int32)
-            .contiguous() for k, v in ((k, lists[k]) for k in _LIST_KEYS)}
+            .contiguous() for k, v in ((k, lists[k])
+                                       for k in _LIST_KEYS + _UNION_KEYS)}
 
 
 # ------------------------------------------------------------------- plain
@@ -258,53 +320,92 @@ def bsa_backward_reference(q, k, v, o, lse, do, lists, block, causal=False):
 # ----------------------------------------------------------------- kernels
 
 
-def _check_cuda(tensors, lists, block, name):
-    """The flash kernels' operand checks, then the block and the lists."""
+def _check_cuda(tensors, lists, block, name, keys=_LIST_KEYS):
+    """The flash kernels' operand checks, then the block and the lists
+    (``keys``)."""
     _check_operands(tensors, name)
     dev = tensors[0].device
     if block not in BLOCKS:
         raise ValueError(f"{name}: kernel takes block in {BLOCKS}, got "
                          f"{block}")
-    for key in _LIST_KEYS:
+    for key in keys:
         t = lists[key]
         if not torch.is_tensor(t) or t.device != dev or t.dtype != torch.int32:
             raise ValueError(f"{name}: lists['{key}'] must be an int32 "
                              f"tensor on {dev} (see lists_on)")
 
 
-def _launch(which, name, block, causal, lists, **tensors):
-    lib = kernel_builder().load()
+def _bsa_fwd_design(q, k, v, block, heads):
+    """The forward's design for folded contiguous (BH, T, d) operands:
+    "fp32" for fp32; "sm90" (TMA + wgmma over the union walk) for bf16 at d
+    = 64 or 128 and block 64 that TMA can address (``tma_ok``: 16-byte
+    aligned bases) with BH a multiple of the layout's ``heads`` (the
+    kernel's item order runs over each head's instances): both
+    SparseSelfAttention cells; else "mma_sync" (d = 32, blocks 16, 32 and
+    128)."""
+    if q.dtype == torch.float32:
+        return "fp32"
+    if (q.shape[-1] in (64, 128) and block == 64 and q.shape[0] % heads == 0
+            and all(map(tma_ok, (q, k, v)))):
+        return "sm90"
+    return "mma_sync"
+
+
+def _launch(which, name, block, causal, lists, design=None, **tensors):
+    """One bsa_launch of pass ``which`` under ``design`` (default: the
+    mma.sync kernels' instance of q's dtype; a name DESIGN_CODE lacks
+    raises)."""
     q = tensors["q"]
     BH, T, D = q.shape
+    if design is None:
+        design = "fp32" if q.dtype == torch.float32 else "mma_sync"
+    if design not in DESIGN_CODE:
+        raise ValueError(f"{name}: unknown design {design!r}")
     a = _BsaArgs()
     a.BH, a.T, a.D, a.block, a.causal = BH, T, D, block, int(bool(causal))
     a.H = lists["rows"].shape[0]
     a.max_row, a.max_col = lists["rows"].shape[-1], lists["cols"].shape[-1]
-    for key, t in list(tensors.items()) + [(k, lists[k]) for k in _LIST_KEYS]:
+    keys = _LIST_KEYS
+    if design == "sm90":
+        keys = _LIST_KEYS + _UNION_KEYS
+        a.max_u = lists["urows"].shape[-1]
+        # the persistent CTAs' work counter
+        tensors["next_item"] = torch.zeros(1, dtype=torch.int32,
+                                           device=q.device)
+    for key, t in list(tensors.items()) + [(k, lists[k]) for k in keys]:
         setattr(a, key, t.data_ptr())
-    rc = lib.bsa_launch(ctypes.byref(a), _DTYPE_CODE[q.dtype], which,
+    lib = kernel_builder().load()
+    rc = lib.bsa_launch(ctypes.byref(a), DESIGN_CODE[design], which,
                         torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}"
+        raise RuntimeError(f"{name} kernel launch failed ({design}): "
+                           f"cudaError {rc}"
                            + (" (fp32 tiles of this block and head dim do "
                               "not fit a CTA's shared memory)" if rc == 9
                               else ""))
 
 
-def bsa_forward(q, k, v, lists, block, causal=False):
+def bsa_forward(q, k, v, lists, block, causal=False, design=None):
     """Forward on folded contiguous (BH, T, d) operands (scale already in
     q); ``lists`` from :func:`lists_on` on q's device. Returns (o, lse
     (BH, T) fp32). CPU tensors take the plain version; CUDA tensors launch
-    the kernel or raise."""
+    the kernel of ``_bsa_fwd_design`` (or of ``design``, so the card's
+    checks can time one design beside the other) or raise."""
     if q.device.type == "cpu":
         return bsa_forward_reference(q, k, v, lists, block, causal)
     name = "bsa_forward"
     _check_cuda((q, k, v), lists, block, name)
     q, k, v = (x.contiguous() for x in (q, k, v))
+    if design is None:
+        design = _bsa_fwd_design(q, k, v, block, lists["rows"].shape[0])
+    if design == "sm90":
+        _check_cuda((q, k, v), lists, block, name, _UNION_KEYS)
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
-    _launch(0, name, block, causal, lists, q=q, k=k, v=v, o=o, lse=lse)
+    _launch(0, name, block, causal, lists, design, q=q, k=k, v=v, o=o,
+            lse=lse)
     LAUNCHES["bsa_fwd"] += 1
+    DESIGN_LAUNCHES["bsa_fwd"][design] += 1
     return o, lse
 
 

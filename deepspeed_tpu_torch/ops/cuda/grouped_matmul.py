@@ -45,8 +45,11 @@ The quantized kernels (K9) likewise (``_wq_grouped_design``): bf16 x and
 codes that TMA can address go to ``wq_grouped_sm90_kernel`` (K7's Hopper
 CTA on the grouped walk, its row tile from ``wq_grouped_plan``), other
 bf16 to the mma.sync ``wq_kernel``, fp32 to its scalar-FMA instance.
-``DESIGN_LAUNCHES`` counts launches by design; ``grouped_swiglu_up`` has
-one design.
+``grouped_swiglu_up`` likewise (``_swiglu_up_design``): bf16 that TMA can
+address, from ``SWIGLU_UP_SM90_MIN_ROWS`` rows, goes to
+``grouped_swiglu_up_sm90_kernel`` (the transposed product on wgmma, K9's
+runs, the row tile from ``wq_grouped_plan``), other bf16 to the mma.sync
+``grouped_kernel``. ``DESIGN_LAUNCHES`` counts launches by design.
 """
 
 import ctypes
@@ -59,13 +62,18 @@ from ..int8_weights import is_quantized
 LAUNCHES = {"grouped_swiglu_up": 0, "grouped_gmm": 0, "grouped_tgmm": 0,
             "grouped_swiglu_up_wq": 0, "grouped_gmm_wq": 0}
 DESIGN_LAUNCHES = {name: {"sm90": 0, "mma_sync": 0, "fp32": 0}
-                   for name in ("grouped_gmm", "grouped_tgmm",
-                                "grouped_gmm_wq", "grouped_swiglu_up_wq")}
+                   for name in ("grouped_swiglu_up", "grouped_gmm",
+                                "grouped_tgmm", "grouped_gmm_wq",
+                                "grouped_swiglu_up_wq")}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# K9's designs, as grouped_{gmm,swiglu_up}_wq_launch's design codes (0 and
-# 1 are wq_kernel's fp32 and bf16 instances)
-WQ_DESIGN_CODE = {"fp32": 0, "mma_sync": 1, "sm90": 2}
+# the design codes of K9's launchers (grouped_{gmm,swiglu_up}_wq_launch: 0
+# and 1 are wq_kernel's fp32 and bf16 instances) and of
+# grouped_swiglu_up_launch (0 and 1 grouped_kernel's)
+DESIGN_CODE = {"fp32": 0, "mma_sync": 1, "sm90": 2}
+# grouped_swiglu_up's sm90 design (grouped_swiglu_up_sm90_kernel): bf16
+# calls of at least SWIGLU_UP_SM90_MIN_ROWS rows take it
+SWIGLU_UP_SM90_MIN_ROWS = 1
 # K9's sm90 design (wq_grouped_sm90_kernel on csrc/wq_sm90.cuh): the row
 # tiles (wgmma's n) of its visits; bf16 calls of at least
 # WQ_GROUPED_SM90_MIN_ROWS rows take it
@@ -320,10 +328,29 @@ def _gmm_design(x, w):
     return "sm90" if tma_ok(x) and tma_ok(w) else "mma_sync"
 
 
-def _launch(fn_name, name, x, ws, group_sizes):
+def _swiglu_up_design(x, w1, w3):
+    """The ``grouped_swiglu_up`` design for a contiguous x (M, K) and w1, w3
+    (E, K, N) through their (shared) strides: "fp32" for fp32; "sm90" (TMA
+    + wgmma, K9's runs resolved on the device) for bf16 of at least
+    SWIGLU_UP_SM90_MIN_ROWS rows that TMA can address (``tma_ok``: K and N
+    multiples of 8, aligned bases, w1 and w3 with a unit n stride and their
+    other strides multiples of 8): Mixtral-8x7B's decode and chunk; else
+    "mma_sync" (no rows, an odd K or N, a unit k stride, an unaligned
+    base)."""
+    if x.dtype == torch.float32:
+        return "fp32"
+    if (x.shape[0] >= SWIGLU_UP_SM90_MIN_ROWS and w1.shape[2] % 8 == 0
+            and all(w.stride(-1) == 1 and tma_ok(w) for w in (w1, w3))
+            and tma_ok(x)):
+        return "sm90"
+    return "mma_sync"
+
+
+def _launch(fn_name, name, x, ws, group_sizes, design=None):
     """Launch one grouped kernel on CUDA tensors, counting it under
-    ``name`` (and by design for ``grouped_gmm``); returns its (M, N)
-    output."""
+    ``name`` and by design (``grouped_gmm``: ``_gmm_design``;
+    ``grouped_swiglu_up``: ``_swiglu_up_design``, or ``design`` when given;
+    a name DESIGN_CODE lacks raises); returns its (M, N) output."""
     _check_device(name, x, (*ws, group_sizes))
     if ws[0].stride() != ws[-1].stride():
         raise ValueError(f"{name}: w1 and w3 must share their strides")
@@ -347,20 +374,28 @@ def _launch(fn_name, name, x, ws, group_sizes):
                      gs.data_ptr(), out.data_ptr(), se, sk, sn, M, K, N, E,
                      int(K % vec == 0 and _aligned(x)), int(vec_w),
                      int(kmajor))
+    code, tile = _DTYPE_CODE[x.dtype], block_m_for(M)
+    if name == "grouped_swiglu_up":
+        if design is None:
+            design = _swiglu_up_design(x, *ws)
+        if design not in DESIGN_CODE:
+            raise ValueError(f"{name}: unknown design {design!r}")
+        code = DESIGN_CODE[design]
+        if design == "sm90":
+            tile = wq_grouped_plan(M, E)
+    else:
+        design = _gmm_design(x, ws[0])
     lib = kernel_builder().load()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    design = _gmm_design(x, ws[0]) if name in DESIGN_LAUNCHES else None
-    if design == "sm90":
+    if name == "grouped_gmm" and design == "sm90":
         rc = lib.grouped_gmm_sm90_launch(ctypes.byref(a), stream)
     else:
-        rc = getattr(lib, fn_name)(ctypes.byref(a), _DTYPE_CODE[x.dtype],
-                                   block_m_for(M), stream)
+        rc = getattr(lib, fn_name)(ctypes.byref(a), code, tile, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed ({design}): "
                            f"cudaError {rc}")
     LAUNCHES[name] += 1
-    if design:
-        DESIGN_LAUNCHES[name][design] += 1
+    DESIGN_LAUNCHES[name][design] += 1
     return out
 
 
@@ -433,11 +468,14 @@ def _gmm(x, w, group_sizes):
     return _launch("grouped_gmm_launch", "grouped_gmm", x, (w,), group_sizes)
 
 
-def _swiglu_up(x, w1, w3, group_sizes):
+def _swiglu_up(x, w1, w3, group_sizes, design=None):
+    """The fused up chain on x's device (no autograd); ``design`` (CUDA
+    tensors: "fp32", "mma_sync" or "sm90") overrides ``_swiglu_up_design``,
+    so the card's checks can time one design beside the other."""
     if x.device.type == "cpu":
         return grouped_swiglu_up_reference(x, w1, w3, group_sizes)
     return _launch("grouped_swiglu_up_launch", "grouped_swiglu_up", x,
-                   (w1, w3), group_sizes)
+                   (w1, w3), group_sizes, design)
 
 
 def _tgmm(x, dy, group_sizes):
@@ -579,7 +617,8 @@ def grouped_swiglu(x, w1, w3, w2, group_sizes):
 
 
 def wq_grouped_plan(M, E):
-    """The sm90 K9 design's row tile for M routed rows over E experts: the
+    """The row tile of K9's and ``grouped_swiglu_up``'s sm90 designs for M
+    routed rows over E experts: the
     smallest of WQ_GROUPED_ROW_TILES that holds ceil(M / E) rows and a
     quarter more (top-k routing is uneven: a second run of a few rows
     costs a whole run's code and x reads), else the largest. So 16 at
@@ -610,20 +649,20 @@ def _wq_grouped_design(x, w):
 
 def _launch_wq_grouped(fn_name, name, x, ws, group_sizes, design=None):
     """One K9 launch on CUDA tensors under ``design`` (default
-    ``_wq_grouped_design``'s; a name WQ_DESIGN_CODE lacks raises), counted
+    ``_wq_grouped_design``'s; a name DESIGN_CODE lacks raises), counted
     in LAUNCHES and by design."""
     x = x.contiguous()
     if design is None:
         design = _wq_grouped_design(x, ws[0])
         if len(ws) > 1 and _wq_grouped_design(x, ws[1]) != design:
             design = "mma_sync"
-    if design not in WQ_DESIGN_CODE:
+    if design not in DESIGN_CODE:
         raise ValueError(f"{name}: unknown design {design!r}")
     tile = (wq_grouped_plan(x.shape[0], group_sizes.shape[0])
             if design == "sm90" else None)
     out = launch_wq(getattr(kernel_builder().load(), fn_name), name,
                     LAUNCHES, x, *ws, group_sizes=group_sizes,
-                    code=WQ_DESIGN_CODE[design], tile=tile)
+                    code=DESIGN_CODE[design], tile=tile)
     if x.shape[0]:
         DESIGN_LAUNCHES[name][design] += 1
     return out

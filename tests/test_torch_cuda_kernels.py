@@ -265,6 +265,45 @@ def test_chunk_and_grouped_wq_launchers_refuse_a_wrong_design():
     assert bool((out == 7).all()) and bool((h == 7).all())
 
 
+def test_swiglu_up_and_bsa_launchers_refuse_a_wrong_design():
+    """A design code grouped_swiglu_up's and K11's launchers do not know
+    (and sm90 for a K11 backward pass) returns an error and launches
+    nothing."""
+    stream = torch.cuda.current_stream().cuda_stream
+    bf = torch.bfloat16
+    x = torch.ones(4, 64, dtype=bf, device="cuda")
+    w = torch.ones(2, 64, 32, dtype=bf, device="cuda")
+    gs = torch.tensor([2, 2], dtype=torch.int32, device="cuda")
+    h = torch.full((4, 32), 7.0, dtype=bf, device="cuda")
+    a = gm._GroupedArgs(x.data_ptr(), w.data_ptr(), w.data_ptr(),
+                        gs.data_ptr(), h.data_ptr(), *w.stride(), 4, 64, 32,
+                        2, 1, 1, 0)
+    glib = gm.kernel_builder().load()
+    for design in (3, -1):
+        assert glib.grouped_swiglu_up_launch(ctypes.byref(a), design, 16,
+                                             stream) != 0
+    q = torch.ones(2, 128, 64, dtype=bf, device="cuda")
+    o = torch.full_like(q, 7.0)
+    lse = torch.full((2, 128), 7.0, device="cuda")
+    lists = bsa.lists_on(bsa.layout_lists(np.ones((2, 2, 2), bool), True,
+                                          2, 2), "cuda")
+    ba = bsa._BsaArgs()
+    ba.BH, ba.H, ba.T, ba.D, ba.block, ba.causal = 2, 2, 128, 64, 64, 1
+    ba.max_row, ba.max_col = (lists["rows"].shape[-1],
+                              lists["cols"].shape[-1])
+    ba.max_u = lists["urows"].shape[-1]
+    counter = torch.zeros(1, dtype=torch.int32, device="cuda")
+    for key, t in dict(q=q, k=q, v=q, o=o, lse=lse, dout=q, delta=lse,
+                       dq=o, dk=o, dv=o, next_item=counter, **lists).items():
+        setattr(ba, key, t.data_ptr())
+    blib = bsa.kernel_builder().load()
+    for design, which in ((3, 0), (-1, 0), (2, 1), (2, 2)):
+        assert blib.bsa_launch(ctypes.byref(ba), design, which, stream) != 0
+    torch.cuda.synchronize()
+    assert bool((h == 7).all()) and bool((o == 7).all())
+    assert bool((lse == 7).all())
+
+
 def test_cuda_tensor_never_takes_the_plain_path():
     q = torch.zeros(1, 4, 48, device="cuda")          # head dim 48: no kernel
     k = torch.zeros(3, 2, 16, 48, device="cuda")
@@ -552,6 +591,63 @@ def test_grouped_gmm_sm90(M, K, N, sizes, view):
     if live:
         ref = gm.grouped_matmul_reference(x.float(), w.float(), gs)
         _assert_close(outs[0][:live], ref[:live], bf)
+
+
+@pytest.mark.parametrize("M,K,N,sizes", [
+    (16, 512, 384, [2, 3, 1, 2, 4, 1, 2, 1]),      # decode: row tile 16
+    (512, 512, 256, [70, 60, 64, 58, 66, 62, 64, 68]),  # chunk: row tile 80
+    (512, 256, 384, [100, 0, 50, 30, 120, 80, 0, 132]),  # empty groups, 2 runs
+    (512, 256, 384, [0, 0, 0, 512, 0, 0, 0, 0]),   # one expert holds every row
+    (512, 256, 384, [0] * 8),                      # every group empty
+    (512, 256, 384, [40, 60, 0, 20, 100, 0, 80, 50]),  # a 162-row tail
+    (700, 320, 128, [300, 200, 100, 100]),         # row tile 128
+    (100, 136, 72, [10, 50, 1, 30]),               # N under one 128 tile, ragged
+])
+def test_grouped_swiglu_up_sm90(M, K, N, sizes):
+    """grouped_swiglu_up's bf16 sm90 design (the transposed product on
+    wgmma, K9's runs): every call counted there, within the bf16 limits of
+    the plain version in fp32, rows past the groups exactly 0, repeated
+    bitwise; the mma_sync design on the same inputs holds too."""
+    rs = np.random.RandomState(M + K + N)
+    bf = torch.bfloat16
+    E = len(sizes)
+    x = _rand(rs, (M, K), bf)
+    w1, w3 = ((_rand(rs, (E, K, N), torch.float32) * 0.1).to(bf)
+              for _ in range(2))
+    gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+    gm.reset_launch_counts()
+    outs = [gm.grouped_swiglu_up(x, w1, w3, gs) for _ in range(2)]
+    old = gm._swiglu_up(x, w1, w3, gs, design="mma_sync")
+    torch.cuda.synchronize()
+    assert gm.DESIGN_LAUNCHES["grouped_swiglu_up"] == {
+        "sm90": 2, "mma_sync": 1, "fp32": 0}
+    assert torch.equal(outs[0], outs[1])
+    live = sum(sizes)
+    assert torch.all(outs[0][live:] == 0) and torch.all(old[live:] == 0)
+    if live:
+        ref = gm.grouped_swiglu_up_reference(x.float(), w1.float(),
+                                             w3.float(), gs)
+        _assert_close(outs[0][:live], ref[:live], bf)
+        _assert_close(old[:live], ref[:live], bf)
+
+
+def test_grouped_swiglu_up_sm90_control():
+    """A swapped 64-feature half of w1 (as a box descriptor that read the
+    other consumer's half would give) fails the check the kernel passes."""
+    rs = np.random.RandomState(12)
+    bf = torch.bfloat16
+    x = _rand(rs, (64, 256), bf)
+    w1, w3 = ((_rand(rs, (2, 256, 256), torch.float32) * 0.1).to(bf)
+              for _ in range(2))
+    gs = torch.tensor([30, 34], dtype=torch.int32, device="cuda")
+    h = gm.grouped_swiglu_up(x, w1, w3, gs)
+    ref = gm.grouped_swiglu_up_reference(x.float(), w1.float(), w3.float(),
+                                         gs)
+    assert chip_smoke.bf16_mismatch(h, ref) is None
+    swapped = torch.cat([w1[..., 64:128], w1[..., :64], w1[..., 128:]], -1)
+    bad = gm.grouped_swiglu_up_reference(x.float(), swapped.float(),
+                                         w3.float(), gs)
+    assert chip_smoke.bf16_mismatch(bad.to(bf), ref) is not None
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1207,6 +1303,92 @@ def test_block_sparse_fully_masked_rows_zero(dtype):
     assert torch.count_nonzero(out[:, :32]) == 0
     assert float(out[:, 32:].detach().abs().max()) > 0
     assert torch.count_nonzero(qs.grad[:, :32]) == 0
+
+
+def _bsa_sm90_layout(kind, H, T):
+    """(layout, causal) of the sm90 forward's card cases at block 64."""
+    if kind == "fixed":
+        return FixedSparsityConfig(num_heads=H, block=64, num_local_blocks=4,
+                                   num_global_blocks=1,
+                                   attention="unidirectional").make_layout(T), True
+    if kind == "bigbird":
+        return BigBirdSparsityConfig(num_heads=H, block=64).make_layout(T), False
+    # (a)'s layout with rows 1 and 4 empty (the odd one of pair 0, the even
+    # one of pair 2) and an odd number of blocks
+    lay = FixedSparsityConfig(num_heads=H, block=64, num_local_blocks=2,
+                              num_global_blocks=1,
+                              attention="unidirectional").make_layout(T)
+    lay[:, 1] = False
+    lay[:, 4] = False
+    return lay, True
+
+
+@pytest.mark.parametrize("kind,T,d", [
+    ("fixed", 2048, 64),      # (a)'s layout, 32 blocks
+    ("bigbird", 2048, 64),    # (b)'s layout, non-causal
+    ("fixed", 1024, 128),     # d = 128
+    ("bigbird", 1024, 128),
+    ("empty_rows", 320, 64),  # rows with no present block, n = 5 (odd)
+    ("empty_rows", 320, 128),
+])
+def test_bsa_fwd_sm90(kind, T, d):
+    """K11's bf16 sm90 forward (the union walk on TMA + wgmma): every call
+    counted there, within the bf16 limits of the plain version in fp32,
+    lse within 1e-3, rows with no present block o = 0 and lse = -1e30,
+    repeated bitwise; the unchanged backward on its o and lse holds against
+    the plain backward."""
+    rs = np.random.RandomState(T + d)
+    H, B, n = 2, 3, T // 64
+    lay, causal = _bsa_sm90_layout(kind, H, T)
+    lists = bsa.lists_on(bsa.layout_lists(lay, causal, n, n), "cuda")
+    q, k, v, do = (_rand(rs, (B * H, T, d), torch.bfloat16)
+                   for _ in range(4))
+    q = q * (d ** -0.5)
+    bsa.reset_launch_counts()
+    o, lse = bsa.bsa_forward(q, k, v, lists, 64, causal)
+    o2, lse2 = bsa.bsa_forward(q, k, v, lists, 64, causal)
+    torch.cuda.synchronize()
+    assert bsa.DESIGN_LAUNCHES["bsa_fwd"] == {"sm90": 2, "mma_sync": 0,
+                                              "fp32": 0}
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    f32 = [x.float() for x in (q, k, v)]
+    ro, rlse = bsa.bsa_forward_reference(*f32, lists, 64, causal)
+    _assert_close(o, ro, torch.bfloat16)
+    torch.testing.assert_close(lse, rlse, rtol=0, atol=1e-3)
+    empty = lists["row_cnt"].cpu()[torch.arange(B * H) % H] == 0
+    rows = empty.repeat_interleave(64, dim=1).cuda()
+    if kind == "empty_rows":
+        assert bool(rows.any())
+    assert torch.count_nonzero(o[rows]) == 0
+    assert bool((lse[rows] == bsa.NEG_INF).all())
+    grads = bsa.bsa_backward(q, k, v, o, lse, do, lists, 64, causal)
+    refs = bsa.bsa_backward_reference(*f32, o.float(), lse, do.float(),
+                                      lists, 64, causal)
+    for name, g, ref in zip(("dq", "dk", "dv"), grads, refs):
+        assert chip_smoke.bf16_grad_mismatch(g[:, None], ref[:, None]) \
+            is None, name
+
+
+def test_bsa_fwd_sm90_control():
+    """The union walk built from a row list short by its last id (as a walk
+    that dropped a listed block would give) fails the check the kernel
+    passes on the whole lists."""
+    rs = np.random.RandomState(13)
+    T, n = 1024, 16
+    lay, causal = _bsa_sm90_layout("fixed", 2, T)
+    host = bsa.layout_lists(lay, causal, n, n)
+    lists = bsa.lists_on(host, "cuda")
+    q, k, v = (_rand(rs, (4, T, 64), torch.bfloat16) for _ in range(3))
+    q = q * 0.125
+    ro, _ = bsa.bsa_forward_reference(*(x.float() for x in (q, k, v)),
+                                      lists, 64, causal)
+    o, _ = bsa.bsa_forward(q, k, v, lists, 64, causal)
+    assert chip_smoke.bf16_mismatch(o, ro) is None
+    short = {key: a.copy() for key, a in host.items()}
+    short["row_cnt"][0, n - 1] -= 1
+    cut, _ = bsa.bsa_forward(q, k, v, bsa.lists_on(short, "cuda"), 64,
+                             causal)
+    assert chip_smoke.bf16_mismatch(cut, ro) is not None
 
 
 def test_sparse_self_attention_kernel_matches_masked_dense():

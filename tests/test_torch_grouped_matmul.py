@@ -204,3 +204,59 @@ def test_routing_matches_jax():
     np.testing.assert_array_equal(sizes.numpy(),
                                   np.bincount(flat, minlength=E))
     assert sizes.dtype == torch.int32
+
+
+# ------------------------------------------------- the swiglu_up design rule
+
+
+def _bf16(*shape):
+    return torch.zeros(*shape, dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype,M,K,N,view,offset,want", [
+    (torch.bfloat16, 16, 4096, 14336, False, 0, "sm90"),   # Mixtral decode
+    (torch.bfloat16, 512, 4096, 14336, False, 0, "sm90"),  # the 512-row chunk
+    (torch.bfloat16, 162, 256, 384, False, 0, "sm90"),
+    (torch.float32, 512, 256, 384, False, 0, "fp32"),
+    (torch.bfloat16, 16, 100, 96, False, 0, "mma_sync"),   # K % 8
+    (torch.bfloat16, 16, 128, 92, False, 0, "mma_sync"),   # N % 8
+    (torch.bfloat16, 16, 128, 96, True, 0, "mma_sync"),    # a unit k stride
+    (torch.bfloat16, 16, 128, 96, False, 1, "mma_sync"),   # x off 16 bytes
+    (torch.bfloat16, 16, 128, 96, False, 2, "mma_sync"),   # w3 off 16 bytes
+])
+def test_swiglu_up_design_rule(dtype, M, K, N, view, offset, want):
+    """``_swiglu_up_design``: dtype, row count, shape and TMA
+    addressability only (w1 and w3 share their strides)."""
+    E = 2
+    x = torch.zeros(1 + M * K, dtype=dtype)[1:].view(M, K) if offset == 1 \
+        else torch.zeros(M, K, dtype=dtype)
+    if view:
+        w1 = torch.zeros(E, N, K, dtype=dtype).transpose(1, 2)
+    else:
+        w1 = torch.zeros(E, K, N, dtype=dtype)
+    w3 = (torch.zeros(1 + E * K * N, dtype=dtype)[1:].view(E, K, N)
+          if offset == 2 else torch.zeros_like(w1))
+    assert gm._swiglu_up_design(x, w1, w3) == want
+
+
+def test_swiglu_up_design_rule_row_threshold(monkeypatch):
+    w = _bf16(8, 256, 384)
+    monkeypatch.setattr(gm, "SWIGLU_UP_SM90_MIN_ROWS", 32)
+    assert gm._swiglu_up_design(_bf16(16, 256), w, w) == "mma_sync"
+    assert gm._swiglu_up_design(_bf16(32, 256), w, w) == "sm90"
+    assert gm._swiglu_up_design(_bf16(512, 256), w, w) == "sm90"
+    assert gm._swiglu_up_design(torch.zeros(0, 256, dtype=torch.bfloat16),
+                                w, w) == "mma_sync"
+
+
+def test_swiglu_up_launch_refuses_an_unknown_design():
+    """A design name grouped_swiglu_up's launcher does not know raises
+    before anything launches (the C launcher refuses an unknown code
+    likewise: the card test)."""
+    w = _bf16(2, 64, 32)
+    gs = torch.tensor([2, 2], dtype=torch.int32)
+    gm.reset_launch_counts()
+    with pytest.raises(ValueError, match="unknown design"):
+        gm._launch("grouped_swiglu_up_launch", "grouped_swiglu_up",
+                   _bf16(4, 64), (w, w), gs, design="wgmma")
+    assert gm.LAUNCHES["grouped_swiglu_up"] == 0

@@ -194,3 +194,114 @@ def test_lists_cached_on_device_once():
         tbsa.block_sparse_attention(
             *map(torch.from_numpy, _qkv(T=64, H=2)),
             op.layout(64), 16)
+
+
+# ------------------------------------- the Hopper forward's rule and walk
+
+# (config, causal, T): the SparseSelfAttention cells (a) Fixed causal and
+# (b) BigBird at T=8192, block 64, and the per-head block-16 layout
+UNION_CASES = {
+    "a": (tsa.FixedSparsityConfig(num_heads=16, block=64, num_local_blocks=4,
+                                  num_global_blocks=1,
+                                  attention="unidirectional"), True, 8192),
+    "b": (tsa.BigBirdSparsityConfig(num_heads=16, block=64), False, 8192),
+    "block16": (tsa.BigBirdSparsityConfig(num_heads=16, block=16,
+                                          different_layout_per_head=True,
+                                          num_random_blocks=2), True, 2048),
+}
+
+
+@pytest.mark.parametrize("case", sorted(UNION_CASES))
+def test_union_lists_bitwise_numpy(case):
+    """The union walk (urows, ubits, ucnt) against a numpy construction
+    straight from the layout: per head and query-block pair, the key blocks
+    either row holds (after the causal cut), ascending, with bit 0 / bit 1
+    for the even / odd row."""
+    cfg, causal, T = UNION_CASES[case]
+    lay = cfg.make_layout(T)
+    n = T // cfg.block
+    if causal:
+        lay = lay & np.tril(np.ones((n, n), bool))[None]
+    lists = tbsa.lists_on(tbsa.layout_lists(lay, causal, n, n), "cpu")
+    H, n2 = lay.shape[0], (n + 1) // 2
+    assert tuple(lists["ucnt"].shape) == (H, n2)
+    for key in ("urows", "ubits", "ucnt", "uorder"):
+        assert lists[key].dtype == torch.int32, key
+    for h in range(H):
+        for p in range(n2):
+            even = lay[h, 2 * p]
+            odd = lay[h, 2 * p + 1] if 2 * p + 1 < n else np.zeros(n, bool)
+            ids = np.nonzero(even | odd)[0]
+            bits = even[ids].astype(np.int32) | (odd[ids].astype(np.int32)
+                                                 << 1)
+            c = int(lists["ucnt"][h, p])
+            assert c == len(ids), (h, p)
+            np.testing.assert_array_equal(lists["urows"][h, p, :c].numpy(),
+                                          ids)
+            np.testing.assert_array_equal(lists["ubits"][h, p, :c].numpy(),
+                                          bits)
+            assert not lists["urows"][h, p, c:].any()
+            assert not lists["ubits"][h, p, c:].any()
+
+
+@pytest.mark.parametrize("case", sorted(UNION_CASES))
+def test_union_item_order(case):
+    """uorder: every (head, pair) once, the longest union first, ties in
+    index order (a stable sort), so the persistent kernel starts the long
+    walks of every instance first and the short ones fill the tail."""
+    cfg, causal, T = UNION_CASES[case]
+    lists = tsa.SparseSelfAttention(cfg, causal=causal).lists(T, "cpu")
+    order = lists["uorder"].numpy()
+    cnt = lists["ucnt"].numpy().reshape(-1)
+    np.testing.assert_array_equal(np.sort(order), np.arange(cnt.size))
+    assert np.all(np.diff(cnt[order]) <= 0)
+    for c in np.unique(cnt):
+        same = order[cnt[order] == c]
+        assert np.all(np.diff(same) > 0), c
+    # the union never holds fewer blocks than either row, nor more than both
+    rows = lists["row_cnt"].numpy()
+    H, n = rows.shape
+    pad = np.zeros((H, 2 * ((n + 1) // 2)), rows.dtype)
+    pad[:, :n] = rows
+    pair = pad.reshape(H, -1, 2)
+    u = lists["ucnt"].numpy()
+    assert np.all(u >= pair.max(-1)) and np.all(u <= pair.sum(-1))
+
+
+@pytest.mark.parametrize("dtype,d,block,BH,offset,want", [
+    (torch.bfloat16, 64, 64, 64, 0, "sm90"),       # (a), (b): B=4, H=16
+    (torch.bfloat16, 128, 64, 64, 0, "sm90"),
+    (torch.bfloat16, 32, 64, 64, 0, "mma_sync"),   # d = 32
+    (torch.bfloat16, 64, 16, 64, 0, "mma_sync"),   # the block-16 cell
+    (torch.bfloat16, 64, 32, 64, 0, "mma_sync"),
+    (torch.bfloat16, 64, 128, 64, 0, "mma_sync"),
+    (torch.bfloat16, 64, 64, 40, 0, "mma_sync"),   # BH not a multiple of H
+    (torch.bfloat16, 64, 64, 64, 1, "mma_sync"),   # q off 16 bytes
+    (torch.float32, 64, 64, 64, 0, "fp32"),
+    (torch.float32, 32, 16, 64, 0, "fp32"),
+])
+def test_bsa_fwd_design_rule(dtype, d, block, BH, offset, want):
+    """``_bsa_fwd_design``: dtype, head dim, block, BH against the layout's
+    heads (16) and TMA addressability only."""
+    T = 4 * block
+    q = (torch.zeros(1 + BH * T * d, dtype=dtype)[1:].view(BH, T, d)
+         if offset else torch.zeros(BH, T, d, dtype=dtype))
+    k = torch.zeros(BH, T, d, dtype=dtype)
+    assert tbsa._bsa_fwd_design(q, k, k, block, heads=16) == want
+
+
+def test_bsa_launch_refuses_an_unknown_design():
+    """A design name bsa_launch does not know raises before anything
+    launches (the C launcher refuses an unknown code, and sm90 for a
+    backward pass: the card test)."""
+    cfg, causal, T = UNION_CASES["a"]
+    lists = tsa.SparseSelfAttention(cfg, causal=causal).lists(512, "cpu")
+    q = torch.zeros(16, 512, 64, dtype=torch.bfloat16)
+    o = torch.empty_like(q)
+    lse = torch.empty(16, 512)
+    tbsa.reset_launch_counts()
+    with pytest.raises(ValueError, match="unknown design"):
+        tbsa._launch(0, "bsa_forward", 64, True, lists, "wgmma", q=q, k=q,
+                     v=q, o=o, lse=lse)
+    assert tbsa.DESIGN_LAUNCHES["bsa_fwd"] == {"sm90": 0, "mma_sync": 0,
+                                               "fp32": 0}
