@@ -19,7 +19,8 @@ Phases (any failure raises and the script exits nonzero):
      wq_matmul_sm90_kernel<BITS, NR> for K7, the twelve
      wq_grouped_sm90_kernel<BITS, NR, SWIGLU, WIDE> for K9,
      grouped_swiglu_up_sm90_kernel<NR> for K8's up chain, NR = 16, 80 and
-     128, and bsa_fwd_sm90_kernel<D> for K11's forward) is there, holds
+     128, and bsa_fwd_sm90_kernel<D>, bsa_dq_sm90_kernel<D> and
+     bsa_dkv_sm90_kernel<D> for K11's three passes) is there, holds
      HGMMA (wgmma) and UTMALDG (TMA loads) and spills nothing (ptxas);
      their registers logged.
   2. kernels: each Hopper kernel against its plain PyTorch version on the
@@ -184,13 +185,16 @@ Phases (any failure raises and the script exits nonzero):
      unidirectional) causal and (b) BigBirdSparsityConfig(block 64) at
      T=8192, and block 16 at T=2048, against their plain versions in fp32;
      fp32 at every block size at 1e-4; controls (the forward on its design
-     with a row list short by its last id, dk/dv from the neighbour head's
-     column lists) that must fail; rows with no present block exactly 0;
-     bitwise repeats; the forward on the design _bsa_fwd_design picks
-     (sm90 at block 64: (a), (b); mma_sync at block 16; counted), the union
-     walk's extra block pairs logged; timed beside their bounds, plain
-     versions, SDPA on the dense causal problem and the masked-dense op at
-     T=2048, the forward's two bf16 designs with their launches queued.
+     with a row list short by its last id; the sm90 dq and dk/dv with one
+     row / column list short by its last entry, held on that block's rows;
+     dk/dv from the neighbour head's column lists) that must fail; rows
+     with no present block and key blocks no query block attends exactly
+     0; bitwise repeats; every pass on the design _bsa_fwd_design /
+     _bsa_bwd_design picks (sm90 at block 64: (a), (b); mma_sync at block
+     16; counted), the union walk's extra block pairs and the split walk's
+     idle half-steps logged; timed beside their bounds, plain versions,
+     SDPA on the dense causal problem and the masked-dense op at T=2048,
+     each pass's two bf16 designs with their launches queued.
  23. K2-qmajor / K11 parity: a small fp32 GPT-2 with flash_bwd_qmajor on
      and off gives the same loss and gradients (save_flash and
      nothing_saveable); SparseSelfAttention through the kernels equals the
@@ -199,7 +203,8 @@ Phases (any failure raises and the script exits nonzero):
      flash forwards, 24 query-major and 0 k-major backwards and 2 fused CE
      a step, beside phase 7's step); SparseSelfAttention (a) and (b) at
      B=4, T=8192, 10 forward + backward calls each, no host sync in a
-     call, one launch of each K11 kernel a call (every forward on sm90),
+     call, one launch of each K11 kernel a call (every forward, dq and
+     dk/dv on sm90),
      ms a call and peak memory; every bf16 K1 / K2-qmajor / K3 launch of
      the GPT-2 slice on sm90.
  25. K10 (``flash_block_fwd``, the ring's chunk-pair step with carried
@@ -266,7 +271,7 @@ K3 / K6 launch to the sm90 design (the wrappers' DESIGN_LAUNCHES); the
 serving slices count K4's launches by design (split / single), the
 Mixtral slice K8's gmm (all sm90) and swiglu_up, the Llama int4 slice
 K7's (phase 16), phases 27 and 29 K10's and K2's (all sm90), phase 24
-K11's forward (all sm90).
+K11's three passes (all sm90).
 Then one JSON line of per-kernel numbers (launches summed over the main
 paths that ran each kernel, and per path; the rows with more than one
 design with the designs their main-path launches went to, the sm90 rows
@@ -562,9 +567,11 @@ SM90_DESIGNS = {
     # K8's SwiGLU up chain: grouped_swiglu_up_sm90_kernel<row tile>
     "grouped_swiglu_up": ("grouped_matmul", tuple(
         f"grouped_swiglu_up_sm90_kernelILi{n}E" for n in (16, 80, 128))),
-    # K11's forward: bsa_fwd_sm90_kernel<D>
-    "bsa_fwd": ("block_sparse_attention", tuple(
-        f"bsa_fwd_sm90_kernelILi{d}E" for d in (64, 128)))}
+    # K11: bsa_fwd_sm90_kernel<D>, bsa_dq_sm90_kernel<D>,
+    # bsa_dkv_sm90_kernel<D>
+    **{name: ("block_sparse_attention", tuple(
+        f"{name}_sm90_kernelILi{d}E" for d in (64, 128)))
+       for name in ("bsa_fwd", "bsa_dq", "bsa_dkv")}}
 # library -> the sm90 kernel symbols it must hold
 SM90_KERNELS = {}
 for _lib, _syms in SM90_DESIGNS.values():
@@ -3787,16 +3794,79 @@ def union_waste(lists):
     return (2 * int(lists["ucnt"].sum().item()) - cnt) / max(1, cnt)
 
 
+def split_idle(lists):
+    """The Hopper K11 backward's idle half-steps: its two consumers take the
+    entries of one list in turns, two a stage, so a list of c entries runs
+    2 ceil(c / 2) half-steps, c % 2 of them idle; the idle share of all
+    half-steps over the row lists (dq) and the column lists (dk/dv)."""
+    out = {}
+    for name, key in (("bsa_dq", "row_cnt"), ("bsa_dkv", "col_cnt")):
+        c = lists[key].long()
+        out[name] = (c % 2).sum().item() / max(1, (2 * ((c + 1) // 2)).sum()
+                                               .item())
+    return out
+
+
+def bsa_cut_lists(lists, key):
+    """Host copies of the four lists with head 0's shortest ``key`` list
+    ("row" or "col") of at least two entries short by its last entry, and
+    that list's block."""
+    host = {k: lists[k].cpu().numpy().copy()
+            for k in ("rows", "row_cnt", "cols", "col_cnt")}
+    cnt = host[f"{key}_cnt"][0]
+    blk = int(np.argmin(np.where(cnt >= 2, cnt, np.iinfo(np.int32).max)))
+    host[f"{key}_cnt"][0, blk] -= 1
+    return host, blk
+
+
+def bsa_bwd_controls(bsa, q, k, v, o, lse, delta, do, lists, causal, refs):
+    """The sm90 K11 backward's controls: dk/dv with head 0's shortest column
+    list (of at least two entries) short by its last entry, and dq with
+    such a row list short, held by the bf16 gradient check on the cut
+    block's rows of head 0's instances (``refs``: dq, dk, dv from the
+    plain versions in fp32 on the whole lists), which the whole lists pass
+    there and the cut ones must fail. Returns the reasons they fail."""
+    H = lists["rows"].shape[0]
+
+    def block_rows(x, b):            # (instances of head 0, 1, 64, d)
+        return x[0::H, None, b * 64:(b + 1) * 64]
+
+    whole = ((bsa.bsa_dq(q, k, v, o, lse, do, lists, 64, causal,
+                         design="sm90")[0],)
+             + bsa.bsa_dkv(q, k, v, lse, delta, do, lists, 64, causal,
+                           design="sm90"))
+    cut_c, j = bsa_cut_lists(lists, "col")
+    cut_r, i = bsa_cut_lists(lists, "row")
+    cut = ((bsa.bsa_dq(q, k, v, o, lse, do, bsa.lists_on(cut_r, "cuda"), 64,
+                       causal, design="sm90")[0],)
+           + bsa.bsa_dkv(q, k, v, lse, delta, do,
+                         bsa.lists_on(cut_c, "cuda"), 64, causal,
+                         design="sm90"))
+    whys = {}
+    for name, blk, a, b, ref in zip(("dq", "dk", "dv"), (i, j, j), whole,
+                                    cut, refs):
+        why = bf16_grad_mismatch(block_rows(a, blk), block_rows(ref, blk))
+        assert why is None, f"{name} on the whole lists, block {blk}: {why}"
+        why = bf16_grad_mismatch(block_rows(b, blk), block_rows(ref, blk))
+        assert why is not None, \
+            f"{name} with block {blk}'s list short by one entry passed"
+        whys[name] = f"block {blk}: {why}"
+    return whys
+
+
 def phase_bsa_kernels(bsa, seed=0):
     """K11 (bsa_fwd, bsa_dq, bsa_dkv) at GPT-2 350M's attention widths (H=16,
     d=64, bf16, B=4): (a) Fixed causal and (b) BigBird at T=8192, block 64,
     and block 16 at T=2048, against their plain versions run in fp32 on the
-    same inputs; fp32 cases at every block size at 1e-4; controls (one
-    row's list short by its last id; dk/dv from the neighbour head's
-    column lists) that must fail; rows with no present block exactly 0;
-    bitwise repeats; (a) and (b) timed beside their bounds, their plain
-    versions and SDPA on the dense causal problem at the same shape, and
-    the masked-dense op beside the kernels at T=2048."""
+    same inputs; fp32 cases at every block size at 1e-4; controls (the
+    forward with one row's list short by its last id; the sm90 dq and
+    dk/dv with one row / column list short by its last entry; dk/dv from
+    the neighbour head's column lists) that must fail; rows with no
+    present block exactly 0; bitwise repeats; each pass on the design its
+    rule picks (counted); (a) and (b) timed beside their bounds, their
+    plain versions, both bf16 designs of every pass (launches queued) and
+    SDPA on the dense causal problem at the same shape, and the
+    masked-dense op beside the kernels at T=2048."""
     from deepspeed_tpu_torch.ops.sparse_attention import (
         BigBirdSparsityConfig, SparseSelfAttention, sparse_attention)
     g = torch.Generator(device="cuda")
@@ -3835,32 +3905,43 @@ def phase_bsa_kernels(bsa, seed=0):
                 torch.testing.assert_close(a, r, **FP32_TOL)
     log(f"K11: fp32 cases ok (blocks {bsa.BLOCKS}, causal and not)")
 
-    # ---- rows with no present block: o, dq exactly 0
+    # ---- rows with no present block: o, dq exactly 0; key blocks no
+    # query block attends: dk, dv exactly 0 (every pass on sm90)
     lay = bsa_config("fixed")[0].make_layout(2048).copy()
     lay[:, 5] = False
     lay[:, 9] = False
+    lay[:, :, 12] = False
     lists = bsa.lists_on(bsa.layout_lists(lay, True, 32, 32), "cuda")
     q, k, v, do = (randn((64, 2048, 64)) for _ in range(4))
-    o, lse, dq, _, _, _ = run(q, k, v, do, lists, 64, True)
+    bsa.reset_launch_counts()
+    o, lse, dq, _, dk, dv = run(q, k, v, do, lists, 64, True)
+    assert all(by["sm90"] == 1 for by in bsa.DESIGN_LAUNCHES.values()), \
+        bsa.DESIGN_LAUNCHES
     for rows in (slice(320, 384), slice(576, 640)):
         assert torch.count_nonzero(o[:, rows]) == 0, "masked row o != 0"
         assert torch.count_nonzero(dq[:, rows]) == 0, "masked row dq != 0"
         assert bool((lse[:, rows] == bsa.NEG_INF).all())
-    log("K11: rows with no present block give o = 0, dq = 0, lse = -1e30")
+    for x in (dk, dv):
+        assert torch.count_nonzero(x[:, 768:832]) == 0, "empty column != 0"
+    log("K11: rows with no present block give o = 0, dq = 0, lse = -1e30; "
+        "a key block with none gives dk = dv = 0")
 
-    rows_out, err, rel, waste = {}, {}, {}, {}
+    rows_out, err, rel, waste, idle = {}, {}, {}, {}, {}
     B, H, d = 4, 16, 64
     for kind in ("fixed", "bigbird", "block16"):
         cfg, causal, T = bsa_config(kind)
         blk = cfg.block
         lists = SparseSelfAttention(cfg, causal=causal).lists(T, "cuda")
         waste[kind] = union_waste(lists)
+        idle[kind] = split_idle(lists)
         q, k, v, do = (randn((B * H, T, d)) for _ in range(4))
         q = q * 0.125                      # the softmax scale, in bf16
         # the forward's design by its rule: sm90 at block 64, mma_sync at 16
         design = bsa._bsa_fwd_design(q, k, v, blk, H)
-        assert design == ("mma_sync" if kind == "block16" else "sm90"), \
-            (kind, design)
+        bwd_design = bsa._bsa_bwd_design(q, k, v, do, blk, H)
+        assert design == bwd_design == (
+            "mma_sync" if kind == "block16" else "sm90"), \
+            (kind, design, bwd_design)
         bsa.reset_launch_counts()
         got = run(q, k, v, do, lists, blk, causal)
         o, lse, dq, delta, dk, dv = got
@@ -3887,6 +3968,16 @@ def phase_bsa_kernels(bsa, seed=0):
             f"K11 {kind} is not bitwise repeatable"
         assert bsa.DESIGN_LAUNCHES["bsa_fwd"][design] == 2, \
             (kind, bsa.DESIGN_LAUNCHES)
+        for name in ("bsa_dq", "bsa_dkv"):
+            assert bsa.DESIGN_LAUNCHES[name][bwd_design] == 2 == \
+                bsa.LAUNCHES[name], (kind, bsa.DESIGN_LAUNCHES)
+        if bwd_design == "sm90":
+            whys = bsa_bwd_controls(bsa, q, k, v, o, lse, delta, do, lists,
+                                    causal, (rdq, rdk, rdv))
+            for name, why in whys.items():
+                log(f"control: {kind}, the sm90 {name} with one "
+                    f"{'row' if name == 'dq' else 'column'} list short by "
+                    f"its last entry fails ({why})")
         # control: the forward (on its design) with head 0's last query
         # block's list short by its last key block (the union walk rebuilt
         # from the short lists)
@@ -3915,21 +4006,26 @@ def phase_bsa_kernels(bsa, seed=0):
         pairs, bounds = bsa_bounds(lists, B, blk, d, T)
         log(f"K11 {kind}: T={T} block {blk} causal={causal}, {pairs} block "
             f"pairs ({pairs / (B * H):.0f} a head), forward on {design} "
-            f"(the union walk's extra pairs {100 * waste[kind]:.1f} %), max "
-            f"|err| "
+            f"(the union walk's extra pairs {100 * waste[kind]:.1f} %), "
+            f"backward on {bwd_design} (the split walk's idle half-steps "
+            f"dq {100 * idle[kind]['bsa_dq']:.1f} %, dk/dv "
+            f"{100 * idle[kind]['bsa_dkv']:.1f} %), max |err| "
             + ", ".join(f"{n_} {x:.3g}" for n_, x in e.items())
             + "; worst relative error norm "
             + ", ".join(f"{n_} {x:.3g}" for n_, x in r.items()))
         if kind != "block16":
-            # the forward's designs with their launches queued
-            fwd_mma_ms = time_queued(lambda: bsa.bsa_forward(
-                q, k, v, lists, blk, causal, design="mma_sync"), 20)[0]
-            t = {"bsa_fwd": time_queued(lambda: bsa.bsa_forward(
-                     q, k, v, lists, blk, causal), 20)[0],
-                 "bsa_dq": time_ms(lambda: bsa.bsa_dq(
-                     q, k, v, o, lse, do, lists, blk, causal), 10),
-                 "bsa_dkv": time_ms(lambda: bsa.bsa_dkv(
-                     q, k, v, lse, delta, do, lists, blk, causal), 10)}
+            # each pass on both bf16 designs with their launches queued
+            calls = {
+                "bsa_fwd": lambda dz: bsa.bsa_forward(
+                    q, k, v, lists, blk, causal, design=dz),
+                "bsa_dq": lambda dz: bsa.bsa_dq(
+                    q, k, v, o, lse, do, lists, blk, causal, design=dz),
+                "bsa_dkv": lambda dz: bsa.bsa_dkv(
+                    q, k, v, lse, delta, do, lists, blk, causal, design=dz)}
+            mma_ms = {name: time_queued(lambda: fn("mma_sync"), 20)[0]
+                      for name, fn in calls.items()}
+            t = {name: time_queued(lambda: fn("sm90"), 20)[0]
+                 for name, fn in calls.items()}
             pt = {"bsa_fwd": time_ms(lambda: bsa.bsa_forward_reference(
                       q, k, v, lists, blk, causal), 2),
                   "bsa_dq": time_ms(lambda: bsa.bsa_dq_reference(
@@ -3939,10 +4035,11 @@ def phase_bsa_kernels(bsa, seed=0):
             for name in t:
                 rows_out.setdefault(name, {})[kind] = dict(
                     ms=t[name], plain_ms=pt[name], bound=bounds[name],
-                    max_abs_err=e[name], rel_norm=r[name], pairs=pairs)
-            rows_out["bsa_fwd"][kind].update(
-                design=design, mma_sync_ms=fwd_mma_ms,
-                union_waste=waste[kind])
+                    max_abs_err=e[name], rel_norm=r[name], pairs=pairs,
+                    design="sm90", mma_sync_ms=mma_ms[name])
+            rows_out["bsa_fwd"][kind].update(union_waste=waste[kind])
+            for name in ("bsa_dq", "bsa_dkv"):
+                rows_out[name][kind].update(split_idle=idle[kind][name])
         del got, refs, again, q, k, v, do, o, lse, dq, delta, dk, dv
         torch.cuda.empty_cache()
 
@@ -3985,13 +4082,15 @@ def phase_bsa_kernels(bsa, seed=0):
                                for k_, v_ in by["bigbird"].items()},
                    "masked_dense_fwd_ms_T2048": dense_ms,
                    "kernel_fwd_ms_T2048": kern_ms})
+        out[name].update(mma_sync_ms=a["mma_sync_ms"])
         if name == "bsa_fwd":
-            out[name].update(mma_sync_ms=a["mma_sync_ms"],
-                             union_waste=waste)
+            out[name].update(union_waste=waste)
+        else:
+            out[name].update(split_idle={k_: v_[name]
+                                         for k_, v_ in idle.items()})
         b = by["bigbird"]
         designs = (f"; sm90 by the rule, mma_sync (a) {a['mma_sync_ms']:.4f}"
-                   f", (b) {b['mma_sync_ms']:.4f}"
-                   if name == "bsa_fwd" else "")
+                   f", (b) {b['mma_sync_ms']:.4f}")
         log(f"{name}: (a) {a['ms']:.4f} ms (plain {a['plain_ms']:.4f}, "
             f"bound {a['bound'][0]:.4f} by {a['bound'][1]}); (b) "
             f"{b['ms']:.4f} ms (plain {b['plain_ms']:.4f}, bound "
@@ -4143,10 +4242,11 @@ def phase_bsa_slice(kind, seed=0, calls=10):
             "flash_fwd": 0, "flash_bwd": 0, "flash_bwd_qmajor": 0,
             "flash_block_fwd": 0}
     assert launches == want, (launches, want)
-    # every bf16 block-64 forward on sm90
-    fwd_by = dict(bsa.DESIGN_LAUNCHES["bsa_fwd"])
-    assert fwd_by == {"sm90": calls, "mma_sync": 0, "fp32": 0}, fwd_by
-    count_designs("bsa_fwd", fwd_by)
+    # every bf16 block-64 forward, dq and dk/dv on sm90
+    by_design = {name: dict(by) for name, by in bsa.DESIGN_LAUNCHES.items()}
+    for name, by in by_design.items():
+        assert by == {"sm90": calls, "mma_sync": 0, "fp32": 0}, (name, by)
+        count_designs(name, by)
     peak = torch.cuda.max_memory_allocated() / 1e9
     assert o.shape == q.shape and all(torch.isfinite(x).all()
                                       for x in (o,) + grads)
@@ -4161,7 +4261,7 @@ def phase_bsa_slice(kind, seed=0, calls=10):
     stats = dict(calls=calls, call_s=times,
                  call_ms_median_after_first=float(np.median(times[1:])) * 1e3,
                  density=op.density(T), launches=launches,
-                 bsa_fwd_designs=fwd_by,
+                 bsa_designs=by_design,
                  max_memory_allocated_gb=peak)
     BSA_STATS[kind] = stats
     log(f"SparseSelfAttention {kind} slice " + json.dumps(stats))
@@ -5384,7 +5484,7 @@ def main(argv=None):
                       "dscale_dbias_rel_norm", "rel_norm", "kmajor_ms",
                       "causal_ms", "expression_ms", "eager_ms", "gqa",
                       "splits", "mma_sync_ms", "sm90_ms",
-                      "causal_mma_sync_ms", "union_waste",
+                      "causal_mma_sync_ms", "union_waste", "split_idle",
                       "causal_library_ms", "causal_bound_ms", "row_tile",
                       "alt_splits", "alt_splits_ms", "int8pack_ms",
                       "bf16_matmul_ms", "delta_ms", "split_ms",

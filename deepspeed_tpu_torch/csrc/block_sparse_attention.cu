@@ -18,7 +18,8 @@
 // BLK) 16, 32, 64, 128; head dims 32, 64, 128; float or bf16.
 //
 // One CTA of BLK/16 warps (16 rows each, the mma m16 tile) per (q-block,
-// b*h) for the forward and dq, and per (k-block, b*h) for dk/dv:
+// b*h) for the forward and dq, and per (k-block, b*h) for dk/dv (the
+// mma_sync and fp32 designs):
 //   bsa_fwd_kernel  streaming softmax (m, l, acc in fp32 registers) over the
 //                   row's ids, p rounded to v's dtype before P.V. A row with
 //                   no present block writes o = 0 and lse = -1e30.
@@ -30,16 +31,23 @@
 // Each output is written once by one CTA: no atomics, a run repeats
 // bitwise. causal masks key > query inside a block (blocks above the
 // diagonal never reach the lists). Bound: operations (per present block
-// pair 4*BLK^2*d flops forward, 10*BLK^2*d backward) at BLK = 64; the
-// design keeps scores on chip and feeds mma.sync from shared tiles loaded
+// pair 4*BLK^2*d flops forward, 6 dq and 8 dk/dv) at BLK = 64; these
+// designs keep scores on chip and feed mma.sync from shared tiles loaded
 // synchronously.
 //
-// The forward has three designs (the wrapper's _bsa_fwd_design picks one
-// per call, bsa_launch's design code): sm90 (bf16 at D = 64 or 128, block
-// 64: bsa_fwd_sm90_kernel, K1's Hopper forward on TMA + wgmma driven by
-// the union of two query blocks' lists, below), mma_sync (other bf16:
-// bsa_fwd_kernel<bf16>) and fp32 (bsa_fwd_kernel<float>). The backward
-// kernels have the last two.
+// Each pass has three designs (the wrapper's _bsa_fwd_design /
+// _bsa_bwd_design picks one per call, bsa_launch's design code): sm90
+// (bf16 at D = 64 or 128, block 64, on TMA + wgmma, below:
+// bsa_fwd_sm90_kernel walks the union of two query blocks' lists;
+// bsa_dq_sm90_kernel and bsa_dkv_sm90_kernel walk one block's list split
+// between two consumer warpgroups, entry by entry, and merge their fp32
+// partials in fixed order), mma_sync (other bf16: the kernels above in
+// bf16) and fp32 (their float instances). The split walk forms no block
+// pair twice: its only idle work is the missing half of an odd list's last
+// stage (its idle half-steps: (a) 2.7 % of the dq and of the dk/dv
+// half-steps, (b) 13.4 % / 7.3 %), where the union walk of adjacent
+// blocks would form 88.9 % extra column pairs at (a) (a global column of
+// up to 125 entries beside neighbours of 2-4).
 
 #include "attention_tiles.cuh"
 #include "sm90_attention.cuh"
@@ -68,6 +76,10 @@ struct BsaArgs {
   const int* uorder;   // (H * n2,) the (h, p) entries, longest union first
   int* next_item;      // zero at the launch
   int max_u;
+  // the Hopper backward's item orders: the (h, block) entries h * n + i,
+  // row lists (dq) / column lists (dk/dv) longest first
+  const int* rorder;   // (H * n,)
+  const int* corder;   // (H * n,)
 };
 
 namespace {
@@ -788,6 +800,497 @@ cudaError_t fwd_sm90(const BsaArgs& a, cudaStream_t s) {
   return cudaErrorInvalidValue;
 }
 
+// ------------------------------------------------------ backward (Hopper)
+//
+// bsa_dkv_sm90_kernel<D> and bsa_dq_sm90_kernel<D> (bf16, D = 64 or 128,
+// block 64): one skeleton, bsa_bwd_sm90<D, DQ>, on K2's Hopper backward
+// (flash_attention.cu flash_dkdv_sm90_kernel / flash_dq_sm90_kernel) with
+// a list-driven producer. An item is (b*h, one 64-row block: a key block
+// for dk/dv, a query block for dq) and its list (cols[h, j] / rows[h, i]);
+// items run persistently from a counter in device memory in the order
+// corder / rorder (the lists longest first, each head's BH / H instances
+// side by side; lists_on builds them with the lists), so the long global
+// columns of a Fixed layout start first. Warp 0 of the producer warpgroup
+// TMA-loads the item's resident pair once (dk/dv: K and V; dq: q and do),
+// pages the list through its lanes' registers 32 entries at a time and
+// streams two entries a stage through an mbarrier ring (dk/dv: each
+// entry's q and do boxes plus its 64 rows of lse and delta by two 256-byte
+// bulk copies, so the producer never waits on a load; dq: each entry's K
+// and V).
+// The split walk: consumer warpgroup c takes entry c of every stage (list
+// entries c, c + 2, ...), so no block pair is formed twice and the only
+// idle work is the missing half of an odd list's last stage (skipped: the
+// consumer waits for the stage and releases it). Per entry a consumer
+// forms S^T = K Q^T, dP^T = V dO^T (dk/dv) or S = Q K^T, dP = dO V^T (dq)
+// by SS wgmma m64n64k16 (both K-major), p and ds by sm90::bwd_p_ds (only
+// the causal diagonal entry builds the element mask), rounds them to bf16
+// in pairs straight into the A fragments of dV += P^T dO, dK += dS^T Q
+// (dk/dv) or dQ += dS K (dq) by RS wgmma with B MN-major. Each consumer
+// keeps a 64 x D fp32 partial of each output; at the item's end consumer 1
+// hands its partials through one fp32 buffer in shared memory (dK, then
+// dV), consumer 0 adds them to its own in that fixed order, rounds once
+// and TMA-stores the block from the same buffer as the bf16 staging. No
+// atomics: a run repeats bitwise. An empty list writes zeros. dq's
+// prologue also forms delta = rowsum(do * o) in fp32 for its 64 rows (do
+// from the resident tile, o by 16-byte loads; four threads a row) and
+// writes it to a.delta for the dk/dv launch that follows on the stream.
+// Shared memory: the resident pair, the ring (4 stages at D = 64, 2 at D =
+// 128: 64 KB a stage there), the 64 x D fp32 merge buffer, the stats:
+// 193 KB at D = 128, 165 KB at D = 64.
+// Bound: operations, 6 (dq: S, dP, dQ) and 8 (dk/dv: S, dP, dV, dK)
+// 64 * 64 * d flops a present block pair (chip_smoke.py bsa_bounds).
+
+template <int D>
+struct B90Bwd {
+  static constexpr int HALVES = D / 64;
+  static constexpr int TILE = HALVES * sm90::BOX_BYTES;  // one operand's 64-row block
+  static constexpr int ENTRY = 2 * TILE;                 // a list entry's two blocks
+  static constexpr int STAGES = D == 64 ? 4 : 2;
+  static constexpr int STAGE = 2 * ENTRY;                // two entries a stage
+  static constexpr int ACC = D / 2;                      // a consumer's partial, per thread
+  // per stage and entry: lse and delta of its 64 queries (dk/dv);
+  // dq uses the first 128 floats for its delta, by item parity
+  static constexpr int STATS = STAGES * 2 * 128;
+  // the resident pair, the ring, the merge buffer (64 x D fp32 = the bf16
+  // staging of two 64 x D blocks), the stats, barriers, the item slot
+  static constexpr int SMEM =
+      1024 + 2 * TILE + STAGES * STAGE + 64 * D * 4 + STATS * 4 + (2 * STAGES + 2) * 8 + 16;
+};
+static_assert(B90Bwd<64>::SMEM <= 232448 && B90Bwd<128>::SMEM <= 232448, "bsa backward smem");
+
+// Item w of BH x n: its (head, block) entry from the order, its instance bh
+// of that head, and the block's list.
+struct B90Walk {
+  int bh, h, blk, cnt;
+  const int* ids;
+};
+
+__device__ __forceinline__ B90Walk b90_walk(const BsaArgs& a, int w, int n, const int* order,
+                                            const int* counts, const int* lists, int max_len) {
+  const int reps = a.BH / a.H;
+  const int hb = order[w / reps];
+  B90Walk it;
+  it.h = hb / n;
+  it.blk = hb - it.h * n;
+  it.bh = (w - (w / reps) * reps) * a.H + it.h;
+  it.cnt = counts[hb];
+  it.ids = lists + (long long)hb * max_len;
+  return it;
+}
+
+// Named barriers of the consumers: A (consumer 0 -> 1: the merge buffer
+// may be written), B (consumer 1 -> 0: a partial is in it), consumer 0's
+// own, and dq's delta (both consumers).
+constexpr int B90_BAR_A = 1, B90_BAR_B = 2, B90_BAR_C0 = 3, B90_BAR_DELTA = 4;
+
+__device__ __forceinline__ void bar_sync256(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void bar_arrive256(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+
+// One bulk copy of ``bytes`` (a multiple of 16, both addresses 16-byte
+// aligned) from global to shared memory, completing on ``bar``.
+__device__ __forceinline__ void b90_bulk_load(void* dst, const void* src, uint32_t bytes,
+                                              uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          sm90::smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(sm90::smem_u32(bar))
+      : "memory");
+}
+
+template <int D, bool DQ>
+__device__ __forceinline__ void bsa_bwd_sm90(const CUtensorMap& mq, const CUtensorMap& mk,
+                                             const CUtensorMap& mv, const CUtensorMap& mdo,
+                                             const CUtensorMap& mo0, const CUtensorMap& mo1,
+                                             const BsaArgs& a) {
+  using L = B90Bwd<D>;
+  constexpr int HALVES = L::HALVES, TILE = L::TILE, ENTRY = L::ENTRY, STAGES = L::STAGES;
+  constexpr int ACC = L::ACC, BOX = sm90::BOX_BYTES;
+  unsigned char* base = sm90::sm90_smem + ((1024 - (sm90::smem_u32(sm90::sm90_smem) & 1023)) & 1023);
+  unsigned char* res = base;                  // [2][TILE]: K, V (dk/dv); q, do (dq)
+  unsigned char* ring = res + 2 * TILE;       // [STAGES][2 entries][2][TILE]: q, do / K, V
+  unsigned char* mbuf = ring + STAGES * L::STAGE;  // 64 x D fp32; then the bf16 staging
+  float* merge = reinterpret_cast<float*>(mbuf);
+  float* stats = merge + 64 * D;              // [STAGES][2 entries][lse 64 | delta 64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(stats + L::STATS);
+  uint64_t* empty = full + STAGES;
+  uint64_t* rfull = empty + STAGES;
+  uint64_t* rempty = rfull + 1;
+  volatile int* item_slot = reinterpret_cast<volatile int*>(rempty + 1);
+
+  const int n = a.T / 64;
+  const int items = a.BH * n;
+  const int* order = DQ ? a.rorder : a.corder;
+  const int* counts = DQ ? a.row_cnt : a.col_cnt;
+  const int* lists = DQ ? a.rows : a.cols;
+  const int max_len = DQ ? a.max_row : a.max_col;
+  const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 8);          // one arrive per consumer warp
+    }
+    sm90::mbar_init(rfull, 1);
+    sm90::mbar_init(rempty, 8);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (tid < 32) {
+      const int lane = tid;
+      const CUtensorMap* r0 = DQ ? &mq : &mk;  // the resident pair
+      const CUtensorMap* r1 = DQ ? &mdo : &mv;
+      const CUtensorMap* e0 = DQ ? &mk : &mq;  // each entry's pair
+      const CUtensorMap* e1 = DQ ? &mv : &mdo;
+      int stage = 0;
+      uint32_t phase = 0, rphase = 0;
+      for (;;) {
+        int w = 0;
+        if (lane == 0) w = atomicAdd(a.next_item, 1);
+        w = __shfl_sync(0xffffffffu, w, 0);
+        sm90::mbar_wait(rempty, rphase ^ 1);  // the last item's resident pair is read
+        if (lane == 0) *item_slot = w;
+        if (w >= items) {
+          if (lane == 0) sm90::mbar_arrive(rfull);
+          break;
+        }
+        const B90Walk it = b90_walk(a, w, n, order, counts, lists, max_len);
+        if (lane == 0) {
+          if (DQ || it.cnt > 0) {  // dq's prologue reads do even for an empty list
+            sm90::mbar_expect_tx(rfull, 2 * TILE);
+#pragma unroll
+            for (int hh = 0; hh < HALVES; ++hh) {
+              sm90::tma_load(res + hh * BOX, r0, rfull, 4, 64 * hh, it.blk * 64, 0, it.bh);
+              sm90::tma_load(res + TILE + hh * BOX, r1, rfull, 4, 64 * hh, it.blk * 64, 0, it.bh);
+            }
+          } else {
+            sm90::mbar_arrive(rfull);  // nothing to load: the block is written as zeros
+          }
+        }
+        rphase ^= 1;
+        int win = -1 << 30, ent = 0;
+        for (int t = 0; t < (it.cnt + 1) / 2; ++t) {
+          const int nb = min(2, it.cnt - 2 * t);  // an odd list's last stage holds one entry
+          int blk[2];
+#pragma unroll
+          for (int b = 0; b < 2; ++b) {
+            const int j = min(2 * t + b, it.cnt - 1);
+            if (j - win >= 32 || j < win) {  // warp-uniform: move the window
+              win = j;
+              ent = it.ids[min(win + lane, max_len - 1)];
+            }
+            blk[b] = __shfl_sync(0xffffffffu, ent, j - win);
+          }
+          sm90::mbar_wait(&empty[stage], phase ^ 1);
+          unsigned char* st = ring + stage * L::STAGE;
+          if (lane == 0) {
+            // dk/dv: each entry's lse and delta rows ride in the stage too
+            sm90::mbar_expect_tx(&full[stage], nb * (DQ ? ENTRY : ENTRY + 512));
+#pragma unroll
+            for (int b = 0; b < 2; ++b) {
+              if (b >= nb) break;
+#pragma unroll
+              for (int hh = 0; hh < HALVES; ++hh) {
+                sm90::tma_load(st + b * ENTRY + hh * BOX, e0, &full[stage], 4, 64 * hh, blk[b] * 64,
+                               0, it.bh);
+                sm90::tma_load(st + b * ENTRY + TILE + hh * BOX, e1, &full[stage], 4, 64 * hh,
+                               blk[b] * 64, 0, it.bh);
+              }
+              if constexpr (!DQ) {
+                const long long row = (long long)it.bh * a.T + blk[b] * 64;
+                float* ss = stats + stage * 256 + b * 128;
+                b90_bulk_load(ss, a.lse + row, 256, &full[stage]);
+                b90_bulk_load(ss + 64, a.delta + row, 256, &full[stage]);
+              }
+            }
+          }
+          __syncwarp();
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int cw = wg - 1, lane = tid & 31;
+    float acc0[ACC];              // dQ (dq) / dK (dk/dv)
+    float acc1[DQ ? 1 : ACC];     // dV (dk/dv)
+    float lse2[2], dl[2];         // dq: its two rows' lse log2(e) and delta
+    int stage = 0;
+    uint32_t phase = 0, rphase = 0, parity = 0;
+    for (;;) {
+      sm90::mbar_wait(rfull, rphase);
+      rphase ^= 1;
+      const int w = *item_slot;
+      if (w >= items) break;
+      const B90Walk it = b90_walk(a, w, n, order, counts, lists, max_len);
+      const int row0 = it.blk * 64;  // the item's first query (dq) / key (dk/dv)
+#pragma unroll
+      for (int x = 0; x < ACC; ++x) acc0[x] = 0.f;
+      if constexpr (!DQ) {
+#pragma unroll
+        for (int x = 0; x < ACC; ++x) acc1[x] = 0.f;
+      } else {
+        // delta = rowsum(do * o) in fp32: four threads a row, each D / 4
+        // columns (do from the resident tile's swizzled boxes, o by 16-byte
+        // loads), summed over the four lanes; written for the dk/dv pass
+        float* dls = stats + parity * 64;
+        parity ^= 1;
+        const int t = threadIdx.x - 128, row = t >> 2, part = t & 3;
+        const long long grow = (long long)it.bh * a.T + row0 + row;
+        const bf16* og = reinterpret_cast<const bf16*>(a.o) + grow * D;
+        const unsigned char* dos = res + TILE;
+        float sum = 0.f;
+#pragma unroll
+        for (int x = 0; x < D / 32; ++x) {
+          const int c = part * (D / 32) + x;  // the row's 16-byte chunk
+          const uint4 ov = *reinterpret_cast<const uint4*>(og + c * 8);
+          const uint4 dv =
+              *reinterpret_cast<const uint4*>(dos + (c >> 3) * BOX + row * 128 + (((c & 7) ^ (row & 7)) << 4));
+          const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+          const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 of = __bfloat1622float2(o2[e]), df = __bfloat1622float2(d2[e]);
+            sum = fmaf(df.x, of.x, sum);
+            sum = fmaf(df.y, of.y, sum);
+          }
+        }
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        if (part == 0) {
+          dls[row] = sum;
+          a.delta[grow] = sum;
+        }
+        bar_sync256(B90_BAR_DELTA);
+        const int r = sm90::frag_row(tid, 0);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          lse2[i] = a.lse[(long long)it.bh * a.T + row0 + r + 8 * i] * B90_LOG2E;
+          dl[i] = dls[r + 8 * i];
+        }
+      }
+      const unsigned char* ra = res;         // K (dk/dv) / q (dq)
+      const unsigned char* rb = res + TILE;  // V / do
+      for (int t = 0; t < (it.cnt + 1) / 2; ++t) {
+        const int e = 2 * t + cw;
+        sm90::mbar_wait(&full[stage], phase);
+        if (e < it.cnt) {
+          const int other = __ldg(it.ids + e);  // the entry's block
+          const unsigned char* ea = ring + stage * L::STAGE + cw * ENTRY;  // q / K
+          const unsigned char* eb = ea + TILE;                              // do / V
+          float s[32], dp[32];
+          sm90::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk) {  // S^T = K Q^T / S = Q K^T
+            const int off = (kk >> 2) * BOX + (kk & 3) * 32;
+            sm90::wgmma_nt<64>(s, sm90::smem_desc(ra + off, 16, 1024),
+                               sm90::smem_desc(ea + off, 16, 1024), kk > 0);
+          }
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk) {  // dP^T = V dO^T / dP = dO V^T
+            const int off = (kk >> 2) * BOX + (kk & 3) * 32;
+            sm90::wgmma_nt<64>(dp, sm90::smem_desc(rb + off, 16, 1024),
+                               sm90::smem_desc(eb + off, 16, 1024), kk > 0);
+          }
+          sm90::wgmma_commit();
+          sm90::wgmma_wait<0>();
+          sm90::fence_regs(s);
+          sm90::fence_regs(dp);
+          if (e + 2 >= it.cnt && lane == 0) sm90::mbar_arrive(rempty);  // resident pair read
+          // only the causal diagonal entry masks: key > query there
+          const bool diag = a.causal && other == it.blk;
+          uint32_t pa[DQ ? 1 : 16], da[16];  // round(p) (dk/dv), round(ds): RS A fragments
+          if constexpr (DQ) {
+            // rows: queries; columns: keys
+#pragma unroll
+            for (int nn = 0; nn < 8; ++nn)
+#pragma unroll
+              for (int x = 0; x < 4; ++x) {
+                const bool ok = !diag || sm90::frag_col(tid, nn, x) <= sm90::frag_row(tid, x);
+                sm90::bwd_p_ds(s[4 * nn + x], dp[4 * nn + x], lse2[x >> 1], dl[x >> 1], ok);
+              }
+          } else {
+            // rows: keys; columns: queries, whose lse and delta rows came
+            // with the stage
+            const float* ls = stats + stage * 256 + cw * 128;
+#pragma unroll
+            for (int nn = 0; nn < 8; ++nn) {
+              const int c = sm90::frag_col(tid, nn, 0);
+              const float2 l2 = make_float2(ls[c] * B90_LOG2E, ls[c + 1] * B90_LOG2E);
+              const float2 d2 = make_float2(ls[64 + c], ls[65 + c]);
+#pragma unroll
+              for (int x = 0; x < 4; ++x) {
+                const bool ok = !diag || sm90::frag_row(tid, x) <= c + (x & 1);
+                sm90::bwd_p_ds(s[4 * nn + x], dp[4 * nn + x], x & 1 ? l2.y : l2.x,
+                               x & 1 ? d2.y : d2.x, ok);
+              }
+            }
+            sm90::pack_frag<64>(s, pa);
+          }
+          sm90::pack_frag<64>(dp, da);
+          sm90::fence_regs(acc0);
+          if constexpr (!DQ) sm90::fence_regs(acc1);
+          sm90::wgmma_fence();
+          if constexpr (!DQ) {
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {  // dV += P^T dO
+              const uint32_t f[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3]};
+              sm90::wgmma_pv<D>(acc1, f, sm90::smem_desc(eb + kk * 2048, BOX, 1024));
+            }
+          }
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {  // dK += dS^T Q / dQ += dS K
+            const uint32_t f[4] = {da[4 * kk], da[4 * kk + 1], da[4 * kk + 2], da[4 * kk + 3]};
+            sm90::wgmma_pv<D>(acc0, f, sm90::smem_desc(ea + kk * 2048, BOX, 1024));
+          }
+          sm90::wgmma_commit();
+          sm90::wgmma_wait<0>();
+          sm90::fence_regs(acc0);
+          if constexpr (!DQ) {
+            sm90::fence_regs(acc1);
+            sm90::keep_regs(pa);
+          }
+          sm90::keep_regs(da);
+        }
+        if (lane == 0) sm90::mbar_arrive(&empty[stage]);
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      if (cw >= it.cnt && lane == 0) sm90::mbar_arrive(rempty);  // no entry of its own
+
+      // consumer 1's partials into consumer 0's (own + consumer 1's, dK then
+      // dV), one rounding, one TMA store of the block from the staging
+      const bool two = it.cnt >= 2;
+      if (cw == 1) {
+        if (two) {
+          bar_sync256(B90_BAR_A);
+#pragma unroll
+          for (int x = 0; x < ACC; ++x) merge[x * 128 + tid] = acc0[x];
+          bar_arrive256(B90_BAR_B);
+          if constexpr (!DQ) {
+            bar_sync256(B90_BAR_A);
+#pragma unroll
+            for (int x = 0; x < ACC; ++x) merge[x * 128 + tid] = acc1[x];
+            bar_arrive256(B90_BAR_B);
+          }
+        }
+      } else {
+        if (tid == 0) sm90::tma_store_wait_read();  // the last item's store has read the staging
+        if (two) {
+          bar_arrive256(B90_BAR_A);
+          bar_sync256(B90_BAR_B);
+#pragma unroll
+          for (int x = 0; x < ACC; ++x) acc0[x] += merge[x * 128 + tid];
+          if constexpr (!DQ) {
+            bar_arrive256(B90_BAR_A);
+            bar_sync256(B90_BAR_B);
+#pragma unroll
+            for (int x = 0; x < ACC; ++x) acc1[x] += merge[x * 128 + tid];
+          }
+        }
+        sm90::named_sync(B90_BAR_C0);  // the buffer is read (and the last store done with it)
+        sm90::stage_bf16<D>(acc0, mbuf, tid);
+        if constexpr (!DQ) sm90::stage_bf16<D>(acc1, mbuf + TILE, tid);
+        sm90::fence_proxy_async();
+        sm90::named_sync(B90_BAR_C0);
+        if (tid == 0) {
+#pragma unroll
+          for (int hh = 0; hh < HALVES; ++hh) {
+            sm90::tma_store_4d(&mo0, mbuf + hh * BOX, 64 * hh, row0, 0, it.bh);
+            if constexpr (!DQ) sm90::tma_store_4d(&mo1, mbuf + TILE + hh * BOX, 64 * hh, row0, 0, it.bh);
+          }
+          sm90::tma_store_commit();
+        }
+      }
+    }
+    if (cw == 0 && tid == 0) sm90::tma_store_wait_all();
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(384, 1)
+    bsa_dq_sm90_kernel(const __grid_constant__ CUtensorMap mq,
+                       const __grid_constant__ CUtensorMap mk,
+                       const __grid_constant__ CUtensorMap mv,
+                       const __grid_constant__ CUtensorMap mdo,
+                       const __grid_constant__ CUtensorMap mdq,
+                       const __grid_constant__ CUtensorMap unused, BsaArgs a) {
+  bsa_bwd_sm90<D, true>(mq, mk, mv, mdo, mdq, unused, a);
+}
+
+template <int D>
+__global__ void __launch_bounds__(384, 1)
+    bsa_dkv_sm90_kernel(const __grid_constant__ CUtensorMap mq,
+                        const __grid_constant__ CUtensorMap mk,
+                        const __grid_constant__ CUtensorMap mv,
+                        const __grid_constant__ CUtensorMap mdo,
+                        const __grid_constant__ CUtensorMap mdk,
+                        const __grid_constant__ CUtensorMap mdv, BsaArgs a) {
+  bsa_bwd_sm90<D, false>(mq, mk, mv, mdo, mdk, mdv, a);
+}
+
+// The Hopper backward pass ``which`` (1 = dq, 2 = dk/dv): maps over the
+// folded (BH, T, D) operands as (D, T, 1, BH) with one block's 64-row
+// boxes; a persistent grid of at most one CTA an SM over the BH * n items,
+// its work counter a.next_item (zero at the launch).
+template <int D, bool DQ>
+cudaError_t launch_bwd_sm90(const BsaArgs& a, cudaStream_t s) {
+  const long long st = (long long)a.T * D;
+  auto map = [&](CUtensorMap* m, const void* p) {
+    return sm90::make_bhtd_map(m, p, a.BH, 1, a.T, D, st, st, D, 64);
+  };
+  CUtensorMap mq, mk, mv, mdo, mo0, mo1;
+  cudaError_t err = map(&mq, a.q);
+  if (err == cudaSuccess) err = map(&mk, a.k);
+  if (err == cudaSuccess) err = map(&mv, a.v);
+  if (err == cudaSuccess) err = map(&mdo, a.dout);
+  if (err == cudaSuccess) err = map(&mo0, DQ ? a.dq : a.dk);
+  if (err == cudaSuccess) err = map(&mo1, DQ ? a.dq : a.dv);
+  if (err != cudaSuccess) return err;
+  auto kernel = DQ ? bsa_dq_sm90_kernel<D> : bsa_dkv_sm90_kernel<D>;
+  constexpr int smem = B90Bwd<D>::SMEM;
+  static bool smem_set = false;  // once: later calls may be captured in a graph
+  if (!smem_set) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    smem_set = true;
+  }
+  const long long items = (long long)a.BH * (a.T / 64);
+  if (items > 0x7fffffffLL) return cudaErrorInvalidValue;
+  kernel<<<sm90::persistent_grid((int)items), 384, smem, s>>>(mq, mk, mv, mdo, mo0, mo1, a);
+  return cudaGetLastError();
+}
+
+// bf16 q, k, v, do and the pass's outputs (BH, T, D) contiguous with
+// 16-byte aligned bases (dq also o: its 16-byte loads; dk/dv also lse and
+// delta: their bulk copies), D = 64 or 128, block 64, BH a multiple of H,
+// the pass's order and the work counter set.
+cudaError_t bwd_sm90(const BsaArgs& a, int which, cudaStream_t s) {
+  const bool dq = which == 1;
+  const void* out0 = dq ? a.dq : a.dk;
+  const void* out1 = dq ? a.o : a.dv;
+  if (which < 1 || which > 2 || a.block != 64 || a.BH % a.H != 0 ||
+      (dq ? a.rorder : a.corder) == nullptr || a.next_item == nullptr || a.lse == nullptr ||
+      a.delta == nullptr || out0 == nullptr || out1 == nullptr || (uintptr_t)a.lse % 16 ||
+      (uintptr_t)a.delta % 16 || (uintptr_t)a.q % 16 ||
+      (uintptr_t)a.k % 16 || (uintptr_t)a.v % 16 || (uintptr_t)a.dout % 16 ||
+      (uintptr_t)out0 % 16 || (uintptr_t)out1 % 16)
+    return cudaErrorInvalidValue;
+  if (a.D == 64) return dq ? launch_bwd_sm90<64, true>(a, s) : launch_bwd_sm90<64, false>(a, s);
+  if (a.D == 128) return dq ? launch_bwd_sm90<128, true>(a, s) : launch_bwd_sm90<128, false>(a, s);
+  return cudaErrorInvalidValue;
+}
+
 // ----------------------------------------------------------------- launch
 
 template <typename K>
@@ -842,16 +1345,17 @@ cudaError_t run_by_d(const BsaArgs& a, int which, cudaStream_t s) {
 }  // namespace
 
 // design: 0 = fp32 (the float instances), 1 = mma_sync (the bf16
-// instances), 2 = sm90 (the forward only: bsa_fwd_sm90_kernel, see
-// fwd_sm90); any other code, or 2 with a backward pass, is refused. which: 0
-// = forward, 1 = dq (writes delta), 2 = dk/dv (reads it). Returns a
+// instances), 2 = sm90 (bsa_fwd_sm90_kernel, see fwd_sm90;
+// bsa_dq_sm90_kernel / bsa_dkv_sm90_kernel, see bwd_sm90); any other code
+// is refused, and sm90 without its walk, order or work counter. which: 0 =
+// forward, 1 = dq (writes delta), 2 = dk/dv (reads it). Returns a
 // cudaError_t (0 = launched).
 extern "C" int bsa_launch(const BsaArgs* a, int design, int which, void* stream) {
   if (a == nullptr || a->BH <= 0 || a->H <= 0 || a->T <= 0 || a->block <= 0 ||
       a->T % a->block != 0 || a->BH > 65535)
     return cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (design == 2) return which == 0 ? fwd_sm90(*a, s) : cudaErrorInvalidValue;
+  if (design == 2) return which == 0 ? fwd_sm90(*a, s) : bwd_sm90(*a, which, s);
   if (design == 1) return run_by_d<bf16>(*a, which, s);
   if (design == 0) return run_by_d<float>(*a, which, s);
   return cudaErrorInvalidValue;

@@ -1151,7 +1151,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_qmajor_kernel(FlashArgs a) {
 // ------------------------------------------------------ backward (Hopper)
 
 constexpr int BWD_ROWS = 128;  // rows an item owns (keys, or queries): 64 a consumer
-constexpr int BOX_BYTES = 64 * 128;  // a 64-row, 64-d TMA box (one consumer's output half)
+using sm90::BOX_BYTES;  // a 64-row, 64-d TMA box (one consumer's output half)
 
 // rows of a streamed tile: the queries of a dK/dV step, the keys of a dQ
 // step (64 at D = 128, so S, dP and the D-wide accumulators fit the
@@ -1211,14 +1211,10 @@ __device__ __forceinline__ void dq_walk(int q0, int T, int causal, int window, i
   j_hi = (k_hi + bk - 1) / bk;
 }
 
-// p = exp(s - lse) (0 on a masked pair) from lse2 = lse log2(e), and
-// ds = p (dp - delta): one instruction sequence for every backward kernel,
-// so that the query-major and the k-major designs agree bitwise.
-__device__ __forceinline__ void bwd_p_ds(float& s, float& dp, float lse2, float dl, bool ok) {
-  const float p = ok ? sm90::ex2(fmaf(s, LOG2E, -lse2)) : 0.f;
-  dp = p * (dp - dl);
-  s = p;
-}
+// p and ds (sm90_attention.cuh): one instruction sequence for every
+// backward kernel, so that the query-major and the k-major designs agree
+// bitwise.
+using sm90::bwd_p_ds;
 
 // p, ds of a consumer's 64 x BQ S^T / dP^T fragments (rows: keys from kr;
 // columns: queries from qb0), in place; lsq / dlq: the tile's lse log2(e)
@@ -1242,22 +1238,7 @@ __device__ __forceinline__ void dkdv_p_ds(float (&s)[BQ / 2], float (&dp)[BQ / 2
   }
 }
 
-// A consumer's 64 x D fp32 accumulator rounded to bf16 into ``st`` in the
-// TMA box layout (64-d halves one box apart, 16-byte chunk c of row r at
-// c ^ (r % 8)).
-template <int D>
-__device__ __forceinline__ void stage_bf16(const float (&acc)[D / 2], unsigned char* st, int tid) {
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = sm90::frag_row(tid, 2 * i), c = sm90::frag_col(tid, n, 0) & 63;
-      unsigned char* dst =
-          st + (n >> 3) * BOX_BYTES + r * 128 + (((c >> 3) ^ (r & 7)) << 4) + (c & 7) * 2;
-      *reinterpret_cast<uint32_t*>(dst) = sm90::pack_bf16(acc[4 * n + 2 * i], acc[4 * n + 2 * i + 1]);
-    }
-  }
-}
+using sm90::stage_bf16;
 
 // The TMA store of a consumer's staged 64 rows from ``row0`` (rows past T
 // are not written), committed in the calling thread's bulk group.
@@ -1268,16 +1249,7 @@ __device__ __forceinline__ void store_rows(const CUtensorMap* map, const unsigne
   for (int hh = 0; hh < D / 64; ++hh) sm90::tma_store_4d(map, st + hh * BOX_BYTES, 64 * hh, row0, h, b);
 }
 
-// bf16 pairs of a 64 x N fp32 fragment: the A fragments of an RS product
-// over its N columns (16-deep slice kk in a[4 kk .. 4 kk + 3]).
-template <int N>
-__device__ __forceinline__ void pack_frag(const float (&x)[N / 2], uint32_t (&a)[N / 4]) {
-#pragma unroll
-  for (int n = 0; n < N / 8; ++n) {
-    a[2 * n] = sm90::pack_bf16(x[4 * n], x[4 * n + 1]);
-    a[2 * n + 1] = sm90::pack_bf16(x[4 * n + 2], x[4 * n + 3]);
-  }
-}
+using sm90::pack_frag;
 
 // flash_dkdv_sm90_kernel: persistent; an item is (b*h, 128-key tile), heads
 // in order and each head's first key tiles (the longest causal walks)

@@ -23,7 +23,10 @@
 // K1's consumer loop on K / V blocks found through a block table:
 // make_tiled_map gives the maps over its pools and its (C, H, D) q. K11's
 // block-sparse forward (block_sparse_attention.cu, bsa_fwd_sm90_kernel)
-// runs it on the blocks a pair of query blocks' lists name.
+// runs it on the blocks a pair of query blocks' lists name; K11's backward
+// (bsa_dq_sm90_kernel, bsa_dkv_sm90_kernel) runs K2's per-tile products
+// on the blocks one block's list names, and shares K2's bwd_p_ds,
+// pack_frag and stage_bf16 (below).
 //
 // K8's bf16 grouped_swiglu_up (grouped_matmul.cu,
 // grouped_swiglu_up_sm90_kernel) adds the SS forms with A MN-major (the
@@ -243,6 +246,49 @@ __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
+}
+
+// ---------------------------------------------- backward helpers (K2, K11)
+
+constexpr int BOX_BYTES = 64 * 128;  // a 64-row, 64-d TMA box: 8 KB
+constexpr float BWD_LOG2E = 1.4426950408889634f;
+
+// p = exp(s - lse) (0 on a masked pair) from lse2 = lse log2(e), and
+// ds = p (dp - delta) in dp: one instruction sequence for every backward
+// kernel (K2, K2-qmajor, K11), so that designs that walk the same pairs
+// agree bitwise.
+__device__ __forceinline__ void bwd_p_ds(float& s, float& dp, float lse2, float dl, bool ok) {
+  const float p = ok ? ex2(fmaf(s, BWD_LOG2E, -lse2)) : 0.f;
+  dp = p * (dp - dl);
+  s = p;
+}
+
+// bf16 pairs of a 64 x N fp32 fragment: the A fragments of an RS product
+// over its N columns (16-deep slice kk in a[4 kk .. 4 kk + 3]).
+template <int N>
+__device__ __forceinline__ void pack_frag(const float (&x)[N / 2], uint32_t (&a)[N / 4]) {
+#pragma unroll
+  for (int n = 0; n < N / 8; ++n) {
+    a[2 * n] = pack_bf16(x[4 * n], x[4 * n + 1]);
+    a[2 * n + 1] = pack_bf16(x[4 * n + 2], x[4 * n + 3]);
+  }
+}
+
+// A consumer's 64 x D fp32 accumulator rounded to bf16 into ``st`` in the
+// TMA box layout (64-d halves one box apart, 16-byte chunk c of row r at
+// c ^ (r % 8)).
+template <int D>
+__device__ __forceinline__ void stage_bf16(const float (&acc)[D / 2], unsigned char* st, int tid) {
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = frag_row(tid, 2 * i), c = frag_col(tid, n, 0) & 63;
+      unsigned char* dst =
+          st + (n >> 3) * BOX_BYTES + r * 128 + (((c >> 3) ^ (r & 7)) << 4) + (c & 7) * 2;
+      *reinterpret_cast<uint32_t*>(dst) = pack_bf16(acc[4 * n + 2 * i], acc[4 * n + 2 * i + 1]);
+    }
+  }
 }
 
 // One TMA store of a box at (c0, c1, c2, c3) from shared memory; completes

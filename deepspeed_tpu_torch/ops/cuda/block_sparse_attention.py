@@ -20,13 +20,15 @@ PyTorch version (``bsa_forward_reference``, ``bsa_dq_reference``,
 T x T buffer); a CUDA
 tensor launches the kernels or raises — there is no fallback.
 ``LAUNCHES`` counts kernel launches: ``bsa_fwd`` one per forward,
-``bsa_dq`` and ``bsa_dkv`` one each per backward. The forward takes one of
-three designs (``_bsa_fwd_design``): bf16 at d = 64 or 128 and block 64
-that TMA can address goes to the Hopper kernel (``bsa_fwd_sm90_kernel``,
-which walks the union of two query blocks' lists: :func:`union_lists`,
-kept with the lists by :func:`lists_on`), other bf16 to the mma.sync
-kernel, fp32 to its scalar-FMA instance; ``DESIGN_LAUNCHES["bsa_fwd"]``
-counts them.
+``bsa_dq`` and ``bsa_dkv`` one each per backward. Each pass takes one of
+three designs (``_bsa_fwd_design``, ``_bsa_bwd_design``): bf16 at d = 64
+or 128 and block 64 that TMA can address goes to the Hopper kernels
+(``bsa_fwd_sm90_kernel``, which walks the union of two query blocks'
+lists: :func:`union_lists`; ``bsa_dq_sm90_kernel`` and
+``bsa_dkv_sm90_kernel``, which split one block's list between two
+consumers, in the order of :func:`row_col_orders`; both kept with the
+lists by :func:`lists_on`), other bf16 to the mma.sync kernels, fp32 to
+their scalar-FMA instances; ``DESIGN_LAUNCHES`` counts them by pass.
 """
 
 import ctypes
@@ -42,14 +44,16 @@ from .grouped_matmul import tma_ok
 NEG_INF = -1e30
 
 LAUNCHES = {"bsa_fwd": 0, "bsa_dq": 0, "bsa_dkv": 0}
-DESIGN_LAUNCHES = {"bsa_fwd": {"sm90": 0, "mma_sync": 0, "fp32": 0}}
+DESIGN_LAUNCHES = {name: {"sm90": 0, "mma_sync": 0, "fp32": 0}
+                   for name in LAUNCHES}
 # bsa_launch's design codes (0 and 1 are the mma.sync kernels' fp32 and
-# bf16 instances; the backward passes take those two)
+# bf16 instances, 2 the Hopper kernels)
 DESIGN_CODE = {"fp32": 0, "mma_sync": 1, "sm90": 2}
 
 BLOCKS = (16, 32, 64, 128)
 _LIST_KEYS = ("rows", "row_cnt", "cols", "col_cnt")
 _UNION_KEYS = ("urows", "ubits", "ucnt", "uorder")
+_ORDER_KEYS = ("rorder", "corder")
 
 
 def reset_launch_counts():
@@ -70,7 +74,8 @@ class _BsaArgs(ctypes.Structure):
                     "max_col")]
                 + [(n, ctypes.c_void_p) for n in
                    ("urows", "ubits", "ucnt", "uorder", "next_item")]
-                + [("max_u", ctypes.c_int)])
+                + [("max_u", ctypes.c_int)]
+                + [(n, ctypes.c_void_p) for n in ("rorder", "corder")])
 
 
 _builder = None
@@ -162,19 +167,32 @@ def union_lists(rows, row_cnt):
             "ucnt": ucnt.reshape(H, n2), "uorder": order}
 
 
+def row_col_orders(row_cnt, col_cnt):
+    """The Hopper backward's item orders: rorder (H * n,) the entries h * n
+    + i of the row lists longest first (dq), corder the same of the column
+    lists (dk/dv), ties in index order (a stable sort); the kernels run each
+    entry's BH / H instances side by side."""
+    def order(cnt):
+        c = np.asarray(cnt).reshape(-1)
+        return np.argsort(-c, kind="stable").astype(np.int32)
+    return {"rorder": order(row_cnt), "corder": order(col_cnt)}
+
+
 def lists_on(lists, device):
-    """The lists and their union walk (:func:`union_lists`, built from the
-    row lists where ``lists`` lacks it) as contiguous int32 tensors on
-    ``device`` (numpy arrays are uploaded; tensors already there are
-    kept)."""
-    if not all(k in lists for k in _UNION_KEYS):
+    """The lists, their union walk (:func:`union_lists`) and the backward's
+    orders (:func:`row_col_orders`), built on the host from the lists where
+    ``lists`` lacks them, as contiguous int32 tensors on ``device`` (numpy
+    arrays are uploaded; tensors already there are kept)."""
+    if not all(k in lists for k in _UNION_KEYS + _ORDER_KEYS):
         host = {k: np.asarray(torch.as_tensor(lists[k]).cpu())
-                for k in ("rows", "row_cnt")}
-        lists = dict(lists, **union_lists(host["rows"], host["row_cnt"]))
+                for k in _LIST_KEYS}
+        lists = dict(lists, **union_lists(host["rows"], host["row_cnt"]),
+                     **row_col_orders(host["row_cnt"], host["col_cnt"]))
     return {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v)
                                else v).to(device=device, dtype=torch.int32)
-            .contiguous() for k, v in ((k, lists[k])
-                                       for k in _LIST_KEYS + _UNION_KEYS)}
+            .contiguous() for k, v in ((k, lists[k]) for k in
+                                       _LIST_KEYS + _UNION_KEYS
+                                       + _ORDER_KEYS)}
 
 
 # ------------------------------------------------------------------- plain
@@ -351,6 +369,23 @@ def _bsa_fwd_design(q, k, v, block, heads):
     return "mma_sync"
 
 
+def _bsa_bwd_design(q, k, v, do, block, heads, o=None):
+    """The backward's design (dq and dk/dv alike) for folded contiguous
+    (BH, T, d) operands: "fp32" for fp32; "sm90" (TMA + wgmma over the
+    split walk) for bf16 at d = 64 or 128 and block 64 that TMA can
+    address (``tma_ok`` on q, k, v, do and, where given, o, which dq reads
+    by 16-byte loads; the wrapper allocates dq, dk and dv contiguous) with
+    BH a multiple of the layout's ``heads``: both SparseSelfAttention
+    cells; else "mma_sync" (d = 32, blocks 16, 32 and 128)."""
+    if q.dtype == torch.float32:
+        return "fp32"
+    ops = (q, k, v, do) + (() if o is None else (o,))
+    if (q.shape[-1] in (64, 128) and block == 64 and q.shape[0] % heads == 0
+            and all(map(tma_ok, ops))):
+        return "sm90"
+    return "mma_sync"
+
+
 def _launch(which, name, block, causal, lists, design=None, **tensors):
     """One bsa_launch of pass ``which`` under ``design`` (default: the
     mma.sync kernels' instance of q's dtype; a name DESIGN_CODE lacks
@@ -367,7 +402,7 @@ def _launch(which, name, block, causal, lists, design=None, **tensors):
     a.max_row, a.max_col = lists["rows"].shape[-1], lists["cols"].shape[-1]
     keys = _LIST_KEYS
     if design == "sm90":
-        keys = _LIST_KEYS + _UNION_KEYS
+        keys = _LIST_KEYS + _UNION_KEYS + _ORDER_KEYS
         a.max_u = lists["urows"].shape[-1]
         # the persistent CTAs' work counter
         tensors["next_item"] = torch.zeros(1, dtype=torch.int32,
@@ -409,40 +444,58 @@ def bsa_forward(q, k, v, lists, block, causal=False, design=None):
     return o, lse
 
 
-def bsa_dq(q, k, v, o, lse, do, lists, block, causal=False):
+def _bwd_design(name, q, k, v, do, lists, block, design, o=None):
+    """The operand checks, then the pass's design (``_bsa_bwd_design``
+    unless ``design`` forces one) with its order checked for sm90."""
+    _check_cuda((q, k, v, do) + (() if o is None else (o,)), lists, block,
+                name)
+    if design is None:
+        design = _bsa_bwd_design(q, k, v, do, block, lists["rows"].shape[0],
+                                 o)
+    if design == "sm90":
+        _check_cuda((q,), lists, block, name, _ORDER_KEYS)
+    return design
+
+
+def bsa_dq(q, k, v, o, lse, do, lists, block, causal=False, design=None):
     """The dq kernel on folded (BH, T, d) operands from the saved o and lse;
     it also writes delta = rowsum(do*o) for the dk/dv kernel. Returns (dq,
     delta (BH, T) fp32). CPU tensors take the plain version; CUDA tensors
-    launch the kernel or raise."""
+    launch the kernel of ``_bsa_bwd_design`` (or of ``design``, so the
+    card's checks can time one design beside the other) or raise."""
     if q.device.type == "cpu":
         return bsa_dq_reference(q, k, v, o, lse, do, lists, block, causal)
     name = "bsa_dq"
-    _check_cuda((q, k, v, o, do), lists, block, name)
     q, k, v, o, do = (x.contiguous() for x in (q, k, v, o, do))
+    design = _bwd_design(name, q, k, v, do, lists, block, design, o)
     lse = lse.float().contiguous()
     delta = torch.empty_like(lse)
     dq = torch.empty_like(q)
-    _launch(1, name, block, causal, lists, q=q, k=k, v=v, o=o, lse=lse,
-            dout=do, delta=delta, dq=dq)
+    _launch(1, name, block, causal, lists, design, q=q, k=k, v=v, o=o,
+            lse=lse, dout=do, delta=delta, dq=dq)
     LAUNCHES["bsa_dq"] += 1
+    DESIGN_LAUNCHES["bsa_dq"][design] += 1
     return dq, delta
 
 
-def bsa_dkv(q, k, v, lse, delta, do, lists, block, causal=False):
+def bsa_dkv(q, k, v, lse, delta, do, lists, block, causal=False,
+            design=None):
     """The dk/dv kernel on folded (BH, T, d) operands from lse and the dq
     kernel's delta. Returns (dk, dv). CPU tensors take the plain version;
-    CUDA tensors launch the kernel or raise."""
+    CUDA tensors launch the kernel of ``_bsa_bwd_design`` (or of
+    ``design``) or raise."""
     if q.device.type == "cpu":
         return bsa_dkv_reference(q, k, v, lse, delta, do, lists, block,
                                  causal)
     name = "bsa_dkv"
-    _check_cuda((q, k, v, do), lists, block, name)
     q, k, v, do = (x.contiguous() for x in (q, k, v, do))
+    design = _bwd_design(name, q, k, v, do, lists, block, design)
     lse, delta = lse.float().contiguous(), delta.float().contiguous()
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch(2, name, block, causal, lists, q=q, k=k, v=v, lse=lse, dout=do,
-            delta=delta, dk=dk, dv=dv)
+    _launch(2, name, block, causal, lists, design, q=q, k=k, v=v, lse=lse,
+            dout=do, delta=delta, dk=dk, dv=dv)
     LAUNCHES["bsa_dkv"] += 1
+    DESIGN_LAUNCHES["bsa_dkv"][design] += 1
     return dk, dv
 
 

@@ -267,8 +267,8 @@ def test_chunk_and_grouped_wq_launchers_refuse_a_wrong_design():
 
 def test_swiglu_up_and_bsa_launchers_refuse_a_wrong_design():
     """A design code grouped_swiglu_up's and K11's launchers do not know
-    (and sm90 for a K11 backward pass) returns an error and launches
-    nothing."""
+    (and sm90 for a K11 backward pass without its orders) returns an error
+    and launches nothing."""
     stream = torch.cuda.current_stream().cuda_stream
     bf = torch.bfloat16
     x = torch.ones(4, 64, dtype=bf, device="cuda")
@@ -297,8 +297,11 @@ def test_swiglu_up_and_bsa_launchers_refuse_a_wrong_design():
                        dq=o, dk=o, dv=o, next_item=counter, **lists).items():
         setattr(ba, key, t.data_ptr())
     blib = bsa.kernel_builder().load()
-    for design, which in ((3, 0), (-1, 0), (2, 1), (2, 2)):
+    for design, which in ((3, 0), (-1, 0), (3, 1), (3, 2)):
         assert blib.bsa_launch(ctypes.byref(ba), design, which, stream) != 0
+    ba.rorder = ba.corder = None
+    for which in (1, 2):
+        assert blib.bsa_launch(ctypes.byref(ba), 2, which, stream) != 0
     torch.cuda.synchronize()
     assert bool((h == 7).all()) and bool((o == 7).all())
     assert bool((lse == 7).all())
@@ -1335,8 +1338,8 @@ def test_bsa_fwd_sm90(kind, T, d):
     """K11's bf16 sm90 forward (the union walk on TMA + wgmma): every call
     counted there, within the bf16 limits of the plain version in fp32,
     lse within 1e-3, rows with no present block o = 0 and lse = -1e30,
-    repeated bitwise; the unchanged backward on its o and lse holds against
-    the plain backward."""
+    repeated bitwise; the backward on its o and lse holds against the plain
+    backward."""
     rs = np.random.RandomState(T + d)
     H, B, n = 2, 3, T // 64
     lay, causal = _bsa_sm90_layout(kind, H, T)
@@ -1389,6 +1392,104 @@ def test_bsa_fwd_sm90_control():
     cut, _ = bsa.bsa_forward(q, k, v, bsa.lists_on(short, "cuda"), 64,
                              causal)
     assert chip_smoke.bf16_mismatch(cut, ro) is not None
+
+
+def _bsa_bwd_layout(kind, H, T):
+    """(layout, causal) of the sm90 backward's card cases at block 64: the
+    forward's, key blocks no query block attends, and lists of one, two
+    and three entries."""
+    n = T // 64
+    if kind == "empty_cols":
+        lay, causal = _bsa_sm90_layout("fixed", H, T)
+        lay[:, :, 2] = False
+        lay[:, :, 5] = False
+        return lay, causal
+    if kind == "short_lists":           # non-causal, n = 8
+        lay = np.broadcast_to(np.eye(n, dtype=bool), (H, n, n)).copy()
+        lay[:, 3, [0, 5, 7]] = True     # row 3: 4 entries
+        lay[:, 6, [1, 2]] = True        # row 6: 3
+        lay[:, [1, 2], 4] = True        # column 4: 3
+        return lay, False
+    return _bsa_sm90_layout(kind, H, T)
+
+
+def _bsa_bwd_case(kind, T, d, seed):
+    rs = np.random.RandomState(seed)
+    H, B, n = 2, 3, T // 64
+    lay, causal = _bsa_bwd_layout(kind, H, T)
+    lists = bsa.lists_on(bsa.layout_lists(lay, causal, n, n), "cuda")
+    q, k, v, do = (_rand(rs, (B * H, T, d), torch.bfloat16)
+                   for _ in range(4))
+    q = q * (d ** -0.5)
+    o, lse = bsa.bsa_forward(q, k, v, lists, 64, causal)
+    return q, k, v, o, lse, do, lists, causal
+
+
+@pytest.mark.parametrize("kind,T,d", [
+    ("fixed", 2048, 64),        # (a)'s layout: the causal diagonal
+    ("bigbird", 2048, 64),      # (b)'s: non-causal, odd lists
+    ("fixed", 1024, 128),       # d = 128
+    ("bigbird", 1024, 128),
+    ("empty_rows", 320, 64),    # rows with no present block, n = 5
+    ("empty_rows", 320, 128),
+    ("empty_cols", 512, 64),    # key blocks no query block attends
+    ("empty_cols", 512, 128),
+    ("short_lists", 512, 64),   # lists of one, two and three entries
+    ("short_lists", 512, 128),
+])
+def test_bsa_bwd_sm90(kind, T, d):
+    """K11's bf16 sm90 dq and dk/dv (the split walk on TMA + wgmma): every
+    call counted there, repeated bitwise, delta within 1e-4 and dq, dk, dv
+    within the bf16 gradient limits of the plain versions in fp32; rows
+    with no present block dq = 0, key blocks with none dk = dv = 0."""
+    q, k, v, o, lse, do, lists, causal = _bsa_bwd_case(kind, T, d, T + d)
+    H = lists["rows"].shape[0]
+    assert bsa._bsa_bwd_design(q, k, v, do, 64, H, o) == "sm90"
+    bsa.reset_launch_counts()
+    dq, delta = bsa.bsa_dq(q, k, v, o, lse, do, lists, 64, causal)
+    dk, dv = bsa.bsa_dkv(q, k, v, lse, delta, do, lists, 64, causal)
+    dq2, delta2 = bsa.bsa_dq(q, k, v, o, lse, do, lists, 64, causal)
+    dk2, dv2 = bsa.bsa_dkv(q, k, v, lse, delta2, do, lists, 64, causal)
+    torch.cuda.synchronize()
+    for name in ("bsa_dq", "bsa_dkv"):
+        assert bsa.DESIGN_LAUNCHES[name] == {"sm90": 2, "mma_sync": 0,
+                                             "fp32": 0}, name
+    for a, b in ((dq, dq2), (delta, delta2), (dk, dk2), (dv, dv2)):
+        assert torch.equal(a, b), "not bitwise repeatable"
+    f32 = [x.float() for x in (q, k, v)]
+    rdq, rdelta = bsa.bsa_dq_reference(*f32, o.float(), lse, do.float(),
+                                       lists, 64, causal)
+    rdk, rdv = bsa.bsa_dkv_reference(*f32, lse, rdelta, do.float(), lists,
+                                     64, causal)
+    torch.testing.assert_close(delta, rdelta, rtol=1e-4, atol=1e-4)
+    for name, g, ref in (("dq", dq, rdq), ("dk", dk, rdk), ("dv", dv, rdv)):
+        assert chip_smoke.bf16_grad_mismatch(g[:, None], ref[:, None]) \
+            is None, name
+    inst = torch.arange(q.shape[0]) % H
+    for x, key in ((dq, "row_cnt"), (dk, "col_cnt"), (dv, "col_cnt")):
+        empty = lists[key].cpu()[inst] == 0
+        rows = empty.repeat_interleave(64, dim=1).cuda()
+        if kind in ("empty_rows", "empty_cols") and key == (
+                "row_cnt" if kind == "empty_rows" else "col_cnt"):
+            assert bool(rows.any())
+        assert torch.count_nonzero(x[rows]) == 0, key
+
+
+@pytest.mark.parametrize("kind", ["fixed", "bigbird"])
+def test_bsa_bwd_sm90_control(kind):
+    """The sm90 dk/dv with one column list short by its last entry, and the
+    sm90 dq with one row list short, fail the bf16 gradient check on that
+    block's rows, which the whole lists pass (chip_smoke.bsa_bwd_controls)."""
+    q, k, v, o, lse, do, lists, causal = _bsa_bwd_case(kind, 1024, 64, 14)
+    f32 = [x.float() for x in (q, k, v)]
+    rdq, rdelta = bsa.bsa_dq_reference(*f32, o.float(), lse, do.float(),
+                                       lists, 64, causal)
+    rdk, rdv = bsa.bsa_dkv_reference(*f32, lse, rdelta, do.float(), lists,
+                                     64, causal)
+    _, delta = bsa.bsa_dq(q, k, v, o, lse, do, lists, 64, causal)
+    whys = chip_smoke.bsa_bwd_controls(bsa, q, k, v, o, lse, delta, do,
+                                       lists, causal, (rdq, rdk, rdv))
+    assert sorted(whys) == ["dk", "dq", "dv"]
 
 
 def test_sparse_self_attention_kernel_matches_masked_dense():

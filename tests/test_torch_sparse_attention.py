@@ -305,3 +305,79 @@ def test_bsa_launch_refuses_an_unknown_design():
                      v=q, o=o, lse=lse)
     assert tbsa.DESIGN_LAUNCHES["bsa_fwd"] == {"sm90": 0, "mma_sync": 0,
                                                "fp32": 0}
+
+
+@pytest.mark.parametrize("dtype,d,block,BH,offset,want", [
+    (torch.bfloat16, 64, 64, 64, 0, "sm90"),       # (a), (b): B=4, H=16
+    (torch.bfloat16, 128, 64, 64, 0, "sm90"),
+    (torch.bfloat16, 64, 64, 16, 0, "sm90"),       # one instance a head
+    (torch.bfloat16, 32, 64, 64, 0, "mma_sync"),   # d = 32
+    (torch.bfloat16, 64, 16, 64, 0, "mma_sync"),   # the block-16 cell
+    (torch.bfloat16, 64, 32, 64, 0, "mma_sync"),
+    (torch.bfloat16, 128, 128, 64, 0, "mma_sync"),
+    (torch.bfloat16, 64, 64, 40, 0, "mma_sync"),   # BH not a multiple of H
+    (torch.bfloat16, 64, 64, 64, 1, "mma_sync"),   # q off 16 bytes
+    (torch.bfloat16, 64, 64, 64, 2, "mma_sync"),   # do off 16 bytes
+    (torch.bfloat16, 64, 64, 64, 3, "mma_sync"),   # o off 16 bytes (dq)
+    (torch.float32, 64, 64, 64, 0, "fp32"),
+    (torch.float32, 32, 16, 64, 0, "fp32"),
+])
+def test_bsa_bwd_design_rule(dtype, d, block, BH, offset, want):
+    """``_bsa_bwd_design``: dtype, head dim, block, BH against the layout's
+    heads (16) and TMA addressability of q, k, v, do (and o where given)
+    only; ``offset`` moves one of them off 16 bytes."""
+    T = 4 * block
+
+    def operand(moved):
+        if moved:
+            return torch.zeros(1 + BH * T * d, dtype=dtype)[1:].view(BH, T, d)
+        return torch.zeros(BH, T, d, dtype=dtype)
+
+    q, k, do, o = (operand(offset == i) for i in (1, -1, 2, 3))
+    assert tbsa._bsa_bwd_design(q, k, k, do, block, 16, o) == want
+    if offset != 3:
+        assert tbsa._bsa_bwd_design(q, k, k, do, block, heads=16) == want
+
+
+@pytest.mark.parametrize("case", sorted(UNION_CASES))
+def test_row_col_orders_bitwise_numpy(case):
+    """rorder / corder (the Hopper backward's item orders, built with the
+    lists): a stable numpy argsort of -count over the (head, block) entries
+    of the row and of the column lists; each entry's instances run side by
+    side in the kernel, so every (instance, block) item is visited once."""
+    cfg, causal, T = UNION_CASES[case]
+    lists = tsa.SparseSelfAttention(cfg, causal=causal).lists(T, "cpu")
+    for key, cnt in (("rorder", "row_cnt"), ("corder", "col_cnt")):
+        order = lists[key]
+        assert order.dtype == torch.int32 and order.is_contiguous(), key
+        c = lists[cnt].numpy().reshape(-1)
+        np.testing.assert_array_equal(
+            order.numpy(), np.argsort(-c, kind="stable").astype(np.int32))
+        # the kernel's item w of BH * H * n (B = 4 instances a head)
+        H, n, reps = lists[cnt].shape[0], lists[cnt].shape[1], 4
+        w = np.arange(H * n * reps)
+        hb = order.numpy()[w // reps]
+        bh = (w % reps) * H + hb // n
+        items = set(zip(bh.tolist(), (hb % n).tolist()))
+        assert len(items) == H * n * reps
+        assert np.all(np.diff(c[hb]) <= 0)
+
+
+def test_bsa_backward_launch_refuses_an_unknown_design():
+    """A design name bsa_launch does not know raises for the dq and the
+    dk/dv passes before anything launches, and counts nothing (the C
+    launcher's refusals: the card test)."""
+    cfg, causal, T = UNION_CASES["a"]
+    lists = tsa.SparseSelfAttention(cfg, causal=causal).lists(512, "cpu")
+    q = torch.zeros(16, 512, 64, dtype=torch.bfloat16)
+    lse = torch.zeros(16, 512)
+    tbsa.reset_launch_counts()
+    for which, name, out in ((1, "bsa_dq", dict(o=q, dq=q)),
+                             (2, "bsa_dkv", dict(dk=q, dv=q))):
+        with pytest.raises(ValueError, match="unknown design"):
+            tbsa._launch(which, name, 64, True, lists, "wgmma", q=q, k=q,
+                         v=q, lse=lse, dout=q, delta=lse, **out)
+    assert tbsa.LAUNCHES == {"bsa_fwd": 0, "bsa_dq": 0, "bsa_dkv": 0}
+    for name in ("bsa_dq", "bsa_dkv"):
+        assert tbsa.DESIGN_LAUNCHES[name] == {"sm90": 0, "mma_sync": 0,
+                                              "fp32": 0}
