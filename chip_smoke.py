@@ -5,8 +5,9 @@
 
 Phases (any failure raises and the script exits nonzero):
   1. card: the card's name and power limit (nvidia-smi), and the build of
-     every kernel from csrc/ (one nvcc per source, all started together,
-     into build/).
+     every kernel from csrc/ and of the checkpoint writer
+     (csrc/ckpt_writer.cpp, g++) (one compiler per source, all started
+     together, into build/).
  0b. SASS: cuobjdump -sass of the paged-attention, fused-CE, MLP,
      grouped-matmul, flash-attention and block-sparse libraries; every
      instance of the
@@ -265,8 +266,30 @@ Phases (any failure raises and the script exits nonzero):
      exactly 24 K1, 24 K2 and 2 K3 a step on each rank (every one on
      sm90, as each child reports); step time,
      tokens/s, each process's peak memory and the bytes each rank staged
-     through host memory a step.
-Phases 7, 13, 20, 24 and 32 also hold every bf16 K1 / K2 / K2-qmajor /
+     through host memory a step. After ZeRO-3's steps the two children
+     save one tag (a shard file each); this process loads it at dp = 1
+     under ZeRO-2 (gas 1 -> 2 keeps the global batch of 48, micro_steps
+     realign), its master equal to the children's gathered master (their
+     CRC32), and takes one step with a finite loss.
+ 33. checkpoints: GPT-2 350M at phase 7's configuration takes steps and
+     saves one tag of its whole state (fp32 master, m, v: 4.26 GB) with
+     each of the sync, async and native engines, stepping on while an
+     async or native write is in flight; a second run repeats its first
+     steps (the bitwise repeat the resume is held to); fresh engines load
+     the sync and native tags and take the next steps: every saved leaf
+     and the recast bf16 parameters bitwise, the losses the uninterrupted
+     run's. Controls that must fail: a load by name of the native tag with
+     one byte flipped in a chunk raises CheckpointCorruptionError; without
+     a tag the load falls back to the async tag (load_fallbacks 1), which
+     then resumes the same way. No engine degrades (counters["fallbacks"]
+     0); launches exactly 24 K1, 24 K2 and 2 K3 a step, all on sm90. One
+     ``checkpoint`` JSON line an engine: bytes a tag, the seconds
+     save_checkpoint blocked, the seconds until 'latest' named the tag,
+     write GB/s, load seconds, the median step overlapping an in-flight
+     write against the median without, the counters, the card and the
+     target's filesystem (tags under build/chip_smoke_ckpt, deleted after
+     their checks).
+Phases 7, 13, 20, 24, 32 and 33 also hold every bf16 K1 / K2 / K2-qmajor /
 K3 / K6 launch to the sm90 design (the wrappers' DESIGN_LAUNCHES); the
 serving slices count K4's launches by design (split / single), the
 Mixtral slice K8's gmm (all sm90) and swiglu_up, the Llama int4 slice
@@ -5193,6 +5216,20 @@ def phase_zero_parity():
 PHASE32 = dict(micro=24, seq_len=1024, steps={2: 10, 3: 3})
 
 
+def master_crc(master):
+    """CRC32 of a whole fp32 master's bytes, leaf by leaf in the engine's
+    (JAX tree) order."""
+    import zlib
+    crc = 0
+    for m in master.values():
+        crc = zlib.crc32(m.detach().cpu().numpy().tobytes(), crc)
+    return crc & 0xFFFFFFFF
+
+
+CKPT_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build", "chip_smoke_ckpt")
+
+
 def child_zero_train():
     """Phase 32 in one rank: GPT-2 350M (all 24 layers, the JAX bench
     configuration: bf16 + fp32 master, AdamW, clip 1.0, save_flash, fused
@@ -5200,7 +5237,9 @@ def child_zero_train():
     train_batch, ZeRO-2 for 10 steps and ZeRO-3 for 3, each on one
     numpy-seeded global batch; reports per stage the losses, step times,
     this process's peak memory after the engine's build, the kernels'
-    launches and what went through host memory."""
+    launches and what went through host memory. After ZeRO-3's steps it
+    saves one tag (this rank's shard file) under CKPT_ROOT/dp2 and reports
+    the CRC of the gathered master it holds."""
     from deepspeed_tpu_torch import GPT2, GPT2_PRESETS, comm, initialize
     from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
     from deepspeed_tpu_torch.ops.cuda import fused_ce as fce
@@ -5246,6 +5285,14 @@ def child_zero_train():
                 torch.cuda.max_memory_allocated() / 1e9,
             "staged": {k: list(v) for k, v in
                        comm.get_comms_logger().host_staged.items()}}
+        if stage == 3:
+            crc = master_crc(engine.gathered_master())
+            t1 = time.perf_counter()
+            tag = engine.save_checkpoint(os.path.join(CKPT_ROOT, "dp2"))
+            out["ckpt"] = {"tag": tag, "master_crc": crc,
+                           "save_s": time.perf_counter() - t1,
+                           "global_step": engine.global_step,
+                           "counters": engine.checkpoint_engine.counters}
         del engine
     return out
 
@@ -5256,7 +5303,10 @@ def phase_zero_slice():
     same on both ranks, and each step launches exactly 24 K1, 24 K2 and 2
     K3 on each rank (no K2-qmajor, K10 or K12); step time, tokens/s, each
     process's peak memory and the bytes each rank staged through host
-    memory a step."""
+    memory a step. Then the children's ZeRO-3 tag resumed at dp = 1
+    (resume_dp2_at_dp1)."""
+    import shutil
+    shutil.rmtree(os.path.join(CKPT_ROOT, "dp2"), ignore_errors=True)
     reps = run_children("zero-train")
     p = PHASE32
     L, total = 24, {}
@@ -5310,10 +5360,327 @@ def phase_zero_slice():
         log(f"ZeRO-{stage}: per rank, {steps} steps, op -> [calls, bytes] "
             f"through host memory over gloo (one card: NCCL refuses two "
             f"ranks on it) {staged}")
+    resume_dp2_at_dp1(reps)
     return {k: v for k, v in total.items() if v}
 
 
+def resume_dp2_at_dp1(reps, seed=0):
+    """Phase 32's checkpoint: the two children's ZeRO-3 tag (two shard
+    files) loaded by this process at dp = 1 under ZeRO-2 with micro 24:
+    reshape keeps the global batch of 48 (gas 1 -> 2) and folds the RNG
+    words; the loaded master is the children's gathered master bitwise
+    (their CRC); one step on a 48-row batch gives a finite loss."""
+    import shutil
+    from deepspeed_tpu_torch import GPT2, GPT2_PRESETS, initialize
+    ck = [r["ckpt"] for r in reps]
+    assert ck[0]["tag"] == ck[1]["tag"] == "global_step3", ck
+    assert ck[0]["master_crc"] == ck[1]["master_crc"], ck
+    assert all(c["counters"]["fallbacks"] == 0 for c in ck), ck
+    d = os.path.join(CKPT_ROOT, "dp2")
+    files = sorted(os.listdir(os.path.join(d, ck[0]["tag"])))
+    assert files == ["shard-0.npz", "shard-1.npz"], files
+    nbytes = sum(os.path.getsize(os.path.join(d, ck[0]["tag"], f))
+                 for f in files)
+    cfg = dataclasses.replace(
+        GPT2_PRESETS["350M"], max_seq_len=PHASE32["seq_len"],
+        use_flash_attention=True, remat=True, remat_policy="save_flash",
+        loss_chunk=512, fused_loss=True, fused_loss_kernel=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    engine, *_ = initialize(
+        model=GPT2(cfg, device="cuda", seed=seed + 7),
+        config=zero_config(2, train_micro_batch_size_per_gpu=PHASE32[
+            "micro"]))
+    assert engine.config.gradient_accumulation_steps == 1
+    t0 = time.perf_counter()
+    path, _ = engine.load_checkpoint(d)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    assert path.endswith(ck[0]["tag"]), path
+    assert engine.dp == 1 and engine.global_step == 3, engine.global_step
+    assert engine.config.gradient_accumulation_steps == 2
+    assert engine.config.train_batch_size == 2 * PHASE32["micro"]
+    assert engine.micro_steps == 6, engine.micro_steps
+    crc = master_crc(engine.state["master"])
+    assert crc == ck[0]["master_crc"], (crc, ck[0]["master_crc"])
+    batch = {"input_ids": np.random.RandomState(seed + 3).randint(
+        0, cfg.vocab_size, (2 * PHASE32["micro"], PHASE32["seq_len"]))
+        .astype(np.int32)}
+    loss = float(engine.train_batch(batch))
+    assert math.isfinite(loss), loss
+    assert engine.checkpoint_engine.counters["fallbacks"] == 0
+    log(f"checkpoint dp = 2 -> 1: the children's ZeRO-3 tag "
+        f"({nbytes / 1e9:.3f} GB in 2 shard files, saved in "
+        f"{max(c['save_s'] for c in ck):.2f} s, filesystem "
+        f"{filesystem_of(d)}) loaded at dp = 1, ZeRO-2 in {load_s:.2f} s; "
+        f"gas 1 -> 2 (global batch 48), micro_steps 6, master CRC "
+        f"{crc:#010x} = the children's; next step loss {loss:.6f}")
+    del engine
+    shutil.rmtree(d, ignore_errors=True)
+
+
 ZERO_STATS = {}
+
+
+# ------------------------------------------------ checkpoints (phase 33)
+
+
+def filesystem_of(path):
+    """'<fstype> on <mount point>' of the mount holding ``path`` (the
+    longest mount point of /proc/mounts that prefixes it)."""
+    path = os.path.realpath(path)
+    best = ("?", "?")
+    with open("/proc/mounts") as f:
+        for line in f:
+            dev, mnt, fstype = line.split()[:3]
+            if (path == mnt or path.startswith(mnt.rstrip("/") + "/")) \
+                    and len(mnt) >= len(best[1]):
+                best = (fstype, mnt)
+    return f"{best[0]} on {best[1]}"
+
+
+def state_snapshot(engine):
+    """Device copies of every saved leaf of a one-rank engine and of its
+    working parameters (the recast from the master)."""
+    st = engine.state
+    snap = {f"master.{n}": t.clone() for n, t in st["master"].items()}
+    for k in ("m", "v"):
+        snap.update({f"{k}.{n}": t.clone()
+                     for n, t in st["opt"][k].items()})
+    snap.update({f"param.{n}": t.detach().clone()
+                 for n, t in st["params"].items()})
+    snap.update({f"scale.{k}": v.clone() for k, v in st["scale"].items()})
+    snap["opt_step"] = st["opt"]["step"].clone()
+    snap["step"] = torch.tensor(st["step"])
+    snap["skipped"] = torch.tensor(engine.skipped_steps)
+    snap["rng"] = torch.from_numpy(np.asarray(engine.rng_data).copy())
+    return snap
+
+
+def state_mismatches(engine, snap):
+    cur = state_snapshot(engine)
+    assert set(cur) == set(snap)
+    return [k for k in snap if cur[k].dtype != snap[k].dtype
+            or not torch.equal(cur[k], snap[k])]
+
+
+def corrupt_one_chunk_byte(shard):
+    """Flip one byte in the middle of the first chunk of an npz shard (its
+    zip structure stays readable; a load reads that chunk first, so the
+    control fails without reading the whole tag)."""
+    import zipfile
+    with zipfile.ZipFile(shard) as z:
+        info = z.infolist()[0]
+        assert info.filename != "__meta__.npy", info.filename
+    with open(shard, "r+b") as f:
+        f.seek(info.header_offset + 26)
+        n, m = np.frombuffer(f.read(4), np.uint16)
+        off = info.header_offset + 30 + int(n) + int(m) \
+            + info.file_size // 2
+        f.seek(off)
+        b = f.read(1)
+        f.seek(off)
+        f.write(bytes([b[0] ^ 0x5A]))
+    return info.filename
+
+
+PHASE33 = dict(engines=("sync", "async", "native"), between=4,
+               max_overlap=12, resume_steps=2)
+CKPT_STATS = {}
+
+
+def phase_checkpoint(card, seed=0):
+    """Phase 33: GPT-2 350M at phase 7's configuration (bf16 + fp32 master,
+    micro 24, T=1024, AdamW, clip 1.0, ZeRO 2, save_flash, fused CE) saves
+    and resumes through save_checkpoint / load_checkpoint. One run takes
+    steps on numpy-seeded batches and saves one tag of the whole state with
+    each of the sync, async and native engines (steps go on while an async
+    or native write is in flight); a second run repeats its first steps
+    (the bitwise repeat the resume is held to); fresh engines from another
+    seed load the sync and native tags by name and take the next steps:
+    every saved leaf (master, m, v, scale, steps, rng words) and the
+    recast bf16 parameters equal the saved run's bitwise, the losses equal
+    the uninterrupted run's. Controls that must fail: one byte flipped in
+    a chunk of the newest (native) tag raises CheckpointCorruptionError on
+    a load by name; without a tag the load falls back to the async tag
+    (load_fallbacks 1), which then resumes as above. Every engine's
+    counters["fallbacks"] is 0. One 'checkpoint' line per engine: bytes a
+    tag, seconds save_checkpoint blocked, seconds until 'latest' named the
+    tag, write GB/s, load seconds, the median step of steps overlapping an
+    in-flight write against the median without, counters; each with the
+    card's name and power limit. Returns the path's launches."""
+    import shutil
+    from deepspeed_tpu_torch import GPT2, GPT2_PRESETS, initialize
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+    from deepspeed_tpu_torch.ops.cuda import fused_ce as fce
+    from deepspeed_tpu_torch.ops.cuda import layernorm as ln
+    from deepspeed_tpu_torch.ops.cuda import mlp_matmul as mm
+    from deepspeed_tpu_torch.runtime.checkpoint_engine import \
+        serialization as ser
+    from deepspeed_tpu_torch.runtime.checkpoint_engine.engines import \
+        create_checkpoint_engine
+    from deepspeed_tpu_torch.runtime.config import CheckpointEngineConfig
+    p = PHASE33
+    cfg = dataclasses.replace(
+        GPT2_PRESETS["350M"], max_seq_len=1024, use_flash_attention=True,
+        flash_block_q=1024, flash_block_k=1024, flash_block_h=1,
+        remat=True, remat_policy="save_flash", loss_chunk=512,
+        fused_loss=True, fused_loss_kernel=True)
+    root = os.path.join(CKPT_ROOT, "gpt2-350M")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    fs = filesystem_of(root)
+    free_gb = shutil.disk_usage(root).free / 1e9
+    log(f"phase 33 checkpoints under {root}: {fs}, {free_gb:.1f} GB free")
+
+    def build(model_seed, typ="sync"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        engine, *_ = initialize(
+            model=GPT2(cfg, device="cuda", seed=model_seed),
+            config={"train_micro_batch_size_per_gpu": 24,
+                    "gradient_accumulation_steps": 1, "steps_per_print": 0,
+                    "optimizer": {"type": "AdamW", "params": {
+                        "lr": 2e-4, "weight_decay": 0.01}},
+                    "gradient_clipping": 1.0, "bf16": {"enabled": True},
+                    "zero_optimization": {"stage": 2},
+                    "checkpoint_engine": {"type": typ}})
+        return engine
+
+    def batch(step):
+        return {"input_ids": np.random.RandomState(seed + 1000 + step)
+                .randint(0, cfg.vocab_size, (24, cfg.max_seq_len))
+                .astype(np.int32)}
+
+    n_steps = 0
+
+    def step(engine):
+        nonlocal n_steps
+        t0 = time.perf_counter()
+        loss = float(engine.train_batch(batch(engine.global_step + 1)))
+        torch.cuda.synchronize()
+        n_steps += 1
+        return loss, time.perf_counter() - t0
+
+    mods = (fa, fce, ln, mm)
+    for mod in mods:
+        mod.reset_launch_counts()
+    run = build(seed)
+    losses, without = {}, []
+    for _ in range(2):
+        loss = step(run)[0]
+        losses[run.global_step] = loss
+    snaps, tags, rec = {}, {}, {}
+    for typ in p["engines"]:
+        if typ != "sync":
+            run.checkpoint_engine.shutdown()
+            run.checkpoint_engine = create_checkpoint_engine(
+                CheckpointEngineConfig(type=typ))
+        snaps[typ] = state_snapshot(run)
+        tags[typ] = run.save_checkpoint(root)
+        overlap = []
+        while run.last_save["latest_s"] is None and \
+                len(overlap) < p["max_overlap"]:
+            loss, t = step(run)
+            losses[run.global_step] = loss
+            overlap.append(t)
+        run.checkpoint_engine.wait()
+        assert run.last_save["latest_s"] is not None, run.last_save
+        for _ in range(p["between"]):
+            loss, t = step(run)
+            losses[run.global_step] = loss
+            without.append(t)
+        shard = os.path.join(root, tags[typ], "shard-0.npz")
+        rec[typ] = dict(tag=tags[typ], bytes=os.path.getsize(shard),
+                        blocked_s=run.last_save["blocked_s"],
+                        latest_s=run.last_save["latest_s"],
+                        overlap_step_s=overlap,
+                        counters=dict(run.checkpoint_engine.counters))
+        assert rec[typ]["counters"]["fallbacks"] == 0, (typ, rec[typ])
+        assert rec[typ]["counters"]["save_errors"] == 0, (typ, rec[typ])
+    run.save_checkpoint_terminate()
+    del run
+
+    # the repeat: an uninterrupted run from the same seed, its first steps
+    rep = build(seed)
+    repeat = [step(rep)[0] for _ in range(2)]
+    del rep
+    gap = max(abs(a - losses[i + 1]) for i, a in enumerate(repeat))
+    log(f"phase 33 repeat of steps 1-2: {repeat} vs {[losses[1], losses[2]]}"
+        f" (largest gap {gap})")
+
+    def resume(engine, typ, **kw):
+        t0 = time.perf_counter()
+        path, _ = engine.load_checkpoint(root, **kw)
+        torch.cuda.synchronize()
+        rec[typ]["load_s"] = time.perf_counter() - t0
+        assert path == os.path.join(root, tags[typ]), (typ, path)
+        bad = state_mismatches(engine, snaps[typ])
+        assert not bad, (typ, bad[:8])
+        got = [step(engine)[0] for _ in range(p["resume_steps"])]
+        want = [losses[engine.global_step - p["resume_steps"] + 1 + i]
+                for i in range(p["resume_steps"])]
+        rec[typ]["resumed_losses"] = got
+        rec[typ]["uninterrupted_losses"] = want
+        assert all(abs(a - b) <= gap for a, b in zip(got, want)), \
+            (typ, got, want, gap)
+        assert engine.checkpoint_engine.counters["fallbacks"] == 0
+
+    for typ in ("sync", "native"):
+        eng = build(seed + 100, typ)
+        resume(eng, typ, tag=tags[typ])
+        del eng
+        if typ == "sync":
+            shutil.rmtree(os.path.join(root, tags["sync"]))
+
+    # controls: one byte flipped in a chunk of the newest tag
+    entry = corrupt_one_chunk_byte(
+        os.path.join(root, tags["native"], "shard-0.npz"))
+    eng = build(seed + 200, "async")
+    try:
+        eng.load_checkpoint(root, tag=tags["native"])
+    except ser.CheckpointCorruptionError as e:
+        log(f"control: the load of {tags['native']} with one byte flipped "
+            f"in {entry} raised CheckpointCorruptionError ({e}: "
+            f"{e.__cause__})")
+    else:
+        raise AssertionError("a corrupt tag loaded by name")
+    assert eng.checkpoint_engine.counters["load_fallbacks"] == 0
+    resume(eng, "async")           # no tag: falls back to the async tag
+    assert eng.checkpoint_engine.counters["load_fallbacks"] == 1, \
+        eng.checkpoint_engine.counters
+    rec["async"]["load_counters"] = dict(eng.checkpoint_engine.counters)
+    del eng
+    shutil.rmtree(root, ignore_errors=True)
+
+    launches = {k: v for mod in mods for k, v in mod.LAUNCHES.items()}
+    L = cfg.n_layer
+    want = {"flash_fwd": L * n_steps, "flash_bwd": L * n_steps,
+            "flash_bwd_qmajor": 0, "flash_block_fwd": 0,
+            "fused_ce": 2 * n_steps, "wq_matmul": 0,
+            **knob_launches(cfg, L, n_steps, chunks=2)}
+    assert launches == want, (launches, want)
+    assert_sm90("checkpoint slice", fa, fce, mm, main_path=True)
+    med_without = float(np.median(without))
+    for typ in p["engines"]:
+        r = rec[typ]
+        line = dict(
+            engine=typ, card=card, filesystem=fs, tag=r["tag"],
+            bytes=r["bytes"], blocked_s=r["blocked_s"],
+            latest_s=r["latest_s"],
+            write_gb_per_s=r["bytes"] / r["latest_s"] / 1e9,
+            load_s=r["load_s"],
+            overlap_steps=len(r["overlap_step_s"]),
+            overlap_step_s_median=(float(np.median(r["overlap_step_s"]))
+                                   if r["overlap_step_s"] else None),
+            step_s_median_without=med_without,
+            resumed_losses=r["resumed_losses"],
+            uninterrupted_losses=r["uninterrupted_losses"],
+            counters={k: v for k, v in r["counters"].items() if v})
+        CKPT_STATS[typ] = line
+        print("checkpoint " + json.dumps(line), flush=True)
+    log(f"phase 33: {n_steps} steps, repeat gap {gap}, launches {launches}")
+    return launches
 
 
 def main(argv=None):
@@ -5358,6 +5725,7 @@ def main(argv=None):
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
     from deepspeed_tpu_torch.op_builder import (BlockSparseAttentionBuilder,
+                                                CkptWriterBuilder,
                                                 FlashAttentionBuilder,
                                                 FusedCEBuilder,
                                                 GroupedMatmulBuilder,
@@ -5368,12 +5736,13 @@ def main(argv=None):
     builders = [PagedAttentionBuilder(), FlashAttentionBuilder(),
                 FusedCEBuilder(), GroupedMatmulBuilder(), MlpMatmulBuilder(),
                 LayerNormBuilder(), BlockSparseAttentionBuilder(),
-                QuantizationBuilder()]
+                QuantizationBuilder(), CkptWriterBuilder()]
     t0 = time.perf_counter()
-    build_all(builders)                # one nvcc per source, together
-    log(f"kernels built in {time.perf_counter() - t0:.1f} s wall")
+    build_all(builders)                # one compiler per source, together
+    log(f"kernels and the checkpoint writer (g++) built in "
+        f"{time.perf_counter() - t0:.1f} s wall")
     for b in builders:
-        log(f"  {b.NAME}: nvcc {b.build_seconds:.1f} s -> {b.so_path()}")
+        log(f"  {b.NAME}: {b.COMPILER} {b.build_seconds:.1f} s -> {b.so_path()}")
         for entry, regs, spill in ptxas_summary(b.build_log):
             log(f"    ptxas {entry}: {regs} registers, {spill} bytes "
                 f"spilled")
@@ -5466,7 +5835,10 @@ def main(argv=None):
     phase_zero_parity()
     phase_done("31 (two processes on cuda:0: ZeRO 0-3 at dp = 2 parity)")
     paths["gpt2-zero-train"] = phase_zero_slice()
-    phase_done("32 (GPT-2 350M at dp = 2, ZeRO-2 and ZeRO-3)")
+    phase_done("32 (GPT-2 350M at dp = 2, ZeRO-2 and ZeRO-3, a ZeRO-3 tag "
+               "resumed at dp = 1)")
+    paths["gpt2-ckpt-train"] = phase_checkpoint(card)
+    phase_done("33 (GPT-2 350M checkpoints: sync, async, native)")
 
     kernels = []
     for name, r in rows.items():

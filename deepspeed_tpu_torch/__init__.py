@@ -38,7 +38,9 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     ``WORLD_SIZE`` (dp = WORLD_SIZE / sequence_parallel_size), split by
     ``mics_shard_size`` / ``hpz_partition_size``; the batch triad
     resolves against that dp. ZeRO stages 0-3 partition over the
-    data-parallel ranks (``runtime/engine.py``)."""
+    data-parallel ranks (``runtime/engine.py``). ``seed`` makes the
+    engine's RNG words, ``jax.random.key(seed + 1)``'s as the JAX engine
+    keeps them (checkpointed as ``rng_data``)."""
     if config is None:
         config = config_params
     if config is None and args is not None:
@@ -54,7 +56,7 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
         init_distributed(device=device)
     engine = DeepSpeedEngine(model=model, config=config, optimizer=optimizer,
                              lr_scheduler=lr_scheduler, device=device,
-                             topology=topology)
+                             topology=topology, seed=seed)
     return engine, engine.optimizer, None, engine.lr_scheduler
 
 

@@ -1,10 +1,11 @@
-from .builder import (BlockSparseAttentionBuilder, CUDAOpBuilder,
-                      FlashAttentionBuilder, FusedCEBuilder,
-                      GroupedMatmulBuilder, LayerNormBuilder,
+from .builder import (BlockSparseAttentionBuilder, CkptWriterBuilder,
+                      CUDAOpBuilder, FlashAttentionBuilder, FusedCEBuilder,
+                      GroupedMatmulBuilder, HostOpBuilder, LayerNormBuilder,
                       MlpMatmulBuilder, PagedAttentionBuilder,
                       QuantizationBuilder, build_all)
 
-__all__ = ["BlockSparseAttentionBuilder", "CUDAOpBuilder",
-           "FlashAttentionBuilder", "FusedCEBuilder", "GroupedMatmulBuilder",
-           "LayerNormBuilder", "MlpMatmulBuilder", "PagedAttentionBuilder",
-           "QuantizationBuilder", "build_all"]
+__all__ = ["BlockSparseAttentionBuilder", "CkptWriterBuilder",
+           "CUDAOpBuilder", "FlashAttentionBuilder", "FusedCEBuilder",
+           "GroupedMatmulBuilder", "HostOpBuilder", "LayerNormBuilder",
+           "MlpMatmulBuilder", "PagedAttentionBuilder", "QuantizationBuilder",
+           "build_all"]

@@ -1,14 +1,17 @@
-"""Op builder: compile the port's CUDA sources with nvcc, load with ctypes.
+"""Op builder: compile the port's CUDA sources with nvcc and its host C++
+sources with g++, load with ctypes.
 
 Counterpart of ``deepspeed_tpu/op_builder/builder.py`` (``OpBuilder.load``:
 hash the sources and flags, build once into a content-addressed file,
 atomic tmp -> rename). Each ``csrc/*.cu`` exposes a plain ``extern "C"``
 interface, so the library is built with nvcc alone (no PyTorch headers,
-seconds instead of minutes) and bound with ctypes.
+seconds instead of minutes) and bound with ctypes; ``HostOpBuilder``
+builds a host-only ``csrc/*.cpp`` (the checkpoint writer pool) with g++
+the same way.
 
 Output: ``<repo>/build/deepspeed_tpu_torch/<name>-<hash>.so``. The build
-happens at first use. A missing nvcc or a failed build raises — there is
-no stub library and no fallback.
+happens at first use. A missing compiler or a failed build raises — there
+is no stub library and no fallback.
 """
 
 import ctypes
@@ -26,6 +29,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "deepspeed_tpu_torch")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+GXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-pthread"]
 
 
 def find_nvcc():
@@ -42,6 +46,13 @@ class CUDAOpBuilder:
     NAME = None
     SOURCES = ()
     DEPENDS = ()      # headers the sources include (hashed, not compiled)
+    COMPILER = "nvcc"
+
+    def flags(self):
+        return NVCC_FLAGS
+
+    def find_compiler(self):
+        return find_nvcc()
 
     def __init__(self):
         self._lib = None
@@ -57,7 +68,7 @@ class CUDAOpBuilder:
                                             for d in self.DEPENDS]:
             with open(s, "rb") as f:
                 h.update(f.read())
-        h.update(" ".join(NVCC_FLAGS).encode())
+        h.update(" ".join(self.flags()).encode())
         return h.hexdigest()[:16]
 
     def so_path(self):
@@ -70,15 +81,15 @@ class CUDAOpBuilder:
         so = self.so_path()
         if os.path.exists(so):
             return None
-        nvcc = find_nvcc()
-        if nvcc is None:
+        compiler = self.find_compiler()
+        if compiler is None:
             raise RuntimeError(
-                f"cannot build CUDA op '{self.NAME}': nvcc not found "
-                f"(PATH or /usr/local/cuda/bin)")
+                f"cannot build op '{self.NAME}': {self.COMPILER} not found")
         os.makedirs(BUILD_DIR, exist_ok=True)
         self._tmp = f"{so}.{os.getpid()}.tmp"
-        cmd = [nvcc] + NVCC_FLAGS + self.absolute_sources() + ["-o", self._tmp]
-        logger.info(f"building CUDA op '{self.NAME}': {' '.join(cmd)}")
+        cmd = [compiler] + self.flags() + self.absolute_sources() + [
+            "-o", self._tmp]
+        logger.info(f"building op '{self.NAME}': {' '.join(cmd)}")
         self._t0 = time.perf_counter()
         return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.PIPE, text=True)
@@ -94,8 +105,8 @@ class CUDAOpBuilder:
         self.build_log = err
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed for op '{self.NAME}' (rc={proc.returncode}):\n"
-                f"{out}\n{err}")
+                f"{self.COMPILER} failed for op '{self.NAME}' "
+                f"(rc={proc.returncode}):\n{out}\n{err}")
         os.replace(self._tmp, so)
         return so
 
@@ -159,10 +170,29 @@ class QuantizationBuilder(CUDAOpBuilder):
     SOURCES = ("quantization.cu",)
 
 
+class HostOpBuilder(CUDAOpBuilder):
+    """A host-only C++ library (``csrc/*.cpp``, a C interface), built with
+    g++ into the same content-addressed place (the JAX
+    ``op_builder/builder.py:85-100`` ``OpBuilder.load``)."""
+    COMPILER = "g++"
+
+    def flags(self):
+        return GXX_FLAGS
+
+    def find_compiler(self):
+        return shutil.which("g++")
+
+
+class CkptWriterBuilder(HostOpBuilder):
+    NAME = "ckpt_writer"
+    SOURCES = ("ckpt_writer.cpp",)
+    DEPENDS = ("pool.h",)
+
+
 def build_all(builders):
-    """Build every builder's library with one nvcc per source, all started
-    together, and wait for all of them; a failed build raises after every
-    process has ended."""
+    """Build the library of each of ``builders`` with one compiler per
+    source, all started together, and wait for all of them; a failed build
+    raises after every process has ended."""
     procs = []
     try:
         for b in builders:

@@ -4,8 +4,9 @@ Own copy of ``deepspeed_tpu/runtime/config.py`` for the training slice:
 the batch-size triad with the same resolution rules and error text, the
 precision blocks, the ZeRO block, optimizer, gradient clipping,
 ``data_types.grad_accum_dtype``, ``steps_per_print``, the ``moe`` block,
-``sequence_parallel_size`` with the ``sequence`` block and the
-``comms_logger`` block, with the same unknown-key warnings inside a block. A block the port does
+``sequence_parallel_size`` with the ``sequence`` block, the
+``comms_logger`` block and the ``checkpoint_engine`` block, with the same
+unknown-key warnings inside a block. A block the port does
 not carry yet raises NotImplementedError naming its ROADMAP item when it
 is enabled.
 """
@@ -193,6 +194,126 @@ class CommsLoggerConfig:
 
 
 @dataclass
+class CheckpointEngineConfig:
+    """The JAX ``CheckpointEngineConfig`` (its runtime/config.py:236-348):
+    one block with a type switch (``runtime/checkpoint_engine/engines.py``
+    ``ENGINES``: sync, async, native, none and the reference-fork aliases),
+    the crash-consistency knobs (retry/degrade policy, retention) and the
+    hot-tier fields with the same defaults and validation. The hot tier
+    and the preemption drain are not ported: a block that turns either on
+    (``true``, or ``"auto"`` resolving to on) raises, naming ROADMAP
+    Queue 1, M14."""
+    type: str = "sync"                # sync | async | native | none
+    host_cache_bytes: int = 1 << 30   # pinned-host staging budget (async/native)
+    writer_threads: int = 2
+    max_inflight: int = 2
+    # retry/degrade policy: each shard write gets save_retries retries
+    # with capped exponential backoff, then the engine's degraded writer
+    # (native -> python; async pool dead -> in-caller sync write)
+    save_retries: int = 2
+    retry_backoff_s: float = 0.05
+    retry_backoff_cap_s: float = 2.0
+    # retention: keep the newest keep_last durable tags, GC older ones
+    # only after the newest verifies (CRC + chunk coverage). 0 = keep all.
+    keep_last: int = 0
+    # hot tier (JAX checkpoint_engine/hot_tier.py; M14): peer-replicated
+    # in-memory generations so the common single-host loss restores with
+    # zero persistent-storage reads.
+    #   hot_tier      "auto" (on iff an elastic launcher exported the
+    #                 ring env — DSTPU_HOT_PEERS/DSTPU_HOT_TIER_ROOT/
+    #                 DSTPU_HOT_TRANSPORT) | true | false. 'auto' is
+    #                 deliberately NOT on for a bare multi-process
+    #                 world: the default fs transport writes into
+    #                 node-local tmpfs, which only survives a host loss
+    #                 when the launcher wired the ring (or the dcn
+    #                 transport moves bytes between hosts) — pushing
+    #                 replicas nobody could ever restore from would be
+    #                 pure per-save overhead
+    #   hot_replicas  K: ring neighbors receiving each shard replica
+    #   hot_root      store root ("" = DSTPU_HOT_TIER_ROOT env, else
+    #                 tmpfs /dev/shm — host RAM, the point of the tier)
+    #   hot_keep_last hot-tier retention (a bounded RAM cache, not an
+    #                 archive)
+    hot_tier: object = "auto"
+    hot_replicas: object = 1          # int >= 0 | "auto" (winner cache)
+    hot_root: str = ""
+    hot_keep_last: int = 2
+    # async-push backlog bound (hot_tier.push_async): at most this many
+    # pending pushes; the oldest queued one is dropped (counted as an
+    # advisory hot_push_errors) and a newer push of the same tag
+    # supersedes a still-queued one
+    hot_max_inflight_pushes: int = 4
+    # preemption-graceful drain: on SIGTERM (maintenance notice /
+    # elastic-agent forward) finish the in-flight step, force one
+    # hot+replica push and a flight-recorder dump, then exit with
+    # PREEMPTED_EXIT_CODE so the agent classifies 'preempted' (no
+    # backoff). "auto" = on iff supervised (ELASTIC_GENERATION in env
+    # or DSTPU_PREEMPT_DRAIN exported) | true | false.
+    preempt_drain: object = "auto"
+
+    def __post_init__(self):
+        if self.save_retries < 0:
+            raise DeepSpeedConfigError(
+                f"checkpoint_engine.save_retries must be >= 0, got "
+                f"{self.save_retries}")
+        if self.keep_last < 0:
+            raise DeepSpeedConfigError(
+                f"checkpoint_engine.keep_last must be >= 0 (0 disables "
+                f"retention GC), got {self.keep_last}")
+        if self.hot_tier not in (True, False, "auto"):
+            raise DeepSpeedConfigError(
+                f"checkpoint_engine.hot_tier must be true|false|'auto', "
+                f"got {self.hot_tier!r}")
+        if self.hot_replicas != "auto" and (
+                not isinstance(self.hot_replicas, int)
+                or isinstance(self.hot_replicas, bool)
+                or self.hot_replicas < 0):
+            raise DeepSpeedConfigError(
+                f"checkpoint_engine.hot_replicas must be an int >= 0 or "
+                f"'auto', got {self.hot_replicas!r}")
+        if self.hot_keep_last < 1:
+            raise DeepSpeedConfigError(
+                f"checkpoint_engine.hot_keep_last must be >= 1 (the "
+                f"tier must hold at least the newest generation), got "
+                f"{self.hot_keep_last}")
+        if not isinstance(self.hot_max_inflight_pushes, int) \
+                or isinstance(self.hot_max_inflight_pushes, bool) \
+                or self.hot_max_inflight_pushes < 1:
+            raise DeepSpeedConfigError(
+                f"checkpoint_engine.hot_max_inflight_pushes must be an "
+                f"int >= 1 (the bound must admit at least one pending "
+                f"push), got {self.hot_max_inflight_pushes!r}")
+        if self.preempt_drain not in (True, False, "auto"):
+            raise DeepSpeedConfigError(
+                f"checkpoint_engine.preempt_drain must be "
+                f"true|false|'auto', got {self.preempt_drain!r}")
+
+    def resolve_preempt_drain(self):
+        """'auto' arms the SIGTERM drain iff something supervises us —
+        an elastic agent (ELASTIC_GENERATION) or an operator export
+        (DSTPU_PREEMPT_DRAIN). Unsupervised runs keep the default
+        SIGTERM disposition: nothing would classify the distinct exit
+        code, and hijacking the signal would only delay teardown."""
+        import os
+        if self.preempt_drain != "auto":
+            return bool(self.preempt_drain)
+        return bool(os.environ.get("ELASTIC_GENERATION") is not None
+                    or os.environ.get("DSTPU_PREEMPT_DRAIN"))
+
+    def resolve_hot_tier(self, nprocs=1):
+        """'auto' turns the tier on iff an elastic launcher (or the
+        operator) exported the ring env. ``nprocs`` is accepted for
+        call-site symmetry but deliberately unused — see the hot_tier
+        field comment."""
+        import os
+        if self.hot_tier != "auto":
+            return bool(self.hot_tier)
+        return bool(os.environ.get("DSTPU_HOT_PEERS")
+                    or os.environ.get("DSTPU_HOT_TIER_ROOT")
+                    or os.environ.get("DSTPU_HOT_TRANSPORT"))
+
+
+@dataclass
 class OptimizerConfig:
     type: str = "AdamW"
     params: dict = field(default_factory=dict)
@@ -216,10 +337,14 @@ def _enabled(block):
     return isinstance(block, dict) and block.get("enabled", False) is True
 
 
-def _unported(raw, zero, fp16):
+def _unported(raw, zero, fp16, ckpt):
     """(what, ROADMAP item) for every enabled block the port does not
     carry yet."""
     out = []
+    if ckpt.resolve_hot_tier():
+        out.append(("checkpoint_engine hot_tier", "M14, hot tier"))
+    if ckpt.resolve_preempt_drain():
+        out.append(("checkpoint_engine preempt_drain", "M14, hot tier"))
     if zero.offload_optimizer.enabled or zero.offload_param.enabled:
         out.append(("zero_optimization offload_optimizer/offload_param",
                     "M14, offload"))
@@ -274,6 +399,7 @@ class DeepSpeedConfig:
         if not isinstance(config, dict):
             raise DeepSpeedConfigError(
                 f"expected dict or json path, got {type(config)}")
+        self._raw = config
         self.dp_world_size = dp_world_size
 
         self.train_batch_size = config.get(C.TRAIN_BATCH_SIZE)
@@ -299,6 +425,8 @@ class DeepSpeedConfig:
             config.get(C.SEQUENCE_PARALLEL_SIZE, 1))
         self.comms_logger = _take(config, CommsLoggerConfig,
                                   C.COMMS_LOGGER)
+        self.checkpoint_engine = _take(config, CheckpointEngineConfig,
+                                       "checkpoint_engine")
 
         opt = config.get(C.OPTIMIZER)
         self.optimizer = None if opt is None else _take(
@@ -307,7 +435,7 @@ class DeepSpeedConfig:
         dtypes = config.get(C.DATA_TYPES, {})
         self.grad_accum_dtype = dtypes.get(C.GRAD_ACCUM_DTYPE)
 
-        bad = _unported(config, self.zero, self.fp16)
+        bad = _unported(config, self.zero, self.fp16, self.checkpoint_engine)
         if bad:
             raise NotImplementedError(
                 "config blocks the PyTorch port does not carry yet: "

@@ -45,10 +45,24 @@ overflow flag are all-reduced over the partition group, so every rank
 clips, steps or skips alike. Collectives over one rank are skipped. At one
 data-parallel rank no stage partitions anything and all give the same
 result. Each collective moves one flat buffer a dtype.
+
+Checkpoints (``save_checkpoint`` / ``load_checkpoint``, the JAX
+engine.py:1718-2201) write and read the JAX package's files: one
+``{save_dir}/{tag}/shard-{rank}.npz`` a rank (this rank's chunks of the
+fp32 master, the optimizer state, the loss-scale state, ``step``,
+``skipped`` and ``rng_data``, keyed by the JAX tree paths) and the
+``latest`` pointer, published only once every rank's shard is durable.
+The engine copies its shards to host memory first (``d2h``), then hands
+them to the ``checkpoint_engine`` config block's engine (sync, async,
+native, none). A load reassembles the global arrays, takes this rank's
+shards through the current plan, recasts the working parameters from the
+master and adapts to a changed topology or ZeRO stage (the global batch
+kept by rescaling gas, micro_steps realigned, the RNG words folded).
 """
 
 import json
 import os
+import time
 
 import numpy as np
 import torch
@@ -56,17 +70,20 @@ import torch
 from .. import comm
 from ..models.gpt2_moe import GPT2MoE
 from ..ops.optimizers import build_optimizer
-from ..utils import groups
+from ..utils import fault_injection, groups, prng
 from ..utils.device import resolve_device
 from ..utils.logging import log_dist
+from . import constants as C
+from .checkpoint_engine import manager as ckpt_manager
+from .checkpoint_engine import serialization as ser
+from .checkpoint_engine.engines import create_checkpoint_engine
 from .config import DeepSpeedConfig
 from .fp16.loss_scaler import create_loss_scaler, grads_finite
 from .zero.partitioning import (ZeroShardingPlan, flat_all_gather,
-                                flat_reduce_scatter, shard)
+                                flat_reduce_scatter, reshape_diff, shard)
 
 _TODO_MOE_DP = "(ROADMAP Queue 1, S9 (rest): GPT2MoE at dp > 1 (aux loss " \
     "over the global batch))"
-_TODO_CKPT = "(ROADMAP Queue 1, M7: checkpoints)"
 
 
 def _jax_order(names):
@@ -99,6 +116,24 @@ def _topology_config(config):
                                  zero_shard_size=shard_size)
 
 
+def _nest(named):
+    """{"blocks.wq": x} -> {"blocks": {"wq": x}} (the JAX tree)."""
+    out = {}
+    for n, v in named.items():
+        node = out
+        *head, last = n.split(".")
+        for h in head:
+            node = node.setdefault(h, {})
+        node[last] = v
+    return out
+
+
+def _leaf(tree, name):
+    for part in name.split("."):
+        tree = tree[part]
+    return tree
+
+
 def _by_axes(names, part):
     """{axes: [names]} of the partitioned names of a plan part."""
     out = {}
@@ -111,7 +146,7 @@ def _by_axes(names, part):
 
 class DeepSpeedEngine:
     def __init__(self, model, config, optimizer=None, lr_scheduler=None,
-                 device=None, topology=None):
+                 device=None, topology=None, seed=0):
         if lr_scheduler is not None:
             raise NotImplementedError(
                 "lr_scheduler objects are not ported yet (ROADMAP Queue 1, "
@@ -155,6 +190,14 @@ class DeepSpeedEngine:
         self.micro_steps = 0
         self.skipped_steps = 0
         self._global_grad_norm = None
+        # the JAX engine's state key, jax.random.key(seed + 1), as its two
+        # threefry words: checkpointed as rng_data, folded on a reshape
+        self.rng_data = prng.key_data(seed + 1)
+        self.checkpoint_engine = create_checkpoint_engine(
+            self.config.checkpoint_engine)
+        # the last save_checkpoint: its tag, the seconds it blocked the
+        # caller and the seconds until 'latest' named it (None until then)
+        self.last_save = None
 
         if optimizer is None:
             if self.config.optimizer is None:
@@ -488,10 +531,300 @@ class DeepSpeedEngine:
         n = self._global_grad_norm
         return None if n is None else float(n)
 
-    def save_checkpoint(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"save_checkpoint is not ported yet {_TODO_CKPT}")
+    # ------------------------------------------------------------ checkpoint
+    def _ckpt_tree(self):
+        """(tree, parts): the state to save as the JAX engine's
+        ``_ckpt_tree`` (engine.py:1718) — fp32 master, optimizer state,
+        loss-scale state, ``step`` and ``skipped`` (0-d int32) and
+        ``rng_data`` (uint32 (2,)), nested by the JAX tree paths — with
+        this rank's shards where the plan partitions a leaf; ``parts``:
+        key -> (dim, axes) of every partitioned leaf."""
+        st, plan = self.state, self.plan
+        parts = {}
 
-    def load_checkpoint(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"load_checkpoint is not ported yet {_TODO_CKPT}")
+        def nest(prefix, named):
+            for n in named:
+                parts[f"{prefix}/{n.replace('.', '/')}"] = \
+                    plan.parts["master"][n]
+            return _nest(named)
+
+        opt = {k: (nest(f"opt/{k}", v) if isinstance(v, dict) else v)
+               for k, v in st["opt"].items()}
+        tree = {"master": nest("master", st["master"]), "opt": opt,
+                "scale": dict(st["scale"]),
+                "step": np.asarray(st["step"], np.int32),
+                "skipped": np.asarray(self.skipped_steps, np.int32),
+                "rng_data": np.asarray(self.rng_data, np.uint32)}
+        return tree, {k: v for k, v in parts.items() if v[0] is not None}
+
+    def save_checkpoint(self, save_dir, tag=None, client_state=None,
+                        save_latest=True):
+        """Save this rank's shard of the state as the JAX engine does
+        (engine.py:1771-1911): ``{save_dir}/{tag}/shard-{rank}.npz`` and,
+        once every rank's shard is durable, ``{save_dir}/latest`` (with
+        ``.latest_seq`` = the global step). The tag defaults to
+        ``global_step{N}``. Each rank copies its shards to host memory
+        before it returns (so training may go on at once), then the
+        configured engine writes them (an async or native engine off
+        this thread). At world > 1 every rank waits for its own write,
+        then all agree through an all-reduce (min) of success flags before
+        rank 0 publishes; a failed rank still reaches the collective, and
+        a failure anywhere leaves 'latest' on the previous generation.
+        Returns the tag."""
+        t_start = time.perf_counter()
+        tag = tag or f"global_step{self.global_step}"
+        self.checkpoint_engine.create(tag)
+        # device -> host copy of this rank's shards (the VELOC D2H stage)
+        fault_injection.fire("d2h")
+        tree, parts = self._ckpt_tree()
+        chunks, index, meta = ser.extract_local_chunks(
+            tree, lambda k: parts.get(k, (None, ())), self.topology)
+        cfg = self.config
+        extra = {
+            "index": index,
+            "__tree_meta__": meta,
+            "user_extra": {
+                "global_step": self.global_step,
+                "micro_steps": self.micro_steps,
+                "zero_stage": self.zero_stage,
+                "nprocs": self.topology.world_size,
+                "lr_scheduler": None,
+                "client_state": client_state or {},
+                # reshape-on-resume metadata: the topology / batch this
+                # generation was written under and the plan (diagnostic;
+                # a load re-derives the partitions from the current plan)
+                "topology": self._topology_desc(),
+                "batch": {
+                    "train_batch_size": cfg.train_batch_size,
+                    "micro": cfg.train_micro_batch_size_per_gpu,
+                    "gas": cfg.gradient_accumulation_steps,
+                },
+                "zero_plan": self.plan.describe(),
+                "sampler": None,
+            },
+        }
+        rank = self.topology.rank
+        path = os.path.join(save_dir, tag, f"shard-{rank}.npz")
+        keep_last = cfg.checkpoint_engine.keep_last
+        # captured NOW: async saves can reach durability out of order;
+        # the seq guard keeps 'latest' from regressing
+        seq = self.global_step
+        times = self.last_save = {"tag": tag, "blocked_s": None,
+                                  "latest_s": None}
+
+        def mark_latest():
+            if ckpt_manager.publish_latest(save_dir, tag, seq=seq):
+                times["latest_s"] = time.perf_counter() - t_start
+            # retention GC rides the durability path (the writer thread
+            # for async engines); gc_tags re-verifies the newest tag
+            # before deleting anything and never raises
+            ckpt_manager.gc_tags(save_dir, keep_last,
+                                 counters=self.checkpoint_engine.counters)
+
+        rank0 = rank == 0
+        if save_latest and self.topology.world_size > 1:
+            err = None
+            try:
+                self.checkpoint_engine.save((chunks, extra), path)
+                self.checkpoint_engine.wait()
+            except Exception as e:  # noqa: BLE001 - re-raised after sync
+                err = e
+            flag = torch.tensor([0.0 if err is not None else 1.0],
+                                device=self.device)
+            all_ok = float(comm.all_reduce(flag, groups.MESH_AXES,
+                                           op="min")[0]) >= 1.0
+            # a no-op engine writes nothing: 'latest' would dangle
+            if rank0 and all_ok and os.path.exists(path):
+                mark_latest()
+            elif rank0 and not all_ok:
+                log_dist(
+                    f"not publishing 'latest' for tag {tag!r}: a rank's "
+                    f"shard write failed; the previous durable "
+                    f"generation remains the recovery point", ranks=[0])
+            if err is not None:
+                raise err
+        else:
+            self.checkpoint_engine.save(
+                (chunks, extra), path,
+                on_durable=(mark_latest if save_latest and rank0
+                            else None))
+        self.checkpoint_engine.commit(tag)
+        times["blocked_s"] = time.perf_counter() - t_start
+        return tag
+
+    def _topology_desc(self):
+        t = self.topology
+        return {"world": int(t.world_size),
+                "dp": t.get_data_parallel_world_size(),
+                "tp": t.get_model_parallel_world_size(),
+                "ep": t.get_expert_parallel_world_size(),
+                "seq": t.get_sequence_parallel_world_size(),
+                "pipe": t.get_pipe_parallel_world_size()}
+
+    def load_checkpoint(self, load_dir, tag=None,
+                        load_optimizer_states=True,
+                        load_lr_scheduler_states=True,
+                        elastic_reshape=True):
+        """Load a generation (the JAX engine.py:1958-2083). Returns
+        ``(path, client_state)``, ``(None, {})`` when ``load_dir`` holds
+        no checkpoint.
+
+        Pending async saves are drained first (without raising: a failed
+        save must not block reading what did land). With no ``tag``, the
+        generation 'latest' names is tried first, then every other tag
+        newest first: a corrupt or truncated shard (CRC mismatch, torn
+        zip, missing chunks) falls back to the previous durable
+        generation (``counters["load_fallbacks"]``). An explicit ``tag``
+        is never substituted; when generations exist and none loads,
+        CheckpointCorruptionError is raised. The global arrays go to this
+        rank's shards through the current plan, any ZeRO stage or dp;
+        the working parameters are recast from the master. With
+        ``elastic_reshape`` a checkpoint of another topology or stage
+        keeps its global batch (gas rescaled), realigns micro_steps and
+        folds the RNG words for the new world.
+        ``load_lr_scheduler_states`` is accepted for parity (the port has
+        no scheduler)."""
+        self.checkpoint_engine.drain()
+
+        def loader(tag_dir):
+            legacy = os.path.join(tag_dir, "state.npz")
+            if os.path.exists(legacy):
+                return self.checkpoint_engine.load(legacy)
+            return ser.load_sharded(tag_dir)
+
+        _, cand, flat, header = ckpt_manager.load_best_tiered(
+            load_dir, tag, loader=loader,
+            counters=self.checkpoint_engine.counters)
+        if cand is None:
+            return None, {}
+        tree = ser.unflatten_into(self._ckpt_tree()[0], flat,
+                                  header.get("meta"))
+        extra = header["extra"]
+        self._restore(tree, load_optimizer_states)
+        self.global_step = int(extra.get("global_step", 0))
+        self.micro_steps = int(extra.get("micro_steps", 0))
+        if elastic_reshape:
+            self._reshape_on_resume(extra)
+        return os.path.join(load_dir, cand), extra.get("client_state", {})
+
+    def _restore(self, tree, load_optimizer_states):
+        """The loaded global arrays into the state: this rank's master
+        (and moment) shards, the working parameters cast from the whole
+        master (no collective: every rank holds the global arrays)."""
+        st, dev = self.state, self.device
+
+        def into(dst, arr, name):
+            src = self._shard(torch.from_numpy(np.asarray(arr)), "master",
+                              name)
+            if tuple(src.shape) != tuple(dst.shape):
+                raise ValueError(
+                    f"checkpoint leaf {name}: shard {tuple(src.shape)} does "
+                    f"not match this engine's {tuple(dst.shape)}")
+            dst.copy_(src)
+
+        def scalar(arr, like):
+            return torch.as_tensor(np.asarray(arr)).to(dev, like.dtype)
+
+        with torch.no_grad():
+            master = {n: _leaf(tree["master"], n) for n in self._names}
+            for n in self._names:
+                into(st["master"][n], master[n], n)
+            if load_optimizer_states:
+                for k, v in st["opt"].items():
+                    if isinstance(v, dict):
+                        for n in v:
+                            into(v[n], _leaf(tree["opt"][k], n), n)
+                    else:
+                        st["opt"][k] = scalar(tree["opt"][k], v)
+            st["scale"] = {k: scalar(tree["scale"][k], v)
+                           for k, v in st["scale"].items()}
+            params, shards = st["params"], st["param_shards"]
+            for n in self._names:
+                whole = torch.from_numpy(np.asarray(master[n])).to(
+                    dev).to(self.param_dtype)
+                if n in shards:
+                    shards[n].copy_(self._shard(whole, "param", n))
+                else:
+                    params[n].copy_(whole)
+        st["step"] = int(tree["step"])
+        self.skipped_steps = int(tree["skipped"])
+        self.rng_data = np.asarray(tree["rng_data"], np.uint32).copy()
+
+    def _preserve_saved_global_batch(self, extra):
+        """The global-batch rule (JAX engine.py:2085-2131): the
+        checkpoint's train_batch_size wins over one derived from a
+        micro-batch-only config (an explicit ``train_batch_size`` in the
+        config is respected, with a warning); with the micro batch fixed,
+        gas becomes ``saved_train_batch / (micro * dp)``, and an
+        indivisible combination raises. Returns True when gas changed."""
+        target = (extra.get("batch") or {}).get("train_batch_size")
+        cfg = self.config
+        if not target or target == cfg.train_batch_size:
+            return False
+        if C.TRAIN_BATCH_SIZE in getattr(cfg, "_raw", {}):
+            log_dist(
+                f"resume: checkpoint global batch {target} != the "
+                f"explicitly configured train_batch_size "
+                f"{cfg.train_batch_size}; the explicit config wins (drop "
+                f"train_batch_size from the config to preserve the "
+                f"checkpoint's batch across topologies)", ranks=[0])
+            return False
+        micro = cfg.train_micro_batch_size_per_gpu
+        new_gas = target // max(1, micro * self.dp)
+        if new_gas < 1 or new_gas * micro * self.dp != target:
+            raise ValueError(
+                f"reshape-on-resume: cannot preserve the global batch size "
+                f"{target} at dp={self.dp} with micro_batch={micro} (needs "
+                f"gradient_accumulation_steps={target}/{micro * self.dp}); "
+                f"pick a micro batch that divides it")
+        log_dist(
+            f"resume: preserving global batch {target}: "
+            f"gradient_accumulation_steps {cfg.gradient_accumulation_steps}"
+            f" -> {new_gas} at dp={self.dp}", ranks=[0])
+        cfg.gradient_accumulation_steps = new_gas
+        cfg.train_batch_size = target
+        return True
+
+    def _reshape_on_resume(self, extra):
+        """Adapt the resumed run to a changed topology or ZeRO stage (the
+        JAX engine.py:2133-2195; the load already re-partitioned the
+        global arrays onto the current plan). Returns True when the
+        checkpoint was written under another topology or stage. The
+        global batch is kept (gas rescaled, micro_steps realigned) also
+        without a change; on a topology change micro_steps realign and
+        the RNG words fold with ``dp * 1000003 + world``, so every
+        resumed world derives the same key, distinct from the old one."""
+        saved_topo = extra.get("topology") or {}
+        cur_topo = self._topology_desc()
+        stage_changed = ("zero_stage" in extra
+                         and extra["zero_stage"] != self.zero_stage)
+        topo_changed = bool(saved_topo) and saved_topo != cur_topo
+        rescaled = self._preserve_saved_global_batch(extra)
+        if rescaled:
+            self.micro_steps = self.global_step * \
+                self.config.gradient_accumulation_steps
+        if not topo_changed and not stage_changed:
+            return rescaled
+        fault_injection.fire("reshape")
+        diff = reshape_diff(extra.get("zero_plan"), self.plan)
+        log_dist(
+            f"reshape-on-resume: checkpoint topology {saved_topo} / stage "
+            f"{extra.get('zero_stage')} -> {cur_topo} / stage "
+            f"{self.zero_stage}; {len(diff['resharded'])} leaves "
+            f"re-partitioned (group {diff['old_partition_group']} -> "
+            f"{diff['new_partition_group']}), {len(diff['replicated'])} "
+            f"replicated on the new mesh", ranks=[0])
+        if topo_changed:
+            self.micro_steps = self.global_step * \
+                self.config.gradient_accumulation_steps
+            fold = int(cur_topo["dp"]) * 1000003 + int(cur_topo["world"])
+            self.rng_data = prng.fold_in(self.rng_data, fold)
+        return True
+
+    def save_checkpoint_terminate(self):
+        """Drain async checkpoint work (the fork's engine.py:3114):
+        barrier, wait, shut the engine down, barrier."""
+        comm.barrier()
+        self.checkpoint_engine.wait()
+        self.checkpoint_engine.shutdown()
+        comm.barrier()

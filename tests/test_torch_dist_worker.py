@@ -279,22 +279,86 @@ def gpt2(inp, rank, world):
     return {"res": _np(out)}
 
 
+def _local_state(engine):
+    """This rank's saved leaves (master and moment shards, scale, steps,
+    rng words) as numpy."""
+    st = engine.state
+    out = {f"master.{n}": m.numpy().copy() for n, m in st["master"].items()}
+    for k in ("m", "v"):
+        out.update({f"{k}.{n}": x.numpy().copy()
+                    for n, x in st["opt"][k].items()})
+    out.update({f"scale.{k}": v.numpy().copy()
+                for k, v in st["scale"].items()})
+    out.update(step=np.asarray(st["step"]),
+               opt_step=st["opt"]["step"].numpy().copy(),
+               rng=np.asarray(engine.rng_data).copy())
+    return out
+
+
+def _ckpt_runs(inp, engines):
+    """Checkpoints at this world's dp: each engine of ``inp["ckpt"]
+    ["names"]`` (after its run) saves a tag, a fresh engine loads it
+    (explicit tag) and both take the ``next`` batch; a fresh engine also
+    loads the JAX engine's tag of that run and takes the same batch."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.utils import groups
+    spec = inp["ckpt"]
+    out = {}
+    for name in spec["names"]:
+        run, engine = inp["runs"][name], engines[name]
+        d = os.path.join(spec["dir"], name)
+        tag = engine.save_checkpoint(d, client_state={"run": name})
+        comm.barrier()
+        saved = _local_state(engine)
+        # a copy: at stage 0 gathered_master() is the live master
+        master = {n: m.clone() for n, m in engine.gathered_master().items()}
+        loss = engine.train_batch(spec["next"])
+
+        def fresh():
+            groups.reset()
+            e, *_ = deepspeed_tpu_torch.initialize(
+                model=_gpt2(run["model"], run["params"]),
+                config=run["config"], device="cpu")
+            return e
+        e2 = fresh()
+        path, client = e2.load_checkpoint(d, tag=tag)
+        steps = (e2.global_step, e2.micro_steps)
+        got = _local_state(e2)
+        same = (set(got) == set(saved) and all(
+            got[k].dtype == saved[k].dtype and np.array_equal(got[k], saved[k])
+            for k in saved))
+        resumed = e2.train_batch(spec["next"])
+        e3 = fresh()
+        e3.load_checkpoint(spec["jax_dirs"][name])
+        from_jax = e3.train_batch(spec["next"])
+        out[name] = {
+            "tag": tag, "client": client, "path": path,
+            "global_step": steps[0], "micro_steps": steps[1],
+            "state_bitwise": same, "master": master, "next_loss": loss,
+            "resumed_loss": resumed, "from_jax_loss": from_jax,
+            "from_jax_master": e3.gathered_master()}
+    return out
+
+
 @_suite
 def zero(inp, rank, world):
     """Each run of ``inp["runs"]`` through initialize -> train_batch on
     this world (the engine builds its topology from the config): the
     losses and global gradient norms, each step's clipped gradients (what
     the optimizer is given, gathered whole), the gathered fp32 master,
-    this rank's master and stage-3 parameter shard shapes."""
+    this rank's master and stage-3 parameter shard shapes; then, with
+    ``inp["ckpt"]``, the checkpoint runs of ``_ckpt_runs``."""
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.runtime import engine as eng
     from deepspeed_tpu_torch.utils import groups
-    out = {}
+    out, engines = {}, {}
     for name, run in inp["runs"].items():
         groups.reset()
         engine, *_ = deepspeed_tpu_torch.initialize(
             model=_gpt2(run["model"], run["params"]), config=run["config"],
             device="cpu")
+        engines[name] = engine
         steps = []
         unscale_clip = engine._unscale_clip
 
@@ -315,13 +379,18 @@ def zero(inp, rank, world):
             losses.append(engine.train_batch(b))
             norms.append(engine.get_global_grad_norm())
         out[name] = {
-            "losses": losses, "grad_norms": norms, "grads": steps,
-            "master": engine.gathered_master(),
+            "losses": losses, "grad_norms": norms, "grads": list(steps),
+            # copies: at stage 0 gathered_master() is the live master,
+            # which the checkpoint runs step on
+            "master": {n: m.clone()
+                       for n, m in engine.gathered_master().items()},
             "dp": engine.dp,
             "shard_shapes": {n: tuple(m.shape) for n, m in
                              engine.state["master"].items()},
             "param_shards": {n: tuple(p.shape) for n, p in
                              engine.state["param_shards"].items()}}
+    if inp.get("ckpt"):
+        out["ckpt"] = _ckpt_runs(inp, engines)
     return {"res": _np(out)}
 
 

@@ -210,8 +210,10 @@ def test_engine_guards():
         model=model, config=_engine_config(), device="cpu")
     with pytest.raises(ValueError, match="train_batch_size"):
         eng.train_batch(_batches(1, 4)[0])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.save_checkpoint("/nonexistent")
+    with pytest.raises(NotImplementedError, match="ROADMAP.*M14, hot tier"):
+        deepspeed_tpu_torch.initialize(
+            model=model, config=_engine_config(
+                checkpoint_engine={"hot_tier": True}), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         deepspeed_tpu_torch.initialize(model=model, config=_engine_config(),
                                        training_data=[1], device="cpu")

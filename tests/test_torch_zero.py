@@ -17,7 +17,16 @@ runtime/engine.py) held against the JAX package on CPU, in gloo worlds of
 - each run at dp = 2 and 4 against the same port at dp = 1 (the ZeRO
   stage-parity test of tests/unit/test_engine.py), with each step's
   global gradient norm, and the master and stage-3 parameters held as
-  shards."""
+  shards;
+- checkpoints at dp = 2 (ZeRO 0-3, after the gas-1 runs): two shard
+  files a tag; a fresh dp = 2 engine loads it bitwise and resumes bitwise; the
+  port at dp = 1 loads it (gas 1 -> 2 keeps the global batch, micro_steps
+  realigned, the gathered master bitwise) and its next step matches dp =
+  2's; the JAX engine on the 2-device mesh loads the port's tag and the
+  port loads the JAX engine's, each next step within rtol 2e-5 of the
+  other side's (the master within a relative error norm of 1e-4)."""
+
+import os
 
 import numpy as np
 import pytest
@@ -32,6 +41,8 @@ from deepspeed_tpu.models import GPT2Config as JGPT2Config
 from deepspeed_tpu.runtime.zero import partitioning as jpart
 from deepspeed_tpu.utils import groups as jgroups
 from deepspeed_tpu_torch.models import GPT2, GPT2Config, gpt2_params_from_numpy
+from deepspeed_tpu_torch.runtime.checkpoint_engine import serialization as tser
+from deepspeed_tpu_torch.utils import prng as tprng
 from deepspeed_tpu_torch.runtime.zero import partitioning as tpart
 from deepspeed_tpu_torch.utils import groups as tgroups
 from test_torch_dist_worker import run_world
@@ -57,6 +68,11 @@ RING = dict(CFG, attention_backend="ring")
 MICRO = 2
 CLIP = 0.5       # under the tiny model's gradient norm (~1): every step clips
 DP2 = [(stage, gas) for stage in (0, 1, 2, 3) for gas in (1, 2)]
+CKPT = [f"s{stage}_gas1" for stage in range(4)]   # checkpointed at dp = 2
+NEXT = {"input_ids": np.random.RandomState(99).randint(
+    0, 128, (MICRO * 2, 32)).astype(np.int32)}
+CKPT_LOSS_RTOL = 2e-5
+CKPT_MASTER_REL_NORM = 1e-4
 DP4 = {"s2_mics": (2, {"mics_shard_size": 2}),
        "s2_hpz": (2, {"hpz_partition_size": 2}),
        "s3_mics": (3, {"mics_shard_size": 2}),
@@ -91,10 +107,12 @@ def _jtopology(n, **kw):
                               devices=jax.devices()[:n])
 
 
-def _jax_run(model_cfg, config, n, batches, **topo):
+def _jax_run(model_cfg, config, n, batches, ckpt_dir=None, **topo):
     """The JAX engine's losses, final master and each step's clipped
     gradients (what its optimizer is given, read by a debug callback
-    traced into the step)."""
+    traced into the step). With ``ckpt_dir`` it then saves a tag there
+    and takes the NEXT batch: also returns the engine, that step's loss
+    and master."""
     engine, *_ = deepspeed_tpu.initialize(
         model=JGPT2(JGPT2Config(**model_cfg)), topology=_jtopology(n, **topo),
         config=config)
@@ -106,7 +124,13 @@ def _jax_run(model_cfg, config, n, batches, **topo):
     engine.optimizer.update = record
     losses = [float(engine.train_batch(b)) for b in batches]
     jax.effects_barrier()
-    return losses, _flat(engine.state["master"]), steps
+    out = (losses, _flat(engine.state["master"]), list(steps))
+    if ckpt_dir is None:
+        return out
+    engine.optimizer.update = update
+    engine.save_checkpoint(ckpt_dir)
+    loss = float(engine.train_batch(NEXT))
+    return out + (engine, loss, _flat(engine.state["master"]))
 
 
 def _shard_size(zero):
@@ -141,19 +165,36 @@ def master0():
 
 
 @pytest.fixture(scope="module")
-def jax_runs(runs):
-    return {name: _jax_run(m, cfg, n, b, **topo)
+def jax_dirs(tmp_path_factory):
+    return {name: str(tmp_path_factory.mktemp(f"jax_{name}"))
+            for name in CKPT}
+
+
+@pytest.fixture(scope="module")
+def jax_runs(runs, jax_dirs):
+    return {name: _jax_run(m, cfg, n, b, ckpt_dir=jax_dirs.get(name),
+                           **topo)
             for name, (m, cfg, (n, topo), b) in runs.items()}
 
 
 @pytest.fixture(scope="module")
-def worlds(runs, master0, tmp_path_factory):
-    """world size -> every rank's results of the runs of that world."""
+def port_dir(tmp_path_factory):
+    return str(tmp_path_factory.mktemp("port_ckpt"))
+
+
+@pytest.fixture(scope="module")
+def worlds(runs, master0, jax_runs, jax_dirs, port_dir, tmp_path_factory):
+    """world size -> every rank's results of the runs of that world (at
+    world 2 also the checkpoint runs: the JAX tags are saved first)."""
     out = {}
     for world in (2, 4):
         mine = {name: dict(model=m, params=master0, config=cfg, batches=b)
                 for name, (m, cfg, (n, _), b) in runs.items() if n == world}
-        out[world] = run_world("zero", world, {"runs": mine},
+        inputs = {"runs": mine}
+        if world == 2:
+            inputs["ckpt"] = dict(names=CKPT, dir=port_dir, next=NEXT,
+                                  jax_dirs=jax_dirs)
+        out[world] = run_world("zero", world, inputs,
                                tmp_path_factory.mktemp(f"zero{world}"))
     return out
 
@@ -326,3 +367,103 @@ def test_state_is_partitioned(worlds, runs, stage):
         assert sorted(got["param_shards"]) == sorted(
             plan.partitioned("param"))
         assert bool(got["param_shards"]) == (stage == 3)
+
+
+# ------------------------------------------------------------ checkpoints
+
+
+def _ckpt(worlds, name):
+    return [o["res"]["ckpt"][name] for o in worlds[2]]
+
+
+def _rel_norm(got, want):
+    num = sum(float(np.square(got[n] - want[n]).sum()) for n in want)
+    den = sum(float(np.square(want[n]).sum()) for n in want)
+    return (num / den) ** 0.5
+
+
+@pytest.mark.parametrize("name", CKPT)
+def test_ckpt_dp2_writes_two_shard_files(worlds, runs, port_dir, name):
+    """Each rank writes its shard file; together they reassemble the
+    gathered master of the run bitwise."""
+    d = os.path.join(port_dir, name)
+    assert sorted(os.listdir(os.path.join(d, "global_step3"))) == [
+        "shard-0.npz", "shard-1.npz"]
+    assert open(os.path.join(d, "latest")).read() == "global_step3"
+    assert tser.verify_tag(os.path.join(d, "global_step3"))
+    flat, header = tser.load_sharded(os.path.join(d, "global_step3"))
+    assert header["extra"]["nprocs"] == 2
+    assert header["extra"]["topology"]["dp"] == 2
+    master = _results(worlds, runs, name)[0]["master"]
+    for n, m in master.items():
+        assert np.array_equal(flat[f"master/{n.replace('.', '/')}"], m), n
+
+
+@pytest.mark.parametrize("name", CKPT)
+def test_ckpt_dp2_reloads_bitwise(worlds, name):
+    """A fresh dp = 2 engine loads each rank's shards bitwise and its
+    next step is the uninterrupted run's, bitwise."""
+    for got in _ckpt(worlds, name):
+        assert got["state_bitwise"]
+        assert got["global_step"] == 3 and got["micro_steps"] == 3
+        assert got["client"] == {"run": name}
+        assert float(got["resumed_loss"]) == float(got["next_loss"])
+
+
+@pytest.mark.parametrize("name", CKPT)
+def test_ckpt_dp2_loads_at_dp1(worlds, runs, master0, port_dir, name):
+    """The dp = 2 tag at dp = 1 (ZeRO-2 config, micro 2): gas 1 -> 2 keeps
+    the global batch of 4, micro_steps realign to global_step * gas, the
+    RNG words fold for the new world, the master is the gathered dp = 2
+    master bitwise, and the next step matches dp = 2's."""
+    tgroups.reset()
+    model = GPT2(GPT2Config(**CFG), device="cpu")
+    model.load_state_dict(gpt2_params_from_numpy(master0, "cpu",
+                                                 torch.float32))
+    cfg = {k: v for k, v in runs[name][1].items()
+           if k != "train_batch_size"}
+    cfg.update(train_micro_batch_size_per_gpu=MICRO,
+               zero_optimization={"stage": 2})
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=cfg,
+                                                device="cpu")
+    assert engine.config.gradient_accumulation_steps == 1
+    engine.load_checkpoint(os.path.join(port_dir, name))
+    tgroups.reset()
+    assert engine.config.gradient_accumulation_steps == 2
+    assert engine.config.train_batch_size == MICRO * 2
+    assert engine.global_step == 3 and engine.micro_steps == 6
+    assert np.array_equal(engine.rng_data, tprng.fold_in(
+        tprng.key_data(1), 1 * 1000003 + 1))
+    want = _ckpt(worlds, name)[0]
+    for n, m in engine.state["master"].items():
+        assert np.array_equal(m.numpy(), want["master"][n]), n
+    loss = float(engine.train_batch(NEXT))
+    np.testing.assert_allclose(loss, float(want["next_loss"]), **LOSS_TOL)
+
+
+@pytest.mark.parametrize("name", CKPT)
+def test_ckpt_port_dp2_tag_loads_into_jax(worlds, jax_runs, port_dir, name):
+    """The port's dp = 2 tag (two shard files) into the JAX engine on the
+    2-device mesh: its master is the port's bitwise, and its next step
+    matches the port's (rtol 2e-5)."""
+    engine = jax_runs[name][3]
+    got = _ckpt(worlds, name)[0]
+    engine.load_checkpoint(os.path.join(port_dir, name))
+    master = _flat(engine.state["master"])
+    for n, m in got["master"].items():
+        assert np.array_equal(master[n], m), n
+    loss = float(engine.train_batch(NEXT))
+    np.testing.assert_allclose(loss, float(got["next_loss"]),
+                               rtol=CKPT_LOSS_RTOL)
+
+
+@pytest.mark.parametrize("name", CKPT)
+def test_ckpt_jax_dp2_tag_loads_into_port(worlds, jax_runs, name):
+    """The JAX engine's tag of the same run into the port at dp = 2: the
+    next step's loss and master match the JAX engine's next step."""
+    jloss, jmaster = jax_runs[name][4], jax_runs[name][5]
+    for got in _ckpt(worlds, name):
+        np.testing.assert_allclose(float(got["from_jax_loss"]), jloss,
+                                   rtol=CKPT_LOSS_RTOL)
+        assert _rel_norm(got["from_jax_master"], jmaster) \
+            <= CKPT_MASTER_REL_NORM
