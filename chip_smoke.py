@@ -241,7 +241,7 @@ Phases (any failure raises and the script exits nonzero):
      equal to their plain versions.
  29. the slice: GPT-2 350M (24 layers, T=4096, micro 4, ring,
      sequence_parallel_size=2, ZeRO-2, bf16) through initialize ->
-     train_batch for 10 steps in two processes on cuda:0 over gloo; the
+     train_batch for 5 steps in two processes on cuda:0 over gloo; the
      loss falls and agrees on both ranks; exactly 6 K10 and 3 K2 (every
      one on its sm90 design, as each child reports) a layer and step on
      each rank (3 pairs forward, 3 in the remat re-run, 3 backward pairs); step
@@ -289,6 +289,24 @@ Phases (any failure raises and the script exits nonzero):
      write against the median without, the counters, the card and the
      target's filesystem (tags under build/chip_smoke_ckpt, deleted after
      their checks).
+ 34. the serving front-end: (a) phase 3's small fp32 Llama with the
+     kernels on, through a colocated 2-replica Router, a 1 prefill + 1
+     decode fleet (disaggregate "auto") and the colocated fleet with
+     replica_death on r1's third step: every greedy stream equal to one
+     engine's, the death replayed (failovers 1, replayed r1's in-flight
+     count), every live pool closed; (b) full-width Llama-2-7B in bf16
+     (phase 4's settings with 160 KV blocks an engine, phase 4's eight
+     prompts, all greedy, 64 new tokens): run 1 one engine (the reference
+     streams), run 2 Router([prefill p0, decode d0]) over the in-process
+     transport (streams equal run 1's; 8 handoffs; kv_stream_bytes the
+     payloads' sum; 149 exported blocks; both pools closed; K5 = 32 x
+     p0's chunk forwards, K4 = 32 x d0's decode forwards, p0 decoding
+     nothing; the second engine adds its pool, not a second weight set),
+     run 3 two colocated replicas with one dying mid-decode (streams
+     equal run 1's, failovers 1, its in-flight requests replayed); one
+     ``router`` JSON line a run: TTFT / TPOT p50, output tokens/s, handoff
+     ms p50 / max and GB/s (export: gather, D2H, pack; import: unpack,
+     H2D, pool writes), kv_stream_bytes, peak memory, the card.
 Phases 7, 13, 20, 24, 32 and 33 also hold every bf16 K1 / K2 / K2-qmajor /
 K3 / K6 launch to the sm90 design (the wrappers' DESIGN_LAUNCHES); the
 serving slices count K4's launches by design (split / single), the
@@ -4869,7 +4887,9 @@ def child_parity():
     return out
 
 
-PHASE29 = dict(steps=10, micro=4, seq_len=4096, sp=2)
+# a step takes ~18 s through host memory: 5 keep the whole script well
+# inside its time limit
+PHASE29 = dict(steps=5, micro=4, seq_len=4096, sp=2)
 
 
 def child_train():
@@ -5683,6 +5703,323 @@ def phase_checkpoint(card, seed=0):
     return launches
 
 
+# ------------------------------------- serving front-end (phase 34)
+
+
+def doomed_replica(name, engine, role="colocated", die_at=None,
+                   decoded=None):
+    """A ``Replica`` that arms ``replica_death`` right before its own step
+    ``die_at`` (counting its steps from 1), or before the first step at
+    which one of its sequences has ``decoded`` tokens or more, and records
+    its in-flight count then (what the router must replay)."""
+    from deepspeed_tpu_torch.inference.v2 import Replica
+    from deepspeed_tpu_torch.utils import fault_injection
+
+    class Doomed(Replica):
+        def step(self):
+            self.n_steps = getattr(self, "n_steps", 0) + 1
+            seqs = self.engine.state_mgr._seqs.values()
+            if getattr(self, "inflight_at_death", None) is None and (
+                    self.n_steps == die_at or (decoded is not None and any(
+                        len(s.generated) >= decoded for s in seqs))):
+                self.inflight_at_death = len(self.inflight)
+                self.generated_at_death = sorted(
+                    len(s.generated) for s in seqs)
+                fault_injection.arm("replica_death", fails=1)
+            return super().step()
+
+    return Doomed(name, engine, role=role)
+
+
+def timed_replica(name, engine, role):
+    """A ``Replica`` that times each handoff: export = the engine's gather
+    and D2H copy (``export_handoff``) + the pack, import = the unpack + the
+    engine's H2D copy and pool writes (``import_handoff``, synchronized);
+    each export also records the blocks and bytes it carries."""
+    from deepspeed_tpu_torch.inference.v2 import Replica
+
+    def timed(fn, log, sync=False):
+        def call(*args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            if sync:
+                torch.cuda.synchronize()
+            log.append(time.perf_counter() - t0)
+            return out
+        return call
+
+    class Timed(Replica):
+        def export_handoff(self, uid):
+            t0 = time.perf_counter()
+            seq = self.engine.state_mgr.get_sequence(uid)
+            blocks = self.engine.state_mgr.blocks_needed(seq.seen_tokens - 1)
+            n = len(self.device_s)
+            payload = super().export_handoff(uid)
+            s = time.perf_counter() - t0
+            self.exports.append(dict(uid=uid, blocks=blocks,
+                                     bytes=len(payload), s=s,
+                                     device_s=self.device_s[n]))
+            return payload
+
+        def import_handoff(self, payload):
+            t0 = time.perf_counter()
+            n = len(self.device_s)
+            uid = super().import_handoff(payload)
+            self.imports.append(dict(uid=uid, s=time.perf_counter() - t0,
+                                     device_s=self.device_s[n]))
+            return uid
+
+    rep = Timed(name, engine, role=role)
+    rep.exports, rep.imports, rep.device_s = [], [], []
+    engine.export_handoff = timed(engine.export_handoff, rep.device_s)
+    engine.import_handoff = timed(engine.import_handoff, rep.device_s,
+                                  sync=True)
+    return rep
+
+
+def serve_fleet(router, uids):
+    """Step the router until idle; -> per-uid first-token and done times on
+    the host clock (first token: posted on the engine now serving it)."""
+    engines = {r.name: r.engine for r in router.replicas}
+    first, done = {}, {}
+    while router.has_work:
+        router.step()
+        now = time.perf_counter()
+        for u in uids:
+            if u in done:
+                continue
+            if router.is_done(u):
+                done[u] = now
+                first.setdefault(u, now)
+                continue
+            eng = engines.get(router._reqs[u].replica)
+            seq = eng.state_mgr._seqs.get(u) if eng is not None else None
+            if u not in first and seq is not None and seq.generated:
+                first[u] = now
+    return first, done
+
+
+def pool_closed(eng):
+    alloc = eng.state_mgr.allocator
+    return alloc.free_blocks == alloc.total_blocks
+
+
+def fleet_stats(uids, outs, first, done, t_start, e2e, new):
+    ttft = sorted(first[u] - t_start for u in uids)
+    tpot = sorted((done[u] - first[u]) / (new - 1) for u in uids)
+    return dict(ttft_p50_s=float(np.percentile(ttft, 50)),
+                tpot_p50_ms=float(np.percentile(tpot, 50)) * 1e3,
+                output_tok_per_s=float(sum(len(o) for o in outs) / e2e),
+                e2e_s=e2e)
+
+
+def phase_router_parity():
+    """Phase 34 (a): a small fp32 Llama (phase 3's) with the kernels on:
+    a colocated 2-replica Router, a 1 prefill + 1 decode fleet and the
+    colocated fleet with replica_death on r1's third step each give one
+    engine's greedy streams; every pool closes."""
+    from deepspeed_tpu_torch import (InferenceEngineV2, Llama, LlamaConfig,
+                                     Replica, Router)
+    from deepspeed_tpu_torch.ops.cuda import paged_attention as pa
+    from deepspeed_tpu_torch.utils import fault_injection
+    cfg = LlamaConfig(n_layer=2, n_head=4, n_kv_heads=2, d_model=128,
+                      max_seq_len=512, vocab_size=512, remat=False,
+                      dtype="float32")
+    model = Llama(cfg, device="cuda", dtype=torch.float32, seed=7)
+    rs = np.random.RandomState(3)
+    prompts = [rs.randint(0, 512, (n,)) for n in (5, 16, 37, 300)]
+    conf = dict(dtype="float32", kv_block_size=16, max_batch_size=4,
+                prompt_bucket=64, splitfuse_tokens=64, paged_kernel=True)
+
+    def engine():
+        return InferenceEngineV2(model, dict(conf), device="cuda")
+
+    pa.reset_launch_counts()
+    want = engine().generate_all(prompts, max_new_tokens=24)
+    assert min(pa.LAUNCHES.values()) > 0, dict(pa.LAUNCHES)
+    fleets = {
+        "colocated": [Replica("r0", engine()), Replica("r1", engine())],
+        "disaggregated": [Replica("p0", engine(), role="prefill"),
+                          Replica("d0", engine(), role="decode")],
+        "colocated, r1 dies": [Replica("r0", engine()),
+                               doomed_replica("r1", engine(), die_at=3)]}
+    for tag, reps in fleets.items():
+        fault_injection.reset()
+        router = Router(reps)
+        uids = [router.put(p, max_new_tokens=24) for p in prompts]
+        rounds = 0
+        while router.has_work:
+            router.step()
+            rounds += 1
+            assert rounds < 1000, tag
+        for u, w in zip(uids, want):
+            np.testing.assert_array_equal(router.get(u), w, err_msg=tag)
+        snap = router.snapshot()
+        live = [r for r in reps if not r.dead]
+        assert all(pool_closed(r.engine) for r in live), tag
+        if tag == "disaggregated":
+            assert snap["handoffs"] == len(prompts), snap
+            assert reps[0].engine.forward_counts["decode"] == 0
+        if tag == "colocated, r1 dies":
+            assert snap["failovers"] == 1 and reps[1].dead, snap
+            assert snap["replayed"] == reps[1].inflight_at_death > 0, snap
+        log(f"router parity ok ({tag}): {len(prompts)} greedy streams == "
+            f"one engine's, {rounds} rounds, handoffs {snap['handoffs']}, "
+            f"failovers {snap['failovers']}, replayed {snap['replayed']}")
+    fault_injection.reset()
+    del fleets, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+PHASE34 = dict(blocks=160, new=64)
+
+
+def phase_router(card, seed=0):
+    """Phase 34: (a) phase_router_parity; (b) full-width Llama-2-7B in bf16
+    (all 32 layers, phase 4's engine settings with 160 KV blocks an
+    engine, phase 4's eight prompts, all greedy, 64 new tokens each): run
+    1 one engine (the reference streams); run 2 Router([prefill p0,
+    decode d0]) over the in-process transport: the streams run 1's, 8
+    handoffs, kv_stream_bytes the payloads' sum, the exported blocks
+    sum(ceil(T / 64)), both pools closed, K5 = 32 x p0's chunk forwards,
+    K4 = 32 x the decode forwards (d0's; p0 runs none), one weight set
+    (the second engine adds a pool, not the model); run 3 two colocated
+    replicas, one dying mid-decode: the streams run 1's, one failover, its
+    in-flight requests replayed. Returns run 2's launch counts."""
+    from deepspeed_tpu_torch import (InferenceEngineV2, LLAMA_PRESETS, Llama,
+                                     Replica, Router)
+    from deepspeed_tpu_torch.ops.cuda import paged_attention as pa
+    from deepspeed_tpu_torch.utils import fault_injection
+    phase_router_parity()
+    cfg = LLAMA_PRESETS["llama2-7b"]
+    new = PHASE34["new"]
+    model = Llama(cfg, device="cuda", dtype=torch.bfloat16, seed=seed)
+    torch.cuda.synchronize()
+    model_gb = torch.cuda.memory_allocated() / 1e9
+    conf = dict(dtype="bfloat16", kv_block_size=64, max_batch_size=8,
+                splitfuse_tokens=256, decode_steps_per_dispatch=8,
+                num_kv_blocks=PHASE34["blocks"])
+
+    def engine():
+        return InferenceEngineV2(model, dict(conf), device="cuda")
+
+    rs = np.random.RandomState(seed)
+    lens = rs.randint(64, 2049, 8)
+    prompts = [rs.randint(0, cfg.vocab_size, (n,)) for n in lens]
+    pool_gb = 2 * cfg.n_layer * PHASE34["blocks"] * cfg.n_kv_heads * 64 \
+        * cfg.d_head * 2 / 1e9
+    lines = {}
+
+    # run 1: one engine, the reference streams
+    eng = engine()
+    torch.cuda.reset_peak_memory_stats()
+    t_start = time.perf_counter()
+    uids = [eng.put(p, new) for p in prompts]
+    first, done = serve(eng, uids)
+    e2e = time.perf_counter() - t_start
+    want = [eng.get(u) for u in uids]
+    assert pool_closed(eng)
+    lines["run 1: one engine"] = dict(
+        fleet_stats(uids, want, first, done, t_start, e2e, new),
+        forwards=dict(eng.forward_counts),
+        max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # run 2: one prefill and one decode replica, the KV over the host
+    reps = [timed_replica("p0", engine(), "prefill"),
+            timed_replica("d0", engine(), "decode")]
+    torch.cuda.synchronize()
+    fleet_gb = torch.cuda.memory_allocated() / 1e9
+    assert fleet_gb - model_gb < 2 * pool_gb + 1.0, \
+        (model_gb, fleet_gb, pool_gb)          # one weight set for both
+    router = Router(reps)
+    torch.cuda.reset_peak_memory_stats()
+    pa.reset_launch_counts()
+    t_start = time.perf_counter()
+    uids = [router.put(p, max_new_tokens=new) for p in prompts]
+    first, done = serve_fleet(router, uids)
+    e2e = time.perf_counter() - t_start
+    launches = dict(pa.LAUNCHES)
+    outs = [router.get(u) for u in uids]
+    snap = router.snapshot()
+    for u, o, w in zip(uids, outs, want):
+        np.testing.assert_array_equal(o, w, err_msg=f"run 2, request {u}")
+    exports, imports = reps[0].exports, reps[1].imports
+    fp, fd = reps[0].engine.forward_counts, reps[1].engine.forward_counts
+    assert snap["handoffs"] == len(prompts) == len(exports), snap
+    assert snap["kv_stream_bytes"] == sum(x["bytes"] for x in exports)
+    assert sum(x["blocks"] for x in exports) == sum(-(-lens // 64))
+    assert pool_closed(reps[0].engine) and pool_closed(reps[1].engine)
+    assert fp["decode"] == fp["prefill"] == fd["chunk"] == fd["prefill"] \
+        == 0, (fp, fd)
+    want_launches = {"paged_decode": cfg.n_layer * fd["decode"],
+                     "paged_chunk": cfg.n_layer * fp["chunk"]}
+    assert launches == want_launches, (launches, want_launches)
+    count_paged_designs(pa, launches)
+    import_s = {y["uid"]: y["s"] for y in imports}
+    hand_s = sorted(x["s"] + import_s[x["uid"]] for x in exports)
+    lines["run 2: prefill p0 + decode d0"] = dict(
+        fleet_stats(uids, outs, first, done, t_start, e2e, new),
+        handoffs=snap["handoffs"], kv_stream_bytes=snap["kv_stream_bytes"],
+        exported_blocks=sum(x["blocks"] for x in exports),
+        handoff_ms_p50=float(np.percentile(hand_s, 50)) * 1e3,
+        handoff_ms_max=max(hand_s) * 1e3,
+        export_ms_p50=float(np.percentile(
+            [x["s"] for x in exports], 50)) * 1e3,
+        import_ms_p50=float(np.percentile(
+            [y["s"] for y in imports], 50)) * 1e3,
+        handoff_s_split=dict(
+            gather_d2h=sum(x["device_s"] for x in exports),
+            pack=sum(x["s"] - x["device_s"] for x in exports),
+            unpack=sum(y["s"] - y["device_s"] for y in imports),
+            h2d_write=sum(y["device_s"] for y in imports)),
+        handoff_gb_per_s=snap["kv_stream_bytes"] / sum(hand_s) / 1e9,
+        handoff_s_total=sum(hand_s), kv_stream_ms=snap["kv_stream_ms"],
+        forwards={"p0": dict(fp), "d0": dict(fd)}, launches=launches,
+        model_gb=model_gb, fleet_gb=fleet_gb, pool_gb=pool_gb,
+        max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del router, reps
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # run 3: two colocated replicas, r1 dies mid-decode
+    fault_injection.reset()
+    reps = [Replica("r0", engine()),
+            doomed_replica("r1", engine(), decoded=new // 4)]
+    router = Router(reps)
+    torch.cuda.reset_peak_memory_stats()
+    pa.reset_launch_counts()
+    t_start = time.perf_counter()
+    uids = [router.put(p, max_new_tokens=new) for p in prompts]
+    first, done = serve_fleet(router, uids)
+    e2e = time.perf_counter() - t_start
+    outs = [router.get(u) for u in uids]
+    snap = router.snapshot()
+    fault_injection.reset()
+    for u, o, w in zip(uids, outs, want):
+        np.testing.assert_array_equal(o, w, err_msg=f"run 3, request {u}")
+    assert snap["failovers"] == 1 and reps[1].dead, snap
+    assert snap["replayed"] == reps[1].inflight_at_death > 0, snap
+    assert pool_closed(reps[0].engine)
+    lines["run 3: r0 + r1, r1 dies mid-decode"] = dict(
+        fleet_stats(uids, outs, first, done, t_start, e2e, new),
+        failovers=snap["failovers"], replayed=snap["replayed"],
+        r1_generated_at_death=reps[1].generated_at_death,
+        r1_steps=reps[1].n_steps, launches=dict(pa.LAUNCHES),
+        max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del router, reps, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    for run, stats in lines.items():
+        log("router " + json.dumps(dict(
+            run=run, requests=len(prompts), prompt_tokens=int(lens.sum()),
+            new_tokens=new, **stats, card=card)))
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default="",
@@ -5839,6 +6176,9 @@ def main(argv=None):
                "resumed at dp = 1)")
     paths["gpt2-ckpt-train"] = phase_checkpoint(card)
     phase_done("33 (GPT-2 350M checkpoints: sync, async, native)")
+    paths["llama-router-serve"] = phase_router(card)
+    phase_done("34 (serving front-end: Router / Replica, a disaggregated "
+               "Llama-2-7B fleet)")
 
     kernels = []
     for name, r in rows.items():

@@ -4,7 +4,9 @@ Imports torch and never jax; nothing of the JAX package is imported."""
 
 from . import comm
 from .comm import init_distributed
-from .inference.v2 import InferenceEngineV2, RaggedInferenceEngineConfig
+from .inference.v2 import (DeadlineExceeded, InferenceEngineV2, Overloaded,
+                           RaggedInferenceEngineConfig, Replica, ReplicaDead,
+                           Router, RouterConfig, kv_transfer)
 from .models import (GPT2, GPT2_PRESETS, LLAMA_PRESETS, MIXTRAL_8X7B,
                      MIXTRAL_TINY, GPT2Config, GPT2MoE, GPT2MoEConfig, Llama,
                      LlamaConfig, Mixtral, MixtralConfig,
@@ -60,7 +62,9 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     return engine, engine.optimizer, None, engine.lr_scheduler
 
 
-__all__ = ["InferenceEngineV2", "RaggedInferenceEngineConfig", "GPT2",
+__all__ = ["InferenceEngineV2", "RaggedInferenceEngineConfig", "Replica",
+           "ReplicaDead", "Router", "RouterConfig", "Overloaded",
+           "DeadlineExceeded", "kv_transfer", "GPT2",
            "GPT2_PRESETS", "GPT2Config", "GPT2MoE", "GPT2MoEConfig",
            "LLAMA_PRESETS", "Llama", "LlamaConfig", "MIXTRAL_8X7B",
            "MIXTRAL_TINY", "Mixtral", "MixtralConfig",

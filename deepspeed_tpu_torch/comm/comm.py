@@ -308,7 +308,9 @@ def _padded_bytes(payload):
     """(uint8 buffer padded to the world's longest payload (at least one
     byte) on the backend's device, every process's length)."""
     dev = _DEVICE if get_backend() == "nccl" else torch.device("cpu")
-    data = torch.tensor(list(bytes(payload)), dtype=torch.uint8)
+    # the payload's bytes as one uint8 tensor (no Python int per byte)
+    data = torch.frombuffer(bytearray(payload), dtype=torch.uint8) \
+        if len(payload) else torch.empty(0, dtype=torch.uint8)
     n = torch.tensor([data.numel()], dtype=torch.int64, device=dev)
     lengths = torch.empty(get_world_size(), dtype=torch.int64, device=dev)
     dist.all_gather_into_tensor(lengths, n)
@@ -338,7 +340,7 @@ def ring_exchange_bytes(payload, shift=1):
             dist.P2POp(dist.isend, buf, (me + shift) % n),
             dist.P2POp(dist.irecv, recv, origin)]):
         w.wait()
-    return bytes(recv[:lengths[origin]].cpu().tolist()), origin
+    return recv[:lengths[origin]].cpu().numpy().tobytes(), origin
 
 
 def allgather_bytes(payload):
@@ -352,7 +354,7 @@ def allgather_bytes(payload):
     out = buf.new_empty(n * buf.numel())
     dist.all_gather_into_tensor(out, buf)
     rows = out.view(n, -1).cpu()
-    return [bytes(rows[i, :lengths[i]].tolist()) for i in range(n)]
+    return [rows[i, :lengths[i]].numpy().tobytes() for i in range(n)]
 
 
 def barrier(name="dstpu_barrier"):

@@ -16,6 +16,10 @@ Counterpart of ``deepspeed_tpu/inference/v2/engine_v2.py`` (the
     blocks allow, stream prompts through chunks (or bucketed prefill), then
     batched decode; sequences retire on EOS or max_new_tokens and their
     blocks return to the free list at once.
+  * Serving telemetry (``monitor/telemetry.py``) and the disaggregated
+    handoff half (``hold_decode``, ``export_handoff``, ``import_handoff``,
+    ``release_handoff``; ``kv_transfer.py`` frames the bytes) are the JAX
+    engine's, for ``Replica`` / ``Router``.
 
 Sampling uses a ``torch.Generator`` seeded from ``config.seed``; it gives
 other numbers than ``jax.random`` from the same seed, so only greedy
@@ -28,6 +32,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ...monitor.telemetry import ServingTelemetry
+from ...runtime.checkpoint_engine import serialization as ser
 from ...utils.device import resolve_device
 from ...utils.logging import log_dist
 from .ragged import DSStateManager
@@ -47,8 +53,6 @@ _NOT_YET = {
     "paged_block_c": (("auto",), "autotune winner cache"),
     "autotune_mode": (("",), "autotune winner cache"),
     "autotune_cache": (("",), "autotune winner cache"),
-    "telemetry": ((False,), "telemetry"),
-    "telemetry_interval": ((32,), "telemetry"),
 }
 
 
@@ -62,10 +66,10 @@ class RaggedInferenceEngineConfig:
     """The JAX engine's config. Fields this slice carries: dtype,
     max_batch_size, kv_block_size, num_kv_blocks, prompt_bucket,
     temperature, top_k, seed, decode_steps_per_dispatch, splitfuse_tokens,
-    paged_kernel, quantize_weights, weight_quant. The rest raise at a
-    non-default value ("auto" settings that the JAX engine resolves off on
-    a cold winner cache stay accepted and resolve off). ``telemetry``
-    defaults to False here: the port has no serving telemetry yet."""
+    paged_kernel, quantize_weights, weight_quant, telemetry,
+    telemetry_interval. The rest raise at a non-default value ("auto"
+    settings that the JAX engine resolves off on a cold winner cache stay
+    accepted and resolve off)."""
     dtype: str = "bfloat16"
     tensor_parallel: int = 1
     expert_parallel: int = 1
@@ -102,7 +106,10 @@ class RaggedInferenceEngineConfig:
     spec_k: object = "auto"
     autotune_mode: str = ""
     autotune_cache: str = ""
-    telemetry: bool = False
+    # per-request TTFT/TPOT accounting (monitor/telemetry.py
+    # ServingTelemetry); with a monitor passed to the engine,
+    # Serve/Telemetry/* events every telemetry_interval completed requests
+    telemetry: bool = True
     telemetry_interval: int = 32
 
     def __post_init__(self):
@@ -128,6 +135,40 @@ class RaggedInferenceEngineConfig:
                 raise _not_yet(item)
 
 
+def _host_leaf(t):
+    """A device tensor as a host numpy array; bf16, which numpy has no
+    dtype for, as its raw 2-byte words (``np.dtype("V2")``)."""
+    t = t.cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view("V2")
+    return t.numpy()
+
+
+def _torch_dtype(dtype):
+    """The torch dtype of a host KV leaf: any 2-byte void (raw bf16 words,
+    or the JAX package's ``bfloat16``) is bf16; None when torch has
+    none."""
+    try:
+        dtype = np.dtype(dtype)
+    except TypeError:
+        return None
+    if dtype.kind == "V" and dtype.itemsize == 2:
+        return torch.bfloat16
+    try:
+        return torch.from_numpy(np.empty(0, dtype)).dtype
+    except TypeError:
+        return None
+
+
+def _device_leaf(a, device):
+    """Inverse of :func:`_host_leaf`: a host KV leaf on ``device``."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.kind == "V" and a.dtype.itemsize == 2:
+        return torch.from_numpy(a.view(np.int16)).to(device).view(
+            torch.bfloat16)
+    return torch.from_numpy(a).to(device)
+
+
 @dataclass
 class _Request:
     uid: int
@@ -145,7 +186,10 @@ class InferenceEngineV2:
     ``model``: the port's ``Llama`` or ``Mixtral`` (moved to ``device``
     in ``config.dtype``, every floating parameter cast, the Mixtral router
     too, as the JAX engine's ``shard_params`` does); ``device`` defaults to
-    the card and raises without one. Under ``weight_quant`` /
+    the card and raises without one. ``monitor``: any object with
+    ``enabled`` and ``write_events(events)``, for the ``Serve/Telemetry/*``
+    events of ``ServingTelemetry`` (``telemetry_snapshot()`` reads it
+    without one). Under ``weight_quant`` /
     ``quantize_weights`` a float model is quantized here (``quantize_``)
     and one built with ``quantize=`` must be in the same mode; codes,
     scales and the router then keep their types (``to_serving``).
@@ -162,11 +206,13 @@ class InferenceEngineV2:
             config = RaggedInferenceEngineConfig(**{**config, **kwargs})
         elif config is None:
             config = RaggedInferenceEngineConfig(**kwargs)
-        if monitor is not None:
-            raise _not_yet("telemetry")
         if draft_model is not None:
             raise _not_yet("speculative decoding")
         self.config = config
+        self.telemetry = None
+        if config.telemetry:
+            self.telemetry = ServingTelemetry(
+                monitor=monitor, interval=config.telemetry_interval)
         self.device = resolve_device(device)
         self.dtype = getattr(torch, config.dtype)
         # weight_quant wins over quantize_weights (int8, nothing kept
@@ -197,12 +243,18 @@ class InferenceEngineV2:
             max_batch=config.max_batch_size,
             max_blocks_per_seq=self.max_blocks_per_seq)
         self.cache = model.init_paged_cache(num_blocks, BS, dtype=self.dtype)
+        # the router's prefix-affinity probe reads it; the port has no
+        # prefix cache yet (ROADMAP Queue 1, serving: prefix cache)
+        self.prefix_cache = None
 
         self._pending = deque()
         self._results = {}            # uid -> generated tokens (finished)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(config.seed + 23)
         self._prefill_q = deque()     # uids mid-chunked-prefill (SplitFuse)
+        # disaggregated prefill/decode: uids parked out of every decode
+        # dispatch until their KV streams to a decode replica
+        self._decode_hold = set()
         self._uid_next = 0
         self.forward_counts = {"prefill": 0, "chunk": 0, "decode": 0}
         log_dist(
@@ -212,9 +264,10 @@ class InferenceEngineV2:
 
     # ------------------------------------------------------------- requests
     def put(self, prompt, max_new_tokens=32, eos_token_id=-1, uid=None,
-            temperature=None, top_k=None):
+            temperature=None, top_k=None, klass=0):
         """Queue a generation request (sampling params per request; None
-        = the engine-config defaults). Returns its uid."""
+        = the engine-config defaults; ``klass`` = the router's request
+        class, which serving telemetry keys by). Returns its uid."""
         if uid is None:
             uid = self._uid_next
             self._uid_next += 1
@@ -237,6 +290,9 @@ class InferenceEngineV2:
             temperature=(self.config.temperature if temperature is None
                          else float(temperature)),
             top_k=(self.config.top_k if top_k is None else int(top_k))))
+        if self.telemetry is not None:
+            # the TTFT clock starts at submit
+            self.telemetry.on_submit(uid, klass=klass)
         return uid
 
     def is_done(self, uid):
@@ -265,13 +321,17 @@ class InferenceEngineV2:
         return np.asarray(seq.generated, np.int32)
 
     def cancel(self, uid):
-        """Withdraw a request: queued requests are dropped; in-flight
-        sequences are flushed (blocks back to the pool); a
-        finished-but-unfetched result is forgotten. Returns True when the
-        uid was known."""
+        """Withdraw a request (the router's deadline / shed path): queued
+        requests are dropped; in-flight sequences are flushed (blocks back
+        to the pool); a finished-but-unfetched result is forgotten.
+        Serving telemetry drops the request from its windows
+        (``on_reject``). Returns True when the uid was known."""
+        self._decode_hold.discard(uid)
         for i, r in enumerate(self._pending):
             if r.uid == uid:
                 del self._pending[i]
+                if self.telemetry is not None:
+                    self.telemetry.on_reject(uid)
                 return True
         if uid in self._results:
             del self._results[uid]
@@ -283,11 +343,157 @@ class InferenceEngineV2:
         except ValueError:
             pass
         self.state_mgr.flush(uid)
+        if self.telemetry is not None:
+            self.telemetry.on_reject(uid)
         return True
 
     @property
     def has_work(self):
         return bool(self._pending) or self.state_mgr.n_active > 0
+
+    # -------------------------------- disaggregated prefill/decode handoff
+    def hold_decode(self, uid):
+        """Park ``uid`` out of every decode dispatch. A prefill-role
+        replica holds each sequence here once submitted: it prefills to
+        the last prompt token, posts the first generated token, then waits
+        for its KV handoff to a decode replica instead of decoding."""
+        self._decode_hold.add(uid)
+
+    def release_decode_hold(self, uid=None):
+        """Release one park (all of them with ``uid=None``: when the
+        fleet's last decode replica dies every held sequence resumes
+        decoding here)."""
+        if uid is None:
+            self._decode_hold.clear()
+        else:
+            self._decode_hold.discard(uid)
+
+    def export_handoff(self, uid):
+        """Export half of the handoff: -> (descriptor state dict, host KV
+        tree ``{"k": [...], "v": [...]}`` holding the blocks the sequence
+        wrote). One gather per layer pool over the sequence's first
+        ``blocks_needed(seen_tokens - 1)`` blocks, copied to host; bf16
+        pools go over as raw 2-byte words (numpy has no bfloat16), which
+        ``kv_transfer.pack_handoff`` names "bfloat16" as the JAX package
+        does. The sequence is not removed: :meth:`release_handoff` runs
+        once the decode side confirms the import, so a failed stream
+        retries from unchanged state. The blocks hold positions
+        ``0..seen_tokens-2``, exactly what a colocated decode would
+        attend: the last generated token's KV is written by the decode
+        step that consumes it."""
+        mgr = self.state_mgr
+        seq = mgr.get_sequence(uid)
+        if not seq.generated:
+            raise RuntimeError(
+                f"uid {uid} has no first token yet — only "
+                f"prefill-complete sequences hand off")
+        n = mgr.blocks_needed(seq.seen_tokens - 1)
+        src = torch.as_tensor(seq.blocks[:n], dtype=torch.long,
+                              device=self.device)
+        with torch.inference_mode():
+            kv_host = {name: [_host_leaf(p.index_select(0, src))
+                              for p in pools]
+                       for name, pools in self.cache.items()}
+        t_submit = None
+        klass = 0
+        if self.telemetry is not None:
+            t_submit = self.telemetry.submit_stamp(uid)
+            klass = self.telemetry.klass_of(uid)
+        state = {
+            "uid": int(uid),
+            "prompt": [int(t) for t in seq.prompt],
+            "generated": [int(t) for t in seq.generated],
+            # the prefix cache's claimed length; always 0 without one
+            "cached_len": 0,
+            "max_new_tokens": int(seq.max_new_tokens),
+            "eos_token_id": int(seq.eos_token_id),
+            "temperature": float(seq.temperature),
+            "top_k": int(seq.top_k),
+            "klass": int(klass),
+            "t_submit": t_submit,
+        }
+        return state, kv_host
+
+    def import_handoff(self, state, kv_flat):
+        """Import half of the handoff: rebuild the wire's KV tree against
+        this engine's cache, check its layout (per-block shape and dtype
+        equal to the local pools', one block count across layers),
+        allocate the sequence's whole budget from this pool, write the
+        received blocks into each layer's pool in place (``index_copy_``
+        of the real rows only), and bind the descriptor straight into the
+        decode batch. Serving telemetry registers the request at its
+        original submit stamp. Returns the uid."""
+        from .kv_transfer import KVWireError
+        mgr = self.state_mgr
+        uid = int(state["uid"])
+        if uid in mgr._seqs or uid in self._results:
+            raise RuntimeError(f"handoff uid {uid} already live here")
+        prompt = np.asarray(state["prompt"], np.int32)
+        generated = [int(t) for t in state["generated"]]
+        max_new = int(state["max_new_tokens"])
+        template = {name: [0] * len(pools)
+                    for name, pools in self.cache.items()}
+        kv = ser.unflatten_into(template, kv_flat)
+        # layout guard: a payload of another model (a GQA mismatch, a
+        # block size) must never land in this cache
+        n_blocks = set()
+        for name, pools in self.cache.items():
+            for p, a in zip(pools, kv[name]):
+                shape = getattr(a, "shape", None)
+                dtype = getattr(a, "dtype", None)
+                if shape is None or tuple(shape[1:]) != tuple(p.shape[1:]) \
+                        or _torch_dtype(dtype) != p.dtype:
+                    raise KVWireError(
+                        f"handoff KV layout mismatch: payload block shape "
+                        f"{shape}/{dtype} vs local cache "
+                        f"{tuple(p.shape)}/{p.dtype}")
+                n_blocks.add(int(shape[0]))
+        if len(n_blocks) != 1:
+            raise KVWireError(
+                f"handoff KV payload has inconsistent block counts "
+                f"across layers: {sorted(n_blocks)}")
+        n = n_blocks.pop()
+        total = len(prompt) + max_new
+        need = mgr.blocks_needed(total)
+        if need > self.max_blocks_per_seq or n > need \
+                or total > self.max_seq_len:
+            raise KVWireError(
+                f"handoff sequence needs {need} blocks / {total} "
+                f"tokens — beyond this engine's per-sequence capacity")
+        if mgr.free_slot() is None or \
+                mgr.allocator.available_blocks < need:
+            raise RuntimeError(
+                "decode replica cannot admit handoff (no free "
+                "slot/blocks) — the router must back-pressure "
+                "(can_accept) before streaming")
+        blocks = mgr.allocator.allocate(need)
+        dst = torch.as_tensor(blocks[:n], dtype=torch.long,
+                              device=self.device)
+        with torch.inference_mode():
+            for name, pools in self.cache.items():
+                for p, a in zip(pools, kv[name]):
+                    p.index_copy_(0, dst, _device_leaf(a, self.device))
+        mgr.admit_imported(
+            uid, prompt, generated, max_new, blocks,
+            eos_token_id=int(state["eos_token_id"]),
+            temperature=float(state["temperature"]),
+            top_k=int(state["top_k"]))
+        if self.telemetry is not None:
+            self.telemetry.on_handoff_in(
+                uid, klass=int(state.get("klass", 0)),
+                submit_ts=state.get("t_submit"))
+        return uid
+
+    def release_handoff(self, uid):
+        """The decode side confirmed the import: drop the sequence here
+        (blocks and slot back, no result surfaced); telemetry forgets it
+        without counting a rejection and keeps its TTFT sample (the first
+        token was produced here)."""
+        self._decode_hold.discard(uid)
+        self.state_mgr.retire(uid)
+        self.state_mgr.flush(uid)
+        if self.telemetry is not None:
+            self.telemetry.on_handoff_out(uid)
 
     # ------------------------------------------------------------- programs
     @staticmethod
@@ -363,7 +569,7 @@ class InferenceEngineV2:
         table = np.zeros((self.max_blocks_per_seq,), np.int32)
         table[:len(seq.blocks)] = seq.blocks
 
-        batch = mgr.decode_batch()
+        batch = mgr.decode_batch(exclude=self._decode_hold)
         decoding = bool(batch.active.any())
         all_greedy = seq.temperature == 0.0 and not (
             decoding and bool(batch.temps.any()))
@@ -420,13 +626,36 @@ class InferenceEngineV2:
 
     def _post_token(self, seq, token):
         seq.generated.append(token)
+        if self.telemetry is not None:
+            self.telemetry.on_token(seq.uid)
         if ((seq.eos_token_id >= 0 and token == seq.eos_token_id)
                 or len(seq.generated) >= seq.max_new_tokens):
+            # a held sequence that finishes at its first token never
+            # needs the handoff: drop the park
+            self._decode_hold.discard(seq.uid)
             self._results[seq.uid] = np.asarray(seq.generated, np.int32)
+            if self.telemetry is not None:
+                self.telemetry.on_finish(seq.uid)
             self.state_mgr.retire(seq.uid)
             self.state_mgr.flush(seq.uid)
 
     def step(self):
+        """One scheduler iteration (see :meth:`_step_inner`). The dispatch
+        boundary is where serving telemetry amortizes this dispatch's wall
+        time across the tokens it produced."""
+        out = self._step_inner()
+        if self.telemetry is not None:
+            self.telemetry.on_dispatch(active=self.state_mgr.n_active)
+            self.telemetry.maybe_emit()
+        return out
+
+    def telemetry_snapshot(self):
+        """Current TTFT/TPOT percentiles and counters (None when serving
+        telemetry is off)."""
+        return None if self.telemetry is None else \
+            self.telemetry.percentiles()
+
+    def _step_inner(self):
         """One scheduler iteration: admit+prefill pending, then the next
         split-fuse chunk (fused with n decode steps) or n decode steps for
         every active sequence. Returns the (uid, token) decode pairs.
@@ -442,8 +671,8 @@ class InferenceEngineV2:
         return self._plain_decode()
 
     def _plain_decode(self):
-        """n fused decode steps over all active slots."""
-        batch = self.state_mgr.decode_batch()
+        """n fused decode steps over all active slots but the held ones."""
+        batch = self.state_mgr.decode_batch(exclude=self._decode_hold)
         if not batch.active.any():
             return []
         with torch.inference_mode():

@@ -1,7 +1,7 @@
 """Ragged-batch state management for the v2 serving engine.
 
 Own copy of ``deepspeed_tpu/inference/v2/ragged.py`` without the
-speculation, KV-import and prefix-cache branches:
+speculation and prefix-cache branches:
   * ``DSSequenceDescriptor`` — one live sequence: tokens seen, KV blocks
     held, generation state.
   * ``RaggedBatchWrapper`` — the fixed-shape metadata for one engine step
@@ -24,8 +24,6 @@ _PREFIX_CACHE_TODO = ("prefix cache is not ported yet "
                       "(ROADMAP Queue 1, serving: prefix cache)")
 _SPEC_TODO = ("speculative decoding is not ported yet "
               "(ROADMAP Queue 1, serving: speculative decoding)")
-_IMPORT_TODO = ("KV handoff import is not ported yet "
-                "(ROADMAP Queue 1, serving: kv_transfer / replica / router)")
 
 
 @dataclass
@@ -75,6 +73,13 @@ class DSStateManager:
     def n_active(self):
         return sum(s is not None for s in self._slots)
 
+    @property
+    def free_slots(self):
+        """Open batch slots: the router's cheap per-replica load probe
+        (can_admit answers "this request now"; this answers "how
+        loaded")."""
+        return sum(s is None for s in self._slots)
+
     def get_sequence(self, uid):
         return self._seqs[uid]
 
@@ -87,7 +92,10 @@ class DSStateManager:
     def blocks_needed(self, n_tokens):
         return -(-n_tokens // self.block_size)
 
-    def can_admit(self, prompt_len, max_new):
+    def can_admit(self, prompt_len, max_new, prompt=None):
+        """Whether a request fits a slot and the pool now. ``prompt`` is
+        the JAX signature's prefix-cache probe; without a prefix cache it
+        changes nothing."""
         total = prompt_len + max_new
         if total > self.max_blocks_per_seq * self.block_size:
             return False  # can never fit; admit() would raise
@@ -116,8 +124,28 @@ class DSStateManager:
         self._slots[slot] = uid
         return slot, seq
 
-    def admit_imported(self, *args, **kwargs):
-        raise NotImplementedError(_IMPORT_TODO)
+    def admit_imported(self, uid, prompt, generated, max_new_tokens,
+                       blocks, eos_token_id=-1, temperature=0.0,
+                       top_k=0):
+        """Bind a handed-off sequence (disaggregated prefill/decode): its
+        prompt's KV was prefilled on another replica and has just landed
+        in ``blocks``, allocated from this pool and whole-owned, so the
+        descriptor enters the decode batch directly: ``prefill_offset``
+        covers the whole prompt and ``generated`` already holds the first
+        token the prefill side produced. Returns (slot, descriptor)."""
+        slot = self.free_slot()
+        assert slot is not None, "no free batch slot"
+        assert uid not in self._seqs, f"uid {uid} already live here"
+        seq = DSSequenceDescriptor(
+            uid=uid, prompt=np.asarray(prompt, np.int32),
+            max_new_tokens=max_new_tokens, eos_token_id=eos_token_id,
+            temperature=temperature, top_k=top_k)
+        seq.blocks = list(blocks)
+        seq.generated = [int(t) for t in generated]
+        seq.prefill_offset = len(seq.prompt)
+        self._seqs[uid] = seq
+        self._slots[slot] = uid
+        return slot, seq
 
     def cow_complete(self, seq):
         raise NotImplementedError(_PREFIX_CACHE_TODO)
@@ -167,8 +195,14 @@ class DSStateManager:
         offs = (idx % self.block_size).astype(np.int32)
         return blocks, offs
 
-    def decode_batch(self):
-        """RaggedBatchWrapper for one decode step over all active slots."""
+    def decode_batch(self, uids=None, exclude=None):
+        """RaggedBatchWrapper for one decode step over all active slots.
+        ``exclude``: uids parked out of decode entirely (a prefill-role
+        replica holds finished prefills there until their KV handoff
+        lands on a decode replica). ``uids`` (a subset, the speculative
+        scheduler's split) raises until speculative decoding lands."""
+        if uids is not None:
+            raise NotImplementedError(_SPEC_TODO)
         B, MB = self.max_batch, self.max_blocks_per_seq
         tokens = np.zeros((B,), np.int32)
         lengths = np.zeros((B,), np.int32)
@@ -177,7 +211,7 @@ class DSStateManager:
         temps = np.zeros((B,), np.float32)
         top_ks = np.zeros((B,), np.int32)
         for slot, uid in enumerate(self._slots):
-            if uid is None:
+            if uid is None or (exclude is not None and uid in exclude):
                 continue
             seq = self._seqs[uid]
             if not seq.generated:

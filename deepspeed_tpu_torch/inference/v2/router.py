@@ -1,0 +1,782 @@
+"""Fault-tolerant serving front-end: the replica router.
+
+Own copy of ``deepspeed_tpu/inference/v2/router.py``: the same config,
+queue, shedding, deadlines, failover, drains and disaggregated
+prefill/decode dispatch, so a scripted scenario gives the same outcomes,
+placement and counters in both packages.
+
+Owns THE request queue and dispatches to N :class:`Replica` engines.
+Four robustness layers:
+
+1. **Admission control + load shedding.** The queue is bounded
+   (``router_queue_depth``, "auto" = 4x the aggregate decode slots of
+   the live replicas); a full queue rejects at ``put()`` with a typed
+   :class:`Overloaded`. Overload detection — a sustained queue-depth
+   watermark breach or a sustained p99 TTFT/TPOT SLO breach read from
+   each replica's ``ServingTelemetry`` — sheds queued requests by
+   class (``shed_policy``, "auto" = lowest class first, newest first
+   within the class) down to the low watermark instead of letting
+   latency collapse for everyone. Sheds are typed, counted, and
+   surfaced through ``get()`` — never silent.
+2. **Deadline enforcement.** Per-request TTFT/total deadlines are
+   checked at the dispatch boundaries (before dispatch and after every
+   step). Expired in-flight requests are withdrawn through the
+   engine's ``cancel()`` -> ``DSStateManager.flush()`` path (unrefs
+   without tree insert, pool accounting closes) and surfaced as typed
+   :class:`DeadlineExceeded` — counted, never silently served late.
+3. **Failover.** Replica health is a live/draining/dead state machine
+   (replica.py); a dead replica's in-flight requests re-enqueue at the
+   FRONT of the queue (original order preserved, partial tokens
+   discarded) and replay on a survivor. Greedy (temperature 0) decode
+   is rng-independent, so replayed outputs are byte-identical to an
+   uninterrupted run; prefix-affinity dispatch (route to the replica
+   whose radix tree holds the longest prefix of the prompt) makes the
+   re-prefill cheap when the survivor has seen the prefix.
+4. **Drained scale-down.** ``drain(replica)``: stop admitting, finish
+   in-flight (no replay), then remove from the rotation.
+
+Counters are written to a ``monitor`` as ``Serve/Router/*`` events (the
+JAX package's tags, stepped by completed router requests); with the
+router off, engine telemetry snapshots are unchanged — the router adds a
+layer, it never changes the engine.
+"""
+
+import time
+from collections import deque
+from dataclasses import dataclass
+
+import numpy as np
+
+from ...monitor.telemetry import percentile
+from ...utils import fault_injection
+from ...utils.logging import log_dist
+from . import kv_transfer
+from .replica import Replica, ReplicaDead
+
+
+class Overloaded(RuntimeError):
+    """Typed admission/shedding rejection: the router refused (or
+    withdrew) the request to protect the admitted classes' SLOs. The
+    client owns the retry/backoff decision."""
+
+    def __init__(self, msg, klass=0, queue_depth=0):
+        super().__init__(msg)
+        self.klass = klass
+        self.queue_depth = queue_depth
+
+
+class DeadlineExceeded(RuntimeError):
+    """Typed deadline rejection: the request's TTFT or total deadline
+    passed before it could be served; it was flushed (queued: dropped;
+    in-flight: engine ``cancel()`` unref path), never served late."""
+
+    def __init__(self, msg, klass=0, which="total"):
+        super().__init__(msg)
+        self.klass = klass
+        self.which = which                 # "ttft" | "total"
+
+
+@dataclass
+class RouterConfig:
+    """Router knobs, validated as the JAX package's: "auto" is accepted,
+    junk raises."""
+
+    # bounded queue depth: "auto" = 4x aggregate decode slots across
+    # live replicas (Router.resolved_queue_depth), int forces
+    router_queue_depth: object = "auto"
+    # which queued requests overload shedding drops: "auto" resolves to
+    # lowest-class (shed the numerically highest class, newest first
+    # within it — least sunk wait); "newest-first" ignores class
+    shed_policy: str = "auto"
+    # route to the replica whose radix tree holds the longest prompt
+    # prefix: "auto" = on iff any replica runs a prefix cache
+    # (Router._affinity_on); True/False force
+    prefix_affinity: object = "auto"
+    # disaggregated prefill/decode serving: "auto" = on iff both a
+    # prefill-role AND a decode-role replica are live
+    # (Router._disagg_on — the fleet degrades to colocated behavior
+    # when either side is gone); True forces (construction raises
+    # unless both roles are present); False keeps every replica
+    # colocated whatever its role says
+    disaggregate: object = "auto"
+    # overload detection: sustained p99 SLO breach (0 = disabled; the
+    # queue-depth watermark below is always armed) over breach_rounds
+    # consecutive router steps
+    slo_ttft_ms: float = 0.0
+    slo_tpot_ms: float = 0.0
+    breach_rounds: int = 3
+    # queue watermarks as pct of the resolved depth: shedding starts
+    # when depth sustains >= high and stops once depth <= low
+    shed_high_pct: int = 75
+    shed_low_pct: int = 50
+    # consecutive serve_step failures before a replica's heartbeat is
+    # declared broken (replica.py health machine)
+    max_step_failures: int = 3
+    # Serve/Router/* fan-out cadence (completed router requests)
+    emit_interval: int = 8
+
+    def __post_init__(self):
+        if self.router_queue_depth != "auto" and (
+                not isinstance(self.router_queue_depth, int)
+                or isinstance(self.router_queue_depth, bool)
+                or self.router_queue_depth < 1):
+            raise ValueError(
+                f"router_queue_depth must be 'auto' or an int >= 1, got "
+                f"{self.router_queue_depth!r}")
+        if self.shed_policy not in ("auto", "lowest-class",
+                                    "newest-first"):
+            raise ValueError(
+                f"shed_policy must be 'auto'|'lowest-class'|"
+                f"'newest-first', got {self.shed_policy!r}")
+        if self.prefix_affinity not in (True, False, "auto"):
+            raise ValueError(
+                f"prefix_affinity must be true|false|'auto', got "
+                f"{self.prefix_affinity!r}")
+        if self.disaggregate not in (True, False, "auto"):
+            raise ValueError(
+                f"disaggregate must be true|false|'auto', got "
+                f"{self.disaggregate!r}")
+        for name in ("slo_ttft_ms", "slo_tpot_ms"):
+            v = getattr(self, name)
+            if not isinstance(v, (int, float)) \
+                    or isinstance(v, bool) or v < 0:
+                raise ValueError(f"{name} must be a number >= 0, "
+                                 f"got {v!r}")
+        for name in ("breach_rounds", "max_step_failures",
+                     "emit_interval"):
+            v = getattr(self, name)
+            if not isinstance(v, int) or isinstance(v, bool) or v < 1:
+                raise ValueError(f"{name} must be an int >= 1, "
+                                 f"got {v!r}")
+        for name in ("shed_high_pct", "shed_low_pct"):
+            v = getattr(self, name)
+            if not isinstance(v, int) or isinstance(v, bool) \
+                    or not 0 <= v <= 100:
+                raise ValueError(f"{name} must be an int in [0, 100], "
+                                 f"got {v!r}")
+        if self.shed_low_pct > self.shed_high_pct:
+            raise ValueError(
+                f"shed_low_pct ({self.shed_low_pct}) must not exceed "
+                f"shed_high_pct ({self.shed_high_pct})")
+
+
+# request lifecycle: queued -> inflight -> done, with the typed exits
+# queued/inflight -> shed | expired (error holds the typed exception)
+@dataclass
+class RouterRequest:
+    uid: int
+    prompt: np.ndarray
+    max_new_tokens: int
+    eos_token_id: int
+    klass: int
+    ttft_deadline_ms: object            # float ms or None
+    deadline_ms: object                 # float ms or None
+    t_submit: float
+    state: str = "queued"
+    replica: str = None                 # serving replica name
+    tokens: np.ndarray = None           # final output (done)
+    error: Exception = None             # typed rejection (shed/expired)
+    replays: int = 0                    # failover replays survived
+    t_first: float = None               # first token of current attempt
+    t_last: float = None
+    n_tokens: int = 0
+    ttft_recorded: bool = False         # one TTFT sample per request,
+                                        # even across replays
+
+
+def _new_class_stats():
+    return {"admitted": 0, "completed": 0, "shed": 0, "expired": 0,
+            "replayed": 0, "ttft_ms": [], "tpot_ms": []}
+
+
+class Router:
+    """``put()`` requests, ``step()`` the fleet, ``get(uid)`` results
+    (typed exceptions for shed/expired). See the module docstring for
+    the four robustness layers."""
+
+    def __init__(self, replicas, config=None, monitor=None,
+                 kv_transport=None, **kwargs):
+        if isinstance(config, dict):
+            config = RouterConfig(**{**config, **kwargs})
+        elif config is None:
+            config = RouterConfig(**kwargs)
+        self.config = config
+        self.replicas = []
+        for i, rep in enumerate(replicas):
+            if not isinstance(rep, Replica):
+                rep = Replica(f"r{i}", rep,
+                              max_step_failures=config.max_step_failures)
+            self.replicas.append(rep)
+        if not self.replicas:
+            raise ValueError("Router needs at least one replica")
+        names = [r.name for r in self.replicas]
+        if len(set(names)) != len(names):
+            raise ValueError(f"duplicate replica names: {names}")
+        roles = {r.role for r in self.replicas}
+        if config.disaggregate is True \
+                and not {"prefill", "decode"} <= roles:
+            raise ValueError(
+                f"disaggregate=True needs at least one prefill-role "
+                f"and one decode-role replica; fleet roles: "
+                f"{sorted(roles)}")
+        # handoff byte transport: in-process queue by default (the
+        # tier-1-testable fallback); multi-host fleets pass
+        # kv_transfer.DcnRingTransport
+        self._kv_transport = kv_transport if kv_transport is not None \
+            else kv_transfer.InProcQueueTransport()
+        # per-round cache of _disagg_on(), re-resolved at the top of
+        # every step so role changes (deaths, drains) take effect
+        self._disagg = False
+        self.monitor = monitor
+        self._queue = deque()             # RouterRequest, FIFO
+        self._reqs = {}                   # uid -> RouterRequest
+        self._uid_next = 0
+        self._rr = 0                      # round-robin tie-break cursor
+        self._breach_rounds = 0
+        self._emitted_at = 0
+        self._now = time.monotonic        # tests override for fake time
+        self.counters = {"admitted": 0, "completed": 0, "shed": 0,
+                         "expired": 0, "replayed": 0, "failovers": 0,
+                         "dispatch_retries": 0, "handoffs": 0,
+                         "kv_stream_bytes": 0, "kv_stream_ms": 0.0,
+                         "kv_stream_retries": 0}
+        self._class_stats = {}
+        log_dist(f"router ready: {len(self.replicas)} replicas, "
+                 f"queue_depth={config.router_queue_depth}", ranks=[0])
+
+    # ------------------------------------------------------------ resolve
+    def resolved_queue_depth(self):
+        """"auto" = 4x the aggregate decode slots of the non-dead
+        replicas (capacity-proportional back-pressure: losing a replica
+        shrinks what the router will buffer)."""
+        d = self.config.router_queue_depth
+        if d != "auto":
+            return d
+        slots = sum(r.slots for r in self.replicas if not r.dead)
+        return max(1, 4 * slots)
+
+    def _affinity_on(self):
+        aff = self.config.prefix_affinity
+        if aff != "auto":
+            return aff
+        return any(r.engine.prefix_cache is not None
+                   for r in self.replicas if not r.dead)
+
+    def _resolved_shed_policy(self):
+        pol = self.config.shed_policy
+        return "lowest-class" if pol == "auto" else pol
+
+    def _disagg_on(self):
+        """Disaggregated dispatch is active iff configured on AND both
+        phase roles are live — a fleet that loses its last decode (or
+        prefill) replica degrades to colocated behavior (roles become
+        preferences, not partitions) instead of deadlocking parked
+        sequences. Re-resolved every router round."""
+        if self.config.disaggregate is False:
+            return False
+        alive = [r for r in self.replicas if not r.dead]
+        return any(r.role == "prefill" for r in alive) \
+            and any(r.role == "decode" for r in alive)
+
+    def _cstat(self, klass):
+        if klass not in self._class_stats:
+            self._class_stats[klass] = _new_class_stats()
+        return self._class_stats[klass]
+
+    # ------------------------------------------------------------ requests
+    def put(self, prompt, max_new_tokens=32, eos_token_id=-1, klass=0,
+            ttft_deadline_ms=None, deadline_ms=None):
+        """Admit one request (class 0 = highest priority; higher ints
+        are shed first). Raises :class:`Overloaded` when the bounded
+        queue is full — the admission-control boundary. Returns the
+        router uid."""
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        if max_new_tokens < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        alive = [r for r in self.replicas if not r.dead]
+        if not alive:
+            raise RuntimeError("no live replicas remain")
+        if not any(r.fits(len(prompt), max_new_tokens) for r in alive):
+            raise ValueError(
+                f"prompt+max_new={len(prompt) + max_new_tokens} can "
+                f"never fit any replica (context or pool capacity)")
+        depth = len(self._queue)
+        if depth >= self.resolved_queue_depth():
+            self.counters["shed"] += 1
+            self._cstat(klass)["shed"] += 1
+            raise Overloaded(
+                f"router queue full ({depth} >= "
+                f"{self.resolved_queue_depth()}); class {klass} request "
+                f"rejected", klass=klass, queue_depth=depth)
+        uid = self._uid_next
+        self._uid_next += 1
+        req = RouterRequest(
+            uid=uid, prompt=prompt, max_new_tokens=max_new_tokens,
+            eos_token_id=eos_token_id, klass=int(klass),
+            ttft_deadline_ms=ttft_deadline_ms, deadline_ms=deadline_ms,
+            t_submit=self._now())
+        self._reqs[uid] = req
+        self._queue.append(req)
+        self.counters["admitted"] += 1
+        self._cstat(req.klass)["admitted"] += 1
+        return uid
+
+    def is_done(self, uid):
+        return self._reqs[uid].state in ("done", "shed", "expired")
+
+    def get(self, uid, flush=True):
+        """Tokens for a finished request; raises the stored typed
+        exception (:class:`Overloaded` / :class:`DeadlineExceeded`) for
+        shed/expired requests — a rejected request is never returned as
+        a success. In-flight/queued requests return an empty array."""
+        req = self._reqs[uid]
+        if req.state == "done":
+            if flush:
+                del self._reqs[uid]
+            return req.tokens
+        if req.state in ("shed", "expired"):
+            err = req.error
+            if flush:
+                del self._reqs[uid]
+            raise err
+        return np.zeros((0,), np.int32)
+
+    @property
+    def has_work(self):
+        return bool(self._queue) or any(r.inflight for r in self.replicas)
+
+    def drain(self, replica):
+        """Scale-down: stop admitting to ``replica`` (name or handle);
+        its in-flight requests finish normally (no replay), then the
+        router removes it from the rotation."""
+        rep = replica if isinstance(replica, Replica) else \
+            next((r for r in self.replicas if r.name == replica), None)
+        if rep is None or rep not in self.replicas:
+            raise KeyError(f"unknown replica {replica!r}")
+        rep.drain()
+        self._finish_drains()             # empty replica: remove now
+
+    # ---------------------------------------------------------------- step
+    def step(self):
+        """One router round: expire deadlines, detect overload + shed,
+        dispatch, step every busy replica (failing dead ones over),
+        collect finished requests, complete drains. Returns the
+        (uid, token) pairs produced this round."""
+        now = self._now()
+        self._disagg = self._disagg_on()
+        for rep in self.replicas:
+            if not rep.dead:
+                rep.set_disaggregated(self._disagg)
+        self._expire_queued(now)
+        self._maybe_shed()
+        self._dispatch(now)
+        out = []
+        for rep in list(self.replicas):
+            if rep.dead or not rep.has_work:
+                continue
+            try:
+                pairs = rep.step()
+            except ReplicaDead:
+                self._failover(rep)
+                continue
+            now = self._now()
+            for uid, tok in pairs:
+                req = self._reqs.get(uid)
+                if req is None or req.state != "inflight":
+                    continue
+                if req.t_first is None:
+                    req.t_first = now
+                    if not req.ttft_recorded:
+                        req.ttft_recorded = True
+                        self._cstat(req.klass)["ttft_ms"].append(
+                            (now - req.t_submit) * 1e3)
+                req.t_last = now
+                req.n_tokens += 1
+                out.append((uid, tok))
+            self._collect_finished(rep)
+        self._do_handoffs()
+        self._expire_inflight(self._now())
+        self._finish_drains()
+        if not any(not r.dead for r in self.replicas) and self.has_work:
+            raise RuntimeError(
+                f"no live replicas remain; "
+                f"{len(self._queue)} queued + "
+                f"{sum(len(r.inflight) for r in self.replicas)} "
+                f"in-flight requests stranded")
+        self._maybe_emit()
+        return out
+
+    # ------------------------------------------------------------ deadlines
+    def _deadline_exceeded(self, req, now):
+        """Returns "ttft"/"total"/None — which deadline has passed."""
+        el_ms = (now - req.t_submit) * 1e3
+        if req.deadline_ms is not None and el_ms > req.deadline_ms:
+            return "total"
+        if req.t_first is None and req.ttft_deadline_ms is not None \
+                and el_ms > req.ttft_deadline_ms:
+            return "ttft"
+        return None
+
+    def _expire(self, req, which, where):
+        req.state = "expired"
+        req.replica = None
+        req.error = DeadlineExceeded(
+            f"request {req.uid} (class {req.klass}) {which} deadline "
+            f"exceeded {where}", klass=req.klass, which=which)
+        self.counters["expired"] += 1
+        self._cstat(req.klass)["expired"] += 1
+
+    def _expire_queued(self, now):
+        if not self._queue:
+            return
+        keep = deque()
+        for req in self._queue:
+            which = self._deadline_exceeded(req, now)
+            if which:
+                self._expire(req, which, "before dispatch")
+            else:
+                keep.append(req)
+        self._queue = keep
+
+    def _expire_inflight(self, now):
+        for rep in self.replicas:
+            if rep.dead:
+                continue
+            for uid in list(rep.inflight):
+                req = self._reqs[uid]
+                which = self._deadline_exceeded(req, now)
+                if which:
+                    # the flush()/unref path: blocks return to the pool
+                    # with NO tree insert, accounting closes
+                    rep.cancel(uid)
+                    self._expire(req, which, f"in flight on {rep.name}")
+
+    # ------------------------------------------------------------- overload
+    def _overloaded(self):
+        """Sustained queue-watermark or SLO breach => shed this round.
+        The ``router_overload`` fault point injects a forced round
+        (advisory: counted, never propagates, never touches a
+        replica)."""
+        forced = False
+        try:
+            fault_injection.fire("router_overload")
+        except fault_injection.FaultError:
+            forced = True
+        depth = len(self._queue)
+        cap = self.resolved_queue_depth()
+        breach = depth >= max(1, cap * self.config.shed_high_pct // 100)
+        cfg = self.config
+        if not breach and (cfg.slo_ttft_ms or cfg.slo_tpot_ms):
+            for rep in self.replicas:
+                if rep.dead:
+                    continue
+                snap = rep.engine.telemetry_snapshot()
+                if snap is None:
+                    continue
+                ttft, tpot = snap.get("ttft_ms_p99"), \
+                    snap.get("tpot_ms_p99")
+                if (cfg.slo_ttft_ms and ttft is not None
+                        and ttft > cfg.slo_ttft_ms) or \
+                        (cfg.slo_tpot_ms and tpot is not None
+                         and tpot > cfg.slo_tpot_ms):
+                    breach = True
+                    break
+        self._breach_rounds = self._breach_rounds + 1 if breach else 0
+        return forced or self._breach_rounds >= cfg.breach_rounds
+
+    def _shed_victim(self):
+        """Pick one queued request per the resolved shed policy."""
+        if not self._queue:
+            return None
+        if self._resolved_shed_policy() == "newest-first":
+            return self._queue[-1]
+        worst = max(req.klass for req in self._queue)
+        for req in reversed(self._queue):    # newest within the class
+            if req.klass == worst:
+                return req
+        return None
+
+    def _maybe_shed(self):
+        if not self._overloaded() or not self._queue:
+            return
+        target = self.resolved_queue_depth() \
+            * self.config.shed_low_pct // 100
+        while len(self._queue) > target:
+            victim = self._shed_victim()
+            if victim is None:
+                break
+            self._queue.remove(victim)
+            victim.state = "shed"
+            victim.error = Overloaded(
+                f"request {victim.uid} (class {victim.klass}) shed "
+                f"under overload", klass=victim.klass,
+                queue_depth=len(self._queue))
+            self.counters["shed"] += 1
+            self._cstat(victim.klass)["shed"] += 1
+
+    # ------------------------------------------------------------- dispatch
+    def _pick_replica(self, req):
+        cands = [r for r in self.replicas
+                 if (not self._disagg or r.role != "decode")
+                 and r.can_accept(len(req.prompt), req.max_new_tokens,
+                                  prompt=req.prompt)]
+        if not cands:
+            return None
+        if self._affinity_on():
+            scores = {r.name: r.prefix_score(req.prompt) for r in cands}
+            best = max(scores.values())
+            if best > 0:
+                cands = [r for r in cands if scores[r.name] == best]
+        n = len(self.replicas)
+        idx = {r.name: i for i, r in enumerate(self.replicas)}
+        cands.sort(key=lambda r: (len(r.inflight),
+                                  (idx[r.name] - self._rr) % n))
+        self._rr += 1
+        return cands[0]
+
+    def _dispatch(self, now):
+        """Head-of-line dispatch: no skip-ahead (fairness within class
+        order is FIFO; determinism for the chaos tests). Each replica
+        accepts at most one request per round — can_accept's pool math
+        only covers admitted sequences, not its pending queue."""
+        while self._queue:
+            req = self._queue[0]
+            which = self._deadline_exceeded(req, now)
+            if which:                      # the dispatch-boundary check
+                self._queue.popleft()
+                self._expire(req, which, "at dispatch")
+                continue
+            rep = self._pick_replica(req)
+            if rep is None:
+                break
+            self._queue.popleft()
+            try:
+                rep.submit(req.uid, req.prompt, req.max_new_tokens,
+                           req.eos_token_id, klass=req.klass)
+            except fault_injection.FaultError:
+                # retryable dispatch fault: nothing partial happened —
+                # back to the front, re-route next round
+                self.counters["dispatch_retries"] += 1
+                self._queue.appendleft(req)
+                break
+            req.state = "inflight"
+            req.replica = rep.name
+
+    # ------------------------------------------------------------- handoffs
+    def _pick_decode(self, req):
+        """Least-loaded live decode-role replica with slot + pool
+        capacity for the handed-off sequence (round-robin tie-break,
+        like _pick_replica). None = back-pressure: the sequence stays
+        parked on its prefill replica and retries next round."""
+        cands = [r for r in self.replicas
+                 if r.role == "decode"
+                 and r.can_accept(len(req.prompt), req.max_new_tokens)]
+        if not cands:
+            return None
+        n = len(self.replicas)
+        idx = {r.name: i for i, r in enumerate(self.replicas)}
+        cands.sort(key=lambda r: (len(r.inflight),
+                                  (idx[r.name] - self._rr) % n))
+        self._rr += 1
+        return cands[0]
+
+    def _do_handoffs(self):
+        """Stream prefill-complete sequences to decode replicas. The
+        ordering makes every failure safe: the prefill replica keeps
+        full ownership until the decode side confirms the import, so a
+        ``kv_stream``/``kv_import`` fault retries next round from
+        unchanged state, and a decode-replica death mid-transfer falls
+        back to a front-of-queue replay (:meth:`_handoff_death`)."""
+        if not self._disagg:
+            return
+        for rep in list(self.replicas):
+            if rep.dead or rep.role != "prefill":
+                continue
+            for uid in rep.handoff_ready():
+                req = self._reqs.get(uid)
+                if req is None or req.state != "inflight":
+                    continue
+                dst = self._pick_decode(req)
+                if dst is None:
+                    continue          # back-pressure: stays parked
+                t0 = self._now()
+                try:
+                    payload = rep.export_handoff(uid)
+                    self._kv_transport.send(payload)
+                    wire = self._kv_transport.recv()
+                except fault_injection.FaultError:
+                    # retryable stream fault: nothing moved
+                    self.counters["kv_stream_retries"] += 1
+                    continue
+                try:
+                    dst.import_handoff(wire)
+                except fault_injection.FaultError:
+                    # retryable import fault: fired before any
+                    # decode-side mutation, nothing moved
+                    self.counters["kv_stream_retries"] += 1
+                    continue
+                except ReplicaDead:
+                    self._handoff_death(rep, dst, req)
+                    return            # roles changed mid-round: stop
+                rep.finish_handoff(uid)
+                dst.inflight.append(uid)
+                req.replica = dst.name
+                self.counters["handoffs"] += 1
+                self.counters["kv_stream_bytes"] += len(payload)
+                self.counters["kv_stream_ms"] += \
+                    (self._now() - t0) * 1e3
+
+    def _handoff_death(self, src, dst, req):
+        """``dst`` died importing ``req``'s KV mid-transfer. The import
+        fires before any decode-side allocation, so ``dst`` holds
+        nothing of ``req``; ``src`` still owns the sequence — cancel it
+        there (the flush/unref path, pool accounting closes) and
+        re-enqueue at the FRONT. ``dst``'s OTHER in-flight requests
+        take the normal failover path. With the decode side gone the
+        fleet degrades to colocated and the replay re-prefills —
+        byte-identical by greedy construction."""
+        src.cancel(req.uid)
+        req.state = "queued"
+        req.replica = None
+        req.tokens = None
+        req.t_first = None
+        req.t_last = None
+        req.n_tokens = 0
+        req.replays += 1
+        self.counters["replayed"] += 1
+        self._cstat(req.klass)["replayed"] += 1
+        self._queue.appendleft(req)
+        self._failover(dst)
+        self._disagg = self._disagg_on()
+        for rep in self.replicas:
+            if not rep.dead:
+                rep.set_disaggregated(self._disagg)
+        log_dist(f"router: decode replica {dst.name} died mid-transfer;"
+                 f" request {req.uid} replayed from the front",
+                 ranks=[0])
+
+    # ------------------------------------------------------------- failover
+    def _failover(self, rep):
+        """``rep`` died: re-enqueue its in-flight requests at the FRONT
+        (original dispatch order preserved) for replay on a survivor.
+        Partial tokens are discarded — greedy decode is rng-independent,
+        so the replay regenerates them byte-identically."""
+        self.counters["failovers"] += 1
+        moved = [self._reqs[uid] for uid in rep.inflight]
+        rep.inflight = []
+        for req in reversed(moved):
+            req.state = "queued"
+            req.replica = None
+            req.tokens = None
+            req.t_first = None
+            req.t_last = None
+            req.n_tokens = 0
+            req.replays += 1
+            self.counters["replayed"] += 1
+            self._cstat(req.klass)["replayed"] += 1
+            self._queue.appendleft(req)
+        log_dist(f"router: replica {rep.name} died, replaying "
+                 f"{len(moved)} in-flight requests", ranks=[0])
+
+    def _collect_finished(self, rep):
+        for uid in list(rep.inflight):
+            if not rep.engine.is_done(uid):
+                continue
+            rep.inflight.remove(uid)
+            req = self._reqs[uid]
+            req.tokens = rep.engine.get(uid)
+            req.state = "done"
+            self.counters["completed"] += 1
+            st = self._cstat(req.klass)
+            st["completed"] += 1
+            if req.n_tokens >= 2 and req.t_last > req.t_first:
+                st["tpot_ms"].append(
+                    (req.t_last - req.t_first) * 1e3
+                    / (req.n_tokens - 1))
+
+    def _finish_drains(self):
+        for rep in self.replicas:
+            if rep.draining and not rep.inflight \
+                    and not rep.engine.has_work:
+                rep.mark_dead("drained", drained=True)
+                log_dist(f"router: replica {rep.name} drained and "
+                         f"removed", ranks=[0])
+
+    # ------------------------------------------------------------ telemetry
+    def snapshot(self):
+        """Counters + per-class latency percentiles for bench rows."""
+        classes = {}
+        for klass, st in sorted(self._class_stats.items()):
+            classes[klass] = {
+                "admitted": st["admitted"],
+                "completed": st["completed"],
+                "shed": st["shed"],
+                "expired": st["expired"],
+                "replayed": st["replayed"],
+                "ttft_ms_p50": percentile(st["ttft_ms"], 50),
+                "ttft_ms_p99": percentile(st["ttft_ms"], 99),
+                "tpot_ms_p50": percentile(st["tpot_ms"], 50),
+                "tpot_ms_p99": percentile(st["tpot_ms"], 99),
+            }
+        out = {
+            **self.counters,
+            "queue_depth": len(self._queue),
+            "draining": sum(r.draining for r in self.replicas),
+            "replicas": {r.name: r.state for r in self.replicas},
+            "classes": classes,
+        }
+        # per-replica speculative acceptance EMA — only present when at
+        # least one replica engine actually ran a verify round, so
+        # spec-off fleets keep the pre-speculation snapshot shape
+        spec = {r.name: round(r.spec_acceptance, 3)
+                for r in self.replicas
+                if getattr(r, "spec_acceptance", None) is not None}
+        if spec:
+            out["spec_acceptance_ema"] = spec
+        # per-role fleet summary — only present when the fleet actually
+        # declares phase roles, so all-colocated fleets keep the
+        # pre-disaggregation snapshot shape byte-identical
+        if any(r.role != "colocated" for r in self.replicas):
+            out["roles"] = {r.name: r.role for r in self.replicas}
+            out["prefill_inflight"] = sum(
+                len(r.inflight) for r in self.replicas
+                if r.role == "prefill")
+            out["decode_inflight"] = sum(
+                len(r.inflight) for r in self.replicas
+                if r.role == "decode")
+        return out
+
+    def _maybe_emit(self):
+        if self.monitor is None \
+                or not getattr(self.monitor, "enabled", False):
+            return
+        done = self.counters["completed"]
+        if done - self._emitted_at < self.config.emit_interval:
+            return
+        self._emitted_at = done
+        step = done
+        events = [
+            ("Serve/Router/shed", self.counters["shed"], step),
+            ("Serve/Router/expired", self.counters["expired"], step),
+            ("Serve/Router/replayed", self.counters["replayed"], step),
+            ("Serve/Router/failovers", self.counters["failovers"], step),
+            ("Serve/Router/queue_depth", len(self._queue), step),
+            ("Serve/Router/draining",
+             sum(r.draining for r in self.replicas), step),
+        ]
+        if any(r.role != "colocated" for r in self.replicas):
+            events += [
+                ("Serve/Router/handoffs",
+                 self.counters["handoffs"], step),
+                ("Serve/Router/kv_stream_bytes",
+                 self.counters["kv_stream_bytes"], step),
+                ("Serve/Router/kv_stream_ms",
+                 round(self.counters["kv_stream_ms"], 3), step),
+                ("Serve/Router/prefill_inflight",
+                 sum(len(r.inflight) for r in self.replicas
+                     if r.role == "prefill"), step),
+                ("Serve/Router/decode_inflight",
+                 sum(len(r.inflight) for r in self.replicas
+                     if r.role == "decode"), step),
+            ]
+        self.monitor.write_events(events)

@@ -29,12 +29,26 @@ the JAX package fires them:
                   retries, modelling SIGKILL mid-save
   ==============  =====================================================
 
+The serving plane fires SERVING_POINTS at the JAX package's places:
+
+  ===============  ====================================================
+  point            fires in
+  ===============  ====================================================
+  serve_dispatch   inference/v2/replica.py Replica.submit
+  serve_step       Replica.step, before the engine's step
+  serve_verify     Replica.step when the engine has a speculative
+                   verify pending (never in the port yet: it has no
+                   speculative decoding)
+  replica_death    Replica.step and Replica.import_handoff
+  router_overload  inference/v2/router.py, each round's overload check
+  kv_stream        inference/v2/kv_transfer.py, each transport send
+  kv_import        kv_transfer.import_sequence, before unpacking
+  ===============  ====================================================
+
 The hot tier's points (replica_push, replica_fetch, replica_restore,
-dcn_partition, host_loss, slice_loss) and the serving plane's
-(serve_dispatch, serve_step, serve_verify, replica_death,
-router_overload, kv_stream, kv_import) keep their names and blast radius
-here; the modules that fire them are not ported yet (ROADMAP Queue 1:
-M14 hot tier; serving replica / router).
+dcn_partition, host_loss, slice_loss) keep their names and blast radius
+here; the module that fires them is not ported yet (ROADMAP Queue 1:
+M14 hot tier).
 
 Faults are armed per point with a countdown (skip the first N fires) and
 a failure budget (fail the next M fires, then heal): "fail once then
@@ -77,6 +91,12 @@ KNOWN_POINTS = (
 
 # The points this package fires (the rest stay defined, unfired).
 PORT_POINTS = ("d2h", "serialize", "write", "rename", "commit", "reshape")
+
+# The serving plane's points this package fires (tests/test_torch_router.py
+# checks each is fired in deepspeed_tpu_torch/ and armed by a serving test).
+SERVING_POINTS = ("serve_dispatch", "serve_step", "serve_verify",
+                  "replica_death", "router_overload", "kv_stream",
+                  "kv_import")
 
 # Blast-radius class per injection point:
 #

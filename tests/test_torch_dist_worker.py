@@ -394,6 +394,57 @@ def zero(inp, rank, world):
     return {"res": _np(out)}
 
 
+@_suite
+def kv_handoff(inp, rank, world):
+    """An ``inp["ring_bytes"]`` payload through ring_exchange_bytes, then
+    a KV handoff of ``inp["prompt"]`` from rank 0's engine into rank 1's
+    through DcnRingTransport (rank 1 sends an empty payload back)."""
+    import dataclasses
+    import hashlib
+
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch import InferenceEngineV2, Llama
+    from deepspeed_tpu_torch import comm as c
+    from deepspeed_tpu_torch.inference.v2 import kv_transfer
+    from deepspeed_tpu_torch.models import (LLAMA_TINY,
+                                            llama_params_from_numpy)
+    data = np.random.RandomState(rank).bytes(inp["ring_bytes"])
+    got, origin = c.ring_exchange_bytes(data)
+    model = Llama(dataclasses.replace(LLAMA_TINY, dtype="float32"),
+                  device="cpu", dtype=torch.float32)
+    model.load_state_dict(llama_params_from_numpy(inp["params"], "cpu",
+                                                  torch.float32))
+    eng = InferenceEngineV2(model, dict(inp["base"]), device="cpu")
+    payload, uid = b"", 5
+    if rank == 0:
+        eng.put(inp["prompt"], max_new_tokens=inp["new"], uid=uid)
+        eng.hold_decode(uid)
+        seqs = eng.state_mgr._seqs
+        while uid not in seqs or not seqs[uid].generated:
+            eng.step()
+        payload = kv_transfer.export_sequence(eng, uid)
+    transport = kv_transfer.DcnRingTransport()
+    transport.send(payload)
+    received = transport.recv()
+    out = {"ring_len": len(got), "ring_origin": origin,
+           "ring_sha": hashlib.sha256(got).hexdigest(),
+           "sent_len": len(payload),
+           "sent_sha": hashlib.sha256(payload).hexdigest(),
+           "received_len": len(received),
+           "received_sha": hashlib.sha256(received).hexdigest()}
+    if rank == 0:
+        eng.release_handoff(uid)
+    else:
+        kv_transfer.import_sequence(eng, received)
+        while not eng.is_done(uid):
+            eng.step()
+        out["tokens"] = np.asarray(eng.get(uid))
+    alloc = eng.state_mgr.allocator
+    out["pool_closed"] = alloc.free_blocks == alloc.total_blocks
+    return out
+
+
 def main():
     suite, tmpdir = sys.argv[1], sys.argv[2]
     sys.path.insert(0, ROOT)

@@ -372,10 +372,14 @@ def test_engine_rejects_unported_config():
     for over in (dict(tensor_parallel=2), dict(expert_parallel=2),
                  dict(kv_host_offload=True),
                  dict(prefix_cache=True), dict(spec_draft=True),
-                 dict(telemetry=True)):
+                 dict(paged_block_c=16)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             InferenceEngineV2(model, dict(dtype="float32", **over),
                               device="cpu")
+    # serving telemetry and its monitor are ported: accepted
+    eng = InferenceEngineV2(model, dict(dtype="float32", telemetry=True),
+                            device="cpu", monitor=object())
+    assert eng.telemetry is not None
     with pytest.raises(ValueError):
         InferenceEngineV2(model, dict(paged_kernel="yes"), device="cpu")
 
