@@ -307,6 +307,29 @@ Phases (any failure raises and the script exits nonzero):
      ``router`` JSON line a run: TTFT / TPOT p50, output tokens/s, handoff
      ms p50 / max and GB/s (export: gather, D2H, pack; import: unpack,
      H2D, pool writes), kv_stream_bytes, peak memory, the card.
+ 35. the serving features: (0) Llama-2-7B widths at 4 layers in fp32
+     (and the narrow draft): greedy streams with the prefix cache on
+     (a hit and a CoW), speculating with the target as its own draft and
+     with the narrow draft, under KV host offload (decode in groups) and
+     through a two-replica prefix-affinity Router each equal to one plain
+     engine's, every pool back to full; K5 at the verify shape (C = 5
+     rows, contexts 1024-1500, H = KVH = 32, d = 128) on its sm90 design
+     against its plain version, repeated bitwise, the eight slots as views
+     q[b] of one tensor, timed beside its SIMT design, SDPA and the bound;
+     then Llama-2-7B in bf16 at 32 layers: (a) 16 requests on a 1024-token
+     system prompt (32 new) with the cache off and on (hit rate, skipped
+     prompt tokens, CoW copies, K5 launches, TTFT) and through two
+     replicas with prefix_affinity="auto" (where each landed, its
+     prefix_score); (b) 8 requests of 1024-1500 tokens (64 new) plain,
+     with the target as its own draft and with a 2-layer d_model 1024
+     draft (rounds, proposed / accepted / committed, tokens a verify, the
+     verify's K5 launches by design, the acceptance latch, TPOT against
+     plain); (c) 8 requests of 1500 tokens on 200 logical blocks (pinned
+     host memory) with 64 on the card against the same engine resident
+     (groups a dispatch, H2D / D2H bytes and GB/s, TPOT, peak memory; the
+     streams must be equal). bf16 streams are compared and the differing
+     ones' first position and top-2 logit margin printed; launches equal
+     what each run's forwards imply. One ``features`` JSON line a run.
 Phases 7, 13, 20, 24, 32 and 33 also hold every bf16 K1 / K2 / K2-qmajor /
 K3 / K6 launch to the sm90 design (the wrappers' DESIGN_LAUNCHES); the
 serving slices count K4's launches by design (split / single), the
@@ -6020,6 +6043,470 @@ def phase_router(card, seed=0):
     return launches
 
 
+# -------------------------------------- serving features (phase 35)
+
+# phase 35's traffic and pools (Llama-2-7B, 64-position blocks): (a) 16
+# requests on a 1024-token system prompt, 32 new tokens; (b) 8 requests of
+# 1024-1500 tokens, 64 new; (c) 8 requests of 1500 tokens on 200 logical
+# blocks with 64 on the device, 32 new
+PHASE35 = dict(system=1024, requests=16, new=32, prefix_blocks=320,
+               spec_requests=8, spec_new=64, spec_blocks=216,
+               offload_requests=8, offload_prompt=1500, offload_new=32,
+               offload_blocks=200, device_blocks=64, parity_layers=4)
+# the narrow draft of (b): Llama-2-7B's vocabulary, 2 layers, d_model 1024,
+# 8 heads of 128
+NARROW_DRAFT = dict(n_layer=2, n_head=8, n_kv_heads=8, d_model=1024)
+
+
+def features_prompts(rs, vocab, system, n, lo=64, hi=256):
+    """``n`` prompts: one shared ``system`` prompt, then a distinct suffix
+    of lo..hi tokens each; the last suffix repeats the first one's first
+    40 tokens, so once the first request retired into the tree the last
+    one's match ends 40 tokens into a block (a partial-tail CoW)."""
+    head = rs.randint(0, vocab, (system,))
+    tails = [rs.randint(0, vocab, (rs.randint(lo, hi + 1),))
+             for _ in range(n)]
+    tails[-1][:40] = tails[0][:40]
+    return [np.concatenate([head, t]) for t in tails]
+
+
+def top2_margin(model, tokens):
+    """The model's top-1 minus top-2 logit after ``tokens`` (one bucketed
+    prefill into a scratch pool of its own)."""
+    BS = 64
+    T = len(tokens)
+    nb = -(-T // BS)
+    cache = model.init_paged_cache(nb + 1, BS)
+    idx = np.arange(T)
+    tb = torch.from_numpy((1 + idx // BS).astype(np.int32)).cuda()
+    to = torch.from_numpy((idx % BS).astype(np.int32)).cuda()
+    ids = torch.from_numpy(np.asarray(tokens, np.int32)[None]).cuda()
+    with torch.inference_mode():
+        logits, _ = model.apply_paged_prefill(ids, cache, tb, to, T)
+    top = logits[0].topk(2).values
+    return float(top[0] - top[1])
+
+
+def compare_streams(model, prompts, got, want, tag):
+    """bf16 streams against the reference's: the count of equal ones, and
+    for each that differs its first differing position and the reference
+    model's top-2 logit margin there."""
+    diffs = []
+    for i, (p, g, w) in enumerate(zip(prompts, got, want)):
+        if len(g) == len(w) and (g == w).all():
+            continue
+        n = min(len(g), len(w))
+        j = int(np.nonzero(g[:n] != w[:n])[0][0]) if (g[:n] != w[:n]).any() \
+            else n
+        diffs.append(dict(request=i, position=j, margin=top2_margin(
+            model, np.concatenate([p, w[:j]]))))
+    log(f"phase 35 {tag}: {len(prompts) - len(diffs)} of {len(prompts)} "
+        f"bf16 streams equal the reference's; differing: {diffs}")
+    return dict(equal=len(prompts) - len(diffs), differing=diffs)
+
+
+def pools_full(eng):
+    """Target, draft and offload pools back to full after a drain: every
+    block free or held by the tree alone (refcount 1), no draft block, no
+    occupied device slot."""
+    alloc = eng.state_mgr.allocator
+    pc = eng.prefix_cache
+    tree = pc.tree_blocks if pc is not None else 0
+    ok = alloc.free_blocks + tree == alloc.total_blocks
+    if pc is not None:
+        ok = ok and all(alloc.refcount(n.block) == 1 for n in pc._walk())
+    da = eng.state_mgr.draft_allocator
+    if da is not None:
+        ok = ok and da.free_blocks == da.total_blocks
+    if eng.kv_pool is not None:
+        ok = ok and bool((eng.kv_pool.logical_of[1:] < 0).all())
+    return ok
+
+
+def scored_replica(name, engine):
+    """A ``Replica`` that records the prefix score the router reads for
+    each prompt it probes (keyed by the prompt's bytes)."""
+    from deepspeed_tpu_torch.inference.v2 import Replica
+
+    class Scored(Replica):
+        def prefix_score(self, prompt):
+            s = super().prefix_score(prompt)
+            key = np.asarray(prompt, np.int32).tobytes()
+            self.scores[key] = max(self.scores.get(key, 0), s)
+            return s
+
+    rep = Scored(name, engine)
+    rep.scores = {}
+    return rep
+
+
+def serve_run(eng, prompts, new, pa=None):
+    """Submit ``prompts`` together and serve them to the end; -> (streams,
+    stats, launches (None without ``pa``)). Counts are reset right before
+    and read right after."""
+    for k in eng.forward_counts:
+        eng.forward_counts[k] = 0
+    for k in eng.draft_forward_counts:
+        eng.draft_forward_counts[k] = 0
+    if pa is not None:
+        pa.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_start = time.perf_counter()
+    uids = [eng.put(p, new) for p in prompts]
+    first, done = serve(eng, uids)
+    e2e = time.perf_counter() - t_start
+    launches = dict(pa.LAUNCHES) if pa is not None else None
+    outs = [eng.get(u) for u in uids]
+    for u, o in zip(uids, outs):
+        assert len(o) == new, (u, len(o))
+    ttft = sorted(first[u] - t_start for u in uids)
+    tpot = sorted((done[u] - first[u]) / (new - 1) for u in uids)
+    stats = dict(ttft_p50_s=float(np.percentile(ttft, 50)),
+                 tpot_p50_ms=float(np.percentile(tpot, 50)) * 1e3,
+                 output_tok_per_s=float(sum(len(o) for o in outs) / e2e),
+                 e2e_s=e2e, forwards=dict(eng.forward_counts),
+                 max_memory_allocated_gb=(
+                     torch.cuda.max_memory_allocated() / 1e9))
+    if eng.draft_model is not None:
+        stats["draft_forwards"] = dict(eng.draft_forward_counts)
+    return outs, stats, launches
+
+
+def expected_launches(eng, L, draft_L=0):
+    """K4 / K5 launches a run's forwards imply: one a layer and forward,
+    a verify forward one K5 a slot and layer; the draft's likewise."""
+    fc, dc = eng.forward_counts, eng.draft_forward_counts
+    B = eng.config.max_batch_size
+    return {"paged_decode": L * fc["decode"] + draft_L * dc["decode"],
+            "paged_chunk": L * (fc["chunk"] + fc["prefill"]
+                                + B * fc["verify"]) + draft_L * dc["chunk"]}
+
+
+def phase_features_parity(seed=0):
+    """Phase 35 (0): Llama-2-7B widths at PHASE35["parity_layers"] layers
+    in fp32 (the narrow draft too): greedy streams of the prefix cache on,
+    speculation with the target as its own draft and with the narrow
+    draft, KV host offload and a two-replica prefix-affinity Router each
+    equal one plain engine's; every pool back to full; the cache took a
+    hit and a CoW, the self-draft committed more than a token a round."""
+    from deepspeed_tpu_torch import (InferenceEngineV2, LLAMA_PRESETS, Llama,
+                                     Router)
+    cfg = dataclasses.replace(LLAMA_PRESETS["llama2-7b"],
+                              n_layer=PHASE35["parity_layers"],
+                              dtype="float32")
+    model = Llama(cfg, device="cuda", dtype=torch.float32, seed=seed)
+    draft = Llama(dataclasses.replace(cfg, **NARROW_DRAFT), device="cuda",
+                  dtype=torch.float32, seed=seed + 1)
+    conf = dict(dtype="float32", kv_block_size=64, max_batch_size=4,
+                splitfuse_tokens=256, decode_steps_per_dispatch=8,
+                num_kv_blocks=96)
+    rs = np.random.RandomState(seed + 35)
+    prompts = features_prompts(rs, cfg.vocab_size, 256, 8, lo=64, hi=160)
+    new = 24
+
+    def engine(**kw):
+        return InferenceEngineV2(model, dict(conf, **kw), device="cuda")
+
+    want = engine().generate_all(prompts, max_new_tokens=new)
+    out = {}
+    runs = {"prefix cache": (dict(prefix_cache=True), {}),
+            "self-draft": (dict(spec_k=4), dict(draft_model=model)),
+            "narrow draft": (dict(spec_k=4), dict(draft_model=draft)),
+            "offload": (dict(kv_host_offload=True, device_kv_blocks=12,
+                             num_kv_blocks=64), {})}
+    for tag, (kw, extra) in runs.items():
+        eng = InferenceEngineV2(model, dict(conf, **kw), device="cuda",
+                                **extra)
+        got = eng.generate_all(prompts, max_new_tokens=new)
+        for i, (g, w) in enumerate(zip(got, want)):
+            np.testing.assert_array_equal(g, w, err_msg=f"{tag}, {i}")
+        assert pools_full(eng), tag
+        snap = eng.telemetry_snapshot()
+        if tag == "prefix cache":
+            s = eng.prefix_cache.stats()
+            assert s["hits"] >= 1 and s["cow_copies"] >= 1, s
+            out[tag] = s
+        elif tag == "offload":
+            assert max(eng.offload_group_counts) > 1, \
+                dict(eng.offload_group_counts)
+            out[tag] = dict(groups=dict(eng.offload_group_counts),
+                            swapped_in=eng.kv_pool.swapped_in,
+                            swapped_out=eng.kv_pool.swapped_out)
+        else:
+            out[tag] = {k: v for k, v in snap.items()
+                        if k.startswith("spec")}
+        if tag == "self-draft":
+            assert snap["spec_tokens_per_verify_step"] > 1, snap
+        del eng
+    reps = [scored_replica(f"r{i}", engine(prefix_cache=True))
+            for i in range(2)]
+    router = Router(reps, prefix_affinity="auto")
+    assert router._affinity_on()
+    uids = [router.put(p, max_new_tokens=new) for p in prompts]
+    rounds = 0
+    while router.has_work:
+        router.step()
+        rounds += 1
+        assert rounds < 2000
+    for i, (u, w) in enumerate(zip(uids, want)):
+        np.testing.assert_array_equal(router.get(u), w,
+                                      err_msg=f"affinity fleet, {i}")
+    assert all(pools_full(r.engine) for r in reps)
+    out["affinity fleet"] = {r.name: r.engine.prefix_cache.stats()["hits"]
+                             for r in reps}
+    log(f"phase 35 fp32 parity ok at {cfg.n_layer} layers: {len(prompts)} "
+        f"greedy streams of each run == one plain engine's; "
+        + json.dumps(out))
+    del reps, router, model, draft
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def verify_kernel(pa, seed=0):
+    """K5 at the verify shape (phase 35): C = 5 query rows a slot over
+    Llama-2-7B's pools (H = KVH = 32, d = 128, 64-position blocks) at a
+    1200-token context, on its sm90 design, against its plain version in
+    fp32, repeated bitwise; then the eight slots of one verify as views
+    q[b] of one (8, 5, 32, 128) tensor (the bases the model passes) at
+    contexts 1024-1500, each against its plain version; timed beside its
+    SIMT design, the other split choice, SDPA and the bound."""
+    cases = KernelCases(pa, seed)
+    c = cases.chunk(32, 32, 128, 64, 64, 5, 1200, 5, "auto", torch.bfloat16)
+    r = chunk_timing(pa, c, with_plain=True)
+    k, v = c["k"], c["v"]
+    NB = k.shape[0]
+    q_all = cases.randn((8, 5, 32, 128), torch.bfloat16)
+    starts = cases.rs.randint(1024, 1501, 8)
+    tables = torch.from_numpy(np.stack([
+        cases.rs.permutation(np.arange(1, NB))[:64] for _ in range(8)])
+        .astype(np.int32)).cuda()
+    pa.reset_launch_counts()
+    for b in range(8):
+        out = pa.paged_chunk_attention(q_all[b], k, v, tables[b],
+                                       int(starts[b]), 5)
+        cases.check("paged_chunk", out, lambda q, k, v, b=b:
+                    pa.paged_chunk_attention_reference(
+                        q, k, v, tables[b], int(starts[b]), 5), q_all[b], k,
+                    v)
+    assert pa.DESIGN_LAUNCHES["paged_chunk"]["sm90"] == 8, \
+        dict(pa.DESIGN_LAUNCHES["paged_chunk"])
+    r["max_abs_err"] = cases.err["paged_chunk"]
+    r["rel_norm"] = cases.rel["paged_chunk"]
+    r["shape"] += "; verify C = 5 rows a slot"
+    log("phase 35 K5 verify shape " + json.dumps(
+        {k2: v2 for k2, v2 in r.items() if k2 != "bound"}))
+    return r
+
+
+def phase_features(card, pa, seed=0):
+    """Phase 35: (0) phase_features_parity; K5 at the verify shape
+    (verify_kernel); then Llama-2-7B in bf16 at all 32 layers (random
+    weights from the seed, 64-position blocks, batch 8, split-fuse 256,
+    8 decode steps a dispatch): (a) the prefix cache off, then on, over
+    16 requests on a 1024-token system prompt (32 new tokens each; one
+    suffix diverging mid-block), then a two-replica Router with prefix
+    affinity (one request first, then the other 15 together); (b) 8
+    requests of 1024-1500 tokens (64 new) plain, with the
+    target as its own draft and with the narrow draft; (c) 8 requests of
+    1500 tokens on 200 logical blocks, 64 of them on the device, against
+    the same engine resident (bucketed prefill, so all 8 decode
+    together). Gates: every pool back to full, a hit and a
+    CoW, the self-draft more than one token a verify round, offload's
+    streams equal resident's, launches as the forwards imply. Returns
+    (launches by path, the verify row)."""
+    from deepspeed_tpu_torch import (InferenceEngineV2, LLAMA_PRESETS, Llama,
+                                     Router)
+    phase_features_parity(seed)
+    verify = verify_kernel(pa, seed)
+    cfg = LLAMA_PRESETS["llama2-7b"]
+    L = cfg.n_layer
+    P = PHASE35
+    model = Llama(cfg, device="cuda", dtype=torch.bfloat16, seed=seed)
+    base = dict(dtype="bfloat16", kv_block_size=64, max_batch_size=8,
+                splitfuse_tokens=256, decode_steps_per_dispatch=8)
+    rs = np.random.RandomState(seed + 35)
+    lines, paths = {}, {}
+
+    def engine(**kw):
+        return InferenceEngineV2(model, dict(base, **kw), device="cuda")
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (a) prefix cache: off, on, a two-replica affinity fleet
+    prompts = features_prompts(rs, cfg.vocab_size, P["system"],
+                               P["requests"])
+    new = P["new"]
+    eng = engine(num_kv_blocks=P["prefix_blocks"], prefix_cache=False)
+    want, stats, launches = serve_run(eng, prompts, new, pa)
+    assert launches == expected_launches(eng, L), launches
+    count_paged_designs(pa, launches)
+    paths["llama-prefix-off-serve"] = launches
+    lines["(a) prefix cache off"] = dict(stats, launches=launches)
+    assert pools_full(eng)
+    eng = None
+    free()
+    eng = engine(num_kv_blocks=P["prefix_blocks"], prefix_cache=True)
+    got, stats, launches = serve_run(eng, prompts, new, pa)
+    assert launches == expected_launches(eng, L), launches
+    count_paged_designs(pa, launches)
+    paths["llama-prefix-serve"] = launches
+    s = eng.prefix_cache.stats()
+    assert s["hits"] >= 1 and s["cow_copies"] >= 1, s
+    lines["(a) prefix cache on"] = dict(
+        stats, launches=launches, prefix=s,
+        prompt_tokens_skipped=s["cached_tokens"],
+        streams=compare_streams(model, prompts, got, want, "prefix on"))
+    assert pools_full(eng)
+    eng = None
+    free()
+    reps = [scored_replica(f"r{i}", engine(
+        num_kv_blocks=P["prefix_blocks"], prefix_cache=True))
+        for i in range(2)]
+    router = Router(reps, prefix_affinity="auto")
+    assert router._affinity_on()
+    pa.reset_launch_counts()
+    t_start = time.perf_counter()
+    # one request first (it retires into its replica's tree), then the
+    # other 15 together: affinity sends those that fit to that replica
+    uids = [router.put(prompts[0], max_new_tokens=new)]
+    first, fin = serve_fleet(router, uids)
+    uids += [router.put(p, max_new_tokens=new) for p in prompts[1:]]
+    more = serve_fleet(router, uids[1:])
+    first.update(more[0])
+    fin.update(more[1])
+    e2e = time.perf_counter() - t_start
+    landed = [router._reqs[u].replica for u in uids]
+    outs = [router.get(u) for u in uids]
+    launches = dict(pa.LAUNCHES)
+    per = [expected_launches(r.engine, L) for r in reps]
+    assert launches == {k: sum(e[k] for e in per) for k in launches}, \
+        (launches, per)
+    count_paged_designs(pa, launches)
+    paths["llama-affinity-serve"] = launches
+    # the score the router read on each replica it probed (None: that
+    # replica could not take the request that round, so it was not asked)
+    scores = [{r.name: r.scores.get(np.asarray(p, np.int32).tobytes())
+               for r in reps} for p in prompts]
+    for r in reps:
+        assert pools_full(r.engine), r.name
+    lines["(a) two replicas, prefix affinity"] = dict(
+        fleet_stats(uids, outs, first, fin, t_start, e2e, new),
+        landed=landed, prefix_score=scores,
+        hits={r.name: r.engine.prefix_cache.stats()["hits"] for r in reps},
+        launches=launches,
+        streams=compare_streams(model, prompts, outs, want, "affinity"))
+    router = reps = None
+    free()
+
+    # (b) speculative decoding: plain, self-draft, narrow draft
+    n = P["spec_requests"]
+    lens = rs.randint(1024, 1501, n)
+    prompts = [rs.randint(0, cfg.vocab_size, (m,)) for m in lens]
+    new = P["spec_new"]
+    eng = engine(num_kv_blocks=P["spec_blocks"])
+    want, plain, launches = serve_run(eng, prompts, new, pa)
+    assert launches == expected_launches(eng, L), launches
+    count_paged_designs(pa, launches)
+    lines["(b) plain decode"] = dict(plain, launches=launches)
+    assert pools_full(eng)
+    eng = None
+    free()
+    narrow = Llama(dataclasses.replace(cfg, **NARROW_DRAFT), device="cuda",
+                   dtype=torch.bfloat16, seed=seed + 1)
+    for tag, draft, dL in (("self-draft", model, L),
+                           ("narrow draft", narrow, NARROW_DRAFT["n_layer"])):
+        eng = InferenceEngineV2(model, dict(base,
+                                            num_kv_blocks=P["spec_blocks"]),
+                                device="cuda", draft_model=draft)
+        assert eng._spec_k == 4
+        latched = []
+        drop_draft = eng.state_mgr.drop_draft
+
+        def drop(seq, drop_draft=drop_draft, latched=latched):
+            if not seq.spec_on and seq.draft_blocks:
+                latched.append(seq.spec_rounds)      # the acceptance latch
+            drop_draft(seq)
+
+        eng.state_mgr.drop_draft = drop
+        got, stats, launches = serve_run(eng, prompts, new, pa)
+        by = dict(pa.DESIGN_LAUNCHES["paged_chunk"])
+        assert launches == expected_launches(eng, L, dL), launches
+        count_paged_designs(pa, launches)
+        paths["llama-spec-self-serve" if draft is model
+              else "llama-spec-narrow-serve"] = launches
+        tel = eng.telemetry
+        spec = dict(rounds=tel.spec_rounds, proposed=tel.spec_proposed,
+                    accepted=tel.spec_accepted,
+                    committed=tel.spec_committed,
+                    tokens_per_verify=tel.spec_committed / max(
+                        1, tel.spec_rounds),
+                    verify_forwards=eng.forward_counts["verify"],
+                    verify_k5_launches=(L * eng.config.max_batch_size
+                                        * eng.forward_counts["verify"]),
+                    k5_design=by, latched_after_rounds=latched)
+        if draft is model:
+            assert spec["committed"] > spec["rounds"], spec
+        lines[f"(b) {tag}"] = dict(
+            stats, launches=launches, spec=spec,
+            tpot_vs_plain=stats["tpot_p50_ms"] / plain["tpot_p50_ms"],
+            streams=compare_streams(model, prompts, got, want, tag))
+        assert pools_full(eng)
+        eng = None
+        free()
+    narrow = None
+
+    # (c) KV host offload against the same engine resident, bucketed
+    # prefill (all 8 prefilled at admission, so all 8 decode together)
+    n = P["offload_requests"]
+    prompts = [rs.randint(0, cfg.vocab_size, (P["offload_prompt"],))
+               for _ in range(n)]
+    new = P["offload_new"]
+    eng = engine(num_kv_blocks=P["offload_blocks"], splitfuse_tokens=0)
+    want, resident, launches = serve_run(eng, prompts, new, pa)
+    assert launches == expected_launches(eng, L), launches
+    count_paged_designs(pa, launches)
+    lines["(c) resident"] = dict(resident, launches=launches)
+    assert pools_full(eng)
+    eng = None
+    free()
+    t0 = time.perf_counter()
+    eng = engine(num_kv_blocks=P["offload_blocks"], splitfuse_tokens=0,
+                 kv_host_offload=True, device_kv_blocks=P["device_blocks"])
+    build_s = time.perf_counter() - t0
+    pool = eng.kv_pool
+    pool.timing = True
+    got, stats, launches = serve_run(eng, prompts, new, pa)
+    assert launches == expected_launches(eng, L), launches
+    count_paged_designs(pa, launches)
+    paths["llama-offload-serve"] = launches
+    xfer = pool.transfer_stats()
+    for i, (g, w) in enumerate(zip(got, want)):
+        np.testing.assert_array_equal(g, w, err_msg=f"offload, request {i}")
+    assert max(eng.offload_group_counts) > 1, dict(eng.offload_group_counts)
+    lines["(c) offload"] = dict(
+        stats, launches=launches,
+        groups_a_dispatch=dict(eng.offload_group_counts),
+        swapped_in=pool.swapped_in, swapped_out=pool.swapped_out,
+        h2d_bytes=xfer["h2d"]["bytes"], d2h_bytes=xfer["d2h"]["bytes"],
+        h2d_gb_per_s=xfer["h2d"]["bytes"] / max(xfer["h2d"]["s"], 1e-9) / 1e9,
+        d2h_gb_per_s=xfer["d2h"]["bytes"] / max(xfer["d2h"]["s"], 1e-9) / 1e9,
+        h2d_s=xfer["h2d"]["s"], d2h_s=xfer["d2h"]["s"],
+        pinned_gb=pool.pinned_bytes / 1e9, pool_build_s=build_s,
+        tpot_vs_resident=stats["tpot_p50_ms"] / resident["tpot_p50_ms"],
+        streams_equal=n)
+    assert pools_full(eng)
+    eng = None
+    free()
+    model = None
+    free()
+    for run, stats in lines.items():
+        log("features " + json.dumps(dict(run=run, **stats, card=card)))
+    return paths, verify
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default="",
@@ -6179,6 +6666,10 @@ def main(argv=None):
     paths["llama-router-serve"] = phase_router(card)
     phase_done("34 (serving front-end: Router / Replica, a disaggregated "
                "Llama-2-7B fleet)")
+    feature_paths, rows["paged_chunk"]["verify"] = phase_features(card, pa)
+    paths.update(feature_paths)
+    phase_done("35 (serving features: prefix cache, speculative decoding, "
+               "KV host offload on Llama-2-7B)")
 
     kernels = []
     for name, r in rows.items():
@@ -6202,7 +6693,7 @@ def main(argv=None):
                       "bf16_matmul_ms", "delta_ms", "split_ms",
                       "mma_sync_split_ms",
                       "host_ms", "mma_sync_host_ms", "simt_ms",
-                      "first_chunk", "long_walk"):
+                      "first_chunk", "long_walk", "verify"):
             if extra in r:
                 row[extra] = r[extra]
         if name in PATH_DESIGNS:

@@ -1,5 +1,6 @@
 from .blocked_allocator import BlockedAllocator
 from .ragged import DSSequenceDescriptor, DSStateManager, RaggedBatchWrapper
+from .prefix_cache import PrefixCache, PrefixMatch
 from .engine_v2 import InferenceEngineV2, RaggedInferenceEngineConfig
 from . import kv_transfer
 from .replica import Replica, ReplicaDead
@@ -7,6 +8,7 @@ from .router import DeadlineExceeded, Overloaded, Router, RouterConfig
 
 __all__ = ["BlockedAllocator", "InferenceEngineV2",
            "RaggedInferenceEngineConfig", "DSSequenceDescriptor",
-           "DSStateManager", "RaggedBatchWrapper", "kv_transfer", "Replica",
+           "DSStateManager", "RaggedBatchWrapper", "PrefixCache",
+           "PrefixMatch", "kv_transfer", "Replica",
            "ReplicaDead", "Router", "RouterConfig", "Overloaded",
            "DeadlineExceeded"]

@@ -11,8 +11,9 @@ Reference counting: ``allocate`` hands out blocks at refcount 1; ``ref`` /
 ``unref`` take and drop extra references (the block returns to the free
 list at zero); :meth:`free` is the strict whole-ownership release and
 raises on double-free and on free-while-referenced. The evictor hook
-(a prefix cache) is kept for the same contract but nothing in the port
-registers one yet.
+is the prefix cache (``prefix_cache.PrefixCache`` registers itself): under
+pressure ``allocate`` evicts its cold leaves, so admission counts
+free-or-evictable blocks.
 """
 
 
@@ -25,7 +26,7 @@ class BlockedAllocator:
         self._num_blocks = num_blocks
         self._free = list(range(num_blocks - 1, 0, -1))  # pop() -> block 1
         self._refs = {}        # block id -> refcount (allocated blocks only)
-        self._evictor = None   # .evictable_blocks / .evict(n)
+        self._evictor = None   # .evictable_blocks / .evict(n) (prefix cache)
 
     @property
     def total_blocks(self):
@@ -101,7 +102,8 @@ class BlockedAllocator:
             if self._refs[b] > 1:
                 raise ValueError(
                     f"free of block {b} with refcount {self._refs[b]} — "
-                    f"still referenced (unref instead)")
+                    f"still referenced (shared prefix block? unref "
+                    f"instead)")
             seen.add(b)
         for b in blocks:
             del self._refs[b]

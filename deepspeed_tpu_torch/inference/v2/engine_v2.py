@@ -5,28 +5,40 @@ Counterpart of ``deepspeed_tpu/inference/v2/engine_v2.py`` (the
   * The blocked KV cache is a list of per-layer heads-major pools
     (num_blocks, KVH, block_size, hd) that the model updates in place;
     per-sequence block tables index them.
-  * Three device programs run eagerly: the bucketed prefill (one
-    sequence), the split-fuse chunk (one chunk of the oldest prefilling
-    sequence, followed in the same dispatch by ``decode_steps_per_dispatch``
-    decode steps of every running sequence) and the fused decode
+  * The device programs run eagerly: the bucketed prefill (one sequence),
+    the split-fuse chunk (one chunk of the oldest prefilling sequence,
+    followed in the same dispatch by ``decode_steps_per_dispatch`` decode
+    steps of every running sequence) and the fused decode
     (``decode_steps_per_dispatch`` steps, each fed the token sampled by the
-    last). Attention in all three goes through the Hopper paged kernels;
+    last). Attention in all of them goes through the Hopper paged kernels;
     a Mixtral's expert FFN through the grouped-GEMM kernels.
   * Scheduling is the JAX engine's: admit pending requests while slots and
     blocks allow, stream prompts through chunks (or bucketed prefill), then
     batched decode; sequences retire on EOS or max_new_tokens and their
-    blocks return to the free list at once.
+    blocks return to the pool at once.
+  * The serving features of the JAX engine: the radix prefix cache
+    (``prefix_cache.py``; a hit skips the cached prefix's prefill, a
+    partial-tail hit copies the matched slice into a fresh block on the
+    compute stream first), draft-model speculative decoding
+    (``speculative.py``; ``draft_model=``: the draft proposes ``spec_k``
+    tokens a greedy sequence and the target verifies all k+1 in one
+    ``apply_paged_verify`` pass through K5) and KV host offload
+    (``kv_offload.py``; the logical pool in pinned host memory, the device
+    pool an LRU cache of it, decode in groups whose blocks fit it).
   * Serving telemetry (``monitor/telemetry.py``) and the disaggregated
     handoff half (``hold_decode``, ``export_handoff``, ``import_handoff``,
     ``release_handoff``; ``kv_transfer.py`` frames the bytes) are the JAX
     engine's, for ``Replica`` / ``Router``.
 
-Sampling uses a ``torch.Generator`` seeded from ``config.seed``; it gives
-other numbers than ``jax.random`` from the same seed, so only greedy
-streams are comparable across the two packages.
+The port has no autotune winner cache yet: "auto" knobs resolve to the JAX
+package's cold-cache defaults (prefix cache off; speculation on once a
+draft model is passed, k = 4; the paged kernels on). Sampling uses a
+``torch.Generator`` seeded from ``config.seed``; it gives other numbers
+than ``jax.random`` from the same seed, so only greedy streams are
+comparable across the two packages.
 """
 
-from collections import deque
+from collections import Counter, deque
 from dataclasses import dataclass
 
 import numpy as np
@@ -36,20 +48,18 @@ from ...monitor.telemetry import ServingTelemetry
 from ...runtime.checkpoint_engine import serialization as ser
 from ...utils.device import resolve_device
 from ...utils.logging import log_dist
-from .ragged import DSStateManager
+from .blocked_allocator import BlockedAllocator
+from .kv_offload import OffloadKVPool
+from .prefix_cache import PrefixCache, resolve_prefix_cache
+from .ragged import DSStateManager, RaggedBatchWrapper
+from .speculative import (SPEC_EMA_ALPHA, SPEC_MIN_ROUNDS, longest_accept,
+                          resolve_spec)
 
 # fields of the JAX config the port does not carry yet: (allowed values,
 # the ROADMAP Queue 1 serving item that brings them)
 _NOT_YET = {
     "tensor_parallel": ((1,), "tensor parallel"),
     "expert_parallel": ((1,), "MoE expert parallel (M10)"),
-    "kv_host_offload": ((False,), "KV host offload"),
-    "device_kv_blocks": ((0,), "KV host offload"),
-    "prefix_cache": (("auto", False), "prefix cache"),
-    "prefix_cache_blocks": ((0,), "prefix cache"),
-    "prefix_cache_min_match": (("auto",), "prefix cache"),
-    "spec_draft": (("auto", False), "speculative decoding"),
-    "spec_k": (("auto",), "speculative decoding"),
     "paged_block_c": (("auto",), "autotune winner cache"),
     "autotune_mode": (("",), "autotune winner cache"),
     "autotune_cache": (("",), "autotune winner cache"),
@@ -63,13 +73,15 @@ def _not_yet(what):
 
 @dataclass
 class RaggedInferenceEngineConfig:
-    """The JAX engine's config. Fields this slice carries: dtype,
+    """The JAX engine's config. Fields this port carries: dtype,
     max_batch_size, kv_block_size, num_kv_blocks, prompt_bucket,
     temperature, top_k, seed, decode_steps_per_dispatch, splitfuse_tokens,
-    paged_kernel, quantize_weights, weight_quant, telemetry,
-    telemetry_interval. The rest raise at a non-default value ("auto"
-    settings that the JAX engine resolves off on a cold winner cache stay
-    accepted and resolve off)."""
+    quantize_weights, weight_quant, kv_host_offload, device_kv_blocks,
+    paged_kernel, prefix_cache, prefix_cache_blocks,
+    prefix_cache_min_match, spec_draft, spec_k, telemetry,
+    telemetry_interval. tensor_parallel, expert_parallel, paged_block_c,
+    autotune_mode and autotune_cache raise at a non-default value, naming
+    their ROADMAP item."""
     dtype: str = "bfloat16"
     tensor_parallel: int = 1
     expert_parallel: int = 1
@@ -92,16 +104,29 @@ class RaggedInferenceEngineConfig:
     # FFN weights quantized into the fused-dequant kernels (K7, K9); "auto"
     # resolves off; wins over quantize_weights
     weight_quant: object = "auto"
+    # ZeRO-Inference KV host offload: the logical block space lives in
+    # (pinned) host memory, the device holds device_kv_blocks slots a layer
+    # as an LRU cache of it; decode dispatches run in groups whose blocks
+    # fit, the next group's uploads staged on a side stream under the
+    # current group's compute (kv_offload.py)
     kv_host_offload: bool = False
-    device_kv_blocks: int = 0
+    device_kv_blocks: int = 0        # required > 1 when kv_host_offload
     # "auto" / True = the Hopper paged kernels (the port has no winner
     # cache yet, so "auto" means the kernels); False = the dense-gather
     # parity path, explicit only
     paged_kernel: object = "auto"
     paged_block_c: object = "auto"
+    # radix-tree prefix cache (prefix_cache.py): "auto" resolves OFF (the
+    # JAX cold default); True raises under kv_host_offload
     prefix_cache: object = "auto"
+    # cap on tree-held blocks (0 = bounded only by the pool)
     prefix_cache_blocks: int = 0
+    # minimum matched FULL blocks for a hit ("auto" = 1)
     prefix_cache_min_match: object = "auto"
+    # draft-model speculative decoding; the opt-in is the engine's
+    # ``draft_model`` argument. spec_draft: "auto" (on once a draft model
+    # is passed) | True (raises without a draft model, or under
+    # kv_host_offload) | False; spec_k: "auto" (4) | int >= 1
     spec_draft: object = "auto"
     spec_k: object = "auto"
     autotune_mode: str = ""
@@ -128,6 +153,44 @@ class RaggedInferenceEngineConfig:
             raise ValueError(
                 f"weight_quant must be false|'auto'|'int8'|'int4', got "
                 f"{self.weight_quant!r}")
+        if self.prefix_cache not in (True, False, "auto"):
+            raise ValueError(
+                f"prefix_cache must be true|false|'auto', got "
+                f"{self.prefix_cache!r}")
+        if self.prefix_cache_min_match != "auto" and (
+                not isinstance(self.prefix_cache_min_match, int)
+                or isinstance(self.prefix_cache_min_match, bool)
+                or self.prefix_cache_min_match < 1):
+            raise ValueError(
+                f"prefix_cache_min_match must be 'auto' or an int >= 1, "
+                f"got {self.prefix_cache_min_match!r}")
+        if not isinstance(self.prefix_cache_blocks, int) \
+                or isinstance(self.prefix_cache_blocks, bool) \
+                or self.prefix_cache_blocks < 0:
+            raise ValueError(
+                f"prefix_cache_blocks must be an int >= 0, got "
+                f"{self.prefix_cache_blocks!r}")
+        if self.spec_draft not in (True, False, "auto"):
+            raise ValueError(
+                f"spec_draft must be true|false|'auto', got "
+                f"{self.spec_draft!r}")
+        if self.spec_k != "auto" and (
+                not isinstance(self.spec_k, int)
+                or isinstance(self.spec_k, bool)
+                or self.spec_k < 1):
+            raise ValueError(
+                f"spec_k must be 'auto' or an int >= 1, got "
+                f"{self.spec_k!r}")
+        if self.prefix_cache is True and self.kv_host_offload:
+            raise ValueError(
+                "prefix_cache=True is incompatible with kv_host_offload: "
+                "tree-held blocks would pin host/device residency the "
+                "offload pool cannot track — use one or the other")
+        if not isinstance(self.telemetry_interval, int) \
+                or self.telemetry_interval < 1:
+            raise ValueError(
+                f"telemetry_interval must be an int >= 1, got "
+                f"{self.telemetry_interval!r}")
         for name, (allowed, item) in _NOT_YET.items():
             value = getattr(self, name)
             if not any(value is a or (type(value) is type(a) and value == a)
@@ -193,9 +256,15 @@ class InferenceEngineV2:
     ``quantize_weights`` a float model is quantized here (``quantize_``)
     and one built with ``quantize=`` must be in the same mode; codes,
     scales and the router then keep their types (``to_serving``).
+    ``draft_model``: a port ``Llama`` / ``Mixtral`` with the target's
+    vocabulary (the target itself too) that proposes tokens for
+    speculative decoding; it is cast like the model, never quantized here,
+    and gets a KV pool of its own.
     ``forward_counts`` counts the model forwards each program ran
-    (prefill, chunk, decode step) — with the kernels on, every forward
-    launches one paged kernel per layer, and a Mixtral forward one fused
+    (prefill, chunk, decode step, verify) and ``draft_forward_counts`` the
+    draft's (catch-up chunk, propose decode step) — with the kernels on,
+    every forward launches one paged kernel per layer (a verify forward
+    one chunk kernel per slot and layer), and a Mixtral forward one fused
     gate/up and one down grouped kernel per layer (``model.grouped_kernel``;
     the K9 pair under ``weight_quant``), a quantized Llama three K7
     products per layer."""
@@ -206,8 +275,6 @@ class InferenceEngineV2:
             config = RaggedInferenceEngineConfig(**{**config, **kwargs})
         elif config is None:
             config = RaggedInferenceEngineConfig(**kwargs)
-        if draft_model is not None:
-            raise _not_yet("speculative decoding")
         self.config = config
         self.telemetry = None
         if config.telemetry:
@@ -242,10 +309,77 @@ class InferenceEngineV2:
             num_blocks=num_blocks, block_size=BS,
             max_batch=config.max_batch_size,
             max_blocks_per_seq=self.max_blocks_per_seq)
-        self.cache = model.init_paged_cache(num_blocks, BS, dtype=self.dtype)
-        # the router's prefix-affinity probe reads it; the port has no
-        # prefix cache yet (ROADMAP Queue 1, serving: prefix cache)
+
+        # radix-tree prefix cache over the block pool (host-side policy:
+        # the device programs do not change). The router's prefix-affinity
+        # probe (Replica.prefix_score) reads it.
         self.prefix_cache = None
+        pc_on, pc_min_match, pc_watermark = self._resolve_prefix_cache()
+        if pc_on:
+            self.prefix_cache = PrefixCache(
+                self.state_mgr.allocator, BS,
+                min_match_blocks=pc_min_match,
+                max_blocks=config.prefix_cache_blocks,
+                evict_watermark_pct=pc_watermark)
+            self.state_mgr.prefix_cache = self.prefix_cache
+            if self.telemetry is not None:
+                self.telemetry.attach_prefix_cache(self.prefix_cache)
+
+        self.kv_pool = None
+        device_blocks = num_blocks
+        if config.kv_host_offload:
+            if config.device_kv_blocks < 2:
+                raise ValueError(
+                    "kv_host_offload requires device_kv_blocks >= 2")
+            device_blocks = config.device_kv_blocks
+            self.kv_pool = OffloadKVPool(model, num_blocks, device_blocks,
+                                         BS, self.dtype, self.device)
+        # offload decode dispatches by their number of groups
+        self.offload_group_counts = Counter()
+        self.cache = model.init_paged_cache(device_blocks, BS,
+                                            dtype=self.dtype)
+
+        # draft-model speculative decoding: the draft's own allocator and
+        # KV pool over the same block geometry. With no draft model none of
+        # this exists and the engine runs as without speculation.
+        self.draft_model = None
+        self._spec_k = 0
+        self._spec_floor = 0.0
+        self.draft_forward_counts = {"chunk": 0, "decode": 0}
+        if config.spec_draft is True and draft_model is None:
+            raise ValueError(
+                "spec_draft=True requires a draft model (pass "
+                "draft_model= to the engine)")
+        if draft_model is not None and config.kv_host_offload:
+            if config.spec_draft is True:
+                raise ValueError(
+                    "spec_draft=True is incompatible with "
+                    "kv_host_offload: the draft pool has no offload "
+                    "tier to keep residency honest — use one or the "
+                    "other")
+            draft_model = None            # "auto"/False resolve off
+        if draft_model is not None:
+            spec_on, spec_k, spec_floor = resolve_spec(config.spec_draft,
+                                                       config.spec_k)
+            if spec_on:
+                if draft_model.config.vocab_size != model.config.vocab_size:
+                    raise ValueError(
+                        f"draft/target vocab mismatch: "
+                        f"{draft_model.config.vocab_size} vs "
+                        f"{model.config.vocab_size} — speculation verifies "
+                        f"draft token ids against target argmax, the "
+                        f"vocabularies must be the same")
+                if draft_model is not model:
+                    draft_model.to_serving(self.device, self.dtype)
+                    draft_model._weight_quant_fused = False
+                draft_model.paged_kernel = config.paged_kernel
+                self.draft_model = draft_model
+                self._spec_k = spec_k
+                self._spec_floor = spec_floor
+                self.state_mgr.draft_allocator = BlockedAllocator(
+                    num_blocks)
+                self.draft_cache = draft_model.init_paged_cache(
+                    num_blocks, BS, dtype=self.dtype)
 
         self._pending = deque()
         self._results = {}            # uid -> generated tokens (finished)
@@ -256,10 +390,16 @@ class InferenceEngineV2:
         # dispatch until their KV streams to a decode replica
         self._decode_hold = set()
         self._uid_next = 0
-        self.forward_counts = {"prefill": 0, "chunk": 0, "decode": 0}
+        self.forward_counts = {"prefill": 0, "chunk": 0, "decode": 0,
+                               "verify": 0}
         log_dist(
             f"v2 engine ready: device={self.device} blocks="
-            f"{num_blocks}x{BS} max_batch={config.max_batch_size}",
+            f"{num_blocks}x{BS} max_batch={config.max_batch_size}"
+            + (f" device_kv_blocks={device_blocks}" if self.kv_pool
+               else "")
+            + (f" spec_k={self._spec_k}" if self.draft_model is not None
+               else "")
+            + (" prefix_cache" if self.prefix_cache is not None else ""),
             ranks=[0])
 
     # ------------------------------------------------------------- requests
@@ -285,6 +425,13 @@ class InferenceEngineV2:
                 f"request needs {mgr.blocks_needed(total)} KV blocks but "
                 f"the pool only has {mgr.allocator.total_blocks}; raise "
                 "num_kv_blocks")
+        if self.kv_pool is not None \
+                and mgr.blocks_needed(total) > self.kv_pool.D - 1:
+            raise ValueError(
+                f"request needs {mgr.blocks_needed(total)} KV blocks but "
+                f"the device pool holds {self.kv_pool.D - 1} (+scratch); "
+                "a single sequence's working set must fit on device — "
+                "raise device_kv_blocks")
         self._pending.append(_Request(
             uid, prompt, max_new_tokens, eos_token_id,
             temperature=(self.config.temperature if temperature is None
@@ -322,9 +469,11 @@ class InferenceEngineV2:
 
     def cancel(self, uid):
         """Withdraw a request (the router's deadline / shed path): queued
-        requests are dropped; in-flight sequences are flushed (blocks back
-        to the pool); a finished-but-unfetched result is forgotten.
-        Serving telemetry drops the request from its windows
+        requests are dropped; in-flight sequences are flushed through the
+        prefix-cache-safe unref path (no tree insert: cache contents past
+        the prefill frontier are unverified), their draft blocks and
+        offload residency released; a finished-but-unfetched result is
+        forgotten. Serving telemetry drops the request from its windows
         (``on_reject``). Returns True when the uid was known."""
         self._decode_hold.discard(uid)
         for i, r in enumerate(self._pending):
@@ -342,6 +491,13 @@ class InferenceEngineV2:
             self._prefill_q.remove(uid)
         except ValueError:
             pass
+        seq = self.state_mgr.get_sequence(uid)
+        if seq.cow is not None:
+            # admitted but the CoW slice copy never ran: drop the claim's
+            # temporary source ref before the unref sweep
+            self.state_mgr.cow_complete(seq)
+        if self.kv_pool is not None:
+            self.kv_pool.release(seq.blocks)
         self.state_mgr.flush(uid)
         if self.telemetry is not None:
             self.telemetry.on_reject(uid)
@@ -381,6 +537,11 @@ class InferenceEngineV2:
         ``0..seen_tokens-2``, exactly what a colocated decode would
         attend: the last generated token's KV is written by the decode
         step that consumes it."""
+        if self.kv_pool is not None:
+            raise RuntimeError(
+                "KV handoff is incompatible with kv_host_offload: "
+                "block payloads live in the host pool, not the device "
+                "cache — run prefill-role replicas without offload")
         mgr = self.state_mgr
         seq = mgr.get_sequence(uid)
         if not seq.generated:
@@ -403,8 +564,7 @@ class InferenceEngineV2:
             "uid": int(uid),
             "prompt": [int(t) for t in seq.prompt],
             "generated": [int(t) for t in seq.generated],
-            # the prefix cache's claimed length; always 0 without one
-            "cached_len": 0,
+            "cached_len": int(seq.cached_len),
             "max_new_tokens": int(seq.max_new_tokens),
             "eos_token_id": int(seq.eos_token_id),
             "temperature": float(seq.temperature),
@@ -424,6 +584,11 @@ class InferenceEngineV2:
         decode batch. Serving telemetry registers the request at its
         original submit stamp. Returns the uid."""
         from .kv_transfer import KVWireError
+        if self.kv_pool is not None:
+            raise RuntimeError(
+                "KV handoff is incompatible with kv_host_offload: "
+                "imported blocks would bypass residency tracking — run "
+                "decode-role replicas without offload")
         mgr = self.state_mgr
         uid = int(state["uid"])
         if uid in mgr._seqs or uid in self._results:
@@ -485,10 +650,13 @@ class InferenceEngineV2:
         return uid
 
     def release_handoff(self, uid):
-        """The decode side confirmed the import: drop the sequence here
-        (blocks and slot back, no result surfaced); telemetry forgets it
-        without counting a rejection and keeps its TTFT sample (the first
-        token was produced here)."""
+        """The decode side confirmed the import: drop the sequence here.
+        ``retire`` inserts the verified prompt+first-token prefix into the
+        local prefix cache (this replica's prefill wrote its KV) and
+        releases blocks and slot; ``flush`` drops the descriptor without
+        surfacing a result; telemetry forgets the request without counting
+        a rejection and keeps its TTFT sample (the first token was produced
+        here)."""
         self._decode_hold.discard(uid)
         self.state_mgr.retire(uid)
         self.state_mgr.flush(uid)
@@ -496,6 +664,19 @@ class InferenceEngineV2:
             self.telemetry.on_handoff_out(uid)
 
     # ------------------------------------------------------------- programs
+    def _resolve_prefix_cache(self):
+        """(enabled, min_match_blocks, evict_watermark_pct) of the prefix
+        cache: off when asked off or under KV host offload (True with
+        offload raised in the config), else ``resolve_prefix_cache``
+        ("auto" = the JAX cold defaults: off). A ``sliding_window`` Llama
+        is served as the JAX engine serves it: a cached block holds the KV
+        of the same token prefix at the same absolute positions."""
+        cfg = self.config
+        if cfg.prefix_cache is False or cfg.kv_host_offload:
+            return False, 1, 0
+        return resolve_prefix_cache(cfg.prefix_cache,
+                                    cfg.prefix_cache_min_match)
+
     @staticmethod
     def _sample_per_slot(logits, gen, temps, top_ks, all_greedy=False):
         """Per-request sampling: logits (B, V) fp32, temps (B,) f32 (0 =
@@ -523,7 +704,8 @@ class InferenceEngineV2:
     def _decode_steps(self, batch, all_greedy):
         """``decode_steps_per_dispatch`` decode steps over the batch, each
         fed the token sampled by the last; returns (n, B) tokens on the
-        host (one device sync per dispatch)."""
+        device (the caller's copy to the host is the dispatch's one
+        sync)."""
         model = self.model
         tokens = self._dev(batch.tokens)
         lengths = self._dev(batch.lengths)
@@ -549,10 +731,38 @@ class InferenceEngineV2:
             torch.tensor([seq.top_k], dtype=torch.int32, device=self.device),
             all_greedy)
 
+    def _chunk_forward(self, seq, ids, tb, to, off, true_len, table,
+                       all_greedy):
+        """One chunk forward of ``seq`` -> its sampled token on the
+        device."""
+        c_logits, self.cache = self.model.apply_paged_chunk(
+            self._dev(ids), self.cache, self._dev(tb), self._dev(to), off,
+            true_len, self._dev(table))
+        self.forward_counts["chunk"] += 1
+        return self._sample_one(c_logits, seq, all_greedy)
+
+    def _apply_cow(self, seq):
+        """Prefix-cache copy-on-write: copy the first ``plen`` token rows
+        of block ``src`` into block ``dst`` in every layer's K and V pool
+        (one slice copy a pool), queued on the compute stream ahead of the
+        chunk that writes the rest of ``dst``, with no host sync. A shared
+        block is never written in place: the sequence diverging inside it
+        gets the matched slice in a fresh block, and prefill resumes
+        there."""
+        src, dst, plen = seq.cow
+        with torch.inference_mode():
+            for pools in self.cache.values():
+                for p in pools:
+                    p[dst, :, :plen].copy_(p[src, :, :plen])
+        self.state_mgr.cow_complete(seq)   # drops the claim ref on src
+
     def _step_splitfuse_chunk(self):
         """Run one fused dispatch: the next chunk of the oldest
         prefilling sequence + n decode steps (chunk-only when nothing is
-        decoding). Returns decode (uid, token) pairs."""
+        decoding). Returns decode (uid, token) pairs. Prefix-cache hits
+        ride this path even with SplitFuse off (the chunk's start offset
+        skips the cached prefix); the chunk size then falls back to the
+        prompt bucket."""
         mgr = self.state_mgr
         C = self.config.splitfuse_tokens or self.config.prompt_bucket
         uid = self._prefill_q[0]
@@ -569,16 +779,37 @@ class InferenceEngineV2:
         table = np.zeros((self.max_blocks_per_seq,), np.int32)
         table[:len(seq.blocks)] = seq.blocks
 
+        if self.kv_pool is not None:
+            # offload: a chunk-only dispatch over the resident history and
+            # destination blocks, then the grouped decode keeps the running
+            # sequences fed (the fused dispatch would need the union of
+            # both working sets resident)
+            live = seq.blocks[:mgr.blocks_needed(off + true_len)]
+            # blocks from the chunk's first position on hold no earlier
+            # tokens: this dispatch writes them, so slots but no upload
+            first_fresh = -(-off // mgr.block_size)
+            self.kv_pool.ensure(self.cache, live,
+                                skip_upload=live[first_fresh:])
+            dest = sorted({int(b) for b in tb[:true_len]})
+            with torch.inference_mode():
+                c_tok = self._chunk_forward(
+                    seq, ids, self.kv_pool.translate(tb), to, off, true_len,
+                    self.kv_pool.translate(table), seq.temperature == 0.0)
+                c_tok = int(c_tok.cpu()[0])
+            self.kv_pool.mark_dirty(dest)
+            seq.prefill_offset = off + true_len
+            if seq.prefill_offset >= len(seq.prompt):
+                self._prefill_q.popleft()
+                self._post_token(seq, c_tok)
+            return self._step_offload_decode()
+
         batch = mgr.decode_batch(exclude=self._decode_hold)
         decoding = bool(batch.active.any())
         all_greedy = seq.temperature == 0.0 and not (
             decoding and bool(batch.temps.any()))
         with torch.inference_mode():
-            c_logits, self.cache = self.model.apply_paged_chunk(
-                self._dev(ids), self.cache, self._dev(tb), self._dev(to),
-                off, true_len, self._dev(table))
-            self.forward_counts["chunk"] += 1
-            c_tok = self._sample_one(c_logits, seq, all_greedy)
+            c_tok = self._chunk_forward(seq, ids, tb, to, off, true_len,
+                                        table, all_greedy)
             if decoding:
                 toks = self._decode_steps(batch, all_greedy).cpu().numpy()
             else:
@@ -596,16 +827,23 @@ class InferenceEngineV2:
         bucket = self.config.prompt_bucket
         while self._pending:
             req = self._pending[0]
-            if not mgr.can_admit(len(req.prompt), req.max_new_tokens):
+            if not mgr.can_admit(len(req.prompt), req.max_new_tokens,
+                                 prompt=req.prompt):
                 break
             self._pending.popleft()
             slot, seq = mgr.admit(req.uid, req.prompt, req.max_new_tokens,
                                   req.eos_token_id,
                                   temperature=req.temperature,
                                   top_k=req.top_k)
-            if self.config.splitfuse_tokens:
+            if seq.cow is not None:
+                # partial-tail prefix hit: copy the matched slice into the
+                # fresh block before any prefill touches it
+                self._apply_cow(seq)
+            if self.config.splitfuse_tokens or seq.cached_len:
                 # SplitFuse: the prompt streams through chunk dispatches
-                # interleaved with decodes — no bucketed prefill here
+                # interleaved with decodes — no bucketed prefill here.
+                # Prefix-cache hits take the same path: the chunk's start
+                # offset is what skips the cached prefix
                 self._prefill_q.append(req.uid)
                 continue
             T = len(req.prompt)
@@ -615,6 +853,13 @@ class InferenceEngineV2:
             tb = np.zeros((T_pad,), np.int32)       # scratch for pads
             to = np.zeros((T_pad,), np.int32)
             tb[:T], to[:T] = mgr.token_placement(seq)
+            prompt_blocks = seq.blocks[:mgr.blocks_needed(T)]
+            if self.kv_pool is not None:
+                # every prompt block is written whole by this dispatch:
+                # slots only, no upload
+                self.kv_pool.ensure(self.cache, prompt_blocks,
+                                    skip_upload=prompt_blocks)
+                tb = self.kv_pool.translate(tb)
             with torch.inference_mode():
                 logits, self.cache = self.model.apply_paged_prefill(
                     self._dev(ids), self.cache, self._dev(tb),
@@ -622,6 +867,8 @@ class InferenceEngineV2:
                 self.forward_counts["prefill"] += 1
                 tok = int(self._sample_one(logits, seq,
                                            seq.temperature == 0.0).cpu()[0])
+            if self.kv_pool is not None:
+                self.kv_pool.mark_dirty(prompt_blocks)
             self._post_token(seq, tok)
 
     def _post_token(self, seq, token):
@@ -636,8 +883,81 @@ class InferenceEngineV2:
             self._results[seq.uid] = np.asarray(seq.generated, np.int32)
             if self.telemetry is not None:
                 self.telemetry.on_finish(seq.uid)
+            if self.kv_pool is not None:
+                # drop residency before the allocator recycles the ids
+                self.kv_pool.release(seq.blocks)
             self.state_mgr.retire(seq.uid)
             self.state_mgr.flush(seq.uid)
+
+    # ------------------------------------------------- KV host offload path
+    def _seq_live_blocks(self, seq, n_steps=0):
+        """Logical blocks a decode dispatch touches for ``seq``: the
+        history it attends plus the tail blocks the next ``n_steps``
+        writes land in."""
+        last = seq.seen_tokens - 1 + max(0, n_steps - 1)
+        hi = min(last // self.state_mgr.block_size, len(seq.blocks) - 1)
+        return seq.blocks[:hi + 1]
+
+    def _offload_decode_groups(self, batch, n_steps):
+        """Greedy-pack active slots into dispatch groups whose combined
+        working set fits the device pool."""
+        mgr = self.state_mgr
+        cap = self.kv_pool.D - 1
+        groups = []
+        cur, cur_blocks = [], set()
+        for slot in np.nonzero(batch.active)[0]:
+            seq = mgr.get_sequence(mgr._slots[slot])
+            nb = set(self._seq_live_blocks(seq, n_steps))
+            if cur and len(cur_blocks | nb) > cap:
+                groups.append((cur, cur_blocks))
+                cur, cur_blocks = [], set()
+            cur.append(int(slot))
+            cur_blocks |= nb
+        if cur:
+            groups.append((cur, cur_blocks))
+        return groups
+
+    def _step_offload_decode(self):
+        """Grouped decode under KV host offload: each group's blocks are
+        made device-resident (the next group's uploads staged on the side
+        stream under the current group's decode), its tables translated
+        to device slots, the other groups' slots masked (the decode keeps
+        its fixed (max_batch, ...) shape), and its tail blocks marked
+        dirty."""
+        mgr = self.state_mgr
+        pool = self.kv_pool
+        n = max(1, self.config.decode_steps_per_dispatch)
+        batch = mgr.decode_batch(exclude=self._decode_hold)
+        if not batch.active.any():
+            return []
+        groups = self._offload_decode_groups(batch, n)
+        self.offload_group_counts[len(groups)] += 1
+        out = []
+        prepared = pool.prepare(sorted(groups[0][1]))
+        for gi, (slots_g, blocks_g) in enumerate(groups):
+            pool.ensure(self.cache, sorted(blocks_g), prepared)
+            prepared = (pool.prepare(sorted(groups[gi + 1][1]))
+                        if gi + 1 < len(groups) else None)
+            sub_active = np.zeros_like(batch.active)
+            sub_active[slots_g] = batch.active[slots_g]
+            tables = np.zeros_like(batch.block_tables)
+            tokens = np.where(sub_active, batch.tokens, 0)
+            lengths = np.where(sub_active, batch.lengths, 0)
+            for s in slots_g:
+                tables[s] = pool.translate(batch.block_tables[s])
+            sub_batch = RaggedBatchWrapper(
+                tokens=tokens, lengths=lengths, block_tables=tables,
+                active=sub_active, temps=batch.temps, top_ks=batch.top_ks)
+            with torch.inference_mode():
+                toks = self._decode_steps(
+                    sub_batch,
+                    not bool(batch.temps[sub_active].any())).cpu().numpy()
+            for s in slots_g:
+                seq = mgr.get_sequence(mgr._slots[s])
+                pool.mark_dirty(self._seq_live_blocks(seq, n)[
+                    batch.lengths[s] // mgr.block_size:])
+            out.extend(self._post_decode_tokens(sub_batch, toks))
+        return out
 
     def step(self):
         """One scheduler iteration (see :meth:`_step_inner`). The dispatch
@@ -657,8 +977,9 @@ class InferenceEngineV2:
 
     def _step_inner(self):
         """One scheduler iteration: admit+prefill pending, then the next
-        split-fuse chunk (fused with n decode steps) or n decode steps for
-        every active sequence. Returns the (uid, token) decode pairs.
+        split-fuse chunk (fused with n decode steps) or a decode dispatch
+        (grouped under offload; a speculative round for the sequences that
+        speculate). Returns the (uid, token) decode pairs.
 
         A sequence that hits EOS or its budget mid-dispatch keeps decoding
         until the dispatch ends (its extra tokens are discarded; its
@@ -668,17 +989,217 @@ class InferenceEngineV2:
             return self._step_splitfuse_chunk()
         if self.state_mgr.n_active == 0:
             return []
+        if self.kv_pool is not None:
+            return self._step_offload_decode()
+        if self.draft_model is not None:
+            return self._step_spec_decode()
         return self._plain_decode()
 
-    def _plain_decode(self):
-        """n fused decode steps over all active slots but the held ones."""
-        batch = self.state_mgr.decode_batch(exclude=self._decode_hold)
+    def _plain_decode(self, uids=None):
+        """n fused decode steps over the given slots (all active slots but
+        the held ones when ``uids`` is None)."""
+        batch = self.state_mgr.decode_batch(uids, exclude=self._decode_hold)
         if not batch.active.any():
             return []
         with torch.inference_mode():
             toks = self._decode_steps(
                 batch, not bool(batch.temps.any())).cpu().numpy()
         return self._post_decode_tokens(batch, toks)
+
+    # ------------------------------------------------- speculative decoding
+    def _spec_candidate(self, seq):
+        """Greedy, not floor-latched, and far enough from its budget tail
+        that a full k-token span stays inside the blocks allocated up
+        front: tail sequences ride plain decode, so speculation never
+        writes past a block table."""
+        return (self.draft_model is not None and seq.spec_on
+                and seq.temperature == 0.0
+                and len(seq.prompt) + seq.max_new_tokens
+                - seq.seen_tokens >= self._spec_k)
+
+    @property
+    def spec_pending(self):
+        """True when the next step() would run a verify dispatch: the
+        replica gates its ``serve_verify`` fault point on this."""
+        if self.draft_model is None or self._prefill_q:
+            return False
+        mgr = self.state_mgr
+        for uid in mgr._slots:
+            if uid is None or uid in self._decode_hold:
+                continue
+            seq = mgr.get_sequence(uid)
+            if seq.generated and self._spec_candidate(seq):
+                return True
+        return False
+
+    def _step_spec_decode(self):
+        """Partition the decoding slots into a SPEC set (greedy, latched
+        on, the draft pool has room) and a PLAIN set. The spec set runs
+        propose -> verify -> host acceptance; the plain set runs the plain
+        decode dispatch, so low-acceptance traffic latches off per
+        sequence and pays the plain-decode cost."""
+        mgr = self.state_mgr
+        spec, plain = [], []
+        for uid in list(mgr._slots):
+            if uid is None or uid in self._decode_hold:
+                continue
+            seq = mgr.get_sequence(uid)
+            if not seq.generated:
+                continue
+            if not self._spec_candidate(seq):
+                plain.append(uid)
+                continue
+            if not seq.draft_blocks and not mgr.alloc_draft(seq):
+                plain.append(uid)     # draft pool full: plain decode
+                continue
+            while seq.draft_len < seq.seen_tokens - 2:
+                self._draft_catchup(seq)
+            spec.append(uid)
+        out = []
+        if spec:
+            out.extend(self._spec_round(spec))
+        if plain:
+            out.extend(self._plain_decode(set(plain)))
+        return out
+
+    def _draft_catchup(self, seq):
+        """Ingest one chunk of committed history into the draft's pool (the
+        draft's prefill, through its chunk program): tokens [draft_len,
+        seen-1) of prompt+generated, at their absolute positions in the
+        sequence's draft blocks. It replays the real token history, so
+        prompt tokens the prefix cache served (which the target never
+        recomputed) are covered too. Logits are discarded."""
+        mgr = self.state_mgr
+        BS = mgr.block_size
+        C = self.config.splitfuse_tokens or self.config.prompt_bucket
+        hist = (seq.prompt if not seq.generated else np.concatenate(
+            [seq.prompt, np.asarray(seq.generated, np.int32)]))
+        off = seq.draft_len
+        true_len = min(C, seq.seen_tokens - 1 - off)
+        ids = np.zeros((1, C), np.int32)
+        ids[0, :true_len] = hist[off:off + true_len]
+        idx = np.arange(off, off + true_len)
+        tb = np.zeros((C,), np.int32)
+        to = np.zeros((C,), np.int32)
+        tb[:true_len] = np.asarray(seq.draft_blocks, np.int32)[idx // BS]
+        to[:true_len] = (idx % BS).astype(np.int32)
+        table = np.zeros((self.max_blocks_per_seq,), np.int32)
+        table[:len(seq.draft_blocks)] = seq.draft_blocks
+        with torch.inference_mode():
+            _logits, self.draft_cache = self.draft_model.apply_paged_chunk(
+                self._dev(ids), self.draft_cache, self._dev(tb),
+                self._dev(to), off, true_len, self._dev(table))
+        self.draft_forward_counts["chunk"] += 1
+        seq.draft_len = off + true_len
+
+    def _propose(self, pb):
+        """A re-ingest step + ``spec_k`` greedy draft decode steps, each
+        proposal feeding the next on the device. The re-ingest writes the
+        second-to-last committed token's KV at its own position: after a
+        fully accepted round that position holds nothing (the draft never
+        saw its own last proposal fed back), after a partial round the
+        rewrite is the same KV. Returns (B, k) proposals on the host."""
+        draft = self.draft_model
+        tokens2 = self._dev(pb.tokens)
+        lengths = self._dev(pb.lengths)
+        tables = self._dev(pb.block_tables)
+        with torch.inference_mode():
+            _lg, self.draft_cache = draft.apply_paged_decode(
+                tokens2[:, 0], lengths, self.draft_cache, tables)
+            cur = tokens2[:, 1]
+            lengths = lengths + 1
+            props = []
+            for _ in range(self._spec_k):
+                logits, self.draft_cache = draft.apply_paged_decode(
+                    cur, lengths, self.draft_cache, tables)
+                # only greedy sequences speculate: the draft is greedy too
+                cur = logits.argmax(dim=-1).to(torch.int32)
+                lengths = lengths + 1
+                props.append(cur)
+            out = torch.stack(props, dim=1).cpu().numpy()
+        self.draft_forward_counts["decode"] += self._spec_k + 1
+        return out
+
+    def _verify(self, vb):
+        """The target's greedy next token at all k+1 positions of every
+        slot, in one ``apply_paged_verify`` pass (K5 per slot and layer, at
+        C = k+1). -> (B, k+1) on the host."""
+        with torch.inference_mode():
+            logits, self.cache = self.model.apply_paged_verify(
+                self._dev(vb.tokens), vb.lengths, self.cache,
+                self._dev(vb.block_tables))
+            self.forward_counts["verify"] += 1
+            return logits.argmax(dim=-1).to(torch.int32).cpu().numpy()
+
+    def _spec_round(self, uids):
+        """One propose / verify round for the spec set. Each sequence
+        commits its accepted prefix plus the target's bonus token: every
+        committed token is a target-argmax output, which keeps greedy
+        streams identical to plain decode."""
+        mgr, k = self.state_mgr, self._spec_k
+        uid_set = set(uids)
+        props = self._propose(mgr.propose_batch(uid_set))     # (B, k)
+        proposals = {uid: props[slot]
+                     for slot, uid in enumerate(mgr._slots)
+                     if uid in uid_set}
+        vb = mgr.verify_batch(proposals, k)
+        for uid in uids:
+            mgr.begin_spec(mgr.get_sequence(uid), proposals[uid])
+        try:
+            nxt = self._verify(vb)                            # (B, k+1)
+        except BaseException:
+            # an interrupted verify must not leave speculative tokens in
+            # ``generated``: unwind before the failure propagates, or a
+            # replica / router retry would replay corrupt state
+            for uid in uids:
+                mgr.rollback_spec(mgr.get_sequence(uid))
+            raise
+        out = []
+        for slot, uid in enumerate(list(mgr._slots)):
+            if uid is None or uid not in uid_set:
+                continue
+            seq = mgr.get_sequence(uid)
+            mgr.rollback_spec(seq)
+            pre_seen = seq.seen_tokens
+            d, t = proposals[uid], nxt[slot]
+            a = longest_accept(d, t)
+            commit = [int(x) for x in d[:a]] + [int(t[a])]
+            seq.spec_rounds += 1
+            seq.spec_accepted += a
+            frac = a / k
+            seq.spec_ema = frac if seq.spec_ema is None else \
+                (1 - SPEC_EMA_ALPHA) * seq.spec_ema + SPEC_EMA_ALPHA * frac
+            if self.telemetry is not None:
+                self.telemetry.on_spec_round(
+                    uid, accepted=a, proposed=k, committed=len(commit))
+            out.extend(self._post_tokens(seq, commit))
+            if uid in self._results or uid not in mgr._seqs:
+                continue                        # retired mid-span
+            # the draft holds the committed history through seen-1 on a
+            # partial round, seen-2 on a full one (its own last proposal
+            # was never fed back; the re-ingest covers the gap)
+            seq.draft_len = pre_seen + (a if a < k else k - 1)
+            if seq.spec_rounds >= SPEC_MIN_ROUNDS \
+                    and seq.spec_ema < self._spec_floor:
+                # acceptance floor: latch plain decode for this sequence
+                # and return its draft blocks
+                seq.spec_on = False
+                mgr.drop_draft(seq)
+        return out
+
+    def _post_tokens(self, seq, tokens):
+        """Feed a committed span (accepted proposals + bonus) one token at
+        a time: EOS or the budget retires mid-span and the tail is
+        discarded, as ``_post_decode_tokens`` discards post-finish dispatch
+        tokens. Returns the accepted (uid, token) pairs."""
+        out = []
+        uid = seq.uid
+        for tok in tokens:
+            if uid in self._results:
+                break
+            self._post_token(seq, tok)
+            out.append((uid, tok))
+        return out
 
     def _post_decode_tokens(self, batch, toks):
         """Feed (n, B) decode outputs to their sequences; returns the

@@ -1,7 +1,7 @@
 """Llama model family for v2 paged serving — RoPE + RMSNorm + SwiGLU + GQA.
 
 Counterpart of ``deepspeed_tpu/models/llama.py`` (serving surface only:
-``head``, ``init_paged_cache``, ``apply_paged_prefill/chunk/decode``).
+``head``, ``init_paged_cache``, ``apply_paged_prefill/chunk/decode/verify``).
 Parameter names and shapes are the JAX package's, so weights move between
 the two through numpy with no renaming or transposes:
 
@@ -28,6 +28,7 @@ the fused-dequant kernel K7 (ops/cuda/mlp_matmul.wq_matmul).
 import math
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -540,3 +541,49 @@ class Llama(nn.Module):
                           window=cfg.sliding_window)
             x = self._block_tail(x, attn.reshape(B, 1, H * hd), i)
         return self.head(x)[:, 0], cache
+
+    def apply_paged_verify(self, tokens, lengths, cache, block_tables):
+        """Speculative verify: C tokens a slot in ONE pass (the JAX
+        ``apply_paged_verify``).
+
+        tokens: (B, C) per slot, the last committed token then the draft's
+        proposals; lengths: (B,) HOST ints (numpy or a list) = each slot's
+        first input position; block_tables: (B, MB) int32. RoPE runs at
+        each slot's absolute positions, the K/V of all B x C tokens are
+        scattered first, then each slot's C queries attend its cache
+        through the chunk kernel (K5) with start = lengths[b] and true_len
+        = C: B launches a layer, their ints from the host, so no layer
+        waits on the device. A write position past the table lands in the
+        table's last block, as the JAX program clamps it (the scheduler
+        never speculates that far). Returns (logits (B, C, V) fp32,
+        cache)."""
+        cfg = self.config
+        B, C = tokens.shape
+        H, KVH, hd = cfg.n_head, cfg.n_kv_heads, cfg.d_head
+        BS = cache["k"][0].shape[2]
+        MB = block_tables.shape[1]
+        starts = [int(n) for n in np.asarray(lengths).reshape(-1)]
+        dev = tokens.device
+        block_tables = block_tables.to(torch.int32).contiguous()
+        linpos = (torch.as_tensor(starts, device=dev)[:, None]
+                  + torch.arange(C, device=dev)[None, :])        # (B, C)
+        pos = linpos.clamp(max=cfg.max_seq_len - 1)
+        x = F.embedding(tokens.long(), self.wte)
+        fb = block_tables.gather(1, (linpos // BS).clamp(max=MB - 1)) \
+            .reshape(-1)
+        fo = (linpos % BS).reshape(-1)
+        attend = (paged_chunk_attention if self._use_kernel()
+                  else paged_chunk_attention_reference)
+        for i in range(cfg.n_layer):
+            kc, vc = cache["k"][i], cache["v"][i]
+            q, k, v = self._attn_proj(x, i)           # (B, C, ., hd)
+            q = self._rope(q, pos)
+            k = self._rope(k, pos)
+            _scatter_kv(kc, fb, fo, k.reshape(B * C, KVH, hd))
+            _scatter_kv(vc, fb, fo, v.reshape(B * C, KVH, hd))
+            attn = torch.stack([
+                attend(q[b], kc, vc, block_tables[b], starts[b], C,
+                       window=cfg.sliding_window)
+                for b in range(B)])
+            x = self._block_tail(x, attn.reshape(B, C, H * hd), i)
+        return self.head(x), cache

@@ -370,9 +370,8 @@ def test_engine_rejects_unported_config():
     model = Llama(dataclasses.replace(LLAMA_TINY, dtype="float32"),
                   device="cpu")
     for over in (dict(tensor_parallel=2), dict(expert_parallel=2),
-                 dict(kv_host_offload=True),
-                 dict(prefix_cache=True), dict(spec_draft=True),
-                 dict(paged_block_c=16)):
+                 dict(paged_block_c=16), dict(autotune_mode="search"),
+                 dict(autotune_cache="winners.json")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             InferenceEngineV2(model, dict(dtype="float32", **over),
                               device="cpu")

@@ -166,8 +166,9 @@ class TestRouterBasics:
             _pool_closed(rep.engine)
 
     def test_prefix_affinity_resolves_off_without_a_prefix_cache(self):
-        """No prefix cache in the port yet: "auto" resolves off and every
-        replica scores 0, as the JAX router does for such a fleet."""
+        """Engines whose prefix cache resolves off ("auto", the JAX cold
+        default): "auto" affinity resolves off and every replica scores 0,
+        as the JAX router does for such a fleet."""
         router = Router([_engine(), _engine()])
         assert router._affinity_on() is False
         assert all(r.prefix_score(np.arange(1, 33)) == 0
@@ -246,21 +247,31 @@ class TestChaosFailover:
         assert len(router.get(uid2)) == 6
 
     def test_serve_verify_fires_only_with_a_verify_pending(self):
-        """``serve_verify`` fires where a speculative verify dispatch would
-        run (``engine.spec_pending``); the port has no speculation, so an
-        armed point stays unfired until an engine says one is pending."""
+        """``serve_verify`` fires where a speculative verify dispatch runs
+        (``engine.spec_pending``): never on an engine without a draft; on
+        one speculating (the target as its own draft) the armed fault is
+        absorbed and the stream stays the plain engine's."""
+        prompt = _prompts(5, 1)[0]
         eng = _engine()
         rep = Replica("r0", eng)
         fault_injection.arm("serve_verify", fails=1)
-        eng.put(_prompts(5, 1)[0], max_new_tokens=2)
-        rep.step()
-        assert fault_injection.injector.hits("serve_verify") == 0
-        eng.spec_pending = True
-        assert rep.step() == []                          # absorbed
-        assert rep.step_failures == 1 and rep.live
-        del eng.spec_pending
+        eng.put(prompt, max_new_tokens=12)
         while eng.has_work:
             rep.step()
+        assert fault_injection.injector.hits("serve_verify") == 0
+        want = eng.generate_all([prompt], max_new_tokens=12)[0]
+        spec = InferenceEngineV2(_models()[2], dict(BASE, spec_k=2),
+                                 device="cpu", draft_model=_models()[2])
+        rep = Replica("r1", spec)
+        uid = spec.put(prompt, max_new_tokens=12)
+        while not spec.spec_pending:
+            rep.step()
+        assert rep.step() == []                          # absorbed
+        assert rep.step_failures == 1 and rep.live
+        assert fault_injection.injector.hits("serve_verify") == 1
+        while spec.has_work:
+            rep.step()
+        np.testing.assert_array_equal(spec.get(uid), want)
 
     def test_dispatch_fault_requeues_and_retries(self):
         router = Router([_engine()])
