@@ -239,7 +239,7 @@ Phases (any failure raises and the script exits nonzero):
      same model at seq = 1 (2e-5, relative error norm 1e-4);
      quantized_all_gather / quantized_reduce_scatter at world 2 bitwise
      equal to their plain versions.
- 29. the slice: GPT-2 350M (24 layers, T=4096, micro 4, ring,
+ 29. the slice: GPT-2 350M (12 of its 24 layers, T=4096, micro 4, ring,
      sequence_parallel_size=2, ZeRO-2, bf16) through initialize ->
      train_batch for 5 steps in two processes on cuda:0 over gloo; the
      loss falls and agrees on both ranks; exactly 6 K10 and 3 K2 (every
@@ -259,10 +259,15 @@ Phases (any failure raises and the script exits nonzero):
      layers, fp32, ZeRO stages 0-3 at dp = 2 (gas 2, 3 steps) against the
      same run at dp = 1: losses at 2e-5, global gradient norms at 1e-5,
      the master within a relative error norm of 1e-4, the same loss on
-     both ranks.
+     both ranks; then GPT2MoE at the same widths (E = 4, top-2, flash
+     attention and the grouped kernels, fp32; 2 steps, gas 2), whose aux
+     loss sums its routing statistics over both ranks, at dp = 2 against
+     dp = 1: losses at 2e-5, global gradient norms at 1e-5, the same loss
+     on both ranks, its launches (K1, K2, 4 gmm and 4 tgmm a layer and
+     micro step, fp32) the main path "moe-dp2".
  32. the slice: GPT-2 350M (24 layers, the bench configuration, micro 24 a
      rank, T=1024) at dp = 2 through initialize -> train_batch, ZeRO-2 for
-     10 steps and ZeRO-3 for 3; the loss falls and agrees on both ranks;
+     5 steps and ZeRO-3 for 3; the loss falls and agrees on both ranks;
      exactly 24 K1, 24 K2 and 2 K3 a step on each rank (every one on
      sm90, as each child reports); step time,
      tokens/s, each process's peak memory and the bytes each rank staged
@@ -294,13 +299,14 @@ Phases (any failure raises and the script exits nonzero):
      decode fleet (disaggregate "auto") and the colocated fleet with
      replica_death on r1's third step: every greedy stream equal to one
      engine's, the death replayed (failovers 1, replayed r1's in-flight
-     count), every live pool closed; (b) full-width Llama-2-7B in bf16
+     count), every live pool closed; (b) full-width Llama-2-7B (16 of
+     its 32 layers) in bf16
      (phase 4's settings with 160 KV blocks an engine, phase 4's eight
      prompts, all greedy, 64 new tokens): run 1 one engine (the reference
      streams), run 2 Router([prefill p0, decode d0]) over the in-process
      transport (streams equal run 1's; 8 handoffs; kv_stream_bytes the
-     payloads' sum; 149 exported blocks; both pools closed; K5 = 32 x
-     p0's chunk forwards, K4 = 32 x d0's decode forwards, p0 decoding
+     payloads' sum; 149 exported blocks; both pools closed; K5 = L x
+     p0's chunk forwards, K4 = L x d0's decode forwards, p0 decoding
      nothing; the second engine adds its pool, not a second weight set),
      run 3 two colocated replicas with one dying mid-decode (streams
      equal run 1's, failovers 1, its in-flight requests replayed); one
@@ -316,7 +322,7 @@ Phases (any failure raises and the script exits nonzero):
      rows, contexts 1024-1500, H = KVH = 32, d = 128) on its sm90 design
      against its plain version, repeated bitwise, the eight slots as views
      q[b] of one tensor, timed beside its SIMT design, SDPA and the bound;
-     then Llama-2-7B in bf16 at 32 layers: (a) 16 requests on a 1024-token
+     then Llama-2-7B in bf16 at 16 layers: (a) 16 requests on a 1024-token
      system prompt (32 new) with the cache off and on (hit rate, skipped
      prompt tokens, CoW copies, K5 launches, TTFT) and through two
      replicas with prefix_affinity="auto" (where each landed, its
@@ -330,6 +336,24 @@ Phases (any failure raises and the script exits nonzero):
      streams must be equal). bf16 streams are compared and the differing
      ones' first position and top-2 logit margin printed; launches equal
      what each run's forwards imply. One ``features`` JSON line a run.
+ 36. the Llama family's training: (1) K1 and K2 on their sm90 designs at
+     d = 128 at Llama-2-7B's training shape (B = 1, H = 32, T = 4096,
+     causal) and at Mistral-7B's window (H = 8, T = 8192, window 4096),
+     bf16 against the plain versions in fp32, repeated bitwise, a control
+     per kernel that must fail (a 128-key tile skipped; the dK/dV walk
+     without a query tile), each timed beside the plain version, SDPA
+     (the window as a mask) and the bound (the kernels line's ``d128``);
+     (2) a small fp32 Llama (GQA 8 / 2 heads, d = 128, window 256 of T =
+     512) and the Mixtral over it (E = 4, top-2): kernels on (K1 / K2,
+     the grouped K8 chain, whole-block remat) and off (dense, ragged, no
+     remat) give the same loss (1e-5) and gradients (relative error norm
+     1e-4); (3) Llama-2-7B at 8 layers and Mixtral-8x7B at 2 layers, full
+     width, bf16, through initialize -> train_batch (AdamW, clip 1.0,
+     micro 1 x T = 4096), 10 steps on one fixed batch: the loss falls;
+     exactly 2 K1 and 1 K2 a layer and step (Mixtral also 2 swiglu_up, 7
+     gmm, 3 tgmm), every one on sm90; step time, tokens/s, model TFLOP/s
+     (Mixtral: all experts and the 2 active), peak memory (one ``train
+     slice`` JSON line each).
 Phases 7, 13, 20, 24, 32 and 33 also hold every bf16 K1 / K2 / K2-qmajor /
 K3 / K6 launch to the sm90 design (the wrappers' DESIGN_LAUNCHES); the
 serving slices count K4's launches by design (split / single), the
@@ -4912,11 +4936,12 @@ def child_parity():
 
 # a step takes ~18 s through host memory: 5 keep the whole script well
 # inside its time limit
-PHASE29 = dict(steps=5, micro=4, seq_len=4096, sp=2)
+# GPT-2 350M's widths cut to 12 of its 24 layers (the run's time limit)
+PHASE29 = dict(steps=5, micro=4, seq_len=4096, sp=2, layers=12)
 
 
 def child_train():
-    """Phase 29 in one rank: GPT-2 350M (24 layers, T=4096, micro 4,
+    """Phase 29 in one rank: GPT-2 350M (12 layers, T=4096, micro 4,
     attention_backend="ring", sequence_parallel_size=2, ZeRO-2, bf16)
     through initialize -> train_batch for PHASE29["steps"] steps on one
     numpy-seeded batch; reports losses, step times, this process's peak
@@ -4929,7 +4954,7 @@ def child_train():
     rank, world = child_world()
     p = PHASE29
     cfg = dataclasses.replace(
-        GPT2_PRESETS["350M"], max_seq_len=p["seq_len"],
+        GPT2_PRESETS["350M"], n_layer=p["layers"], max_seq_len=p["seq_len"],
         attention_backend="ring", use_flash_attention=True, remat=True,
         remat_policy="save_flash", loss_chunk=512, fused_loss=True,
         fused_loss_kernel=True)
@@ -4999,7 +5024,7 @@ def phase_seq_slice():
     memory."""
     reps = run_children("train")
     p = PHASE29
-    L, steps = 24, p["steps"]
+    L, steps = p["layers"], p["steps"]
     want = {"flash_fwd": 0, "flash_bwd": 3 * L * steps,
             "flash_bwd_qmajor": 0, "flash_block_fwd": 6 * L * steps,
             "fused_ce": 0, "quantize_blockwise": 0,
@@ -5219,6 +5244,60 @@ def child_zero_parity():
         del master
     out["staged"] = {k: list(v) for k, v in
                      comm.get_comms_logger().host_staged.items()}
+    out["moe"] = child_moe_zero_parity(cfg, batches[:2])
+    return out
+
+
+# phase 31's GPT2MoE: the 350M widths at 2 layers, E = 4, top-2, fp32
+MOE_DP_STEPS = 2
+
+
+def child_moe_zero_parity(cfg, batches):
+    """Phase 31's GPT2MoE half in one rank: the 350M widths at 2 layers, E
+    = 4, top-2 (ragged, the grouped kernels, flash attention), fp32,
+    ``MOE_DP_STEPS`` train_batch steps (gas 2) at dp = 2 for ZeRO stages
+    0-3, whose aux loss sums its routing statistics over both ranks,
+    against the same run at dp = 1 in this process: losses, global
+    gradient norms, the master's relative error norm; the launches of the
+    dp = 2 runs (the main path "moe-dp2"), by design."""
+    from deepspeed_tpu_torch import GPT2MoE, initialize
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+    from deepspeed_tpu_torch.ops.cuda import grouped_matmul as gm
+    from deepspeed_tpu_torch.utils import groups
+    mcfg = moe_cfg(cfg, num_experts=4, moe_top_k=2, moe_backend="ragged",
+                   use_flash_attention=True)
+
+    def run(stage, topology=None):
+        engine, *_ = initialize(
+            model=GPT2MoE(mcfg, device="cuda:0", seed=2), device="cuda:0",
+            topology=topology, config=zero_config(
+                stage, train_batch_size=4, gradient_accumulation_steps=2,
+                bf16={"enabled": False}))
+        losses, norms = [], []
+        for b in batches:
+            losses.append(float(engine.train_batch(b)))
+            norms.append(engine.get_global_grad_norm())
+        return (engine.dp, engine.model._moe_dp_axes, losses, norms,
+                engine.gathered_master())
+
+    one = groups.ParallelTopology(groups.TopologyConfig(), world_size=1,
+                                  rank=0)
+    _, _, ref_losses, ref_norms, ref = run(0, one)
+    ref_sq = sum(float(r.square().sum()) for r in ref.values())
+    out = {"ref_losses": ref_losses, "ref_norms": ref_norms, "stages": {}}
+    for mod in (fa, gm):
+        mod.reset_launch_counts()
+    for stage in range(4):
+        dp, axes, losses, norms, master = run(stage)
+        diff_sq = sum(float((master[n] - ref[n]).square().sum())
+                      for n in ref)
+        out["stages"][stage] = {"dp": dp, "axes": list(axes or ()),
+                                "losses": losses, "grad_norms": norms,
+                                "master_rel_norm": (diff_sq / ref_sq) ** 0.5}
+        del master
+    out["launches"] = {**fa.LAUNCHES, **gm.LAUNCHES}
+    out["by_design"] = {n: dict(by) for mod in (fa, gm)
+                        for n, by in mod.DESIGN_LAUNCHES.items()}
     return out
 
 
@@ -5254,9 +5333,52 @@ def phase_zero_parity():
             for st, res in reps[0]["stages"].items()))
     log(f"phase 31 host-staged per rank, stages 0-3, op -> [calls, bytes] "
         f"{reps[0]['staged']}")
+    return phase_moe_zero_parity([r["moe"] for r in reps])
 
 
-PHASE32 = dict(micro=24, seq_len=1024, steps={2: 10, 3: 3})
+def phase_moe_zero_parity(reps):
+    """Phase 31's GPT2MoE half (child_moe_zero_parity): each ZeRO stage at
+    dp = 2, its aux loss over both ranks' tokens, gives dp = 1's losses
+    (2e-5 relative) and global gradient norms (1e-5 relative), the same
+    loss on both ranks; the master's relative error norm logged. Launches
+    a rank and micro step: K1 and K2 once a layer (fp32), 4 gmm and 4
+    tgmm a layer (fp32). Returns the launches summed over the ranks."""
+    L, micro = 2, 4 * MOE_DP_STEPS * 2
+    for r in reps:
+        for stage, res in r["stages"].items():
+            assert res["dp"] == 2 and res["axes"] == ["data"], res
+            for got, want in zip(res["losses"], r["ref_losses"]):
+                assert abs(got - want) <= 2e-5 * abs(want), \
+                    (stage, res["losses"], r["ref_losses"])
+            for got, want in zip(res["grad_norms"], r["ref_norms"]):
+                assert abs(got - want) <= 1e-5 * want, \
+                    (stage, res["grad_norms"], r["ref_norms"])
+        want = {"flash_fwd": L * micro, "flash_bwd": L * micro,
+                "flash_bwd_qmajor": 0, "flash_block_fwd": 0,
+                "grouped_swiglu_up": 0, "grouped_gmm": 4 * L * micro,
+                "grouped_tgmm": 4 * L * micro, **NO_WQ}
+        assert r["launches"] == want, (r["launches"], want)
+        for name in ("flash_fwd", "flash_bwd", "grouped_gmm",
+                     "grouped_tgmm"):
+            by = r["by_design"][name]
+            assert by["fp32"] == want[name], (name, by)
+            count_designs(name, by)
+    for stage in reps[0]["stages"]:
+        assert reps[0]["stages"][stage]["losses"] == \
+            reps[1]["stages"][stage]["losses"], stage
+    log("GPT2MoE at dp = 2 over gloo on cuda:0 (350M widths, 2 layers, E = "
+        f"4, top-2, fp32, {MOE_DP_STEPS} steps, gas 2; aux loss over both "
+        "ranks) against dp = 1: " + "; ".join(
+            f"stage {st} losses {res['losses']} (dp = 1 "
+            f"{reps[0]['ref_losses']}), grad norms {res['grad_norms']} "
+            f"(dp = 1 {reps[0]['ref_norms']}), master relative error norm "
+            f"{max(r['stages'][st]['master_rel_norm'] for r in reps):.3g}"
+            for st, res in reps[0]["stages"].items()))
+    return {k: sum(r["launches"][k] for r in reps)
+            for k in reps[0]["launches"]}
+
+
+PHASE32 = dict(micro=24, seq_len=1024, steps={2: 5, 3: 3})
 
 
 def master_crc(master):
@@ -5277,7 +5399,7 @@ def child_zero_train():
     """Phase 32 in one rank: GPT-2 350M (all 24 layers, the JAX bench
     configuration: bf16 + fp32 master, AdamW, clip 1.0, save_flash, fused
     CE kernel, micro 24, T=1024) at dp = 2 through initialize ->
-    train_batch, ZeRO-2 for 10 steps and ZeRO-3 for 3, each on one
+    train_batch, ZeRO-2 for 5 steps and ZeRO-3 for 3, each on one
     numpy-seeded global batch; reports per stage the losses, step times,
     this process's peak memory after the engine's build, the kernels'
     launches and what went through host memory. After ZeRO-3's steps it
@@ -5895,18 +6017,21 @@ def phase_router_parity():
     torch.cuda.empty_cache()
 
 
+# phases 34 and 35 serve Llama-2-7B's widths at 16 of its 32 layers (the
+# run's time limit: both are host-bound, a forward's launches scale with L)
+SERVE_LAYERS = 16
 PHASE34 = dict(blocks=160, new=64)
 
 
 def phase_router(card, seed=0):
     """Phase 34: (a) phase_router_parity; (b) full-width Llama-2-7B in bf16
-    (all 32 layers, phase 4's engine settings with 160 KV blocks an
+    (16 of its 32 layers, phase 4's engine settings with 160 KV blocks an
     engine, phase 4's eight prompts, all greedy, 64 new tokens each): run
     1 one engine (the reference streams); run 2 Router([prefill p0,
     decode d0]) over the in-process transport: the streams run 1's, 8
     handoffs, kv_stream_bytes the payloads' sum, the exported blocks
-    sum(ceil(T / 64)), both pools closed, K5 = 32 x p0's chunk forwards,
-    K4 = 32 x the decode forwards (d0's; p0 runs none), one weight set
+    sum(ceil(T / 64)), both pools closed, K5 = L x p0's chunk forwards,
+    K4 = L x the decode forwards (d0's; p0 runs none), one weight set
     (the second engine adds a pool, not the model); run 3 two colocated
     replicas, one dying mid-decode: the streams run 1's, one failover, its
     in-flight requests replayed. Returns run 2's launch counts."""
@@ -5915,7 +6040,7 @@ def phase_router(card, seed=0):
     from deepspeed_tpu_torch.ops.cuda import paged_attention as pa
     from deepspeed_tpu_torch.utils import fault_injection
     phase_router_parity()
-    cfg = LLAMA_PRESETS["llama2-7b"]
+    cfg = dataclasses.replace(LLAMA_PRESETS["llama2-7b"], n_layer=SERVE_LAYERS)
     new = PHASE34["new"]
     model = Llama(cfg, device="cuda", dtype=torch.bfloat16, seed=seed)
     torch.cuda.synchronize()
@@ -6301,7 +6426,7 @@ def verify_kernel(pa, seed=0):
 
 def phase_features(card, pa, seed=0):
     """Phase 35: (0) phase_features_parity; K5 at the verify shape
-    (verify_kernel); then Llama-2-7B in bf16 at all 32 layers (random
+    (verify_kernel); then Llama-2-7B in bf16 at 16 of its 32 layers (random
     weights from the seed, 64-position blocks, batch 8, split-fuse 256,
     8 decode steps a dispatch): (a) the prefix cache off, then on, over
     16 requests on a 1024-token system prompt (32 new tokens each; one
@@ -6319,7 +6444,7 @@ def phase_features(card, pa, seed=0):
                                      Router)
     phase_features_parity(seed)
     verify = verify_kernel(pa, seed)
-    cfg = LLAMA_PRESETS["llama2-7b"]
+    cfg = dataclasses.replace(LLAMA_PRESETS["llama2-7b"], n_layer=SERVE_LAYERS)
     L = cfg.n_layer
     P = PHASE35
     model = Llama(cfg, device="cuda", dtype=torch.bfloat16, seed=seed)
@@ -6507,6 +6632,311 @@ def phase_features(card, pa, seed=0):
     return paths, verify
 
 
+# ------------------------------------- Llama / Mixtral training (phase 36)
+
+
+# K1 / K2 at the Llama family's training shapes: Llama-2-7B's heads at its
+# context, and Mistral-7B's window over twice that at 8 heads (so the plain
+# version's (H, T, T) scores fit)
+LLAMA_ATTN_CASES = (("llama2-7b", 1, 32, 4096, 128, 0),
+                    ("mistral-window", 1, 8, 8192, 128, 4096))
+
+
+def window_pairs(T, window):
+    """The (query, key) pairs a causal attention over T positions visits,
+    each query seeing at most ``window`` keys (0: all before it)."""
+    if not window or window >= T:
+        return _causal_pairs(T)
+    return window * (window + 1) // 2 + (T - window) * window
+
+
+def phase_llama_attention_kernels(fa, seed=0):
+    """Phase 36, part 1: K1 and K2 on their sm90 designs at d = 128 and the
+    Llama family's training shapes (LLAMA_ATTN_CASES, the model's (B, T,
+    H, d) strides), bf16 against the plain versions in fp32 on the same
+    inputs, each call repeated bitwise; at the Llama-2-7B shape a control
+    per kernel that must fail (a 128-key tile skipped; the dK/dV walk
+    without its second query tile); each timed beside its plain version,
+    SDPA (the window as a boolean mask) and its bound. Returns
+    {"flash_fwd" | "flash_bwd": {case: figures}}."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    bf = torch.bfloat16
+
+    def randn(shape):
+        return torch.randn(shape, generator=g, device="cuda").to(bf)
+
+    out = {"flash_fwd": {}, "flash_bwd": {}}
+    for tag, B, H, T, d, window in LLAMA_ATTN_CASES:
+        kw = dict(causal=True, window=window)
+        q, k, v, do = (randn((B, T, H, d)).transpose(1, 2) for _ in range(4))
+        q = fa.scale_q(q, 1.0 / math.sqrt(d))
+        q32, k32, v32, do32 = (x.float() for x in (q, k, v, do))
+        fa.reset_launch_counts()
+        o, lse = fa.flash_forward(q, k, v, **kw)
+        again = fa.flash_forward(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert fa.DESIGN_LAUNCHES["flash_fwd"]["sm90"] == 2, \
+            (tag, fa.DESIGN_LAUNCHES)
+        assert all(torch.equal(a, b) for a, b in zip((o, lse), again)), \
+            f"flash_fwd {tag}: calls differ"
+        del again
+        ro, rlse = fa.flash_forward_reference(q32, k32, v32, **kw)
+        why = bf16_mismatch(o, ro)
+        assert why is None, f"flash_fwd {tag}: {why}"
+        torch.testing.assert_close(lse, rlse, rtol=0, atol=1e-4)
+        _, fwd_err, fwd_rel = bf16_errors(o, ro)
+        if not window:
+            dropped = flash_with_key_tile_dropped(fa, q32, k32, v32, 1,
+                                                  128).to(bf)
+            why = bf16_mismatch(dropped, ro)
+            assert why is not None, \
+                f"bf16 check let a dropped key tile pass at {tag}"
+            log(f"control: flash forward at {tag} with 128-key tile 1 "
+                f"skipped fails ({why})")
+            del dropped
+        del ro, rlse
+        grads = fa.flash_backward(q, k, v, o, lse, do, **kw)
+        again = fa.flash_backward(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        assert fa.DESIGN_LAUNCHES["flash_bwd"]["sm90"] == 2, \
+            (tag, fa.DESIGN_LAUNCHES)
+        assert all(torch.equal(a, b) for a, b in zip(grads, again)), \
+            f"flash_bwd {tag}: calls differ"
+        del again
+        refs = fa.flash_backward_reference(q32, k32, v32, o.float(), lse,
+                                           do32, **kw)
+        bwd_rel, bwd_err = 0.0, 0.0
+        for name, a, r in zip(("dq", "dk", "dv"), grads, refs):
+            why = bf16_grad_mismatch(a, r)
+            assert why is None, f"flash_bwd {tag} {name}: {why}"
+            bwd_rel = max(bwd_rel, grad_rel_norm(a, r))
+            bwd_err = max(bwd_err, (a.float() - r).abs().max().item())
+        del grads
+        if not window:
+            cut = bwd_with_query_tile_dropped(fa, q32, k32, v32, o.float(),
+                                              lse, do32, slice(128, 256))
+            for name, c, r in zip(("dk", "dv"), cut, refs[1:]):
+                why = bf16_grad_mismatch(c.to(bf), r)
+                assert why is not None, \
+                    f"grad check let {name} without a query tile pass"
+                log(f"control: flash backward's {name} at {tag} without "
+                    f"query tile 1 of the dK/dV walk fails ({why})")
+            del cut
+        del refs, q32, k32, v32, do32
+        torch.cuda.empty_cache()
+
+        pairs = B * H * window_pairs(T, window)
+        act = B * T * H * d * 2
+        mask = (fa._mask(T, True, window, q.device) if window else None)
+        qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+
+        def sdpa(a, b, c):
+            if mask is None:
+                return F.scaled_dot_product_attention(a, b, c, is_causal=True,
+                                                      scale=1.0)
+            return F.scaled_dot_product_attention(a, b, c, attn_mask=mask,
+                                                  scale=1.0)
+        sdpa_o = sdpa(qs, ks, vs)
+        fwd = dict(
+            shape=[B, H, T, d], window=window, pairs=pairs,
+            ms=time_ms(lambda: fa.flash_forward(q, k, v, **kw), 10),
+            plain_ms=time_ms(lambda: fa.flash_forward_reference(
+                q, k, v, **kw), 2),
+            library_ms=time_ms(lambda: sdpa(q, k, v), 10),
+            bound=bound(4 * act + B * H * T * 4, 4 * d * pairs),
+            max_abs_err=fwd_err, rel_norm=fwd_rel)
+        bwd = dict(
+            shape=[B, H, T, d], window=window, pairs=pairs,
+            ms=time_ms(lambda: fa.flash_backward(q, k, v, o, lse, do, **kw),
+                       10),
+            plain_ms=time_ms(lambda: fa.flash_backward_reference(
+                q, k, v, o, lse, do, **kw), 2),
+            library_ms=time_ms(lambda: torch.autograd.grad(
+                sdpa_o, (qs, ks, vs), do, retain_graph=True), 10),
+            bound=bound(8 * act + B * H * T * 4, 10 * d * pairs),
+            max_abs_err=bwd_err, rel_norm=bwd_rel)
+        for name, r in (("flash_fwd", fwd), ("flash_bwd", bwd)):
+            r["bound_ms"], r["bound_by"] = r.pop("bound")
+            out[name][tag] = r
+            log(f"{name} d=128 {tag} (B={B} H={H} T={T} window={window}, "
+                f"{pairs} pairs): {r['ms']:.4f} ms (plain "
+                f"{r['plain_ms']:.4f}, SDPA {r['library_ms']:.4f}, bound "
+                f"{r['bound_ms']:.4f} by {r['bound_by']}), max |err| "
+                f"{r['max_abs_err']:.3g}, worst rel norm {r['rel_norm']:.3g}")
+        del sdpa_o, qs, ks, vs, q, k, v, do, o, lse, mask
+        torch.cuda.empty_cache()
+    return out
+
+
+def llama_train_launches(cfg, steps):
+    """A training step's launches of a Llama / Mixtral under whole-block
+    remat: K1 twice a layer (the forward and its recompute), K2 once; a
+    Mixtral layer's experts 2 swiglu_up, 7 gmm (2 forward, 5 backward:
+    g and u again, then dh, dg and du's dx views) and 3 tgmm."""
+    L = cfg.n_layer
+    fwd = 2 * L if cfg.remat else L
+    moe = hasattr(cfg, "num_experts")
+    return {"flash_fwd": fwd * steps, "flash_bwd": L * steps,
+            "flash_bwd_qmajor": 0, "flash_block_fwd": 0, "fused_ce": 0,
+            "grouped_swiglu_up": fwd * steps if moe else 0,
+            "grouped_gmm": (fwd + 5 * L) * steps if moe else 0,
+            "grouped_tgmm": 3 * L * steps if moe else 0, **NO_WQ}
+
+
+def phase_llama_train_parity(seed=0):
+    """Phase 36, part 2: a small fp32 Llama (GQA 8 / 2 heads, d = 128,
+    a window of 256 under T = 512) and the Mixtral over it (E = 4, top-2)
+    on the card with the kernels on (flash K1 / K2, the grouped K8 chain,
+    whole-block remat) and off (dense attention, the ragged math, no
+    remat): the same loss (1e-5 relative) and every gradient within a
+    relative error norm of 1e-4; launches exactly what the step implies
+    when on, none when off."""
+    from deepspeed_tpu_torch import Llama, LlamaConfig, Mixtral, MixtralConfig
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+    from deepspeed_tpu_torch.ops.cuda import fused_ce as fce
+    from deepspeed_tpu_torch.ops.cuda import grouped_matmul as gm
+    base = dict(n_layer=2, n_head=8, n_kv_heads=2, d_model=1024, d_ff=2048,
+                vocab_size=1000, max_seq_len=512, sliding_window=256,
+                dtype="float32", remat_policy="nothing_saveable")
+    ids = torch.from_numpy(np.random.RandomState(seed).randint(
+        0, 1000, (2, 512))).cuda()
+    for name, cls, cfg_cls, extra in (
+            ("llama", Llama, LlamaConfig, {}),
+            ("mixtral", Mixtral, MixtralConfig,
+             dict(num_experts=4, moe_top_k=2, d_ff=1024))):
+        out = {}
+        for on in (True, False):
+            cfg = cfg_cls(**{**base, **extra}, use_flash_attention=on,
+                          remat=on)
+            model = cls(cfg, device="cuda", seed=seed)
+            if extra:
+                model.grouped_kernel = on
+            for mod in (fa, fce, gm):
+                mod.reset_launch_counts()
+            loss = model.loss({"input_ids": ids})
+            loss.backward()
+            torch.cuda.synchronize()
+            launched = {**fa.LAUNCHES, **fce.LAUNCHES, **gm.LAUNCHES}
+            want = llama_train_launches(cfg, 1 if on else 0)
+            assert launched == want, (name, on, launched, want)
+            out[on] = (loss.item(), {n: p.grad for n, p in
+                                     model.named_parameters()})
+            del model
+        (l_on, g_on), (l_off, g_off) = out[True], out[False]
+        assert abs(l_on - l_off) <= 1e-5 * abs(l_off), (name, l_on, l_off)
+        worst = 0.0
+        for n, gr in g_off.items():
+            rel = (torch.linalg.vector_norm(g_on[n] - gr)
+                   / torch.linalg.vector_norm(gr)).item()
+            assert rel <= 1e-4, (name, n, rel)
+            worst = max(worst, rel)
+        log(f"{name} training parity ok (fp32, 2 layers, GQA 8 / 2, window "
+            f"256 of T = 512): kernels on vs off, loss {l_on:.7f} vs "
+            f"{l_off:.7f}, worst gradient relative error norm {worst:.3g}")
+        del out, g_on, g_off
+        torch.cuda.empty_cache()
+
+
+def mixtral_active_flops_per_token(cfg):
+    """``flops_per_token`` with k of the E experts a token runs: 6 *
+    (non-embedding params - L (E - k) 3 D F) + 12 L D T."""
+    cut = cfg.n_layer * (cfg.num_experts - cfg.moe_top_k) * 3 \
+        * cfg.d_model * cfg.ffn_dim
+    n = cfg.num_params() - cfg.vocab_size * cfg.d_model - cut
+    return 6 * n + 12 * cfg.n_layer * cfg.d_model * cfg.max_seq_len
+
+
+# depth cuts of phase 36's training slices: the bf16 weights, grads, fp32
+# master and Adam moments of 8 Llama-2-7B layers (1.88 B parameters) take
+# ~34 GB, of 2 Mixtral-8x7B layers (3.16 B) ~63 GB at the step's peak
+LLAMA_TRAIN_LAYERS = {"llama": 8, "mixtral": 2}
+
+
+def phase_llama_train_slice(kind, seed=0, steps=10, profile=None):
+    """Phase 36, part 3: Llama-2-7B (8 layers) or Mixtral-8x7B (2 layers)
+    at full width in bf16 through initialize -> train_batch (AdamW, clip
+    1.0, ZeRO-2 at dp = 1, micro 1 x T = 4096, the presets' whole-block
+    remat, flash attention, the grouped kernels), 10 steps on one fixed
+    numpy-seeded batch: the loss falls; the launches are exactly
+    ``llama_train_launches``, every one on sm90; step time, tokens/s,
+    model TFLOP/s (Mixtral: all experts and the k active) and peak memory.
+    Returns the launch counts."""
+    from deepspeed_tpu_torch import (LLAMA_PRESETS, MIXTRAL_8X7B, Llama,
+                                     Mixtral, initialize)
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+    from deepspeed_tpu_torch.ops.cuda import fused_ce as fce
+    from deepspeed_tpu_torch.ops.cuda import grouped_matmul as gm
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated()
+    assert left < 1e9, f"earlier phases left {left / 1e9:.2f} GB allocated"
+    T = 4096
+    base, cls = ((LLAMA_PRESETS["llama2-7b"], Llama) if kind == "llama"
+                 else (MIXTRAL_8X7B, Mixtral))
+    cfg = dataclasses.replace(base, n_layer=LLAMA_TRAIN_LAYERS[kind],
+                              max_seq_len=T, use_flash_attention=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine, *_ = initialize(
+        model=cls(cfg, device="cuda", seed=seed),
+        config=zero_config(2, train_micro_batch_size_per_gpu=1))
+    torch.cuda.synchronize()
+    built = torch.cuda.memory_allocated()
+    log(f"{kind}-train engine built in {time.perf_counter() - t0:.1f} s: "
+        f"{cfg.num_params() / 1e9:.3f} B params ({cfg.n_layer} layers), "
+        f"micro 1 x {T}, {built / 1e9:.2f} GB allocated")
+    batch = {"input_ids": np.random.RandomState(seed).randint(
+        0, cfg.vocab_size, (1, T)).astype(np.int32)}
+    for mod in (fa, fce, gm):
+        mod.reset_launch_counts()
+    losses, times = [], []
+    for _ in range(steps):
+        t1 = time.perf_counter()
+        losses.append(float(engine.train_batch(batch)))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+    launches = {**fa.LAUNCHES, **fce.LAUNCHES, **gm.LAUNCHES}
+    want = llama_train_launches(cfg, steps)
+    assert launches == want, (kind, launches, want)
+    assert_sm90(f"{kind} train slice", fa, main_path=True)
+    if kind == "mixtral":
+        for name in ("grouped_swiglu_up", "grouped_gmm", "grouped_tgmm"):
+            by = dict(gm.DESIGN_LAUNCHES[name])
+            assert by == {"sm90": want[name], "mma_sync": 0, "fp32": 0}, \
+                (name, by)
+            count_designs(name, by)
+    assert all(math.isfinite(x) for x in losses), losses
+    assert losses[-1] < losses[0], losses
+    step_s = float(np.median(times[1:]))
+    stats = dict(
+        kind=kind, n_layer=cfg.n_layer, params=cfg.num_params(), steps=steps,
+        losses=losses, step_s=times, step_s_median_after_first=step_s,
+        tokens_per_s=T / step_s, flops_per_token=cfg.flops_per_token(),
+        model_tflops_per_s=cfg.flops_per_token() * T / step_s / 1e12,
+        launches_per_step={k: v // steps for k, v in launches.items() if v},
+        memory_after_build_gb=built / 1e9,
+        max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+        max_memory_reserved_gb=torch.cuda.max_memory_reserved() / 1e9)
+    if kind == "mixtral":
+        act = mixtral_active_flops_per_token(cfg)
+        stats.update(active_flops_per_token=act,
+                     model_tflops_per_s_active=act * T / step_s / 1e12)
+    log(f"{kind} train slice " + json.dumps(stats))
+    if profile:
+        acts = [torch.profiler.ProfilerActivity.CUDA]
+        t1 = time.perf_counter()
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(3):
+                engine.train_batch(batch)
+            torch.cuda.synchronize()
+        write_profile(prof, profile, time.perf_counter() - t1)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default="",
@@ -6652,12 +7082,13 @@ def main(argv=None):
     phase_done("28 (two processes on cuda:0: seq = 2 parity, quantized "
                "collectives)")
     paths["gpt2-seq-train"] = phase_seq_slice()
-    phase_done("29 (GPT-2 350M at T=4096, seq = 2)")
+    phase_done("29 (GPT-2 350M widths, 12 layers, at T=4096, seq = 2)")
     rows.update(phase_rmsnorm_kernel(ln))
     paths["rmsnorm-op"] = phase_rmsnorm_op(ln)
     phase_done("30 (K13 RMSNorm)")
-    phase_zero_parity()
-    phase_done("31 (two processes on cuda:0: ZeRO 0-3 at dp = 2 parity)")
+    paths["moe-dp2"] = phase_zero_parity()
+    phase_done("31 (two processes on cuda:0: ZeRO 0-3 at dp = 2 parity, "
+               "GPT-2 and GPT2MoE)")
     paths["gpt2-zero-train"] = phase_zero_slice()
     phase_done("32 (GPT-2 350M at dp = 2, ZeRO-2 and ZeRO-3, a ZeRO-3 tag "
                "resumed at dp = 1)")
@@ -6670,6 +7101,16 @@ def main(argv=None):
     paths.update(feature_paths)
     phase_done("35 (serving features: prefix cache, speculative decoding, "
                "KV host offload on Llama-2-7B)")
+    d128 = phase_llama_attention_kernels(fa)
+    for name, figures in d128.items():
+        rows[name]["d128"] = figures
+    phase_llama_train_parity()
+    paths["llama-train"] = phase_llama_train_slice(
+        "llama", profile=profile_path("llama-train"))
+    paths["mixtral-train"] = phase_llama_train_slice(
+        "mixtral", profile=profile_path("mixtral-train"))
+    phase_done("36 (K1 / K2 at d = 128, Llama / Mixtral training parity, "
+               "Llama-2-7B and Mixtral-8x7B training)")
 
     kernels = []
     for name, r in rows.items():
@@ -6693,7 +7134,7 @@ def main(argv=None):
                       "bf16_matmul_ms", "delta_ms", "split_ms",
                       "mma_sync_split_ms",
                       "host_ms", "mma_sync_host_ms", "simt_ms",
-                      "first_chunk", "long_walk", "verify"):
+                      "first_chunk", "long_walk", "verify", "d128"):
             if extra in r:
                 row[extra] = r[extra]
         if name in PATH_DESIGNS:

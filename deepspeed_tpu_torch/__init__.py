@@ -27,7 +27,8 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
 
     Returns the reference's 4-tuple ``(engine, optimizer, dataloader,
     lr_scheduler)``; the dataloader is None. ``model`` is a module with
-    ``loss(batch)`` (``deepspeed_tpu_torch.GPT2``, ``GPT2MoE``) whose
+    ``loss(batch)`` (``deepspeed_tpu_torch.GPT2``, ``GPT2MoE``, ``Llama``,
+    ``Mixtral``) whose
     parameters are the initial weights (rank 0's, in a multi-process
     world); ``device`` defaults to this process's card
     (``cuda:$LOCAL_RANK``) and raises without one. Unless

@@ -5,7 +5,8 @@ The JAX tree (``jax.tree.map(np.asarray, params)``) and the port's module
 state share names and shapes, so conversion is a dtype/device move:
 ``model.load_state_dict(llama_params_from_numpy(tree, dev, dt))`` (or
 ``mixtral_params_from_numpy``, ``gpt2_params_from_numpy``,
-``gpt2_moe_params_from_numpy``). A quantized Llama/Mixtral tree (JAX
+``gpt2_moe_params_from_numpy``); the loaded parameters train as the
+model's own. A quantized Llama/Mixtral tree (JAX
 ``Int8Weight`` / ``Int4Weight`` nodes, e.g. from ``quantize_tree``) carries
 across as it is: each node becomes the port's container of the same int8
 codes and fp32 scales.

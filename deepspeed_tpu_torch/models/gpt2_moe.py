@@ -8,7 +8,9 @@ the JAX one: ``blocks`` loses ``wup/bup/wdown/bdown`` and gains
   moe.wo (L, E, F, D) | moe.bo (L, E, D)
 
 (state-dict names ``blocks.moe.<name>``). ``loss`` adds
-``moe_loss_coeff`` times the load-balance aux loss summed over layers. The
+``moe_loss_coeff`` times the load-balance aux loss summed over layers;
+under an engine at dp > 1 (``model._moe_dp_axes``, which the engine
+installs) each layer's aux loss is the global batch's, as in JAX. The
 port carries the dropless ``moe_backend="ragged"``; the GShard capacity
 backend ("dense", the config's default) raises. The experts' activation
 is always gelu (tanh form): as in the JAX model, ``GPT2Config.activation``
@@ -89,6 +91,7 @@ class GPT2MoE(GPT2):
         override = (moe_cfg.grouped_kernel
                     if moe_cfg is not None
                     and moe_cfg.grouped_kernel != "auto" else None)
-        y, aux, _ = self.moe.apply(dict(zip(_MOE_KEYS, moe)), h,
-                                   grouped_kernel=override)
+        y, aux, _ = self.moe.apply(
+            dict(zip(_MOE_KEYS, moe)), h, grouped_kernel=override,
+            dp_axes=getattr(self, "_moe_dp_axes", None))
         return y, aux

@@ -1,9 +1,13 @@
-"""Llama model family for v2 paged serving — RoPE + RMSNorm + SwiGLU + GQA.
+"""Llama model family — RoPE + RMSNorm + SwiGLU + GQA — for training and
+v2 paged serving.
 
-Counterpart of ``deepspeed_tpu/models/llama.py`` (serving surface only:
-``head``, ``init_paged_cache``, ``apply_paged_prefill/chunk/decode/verify``).
-Parameter names and shapes are the JAX package's, so weights move between
-the two through numpy with no renaming or transposes:
+Counterpart of ``deepspeed_tpu/models/llama.py``: the training surface
+(``apply``, ``apply_with_aux``, ``loss``, ``partition_specs``,
+``flops_per_token``) and the serving surface (``head``,
+``init_paged_cache``, ``apply_paged_prefill/chunk/decode/verify``, which
+run under ``torch.inference_mode``). Parameter names and shapes are the
+JAX package's, so weights move between the two through numpy with no
+renaming or transposes:
 
   wte (V, D) | norm_f (D,) | lm_head (V, D) unless tied
   blocks: rms1 (L, D), wq (L, D, D), wk (L, D, KVD), wv (L, D, KVD),
@@ -11,9 +15,18 @@ the two through numpy with no renaming or transposes:
           wdown (L, F, D)       — projections are ``x @ W``
 
 Norms, RoPE angles/products and the logits are fp32, as in the JAX model;
-activations run in the parameters' dtype. Attention goes through the
-Hopper paged kernels (ops/cuda/paged_attention.py) unless
-``paged_kernel`` is False, the explicit dense-gather parity path.
+activations run in the parameters' dtype. Training (JAX llama.py:454-575)
+repeats the K/V heads to the query heads before attention (``_repeat_kv``:
+autograd sums dK/dV over each group) and attends through the flash
+kernels K1 / K2 (ops/cuda/flash_attention.py, ``sliding_window`` as their
+window) when ``use_flash_attention`` resolves on, else densely with fp32
+scores; ``remat`` (policy ``nothing_saveable``) recomputes each block
+whole under ``torch.utils.checkpoint``; ``loss`` takes the dense,
+chunked or fused (gradient-in-forward) cross entropy of
+``models/common.py`` as JAX does (no fused-CE kernel: JAX Llama's loss
+has none). Serving attention goes through the Hopper paged kernels
+(ops/cuda/paged_attention.py) unless ``paged_kernel`` is False, the
+explicit dense-gather parity path.
 
 Weight-only quantization (``quantize="int8" | "int4"`` at build, or the
 serving engine's ``weight_quant`` / ``quantize_weights``): the ``blocks``
@@ -32,7 +45,9 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from ..ops.cuda.flash_attention import flash_attention
 from ..ops.cuda.mlp_matmul import wq_matmul
 from ..ops.cuda.paged_attention import (paged_chunk_attention,
                                         paged_chunk_attention_reference,
@@ -41,8 +56,13 @@ from ..ops.cuda.paged_attention import (paged_chunk_attention,
 from ..ops.int8_weights import (EXCLUDE_KEYS, is_quantized, layer_slice,
                                 qualifies, quantize_slices, quantize_tensor)
 from ..utils.device import resolve_device
+from .common import (chunked_softmax_xent, fused_linear_xent, mm_f32,
+                     next_token_xent, resolve_flash, resolve_remat_policy)
 
 _MODEL_TODO = "(ROADMAP Queue 1, serving: more Llama-family knobs)"
+_TODO_REMAT = "(ROADMAP Queue 1, M3: more remat policies)"
+_TODO_SEQ = "(ROADMAP Queue 1, M12: the Llama family under sequence " \
+    "parallelism)"
 
 
 @dataclass(frozen=True)
@@ -112,6 +132,12 @@ class LlamaConfig:
         head = 0 if self.tie_embeddings else V * D
         return V * D + self.n_layer * block + D + head
 
+    def flops_per_token(self):
+        """6 N (N without the embedding) + the attention's 12 L D T, a
+        token's training flops (JAX llama.py:153)."""
+        n = self.num_params() - self.vocab_size * self.d_model
+        return 6 * n + 12 * self.n_layer * self.d_model * self.max_seq_len
+
 
 LLAMA_TINY = LlamaConfig(n_layer=2, n_head=4, n_kv_heads=2, d_model=128,
                          max_seq_len=128, vocab_size=512, remat=False)
@@ -173,12 +199,17 @@ def _rope(x, pos, theta, interleaved=False):
 def _logits_f32(x, w):
     """x (N, D) @ w (V, D)^T with fp32 output. On the card the bf16 product
     accumulates in fp32 and writes fp32 logits directly (no fp32 copy of
-    the head); fp32 weights multiply as they are."""
+    the head; ``mm_f32``, differentiable); fp32 weights multiply as they
+    are."""
     if w.dtype == torch.float32:
         return x.float() @ w.t()
-    if x.is_cuda:
-        return torch.mm(x, w.t(), out_dtype=torch.float32)
-    return x.float() @ w.float().t()
+    return mm_f32(x, w.t())
+
+
+def _repeat_kv(k, n_rep):
+    """(B, T, KVH, hd) -> (B, T, KVH * n_rep, hd), each KV head repeated
+    for its group of query heads (JAX llama.py:208)."""
+    return k if n_rep == 1 else torch.repeat_interleave(k, n_rep, dim=2)
 
 
 def _scatter_kv(pool, blocks, offsets, vals):
@@ -199,13 +230,15 @@ def _quant_bits(mode):
 
 
 class Llama(nn.Module):
-    """Serving-side Llama. ``device`` defaults to the card (raises without
-    one); ``dtype`` defaults to ``config.dtype``; weights are random from a
-    ``torch.Generator`` seeded with ``seed`` (load real or converted
-    weights with ``load_state_dict``). ``quantize`` ("int8" | "int4")
+    """Llama for training and serving. ``device`` defaults to the card
+    (raises without one); ``dtype`` defaults to ``config.dtype``; weights
+    are random from a ``torch.Generator`` seeded with ``seed`` (load real
+    or converted weights with ``load_state_dict``) and train (``loss``
+    over the module's own parameters). ``quantize`` ("int8" | "int4")
     quantizes each block leaf as it is drawn, one (In, Out) slice at a
     time, so the float model never exists: bitwise
-    ``quantize_tree(Llama(config, seed=seed).params_tree())``."""
+    ``quantize_tree(Llama(config, seed=seed).params_tree())``; a
+    quantized model serves only."""
 
     # FFN keys the fused path keeps quantized (engine weight_quant)
     _WQ_KEEP = ("wgate", "wup", "wdown")
@@ -254,11 +287,10 @@ class Llama(nn.Module):
             for i in range(flat.shape[0]):
                 flat[i].copy_(torch.randn(flat.shape[1:], generator=gen,
                                           device=dev) * s)
-            return nn.Parameter(out, requires_grad=False)
+            return nn.Parameter(out)
 
         def ones(shape):
-            return nn.Parameter(torch.ones(shape, dtype=dt, device=dev),
-                                requires_grad=False)
+            return nn.Parameter(torch.ones(shape, dtype=dt, device=dev))
 
         self.wte = nrm((V, D))
         self.norm_f = ones((D,))
@@ -368,7 +400,11 @@ class Llama(nn.Module):
     def _w(self, name, i):
         """Layer ``i`` of block leaf ``name`` (the JAX ``_layer_slice``):
         a quantized leaf is dequantized to the model's dtype, except a
-        ``_WQ_KEEP`` leaf under the fused path, which stays quantized."""
+        ``_WQ_KEEP`` leaf under the fused path, which stays quantized.
+        ``i`` may instead be one layer's tensors by name (the training
+        path's unbound slices), read as they are."""
+        if isinstance(i, dict):
+            return i[name]
         w = self.qblocks.get(name)
         if w is None:
             return self.blocks[name][i]
@@ -376,10 +412,19 @@ class Llama(nn.Module):
         return layer_slice(w, i, self.dtype, keep=keep)
 
     # --------------------------------------------------------------- pieces
+    def _head_keys(self):
+        """The parameters ``head`` reads, in ``_head``'s order (the fused
+        CE's head parameters; JAX llama.py:548)."""
+        return ["norm_f", "wte" if self.config.tie_embeddings
+                else "lm_head"]
+
     def head(self, x):
         """Final RMSNorm + unembedding: (..., D) -> fp32 (..., V)."""
-        x = _rms_norm(x, self.norm_f, self.config.rms_eps)
-        w = self.wte if self.config.tie_embeddings else self.lm_head
+        return self._head([getattr(self, k) for k in self._head_keys()], x)
+
+    def _head(self, ps, x):
+        norm_f, w = ps
+        x = _rms_norm(x, norm_f, self.config.rms_eps)
         lead = x.shape[:-1]
         return _logits_f32(x.reshape(-1, x.shape[-1]), w).reshape(
             *lead, w.shape[0])
@@ -423,6 +468,131 @@ class Llama(nn.Module):
     def _use_kernel(self):
         return self.paged_kernel is not False
 
+    # ------------------------------------------------------------ training
+    def partition_specs(self, topology=None):
+        """The JAX model's tensor-parallel specs (llama.py:282-325) by
+        parameter name: "tensor" on the column-parallel out dims (wq, wk,
+        wv, wgate, wup) and the row-parallel in dims (wo, wdown); the
+        embeddings and norms whole. The port runs no tensor axis; the
+        engine's ZeRO plan reads these so it leaves the same dims whole as
+        JAX (runtime/zero/partitioning.py)."""
+        col, row, vec = (None, None, "tensor"), (None, "tensor", None), \
+            (None, None)
+        blocks = {"rms1": vec, "wq": col, "wk": col, "wv": col, "wo": row,
+                  "rms2": vec}
+        blocks.update(self._mlp_specs())
+        specs = {"wte": (), "norm_f": ()}
+        if not self.config.tie_embeddings:
+            specs["lm_head"] = ()
+        specs.update({f"blocks.{k}": v for k, v in blocks.items()})
+        return specs
+
+    def _mlp_specs(self):
+        col, row = (None, None, "tensor"), (None, "tensor", None)
+        out = {"wup": col, "wdown": row}
+        if self.config.mlp_gated:
+            out["wgate"] = col
+        return out
+
+    @property
+    def flash_on(self):
+        """Resolved use_flash_attention ("auto": on for a CUDA model)."""
+        return resolve_flash(self.config.use_flash_attention, self.device)
+
+    def _train_attn(self, q, k, v, mask):
+        """Attention over (B, T, H, hd) q and the repeated k, v: the flash
+        kernels (K1 forward, K2 backward; ``sliding_window`` their window)
+        or dense fp32 scores under ``mask`` (T, T), as JAX llama.py:471-499.
+        Returns (B, T, H, hd) in the model's dtype."""
+        cfg = self.config
+        if self.flash_on:
+            return flash_attention(q, k, v, causal=True,
+                                   window=cfg.sliding_window).to(q.dtype)
+        s = torch.einsum("bthd,bshd->bhts", q.float(), k.float())
+        s = torch.where(mask, s / math.sqrt(cfg.d_head), -1e30)
+        probs = torch.softmax(s, dim=-1).to(q.dtype)
+        return torch.einsum("bhts,bshd->bthd", probs, v)
+
+    def _train_block(self, x, pos, mask, *ws):
+        """One block (JAX ``block_forward``, sequential residual): x (B,
+        T, D) and the layer's tensors in ``self.blocks`` order."""
+        cfg = self.config
+        B, T = x.shape[0], x.shape[1]
+        H, hd = cfg.n_head, cfg.d_head
+        layer = dict(zip(self.blocks.keys(), ws))
+        q, k, v = self._attn_proj(x, layer)
+        q, k = self._rope(q, pos), self._rope(k, pos)
+        n_rep = H // cfg.n_kv_heads
+        attn = self._train_attn(q, _repeat_kv(k, n_rep),
+                                _repeat_kv(v, n_rep), mask)
+        return self._block_tail(x, attn.reshape(B, T, H * hd), layer)
+
+    def apply(self, input_ids, *, rng=None, train=False, seq_sharded=False,
+              return_hidden=False):
+        """Logits (B, T, V) fp32 of (B, T) token ids (JAX llama.py:511), or
+        the last block's output (B, T, D) with ``return_hidden``. Given a
+        callable instead, ``nn.Module.apply``."""
+        if callable(input_ids):
+            return super().apply(input_ids)
+        cfg = self.config
+        if seq_sharded:
+            raise NotImplementedError(
+                f"seq_sharded Llama is not ported yet {_TODO_SEQ}")
+        if self.qblocks:
+            raise NotImplementedError(
+                f"a {self.weight_quant} weight-quantized model serves only")
+        if cfg.remat and resolve_remat_policy(
+                cfg.remat_policy) != "nothing_saveable":
+            raise NotImplementedError(
+                f"remat_policy {cfg.remat_policy!r} is not ported for the "
+                f"Llama family yet {_TODO_REMAT}")
+        ids = torch.as_tensor(input_ids).to(self.device).long()
+        B, T = ids.shape
+        x = F.embedding(ids, self.wte)
+        pos = torch.arange(T, device=ids.device)[None, :].expand(B, T)
+        mask = None
+        if not self.flash_on:
+            i = torch.arange(T, device=ids.device)
+            mask = i[:, None] >= i[None, :]
+            if cfg.sliding_window:
+                mask = mask & (i[:, None] - i[None, :] < cfg.sliding_window)
+        layers = [p.unbind(0) for p in self.blocks.values()]
+        for i in range(cfg.n_layer):
+            ws = [t[i] for t in layers]
+            if cfg.remat:
+                x = checkpoint(self._train_block, x, pos, mask, *ws,
+                               use_reentrant=False)
+            else:
+                x = self._train_block(x, pos, mask, *ws)
+        return x if return_hidden else self.head(x)
+
+    def apply_with_aux(self, input_ids, **kw):
+        """(logits, 0.0): the family threads no aux loss (JAX
+        llama.py:544)."""
+        return self.apply(input_ids, **kw), torch.zeros(
+            (), dtype=torch.float32, device=self.device)
+
+    def loss(self, batch, *, rng=None, train=True, seq_sharded=False):
+        """Mean next-token cross entropy of batch {"input_ids": (B, T)}
+        (JAX llama.py:559-575): with ``loss_chunk`` < T - 1 the chunked
+        head, fused (gradients in the forward) when ``fused_loss``; else
+        the dense logits."""
+        ids = torch.as_tensor(batch["input_ids"]).to(self.device)
+        T = ids.shape[1]
+        chunk = self.config.loss_chunk
+        if chunk and T - 1 > chunk:
+            x = self.apply(ids, rng=rng, train=train,
+                           seq_sharded=seq_sharded, return_hidden=True)
+            if self.config.fused_loss:
+                keys = self._head_keys()
+                return fused_linear_xent(
+                    self._head, chunk, {k: getattr(self, k) for k in keys},
+                    x[:, :-1], ids[:, 1:])
+            return chunked_softmax_xent(self.head, x[:, :-1], ids[:, 1:],
+                                        chunk)
+        return next_token_xent(self.apply(ids, rng=rng, train=train,
+                                          seq_sharded=seq_sharded), ids)
+
     # --------------------------------------------------------- paged cache
     def init_paged_cache(self, num_blocks, block_size, dtype=None):
         """LISTS of per-layer heads-major pools (NB, KVH, BS, hd); each is
@@ -436,6 +606,7 @@ class Llama(nn.Module):
                 "v": [torch.zeros(shape, dtype=dt, device=self.device)
                       for _ in range(cfg.n_layer)]}
 
+    @torch.inference_mode()
     def apply_paged_prefill(self, input_ids, cache, token_blocks,
                             token_offsets, length):
         """Bucketed whole-prompt prefill of ONE sequence.
@@ -468,6 +639,7 @@ class Llama(nn.Module):
         last = x[:, max(length - 1, 0)]
         return self.head(last), cache
 
+    @torch.inference_mode()
     def apply_paged_chunk(self, input_ids, cache, token_blocks,
                           token_offsets, start, true_len, table):
         """Prefill ONE CHUNK of one sequence into the paged cache (Dynamic
@@ -502,6 +674,7 @@ class Llama(nn.Module):
         last = x[:, max(true_len - 1, 0)]
         return self.head(last), cache
 
+    @torch.inference_mode()
     def apply_paged_decode(self, tokens, lengths, cache, block_tables):
         """One decode step for every batch slot.
 
@@ -542,6 +715,7 @@ class Llama(nn.Module):
             x = self._block_tail(x, attn.reshape(B, 1, H * hd), i)
         return self.head(x)[:, 0], cache
 
+    @torch.inference_mode()
     def apply_paged_verify(self, tokens, lengths, cache, block_tables):
         """Speculative verify: C tokens a slot in ONE pass (the JAX
         ``apply_paged_verify``).

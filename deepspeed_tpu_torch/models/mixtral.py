@@ -1,6 +1,6 @@
-"""Mixtral-class model for v2 paged serving: the port's Llama attention
-(GQA + RoPE, the paged kernels) with a dropless top-k SwiGLU MoE FFN per
-block.
+"""Mixtral-class model for training and v2 paged serving: the port's
+Llama attention (GQA + RoPE; the flash kernels in training, the paged
+kernels in serving) with a dropless top-k SwiGLU MoE FFN per block.
 
 Counterpart of ``deepspeed_tpu/models/mixtral.py``. Parameter names and
 shapes are the JAX package's: the blocks swap ``wgate/wup/wdown`` for
@@ -15,9 +15,17 @@ the outputs unsort and combine by the renormalised top-k weights. The
 paged prefill/chunk/decode programs are Llama's and call ``_mlp`` per
 layer. Every step stays on the device: no host sync per layer.
 
+Training is Llama's (``apply``, ``loss``) with this ``_mlp`` under
+autograd: the router's gradient flows through ``route_top_k``'s
+renormalised weights, the experts' through ``grouped_swiglu``'s backward
+(K8: the dx-view ``grouped_gmm`` and ``grouped_tgmm``). As in JAX
+(mixtral.py:17-19) no aux loss is threaded through ``apply``.
+
 ``grouped_kernel`` ("auto" | True | False) picks the expert-FFN backend as
 the JAX ``MoEConfig.grouped_kernel`` does; "auto" means the kernels (the
-port has no winner cache). False is the ragged-math parity path.
+port has no winner cache). False is the ragged-math parity path. An
+engine's ``moe`` block (``model._moe_cfg``) with a non-"auto"
+``grouped_kernel`` overrides it, as for GPT2MoE.
 
 Under weight quantization the experts stay quantized into K9
 (``grouped_swiglu_wq``) on the fused path (``_WQ_KEEP``), the router
@@ -84,6 +92,20 @@ class Mixtral(Llama):
             "moe_w2": nrm((L, E, Fd, D), res_std, key="moe_w2"),
         }
 
+    def _mlp_specs(self):
+        """The experts over "expert", their FFN dim over "tensor"; the
+        router whole (JAX mixtral.py:101-121 without a data_outer axis)."""
+        return {"moe_gate": (None, None, None),
+                "moe_w1": (None, "expert", None, "tensor"),
+                "moe_w3": (None, "expert", None, "tensor"),
+                "moe_w2": (None, "expert", "tensor", None)}
+
+    def _grouped_knob(self):
+        moe_cfg = getattr(self, "_moe_cfg", None)
+        if moe_cfg is not None and moe_cfg.grouped_kernel != "auto":
+            return moe_cfg.grouped_kernel
+        return self.grouped_kernel
+
     def _mlp(self, x, i):
         """Dropless top-k SwiGLU MoE over the flattened tokens
         (``deepspeed_tpu/models/mixtral.py:132-174`` step for step)."""
@@ -96,7 +118,7 @@ class Mixtral(Llama):
         order, group_sizes = sort_by_expert(experts, E)
         # token-major repeat: routed row s*k + j is token s
         xr = xs.index_select(0, torch.div(order, k, rounding_mode="floor"))
-        params = resolve_grouped_params(self.grouped_kernel)
+        params = resolve_grouped_params(self._grouped_knob())
         o = _grouped_swiglu_ffn(xr, self._w("moe_w1", i),
                                 self._w("moe_w3", i), self._w("moe_w2", i),
                                 group_sizes, params)

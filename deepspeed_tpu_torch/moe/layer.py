@@ -82,14 +82,15 @@ class MoE:
                               device=device),
         }
 
-    def apply(self, params, x, *, grouped_kernel=None):
+    def apply(self, params, x, *, grouped_kernel=None, dp_axes=None):
         """``grouped_kernel`` overrides the construction-time knob for this
         dispatch (None keeps it): how an engine ``moe`` block reaches a
-        layer built before the engine."""
+        layer built before the engine. ``dp_axes``: the data-parallel axes
+        the aux loss sums its routing statistics over (``topk_routing``)."""
         knob = self.grouped_kernel if grouped_kernel is None \
             else grouped_kernel
         return moe_layer_ragged_ep(
             x, params["gate_w"], params["wi"], params["bi"], params["wo"],
             params["bo"], k=self.k, activation=self.activation,
-            grouped_kernel=knob)
+            grouped_kernel=knob, dp_axes=dp_axes)
 

@@ -11,13 +11,17 @@ in plain PyTorch (g and u rounded to the activation dtype before silu *
 mul), the explicit parity path. The port has no autotune winner cache, so
 ``"auto"`` resolves to the kernels (as ``paged_kernel="auto"`` does).
 Group sizes come from a fixed-size scatter_add, so no forward syncs the
-host. The GShard capacity gating (``top1gating``/``top2gating``,
-``moe_layer``) and the expert-parallel all_to_all are not ported yet.
+host. Under data parallelism the aux loss is taken over the global batch,
+as the JAX loss over a batch sharded on the data axes takes it
+(``topk_routing``'s ``dp_axes``). The GShard capacity gating
+(``top1gating``/``top2gating``, ``moe_layer``) and the expert-parallel
+all_to_all are not ported yet.
 """
 
 import torch
 import torch.nn.functional as F
 
+from ..comm import comm
 from ..ops.cuda.grouped_matmul import (grouped_matmul,
                                        grouped_matmul_reference,
                                        grouped_swiglu, grouped_swiglu_wq,
@@ -121,38 +125,66 @@ def sort_by_expert(experts, E):
     return order, sizes
 
 
-def topk_routing(logits, k=1):
+class _SumOverRanks(torch.autograd.Function):
+    """A sum over the ranks of ``axes`` whose backward sums the cotangent
+    over them too: every rank's loss reads the global sum, and the engine
+    averages the ranks' gradients, so each rank's share of the global
+    term's gradient must come back whole (an identity backward leaves it
+    ``dp`` times too small)."""
+
+    @staticmethod
+    def forward(ctx, x, axes):
+        ctx.axes = axes
+        return comm.all_reduce(x, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return comm.all_reduce(g.contiguous(), ctx.axes), None
+
+
+def topk_routing(logits, k=1, dp_axes=None):
     """Capacity-free top-k routing of fp32 logits (S, E): (weights (S, k),
     experts (S, k) int32, the GShard/Switch aux loss
     E * sum(mean router prob per expert * first-choice fraction), counts
-    (E,) fp32 of all k dispatches per expert)."""
+    (E,) fp32 of all k dispatches per expert). With ``dp_axes`` (the
+    data-parallel axes each rank's S tokens split the global batch over)
+    the aux loss is the global batch's: the per-expert prob sums, the
+    first-choice counts and S are summed over those ranks in one
+    collective, differentiable in the prob sums (``_SumOverRanks``)."""
     S, E = logits.shape
     probs = torch.softmax(logits, dim=-1)
     weights, experts = torch.topk(probs, k, dim=-1)
     if k > 1:
         weights = weights / weights.sum(dim=-1, keepdim=True)
     first = F.one_hot(experts[:, 0], E).to(probs.dtype).sum(0)
-    l_aux = E * torch.sum(probs.mean(0) * first / S)
+    if dp_axes:
+        tot = _SumOverRanks.apply(torch.cat(
+            [probs.sum(0), first, probs.new_full((1,), S)]), dp_axes)
+        n = tot[2 * E].detach()
+        l_aux = E * torch.sum(tot[:E] / n * tot[E:2 * E].detach() / n)
+    else:
+        l_aux = E * torch.sum(probs.mean(0) * first / S)
     counts = F.one_hot(experts, E).to(probs.dtype).sum((0, 1))
     return weights, experts.to(torch.int32), l_aux, counts
 
 
 def moe_layer_ragged(tokens, gate_w, wi, bi, wo, bo, k=1, *,
-                     activation=gelu, grouped_kernel="auto"):
+                     activation=gelu, grouped_kernel="auto", dp_axes=None):
     """Dropless MoE layer (the megablox pattern): the k routed copies of
     each token sort by expert, each expert multiplies exactly its
     contiguous group (``gmm(xs, wi) + bi``, activation,
     ``gmm(h, wo) + bo``), the outputs unsort and combine by the
     renormalised top-k weights. tokens (..., M); gate_w (M, E); wi (E, M,
-    F); bi (E, F); wo (E, F, M); bo (E, M). Returns (y like tokens, l_aux,
-    group_sizes (E,) int32)."""
+    F); bi (E, F); wo (E, F, M); bo (E, M); ``dp_axes`` as for
+    ``topk_routing``. Returns (y like tokens, l_aux, group_sizes (E,)
+    int32)."""
     orig_shape = tokens.shape
     M = orig_shape[-1]
     x = tokens.reshape(-1, M)
     S = x.shape[0]
     E = gate_w.shape[-1]
     logits = x.float() @ gate_w.float()
-    weights, experts, l_aux, _ = topk_routing(logits, k)
+    weights, experts, l_aux, _ = topk_routing(logits, k, dp_axes)
     flat_exp = experts.reshape(-1).long()
     order, group_sizes = sort_by_expert(flat_exp, E)
     flat_w = weights.reshape(-1).to(tokens.dtype)
@@ -171,7 +203,7 @@ def moe_layer_ragged(tokens, gate_w, wi, bi, wo, bo, k=1, *,
 
 def moe_layer_ragged_ep(tokens, gate_w, wi, bi, wo, bo, k=1, *,
                         activation=gelu, expert_parallel_size=1,
-                        grouped_kernel="auto"):
+                        grouped_kernel="auto", dp_axes=None):
     """The expert-parallel dropless layer. At one expert shard (the only
     size the port runs) it is ``moe_layer_ragged``, as in the JAX package;
     more shards need the all_to_all exchange, not ported yet."""
@@ -181,4 +213,4 @@ def moe_layer_ragged_ep(tokens, gate_w, wi, bi, wo, bo, k=1, *,
             f"not ported yet")
     return moe_layer_ragged(tokens, gate_w, wi, bi, wo, bo, k=k,
                             activation=activation,
-                            grouped_kernel=grouped_kernel)
+                            grouped_kernel=grouped_kernel, dp_axes=dp_axes)

@@ -6,7 +6,11 @@ same update, computed in fp32 from the upcast moments, and the same state
 layout ``{"step", "m", "v"}`` (m and v keyed by parameter name). The
 update is plain PyTorch: it is bandwidth-bound elementwise work, which the
 JAX package also leaves to XLA (no Pallas kernel). It updates the master
-parameters and the moments in place, which saves a copy of each.
+parameters and the moments in place, which saves a copy of each, and
+walks a contiguous leaf in slices of ``UPDATE_SLICE`` elements, so its
+fp32 temporaries stay slice-sized (a stacked Mixtral-8x7B expert leaf
+holds ~0.5 B elements a layer); the update is elementwise, so the slices
+give the whole leaf's values bit for bit.
 
 Protocol (as the JAX one): ``opt.init(params) -> state`` and
 ``opt.update(grads, state, params, lr) -> (params, state)`` over dicts of
@@ -16,6 +20,19 @@ fp32 master tensors.
 import torch
 
 _TODO = "(ROADMAP Queue 1, M4: LAMB, Lion, Adagrad, SGD)"
+UPDATE_SLICE = 1 << 26
+
+
+def _slices(*ts):
+    """Aligned slices of the tensors ``ts`` (one leaf's parameter,
+    gradient and moments): ``UPDATE_SLICE``-element views of each when
+    all are contiguous, else the tensors whole."""
+    n = ts[0].numel()
+    if n <= UPDATE_SLICE or not all(t.is_contiguous() for t in ts):
+        return [ts]
+    flat = [t.view(-1) for t in ts]
+    return [[f[i:i + UPDATE_SLICE] for f in flat]
+            for i in range(0, n, UPDATE_SLICE)]
 
 
 class FusedAdam:
@@ -60,20 +77,23 @@ class FusedAdam:
             c1 = c2 = torch.ones((), **f32)
         lr = torch.as_tensor(lr, **f32)
         b1, b2 = self.b1, self.b2
-        for name, p in params.items():
-            g = grads[name].float()
-            m = state["m"][name].float()
-            v = state["v"][name].float()
-            if not self.adam_w_mode and self.weight_decay:
-                g = g + self.weight_decay * p          # classic L2
-            m = b1 * m + (1 - b1) * g
-            v = b2 * v + (1 - b2) * g.square()
-            upd = (m / c1) / (torch.sqrt(v / c2) + self.eps)
-            if self.adam_w_mode and self.weight_decay:
-                upd = upd + self.weight_decay * p
-            p.copy_((p - lr * upd).to(p.dtype))
-            state["m"][name].copy_(m)
-            state["v"][name].copy_(v)
+        for name, leaf in params.items():
+            for p, g, m_s, v_s in _slices(leaf, grads[name],
+                                          state["m"][name],
+                                          state["v"][name]):
+                g = g.float()
+                m = m_s.float()
+                v = v_s.float()
+                if not self.adam_w_mode and self.weight_decay:
+                    g = g + self.weight_decay * p          # classic L2
+                m = b1 * m + (1 - b1) * g
+                v = b2 * v + (1 - b2) * g.square()
+                upd = (m / c1) / (torch.sqrt(v / c2) + self.eps)
+                if self.adam_w_mode and self.weight_decay:
+                    upd = upd + self.weight_decay * p
+                p.copy_((p - lr * upd).to(p.dtype))
+                m_s.copy_(m)
+                v_s.copy_(v)
         return params, state
 
 

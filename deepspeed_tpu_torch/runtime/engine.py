@@ -10,13 +10,17 @@ accumulated as ``g / gas``; then unscale, an overflow check, global-norm
 clipping with the JAX formula, the optimizer update on the master (skipped
 on overflow) and the cast back to the parameters' dtype.
 
-The engine takes its initial parameters from the model module (so a JAX
-engine's initial master can be loaded through ``gpt2_params_from_numpy``
-or ``gpt2_moe_params_from_numpy``), casts every one to the precision dtype
-and takes the fp32 master from those, as JAX's engine.py:468-474 does (so
-a router the model keeps in fp32 enters a bf16 engine's master rounded).
+The engine trains GPT2, GPT2MoE, Llama and Mixtral (``models/``). It takes
+its initial parameters from the model module (so a JAX engine's initial
+master can be loaded through ``gpt2_params_from_numpy``,
+``gpt2_moe_params_from_numpy``, ``llama_params_from_numpy`` or
+``mixtral_params_from_numpy``), casts every one to the precision dtype and
+takes the fp32 master from those, as JAX's engine.py:468-474 does (so a
+router the model keeps in fp32 enters a bf16 engine's master rounded).
 It installs the config's ``moe`` block on the model as ``model._moe_cfg``
-and drives ``model.loss(batch)``.
+and, at dp > 1, the live data-parallel axes as ``model._moe_dp_axes``
+(an MoE layer's aux loss then sums its routing statistics over them: the
+JAX loss runs over the global batch), and drives ``model.loss(batch)``.
 
 A multi-process world (``utils/groups.py``) is built from the config as
 the JAX engine.py:130-141 builds its mesh: ``sequence_parallel_size``
@@ -68,7 +72,6 @@ import numpy as np
 import torch
 
 from .. import comm
-from ..models.gpt2_moe import GPT2MoE
 from ..ops.optimizers import build_optimizer
 from ..utils import fault_injection, groups, prng
 from ..utils.device import resolve_device
@@ -81,10 +84,6 @@ from .config import DeepSpeedConfig
 from .fp16.loss_scaler import create_loss_scaler, grads_finite
 from .zero.partitioning import (ZeroShardingPlan, flat_all_gather,
                                 flat_reduce_scatter, reshape_diff, shard)
-
-_TODO_MOE_DP = "(ROADMAP Queue 1, S9 (rest): GPT2MoE at dp > 1 (aux loss " \
-    "over the global batch))"
-
 
 def _jax_order(names):
     """Parameter names in the JAX tree's leaf order (sorted keys, the
@@ -166,10 +165,6 @@ class DeepSpeedEngine:
             raise ValueError(
                 f"the config was resolved for {self.config.dp_world_size} "
                 f"data-parallel ranks, the topology has {dp}")
-        if dp > 1 and isinstance(model, GPT2MoE):
-            raise NotImplementedError(
-                f"GPT2MoE over {dp} data-parallel ranks is not ported yet "
-                f"{_TODO_MOE_DP}")
         self.topology = topology
         self.dp = dp
         self.seq_parallel = topology.get_sequence_parallel_world_size()
@@ -219,6 +214,14 @@ class DeepSpeedEngine:
                 "moe config block could not be installed on the model "
                 "(attribute assignment rejected); MoE layers will use "
                 "the module defaults", ranks=[0])
+        # the axes the batch splits over: an MoE aux loss is the global
+        # batch's (topk_routing), as the JAX loss over the sharded batch
+        try:
+            self.model._moe_dp_axes = self._live(groups.BATCH_AXES) or None
+        except (AttributeError, TypeError):
+            log_dist(
+                "data-parallel axes could not be installed on the model; "
+                "an MoE aux loss will be each rank's own", ranks=[0])
         # the 'sequence' block: ring attention reads it when seq-sharded
         try:
             self.model._sequence_cfg = self.config.sequence
@@ -381,9 +384,10 @@ class DeepSpeedEngine:
             p.grad = None
         loss = self._model_loss(micro)
         (loss * scale).backward()
-        grads = {n: params[n].grad.to(self.grad_dtype) for n in self._names}
-        for p in params.values():
-            p.grad = None
+        grads = {}
+        for n in self._names:     # each autograd grad freed once cast
+            grads[n] = params[n].grad.to(self.grad_dtype)
+            params[n].grad = None
         self._release_params()
         return loss.detach(), grads
 
@@ -395,8 +399,12 @@ class DeepSpeedEngine:
         """Unscale, overflow check and global-norm clip (engine.py:609-628):
         returns (grads, finite, gnorm). A partitioned gradient leaf counts
         its shards, summed over its partition group with the overflow
-        flag; a replicated one counts once."""
-        grads = {n: (g / scale).to(g.dtype) for n, g in grads.items()}
+        flag; a replicated one counts once. The unscale and the clip run
+        in place on the accumulated buffers (the same ops as ``g / scale``
+        and ``g * coef`` in the buffers' dtype), so no second copy of the
+        gradients exists."""
+        for g in grads.values():
+            g.div_(scale)
         finite = grads_finite(grads.values())
         split = _by_axes(self._names, self.plan.parts["grad"])
         parted = {n for names in split.values() for n in names}
@@ -416,7 +424,8 @@ class DeepSpeedEngine:
         clip = self.config.gradient_clipping
         if clip and clip > 0:
             coef = torch.clamp(clip / (gnorm + 1e-6), max=1.0)
-            grads = {n: (g * coef).to(g.dtype) for n, g in grads.items()}
+            for g in grads.values():
+                g.mul_(coef)
         return grads, finite, gnorm
 
     def train_batch(self, batch):

@@ -266,16 +266,19 @@ def gpt2(inp, rank, world):
         assert engine.model._sequence_cfg.block_kernel is False
         losses = [engine.train_batch(b) for b in run["batches"]]
         out[name] = {"losses": losses, "master": engine.state["master"]}
-    try:                 # GPT2MoE over a data-parallel world of `world`
-        from deepspeed_tpu_torch.models import GPT2MoE, GPT2MoEConfig
-        cfg = dict(inp["models"]["dense"], num_experts=2, moe_top_k=1,
-                   moe_backend="ragged")
-        deepspeed_tpu_torch.initialize(
-            model=GPT2MoE(GPT2MoEConfig(**cfg), device="cpu"),
-            config={"train_micro_batch_size_per_gpu": 1, "optimizer": {
-                "type": "Adam", "params": {"lr": 1e-3}}}, device="cpu")
-    except NotImplementedError as e:
-        out["dp_error"] = str(e)
+    # GPT2MoE over a data-parallel world of `world`: one step
+    from deepspeed_tpu_torch.models import GPT2MoE, GPT2MoEConfig
+    from deepspeed_tpu_torch.utils import groups
+    groups.reset()
+    cfg = dict(inp["models"]["dense"], num_experts=2, moe_top_k=1,
+               moe_backend="ragged")
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=GPT2MoE(GPT2MoEConfig(**cfg), device="cpu"),
+        config={"train_micro_batch_size_per_gpu": 1, "optimizer": {
+            "type": "Adam", "params": {"lr": 1e-3}}}, device="cpu")
+    out["dp_run"] = {"dp": engine.dp, "axes": engine.model._moe_dp_axes,
+                     "loss": engine.train_batch(
+                         {"input_ids": ids.repeat(world, 1)[:world]})}
     return {"res": _np(out)}
 
 
@@ -391,6 +394,75 @@ def zero(inp, rank, world):
                              engine.state["param_shards"].items()}}
     if inp.get("ckpt"):
         out["ckpt"] = _ckpt_runs(inp, engines)
+    return {"res": _np(out)}
+
+
+def _gpt2_moe(cfg, params):
+    import torch
+    from deepspeed_tpu_torch.models import (GPT2MoE, GPT2MoEConfig,
+                                            gpt2_moe_params_from_numpy)
+    model = GPT2MoE(GPT2MoEConfig(**cfg), device="cpu")
+    model.load_state_dict(gpt2_moe_params_from_numpy(params, "cpu",
+                                                     torch.float32))
+    return model
+
+
+@_suite
+def moe_dp(inp, rank, world):
+    """GPT2MoE over a data-parallel world: first the aux loss of this
+    rank's block of ``inp["aux"]["ids"]`` with the engine's dp axes (the
+    global batch's) and without them (this rank's own), then each run of
+    ``inp["runs"]`` through initialize -> train_batch with the losses,
+    grad norms, each step's clipped gradients (gathered whole) and the
+    gathered master, as the ``zero`` suite records them."""
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.runtime import engine as eng
+    from deepspeed_tpu_torch.utils import groups
+    out = {}
+    groups.reset()
+    aux = inp["aux"]
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=_gpt2_moe(aux["model"], aux["params"]), config=aux["config"],
+        device="cpu")
+    ids = torch.from_numpy(aux["ids"])
+    micro = ids.shape[0] // world
+    r = engine.topology.axis_index(groups.BATCH_AXES)
+    mine = ids[r * micro:(r + 1) * micro]
+    with torch.no_grad():
+        out["aux_axes"] = engine.model._moe_dp_axes
+        out["aux_global"] = engine.model.hidden_with_aux(mine)[1]
+        engine.model._moe_dp_axes = None
+        out["aux_local"] = engine.model.hidden_with_aux(mine)[1]
+    for name, run in inp["runs"].items():
+        groups.reset()
+        engine, *_ = deepspeed_tpu_torch.initialize(
+            model=_gpt2_moe(run["model"], run["params"]),
+            config=run["config"], device="cpu")
+        steps = []
+        unscale_clip = engine._unscale_clip
+
+        def record(grads, scale, engine=engine, unscale_clip=unscale_clip,
+                   steps=steps):
+            got = unscale_clip(grads, scale)
+            whole = {n: g.clone() for n, g in got[0].items()}
+            parts = engine.plan.parts["grad"]
+            for axes, names in eng._by_axes(whole, parts).items():
+                whole.update(zip(names, eng.flat_all_gather(
+                    [whole[n] for n in names], [parts[n][0] for n in names],
+                    axes)))
+            steps.append(whole)
+            return got
+        engine._unscale_clip = record
+        losses, norms = [], []
+        for b in run["batches"]:
+            losses.append(engine.train_batch(b))
+            norms.append(engine.get_global_grad_norm())
+        out[name] = {
+            "losses": losses, "grad_norms": norms, "grads": list(steps),
+            "dp": engine.dp,
+            "master": {n: m.clone()
+                       for n, m in engine.gathered_master().items()}}
     return {"res": _np(out)}
 
 

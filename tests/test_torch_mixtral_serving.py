@@ -122,7 +122,7 @@ def test_mlp_matches_jax(grouped):
     for i in range(MIXTRAL_TINY.n_layer):
         layer = jax.tree.map(lambda a: a[i], params["blocks"])
         want = np.asarray(jm._mlp(jnp.asarray(x), layer))
-        got = pm._mlp(torch.from_numpy(x), i).numpy()
+        got = pm._mlp(torch.from_numpy(x), i).detach().numpy()
         np.testing.assert_allclose(got, want, **TOL)
 
 

@@ -74,7 +74,8 @@ def test_llama_mlp_matches_jax(mode, gated):
     for i in range(LLAMA_TINY.n_layer):
         want = jm._mlp(jnp.asarray(x), jm._layer_slice(qp, i))
         got = pm._mlp(torch.from_numpy(x), i)
-        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                                   **TOL)
 
 
 @pytest.mark.parametrize("grouped", [True, False])
@@ -90,7 +91,8 @@ def test_mixtral_mlp_matches_jax(mode, grouped):
     for i in range(MIXTRAL_TINY.n_layer):
         want = jm._mlp(jnp.asarray(x), jm._layer_slice(qp, i))
         got = pm._mlp(torch.from_numpy(x), i)
-        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                                   **TOL)
 
 
 def _assert_pools(jc, pc):
