@@ -145,8 +145,8 @@ Phases (any failure raises and the script exits nonzero):
  15. wq parity: small fp32 Llama and Mixtral, int8 and int4, served with
      weight_quant give the same greedy streams as the same model with
      its dequantized weights served unquantized (split-fuse on and off).
- 16. Llama-2-7B int4 slice and 17. Mixtral-8x7B at all 32 layers in int8:
-     built quantized slice by slice, phase 4's settings and traffic;
+ 16. Llama-2-7B int4 slice and 17. Mixtral-8x7B in int8, each at 16 of
+     its 32 layers: built quantized slice by slice, phase 4's settings and traffic;
      every request returns 64 tokens, launches exactly 3 wq_matmul per
      layer and forward (Llama; each call on the design its rows give:
      every call of at least WQ_SM90_MIN_ROWS rows on sm90) or one
@@ -265,10 +265,10 @@ Phases (any failure raises and the script exits nonzero):
      dp = 1: losses at 2e-5, global gradient norms at 1e-5, the same loss
      on both ranks, its launches (K1, K2, 4 gmm and 4 tgmm a layer and
      micro step, fp32) the main path "moe-dp2".
- 32. the slice: GPT-2 350M (24 layers, the bench configuration, micro 24 a
-     rank, T=1024) at dp = 2 through initialize -> train_batch, ZeRO-2 for
-     5 steps and ZeRO-3 for 3; the loss falls and agrees on both ranks;
-     exactly 24 K1, 24 K2 and 2 K3 a step on each rank (every one on
+ 32. the slice: GPT-2 350M (12 of its 24 layers, the bench configuration,
+     micro 24 a rank, T=1024) at dp = 2 through initialize -> train_batch,
+     ZeRO-2 for 3 steps and ZeRO-3 for 3; the loss falls and agrees on
+     both ranks; one K1 and one K2 a layer and 2 K3 a step on each rank (every one on
      sm90, as each child reports); step time,
      tokens/s, each process's peak memory and the bytes each rank staged
      through host memory a step. After ZeRO-3's steps the two children
@@ -276,8 +276,9 @@ Phases (any failure raises and the script exits nonzero):
      under ZeRO-2 (gas 1 -> 2 keeps the global batch of 48, micro_steps
      realign), its master equal to the children's gathered master (their
      CRC32), and takes one step with a finite loss.
- 33. checkpoints: GPT-2 350M at phase 7's configuration takes steps and
-     saves one tag of its whole state (fp32 master, m, v: 4.26 GB) with
+ 33. checkpoints: GPT-2 350M at phase 7's configuration (12 of its 24
+     layers) takes steps and saves one tag of its whole state (fp32
+     master, m, v) with
      each of the sync, async and native engines, stepping on while an
      async or native write is in flight; a second run repeats its first
      steps (the bitwise repeat the resume is held to); fresh engines load
@@ -287,7 +288,8 @@ Phases (any failure raises and the script exits nonzero):
      one byte flipped in a chunk raises CheckpointCorruptionError; without
      a tag the load falls back to the async tag (load_fallbacks 1), which
      then resumes the same way. No engine degrades (counters["fallbacks"]
-     0); launches exactly 24 K1, 24 K2 and 2 K3 a step, all on sm90. One
+     0); launches exactly one K1 and one K2 a layer and 2 K3 a step, all
+     on sm90. One
      ``checkpoint`` JSON line an engine: bytes a tag, the seconds
      save_checkpoint blocked, the seconds until 'latest' named the tag,
      write GB/s, load seconds, the median step overlapping an in-flight
@@ -322,7 +324,7 @@ Phases (any failure raises and the script exits nonzero):
      rows, contexts 1024-1500, H = KVH = 32, d = 128) on its sm90 design
      against its plain version, repeated bitwise, the eight slots as views
      q[b] of one tensor, timed beside its SIMT design, SDPA and the bound;
-     then Llama-2-7B in bf16 at 16 layers: (a) 16 requests on a 1024-token
+     then Llama-2-7B in bf16 at 8 layers: (a) 16 requests on a 1024-token
      system prompt (32 new) with the cache off and on (hit rate, skipped
      prompt tokens, CoW copies, K5 launches, TTFT) and through two
      replicas with prefix_affinity="auto" (where each landed, its
@@ -354,6 +356,33 @@ Phases (any failure raises and the script exits nonzero):
      gmm, 3 tgmm), every one on sm90; step time, tokens/s, model TFLOP/s
      (Mixtral: all experts and the 2 active), peak memory (one ``train
      slice`` JSON line each).
+ 37. K1 and K2 on fp16 operands (the fp16 build of flash_attention.cu,
+     FlashAttentionF16Builder: the .f16 wgmma / mma.sync forms, built
+     with the rest and in the SASS check): d 32 / 64 / 128, causal,
+     window and not, both layouts, against the plain versions in fp32 at
+     the bf16 limits tightened to fp16's mantissa, repeated bitwise, each
+     design (sm90 at 64 / 128, mma_sync at 32) counted; controls that
+     must fail (a 64-key tile dropped; the bf16 kernels' output on the
+     same inputs); an overflow case (ds past 65504: the kernel's
+     non-finite rows are the plain fp16 backward's, nothing saturates);
+     both timed at the GPT-2 350M shapes beside the plain version, SDPA
+     in fp16 and the bound (the kernels line's ``fp16``).
+ 38. GPT-2 350M in fp16 through initialize -> train_batch with a
+     WarmupDecayLR schedule and the dynamic loss scaler from 2^24
+     (hysteresis 2), 14 steps: the first steps overflow and are skipped,
+     the scale path is the scaler's, the loss falls over the applied
+     steps, K1 / K2 once a layer a step on sm90 in fp16; skipped steps,
+     scale, lr and step time logged; then one bf16 train_batch each
+     under LAMB, Lion, Adagrad and SGD.
+ 39. MoE expert parallel, processes on cuda:0 over gloo: GPT2MoE at the
+     350M widths (2 layers) and Mixtral-8x7B's widths (1 layer) at ep =
+     2, Mixtral's staged exchange at data_outer 2 x expert 2 (4
+     processes, Mixtral's widths, 1 layer) with dcn_quantize off and
+     on, fp32, each step held
+     against the same model at ep = 1 (loss, aux, every gradient), the
+     K8 and K12 launches the dispatches imply, the bytes each rank's
+     exchanges stage through host memory and the exchange's share of
+     the step.
 Phases 7, 13, 20, 24, 32 and 33 also hold every bf16 K1 / K2 / K2-qmajor /
 K3 / K6 launch to the sm90 design (the wrappers' DESIGN_LAUNCHES); the
 serving slices count K4's launches by design (split / single), the
@@ -660,10 +689,13 @@ SM90_DESIGNS = {
     **{name: ("block_sparse_attention", tuple(
         f"{name}_sm90_kernelILi{d}E" for d in (64, 128)))
        for name in ("bsa_fwd", "bsa_dq", "bsa_dkv")}}
-# library -> the sm90 kernel symbols it must hold
+# library -> the sm90 kernel symbols it must hold; the fp16 build of
+# flash_attention.cu holds K1's and K2's in their .f16 forms
 SM90_KERNELS = {}
 for _lib, _syms in SM90_DESIGNS.values():
     SM90_KERNELS.setdefault(_lib, set()).update(_syms)
+SM90_KERNELS["flash_attention_f16"] = set(
+    SM90_DESIGNS["flash_fwd"][1] + SM90_DESIGNS["flash_bwd"][1])
 
 
 def find_cuobjdump():
@@ -716,9 +748,10 @@ def phase_sass(builders):
                 f"{name}: {hgmma} HGMMA, {utmaldg} UTMALDG in its SASS"
             r, sp = regs.get(name, (None, None))
             assert sp == 0, f"{name}: ptxas reports {sp} bytes spilled"
-            report[name] = dict(hgmma=hgmma, utmaldg=utmaldg, registers=r,
-                                spill_bytes=sp)
-            log(f"SASS {name}: {hgmma} HGMMA, {utmaldg} UTMALDG; ptxas "
+            key = f"{b.NAME}:{name}" if b.NAME.endswith("_f16") else name
+            report[key] = dict(hgmma=hgmma, utmaldg=utmaldg, registers=r,
+                               spill_bytes=sp)
+            log(f"SASS {key}: {hgmma} HGMMA, {utmaldg} UTMALDG; ptxas "
                 f"{r} registers, {sp} bytes spilled")
     return report
 
@@ -3163,10 +3196,14 @@ def phase_wq_parity():
 # ---------------------------------------------------------------- wq slices
 
 
+WQ_LAYERS = 16         # of 32 (the run's time limit)
+
+
 def phase_wq_slice(kind, seed=0, profile=None):
     """Full-depth serving through the fused wq path with phase 4's
     settings and traffic: "llama" = Llama-2-7B in int4 (K7 on the FFN),
-    "mixtral" = Mixtral-8x7B at all 32 layers in int8 (K9 on the experts);
+    "mixtral" = Mixtral-8x7B in int8 (K9 on the experts), each at
+    WQ_LAYERS of their 32 layers;
     both built quantized slice by slice, so the bf16 model never exists.
     ``profile``: a path for a torch.profiler breakdown of the serving
     loop. Returns the launch counts of the wq kernels."""
@@ -3184,6 +3221,7 @@ def phase_wq_slice(kind, seed=0, profile=None):
         cls, cfg, mode = Llama, LLAMA_PRESETS["llama2-7b"], "int4"
     else:
         cls, cfg, mode = Mixtral, MIXTRAL_8X7B, "int8"
+    cfg = dataclasses.replace(cfg, n_layer=WQ_LAYERS)
     L = cfg.n_layer
     t0 = time.perf_counter()
     model = cls(cfg, device="cuda", dtype=torch.bfloat16, seed=seed,
@@ -4934,14 +4972,15 @@ def child_parity():
     return out
 
 
-# a step takes ~18 s through host memory: 5 keep the whole script well
-# inside its time limit
-# GPT-2 350M's widths cut to 12 of its 24 layers (the run's time limit)
-PHASE29 = dict(steps=5, micro=4, seq_len=4096, sp=2, layers=12)
+# a step takes ~18 s through host memory at 12 layers: 5 keep the whole
+# script well inside its time limit
+# GPT-2 350M's widths cut to 6 of its 24 layers (the run's time limit)
+PHASE29 = dict(steps=5, micro=4, seq_len=4096, sp=2, layers=6)
 
 
 def child_train():
-    """Phase 29 in one rank: GPT-2 350M (12 layers, T=4096, micro 4,
+    """Phase 29 in one rank: GPT-2 350M (PHASE29["layers"] layers, T=4096,
+    micro 4,
     attention_backend="ring", sequence_parallel_size=2, ZeRO-2, bf16)
     through initialize -> train_batch for PHASE29["steps"] steps on one
     numpy-seeded batch; reports losses, step times, this process's peak
@@ -5378,7 +5417,10 @@ def phase_moe_zero_parity(reps):
             for k in reps[0]["launches"]}
 
 
-PHASE32 = dict(micro=24, seq_len=1024, steps={2: 5, 3: 3})
+# 3 ZeRO-2 steps (the run's time limit) and 3 ZeRO-3 steps (the tag
+# phase 32 resumes at dp = 1 is global_step3), 12 of the 24 layers (the
+# run's time limit)
+PHASE32 = dict(micro=24, seq_len=1024, steps={2: 3, 3: 3}, layers=12)
 
 
 def master_crc(master):
@@ -5396,7 +5438,7 @@ CKPT_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 
 def child_zero_train():
-    """Phase 32 in one rank: GPT-2 350M (all 24 layers, the JAX bench
+    """Phase 32 in one rank: GPT-2 350M (PHASE32's layers, the JAX bench
     configuration: bf16 + fp32 master, AdamW, clip 1.0, save_flash, fused
     CE kernel, micro 24, T=1024) at dp = 2 through initialize ->
     train_batch, ZeRO-2 for 5 steps and ZeRO-3 for 3, each on one
@@ -5412,7 +5454,7 @@ def child_zero_train():
     rank, world = child_world()
     p = PHASE32
     cfg = dataclasses.replace(
-        GPT2_PRESETS["350M"], max_seq_len=p["seq_len"],
+        GPT2_PRESETS["350M"], n_layer=p["layers"], max_seq_len=p["seq_len"],
         use_flash_attention=True, remat=True, remat_policy="save_flash",
         loss_chunk=512, fused_loss=True, fused_loss_kernel=True)
     batch = {"input_ids": np.random.RandomState(0).randint(
@@ -5465,8 +5507,8 @@ def child_zero_train():
 def phase_zero_slice():
     """Phase 32: GPT-2 350M at dp = 2 over two processes on cuda:0
     (child_zero_train): for ZeRO-2 and ZeRO-3, the loss falls and is the
-    same on both ranks, and each step launches exactly 24 K1, 24 K2 and 2
-    K3 on each rank (no K2-qmajor, K10 or K12); step time, tokens/s, each
+    same on both ranks, and each step launches exactly one K1 and one K2
+    a layer and 2 K3 on each rank (no K2-qmajor, K10 or K12); step time, tokens/s, each
     process's peak memory and the bytes each rank staged through host
     memory a step. Then the children's ZeRO-3 tag resumed at dp = 1
     (resume_dp2_at_dp1)."""
@@ -5474,7 +5516,7 @@ def phase_zero_slice():
     shutil.rmtree(os.path.join(CKPT_ROOT, "dp2"), ignore_errors=True)
     reps = run_children("zero-train")
     p = PHASE32
-    L, total = 24, {}
+    L, total = p["layers"], {}
     for stage, steps in p["steps"].items():
         key = f"zero{stage}"
         want = {"flash_fwd": L * steps, "flash_bwd": L * steps,
@@ -5547,8 +5589,8 @@ def resume_dp2_at_dp1(reps, seed=0):
     nbytes = sum(os.path.getsize(os.path.join(d, ck[0]["tag"], f))
                  for f in files)
     cfg = dataclasses.replace(
-        GPT2_PRESETS["350M"], max_seq_len=PHASE32["seq_len"],
-        use_flash_attention=True, remat=True, remat_policy="save_flash",
+        GPT2_PRESETS["350M"], n_layer=PHASE32["layers"],
+        max_seq_len=PHASE32["seq_len"], use_flash_attention=True, remat=True, remat_policy="save_flash",
         loss_chunk=512, fused_loss=True, fused_loss_kernel=True)
     gc.collect()
     torch.cuda.empty_cache()
@@ -5649,8 +5691,9 @@ def corrupt_one_chunk_byte(shard):
     return info.filename
 
 
+# 12 of GPT-2 350M's 24 layers (the run's time limit)
 PHASE33 = dict(engines=("sync", "async", "native"), between=4,
-               max_overlap=12, resume_steps=2)
+               max_overlap=12, resume_steps=2, layers=12)
 CKPT_STATS = {}
 
 
@@ -5687,7 +5730,8 @@ def phase_checkpoint(card, seed=0):
     from deepspeed_tpu_torch.runtime.config import CheckpointEngineConfig
     p = PHASE33
     cfg = dataclasses.replace(
-        GPT2_PRESETS["350M"], max_seq_len=1024, use_flash_attention=True,
+        GPT2_PRESETS["350M"], n_layer=p["layers"], max_seq_len=1024,
+        use_flash_attention=True,
         flash_block_q=1024, flash_block_k=1024, flash_block_h=1,
         remat=True, remat_policy="save_flash", loss_chunk=512,
         fused_loss=True, fused_loss_kernel=True)
@@ -6017,18 +6061,19 @@ def phase_router_parity():
     torch.cuda.empty_cache()
 
 
-# phases 34 and 35 serve Llama-2-7B's widths at 16 of its 32 layers (the
+# phases 34 and 35 serve Llama-2-7B's widths at 8 of its 32 layers (the
 # run's time limit: both are host-bound, a forward's launches scale with L)
-SERVE_LAYERS = 16
+SERVE_LAYERS = 8
 PHASE34 = dict(blocks=160, new=64)
 
 
 def phase_router(card, seed=0):
     """Phase 34: (a) phase_router_parity; (b) full-width Llama-2-7B in bf16
-    (16 of its 32 layers, phase 4's engine settings with 160 KV blocks an
-    engine, phase 4's eight prompts, all greedy, 64 new tokens each): run
-    1 one engine (the reference streams); run 2 Router([prefill p0,
-    decode d0]) over the in-process transport: the streams run 1's, 8
+    (SERVE_LAYERS of its 32 layers, phase 4's engine settings with 160 KV
+    blocks an engine, phase 4's eight prompts, all greedy, 64 new tokens
+    each): run 1 one engine (the reference streams); run 2
+    Router([prefill p0, decode d0]) over the in-process transport: the
+    streams run 1's, 8
     handoffs, kv_stream_bytes the payloads' sum, the exported blocks
     sum(ceil(T / 64)), both pools closed, K5 = L x p0's chunk forwards,
     K4 = L x the decode forwards (d0's; p0 runs none), one weight set
@@ -6426,9 +6471,10 @@ def verify_kernel(pa, seed=0):
 
 def phase_features(card, pa, seed=0):
     """Phase 35: (0) phase_features_parity; K5 at the verify shape
-    (verify_kernel); then Llama-2-7B in bf16 at 16 of its 32 layers (random
-    weights from the seed, 64-position blocks, batch 8, split-fuse 256,
-    8 decode steps a dispatch): (a) the prefix cache off, then on, over
+    (verify_kernel); then Llama-2-7B in bf16 at SERVE_LAYERS of its 32
+    layers (random weights from the seed, 64-position blocks, batch 8,
+    split-fuse 256, 8 decode steps a dispatch): (a) the prefix cache off,
+    then on, over
     16 requests on a 1024-token system prompt (32 new tokens each; one
     suffix diverging mid-block), then a two-replica Router with prefix
     affinity (one request first, then the other 15 together); (b) 8
@@ -6937,13 +6983,614 @@ def phase_llama_train_slice(kind, seed=0, steps=10, profile=None):
     return launches
 
 
+# ----------------------------------------------- fp16 K1 / K2 (phase 37)
+
+# fp16 flash output and gradients vs the plain version in fp32 on the same
+# inputs: the bf16 limits tightened to fp16's mantissa (10 bits against
+# bf16's 7: each rounding 8x finer).
+FP16_TOL = dict(rtol=2 ** -10, atol=5e-4)
+FP16_REL_NORM = BF16_REL_NORM / 8
+FP16_GRAD_REL_NORM = BF16_GRAD_REL_NORM / 8
+
+
+def fp16_mismatch(out, ref, tol=FP16_TOL, rel_norm=FP16_REL_NORM):
+    """None if ``out`` holds against the fp32 ``ref`` at the fp16 limits
+    (element by element, and each row's relative error norm), else why
+    not."""
+    if not torch.isfinite(out).all():
+        return "non-finite output"
+    diff = out.float() - ref
+    over = int((diff.abs() > tol["atol"] + tol["rtol"] * ref.abs()).sum())
+    rel = (torch.linalg.vector_norm(diff, dim=-1)
+           / torch.linalg.vector_norm(ref, dim=-1)).max().item()
+    if over or rel > rel_norm:
+        return (f"{over} of {out.numel()} elements out of tolerance, max "
+                f"|err| {diff.abs().max().item():.3g}, worst row relative "
+                f"error norm {rel:.3g}")
+    return None
+
+
+def fp16_grad_mismatch(out, ref):
+    if not torch.isfinite(out).all():
+        return "non-finite output"
+    rel = grad_rel_norm(out, ref)
+    if rel > FP16_GRAD_REL_NORM:
+        return f"worst (b, h) slab relative error norm {rel:.3g}"
+    return None
+
+
+def phase_fp16_kernels(fa, seed=0):
+    """Phase 37: K1 and K2 on fp16 operands, the fp16 build of
+    flash_attention.cu (FlashAttentionF16Builder, -DDS_ELEM_F16: the .f16
+    wgmma / mma.sync forms). Each case against the plain version in fp32
+    at the fp16 limits, repeated bitwise, its design counted (sm90 at d =
+    64 / 128, mma_sync at d = 32); controls that must fail: a 64-key tile
+    dropped, and the bf16 kernels' output on the same inputs (the fp16
+    limits tell the two precisions apart); an overflow case (do rows near
+    fp16's top, so ds = p (dp - delta) passes 65504): the kernel's rows
+    and key rows that hold inf are the plain fp16 backward's, nothing
+    saturates; then both timed at the GPT-2 350M shapes beside the plain
+    version, SDPA in fp16 and the bound."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    h16 = torch.float16
+
+    def randn(shape, dtype=h16, s=1.0):
+        return (torch.randn(shape, generator=g, device="cuda") * s).to(dtype)
+
+    cases = ((4, 8, 1000, 64, True, 0, False),
+             (2, 4, 777, 128, True, 300, False),
+             (2, 4, 640, 128, False, 0, True),
+             (3, 2, 333, 64, True, 100, True),
+             (2, 4, 500, 32, True, 0, False))
+    worst = {"flash_fwd": 0.0, "flash_bwd": 0.0}
+    for B, H, T, d, causal, window, heads_major in cases:
+        shape = (B, H, T, d) if heads_major else (B, T, H, d)
+        q, k, v, do = (randn(shape) for _ in range(4))
+        if not heads_major:
+            q, k, v, do = (x.transpose(1, 2) for x in (q, k, v, do))
+        q = fa.scale_q(q, 1.0 / math.sqrt(d))
+        design = "mma_sync" if d == 32 else "sm90"
+        kw = dict(causal=causal, window=window)
+        tag = f"fp16 {shape} causal={causal} window={window}"
+        fa.reset_launch_counts()
+        o, lse = fa.flash_forward(q, k, v, **kw)
+        o2, lse2 = fa.flash_forward(q, k, v, **kw)
+        grads = fa.flash_backward(q, k, v, o, lse, do, **kw)
+        again = fa.flash_backward(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        for name in ("flash_fwd", "flash_bwd"):
+            assert fa.DESIGN_LAUNCHES[name][design] == 2 == \
+                fa.DTYPE_LAUNCHES[name]["float16"] == fa.LAUNCHES[name], \
+                (tag, fa.DESIGN_LAUNCHES, fa.DTYPE_LAUNCHES)
+        assert torch.equal(o, o2) and torch.equal(lse, lse2), \
+            f"flash_fwd {tag}: calls differ"
+        assert all(torch.equal(a, b) for a, b in zip(grads, again)), \
+            f"flash_bwd {tag}: calls differ"
+        q32, k32, v32, do32 = (x.float() for x in (q, k, v, do))
+        ro, rlse = fa.flash_forward_reference(q32, k32, v32, **kw)
+        why = fp16_mismatch(o, ro)
+        assert why is None, f"flash_fwd {tag}: {why}"
+        torch.testing.assert_close(lse, rlse, rtol=0, atol=1e-4)
+        worst["flash_fwd"] = max(worst["flash_fwd"],
+                                 (o.float() - ro).abs().max().item())
+        refs = fa.flash_backward_reference(q32, k32, v32, o.float(), lse,
+                                           do32, **kw)
+        for gname, a, r in zip(("dq", "dk", "dv"), grads, refs):
+            why = fp16_grad_mismatch(a, r)
+            assert why is None, f"flash_bwd {tag} {gname}: {why}"
+            worst["flash_bwd"] = max(worst["flash_bwd"],
+                                     (a.float() - r).abs().max().item())
+        if d == 64 and causal and not window:
+            # controls: a 64-key tile dropped, and the bf16 kernels' output
+            dropped = flash_with_key_tile_dropped(fa, q32, k32, v32, 1,
+                                                  64).to(h16)
+            why = fp16_mismatch(dropped, ro)
+            assert why is not None, "fp16 check let a dropped key tile pass"
+            log(f"control: fp16 forward with 64-key tile 1 dropped fails "
+                f"({why})")
+            qb, kb, vb, dob = (x.to(torch.bfloat16) for x in (q, k, v, do))
+            ob, lseb = fa.flash_forward(qb, kb, vb, **kw)
+            why = fp16_mismatch(ob, ro)
+            assert why is not None, "fp16 check let a bf16 output pass"
+            gb = fa.flash_backward(qb, kb, vb, ob, lseb, dob, **kw)
+            why_g = fp16_grad_mismatch(gb[0], refs[0])
+            assert why_g is not None, "fp16 check let a bf16 dq pass"
+            log(f"control: the bf16 kernels on the same inputs fail the "
+                f"fp16 limits (forward: {why}; dq: {why_g})")
+            del dropped, qb, kb, vb, dob, ob, gb
+        del q, k, v, do, o, o2, grads, again, refs, ro
+    log(f"fp16 K1 / K2 cases ok ({len(cases)}: d 32 / 64 / 128, causal, "
+        f"window and not, model and heads-major strides; repeats bitwise; "
+        f"sm90 at 64 / 128, mma_sync at 32): max |err| forward "
+        f"{worst['flash_fwd']:.3g}, backward {worst['flash_bwd']:.3g}")
+
+    # overflow: the first 8 query rows of every (b, h) carry do at 3e4, so
+    # ds = p (dp - delta) passes fp16's 65504 there and rounds to inf (the
+    # JAX kernel's astype); the other rows stay finite. The kernel's
+    # non-finite dq rows and dk key rows (the products of the rounded ds)
+    # must be the plain fp16 backward's: a kernel that clamped or saturated
+    # ds would leave them finite.
+    B, H, T, d = 2, 4, 512, 64
+    q, k, v, do = (randn((B, H, T, d)) for _ in range(4))
+    q = fa.scale_q(q, 1.0 / math.sqrt(d))
+    do[:, :, :8] = do[:, :, :8].float().mul(3e4).clamp(-6e4, 6e4).to(h16)
+    o, lse = fa.flash_forward(q, k, v)
+    got = fa.flash_backward(q, k, v, o, lse, do)
+    ref = fa.flash_backward_reference(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    over = {}
+    for gname, a, r in zip(("dq", "dk"), got, ref):
+        bad, rbad = (~torch.isfinite(x).all(-1) for x in (a, r))
+        assert torch.equal(bad, rbad), \
+            f"fp16 overflow: {gname}'s non-finite rows differ from the " \
+            f"plain version's ({int(bad.sum())} vs {int(rbad.sum())})"
+        over[gname] = int(bad.sum())
+    assert over["dq"] > 0 and over["dq"] < B * H * T, over
+    ok = torch.isfinite(ref[0]).all(-1)
+    why = fp16_grad_mismatch(
+        got[0][ok].view(1, 1, -1, d), ref[0].float()[ok].view(1, 1, -1, d))
+    assert why is None, f"fp16 overflow case, finite dq rows: {why}"
+    log(f"fp16 overflow case ok: non-finite rows as the plain fp16 backward "
+        f"(dq {over['dq']}, dk {over['dk']} of {B * H * T}), no "
+        f"saturation; the finite dq rows within the fp16 limits")
+    del q, k, v, do, o, got, ref
+
+    # timing at the GPT-2 350M shapes (phase 5's), the model's layout
+    B, H, T, d = 24, 16, 1024, 64
+    q, k, v, do = (randn((B, T, H, d)).transpose(1, 2) for _ in range(4))
+    q = fa.scale_q(q, 1.0 / math.sqrt(d))
+    o, lse = fa.flash_forward(q, k, v)
+    pairs = B * H * _causal_pairs(T)
+    act = B * T * H * d * 2
+    qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+    sdpa_o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                            scale=1.0)
+    rows = {
+        "flash_fwd": dict(
+            ms=time_ms(lambda: fa.flash_forward(q, k, v), 20),
+            plain_ms=time_ms(lambda: fa.flash_forward_reference(q, k, v), 3),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, scale=1.0), 20),
+            bound=bound(4 * act + B * H * T * 4, 4 * d * pairs),
+            max_abs_err=worst["flash_fwd"]),
+        "flash_bwd": dict(
+            ms=time_ms(lambda: fa.flash_backward(q, k, v, o, lse, do), 10),
+            plain_ms=time_ms(lambda: fa.flash_backward_reference(
+                q, k, v, o, lse, do), 2),
+            library_ms=time_ms(lambda: torch.autograd.grad(
+                sdpa_o, (qs, ks, vs), do, retain_graph=True), 10),
+            bound=bound(8 * act + B * H * T * 4, 10 * d * pairs),
+            max_abs_err=worst["flash_bwd"])}
+    for name, r in rows.items():
+        log(f"{name} fp16 (B={B} H={H} T={T} d={d} causal): {r['ms']:.4f} "
+            f"ms (plain {r['plain_ms']:.4f}, SDPA fp16 "
+            f"{r['library_ms']:.4f}, bound {r['bound'][0]:.4f} by "
+            f"{r['bound'][1]})")
+    del q, k, v, do, o, lse, qs, ks, vs, sdpa_o
+    torch.cuda.empty_cache()
+    return rows
+
+
+# ------------------------ fp16 training, the other optimizers (phase 38)
+
+# phase 38's fp16 run: from 2^24 the 350M model's first steps overflow
+# fp16 (from 2^20 they do not: its gradients at the random initial
+# weights are small, and only grow past 2^20's limit after a few steps)
+FP16_SLICE = dict(steps=14, initial_scale_power=24, hysteresis=2,
+                  schedule={"type": "WarmupDecayLR", "params": {
+                      "total_num_steps": 14, "warmup_min_lr": 0.0,
+                      "warmup_max_lr": 2e-4, "warmup_num_steps": 4}})
+
+
+def phase_fp16_slice(seed=0):
+    """Phase 38: GPT-2 350M at full width in fp16 through initialize ->
+    train_batch (phase 7's configuration with fp16 in place of bf16, the
+    dynamic loss scaler from 2^24 with a hysteresis of 2, a WarmupDecayLR
+    schedule; the fused loss head's plain chunks: K3 takes bf16 / fp32
+    only), 14 steps on one batch: each step's loss, overflow flag, loss
+    scale and lr logged with the skipped steps and the step time; the
+    first step overflows and a later one applies, the scale path is the
+    dynamic scaler's on the overflow flags seen, the losses are finite and
+    fall over the applied steps, and K1 / K2 launch once a layer a step,
+    all on sm90 in fp16. Then one bf16 train_batch of the same model under
+    each of LAMB, Lion, Adagrad and SGD: applied, finite, the master
+    moved. Returns the fp16 run's launches."""
+    from deepspeed_tpu_torch import GPT2, GPT2_PRESETS, initialize
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+    from deepspeed_tpu_torch.ops.cuda import fused_ce as fce
+    from deepspeed_tpu_torch.runtime.fp16.loss_scaler import \
+        DynamicLossScaler
+    spec = FP16_SLICE
+    base = dataclasses.replace(
+        GPT2_PRESETS["350M"], max_seq_len=1024, use_flash_attention=True,
+        remat=True, remat_policy="save_flash", loss_chunk=512,
+        fused_loss=True, fused_loss_kernel=False)
+    batch = {"input_ids": np.random.RandomState(seed).randint(
+        0, base.vocab_size, (24, 1024)).astype(np.int32)}
+    config = {"train_micro_batch_size_per_gpu": 24, "steps_per_print": 0,
+              "optimizer": {"type": "AdamW",
+                            "params": {"lr": 2e-4, "weight_decay": 0.01}},
+              "gradient_clipping": 1.0, "zero_optimization": {"stage": 2},
+              "fp16": {"enabled": True,
+                       "initial_scale_power": spec["initial_scale_power"],
+                       "hysteresis": spec["hysteresis"]},
+              "scheduler": spec["schedule"]}
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(base, dtype="float16")
+    engine, *_ = initialize(model=GPT2(cfg, device="cuda", seed=seed),
+                            config=config)
+    for mod in (fa, fce):
+        mod.reset_launch_counts()
+    rows, times = [], []
+    for _ in range(spec["steps"]):
+        t1 = time.perf_counter()
+        loss = float(engine.train_batch(batch))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        m = engine.last_metrics
+        rows.append({"loss": loss, "overflow": bool(m["overflow"]),
+                     "loss_scale": float(m["loss_scale"]),
+                     "lr": float(m["lr"])})
+    launches = {**fa.LAUNCHES, **fce.LAUNCHES}
+    L, steps = cfg.n_layer, spec["steps"]
+    want = {"flash_fwd": L * steps, "flash_bwd": L * steps,
+            "flash_bwd_qmajor": 0, "flash_block_fwd": 0, "fused_ce": 0}
+    assert launches == want, (launches, want)
+    for name in ("flash_fwd", "flash_bwd"):
+        assert fa.DTYPE_LAUNCHES[name]["float16"] == L * steps, \
+            fa.DTYPE_LAUNCHES
+    assert_sm90("fp16 slice", fa, main_path=True)
+    flags = [r["overflow"] for r in rows]
+    assert flags[0] and not all(flags), rows
+    scaler = DynamicLossScaler(
+        init_scale=2.0 ** spec["initial_scale_power"],
+        delayed_shift=spec["hysteresis"])
+    st = scaler.init_state()
+    for r in rows:
+        assert r["loss_scale"] == float(st["scale"]), rows
+        st = scaler.update(st, r["overflow"])
+    applied = [r["loss"] for r in rows if not r["overflow"]]
+    assert all(math.isfinite(r["loss"]) for r in rows), rows
+    assert applied[-1] < rows[0]["loss"], rows
+    assert engine.skipped_steps == sum(flags)
+    step_s = float(np.median(times[1:]))
+    log(f"fp16 slice (GPT-2 350M, micro 24 x 1024, from 2^"
+        f"{spec['initial_scale_power']}, hysteresis {spec['hysteresis']}, "
+        f"WarmupDecayLR): skipped {engine.skipped_steps} of {steps} steps; "
+        f"loss scale path {[r['loss_scale'] for r in rows]}; lr path "
+        f"{[r['lr'] for r in rows]}; losses "
+        f"{[round(r['loss'], 4) for r in rows]}; step {step_s:.4f} s "
+        f"median after the first ({json.dumps(launches)})")
+    TRAIN_STATS["fp16 slice"] = dict(rows=rows, step_s=times,
+                                     step_s_median_after_first=step_s,
+                                     skipped=engine.skipped_steps)
+    del engine
+    opts = {"Lamb": {"lr": 2e-4, "weight_decay": 0.01},
+            "Lion": {"lr": 2e-5, "weight_decay": 0.01},
+            "Adagrad": {"lr": 1e-3}, "SGD": {"lr": 1e-2, "momentum": 0.9}}
+    out = {}
+    for name, params in opts.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        engine, *_ = initialize(
+            model=GPT2(base, device="cuda", seed=seed), config={
+                **{k: v for k, v in config.items() if k != "scheduler"},
+                "fp16": {"enabled": False}, "bf16": {"enabled": True},
+                "optimizer": {"type": name, "params": params}})
+        before = engine.state["master"]["wte"][:8].clone()
+        t1 = time.perf_counter()
+        loss = float(engine.train_batch(batch))
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t1
+        moved = (engine.state["master"]["wte"][:8] - before).abs().max()
+        assert math.isfinite(loss) and not engine.last_metrics["overflow"]
+        assert float(moved) > 0, name
+        out[name] = dict(loss=loss, step_s=took,
+                         grad_norm=engine.get_global_grad_norm())
+        del engine, before
+    log(f"one bf16 train_batch of GPT-2 350M (ZeRO-2) under each optimizer "
+        f"(applied, the master moved): {json.dumps(out)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ------------------------------------- MoE expert parallel (phase 39)
+
+# phase 39's runs: name -> (world, model, layers, model config changes,
+# config knobs of each variant, run in turn by the same processes), all at
+# the models' published widths. Cuts: GPT2MoE at 2 layers, Mixtral-8x7B at
+# 1 layer (its fp32 experts take 5.6 GB whole; rank 0 keeps an ep = 1
+# copy's gradients in host memory and gathers each variant's there)
+EP_RUNS = {
+    "gpt2moe-ep2": (2, "gpt2moe", 2, {}, {"": {}}),
+    "mixtral-ep2": (2, "mixtral", 1, {}, {"": {}}),
+    "mixtral-staged": (4, "mixtral", 1, {}, {
+        "": {"zero_optimization": {"stage": 1, "mics_shard_size": 1}},
+        "-dcn": {"zero_optimization": {"stage": 1, "mics_shard_size": 1},
+                 "moe": {"dcn_quantize": True}}}),
+}
+EP_TOKENS = 1024        # T; each rank's micro batch is 2 x T (GPT2MoE), 1 x T
+EP_STEPS = 2            # the first held against ep = 1, the second timed
+
+
+def ep_model(kind, n_layer, over, seed=3):
+    from deepspeed_tpu_torch import (GPT2_PRESETS, GPT2MoE, MIXTRAL_8X7B,
+                                     Mixtral)
+    if kind == "gpt2moe":
+        cfg = moe_cfg(dataclasses.replace(
+            GPT2_PRESETS["350M"], n_layer=n_layer, max_seq_len=EP_TOKENS,
+            dtype="float32", remat=False), num_experts=4, moe_top_k=2,
+            moe_backend="ragged", use_flash_attention=True)
+        return GPT2MoE(cfg, device="cuda:0", seed=seed)
+    cfg = dataclasses.replace(MIXTRAL_8X7B, n_layer=n_layer,
+                              max_seq_len=EP_TOKENS, dtype="float32",
+                              remat=False, use_flash_attention=True, **over)
+    return Mixtral(cfg, device="cuda:0", seed=seed)
+
+
+class _CommClock:
+    """Wall seconds (synchronised on both sides, so a rank's wait for the
+    others counts) and calls of the comm layer's all_to_all (the
+    exchanges, both ways) and all_reduce (the gradients, the capacity,
+    the aux statistics) while installed, in the comm module and in the
+    package that re-exports it."""
+
+    def __init__(self, *mods):
+        self.mods = mods
+        self.real = {op: getattr(mods[0], op)
+                     for op in ("all_to_all", "all_reduce")}
+        self.reset()
+
+    def reset(self):
+        """Start a new count (the last one stays with whoever read it)."""
+        self.stats = {op: [0, 0.0] for op in self.real}
+
+    def wrap(self, op):
+        def timed(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            y = self.real[op](*a, **k)
+            torch.cuda.synchronize()
+            self.stats[op][0] += 1
+            self.stats[op][1] += time.perf_counter() - t
+            return y
+        return timed
+
+    def __enter__(self):
+        for op in self.real:
+            timed = self.wrap(op)
+            for mod in self.mods:
+                setattr(mod, op, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for op, fn in self.real.items():
+            for mod in self.mods:
+                setattr(mod, op, fn)
+
+
+def child_ep(name):
+    """Phase 39 in one rank: each variant of ``EP_RUNS[name]`` at fp32
+    through initialize -> train_batch (SGD, ZeRO-1), EP_STEPS steps on
+    one batch: the first step's loss and clipped gradients, the aux loss
+    after them (GPT2MoE), each step's time and its comm layer's
+    all_to_all / all_reduce calls and seconds, the run's launches by
+    kernel and by design and the bytes staged through host memory. Rank 0
+    first runs the same model at ep = 1 (a one-rank topology, the whole
+    batch), keeps its gradients in host memory and holds each variant's
+    loss, aux and every gradient (gathered to it, _ep_grad_errs) against
+    them."""
+    from deepspeed_tpu_torch import comm, initialize
+    from deepspeed_tpu_torch.comm import comm as comm_mod
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+    from deepspeed_tpu_torch.ops.cuda import grouped_matmul as gm
+    from deepspeed_tpu_torch.ops.cuda import quantization as qz
+    from deepspeed_tpu_torch.utils import groups
+    rank, world = child_world()
+    _, kind, n_layer, model_over, variants = EP_RUNS[name]
+    rows = 2 if kind == "gpt2moe" else 1
+    base = {"train_batch_size": rows * world, "steps_per_print": 0,
+            "optimizer": {"type": "SGD", "params": {"lr": 1e-3}},
+            "gradient_clipping": 1.0, "zero_optimization": {"stage": 1}}
+    vocab = 50304 if kind == "gpt2moe" else 32000
+    batch = {"input_ids": np.random.RandomState(5).randint(
+        0, vocab, (rows * world, EP_TOKENS)).astype(np.int32)}
+    mods = (fa, gm, qz)
+
+    def run(config, topology=None, ref=None):
+        gc.collect()
+        torch.cuda.empty_cache()
+        engine, *_ = initialize(model=ep_model(kind, n_layer, model_over),
+                                device="cuda:0", topology=topology,
+                                config=config)
+        grads = []
+        clip = engine._unscale_clip
+
+        def record(g, scale):
+            got = clip(g, scale)
+            if not grads:
+                grads.append(
+                    {n: t.float().cpu() for n, t in got[0].items()}
+                    if topology is not None else
+                    _ep_grad_errs(engine, got[0], ref))
+            return got
+        engine._unscale_clip = record
+        for mod in mods:
+            mod.reset_launch_counts()
+        comm.get_comms_logger().reset()
+        times, losses, comms = [], [], []
+        with _CommClock(comm_mod, comm) as clock:
+            for _ in range(EP_STEPS):
+                clock.reset()
+                t1 = time.perf_counter()
+                losses.append(float(engine.train_batch(batch)))
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t1)
+                comms.append(clock.stats)
+        launches = {k: v for mod in mods for k, v in mod.LAUNCHES.items()}
+        by_design = {n: dict(by) for mod in (fa, gm)
+                     for n, by in mod.DESIGN_LAUNCHES.items()}
+        staged = {k: list(v) for k, v in
+                  comm.get_comms_logger().host_staged.items()}
+        aux = None
+        if kind == "gpt2moe":
+            r = engine.topology.axis_index(groups.BATCH_AXES)
+            ids = torch.from_numpy(batch["input_ids"]).cuda()
+            micro = ids.shape[0] // engine.dp
+            with torch.no_grad():
+                aux = float(engine.model.hidden_with_aux(
+                    ids[r * micro:(r + 1) * micro])[1])
+        out = dict(losses=losses, step_s=times, aux=aux, launches=launches,
+                   by_design=by_design, staged=staged, comm=comms,
+                   dp=engine.dp, ep_size=engine.topology.axis_size("expert"),
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   expert_split={n: list(a) for n, (_, a) in
+                                 engine._expert.items()})
+        del engine
+        return out, grads[0]
+
+    report = {"rank": rank, "variants": {}}
+    ref = None
+    if rank == 0:
+        one = groups.ParallelTopology(groups.TopologyConfig(), world_size=1,
+                                      rank=0)
+        report["ref"], ref = run(base, one)
+        groups.reset()
+    comm.barrier()
+    for tag, over in variants.items():
+        got, errs = run({**base, "expert_parallel_size": 2, **over}, ref=ref)
+        if rank == 0:
+            got["grad_rel_norm"] = errs
+        report["variants"][tag] = got
+    return report
+
+
+def _ep_grad_errs(engine, grads, ref):
+    """Each of a step's clipped gradient leaves made whole on rank 0 alone,
+    in host memory (ZeRO-1 keeps them whole but for the expert split; the
+    ranks' expert shards gathered there, placed by their index along the
+    split's axes) and its relative error norm against rank 0's ep = 1
+    gradients ``ref`` (host): {name: error} on rank 0, None elsewhere.
+    Collective over the world."""
+    import torch.distributed as dist
+    assert all(d is None for d, _ in engine.plan.parts["grad"].values())
+    rank, world = dist.get_rank(), dist.get_world_size()
+    idx = [None] * world
+    dist.all_gather_object(idx, {axes: engine.topology.axis_index(axes)
+                                 for _, axes in engine._expert.values()})
+    errs = {}
+    for n, g in grads.items():
+        if n in engine._expert or rank == 0:
+            g = g.float().cpu()
+        if n in engine._expert:
+            dim, axes = engine._expert[n]
+            got = [torch.empty_like(g) for _ in range(world)] \
+                if rank == 0 else None
+            dist.gather(g, got, dst=0)
+            if rank == 0:
+                first = {}
+                for r in range(world):
+                    first.setdefault(idx[r][axes], r)
+                g = torch.cat([got[first[i]] for i in range(len(first))],
+                              dim)
+            del got
+        if rank == 0:
+            errs[n] = rel_norm(g, ref[n])
+    return errs if rank == 0 else None
+
+
+# with dcn_quantize (the int8 round trip on the staged exchange's
+# data_outer legs, straight-through in the backward) against ep = 1, at
+# most: the loss's relative gap (read 4.0e-5 at Mixtral's widths) and the
+# gradients' relative error norm (read 1.46e-2)
+EP_DCN_LOSS = 2e-4
+EP_DCN_BOUND = 5e-2
+
+
+def phase_ep():
+    """Phase 39: MoE expert parallelism, processes on cuda:0 over gloo
+    (child_ep): GPT2MoE at the 350M widths (E = 4, top-2, 2 layers) and
+    Mixtral-8x7B's widths (1 layer) at ep = 2, and Mixtral's staged
+    exchange at data_outer 2 x expert 2 (4 processes, experts over the
+    (data_outer, expert) grid, Mixtral's widths, 1 layer), with
+    dcn_quantize off and on; fp32. Each run's first step against the same
+    model at ep = 1 on rank 0: the loss (1e-5 relative; EP_DCN_LOSS with
+    dcn_quantize), the aux loss (GPT2MoE), every gradient (relative error
+    norm 1e-4; EP_DCN_BOUND with dcn_quantize); each rank's K8 launches
+    equal the ep = 1 run's (the same dispatches), K12 quantize /
+    dequantize 2 a layer and forward with dcn_quantize (0 otherwise); the
+    host bytes each rank's exchanges stage, each step's time and its
+    all_to_all / all_reduce calls and seconds logged.
+    Returns the launches of each run summed over its ranks, by path
+    (their K1 / K2 / K8 launches by design counted for the kernels
+    line)."""
+    paths = {}
+    for name, (world, kind, n_layer, model_over, variants) in \
+            EP_RUNS.items():
+        reps = run_children(f"ep:{name}", world=world)
+        ref = reps[0]["ref"]
+        for tag, over in variants.items():
+            dcn = bool(over.get("moe", {}).get("dcn_quantize"))
+            tol = EP_DCN_LOSS if dcn else 1e-5
+            got = [r["variants"][tag] for r in reps]
+            for ep in got:
+                assert ep["ep_size"] == 2 and ep["dp"] == world, ep
+                assert abs(ep["losses"][0] - ref["losses"][0]) <= \
+                    tol * abs(ref["losses"][0]), (name, tag, ep["losses"],
+                                                  ref["losses"])
+                if kind == "gpt2moe":
+                    assert abs(ep["aux"] - ref["aux"]) <= \
+                        1e-5 * abs(ref["aux"]), (name, ep["aux"], ref["aux"])
+                for k8 in ("grouped_swiglu_up", "grouped_gmm",
+                           "grouped_tgmm"):
+                    assert ep["launches"][k8] == ref["launches"][k8], \
+                        (name, tag, k8, ep["launches"], ref["launches"])
+                clamps = 2 * n_layer * EP_STEPS if dcn else 0
+                assert ep["launches"]["quantize_blockwise"] == clamps and \
+                    ep["launches"]["dequantize_blockwise"] == clamps, \
+                    (name, tag, ep["launches"])
+            rels = got[0]["grad_rel_norm"]
+            worst = max(rels.values())
+            assert worst <= (EP_DCN_BOUND if dcn else 1e-4), \
+                (name, tag, sorted(rels.items(), key=lambda t: -t[1])[:3])
+            staged = [ep["staged"].get("all_to_all", [0, 0]) for ep in got]
+            step, comm = got[0]["step_s"], got[0]["comm"]
+            log(f"{name}{tag} (world {world}, {kind}, {n_layer} layer(s)"
+                f"{', ' + json.dumps(model_over) if model_over else ''}, "
+                f"fp32, experts split {got[0]['expert_split']}): loss "
+                f"{got[0]['losses'][0]:.6f} vs ep = 1 {ref['losses'][0]:.6f}"
+                + (f", aux {got[0]['aux']:.6f} vs {ref['aux']:.6f}"
+                   if kind == "gpt2moe" else "")
+                + f", worst gradient relative error norm {worst:.3g}; "
+                f"launches a rank in {EP_STEPS} steps "
+                f"{json.dumps(got[0]['launches'])} (ep = 1: "
+                f"{json.dumps(ref['launches'])}); all_to_all staged through "
+                f"host memory a rank in {EP_STEPS} steps [calls, bytes] "
+                f"{staged}; steps {[round(t, 3) for t in step]} s, rank 0's "
+                f"comm layer in each [calls, s] {json.dumps(comm)}; ep = 1 "
+                f"steps {[round(t, 3) for t in ref['step_s']]} s; peak "
+                f"allocated a rank {[round(ep['peak_gb'], 2) for ep in got]}"
+                f" GB")
+            paths[f"ep-{name}{tag}"] = {
+                k: sum(ep["launches"][k] for ep in got)
+                for k in got[0]["launches"]}
+            for ep in got:
+                for k, by in ep["by_design"].items():
+                    count_designs(k, by)
+    return paths
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default="",
                     help="write a torch.profiler breakdown of the slice here")
-    ap.add_argument("--child", choices=("parity", "train", "zero-parity",
-                                        "zero-train"),
-                    help=argparse.SUPPRESS)      # phases 28-29, 31-32
+    ap.add_argument("--child", choices=(
+        "parity", "train", "zero-parity", "zero-train",
+        *(f"ep:{name}" for name in EP_RUNS)),
+        help=argparse.SUPPRESS)      # phases 28-29, 31-32, 39
     ap.add_argument("--child-out", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -6951,9 +7598,12 @@ def main(argv=None):
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     if args.child:
-        report = {"parity": child_parity, "train": child_train,
-                  "zero-parity": child_zero_parity,
-                  "zero-train": child_zero_train}[args.child]()
+        if args.child.startswith("ep:"):
+            report = child_ep(args.child[3:])
+        else:
+            report = {"parity": child_parity, "train": child_train,
+                      "zero-parity": child_zero_parity,
+                      "zero-train": child_zero_train}[args.child]()
         with open(args.child_out, "w") as f:
             json.dump(report, f)
         torch.distributed.barrier()
@@ -6981,6 +7631,7 @@ def main(argv=None):
     from deepspeed_tpu_torch.op_builder import (BlockSparseAttentionBuilder,
                                                 CkptWriterBuilder,
                                                 FlashAttentionBuilder,
+                                                FlashAttentionF16Builder,
                                                 FusedCEBuilder,
                                                 GroupedMatmulBuilder,
                                                 LayerNormBuilder,
@@ -6988,7 +7639,8 @@ def main(argv=None):
                                                 PagedAttentionBuilder,
                                                 QuantizationBuilder)
     builders = [PagedAttentionBuilder(), FlashAttentionBuilder(),
-                FusedCEBuilder(), GroupedMatmulBuilder(), MlpMatmulBuilder(),
+                FlashAttentionF16Builder(), FusedCEBuilder(),
+                GroupedMatmulBuilder(), MlpMatmulBuilder(),
                 LayerNormBuilder(), BlockSparseAttentionBuilder(),
                 QuantizationBuilder(), CkptWriterBuilder()]
     t0 = time.perf_counter()
@@ -7002,6 +7654,7 @@ def main(argv=None):
                 f"spilled")
     for mod in (pa, fa, fce, gm, mm, ln, bsa, qz):
         mod.kernel_builder()           # bind the built libraries
+    fa.kernel_builder(torch.float16)
     sass = phase_sass(builders)
     log(f"phase 0b (SASS of the sm90 kernels) ok: {len(sass)} instances "
         f"hold HGMMA and UTMALDG")
@@ -7082,7 +7735,8 @@ def main(argv=None):
     phase_done("28 (two processes on cuda:0: seq = 2 parity, quantized "
                "collectives)")
     paths["gpt2-seq-train"] = phase_seq_slice()
-    phase_done("29 (GPT-2 350M widths, 12 layers, at T=4096, seq = 2)")
+    phase_done(f"29 (GPT-2 350M widths, {PHASE29['layers']} layers, at "
+               f"T=4096, seq = 2)")
     rows.update(phase_rmsnorm_kernel(ln))
     paths["rmsnorm-op"] = phase_rmsnorm_op(ln)
     phase_done("30 (K13 RMSNorm)")
@@ -7111,6 +7765,15 @@ def main(argv=None):
         "mixtral", profile=profile_path("mixtral-train"))
     phase_done("36 (K1 / K2 at d = 128, Llama / Mixtral training parity, "
                "Llama-2-7B and Mixtral-8x7B training)")
+    for name, figures in phase_fp16_kernels(fa).items():
+        rows[name]["fp16"] = figures
+    phase_done("37 (K1 / K2 on fp16 operands)")
+    paths["gpt2-fp16-train"] = phase_fp16_slice()
+    phase_done("38 (GPT-2 350M in fp16 with WarmupDecayLR; LAMB, Lion, "
+               "Adagrad, SGD)")
+    paths.update(phase_ep())
+    phase_done("39 (MoE expert parallel: GPT2MoE and Mixtral at ep = 2, "
+               "the staged exchange at data_outer 2 x expert 2)")
 
     kernels = []
     for name, r in rows.items():
@@ -7134,7 +7797,8 @@ def main(argv=None):
                       "bf16_matmul_ms", "delta_ms", "split_ms",
                       "mma_sync_split_ms",
                       "host_ms", "mma_sync_host_ms", "simt_ms",
-                      "first_chunk", "long_walk", "verify", "d128"):
+                      "first_chunk", "long_walk", "verify", "d128",
+                      "fp16"):
             if extra in r:
                 row[extra] = r[extra]
         if name in PATH_DESIGNS:

@@ -37,10 +37,13 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     ``WORLD_SIZE`` or when already joined). ``topology`` is a
     ``utils.groups.ParallelTopology``; by default it is built from the
     config as the JAX ``initialize`` builds its mesh: ``seq`` from
-    ``sequence_parallel_size``, data parallelism over the rest of
-    ``WORLD_SIZE`` (dp = WORLD_SIZE / sequence_parallel_size), split by
+    ``sequence_parallel_size``, ``expert`` from ``expert_parallel_size``,
+    data parallelism over the rest of ``WORLD_SIZE``, split by
     ``mics_shard_size`` / ``hpz_partition_size``; the batch triad
-    resolves against that dp. ZeRO stages 0-3 partition over the
+    resolves against the data-parallel count (WORLD_SIZE /
+    sequence_parallel_size: the expert ranks split the batch too).
+    ``lr_scheduler`` (or the config's ``scheduler`` block) sets each
+    step's lr. ZeRO stages 0-3 partition over the
     data-parallel ranks (``runtime/engine.py``). ``seed`` makes the
     engine's RNG words, ``jax.random.key(seed + 1)``'s as the JAX engine
     keeps them (checkpointed as ``rng_data``)."""

@@ -1,4 +1,5 @@
 from .comm import (all_reduce, reduce_scatter, all_gather, all_to_all,
+                   exchange,
                    broadcast, ppermute, ppermute_start, send_forward,
                    send_backward, axis_index, init_distributed,
                    is_initialized, get_rank, get_world_size,

@@ -147,6 +147,36 @@ def all_to_all(tensor, axis_name, split_dimension, concat_dimension):
     return torch.cat(out.to(tensor.device).unbind(0), dim=concat_dimension)
 
 
+class _Exchange(torch.autograd.Function):
+    """The untiled all_to_all with the same exchange of the cotangent as
+    its backward: the exchange is its own inverse."""
+
+    @staticmethod
+    def forward(ctx, x, axis_name, dim):
+        ctx.args = (axis_name, dim)
+        return all_to_all(x, axis_name, dim, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis_name, dim = ctx.args
+        return all_to_all(g.contiguous(), axis_name, dim, dim), None, None
+
+
+def exchange(tensor, axis_name, dim):
+    """``lax.all_to_all(x, axis, dim, dim, tiled=False)``: ``dim`` has one
+    index a rank of the axis; index j goes to rank j, and index i of the
+    result is what rank i sent to this one. Differentiable (the backward
+    is the same exchange of the cotangent); integer tensors (the MoE
+    expert ids) cross as they are."""
+    size = groups.get_topology().axis_size(axis_name)
+    if tensor.shape[dim] != size:
+        raise ValueError(f"exchange: dim {dim} has {tensor.shape[dim]} "
+                         f"entries, the axis {axis_name} {size} ranks")
+    if tensor.requires_grad:
+        return _Exchange.apply(tensor, axis_name, dim)
+    return all_to_all(tensor, axis_name, dim, dim)
+
+
 @_traced_op
 def broadcast(tensor, axis_name, src=0):
     """Every member of the axis gets the value of the member at axis index

@@ -9,22 +9,23 @@
 #pragma once
 
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "elem16.cuh"
 
 #define NEG_INF (-1e30f)
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
+typedef elem16 bf16;  // bf16, or fp16 under DS_ELEM_F16 (elem16.cuh)
 
 template <typename T> __device__ __forceinline__ float to_f(T x);
 template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f<bf16>(bf16 x) { return __bfloat162float(x); }
+template <> __device__ __forceinline__ float to_f<bf16>(bf16 x) { return elem16_to_f(x); }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) { return __float2bfloat16(x); }
+template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) { return f_to_elem16(x); }
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -43,13 +44,13 @@ __device__ __forceinline__ uint32_t ld32(const bf16* p) {
 }
 
 __device__ __forceinline__ uint32_t pack2(bf16 lo, bf16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+  return elem16_bits(lo) | (elem16_bits(hi) << 16);
 }
 
 __device__ __forceinline__ void mma16816(float* c, uint32_t a0, uint32_t a1, uint32_t a2,
                                          uint32_t a3, uint32_t b0, uint32_t b1) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "mma.sync.aligned.m16n8k16.row.col.f32." DS_MMA_T "." DS_MMA_T ".f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));

@@ -10,7 +10,13 @@
 // strides (b, h, t) with the head dim contiguous, so the model's (B, T, H, D)
 // projections and the heads-major (B, H, T, D) API both reach the kernels
 // without a copy. lse and delta are (B, H, T) fp32, contiguous.
-// Element type: float or __nv_bfloat16 (template T). The softmax scale is
+// Element type: float or __nv_bfloat16 (template T), or, in the library built
+// with -DDS_ELEM_F16 (FlashAttentionF16Builder), float or __half: the type
+// the code calls bf16 is then fp16 and every product takes its .f16 form
+// (elem16.cuh), so K1 / K2 on fp16 operands run these same designs. fp16
+// rounds p and ds to nearest even and overflows to inf (a large loss scale
+// gives inf in ds and the gradients, as the JAX kernel's astype does). The
+// softmax scale is
 // folded into q by the wrapper (flash_attention.py:1570-1580), so the kernels
 // run with scale 1.
 //
@@ -1832,8 +1838,8 @@ __global__ void __launch_bounds__(384, 1)
           for (int e = 0; e < 4; ++e) {
             const int key = sm90::frag_col(tid, n, e), qq = sm90::frag_row(tid, e);
             const int off = cw * PT_HALF + key * 128 + ((((qq >> 3) ^ (key & 7)) << 4) | ((qq & 7) * 2));
-            *reinterpret_cast<bf16*>(pt + off) = __float2bfloat16(s[4 * n + e]);
-            *reinterpret_cast<bf16*>(dst + off) = __float2bfloat16(dp[4 * n + e]);
+            *reinterpret_cast<bf16*>(pt + off) = from_f<bf16>(s[4 * n + e]);
+            *reinterpret_cast<bf16*>(dst + off) = from_f<bf16>(dp[4 * n + e]);
           }
         }
         sm90::fence_proxy_async();
@@ -1886,8 +1892,7 @@ __global__ void __launch_bounds__(384, 1)
               if (!last)
                 *reinterpret_cast<float2*>(sc + (long long)row * D + col) = make_float2(x, y);
               else if (row < T)
-                *reinterpret_cast<__nv_bfloat162*>(out + row * out_t + col) =
-                    __floats2bfloat162_rn(x, y);
+                *reinterpret_cast<uint32_t*>(out + row * out_t + col) = sm90::pack_bf16(x, y);
             }
           }
         }
@@ -2132,7 +2137,8 @@ bool bad_args(const FlashArgs* a) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16 (fp16 in the DS_ELEM_F16 build, as every
+// "bf16" below). Returns a cudaError_t (0 = launched).
 extern "C" int flash_fwd_launch(const FlashArgs* a, int dtype, void* stream) {
   if (bad_args(a)) return cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;

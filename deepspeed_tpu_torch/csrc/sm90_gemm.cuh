@@ -61,13 +61,14 @@
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is reached through cudart
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "elem16.cuh"
+
 namespace sm90 {
 
-typedef __nv_bfloat16 bf16;
+typedef elem16 bf16;  // bf16, or fp16 under DS_ELEM_F16 (elem16.cuh)
 
 constexpr int BM = 128;  // output rows of a tile (two consumer warpgroups of 64)
 constexpr int BN = 256;  // output columns of a tile (wgmma n = 256)
@@ -219,7 +220,7 @@ template <int TA, int TB>
 __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[BN / 2], uint64_t da, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32." DS_MMA_T "." DS_MMA_T " {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
@@ -282,12 +283,12 @@ __device__ __forceinline__ void store_tile(const float (&acc)[BN / 2], bf16* sta
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int r = frag_row(tid, 2 * h), c = frag_col(tid, b, 0);
-        const bf16 v0 = __float2bfloat16(acc[k + 2 * h]), v1 = __float2bfloat16(acc[k + 2 * h + 1]);
+        const bf16 v0 = f_to_elem16(acc[k + 2 * h]), v1 = f_to_elem16(acc[k + 2 * h + 1]);
         if (TRANS) {
           stage[c * EPI_PITCH + r] = v0;
           stage[(c + 1) * EPI_PITCH + r] = v1;
         } else {
-          *reinterpret_cast<__nv_bfloat162*>(stage + r * EPI_PITCH + c) = __halves2bfloat162(v0, v1);
+          *reinterpret_cast<uint32_t*>(stage + r * EPI_PITCH + c) = elem16_bits(v0) | (elem16_bits(v1) << 16);
         }
       }
     }
@@ -528,7 +529,7 @@ inline cudaError_t make_operand_map(CUtensorMap* map, const void* base, long lon
   }
   const cuuint32_t box[4] = {64, (cuuint32_t)box_outer, 1, 1}, unit[4] = {1, 1, 1, 1};
   *rank = r;
-  const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, r, const_cast<void*>(base), dims,
+  const CUresult res = fn(map, DS_TMA_ELEM, r, const_cast<void*>(base), dims,
                           strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                           CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

@@ -59,7 +59,7 @@ from .speculative import (SPEC_EMA_ALPHA, SPEC_MIN_ROUNDS, longest_accept,
 # the ROADMAP Queue 1 serving item that brings them)
 _NOT_YET = {
     "tensor_parallel": ((1,), "tensor parallel"),
-    "expert_parallel": ((1,), "MoE expert parallel (M10)"),
+    "expert_parallel": ((1,), "expert parallel"),
     "paged_block_c": (("auto",), "autotune winner cache"),
     "autotune_mode": (("",), "autotune winner cache"),
     "autotune_cache": (("",), "autotune winner cache"),

@@ -231,7 +231,7 @@ class GPT2(nn.Module):
             "bdown": const((L, D), 0.0),
         })
 
-    def partition_specs(self):
+    def partition_specs(self, topology=None):
         """The JAX model's tensor-parallel specs (gpt2.py:251-275) by
         parameter name: "tensor" on the column-parallel out dims (wqkv,
         wup and their biases) and the row-parallel in dims (wo, wdown).

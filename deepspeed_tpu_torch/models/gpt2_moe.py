@@ -10,7 +10,10 @@ the JAX one: ``blocks`` loses ``wup/bup/wdown/bdown`` and gains
 (state-dict names ``blocks.moe.<name>``). ``loss`` adds
 ``moe_loss_coeff`` times the load-balance aux loss summed over layers;
 under an engine at dp > 1 (``model._moe_dp_axes``, which the engine
-installs) each layer's aux loss is the global batch's, as in JAX. The
+installs) each layer's aux loss is the global batch's, as in JAX; at
+``expert_parallel_size`` > 1 the engine keeps this rank's experts of
+``blocks.moe.{wi,bi,wo,bo}`` and the layers exchange their routed rows
+(``model._moe_ep``, ``moe_layer_ragged_ep``). The
 port carries the dropless ``moe_backend="ragged"``; the GShard capacity
 backend ("dense", the config's default) raises. The experts' activation
 is always gelu (tanh form): as in the JAX model, ``GPT2Config.activation``
@@ -93,5 +96,15 @@ class GPT2MoE(GPT2):
                     and moe_cfg.grouped_kernel != "auto" else None)
         y, aux, _ = self.moe.apply(
             dict(zip(_MOE_KEYS, moe)), h, grouped_kernel=override,
-            dp_axes=getattr(self, "_moe_dp_axes", None))
+            dp_axes=getattr(self, "_moe_dp_axes", None),
+            expert_parallel_size=getattr(self, "_moe_ep", 1))
         return y, aux
+
+    def partition_specs(self, topology=None):
+        """GPT-2's specs with the dense MLP's replaced by the MoE layer's
+        (JAX gpt2_moe.py:77-84): the experts over "expert"."""
+        specs = {n: s for n, s in super().partition_specs(topology).items()
+                 if n.split(".")[-1] not in ("wup", "bup", "wdown", "bdown")}
+        specs.update({f"blocks.moe.{k}": v for k, v in
+                      self.moe.partition_specs(stacked=True).items()})
+        return specs

@@ -480,14 +480,14 @@ class Llama(nn.Module):
             (None, None)
         blocks = {"rms1": vec, "wq": col, "wk": col, "wv": col, "wo": row,
                   "rms2": vec}
-        blocks.update(self._mlp_specs())
+        blocks.update(self._mlp_specs(topology))
         specs = {"wte": (), "norm_f": ()}
         if not self.config.tie_embeddings:
             specs["lm_head"] = ()
         specs.update({f"blocks.{k}": v for k, v in blocks.items()})
         return specs
 
-    def _mlp_specs(self):
+    def _mlp_specs(self, topology=None):
         col, row = (None, None, "tensor"), (None, "tensor", None)
         out = {"wup": col, "wdown": row}
         if self.config.mlp_gated:

@@ -25,7 +25,10 @@ renormalised weights, the experts' through ``grouped_swiglu``'s backward
 the JAX ``MoEConfig.grouped_kernel`` does; "auto" means the kernels (the
 port has no winner cache). False is the ragged-math parity path. An
 engine's ``moe`` block (``model._moe_cfg``) with a non-"auto"
-``grouped_kernel`` overrides it, as for GPT2MoE.
+``grouped_kernel`` overrides it, as for GPT2MoE. Under an engine at
+``expert_parallel_size`` > 1 (``model._moe_ep``) the experts are this
+rank's and ``_mlp`` runs ``moe_swiglu_ragged_ep`` with the block's
+``hierarchical_a2a`` and ``dcn_quantize`` knobs.
 
 Under weight quantization the experts stay quantized into K9
 (``grouped_swiglu_wq``) on the fused path (``_WQ_KEEP``), the router
@@ -37,8 +40,10 @@ from dataclasses import dataclass
 
 import torch
 
-from ..moe.sharded_moe import (_grouped_swiglu_ffn, resolve_grouped_params,
-                               route_top_k, sort_by_expert)
+from ..moe.sharded_moe import (_grouped_swiglu_ffn, moe_swiglu_ragged_ep,
+                               resolve_grouped_params,
+                               resolve_hierarchical_a2a, route_top_k,
+                               sort_by_expert)
 from .llama import Llama, LlamaConfig, _rms_norm
 
 
@@ -92,19 +97,30 @@ class Mixtral(Llama):
             "moe_w2": nrm((L, E, Fd, D), res_std, key="moe_w2"),
         }
 
-    def _mlp_specs(self):
+    def _mlp_specs(self, topology=None):
         """The experts over "expert", their FFN dim over "tensor"; the
-        router whole (JAX mixtral.py:101-121 without a data_outer axis)."""
+        router whole (JAX mixtral.py:97-121). With a ``topology`` whose
+        exchange stages (``resolve_hierarchical_a2a`` on the engine's
+        ``moe`` knob) the experts span the ``("data_outer", "expert")``
+        grid."""
+        eaxis = "expert"
+        if topology is not None and resolve_hierarchical_a2a(
+                self._moe_knob("hierarchical_a2a", "auto"),
+                topology.axis_size("data_outer"), self.config.num_experts,
+                topology.axis_size("expert")):
+            eaxis = ("data_outer", "expert")
         return {"moe_gate": (None, None, None),
-                "moe_w1": (None, "expert", None, "tensor"),
-                "moe_w3": (None, "expert", None, "tensor"),
-                "moe_w2": (None, "expert", "tensor", None)}
+                "moe_w1": (None, eaxis, None, "tensor"),
+                "moe_w3": (None, eaxis, None, "tensor"),
+                "moe_w2": (None, eaxis, "tensor", None)}
+
+    def _moe_knob(self, name, default):
+        moe_cfg = getattr(self, "_moe_cfg", None)
+        return default if moe_cfg is None else getattr(moe_cfg, name)
 
     def _grouped_knob(self):
-        moe_cfg = getattr(self, "_moe_cfg", None)
-        if moe_cfg is not None and moe_cfg.grouped_kernel != "auto":
-            return moe_cfg.grouped_kernel
-        return self.grouped_kernel
+        knob = self._moe_knob("grouped_kernel", "auto")
+        return self.grouped_kernel if knob == "auto" else knob
 
     def _mlp(self, x, i):
         """Dropless top-k SwiGLU MoE over the flattened tokens
@@ -112,6 +128,14 @@ class Mixtral(Llama):
         cfg = self.config
         D, E, k = x.shape[-1], cfg.num_experts, cfg.moe_top_k
         h = _rms_norm(x, self._w("rms2", i), cfg.rms_eps)
+        if getattr(self, "_moe_ep", 1) > 1:     # JAX mixtral.py:137-144
+            y = moe_swiglu_ragged_ep(
+                h, self._w("moe_gate", i), self._w("moe_w1", i),
+                self._w("moe_w3", i), self._w("moe_w2", i), k=k,
+                hierarchical=self._moe_knob("hierarchical_a2a", "auto"),
+                dcn_quantize=self._moe_knob("dcn_quantize", False),
+                grouped_kernel=self._grouped_knob())
+            return y.to(x.dtype)
         xs = h.reshape(-1, D)
         S = xs.shape[0]
         weights, experts = route_top_k(xs, self._w("moe_gate", i), k)

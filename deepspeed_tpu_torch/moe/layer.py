@@ -2,7 +2,9 @@
 
 Counterpart of ``deepspeed_tpu/moe/layer.py`` (``MoE``): the constructor's
 checks, ``init(stack=L, out_std=...)`` with the JAX parameter names and
-shapes, and ``apply`` for the dropless ``backend="ragged"``. Functional, as
+shapes, ``partition_specs`` and ``apply`` for the dropless
+``backend="ragged"`` (expert parallel through ``moe_layer_ragged_ep``
+when the engine runs an ``expert`` axis). Functional, as
 there: ``init`` returns a dict of tensors and ``apply(params, x)`` returns
 ``(y, l_aux, exp_counts)``; the model that holds the parameters registers
 them (``models/gpt2_moe.py``).
@@ -82,15 +84,32 @@ class MoE:
                               device=device),
         }
 
-    def apply(self, params, x, *, grouped_kernel=None, dp_axes=None):
+    def partition_specs(self, stacked=False):
+        """Experts over "expert" (EP), their FFN dim over "tensor" (TP),
+        the router whole (JAX moe/layer.py ``partition_specs``)."""
+        lead = (None,) if stacked else ()
+        return {
+            "gate_w": lead + (None, None),
+            "wi": lead + ("expert", None, "tensor"),
+            "bi": lead + ("expert", "tensor"),
+            "wo": lead + ("expert", "tensor", None),
+            "bo": lead + ("expert", None),
+        }
+
+    def apply(self, params, x, *, grouped_kernel=None, dp_axes=None,
+              expert_parallel_size=1):
         """``grouped_kernel`` overrides the construction-time knob for this
         dispatch (None keeps it): how an engine ``moe`` block reaches a
         layer built before the engine. ``dp_axes``: the data-parallel axes
-        the aux loss sums its routing statistics over (``topk_routing``)."""
+        the aux loss sums its routing statistics over (``topk_routing``).
+        ``expert_parallel_size`` > 1: ``params`` hold this rank's experts
+        and the layer exchanges its routed rows over ``expert``
+        (``moe_layer_ragged_ep``, JAX moe/layer.py:96-112)."""
         knob = self.grouped_kernel if grouped_kernel is None \
             else grouped_kernel
         return moe_layer_ragged_ep(
             x, params["gate_w"], params["wi"], params["bi"], params["wo"],
             params["bo"], k=self.k, activation=self.activation,
+            expert_parallel_size=expert_parallel_size,
             grouped_kernel=knob, dp_axes=dp_axes)
 

@@ -3,10 +3,11 @@
 
 Counterpart of the dropless part of ``deepspeed_tpu/moe/sharded_moe.py``
 (``resolve_grouped_params``, ``_grouped_dot``, ``_grouped_swiglu_ffn``,
-``topk_routing``, ``moe_layer_ragged``, ``moe_layer_ragged_ep`` at one
-expert shard). Two backends, as there: ``"kernel"`` = the Hopper
-grouped-GEMM kernels (ops/cuda/grouped_matmul.py, differentiable through
-their own backward kernels) and ``"ragged"`` = the ``lax.ragged_dot`` math
+``topk_routing``, ``moe_layer_ragged``, ``resolve_hierarchical_a2a``,
+``moe_layer_ragged_ep``, ``moe_swiglu_ragged_ep``). Two backends, as
+there: ``"kernel"`` = the Hopper grouped-GEMM kernels
+(ops/cuda/grouped_matmul.py, differentiable through their own backward
+kernels) and ``"ragged"`` = the ``lax.ragged_dot`` math
 in plain PyTorch (g and u rounded to the activation dtype before silu *
 mul), the explicit parity path. The port has no autotune winner cache, so
 ``"auto"`` resolves to the kernels (as ``paged_kernel="auto"`` does).
@@ -14,22 +15,39 @@ Group sizes come from a fixed-size scatter_add, so no forward syncs the
 host. Under data parallelism the aux loss is taken over the global batch,
 as the JAX loss over a batch sharded on the data axes takes it
 (``topk_routing``'s ``dp_axes``). The GShard capacity gating
-(``top1gating``/``top2gating``, ``moe_layer``) and the expert-parallel
-all_to_all are not ported yet.
+(``top1gating``/``top2gating``, ``moe_layer``) is not ported yet.
+
+Expert parallelism (``*_ragged_ep``): each rank holds ``E / ep`` experts
+and routes its own tokens over all ``E``. Where the JAX ``shard_map``
+splits one global token dim over the shards, each rank here sees only
+its local tokens; routing is per token, so a token's result does not
+depend on the rank that carries it. The routed rows pack by destination
+shard into a ``(ep[, wo], cap, M)`` transport (``cap`` = k times the most
+tokens any rank of the exchange holds, agreed by one collective); empty
+slots carry expert id ``E_loc``, sort last, stay outside every group and
+are masked. The exchange is ``comm.exchange`` (the untiled all_to_all,
+differentiable), the grouped FFN runs on the received rows sorted by
+local expert (K8 on the card), the outputs go back the same way, unsort
+and combine. The staged exchange (``hierarchical``) goes over ``expert``
+then ``data_outer``, experts over the ``(data_outer, expert)`` grid, with
+``dcn_quantize`` the K12 int8 round trip on the token payload of the
+``data_outer`` legs only, straight-through in the backward (the JAX
+clamp defines no gradient of its own).
 """
 
 import torch
 import torch.nn.functional as F
 
 from ..comm import comm
+from ..comm.quantized import dcn_precision_clamp
 from ..ops.cuda.grouped_matmul import (grouped_matmul,
                                        grouped_matmul_reference,
                                        grouped_swiglu, grouped_swiglu_wq,
                                        grouped_tgmm)
 from ..ops.int8_weights import is_quantized
+from ..utils import groups
 
 _TODO_INT8 = "int8 expert compute (M11, ROADMAP Queue 1)"
-_TODO_EP = "MoE expert parallel (ROADMAP Queue 1, M10)"
 
 
 def gelu(x):
@@ -201,16 +219,219 @@ def moe_layer_ragged(tokens, gate_w, wi, bi, wo, bo, k=1, *,
     return y.to(tokens.dtype).reshape(orig_shape), l_aux, group_sizes
 
 
+def resolve_hierarchical_a2a(knob, outer_size, E, ep):
+    """Whether the expert-parallel exchange stages ``expert`` ->
+    ``data_outer``: "auto" iff ``data_outer`` > 1 and the experts divide
+    the ``(data_outer, expert)`` grid (the JAX cold-cache default; the port
+    has no winner cache); True requires the division (a loud error
+    instead of a silent flat exchange); False never stages."""
+    if knob is False or knob is None or outer_size <= 1:
+        return False
+    if E % (ep * outer_size) != 0:
+        if knob is True:
+            raise ValueError(
+                f"hierarchical EP needs experts ({E}) divisible by "
+                f"expert*outer shards ({ep}*{outer_size})")
+        return False
+    if knob not in (True, "auto"):
+        raise ValueError(f"hierarchical must be true|false|'auto', got "
+                         f"{knob!r}")
+    return True
+
+
+def resolve_dcn_quantize(knob):
+    """``dcn_quantize``: True | False | "auto" (= False, the JAX choice on
+    a cold winner cache: quantization changes numerics)."""
+    if knob not in (True, False, "auto"):
+        raise ValueError(f"dcn_quantize must be true|false|'auto', got "
+                         f"{knob!r}")
+    return knob is True
+
+
+class _DcnClamp(torch.autograd.Function):
+    """The int8 block round trip of a DCN leg's token payload (K12 on the
+    card), straight-through in the backward. The JAX clamp defines no
+    gradient, so ``jax.grad`` differentiates the round trip's arithmetic
+    and passes a gradient only through each block's absmax: this backward
+    departs from it on purpose, passing the gradient an exact exchange
+    would (ROADMAP.md, open divergences)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return dcn_precision_clamp(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def _expert_axes(hier):
+    return ("data_outer", "expert") if hier else ("expert",)
+
+
+def _ep_exchange(x, flat_exp, k, E_loc, hier, dcn_quantize, ffn):
+    """Route the ``S * k`` rows of ``x`` (S, M) (routed row ``s * k + j``
+    is token s, its expert ``flat_exp[s * k + j]`` of all ``E``) to the
+    ranks that hold their experts, run ``ffn(xs, es, group_sizes)`` there
+    on the received rows sorted by local expert (ids ``es``; rows past
+    ``sum(group_sizes)`` carry ``E_loc``) and bring its rows back: returns
+    the (S * k, M) outputs in routed-row order and this rank's local
+    group sizes (E_loc,) int32."""
+    topo = groups.get_topology()
+    ep = topo.axis_size("expert")
+    wo = topo.axis_size("data_outer") if hier else 1
+    S, M = x.shape
+    # the transport's rows: every rank of the exchange agrees on them
+    s_cap = comm.all_reduce(torch.tensor([S], dtype=torch.float32,
+                                         device=x.device),
+                            _expert_axes(hier), op="max")
+    cap = int(s_cap.item()) * k
+    dest = torch.div(flat_exp, E_loc, rounding_mode="floor")
+    local_e = flat_exp - dest * E_loc
+    order = torch.sort(dest, stable=True).indices
+    dest_s = dest[order]
+    pos = torch.arange(S * k, device=x.device) - torch.searchsorted(
+        dest_s, dest_s, side="left")
+    if hier:      # buckets keyed (inner rank, outer slice)
+        slot = ((dest_s % ep) * wo + torch.div(
+            dest_s, ep, rounding_mode="floor")) * cap + pos
+        shape = (ep, wo, cap)
+    else:
+        slot = dest_s * cap + pos
+        shape = (ep, cap)
+    rows = x.index_select(0, torch.div(order, k, rounding_mode="floor"))
+    send_x = x.new_zeros(ep * wo * cap, M).index_copy(0, slot, rows)
+    send_e = torch.full((ep * wo * cap,), E_loc, dtype=torch.int32,
+                        device=x.device).index_copy(
+        0, slot, local_e[order].to(torch.int32))
+    recv_x = comm.exchange(send_x.view(*shape, M), "expert", 0)
+    recv_e = comm.exchange(send_e.view(shape), "expert", 0)
+    if hier:
+        if dcn_quantize:
+            recv_x = _DcnClamp.apply(recv_x)
+        recv_x = comm.exchange(recv_x, "data_outer", 1)
+        recv_e = comm.exchange(recv_e, "data_outer", 1)
+    rx = recv_x.reshape(-1, M)
+    re = recv_e.reshape(-1).long()
+    g_order = torch.sort(re, stable=True).indices
+    xs = rx.index_select(0, g_order)
+    es = re[g_order]
+    sizes = torch.zeros(E_loc + 1, dtype=torch.int32, device=x.device)
+    sizes.scatter_add_(0, re, torch.ones_like(re, dtype=torch.int32))
+    group_sizes = sizes[:E_loc]
+    out = ffn(xs, es, group_sizes)
+    out = torch.where((es < E_loc)[:, None], out, torch.zeros_like(out))
+    back = torch.zeros_like(out).index_copy(0, g_order, out).view(
+        *shape, M)
+    if hier:
+        if dcn_quantize:
+            back = _DcnClamp.apply(back)
+        back = comm.exchange(back, "data_outer", 1)
+    ret = comm.exchange(back, "expert", 0).reshape(-1, M)
+    ret = ret.index_select(0, slot)
+    unsorted = torch.zeros_like(ret).index_copy(0, order, ret)
+    return unsorted, group_sizes
+
+
+def moe_swiglu_ragged_ep(tokens, gate_w, w1, w3, w2, k=2, *,
+                         hierarchical="auto", dcn_quantize=False,
+                         grouped_kernel="auto", return_counts=False):
+    """Expert-parallel dropless SwiGLU MoE (Mixtral's experts; the JAX
+    ``moe_swiglu_ragged_ep``): softmax, top-k, renormalised weights; the
+    routed rows exchanged (``_ep_exchange``) to the rank of their expert,
+    ``gmm(silu(gmm(xs, w1)) * gmm(xs, w3), w2)`` over the local experts
+    (K8's ``grouped_swiglu`` / ``grouped_gmm`` on the card), exchanged
+    back and combined. tokens (..., M) this rank's; w1 / w3 (E_loc, M, F),
+    w2 (E_loc, F, M) this rank's experts, ``E_loc = E / (ep * wo)`` with
+    ``wo`` the ``data_outer`` size when the exchange stages
+    (``resolve_hierarchical_a2a``), else 1. Returns y like tokens (and the
+    global per-expert counts (E,) int32 with ``return_counts``)."""
+    topo = groups.get_topology()
+    ep = topo.axis_size("expert")
+    if ep == 1:
+        raise ValueError("moe_swiglu_ragged_ep needs an expert axis > 1; "
+                         "use the dense ragged path otherwise")
+    E = gate_w.shape[-1]
+    wo = topo.axis_size("data_outer")
+    hier = resolve_hierarchical_a2a(hierarchical, wo, E, ep)
+    ep_total = ep * wo if hier else ep
+    if E % ep_total:
+        raise ValueError(f"experts {E} not divisible by expert shards "
+                         f"{ep_total}")
+    E_loc = E // ep_total
+    if w1.shape[0] != E_loc:
+        raise ValueError(f"this rank holds {w1.shape[0]} experts, the "
+                         f"exchange expects {E_loc}")
+    orig_shape = tokens.shape
+    M = orig_shape[-1]
+    x = tokens.reshape(-1, M)
+    weights, experts = route_top_k(x, gate_w, k)
+    gp = resolve_grouped_params(grouped_kernel)
+
+    def ffn(xs, es, group_sizes):
+        return _grouped_swiglu_ffn(xs, w1, w3, w2, group_sizes, gp)
+
+    out, group_sizes = _ep_exchange(
+        x, experts.reshape(-1), k, E_loc, hier,
+        hier and resolve_dcn_quantize(dcn_quantize), ffn)
+    y = (out * weights.reshape(-1, 1).to(x.dtype)).reshape(
+        -1, k, M).sum(dim=1)
+    y = y.to(tokens.dtype).reshape(orig_shape)
+    if not return_counts:
+        return y
+    shard = topo.axis_index(_expert_axes(hier))
+    counts = torch.zeros(E, dtype=torch.int32, device=x.device)
+    counts[shard * E_loc:(shard + 1) * E_loc] = group_sizes
+    return y, comm.all_reduce(counts, _expert_axes(hier))
+
+
 def moe_layer_ragged_ep(tokens, gate_w, wi, bi, wo, bo, k=1, *,
                         activation=gelu, expert_parallel_size=1,
                         grouped_kernel="auto", dp_axes=None):
-    """The expert-parallel dropless layer. At one expert shard (the only
-    size the port runs) it is ``moe_layer_ragged``, as in the JAX package;
-    more shards need the all_to_all exchange, not ported yet."""
-    if expert_parallel_size > 1:
-        raise NotImplementedError(
-            f"expert_parallel_size={expert_parallel_size}: {_TODO_EP} is "
-            f"not ported yet")
-    return moe_layer_ragged(tokens, gate_w, wi, bi, wo, bo, k=k,
-                            activation=activation,
-                            grouped_kernel=grouped_kernel, dp_axes=dp_axes)
+    """The expert-parallel dropless layer (the JAX ``moe_layer_ragged_ep``,
+    flat exchange over ``expert``). At one expert shard it is
+    ``moe_layer_ragged``, as in the JAX package. Otherwise wi / bi / wo /
+    bo hold this rank's ``E / ep`` experts, the router all ``E``; the aux
+    loss sums its raw statistics over ``dp_axes`` (the token axes, which
+    include ``expert``) before forming the loss, as the JAX function sums
+    them over its token axes; the returned counts (E,) are the global
+    dispatches (fp32 summed over ``dp_axes``, as int32). Returns (y like
+    tokens, l_aux, counts)."""
+    if expert_parallel_size == 1:
+        return moe_layer_ragged(tokens, gate_w, wi, bi, wo, bo, k=k,
+                                activation=activation,
+                                grouped_kernel=grouped_kernel,
+                                dp_axes=dp_axes)
+    ep = groups.get_topology().axis_size("expert")
+    if ep != expert_parallel_size:
+        raise ValueError(f"expert_parallel_size={expert_parallel_size} but "
+                         f"the topology's expert axis has {ep} ranks")
+    E = gate_w.shape[-1]
+    if E % ep:
+        raise ValueError(f"experts {E} not divisible by expert axis {ep}")
+    E_loc = E // ep
+    if wi.shape[0] != E_loc:
+        raise ValueError(f"this rank holds {wi.shape[0]} experts, the "
+                         f"exchange expects {E_loc}")
+    orig_shape = tokens.shape
+    M = orig_shape[-1]
+    x = tokens.reshape(-1, M)
+    weights, experts, l_aux, counts = topk_routing(x.float() @ gate_w.float(),
+                                                   k, dp_axes)
+    if dp_axes:
+        counts = comm.all_reduce(counts, dp_axes)
+    gp = resolve_grouped_params(grouped_kernel)
+
+    def ffn(xs, es, group_sizes):
+        safe_e = torch.clamp(es, max=E_loc - 1)
+        h = activation(_grouped_dot(xs, wi, group_sizes, gp)
+                       + _expert_bias(bi, safe_e, group_sizes, gp))
+        return (_grouped_dot(h, wo, group_sizes, gp)
+                + _expert_bias(bo, safe_e, group_sizes, gp))
+
+    out, _ = _ep_exchange(x, experts.reshape(-1).long(), k, E_loc, False,
+                          False, ffn)
+    flat_w = weights.reshape(-1).to(tokens.dtype)
+    y = (out * flat_w[:, None]).reshape(-1, k, M).sum(dim=1)
+    return (y.to(tokens.dtype).reshape(orig_shape), l_aux,
+            counts.to(torch.int32))

@@ -125,39 +125,52 @@ class CUDAOpBuilder:
 class PagedAttentionBuilder(CUDAOpBuilder):
     NAME = "paged_attention"
     SOURCES = ("paged_attention.cu",)
-    DEPENDS = ("attention_tiles.cuh", "sm90_gemm.cuh", "sm90_attention.cuh")
+    DEPENDS = ("attention_tiles.cuh", "sm90_gemm.cuh", "sm90_attention.cuh",
+               "elem16.cuh")
 
 
 class FlashAttentionBuilder(CUDAOpBuilder):
     NAME = "flash_attention"
     SOURCES = ("flash_attention.cu",)
-    DEPENDS = ("attention_tiles.cuh", "sm90_gemm.cuh", "sm90_attention.cuh")
+    DEPENDS = ("attention_tiles.cuh", "sm90_gemm.cuh", "sm90_attention.cuh",
+               "elem16.cuh")
+
+
+class FlashAttentionF16Builder(FlashAttentionBuilder):
+    """flash_attention.cu built for fp16 operands (``-DDS_ELEM_F16``,
+    csrc/elem16.cuh): the same kernels and entry points, the 16-bit
+    element fp16 and the products in their ``.f16`` forms."""
+    NAME = "flash_attention_f16"
+
+    def flags(self):
+        return NVCC_FLAGS + ["-DDS_ELEM_F16"]
 
 
 class BlockSparseAttentionBuilder(CUDAOpBuilder):
     NAME = "block_sparse_attention"
     SOURCES = ("block_sparse_attention.cu",)
-    DEPENDS = ("attention_tiles.cuh", "sm90_gemm.cuh", "sm90_attention.cuh")
+    DEPENDS = ("attention_tiles.cuh", "sm90_gemm.cuh", "sm90_attention.cuh",
+               "elem16.cuh")
 
 
 class FusedCEBuilder(CUDAOpBuilder):
     NAME = "fused_ce"
     SOURCES = ("fused_ce.cu",)
-    DEPENDS = ("sm90_gemm.cuh",)
+    DEPENDS = ("sm90_gemm.cuh", "elem16.cuh")
 
 
 class GroupedMatmulBuilder(CUDAOpBuilder):
     NAME = "grouped_matmul"
     SOURCES = ("grouped_matmul.cu",)
     DEPENDS = ("gemm_common.cuh", "wq_gemm.cuh", "sm90_gemm.cuh",
-               "sm90_attention.cuh", "wq_sm90.cuh")
+               "sm90_attention.cuh", "wq_sm90.cuh", "elem16.cuh")
 
 
 class MlpMatmulBuilder(CUDAOpBuilder):
     NAME = "mlp_matmul"
     SOURCES = ("mlp_matmul.cu",)
     DEPENDS = ("gemm_common.cuh", "wq_gemm.cuh", "sm90_gemm.cuh",
-               "sm90_attention.cuh", "wq_sm90.cuh")
+               "sm90_attention.cuh", "wq_sm90.cuh", "elem16.cuh")
 
 
 class LayerNormBuilder(CUDAOpBuilder):

@@ -36,6 +36,16 @@ on their operands and gradients (``_bwd_design``): sm90 is
 ``DESIGN_LAUNCHES["flash_fwd" | "flash_bwd" | "flash_bwd_qmajor" |
 "flash_block_fwd"]`` counts launches by design.
 
+fp16 operands (fp16 training) take the same rule and the same designs from
+the library built with ``-DDS_ELEM_F16`` (``FlashAttentionF16Builder``:
+csrc/elem16.cuh makes the 16-bit element fp16 and the wgmma / mma.sync
+products their ``.f16`` forms): "sm90" at d = 64 / 128 that TMA can
+address, else "mma_sync", counted in ``DESIGN_LAUNCHES`` with the rest;
+``DTYPE_LAUNCHES[name]`` splits every name's launches by operand dtype
+("float32" / "bfloat16" / "float16"). p and ds round to fp16 as the JAX
+kernels' ``astype`` does: an overflow gives inf, never a clamped value.
+K2-qmajor and K10 raise on fp16 (ROADMAP Queue 2, fp16 operands).
+
 ``bwd_qmajor`` picks the query-major backward under the JAX rule
 (flash_attention.py:1578): ``qkv_t`` layouts with no bias or ALiBi only,
 every other call k-major; "auto" resolves to False, the JAX choice on a
@@ -58,13 +68,16 @@ NEG_INF = -1e30
 LAUNCHES = {"flash_fwd": 0, "flash_bwd": 0, "flash_bwd_qmajor": 0,
             "flash_block_fwd": 0}
 DESIGN_LAUNCHES = {name: {"sm90": 0, "mma_sync": 0, "fp32": 0}
-                   for name in ("flash_fwd", "flash_bwd", "flash_bwd_qmajor",
-                                "flash_block_fwd")}
+                   for name in LAUNCHES}
+DTYPE_LAUNCHES = {name: {"float32": 0, "bfloat16": 0, "float16": 0}
+                  for name in LAUNCHES}
 # the launchers' design codes (flash_block_fwd_launch, flash_bwd_launch,
 # flash_bwd_qmajor_launch)
 _DESIGN_CODE = {"fp32": 0, "mma_sync": 1, "sm90": 2}
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# the launchers' dtype codes; fp16 is code 1 of the fp16 library
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 1}
+_TODO_F16 = "(ROADMAP Queue 2, fp16 operands: K2-qmajor and K10)"
 _HEAD_DIMS = (32, 64, 128)
 _SM90_HEAD_DIMS = (64, 128)
 _TODO_BIAS = "(ROADMAP Queue 2, K1/K2: bias and ALiBi operands)"
@@ -75,9 +88,9 @@ _SM90_TILE = 128       # the Hopper query-major kernel's query tile
 def reset_launch_counts():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-    for by_design in DESIGN_LAUNCHES.values():
-        for k in by_design:
-            by_design[k] = 0
+    for counts in (*DESIGN_LAUNCHES.values(), *DTYPE_LAUNCHES.values()):
+        for k in counts:
+            counts[k] = 0
 
 
 class _Strides(ctypes.Structure):
@@ -98,30 +111,48 @@ class _FlashArgs(ctypes.Structure):
                    ("sml", ctypes.c_longlong), ("sacc", _Strides)])
 
 
-_builder = None
+_builder = None        # the bf16 / fp32 library's
+_builder_f16 = None    # the fp16 build's
 
 
-def kernel_builder():
-    """The flash-attention library's builder; the first call builds the
-    library (nvcc, see op_builder) and binds its ctypes signatures."""
-    global _builder
+def _bind(b):
+    """Build and load ``b``'s library and bind its ctypes signatures."""
+    lib = b.load()
+    for fn in (lib.flash_fwd_launch, lib.flash_bwd_qmajor_launch):
+        fn.argtypes = [ctypes.POINTER(_FlashArgs), ctypes.c_int,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    for fn in (lib.flash_block_fwd_launch, lib.flash_bwd_launch):
+        fn.argtypes = [ctypes.POINTER(_FlashArgs), ctypes.c_int,
+                       ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    lib.flash_fwd_sm90_launch.argtypes = [ctypes.POINTER(_FlashArgs),
+                                          ctypes.c_void_p, ctypes.c_void_p]
+    lib.flash_fwd_sm90_launch.restype = ctypes.c_int
+    return b
+
+
+def kernel_builder(dtype=torch.bfloat16):
+    """The builder of the flash-attention library for ``dtype`` (the fp16
+    build for torch.float16, else the bf16 / fp32 one); the first call
+    builds the library (nvcc, see op_builder) and binds its ctypes
+    signatures."""
+    global _builder, _builder_f16
+    from ...op_builder.builder import (FlashAttentionBuilder,
+                                       FlashAttentionF16Builder)
+    if dtype == torch.float16:
+        if _builder_f16 is None:
+            _builder_f16 = _bind(FlashAttentionF16Builder())
+        return _builder_f16
     if _builder is None:
-        from ...op_builder.builder import FlashAttentionBuilder
-        b = FlashAttentionBuilder()
-        lib = b.load()
-        for fn in (lib.flash_fwd_launch, lib.flash_bwd_qmajor_launch):
-            fn.argtypes = [ctypes.POINTER(_FlashArgs), ctypes.c_int,
-                           ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        for fn in (lib.flash_block_fwd_launch, lib.flash_bwd_launch):
-            fn.argtypes = [ctypes.POINTER(_FlashArgs), ctypes.c_int,
-                           ctypes.c_void_p, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        lib.flash_fwd_sm90_launch.argtypes = [ctypes.POINTER(_FlashArgs),
-                                              ctypes.c_void_p, ctypes.c_void_p]
-        lib.flash_fwd_sm90_launch.restype = ctypes.c_int
-        _builder = b
+        _builder = _bind(FlashAttentionBuilder())
     return _builder
+
+
+def _count(name, design, dtype):
+    LAUNCHES[name] += 1
+    DESIGN_LAUNCHES[name][design] += 1
+    DTYPE_LAUNCHES[name][str(dtype).split(".")[-1]] += 1
 
 
 # ------------------------------------------------------------------ plain
@@ -253,7 +284,8 @@ def _check_cuda(tensors, name):
             raise TypeError(f"{name}: q, k, v (and o, do) must share a "
                             f"dtype, got {dt} and {t.dtype}")
     if dt not in _DTYPE_CODE:
-        raise TypeError(f"{name}: kernel takes float32 or bfloat16, got {dt}")
+        raise TypeError(f"{name}: kernel takes float32, bfloat16 or "
+                        f"float16, got {dt}")
     if tensors[0].shape[-1] not in _HEAD_DIMS:
         raise ValueError(f"{name}: kernel takes head dim in {_HEAD_DIMS}, "
                          f"got {tensors[0].shape[-1]}")
@@ -275,12 +307,12 @@ def _strides(x):
 
 def _fwd_design(q, k, v):
     """The forward's design for (B, H, T, d) operands as the kernel reads
-    them: "fp32" for fp32; "sm90" (TMA + wgmma) for bf16 with d = 64 or 128
-    that TMA can address (``tma_ok``: d contiguous, a 16-byte aligned base,
-    the t stride and each (b, h) stride of extent > 1 whole multiples of 16
-    bytes, as sm90_attention.cuh's ``make_bhtd_map`` encodes them; every
-    GPT-2 training call); else "mma_sync" (d = 32, or bf16 operands TMA
-    cannot address)."""
+    them: "fp32" for fp32; "sm90" (TMA + wgmma) for bf16 or fp16 with d =
+    64 or 128 that TMA can address (``tma_ok``: d contiguous, a 16-byte
+    aligned base, the t stride and each (b, h) stride of extent > 1 whole
+    multiples of 16 bytes, as sm90_attention.cuh's ``make_bhtd_map``
+    encodes them; every GPT-2 training call); else "mma_sync" (d = 32, or
+    operands TMA cannot address)."""
     if q.dtype == torch.float32:
         return "fp32"
     if q.shape[-1] in _SM90_HEAD_DIMS and all(map(tma_ok, (q, k, v))):
@@ -293,9 +325,9 @@ def _bwd_design(q, k, v, o, do, grads=()):
     kernels read them: ``_fwd_design``'s rule over every operand the Hopper
     kernels map by TMA (q, k, v, do and the gradients ``grads`` = (dq, dk,
     dv), each with d contiguous; o is read by the delta kernel's plain
-    loads): "fp32" for fp32; "sm90" for bf16 at d = 64 or 128 that TMA can
-    address (every GPT-2 training call, the ring's folded pairs); else
-    "mma_sync" (d = 32, or strides TMA cannot address)."""
+    loads): "fp32" for fp32; "sm90" for bf16 or fp16 at d = 64 or 128 that
+    TMA can address (every GPT-2 training call, the ring's folded pairs);
+    else "mma_sync" (d = 32, or strides TMA cannot address)."""
     if q.dtype == torch.float32:
         return "fp32"
     mapped = (q, k, v, do, *grads)
@@ -347,7 +379,7 @@ def flash_forward(q, k, v, *, causal=True, window=0):
     o = torch.empty_like(q)
     lse = torch.empty(B, H, T, dtype=torch.float32, device=q.device)
     a = _args(B, H, T, D, causal, window, q=q, k=k, v=v, o=o, lse=lse)
-    lib = kernel_builder().load()
+    lib = kernel_builder(q.dtype).load()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     design = _fwd_design(q, k, v)
     if design == "sm90":
@@ -358,8 +390,7 @@ def flash_forward(q, k, v, *, causal=True, window=0):
     else:
         rc = lib.flash_fwd_launch(ctypes.byref(a), _DTYPE_CODE[q.dtype], stream)
     _raise_on(rc, f"{name} ({design})")
-    LAUNCHES["flash_fwd"] += 1
-    DESIGN_LAUNCHES["flash_fwd"][design] += 1
+    _count("flash_fwd", design, q.dtype)
     return o, lse
 
 
@@ -386,13 +417,12 @@ def flash_backward(q, k, v, o, lse, do, *, causal=True, window=0,
     # the persistent dk/dv and dq kernels' work counters (sm90)
     next_item = (torch.zeros(2, dtype=torch.int32, device=q.device)
                  if design == "sm90" else None)
-    rc = kernel_builder().load().flash_bwd_launch(
+    rc = kernel_builder(q.dtype).load().flash_bwd_launch(
         ctypes.byref(a), _DESIGN_CODE[design],
         None if next_item is None else next_item.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(rc, f"{name} ({design})")
-    LAUNCHES["flash_bwd"] += 1
-    DESIGN_LAUNCHES["flash_bwd"][design] += 1
+    _count("flash_bwd", design, q.dtype)
     return dq, dk, dv
 
 
@@ -409,8 +439,11 @@ def flash_backward_qmajor(q, k, v, o, lse, do, *, causal=True, window=0,
         return flash_bwd_qmajor_reference(q, k, v, o, lse, do, causal=causal,
                                           window=window, dlse=dlse)
     name = "flash_backward_qmajor"
-    lib = kernel_builder().load()
     _check_cuda((q, k, v, o, do), name)
+    if q.dtype == torch.float16:
+        raise TypeError(f"{name}: fp16 operands are not ported yet "
+                        f"{_TODO_F16}")
+    lib = kernel_builder().load()
     q, k, v, o, do = (_kernel_view(x) for x in (q, k, v, o, do))
     B, H, T, D = q.shape
     lse = lse.float().contiguous()
@@ -428,8 +461,7 @@ def flash_backward_qmajor(q, k, v, o, lse, do, *, causal=True, window=0,
         ctypes.byref(a), _DESIGN_CODE[design],
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(rc, f"{name} ({design})")
-    LAUNCHES["flash_bwd_qmajor"] += 1
-    DESIGN_LAUNCHES["flash_bwd_qmajor"][design] += 1
+    _count("flash_bwd_qmajor", design, q.dtype)
     return dq, dk, dv
 
 
@@ -495,6 +527,9 @@ def flash_block_fwd(q, k, v, state, *, causal=False, block_q=128,
         return state
     name = "flash_block_fwd"
     _check_cuda((q, k, v), name)
+    if q.dtype == torch.float16:
+        raise TypeError(f"{name}: fp16 operands are not ported yet "
+                        f"{_TODO_F16}")
     if (any(t.dtype != torch.float32 or t.device != q.device
             for t in state)
             or m.stride(1) != 1 or l.stride(1) != 1
@@ -519,8 +554,7 @@ def flash_block_fwd(q, k, v, state, *, causal=False, block_q=128,
         None if next_item is None else next_item.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(rc, f"{name} ({design})")
-    LAUNCHES["flash_block_fwd"] += 1
-    DESIGN_LAUNCHES["flash_block_fwd"][design] += 1
+    _count("flash_block_fwd", design, q.dtype)
     return state
 
 

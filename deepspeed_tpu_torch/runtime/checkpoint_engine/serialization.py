@@ -238,11 +238,13 @@ def _np_dtype(leaf):
 def extract_local_chunks(tree, partition=None, topology=None):
     """-> (chunks dict, index dict, meta dict) for THIS rank.
 
-    ``partition(key) -> (dim, axes)`` gives how the leaf at ``key`` lies
-    over the ranks: ``dim`` None for a leaf every rank holds whole, else
-    each rank holds the ``axis_index(axes)``-th equal slice along ``dim``
-    (the port's ZeRO plan, runtime/zero/partitioning.py). A leaf is the
-    GLOBAL array where it is whole and this rank's shard otherwise.
+    ``partition(key)`` gives how the leaf at ``key`` lies over the ranks:
+    a list of ``(dim, axes)`` splits, each rank holding the
+    ``axis_index(axes)``-th equal slice along each ``dim`` (an expert
+    leaf's expert dim, the port's ZeRO plan's partition,
+    runtime/zero/partitioning.py); empty for a leaf every rank holds
+    whole. A leaf is the GLOBAL array where it is whole and this rank's
+    shard otherwise.
 
     Each global shard is written exactly once across the job: by the
     lowest rank that holds it (the rank at index 0 along every mesh axis
@@ -259,16 +261,16 @@ def extract_local_chunks(tree, partition=None, topology=None):
     flat, meta = flatten_state(tree)
     chunks, index = {}, {}
     for key, leaf in flat.items():
-        dim, axes = partition(key) if partition else (None, ())
-        axes = tuple(axes or ())
+        splits = partition(key) if partition else []
         shape = list(leaf.shape)
-        if dim is not None:
+        for dim, axes in splits:
             shape[dim] *= topo.axis_size(axes)
         entry = _leaf_entry(shape, _np_dtype(leaf))
-        others = [a for a in groups.MESH_AXES if a not in axes]
+        held = {a for _, axes in splits for a in axes}
+        others = [a for a in groups.MESH_AXES if a not in held]
         if all(topo.axis_index(a) == 0 for a in others):
             start = [0] * len(shape)
-            if dim is not None:
+            for dim, axes in splits:
                 start[dim] = topo.axis_index(axes) * int(leaf.shape[dim])
             ck = f"{key}#{rank}.0"
             chunks[ck] = to_numpy(leaf)

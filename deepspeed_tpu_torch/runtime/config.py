@@ -2,8 +2,10 @@
 
 Own copy of ``deepspeed_tpu/runtime/config.py`` for the training slice:
 the batch-size triad with the same resolution rules and error text, the
-precision blocks, the ZeRO block, optimizer, gradient clipping,
+precision blocks (fp16 with its loss-scale knobs, bf16), the ZeRO block,
+optimizer, the ``scheduler`` block, gradient clipping,
 ``data_types.grad_accum_dtype``, ``steps_per_print``, the ``moe`` block,
+``expert_parallel_size``,
 ``sequence_parallel_size`` with the ``sequence`` block, the
 ``comms_logger`` block and the ``checkpoint_engine`` block, with the same
 unknown-key warnings inside a block. A block the port does
@@ -121,11 +123,14 @@ class MoEConfig:
       grouped_kernel   "auto" (the Hopper grouped kernels: the port has no
                        winner cache) | true (the kernels) | false (the
                        ragged math).
-      hierarchical_a2a "auto" | true | false: the staging of the expert-
-                       parallel all_to_all; validated, inert at one expert
-                       shard (as in JAX without an outer mesh axis).
-      dcn_quantize     true | false | "auto": the int8 round trip on that
-                       exchange's cross-slice legs; validated, inert here.
+      hierarchical_a2a "auto" (stage the expert-parallel all_to_all
+                       over ``expert`` then ``data_outer`` iff data_outer
+                       > 1 and the experts divide the (data_outer, expert)
+                       grid) | true (require it) | false (one flat hop).
+      dcn_quantize     true | false | "auto" (= false: the port has no
+                       winner cache): the int8 block round trip (K12) on
+                       the token payload of the staged exchange's
+                       data_outer legs.
     """
     grouped_kernel: object = "auto"    # "auto" | bool
     hierarchical_a2a: object = "auto"  # "auto" | bool
@@ -319,6 +324,12 @@ class OptimizerConfig:
     params: dict = field(default_factory=dict)
 
 
+@dataclass
+class SchedulerConfig:
+    type: str = None
+    params: dict = field(default_factory=dict)
+
+
 def _take(d, cls, key):
     sub = d.get(key, {})
     if isinstance(sub, cls):
@@ -337,7 +348,7 @@ def _enabled(block):
     return isinstance(block, dict) and block.get("enabled", False) is True
 
 
-def _unported(raw, zero, fp16, ckpt):
+def _unported(raw, zero, ckpt):
     """(what, ROADMAP item) for every enabled block the port does not
     carry yet."""
     out = []
@@ -350,8 +361,6 @@ def _unported(raw, zero, fp16, ckpt):
                     "M14, offload"))
     if int(raw.get(C.PIPELINE, {}).get("stages", 1)) > 1:
         out.append(("pipeline", "M13"))
-    if raw.get(C.EXPERT_PARALLEL_SIZE, 1) > 1:
-        out.append(("expert_parallel_size > 1", "M10, MoE expert parallel"))
     if int(raw.get(C.TENSOR_PARALLEL, {}).get("size", 1)) > 1:
         out.append(("tensor_parallel", "M5"))
     if _enabled(raw.get("comm_overlap")):
@@ -363,10 +372,6 @@ def _unported(raw, zero, fp16, ckpt):
     if any(_enabled(raw.get(k)) for k in ("tensorboard", "wandb",
                                           C.MONITOR_CSV)):
         out.append(("monitor (tensorboard / wandb / csv_monitor)", "M14"))
-    if raw.get(C.SCHEDULER) is not None:
-        out.append(("scheduler (LR schedules)", "M4"))
-    if fp16.enabled:
-        out.append(("fp16 training", "M4"))
     de = raw.get("data_efficiency", {}) or {}
     if _enabled(raw.get("curriculum_learning")) or (
             de.get("enabled") and _enabled(
@@ -431,11 +436,16 @@ class DeepSpeedConfig:
         opt = config.get(C.OPTIMIZER)
         self.optimizer = None if opt is None else _take(
             {"o": opt}, OptimizerConfig, "o")
+        sched = config.get(C.SCHEDULER)
+        self.scheduler = None if sched is None else _take(
+            {"s": sched}, SchedulerConfig, "s")
+        self.expert_parallel_size = int(
+            config.get(C.EXPERT_PARALLEL_SIZE, 1))
 
         dtypes = config.get(C.DATA_TYPES, {})
         self.grad_accum_dtype = dtypes.get(C.GRAD_ACCUM_DTYPE)
 
-        bad = _unported(config, self.zero, self.fp16, self.checkpoint_engine)
+        bad = _unported(config, self.zero, self.checkpoint_engine)
         if bad:
             raise NotImplementedError(
                 "config blocks the PyTorch port does not carry yet: "

@@ -8,7 +8,17 @@ dtype cast from an fp32 master; the global batch split into
 backpropagated and the gradients, cast to ``grad_accum_dtype``, are
 accumulated as ``g / gas``; then unscale, an overflow check, global-norm
 clipping with the JAX formula, the optimizer update on the master (skipped
-on overflow) and the cast back to the parameters' dtype.
+on overflow) and the cast back to the parameters' dtype. The step's lr
+is the schedule's value at ``global_step`` (the config's ``scheduler``
+block through ``lr_schedules.build_scheduler``, or an ``lr_scheduler``
+object; the optimizer's ``lr`` without one), and the schedule steps after
+the update (JAX engine.py:1277, :1397). fp16 training runs the dynamic
+loss scaler (``runtime/fp16/loss_scaler.py``): the loss times the scale
+is backpropagated through the fp16 parameters, the gradients (fp32 by
+default) are unscaled, and a non-finite gradient skips the step and
+halves the scale once the hysteresis is spent, as JAX engine.py:580-654;
+``last_metrics`` holds the step's ``loss_scale``, ``overflow``, ``lr``
+and ``grad_norm``.
 
 The engine trains GPT2, GPT2MoE, Llama and Mixtral (``models/``). It takes
 its initial parameters from the model module (so a JAX engine's initial
@@ -25,7 +35,8 @@ JAX loss runs over the global batch), and drives ``model.loss(batch)``.
 A multi-process world (``utils/groups.py``) is built from the config as
 the JAX engine.py:130-141 builds its mesh: ``sequence_parallel_size``
 ranks a ``seq`` group, data parallelism over the rest, split into
-``data_outer`` x ``data`` by ``mics_shard_size`` / ``hpz_partition_size``.
+``data_outer`` x ``data`` by ``mics_shard_size`` / ``hpz_partition_size``,
+with ``expert_parallel_size`` ranks an ``expert`` group.
 Rank 0's initial parameters are broadcast at construction. Every rank
 passes the same global batch (JAX engine.py:1298-1312): it is reshaped to
 ``(gas, B / gas, ...)`` and each rank takes its contiguous block of dim 1
@@ -50,6 +61,20 @@ clips, steps or skips alike. Collectives over one rank are skipped. At one
 data-parallel rank no stage partitions anything and all give the same
 result. Each collective moves one flat buffer a dtype.
 
+Expert parallelism (``expert_parallel_size`` > 1, M10): the leaves whose
+base spec names ``expert`` (GPT2MoE's ``blocks.moe.*`` but the router,
+Mixtral's ``moe_w*``; over ``("data_outer", "expert")`` when Mixtral's
+exchange stages) are cut to this rank's ``E / ep`` experts after the
+broadcast, and the model learns the expert count it runs with
+(``model._moe_ep``). Their ZeRO partition drops ``expert`` from its group,
+as ``add_partition_axis`` does. Their gradients sum over the reduce axes
+but those the leaf is split over (the exchange's backward already brought
+every expert rank's tokens to them) and are still divided by the full
+data-parallel count; the global norm sums an expert leaf's squares over
+its split axes once and a replicated leaf's not at all; LAMB's norms sum
+likewise (``optimizer.norm_axes``). A checkpoint holds the whole leaves,
+each rank writing its experts' chunks.
+
 Checkpoints (``save_checkpoint`` / ``load_checkpoint``, the JAX
 engine.py:1718-2201) write and read the JAX package's files: one
 ``{save_dir}/{tag}/shard-{rank}.npz`` a rank (this rank's chunks of the
@@ -72,7 +97,7 @@ import numpy as np
 import torch
 
 from .. import comm
-from ..ops.optimizers import build_optimizer
+from ..ops.optimizers import FusedLamb, build_optimizer
 from ..utils import fault_injection, groups, prng
 from ..utils.device import resolve_device
 from ..utils.logging import log_dist
@@ -82,8 +107,19 @@ from .checkpoint_engine import serialization as ser
 from .checkpoint_engine.engines import create_checkpoint_engine
 from .config import DeepSpeedConfig
 from .fp16.loss_scaler import create_loss_scaler, grads_finite
+from .lr_schedules import build_scheduler
 from .zero.partitioning import (ZeroShardingPlan, flat_all_gather,
                                 flat_reduce_scatter, reshape_diff, shard)
+
+
+BROADCAST_BUCKET = 1 << 28
+
+
+def _axes_of(entry):
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
 
 def _jax_order(names):
     """Parameter names in the JAX tree's leaf order (sorted keys, the
@@ -102,6 +138,7 @@ def _topology_config(config):
         mics = config.zero.mics_shard_size
         hpz = config.zero.hpz_partition_size
         sp = config.sequence_parallel_size
+        ep = config.expert_parallel_size
     else:
         if isinstance(config, str):
             with open(config) as f:
@@ -110,8 +147,10 @@ def _topology_config(config):
         mics = int(zero.get("mics_shard_size", -1))
         hpz = int(zero.get("hpz_partition_size", 1))
         sp = int(config.get("sequence_parallel_size", 1))
+        ep = int(config.get("expert_parallel_size", 1))
     shard_size = mics if mics not in (-1, 0) else (hpz if hpz > 1 else -1)
     return groups.TopologyConfig(seq_parallel_size=sp,
+                                 expert_parallel_size=ep,
                                  zero_shard_size=shard_size)
 
 
@@ -146,10 +185,6 @@ def _by_axes(names, part):
 class DeepSpeedEngine:
     def __init__(self, model, config, optimizer=None, lr_scheduler=None,
                  device=None, topology=None, seed=0):
-        if lr_scheduler is not None:
-            raise NotImplementedError(
-                "lr_scheduler objects are not ported yet (ROADMAP Queue 1, "
-                "M4: LR schedules)")
         if int(os.environ.get("WORLD_SIZE", "1")) > 1 and \
                 not comm.is_initialized():
             raise RuntimeError(
@@ -201,7 +236,11 @@ class DeepSpeedEngine:
             optimizer = build_optimizer(self.config.optimizer.type,
                                         self.config.optimizer.params)
         self.optimizer = optimizer
-        self.lr_scheduler = None
+        if lr_scheduler is None and self.config.scheduler is not None:
+            lr_scheduler = build_scheduler(self.config.scheduler.type,
+                                           self.config.scheduler.params)
+        self.lr_scheduler = lr_scheduler
+        self.last_metrics = None
         self.loss_scaler = create_loss_scaler(self.config.fp16,
                                               self.param_dtype)
         self.grad_dtype = self.config.grad_accum_torch_dtype
@@ -238,19 +277,36 @@ class DeepSpeedEngine:
         self._names = _jax_order(params)
         zc = self.config.zero
         specs = getattr(model, "partition_specs", None)
+        specs = specs(topology) if specs else {}
+        # expert-parallel leaves: name -> (dim, axes) of their expert split
+        self._expert = {}
+        for n, spec in specs.items():
+            for dim, entry in enumerate(spec):
+                axes = _axes_of(entry)
+                if "expert" in axes and topology.axis_size(axes) > 1:
+                    self._expert[n] = (dim, axes)
+        self.model._moe_ep = topology.axis_size("expert")
+        with torch.no_grad():
+            for p in params.values():
+                p.data = p.data.to(self.param_dtype)
+            if topology.world_size > 1:     # every rank starts from rank 0's
+                self._broadcast(params)
+            for n, (dim, axes) in self._expert.items():   # this rank's
+                params[n].data = shard(params[n].data, dim, axes,
+                                       topology).clone()
         self.plan = ZeroShardingPlan(
-            self.zero_stage, topology, specs() if specs else {},
+            self.zero_stage, topology, specs,
             {n: tuple(p.shape) for n, p in params.items()},
             partition_axes=(groups.INNER_DP_AXES
                             if zc.mics_shard_size not in (-1, 0)
                             else groups.DP_AXES),
             param_partition_axes=(groups.INNER_DP_AXES
                                   if zc.hpz_partition_size > 1 else None))
+        if isinstance(self.optimizer, FusedLamb):
+            # the axes each master leaf is split over: its norms sum there
+            self.optimizer.norm_axes = {
+                n: self._split_axes(n, "master") for n in self._names}
         with torch.no_grad():
-            for p in params.values():
-                p.data = p.data.to(self.param_dtype)
-            if topology.world_size > 1:     # every rank starts from rank 0's
-                self._broadcast(params)
             master = {n: self._shard(params[n], "master", n).float().clone()
                       for n in self._names}
             param_shards = {n: self._shard(params[n], "param", n).clone()
@@ -272,11 +328,19 @@ class DeepSpeedEngine:
             f"gas={self.config.gradient_accumulation_steps}", ranks=[0])
 
     def _broadcast(self, params):
-        """Rank 0's parameters to every rank, one flat buffer a dtype."""
-        by_dtype = {}
+        """Rank 0's parameters to every rank, one flat buffer a dtype and
+        bucket of at most ``BROADCAST_BUCKET`` bytes (or one leaf), so the
+        buffers stay small beside the model."""
+        buckets = {}
         for n in self._names:
-            by_dtype.setdefault(params[n].dtype, []).append(params[n])
-        for ps in by_dtype.values():
+            p = params[n]
+            group = buckets.setdefault(p.dtype, [[]])
+            size = sum(q.numel() for q in group[-1]) * p.element_size()
+            if group[-1] and size + p.numel() * p.element_size() \
+                    > BROADCAST_BUCKET:
+                group.append([])
+            group[-1].append(p)
+        for ps in (b for group in buckets.values() for b in group):
             flat = comm.broadcast(torch.cat([p.reshape(-1) for p in ps]),
                                   groups.GRAD_REDUCE_AXES)
             for p, f in zip(ps, flat.split([p.numel() for p in ps])):
@@ -301,29 +365,57 @@ class DeepSpeedEngine:
         return [f.view_as(t).to(t.dtype) for t, f in zip(
             tensors, flat.split([t.numel() for t in tensors]))]
 
+    def _split_axes(self, n, which):
+        """The live mesh axes leaf ``n``'s ``which`` ("master", "grad") is
+        split over on this rank: its expert axes, then its ZeRO partition
+        axes."""
+        axes = self._expert.get(n, (None, ()))[1]
+        dim, part = self.plan.parts[which][n]
+        if dim is not None:
+            axes = axes + part
+        return tuple(a for a in groups.MESH_AXES
+                     if a in axes and self.topology.axis_size(a) > 1)
+
+    def _reduce_axes(self, n):
+        """The live axes leaf ``n``'s gradient sums over: the reduce axes
+        but those an expert leaf is split over."""
+        split = self._expert.get(n, (None, ()))[1]
+        return tuple(a for a in self._live(groups.GRAD_REDUCE_AXES)
+                     if a not in split)
+
     def _reduce_grads(self, grads):
         """Gradients summed over ``seq`` and averaged over the
         data-parallel axes in fp32: the plan's partitioned grad leaves
         reduce-scattered to this rank's shard (then summed over the reduce
         axes outside the partition group: ``seq``, ``data_outer`` under
-        MiCS), the rest all-reduced."""
-        reduce_axes = self._live(groups.GRAD_REDUCE_AXES)
-        if not reduce_axes:
+        MiCS), the rest all-reduced. An expert leaf sums over the reduce
+        axes but its expert axes and is divided by the full dp all the
+        same."""
+        if not self._live(groups.GRAD_REDUCE_AXES):
             return grads
         out = {}
         for axes, names in _by_axes(self._names,
                                     self.plan.parts["grad"]).items():
-            dims = [self.plan.parts["grad"][n][0] for n in names]
-            shards = flat_reduce_scatter([grads[n].float() for n in names],
-                                         dims, axes)
-            rest = tuple(a for a in reduce_axes if a not in axes)
-            if rest:
-                shards = self._all_reduce_flat(shards, rest)
-            out.update(zip(names, shards))
-        whole = [n for n in self._names if n not in out]
-        if whole:
-            out.update(zip(whole, self._all_reduce_flat(
-                [grads[n].float() for n in whole], reduce_axes)))
+            by_rest = {}
+            for n in names:
+                rest = tuple(a for a in self._reduce_axes(n)
+                             if a not in axes)
+                by_rest.setdefault(rest, []).append(n)
+            for rest, group in by_rest.items():
+                dims = [self.plan.parts["grad"][n][0] for n in group]
+                shards = flat_reduce_scatter(
+                    [grads[n].float() for n in group], dims, axes)
+                if rest:
+                    shards = self._all_reduce_flat(shards, rest)
+                out.update(zip(group, shards))
+        by_axes = {}
+        for n in self._names:
+            if n not in out:
+                by_axes.setdefault(self._reduce_axes(n), []).append(n)
+        for axes, whole in by_axes.items():
+            tensors = [grads[n].float() for n in whole]
+            out.update(zip(whole, self._all_reduce_flat(tensors, axes)
+                           if axes else tensors))
         dp = self.dp
         return {n: (out[n] / dp if dp > 1 else out[n]).to(grads[n].dtype)
                 for n in self._names}
@@ -348,7 +440,8 @@ class DeepSpeedEngine:
 
     def gathered_master(self):
         """The whole fp32 master on every rank (collective over the
-        partition group at stage >= 1; the master itself otherwise)."""
+        partition group at stage >= 1 and over the expert axes of the
+        expert leaves; the master itself otherwise)."""
         master = self.state["master"]
         out = dict(master)
         for axes, names in _by_axes(self._names,
@@ -356,6 +449,10 @@ class DeepSpeedEngine:
             out.update(zip(names, flat_all_gather(
                 [master[n] for n in names],
                 [self.plan.parts["master"][n][0] for n in names], axes)))
+        for axes, names in _by_axes(list(self._expert), self._expert).items():
+            out.update(zip(names, flat_all_gather(
+                [out[n] for n in names],
+                [self._expert[n][0] for n in names], axes)))
         return {n: out[n] for n in self._names}
 
     # ------------------------------------------------------------- batches
@@ -397,21 +494,21 @@ class DeepSpeedEngine:
 
     def _unscale_clip(self, grads, scale):
         """Unscale, overflow check and global-norm clip (engine.py:609-628):
-        returns (grads, finite, gnorm). A partitioned gradient leaf counts
-        its shards, summed over its partition group with the overflow
-        flag; a replicated one counts once. The unscale and the clip run
-        in place on the accumulated buffers (the same ops as ``g / scale``
-        and ``g * coef`` in the buffers' dtype), so no second copy of the
-        gradients exists."""
+        returns (grads, finite, gnorm). A partitioned or expert gradient
+        leaf counts its shards, summed over the axes it is split over with
+        the overflow flag; a replicated one counts once. The unscale and the
+        clip run in place on the accumulated buffers (the same ops as ``g /
+        scale`` and ``g * coef`` in the buffers' dtype), so no second copy
+        of the gradients exists."""
         for g in grads.values():
             g.div_(scale)
         finite = grads_finite(grads.values())
-        split = _by_axes(self._names, self.plan.parts["grad"])
-        parted = {n for names in split.values() for n in names}
-        sq = torch.zeros((), dtype=torch.float32, device=self.device)
+        split = {}
         for n in self._names:
-            if n not in parted:
-                sq = sq + grads[n].float().square().sum()
+            split.setdefault(self._split_axes(n, "grad"), []).append(n)
+        sq = torch.zeros((), dtype=torch.float32, device=self.device)
+        for n in split.pop((), []):
+            sq = sq + grads[n].float().square().sum()
         for axes, names in split.items():
             part = torch.zeros((), dtype=torch.float32, device=self.device)
             for n in names:
@@ -460,15 +557,26 @@ class DeepSpeedEngine:
         if self.dp > 1:
             loss = comm.all_reduce(loss, self._live(groups.DP_AXES),
                                    op="avg")
-        metrics = self._apply_update(acc)
+        metrics = self._apply_update(acc, self._current_lr())
         metrics["loss"] = loss
         self._global_grad_norm = metrics["grad_norm"]
+        self.last_metrics = metrics
         self.global_step += 1
         self.micro_steps += gas
+        if self.lr_scheduler is not None:
+            self.lr_scheduler.step()
         self._maybe_print(metrics)
         return loss
 
-    def _apply_update(self, grads):
+    def _current_lr(self):
+        """This step's lr: the schedule's value at ``global_step`` (fp32,
+        as the JAX engine passes it), else the optimizer's own."""
+        if self.lr_scheduler is not None:
+            return torch.as_tensor(self.lr_scheduler(self.global_step),
+                                   dtype=torch.float32, device=self.device)
+        return self.optimizer.lr
+
+    def _apply_update(self, grads, lr):
         state = self.state
         scale = state["scale"]["scale"]
         grads, finite, gnorm = self._unscale_clip(grads, scale)
@@ -483,12 +591,12 @@ class DeepSpeedEngine:
                              if self.plan.parts["grad"][n][0] is None
                              else g) for n, g in grads.items()}
                 self.optimizer.update(grads, state["opt"], state["master"],
-                                      lr=self.optimizer.lr)
+                                      lr=lr)
                 self._refresh_params()
         state["scale"] = self.loss_scaler.update(state["scale"], overflow)
         state["step"] += 1
         return {"grad_norm": gnorm, "overflow": overflow,
-                "loss_scale": scale}
+                "loss_scale": scale, "lr": lr}
 
     def _refresh_params(self):
         """The working parameters from the master: a leaf laid out alike in
@@ -525,13 +633,14 @@ class DeepSpeedEngine:
                 and self.global_step % self.config.steps_per_print == 0):
             log_dist(
                 f"step={self.global_step} loss={float(metrics['loss']):.4f} "
-                f"lr={float(self.optimizer.lr):.3e} "
+                f"lr={float(metrics['lr']):.3e} "
                 f"grad_norm={float(metrics['grad_norm']):.3f} "
                 f"scale={float(metrics['loss_scale']):.0f} "
                 f"overflow={metrics['overflow']}", ranks=[0])
 
     def get_lr(self):
-        return [float(self.optimizer.lr)]
+        """The lr of the next step."""
+        return [float(self._current_lr())]
 
     def get_global_grad_norm(self):
         """The last step's global gradient norm before clipping (the same
@@ -546,15 +655,18 @@ class DeepSpeedEngine:
         ``_ckpt_tree`` (engine.py:1718) — fp32 master, optimizer state,
         loss-scale state, ``step`` and ``skipped`` (0-d int32) and
         ``rng_data`` (uint32 (2,)), nested by the JAX tree paths — with
-        this rank's shards where the plan partitions a leaf; ``parts``:
-        key -> (dim, axes) of every partitioned leaf."""
+        this rank's shards where the plan partitions a leaf or a leaf holds
+        this rank's experts; ``parts``: key -> the (dim, axes) splits of
+        every such leaf."""
         st, plan = self.state, self.plan
         parts = {}
 
         def nest(prefix, named):
             for n in named:
-                parts[f"{prefix}/{n.replace('.', '/')}"] = \
-                    plan.parts["master"][n]
+                splits = [self._expert[n]] if n in self._expert else []
+                if plan.parts["master"][n][0] is not None:
+                    splits.append(plan.parts["master"][n])
+                parts[f"{prefix}/{n.replace('.', '/')}"] = splits
             return _nest(named)
 
         opt = {k: (nest(f"opt/{k}", v) if isinstance(v, dict) else v)
@@ -564,7 +676,7 @@ class DeepSpeedEngine:
                 "step": np.asarray(st["step"], np.int32),
                 "skipped": np.asarray(self.skipped_steps, np.int32),
                 "rng_data": np.asarray(self.rng_data, np.uint32)}
-        return tree, {k: v for k, v in parts.items() if v[0] is not None}
+        return tree, {k: v for k, v in parts.items() if v}
 
     def save_checkpoint(self, save_dir, tag=None, client_state=None,
                         save_latest=True):
@@ -587,7 +699,7 @@ class DeepSpeedEngine:
         fault_injection.fire("d2h")
         tree, parts = self._ckpt_tree()
         chunks, index, meta = ser.extract_local_chunks(
-            tree, lambda k: parts.get(k, (None, ())), self.topology)
+            tree, lambda k: parts.get(k, []), self.topology)
         cfg = self.config
         extra = {
             "index": index,
@@ -597,7 +709,9 @@ class DeepSpeedEngine:
                 "micro_steps": self.micro_steps,
                 "zero_stage": self.zero_stage,
                 "nprocs": self.topology.world_size,
-                "lr_scheduler": None,
+                "lr_scheduler": (self.lr_scheduler.state_dict()
+                                 if self.lr_scheduler is not None
+                                 else None),
                 "client_state": client_state or {},
                 # reshape-on-resume metadata: the topology / batch this
                 # generation was written under and the plan (diagnostic;
@@ -690,9 +804,9 @@ class DeepSpeedEngine:
         the working parameters are recast from the master. With
         ``elastic_reshape`` a checkpoint of another topology or stage
         keeps its global batch (gas rescaled), realigns micro_steps and
-        folds the RNG words for the new world.
-        ``load_lr_scheduler_states`` is accepted for parity (the port has
-        no scheduler)."""
+        folds the RNG words for the new world. With
+        ``load_lr_scheduler_states`` the schedule's saved state is loaded
+        into this engine's schedule (JAX engine.py:2065)."""
         self.checkpoint_engine.drain()
 
         def loader(tag_dir):
@@ -710,6 +824,9 @@ class DeepSpeedEngine:
                                   header.get("meta"))
         extra = header["extra"]
         self._restore(tree, load_optimizer_states)
+        if (load_lr_scheduler_states and self.lr_scheduler is not None
+                and extra.get("lr_scheduler") is not None):
+            self.lr_scheduler.load_state_dict(extra["lr_scheduler"])
         self.global_step = int(extra.get("global_step", 0))
         self.micro_steps = int(extra.get("micro_steps", 0))
         if elastic_reshape:
@@ -722,9 +839,16 @@ class DeepSpeedEngine:
         master (no collective: every rank holds the global arrays)."""
         st, dev = self.state, self.device
 
+        def local(arr, name):
+            """This rank's experts of a whole leaf (the leaf otherwise)."""
+            x = torch.from_numpy(np.asarray(arr))
+            if name in self._expert:
+                dim, axes = self._expert[name]
+                x = shard(x, dim, axes, self.topology)
+            return x
+
         def into(dst, arr, name):
-            src = self._shard(torch.from_numpy(np.asarray(arr)), "master",
-                              name)
+            src = self._shard(local(arr, name), "master", name)
             if tuple(src.shape) != tuple(dst.shape):
                 raise ValueError(
                     f"checkpoint leaf {name}: shard {tuple(src.shape)} does "
@@ -749,8 +873,7 @@ class DeepSpeedEngine:
                            for k, v in st["scale"].items()}
             params, shards = st["params"], st["param_shards"]
             for n in self._names:
-                whole = torch.from_numpy(np.asarray(master[n])).to(
-                    dev).to(self.param_dtype)
+                whole = local(master[n], n).to(dev).to(self.param_dtype)
                 if n in shards:
                     shards[n].copy_(self._shard(whole, "param", n))
                 else:

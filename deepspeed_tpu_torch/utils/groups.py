@@ -22,9 +22,12 @@ whole world is the default group. Without an initialized world the
 topology has one rank and no groups; the comm layer then computes each
 collective's one-rank result locally.
 
-This slice runs the ``data``, ``data_outer`` and ``seq`` axes; a
-``tensor``, ``pipe`` or ``expert`` axis of more than one rank raises,
-naming its ROADMAP item.
+The port runs the ``data``, ``data_outer``, ``expert`` and ``seq`` axes;
+a ``tensor`` or ``pipe`` axis of more than one rank raises, naming its
+ROADMAP item. The batch splits over ``BATCH_AXES`` (``expert`` included:
+an expert-parallel rank is also a data-parallel one); non-expert
+parameters are replicated over ``DP_AXES``, expert parameters over
+``EXPERT_DP_AXES``.
 """
 
 from dataclasses import dataclass
@@ -41,9 +44,7 @@ GRAD_REDUCE_AXES = ("data_outer", "data", "expert", "seq")
 BATCH_AXES = ("data_outer", "data", "expert")  # batch dim of the global batch
 
 _TODO = {"tensor_parallel_size": "(ROADMAP Queue 1, M5: tensor parallel)",
-         "pipe_parallel_size": "(ROADMAP Queue 1, M13: pipeline)",
-         "expert_parallel_size": "(ROADMAP Queue 1, M10: MoE expert "
-                                 "parallel)"}
+         "pipe_parallel_size": "(ROADMAP Queue 1, M13: pipeline)"}
 
 
 @dataclass(frozen=True)
@@ -82,7 +83,8 @@ class ParallelTopology:
         w, r = _world()
         n = w if world_size is None else world_size
         self.rank = r if rank is None else rank
-        fixed = config.seq_parallel_size
+        ep = config.expert_parallel_size
+        fixed = config.seq_parallel_size * ep
         dp = config.data_parallel_size
         if dp == -1:
             if n % fixed != 0:
@@ -93,7 +95,7 @@ class ParallelTopology:
         if dp * fixed != n:
             raise ValueError(
                 f"data({dp}) * tensor(1) * pipe(1) * "
-                f"seq({config.seq_parallel_size}) * expert(1) = "
+                f"seq({config.seq_parallel_size}) * expert({ep}) = "
                 f"{dp * fixed} != world size {n}")
         shard = config.zero_shard_size
         if shard in (-1, 0):
@@ -104,8 +106,9 @@ class ParallelTopology:
                 f"size {dp}")
         self.config = TopologyConfig(
             data_parallel_size=dp, seq_parallel_size=config.seq_parallel_size,
-            zero_shard_size=shard)
-        self.shape = (1, dp // shard, shard, 1, config.seq_parallel_size, 1)
+            expert_parallel_size=ep, zero_shard_size=shard)
+        self.shape = (1, dp // shard, shard, ep, config.seq_parallel_size,
+                      1)
         self.ranks = np.arange(n).reshape(self.shape)
         self.coords = dict(zip(MESH_AXES,
                                np.unravel_index(self.rank, self.shape)))

@@ -166,11 +166,20 @@ def test_topology_layout_matches_jax_mesh(cfg):
 
 def test_unported_axes_raise():
     for name, item in (("tensor_parallel_size", "M5"),
-                       ("pipe_parallel_size", "M13"),
-                       ("expert_parallel_size", "M10")):
+                       ("pipe_parallel_size", "M13")):
         with pytest.raises(NotImplementedError, match=item):
             groups.ParallelTopology(groups.TopologyConfig(**{name: 2}),
                                     world_size=2, rank=0)
+    # the expert axis is ported: ranks (data_outer, expert) as JAX's mesh
+    t = groups.ParallelTopology(groups.TopologyConfig(
+        expert_parallel_size=2, zero_shard_size=1), world_size=4, rank=3)
+    assert t.shape == (1, 2, 1, 2, 1, 1)
+    assert t.axis_index("expert") == 1 and t.axis_index("data_outer") == 1
+    assert t.get_data_parallel_world_size() == 4
+    assert t.get_expert_data_parallel_world_size() == 2
+    with pytest.raises(ValueError, match="expert"):
+        groups.ParallelTopology(groups.TopologyConfig(
+            expert_parallel_size=3), world_size=4, rank=0)
     with pytest.raises(ValueError, match="divisible"):
         groups.ParallelTopology(groups.TopologyConfig(seq_parallel_size=3),
                                 world_size=4, rank=0)

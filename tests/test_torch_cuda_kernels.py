@@ -1,7 +1,8 @@
 """The Hopper kernels on the card (paged attention, flash attention forward
 and backward (K1 and K2 also on their sm90 designs, K2-qmajor's bitwise
 equal to K2's), fused CE, the MoE grouped matmuls and their backward, the
-weight-only int8/int4 products K7 and K9, the LayerNorm forward and
+weight-only int8/int4 products K7 and K9, K1 / K2 on fp16 operands, the
+LayerNorm forward and
 backward and the RMSNorm forward K13, the layout-owning projection and its
 dW K6 (K3, K6 and K8's grouped_tgmm in bf16 through their wgmma
 designs, at ragged shapes and repeated bitwise; K4's split decode at
@@ -434,6 +435,46 @@ def test_flash_bwd_sm90(B, H, T, d, causal, window, heads_major, dl):
     for name, got, ref in zip(("dq", "dk", "dv"), kmajor[0], refs):
         assert got.stride() == {"dq": q, "dk": k, "dv": v}[name].stride()
         assert chip_smoke.bf16_grad_mismatch(got, ref) is None, name
+
+
+@pytest.mark.parametrize("B,H,T,d,causal,window", [
+    (2, 3, 256, 64, True, 0),
+    (1, 2, 333, 128, True, 100),
+    (2, 2, 200, 64, False, 0),
+    (1, 2, 130, 32, True, 0),        # the mma_sync design
+])
+def test_flash_fp16(B, H, T, d, causal, window):
+    """K1 and K2 on fp16 operands (the fp16 build of flash_attention.cu):
+    o and each gradient within the fp16 limits of the plain version in
+    fp32 (chip_smoke.fp16_mismatch / fp16_grad_mismatch), the design by
+    the rule (sm90 at d = 64 / 128, mma_sync at 32) counted and split by
+    dtype, repeated bitwise."""
+    rs = np.random.RandomState(T + d)
+    h = torch.float16
+    q, k, v, do = (_rand(rs, (B, T, H, d), h).transpose(1, 2)
+                   for _ in range(4))
+    q = fa.scale_q(q, d ** -0.5)
+    kw = dict(causal=causal, window=window)
+    fa.reset_launch_counts()
+    fwd = [fa.flash_forward(q, k, v, **kw) for _ in range(2)]
+    o, lse = fwd[0]
+    bwd = [fa.flash_backward(q, k, v, o, lse, do, **kw) for _ in range(2)]
+    torch.cuda.synchronize()
+    design = "mma_sync" if d == 32 else "sm90"
+    for name in ("flash_fwd", "flash_bwd"):
+        assert fa.DESIGN_LAUNCHES[name][design] == 2
+        assert fa.DTYPE_LAUNCHES[name] == {"float32": 0, "bfloat16": 0,
+                                           "float16": 2}
+    assert all(torch.equal(a, b) for a, b in zip(*fwd))
+    assert all(torch.equal(a, b) for a, b in zip(*bwd))
+    ro, rlse = fa.flash_forward_reference(q.float(), k.float(), v.float(),
+                                          **kw)
+    assert chip_smoke.fp16_mismatch(o, ro) is None
+    torch.testing.assert_close(lse, rlse, rtol=0, atol=1e-3)
+    refs = fa.flash_backward_reference(*(x.float() for x in (q, k, v, o)),
+                                       lse, do.float(), **kw)
+    for name, got, ref in zip(("dq", "dk", "dv"), bwd[0], refs):
+        assert chip_smoke.fp16_grad_mismatch(got, ref) is None, name
 
 
 def test_flash_bwd_launchers_refuse_a_wrong_design():

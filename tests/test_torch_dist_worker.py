@@ -298,7 +298,7 @@ def _local_state(engine):
     return out
 
 
-def _ckpt_runs(inp, engines):
+def _ckpt_runs(inp, engines, build=None):
     """Checkpoints at this world's dp: each engine of ``inp["ckpt"]
     ["names"]`` (after its run) saves a tag, a fresh engine loads it
     (explicit tag) and both take the ``next`` batch; a fresh engine also
@@ -320,9 +320,10 @@ def _ckpt_runs(inp, engines):
 
         def fresh():
             groups.reset()
+            model = (build(run) if build
+                     else _gpt2(run["model"], run["params"]))
             e, *_ = deepspeed_tpu_torch.initialize(
-                model=_gpt2(run["model"], run["params"]),
-                config=run["config"], device="cpu")
+                model=model, config=run["config"], device="cpu")
             return e
         e2 = fresh()
         path, client = e2.load_checkpoint(d, tag=tag)
@@ -353,7 +354,6 @@ def zero(inp, rank, world):
     this rank's master and stage-3 parameter shard shapes; then, with
     ``inp["ckpt"]``, the checkpoint runs of ``_ckpt_runs``."""
     import deepspeed_tpu_torch
-    from deepspeed_tpu_torch.runtime import engine as eng
     from deepspeed_tpu_torch.utils import groups
     out, engines = {}, {}
     for name, run in inp["runs"].items():
@@ -368,13 +368,7 @@ def zero(inp, rank, world):
         def record(grads, scale, engine=engine, unscale_clip=unscale_clip,
                    steps=steps):
             got = unscale_clip(grads, scale)
-            whole = dict(got[0])
-            parts = engine.plan.parts["grad"]
-            for axes, names in eng._by_axes(whole, parts).items():
-                whole.update(zip(names, eng.flat_all_gather(
-                    [whole[n] for n in names], [parts[n][0] for n in names],
-                    axes)))
-            steps.append(whole)
+            steps.append(_whole_grads(engine, got[0]))
             return got
         engine._unscale_clip = record
         losses, norms = [], []
@@ -417,7 +411,6 @@ def moe_dp(inp, rank, world):
     gathered master, as the ``zero`` suite records them."""
     import torch
     import deepspeed_tpu_torch
-    from deepspeed_tpu_torch.runtime import engine as eng
     from deepspeed_tpu_torch.utils import groups
     out = {}
     groups.reset()
@@ -445,13 +438,7 @@ def moe_dp(inp, rank, world):
         def record(grads, scale, engine=engine, unscale_clip=unscale_clip,
                    steps=steps):
             got = unscale_clip(grads, scale)
-            whole = {n: g.clone() for n, g in got[0].items()}
-            parts = engine.plan.parts["grad"]
-            for axes, names in eng._by_axes(whole, parts).items():
-                whole.update(zip(names, eng.flat_all_gather(
-                    [whole[n] for n in names], [parts[n][0] for n in names],
-                    axes)))
-            steps.append(whole)
+            steps.append(_whole_grads(engine, got[0]))
             return got
         engine._unscale_clip = record
         losses, norms = [], []
@@ -463,6 +450,126 @@ def moe_dp(inp, rank, world):
             "dp": engine.dp,
             "master": {n: m.clone()
                        for n, m in engine.gathered_master().items()}}
+    return {"res": _np(out)}
+
+
+def _model(run):
+    """The port model of a run: ``run["kind"]`` gpt2 | gpt2_moe | mixtral
+    from the JAX parameter tree ``run["params"]``, fp32 on the CPU."""
+    import torch
+    from deepspeed_tpu_torch.models import (Mixtral, MixtralConfig,
+                                            mixtral_params_from_numpy)
+    kind = run.get("kind", "gpt2")
+    if kind == "gpt2":
+        return _gpt2(run["model"], run["params"])
+    if kind == "gpt2_moe":
+        return _gpt2_moe(run["model"], run["params"])
+    model = Mixtral(MixtralConfig(**run["model"]), device="cpu")
+    model.load_state_dict(mixtral_params_from_numpy(run["params"], "cpu",
+                                                    torch.float32))
+    return model
+
+
+def _whole_grads(engine, grads):
+    """The clipped gradients made whole: the ZeRO partitions, then the
+    expert leaves' experts, all-gathered."""
+    from deepspeed_tpu_torch.runtime import engine as eng
+    whole = {n: g.clone() for n, g in grads.items()}
+    parts = engine.plan.parts["grad"]
+    for axes, names in eng._by_axes(whole, parts).items():
+        whole.update(zip(names, eng.flat_all_gather(
+            [whole[n] for n in names], [parts[n][0] for n in names], axes)))
+    ex = engine._expert
+    for axes, names in eng._by_axes(list(ex), ex).items():
+        whole.update(zip(names, eng.flat_all_gather(
+            [whole[n] for n in names], [ex[n][0] for n in names], axes)))
+    return whole
+
+
+def _ep_fn_case(case):
+    """One call of an expert-parallel MoE function on this rank's rows
+    ``case["rows"]`` (counts in BATCH_AXES order) of ``case["x"]`` with
+    this rank's experts, and the gradients of sum(y * dy)."""
+    import torch
+    from deepspeed_tpu_torch.moe import sharded_moe as sm
+    from deepspeed_tpu_torch.utils import groups
+    topo = _topology(**case["topo"])
+    eaxes = ("data_outer", "expert") if case.get("staged") else ("expert",)
+    n_e, e_idx = topo.axis_size(eaxes), topo.axis_index(eaxes)
+    r = topo.axis_index(groups.BATCH_AXES)
+    lo = int(sum(case["rows"][:r]))
+    hi = lo + int(case["rows"][r])
+    x = torch.from_numpy(case["x"][lo:hi]).requires_grad_()
+    dy = torch.from_numpy(case["dy"][lo:hi])
+    p = {}
+    for k, v in case["params"].items():
+        t = torch.from_numpy(v)
+        if k != "gate":
+            e_loc = t.shape[0] // n_e
+            t = t[e_idx * e_loc:(e_idx + 1) * e_loc]
+        p[k] = t.clone().requires_grad_()
+    aux = None
+    if case["kind"] == "layer":
+        dp_axes = tuple(a for a in groups.BATCH_AXES
+                        if topo.axis_size(a) > 1)
+        y, aux, counts = sm.moe_layer_ragged_ep(
+            x, p["gate"], p["wi"], p["bi"], p["wo"], p["bo"], k=case["k"],
+            expert_parallel_size=topo.axis_size("expert"),
+            grouped_kernel=case["kernel"], dp_axes=dp_axes)
+    else:
+        y, counts = sm.moe_swiglu_ragged_ep(
+            x, p["gate"], p["w1"], p["w3"], p["w2"], k=case["k"],
+            hierarchical=case["hierarchical"],
+            dcn_quantize=case["dcn_quantize"],
+            grouped_kernel=case["kernel"], return_counts=True)
+    (y * dy).sum().backward()
+    return {"y": y, "aux": aux, "counts": counts, "e_idx": e_idx,
+            "grads": {"x": x.grad, **{k: v.grad for k, v in p.items()}}}
+
+
+@_suite
+def moe_ep(inp, rank, world):
+    """Expert parallelism: each case of ``inp["fn"]`` (``_ep_fn_case``);
+    then each run of ``inp["runs"]`` through initialize -> train_batch
+    (losses, grad norms, each step's clipped gradients and the master,
+    made whole), the host bytes the exchanges staged, and, with
+    ``inp["ckpt"]``, the checkpoint runs of ``_ckpt_runs``."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.comm import get_comms_logger
+    from deepspeed_tpu_torch.utils import groups
+    out = {"fn": {name: _ep_fn_case(case)
+                  for name, case in inp["fn"].items()}}
+    engines = {}
+    for name, run in inp["runs"].items():
+        groups.reset()
+        engine, *_ = deepspeed_tpu_torch.initialize(
+            model=_model(run), config=run["config"], device="cpu")
+        engines[name] = engine
+        steps = []
+        unscale_clip = engine._unscale_clip
+
+        def record(grads, scale, engine=engine, unscale_clip=unscale_clip,
+                   steps=steps):
+            got = unscale_clip(grads, scale)
+            steps.append(_whole_grads(engine, got[0]))
+            return got
+        engine._unscale_clip = record
+        losses, norms = [], []
+        for b in run["batches"]:
+            losses.append(engine.train_batch(b))
+            norms.append(engine.get_global_grad_norm())
+        out[name] = {
+            "losses": losses, "grad_norms": norms, "grads": list(steps),
+            "dp": engine.dp, "ep": engine.topology.axis_size("expert"),
+            "expert_leaves": sorted(engine._expert),
+            "shard_shapes": {n: tuple(m.shape) for n, m in
+                             engine.state["master"].items()},
+            "master": {n: m.clone()
+                       for n, m in engine.gathered_master().items()}}
+        engine._unscale_clip = unscale_clip
+    out["host_staged"] = dict(get_comms_logger().host_staged)
+    if inp.get("ckpt"):
+        out["ckpt"] = _ckpt_runs(inp, engines, lambda run: _model(run))
     return {"res": _np(out)}
 
 

@@ -95,6 +95,55 @@ def test_lse_cotangent_matches_jax():
                                    **GRAD_TOL)
 
 
+@pytest.mark.parametrize("overflow", [False, True])
+def test_fp16_matches_jax_kernel(overflow):
+    """fp16 operands: o, lse and the gradients of the port (its plain
+    versions on CPU tensors, the kernels' arithmetic) against the JAX
+    Pallas kernels in interpret mode, within one fp16 rounding (rtol
+    2^-9); with ``overflow`` the cotangent of the first query rows sits
+    near fp16's top, so ds passes 65504 and rounds to inf in both: the
+    same gradient rows are non-finite, and the rows the large cotangent
+    does not reach (queries and, causal, keys past the first 6) agree: in
+    the others ds is a difference of two terms near 1e5, whose fp32
+    rounding differs between two summation orders."""
+    q, k, v, cot = (x.astype(np.float16) for x in _inputs(1, 64, 2, 32,
+                                                           seed=6))
+    if overflow:
+        v = v * np.float16(4)
+        cot[:, :6] = 6e4
+    tol = dict(rtol=2 ** -9, atol=2e-3)
+    jo, jlse = jfa.flash_attention_with_lse(
+        *map(jnp.asarray, (q, k, v)), block_q=32, block_k=32,
+        interpret=True)
+    o, lse = tfa.flash_attention_with_lse(*map(torch.from_numpy, (q, k, v)))
+    assert o.dtype == torch.float16
+    np.testing.assert_allclose(o.float().numpy(),
+                               np.asarray(jo, np.float32), **tol)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), **FWD_TOL)
+
+    def jloss(q, k, v):
+        o = jfa.flash_attention(q, k, v, block_q=32, block_k=32,
+                                interpret=True)
+        return jnp.sum(o.astype(jnp.float32) * jnp.asarray(cot, jnp.float32))
+
+    jg = jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    (tfa.flash_attention(tq, tk, tv).float()
+     * torch.from_numpy(cot).float()).sum().backward()
+    for name, got, want in zip("qkv", (tq.grad, tk.grad, tv.grad), jg):
+        got = got.float().numpy()
+        want = np.asarray(want, np.float32)
+        rows = np.isfinite(want).all(-1)
+        np.testing.assert_array_equal(np.isfinite(got).all(-1), rows,
+                                      err_msg=name)
+        assert rows.any()
+        if name == "q":
+            assert overflow != rows.all()
+        far = slice(6, None) if overflow else slice(None)
+        np.testing.assert_allclose(got[:, far], want[:, far], err_msg=name,
+                                   **tol)
+
+
 def test_plain_versions_agree_with_each_other():
     """flash_forward/backward_reference (the kernels' plain versions) on
     (B, H, T, d) equal autograd through the dense reference."""
@@ -202,6 +251,58 @@ def test_bwd_design_rule():
     qkv_t = [x.transpose(-1, -2) for x in
              (torch.empty(2, 4, 64, 128, dtype=bf) for _ in range(5))]
     assert design(qkv_t) == "mma_sync"
+
+
+def test_fp16_design_rule_and_library():
+    """fp16 operands take bf16's rule (the .f16 forms of the same designs:
+    sm90 at d = 64 / 128 that TMA can address, mma_sync at d = 32 or what
+    TMA cannot address) from the fp16 build of flash_attention.cu, dtype
+    code 1 of its library; K2-qmajor and K10 refuse fp16 before any
+    build."""
+    from deepspeed_tpu_torch.op_builder import (FlashAttentionBuilder,
+                                                FlashAttentionF16Builder)
+    h = torch.float16
+    views = [torch.empty(24, 1024, 16, 64, dtype=h).transpose(1, 2)
+             for _ in range(5)]
+    assert tfa._fwd_design(*views[:3]) == "sm90"
+    assert tfa._bwd_design(*views, views[:3]) == "sm90"
+    d32 = [torch.empty(2, 4, 100, 32, dtype=h) for _ in range(5)]
+    assert tfa._fwd_design(*d32[:3]) == "mma_sync"
+    assert tfa._bwd_design(*d32, d32[:3]) == "mma_sync"
+    wide = torch.empty(2, 64, 4, 68, dtype=h)[..., :64].transpose(1, 2)
+    good = [torch.empty(2, 4, 64, 64, dtype=h) for _ in range(3)]
+    assert tfa._fwd_design(wide, *good[1:]) == "mma_sync"
+    assert tfa._DTYPE_CODE[h] == tfa._DTYPE_CODE[torch.bfloat16] == 1
+    f16, b16 = FlashAttentionF16Builder(), FlashAttentionBuilder()
+    assert f16.flags() == b16.flags() + ["-DDS_ELEM_F16"]
+    assert f16.SOURCES == b16.SOURCES and "elem16.cuh" in f16.DEPENDS
+    assert f16.so_path() != b16.so_path()
+    x = torch.empty(1, 2, 64, 64, dtype=h, device="meta")
+    lse = torch.empty(1, 2, 64, device="meta")
+    with pytest.raises(TypeError, match="fp16 operands.*ROADMAP"):
+        tfa.flash_backward_qmajor(x, x, x, x, lse, x)
+    f = torch.empty(2, 64, 64, dtype=h, device="meta")
+    with pytest.raises(TypeError, match="fp16 operands.*ROADMAP"):
+        tfa.flash_block_fwd(f, f, f, tfa.flash_block_state(2, 64, 64,
+                                                           "meta"))
+
+
+def test_fp16_plain_versions_round_like_the_kernels():
+    """On CPU tensors fp16 takes the plain versions, which round p and ds
+    to fp16 as the kernels do: past fp16's 65504 a ds rounds to inf (no
+    clamp), and the rows it reaches are non-finite."""
+    rs = np.random.RandomState(3)
+    q, k, v, do = (torch.from_numpy(rs.randn(1, 2, 16, 32).astype(
+        np.float32)).half() for _ in range(4))
+    o, lse = tfa.flash_forward(q, k, v)
+    assert o.dtype == torch.float16
+    ro, _ = tfa.flash_forward_reference(q.float(), k.float(), v.float())
+    torch.testing.assert_close(o.float(), ro, rtol=2 ** -9, atol=1e-3)
+    do[:, :, :4] = 3e4
+    dq, dk, dv = tfa.flash_backward(q, k, v, o, lse, do)
+    assert not torch.isfinite(dq[:, :, 1:4]).all()
+    assert torch.isfinite(dq[:, :, 4:]).all()
+    assert float(dq[torch.isfinite(dq)].abs().max()) < 65504
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -232,9 +232,9 @@ def test_engine_moe_block_overrides_the_model_knob(model_knob, block, want,
 
 
 def test_unported_moe_paths_raise():
-    """moe_backend='dense' (GShard capacity), an expert-parallel config, a
-    quantized expert leaf and ragged noisy gating raise; the moe block is
-    validated as JAX's."""
+    """moe_backend='dense' (GShard capacity), an expert-parallel config
+    whose world cannot hold its expert axis, a quantized expert leaf and
+    ragged noisy gating raise; the moe block is validated as JAX's."""
     with pytest.raises(NotImplementedError, match="GShard capacity"):
         GPT2MoE(GPT2MoEConfig(**{**BASE, "moe_backend": "dense"}),
                 device="cpu")
@@ -245,7 +245,7 @@ def test_unported_moe_paths_raise():
         GPT2MoE(GPT2MoEConfig(**{**BASE, "noisy_gate_policy": "Jitter"}),
                 device="cpu")
     model = GPT2MoE(GPT2MoEConfig(**BASE), device="cpu")
-    with pytest.raises(NotImplementedError, match="expert parallel"):
+    with pytest.raises(ValueError, match="expert=2"):
         deepspeed_tpu_torch.initialize(
             model=model, device="cpu",
             config={"train_batch_size": 2, "expert_parallel_size": 2,

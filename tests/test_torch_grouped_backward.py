@@ -300,7 +300,8 @@ def test_moe_module_checks_and_init():
     """The constructor's checks as JAX's MoE (ragged + noisy gating and
     k < 1 raise ValueError, a bad knob raises); the dense GShard backend
     raises naming its ROADMAP item; init gives the JAX names and shapes,
-    the router in fp32; EP > 1 raises naming its item."""
+    the router in fp32, the JAX partition specs (experts over "expert");
+    EP > 1 without an expert axis of that size raises."""
     with pytest.raises(ValueError, match="noisy_gate_policy"):
         MoE(32, num_experts=4, k=2, backend="ragged",
             noisy_gate_policy="RSample")
@@ -323,6 +324,11 @@ def test_moe_module_checks_and_init():
     one = {k: v[0] for k, v in params.items()}
     y, aux, counts = layer.apply(one, x)
     assert y.shape == x.shape and int(counts.sum()) == 2 * 10
-    with pytest.raises(NotImplementedError, match="expert parallel"):
+    assert layer.partition_specs(stacked=True) == {
+        "gate_w": (None, None, None), "wi": (None, "expert", None, "tensor"),
+        "bi": (None, "expert", "tensor"), "wo": (None, "expert", "tensor",
+                                                 None),
+        "bo": (None, "expert", None)}
+    with pytest.raises(ValueError, match="expert axis has 1 ranks"):
         moe.moe_layer_ragged_ep(x, *one.values(), k=2,
                                 expert_parallel_size=2)

@@ -357,10 +357,10 @@ def test_training_entry_points_default_to_the_card(monkeypatch):
 
 def test_training_rejects_unported_config():
     model = GPT2(GPT2Config(**_TRAIN_CFG), device="cpu")
-    for over in ({"pipeline": {"stages": 2}}, {"expert_parallel_size": 2},
+    for over in ({"pipeline": {"stages": 2}}, {"tensor_parallel": {"size": 2}},
                  {"zero_optimization": {"offload_param": {"device": "nvme"}}},
-                 {"scheduler": {"type": "WarmupLR"}},
-                 {"optimizer": {"type": "Lion", "params": {}}}):
+                 {"quantize": {"int8_matmul": True}},
+                 {"comm_overlap": {"enabled": True}}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             deepspeed_tpu_torch.initialize(
                 model=model, config={**_TRAIN_CONFIG, **over}, device="cpu")
