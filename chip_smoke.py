@@ -145,8 +145,8 @@ Phases (any failure raises and the script exits nonzero):
  15. wq parity: small fp32 Llama and Mixtral, int8 and int4, served with
      weight_quant give the same greedy streams as the same model with
      its dequantized weights served unquantized (split-fuse on and off).
- 16. Llama-2-7B int4 slice and 17. Mixtral-8x7B in int8, each at 16 of
-     its 32 layers: built quantized slice by slice, phase 4's settings and traffic;
+ 16. Llama-2-7B int4 slice and 17. Mixtral-8x7B in int8, each at
+     WQ_LAYERS (8) of its 32 layers: built quantized slice by slice, phase 4's settings and traffic;
      every request returns 64 tokens, launches exactly 3 wq_matmul per
      layer and forward (Llama; each call on the design its rows give:
      every call of at least WQ_SM90_MIN_ROWS rows on sm90) or one
@@ -239,7 +239,8 @@ Phases (any failure raises and the script exits nonzero):
      same model at seq = 1 (2e-5, relative error norm 1e-4);
      quantized_all_gather / quantized_reduce_scatter at world 2 bitwise
      equal to their plain versions.
- 29. the slice: GPT-2 350M (12 of its 24 layers, T=4096, micro 4, ring,
+ 29. the slice: GPT-2 350M (PHASE29["layers"] (3) of its 24 layers,
+     T=4096, micro 4, ring,
      sequence_parallel_size=2, ZeRO-2, bf16) through initialize ->
      train_batch for 5 steps in two processes on cuda:0 over gloo; the
      loss falls and agrees on both ranks; exactly 6 K10 and 3 K2 (every
@@ -265,7 +266,8 @@ Phases (any failure raises and the script exits nonzero):
      dp = 1: losses at 2e-5, global gradient norms at 1e-5, the same loss
      on both ranks, its launches (K1, K2, 4 gmm and 4 tgmm a layer and
      micro step, fp32) the main path "moe-dp2".
- 32. the slice: GPT-2 350M (12 of its 24 layers, the bench configuration,
+ 32. the slice: GPT-2 350M (PHASE32["layers"] (6) of its 24 layers, the
+     bench configuration,
      micro 24 a rank, T=1024) at dp = 2 through initialize -> train_batch,
      ZeRO-2 for 3 steps and ZeRO-3 for 3; the loss falls and agrees on
      both ranks; one K1 and one K2 a layer and 2 K3 a step on each rank (every one on
@@ -301,8 +303,8 @@ Phases (any failure raises and the script exits nonzero):
      decode fleet (disaggregate "auto") and the colocated fleet with
      replica_death on r1's third step: every greedy stream equal to one
      engine's, the death replayed (failovers 1, replayed r1's in-flight
-     count), every live pool closed; (b) full-width Llama-2-7B (16 of
-     its 32 layers) in bf16
+     count), every live pool closed; (b) full-width Llama-2-7B
+     (SERVE_LAYERS (4) of its 32 layers) in bf16
      (phase 4's settings with 160 KV blocks an engine, phase 4's eight
      prompts, all greedy, 64 new tokens): run 1 one engine (the reference
      streams), run 2 Router([prefill p0, decode d0]) over the in-process
@@ -324,7 +326,8 @@ Phases (any failure raises and the script exits nonzero):
      rows, contexts 1024-1500, H = KVH = 32, d = 128) on its sm90 design
      against its plain version, repeated bitwise, the eight slots as views
      q[b] of one tensor, timed beside its SIMT design, SDPA and the bound;
-     then Llama-2-7B in bf16 at 8 layers: (a) 16 requests on a 1024-token
+     then Llama-2-7B in bf16 at SERVE_LAYERS (4) layers: (a) 16 requests
+     on a 1024-token
      system prompt (32 new) with the cache off and on (hit rate, skipped
      prompt tokens, CoW copies, K5 launches, TTFT) and through two
      replicas with prefix_affinity="auto" (where each landed, its
@@ -375,7 +378,7 @@ Phases (any failure raises and the script exits nonzero):
      scale, lr and step time logged; then one bf16 train_batch each
      under LAMB, Lion, Adagrad and SGD.
  39. MoE expert parallel, processes on cuda:0 over gloo: GPT2MoE at the
-     350M widths (2 layers) and Mixtral-8x7B's widths (1 layer) at ep =
+     350M widths (1 layer) and Mixtral-8x7B's widths (1 layer) at ep =
      2, Mixtral's staged exchange at data_outer 2 x expert 2 (4
      processes, Mixtral's widths, 1 layer) with dcn_quantize off and
      on, fp32, each step held
@@ -383,6 +386,35 @@ Phases (any failure raises and the script exits nonzero):
      K8 and K12 launches the dispatches imply, the bytes each rank's
      exchanges stage through host memory and the exchange's share of
      the step.
+ 40. the kernels of the Llama families at their shapes
+     (phase_family_kernels): K1 / K2 with ALiBi at Bloom-7b1's attention
+     (B 1, H 32, T 2048, d 128) on sm90, on mma_sync, falcon-rw's
+     bf16-rounded scaled term (d 64) and on fp16 operands; K1 / K2, K4
+     and K5 at d = 80 (phi-2), 96 (gpt-neox-20b) and 256 (gpt-j-6b); K4 /
+     K5 at Falcon-7b's H 71 / KVH 1 and Qwen2-7B's H 28 / KVH 4; K7 int8
+     at Bloom-7b1's and Falcon-7b's non-gated FFN, 8 and 256 rows: each
+     against its plain version (bf16 / fp16 in fp32 on the same inputs),
+     repeated bitwise where it has a design rule, a control that must fail
+     (the plain version without ALiBi, a skipped key tile, dropped table
+     blocks, a table entry read as its neighbour, a k slice of codes
+     zeroed), timed beside its plain version, the library call (SDPA with
+     the ALiBi term as a float mask; torch.matmul on the dequantized
+     weight) and its bound.
+ 41. Bloom-7b1: its widths at 2 layers in fp32, greedy streams with K4
+     (the ALiBi slopes in the kernel) equal those with K4's plain version;
+     then all 30 layers in bf16 serving 8 requests (64 new each): TTFT /
+     TPOT p50, tokens/s, peak memory, K4's launches by design and no K5
+     (ALiBi prefill and chunk are dense, as in JAX).
+ 42. Bloom-7b1 training: its widths at 2 layers, fp32, T = 512: the loss
+     (1e-5) and every gradient (relative error norm 1e-4) with K1 / K2
+     carrying ALiBi equal the dense path's; then 8 of its 30 layers in
+     bf16 through initialize -> train_batch (AdamW, ZeRO-2, micro 1 x
+     2048), 10 steps: the loss falls, K1 / K2 on sm90 as the step implies;
+     step time, tokens/s, model TFLOP/s, peak memory.
+ 43. Falcon-7b, GPT-NeoX-20B, GPT-J-6B, InternLM-7B, Phi-2 and Qwen2-7B
+     at their published widths, 4 layers each, bf16, 4 requests each:
+     TPOT and K4 / K5 launches by design (d = 64 at G = 71, 96, 256, 128,
+     80, 128 at G = 7).
 Phases 7, 13, 20, 24, 32 and 33 also hold every bf16 K1 / K2 / K2-qmajor /
 K3 / K6 launch to the sm90 design (the wrappers' DESIGN_LAUNCHES); the
 serving slices count K4's launches by design (split / single), the
@@ -861,7 +893,7 @@ class KernelCases:
         return dict(q=q, k=k, v=v, tables=tb, lengths=ln)
 
     def chunk(self, H, KVH, d, BS, MB, C, start, true_len, block_c, dtype,
-              window=0):
+              window=0, want=None):
         NB = 1 + MB
         k, v = self.pools(NB, KVH, BS, d, dtype)
         table = torch.from_numpy(
@@ -874,9 +906,10 @@ class KernelCases:
                                               true_len, window=window,
                                               block_c=block_c)
         torch.cuda.synchronize()
-        # every bf16 case (d = 128, 64-position blocks) on sm90, fp32 on
-        # the fp32 kernel; calls repeat bitwise
-        want = "sm90" if dtype == torch.bfloat16 else "fp32"
+        # every bf16 case (d = 128, 64-position blocks) on sm90 unless the
+        # caller names the design, fp32 on the fp32 kernel; calls repeat
+        # bitwise
+        want = want or ("sm90" if dtype == torch.bfloat16 else "fp32")
         by = self.pa.DESIGN_LAUNCHES["paged_chunk"]
         assert by[want] == 2 and sum(by.values()) == 2, (want, by)
         assert torch.equal(out, again), "paged_chunk: calls differ"
@@ -3196,7 +3229,7 @@ def phase_wq_parity():
 # ---------------------------------------------------------------- wq slices
 
 
-WQ_LAYERS = 16         # of 32 (the run's time limit)
+WQ_LAYERS = 8          # of 32 (the run's time limit)
 
 
 def phase_wq_slice(kind, seed=0, profile=None):
@@ -4974,8 +5007,8 @@ def child_parity():
 
 # a step takes ~18 s through host memory at 12 layers: 5 keep the whole
 # script well inside its time limit
-# GPT-2 350M's widths cut to 6 of its 24 layers (the run's time limit)
-PHASE29 = dict(steps=5, micro=4, seq_len=4096, sp=2, layers=6)
+# GPT-2 350M's widths cut to 3 of its 24 layers (the run's time limit)
+PHASE29 = dict(steps=5, micro=4, seq_len=4096, sp=2, layers=3)
 
 
 def child_train():
@@ -5418,9 +5451,9 @@ def phase_moe_zero_parity(reps):
 
 
 # 3 ZeRO-2 steps (the run's time limit) and 3 ZeRO-3 steps (the tag
-# phase 32 resumes at dp = 1 is global_step3), 12 of the 24 layers (the
+# phase 32 resumes at dp = 1 is global_step3), 6 of the 24 layers (the
 # run's time limit)
-PHASE32 = dict(micro=24, seq_len=1024, steps={2: 3, 3: 3}, layers=12)
+PHASE32 = dict(micro=24, seq_len=1024, steps={2: 3, 3: 3}, layers=6)
 
 
 def master_crc(master):
@@ -5691,9 +5724,9 @@ def corrupt_one_chunk_byte(shard):
     return info.filename
 
 
-# 12 of GPT-2 350M's 24 layers (the run's time limit)
+# 6 of GPT-2 350M's 24 layers (the run's time limit)
 PHASE33 = dict(engines=("sync", "async", "native"), between=4,
-               max_overlap=12, resume_steps=2, layers=12)
+               max_overlap=12, resume_steps=2, layers=6)
 CKPT_STATS = {}
 
 
@@ -6063,7 +6096,7 @@ def phase_router_parity():
 
 # phases 34 and 35 serve Llama-2-7B's widths at 8 of its 32 layers (the
 # run's time limit: both are host-bound, a forward's launches scale with L)
-SERVE_LAYERS = 8
+SERVE_LAYERS = 4
 PHASE34 = dict(blocks=160, new=64)
 
 
@@ -7305,7 +7338,7 @@ def phase_fp16_slice(seed=0):
 # 1 layer (its fp32 experts take 5.6 GB whole; rank 0 keeps an ep = 1
 # copy's gradients in host memory and gathers each variant's there)
 EP_RUNS = {
-    "gpt2moe-ep2": (2, "gpt2moe", 2, {}, {"": {}}),
+    "gpt2moe-ep2": (2, "gpt2moe", 1, {}, {"": {}}),
     "mixtral-ep2": (2, "mixtral", 1, {}, {"": {}}),
     "mixtral-staged": (4, "mixtral", 1, {}, {
         "": {"zero_optimization": {"stage": 1, "mics_shard_size": 1}},
@@ -7583,6 +7616,599 @@ def phase_ep():
     return paths
 
 
+# ------------------------------------------------------- phases 40-43
+
+# K1 / K2 with ALiBi (tag, B, H, T, d, dtype, design, alibi_scale,
+# alibi_bf16): Bloom-7b1's attention on sm90 and, forced, on mma_sync;
+# falcon-rw-1b's (32 heads of 64, HF falcon's bf16-rounded term pre-scaled
+# by 1 / sqrt(d)); Bloom-7b1's shape on fp16 operands
+ALIBI_CASES = (
+    ("bloom-7b1", 1, 32, 2048, 128, torch.bfloat16, "sm90", 1.0, False),
+    ("bloom-7b1-mma_sync", 1, 32, 2048, 128, torch.bfloat16, "mma_sync",
+     1.0, False),
+    ("falcon-rw-1b", 1, 32, 2048, 64, torch.bfloat16, "sm90", 0.125, True),
+    ("bloom-7b1-fp16", 1, 32, 2048, 128, torch.float16, "sm90", 1.0, False))
+# the new head dims at their families' widths: (tag, H, KVH, d)
+HEAD_DIM_CASES = (("phi-2", 32, 32, 80), ("gpt-neox-20b", 64, 64, 96),
+                  ("gpt-j-6b", 16, 16, 256))
+# K4 / K5 at the GQA groups the sm90 chunk design does not take
+GQA_CASES = (("falcon-7b", 71, 1, 64), ("qwen2-7b", 28, 4, 128))
+# K7 at the non-gated FFN shapes: (tag, D, F)
+FFN_CASES = (("bloom-7b1", 4096, 16384), ("falcon-7b", 4544, 18176))
+
+
+def forced_design(fa, design, fn):
+    """``fn`` with K1's and K2's design rules answering ``design``."""
+    def run(*args, **kw):
+        saved = fa._fwd_design, fa._bwd_design
+        fa._fwd_design = lambda *_a, **_k: design
+        fa._bwd_design = lambda *_a, **_k: design
+        try:
+            return fn(*args, **kw)
+        finally:
+            fa._fwd_design, fa._bwd_design = saved
+    return run
+
+
+def alibi_mask(fa, H, T, scale, bf16):
+    """SDPA's float mask of a causal ALiBi attention: the term where a key
+    is live, -inf where the causal mask cuts."""
+    term = fa.alibi_term(H, T, "cuda", scale, bf16)[:, 0]     # (H, T)
+    ok = fa._mask(T, True, 0, "cuda")
+    return torch.where(ok[None], term[:, None, :], float("-inf"))
+
+
+def flash_case(fa, tag, q, k, v, do, kw, design, mismatch, grad_mismatch,
+               control):
+    """K1 then K2 on (B, H, T, d) operands (scale in q) through ``design``,
+    each held against its plain version in fp32 (``mismatch`` /
+    ``grad_mismatch``), each call repeated bitwise; ``control(ro)`` is a
+    wrong answer the check must refuse. Returns (o, lse, max |err| fwd,
+    max |err| bwd, worst slab relative norm)."""
+    fwd = forced_design(fa, design, fa.flash_forward)
+    bwd = forced_design(fa, design, fa.flash_backward)
+    fa.reset_launch_counts()
+    o, lse = fwd(q, k, v, **kw)
+    again = fwd(q, k, v, **kw)
+    grads = bwd(q, k, v, o, lse, do, **kw)
+    grads2 = bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    for name in ("flash_fwd", "flash_bwd"):
+        assert fa.DESIGN_LAUNCHES[name][design] == 2, (tag, fa.DESIGN_LAUNCHES)
+    assert torch.equal(o, again[0]) and all(
+        torch.equal(a, b) for a, b in zip(grads, grads2)), \
+        f"K1 / K2 {tag}: calls differ"
+    del again, grads2
+    f32 = [x.float() for x in (q, k, v, do)]
+    ro, rlse = fa.flash_forward_reference(*f32[:3], **kw)
+    why = mismatch(o, ro)
+    assert why is None, f"flash_fwd {tag}: {why}"
+    torch.testing.assert_close(lse, rlse, rtol=0, atol=1e-3)
+    why = mismatch(o, control(ro))
+    assert why is not None, f"flash_fwd {tag}: the control passed"
+    log(f"control: flash_fwd {tag} against a wrong answer fails ({why})")
+    fwd_err = (o.float() - ro).abs().max().item()
+    refs = fa.flash_backward_reference(*f32[:3], o.float(), lse, f32[3],
+                                       **kw)
+    bwd_err, rel = 0.0, 0.0
+    for gname, a, r in zip(("dq", "dk", "dv"), grads, refs):
+        why = grad_mismatch(a, r)
+        assert why is None, f"flash_bwd {tag} {gname}: {why}"
+        bwd_err = max(bwd_err, (a.float() - r).abs().max().item())
+        rel = max(rel, grad_rel_norm(a, r))
+    del grads, refs, ro, rlse, f32
+    torch.cuda.empty_cache()
+    return o, lse, fwd_err, bwd_err, rel
+
+
+def flash_figures(fa, q, k, v, o, lse, do, kw, design, mask):
+    """K1 / K2's figures on one case: kernel, plain and SDPA (``mask``, a
+    float mask, or causal) device ms and the bounds."""
+    B, H, T, d = q.shape
+    fwd = forced_design(fa, design, fa.flash_forward)
+    bwd = forced_design(fa, design, fa.flash_backward)
+    pairs = B * H * _causal_pairs(T)
+    act = B * T * H * d * q.element_size()
+    qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+
+    def sdpa(a, b, c):
+        if mask is None:
+            return F.scaled_dot_product_attention(a, b, c, is_causal=True,
+                                                  scale=1.0)
+        return F.scaled_dot_product_attention(a, b, c, attn_mask=mask,
+                                              scale=1.0)
+    sdpa_o = sdpa(qs, ks, vs)
+    out = {}
+    out["flash_fwd"] = dict(
+        ms=time_ms(lambda: fwd(q, k, v, **kw), 10),
+        plain_ms=time_ms(lambda: fa.flash_forward_reference(q, k, v, **kw),
+                         2),
+        library_ms=time_ms(lambda: sdpa(q, k, v), 10),
+        bound=bound(4 * act + B * H * T * 4, 4 * d * pairs))
+    out["flash_bwd"] = dict(
+        ms=time_ms(lambda: bwd(q, k, v, o, lse, do, **kw), 10),
+        plain_ms=time_ms(lambda: fa.flash_backward_reference(
+            q, k, v, o, lse, do, **kw), 2),
+        library_ms=time_ms(lambda: torch.autograd.grad(
+            sdpa_o, (qs, ks, vs), do, retain_graph=True), 10),
+        bound=bound(8 * act + B * H * T * 4, 10 * d * pairs))
+    del sdpa_o, qs, ks, vs
+    for r in out.values():
+        r["bound_ms"], r["bound_by"] = r.pop("bound")
+    return out
+
+
+def phase_family_kernels(fa, pa, mm, seed=0):
+    """Phase 40: the kernels of the seven Llama-family models at their
+    shapes, each held against its plain version (bf16 / fp16 in fp32 on
+    the same inputs) with a control that must fail and timed beside its
+    plain version, the library call and its bound:
+    K1 / K2 with ALiBi (ALIBI_CASES: the control is the plain version
+    without ALiBi); K1 / K2, K4 and K5 at d = 80, 96, 256
+    (HEAD_DIM_CASES: K1 / K2 on mma_sync, K5 on simt; controls: a skipped
+    key tile, dropped table blocks, a table entry read as its neighbour);
+    K4 / K5 at
+    Falcon-7b's G = 71 and Qwen2-7B's G = 7 (GQA_CASES); K7 at Bloom-7b1's
+    and Falcon-7b's non-gated FFN (FFN_CASES, int8, 8 and 256 rows;
+    control: a k slice of codes zeroed). Returns {kernel: {case: figures}}
+    for the kernels line."""
+    from deepspeed_tpu_torch.ops import int8_weights as iw
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    rs = np.random.RandomState(seed)
+
+    def randn(shape, dt=torch.bfloat16):
+        return torch.randn(shape, generator=g, device="cuda").to(dt)
+
+    rows = {n: {} for n in ("flash_fwd", "flash_bwd", "paged_decode",
+                            "paged_chunk", "wq_matmul")}
+
+    def keep(name, tag, r, err):
+        r["max_abs_err"] = err
+        rows[name][tag] = r
+        log(f"{name} {tag}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
+            f"library {r['library_ms']:.4f}, bound {r['bound_ms']:.4f} by "
+            f"{r['bound_by']}), max |err| {err:.3g}")
+
+    # K1 / K2 with ALiBi
+    for tag, B, H, T, d, dt, design, a_scale, a_bf16 in ALIBI_CASES:
+        kw = dict(causal=True, alibi=fa.alibi_slopes(H),
+                  alibi_scale=a_scale, alibi_bf16=a_bf16)
+        q, k, v, do = (randn((B, T, H, d), dt).transpose(1, 2)
+                       for _ in range(4))
+        q = fa.scale_q(q, 1.0 / math.sqrt(d))
+        half = dt == torch.float16
+        plain_no_alibi = fa.flash_forward_reference(
+            q.float(), k.float(), v.float(), causal=True)[0]
+        o, lse, fe, be, rel = flash_case(
+            fa, tag, q, k, v, do, kw, design,
+            fp16_mismatch if half else bf16_mismatch,
+            fp16_grad_mismatch if half else bf16_grad_mismatch,
+            lambda ro: plain_no_alibi)
+        del plain_no_alibi
+        figs = flash_figures(fa, q, k, v, o, lse, do, kw, design,
+                             alibi_mask(fa, H, T, a_scale, a_bf16).to(dt))
+        for name, err in (("flash_fwd", fe), ("flash_bwd", be)):
+            figs[name].update(shape=[B, H, T, d], design=design,
+                              dtype=str(dt).split(".")[-1],
+                              alibi_scale=a_scale, alibi_bf16=a_bf16,
+                              rel_norm=rel)
+            keep(name, f"alibi-{tag}", figs[name], err)
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+
+    # K1 / K2 at the new head dims (the model's (B, T, H, d) strides)
+    for tag, H, KVH, d in HEAD_DIM_CASES:
+        B, T = 1, 2048
+        kw = dict(causal=True)
+        q, k, v, do = (randn((B, T, H, d)).transpose(1, 2)
+                       for _ in range(4))
+        q = fa.scale_q(q, 1.0 / math.sqrt(d))
+        assert fa._fwd_design(q, k, v) == "mma_sync"
+        o, lse, fe, be, rel = flash_case(
+            fa, tag, q, k, v, do, kw, "mma_sync", bf16_mismatch,
+            bf16_grad_mismatch, lambda ro: flash_with_key_tile_dropped(
+                fa, q.float(), k.float(), v.float(), 1, 64))
+        figs = flash_figures(fa, q, k, v, o, lse, do, kw, "mma_sync", None)
+        for name, err in (("flash_fwd", fe), ("flash_bwd", be)):
+            figs[name].update(shape=[B, H, T, d], design="mma_sync",
+                              rel_norm=rel)
+            keep(name, f"d{d}-{tag}", figs[name], err)
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+
+    # K4 / K5 at the new head dims and the GQA groups
+    kc = KernelCases(pa, seed)
+    BS = 64
+    for tag, H, KVH, d in HEAD_DIM_CASES + GQA_CASES:
+        B, MB = 8, 32
+        lengths = rs.randint(1000, MB * BS - 1, size=B)
+        pa.reset_launch_counts()
+        dec = kc.decode(B, H, KVH, d, BS, MB, lengths, torch.bfloat16)
+        assert pa.LAUNCHES["paged_decode"] == 1
+        dropped = decode_with_blocks_dropped(pa, *(dec[x].float() for x in (
+            "q", "k", "v")), dec["tables"], dec["lengths"])
+        ref = pa.paged_decode_attention_reference(
+            *(dec[x].float() for x in ("q", "k", "v")), dec["tables"],
+            dec["lengths"])
+        out = pa.paged_decode_attention(dec["q"], dec["k"], dec["v"],
+                                        dec["tables"], dec["lengths"])
+        why = bf16_mismatch(out, dropped)
+        assert why is not None, f"paged_decode {tag}: the control passed"
+        log(f"control: paged_decode {tag} against dropped blocks fails "
+            f"({why})")
+        gk, gv = dense_kv(dec["k"], dec["v"], dec["tables"])
+        G = H // KVH
+        gk, gv = (x.repeat_interleave(G, 1) for x in (gk, gv))
+        kpos = torch.arange(MB * BS, device="cuda")
+        live = (kpos[None] <= dec["lengths"].long()[:, None])[:, None, None]
+        qd = dec["q"][:, :, None]
+        n_live = int(dec["lengths"].sum().item()) + B
+        r = dict(
+            shape=[B, H, KVH, d, BS, MB],
+            ms=time_ms(lambda: pa.paged_decode_attention(
+                dec["q"], dec["k"], dec["v"], dec["tables"],
+                dec["lengths"]), 20),
+            plain_ms=time_ms(lambda: pa.paged_decode_attention_reference(
+                dec["q"], dec["k"], dec["v"], dec["tables"],
+                dec["lengths"]), 3),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                qd, gk, gv, attn_mask=live), 20))
+        r["bound_ms"], r["bound_by"] = bound(
+            n_live * KVH * d * 2 * 2 + 2 * B * H * d * 2,
+            4 * n_live * H * d)
+        keep("paged_decode", f"{tag}-d{d}-G{G}", r,
+             (out.float() - ref).abs().max().item())
+        del dec, dropped, ref, out, gk, gv, live, qd
+
+        C, start = 256, 1024
+        MBc = (start + C) // BS
+        ch = kc.chunk(H, KVH, d, BS, MBc, C, start, C, "auto",
+                      torch.bfloat16, want="simt")
+        # the control: block 0's keys and values read from block 1
+        swapped = ch["table"].clone()
+        swapped[0] = swapped[1]
+        wrong = pa.paged_chunk_attention_reference(
+            *(ch[x].float() for x in ("q", "k", "v")), swapped, start, C)
+        out = pa.paged_chunk_attention(ch["q"], ch["k"], ch["v"],
+                                       ch["table"], start, C)
+        ref = pa.paged_chunk_attention_reference(
+            *(ch[x].float() for x in ("q", "k", "v")), ch["table"], start, C)
+        why = bf16_mismatch(out, wrong)
+        assert why is not None, f"paged_chunk {tag}: the control passed"
+        log(f"control: paged_chunk {tag} with table entry 0 read as entry "
+            f"1 fails ({why})")
+        S = start + C
+        gk = ch["k"][ch["table"].long()].transpose(1, 2).reshape(
+            S, KVH, d).repeat_interleave(G, 1).transpose(0, 1)[None]
+        gv = ch["v"][ch["table"].long()].transpose(1, 2).reshape(
+            S, KVH, d).repeat_interleave(G, 1).transpose(0, 1)[None]
+        qc = ch["q"].transpose(0, 1)[None]
+        cmask = (torch.arange(S, device="cuda")[None]
+                 <= start + torch.arange(C, device="cuda")[:, None])
+        pairs = C * start + C * (C + 1) // 2
+        r = dict(
+            shape=[C, H, KVH, d, BS, start],
+            ms=time_ms(lambda: pa.paged_chunk_attention(
+                ch["q"], ch["k"], ch["v"], ch["table"], start, C), 20),
+            plain_ms=time_ms(lambda: pa.paged_chunk_attention_reference(
+                ch["q"], ch["k"], ch["v"], ch["table"], start, C), 3),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                qc, gk, gv, attn_mask=cmask), 20))
+        r["bound_ms"], r["bound_by"] = bound(
+            S * KVH * d * 2 * 2 + 2 * C * H * d * 2, 4 * pairs * H * d)
+        keep("paged_chunk", f"{tag}-d{d}-G{G}", r,
+             (out.float() - ref).abs().max().item())
+        del ch, wrong, ref, out, gk, gv, qc, cmask
+        torch.cuda.empty_cache()
+
+    # K7 at the non-gated FFN shapes, int8
+    for tag, D, Fd in FFN_CASES:
+        for K, N in ((D, Fd), (Fd, D)):
+            w = iw.quantize_tensor(randn((K, N), torch.float32) * 0.02, 8)
+            wd = w.dequant(torch.bfloat16)
+            for M in (8, 256):
+                x = randn((M, K))
+                mm.reset_launch_counts()
+                out = mm.wq_matmul(x, w)
+                assert mm.LAUNCHES["wq_matmul"] == 1
+                ref = mm._plain_rows(x.float(), w)
+                why = bf16_mismatch(out, ref.float())
+                assert why is None, f"wq_matmul {tag} {M}x{K}x{N}: {why}"
+                cut = iw.Int8Weight(w.q.clone(), w.scale)
+                cut.q[:64] = 0
+                why = bf16_mismatch(out, mm._plain_rows(x.float(), cut))
+                assert why is not None, f"wq_matmul {tag}: control passed"
+                r = dict(
+                    shape=[M, K, N], bits=8,
+                    ms=time_queued(lambda: mm.wq_matmul(x, w), 20)[0],
+                    plain_ms=time_ms(lambda: mm._plain_rows(x, w), 5),
+                    library_ms=time_ms(lambda: torch.matmul(x, wd), 20))
+                r["bound_ms"], r["bound_by"] = wq_bound(M, K, N, 8)
+                keep("wq_matmul", f"{tag}-{M}x{K}x{N}", r,
+                     (out.float() - ref.float()).abs().max().item())
+                del x, out, ref, cut
+            log(f"control: wq_matmul {tag} {K}x{N} with a k slice of codes "
+                f"zeroed fails")
+            del w, wd
+    torch.cuda.empty_cache()
+    return rows
+
+
+# phases 41-43: the families' serving and training runs
+BLOOM_SERVE = dict(requests=8, new=64, parity_layers=2, parity_new=16)
+BLOOM_TRAIN = dict(layers=8, T=2048, steps=10, parity_layers=2,
+                   parity_T=512)
+FAMILY_SERVE = dict(layers=4, requests=4, new=32)
+# the six other families at their published widths (models/*.py presets)
+FAMILY_PRESETS = (("falcon", "FALCON_PRESETS", "falcon-7b"),
+                  ("gpt_neox", "GPTNEOX_PRESETS", "gpt-neox-20b"),
+                  ("gptj", "GPTJ_PRESETS", "gpt-j-6b"),
+                  ("internlm", "INTERNLM_PRESETS", "internlm-7b"),
+                  ("phi", "PHI_PRESETS", "phi-2"),
+                  ("qwen", "QWEN_PRESETS", "qwen2-7b"))
+
+
+def serve_family(model, cfg, requests, new, rs, tag):
+    """Serve ``requests`` random prompts (64 .. max_seq_len - new tokens,
+    split-fuse 256, 8 decode steps a dispatch) on ``model`` in bf16 and
+    return (stats, the paged launches, their designs). The launches must
+    be what the forwards imply: K4 a layer each decode forward, K5 a layer
+    each chunk or prefill forward unless the family runs ALiBi (dense
+    prefill / chunk, JAX llama.py:702-703, :785-786)."""
+    from deepspeed_tpu_torch import InferenceEngineV2
+    from deepspeed_tpu_torch.ops.cuda import paged_attention as pa
+    eng = InferenceEngineV2(model, dict(
+        dtype="bfloat16", kv_block_size=64, max_batch_size=8,
+        splitfuse_tokens=256, decode_steps_per_dispatch=8), device="cuda")
+    lens = rs.randint(64, cfg.max_seq_len - new + 1, requests)
+    lens = np.minimum(lens, 2048)
+    torch.cuda.reset_peak_memory_stats()
+    pa.reset_launch_counts()
+    for k in eng.forward_counts:
+        eng.forward_counts[k] = 0
+    t_start = time.perf_counter()
+    uids = [eng.put(rs.randint(0, cfg.vocab_size, (n,)), new) for n in lens]
+    first, done = serve(eng, uids)
+    e2e = time.perf_counter() - t_start
+    launches = dict(pa.LAUNCHES)
+    designs = {k: dict(v) for k, v in pa.DESIGN_LAUNCHES.items()}
+    outs = [eng.get(u) for u in uids]
+    for u, o in zip(uids, outs):
+        assert len(o) == new and ((o >= 0) & (o < cfg.vocab_size)).all(), \
+            (tag, u)
+    fc = eng.forward_counts
+    L = cfg.n_layer
+    want = {"paged_decode": L * fc["decode"],
+            "paged_chunk": 0 if cfg.alibi else L * (fc["chunk"]
+                                                     + fc["prefill"])}
+    assert launches == want and launches["paged_decode"] > 0, \
+        (tag, launches, want)
+    assert sum(designs["paged_decode"].values()) == want["paged_decode"]
+    assert sum(designs["paged_chunk"].values()) == want["paged_chunk"]
+    for name in ("paged_decode", "paged_chunk"):
+        count_designs(name, designs[name])
+    ttft = sorted(first[u] - t_start for u in uids)
+    tpot = sorted((done[u] - first[u]) / (new - 1) for u in uids)
+    stats = dict(
+        family=tag, n_layer=L, d_head=cfg.d_head,
+        G=cfg.n_head // cfg.n_kv_heads, requests=len(uids),
+        prompt_tokens=int(lens.sum()),
+        generated_tokens=int(sum(len(o) for o in outs)),
+        ttft_p50_s=float(np.percentile(ttft, 50)),
+        tpot_p50_ms=float(np.percentile(tpot, 50)) * 1e3,
+        output_tok_per_s=float(sum(len(o) for o in outs) / e2e),
+        e2e_s=e2e, forwards=dict(fc), launches=launches,
+        launches_by_design={k: {d: n for d, n in v.items() if n}
+                            for k, v in designs.items()},
+        max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del eng
+    return stats, launches
+
+
+def phase_bloom_serve(seed=0):
+    """Phase 41: Bloom-7b1. First its fp32 greedy streams at its widths
+    and BLOOM_SERVE["parity_layers"] layers with K4 on (the slopes in the
+    kernel) equal the streams with K4's plain version in its place (ALiBi
+    families take K4 whatever paged_kernel says, so the plain version is
+    swapped in by name); then all 30 layers in bf16 serving 8 requests:
+    TTFT / TPOT p50, tokens/s, peak memory and K4 launches by design.
+    Returns the serving run's launches."""
+    from deepspeed_tpu_torch import BLOOM_PRESETS, Bloom, InferenceEngineV2
+    from deepspeed_tpu_torch.models import llama as tl
+    from deepspeed_tpu_torch.ops.cuda import paged_attention as pa
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = BLOOM_PRESETS["bloom-7b1"]
+    rs = np.random.RandomState(seed)
+    cfg = dataclasses.replace(base, n_layer=BLOOM_SERVE["parity_layers"],
+                              dtype="float32")
+    model = Bloom(cfg, device="cuda", dtype=torch.float32, seed=seed)
+    prompts = [rs.randint(0, cfg.vocab_size, (n,)) for n in (7, 64, 300)]
+    streams = {}
+    for on in (True, False):
+        pa.reset_launch_counts()
+        saved = tl.paged_decode_attention
+        if not on:
+            tl.paged_decode_attention = tl.paged_decode_attention_reference
+        try:
+            eng = InferenceEngineV2(model, dict(
+                dtype="float32", kv_block_size=64, max_batch_size=4,
+                splitfuse_tokens=256), device="cuda")
+            streams[on] = eng.generate_all(
+                prompts, max_new_tokens=BLOOM_SERVE["parity_new"])
+        finally:
+            tl.paged_decode_attention = saved
+        assert (pa.LAUNCHES["paged_decode"] > 0) == on, dict(pa.LAUNCHES)
+        assert pa.LAUNCHES["paged_chunk"] == 0, dict(pa.LAUNCHES)
+        del eng
+    for a, b in zip(streams[True], streams[False]):
+        np.testing.assert_array_equal(a, b)
+    log(f"phase 41 parity ok: Bloom-7b1 widths at {cfg.n_layer} layers, "
+        f"fp32, K4 with ALiBi on == its plain version, "
+        f"{sum(len(x) for x in streams[True])} tokens")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    model = Bloom(base, device="cuda", dtype=torch.bfloat16, seed=seed)
+    torch.cuda.synchronize()
+    log(f"bloom-7b1 built in {time.perf_counter() - t0:.1f} s: "
+        f"{base.num_params() / 1e9:.3f}B params, {base.n_layer} layers")
+    stats, launches = serve_family(model, base, BLOOM_SERVE["requests"],
+                                   BLOOM_SERVE["new"], rs, "bloom-7b1")
+    log("phase 41 slice " + json.dumps(stats))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_bloom_train(seed=0):
+    """Phase 42: Bloom-7b1 training. First at its widths and 2 layers in
+    fp32, T = 512: the loss and every gradient with the kernels on (K1 /
+    K2 with the slopes in the kernels, whole-block remat) equal the dense
+    path's (loss 1e-5 relative, each gradient's relative error norm
+    1e-4); then at its widths and 8 of its 30 layers in bf16 through
+    initialize -> train_batch (AdamW, clip 1.0, ZeRO-2, micro 1 x 2048,
+    flash attention carrying ALiBi), 10 steps on one fixed batch: the
+    loss falls, K1 / K2 launch exactly as the step implies, all on sm90;
+    step time, tokens/s, model TFLOP/s (``flops_per_token``, the biases
+    counted) and peak memory. Returns the launch counts."""
+    from deepspeed_tpu_torch import BLOOM_PRESETS, Bloom, initialize
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+    from deepspeed_tpu_torch.ops.cuda import fused_ce as fce
+    from deepspeed_tpu_torch.ops.cuda import grouped_matmul as gm
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = BLOOM_PRESETS["bloom-7b1"]
+    Tp = BLOOM_TRAIN["parity_T"]
+    ids = torch.from_numpy(np.random.RandomState(seed).randint(
+        0, base.vocab_size, (1, Tp))).cuda()
+    out = {}
+    for on in (True, False):
+        cfg = dataclasses.replace(
+            base, n_layer=BLOOM_TRAIN["parity_layers"], max_seq_len=Tp,
+            dtype="float32", use_flash_attention=on, remat=on)
+        model = Bloom(cfg, device="cuda", seed=seed)
+        fa.reset_launch_counts()
+        loss = model.loss({"input_ids": ids})
+        loss.backward()
+        torch.cuda.synchronize()
+        L = cfg.n_layer
+        want = {"flash_fwd": 2 * L if on else 0, "flash_bwd": L if on else 0,
+                "flash_bwd_qmajor": 0, "flash_block_fwd": 0}
+        assert fa.LAUNCHES == want, (on, fa.LAUNCHES, want)
+        if on:
+            assert fa.DESIGN_LAUNCHES["flash_fwd"]["fp32"] == 2 * L
+        out[on] = (loss.item(), {n: p.grad for n, p in
+                                 model.named_parameters()})
+        del model
+    (l_on, g_on), (l_off, g_off) = out[True], out[False]
+    assert abs(l_on - l_off) <= 1e-5 * abs(l_off), (l_on, l_off)
+    worst = 0.0
+    norm = torch.linalg.vector_norm
+    for n, gr in g_off.items():
+        # the key bias's gradient is zero in exact arithmetic (it shifts
+        # each query's scores by one constant, softmax is shift invariant
+        # and ALiBi takes no rotary): both sides are rounding residue, so
+        # the difference is held against the query bias's gradient norm
+        scale = norm(g_off["blocks.bq"]) if n == "blocks.bk" else norm(gr)
+        rel = (norm(g_on[n] - gr) / scale).item()
+        assert rel <= 1e-4, (n, rel, norm(gr).item(), scale.item())
+        worst = max(worst, rel)
+    log(f"phase 42 parity: the key bias's gradient norm "
+        f"{norm(g_off['blocks.bk']).item():.3g} (off) / "
+        f"{norm(g_on['blocks.bk']).item():.3g} (on) against the query "
+        f"bias's {norm(g_off['blocks.bq']).item():.3g}")
+    log(f"phase 42 parity ok: Bloom-7b1 widths at 2 layers, fp32, T = "
+        f"{Tp}: K1 / K2 with ALiBi vs dense, loss {l_on:.7f} vs "
+        f"{l_off:.7f}, worst gradient relative error norm {worst:.3g}")
+    del out, g_on, g_off
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    T, steps = BLOOM_TRAIN["T"], BLOOM_TRAIN["steps"]
+    cfg = dataclasses.replace(base, n_layer=BLOOM_TRAIN["layers"],
+                              max_seq_len=T, use_flash_attention=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine, *_ = initialize(
+        model=Bloom(cfg, device="cuda", seed=seed),
+        config=zero_config(2, train_micro_batch_size_per_gpu=1))
+    torch.cuda.synchronize()
+    built = torch.cuda.memory_allocated()
+    log(f"bloom-7b1-train engine built in {time.perf_counter() - t0:.1f} s: "
+        f"{cfg.num_params() / 1e9:.3f} B params ({cfg.n_layer} layers), "
+        f"micro 1 x {T}, {built / 1e9:.2f} GB allocated")
+    batch = {"input_ids": np.random.RandomState(seed).randint(
+        0, cfg.vocab_size, (1, T)).astype(np.int32)}
+    for mod in (fa, fce, gm):
+        mod.reset_launch_counts()
+    losses, times = [], []
+    for _ in range(steps):
+        t1 = time.perf_counter()
+        losses.append(float(engine.train_batch(batch)))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+    launches = {**fa.LAUNCHES, **fce.LAUNCHES, **gm.LAUNCHES}
+    want = llama_train_launches(cfg, steps)
+    assert launches == want, (launches, want)
+    assert_sm90("bloom train slice", fa, main_path=True)
+    assert all(math.isfinite(x) for x in losses), losses
+    assert losses[-1] < losses[0], losses
+    step_s = float(np.median(times[1:]))
+    stats = dict(
+        kind="bloom-7b1", n_layer=cfg.n_layer, params=cfg.num_params(),
+        steps=steps, losses=losses, step_s=times,
+        step_s_median_after_first=step_s, tokens_per_s=T / step_s,
+        flops_per_token=cfg.flops_per_token(),
+        model_tflops_per_s=cfg.flops_per_token() * T / step_s / 1e12,
+        launches_per_step={k: v // steps for k, v in launches.items() if v},
+        memory_after_build_gb=built / 1e9,
+        max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log("phase 42 slice " + json.dumps(stats))
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_family_serve(seed=0):
+    """Phase 43: the six other families at their published widths and
+    FAMILY_SERVE["layers"] layers each, bf16, serving a few requests
+    (serve_family): TPOT and each paged kernel's launches by design; the
+    run on the card of K4 / K5 at d = 64 (Falcon-7b, G = 71), 80 (Phi-2),
+    96 (GPT-NeoX-20B), 256 (GPT-J-6B) and 128 (InternLM-7B; Qwen2-7B at G
+    = 7). Returns {family: launches}."""
+    import deepspeed_tpu_torch as ds
+    rs = np.random.RandomState(seed)
+    out = {}
+    for mod, presets, preset in FAMILY_PRESETS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        cls_name = {"falcon": "Falcon", "gpt_neox": "GPTNeoX",
+                    "gptj": "GPTJ", "internlm": "InternLM", "phi": "Phi",
+                    "qwen": "Qwen"}[mod]
+        cfg = dataclasses.replace(getattr(ds, presets)[preset],
+                                  n_layer=FAMILY_SERVE["layers"])
+        t0 = time.perf_counter()
+        model = getattr(ds, cls_name)(cfg, device="cuda",
+                                      dtype=torch.bfloat16, seed=seed)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        stats, launches = serve_family(model, cfg, FAMILY_SERVE["requests"],
+                                       FAMILY_SERVE["new"], rs, preset)
+        stats["build_s"] = build_s
+        log("phase 43 slice " + json.dumps(stats))
+        out[f"{preset}-serve"] = launches
+        del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default="",
@@ -7774,6 +8400,18 @@ def main(argv=None):
     paths.update(phase_ep())
     phase_done("39 (MoE expert parallel: GPT2MoE and Mixtral at ep = 2, "
                "the staged exchange at data_outer 2 x expert 2)")
+    for name, cases in phase_family_kernels(fa, pa, mm).items():
+        rows[name]["families"] = cases
+    phase_done("40 (K1 / K2 with ALiBi, K1 / K2 / K4 / K5 at d = 80, 96, "
+               "256, K4 / K5 at G = 71 and 7, K7 at the non-gated FFNs)")
+    paths["bloom-serve"] = phase_bloom_serve()
+    phase_done("41 (Bloom-7b1 serving, all 30 layers)")
+    paths["bloom-train"] = phase_bloom_train()
+    phase_done(f"42 (Bloom-7b1 training, {BLOOM_TRAIN['layers']} layers)")
+    paths.update(phase_family_serve())
+    phase_done(f"43 (Falcon-7b, GPT-NeoX-20B, GPT-J-6B, InternLM-7B, "
+               f"Phi-2, Qwen2-7B serving, {FAMILY_SERVE['layers']} layers "
+               f"each)")
 
     kernels = []
     for name, r in rows.items():
@@ -7798,7 +8436,7 @@ def main(argv=None):
                       "mma_sync_split_ms",
                       "host_ms", "mma_sync_host_ms", "simt_ms",
                       "first_chunk", "long_walk", "verify", "d128",
-                      "fp16"):
+                      "fp16", "families"):
             if extra in r:
                 row[extra] = r[extra]
         if name in PATH_DESIGNS:

@@ -12,6 +12,12 @@ from .models import (GPT2, GPT2_PRESETS, LLAMA_PRESETS, MIXTRAL_8X7B,
                      LlamaConfig, Mixtral, MixtralConfig,
                      gpt2_moe_params_from_numpy, gpt2_params_from_numpy,
                      llama_params_from_numpy, mixtral_params_from_numpy)
+from .models import (BLOOM_PRESETS, FALCON_PRESETS, GPTJ_PRESETS,
+                     GPTNEOX_PRESETS, INTERNLM_PRESETS, PHI_PRESETS,
+                     QWEN_PRESETS, GPTJ, Bloom, BloomConfig, Falcon,
+                     FalconConfig, GPTJConfig, GPTNeoX, GPTNeoXConfig,
+                     InternLM, InternLMConfig, Phi, PhiConfig, Qwen,
+                     QwenConfig)
 from .runtime.config import DeepSpeedConfig
 from .runtime.engine import DeepSpeedEngine
 
@@ -75,4 +81,8 @@ __all__ = ["InferenceEngineV2", "RaggedInferenceEngineConfig", "Replica",
            "gpt2_moe_params_from_numpy", "gpt2_params_from_numpy",
            "llama_params_from_numpy", "mixtral_params_from_numpy",
            "DeepSpeedConfig", "DeepSpeedEngine", "comm", "init_distributed",
-           "initialize"]
+           "initialize", "Bloom", "BloomConfig", "BLOOM_PRESETS", "Falcon",
+           "FalconConfig", "FALCON_PRESETS", "GPTNeoX", "GPTNeoXConfig",
+           "GPTNEOX_PRESETS", "GPTJ", "GPTJConfig", "GPTJ_PRESETS",
+           "InternLM", "InternLMConfig", "INTERNLM_PRESETS", "Phi",
+           "PhiConfig", "PHI_PRESETS", "Qwen", "QwenConfig", "QWEN_PRESETS"]

@@ -195,6 +195,27 @@
 //   keys ascending. The RS and SS forms of one product give the same
 //   bits (the card checks it in phase 21).
 //
+// ALiBi (flash_attention.py _alibi_add, the JAX wrapper's alibi=): every K1 /
+//   K2 design above takes FlashArgs::alibi. The slope of head h is evaluated
+//   in the kernel from the bloom formula (alibi_slope, no table) and slope *
+//   k_pos (rounded through bf16 when alibi.bf16, then times alibi.scale:
+//   falcon-rw) is added to the scaled score before the masks: per element in
+//   the forwards' softmax and the dq kernels (keys are columns there), once
+//   per thread for its two key rows in the dk / dv kernels (keys are the rows
+//   of S^T). The backward adds the same term again when it rebuilds p from
+//   lse; it has no gradient. K2-qmajor takes none (JAX runs the key-major
+//   backward under ALiBi, flash_attention.py:1255), nor does K10.
+//
+// Head dims: the sm90 designs take 64 and 128. The mma_sync / fp32 designs
+//   also take 80, 96 and 256 (phi-2, gpt-neox-20b, gpt-j-6b): the tiles keep
+//   the operand's d (rows padded by 16 bytes in shared memory, as at every
+//   d), so nothing is padded in HBM. At 256 the backward's CTAs split the
+//   head dim of their outputs in two (grid z, flash_dkdv_kernel's DO):
+//   each forms the whole S^T / dP^T (or S / dP) and accumulates 128 columns
+//   of dk / dv (dq), so 2 x 128 fp32 accumulators fit a thread's registers;
+//   the fp32 backward at 256 needs 266 KB of shared memory a CTA and is
+//   refused. K2-qmajor and K10 keep 32 / 64 / 128.
+//
 // Masks are the Pallas kernels' exactly: NEG_INF = -1e30 for masked scores
 // in the forward, p = 0 for masked pairs in the backward, keys and queries
 // beyond T masked (the ragged last tile), sliding window causal only.
@@ -208,6 +229,17 @@
 
 struct Strides {
   long long b, h, t;
+};
+
+// ALiBi (flash_attention.py _alibi_add): slope_h * k_pos added to the
+// scaled score, the slope evaluated from the head index with the bloom
+// formula (cp = 2^floor(log2 H): exp2(-(h + 1) 8 / cp) below cp, else
+// exp2(-(2 (h - cp) + 1) 4 / cp)); with ``bf16`` the product is rounded
+// through bf16 first, then multiplied by ``scale`` (falcon-rw's
+// alibi_inv_norm, models/llama.py:384-397). No gradient flows to it.
+struct AlibiArgs {
+  int on, bf16;
+  float scale, cp;
 };
 
 struct FlashArgs {
@@ -230,6 +262,7 @@ struct FlashArgs {
   float* l;           // ring block forward: (B*H, T) running sum, read and written
   long long sml;      // m and l stride per b*h (unit stride along T)
   Strides sacc;
+  AlibiArgs alibi;    // K1 / K2: the ALiBi term (on = 0: none)
 };
 
 namespace {
@@ -238,6 +271,17 @@ constexpr int BQ = 64;  // query rows per CTA
 constexpr int BK = 64;  // key rows per tile
 constexpr int NW = 4;   // warps per CTA, 16 rows each
 constexpr int NT = NW * 32;
+
+__device__ __forceinline__ float alibi_slope(const AlibiArgs& al, int h) {
+  const float hf = (float)h, cp = al.cp;
+  return exp2f(hf < cp ? -(hf + 1.f) * (8.f / cp) : -(2.f * (hf - cp) + 1.f) * (4.f / cp));
+}
+
+__device__ __forceinline__ float alibi_term(const AlibiArgs& al, float slope, int kpos) {
+  float ab = slope * (float)kpos;
+  if (al.bf16) ab = __bfloat162float(__float2bfloat16(ab));
+  return ab * al.scale;
+}
 
 __device__ __forceinline__ bool pair_ok(int q, int k, int T_, int causal, int window) {
   bool ok = (k < T_) && (q < T_);
@@ -272,6 +316,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(FlashArgs a) {
   const int k_hi = a.causal ? min(a.T, q0 + BQ) : a.T;
   const int k_lo = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
   const int j_lo = k_lo / BK, j_hi = (k_hi + BK - 1) / BK;
+  const float slope = a.alibi.on ? alibi_slope(a.alibi, h) : 0.f;
 
   const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
@@ -317,8 +362,9 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(FlashArgs a) {
     for (int n = 0; n < NTK; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
+        const int col = kb0 + n * 8 + 2 * t4 + (e & 1);
+        if (a.alibi.on) s[n][e] += alibi_term(a.alibi, slope, col);
         if (!full) {
-          const int col = kb0 + n * 8 + 2 * t4 + (e & 1);
           const int row = (e < 2) ? r0 : r1;
           bool ok = col < a.T;
           if (a.causal) ok = ok && (col <= row);
@@ -447,7 +493,8 @@ __global__ void __launch_bounds__(384, 1)
                           const __grid_constant__ CUtensorMap mk,
                           const __grid_constant__ CUtensorMap mv,
                           const __grid_constant__ CUtensorMap mo, float* lse, int* next_item,
-                          int items, int H, int T, int causal, int window, Carry carry) {
+                          int items, int H, int T, int causal, int window, Carry carry,
+                          AlibiArgs al) {
   constexpr int HALVES = D / 64;
   constexpr int STAGES = sm90_stages<D>();
   constexpr bool PINGPONG = D == 64;
@@ -526,6 +573,7 @@ __global__ void __launch_bounds__(384, 1)
     float s[64];      // S of the tile in hand
     uint32_t pa[32];  // p in bf16 pairs: PV's A fragments, 16-key slice kk in pa[4 kk .. 4 kk + 3]
     float m0, m1, l0, l1;  // l: this thread's partial sums
+    float slope = 0.f;     // the item's ALiBi slope
     int q0, r0, r1;
 
     // S = Q K^T of the tile in ``stg`` (issued and committed, not waited)
@@ -554,6 +602,13 @@ __global__ void __launch_bounds__(384, 1)
     // (bf16 pairs); the old state's rescale factors and p's row sums out
     auto softmax = [&](int kb0, uint32_t (&p)[32], float& alpha0, float& alpha1, float& sum0,
                        float& sum1) {
+      if (al.on) {
+#pragma unroll
+        for (int n = 0; n < 16; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[4 * n + e] += alibi_term(al, slope, kb0 + sm90::frag_col(tid, n, e));
+      }
       const bool whole = (kb0 + SM90_TILE <= T) && (!causal || kb0 + SM90_TILE - 1 <= q0) &&
                          (window == 0 || q0 + SM90_TILE - 1 - kb0 < window);
       if (!whole) {
@@ -625,6 +680,7 @@ __global__ void __launch_bounds__(384, 1)
       int bh, j_lo, j_hi;
       sm90_item(w, nq, T, causal, window, bh, q0, j_lo, j_hi);
       const int b = bh / H, h = bh - b * H;
+      if (al.on) slope = alibi_slope(al, h);
       r0 = q0 + 64 * cw + sm90::frag_row(tid, 0);
       r1 = r0 + 8;
       m0 = m1 = NEG_INF;
@@ -810,12 +866,17 @@ __global__ void __launch_bounds__(NT) flash_delta_kernel(FlashArgs a, long long 
   if (lane == 0) a.delta[row] = a.dlse ? s - a.dlse[row] : s;
 }
 
-template <typename T, int D>
+// DO: the head-dim columns of dk / dv a CTA accumulates (blockIdx.z picks
+// them); D = 256 takes two CTAs of 128 columns a key tile, each forming the
+// whole S^T and dP^T, so that 2 x 128 fp32 accumulators fit a thread's
+// registers.
+template <typename T, int D, int DO>
 __global__ void __launch_bounds__(NT) flash_dkdv_kernel(FlashArgs a) {
   constexpr int PAD = 16 / sizeof(T);
   constexpr int LD = D + PAD;
   constexpr int LP = BQ + PAD;
-  constexpr int NTD = D / 8, NTQ = BQ / 8;
+  constexpr int NTD = DO / 8, NTQ = BQ / 8;
+  const int c0 = blockIdx.z * DO;  // this CTA's first output column
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* ks = reinterpret_cast<T*>(smem_raw);  // [BK][LD]
   T* vs = ks + BK * LD;                     // [BK][LD]
@@ -843,6 +904,13 @@ __global__ void __launch_bounds__(NT) flash_dkdv_kernel(FlashArgs a) {
   const int i_lo = q_lo / BQ, i_hi = (q_hi + BQ - 1) / BQ;
 
   const int kr0 = k0 + warp * 16 + g, kr1 = kr0 + 8;
+  // the ALiBi term of this thread's two keys (0 without ALiBi)
+  float ab[2] = {0.f, 0.f};
+  if (a.alibi.on) {
+    const float slope = alibi_slope(a.alibi, h);
+    ab[0] = alibi_term(a.alibi, slope, kr0);
+    ab[1] = alibi_term(a.alibi, slope, kr1);
+  }
   float dk[NTD][4], dv[NTD][4];
 #pragma unroll
   for (int n = 0; n < NTD; ++n)
@@ -874,8 +942,9 @@ __global__ void __launch_bounds__(NT) flash_dkdv_kernel(FlashArgs a) {
       for (int e = 0; e < 4; ++e) {
         const int ql = n * 8 + 2 * t4 + (e & 1);
         const int key = (e < 2) ? kr0 : kr1;
-        const float p =
-            pair_ok(qb0 + ql, key, a.T, a.causal, a.window) ? expf(s[n][e] - lse_s[ql]) : 0.f;
+        const float p = pair_ok(qb0 + ql, key, a.T, a.causal, a.window)
+                            ? expf(s[n][e] + ab[e >> 1] - lse_s[ql])
+                            : 0.f;
         const float ds = p * (dp[n][e] - dl_s[ql]);
         const int at = (g + 8 * (e >> 1)) * LP + ql;
         ppw[at] = from_f<T>(p);
@@ -883,8 +952,8 @@ __global__ void __launch_bounds__(NT) flash_dkdv_kernel(FlashArgs a) {
       }
     }
     __syncwarp();
-    mma_kn<NTD>(dv, ppw, LP, dos, LD, BQ);
-    mma_kn<NTD>(dk, pdw, LP, qs, LD, BQ);
+    mma_kn<NTD>(dv, ppw, LP, dos + c0, LD, BQ);
+    mma_kn<NTD>(dk, pdw, LP, qs + c0, LD, BQ);
     __syncwarp();
   }
 
@@ -896,7 +965,7 @@ __global__ void __launch_bounds__(NT) flash_dkdv_kernel(FlashArgs a) {
     if (key >= a.T) continue;
 #pragma unroll
     for (int n = 0; n < NTD; ++n) {
-      const int c = n * 8 + 2 * t4;
+      const int c = c0 + n * 8 + 2 * t4;
       T* kp = dkg + (long long)key * a.sdk.t + c;
       T* vp = dvg + (long long)key * a.sdv.t + c;
       kp[0] = from_f<T>(dk[n][2 * i]);
@@ -907,12 +976,15 @@ __global__ void __launch_bounds__(NT) flash_dkdv_kernel(FlashArgs a) {
   }
 }
 
-template <typename T, int D>
+// DO: the head-dim columns of dq a CTA accumulates (blockIdx.z picks them),
+// as flash_dkdv_kernel's.
+template <typename T, int D, int DO>
 __global__ void __launch_bounds__(NT) flash_dq_kernel(FlashArgs a) {
   constexpr int PAD = 16 / sizeof(T);
   constexpr int LD = D + PAD;
   constexpr int LP = BK + PAD;
-  constexpr int NTD = D / 8, NTK = BK / 8;
+  constexpr int NTD = DO / 8, NTK = BK / 8;
+  const int c0 = blockIdx.z * DO;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* qs = reinterpret_cast<T*>(smem_raw);  // [BQ][LD]
   T* dos = qs + BQ * LD;                    // [BQ][LD]
@@ -942,6 +1014,7 @@ __global__ void __launch_bounds__(NT) flash_dq_kernel(FlashArgs a) {
   const int k_hi = a.causal ? min(a.T, q0 + BQ) : a.T;
   const int k_lo = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
   const int j_lo = k_lo / BK, j_hi = (k_hi + BK - 1) / BK;
+  const float slope = a.alibi.on ? alibi_slope(a.alibi, h) : 0.f;
 
   float dq[NTD][4];
 #pragma unroll
@@ -968,13 +1041,15 @@ __global__ void __launch_bounds__(NT) flash_dq_kernel(FlashArgs a) {
         const int i = e >> 1;
         const int kl = n * 8 + 2 * t4 + (e & 1);
         const int row = i ? r1 : r0;
+        float sv = s[n][e];
+        if (a.alibi.on) sv += alibi_term(a.alibi, slope, kb0 + kl);
         const float p =
-            pair_ok(row, kb0 + kl, a.T, a.causal, a.window) ? expf(s[n][e] - lse_r[i]) : 0.f;
+            pair_ok(row, kb0 + kl, a.T, a.causal, a.window) ? expf(sv - lse_r[i]) : 0.f;
         pdw[(g + 8 * i) * LP + kl] = from_f<T>(p * (dp[n][e] - dl_r[i]));
       }
     }
     __syncwarp();
-    mma_kn<NTD>(dq, pdw, LP, ks, LD, BK);
+    mma_kn<NTD>(dq, pdw, LP, ks + c0, LD, BK);
     __syncwarp();
   }
 
@@ -985,7 +1060,7 @@ __global__ void __launch_bounds__(NT) flash_dq_kernel(FlashArgs a) {
     if (row >= a.T) continue;
 #pragma unroll
     for (int n = 0; n < NTD; ++n) {
-      T* qp = dqg + (long long)row * a.sdq.t + n * 8 + 2 * t4;
+      T* qp = dqg + (long long)row * a.sdq.t + c0 + n * 8 + 2 * t4;
       qp[0] = from_f<T>(dq[n][2 * i]);
       qp[1] = from_f<T>(dq[n][2 * i + 1]);
     }
@@ -1277,7 +1352,7 @@ __global__ void __launch_bounds__(384, 1)
                            const __grid_constant__ CUtensorMap mdk,
                            const __grid_constant__ CUtensorMap mdv, const float* lse,
                            const float* delta, int* next_item, int items, int H, int T, int causal,
-                           int window) {
+                           int window, AlibiArgs al) {
   constexpr int HALVES = D / 64;
   constexpr int BQ = bwd_cols<D>();
   constexpr int STAGES = dkdv_stages<D>();
@@ -1388,6 +1463,13 @@ __global__ void __launch_bounds__(384, 1)
       int i_lo, i_hi;
       dkdv_walk(k0, T, causal, window, BQ, i_lo, i_hi);
       const int kr = k0 + 64 * cw;  // this consumer's first key
+      // the ALiBi term of this thread's two keys (rows of S^T)
+      float ab0 = 0.f, ab1 = 0.f;
+      if (al.on) {
+        const float slope = alibi_slope(al, h);
+        ab0 = alibi_term(al, slope, kr + sm90::frag_row(tid, 0));
+        ab1 = alibi_term(al, slope, kr + sm90::frag_row(tid, 2));
+      }
 #pragma unroll
       for (int x = 0; x < D / 2; ++x) dk[x] = dv[x] = 0.f;
       for (int i = i_lo; i < i_hi; ++i) {
@@ -1414,6 +1496,15 @@ __global__ void __launch_bounds__(384, 1)
         sm90::fence_regs(s);
         sm90::fence_regs(dp);
         if (i + 1 == i_hi && lane == 0) sm90::mbar_arrive(kvempty);  // K, V read for the last time
+        if (al.on) {
+#pragma unroll
+          for (int x = 0; x < BQ / 2; x += 4) {
+            s[x] += ab0;
+            s[x + 1] += ab0;
+            s[x + 2] += ab1;
+            s[x + 3] += ab1;
+          }
+        }
         const bool whole = (kr + 64 <= T) && (qb0 + BQ <= T) && (!causal || kr + 63 <= qb0) &&
                            (window == 0 || qb0 + BQ - 1 - kr < window);
         if (whole)
@@ -1562,7 +1653,7 @@ __global__ void __launch_bounds__(384, 1)
                          const __grid_constant__ CUtensorMap mdo,
                          const __grid_constant__ CUtensorMap mdq, const float* lse,
                          const float* delta, int* next_item, int items, int H, int T, int causal,
-                         int window) {
+                         int window, AlibiArgs al) {
   constexpr int HALVES = D / 64;
   constexpr int BK = bwd_cols<D>();
   constexpr int STAGES = DQ_STAGES;
@@ -1656,6 +1747,7 @@ __global__ void __launch_bounds__(384, 1)
       const int qr = q0 + 64 * cw, r0 = qr + sm90::frag_row(tid, 0);
       float lse2[2], dl[2];
       row_stats(lse2, dl, lse, delta, bh, r0, T);
+      const float slope = al.on ? alibi_slope(al, h) : 0.f;
 #pragma unroll
       for (int x = 0; x < D / 2; ++x) dq[x] = 0.f;
       for (int j = j_lo; j < j_hi; ++j) {
@@ -1666,6 +1758,13 @@ __global__ void __launch_bounds__(384, 1)
         sm90::mbar_wait(&full[stage], phase);
         dq_s_dp<D, BK>(s, dp, qa, doa, kt, vs + stage * KV_BYTES);
         if (j + 1 == j_hi && lane == 0) sm90::mbar_arrive(qempty);  // q, do read for the last time
+        if (al.on) {
+#pragma unroll
+          for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              s[4 * n + e] += alibi_term(al, slope, kb0 + sm90::frag_col(tid, n, e));
+        }
         const bool whole = (kb0 + BK <= T) && (qr + 64 <= T) && (!causal || kb0 + BK - 1 <= qr) &&
                            (window == 0 || qr + 63 - kb0 < window);
         dq_p_ds<BK>(s, dp, da, tid, r0, kb0, whole, lse2, dl, T, causal, window);
@@ -1964,7 +2063,7 @@ cudaError_t fwd_sm90(const FlashArgs& a, int* next_item, cudaStream_t s) {
   const int grid = sm90::persistent_grid((int)items);
   const Carry carry{a.m, a.l, a.acc, a.sml, a.sacc.b, a.sacc.t};
   kernel<<<grid, 384, smem, s>>>(mq, mk, mv, mo, a.lse, next_item, (int)items, a.H, a.T,
-                                 a.causal, a.window, carry);
+                                 a.causal, a.window, carry, a.alibi);
   return cudaGetLastError();
 }
 
@@ -2007,19 +2106,29 @@ cudaError_t delta_launch(const FlashArgs& a, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+// the head-dim columns a backward CTA accumulates: D = 256 splits in two
+// (flash_dkdv_kernel), every other head dim is whole
+template <int D>
+constexpr int bwd_out_cols() {
+  return D == 256 ? 128 : D;
+}
+
 template <typename T, int D>
 cudaError_t bwd(const FlashArgs& a, cudaStream_t s) {
   constexpr int PAD = 16 / sizeof(T);
+  constexpr int DO = bwd_out_cols<D>();
   cudaError_t err = delta_launch<T, D>(a, s);
   if (err != cudaSuccess) return err;
   const size_t smem_kv = sizeof(T) * ((size_t)(2 * BK + 2 * BQ) * (D + PAD) +
                                       (size_t)2 * NW * 16 * (BQ + PAD)) +
                          sizeof(float) * 2 * BQ;
-  err = launch(flash_dkdv_kernel<T, D>, dim3((a.T + BK - 1) / BK, a.B * a.H), smem_kv, s, a);
+  err = launch(flash_dkdv_kernel<T, D, DO>, dim3((a.T + BK - 1) / BK, a.B * a.H, D / DO), smem_kv,
+               s, a);
   if (err != cudaSuccess) return err;
   const size_t smem_q =
       sizeof(T) * ((size_t)(2 * BQ + 2 * BK) * (D + PAD) + (size_t)NW * 16 * (BK + PAD));
-  return launch(flash_dq_kernel<T, D>, dim3((a.T + BQ - 1) / BQ, a.B * a.H), smem_q, s, a);
+  return launch(flash_dq_kernel<T, D, DO>, dim3((a.T + BQ - 1) / BQ, a.B * a.H, D / DO), smem_q,
+                s, a);
 }
 
 template <typename T, int D>
@@ -2058,7 +2167,7 @@ cudaError_t bwd_sm90(const FlashArgs& a, int* next_item, cudaStream_t s) {
   if (err != cudaSuccess) return err;
   dkdv<<<sm90::persistent_grid((int)kv_items), 384, dkdv_smem<D>(), s>>>(
       mq, mk, mv, mdo, mdk, mdv, a.lse, a.delta, next_item, (int)kv_items, a.H, a.T, a.causal,
-      a.window);
+      a.window, a.alibi);
   err = cudaGetLastError();
   // dq's maps: the 128-query q and do tiles, BC-key K / V tiles
   CUtensorMap mq2, mk2, mv2, mdo2, mdq;
@@ -2073,7 +2182,7 @@ cudaError_t bwd_sm90(const FlashArgs& a, int* next_item, cudaStream_t s) {
   if (err != cudaSuccess) return err;
   dq<<<sm90::persistent_grid((int)kv_items), 384, dq_smem<D>(), s>>>(
       mq2, mk2, mv2, mdo2, mdq, a.lse, a.delta, next_item + 1, (int)kv_items, a.H, a.T, a.causal,
-      a.window);
+      a.window, a.alibi);
   return cudaGetLastError();
 }
 
@@ -2100,14 +2209,26 @@ cudaError_t bwd_qmajor_sm90(const FlashArgs& a, cudaStream_t s) {
 
 #undef BHTD_MAP
 
+// K1 / K2 take head dims 80, 96 and 256 (phi-2, gpt-neox-20b, gpt-j-6b) on
+// these designs; K10 (CARRY) keeps 32 / 64 / 128. fp32 at 256 backward needs
+// 266 KB of shared memory a CTA and is refused (the wrapper raises first).
 template <typename T, bool CARRY>
 cudaError_t fwd_by_d(const FlashArgs& a, cudaStream_t s) {
   switch (a.D) {
     case 32: return fwd<T, 32, CARRY>(a, s);
     case 64: return fwd<T, 64, CARRY>(a, s);
     case 128: return fwd<T, 128, CARRY>(a, s);
-    default: return cudaErrorInvalidValue;
+    default: break;
   }
+  if constexpr (!CARRY) {
+    switch (a.D) {
+      case 80: return fwd<T, 80, false>(a, s);
+      case 96: return fwd<T, 96, false>(a, s);
+      case 256: return fwd<T, 256, false>(a, s);
+      default: break;
+    }
+  }
+  return cudaErrorInvalidValue;
 }
 
 template <typename T>
@@ -2115,9 +2236,15 @@ cudaError_t bwd_by_d(const FlashArgs& a, cudaStream_t s) {
   switch (a.D) {
     case 32: return bwd<T, 32>(a, s);
     case 64: return bwd<T, 64>(a, s);
+    case 80: return bwd<T, 80>(a, s);
+    case 96: return bwd<T, 96>(a, s);
     case 128: return bwd<T, 128>(a, s);
-    default: return cudaErrorInvalidValue;
+    default: break;
   }
+  if constexpr (sizeof(T) == 2) {
+    if (a.D == 256) return bwd<T, 256>(a, s);
+  }
+  return cudaErrorInvalidValue;
 }
 
 template <typename T>

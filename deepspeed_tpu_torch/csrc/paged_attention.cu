@@ -107,6 +107,14 @@
 //   under MHA (G=1: at most 256 flop/byte, below the 295 ridge) and by
 //   flops under GQA (G=4, Mistral-7B: up to 1024).
 //
+// Head dims 32, 64, 80, 96, 128 and 256 (phi-2: 80, gpt-neox-20b: 96,
+// gpt-j-6b: 256) on paged_decode and the simt / fp32 chunk design; the pools
+// keep the model's d. At 80 / 96 a K/V row is 10 / 12 16-byte chunks, which
+// do not tile the decode CTA's 128 threads, so each thread walks the step's
+// chunks at a stride of 128 (WHOLE_ROWS false). fp32 at 256 does not fit a
+// CTA's shared memory in the decode (416 KB of ring) or in the chunk tiles
+// above 64-position blocks and is refused by the wrapper.
+//
 // Masks are the Pallas kernels' exactly: NEG_INF = -1e30 for masked scores,
 // and the output divides by max(l, 1e-30).
 
@@ -263,10 +271,13 @@ __global__ void __launch_bounds__(DEC_NT) paged_decode_kernel(DecodeArgs a) {
   constexpr int LD = dec_ld<T, D>();
   constexpr int VEC = 16 / (int)sizeof(T);
   constexpr int CH = D / VEC;             // 16-byte chunks a row
-  constexpr int RPI = DEC_NT / CH;        // rows a load pass
-  constexpr int NP = DEC_STEP / RPI;      // load passes a step
+  // rows a load pass and passes a step, where the CTA's threads cover whole
+  // rows (D = 32, 64, 128, 256); else (D = 80, 96: 10 or 12 chunks a row)
+  // each thread walks the step's chunks at a stride of DEC_NT
+  constexpr bool WHOLE_ROWS = DEC_NT % CH == 0 && DEC_STEP % (DEC_NT / CH) == 0;
+  constexpr int RPI = WHOLE_ROWS ? DEC_NT / CH : 1;
+  constexpr int NP = DEC_STEP / RPI;
   constexpr int SLOT = 2 * DEC_STEP * LD; // K then V of one step
-  static_assert(DEC_NT % CH == 0 && DEC_STEP % RPI == 0, "load mapping");
 
   const int s = blockIdx.x, b = blockIdx.z;
   const int G = a.H / a.KVH, HC = (G + DEC_HG - 1) / DEC_HG;
@@ -327,6 +338,26 @@ __global__ void __launch_bounds__(DEC_NT) paged_decode_kernel(DecodeArgs a) {
   const T* vc = reinterpret_cast<const T*>(a.v);
   const int c16 = tid % CH, r0 = tid / CH;
   auto load_step = [&](int slot, int st) {
+    if constexpr (!WHOLE_ROWS) {
+      for (int i = tid; i < DEC_STEP * CH; i += DEC_NT) {
+        const int r = i / CH, c = i - r * CH;
+        T* kd = ring + slot * SLOT + r * LD + c * VEC;
+        T* vd = kd + DEC_STEP * LD;
+        const int pos = lo + st * DEC_STEP + r;
+        if (pos < hi) {
+          const int jb = pos / a.BS;
+          const long long src =
+              (((long long)tbl[jb - s * a.bps] * a.KVH + kvh) * a.BS + (pos - jb * a.BS)) * D +
+              c * VEC;
+          cp_async16(kd, kc + src);
+          cp_async16(vd, vc + src);
+        } else {
+          *reinterpret_cast<uint4*>(kd) = make_uint4(0u, 0u, 0u, 0u);
+          *reinterpret_cast<uint4*>(vd) = make_uint4(0u, 0u, 0u, 0u);
+        }
+      }
+      return;
+    }
     T* kd = ring + slot * SLOT + r0 * LD + c16 * VEC;
     T* vd = kd + DEC_STEP * LD;
     int pos = lo + st * DEC_STEP + r0;
@@ -1177,14 +1208,23 @@ cudaError_t launch_chunk_sm90(const void* q, const void* k, const void* v, const
   return cudaGetLastError();
 }
 
+// Head dims 80, 96 (phi-2, gpt-neox-20b) and 256 (gpt-j-6b) run the same
+// kernels; fp32 at 256 needs 416 KB of ring a CTA and is refused (the
+// wrapper raises first).
 template <typename T>
 cudaError_t decode_by_d(int D, const DecodeArgs& a, cudaStream_t s) {
   switch (D) {
     case 32: return launch_decode<T, 32>(a, s);
     case 64: return launch_decode<T, 64>(a, s);
+    case 80: return launch_decode<T, 80>(a, s);
+    case 96: return launch_decode<T, 96>(a, s);
     case 128: return launch_decode<T, 128>(a, s);
-    default: return cudaErrorInvalidValue;
+    default: break;
   }
+  if constexpr (sizeof(T) == 2) {
+    if (D == 256) return launch_decode<T, 256>(a, s);
+  }
+  return cudaErrorInvalidValue;
 }
 
 template <typename T, int D>
@@ -1205,6 +1245,9 @@ cudaError_t chunk_by_d(int D, int RT, const void* q, const void* k, const void* 
     case 32: return chunk_by_rt<T, 32>(RT, q, k, v, table, out, C, H, KVH, BS, MB, start, true_len, scale, window, BC, s);
     case 64: return chunk_by_rt<T, 64>(RT, q, k, v, table, out, C, H, KVH, BS, MB, start, true_len, scale, window, BC, s);
     case 128: return chunk_by_rt<T, 128>(RT, q, k, v, table, out, C, H, KVH, BS, MB, start, true_len, scale, window, BC, s);
+    case 80: return chunk_by_rt<T, 80>(RT, q, k, v, table, out, C, H, KVH, BS, MB, start, true_len, scale, window, BC, s);
+    case 96: return chunk_by_rt<T, 96>(RT, q, k, v, table, out, C, H, KVH, BS, MB, start, true_len, scale, window, BC, s);
+    case 256: return chunk_by_rt<T, 256>(RT, q, k, v, table, out, C, H, KVH, BS, MB, start, true_len, scale, window, BC, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -246,7 +246,9 @@ class InferenceEngineV2:
     """``put(uid, prompt)`` then ``step()`` until ``is_done(uid)``;
     ``get(uid)`` returns the generated tokens.
 
-    ``model``: the port's ``Llama`` or ``Mixtral`` (moved to ``device``
+    ``model``: the port's ``Llama`` (or one of the families built on it:
+    ``Bloom``, ``Falcon``, ``GPTNeoX``, ``GPTJ``, ``InternLM``, ``Phi``,
+    ``Qwen``) or ``Mixtral`` (moved to ``device``
     in ``config.dtype``, every floating parameter cast, the Mixtral router
     too, as the JAX engine's ``shard_params`` does); ``device`` defaults to
     the card and raises without one. ``monitor``: any object with

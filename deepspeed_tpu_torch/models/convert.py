@@ -19,8 +19,13 @@ from ..ops.int8_weights import Int4Weight, Int8Weight
 
 _QUANTIZED = {"Int8Weight": Int8Weight, "Int4Weight": Int4Weight}
 
-_TOP = ("wte", "norm_f", "lm_head")
-_BLOCKS = ("rms1", "wq", "wk", "wv", "wo", "rms2", "wgate", "wup", "wdown")
+# the Llama family's leaves, the knobs' optional ones included (JAX
+# llama.py:241-278)
+_TOP = ("wte", "norm_f", "norm_f_b", "embed_ln_s", "embed_ln_b",
+        "lm_head_b", "lm_head")
+_BLOCKS = ("rms1", "wq", "wk", "wv", "wo", "rms2", "wgate", "wup", "wdown",
+           "bq", "bk", "bv", "bo", "bup", "bdown", "bgate", "b1", "b2")
+_MIXTRAL_TOP = ("wte", "norm_f", "lm_head")
 _MIXTRAL_BLOCKS = ("rms1", "wq", "wk", "wv", "wo", "rms2", "moe_gate",
                    "moe_w1", "moe_w3", "moe_w2")
 _GPT2_TOP = ("wte", "wpe", "lnf_scale", "lnf_bias")
@@ -71,10 +76,12 @@ def _from_numpy(tree, device, dtype, top, blocks, model, quantized_ok=False,
 
 
 def llama_params_from_numpy(tree, device, dtype):
-    """JAX Llama parameter tree of numpy arrays -> the port's state dict
-    (``wte``, ``norm_f``, ``lm_head``, ``blocks.<name>``) on ``device`` in
-    ``dtype``; quantized leaves stay quantized. Raises on keys the port's
-    Llama does not carry (biases, LayerNorm biases, embedding norm)."""
+    """JAX Llama-family parameter tree of numpy arrays (Llama and the seven
+    families built on it) -> the port's state dict (``wte``, ``norm_f``,
+    ``lm_head``, ``blocks.<name>`` and the knobs' leaves: biases, LayerNorm
+    shifts, the embedding norm) on ``device`` in ``dtype``; quantized
+    leaves stay quantized. Raises on keys the port's Llama does not
+    carry."""
     return _from_numpy(tree, device, dtype, _TOP, _BLOCKS, "Llama", True)
 
 
@@ -85,8 +92,8 @@ def mixtral_params_from_numpy(tree, device, dtype):
     ``dtype``, except the router ``blocks.moe_gate``, which stays fp32 as
     the JAX ``Mixtral.init`` keeps it (mixtral.py:73-75); quantized leaves
     stay quantized. Raises on keys the port's Mixtral does not carry."""
-    return _from_numpy(tree, device, dtype, _TOP, _MIXTRAL_BLOCKS, "Mixtral",
-                       True, fp32_blocks=("moe_gate",))
+    return _from_numpy(tree, device, dtype, _MIXTRAL_TOP, _MIXTRAL_BLOCKS,
+                       "Mixtral", True, fp32_blocks=("moe_gate",))
 
 
 def gpt2_params_from_numpy(tree, device, dtype):

@@ -69,8 +69,8 @@ from .common import (chunked_softmax_xent, fused_linear_xent,
 @dataclass(frozen=True)
 class GPT2Config:
     """Every field of the JAX ``GPT2Config`` (gpt2.py:42-150); the ones this
-    port does not carry raise in ``GPT2`` (see ``_unsupported``). The flash
-    tile knobs are accepted and change nothing."""
+    port does not carry raise in ``GPT2`` (see ``_unported_knobs``). The
+    flash tile knobs are accepted and change nothing."""
     vocab_size: int = 50304
     max_seq_len: int = 1024
     n_layer: int = 12
@@ -150,7 +150,7 @@ _TODO = {
 }
 
 
-def _unsupported(cfg):
+def _unported_knobs(cfg):
     out = []
     if cfg.dropout > 0:
         out.append(("dropout > 0", _TODO["dropout"]))
@@ -174,7 +174,7 @@ class GPT2(nn.Module):
 
     def __init__(self, config: GPT2Config, device=None, dtype=None, seed=0):
         super().__init__()
-        bad = _unsupported(config)
+        bad = _unported_knobs(config)
         if bad:
             raise NotImplementedError(
                 "GPT2 port does not carry "

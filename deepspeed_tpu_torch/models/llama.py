@@ -14,6 +14,23 @@ renaming or transposes:
           wo (L, D, D), rms2 (L, D), wgate (L, D, F), wup (L, D, F),
           wdown (L, F, D)       — projections are ``x @ W``
 
+The architecture knobs of the JAX config are carried through every program
+(training, the remat block and the four paged serving programs), which is
+what the seven config-only families (Bloom, Falcon, GPT-NeoX, GPT-J,
+InternLM, Phi, Qwen: ``models/{bloom,...}.py``) are made of:
+``norm_type="ln"`` (LayerNorm with the ``b1`` / ``b2`` / ``norm_f_b``
+shifts), ``parallel_block`` (x + attn(n1 x) + mlp(n2 x)), the bias knobs
+(``qkv_bias``: ``bq`` / ``bk`` / ``bv``; ``o_bias``: ``bo``; ``mlp_bias``:
+``bup`` / ``bdown`` (/ ``bgate``); ``proj_bias`` both; ``head_bias``:
+``lm_head_b``), ``embed_norm`` (``embed_ln_s`` / ``embed_ln_b``),
+``rotary_pct`` < 1 (the leading lanes rotate, half-split or interleaved)
+and ALiBi (``alibi`` / ``alibi_inv_norm``: no rotary; training through
+K1 / K2 with the slopes when flash resolves on, else dense scores plus
+``_alibi_bias``; serving prefill, chunk and verify densely, decode
+through K4 with the slopes whatever ``paged_kernel`` says, as the JAX
+programs dispatch, llama.py:702-703, :785-786, :856, :935-936). Leaf
+names, shapes and specs are JAX's (llama.py:229-325).
+
 Norms, RoPE angles/products and the logits are fp32, as in the JAX model;
 activations run in the parameters' dtype. Training (JAX llama.py:454-575)
 repeats the K/V heads to the query heads before attention (``_repeat_kv``:
@@ -49,7 +66,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.cuda.flash_attention import flash_attention
 from ..ops.cuda.mlp_matmul import wq_matmul
-from ..ops.cuda.paged_attention import (paged_chunk_attention,
+from ..ops.cuda.paged_attention import (alibi_slopes, paged_chunk_attention,
                                         paged_chunk_attention_reference,
                                         paged_decode_attention,
                                         paged_decode_attention_reference)
@@ -59,7 +76,6 @@ from ..utils.device import resolve_device
 from .common import (chunked_softmax_xent, fused_linear_xent, mm_f32,
                      next_token_xent, resolve_flash, resolve_remat_policy)
 
-_MODEL_TODO = "(ROADMAP Queue 1, serving: more Llama-family knobs)"
 _TODO_REMAT = "(ROADMAP Queue 1, M3: more remat policies)"
 _TODO_SEQ = "(ROADMAP Queue 1, M12: the Llama family under sequence " \
     "parallelism)"
@@ -125,12 +141,27 @@ class LlamaConfig:
         return ((int(8 * self.d_model / 3) + 127) // 128) * 128
 
     def num_params(self):
+        """Parameters, the biases and norm shifts included (JAX
+        llama.py:131-151)."""
         D, Fd, V = self.d_model, self.ffn_dim, self.vocab_size
         kvd = self.n_kv_heads * self.d_head
         block = (2 * D + D * D + 2 * D * kvd + D * D
                  + (3 if self.mlp_gated else 2) * D * Fd)
+        if self.qkv_bias:
+            block += D + 2 * kvd
+        if self.o_bias_on:
+            block += D
+        if self.mlp_bias_on:
+            block += D + Fd * (2 if self.mlp_gated else 1)
+        if self.norm_type == "ln":
+            block += 2 * D
         head = 0 if self.tie_embeddings else V * D
-        return V * D + self.n_layer * block + D + head
+        if self.head_bias_on:
+            head += V
+        extra_f = D if self.norm_type == "ln" else 0
+        if self.embed_norm:
+            extra_f += 2 * D
+        return V * D + self.n_layer * block + D + extra_f + head
 
     def flops_per_token(self):
         """6 N (N without the embedding) + the attention's 12 L D T, a
@@ -151,29 +182,20 @@ LLAMA_PRESETS = {"tiny": LLAMA_TINY, "llama2-7b": LLAMA2_7B,
                  "mistral-7b": MISTRAL_7B}
 
 
-def _unsupported(cfg):
-    """Knobs of the JAX config this slice does not carry."""
-    out = []
-    if cfg.alibi:
-        out.append("alibi")
-    if cfg.norm_type != "rms":
-        out.append(f"norm_type={cfg.norm_type!r}")
-    if cfg.parallel_block:
-        out.append("parallel_block")
-    if cfg.qkv_bias or cfg.o_bias_on or cfg.mlp_bias_on or cfg.head_bias_on:
-        out.append("bias knobs (qkv_bias/proj_bias/o_bias/mlp_bias/"
-                   "head_bias)")
-    if cfg.embed_norm:
-        out.append("embed_norm")
-    if cfg.rotary_pct < 1.0:
-        out.append("rotary_pct<1")
-    return out
-
-
 def _rms_norm(x, scale, eps):
     x32 = x.float()
     var = x32.square().mean(-1, keepdim=True)
     return (x32 * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def _layer_norm(x, scale, bias, eps):
+    """LayerNorm with a learned shift in fp32, cast back to x's dtype (JAX
+    llama.py:177-182)."""
+    x32 = x.float()
+    mu = x32.mean(-1, keepdim=True)
+    var = (x32 - mu).square().mean(-1, keepdim=True)
+    return ((x32 - mu) * torch.rsqrt(var + eps) * scale.float()
+            + bias.float()).to(x.dtype)
 
 
 def _rope(x, pos, theta, interleaved=False):
@@ -247,11 +269,9 @@ class Llama(nn.Module):
     def __init__(self, config: LlamaConfig, device=None, dtype=None,
                  seed=0, quantize=None):
         super().__init__()
-        bad = _unsupported(config)
-        if bad:
-            raise NotImplementedError(
-                f"Llama port does not carry {', '.join(bad)} yet "
-                f"{_MODEL_TODO}")
+        if config.norm_type not in ("rms", "ln"):
+            raise ValueError(f"norm_type must be 'rms' or 'ln', got "
+                             f"{config.norm_type!r}")
         self.config = config
         dev = resolve_device(device)
         dt = dtype if dtype is not None else getattr(torch, config.dtype)
@@ -274,16 +294,24 @@ class Llama(nn.Module):
                        * s).to(dtype)
 
         def nrm(shape, s=std, dtype=dt, key=None):
-            # one (rows, cols) slice at a time (one row at a time for a
-            # 2-D table): the fp32 draw never holds a whole stacked tensor.
-            # A block leaf (``key``) that quantize_tree takes is quantized
-            # slice by slice as it is drawn, from the same draws.
+            # one (rows, cols) slice at a time (a 2-D table in runs of
+            # rows of at most 2^22 values): the fp32 draw never holds a
+            # whole stacked tensor. A block leaf (``key``) that
+            # quantize_tree takes is quantized slice by slice as it is
+            # drawn, from the same draws.
             if (bits and key is not None and len(shape) > 2
                     and qualifies(key, shape, dtype)):
                 return quantize_slices(shape, slices(shape, s, dtype), bits,
                                        dev)
             out = torch.empty(shape, dtype=dtype, device=dev)
-            flat = out.view(-1, *shape[-2:]) if len(shape) > 2 else out
+            if len(shape) == 2:
+                step = max(1, (1 << 22) // shape[1])
+                for r in range(0, shape[0], step):
+                    rows = out[r:r + step]
+                    rows.copy_(torch.randn(rows.shape, generator=gen,
+                                           device=dev) * s)
+                return nn.Parameter(out)
+            flat = out.view(-1, *shape[-2:])
             for i in range(flat.shape[0]):
                 flat[i].copy_(torch.randn(flat.shape[1:], generator=gen,
                                           device=dev) * s)
@@ -291,6 +319,9 @@ class Llama(nn.Module):
 
         def ones(shape):
             return nn.Parameter(torch.ones(shape, dtype=dt, device=dev))
+
+        def zeros(shape):
+            return nn.Parameter(torch.zeros(shape, dtype=dt, device=dev))
 
         self.wte = nrm((V, D))
         self.norm_f = ones((D,))
@@ -303,6 +334,25 @@ class Llama(nn.Module):
             "rms2": ones((L, D)),
         }
         blocks.update(self._init_mlp(nrm, res_std))
+        # the knobs' leaves (JAX llama.py:255-276): biases and LayerNorm
+        # shifts start at zero, the embedding norm's scale at one
+        if config.qkv_bias:
+            blocks.update(bq=zeros((L, D)), bk=zeros((L, kvd)),
+                          bv=zeros((L, kvd)))
+        if config.o_bias_on:
+            blocks["bo"] = zeros((L, D))
+        if config.mlp_bias_on:
+            blocks.update(bup=zeros((L, Fd)), bdown=zeros((L, D)))
+            if config.mlp_gated:
+                blocks["bgate"] = zeros((L, Fd))
+        if config.head_bias_on:
+            self.lm_head_b = zeros((V,))
+        if config.norm_type == "ln":
+            blocks.update(b1=zeros((L, D)), b2=zeros((L, D)))
+            self.norm_f_b = zeros((D,))
+        if config.embed_norm:
+            self.embed_ln_s = ones((D,))
+            self.embed_ln_b = zeros((D,))
         self.qblocks = {}
         self.weight_quant = quantize or None
         params = {}
@@ -340,10 +390,15 @@ class Llama(nn.Module):
         return self.wte.device
 
     # ---------------------------------------------------------- quantization
+    # the top-level leaves of the JAX tree (besides ``blocks``)
+    TOP_KEYS = ("wte", "norm_f", "norm_f_b", "embed_ln_s", "embed_ln_b",
+                "lm_head_b", "lm_head")
+
     def params_tree(self):
-        """The JAX parameter tree: ``wte``, ``norm_f``, ``lm_head`` and
-        ``blocks`` (tensors and quantized nodes), sharing storage."""
-        tree = {k: getattr(self, k) for k in ("wte", "norm_f", "lm_head")
+        """The JAX parameter tree: ``wte``, ``norm_f``, ``lm_head``, the
+        knobs' top-level leaves and ``blocks`` (tensors and quantized
+        nodes), sharing storage."""
+        tree = {k: getattr(self, k) for k in self.TOP_KEYS
                 if hasattr(self, k)}
         tree["blocks"] = {**dict(self.blocks.items()), **self.qblocks}
         return tree
@@ -415,58 +470,179 @@ class Llama(nn.Module):
     def _head_keys(self):
         """The parameters ``head`` reads, in ``_head``'s order (the fused
         CE's head parameters; JAX llama.py:548)."""
-        return ["norm_f", "wte" if self.config.tie_embeddings
-                else "lm_head"]
+        cfg = self.config
+        keys = ["norm_f"]
+        if cfg.norm_type == "ln":
+            keys.append("norm_f_b")
+        keys.append("wte" if cfg.tie_embeddings else "lm_head")
+        if cfg.head_bias_on:
+            keys.append("lm_head_b")
+        return keys
 
     def head(self, x):
-        """Final RMSNorm + unembedding: (..., D) -> fp32 (..., V)."""
+        """Final norm + unembedding (+ its bias): (..., D) -> fp32 (...,
+        V)."""
         return self._head([getattr(self, k) for k in self._head_keys()], x)
 
     def _head(self, ps, x):
-        norm_f, w = ps
-        x = _rms_norm(x, norm_f, self.config.rms_eps)
+        cfg = self.config
+        p = dict(zip(self._head_keys(), ps))
+        if cfg.norm_type == "ln":
+            x = _layer_norm(x, p["norm_f"], p["norm_f_b"], cfg.rms_eps)
+        else:
+            x = _rms_norm(x, p["norm_f"], cfg.rms_eps)
+        w = p["wte" if cfg.tie_embeddings else "lm_head"]
         lead = x.shape[:-1]
-        return _logits_f32(x.reshape(-1, x.shape[-1]), w).reshape(
+        logits = _logits_f32(x.reshape(-1, x.shape[-1]), w).reshape(
             *lead, w.shape[0])
+        if cfg.head_bias_on:
+            logits = logits + p["lm_head_b"].float()
+        return logits
+
+    def _embed(self, ids):
+        """Token embedding (+ the embedding LayerNorm under
+        ``embed_norm``)."""
+        x = F.embedding(ids.long(), self.wte)
+        if self.config.embed_norm:
+            x = _layer_norm(x, self.embed_ln_s, self.embed_ln_b,
+                            self.config.rms_eps)
+        return x
+
+    def _norm(self, x, i, which):
+        """Block norm ``which`` (1 or 2): RMSNorm, or LayerNorm with its
+        shift under norm_type "ln" (JAX llama.py:329-335)."""
+        cfg = self.config
+        if cfg.norm_type == "ln":
+            return _layer_norm(x, self._w(f"rms{which}", i),
+                               self._w(f"b{which}", i), cfg.rms_eps)
+        return _rms_norm(x, self._w(f"rms{which}", i), cfg.rms_eps)
 
     def _attn_proj(self, x, i):
         cfg = self.config
         B, T = x.shape[0], x.shape[1]
-        h = _rms_norm(x, self._w("rms1", i), cfg.rms_eps)
+        h = self._norm(x, i, 1)
         q = h @ self._w("wq", i)
         k = h @ self._w("wk", i)
         v = h @ self._w("wv", i)
+        if cfg.qkv_bias:
+            q = q + self._w("bq", i)
+            k = k + self._w("bk", i)
+            v = v + self._w("bv", i)
         return (q.reshape(B, T, cfg.n_head, cfg.d_head),
                 k.reshape(B, T, cfg.n_kv_heads, cfg.d_head),
                 v.reshape(B, T, cfg.n_kv_heads, cfg.d_head))
 
     def _rope(self, x, pos):
-        return _rope(x, pos, self.config.rope_theta,
-                     interleaved=self.config.rotary_interleaved)
+        """Rotary over the leading ``rotary_pct`` of each head (JAX
+        llama.py:366-382); none under ALiBi."""
+        cfg = self.config
+        if cfg.alibi:
+            return x
+        il = cfg.rotary_interleaved
+        if cfg.rotary_pct >= 1.0:
+            return _rope(x, pos, cfg.rope_theta, interleaved=il)
+        rot = max(2, int(x.shape[-1] * cfg.rotary_pct)) // 2 * 2
+        return torch.cat([_rope(x[..., :rot], pos, cfg.rope_theta,
+                                interleaved=il), x[..., rot:]], dim=-1)
+
+    def _alibi_bias(self, k_pos):
+        """(H, *k_pos.shape) fp32 additive score term slope_h * k_pos; under
+        ``alibi_inv_norm`` rounded through bf16 and divided by sqrt(hd)
+        (JAX llama.py:384-397)."""
+        cfg = self.config
+        slopes = torch.tensor(alibi_slopes(cfg.n_head), dtype=torch.float32,
+                              device=k_pos.device)
+        bias = slopes.reshape(-1, *([1] * k_pos.dim())) * k_pos.float()[None]
+        if cfg.alibi_inv_norm:
+            bias = bias.to(torch.bfloat16).float() / math.sqrt(cfg.d_head)
+        return bias
+
+    def _alibi_kw(self):
+        """The flash / paged kernels' ALiBi arguments (none without it)."""
+        cfg = self.config
+        if not cfg.alibi:
+            return {}
+        return dict(alibi_scale=(1.0 / math.sqrt(cfg.d_head)
+                                 if cfg.alibi_inv_norm else 1.0),
+                    alibi_bf16=cfg.alibi_inv_norm)
 
     def _wo(self, attn, i):
-        return attn @ self._w("wo", i)
+        out = attn @ self._w("wo", i)
+        if self.config.o_bias_on:
+            out = out + self._w("bo", i)
+        return out
 
     def _mlp(self, x, i):
         cfg = self.config
-        h = _rms_norm(x, self._w("rms2", i), cfg.rms_eps)
+        h = self._norm(x, i, 2)
         up, down = self._w("wup", i), self._w("wdown", i)
+        pb = cfg.mlp_bias_on
         # quantized FFN weights under the fused path: K7 streams the codes
-        # and applies the scales in its epilogue (JAX llama.py:414-438)
+        # and applies the scales in its epilogue (JAX llama.py:414-452)
         mm = wq_matmul if is_quantized(up) else torch.matmul
+        u = mm(h, up)
+        if pb:
+            u = u + self._w("bup", i)
         if not cfg.mlp_gated:
-            act = F.gelu(mm(h, up),
-                         approximate="tanh" if cfg.mlp_act == "gelu_tanh"
+            act = F.gelu(u, approximate="tanh" if cfg.mlp_act == "gelu_tanh"
                          else "none")
-            return mm(act, down)
-        return mm(F.silu(mm(h, self._w("wgate", i))) * mm(h, up), down)
+        else:
+            gt = mm(h, self._w("wgate", i))
+            if pb:
+                gt = gt + self._w("bgate", i)
+            act = F.silu(gt) * u
+        out = mm(act, down)
+        return out + self._w("bdown", i) if pb else out
 
     def _block_tail(self, x, attn, i):
-        x = x + self._wo(attn, i)
+        """The block after attention: sequential x + wo(attn) then + mlp,
+        or falcon/phi's parallel x + wo(attn) + mlp(x)."""
+        attn_out = self._wo(attn, i)
+        if self.config.parallel_block:
+            return x + attn_out + self._mlp(x, i)
+        x = x + attn_out
         return x + self._mlp(x, i)
 
     def _use_kernel(self):
         return self.paged_kernel is not False
+
+    def _chunk_attend(self):
+        """The prefill / chunk / verify attention: K5 (paged_chunk_attention)
+        unless ``paged_kernel`` is False (its plain version), or the dense
+        gather with the ALiBi term for ALiBi families, which JAX runs densely
+        whatever the switch says (llama.py:702-703, :785-786, :935-936)."""
+        if self.config.alibi:
+            return self._dense_alibi_attend
+        return (paged_chunk_attention if self._use_kernel()
+                else paged_chunk_attention_reference)
+
+    def _dense_alibi_attend(self, q, k_cache, v_cache, table, start,
+                            true_len, window=0):
+        """Dense attention of a C-token query chunk at positions start ..
+        start + C - 1 over the sequence's keys gathered through ``table``
+        (keys below start + true_len, causal, the window), fp32 scores /
+        sqrt(hd) plus ``_alibi_bias``, p rounded to q's dtype before P V
+        (JAX llama.py:727-737, :813-825, :960-974). Returns (C, H, hd)."""
+        C, H, hd = q.shape
+        KVH, BS = k_cache.shape[1], k_cache.shape[2]
+        S = table.shape[0] * BS
+        tb = table.long()
+        gk = k_cache[tb].transpose(1, 2).reshape(S, KVH, hd)
+        gv = v_cache[tb].transpose(1, 2).reshape(S, KVH, hd)
+        gk = gk.repeat_interleave(H // KVH, dim=1)
+        gv = gv.repeat_interleave(H // KVH, dim=1)
+        s = torch.einsum("thd,shd->hts", q.float(), gk.float())
+        s = s / math.sqrt(hd)
+        k_pos = torch.arange(S, device=q.device)
+        s = s + self._alibi_bias(k_pos)[:, None, :]
+        q_pos = (int(start) + torch.arange(C, device=q.device))[:, None]
+        ok = ((k_pos[None] <= q_pos)
+              & (k_pos[None] < int(start) + int(true_len)))
+        if window:
+            ok = ok & (q_pos - k_pos[None] < window)
+        s = torch.where(ok[None], s, -1e30)
+        p = torch.softmax(s, dim=-1).to(q.dtype)
+        return torch.einsum("hts,shd->thd", p, gv)
 
     # ------------------------------------------------------------ training
     def partition_specs(self, topology=None):
@@ -476,14 +652,28 @@ class Llama(nn.Module):
         embeddings and norms whole. The port runs no tensor axis; the
         engine's ZeRO plan reads these so it leaves the same dims whole as
         JAX (runtime/zero/partitioning.py)."""
+        cfg = self.config
         col, row, vec = (None, None, "tensor"), (None, "tensor", None), \
             (None, None)
         blocks = {"rms1": vec, "wq": col, "wk": col, "wv": col, "wo": row,
                   "rms2": vec}
         blocks.update(self._mlp_specs(topology))
+        if cfg.qkv_bias:
+            blocks.update(bq=(None, "tensor"), bk=(None, "tensor"),
+                          bv=(None, "tensor"))
+        if cfg.o_bias_on:
+            blocks["bo"] = vec
+        if cfg.mlp_bias_on:
+            blocks.update(bup=(None, "tensor"), bdown=vec)
+            if cfg.mlp_gated:
+                blocks["bgate"] = (None, "tensor")
+        if cfg.norm_type == "ln":
+            blocks.update(b1=vec, b2=vec)
         specs = {"wte": (), "norm_f": ()}
-        if not self.config.tie_embeddings:
-            specs["lm_head"] = ()
+        for key in ("norm_f_b", "embed_ln_s", "embed_ln_b", "lm_head_b",
+                    "lm_head"):
+            if hasattr(self, key):
+                specs[key] = ()
         specs.update({f"blocks.{k}": v for k, v in blocks.items()})
         return specs
 
@@ -501,15 +691,23 @@ class Llama(nn.Module):
 
     def _train_attn(self, q, k, v, mask):
         """Attention over (B, T, H, hd) q and the repeated k, v: the flash
-        kernels (K1 forward, K2 backward; ``sliding_window`` their window)
-        or dense fp32 scores under ``mask`` (T, T), as JAX llama.py:471-499.
+        kernels (K1 forward, K2 backward; ``sliding_window`` their window,
+        the ALiBi slopes their in-kernel term) or dense fp32 scores (plus
+        ``_alibi_bias``) under ``mask`` (T, T), as JAX llama.py:470-500.
         Returns (B, T, H, hd) in the model's dtype."""
         cfg = self.config
         if self.flash_on:
+            al = ({"alibi": alibi_slopes(cfg.n_head), **self._alibi_kw()}
+                  if cfg.alibi else {})
             return flash_attention(q, k, v, causal=True,
-                                   window=cfg.sliding_window).to(q.dtype)
+                                   window=cfg.sliding_window,
+                                   **al).to(q.dtype)
         s = torch.einsum("bthd,bshd->bhts", q.float(), k.float())
-        s = torch.where(mask, s / math.sqrt(cfg.d_head), -1e30)
+        s = s / math.sqrt(cfg.d_head)
+        if cfg.alibi:
+            s = s + self._alibi_bias(torch.arange(
+                q.shape[1], device=q.device))[None, :, None, :]
+        s = torch.where(mask, s, -1e30)
         probs = torch.softmax(s, dim=-1).to(q.dtype)
         return torch.einsum("bhts,bshd->bthd", probs, v)
 
@@ -548,7 +746,7 @@ class Llama(nn.Module):
                 f"Llama family yet {_TODO_REMAT}")
         ids = torch.as_tensor(input_ids).to(self.device).long()
         B, T = ids.shape
-        x = F.embedding(ids, self.wte)
+        x = self._embed(ids)
         pos = torch.arange(T, device=ids.device)[None, :].expand(B, T)
         mask = None
         if not self.flash_on:
@@ -620,12 +818,11 @@ class Llama(nn.Module):
         T = input_ids.shape[1]
         H, hd = cfg.n_head, cfg.d_head
         length = int(length)
-        x = F.embedding(input_ids.long(), self.wte)
+        x = self._embed(input_ids)
         pos = torch.arange(T, device=input_ids.device)[None, :]
         BS = cache["k"][0].shape[2]
         prefill_table = token_blocks[::BS].to(torch.int32).contiguous()
-        attend = (paged_chunk_attention if self._use_kernel()
-                  else paged_chunk_attention_reference)
+        attend = self._chunk_attend()
         for i in range(cfg.n_layer):
             kc, vc = cache["k"][i], cache["v"][i]
             q, k, v = self._attn_proj(x, i)
@@ -656,11 +853,10 @@ class Llama(nn.Module):
         C = input_ids.shape[1]
         H, hd = cfg.n_head, cfg.d_head
         start, true_len = int(start), int(true_len)
-        x = F.embedding(input_ids.long(), self.wte)
+        x = self._embed(input_ids)
         pos = start + torch.arange(C, device=input_ids.device)[None, :]
         table = table.to(torch.int32).contiguous()
-        attend = (paged_chunk_attention if self._use_kernel()
-                  else paged_chunk_attention_reference)
+        attend = self._chunk_attend()
         for i in range(cfg.n_layer):
             kc, vc = cache["k"][i], cache["v"][i]
             q, k, v = self._attn_proj(x, i)
@@ -693,7 +889,7 @@ class Llama(nn.Module):
         lengths = lengths.to(torch.int32).contiguous()
         block_tables = block_tables.to(torch.int32).contiguous()
         pos = lengths.clamp(max=cfg.max_seq_len - 1)
-        x = F.embedding(tokens.long()[:, None], self.wte)
+        x = self._embed(tokens[:, None])
         blk_idx = (lengths // BS).long()
         in_table = blk_idx < MB
         dst_block = torch.where(
@@ -701,7 +897,11 @@ class Llama(nn.Module):
             block_tables.gather(1, blk_idx.clamp(max=MB - 1)[:, None])[:, 0],
             0)
         dst_off = lengths % BS
-        attend = (paged_decode_attention if self._use_kernel()
+        # ALiBi families keep K4 whatever paged_kernel says (JAX
+        # llama.py:856: the dense path lacks falcon's bf16 variant)
+        al = ({"alibi_slopes": alibi_slopes(H), **self._alibi_kw()}
+              if cfg.alibi else {})
+        attend = (paged_decode_attention if self._use_kernel() or cfg.alibi
                   else paged_decode_attention_reference)
         for i in range(cfg.n_layer):
             kc, vc = cache["k"][i], cache["v"][i]
@@ -711,7 +911,7 @@ class Llama(nn.Module):
             _scatter_kv(kc, dst_block, dst_off, k[:, 0])
             _scatter_kv(vc, dst_block, dst_off, v[:, 0])
             attn = attend(q[:, 0].contiguous(), kc, vc, block_tables, lengths,
-                          window=cfg.sliding_window)
+                          window=cfg.sliding_window, **al)
             x = self._block_tail(x, attn.reshape(B, 1, H * hd), i)
         return self.head(x)[:, 0], cache
 
@@ -742,12 +942,11 @@ class Llama(nn.Module):
         linpos = (torch.as_tensor(starts, device=dev)[:, None]
                   + torch.arange(C, device=dev)[None, :])        # (B, C)
         pos = linpos.clamp(max=cfg.max_seq_len - 1)
-        x = F.embedding(tokens.long(), self.wte)
+        x = self._embed(tokens)
         fb = block_tables.gather(1, (linpos // BS).clamp(max=MB - 1)) \
             .reshape(-1)
         fo = (linpos % BS).reshape(-1)
-        attend = (paged_chunk_attention if self._use_kernel()
-                  else paged_chunk_attention_reference)
+        attend = self._chunk_attend()
         for i in range(cfg.n_layer):
             kc, vc = cache["k"][i], cache["v"][i]
             q, k, v = self._attn_proj(x, i)           # (B, C, ., hd)

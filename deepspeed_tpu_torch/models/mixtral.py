@@ -81,6 +81,21 @@ class Mixtral(Llama):
         if not 1 <= config.moe_top_k <= config.num_experts:
             raise ValueError(f"moe_top_k must be in [1, num_experts], got "
                              f"{config.moe_top_k}")
+        knobs = [k for k, on in (
+            ("alibi", config.alibi),
+            ("norm_type='ln'", config.norm_type != "rms"),
+            ("parallel_block", config.parallel_block),
+            ("bias knobs", config.qkv_bias or config.o_bias_on
+             or config.mlp_bias_on or config.head_bias_on),
+            ("embed_norm", config.embed_norm),
+            ("rotary_pct<1", config.rotary_pct < 1.0)) if on]
+        if knobs:
+            # the JAX expert FFN (mixtral.py:132-174) reads rms2 alone and
+            # no MLP bias, so no JAX Mixtral configuration sets these
+            raise NotImplementedError(
+                f"the Mixtral port takes none of the Llama-family knobs "
+                f"(got {', '.join(knobs)}): its expert FFN has no LayerNorm "
+                f"shift, bias or parallel block")
         super().__init__(config, device=device, dtype=dtype, seed=seed,
                          quantize=quantize)
         self.grouped_kernel = "auto"

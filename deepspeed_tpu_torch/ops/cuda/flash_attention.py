@@ -52,8 +52,13 @@ every other call k-major; "auto" resolves to False, the JAX choice on a
 winner-cache miss (``TUNE_DEFAULTS["bwd_qmajor"]``,
 flash_attention.py:46-47; the port has no winner cache). The TPU tile
 knobs (block_q/k/h and their _bwd twins) are accepted and change
-nothing. Additive ``bias`` and ``alibi`` operands and ``bias_grad``
-raise, naming their ROADMAP item.
+nothing. ``alibi`` (the bloom slopes) is evaluated in every K1 / K2
+design from the head index and added to the scaled scores (bf16-rounded
+and scaled for falcon-rw); the query-major backward takes none, as JAX
+never runs it so. The additive ``bias`` operand and ``bias_grad`` raise,
+naming their ROADMAP item. Head dims: 32, 64, 80, 96, 128 and 256 for K1
+/ K2 (the sm90 designs at 64 / 128, mma_sync / fp32 at the rest; fp32 K2
+at 256 raises), 32 / 64 / 128 for K2-qmajor and K10.
 """
 
 import ctypes
@@ -62,6 +67,7 @@ import math
 import torch
 
 from .grouped_matmul import tma_ok
+from .paged_attention import alibi_slopes
 
 NEG_INF = -1e30
 
@@ -78,9 +84,13 @@ _DESIGN_CODE = {"fp32": 0, "mma_sync": 1, "sm90": 2}
 # the launchers' dtype codes; fp16 is code 1 of the fp16 library
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 1}
 _TODO_F16 = "(ROADMAP Queue 2, fp16 operands: K2-qmajor and K10)"
-_HEAD_DIMS = (32, 64, 128)
+# K1 / K2: 80, 96 and 256 (phi-2, gpt-neox-20b, gpt-j-6b) on the mma_sync /
+# fp32 designs; K2-qmajor and K10 keep 32 / 64 / 128
+_HEAD_DIMS = (32, 64, 80, 96, 128, 256)
+_RING_HEAD_DIMS = (32, 64, 128)
 _SM90_HEAD_DIMS = (64, 128)
-_TODO_BIAS = "(ROADMAP Queue 2, K1/K2: bias and ALiBi operands)"
+_TODO_BIAS = "(ROADMAP Queue 2, K1/K2: additive bias operand)"
+_TODO_DIMS = "(ROADMAP Queue 2, K2-qmajor / K10 / fp32 K2 at d = 80, 96, 256)"
 _QMAJOR_TILE = 64      # the kernel's query tile; the plain version walks it
 _SM90_TILE = 128       # the Hopper query-major kernel's query tile
 
@@ -98,6 +108,12 @@ class _Strides(ctypes.Structure):
                 ("t", ctypes.c_longlong)]
 
 
+class _AlibiArgs(ctypes.Structure):
+    """Mirror of ``struct AlibiArgs`` in csrc/flash_attention.cu."""
+    _fields_ = [("on", ctypes.c_int), ("bf16", ctypes.c_int),
+                ("scale", ctypes.c_float), ("cp", ctypes.c_float)]
+
+
 class _FlashArgs(ctypes.Structure):
     """Mirror of ``struct FlashArgs`` in csrc/flash_attention.cu."""
     _fields_ = ([(n, ctypes.c_void_p) for n in
@@ -108,7 +124,8 @@ class _FlashArgs(ctypes.Structure):
                 + [(n, ctypes.c_int) for n in
                    ("B", "H", "T", "D", "causal", "window")]
                 + [("m", ctypes.c_void_p), ("l", ctypes.c_void_p),
-                   ("sml", ctypes.c_longlong), ("sacc", _Strides)])
+                   ("sml", ctypes.c_longlong), ("sacc", _Strides),
+                   ("alibi", _AlibiArgs)])
 
 
 _builder = None        # the bf16 / fp32 library's
@@ -170,12 +187,54 @@ def _mask(T, causal, window, device):
     return ok
 
 
-def flash_forward_reference(q, k, v, *, causal=True, window=0):
-    """Plain version of the forward kernel on (B, H, T, d) operands with the
-    scale already in q: fp32 scores, masked to NEG_INF, p rounded to v's
-    dtype before P.V and l summed from the unrounded p. Returns (o in q's
-    dtype, lse (B, H, T) fp32)."""
+def check_alibi_slopes(alibi, n_head):
+    """The kernels evaluate the bloom slopes from the head index, so they
+    take no others (the JAX wrapper's rule, flash_attention.py:1428-1442):
+    raises NotImplementedError for custom slopes."""
+    got = [float(x) for x in (alibi.reshape(-1).tolist()
+                              if torch.is_tensor(alibi) else alibi)]
+    expect = alibi_slopes(n_head)
+    if len(got) != n_head or any(abs(a - b) > 1e-6 * max(abs(b), 1e-9)
+                                 for a, b in zip(got, expect)):
+        raise NotImplementedError(
+            "flash_attention computes bloom-formula ALiBi slopes in-kernel; "
+            "custom per-head slopes are not supported (pass them as a bias "
+            f"instead) {_TODO_BIAS}")
+
+
+def alibi_term(H, T, device, scale=1.0, bf16=False):
+    """(H, 1, T) fp32 ALiBi term slope_h * k_pos as the kernels form it: the
+    slope by exp2 of the fp32 bloom exponent of head h, the product rounded
+    through bf16 when ``bf16``, then times ``scale``."""
+    h = torch.arange(H, dtype=torch.float32, device=device)
+    cp = float(2 ** math.floor(math.log2(H)))
+    expo = torch.where(h < cp, -(h + 1.0) * (8.0 / cp),
+                       -(2.0 * (h - cp) + 1.0) * (4.0 / cp))
+    ab = torch.exp2(expo)[:, None, None] * torch.arange(
+        T, dtype=torch.float32, device=device)
+    if bf16:
+        ab = ab.to(torch.bfloat16).float()
+    return ab * scale
+
+
+def _scores(q, k, alibi, alibi_scale, alibi_bf16):
+    """fp32 q k^T of (B, H, T, d) operands plus the ALiBi term when given."""
     s = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    if alibi is not None:
+        check_alibi_slopes(alibi, q.shape[1])
+        s = s + alibi_term(q.shape[1], k.shape[2], q.device, alibi_scale,
+                           alibi_bf16)
+    return s
+
+
+def flash_forward_reference(q, k, v, *, causal=True, window=0, alibi=None,
+                            alibi_scale=1.0, alibi_bf16=False):
+    """Plain version of the forward kernel on (B, H, T, d) operands with the
+    scale already in q: fp32 scores (plus the ALiBi term of ``alibi`` =
+    the bloom slopes, see :func:`alibi_term`), masked to NEG_INF, p rounded
+    to v's dtype before P.V and l summed from the unrounded p. Returns (o in
+    q's dtype, lse (B, H, T) fp32)."""
+    s = _scores(q, k, alibi, alibi_scale, alibi_bf16)
     s = torch.where(_mask(q.shape[2], causal, window, q.device), s, NEG_INF)
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m)
@@ -185,13 +244,14 @@ def flash_forward_reference(q, k, v, *, causal=True, window=0):
 
 
 def flash_backward_reference(q, k, v, o, lse, do, *, causal=True, window=0,
-                             dlse=None):
+                             dlse=None, alibi=None, alibi_scale=1.0,
+                             alibi_bf16=False):
     """Plain version of the fused backward on (B, H, T, d) operands (scale
-    already in q): p = exp(s - lse) (0 where masked), delta = rowsum(do*o)
-    (- dlse), dv = round(p)^T do, ds = p (dp - delta), dk = round(ds)^T q,
-    dq = round(ds) k, all accumulated in fp32 and cast to the inputs'
-    dtypes."""
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    already in q): p = exp(s - lse) (0 where masked; s carries the ALiBi
+    term again under ``alibi``), delta = rowsum(do*o) (- dlse), dv =
+    round(p)^T do, ds = p (dp - delta), dk = round(ds)^T q, dq = round(ds)
+    k, all accumulated in fp32 and cast to the inputs' dtypes."""
+    s = _scores(q, k, alibi, alibi_scale, alibi_bf16)
     ok = _mask(q.shape[2], causal, window, q.device)
     p = torch.where(ok, torch.exp(s - lse[..., None]), 0.0)
     delta = (do.float() * o.float()).sum(-1)
@@ -291,6 +351,13 @@ def _check_cuda(tensors, name):
                          f"got {tensors[0].shape[-1]}")
 
 
+def _check_ring_dims(q, name):
+    if q.shape[-1] not in _RING_HEAD_DIMS:
+        raise NotImplementedError(
+            f"{name}: kernel takes head dim in {_RING_HEAD_DIMS}, got "
+            f"{q.shape[-1]} {_TODO_DIMS}")
+
+
 def _kernel_view(x):
     """x (B, H, T, d) as the kernel reads it: head dim contiguous, 16-byte
     aligned base and (b, h, t) strides (else a contiguous copy)."""
@@ -345,10 +412,15 @@ def _block_design(q, k, v):
     return _fwd_design(q, k, v)
 
 
-def _args(B, H, T, D, causal, window, **tensors):
+def _args(B, H, T, D, causal, window, alibi=None, alibi_scale=1.0,
+          alibi_bf16=False, **tensors):
     a = _FlashArgs()
     a.B, a.H, a.T, a.D = B, H, T, D
     a.causal, a.window = int(bool(causal)), int(window)
+    if alibi is not None:
+        check_alibi_slopes(alibi, H)
+        a.alibi = _AlibiArgs(1, int(bool(alibi_bf16)), float(alibi_scale),
+                             float(2 ** math.floor(math.log2(H))))
     for name, t in tensors.items():
         if t is None:
             continue
@@ -365,20 +437,24 @@ def _raise_on(rc, name):
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
 
 
-def flash_forward(q, k, v, *, causal=True, window=0):
+def flash_forward(q, k, v, *, causal=True, window=0, alibi=None,
+                  alibi_scale=1.0, alibi_bf16=False):
     """Forward on (B, H, T, d) operands with the scale already in q (any
-    strides with the head dim contiguous). Returns (o laid out like q,
-    lse (B, H, T) fp32). CPU tensors take the plain version; CUDA tensors
-    launch the kernel or raise."""
+    strides with the head dim contiguous); ``alibi`` (the bloom slopes)
+    adds slope_h * k_pos to each score in the kernel. Returns (o laid out
+    like q, lse (B, H, T) fp32). CPU tensors take the plain version; CUDA
+    tensors launch the kernel or raise."""
+    al = dict(alibi=alibi, alibi_scale=alibi_scale, alibi_bf16=alibi_bf16)
     if q.device.type == "cpu":
-        return flash_forward_reference(q, k, v, causal=causal, window=window)
+        return flash_forward_reference(q, k, v, causal=causal, window=window,
+                                       **al)
     name = "flash_forward"
     _check_cuda((q, k, v), name)
     q, k, v = (_kernel_view(x) for x in (q, k, v))
     B, H, T, D = q.shape
     o = torch.empty_like(q)
     lse = torch.empty(B, H, T, dtype=torch.float32, device=q.device)
-    a = _args(B, H, T, D, causal, window, q=q, k=k, v=v, o=o, lse=lse)
+    a = _args(B, H, T, D, causal, window, q=q, k=k, v=v, o=o, lse=lse, **al)
     lib = kernel_builder(q.dtype).load()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     design = _fwd_design(q, k, v)
@@ -395,16 +471,23 @@ def flash_forward(q, k, v, *, causal=True, window=0):
 
 
 def flash_backward(q, k, v, o, lse, do, *, causal=True, window=0,
-                   dlse=None):
+                   dlse=None, alibi=None, alibi_scale=1.0, alibi_bf16=False):
     """Fused backward on (B, H, T, d) operands (scale already in q) from the
-    saved o and lse; ``dlse`` is an optional cotangent on lse. Returns
-    (dq, dk, dv) in the inputs' dtypes. CPU tensors take the plain version;
-    CUDA tensors launch the kernels (delta, dk/dv, dq) or raise."""
+    saved o and lse; ``dlse`` is an optional cotangent on lse; ``alibi`` as
+    the forward's (the kernels add the term again when they rebuild p; it
+    has no gradient). Returns (dq, dk, dv) in the inputs' dtypes. CPU
+    tensors take the plain version; CUDA tensors launch the kernels (delta,
+    dk/dv, dq) or raise."""
+    al = dict(alibi=alibi, alibi_scale=alibi_scale, alibi_bf16=alibi_bf16)
     if q.device.type == "cpu":
         return flash_backward_reference(q, k, v, o, lse, do, causal=causal,
-                                        window=window, dlse=dlse)
+                                        window=window, dlse=dlse, **al)
     name = "flash_backward"
     _check_cuda((q, k, v, o, do), name)
+    if q.dtype == torch.float32 and q.shape[-1] == 256:
+        raise NotImplementedError(
+            f"{name}: fp32 at d = 256 needs more shared memory than a CTA "
+            f"has {_TODO_DIMS}")
     q, k, v, o, do = (_kernel_view(x) for x in (q, k, v, o, do))
     B, H, T, D = q.shape
     lse = lse.float().contiguous()
@@ -413,7 +496,7 @@ def flash_backward(q, k, v, o, lse, do, *, causal=True, window=0,
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     design = _bwd_design(q, k, v, o, do, (dq, dk, dv))
     a = _args(B, H, T, D, causal, window, q=q, k=k, v=v, o=o, lse=lse,
-              dout=do, delta=delta, dlse=dlse, dq=dq, dk=dk, dv=dv)
+              dout=do, delta=delta, dlse=dlse, dq=dq, dk=dk, dv=dv, **al)
     # the persistent dk/dv and dq kernels' work counters (sm90)
     next_item = (torch.zeros(2, dtype=torch.int32, device=q.device)
                  if design == "sm90" else None)
@@ -440,6 +523,7 @@ def flash_backward_qmajor(q, k, v, o, lse, do, *, causal=True, window=0,
                                           window=window, dlse=dlse)
     name = "flash_backward_qmajor"
     _check_cuda((q, k, v, o, do), name)
+    _check_ring_dims(q, name)
     if q.dtype == torch.float16:
         raise TypeError(f"{name}: fp16 operands are not ported yet "
                         f"{_TODO_F16}")
@@ -527,6 +611,7 @@ def flash_block_fwd(q, k, v, state, *, causal=False, block_q=128,
         return state
     name = "flash_block_fwd"
     _check_cuda((q, k, v), name)
+    _check_ring_dims(q, name)
     if q.dtype == torch.float16:
         raise TypeError(f"{name}: fp16 operands are not ported yet "
                         f"{_TODO_F16}")
@@ -582,13 +667,14 @@ def resolve_bwd_qmajor(value):
 class _Flash(torch.autograd.Function):
     """(q scaled, k, v) (B, H, T, d) -> (o, lse); saves q, k, v, o and lse
     and runs the fused backward kernel on them: the query-major one when
-    ``qmajor``, else the k-major one."""
+    ``qmajor``, else the k-major one (with the forward's ALiBi options
+    ``al``, a dict)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, qmajor):
-        o, lse = flash_forward(q, k, v, causal=causal, window=window)
+    def forward(ctx, q, k, v, causal, window, qmajor, al):
+        o, lse = flash_forward(q, k, v, causal=causal, window=window, **al)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.window, ctx.qmajor = causal, window, qmajor
+        ctx.causal, ctx.window, ctx.qmajor, ctx.al = causal, window, qmajor, al
         ctx.set_materialize_grads(False)
         return o, lse
 
@@ -597,10 +683,15 @@ class _Flash(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         if do is None:
             do = torch.zeros_like(o)
-        bwd = flash_backward_qmajor if ctx.qmajor else flash_backward
-        dq, dk, dv = bwd(q, k, v, o, lse, do, causal=ctx.causal,
-                         window=ctx.window, dlse=dlse)
-        return dq, dk, dv, None, None, None
+        if ctx.qmajor:
+            dq, dk, dv = flash_backward_qmajor(
+                q, k, v, o, lse, do, causal=ctx.causal, window=ctx.window,
+                dlse=dlse)
+        else:
+            dq, dk, dv = flash_backward(q, k, v, o, lse, do,
+                                        causal=ctx.causal, window=ctx.window,
+                                        dlse=dlse, **ctx.al)
+        return dq, dk, dv, None, None, None, None
 
 
 def scale_q(q, scale):
@@ -629,12 +720,15 @@ def flash_attention_with_lse(q, k, v, *, causal=True, scale=None,
     delta). Layouts as the JAX function: (B, T, H, d) by default, (B, H, T,
     d) with ``heads_major``, (B, H, d, T) with ``qkv_t`` (o then comes back
     (B, H, T, d), as in JAX). ``window`` > 0 is causal sliding-window
-    attention. ``bwd_qmajor``: the query-major backward, for ``qkv_t``
-    only (see the module docstring)."""
-    if bias is not None or bias_grad or alibi is not None:
+    attention. ``alibi``: the (H,) bloom-formula slopes (custom slopes
+    raise), evaluated in the kernels from the head index; ``alibi_bf16``
+    rounds slope * k_pos through bf16, then ``alibi_scale`` scales it
+    (falcon-rw). ``bwd_qmajor``: the query-major backward, for ``qkv_t``
+    without ALiBi only (see the module docstring)."""
+    if bias is not None or bias_grad:
         raise NotImplementedError(
-            f"flash_attention: additive bias / ALiBi operands are not "
-            f"ported yet {_TODO_BIAS}")
+            f"flash_attention: the additive bias operand is not ported yet "
+            f"{_TODO_BIAS}")
     if window and not causal:
         raise ValueError("sliding window requires causal attention")
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
@@ -644,11 +738,22 @@ def flash_attention_with_lse(q, k, v, *, causal=True, scale=None,
     qb, kb, vb = (_to_bhtd(x, heads_major, qkv_t) for x in (q, k, v))
     if scale is None:
         scale = 1.0 / math.sqrt(qb.shape[-1])
-    # the query-major backward serves qkv_t only (bias and ALiBi raise
-    # above), flash_attention.py:1578
+    al = {}
+    if alibi is not None:
+        check_alibi_slopes(alibi, qb.shape[1])
+        al = dict(alibi=alibi_slopes(qb.shape[1]),
+                  alibi_scale=float(alibi_scale),
+                  alibi_bf16=bool(alibi_bf16))
+    # the query-major backward serves qkv_t without bias or ALiBi only
+    # (flash_attention.py:1255, :1578); JAX takes the key-major backward
+    # under ALiBi, so an explicit request for it raises
     qmajor = resolve_bwd_qmajor(bwd_qmajor) and bool(qkv_t)
+    if qmajor and al:
+        raise NotImplementedError(
+            "flash_attention: the query-major backward takes no ALiBi (the "
+            "JAX kernel never runs it so); use bwd_qmajor=False")
     o, lse = _Flash.apply(scale_q(qb, scale), kb, vb, bool(causal),
-                          int(window), qmajor)
+                          int(window), qmajor, al)
     if qkv_t or heads_major:
         return o, lse
     return o.transpose(1, 2), lse

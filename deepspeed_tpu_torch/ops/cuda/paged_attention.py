@@ -12,8 +12,11 @@ PyTorch version (``*_reference``); a CUDA tensor launches the kernel or
 raises — there is no fallback. Each wrapper counts its kernel launches in
 ``LAUNCHES`` (plain-version calls are not counted).
 
-The chunk kernel has three designs (``_chunk_design``): bf16 at d = 64 /
-128 over 64- or 128-position blocks goes to the Hopper kernel
+Head dims are 32, 64, 80, 96, 128 and 256 (fp32 at 256 raises where it
+does not fit a CTA's shared memory: the decode ring always, the chunk
+tiles above 64-position blocks). The chunk kernel has three designs
+(``_chunk_design``): bf16 at d = 64 / 128 over 64- or 128-position
+blocks goes to the Hopper kernel
 (``paged_chunk_sm90_kernel``: wgmma + TMA, the pools read through the
 table by TMA), other bf16 to the SIMT ``paged_chunk_kernel``, fp32 to its
 fp32 instance; ``DESIGN_LAUNCHES["paged_chunk"]`` counts calls by design.
@@ -60,7 +63,12 @@ CHUNK_SPLIT_TILES = 8
 CHUNK_SMS = 132               # H100 SXM; the wrapper reads the card's own
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128)
+# 80, 96 and 256 (phi-2, gpt-neox-20b, gpt-j-6b) on the decode kernel and
+# the chunk kernel's SIMT / fp32 designs; the pools keep the model's d
+_HEAD_DIMS = (32, 64, 80, 96, 128, 256)
+_TODO_F32_256 = "(ROADMAP Queue 2, K4 / K5 fp32 at d = 256)"
+# a CTA's dynamic shared memory on the H100 (bytes)
+_SMEM_LIMIT = 232448
 
 
 def reset_launch_counts():
@@ -207,6 +215,10 @@ def paged_decode_attention(q, k_cache, v_cache, block_tables, lengths, *,
             window=window, alibi_slopes=alibi_slopes,
             alibi_scale=alibi_scale, alibi_bf16=alibi_bf16)
     _check_cuda((q, k_cache, v_cache, block_tables, lengths), q, name)
+    if q.dtype == torch.float32 and d == 256:
+        raise NotImplementedError(
+            f"{name}: fp32 at d = 256 needs a 416 KB ring a CTA "
+            f"{_TODO_F32_256}")
     if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
         raise ValueError(f"{name}: the kernel stages K/V rows by 16-byte "
                          "copies; the pools must be 16-byte aligned")
@@ -463,6 +475,11 @@ def paged_chunk_launch(q, k_cache, v_cache, table, start, true_len, scale,
     bc = PAGED_CHUNK_BLOCK_C if block_c == "auto" else int(block_c)
     bc = max(1, min(bc, C))
     rt = 16 if bc * (H // KVH) <= 16 else 64
+    if design != "sm90" and chunk_smem(design, d, BS, rt) > _SMEM_LIMIT:
+        raise NotImplementedError(
+            f"{name}: the {design} design at d = {d}, BS = {BS} needs "
+            f"{chunk_smem(design, d, BS, rt)} bytes of shared memory a CTA "
+            f"{_TODO_F32_256}")
     S, part = 1, None
     if design == "sm90":
         S = chunk_splits(C, H, KVH, BS, table.shape[0], start, true_len,
@@ -487,6 +504,15 @@ def paged_chunk_launch(q, k_cache, v_cache, table, start, true_len, scale,
     LAUNCHES["paged_chunk"] += 1
     DESIGN_LAUNCHES["paged_chunk"][design] += 1
     return out
+
+
+def chunk_smem(design, d, BS, rt):
+    """Dynamic shared memory of a SIMT / fp32 chunk CTA (the launcher's
+    sum: the score tile and row state in fp32, q / K tiles padded by one
+    32-bit word, the V tile)."""
+    es = 4 if design == "fp32" else 2
+    return 4 * (rt * (BS + 1) + 3 * rt) + es * (
+        (rt + BS) * (d + 4 // es) + BS * d)
 
 
 def paged_chunk_attention_reference(q, k_cache, v_cache, table, start,

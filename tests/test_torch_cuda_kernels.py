@@ -1,7 +1,9 @@
 """The Hopper kernels on the card (paged attention, flash attention forward
 and backward (K1 and K2 also on their sm90 designs, K2-qmajor's bitwise
 equal to K2's), fused CE, the MoE grouped matmuls and their backward, the
-weight-only int8/int4 products K7 and K9, K1 / K2 on fp16 operands, the
+weight-only int8/int4 products K7 and K9, K1 / K2 on fp16 operands, K1 /
+K2 with ALiBi and K1 / K2 / K4 / K5 at the Llama families' head dims 80 /
+96 / 256 (and K4 / K5 at G = 71), the
 LayerNorm forward and
 backward and the RMSNorm forward K13, the layout-owning projection and its
 dW K6 (K3, K6 and K8's grouped_tgmm in bf16 through their wgmma
@@ -19,6 +21,7 @@ Marked ``cuda``: skipped without an NVIDIA GPU; on the card run
 ``chip_smoke.py`` repeats these checks at the serving shapes."""
 
 import ctypes
+import math
 
 import numpy as np
 import pytest
@@ -359,6 +362,57 @@ def test_flash_kernels(dtype, B, H, T, d, causal, window):
             assert chip_smoke.bf16_grad_mismatch(got, ref) is None, name
         else:
             torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,H,T,alibi,bf16", [
+    (128, 4, 300, True, False), (64, 6, 200, True, True),
+    (32, 4, 130, True, False), (80, 3, 150, False, False),
+    (96, 2, 140, True, True), (256, 2, 130, False, False)])
+def test_flash_alibi_and_family_head_dims(dtype, d, H, T, alibi, bf16):
+    """K1 / K2 with ALiBi (bloom slopes, and falcon-rw's bf16-rounded,
+    scaled term) on every design, and at d = 80 / 96 / 256 (mma_sync in
+    bf16), against the plain versions; fp32 K2 at 256 raises."""
+    rs = np.random.RandomState(3)
+    q, k, v, do = (_rand(rs, (1, T, H, d), dtype).transpose(1, 2)
+                   for _ in range(4))
+    q = q * 0.3
+    kw = dict(causal=True)
+    if alibi:
+        kw.update(alibi=fa.alibi_slopes(H), alibi_bf16=bf16,
+                  alibi_scale=1.0 / math.sqrt(d) if bf16 else 1.0)
+    o, lse = fa.flash_forward(q, k, v, **kw)
+    f32 = [x.float() for x in (q, k, v)]
+    ro, rlse = fa.flash_forward_reference(*f32, **kw)
+    _assert_close(o, ro, dtype)
+    torch.testing.assert_close(lse, rlse, rtol=1e-4, atol=1e-3)
+    if dtype == torch.float32 and d == 256:
+        with pytest.raises(NotImplementedError, match="shared memory"):
+            fa.flash_backward(q, k, v, o, lse, do, **kw)
+        return
+    grads = fa.flash_backward(q, k, v, o, lse, do, **kw)
+    refs = fa.flash_backward_reference(*f32, o.float(), lse, do.float(),
+                                       **kw)
+    for name, got, ref in zip(("dq", "dk", "dv"), grads, refs):
+        if dtype == torch.bfloat16:
+            assert chip_smoke.bf16_grad_mismatch(got, ref) is None, name
+        else:
+            torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("d", [80, 96, 256])
+def test_paged_kernels_at_family_head_dims(d):
+    """K4 (with ALiBi too) and K5's simt design at d = 80 / 96 / 256 in
+    bf16, and K4 / K5 at Falcon-7b's G = 71, against the plain versions."""
+    kc = chip_smoke.KernelCases(pa, seed=d)
+    kc.decode(3, 8, 2, d, 16, 8, [5, 100, 127], torch.bfloat16)
+    kc.decode(2, 4, 4, d, 16, 6, [40, 90], torch.bfloat16, alibi=True,
+              alibi_scale=1.0 / math.sqrt(d), alibi_bf16=True)
+    kc.chunk(8, 2, d, 16, 8, 40, 70, 40, "auto", torch.bfloat16,
+             want="simt")
+    kc.decode(2, 71, 1, 64, 16, 8, [50, 120], torch.bfloat16)
+    kc.chunk(71, 1, 64, 16, 8, 30, 90, 30, "auto", torch.bfloat16,
+             want="simt")
 
 
 @pytest.mark.parametrize("B,H,T,d,causal,window,heads_major", [

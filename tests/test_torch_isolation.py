@@ -38,6 +38,10 @@ def _port_sources():
 def test_static_scan_no_jax_imports():
     srcs = _port_sources()
     assert len(srcs) > 10
+    # the seven Llama-family modules are scanned with the rest
+    for fam in ("bloom", "falcon", "gpt_neox", "gptj", "internlm", "phi",
+                "qwen"):
+        assert os.path.join(PKG, "models", f"{fam}.py") in srcs, fam
     bad = []
     for path in srcs:
         with open(path) as f:
@@ -84,6 +88,22 @@ for model in (Llama(dataclasses.replace(LLAMA_TINY, dtype="float32"),
                                max_new_tokens=3)
         assert [len(o) for o in out] == [3, 3]
         model = type(model)(model.config, device="cpu")
+import deepspeed_tpu_torch as dst
+for fam, preset in (("Bloom", "BLOOM_PRESETS"), ("Falcon", "FALCON_PRESETS"),
+                    ("GPTNeoX", "GPTNEOX_PRESETS"), ("GPTJ", "GPTJ_PRESETS"),
+                    ("InternLM", "INTERNLM_PRESETS"), ("Phi", "PHI_PRESETS"),
+                    ("Qwen", "QWEN_PRESETS")):
+    cfg = dataclasses.replace(getattr(dst, preset)["tiny"], dtype="float32")
+    fmodel = getattr(dst, fam)(cfg, device="cpu")
+    loss = fmodel.loss({"input_ids": np.arange(16)[None] % 512})
+    loss.backward()
+    assert np.isfinite(float(loss))
+    out = InferenceEngineV2(fmodel, dict(dtype="float32", kv_block_size=8,
+                                         max_batch_size=2,
+                                         splitfuse_tokens=8),
+                            device="cpu").generate_all([np.arange(9)],
+                                                       max_new_tokens=2)
+    assert [len(o) for o in out] == [2], fam
 gcfg = GPT2Config(n_layer=2, n_head=2, d_model=64, max_seq_len=32,
                   vocab_size=128, dtype="float32", use_flash_attention=True,
                   remat=True, remat_policy="save_flash", loss_chunk=8,

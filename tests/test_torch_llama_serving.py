@@ -62,16 +62,26 @@ class TestConvert:
             np.testing.assert_array_equal(sd[f"blocks.{k}"].numpy(), v)
 
     def test_unported_leaves_raise(self):
-        tree = {"wte": np.zeros((4, 2)), "blocks": {"bq": np.zeros((1, 2))}}
+        # the knobs' leaves load (tests/test_torch_families.py); a leaf no
+        # Llama-family model has does not
+        tree = {"wte": np.zeros((4, 2)),
+                "blocks": {"moe_w1": np.zeros((1, 2))}}
         with pytest.raises(NotImplementedError):
             llama_params_from_numpy(tree, "cpu", torch.float32)
 
     def test_unported_knobs_raise(self):
-        for over in (dict(alibi=True), dict(norm_type="ln"),
-                     dict(parallel_block=True), dict(qkv_bias=True),
-                     dict(embed_norm=True), dict(rotary_pct=0.5)):
-            with pytest.raises(NotImplementedError):
-                Llama(dataclasses.replace(LLAMA_TINY, **over), device="cpu")
+        # every architecture knob of the JAX config is carried; what stays
+        # unported is the remat policies past nothing_saveable and the
+        # sequence-parallel forward
+        model = Llama(dataclasses.replace(LLAMA_TINY, remat=True,
+                                          remat_policy="save_flash"),
+                      device="cpu")
+        ids = {"input_ids": np.zeros((1, 8), np.int32)}
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            model.loss(ids)
+        model = Llama(LLAMA_TINY, device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            model.loss(ids, seq_sharded=True)
 
 
 @pytest.mark.parametrize("window", [0, 8])
