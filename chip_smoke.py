@@ -90,7 +90,7 @@ Phases (any failure raises and the script exits nonzero):
      both its bf16 designs timed with their launches queued.
   9. MoE parity: a small fp32 Mixtral served with grouped_kernel=True and
      False gives identical greedy streams (split-fuse on and off).
- 10. MoE slice: Mixtral-8x7B widths at 24 layers (random weights from a
+ 10. MoE slice: Mixtral-8x7B widths at 12 layers (random weights from a
      seeded generator, bf16) serve phase 4's 8 requests; every request
      returns 64 tokens, each grouped kernel launches once per layer and
      forward, the paged kernels as in phase 4; gmm's launches all on sm90,
@@ -146,7 +146,7 @@ Phases (any failure raises and the script exits nonzero):
      weight_quant give the same greedy streams as the same model with
      its dequantized weights served unquantized (split-fuse on and off).
  16. Llama-2-7B int4 slice and 17. Mixtral-8x7B in int8, each at
-     WQ_LAYERS (8) of its 32 layers: built quantized slice by slice, phase 4's settings and traffic;
+     WQ_LAYERS (4) of its 32 layers: built quantized slice by slice, phase 4's settings and traffic;
      every request returns 64 tokens, launches exactly 3 wq_matmul per
      layer and forward (Llama; each call on the design its rows give:
      every call of at least WQ_SM90_MIN_ROWS rows on sm90) or one
@@ -242,7 +242,8 @@ Phases (any failure raises and the script exits nonzero):
  29. the slice: GPT-2 350M (PHASE29["layers"] (3) of its 24 layers,
      T=4096, micro 4, ring,
      sequence_parallel_size=2, ZeRO-2, bf16) through initialize ->
-     train_batch for 5 steps in two processes on cuda:0 over gloo; the
+     train_batch for PHASE29["steps"] (3) steps in two processes on
+     cuda:0 over gloo; the
      loss falls and agrees on both ranks; exactly 6 K10 and 3 K2 (every
      one on its sm90 design, as each child reports) a layer and step on
      each rank (3 pairs forward, 3 in the remat re-run, 3 backward pairs); step
@@ -266,7 +267,7 @@ Phases (any failure raises and the script exits nonzero):
      dp = 1: losses at 2e-5, global gradient norms at 1e-5, the same loss
      on both ranks, its launches (K1, K2, 4 gmm and 4 tgmm a layer and
      micro step, fp32) the main path "moe-dp2".
- 32. the slice: GPT-2 350M (PHASE32["layers"] (6) of its 24 layers, the
+ 32. the slice: GPT-2 350M (PHASE32["layers"] (3) of its 24 layers, the
      bench configuration,
      micro 24 a rank, T=1024) at dp = 2 through initialize -> train_batch,
      ZeRO-2 for 3 steps and ZeRO-3 for 3; the loss falls and agrees on
@@ -278,8 +279,8 @@ Phases (any failure raises and the script exits nonzero):
      under ZeRO-2 (gas 1 -> 2 keeps the global batch of 48, micro_steps
      realign), its master equal to the children's gathered master (their
      CRC32), and takes one step with a finite loss.
- 33. checkpoints: GPT-2 350M at phase 7's configuration (12 of its 24
-     layers) takes steps and saves one tag of its whole state (fp32
+ 33. checkpoints: GPT-2 350M at phase 7's configuration
+     (PHASE33["layers"] (3) of its 24 layers) takes steps and saves one tag of its whole state (fp32
      master, m, v) with
      each of the sync, async and native engines, stepping on while an
      async or native write is in flight; a second run repeats its first
@@ -304,7 +305,7 @@ Phases (any failure raises and the script exits nonzero):
      replica_death on r1's third step: every greedy stream equal to one
      engine's, the death replayed (failovers 1, replayed r1's in-flight
      count), every live pool closed; (b) full-width Llama-2-7B
-     (SERVE_LAYERS (4) of its 32 layers) in bf16
+     (SERVE_LAYERS (2) of its 32 layers) in bf16
      (phase 4's settings with 160 KV blocks an engine, phase 4's eight
      prompts, all greedy, 64 new tokens): run 1 one engine (the reference
      streams), run 2 Router([prefill p0, decode d0]) over the in-process
@@ -326,7 +327,7 @@ Phases (any failure raises and the script exits nonzero):
      rows, contexts 1024-1500, H = KVH = 32, d = 128) on its sm90 design
      against its plain version, repeated bitwise, the eight slots as views
      q[b] of one tensor, timed beside its SIMT design, SDPA and the bound;
-     then Llama-2-7B in bf16 at SERVE_LAYERS (4) layers: (a) 16 requests
+     then Llama-2-7B in bf16 at SERVE_LAYERS (2) layers: (a) 16 requests
      on a 1024-token
      system prompt (32 new) with the cache off and on (hit rate, skipped
      prompt tokens, CoW copies, K5 launches, TTFT) and through two
@@ -415,6 +416,36 @@ Phases (any failure raises and the script exits nonzero):
      at their published widths, 4 layers each, bf16, 4 requests each:
      TPOT and K4 / K5 launches by design (d = 64 at G = 71, 96, 256, 128,
      80, 128 at G = 7).
+ 44. the kernels of the GPT-2 family's paths at its shapes, bf16
+     (phase_gpt2_family_kernels): K4 (8 slots) and K5 (a 512-token
+     prefill at start 0, a 256-token chunk at start 1024, a 5-token
+     verify at start 1200) at GPT-2 1.3B's H = KVH 32, d 64 and at
+     GPT-Neo-1.3B's H 16, d 128 with unscaled scores (scale 1.0) at
+     window 256 and 0; K7 int8 and int4 on GPT-2 1.3B's wup (2048 ->
+     8192) and wdown (8192 -> 2048) at 8 and 256 rows; K3 at GPT-Neo's
+     odd vocabulary 50257: each against its plain version, repeated
+     bitwise, its design recorded, a control that must fail (the newest
+     block read through another table entry, a k slice of codes zeroed,
+     the target's vocab tile skipped), timed beside its plain version,
+     the library call (SDPA with the causal / window mask at the model's
+     scale; torch.matmul on the dequantized weight; cuBLAS h @ w^T) and
+     its bound.
+ 45. GPT-2 1.3B serving: its widths (and GPT-Neo-1.3B's, windows 0 /
+     256) at 2 layers in fp32, greedy streams with K4 / K5 on equal their
+     plain versions' (split-fuse and bucketed) and weight_quant int8 /
+     int4 (K7) equal the dequantized weights served unquantized; then all
+     24 layers in bf16, 8 requests (32 new each): bf16, weight_quant int8
+     and int4 (the 2-D bias leaves bqkv / bup quantized over L), and with
+     bucketed prefill plain and with GPT-2 125M as the draft: TTFT / TPOT
+     p50, tokens/s, peak memory, K4 / K5 / K7 launches by design, the
+     draft's tokens a verify and TPOT against plain decode.
+ 46. OPT-1.3b and GPT-Neo-1.3B at their published widths and 24 layers,
+     bf16, 8 requests each of 300-2016 tokens (GPT-Neo's window-256
+     layers cut; its prefix cache resolves off): the same figures; then
+     GPT-Neo at 4 layers through initialize -> train_batch (micro 1 x
+     2048, the fused CE head), 2 steps: every layer dense (its windows, as
+     JAX), no K1 / K2 launch, K3 four a step at V = 50257 on sm90; step
+     time and peak memory.
 Phases 7, 13, 20, 24, 32 and 33 also hold every bf16 K1 / K2 / K2-qmajor /
 K3 / K6 launch to the sm90 design (the wrappers' DESIGN_LAUNCHES); the
 serving slices count K4's launches by design (split / single), the
@@ -2165,9 +2196,10 @@ def phase_moe_parity():
 # --------------------------------------------------------------- MoE slice
 
 
-def phase_moe_slice(seed=0, n_layer=24, profile=None):
-    """Mixtral-8x7B widths at ``n_layer`` layers (the deepest that fits one
-    80 GB card in bf16 beside the KV pool) serving phase 4's traffic."""
+def phase_moe_slice(seed=0, n_layer=12, profile=None):
+    """Mixtral-8x7B widths at ``n_layer`` layers (24 is the deepest that
+    fits one 80 GB card in bf16 beside the KV pool; 12 for the run's time
+    limit) serving phase 4's traffic."""
     from deepspeed_tpu_torch import MIXTRAL_8X7B, InferenceEngineV2, Mixtral
     from deepspeed_tpu_torch.models import mixtral as mx
     from deepspeed_tpu_torch.ops.cuda import grouped_matmul as gm
@@ -3229,7 +3261,7 @@ def phase_wq_parity():
 # ---------------------------------------------------------------- wq slices
 
 
-WQ_LAYERS = 8          # of 32 (the run's time limit)
+WQ_LAYERS = 4          # of 32 (the run's time limit)
 
 
 def phase_wq_slice(kind, seed=0, profile=None):
@@ -5005,10 +5037,9 @@ def child_parity():
     return out
 
 
-# a step takes ~18 s through host memory at 12 layers: 5 keep the whole
-# script well inside its time limit
-# GPT-2 350M's widths cut to 3 of its 24 layers (the run's time limit)
-PHASE29 = dict(steps=5, micro=4, seq_len=4096, sp=2, layers=3)
+# GPT-2 350M's widths cut to 3 of its 24 layers, 3 steps (the run's time
+# limit; a step goes through host memory)
+PHASE29 = dict(steps=3, micro=4, seq_len=4096, sp=2, layers=3)
 
 
 def child_train():
@@ -5451,9 +5482,9 @@ def phase_moe_zero_parity(reps):
 
 
 # 3 ZeRO-2 steps (the run's time limit) and 3 ZeRO-3 steps (the tag
-# phase 32 resumes at dp = 1 is global_step3), 6 of the 24 layers (the
+# phase 32 resumes at dp = 1 is global_step3), 3 of the 24 layers (the
 # run's time limit)
-PHASE32 = dict(micro=24, seq_len=1024, steps={2: 3, 3: 3}, layers=6)
+PHASE32 = dict(micro=24, seq_len=1024, steps={2: 3, 3: 3}, layers=3)
 
 
 def master_crc(master):
@@ -5474,7 +5505,7 @@ def child_zero_train():
     """Phase 32 in one rank: GPT-2 350M (PHASE32's layers, the JAX bench
     configuration: bf16 + fp32 master, AdamW, clip 1.0, save_flash, fused
     CE kernel, micro 24, T=1024) at dp = 2 through initialize ->
-    train_batch, ZeRO-2 for 5 steps and ZeRO-3 for 3, each on one
+    train_batch, ZeRO-2 for 3 steps and ZeRO-3 for 3, each on one
     numpy-seeded global batch; reports per stage the losses, step times,
     this process's peak memory after the engine's build, the kernels'
     launches and what went through host memory. After ZeRO-3's steps it
@@ -5724,9 +5755,9 @@ def corrupt_one_chunk_byte(shard):
     return info.filename
 
 
-# 6 of GPT-2 350M's 24 layers (the run's time limit)
+# 3 of GPT-2 350M's 24 layers (the run's time limit)
 PHASE33 = dict(engines=("sync", "async", "native"), between=4,
-               max_overlap=12, resume_steps=2, layers=6)
+               max_overlap=12, resume_steps=2, layers=3)
 CKPT_STATS = {}
 
 
@@ -6096,7 +6127,7 @@ def phase_router_parity():
 
 # phases 34 and 35 serve Llama-2-7B's widths at 8 of its 32 layers (the
 # run's time limit: both are host-bound, a forward's launches scale with L)
-SERVE_LAYERS = 4
+SERVE_LAYERS = 2
 PHASE34 = dict(blocks=160, new=64)
 
 
@@ -8209,6 +8240,536 @@ def phase_family_serve(seed=0):
     return out
 
 
+# phases 44-46: the GPT-2 family (GPT-2, OPT, GPT-Neo)
+# K4 / K5 at the family's attention: (tag, H = KVH, d, scale (None: 1 /
+# sqrt(d)), window, table blocks of 64 positions a sequence)
+GPT2_ATTN_CASES = (("gpt2-1.3b", 32, 64, None, 0, 20),
+                   ("gpt-neo-1.3b-w256", 16, 128, 1.0, 256, 32),
+                   ("gpt-neo-1.3b-w0", 16, 128, 1.0, 0, 32))
+# K5's three uses: (variant, C, start); true_len = C
+GPT2_CHUNK_CASES = (("prefill", 512, 0), ("chunk", 256, 1024),
+                    ("verify", 5, 1200))
+# K7 at GPT-2 1.3B's FFN: (leaf, K, N)
+GPT2_FFN_CASES = (("wup", 2048, 8192), ("wdown", 8192, 2048))
+GPT2_SERVE = dict(requests=8, new=32, parity_layers=2, parity_new=8)
+GPT2_FAMILY_SERVE = dict(requests=8, new=32, min_prompt=300)
+GPTNEO_TRAIN = dict(layers=4, T=2048, steps=2, loss_chunk=512)
+
+
+def _visible(q_pos, k_pos, lengths_or_end, window):
+    """Keys a query sees: causal, below the sequence's end, inside the
+    window (0 = global)."""
+    ok = (k_pos <= q_pos) & (k_pos < lengths_or_end)
+    if window:
+        ok = ok & (q_pos - k_pos < window)
+    return ok
+
+
+def phase_gpt2_family_kernels(pa, mm, fce, seed=0):
+    """Phase 44: the kernels of the GPT-2 family's paths at its shapes, in
+    bf16, each held against its plain version run in fp32 on the same
+    inputs (bf16_mismatch), repeated bitwise, with a control that must
+    fail, and timed beside its plain version, the library call and its
+    bound: K4 (8 slots) and K5 (a 512-token prefill at start 0, a
+    256-token chunk at start 1024, a 5-token verify at start 1200) at
+    GPT-2 1.3B's H = KVH 32, d 64 and at GPT-Neo-1.3B's H 16, d 128 with
+    unscaled scores (scale 1.0), window 256 and 0 (GPT2_ATTN_CASES;
+    control: each sequence's newest block read through another table
+    entry; library: SDPA over the gathered keys with the causal / window
+    mask); K7 int8 and int4 on GPT-2 1.3B's wup (2048 -> 8192) and wdown
+    (8192 -> 2048) at 8 and 256 rows (control: a k slice of codes zeroed;
+    library: torch.matmul on the dequantized weight); K3 at GPT-Neo's odd
+    vocabulary 50257 (one 512-token loss chunk; control: each row's
+    target tile skipped; library: cuBLAS h @ w^T). Returns {kernel:
+    {case: figures}} for the kernels line."""
+    from deepspeed_tpu_torch.ops import int8_weights as iw
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    rs = np.random.RandomState(seed + 44)
+
+    def randn(shape, dt=torch.bfloat16, s=1.0):
+        return (torch.randn(shape, generator=g, device="cuda") * s).to(dt)
+
+    rows = {n: {} for n in ("paged_decode", "paged_chunk", "wq_matmul",
+                            "fused_ce")}
+
+    def keep(name, tag, r, err):
+        r["max_abs_err"] = err
+        rows[name][tag] = r
+        log(f"{name} {tag}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
+            f"library {r['library_ms']:.4f}, bound {r['bound_ms']:.4f} by "
+            f"{r['bound_by']}), design {r['design']}, max |err| {err:.3g}")
+
+    def designs(name):
+        return {k: v for k, v in pa.DESIGN_LAUNCHES[name].items() if v}
+
+    BS, B = 64, 8
+    for tag, H, d, scale, window, MB in GPT2_ATTN_CASES:
+        s = 1.0 / math.sqrt(d) if scale is None else scale
+        kw = dict(scale=scale, window=window)
+        NB = 1 + B * MB
+        k, v = randn((NB, H, BS, d)), randn((NB, H, BS, d))
+        k32, v32 = k.float(), v.float()
+
+        # K4: 8 slots at random lengths
+        tables = torch.from_numpy(rs.permutation(np.arange(1, NB))[
+            :B * MB].reshape(B, MB).astype(np.int32)).cuda()
+        lengths = torch.from_numpy(rs.randint(
+            300, MB * BS - 1, B).astype(np.int32)).cuda()
+        q = randn((B, H, d))
+        pa.reset_launch_counts()
+        out = pa.paged_decode_attention(q, k, v, tables, lengths, **kw)
+        again = pa.paged_decode_attention(q, k, v, tables, lengths, **kw)
+        torch.cuda.synchronize()
+        assert pa.LAUNCHES["paged_decode"] == 2, dict(pa.LAUNCHES)
+        assert torch.equal(out, again), f"paged_decode {tag}: calls differ"
+        design = designs("paged_decode")
+        ref = pa.paged_decode_attention_reference(q.float(), k32, v32,
+                                                  tables, lengths, **kw)
+        why = bf16_mismatch(out, ref)
+        assert why is None, f"paged_decode {tag}: {why}"
+        cur = (lengths.long() // BS)
+        rows_b = torch.arange(B, device="cuda")
+        wrong = tables.clone()
+        wrong[rows_b, cur] = tables[rows_b, (cur + 1) % MB]
+        why = bf16_mismatch(out, pa.paged_decode_attention_reference(
+            q.float(), k32, v32, wrong, lengths, **kw))
+        assert why is not None, f"paged_decode {tag}: the control passed"
+        log(f"control: paged_decode {tag} with each slot's newest block "
+            f"read through another entry fails ({why})")
+        gk, gv = dense_kv(k, v, tables)
+        kpos = torch.arange(MB * BS, device="cuda")
+        live = _visible(lengths.long()[:, None], kpos[None],
+                        lengths.long()[:, None] + 1, window)
+        n_live = int(live.sum().item())
+        mask = live[:, None, None]
+        qd = q[:, :, None]
+        r = dict(
+            shape=[B, H, d, BS, MB], scale=s, window=window, design=design,
+            ms=time_queued(lambda: pa.paged_decode_attention(
+                q, k, v, tables, lengths, **kw), 20)[0],
+            plain_ms=time_ms(lambda: pa.paged_decode_attention_reference(
+                q, k, v, tables, lengths, **kw), 3),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                qd, gk, gv, attn_mask=mask, scale=s), 20))
+        r["bound_ms"], r["bound_by"] = bound(
+            n_live * H * d * 2 * 2 + 2 * B * H * d * 2, 4 * n_live * H * d)
+        keep("paged_decode", tag, r, (out.float() - ref).abs().max().item())
+        del out, again, ref, gk, gv, live, mask, qd, q
+
+        # K5: prefill, chunk, verify of one sequence
+        for variant, C, start in GPT2_CHUNK_CASES:
+            MBc = -(-(start + C) // BS)
+            table = torch.from_numpy(rs.permutation(np.arange(1, NB))[
+                :MBc].astype(np.int32)).cuda()
+            qc = randn((C, H, d))
+            pa.reset_launch_counts()
+            out = pa.paged_chunk_attention(qc, k, v, table, start, C, **kw)
+            again = pa.paged_chunk_attention(qc, k, v, table, start, C,
+                                             **kw)
+            torch.cuda.synchronize()
+            design = designs("paged_chunk")
+            assert design == {"sm90": 2}, (tag, variant, design)
+            assert torch.equal(out, again), \
+                f"paged_chunk {tag} {variant}: calls differ"
+            ref = pa.paged_chunk_attention_reference(
+                qc.float(), k32, v32, table, start, C, **kw)
+            why = bf16_mismatch(out, ref)
+            assert why is None, f"paged_chunk {tag} {variant}: {why}"
+            last = (start + C - 1) // BS
+            wrong = table.clone()
+            wrong[last] = table[last - 1]
+            why = bf16_mismatch(out, pa.paged_chunk_attention_reference(
+                qc.float(), k32, v32, wrong, start, C, **kw))
+            assert why is not None, \
+                f"paged_chunk {tag} {variant}: the control passed"
+            log(f"control: paged_chunk {tag} {variant} with its last block "
+                f"read as its neighbour fails ({why})")
+            S = MBc * BS
+            tl = table.long()
+            gk = k[tl].transpose(1, 2).reshape(S, H, d).transpose(0, 1)[None]
+            gv = v[tl].transpose(1, 2).reshape(S, H, d).transpose(0, 1)[None]
+            qpos = start + torch.arange(C, device="cuda")[:, None]
+            kpos = torch.arange(S, device="cuda")[None]
+            cmask = _visible(qpos, kpos, start + C, window)
+            pairs = int(cmask.sum().item())
+            k_lo = max(0, start - window + 1) if window else 0
+            qq = qc.transpose(0, 1)[None]
+            r = dict(
+                shape=[C, H, d, BS, start], variant=variant, scale=s,
+                window=window, design=design,
+                ms=time_queued(lambda: pa.paged_chunk_attention(
+                    qc, k, v, table, start, C, **kw), 20)[0],
+                plain_ms=time_ms(lambda: pa.paged_chunk_attention_reference(
+                    qc, k, v, table, start, C, **kw), 3),
+                library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                    qq, gk, gv, attn_mask=cmask, scale=s), 20))
+            r["bound_ms"], r["bound_by"] = bound(
+                (start + C - k_lo) * H * d * 2 * 2 + 2 * C * H * d * 2,
+                4 * pairs * H * d)
+            keep("paged_chunk", f"{tag}-{variant}", r,
+                 (out.float() - ref).abs().max().item())
+            del out, again, ref, gk, gv, qq, cmask, qc
+        del k, v, k32, v32
+        torch.cuda.empty_cache()
+
+    # K7 on GPT-2 1.3B's FFN, int8 and int4, decode and chunk rows
+    for leaf, K, N in GPT2_FFN_CASES:
+        wf = randn((K, N), torch.float32, s=0.02)
+        for bits in (8, 4):
+            w = iw.quantize_tensor(wf, bits)
+            wd = w.dequant(torch.bfloat16)
+            for M in (8, 256):
+                x = randn((M, K))
+                mm.reset_launch_counts()
+                out = mm.wq_matmul(x, w)
+                again = mm.wq_matmul(x, w)
+                torch.cuda.synchronize()
+                assert mm.LAUNCHES["wq_matmul"] == 2
+                assert torch.equal(out, again), f"wq_matmul {leaf}: differ"
+                design = {k_: n for k_, n in
+                          mm.DESIGN_LAUNCHES["wq_matmul"].items() if n}
+                ref = mm._plain_rows(x.float(), w)
+                why = bf16_mismatch(out, ref.float())
+                assert why is None, f"wq_matmul {leaf} {M} int{bits}: {why}"
+                cut = type(w)(w.q.clone(), w.scale)
+                cut.q[:64 if bits == 8 else 32] = 0
+                why = bf16_mismatch(out, mm._plain_rows(x.float(), cut))
+                assert why is not None, \
+                    f"wq_matmul {leaf} int{bits}: the control passed"
+                r = dict(
+                    shape=[M, K, N], bits=bits, design=design,
+                    ms=time_queued(lambda: mm.wq_matmul(x, w), 20)[0],
+                    plain_ms=time_ms(lambda: mm._plain_rows(x, w), 5),
+                    library_ms=time_ms(lambda: torch.matmul(x, wd), 20))
+                r["bound_ms"], r["bound_by"] = wq_bound(M, K, N, bits)
+                keep("wq_matmul", f"gpt2-1.3b-{leaf}-{M}-int{bits}", r,
+                     (out.float() - ref.float()).abs().max().item())
+                del x, out, again, ref, cut
+            log(f"control: wq_matmul {leaf} int{bits} with a k slice of "
+                f"codes zeroed fails")
+            del w, wd
+        del wf
+
+    # K3 at GPT-Neo's odd vocabulary (its scalar-store epilogue: V % 8)
+    N, D, V = GPTNEO_TRAIN["loss_chunk"], 2048, 50257
+    h, w = randn((N, D)), randn((V, D), s=0.02)
+    t = torch.randint(0, V, (N,), generator=g, device="cuda")
+    fce.reset_launch_counts()
+    got = fce.unembed_logits_stats(h, w, t)
+    again = fce.unembed_logits_stats(h, w, t)
+    torch.cuda.synchronize()
+    assert fce.DESIGN_LAUNCHES["fused_ce"] == {"sm90": 2, "fp32": 0}, \
+        dict(fce.DESIGN_LAUNCHES["fused_ce"])
+    assert all(torch.equal(a, b) for a, b in zip(got, again)), \
+        "fused_ce at V = 50257: calls differ"
+    ref = fce.unembed_logits_stats_reference(h.float(), w.float(), t)
+    why = bf16_mismatch(got[0], ref[0])
+    assert why is None, f"fused_ce logits V={V}: {why}"
+    stat_err = max((a - b).abs().max().item()
+                   for a, b in zip(got[1:], ref[1:]))
+    assert stat_err <= CE_STAT_ATOL, f"fused_ce stats V={V}: {stat_err:.3g}"
+    tile = t // fce.SM90_BLOCK_V
+    col = torch.arange(V, device="cuda")
+    skip = (col[None, :] // fce.SM90_BLOCK_V) == tile[:, None]
+    ctrl = (torch.logsumexp(ref[0].masked_fill(skip, -1e30), dim=-1)
+            - ref[1]).abs().max().item()
+    assert ctrl > CE_STAT_ATOL, "CE check let a skipped vocab tile pass"
+    log(f"control: fused CE at V={V} with each row's target tile skipped "
+        f"fails (max |err| {ctrl:.3g} > {CE_STAT_ATOL})")
+    r = dict(shape=[N, D, V], design={"sm90": 1}, stat_max_abs_err=stat_err,
+             ms=time_ms(lambda: fce.unembed_logits_stats(h, w, t), 10),
+             plain_ms=time_ms(lambda: fce.unembed_logits_stats_reference(
+                 h, w, t), 3),
+             library_ms=time_ms(lambda: torch.mm(h, w.t()), 10))
+    r["bound_ms"], r["bound_by"] = bound(
+        (N * D + V * D + N * V) * 2 + 3 * N * 4, 2 * N * V * D)
+    keep("fused_ce", "gpt-neo-1.3b-V50257", r,
+         (got[0].float() - ref[0]).abs().max().item())
+    del h, w, got, again, ref, skip, col
+    torch.cuda.empty_cache()
+    return rows
+
+
+def gpt2_serve_run(eng, prompts, new, pa, mm, L, draft_L=0):
+    """serve_run with the GPT-2 family's launch gates: K4 / K5 as the
+    forwards imply (count_paged_designs: every chunk launch on sm90), K7
+    two a layer and forward under weight_quant (all sm90), none without.
+    Returns (streams, stats with the launches by design, launches)."""
+    mm.reset_launch_counts()
+    outs, stats, launches = serve_run(eng, prompts, new, pa)
+    assert launches == expected_launches(eng, L, draft_L), launches
+    count_paged_designs(pa, launches)
+    fc = eng.forward_counts
+    wq = 2 * L * sum(fc.values()) if eng.model._weight_quant_fused else 0
+    assert mm.LAUNCHES["wq_matmul"] == wq, (mm.LAUNCHES["wq_matmul"], wq)
+    assert_sm90("gpt2 family serve", mm, main_path=True)
+    launches["wq_matmul"] = mm.LAUNCHES["wq_matmul"]
+    stats["launches"] = launches
+    stats["launches_by_design"] = {
+        "paged_decode": {k: v for k, v in pa.DESIGN_LAUNCHES[
+            "paged_decode"].items() if v},
+        "paged_chunk": {k: v for k, v in pa.DESIGN_LAUNCHES[
+            "paged_chunk"].items() if v},
+        "wq_matmul": {k: v for k, v in mm.DESIGN_LAUNCHES[
+            "wq_matmul"].items() if v}}
+    for o in outs:
+        assert ((o >= 0) & (o < eng.model.config.vocab_size)).all()
+    assert pools_full(eng)
+    return outs, stats, launches
+
+
+def phase_gpt2_serve(pa, mm, seed=0):
+    """Phase 45: GPT-2 1.3B serving. (0) At its widths and
+    GPT2_SERVE["parity_layers"] layers in fp32, greedy streams: the paged
+    kernels on (K4 / K5) equal their plain versions (paged_kernel=False),
+    bucketed and split-fuse; weight_quant int8 and int4 (K7 on wup / wdown)
+    equal the same model's dequantized weights served unquantized; the
+    same for GPT-Neo-1.3B's widths (unscaled scores, windows 0 / 256) at 2
+    layers. Then all 24 layers in bf16, 8 requests of 64-992 tokens, 32
+    new each (64-position blocks, batch 8, split-fuse 256, 8 decode steps
+    a dispatch): bf16, weight_quant int8, weight_quant int4 (2-D leaves
+    quantized over L: bqkv, bup), and speculative decoding with GPT-2 125M
+    as the draft (with bucketed prefill, against plain decode with
+    bucketed prefill): TTFT / TPOT p50, tokens/s, peak memory, K4 / K5 /
+    K7 launches by design; the draft's tokens a verify and TPOT against
+    plain decode. Returns {path: launches}."""
+    from deepspeed_tpu_torch import GPT2, GPT2_PRESETS, InferenceEngineV2
+    from deepspeed_tpu_torch import GPTNEO_PRESETS, GPTNeo
+    gc.collect()
+    torch.cuda.empty_cache()
+    rs = np.random.RandomState(seed + 45)
+    P = GPT2_SERVE
+    for cls, base in ((GPT2, GPT2_PRESETS["1.3B"]),
+                      (GPTNeo, GPTNEO_PRESETS["gpt-neo-1.3b"])):
+        cfg = dataclasses.replace(base, n_layer=P["parity_layers"],
+                                  dtype="float32")
+        if cfg.attn_layer_windows:
+            cfg = dataclasses.replace(cfg, attn_layer_windows=(0, 256))
+        prompts = [rs.randint(0, cfg.vocab_size, (n,)) for n in (7, 64, 300)]
+        model = cls(cfg, device="cuda", dtype=torch.float32, seed=seed)
+        conf = dict(dtype="float32", kv_block_size=64, max_batch_size=4)
+        for splitfuse in (256, 0):
+            streams = {}
+            for on in (True, False):
+                pa.reset_launch_counts()
+                eng = InferenceEngineV2(model, dict(
+                    conf, splitfuse_tokens=splitfuse, paged_kernel=on),
+                    device="cuda")
+                streams[on] = eng.generate_all(prompts,
+                                               max_new_tokens=P["parity_new"])
+                assert (pa.LAUNCHES["paged_decode"] > 0) == on, \
+                    dict(pa.LAUNCHES)
+                assert (pa.LAUNCHES["paged_chunk"] > 0) == on, \
+                    dict(pa.LAUNCHES)
+                del eng
+            for a, b in zip(streams[True], streams[False]):
+                np.testing.assert_array_equal(a, b)
+        for mode in ("int8", "int4"):
+            quant = cls(cfg, device="cuda", dtype=torch.float32, seed=seed)
+            quant.quantize_(mode)
+            plain = dequantized_copy(quant, cls, cfg)
+            streams = {}
+            for tag, m, wq in (("wq", quant, mode), ("plain", plain, "auto")):
+                mm.reset_launch_counts()
+                eng = InferenceEngineV2(m, dict(
+                    conf, splitfuse_tokens=256, weight_quant=wq),
+                    device="cuda")
+                streams[tag] = eng.generate_all(
+                    prompts, max_new_tokens=P["parity_new"])
+                want = 2 * cfg.n_layer * sum(eng.forward_counts.values())
+                assert mm.LAUNCHES["wq_matmul"] == (
+                    want if tag == "wq" else 0), (tag, dict(mm.LAUNCHES))
+                del eng
+            for a, b in zip(streams["wq"], streams["plain"]):
+                np.testing.assert_array_equal(a, b)
+            del quant, plain
+        log(f"phase 45 parity ok: {cls.__name__} widths at {cfg.n_layer} "
+            f"layers, fp32: K4 / K5 on == off (split-fuse 256 and "
+            f"bucketed), weight_quant int8 / int4 (K7) == the dequantized "
+            f"weights served unquantized")
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    cfg = GPT2_PRESETS["1.3B"]
+    L = cfg.n_layer
+    lens = rs.randint(64, cfg.max_seq_len - P["new"] + 1, P["requests"])
+    prompts = [rs.randint(0, cfg.vocab_size, (n,)) for n in lens]
+    base = dict(dtype="bfloat16", kv_block_size=64, max_batch_size=8,
+                splitfuse_tokens=256, decode_steps_per_dispatch=8)
+    paths = {}
+    bf16_outs = None
+    for mode in ("bf16", "int8", "int4"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        model = GPT2(cfg, device="cuda", dtype=torch.bfloat16, seed=seed)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        wq = "auto" if mode == "bf16" else mode
+        eng = InferenceEngineV2(model, dict(base, weight_quant=wq),
+                                device="cuda")
+        outs, stats, launches = gpt2_serve_run(eng, prompts, P["new"], pa,
+                                               mm, L)
+        stats.update(model="gpt2-1.3b", mode=mode, n_layer=L,
+                     build_s=build_s, prompt_tokens=int(lens.sum()),
+                     quantized_leaves=sorted(model.qblocks),
+                     weight_gb=sum(
+                         p.numel() * p.element_size()
+                         for p in model.parameters()) / 1e9 + sum(
+                         w.q.numel() + 4 * w.scale.numel()
+                         for w in model.qblocks.values()) / 1e9)
+        if mode != "bf16":
+            # at 1.3B the (L, 3D) and (L, F) biases pass min_size and are
+            # quantized over L (one (1, N) scale, layer_slice's rule)
+            assert {"bqkv", "bup", "wqkv", "wo", "wup", "wdown"} <= set(
+                model.qblocks), sorted(model.qblocks)
+            stats["streams_equal_bf16"] = sum(
+                int(np.array_equal(a, b)) for a, b in zip(outs, bf16_outs))
+        paths[f"gpt2-1.3b-{mode}-serve"] = launches
+        if mode == "bf16":
+            bf16_outs = outs
+        log("phase 45 slice " + json.dumps(stats))
+        if mode == "bf16":
+            # speculative decoding: GPT-2 125M (the same vocabulary) drafts.
+            # Bucketed prefill, so all 8 prefill at admission and every
+            # decode dispatch can speculate (while a split-fuse prefill is
+            # queued, dispatches decode plainly), against plain decode
+            # under the same schedule
+            bucketed = dict(base, splitfuse_tokens=0)
+            eng = InferenceEngineV2(model, bucketed, device="cuda")
+            outs, stats, launches = gpt2_serve_run(eng, prompts, P["new"],
+                                                   pa, mm, L)
+            stats.update(model="gpt2-1.3b", mode="bf16 bucketed prefill")
+            paths["gpt2-1.3b-bucketed-serve"] = launches
+            log("phase 45 slice " + json.dumps(stats))
+            plain = (outs, stats)
+            draft = GPT2(GPT2_PRESETS["125M"], device="cuda",
+                         dtype=torch.bfloat16, seed=seed + 1)
+            eng = InferenceEngineV2(model, bucketed, device="cuda",
+                                    draft_model=draft)
+            got, stats, launches = gpt2_serve_run(
+                eng, prompts, P["new"], pa, mm, L,
+                draft_L=GPT2_PRESETS["125M"].n_layer)
+            tel = eng.telemetry
+            stats.update(
+                model="gpt2-1.3b",
+                mode="bf16 + gpt2-125m draft, bucketed prefill",
+                spec=dict(
+                    k=eng._spec_k, rounds=tel.spec_rounds,
+                    proposed=tel.spec_proposed, accepted=tel.spec_accepted,
+                    committed=tel.spec_committed,
+                    tokens_per_verify=tel.spec_committed / max(
+                        1, tel.spec_rounds),
+                    verify_forwards=eng.forward_counts["verify"]),
+                tpot_vs_plain=stats["tpot_p50_ms"]
+                / plain[1]["tpot_p50_ms"],
+                streams_equal_plain=sum(int(np.array_equal(a, b))
+                                        for a, b in zip(got, plain[0])))
+            assert eng.forward_counts["verify"] > 0, eng.forward_counts
+            paths["gpt2-1.3b-spec-serve"] = launches
+            log("phase 45 slice " + json.dumps(stats))
+            del draft
+        del eng, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths
+
+
+def phase_gpt2_families(pa, mm, fa, fce, seed=0):
+    """Phase 46: OPT-1.3b and GPT-Neo-1.3B at their published widths and
+    all 24 layers in bf16, serving 8 requests each of 300-2016 tokens (so
+    GPT-Neo's window-256 layers cut), 32 new each, phase 45's settings:
+    TTFT / TPOT p50, tokens/s, peak memory, K4 / K5 launches by design
+    (GPT-Neo's prefix cache resolves off). Then GPT-Neo-1.3B's widths at 4
+    layers through initialize -> train_batch (AdamW, ZeRO-2, micro 1 x
+    2048, whole-block remat, the fused CE head over 512-token chunks),
+    2 steps: every layer attends densely (its windows, as JAX), so no K1
+    / K2 launch; K3 at the odd vocabulary 50257, four a step, on sm90;
+    step time, tokens/s and peak memory. Returns {path: launches}."""
+    from deepspeed_tpu_torch import (GPTNEO_PRESETS, OPT_PRESETS, OPT,
+                                     GPTNeo, InferenceEngineV2, initialize)
+    rs = np.random.RandomState(seed + 46)
+    P = GPT2_FAMILY_SERVE
+    base = dict(dtype="bfloat16", kv_block_size=64, max_batch_size=8,
+                splitfuse_tokens=256, decode_steps_per_dispatch=8)
+    paths = {}
+    for cls, cfg, tag in ((OPT, OPT_PRESETS["opt-1.3b"], "opt-1.3b"),
+                          (GPTNeo, GPTNEO_PRESETS["gpt-neo-1.3b"],
+                           "gpt-neo-1.3b")):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        model = cls(cfg, device="cuda", dtype=torch.bfloat16, seed=seed)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        eng = InferenceEngineV2(model, base, device="cuda")
+        assert eng.prefix_cache is None
+        lens = rs.randint(P["min_prompt"], cfg.max_seq_len - P["new"] + 1,
+                          P["requests"])
+        prompts = [rs.randint(0, cfg.vocab_size, (n,)) for n in lens]
+        _, stats, launches = gpt2_serve_run(eng, prompts, P["new"], pa, mm,
+                                            cfg.n_layer)
+        stats.update(model=tag, n_layer=cfg.n_layer, d_head=cfg.d_head,
+                     scale_attn=cfg.scale_attn,
+                     windows=sorted(set(cfg.attn_layer_windows)),
+                     activation=cfg.activation, build_s=build_s,
+                     prompt_tokens=int(lens.sum()))
+        log("phase 46 slice " + json.dumps(stats))
+        paths[f"{tag}-serve"] = launches
+        del eng, model
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    T, steps = GPTNEO_TRAIN["T"], GPTNEO_TRAIN["steps"]
+    cfg = dataclasses.replace(
+        GPTNEO_PRESETS["gpt-neo-1.3b"], n_layer=GPTNEO_TRAIN["layers"],
+        attn_layer_windows=GPTNEO_PRESETS["gpt-neo-1.3b"]
+        .attn_layer_windows[:GPTNEO_TRAIN["layers"]],
+        max_seq_len=T, loss_chunk=GPTNEO_TRAIN["loss_chunk"],
+        fused_loss=True, fused_loss_kernel=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine, *_ = initialize(
+        model=GPTNeo(cfg, device="cuda", seed=seed),
+        config=zero_config(2, train_micro_batch_size_per_gpu=1))
+    torch.cuda.synchronize()
+    built = torch.cuda.memory_allocated()
+    log(f"gpt-neo-1.3b-train engine built in {time.perf_counter() - t0:.1f} "
+        f"s: {cfg.num_params() / 1e9:.3f} B params ({cfg.n_layer} layers, "
+        f"windows {cfg.attn_layer_windows}), micro 1 x {T}")
+    batch = {"input_ids": np.random.RandomState(seed).randint(
+        0, cfg.vocab_size, (1, T)).astype(np.int32)}
+    fa.reset_launch_counts()
+    fce.reset_launch_counts()
+    losses, times = [], []
+    for _ in range(steps):
+        t1 = time.perf_counter()
+        losses.append(float(engine.train_batch(batch)))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+    chunks = -(-(T - 1) // GPTNEO_TRAIN["loss_chunk"])
+    assert not any(fa.LAUNCHES.values()), dict(fa.LAUNCHES)
+    assert fce.LAUNCHES["fused_ce"] == chunks * steps, dict(fce.LAUNCHES)
+    assert_sm90("gpt-neo train", fce, main_path=True)
+    assert all(math.isfinite(x) for x in losses), losses
+    stats = dict(
+        kind="gpt-neo-1.3b", n_layer=cfg.n_layer, params=cfg.num_params(),
+        vocab_size=cfg.vocab_size, steps=steps, losses=losses,
+        step_s=times, tokens_per_s=T / times[-1],
+        launches_per_step={"fused_ce": chunks, "flash_fwd": 0,
+                           "flash_bwd": 0},
+        memory_after_build_gb=built / 1e9,
+        max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log("phase 46 train " + json.dumps(stats))
+    paths["gpt-neo-1.3b-train"] = {"fused_ce": fce.LAUNCHES["fused_ce"]}
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default="",
@@ -8412,6 +8973,16 @@ def main(argv=None):
     phase_done(f"43 (Falcon-7b, GPT-NeoX-20B, GPT-J-6B, InternLM-7B, "
                f"Phi-2, Qwen2-7B serving, {FAMILY_SERVE['layers']} layers "
                f"each)")
+    for name, cases in phase_gpt2_family_kernels(pa, mm, fce).items():
+        rows[name]["gpt2_family"] = cases
+    phase_done("44 (K4 / K5 at GPT-2 1.3B's and GPT-Neo-1.3B's attention, "
+               "K7 at GPT-2 1.3B's FFN, K3 at GPT-Neo's vocabulary)")
+    paths.update(phase_gpt2_serve(pa, mm))
+    phase_done("45 (GPT-2 1.3B serving, all 24 layers: bf16, int8, int4, "
+               "a GPT-2 125M draft)")
+    paths.update(phase_gpt2_families(pa, mm, fa, fce))
+    phase_done(f"46 (OPT-1.3b and GPT-Neo-1.3B serving, 24 layers; "
+               f"GPT-Neo training, {GPTNEO_TRAIN['layers']} layers)")
 
     kernels = []
     for name, r in rows.items():
@@ -8436,7 +9007,7 @@ def main(argv=None):
                       "mma_sync_split_ms",
                       "host_ms", "mma_sync_host_ms", "simt_ms",
                       "first_chunk", "long_walk", "verify", "d128",
-                      "fp16", "families"):
+                      "fp16", "families", "gpt2_family"):
             if extra in r:
                 row[extra] = r[extra]
         if name in PATH_DESIGNS:

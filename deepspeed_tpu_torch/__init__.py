@@ -18,6 +18,8 @@ from .models import (BLOOM_PRESETS, FALCON_PRESETS, GPTJ_PRESETS,
                      FalconConfig, GPTJConfig, GPTNeoX, GPTNeoXConfig,
                      InternLM, InternLMConfig, Phi, PhiConfig, Qwen,
                      QwenConfig)
+from .models import (GPTNEO_PRESETS, OPT_PRESETS, OPT, GPTNeo, GPTNeoConfig,
+                     OPTConfig)
 from .runtime.config import DeepSpeedConfig
 from .runtime.engine import DeepSpeedEngine
 
@@ -34,7 +36,7 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     Returns the reference's 4-tuple ``(engine, optimizer, dataloader,
     lr_scheduler)``; the dataloader is None. ``model`` is a module with
     ``loss(batch)`` (``deepspeed_tpu_torch.GPT2``, ``GPT2MoE``, ``Llama``,
-    ``Mixtral``) whose
+    ``Mixtral`` and the families on them) whose
     parameters are the initial weights (rank 0's, in a multi-process
     world); ``device`` defaults to this process's card
     (``cuda:$LOCAL_RANK``) and raises without one. Unless
@@ -85,4 +87,6 @@ __all__ = ["InferenceEngineV2", "RaggedInferenceEngineConfig", "Replica",
            "FalconConfig", "FALCON_PRESETS", "GPTNeoX", "GPTNeoXConfig",
            "GPTNEOX_PRESETS", "GPTJ", "GPTJConfig", "GPTJ_PRESETS",
            "InternLM", "InternLMConfig", "INTERNLM_PRESETS", "Phi",
-           "PhiConfig", "PHI_PRESETS", "Qwen", "QwenConfig", "QWEN_PRESETS"]
+           "PhiConfig", "PHI_PRESETS", "Qwen", "QwenConfig", "QWEN_PRESETS",
+           "OPT", "OPTConfig", "OPT_PRESETS", "GPTNeo", "GPTNeoConfig",
+           "GPTNEO_PRESETS"]

@@ -11,7 +11,8 @@ Counterpart of ``deepspeed_tpu/inference/v2/engine_v2.py`` (the
     steps of every running sequence) and the fused decode
     (``decode_steps_per_dispatch`` steps, each fed the token sampled by the
     last). Attention in all of them goes through the Hopper paged kernels;
-    a Mixtral's expert FFN through the grouped-GEMM kernels.
+    a Mixtral's expert FFN through the grouped-GEMM kernels. The Llama
+    family, Mixtral and the GPT-2 family (GPT-2, OPT, GPT-Neo) serve.
   * Scheduling is the JAX engine's: admit pending requests while slots and
     blocks allow, stream prompts through chunks (or bucketed prefill), then
     batched decode; sequences retire on EOS or max_new_tokens and their
@@ -248,7 +249,9 @@ class InferenceEngineV2:
 
     ``model``: the port's ``Llama`` (or one of the families built on it:
     ``Bloom``, ``Falcon``, ``GPTNeoX``, ``GPTJ``, ``InternLM``, ``Phi``,
-    ``Qwen``) or ``Mixtral`` (moved to ``device``
+    ``Qwen``), ``Mixtral``, or ``GPT2`` (or one of the families built on
+    it: ``OPT``, ``GPTNeo``; a ``GPT2MoE`` raises, its paged programs not
+    yet ported) (moved to ``device``
     in ``config.dtype``, every floating parameter cast, the Mixtral router
     too, as the JAX engine's ``shard_params`` does); ``device`` defaults to
     the card and raises without one. ``monitor``: any object with
@@ -258,7 +261,7 @@ class InferenceEngineV2:
     ``quantize_weights`` a float model is quantized here (``quantize_``)
     and one built with ``quantize=`` must be in the same mode; codes,
     scales and the router then keep their types (``to_serving``).
-    ``draft_model``: a port ``Llama`` / ``Mixtral`` with the target's
+    ``draft_model``: a port model the engine serves, with the target's
     vocabulary (the target itself too) that proposes tokens for
     speculative decoding; it is cast like the model, never quantized here,
     and gets a KV pool of its own.
@@ -269,7 +272,8 @@ class InferenceEngineV2:
     one chunk kernel per slot and layer), and a Mixtral forward one fused
     gate/up and one down grouped kernel per layer (``model.grouped_kernel``;
     the K9 pair under ``weight_quant``), a quantized Llama three K7
-    products per layer."""
+    products per layer (two without the gate: GPT-J, Bloom, ...), a
+    quantized GPT-2 two (``wup``, ``wdown``)."""
 
     def __init__(self, model, config=None, device=None, monitor=None,
                  draft_model=None, **kwargs):
@@ -277,6 +281,9 @@ class InferenceEngineV2:
             config = RaggedInferenceEngineConfig(**{**config, **kwargs})
         elif config is None:
             config = RaggedInferenceEngineConfig(**kwargs)
+        todo = getattr(model, "serving_todo", None)
+        if todo:
+            raise _not_yet(todo)
         self.config = config
         self.telemetry = None
         if config.telemetry:
@@ -316,7 +323,8 @@ class InferenceEngineV2:
         # the device programs do not change). The router's prefix-affinity
         # probe (Replica.prefix_score) reads it.
         self.prefix_cache = None
-        pc_on, pc_min_match, pc_watermark = self._resolve_prefix_cache()
+        pc_on, pc_min_match, pc_watermark = self._resolve_prefix_cache(
+            model.config)
         if pc_on:
             self.prefix_cache = PrefixCache(
                 self.state_mgr.allocator, BS,
@@ -666,14 +674,26 @@ class InferenceEngineV2:
             self.telemetry.on_handoff_out(uid)
 
     # ------------------------------------------------------------- programs
-    def _resolve_prefix_cache(self):
+    def _resolve_prefix_cache(self, mcfg):
         """(enabled, min_match_blocks, evict_watermark_pct) of the prefix
-        cache: off when asked off or under KV host offload (True with
-        offload raised in the config), else ``resolve_prefix_cache``
-        ("auto" = the JAX cold defaults: off). A ``sliding_window`` Llama
-        is served as the JAX engine serves it: a cached block holds the KV
-        of the same token prefix at the same absolute positions."""
+        cache: off for a model with per-layer windows (GPT-Neo's
+        ``attn_layer_windows``: True raises, "auto" resolves off, as the
+        JAX engine refuses it, engine_v2.py:538-546), off when asked off
+        or under KV host offload (True with offload raised in the config),
+        else ``resolve_prefix_cache`` ("auto" = the JAX cold defaults:
+        off). A ``sliding_window`` Llama is served as the JAX engine
+        serves it: a cached block holds the KV of the same token prefix at
+        the same absolute positions."""
         cfg = self.config
+        if any(getattr(mcfg, "attn_layer_windows", ()) or ()):
+            if cfg.prefix_cache is True:
+                raise ValueError(
+                    "prefix_cache=True on a sliding-window model "
+                    "(attn_layer_windows set): a cached block's KV is "
+                    "position-valid only inside each layer's window, so "
+                    "reusing it under a shifted suffix serves wrong "
+                    "attention — disable prefix_cache for this model")
+            return False, 1, 0
         if cfg.prefix_cache is False or cfg.kv_host_offload:
             return False, 1, 0
         return resolve_prefix_cache(cfg.prefix_cache,

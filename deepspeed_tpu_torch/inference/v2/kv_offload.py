@@ -55,8 +55,12 @@ class OffloadKVPool:
         self.n_layer = cfg.n_layer
         self.device = torch.device(device)
         self._cuda = self.device.type == "cuda"
-        # the per-layer pools' block shape (KVH, BS, hd)
-        self._blk_shape = (cfg.n_kv_heads, self.block_size, cfg.d_head)
+        # the per-layer pools' block shape, (KVH, BS, hd) for the Llama
+        # family and (H, BS, hd) for GPT-2's, probed from the model's own
+        # cache as the JAX pool does (kv_offload.py:57-60)
+        probe = model.init_paged_cache(1, self.block_size, dtype=dtype)
+        self._blk_shape = tuple(probe["k"][0].shape[1:])
+        del probe
         self.host = torch.zeros(
             (self.NL, self.n_layer, 2) + self._blk_shape, dtype=dtype,
             pin_memory=self._cuda)

@@ -13,6 +13,8 @@ from .falcon import Falcon, FalconConfig, FALCON_PRESETS
 from .gptj import GPTJ, GPTJConfig, GPTJ_PRESETS
 from .gpt_neox import GPTNeoX, GPTNeoXConfig, GPTNEOX_PRESETS
 from .internlm import InternLM, InternLMConfig, INTERNLM_PRESETS
+from .opt import OPT, OPTConfig, OPT_PRESETS
+from .gpt_neo import GPTNeo, GPTNeoConfig, GPTNEO_PRESETS
 
 __all__ = ["gpt2_moe_params_from_numpy", "gpt2_params_from_numpy",
            "llama_params_from_numpy", "mixtral_params_from_numpy", "GPT2",
@@ -24,4 +26,6 @@ __all__ = ["gpt2_moe_params_from_numpy", "gpt2_params_from_numpy",
            "QWEN_PRESETS", "Phi", "PhiConfig", "PHI_PRESETS", "Falcon",
            "FalconConfig", "FALCON_PRESETS", "GPTJ", "GPTJConfig",
            "GPTJ_PRESETS", "GPTNeoX", "GPTNeoXConfig", "GPTNEOX_PRESETS",
-           "InternLM", "InternLMConfig", "INTERNLM_PRESETS"]
+           "InternLM", "InternLMConfig", "INTERNLM_PRESETS", "OPT",
+           "OPTConfig", "OPT_PRESETS", "GPTNeo", "GPTNeoConfig",
+           "GPTNEO_PRESETS"]

@@ -1,9 +1,13 @@
-"""Helpers shared by the port's training models.
+"""Helpers shared by the port's models.
 
 Counterpart of ``deepspeed_tpu/models/common.py``: the remat policy names,
 next-token cross entropy, the chunked and the fused (gradient-in-forward)
 linear + cross-entropy heads. ``jax.custom_vjp`` becomes
 ``torch.autograd.Function``; ``lax.scan`` over chunks becomes a loop.
+Besides, what the serving engine calls on a model with stacked ``blocks``
+(``QuantizedBlocks``: the JAX ``quantize_tree`` / ``_layer_slice`` rules
+on the module's own leaves) and the paged pools' in-place K/V scatter
+(``scatter_kv``), shared by the Llama and GPT-2 families.
 """
 
 import torch
@@ -11,6 +15,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.cuda.fused_ce import unembed_logits_stats
+from ..ops.int8_weights import (EXCLUDE_KEYS, is_quantized, layer_slice,
+                                qualifies, quantize_tensor)
 
 _TODO_REMAT = "(ROADMAP Queue 1, M3: more remat policies)"
 
@@ -272,3 +278,110 @@ class _FusedXentKernel(torch.autograd.Function):
         return (None, None, _scale_by(g, ctx.d_w),
                 _scale_by(g, ctx.d_hidden), None,
                 *[_scale_by(g, d) for d in ctx.d_params])
+
+
+_QUANT_BITS = {"int8": 8, "int4": 4}
+
+
+def quant_bits(mode):
+    """The code width of a weight-quantization mode ("int8" | "int4")."""
+    if mode not in _QUANT_BITS:
+        raise ValueError(f"quantize must be None|'int8'|'int4', got "
+                         f"{mode!r}")
+    return _QUANT_BITS[mode]
+
+
+def scatter_kv(pool, blocks, offsets, vals):
+    """pool (NB, KVH, BS, hd)[blocks[i], :, offsets[i]] = vals[i], in place
+    (index_put_ through a (NB, BS, KVH, hd) view of the same storage)."""
+    pool.permute(0, 2, 1, 3).index_put_((blocks.long(), offsets.long()),
+                                        vals.to(pool.dtype))
+
+
+class QuantizedBlocks:
+    """The serving engine's view of a model whose per-layer leaves are
+    stacked (L, ...) in ``self.blocks``: its JAX parameter tree
+    (``params_tree``), weight-only quantization in place (``quantize_``,
+    the JAX ``quantize_tree`` rule), the engine's cast (``to_serving``), a
+    ``load_state_dict`` that takes quantized leaves, and the per-layer read
+    ``_w`` (the JAX ``_layer_slice``). Quantized leaves live in
+    ``self.qblocks`` as ``Int8Weight`` / ``Int4Weight`` nodes instead of
+    parameters; ``weight_quant`` names their mode (None when float). A
+    subclass names its top-level leaves (``TOP_KEYS``) and the FFN keys
+    the fused path keeps quantized into K7 (``_WQ_KEEP``); the engine sets
+    ``_weight_quant_fused``."""
+
+    TOP_KEYS = ()
+    _WQ_KEEP = ()
+    _weight_quant_fused = False
+
+    def params_tree(self):
+        """The JAX parameter tree: the top-level leaves and ``blocks``
+        (tensors and quantized nodes), sharing storage."""
+        tree = {k: getattr(self, k) for k in self.TOP_KEYS
+                if hasattr(self, k)}
+        tree["blocks"] = {**dict(self.blocks.items()), **self.qblocks}
+        return tree
+
+    def quantize_(self, mode):
+        """Quantize the float model in place as the JAX engine's
+        ``shard_params(quantize=...)`` does (``quantize_tree``: the block
+        leaves with >= 2 dims and >= 2^16 elements, never the router), one
+        (In, Out) slice at a time, each float leaf freed once quantized."""
+        if self.qblocks:
+            raise ValueError(f"model is already quantized "
+                             f"({self.weight_quant})")
+        bits = quant_bits(mode)
+        for k in list(self.blocks):
+            p = self.blocks[k]
+            if qualifies(k, p.shape, p.dtype):
+                self.qblocks[k] = quantize_tensor(p.data, bits)
+                del self.blocks[k]
+        self.weight_quant = mode
+        return self
+
+    def to_serving(self, device, dtype):
+        """The serving engine's cast. Unquantized: every floating parameter
+        to ``dtype``, the router included (the JAX ``shard_params`` does
+        the same). Quantized: codes and scales move as they are and the
+        router stays fp32 (the JAX ``cast_unquantized``); the other float
+        leaves take ``dtype``."""
+        if not self.qblocks:
+            return self.to(device=device, dtype=dtype)
+        self.to(device=device)
+        self.qblocks = {k: w.to(device) for k, w in self.qblocks.items()}
+        for name, p in self.named_parameters():
+            if (p.is_floating_point()
+                    and name.rsplit(".", 1)[-1] not in EXCLUDE_KEYS):
+                p.data = p.data.to(dtype)
+        return self
+
+    def load_state_dict(self, state_dict, strict=True, assign=False):
+        """``nn.Module.load_state_dict`` that also takes quantized block
+        leaves (``blocks.<name>`` -> ``Int8Weight`` / ``Int4Weight``, as
+        ``convert`` gives them for a quantized JAX tree); each replaces the
+        leaf's parameter."""
+        state = dict(state_dict)
+        for key in [k for k, v in state.items() if is_quantized(v)]:
+            name = key[len("blocks."):]
+            if name in self.blocks:
+                del self.blocks[name]
+            self.qblocks[name] = state.pop(key).to(self.device)
+        if self.qblocks:
+            self.weight_quant = "int4" if any(
+                w.bits == 4 for w in self.qblocks.values()) else "int8"
+        return super().load_state_dict(state, strict=strict, assign=assign)
+
+    def _w(self, name, i):
+        """Layer ``i`` of block leaf ``name`` (the JAX ``_layer_slice``):
+        a quantized leaf is dequantized to the model's dtype, except a
+        ``_WQ_KEEP`` leaf under the fused path, which stays quantized.
+        ``i`` may instead be one layer's tensors by name (the training
+        path's unbound slices), read as they are."""
+        if isinstance(i, dict):
+            return i[name]
+        w = self.qblocks.get(name)
+        if w is None:
+            return self.blocks[name][i]
+        keep = self._weight_quant_fused and name in self._WQ_KEEP
+        return layer_slice(w, i, self.dtype, keep=keep)

@@ -1,12 +1,13 @@
 """Parameter conversion from the JAX package's Llama, Mixtral, GPT-2 and
-GPT2MoE trees.
+GPT2MoE trees (and the families on them: OPT and GPT-Neo load through
+``gpt2_params_from_numpy``).
 
 The JAX tree (``jax.tree.map(np.asarray, params)``) and the port's module
 state share names and shapes, so conversion is a dtype/device move:
 ``model.load_state_dict(llama_params_from_numpy(tree, dev, dt))`` (or
 ``mixtral_params_from_numpy``, ``gpt2_params_from_numpy``,
 ``gpt2_moe_params_from_numpy``); the loaded parameters train as the
-model's own. A quantized Llama/Mixtral tree (JAX
+model's own. A quantized Llama / Mixtral / GPT-2 tree (JAX
 ``Int8Weight`` / ``Int4Weight`` nodes, e.g. from ``quantize_tree``) carries
 across as it is: each node becomes the port's container of the same int8
 codes and fp32 scales.
@@ -52,9 +53,9 @@ def _tensor(a, device, dtype, quantized_ok=False):
         if quantized_ok:
             return _quantized(a, device)
         raise NotImplementedError(
-            "quantized leaves load only into the port's Llama and Mixtral "
-            "(weight_quant, K7/K9); GPT-2 with quantized weights is not "
-            "ported yet (ROADMAP Queue 1, serving: GPT-2 paged paths)")
+            "quantized leaves load only into the port's Llama, Mixtral and "
+            "GPT-2 families (weight_quant, K7/K9); GPT2MoE serving is not "
+            "ported yet (ROADMAP Queue 1, serving: GPT2MoE paged paths)")
     a = np.asarray(a)
     if a.dtype.kind == "V" or a.dtype.name == "bfloat16":
         a = a.astype(np.float32)      # ml_dtypes bf16 has no torch view
@@ -97,11 +98,13 @@ def mixtral_params_from_numpy(tree, device, dtype):
 
 
 def gpt2_params_from_numpy(tree, device, dtype):
-    """JAX GPT-2 parameter tree of numpy arrays -> the port's state dict
-    (``wte``, ``wpe``, ``lnf_*``, ``blocks.<name>``) on ``device`` in
-    ``dtype``, with no renames or transposes. Raises on keys the port's
-    GPT2 does not carry (MoE experts, quantized leaves)."""
-    return _from_numpy(tree, device, dtype, _GPT2_TOP, _GPT2_BLOCKS, "GPT2")
+    """JAX GPT-2 parameter tree of numpy arrays (GPT-2, OPT, GPT-Neo) ->
+    the port's state dict (``wte``, ``wpe``, ``lnf_*``, ``blocks.<name>``)
+    on ``device`` in ``dtype``, with no renames or transposes; quantized
+    leaves stay quantized. Raises on keys the port's GPT2 does not carry
+    (MoE experts)."""
+    return _from_numpy(tree, device, dtype, _GPT2_TOP, _GPT2_BLOCKS, "GPT2",
+                       True)
 
 
 def gpt2_moe_params_from_numpy(tree, device, dtype):

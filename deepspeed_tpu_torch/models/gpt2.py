@@ -1,8 +1,12 @@
-"""GPT-2 model family for training.
+"""GPT-2 model family for training and v2 paged serving.
 
-Counterpart of ``deepspeed_tpu/models/gpt2.py`` (training surface: the
+Counterpart of ``deepspeed_tpu/models/gpt2.py``: the training surface (the
 config and presets, ``embed``, ``head``, the blocks, the dense MLP and
-``loss`` with its chunked and fused cross-entropy heads). Parameter names
+``loss`` with its chunked and fused cross-entropy heads) and the serving
+surface (``init_paged_cache``, ``apply_paged_prefill/chunk/decode/verify``
+under ``torch.inference_mode``, what ``QuantizedBlocks`` gives the engine).
+OPT (``models/opt.py``) and GPT-Neo (``models/gpt_neo.py``) are this class
+at other configs, as in JAX. Parameter names
 and shapes are the JAX package's, so weights move between the two through
 numpy with no renaming or transposes (``convert.gpt2_params_from_numpy``):
 
@@ -26,6 +30,25 @@ through the K13 kernels (ops/cuda/layernorm.py) when ``fused_layernorm``
 (``_ln``); the MLP projections through K6 (ops/cuda/mlp_matmul.py) when
 ``mlp_kernel`` (``_mlp``).
 
+Per-layer windows (``attn_layer_windows``, GPT-Neo's local layers; 0 =
+global): in training every layer of such a model attends densely with the
+mask ``causal & ((w == 0) | (q - k < w))``, as JAX forces the dense path
+for a window operand (gpt2.py:553-556, :674), remat and Ulysses included;
+ring attention raises for windows and for unscaled scores. The serving
+programs pass each layer's window to the paged kernels (K4 / K5), and
+``scale_attn=False`` as ``scale = 1.0``.
+
+Serving (JAX gpt2.py:910-1224): learned positions, clamped to the last
+``wpe`` row (a finished slot keeps decoding to its dispatch's end); the
+prefill, chunk and verify attend through K5 (``paged_chunk_attention``,
+the verify once per slot and layer), decode through K4
+(``paged_decode_attention``); ``paged_kernel=False`` takes their plain
+versions (the dense-gather parity path). Under the engine's
+``weight_quant`` the FFN weights ``wup`` / ``wdown`` stay quantized into
+K7 (``ops/cuda/mlp_matmul.wq_matmul``, gpt2.py:712-719) and every other
+quantized leaf dequantizes one layer at a time (``_w``, the JAX
+``_layer_slice``; ``quantize_weights`` dequantizes them all).
+
 Sequence parallelism (``loss(seq_sharded=True)``, JAX gpt2.py:543-617,
 :1226-1259): every rank of the ``seq`` process group passes the same
 global batch, takes its contiguous block of the sequence (positions from
@@ -44,6 +67,7 @@ import functools
 import math
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -54,16 +78,22 @@ from ..ops.cuda.flash_attention import (flash_attention, flash_backward,
                                         resolve_bwd_qmajor, scale_q)
 from ..ops.cuda.layernorm import (fused_layernorm, layernorm_fused_bwd,
                                   layernorm_reference as layernorm)
-from ..ops.cuda.mlp_matmul import mlp_matmul
+from ..ops.cuda.mlp_matmul import mlp_matmul, wq_matmul
+from ..ops.cuda.paged_attention import (paged_chunk_attention,
+                                        paged_chunk_attention_reference,
+                                        paged_decode_attention,
+                                        paged_decode_attention_reference)
+from ..ops.int8_weights import is_quantized
 from ..comm import comm
 from ..runtime.config import SequenceConfig
 from ..sequence.layer import DistributedAttention
 from ..sequence.ring import ring_attention
 from ..utils import groups
 from ..utils.device import resolve_device
-from .common import (chunked_softmax_xent, fused_linear_xent,
-                     fused_linear_xent_kernel, mm_f32, next_token_xent,
-                     resolve_flash, resolve_remat_policy)
+from .common import (QuantizedBlocks, chunked_softmax_xent,
+                     fused_linear_xent, fused_linear_xent_kernel, mm_f32,
+                     next_token_xent, resolve_flash, resolve_remat_policy,
+                     scatter_kv)
 
 
 @dataclass(frozen=True)
@@ -144,7 +174,6 @@ _POST = slice(6, None)  # ln2 + MLP
 
 _TODO = {
     "dropout": "(ROADMAP Queue 1, M2: dropout)",
-    "attn_layer_windows": "(ROADMAP Queue 1, M2: per-layer windows)",
     "ltd": "(ROADMAP Queue 1, M14: random-LTD)",
     "seq_moe": "(ROADMAP Queue 1, M12: MoE under sequence parallelism)",
 }
@@ -154,23 +183,26 @@ def _unported_knobs(cfg):
     out = []
     if cfg.dropout > 0:
         out.append(("dropout > 0", _TODO["dropout"]))
-    if cfg.attn_layer_windows:
-        out.append(("attn_layer_windows", _TODO["attn_layer_windows"]))
     return out
 
 
 _ACTS = {"gelu": lambda u: F.gelu(u, approximate="tanh"), "relu": F.relu}
 
 
-class GPT2(nn.Module):
-    """Training-side GPT-2. ``device`` defaults to the card (raises without
-    one); ``dtype`` defaults to ``config.dtype``; weights are random from a
-    ``torch.Generator`` seeded with ``seed`` (load real or converted weights
-    with ``load_state_dict``). ``loss(batch)`` is the JAX ``loss`` over the
-    module's own parameters."""
+class GPT2(QuantizedBlocks, nn.Module):
+    """GPT-2 for training and serving. ``device`` defaults to the card
+    (raises without one); ``dtype`` defaults to ``config.dtype``; weights
+    are random from a ``torch.Generator`` seeded with ``seed`` (load real
+    or converted weights with ``load_state_dict``). ``loss(batch)`` is the
+    JAX ``loss`` over the module's own parameters; a weight-quantized model
+    (``quantize_``, or quantized leaves loaded) serves only."""
 
     block_keys = BLOCK_KEYS    # per-layer parameters, in _block's order
     moe_loss_coeff = 0.0       # overridden by GPT2MoE
+    # the top-level leaves of the JAX tree (besides ``blocks``)
+    TOP_KEYS = ("wte", "wpe", "lnf_scale", "lnf_bias")
+    # FFN keys the fused path keeps quantized (engine weight_quant)
+    _WQ_KEEP = ("wup", "wdown")
 
     def __init__(self, config: GPT2Config, device=None, dtype=None, seed=0):
         super().__init__()
@@ -182,9 +214,19 @@ class GPT2(nn.Module):
         if config.activation not in _ACTS:
             raise ValueError(f"unknown activation {config.activation!r}; "
                              f"expected one of {sorted(_ACTS)}")
+        if config.attn_layer_windows and \
+                len(config.attn_layer_windows) != config.n_layer:
+            raise ValueError(
+                f"attn_layer_windows has {len(config.attn_layer_windows)} "
+                f"entries for {config.n_layer} layers")
         if config.remat:
             resolve_remat_policy(config.remat_policy)
         self.config = config
+        # serving attention: "auto"/True = the paged kernels, False = the
+        # dense-gather parity path (the engine sets it)
+        self.paged_kernel = "auto"
+        self.qblocks = {}
+        self.weight_quant = None
         dev = resolve_device(device)
         dt = dtype if dtype is not None else getattr(torch, config.dtype)
         L, D, Fd, V, T = (config.n_layer, config.d_model, config.d_ff,
@@ -308,14 +350,22 @@ class GPT2(nn.Module):
         qkv = h @ wqkv + bqkv
         return qkv.view(B, T, 3, cfg.n_head, cfg.d_head).unbind(2)
 
-    def _attn(self, q, k, v, seq_sharded=False):
+    def _window(self, i):
+        """Layer ``i``'s attention window: None without
+        ``attn_layer_windows``, else its entry (0 = global)."""
+        ws = self.config.attn_layer_windows
+        return ws[i] if ws else None
+
+    def _attn(self, q, k, v, seq_sharded=False, window=None):
         """Attention dispatch: (B, T, H, hd) x3 -> (B, T, H, hd); with
         ``seq_sharded`` T is this rank's block: the zigzag ring for
         ``attention_backend="ring"``, else Ulysses around the dense
-        attention (gpt2.py:557-617)."""
+        attention (gpt2.py:557-617). A layer ``window`` (not None: the
+        model has per-layer windows) takes the dense path with the window
+        in its mask, as JAX forces it (gpt2.py:674)."""
         cfg = self.config
         if seq_sharded and cfg.attention_backend == "ring":
-            if not cfg.scale_attn:
+            if window is not None or not cfg.scale_attn:
                 raise ValueError(
                     "ring attention supports neither per-layer local "
                     "windows nor unscaled (gpt-neo) scores")
@@ -326,7 +376,10 @@ class GPT2(nn.Module):
                 double_buffer=scfg.double_buffer,
                 rotate_chunks=scfg.rotate_chunks).to(self.dtype)
         if seq_sharded:
-            return DistributedAttention(self._dense_attn, "seq")(q, k, v)
+            return DistributedAttention(self._dense_attn, "seq")(
+                q, k, v, window=window)
+        if window is not None:
+            return self._dense_attn(q, k, v, window=window)
         if self.flash_on:
             kw = dict(causal=True, scale=None if cfg.scale_attn else 1.0,
                       block_q=cfg.flash_block_q, block_k=cfg.flash_block_k,
@@ -341,15 +394,19 @@ class GPT2(nn.Module):
             return flash_attention(q, k, v, **kw).to(self.dtype)
         return self._dense_attn(q, k, v)
 
-    def _dense_attn(self, q, k, v):
+    def _dense_attn(self, q, k, v, window=None):
         """Dense causal attention, fp32 scores: (B, T, H, hd) x3 ->
-        (B, T, H, hd)."""
+        (B, T, H, hd); a ``window`` w > 0 keeps the keys with q - k < w
+        (gpt2.py:553-556)."""
         cfg = self.config
         T = q.shape[1]
         s = torch.einsum("bthd,bshd->bhts", q.float(), k.float())
         if cfg.scale_attn:
             s = s / math.sqrt(cfg.d_head)
         causal = torch.ones(T, T, dtype=torch.bool, device=q.device).tril()
+        if window:
+            i = torch.arange(T, device=q.device)
+            causal = causal & (i[:, None] - i[None, :] < window)
         s = torch.where(causal, s, -1e30)
         probs = torch.softmax(s, dim=-1).to(self.dtype)
         return torch.einsum("bhts,bshd->bthd", probs, v)
@@ -367,12 +424,17 @@ class GPT2(nn.Module):
     def _mlp(self, x, ln2_scale, ln2_bias, wup, bup, wdown, bdown, *,
              seq_sharded=False):
         """ln2 + MLP: (B, T, D) -> ((B, T, D), aux); a dense MLP has no
-        aux (None). With ``mlp_kernel`` the pre-activation is carried
-        (B, F, T), as gpt2.py:755-769: the up product through K6 emitting
-        (B, F, T) in "both" (else a plain einsum to that layout), the down
-        product through K6 reading it with ``x_t``."""
+        aux (None). Quantized FFN weights (the engine's ``weight_quant``)
+        go through K7, ``wq_matmul`` (gpt2.py:712-719). With ``mlp_kernel``
+        the pre-activation is carried (B, F, T), as gpt2.py:755-769: the up
+        product through K6 emitting (B, F, T) in "both" (else a plain
+        einsum to that layout), the down product through K6 reading it
+        with ``x_t``."""
         act = _ACTS[self.config.activation]
         h = self._ln(x, ln2_scale, ln2_bias)
+        if is_quantized(wup):
+            up = act(wq_matmul(h, wup) + bup)
+            return wq_matmul(up, wdown) + bdown, None
         mode = None if seq_sharded else self._mlp_kernel_mode()
         if mode:
             fuse = self.config.mlp_kernel_fuse_dw
@@ -386,22 +448,33 @@ class GPT2(nn.Module):
         up = act(h @ wup + bup)
         return up @ wdown + bdown, None
 
-    def _block(self, x, *layer, seq_sharded=False):
-        """One transformer block: (B, T, D) -> ((B, T, D), aux)."""
+    def _block_core(self, x, layer, attend, **mlp_kw):
+        """ln1 -> qkv -> ``attend`` -> output projection residual -> ln2
+        -> MLP residual (gpt2.py:805-826): ``attend((B, T, H, hd) q, k, v)
+        -> (B, T, H, hd)`` owns masking and any cache reads and writes.
+        Returns ((B, T, D), aux)."""
         B, T, D = x.shape
         q, k, v = self._qkv(x, *layer[_PRE])
-        attn = self._attn(q, k, v, seq_sharded)
         wo, bo = layer[_WO]
-        mid = x + attn.reshape(B, T, D) @ wo + bo
-        kw = {"seq_sharded": True} if seq_sharded else {}
-        out, aux = self._mlp(mid, *layer[_POST], **kw)
+        mid = x + attend(q, k, v).reshape(B, T, D) @ wo + bo
+        out, aux = self._mlp(mid, *layer[_POST], **mlp_kw)
         return mid + out, aux
+
+    def _block(self, x, *layer, seq_sharded=False, window=None):
+        """One transformer block: (B, T, D) -> ((B, T, D), aux)."""
+        return self._block_core(
+            x, layer,
+            lambda q, k, v: self._attn(q, k, v, seq_sharded, window),
+            **({"seq_sharded": True} if seq_sharded else {}))
 
     def hidden_with_aux(self, ids, offset=0, seq_sharded=False):
         """Embedding + blocks: (B, T) -> ((B, T, D) before the final LN,
         the aux summed over layers or None); positions start at
         ``offset``."""
         cfg = self.config
+        if self.qblocks:
+            raise NotImplementedError(
+                f"a {self.weight_quant} weight-quantized model serves only")
         x = self.embed(ids, offset)
         layers = [self.get_parameter(f"blocks.{k}").unbind(0)
                   for k in self.block_keys]
@@ -410,9 +483,11 @@ class GPT2(nn.Module):
         total = None
         for i in range(cfg.n_layer):
             layer = [t[i] for t in layers]
-            block = functools.partial(self._block, seq_sharded=seq_sharded)
+            window = self._window(i)
+            block = functools.partial(self._block, seq_sharded=seq_sharded,
+                                      window=window)
             if (policy == "save_flash" and self.flash_on
-                    and not seq_sharded):
+                    and not seq_sharded and window is None):
                 x, aux = _SaveFlashBlock.apply(self, x, *layer)
             elif policy is not None:
                 x, aux = checkpoint(block, x, *layer, use_reentrant=False)
@@ -496,6 +571,167 @@ class GPT2(nn.Module):
                 {"wte": self.wte, "lnf_scale": self.lnf_scale,
                  "lnf_bias": self.lnf_bias}, hidden, targets)
         return chunked_softmax_xent(self.head, hidden, targets, chunk)
+
+    # --------------------------------------------------------- paged cache
+    def init_paged_cache(self, num_blocks, block_size, dtype=None):
+        """LISTS of per-layer heads-major pools (NB, H, BS, hd), one K and
+        one V a layer (gpt2.py:910-923); the paged programs update them in
+        place. Block 0 is the scratch block."""
+        cfg = self.config
+        dt = dtype if dtype is not None else self.dtype
+        shape = (num_blocks, cfg.n_head, block_size, cfg.d_head)
+        return {"k": [torch.zeros(shape, dtype=dt, device=self.device)
+                      for _ in range(cfg.n_layer)],
+                "v": [torch.zeros(shape, dtype=dt, device=self.device)
+                      for _ in range(cfg.n_layer)]}
+
+    def _layer(self, i):
+        """Layer ``i``'s tensors in ``block_keys`` order, each through
+        ``_w`` (gpt2.py:935-943)."""
+        return [self._w(k, i) for k in self.block_keys]
+
+    def _embed_at(self, ids, pos):
+        """Token + learned position embedding at ``pos`` (broadcast with
+        ``ids``), each position clamped to the table's last row as the
+        serving programs clamp it (gpt2.py:1032, :1094, :1170)."""
+        pos = pos.clamp(max=self.config.max_seq_len - 1).long()
+        return (F.embedding(ids.long(), self.wte)
+                + F.embedding(pos, self.wpe)).to(self.dtype)
+
+    def _paged_kw(self, i):
+        """The paged kernels' scale (1.0 for unscaled scores) and layer
+        ``i``'s window (0 = global)."""
+        return dict(scale=None if self.config.scale_attn else 1.0,
+                    window=self._window(i) or 0)
+
+    def _chunk_attend(self):
+        """Prefill / chunk / verify attention: K5 unless ``paged_kernel``
+        is False (its plain version, the dense-gather path)."""
+        return (paged_chunk_attention if self.paged_kernel is not False
+                else paged_chunk_attention_reference)
+
+    @torch.inference_mode()
+    def apply_paged_prefill(self, input_ids, cache, token_blocks,
+                            token_offsets, length):
+        """Bucketed whole-prompt prefill of ONE sequence (gpt2.py:945).
+
+        input_ids: (1, T) right-padded prompt; token_blocks/token_offsets:
+        (T,) destination block/slot per position (pads -> scratch block
+        0); length: real prompt length. K5 runs with start 0 over the
+        prompt's own blocks (``token_blocks[::BS]``). Returns (logits (1,
+        V) fp32 at position length-1, cache)."""
+        T = input_ids.shape[1]
+        length = int(length)
+        x = self._embed_at(input_ids,
+                           torch.arange(T, device=input_ids.device)[None])
+        BS = cache["k"][0].shape[2]
+        table = token_blocks[::BS].to(torch.int32).contiguous()
+        attend = self._chunk_attend()
+        for i in range(self.config.n_layer):
+            kc, vc = cache["k"][i], cache["v"][i]
+
+            def fn(q, k, v, kc=kc, vc=vc, kw=self._paged_kw(i)):
+                scatter_kv(kc, token_blocks, token_offsets, k[0])
+                scatter_kv(vc, token_blocks, token_offsets, v[0])
+                return attend(q[0].contiguous(), kc, vc, table, 0, length,
+                              **kw)
+            x, _ = self._block_core(x, self._layer(i), fn)
+        return self.head(x[:, max(length - 1, 0)]), cache
+
+    @torch.inference_mode()
+    def apply_paged_chunk(self, input_ids, cache, token_blocks,
+                          token_offsets, start, true_len, table):
+        """Prefill ONE CHUNK of one sequence into the paged cache (Dynamic
+        SplitFuse, gpt2.py:1016): input_ids (1, C) right-padded; token_
+        blocks/token_offsets (C,) destinations (pads -> scratch 0); start:
+        the chunk's first position; true_len: its real tokens; table:
+        (MB,) the sequence's block table. Returns (logits (1, V) fp32 at
+        chunk position true_len-1, cache)."""
+        C = input_ids.shape[1]
+        start, true_len = int(start), int(true_len)
+        x = self._embed_at(
+            input_ids, start + torch.arange(C, device=input_ids.device)[None])
+        table = table.to(torch.int32).contiguous()
+        attend = self._chunk_attend()
+        for i in range(self.config.n_layer):
+            kc, vc = cache["k"][i], cache["v"][i]
+
+            def fn(q, k, v, kc=kc, vc=vc, kw=self._paged_kw(i)):
+                scatter_kv(kc, token_blocks, token_offsets, k[0])
+                scatter_kv(vc, token_blocks, token_offsets, v[0])
+                return attend(q[0].contiguous(), kc, vc, table, start,
+                              true_len, **kw)
+            x, _ = self._block_core(x, self._layer(i), fn)
+        return self.head(x[:, max(true_len - 1, 0)]), cache
+
+    @torch.inference_mode()
+    def apply_paged_decode(self, tokens, lengths, cache, block_tables):
+        """One decode step for every batch slot (gpt2.py:1081), through K4.
+
+        tokens: (B,) input token per slot; lengths: (B,) = its position
+        (tokens already in the cache); block_tables: (B, MB) int32. A write
+        position past the table goes to scratch block 0 (the JAX scatter
+        drops it). Returns (logits (B, V) fp32, cache)."""
+        BS = cache["k"][0].shape[2]
+        MB = block_tables.shape[1]
+        lengths = lengths.to(torch.int32).contiguous()
+        block_tables = block_tables.to(torch.int32).contiguous()
+        x = self._embed_at(tokens[:, None], lengths[:, None])
+        blk = (lengths // BS).long()
+        dst_block = torch.where(
+            blk < MB, block_tables.gather(1, blk.clamp(max=MB - 1)[:, None])
+            [:, 0], 0)
+        dst_off = lengths % BS
+        attend = (paged_decode_attention if self.paged_kernel is not False
+                  else paged_decode_attention_reference)
+        for i in range(self.config.n_layer):
+            kc, vc = cache["k"][i], cache["v"][i]
+
+            def fn(q, k, v, kc=kc, vc=vc, kw=self._paged_kw(i)):
+                scatter_kv(kc, dst_block, dst_off, k[:, 0])
+                scatter_kv(vc, dst_block, dst_off, v[:, 0])
+                return attend(q[:, 0].contiguous(), kc, vc, block_tables,
+                              lengths, **kw)
+            x, _ = self._block_core(x, self._layer(i), fn)
+        return self.head(x)[:, 0], cache
+
+    @torch.inference_mode()
+    def apply_paged_verify(self, tokens, lengths, cache, block_tables):
+        """Speculative verify: C tokens a slot in ONE pass (gpt2.py:1139).
+
+        tokens: (B, C) per slot, the last committed token then the draft's
+        proposals; lengths: (B,) HOST ints = each slot's first input
+        position; block_tables: (B, MB) int32. The K/V of all B x C tokens
+        are scattered first (a position past the table lands in its last
+        block, as JAX clamps it), then each slot's C queries attend its
+        cache through K5 with start = lengths[b], true_len = C: one launch
+        a slot and layer. Returns (logits (B, C, V) fp32, cache)."""
+        B, C = tokens.shape
+        cfg = self.config
+        BS = cache["k"][0].shape[2]
+        MB = block_tables.shape[1]
+        starts = [int(n) for n in np.asarray(lengths).reshape(-1)]
+        dev = tokens.device
+        block_tables = block_tables.to(torch.int32).contiguous()
+        linpos = (torch.as_tensor(starts, device=dev)[:, None]
+                  + torch.arange(C, device=dev)[None, :])        # (B, C)
+        x = self._embed_at(tokens, linpos)
+        fb = block_tables.gather(1, (linpos // BS).clamp(max=MB - 1)) \
+            .reshape(-1)
+        fo = (linpos % BS).reshape(-1)
+        attend = self._chunk_attend()
+        H, hd = cfg.n_head, cfg.d_head
+        for i in range(cfg.n_layer):
+            kc, vc = cache["k"][i], cache["v"][i]
+
+            def fn(q, k, v, kc=kc, vc=vc, kw=self._paged_kw(i)):
+                scatter_kv(kc, fb, fo, k.reshape(B * C, H, hd))
+                scatter_kv(vc, fb, fo, v.reshape(B * C, H, hd))
+                return torch.stack([
+                    attend(q[b].contiguous(), kc, vc, block_tables[b],
+                           starts[b], C, **kw) for b in range(B)])
+            x, _ = self._block_core(x, self._layer(i), fn)
+        return self.head(x), cache
 
 
 class _SumOverAxis(torch.autograd.Function):

@@ -17,7 +17,9 @@ installs) each layer's aux loss is the global batch's, as in JAX; at
 port carries the dropless ``moe_backend="ragged"``; the GShard capacity
 backend ("dense", the config's default) raises. The experts' activation
 is always gelu (tanh form): as in the JAX model, ``GPT2Config.activation``
-does not reach them.
+does not reach them. The serving engine refuses the model
+(``serving_todo`` names the ROADMAP item of its paged programs, which no
+JAX v2 serving test runs).
 """
 
 from dataclasses import dataclass
@@ -61,6 +63,9 @@ class GPT2MoE(GPT2):
     non-"auto" ``grouped_kernel`` overrides ``moe_grouped_kernel``."""
 
     block_keys = BLOCK_KEYS[:8] + tuple(f"moe.{k}" for k in _MOE_KEYS)
+    # the ROADMAP Queue 1 serving item the engine names when it refuses
+    # the model
+    serving_todo = "GPT2MoE paged paths"
 
     def __init__(self, config: GPT2MoEConfig, device=None, dtype=None,
                  seed=0):

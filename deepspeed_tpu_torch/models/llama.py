@@ -70,11 +70,12 @@ from ..ops.cuda.paged_attention import (alibi_slopes, paged_chunk_attention,
                                         paged_chunk_attention_reference,
                                         paged_decode_attention,
                                         paged_decode_attention_reference)
-from ..ops.int8_weights import (EXCLUDE_KEYS, is_quantized, layer_slice,
-                                qualifies, quantize_slices, quantize_tensor)
+from ..ops.int8_weights import (is_quantized, qualifies, quantize_slices,
+                                quantize_tensor)
 from ..utils.device import resolve_device
-from .common import (chunked_softmax_xent, fused_linear_xent, mm_f32,
-                     next_token_xent, resolve_flash, resolve_remat_policy)
+from .common import (QuantizedBlocks, chunked_softmax_xent,
+                     fused_linear_xent, mm_f32, next_token_xent, quant_bits,
+                     resolve_flash, resolve_remat_policy, scatter_kv)
 
 _TODO_REMAT = "(ROADMAP Queue 1, M3: more remat policies)"
 _TODO_SEQ = "(ROADMAP Queue 1, M12: the Llama family under sequence " \
@@ -234,24 +235,7 @@ def _repeat_kv(k, n_rep):
     return k if n_rep == 1 else torch.repeat_interleave(k, n_rep, dim=2)
 
 
-def _scatter_kv(pool, blocks, offsets, vals):
-    """pool (NB, KVH, BS, hd)[blocks[i], :, offsets[i]] = vals[i], in place
-    (index_put_ through a (NB, BS, KVH, hd) view of the same storage)."""
-    pool.permute(0, 2, 1, 3).index_put_((blocks.long(), offsets.long()),
-                                        vals.to(pool.dtype))
-
-
-_QUANT_BITS = {"int8": 8, "int4": 4}
-
-
-def _quant_bits(mode):
-    if mode not in _QUANT_BITS:
-        raise ValueError(f"quantize must be None|'int8'|'int4', got "
-                         f"{mode!r}")
-    return _QUANT_BITS[mode]
-
-
-class Llama(nn.Module):
+class Llama(QuantizedBlocks, nn.Module):
     """Llama for training and serving. ``device`` defaults to the card
     (raises without one); ``dtype`` defaults to ``config.dtype``; weights
     are random from a ``torch.Generator`` seeded with ``seed`` (load real
@@ -264,7 +248,6 @@ class Llama(nn.Module):
 
     # FFN keys the fused path keeps quantized (engine weight_quant)
     _WQ_KEEP = ("wgate", "wup", "wdown")
-    _weight_quant_fused = False
 
     def __init__(self, config: LlamaConfig, device=None, dtype=None,
                  seed=0, quantize=None):
@@ -278,7 +261,7 @@ class Llama(nn.Module):
         # attention dispatch: "auto"/True = the paged kernels, False = the
         # dense-gather parity path
         self.paged_kernel = "auto"
-        bits = _quant_bits(quantize) if quantize else 0
+        bits = quant_bits(quantize) if quantize else 0
 
         L, D, Fd, V = (config.n_layer, config.d_model, config.ffn_dim,
                        config.vocab_size)
@@ -393,78 +376,6 @@ class Llama(nn.Module):
     # the top-level leaves of the JAX tree (besides ``blocks``)
     TOP_KEYS = ("wte", "norm_f", "norm_f_b", "embed_ln_s", "embed_ln_b",
                 "lm_head_b", "lm_head")
-
-    def params_tree(self):
-        """The JAX parameter tree: ``wte``, ``norm_f``, ``lm_head``, the
-        knobs' top-level leaves and ``blocks`` (tensors and quantized
-        nodes), sharing storage."""
-        tree = {k: getattr(self, k) for k in self.TOP_KEYS
-                if hasattr(self, k)}
-        tree["blocks"] = {**dict(self.blocks.items()), **self.qblocks}
-        return tree
-
-    def quantize_(self, mode):
-        """Quantize the float model in place as the JAX engine's
-        ``shard_params(quantize=...)`` does (``quantize_tree``: the block
-        leaves with >= 2 dims and >= 2^16 elements, never the router), one
-        (In, Out) slice at a time, each float leaf freed once quantized."""
-        if self.qblocks:
-            raise ValueError(f"model is already quantized "
-                             f"({self.weight_quant})")
-        bits = _quant_bits(mode)
-        for k in list(self.blocks):
-            p = self.blocks[k]
-            if qualifies(k, p.shape, p.dtype):
-                self.qblocks[k] = quantize_tensor(p.data, bits)
-                del self.blocks[k]
-        self.weight_quant = mode
-        return self
-
-    def to_serving(self, device, dtype):
-        """The serving engine's cast. Unquantized: every floating parameter
-        to ``dtype``, the router included (the JAX ``shard_params`` does
-        the same). Quantized: codes and scales move as they are and the
-        router stays fp32 (the JAX ``cast_unquantized``); the other float
-        leaves take ``dtype``."""
-        if not self.qblocks:
-            return self.to(device=device, dtype=dtype)
-        self.to(device=device)
-        self.qblocks = {k: w.to(device) for k, w in self.qblocks.items()}
-        for name, p in self.named_parameters():
-            if (p.is_floating_point()
-                    and name.rsplit(".", 1)[-1] not in EXCLUDE_KEYS):
-                p.data = p.data.to(dtype)
-        return self
-
-    def load_state_dict(self, state_dict, strict=True, assign=False):
-        """``nn.Module.load_state_dict`` that also takes quantized block
-        leaves (``blocks.<name>`` -> ``Int8Weight`` / ``Int4Weight``, as
-        ``convert.llama_params_from_numpy`` gives them for a quantized JAX
-        tree); each replaces the leaf's parameter."""
-        state = dict(state_dict)
-        for key in [k for k, v in state.items() if is_quantized(v)]:
-            name = key[len("blocks."):]
-            if name in self.blocks:
-                del self.blocks[name]
-            self.qblocks[name] = state.pop(key).to(self.device)
-        if self.qblocks:
-            self.weight_quant = "int4" if any(
-                w.bits == 4 for w in self.qblocks.values()) else "int8"
-        return super().load_state_dict(state, strict=strict, assign=assign)
-
-    def _w(self, name, i):
-        """Layer ``i`` of block leaf ``name`` (the JAX ``_layer_slice``):
-        a quantized leaf is dequantized to the model's dtype, except a
-        ``_WQ_KEEP`` leaf under the fused path, which stays quantized.
-        ``i`` may instead be one layer's tensors by name (the training
-        path's unbound slices), read as they are."""
-        if isinstance(i, dict):
-            return i[name]
-        w = self.qblocks.get(name)
-        if w is None:
-            return self.blocks[name][i]
-        keep = self._weight_quant_fused and name in self._WQ_KEEP
-        return layer_slice(w, i, self.dtype, keep=keep)
 
     # --------------------------------------------------------------- pieces
     def _head_keys(self):
@@ -828,8 +739,8 @@ class Llama(nn.Module):
             q, k, v = self._attn_proj(x, i)
             q = self._rope(q, pos)
             k = self._rope(k, pos)
-            _scatter_kv(kc, token_blocks, token_offsets, k[0])
-            _scatter_kv(vc, token_blocks, token_offsets, v[0])
+            scatter_kv(kc, token_blocks, token_offsets, k[0])
+            scatter_kv(vc, token_blocks, token_offsets, v[0])
             attn = attend(q[0].contiguous(), kc, vc, prefill_table, 0, length,
                           window=cfg.sliding_window)
             x = self._block_tail(x, attn.reshape(1, T, H * hd), i)
@@ -862,8 +773,8 @@ class Llama(nn.Module):
             q, k, v = self._attn_proj(x, i)
             q = self._rope(q, pos)
             k = self._rope(k, pos)
-            _scatter_kv(kc, token_blocks, token_offsets, k[0])
-            _scatter_kv(vc, token_blocks, token_offsets, v[0])
+            scatter_kv(kc, token_blocks, token_offsets, k[0])
+            scatter_kv(vc, token_blocks, token_offsets, v[0])
             attn = attend(q[0].contiguous(), kc, vc, table, start, true_len,
                           window=cfg.sliding_window)
             x = self._block_tail(x, attn.reshape(1, C, H * hd), i)
@@ -908,8 +819,8 @@ class Llama(nn.Module):
             q, k, v = self._attn_proj(x, i)           # (B, 1, ., hd)
             q = self._rope(q, pos[:, None])
             k = self._rope(k, pos[:, None])
-            _scatter_kv(kc, dst_block, dst_off, k[:, 0])
-            _scatter_kv(vc, dst_block, dst_off, v[:, 0])
+            scatter_kv(kc, dst_block, dst_off, k[:, 0])
+            scatter_kv(vc, dst_block, dst_off, v[:, 0])
             attn = attend(q[:, 0].contiguous(), kc, vc, block_tables, lengths,
                           window=cfg.sliding_window, **al)
             x = self._block_tail(x, attn.reshape(B, 1, H * hd), i)
@@ -952,8 +863,8 @@ class Llama(nn.Module):
             q, k, v = self._attn_proj(x, i)           # (B, C, ., hd)
             q = self._rope(q, pos)
             k = self._rope(k, pos)
-            _scatter_kv(kc, fb, fo, k.reshape(B * C, KVH, hd))
-            _scatter_kv(vc, fb, fo, v.reshape(B * C, KVH, hd))
+            scatter_kv(kc, fb, fo, k.reshape(B * C, KVH, hd))
+            scatter_kv(vc, fb, fo, v.reshape(B * C, KVH, hd))
             attn = torch.stack([
                 attend(q[b], kc, vc, block_tables[b], starts[b], C,
                        window=cfg.sliding_window)

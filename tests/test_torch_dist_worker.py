@@ -24,8 +24,16 @@ import subprocess
 import sys
 
 import numpy as np
+import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# One intra-op thread a process, in the test processes that import this
+# module and in the workers it starts. The suite runs several pytest
+# processes on one host (and each imports every test module), so a pool
+# of one thread a core in each of them oversubscribes the cores many
+# times over; the tests' tiny shapes gain nothing from a pool.
+torch.set_num_threads(1)
 
 
 # ----------------------------------------------------------------- programs
@@ -266,6 +274,8 @@ def gpt2(inp, rank, world):
         assert engine.model._sequence_cfg.block_kernel is False
         losses = [engine.train_batch(b) for b in run["batches"]]
         out[name] = {"losses": losses, "master": engine.state["master"]}
+    if not inp.get("moe_dp", True):
+        return {"res": _np(out)}
     # GPT2MoE over a data-parallel world of `world`: one step
     from deepspeed_tpu_torch.models import GPT2MoE, GPT2MoEConfig
     from deepspeed_tpu_torch.utils import groups
@@ -627,8 +637,6 @@ def kv_handoff(inp, rank, world):
 def main():
     suite, tmpdir = sys.argv[1], sys.argv[2]
     sys.path.insert(0, ROOT)
-    import torch
-    torch.set_num_threads(1)
     from deepspeed_tpu_torch import comm
     comm.init_distributed(device="cpu", verbose=False)
     rank, world = comm.get_rank(), comm.get_world_size()

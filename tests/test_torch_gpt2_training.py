@@ -136,7 +136,8 @@ def test_config_and_presets_mirror_jax():
 
 
 def test_unported_knobs_raise():
-    for over in (dict(dropout=0.1), dict(attn_layer_windows=(0, 4)),
+    # per-layer windows are ported (test_torch_gpt_neo_training.py)
+    for over in (dict(dropout=0.1),
                  dict(remat=True, remat_policy="save_attn"),
                  dict(remat=True, remat_policy="save_mid")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):

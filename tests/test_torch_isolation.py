@@ -38,9 +38,10 @@ def _port_sources():
 def test_static_scan_no_jax_imports():
     srcs = _port_sources()
     assert len(srcs) > 10
-    # the seven Llama-family modules are scanned with the rest
+    # the seven Llama-family modules and the two GPT-2 families are scanned
+    # with the rest
     for fam in ("bloom", "falcon", "gpt_neox", "gptj", "internlm", "phi",
-                "qwen"):
+                "qwen", "opt", "gpt_neo"):
         assert os.path.join(PKG, "models", f"{fam}.py") in srcs, fam
     bad = []
     for path in srcs:
@@ -104,6 +105,18 @@ for fam, preset in (("Bloom", "BLOOM_PRESETS"), ("Falcon", "FALCON_PRESETS"),
                             device="cpu").generate_all([np.arange(9)],
                                                        max_new_tokens=2)
     assert [len(o) for o in out] == [2], fam
+for fam, preset in (("GPT2", "GPT2_PRESETS"), ("OPT", "OPT_PRESETS"),
+                    ("GPTNeo", "GPTNEO_PRESETS")):
+    cfg = dataclasses.replace(getattr(dst, preset)["tiny"], dtype="float32")
+    for quant in ({}, dict(weight_quant="int4")):
+        fmodel = getattr(dst, fam)(cfg, device="cpu")
+        out = InferenceEngineV2(fmodel, dict(dtype="float32", kv_block_size=8,
+                                             max_batch_size=2,
+                                             splitfuse_tokens=8, **quant),
+                                device="cpu").generate_all(
+                                    [np.arange(9), np.arange(70)],
+                                    max_new_tokens=2)
+        assert [len(o) for o in out] == [2, 2], fam
 gcfg = GPT2Config(n_layer=2, n_head=2, d_model=64, max_seq_len=32,
                   vocab_size=128, dtype="float32", use_flash_attention=True,
                   remat=True, remat_policy="save_flash", loss_chunk=8,
@@ -147,8 +160,15 @@ print("ISOLATED_OK")
 """
 
 
+def _child_env():
+    """The child's environment: the repo on the path, and one intra-op
+    thread (the tiny shapes gain nothing from a pool, and a pool a core in
+    the child beside every test worker's oversubscribes the host)."""
+    return dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+
+
 def test_port_runs_with_jax_unimportable():
-    env = dict(os.environ, PYTHONPATH=ROOT)
+    env = _child_env()
     res = subprocess.run([sys.executable, "-c", _BLOCKED_RUN], cwd=ROOT,
                          env=env, capture_output=True, text=True,
                          timeout=300)
@@ -335,7 +355,7 @@ def test_comm_and_sequence_run_with_jax_unimportable():
         "comm/comm.py", "comm/quantized.py", "comm/logging.py",
         "sequence/ring.py", "sequence/layer.py", "utils/groups.py",
         "ops/cuda/quantization.py")} <= set(_port_sources())
-    env = dict(os.environ, PYTHONPATH=ROOT)
+    env = _child_env()
     env.pop("WORLD_SIZE", None)
     res = subprocess.run([sys.executable, "-c", _BLOCKED_SEQ_RUN], cwd=ROOT,
                          env=env, capture_output=True, text=True,
