@@ -446,6 +446,29 @@ Phases (any failure raises and the script exits nonzero):
      2048, the fused CE head), 2 steps: every layer dense (its windows, as
      JAX), no K1 / K2 launch, K3 four a step at V = 50257 on sm90; step
      time and peak memory.
+ 47. the autotune winner cache. Every earlier phase ran under cache_only
+     on a fresh, empty cache file the script points DSTPU_AUTOTUNE_CACHE
+     at before phase 0 (a stale file must not steer their counts): (a)
+     at phases 4's, 7's, 10's, 35's and 45's buckets every resolver gives
+     the port's cold choice and no search has run; (b) searches under
+     on_first_use on a file of their own at full-width buckets (Llama-2-7B
+     decode, chunk 256 and verify 5; GPT-2 1.3B decode and chunk; GPT-2
+     350M's flash backward on qkv_t, LayerNorm and MLP, each step at its
+     bucket's size), one line each with every candidate's ms, its parity,
+     default_ms and the winner; every candidate passes parity, every entry
+     carries this card's name; the verify's split choices also timed alone
+     at start 1200; the one-candidate ops (Mixtral-8x7B's experts at 16
+     and 512 rows, phase 35's prefix-cache and speculation pools) take
+     their defaults with no search and no entry; (c) a 2-layer Llama-2-7B
+     engine on phase 4's traffic serves from the filled file under
+     cache_only (bf16; its K4 / K5 launches by lever are the winners'),
+     and in fp32 the cold, the searching (on_first_use), the filled and a
+     seeded non-default (one decode split, a 16-row chunk tile) engine
+     give the same greedy streams; every engine's forwards launch exactly
+     the K4 / K5 their counts imply (the searching engine's searches'
+     own launches counted apart); (d) an entry measured on another device
+     kind is refused (a miss) and an entry naming the dense path for the
+     decode raises.
 Phases 7, 13, 20, 24, 32 and 33 also hold every bf16 K1 / K2 / K2-qmajor /
 K3 / K6 launch to the sm90 design (the wrappers' DESIGN_LAUNCHES); the
 serving slices count K4's launches by design (split / single), the
@@ -468,6 +491,7 @@ profiler's overhead).
 """
 
 import argparse
+import collections
 import ctypes
 import dataclasses
 import gc
@@ -8770,6 +8794,362 @@ def phase_gpt2_families(pa, mm, fa, fce, seed=0):
     return paths
 
 
+# ------------------------------------------------- winner cache (phase 47)
+
+# phase 47 (c): the 2-layer Llama-2-7B engine on phase 4's traffic
+WINNER_SERVE = dict(layers=2, requests=8, new=64)
+
+
+def winner_searches():
+    """(label, op, bucket, dtype) of phase 47 (b)'s searches: the
+    full-width buckets of the paths that take each op with more than one
+    candidate."""
+    from deepspeed_tpu_torch import GPT2_PRESETS, LLAMA_PRESETS
+    from deepspeed_tpu_torch.ops.cuda import _common as c
+    llama_mb = -(-LLAMA_PRESETS["llama2-7b"].max_seq_len // 64)
+    gpt2_mb = -(-GPT2_PRESETS["1.3B"].max_seq_len // 64)
+    bf = "bfloat16"
+    return (
+        ("llama2-7b decode", "paged_decode",
+         c.paged_decode_bucket(8, llama_mb, 64, 32, 1, 128), bf),
+        ("llama2-7b chunk 256", "paged_chunk",
+         c.paged_chunk_bucket(256, llama_mb, 64, 32, 1, 128), bf),
+        ("llama2-7b verify 5", "paged_chunk",
+         c.paged_chunk_bucket(5, llama_mb, 64, 32, 1, 128), bf),
+        ("gpt2-1.3b decode", "paged_decode",
+         c.paged_decode_bucket(8, gpt2_mb, 64, 32, 1, 64), bf),
+        ("gpt2-1.3b chunk 256", "paged_chunk",
+         c.paged_chunk_bucket(256, gpt2_mb, 64, 32, 1, 64), bf),
+        ("gpt2-350m flash (qkv_t)", "flash_attention",
+         c.flash_bucket(1024, 64, True, True), bf),
+        ("gpt2-350m layernorm", "layernorm", c.ln_bucket(24 * 1024, 1024),
+         bf),
+        ("gpt2-350m mlp", "mlp_matmul", c.mlp_bucket(1024, 1024, 4096), bf))
+
+
+def winner_unsearched():
+    """(label, op, bucket, dtype) of the one-candidate ops at their paths'
+    buckets: K8 takes no lever, the serving policies have no step that
+    replays measured traffic."""
+    from deepspeed_tpu_torch.ops.cuda import _common as c
+    bf = "bfloat16"
+    return (
+        ("mixtral-8x7b experts, decode", "moe_grouped_mm",
+         c.moe_grouped_bucket(16, 8, 4096, 14336), bf),
+        ("mixtral-8x7b experts, chunk", "moe_grouped_mm",
+         c.moe_grouped_bucket(512, 8, 4096, 14336), bf),
+        ("phase 35 prefix pool", "prefix_cache",
+         c.prefix_cache_bucket(8, PHASE35["prefix_blocks"], 64), bf),
+        ("phase 35 spec pool", "spec_decode",
+         c.spec_bucket(8, PHASE35["spec_blocks"], 64), bf))
+
+
+def winner_cold_checks(pa, cuda):
+    """Phase 47 (a): the cold cache at phases 4's, 7's, 10's, 35's and
+    45's buckets gives every resolver the choice the port made before it
+    had a cache (the shape rules, K2, the plain LayerNorm and MLP, the
+    kernels for the experts, the JAX policy defaults)."""
+    from deepspeed_tpu_torch import GPT2_PRESETS, LLAMA_PRESETS, MIXTRAL_8X7B
+    from deepspeed_tpu_torch.autotuning import kernel_registry as kr
+    from deepspeed_tpu_torch.inference.v2.prefix_cache import \
+        resolve_prefix_cache
+    from deepspeed_tpu_torch.inference.v2.speculative import resolve_spec
+    from deepspeed_tpu_torch.moe.sharded_moe import resolve_grouped_params
+    from deepspeed_tpu_torch.ops.cuda import _common as c
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+    bf = torch.bfloat16
+    mb = {name: -(-cfg.max_seq_len // 64) for name, cfg in (
+        ("llama", LLAMA_PRESETS["llama2-7b"]), ("mixtral", MIXTRAL_8X7B),
+        ("gpt2", GPT2_PRESETS["1.3B"]))}
+    dec, chunk = pa.resolve_paged_decode_levers, pa.resolve_paged_chunk_levers
+    split, tile = pa.DECODE_SPLIT_POSITIONS, pa.PAGED_CHUNK_BLOCK_C
+    checks = {
+        "phase 4 decode": (dec("auto", 8, mb["llama"], 64, 32, 1, 128, bf,
+                               cuda), (True, split)),
+        "phase 4 chunk": (chunk("auto", "auto", 256, mb["llama"], 64, 32, 1,
+                                128, bf, cuda), (True, tile, None)),
+        "phase 7 flash backward": (fa.resolve_bwd_qmajor(
+            "auto", 1024, 64, True, True, bf, cuda), False),
+        "phase 7 layernorm": (c.dispatch(
+            "layernorm", c.ln_bucket(24 * 1024, 1024), "bfloat16",
+            kr.LN_DEFAULTS, device=cuda), {"variant": "plain"}),
+        "phase 7 mlp": (c.dispatch(
+            "mlp_matmul", c.mlp_bucket(1024, 1024, 4096), "bfloat16",
+            kr.MLP_DEFAULTS, device=cuda), kr.MLP_DEFAULTS),
+        "phase 10 decode": (dec("auto", 8, mb["mixtral"], 64, 8, 4, 128, bf,
+                                cuda), (True, split)),
+        "phase 10 experts (decode, chunk)": (
+            [resolve_grouped_params("auto", rows, 8, 4096, 14336, bf, cuda)
+             for rows in (16, 512)], [{"backend": "kernel"}] * 2),
+        "phase 35 prefix cache": (resolve_prefix_cache(
+            "auto", "auto", 8, PHASE35["prefix_blocks"], 64, "bfloat16",
+            cuda), (False, 1, 0)),
+        "phase 35 speculation": (resolve_spec(
+            "auto", "auto", 8, PHASE35["spec_blocks"], 64, "bfloat16", cuda),
+            (True, 4, 0.35)),
+        "phase 45 decode": (dec("auto", 8, mb["gpt2"], 64, 32, 1, 64, bf,
+                                cuda), (True, split)),
+        "phase 45 chunk": (chunk("auto", "auto", 256, mb["gpt2"], 64, 32, 1,
+                                 64, bf, cuda), (True, tile, None)),
+    }
+    for name, (got, want) in checks.items():
+        assert got == want, f"cold cache, {name}: {got} != {want}"
+    return {name: got for name, (got, _) in checks.items()}
+
+
+def verify_splits_at_1200(pa, winner, seed=0):
+    """The verify (C = 5) at start 1200 of Llama-2-7B's table, K5's sm90
+    design timed with queued launches at the rule's split count, at 1 and
+    2 splits and at the winner's."""
+    g = torch.Generator(device="cuda").manual_seed(seed + 1200)
+    KVH, BS, D, MB = 32, 64, 128, 64
+    NB = 2 * MB + 1
+    q = torch.randn(5, KVH, D, generator=g, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn(NB, KVH, BS, D, generator=g, device="cuda")
+            .to(torch.bfloat16) for _ in range(2))
+    table = (torch.randperm(NB - 1, generator=g, device="cuda")[:MB] + 1) \
+        .to(torch.int32)
+    scale = 1.0 / math.sqrt(D)
+    out = {"rule_splits": pa.chunk_splits(5, KVH, KVH, BS, MB, 1200, 5, 0,
+                                          pa._sm_count(0))}
+    for tag, s in (("rule", None), ("splits_1", 1), ("splits_2", 2),
+                   ("winner", winner)):
+        out[f"{tag}_ms"] = time_queued(
+            lambda s=s: pa.paged_chunk_launch(q, k, v, table, 1200, 5, scale,
+                                              0, "auto", "sm90", splits=s),
+            200)[0]
+    return out
+
+
+def phase_winner_cache(pa, seed=0):
+    """Phase 47: the autotune winner cache (see the module docstring).
+    Returns the launches of (c)'s bf16 engine serving from the filled
+    file."""
+    import shutil
+    import tempfile
+    from deepspeed_tpu_torch import InferenceEngineV2, LLAMA_PRESETS, Llama
+    from deepspeed_tpu_torch.autotuning import (KernelCache,
+                                                kernel_autotuner,
+                                                kernel_dispatch)
+    from deepspeed_tpu_torch.autotuning import kernel_registry as kr
+    from deepspeed_tpu_torch.autotuning.kernel_cache import entry_key
+    from deepspeed_tpu_torch.ops.cuda import _common as c
+    kind = torch.cuda.get_device_name(0)
+    cuda = torch.device("cuda", 0)
+    bf = torch.bfloat16
+
+    # (a) the cold cache phases 1-46 ran under
+    cold = kernel_dispatch.cache_path()
+    assert kernel_dispatch.current_mode() == "cache_only"
+    assert not kernel_dispatch.reports(), "a search ran in phases 1-46"
+    assert len(KernelCache.load(cold)) == 0, cold
+    resolved = winner_cold_checks(pa, cuda)
+    assert len(KernelCache.load(cold)) == 0, cold
+    log("winner-cache (a) cold " + json.dumps(
+        {k: str(v) for k, v in resolved.items()}))
+
+    tmp = tempfile.mkdtemp(prefix="phase47-", dir=os.path.dirname(cold))
+    try:
+        # (b) measured searches on a file of their own
+        filled = os.path.join(tmp, "filled.json")
+        kernel_dispatch.configure(mode="on_first_use", cache_path=filled)
+        searches = winner_searches()
+        winners = {}
+        for label, op, bucket, dtype in searches:
+            t0 = time.perf_counter()
+            defaults = kr.REGISTRY[op]["defaults"](kr.parse_bucket(bucket))
+            winners[label] = c.dispatch(op, bucket, dtype, defaults,
+                                        device=cuda)
+            rep = kernel_dispatch.reports()[entry_key(kind, op, bucket,
+                                                      dtype)]
+            bad = [r for r in rep["candidates"] if r["parity"] != "ok"]
+            assert not bad, f"{label}: {bad}"
+            log("winner-cache (b) search " + json.dumps(dict(
+                label=label, op=op, bucket=bucket, dtype=dtype,
+                candidates=[[r["params"], r["ms"], r["parity"]]
+                            for r in rep["candidates"]],
+                default_ms=rep["default_ms"], winner=rep["winner"],
+                winner_ms=rep["winner_ms"],
+                seconds=time.perf_counter() - t0)))
+            gc.collect()
+            torch.cuda.empty_cache()
+        for label, op, bucket, dtype in winner_unsearched():
+            defaults = kr.REGISTRY[op]["defaults"](kr.parse_bucket(bucket))
+            got = c.dispatch(op, bucket, dtype, defaults, device=cuda)
+            assert got == defaults, (label, got)
+            assert entry_key(kind, op, bucket, dtype) not in \
+                kernel_dispatch.reports(), label
+            log(f"winner-cache (b) one candidate, not searched: {label} "
+                f"{op} {bucket} -> {got}")
+        entries = KernelCache.load(filled).entries
+        assert len(entries) == len(searches), sorted(entries)
+        assert all(e["device_kind"] == kind for e in entries.values()), \
+            entries
+        verify = winners["llama2-7b verify 5"]["splits"]
+        log("winner-cache (b) verify at start 1200 " + json.dumps(
+            verify_splits_at_1200(pa, None if verify == "rule" else verify,
+                                  seed)))
+
+        # (c) serving from the filled file
+        cfg = dataclasses.replace(LLAMA_PRESETS["llama2-7b"],
+                                  n_layer=WINNER_SERVE["layers"])
+        L, new = cfg.n_layer, WINNER_SERVE["new"]
+        MB = -(-cfg.max_seq_len // 64)
+        rs = np.random.RandomState(seed + 47)
+        prompts = [rs.randint(0, cfg.vocab_size, (n,))
+                   for n in rs.randint(64, 2049, WINNER_SERVE["requests"])]
+        base = dict(kv_block_size=64, max_batch_size=8, splitfuse_tokens=256,
+                    decode_steps_per_dispatch=8)
+
+        def decode_lever(win):
+            return f"S={pa.decode_splits(MB, 64, win['split_positions'])[0]}"
+
+        def serve_on(model, dtype, mode, path):
+            eng = InferenceEngineV2(model, dict(
+                base, dtype=dtype, autotune_mode=mode, autotune_cache=path),
+                device="cuda")
+            # a search inside the run launches K4 / K5 on its own steps:
+            # counted apart, so that the forwards' launches are exact
+            searched = collections.Counter()
+            real = kernel_autotuner.search
+
+            def counted(*a, **k):
+                before = dict(pa.LAUNCHES)
+                try:
+                    return real(*a, **k)
+                finally:
+                    searched.update({n: pa.LAUNCHES[n] - before[n]
+                                     for n in before})
+
+            kernel_autotuner.search = counted
+            try:
+                streams, _, launches = serve_run(eng, prompts, new, pa)
+            finally:
+                kernel_autotuner.search = real
+            forwards = {k: launches[k] - searched[k] for k in launches}
+            want = expected_launches(eng, L)
+            assert forwards == want, (launches, dict(searched), want)
+            assert mode == "on_first_use" or not +searched, searched
+            if +searched:
+                log(f"winner-cache (c) {dtype} {mode}: the searches "
+                    f"launched {dict(searched)} beside the forwards' "
+                    f"{want}")
+            return streams, forwards, {k: dict(v) for k, v in
+                                       pa.LEVER_LAUNCHES.items()}
+
+        model = Llama(cfg, device="cuda", dtype=bf, seed=seed)
+        _, launches, levers = serve_on(model, "bfloat16", "cache_only",
+                                       filled)
+        count_paged_designs(pa, launches)
+        assert levers["paged_decode"] == {decode_lever(
+            winners["llama2-7b decode"]): launches["paged_decode"]}, levers
+        chunk_splits = winners["llama2-7b chunk 256"]["splits"]
+        if chunk_splits != "rule":
+            assert levers["paged_chunk"] == {
+                f"S={chunk_splits}": launches["paged_chunk"]}, levers
+        assert sum(levers["paged_chunk"].values()) == \
+            launches["paged_chunk"], levers
+        log("winner-cache (c) bf16 from the filled file " + json.dumps(
+            dict(launches=launches, levers=levers)))
+        model = None
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        model = Llama(cfg, device="cuda", dtype=torch.float32, seed=seed)
+        dec_b = c.paged_decode_bucket(8, MB, 64, 32, 1, 128)
+        chunk_b = c.paged_chunk_bucket(256, MB, 64, 32, 1, 128)
+        fp32, forced = (os.path.join(tmp, f) for f in ("fp32.json",
+                                                       "forced.json"))
+        seeded = KernelCache()
+        seeded.put(kind, "paged_decode", dec_b, "float32",
+                   {"mode": "kernel", "split_positions": 0})
+        seeded.put(kind, "paged_chunk", chunk_b, "float32",
+                   {"mode": "kernel", "block_c": 16, "splits": "rule"})
+        seeded.save(forced)
+        runs = {tag: serve_on(model, "float32", mode, path)
+                for tag, mode, path in (
+                    ("cold", "cache_only", os.path.join(tmp, "empty.json")),
+                    ("searching", "on_first_use", fp32),
+                    ("filled", "cache_only", fp32),
+                    ("seeded", "cache_only", forced))}
+        table = KernelCache.load(fp32)
+        wd = table.lookup(kind, "paged_decode", dec_b, "float32")
+        wc = table.lookup(kind, "paged_chunk", chunk_b, "float32")
+        assert wd is not None and wc is not None, sorted(table.entries)
+        expect = {"cold": ({decode_lever(pa.PAGED_DECODE_DEFAULTS)},
+                           {f"block_c={pa.PAGED_CHUNK_BLOCK_C}"}),
+                  "filled": ({decode_lever(wd)},
+                             {f"block_c={min(int(wc['block_c']), 256)}"}),
+                  "seeded": ({"S=1"}, {"block_c=16"})}
+        for tag, (dec_keys, chunk_keys) in expect.items():
+            got = runs[tag][2]
+            assert set(got["paged_decode"]) == dec_keys, (tag, got)
+            assert set(got["paged_chunk"]) == chunk_keys, (tag, got)
+        for tag, (streams, _, levers) in runs.items():
+            assert all(np.array_equal(a, b) for a, b in
+                       zip(streams, runs["cold"][0])), \
+                f"fp32 greedy streams of the {tag} engine differ"
+            log(f"winner-cache (c) fp32 {tag}: streams equal the cold "
+                f"engine's; launches by lever {json.dumps(levers)}; "
+                f"winners decode {wd}, chunk {wc}")
+        model = None
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (d) refusals: an entry filed under this card but measured on
+        # another is a miss; a dense decode entry raises
+        other = "NVIDIA A100-SXM4-80GB"
+        foreign = KernelCache()
+        foreign.put(other, "paged_decode", dec_b, "bfloat16",
+                    {"mode": "kernel", "split_positions": 0})
+        foreign.entries[entry_key(kind, "paged_decode", dec_b, "bfloat16")] \
+            = dict(foreign.entries[entry_key(other, "paged_decode", dec_b,
+                                             "bfloat16")])
+        path = os.path.join(tmp, "foreign.json")
+        foreign.save(path)
+        kernel_dispatch.configure(mode="cache_only", cache_path=path)
+        assert pa.resolve_paged_decode_levers(
+            "auto", 8, MB, 64, 32, 1, 128, bf, cuda) == \
+            (True, pa.DECODE_SPLIT_POSITIONS)
+        plain = KernelCache()
+        plain.put(kind, "paged_decode", dec_b, "bfloat16",
+                  {"mode": "dense", "split_positions": 512})
+        path = os.path.join(tmp, "plain.json")
+        plain.save(path)
+        kernel_dispatch.configure(mode="cache_only", cache_path=path)
+        try:
+            pa.resolve_paged_decode_levers("auto", 8, MB, 64, 32, 1, 128, bf,
+                                           cuda)
+        except ValueError as e:
+            log(f"winner-cache (d) another device kind's entry refused (a "
+                f"miss); a dense decode entry raises: {e}")
+        else:
+            raise AssertionError("a dense paged_decode winner was applied")
+    finally:
+        kernel_dispatch.reset()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
+def fresh_winner_cache():
+    """Point the autotune winner cache (cache_only) at a fresh, empty file
+    in a temporary directory, removed at exit, before any phase: a cache
+    file of an earlier run must not steer this run's launch counts. Child
+    processes inherit it."""
+    import atexit
+    import shutil
+    import tempfile
+    from deepspeed_tpu_torch.autotuning import KernelCache
+    from deepspeed_tpu_torch.autotuning.kernel_cache import CACHE_PATH_ENV
+    d = tempfile.mkdtemp(prefix="chip-smoke-autotune-")
+    atexit.register(shutil.rmtree, d, ignore_errors=True)
+    path = os.path.join(d, "kernel_autotune.json")
+    KernelCache().save(path)
+    os.environ[CACHE_PATH_ENV] = path
+    os.environ["DSTPU_AUTOTUNE"] = "cache_only"
+    log(f"autotune winner cache: cache_only on a fresh file {path}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default="",
@@ -8784,6 +9164,8 @@ def main(argv=None):
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if not args.child:
+        fresh_winner_cache()
     if args.child:
         if args.child.startswith("ep:"):
             report = child_ep(args.child[3:])
@@ -8983,6 +9365,11 @@ def main(argv=None):
     paths.update(phase_gpt2_families(pa, mm, fa, fce))
     phase_done(f"46 (OPT-1.3b and GPT-Neo-1.3B serving, 24 layers; "
                f"GPT-Neo training, {GPTNEO_TRAIN['layers']} layers)")
+    paths["llama-winner-cache"] = phase_winner_cache(pa)
+    phase_done(f"47 (the autotune winner cache: cold resolvers, "
+               f"{len(winner_searches())} searches, Llama-2-7B served "
+               f"from the filled file at {WINNER_SERVE['layers']} layers, "
+               f"refusals)")
 
     kernels = []
     for name, r in rows.items():

@@ -31,9 +31,18 @@ Counterpart of ``deepspeed_tpu/inference/v2/engine_v2.py`` (the
     ``release_handoff``; ``kv_transfer.py`` frames the bytes) are the JAX
     engine's, for ``Replica`` / ``Router``.
 
-The port has no autotune winner cache yet: "auto" knobs resolve to the JAX
-package's cold-cache defaults (prefix cache off; speculation on once a
-draft model is passed, k = 4; the paged kernels on). Sampling uses a
+"auto" knobs (``paged_kernel``, ``paged_block_c``, ``prefix_cache``,
+``prefix_cache_min_match``, ``spec_draft``, ``spec_k``) resolve through the
+autotune winner cache (``autotuning/``) per shape bucket, under the
+engine's ``autotune_mode`` / ``autotune_cache`` ("" = the
+``DSTPU_AUTOTUNE`` / ``DSTPU_AUTOTUNE_CACHE`` env, default ``cache_only``
+over ~/.cache/deepspeed_tpu/kernel_autotune.json). The engine installs its
+dispatch state and kernel knobs at construction and again before each
+program runs (``_install_trace_state``), so engines sharing one model each
+dispatch under their own config. A cold cache gives the JAX package's
+cold-cache defaults (prefix cache off; speculation on once a draft model
+is passed, k = 4) and the paged kernels with their shape rules. Sampling
+uses a
 ``torch.Generator`` seeded from ``config.seed``; it gives other numbers
 than ``jax.random`` from the same seed, so only greedy streams are
 comparable across the two packages.
@@ -61,9 +70,6 @@ from .speculative import (SPEC_EMA_ALPHA, SPEC_MIN_ROUNDS, longest_accept,
 _NOT_YET = {
     "tensor_parallel": ((1,), "tensor parallel"),
     "expert_parallel": ((1,), "expert parallel"),
-    "paged_block_c": (("auto",), "autotune winner cache"),
-    "autotune_mode": (("",), "autotune winner cache"),
-    "autotune_cache": (("",), "autotune winner cache"),
 }
 
 
@@ -78,11 +84,11 @@ class RaggedInferenceEngineConfig:
     max_batch_size, kv_block_size, num_kv_blocks, prompt_bucket,
     temperature, top_k, seed, decode_steps_per_dispatch, splitfuse_tokens,
     quantize_weights, weight_quant, kv_host_offload, device_kv_blocks,
-    paged_kernel, prefix_cache, prefix_cache_blocks,
-    prefix_cache_min_match, spec_draft, spec_k, telemetry,
-    telemetry_interval. tensor_parallel, expert_parallel, paged_block_c,
-    autotune_mode and autotune_cache raise at a non-default value, naming
-    their ROADMAP item."""
+    paged_kernel, paged_block_c, prefix_cache, prefix_cache_blocks,
+    prefix_cache_min_match, spec_draft, spec_k, autotune_mode,
+    autotune_cache, telemetry, telemetry_interval. tensor_parallel and
+    expert_parallel raise at a non-default value, naming their ROADMAP
+    item."""
     dtype: str = "bfloat16"
     tensor_parallel: int = 1
     expert_parallel: int = 1
@@ -112,10 +118,13 @@ class RaggedInferenceEngineConfig:
     # current group's compute (kv_offload.py)
     kv_host_offload: bool = False
     device_kv_blocks: int = 0        # required > 1 when kv_host_offload
-    # "auto" / True = the Hopper paged kernels (the port has no winner
-    # cache yet, so "auto" means the kernels); False = the dense-gather
-    # parity path, explicit only
+    # "auto" = the winner cache's choice per shape bucket (the Hopper paged
+    # kernels on a miss; on a card no cache entry may name the dense path);
+    # True = the kernels; False = the dense-gather parity path, explicit
+    # only
     paged_kernel: object = "auto"
+    # the chunk kernel's query tile (SIMT / fp32 designs): "auto" = the
+    # winner cache's (PAGED_CHUNK_BLOCK_C on a miss) | a positive int
     paged_block_c: object = "auto"
     # radix-tree prefix cache (prefix_cache.py): "auto" resolves OFF (the
     # JAX cold default); True raises under kv_host_offload
@@ -130,6 +139,10 @@ class RaggedInferenceEngineConfig:
     # kv_host_offload) | False; spec_k: "auto" (4) | int >= 1
     spec_draft: object = "auto"
     spec_k: object = "auto"
+    # serving-side autotune dispatch state, applied COMPLETE at engine
+    # construction and before each program runs ("" = the DSTPU_AUTOTUNE /
+    # DSTPU_AUTOTUNE_CACHE env, default cache_only): off | cache_only |
+    # on_first_use | search, and the winner cache file
     autotune_mode: str = ""
     autotune_cache: str = ""
     # per-request TTFT/TPOT accounting (monitor/telemetry.py
@@ -143,6 +156,18 @@ class RaggedInferenceEngineConfig:
             raise ValueError(
                 f"paged_kernel must be true|false|'auto', got "
                 f"{self.paged_kernel!r}")
+        if self.paged_block_c != "auto" and (
+                not isinstance(self.paged_block_c, int)
+                or isinstance(self.paged_block_c, bool)
+                or self.paged_block_c < 1):
+            raise ValueError(
+                f"paged_block_c must be 'auto' or a positive int, got "
+                f"{self.paged_block_c!r}")
+        if self.autotune_mode not in ("", "off", "cache_only",
+                                      "on_first_use", "search"):
+            raise ValueError(
+                f"autotune_mode must be ''|off|cache_only|on_first_use|"
+                f"search, got {self.autotune_mode!r}")
         if self.splitfuse_tokens < 0:
             raise ValueError(
                 f"splitfuse_tokens must be >= 0, got "
@@ -306,8 +331,12 @@ class InferenceEngineV2:
         if quant and not built:
             model.quantize_(quant)
         self.model = model.to_serving(self.device, self.dtype)
-        model.paged_kernel = config.paged_kernel
         model._weight_quant_fused = fused is not None
+        self.draft_model = None
+        # this engine's dispatch state and kernel knobs, installed now and
+        # before each program runs (the knobs live on a model other engines
+        # may share, the dispatch state in the process)
+        self._install_trace_state()
         self.max_seq_len = model.config.max_seq_len
 
         BS = config.kv_block_size
@@ -352,7 +381,6 @@ class InferenceEngineV2:
         # draft-model speculative decoding: the draft's own allocator and
         # KV pool over the same block geometry. With no draft model none of
         # this exists and the engine runs as without speculation.
-        self.draft_model = None
         self._spec_k = 0
         self._spec_floor = 0.0
         self.draft_forward_counts = {"chunk": 0, "decode": 0}
@@ -369,8 +397,9 @@ class InferenceEngineV2:
                     "other")
             draft_model = None            # "auto"/False resolve off
         if draft_model is not None:
-            spec_on, spec_k, spec_floor = resolve_spec(config.spec_draft,
-                                                       config.spec_k)
+            spec_on, spec_k, spec_floor = resolve_spec(
+                config.spec_draft, config.spec_k, B=config.max_batch_size,
+                NB=num_blocks, BS=BS, dtype=config.dtype, device=self.device)
             if spec_on:
                 if draft_model.config.vocab_size != model.config.vocab_size:
                     raise ValueError(
@@ -382,8 +411,8 @@ class InferenceEngineV2:
                 if draft_model is not model:
                     draft_model.to_serving(self.device, self.dtype)
                     draft_model._weight_quant_fused = False
-                draft_model.paged_kernel = config.paged_kernel
                 self.draft_model = draft_model
+                self._install_trace_state()     # now covers the draft
                 self._spec_k = spec_k
                 self._spec_floor = spec_floor
                 self.state_mgr.draft_allocator = BlockedAllocator(
@@ -680,8 +709,9 @@ class InferenceEngineV2:
         ``attn_layer_windows``: True raises, "auto" resolves off, as the
         JAX engine refuses it, engine_v2.py:538-546), off when asked off
         or under KV host offload (True with offload raised in the config),
-        else ``resolve_prefix_cache`` ("auto" = the JAX cold defaults:
-        off). A ``sliding_window`` Llama is served as the JAX engine
+        else ``resolve_prefix_cache`` ("auto": the winner cache for the
+        pool's bucket, the JAX cold defaults, off, on a miss). A
+        ``sliding_window`` Llama is served as the JAX engine
         serves it: a cached block holds the KV of the same token prefix at
         the same absolute positions."""
         cfg = self.config
@@ -696,8 +726,28 @@ class InferenceEngineV2:
             return False, 1, 0
         if cfg.prefix_cache is False or cfg.kv_host_offload:
             return False, 1, 0
-        return resolve_prefix_cache(cfg.prefix_cache,
-                                    cfg.prefix_cache_min_match)
+        return resolve_prefix_cache(
+            cfg.prefix_cache, cfg.prefix_cache_min_match,
+            B=cfg.max_batch_size, NB=self.state_mgr.allocator.total_blocks + 1,
+            BS=cfg.kv_block_size, dtype=cfg.dtype, device=self.device)
+
+    def _install_trace_state(self):
+        """(Re)apply THIS engine's kernel and autotune knobs: the process's
+        dispatch state (``configure_serving``: "" = env / default; an
+        earlier engine's explicit mode or cache path never leaks in) and
+        the model attributes the paged programs read, the draft's too. At
+        construction and before each program runs (JAX engine_v2.py:558-585
+        does it in every program's trace), so engines sharing one model
+        each dispatch under their own config; a no-op on the dispatch state
+        when it is already installed."""
+        from ...autotuning import kernel_dispatch
+        cfg = self.config
+        kernel_dispatch.configure_serving(mode=cfg.autotune_mode,
+                                          cache_path=cfg.autotune_cache)
+        for m in (self.model, self.draft_model):
+            if m is not None:
+                m.paged_kernel = cfg.paged_kernel
+                m.paged_block_c = cfg.paged_block_c
 
     @staticmethod
     def _sample_per_slot(logits, gen, temps, top_ks, all_greedy=False):
@@ -735,6 +785,7 @@ class InferenceEngineV2:
         temps = self._dev(batch.temps)
         top_ks = self._dev(batch.top_ks)
         toks = []
+        self._install_trace_state()
         for _ in range(max(1, self.config.decode_steps_per_dispatch)):
             logits, self.cache = model.apply_paged_decode(
                 tokens, lengths, self.cache, tables)
@@ -757,6 +808,7 @@ class InferenceEngineV2:
                        all_greedy):
         """One chunk forward of ``seq`` -> its sampled token on the
         device."""
+        self._install_trace_state()
         c_logits, self.cache = self.model.apply_paged_chunk(
             self._dev(ids), self.cache, self._dev(tb), self._dev(to), off,
             true_len, self._dev(table))
@@ -882,6 +934,7 @@ class InferenceEngineV2:
                 self.kv_pool.ensure(self.cache, prompt_blocks,
                                     skip_upload=prompt_blocks)
                 tb = self.kv_pool.translate(tb)
+            self._install_trace_state()
             with torch.inference_mode():
                 logits, self.cache = self.model.apply_paged_prefill(
                     self._dev(ids), self.cache, self._dev(tb),
@@ -1107,6 +1160,7 @@ class InferenceEngineV2:
         to[:true_len] = (idx % BS).astype(np.int32)
         table = np.zeros((self.max_blocks_per_seq,), np.int32)
         table[:len(seq.draft_blocks)] = seq.draft_blocks
+        self._install_trace_state()
         with torch.inference_mode():
             _logits, self.draft_cache = self.draft_model.apply_paged_chunk(
                 self._dev(ids), self.draft_cache, self._dev(tb),
@@ -1125,6 +1179,7 @@ class InferenceEngineV2:
         tokens2 = self._dev(pb.tokens)
         lengths = self._dev(pb.lengths)
         tables = self._dev(pb.block_tables)
+        self._install_trace_state()
         with torch.inference_mode():
             _lg, self.draft_cache = draft.apply_paged_decode(
                 tokens2[:, 0], lengths, self.draft_cache, tables)
@@ -1146,6 +1201,7 @@ class InferenceEngineV2:
         """The target's greedy next token at all k+1 positions of every
         slot, in one ``apply_paged_verify`` pass (K5 per slot and layer, at
         C = k+1). -> (B, k+1) on the host."""
+        self._install_trace_state()
         with torch.inference_mode():
             logits, self.cache = self.model.apply_paged_verify(
                 self._dev(vb.tokens), vb.lengths, self.cache,

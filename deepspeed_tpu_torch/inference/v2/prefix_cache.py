@@ -31,14 +31,17 @@ Invariants:
     hence reffed, parent);
   * greedy decode is token-identical cache-on vs cache-off.
 
-The port has no autotune winner cache yet, so ``"auto"`` resolves to
-:data:`PREFIX_CACHE_DEFAULTS`, the JAX package's cold-cache defaults.
+``"auto"`` resolves through the autotune winner cache (op
+``prefix_cache``, the bucket ``ops/cuda/_common.prefix_cache_bucket``), falling
+back to :data:`PREFIX_CACHE_DEFAULTS`, the JAX package's cold-cache
+defaults, on a miss.
 """
 
 from dataclasses import dataclass, field
 
-# what "auto" resolves to (the JAX cold winner cache): off, so an "auto"
-# engine's admission path is the prefix_cache=False one
+# what "auto" resolves to on a cold winner cache: off, so an "auto" engine's
+# admission path is the prefix_cache=False one until a measured search on
+# the card proves the cache for its pool shape
 PREFIX_CACHE_DEFAULTS = {
     "enabled": 0,
     "min_match_blocks": 1,
@@ -46,15 +49,23 @@ PREFIX_CACHE_DEFAULTS = {
 }
 
 
-def resolve_prefix_cache(setting, min_match):
+def resolve_prefix_cache(setting, min_match, B, NB, BS, dtype, device=None):
     """Resolve engine ``prefix_cache`` / ``prefix_cache_min_match``: "auto"
-    takes :data:`PREFIX_CACHE_DEFAULTS`; True/False and ints force.
-    Returns (enabled, min_match_blocks, evict_watermark_pct)."""
-    d = PREFIX_CACHE_DEFAULTS
-    enabled = bool(d["enabled"]) if setting == "auto" else bool(setting)
-    mm = int(d["min_match_blocks"]) if min_match == "auto" \
+    consults the autotune winner cache for this pool-shape bucket (falling
+    back to :data:`PREFIX_CACHE_DEFAULTS` on a miss); True/False and ints
+    force. Returns (enabled, min_match_blocks, evict_watermark_pct)."""
+    win = None
+    if setting == "auto" or min_match == "auto":
+        from ...ops.cuda._common import (dispatch, dtype_name,
+                                         prefix_cache_bucket)
+        win = dispatch("prefix_cache", prefix_cache_bucket(B, NB, BS),
+                       dtype_name(dtype), dict(PREFIX_CACHE_DEFAULTS),
+                       device=device)
+    enabled = bool(win["enabled"]) if setting == "auto" else bool(setting)
+    mm = int(win["min_match_blocks"]) if min_match == "auto" \
         else int(min_match)
-    return enabled, mm, int(d["evict_watermark_pct"])
+    wm = int(win["evict_watermark_pct"]) if win is not None else 0
+    return enabled, mm, wm
 
 
 @dataclass

@@ -12,11 +12,11 @@ target-argmax output, so greedy streams are token-identical to plain
 decode.
 
 This module is the host-side policy half: what "auto" resolves to for
-the ``spec_draft`` / ``spec_k`` engine knobs (the port has no autotune
-winner cache yet, so "auto" is :data:`SPEC_DEFAULTS`, the JAX cold-cache
-defaults), the EMA constants for the per-sequence acceptance floor, and
-``longest_accept``. The device programs and scheduling live in
-engine_v2.py; block bookkeeping in ragged.py.
+the ``spec_draft`` / ``spec_k`` engine knobs (the autotune winner cache's
+``spec_decode`` op for the pool-shape bucket, :data:`SPEC_DEFAULTS`, the
+JAX cold-cache defaults, on a miss), the EMA constants for the
+per-sequence acceptance floor, and ``longest_accept``. The device programs
+and scheduling live in engine_v2.py; block bookkeeping in ragged.py.
 """
 
 # what "auto" resolves to: speculation on once a draft model is passed
@@ -34,18 +34,25 @@ SPEC_EMA_ALPHA = 0.25
 SPEC_MIN_ROUNDS = 3
 
 
-def resolve_spec(spec_draft, spec_k):
-    """Resolve engine ``spec_draft`` / ``spec_k``: "auto" takes
-    :data:`SPEC_DEFAULTS`; True/False and ints force. Returns (enabled, k,
-    floor) with ``floor`` the acceptance-EMA fallback threshold in
-    [0, 1]."""
-    d = SPEC_DEFAULTS
-    enabled = bool(d["enabled"]) if spec_draft == "auto" \
+def resolve_spec(spec_draft, spec_k, B, NB, BS, dtype, device=None):
+    """Resolve engine ``spec_draft`` / ``spec_k``: "auto" consults the
+    autotune winner cache for this pool-shape bucket (falling back to
+    :data:`SPEC_DEFAULTS` on a miss); True/False and ints force. Returns
+    (enabled, k, floor) with ``floor`` the acceptance-EMA fallback
+    threshold in [0, 1]."""
+    win = None
+    if spec_draft == "auto" or spec_k == "auto":
+        from ...ops.cuda._common import dispatch, dtype_name, spec_bucket
+        win = dispatch("spec_decode", spec_bucket(B, NB, BS),
+                       dtype_name(dtype), dict(SPEC_DEFAULTS), device=device)
+    enabled = bool(win["enabled"]) if spec_draft == "auto" \
         else bool(spec_draft)
-    k = int(d["spec_k"]) if spec_k == "auto" else int(spec_k)
+    k = int(win["spec_k"]) if spec_k == "auto" else int(spec_k)
+    floor_pct = int(win["floor_pct"]) if win is not None \
+        else SPEC_DEFAULTS["floor_pct"]
     if k < 1:
         enabled = False
-    return enabled, k, d["floor_pct"] / 100.0
+    return enabled, k, floor_pct / 100.0
 
 
 def longest_accept(proposed, target_next):

@@ -43,7 +43,10 @@ Serving (JAX gpt2.py:910-1224): learned positions, clamped to the last
 prefill, chunk and verify attend through K5 (``paged_chunk_attention``,
 the verify once per slot and layer), decode through K4
 (``paged_decode_attention``); ``paged_kernel=False`` takes their plain
-versions (the dense-gather parity path). Under the engine's
+versions (the dense-gather parity path). Each program resolves
+``paged_kernel`` / ``paged_block_c`` and the kernels' split levers for its
+shape bucket (KVH = n_head, G = 1) through the autotune winner cache, as
+the JAX programs call ``resolve_paged_*``. Under the engine's
 ``weight_quant`` the FFN weights ``wup`` / ``wdown`` stay quantized into
 K7 (``ops/cuda/mlp_matmul.wq_matmul``, gpt2.py:712-719) and every other
 quantized leaf dequantizes one layer at a time (``_w``, the JAX
@@ -73,6 +76,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..ops.cuda._common import dispatch, dtype_name, ln_bucket, mlp_bucket
 from ..ops.cuda.flash_attention import (flash_attention, flash_backward,
                                         flash_backward_qmajor, flash_forward,
                                         resolve_bwd_qmajor, scale_q)
@@ -82,7 +86,9 @@ from ..ops.cuda.mlp_matmul import mlp_matmul, wq_matmul
 from ..ops.cuda.paged_attention import (paged_chunk_attention,
                                         paged_chunk_attention_reference,
                                         paged_decode_attention,
-                                        paged_decode_attention_reference)
+                                        paged_decode_attention_reference,
+                                        resolve_paged_chunk_levers,
+                                        resolve_paged_decode_levers)
 from ..ops.int8_weights import is_quantized
 from ..comm import comm
 from ..runtime.config import SequenceConfig
@@ -222,9 +228,12 @@ class GPT2(QuantizedBlocks, nn.Module):
         if config.remat:
             resolve_remat_policy(config.remat_policy)
         self.config = config
-        # serving attention: "auto"/True = the paged kernels, False = the
-        # dense-gather parity path (the engine sets it)
+        # serving attention: "auto" = the winner cache's choice per shape
+        # bucket (the kernels on a cold cache), True = the paged kernels,
+        # False = the dense-gather parity path; paged_block_c: the chunk
+        # kernel's query tile; the engine sets both
         self.paged_kernel = "auto"
+        self.paged_block_c = "auto"
         self.qblocks = {}
         self.weight_quant = None
         dev = resolve_device(device)
@@ -301,13 +310,21 @@ class GPT2(QuantizedBlocks, nn.Module):
         """Resolved use_flash_attention ("auto": on for a CUDA model)."""
         return resolve_flash(self.config.use_flash_attention, self.device)
 
+    def flash_qmajor_for(self, T, dtype=None, device=None):
+        """Whether the flash backward at sequence length T is the query-major
+        kernel: ``flash_bwd_qmajor`` resolved for the flash bucket (T,
+        d_head, causal, ``flash_qkv_t``) ("auto": the winner cache's choice,
+        False on a miss) on the ``flash_qkv_t`` layout, as gpt2.py:591-596
+        passes it."""
+        cfg = self.config
+        return cfg.flash_qkv_t and resolve_bwd_qmajor(
+            cfg.flash_bwd_qmajor, T, cfg.d_head, True, True,
+            dtype or self.dtype, device or self.device)
+
     @property
     def flash_qmajor(self):
-        """Whether the flash backward is the query-major kernel: resolved
-        ``flash_bwd_qmajor`` ("auto": False, the JAX choice on a winner-cache
-        miss) on the ``flash_qkv_t`` layout, as gpt2.py:591-596 passes it."""
-        return (resolve_bwd_qmajor(self.config.flash_bwd_qmajor)
-                and self.config.flash_qkv_t)
+        """``flash_qmajor_for`` at ``max_seq_len``."""
+        return self.flash_qmajor_for(self.config.max_seq_len)
 
     # --------------------------------------------------------------- pieces
     def embed(self, ids, offset=0):
@@ -320,13 +337,20 @@ class GPT2(QuantizedBlocks, nn.Module):
     def _ln(self, x, scale, bias):
         """LayerNorm dispatch (gpt2.py:451-483): "bwd" = the plain forward
         + the K13 backward kernel; True = the K13 forward and backward
-        kernels; False = plain; "auto" = plain: the JAX package resolves it
-        through its autotune winner cache and takes the plain form on a
-        miss, and the port has no winner cache yet."""
+        kernels; False = plain; "auto" = the winner cache's variant for this
+        (rows, D) bucket (op ``layernorm``; the plain form on a miss, and
+        always where D % 128 != 0, which K13 does not tile)."""
         use = self.config.fused_layernorm
+        if use == "auto":
+            from ..autotuning.kernel_registry import LN_DEFAULTS
+            win = dispatch("layernorm",
+                           ln_bucket(math.prod(x.shape[:-1]), x.shape[-1]),
+                           dtype_name(x.dtype), LN_DEFAULTS, device=x.device)
+            variant = win["variant"] if x.shape[-1] % 128 == 0 else "plain"
+            use = {"plain": False, "fused": True, "bwd": "bwd"}[variant]
         if use == "bwd":
             return layernorm_fused_bwd(x, scale, bias)
-        if use and use != "auto":
+        if use:
             return fused_layernorm(x, scale, bias)
         return layernorm(x, scale, bias)
 
@@ -412,12 +436,11 @@ class GPT2(QuantizedBlocks, nn.Module):
         return torch.einsum("bhts,bshd->bthd", probs, v)
 
     def _mlp_kernel_mode(self):
-        """Resolved ``mlp_kernel``: None (plain products) | "down" | "both".
-        True means "down"; "auto" is the plain path, the JAX package's
-        choice on an autotune winner-cache miss (the port has no winner
-        cache yet)."""
+        """Resolved ``mlp_kernel``: None (plain products) | "down" | "both" |
+        "auto" (the winner cache, consulted in ``_mlp`` where the bucket's
+        shape is known). True means "down"."""
         v = self.config.mlp_kernel
-        if not v or v == "auto":
+        if not v:
             return None
         return "down" if v is True else v
 
@@ -436,8 +459,17 @@ class GPT2(QuantizedBlocks, nn.Module):
             up = act(wq_matmul(h, wup) + bup)
             return wq_matmul(up, wdown) + bdown, None
         mode = None if seq_sharded else self._mlp_kernel_mode()
+        fuse = self.config.mlp_kernel_fuse_dw
+        if mode == "auto":
+            # the winner for this (tokens, D, F) bucket picks the path and
+            # its dW epilogue (gpt2.py:744-758); a miss: the plain products
+            from ..autotuning.kernel_registry import MLP_DEFAULTS
+            win = dispatch("mlp_matmul", mlp_bucket(h.shape[1], *wup.shape),
+                           dtype_name(h.dtype),
+                           {**MLP_DEFAULTS, "fuse_dw": fuse}, device=h.device)
+            mode = None if win["mode"] == "plain" else win["mode"]
+            fuse = bool(win["fuse_dw"])
         if mode:
-            fuse = self.config.mlp_kernel_fuse_dw
             if mode == "both":
                 u = mlp_matmul(h, wup, out_t=True, fuse_dw=fuse)
             else:
@@ -604,11 +636,19 @@ class GPT2(QuantizedBlocks, nn.Module):
         return dict(scale=None if self.config.scale_attn else 1.0,
                     window=self._window(i) or 0)
 
-    def _chunk_attend(self):
-        """Prefill / chunk / verify attention: K5 unless ``paged_kernel``
-        is False (its plain version, the dense-gather path)."""
-        return (paged_chunk_attention if self.paged_kernel is not False
-                else paged_chunk_attention_reference)
+    def _chunk_attend(self, C, MB, BS, dtype, device):
+        """Prefill / chunk / verify attention of a C-token chunk over
+        MB-block tables: K5 with the levers ``resolve_paged_chunk_levers``
+        gives this bucket, or its plain version (the dense-gather path)
+        where ``paged_kernel`` resolves off."""
+        cfg = self.config
+        use, bc, splits = resolve_paged_chunk_levers(
+            self.paged_kernel, self.paged_block_c, C, MB, BS, cfg.n_head, 1,
+            cfg.d_head, dtype, device)
+        if not use:
+            return paged_chunk_attention_reference
+        return functools.partial(paged_chunk_attention, block_c=bc,
+                                 splits=splits)
 
     @torch.inference_mode()
     def apply_paged_prefill(self, input_ids, cache, token_blocks,
@@ -626,7 +666,8 @@ class GPT2(QuantizedBlocks, nn.Module):
                            torch.arange(T, device=input_ids.device)[None])
         BS = cache["k"][0].shape[2]
         table = token_blocks[::BS].to(torch.int32).contiguous()
-        attend = self._chunk_attend()
+        attend = self._chunk_attend(T, table.shape[0], BS,
+                                    cache["k"][0].dtype, x.device)
         for i in range(self.config.n_layer):
             kc, vc = cache["k"][i], cache["v"][i]
 
@@ -652,7 +693,8 @@ class GPT2(QuantizedBlocks, nn.Module):
         x = self._embed_at(
             input_ids, start + torch.arange(C, device=input_ids.device)[None])
         table = table.to(torch.int32).contiguous()
-        attend = self._chunk_attend()
+        attend = self._chunk_attend(C, table.shape[0], cache["k"][0].shape[2],
+                                    cache["k"][0].dtype, x.device)
         for i in range(self.config.n_layer):
             kc, vc = cache["k"][i], cache["v"][i]
 
@@ -682,7 +724,12 @@ class GPT2(QuantizedBlocks, nn.Module):
             blk < MB, block_tables.gather(1, blk.clamp(max=MB - 1)[:, None])
             [:, 0], 0)
         dst_off = lengths % BS
-        attend = (paged_decode_attention if self.paged_kernel is not False
+        cfg = self.config
+        use, sp = resolve_paged_decode_levers(
+            self.paged_kernel, lengths.shape[0], MB, BS, cfg.n_head, 1,
+            cfg.d_head, cache["k"][0].dtype, x.device)
+        attend = (functools.partial(paged_decode_attention,
+                                    split_positions=sp) if use
                   else paged_decode_attention_reference)
         for i in range(self.config.n_layer):
             kc, vc = cache["k"][i], cache["v"][i]
@@ -719,7 +766,7 @@ class GPT2(QuantizedBlocks, nn.Module):
         fb = block_tables.gather(1, (linpos // BS).clamp(max=MB - 1)) \
             .reshape(-1)
         fo = (linpos % BS).reshape(-1)
-        attend = self._chunk_attend()
+        attend = self._chunk_attend(C, MB, BS, cache["k"][0].dtype, dev)
         H, hd = cfg.n_head, cfg.d_head
         for i in range(cfg.n_layer):
             kc, vc = cache["k"][i], cache["v"][i]
@@ -795,7 +842,8 @@ class _SaveFlashBlock(torch.autograd.Function):
             pre = [p.detach().requires_grad_() for p in layer[_PRE]]
             q, k, v = (t.transpose(1, 2) for t in model._qkv(x_, *pre))
             qs = scale_q(q, scale)
-            bwd = (flash_backward_qmajor if model.flash_qmajor
+            bwd = (flash_backward_qmajor
+                   if model.flash_qmajor_for(T, qs.dtype, qs.device)
                    else flash_backward)
             dqs, dk, dv = bwd(
                 qs.detach(), k.detach(), v.detach(), o.transpose(1, 2), lse,

@@ -43,7 +43,10 @@ chunked or fused (gradient-in-forward) cross entropy of
 ``models/common.py`` as JAX does (no fused-CE kernel: JAX Llama's loss
 has none). Serving attention goes through the Hopper paged kernels
 (ops/cuda/paged_attention.py) unless ``paged_kernel`` is False, the
-explicit dense-gather parity path.
+explicit dense-gather parity path; each paged program resolves
+``paged_kernel`` / ``paged_block_c`` and the kernels' split levers for its
+shape bucket through the autotune winner cache (``resolve_paged_*_levers``,
+as the JAX programs call ``resolve_paged_*``).
 
 Weight-only quantization (``quantize="int8" | "int4"`` at build, or the
 serving engine's ``weight_quant`` / ``quantize_weights``): the ``blocks``
@@ -55,6 +58,7 @@ when the engine set ``_weight_quant_fused``; those stay quantized into
 the fused-dequant kernel K7 (ops/cuda/mlp_matmul.wq_matmul).
 """
 
+import functools
 import math
 from dataclasses import dataclass
 
@@ -69,7 +73,9 @@ from ..ops.cuda.mlp_matmul import wq_matmul
 from ..ops.cuda.paged_attention import (alibi_slopes, paged_chunk_attention,
                                         paged_chunk_attention_reference,
                                         paged_decode_attention,
-                                        paged_decode_attention_reference)
+                                        paged_decode_attention_reference,
+                                        resolve_paged_chunk_levers,
+                                        resolve_paged_decode_levers)
 from ..ops.int8_weights import (is_quantized, qualifies, quantize_slices,
                                 quantize_tensor)
 from ..utils.device import resolve_device
@@ -258,9 +264,12 @@ class Llama(QuantizedBlocks, nn.Module):
         self.config = config
         dev = resolve_device(device)
         dt = dtype if dtype is not None else getattr(torch, config.dtype)
-        # attention dispatch: "auto"/True = the paged kernels, False = the
-        # dense-gather parity path
+        # attention dispatch: "auto" = the winner cache's choice per shape
+        # bucket (the kernels on a cold cache), True = the paged kernels,
+        # False = the dense-gather parity path; paged_block_c: the chunk
+        # kernel's query tile ("auto" | int); the serving engine sets both
         self.paged_kernel = "auto"
+        self.paged_block_c = "auto"
         bits = quant_bits(quantize) if quantize else 0
 
         L, D, Fd, V = (config.n_layer, config.d_model, config.ffn_dim,
@@ -514,18 +523,40 @@ class Llama(QuantizedBlocks, nn.Module):
         x = x + attn_out
         return x + self._mlp(x, i)
 
-    def _use_kernel(self):
-        return self.paged_kernel is not False
-
-    def _chunk_attend(self):
-        """The prefill / chunk / verify attention: K5 (paged_chunk_attention)
-        unless ``paged_kernel`` is False (its plain version), or the dense
-        gather with the ALiBi term for ALiBi families, which JAX runs densely
-        whatever the switch says (llama.py:702-703, :785-786, :935-936)."""
-        if self.config.alibi:
+    def _chunk_attend(self, C, MB, BS, dtype, device):
+        """The prefill / chunk / verify attention of a C-token chunk over
+        MB-block tables: K5 (paged_chunk_attention) with the levers that
+        ``resolve_paged_chunk_levers`` gives this bucket, its plain version
+        where ``paged_kernel`` resolves off, or the dense gather with the
+        ALiBi term for ALiBi families, which JAX runs densely whatever the
+        switch says, forced off before any dispatch (llama.py:702-703,
+        :785-786, :935-936)."""
+        cfg = self.config
+        if cfg.alibi:
             return self._dense_alibi_attend
-        return (paged_chunk_attention if self._use_kernel()
-                else paged_chunk_attention_reference)
+        use, bc, splits = resolve_paged_chunk_levers(
+            self.paged_kernel, self.paged_block_c, C, MB, BS,
+            cfg.n_kv_heads, cfg.n_head // cfg.n_kv_heads, cfg.d_head, dtype,
+            device)
+        if not use:
+            return paged_chunk_attention_reference
+        return functools.partial(paged_chunk_attention, block_c=bc,
+                                 splits=splits)
+
+    def _decode_attend(self, B, MB, BS, dtype, device):
+        """The decode step's attention: K4 with the split size that
+        ``resolve_paged_decode_levers`` gives this bucket, or its plain
+        version where ``paged_kernel`` resolves off. ALiBi families keep K4
+        whatever ``paged_kernel`` says (JAX llama.py:856: the dense path
+        lacks falcon's bf16 variant)."""
+        cfg = self.config
+        use, sp = resolve_paged_decode_levers(
+            True if cfg.alibi else self.paged_kernel, B, MB, BS,
+            cfg.n_kv_heads, cfg.n_head // cfg.n_kv_heads, cfg.d_head, dtype,
+            device)
+        if not use:
+            return paged_decode_attention_reference
+        return functools.partial(paged_decode_attention, split_positions=sp)
 
     def _dense_alibi_attend(self, q, k_cache, v_cache, table, start,
                             true_len, window=0):
@@ -733,7 +764,8 @@ class Llama(QuantizedBlocks, nn.Module):
         pos = torch.arange(T, device=input_ids.device)[None, :]
         BS = cache["k"][0].shape[2]
         prefill_table = token_blocks[::BS].to(torch.int32).contiguous()
-        attend = self._chunk_attend()
+        attend = self._chunk_attend(T, prefill_table.shape[0], BS,
+                                    cache["k"][0].dtype, x.device)
         for i in range(cfg.n_layer):
             kc, vc = cache["k"][i], cache["v"][i]
             q, k, v = self._attn_proj(x, i)
@@ -767,7 +799,9 @@ class Llama(QuantizedBlocks, nn.Module):
         x = self._embed(input_ids)
         pos = start + torch.arange(C, device=input_ids.device)[None, :]
         table = table.to(torch.int32).contiguous()
-        attend = self._chunk_attend()
+        BS = cache["k"][0].shape[2]
+        attend = self._chunk_attend(C, table.shape[0], BS,
+                                    cache["k"][0].dtype, x.device)
         for i in range(cfg.n_layer):
             kc, vc = cache["k"][i], cache["v"][i]
             q, k, v = self._attn_proj(x, i)
@@ -808,12 +842,10 @@ class Llama(QuantizedBlocks, nn.Module):
             block_tables.gather(1, blk_idx.clamp(max=MB - 1)[:, None])[:, 0],
             0)
         dst_off = lengths % BS
-        # ALiBi families keep K4 whatever paged_kernel says (JAX
-        # llama.py:856: the dense path lacks falcon's bf16 variant)
         al = ({"alibi_slopes": alibi_slopes(H), **self._alibi_kw()}
               if cfg.alibi else {})
-        attend = (paged_decode_attention if self._use_kernel() or cfg.alibi
-                  else paged_decode_attention_reference)
+        attend = self._decode_attend(B, MB, BS, cache["k"][0].dtype,
+                                     x.device)
         for i in range(cfg.n_layer):
             kc, vc = cache["k"][i], cache["v"][i]
             q, k, v = self._attn_proj(x, i)           # (B, 1, ., hd)
@@ -857,7 +889,7 @@ class Llama(QuantizedBlocks, nn.Module):
         fb = block_tables.gather(1, (linpos // BS).clamp(max=MB - 1)) \
             .reshape(-1)
         fo = (linpos % BS).reshape(-1)
-        attend = self._chunk_attend()
+        attend = self._chunk_attend(C, MB, BS, cache["k"][0].dtype, dev)
         for i in range(cfg.n_layer):
             kc, vc = cache["k"][i], cache["v"][i]
             q, k, v = self._attn_proj(x, i)           # (B, C, ., hd)

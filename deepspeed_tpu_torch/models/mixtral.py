@@ -22,8 +22,9 @@ renormalised weights, the experts' through ``grouped_swiglu``'s backward
 (mixtral.py:17-19) no aux loss is threaded through ``apply``.
 
 ``grouped_kernel`` ("auto" | True | False) picks the expert-FFN backend as
-the JAX ``MoEConfig.grouped_kernel`` does; "auto" means the kernels (the
-port has no winner cache). False is the ragged-math parity path. An
+the JAX ``MoEConfig.grouped_kernel`` does; "auto" resolves through the
+autotune winner cache per (S k, E, D, F) bucket, the kernels on a miss
+(``resolve_grouped_params``). False is the ragged-math parity path. An
 engine's ``moe`` block (``model._moe_cfg``) with a non-"auto"
 ``grouped_kernel`` overrides it, as for GPT2MoE. Under an engine at
 ``expert_parallel_size`` > 1 (``model._moe_ep``) the experts are this
@@ -157,7 +158,8 @@ class Mixtral(Llama):
         order, group_sizes = sort_by_expert(experts, E)
         # token-major repeat: routed row s*k + j is token s
         xr = xs.index_select(0, torch.div(order, k, rounding_mode="floor"))
-        params = resolve_grouped_params(self._grouped_knob())
+        params = resolve_grouped_params(self._grouped_knob(), S * k, E, D,
+                                        cfg.ffn_dim, xr.dtype, xr.device)
         o = _grouped_swiglu_ffn(xr, self._w("moe_w1", i),
                                 self._w("moe_w3", i), self._w("moe_w2", i),
                                 group_sizes, params)

@@ -9,8 +9,11 @@ there: ``"kernel"`` = the Hopper grouped-GEMM kernels
 (ops/cuda/grouped_matmul.py, differentiable through their own backward
 kernels) and ``"ragged"`` = the ``lax.ragged_dot`` math
 in plain PyTorch (g and u rounded to the activation dtype before silu *
-mul), the explicit parity path. The port has no autotune winner cache, so
-``"auto"`` resolves to the kernels (as ``paged_kernel="auto"`` does).
+mul), the explicit parity path. ``"auto"`` resolves through the autotune
+winner cache (op ``moe_grouped_mm``, JAX's bucket of (rows, E_loc, M, F))
+to the kernels: K8 takes no lever, so the op's one candidate on a card is
+the kernel backend, the port's cold "auto" (JAX's cold "auto" is
+ragged_dot), and a card entry naming the ragged math is refused.
 Group sizes come from a fixed-size scatter_add, so no forward syncs the
 host. Under data parallelism the aux loss is taken over the global batch,
 as the JAX loss over a batch sharded on the data axes takes it
@@ -55,17 +58,25 @@ def gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
-def resolve_grouped_params(knob):
-    """Backend resolution for the grouped expert FFN. ``knob``: "auto" or
-    True (the kernels) | False or None (ragged math). The JAX version also
-    takes the call's shape bucket for its winner cache; the port has no
-    cache, so the knob alone decides."""
+# the 'moe_grouped_mm' autotune op's cold-cache lever: the kernels
+TUNE_DEFAULTS = {"backend": "kernel"}
+
+
+def resolve_grouped_params(knob, rows, E_loc, M, F, dtype, device=None):
+    """Backend resolution for the grouped expert FFN of ``rows`` routed
+    rows over ``E_loc`` local experts of widths (M, F). ``knob``: "auto"
+    (the winner cache for this bucket; the kernels on a miss) | True (the
+    kernels) | False or None (ragged math)."""
     if knob is False or knob is None:
         return {"backend": "ragged"}
-    if knob is True or knob == "auto":
-        return {"backend": "kernel"}
-    raise ValueError(f"grouped_kernel must be true|false|'auto', got "
-                     f"{knob!r}")
+    if knob is True:
+        return dict(TUNE_DEFAULTS)
+    if knob != "auto":
+        raise ValueError(f"grouped_kernel must be true|false|'auto', got "
+                         f"{knob!r}")
+    from ..ops.cuda._common import dispatch, dtype_name, moe_grouped_bucket
+    return dispatch("moe_grouped_mm", moe_grouped_bucket(rows, E_loc, M, F),
+                    dtype_name(dtype), TUNE_DEFAULTS, device=device)
 
 
 def _grouped_dot(xs, w, group_sizes, params):
@@ -209,7 +220,8 @@ def moe_layer_ragged(tokens, gate_w, wi, bi, wo, bo, k=1, *,
     # routed row s*k + j is token s (the JAX jnp.repeat(x, k))
     xs = x.index_select(0, torch.div(order, k, rounding_mode="floor"))
     exp_sorted = flat_exp[order]
-    gp = resolve_grouped_params(grouped_kernel)
+    gp = resolve_grouped_params(grouped_kernel, S * k, E, M, wi.shape[-1],
+                                xs.dtype, xs.device)
     h = activation(_grouped_dot(xs, wi, group_sizes, gp)
                    + _expert_bias(bi, exp_sorted, group_sizes, gp))
     out = (_grouped_dot(h, wo, group_sizes, gp)
@@ -222,8 +234,9 @@ def moe_layer_ragged(tokens, gate_w, wi, bi, wo, bo, k=1, *,
 def resolve_hierarchical_a2a(knob, outer_size, E, ep):
     """Whether the expert-parallel exchange stages ``expert`` ->
     ``data_outer``: "auto" iff ``data_outer`` > 1 and the experts divide
-    the ``(data_outer, expert)`` grid (the JAX cold-cache default; the port
-    has no winner cache); True requires the division (a loud error
+    the ``(data_outer, expert)`` grid (the JAX cold-cache default: its
+    ``a2a_staging`` collective op is not ported, ROADMAP Queue 1, M5 /
+    M14); True requires the division (a loud error
     instead of a silent flat exchange); False never stages."""
     if knob is False or knob is None or outer_size <= 1:
         return False
@@ -241,7 +254,8 @@ def resolve_hierarchical_a2a(knob, outer_size, E, ep):
 
 def resolve_dcn_quantize(knob):
     """``dcn_quantize``: True | False | "auto" (= False, the JAX choice on
-    a cold winner cache: quantization changes numerics)."""
+    a cold winner cache: quantization changes numerics; its collective
+    autotune op is not ported, ROADMAP Queue 1, M5 / M14)."""
     if knob not in (True, False, "auto"):
         raise ValueError(f"dcn_quantize must be true|false|'auto', got "
                          f"{knob!r}")
@@ -366,9 +380,10 @@ def moe_swiglu_ragged_ep(tokens, gate_w, w1, w3, w2, k=2, *,
     M = orig_shape[-1]
     x = tokens.reshape(-1, M)
     weights, experts = route_top_k(x, gate_w, k)
-    gp = resolve_grouped_params(grouped_kernel)
 
     def ffn(xs, es, group_sizes):
+        gp = resolve_grouped_params(grouped_kernel, xs.shape[0], E_loc, M,
+                                    w1.shape[-1], x.dtype, x.device)
         return _grouped_swiglu_ffn(xs, w1, w3, w2, group_sizes, gp)
 
     out, group_sizes = _ep_exchange(
@@ -420,9 +435,10 @@ def moe_layer_ragged_ep(tokens, gate_w, wi, bi, wo, bo, k=1, *,
                                                    k, dp_axes)
     if dp_axes:
         counts = comm.all_reduce(counts, dp_axes)
-    gp = resolve_grouped_params(grouped_kernel)
 
     def ffn(xs, es, group_sizes):
+        gp = resolve_grouped_params(grouped_kernel, xs.shape[0], E_loc, M,
+                                    wi.shape[-1], xs.dtype, xs.device)
         safe_e = torch.clamp(es, max=E_loc - 1)
         h = activation(_grouped_dot(xs, wi, group_sizes, gp)
                        + _expert_bias(bi, safe_e, group_sizes, gp))

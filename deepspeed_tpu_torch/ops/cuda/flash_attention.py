@@ -48,15 +48,15 @@ K2-qmajor and K10 raise on fp16 (ROADMAP Queue 2, fp16 operands).
 
 ``bwd_qmajor`` picks the query-major backward under the JAX rule
 (flash_attention.py:1578): ``qkv_t`` layouts with no bias or ALiBi only,
-every other call k-major; "auto" resolves to False, the JAX choice on a
-winner-cache miss (``TUNE_DEFAULTS["bwd_qmajor"]``,
-flash_attention.py:46-47; the port has no winner cache). The TPU tile
-knobs (block_q/k/h and their _bwd twins) are accepted and change
-nothing. ``alibi`` (the bloom slopes) is evaluated in every K1 / K2
-design from the head index and added to the scaled scores (bf16-rounded
-and scaled for falcon-rw); the query-major backward takes none, as JAX
-never runs it so. The additive ``bias`` operand and ``bias_grad`` raise,
-naming their ROADMAP item. Head dims: 32, 64, 80, 96, 128 and 256 for K1
+every other call k-major; "auto" resolves through the autotune winner
+cache (op ``flash_attention``, the JAX bucket (T, d, causal, qkv_t);
+``resolve_bwd_qmajor``), False on a miss (``TUNE_DEFAULTS``, JAX
+flash_attention.py:46-47). The TPU tile knobs (block_q/k/h and their _bwd
+twins) are accepted and change nothing. ``alibi`` (the bloom slopes) is
+evaluated in every K1 / K2 design from the head index and added to the
+scaled scores (bf16-rounded and scaled for falcon-rw); the query-major
+backward takes none, as JAX never runs it so. The additive ``bias``
+operand and ``bias_grad`` raise, naming their ROADMAP item. Head dims: 32, 64, 80, 96, 128 and 256 for K1
 / K2 (the sm90 designs at 64 / 128, mma_sync / fp32 at the rest; fp32 K2
 at 256 raises), 32 / 64 / 128 for K2-qmajor and K10.
 """
@@ -658,10 +658,28 @@ def flash_block_bwd(q, k, v, o, lse, do, *, causal=False, block_q=128,
     return dq[0], dk[0], dv[0]
 
 
-def resolve_bwd_qmajor(value):
-    """A ``bwd_qmajor`` / ``flash_bwd_qmajor`` value: "auto" -> False (see
-    the module docstring); otherwise its truth value."""
-    return value != "auto" and bool(value)
+# the 'flash_attention' autotune op's cold-cache lever: the k-major K2
+TUNE_DEFAULTS = {"bwd_qmajor": False}
+# K2-qmajor's head dims (``_check_ring_dims``, as K10's)
+QMAJOR_HEAD_DIMS = _RING_HEAD_DIMS
+
+
+def resolve_bwd_qmajor(value, T, d, causal, qkv_t, dtype, device=None,
+                       alibi=False):
+    """A ``bwd_qmajor`` / ``flash_bwd_qmajor`` value for a call at sequence
+    length T and head dim d: True / False as given; "auto" the winner
+    cache's choice for the bucket (T, d, causal, qkv_t), consulted only
+    where K2-qmajor can run (qkv_t without ALiBi, bf16 / fp32, d in
+    QMAJOR_HEAD_DIMS), False on a miss."""
+    if value != "auto":
+        return bool(value)
+    if not qkv_t or alibi or dtype not in (torch.bfloat16, torch.float32) \
+            or d not in QMAJOR_HEAD_DIMS:
+        return False
+    from ._common import dispatch, dtype_name, flash_bucket
+    win = dispatch("flash_attention", flash_bucket(T, d, causal, qkv_t),
+                   dtype_name(dtype), TUNE_DEFAULTS, device=device)
+    return bool(win["bwd_qmajor"])
 
 
 class _Flash(torch.autograd.Function):
@@ -747,7 +765,9 @@ def flash_attention_with_lse(q, k, v, *, causal=True, scale=None,
     # the query-major backward serves qkv_t without bias or ALiBi only
     # (flash_attention.py:1255, :1578); JAX takes the key-major backward
     # under ALiBi, so an explicit request for it raises
-    qmajor = resolve_bwd_qmajor(bwd_qmajor) and bool(qkv_t)
+    qmajor = resolve_bwd_qmajor(bwd_qmajor, qb.shape[2], qb.shape[3],
+                                bool(causal), bool(qkv_t), qb.dtype,
+                                qb.device, alibi=bool(al)) and bool(qkv_t)
     if qmajor and al:
         raise NotImplementedError(
             "flash_attention: the query-major backward takes no ALiBi (the "

@@ -27,6 +27,15 @@ kernel merges in split order; a table of one split is written directly.
 ``DESIGN_LAUNCHES["paged_decode"]`` counts calls by that rule ("split" /
 "single"). ``paged_decode_split_partials`` and ``merge_decode_partials``
 are the plain version of that arithmetic.
+
+The serving programs resolve their levers per shape bucket through the
+autotune winner cache (``resolve_paged_decode`` / ``resolve_paged_chunk``,
+the JAX resolvers' contract, and their ``*_levers`` forms that add the
+port's own levers): the decode kernel's split size (``split_positions``),
+the chunk kernel's query tile (``block_c``, SIMT and fp32 designs) and
+its key-walk splits (``splits``, sm90 design). A cold cache gives
+``PAGED_DECODE_DEFAULTS`` / ``paged_chunk_tune_defaults()``: the shape
+rules above.
 """
 
 import ctypes
@@ -41,7 +50,7 @@ NEG_INF = -1e30
 PAGED_CHUNK_BLOCK_C = 64
 
 # cache positions a decode split covers (rounded down to whole table
-# blocks, at least one)
+# blocks, at least one); a split size of 0 is the whole table (one split)
 DECODE_SPLIT_POSITIONS = 512
 # positions a step of the decode kernel's pipeline (16 keys a warp)
 DECODE_STEP = 64
@@ -49,6 +58,10 @@ DECODE_STEP = 64
 LAUNCHES = {"paged_decode": 0, "paged_chunk": 0}
 DESIGN_LAUNCHES = {"paged_decode": {"split": 0, "single": 0},
                    "paged_chunk": {"sm90": 0, "simt": 0, "fp32": 0}}
+# launches by the lever each ran with (what the winner cache steers): the
+# decode's split count "S=<n>"; the chunk's key-walk splits "S=<n>" (sm90)
+# or query tile "block_c=<n>" (SIMT, fp32)
+LEVER_LAUNCHES = {"paged_decode": {}, "paged_chunk": {}}
 
 # the chunk kernel's designs, as paged_chunk_launch's design codes
 CHUNK_DESIGN_CODE = {"fp32": 0, "simt": 1, "sm90": 2}
@@ -70,6 +83,71 @@ _TODO_F32_256 = "(ROADMAP Queue 2, K4 / K5 fp32 at d = 256)"
 # a CTA's dynamic shared memory on the H100 (bytes)
 _SMEM_LIMIT = 232448
 
+# the autotune ops' cold-cache levers: the kernels, the shape rules
+PAGED_DECODE_DEFAULTS = {"mode": "kernel",
+                         "split_positions": DECODE_SPLIT_POSITIONS}
+
+
+def paged_chunk_tune_defaults():
+    """Cold-cache defaults of the 'paged_chunk' autotune op: the kernel,
+    the SIMT / fp32 designs' query tile PAGED_CHUNK_BLOCK_C and the sm90
+    design's key-walk splits by ``chunk_splits`` ("rule")."""
+    return {"mode": "kernel", "block_c": PAGED_CHUNK_BLOCK_C,
+            "splits": "rule"}
+
+
+def resolve_paged_decode_levers(setting, B, MB, BS, KVH, G, d, dtype,
+                                device=None):
+    """(use_kernel, split_positions) of a decode step: ``setting`` is the
+    engine's ``paged_kernel`` ("auto" | True | False); "auto" takes the
+    winner cache's mode for this decode bucket, True / False force it. The
+    split size has no knob of its own: it comes from the winner cache
+    whenever the kernel runs (the cold answer is DECODE_SPLIT_POSITIONS)."""
+    if setting is False:
+        return False, PAGED_DECODE_DEFAULTS["split_positions"]
+    from ._common import dispatch, dtype_name, paged_decode_bucket
+    win = dispatch("paged_decode", paged_decode_bucket(B, MB, BS, KVH, G, d),
+                   dtype_name(dtype), dict(PAGED_DECODE_DEFAULTS),
+                   device=device)
+    use = win["mode"] == "kernel" if setting == "auto" else bool(setting)
+    return use, int(win["split_positions"])
+
+
+def resolve_paged_decode(setting, B, MB, BS, KVH, G, d, dtype, device=None):
+    """The JAX ``resolve_paged_decode``: whether the decode step runs the
+    kernel ("auto": the winner cache's choice for this bucket; True / False
+    force)."""
+    return resolve_paged_decode_levers(setting, B, MB, BS, KVH, G, d, dtype,
+                                       device)[0]
+
+
+def resolve_paged_chunk_levers(setting, block_c, C, MB, BS, KVH, G, d, dtype,
+                               device=None):
+    """(use_kernel, block_c, splits) of a chunk program (prefill, split-fuse
+    chunk, verify): ``setting`` the engine's ``paged_kernel``, ``block_c``
+    its ``paged_block_c`` ("auto" | int), both resolved against the winner
+    cache for this chunk bucket as JAX's ``resolve_paged_chunk``; ``splits``
+    (None = ``chunk_splits``' rule) always from the cache when the kernel
+    can run. A forced-off kernel never consults the cache."""
+    if setting is False:
+        return False, (PAGED_CHUNK_BLOCK_C if block_c == "auto"
+                       else int(block_c)), None
+    from ._common import dispatch, dtype_name, paged_chunk_bucket
+    win = dispatch("paged_chunk", paged_chunk_bucket(C, MB, BS, KVH, G, d),
+                   dtype_name(dtype), paged_chunk_tune_defaults(),
+                   device=device)
+    use = win["mode"] == "kernel" if setting == "auto" else bool(setting)
+    bc = int(win["block_c"]) if block_c == "auto" else int(block_c)
+    splits = None if win["splits"] == "rule" else int(win["splits"])
+    return use, bc, splits
+
+
+def resolve_paged_chunk(setting, block_c, C, MB, BS, KVH, G, d, dtype,
+                        device=None):
+    """The JAX ``resolve_paged_chunk``: (use_kernel, block_c)."""
+    return resolve_paged_chunk_levers(setting, block_c, C, MB, BS, KVH, G, d,
+                                      dtype, device)[:2]
+
 
 def reset_launch_counts():
     for k in LAUNCHES:
@@ -77,6 +155,12 @@ def reset_launch_counts():
     for by_design in DESIGN_LAUNCHES.values():
         for k in by_design:
             by_design[k] = 0
+    for by_lever in LEVER_LAUNCHES.values():
+        by_lever.clear()
+
+
+def _count_lever(name, lever):
+    LEVER_LAUNCHES[name][lever] = LEVER_LAUNCHES[name].get(lever, 0) + 1
 
 
 def alibi_slopes(n_head):
@@ -184,7 +268,8 @@ def _raise_on(rc, name):
 
 def paged_decode_attention(q, k_cache, v_cache, block_tables, lengths, *,
                            scale=None, window=0, alibi_slopes=None,
-                           alibi_scale=1.0, alibi_bf16=False):
+                           alibi_scale=1.0, alibi_bf16=False,
+                           split_positions=None):
     """One decode step of attention over a paged KV cache.
 
     q: (B, H, d); k_cache/v_cache: (NB, KVH, BS, d) with H % KVH == 0;
@@ -194,7 +279,9 @@ def paged_decode_attention(q, k_cache, v_cache, block_tables, lengths, *,
     ``window`` positions; ``alibi_slopes`` (len H, bloom formula only —
     the kernel computes them from the head index) adds slope_h * k_pos,
     optionally rounded through bf16 (``alibi_bf16``) and scaled
-    (``alibi_scale``). Returns (B, H, d) in q's dtype."""
+    (``alibi_scale``). ``split_positions``: the cache positions a split of
+    the kernel covers (``decode_splits``; None = DECODE_SPLIT_POSITIONS, 0 =
+    the whole table). Returns (B, H, d) in q's dtype."""
     name = "paged_decode_attention"
     _check_common(q, k_cache, v_cache, block_tables, name)
     B, H, d = q.shape
@@ -222,7 +309,7 @@ def paged_decode_attention(q, k_cache, v_cache, block_tables, lengths, *,
     if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
         raise ValueError(f"{name}: the kernel stages K/V rows by 16-byte "
                          "copies; the pools must be 16-byte aligned")
-    S, bps = decode_splits(MB, BS)
+    S, bps = decode_splits(MB, BS, split_positions)
     out = torch.empty_like(q)
     part = (torch.empty(B * H * S * (d + 2), dtype=torch.float32,
                         device=q.device) if S > 1 else None)
@@ -239,24 +326,30 @@ def paged_decode_attention(q, k_cache, v_cache, block_tables, lengths, *,
     _raise_on(rc, name)
     LAUNCHES["paged_decode"] += 1
     DESIGN_LAUNCHES["paged_decode"]["split" if S > 1 else "single"] += 1
+    _count_lever("paged_decode", f"S={S}")
     return out
 
 
-def decode_splits(MB, BS):
+def decode_splits(MB, BS, split_positions=None):
     """(S, bps): the decode kernel's splits of a (B, MB) table of BS-position
     blocks, from the shape alone (no host sync): bps whole blocks a split
-    (DECODE_SPLIT_POSITIONS positions rounded down, at least one) and
-    S = ceil(MB / bps) splits."""
-    bps = max(1, DECODE_SPLIT_POSITIONS // BS)
+    (``split_positions``, default DECODE_SPLIT_POSITIONS, rounded down to
+    whole blocks, at least one; 0 = the whole table) and S = ceil(MB / bps)
+    splits."""
+    if split_positions is None:
+        split_positions = DECODE_SPLIT_POSITIONS
+    bps = MB if split_positions == 0 else max(1, split_positions // BS)
     return -(-MB // bps), bps
 
 
 def paged_decode_attention_reference(q, k_cache, v_cache, block_tables,
                                      lengths, *, scale=None, window=0,
                                      alibi_slopes=None, alibi_scale=1.0,
-                                     alibi_bf16=False):
+                                     alibi_bf16=False, split_positions=None):
     """Dense-gather plain version (the JAX reference's math, plus the
-    kernel's alibi_scale/alibi_bf16 options)."""
+    kernel's alibi_scale/alibi_bf16 options); it takes the kernel's
+    ``split_positions`` and ignores it, so it can stand in for the kernel
+    wherever that is called with its levers."""
     B, H, d = q.shape
     NB, KVH, BS, _ = k_cache.shape
     MB = block_tables.shape[1]
@@ -376,7 +469,7 @@ def paged_decode_split_reference(q, k_cache, v_cache, block_tables, lengths,
 
 
 def paged_chunk_attention(q, k_cache, v_cache, table, start, true_len, *,
-                          scale=None, window=0, block_c="auto"):
+                          scale=None, window=0, block_c="auto", splits=None):
     """A C-token query chunk of ONE sequence attends causally over that
     sequence's paged KV blocks (the split-fuse chunk program and the
     bucketed prefill).
@@ -385,8 +478,10 @@ def paged_chunk_attention(q, k_cache, v_cache, table, start, true_len, *,
     ``true_len`` are don't-care but finite); k_cache/v_cache: (NB, KVH,
     BS, d) pools that ALREADY hold the chunk's own K/V; table: (MB,)
     int32, scratch-padded; start/true_len: ints. ``window`` > 0 keeps
-    the trailing window; ``block_c``: chunk tokens per CTA ("auto" =
-    PAGED_CHUNK_BLOCK_C). Returns (C, H, d) in q's dtype."""
+    the trailing window; ``block_c``: chunk tokens per CTA of the SIMT /
+    fp32 designs ("auto" = PAGED_CHUNK_BLOCK_C); ``splits``: the sm90
+    design's key-walk splits (None = ``chunk_splits``). Returns (C, H, d) in
+    q's dtype."""
     name = "paged_chunk_attention"
     _check_common(q, k_cache, v_cache, table, name)
     if table.dim() != 1:
@@ -402,7 +497,8 @@ def paged_chunk_attention(q, k_cache, v_cache, table, start, true_len, *,
     _check_cuda((q, k_cache, v_cache, table), q, name)
     return paged_chunk_launch(q, k_cache, v_cache, table, start, true_len,
                               scale, window, block_c,
-                              _chunk_design(q, k_cache, v_cache, scale))
+                              _chunk_design(q, k_cache, v_cache, scale),
+                              splits=splits)
 
 
 def _chunk_design(q, k_cache, v_cache, scale=None):
@@ -462,8 +558,8 @@ def paged_chunk_launch(q, k_cache, v_cache, table, start, true_len, scale,
     key of CHUNK_DESIGN_CODE; anything else raises here, and the launcher
     refuses a code it does not know), counted in LAUNCHES and by design.
     ``block_c`` is the SIMT kernel's query tile; the sm90 design has its
-    own, and its key-walk splits (``chunk_splits``; ``splits`` overrides
-    them, for measurement)."""
+    own, and its key-walk splits (``chunk_splits``; ``splits``, 1 to
+    CHUNK_MAX_SPLITS, overrides them: the winner cache's lever)."""
     name = "paged_chunk_attention"
     if design not in CHUNK_DESIGN_CODE:
         raise ValueError(f"{name}: unknown design {design!r}")
@@ -485,7 +581,10 @@ def paged_chunk_launch(q, k_cache, v_cache, table, start, true_len, scale,
         S = chunk_splits(C, H, KVH, BS, table.shape[0], start, true_len,
                          window, _sm_count(q.device.index))
         if splits is not None:
-            S = splits
+            if not 1 <= int(splits) <= CHUNK_MAX_SPLITS:
+                raise ValueError(f"{name}: splits must be 1 to "
+                                 f"{CHUNK_MAX_SPLITS}, got {splits}")
+            S = int(splits)
         if S > 1:
             units = KVH * -(-C * (H // KVH) // CHUNK_TILE) * S
             part = torch.empty(units * CHUNK_TILE * (d + 2),
@@ -503,6 +602,8 @@ def paged_chunk_launch(q, k_cache, v_cache, table, start, true_len, scale,
                            f"cudaError {rc}")
     LAUNCHES["paged_chunk"] += 1
     DESIGN_LAUNCHES["paged_chunk"][design] += 1
+    _count_lever("paged_chunk", f"S={S}" if design == "sm90"
+                 else f"block_c={bc}")
     return out
 
 

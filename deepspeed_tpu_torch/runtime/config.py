@@ -120,15 +120,17 @@ class MoEConfig:
     on the model as ``model._moe_cfg``; for GPT2MoE an explicit non-"auto"
     ``grouped_kernel`` overrides the model-config knob:
 
-      grouped_kernel   "auto" (the Hopper grouped kernels: the port has no
-                       winner cache) | true (the kernels) | false (the
-                       ragged math).
+      grouped_kernel   "auto" (the autotune winner cache's backend per
+                       shape bucket: the Hopper grouped kernels on a
+                       miss) | true (the kernels) | false (the ragged
+                       math).
       hierarchical_a2a "auto" (stage the expert-parallel all_to_all
                        over ``expert`` then ``data_outer`` iff data_outer
                        > 1 and the experts divide the (data_outer, expert)
                        grid) | true (require it) | false (one flat hop).
-      dcn_quantize     true | false | "auto" (= false: the port has no
-                       winner cache): the int8 block round trip (K12) on
+      dcn_quantize     true | false | "auto" (= false: its collective
+                       autotune op is not ported, ROADMAP Queue 1, M5 /
+                       M14): the int8 block round trip (K12) on
                        the token payload of the staged exchange's
                        data_outer legs.
     """
@@ -188,6 +190,54 @@ class SequenceConfig:
             raise DeepSpeedConfigError(
                 f"sequence.rotate_chunks must be an int >= 1 or 'auto', "
                 f"got {self.rotate_chunks!r}")
+
+
+@dataclass
+class AutotuneConfig:
+    """The measured kernel dispatch (the JAX ``AutotuneConfig``,
+    runtime/config.py:589-637; autotuning/kernel_dispatch.py): knobs set to
+    "auto" (``flash_bwd_qmajor``, ``fused_layernorm``, ``mlp_kernel``, the
+    grouped and ring kernels, the fused CE) resolve against a persistent
+    winner cache keyed by (device_kind, op, shape-bucket, dtype). The
+    training engine applies the block as the complete dispatch state.
+
+      mode         "" = the DSTPU_AUTOTUNE env (default cache_only) | off |
+                   cache_only (never measures; a cold key takes the
+                   defaults) | on_first_use (a missing key is measured
+                   once and persisted) | search (every key re-measured
+                   once a process).
+      cache_path   winner cache file ("" = DSTPU_AUTOTUNE_CACHE or
+                   ~/.cache/deepspeed_tpu/kernel_autotune.json); an entry
+                   measured on another device kind is refused.
+      chain_lengths / reps
+                   search timing: the slope between two chain lengths,
+                   best of reps.
+    """
+    mode: str = ""
+    cache_path: str = ""
+    chain_lengths: object = (8, 24)
+    reps: int = 3
+
+    def __post_init__(self):
+        if self.mode not in ("", "off", "cache_only", "on_first_use",
+                             "search"):
+            raise DeepSpeedConfigError(
+                f"autotune.mode must be ''|off|cache_only|on_first_use|"
+                f"search, got {self.mode!r}")
+        try:
+            k1, k2 = (int(v) for v in self.chain_lengths)
+        except (TypeError, ValueError):
+            raise DeepSpeedConfigError(
+                f"autotune.chain_lengths must be two ints, got "
+                f"{self.chain_lengths!r}")
+        if not 0 < k1 < k2:
+            raise DeepSpeedConfigError(
+                f"autotune.chain_lengths needs 0 < k1 < k2, got "
+                f"{(k1, k2)}")
+        self.chain_lengths = (k1, k2)
+        if not isinstance(self.reps, int) or self.reps < 1:
+            raise DeepSpeedConfigError(
+                f"autotune.reps must be an int >= 1, got {self.reps!r}")
 
 
 @dataclass
@@ -382,8 +432,6 @@ def _unported(raw, zero, ckpt):
         out.append(("random_ltd", "M14"))
     if raw.get("parallelism", "") == "auto":
         out.append(("parallelism='auto'", "M14, autotuning"))
-    if raw.get("autotune", {}).get("mode", "") not in ("", "off"):
-        out.append(("autotune", "M14, autotuning"))
     return out
 
 
@@ -432,6 +480,7 @@ class DeepSpeedConfig:
                                   C.COMMS_LOGGER)
         self.checkpoint_engine = _take(config, CheckpointEngineConfig,
                                        "checkpoint_engine")
+        self.autotune = _take(config, AutotuneConfig, "autotune")
 
         opt = config.get(C.OPTIMIZER)
         self.optimizer = None if opt is None else _take(

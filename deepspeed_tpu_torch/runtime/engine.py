@@ -204,6 +204,11 @@ class DeepSpeedEngine:
         self.dp = dp
         self.seq_parallel = topology.get_sequence_parallel_world_size()
         comm.configure(self.config)
+        # the measured kernel dispatch is process-global: the config's
+        # autotune block becomes the complete state before any step runs
+        # (empty fields take the DSTPU_AUTOTUNE* env), as JAX engine.py:157
+        from ..autotuning import kernel_dispatch
+        kernel_dispatch.configure_from_config(self.config.autotune)
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.zero_stage = self.config.zero.stage

@@ -31,8 +31,9 @@ scores or the full KV.
 Each JAX ``custom_vjp`` is one ``torch.autograd.Function`` whose backward
 does its own rotations. ``rotate_chunks`` takes an int (the head dim split
 into that many exchanges a rotation); "auto" is 1 and ``block_kernel``
-"auto" the kernel, the JAX package's cold-cache choices (ring.py:509-547):
-the port has no winner cache.
+"auto" the kernel, the JAX package's cold-cache choices (ring.py:509-547).
+Neither consults the port's winner cache: K10 takes no lever, and
+``ring_rotate`` is a collective op, not ported (ROADMAP Queue 1, M5 / M14).
 """
 
 import functools

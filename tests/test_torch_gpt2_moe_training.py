@@ -217,8 +217,8 @@ def test_engine_moe_block_overrides_the_model_knob(model_knob, block, want,
     seen = []
     real = moe.resolve_grouped_params
     monkeypatch.setattr(moe, "resolve_grouped_params",
-                        lambda knob: seen.append(real(knob)["backend"])
-                        or real(knob))
+                        lambda knob, *a: seen.append(real(knob, *a)["backend"])
+                        or real(knob, *a))
     model = GPT2MoE(GPT2MoEConfig(**{**BASE, "moe_grouped_kernel":
                                      model_knob}), device="cpu")
     config = {"train_batch_size": 2,

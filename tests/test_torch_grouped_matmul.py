@@ -143,14 +143,24 @@ def test_block_m_covers_decode_in_one_tile():
 @pytest.mark.parametrize("knob,backend", [
     ("auto", "kernel"), (True, "kernel"), (False, "ragged"),
     (None, "ragged")])
-def test_resolve_grouped_params(knob, backend):
-    assert moe.resolve_grouped_params(knob)["backend"] == backend
+def test_resolve_grouped_params(knob, backend, tmp_path):
+    """The backend for a (rows, E, M, F) bucket; "auto" on a cold winner
+    cache is the kernels."""
+    from deepspeed_tpu_torch.autotuning import kernel_dispatch
+    kernel_dispatch.configure(mode="cache_only",
+                              cache_path=str(tmp_path / "winners.json"))
+    try:
+        assert moe.resolve_grouped_params(
+            knob, 16, 4, 32, 64, torch.float32, "cpu")["backend"] == backend
+    finally:
+        kernel_dispatch.reset()
 
 
 @pytest.mark.parametrize("knob", ["yes", {"backend": "ragged"}])
 def test_resolve_rejects_unknown_knob(knob):
     with pytest.raises(ValueError, match="grouped_kernel"):
-        moe.resolve_grouped_params(knob)
+        moe.resolve_grouped_params(knob, 16, 4, 32, 64, torch.float32,
+                                   "cpu")
 
 
 def test_expert_ffn_backends_agree_and_unported_branches_raise():

@@ -43,6 +43,11 @@ def test_static_scan_no_jax_imports():
     for fam in ("bloom", "falcon", "gpt_neox", "gptj", "internlm", "phi",
                 "qwen", "opt", "gpt_neo"):
         assert os.path.join(PKG, "models", f"{fam}.py") in srcs, fam
+    # so are the autotune winner cache and the dispatch layer
+    for mod in ("__init__", "kernel_cache", "kernel_dispatch",
+                "kernel_autotuner", "kernel_registry"):
+        assert os.path.join(PKG, "autotuning", f"{mod}.py") in srcs, mod
+    assert os.path.join(PKG, "ops", "cuda", "_common.py") in srcs
     bad = []
     for path in srcs:
         with open(path) as f:
@@ -55,7 +60,7 @@ def test_static_scan_no_jax_imports():
 
 
 _BLOCKED_RUN = r"""
-import sys, importlib.abc
+import os, sys, importlib.abc
 ROOTS = ("jax", "jaxlib", "deepspeed_tpu")
 for name in list(sys.modules):
     if name.split(".")[0] in ROOTS:
@@ -155,6 +160,19 @@ q = torch.randn(1, 64, 2, 32, requires_grad=True)
 out = op(q, q, q)
 out.square().sum().backward()
 assert out.shape == q.shape and torch.isfinite(q.grad).all()
+import json, tempfile
+from deepspeed_tpu_torch.autotuning import (kernel_autotuner,
+                                            kernel_dispatch, kernel_registry)
+from deepspeed_tpu_torch.ops.cuda import _common
+path = os.path.join(tempfile.mkdtemp(), "winners.json")
+kernel_dispatch.configure(mode="on_first_use", cache_path=path,
+                          chain_lengths=(1, 2), reps=1)
+win = _common.dispatch("layernorm", _common.ln_bucket(16, 128), "float32",
+                       kernel_registry.LN_DEFAULTS, device="cpu")
+assert set(win) == {"variant"}, win
+assert "torch-cpu|layernorm|R16,D128|float32" in json.load(open(path))[
+    "entries"]
+kernel_dispatch.reset()
 assert not any(n.split(".")[0] in ROOTS for n in sys.modules)
 print("ISOLATED_OK")
 """
@@ -406,15 +424,22 @@ def test_training_rejects_unported_config():
                 model=model, config={**_TRAIN_CONFIG, **over}, device="cpu")
 
 
-def test_engine_rejects_unported_config():
+def test_engine_rejects_unported_config(tmp_path):
     model = Llama(dataclasses.replace(LLAMA_TINY, dtype="float32"),
                   device="cpu")
-    for over in (dict(tensor_parallel=2), dict(expert_parallel=2),
-                 dict(paged_block_c=16), dict(autotune_mode="search"),
-                 dict(autotune_cache="winners.json")):
+    for over in (dict(tensor_parallel=2), dict(expert_parallel=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             InferenceEngineV2(model, dict(dtype="float32", **over),
                               device="cpu")
+    # the autotune winner cache's fields are ported: accepted
+    from deepspeed_tpu_torch.autotuning import kernel_dispatch
+    try:
+        for over in (dict(paged_block_c=16), dict(autotune_mode="off"),
+                     dict(autotune_cache=str(tmp_path / "winners.json"))):
+            InferenceEngineV2(model, dict(dtype="float32", **over),
+                              device="cpu")
+    finally:
+        kernel_dispatch.reset()
     # serving telemetry and its monitor are ported: accepted
     eng = InferenceEngineV2(model, dict(dtype="float32", telemetry=True),
                             device="cpu", monitor=object())

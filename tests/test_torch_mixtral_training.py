@@ -134,8 +134,8 @@ def test_engine_moe_block_overrides_the_model_knob(model_knob, block, want,
     seen = []
     real = tmixtral.resolve_grouped_params
     monkeypatch.setattr(tmixtral, "resolve_grouped_params",
-                        lambda knob: seen.append(real(knob)["backend"])
-                        or real(knob))
+                        lambda knob, *a: seen.append(real(knob, *a)["backend"])
+                        or real(knob, *a))
     model = Mixtral(dataclasses.replace(MIXTRAL_TINY, dtype="float32"),
                     device="cpu")
     model.grouped_kernel = model_knob

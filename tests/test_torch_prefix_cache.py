@@ -304,10 +304,17 @@ def test_host_operations_match_jax(scenario):
     assert scenario(*PORT_SIDE) == scenario(*JAX_SIDE)
 
 
-def test_auto_resolves_to_the_jax_cold_defaults():
+def test_auto_resolves_to_the_jax_cold_defaults(tmp_path):
+    from deepspeed_tpu_torch.autotuning import kernel_dispatch
     assert PREFIX_CACHE_DEFAULTS == J_DEFAULTS
-    assert resolve_prefix_cache("auto", "auto") == (False, 1, 0)
-    assert resolve_prefix_cache(True, 3) == (True, 3, 0)
+    kernel_dispatch.configure(mode="cache_only",
+                              cache_path=str(tmp_path / "winners.json"))
+    try:
+        pool = dict(B=4, NB=64, BS=8, dtype="float32", device="cpu")
+        assert resolve_prefix_cache("auto", "auto", **pool) == (False, 1, 0)
+        assert resolve_prefix_cache(True, 3, **pool) == (True, 3, 0)
+    finally:
+        kernel_dispatch.reset()
 
 
 # ------------------------------------------------------------- engines

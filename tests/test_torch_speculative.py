@@ -55,6 +55,7 @@ from deepspeed_tpu_torch.inference.v2.speculative import (
     SPEC_DEFAULTS, SPEC_EMA_ALPHA, SPEC_MIN_ROUNDS, longest_accept,
     resolve_spec)
 from deepspeed_tpu_torch.models import LLAMA_TINY, llama_params_from_numpy
+from deepspeed_tpu_torch.autotuning import kernel_dispatch as t_dispatch
 from deepspeed_tpu_torch.utils import fault_injection
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -68,10 +69,12 @@ def _pristine(tmp_path, monkeypatch):
                        str(tmp_path / "kernel_autotune.json"))
     monkeypatch.delenv("DSTPU_AUTOTUNE", raising=False)
     kernel_dispatch.reset()
+    t_dispatch.reset()
     fault_injection.reset()
     yield
     fault_injection.reset()
     kernel_dispatch.reset()
+    t_dispatch.reset()
 
 
 # ------------------------------------------------------ acceptance, knobs
@@ -89,9 +92,11 @@ def test_resolve_spec_matches_the_jax_cold_cache():
     assert SPEC_DEFAULTS == J_DEFAULTS
     assert (SPEC_EMA_ALPHA, SPEC_MIN_ROUNDS) == (0.25, 3)
     kernel_dispatch.configure(mode="cache_only")      # empty cache
+    t_dispatch.configure(mode="cache_only")
     for knobs in (("auto", "auto"), (False, 8), (True, 2), ("auto", 6),
                   (True, "auto")):
-        assert resolve_spec(*knobs) == j_resolve_spec(
+        assert resolve_spec(*knobs, B=4, NB=64, BS=8, dtype="float32",
+                            device="cpu") == j_resolve_spec(
             *knobs, B=4, NB=64, BS=8, dtype="float32")
 
 
