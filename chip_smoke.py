@@ -469,6 +469,24 @@ Phases (any failure raises and the script exits nonzero):
      own launches counted apart); (d) an entry measured on another device
      kind is refused (a miss) and an entry naming the dense path for the
      decode raises.
+ 48. GPT2MoE serving at the 350M widths: at 2 layers in fp32, the ragged
+     backend's greedy streams with K4 / K5 / K8 on equal those with all
+     off, and the dense backend without drops gives the ragged backend's
+     prefill logits (fp32 at 1e-4; bf16 within a relative error norm of
+     1e-2); at 24 layers in bf16, 8 requests of 64-992 tokens, 32 new
+     each: (a) ragged, 4 experts, top-2: K4 / K5 one a layer and forward,
+     K8's grouped_gmm two; (b) the config's MoE defaults (dense, 8
+     experts, top-1, eval capacity factor 2.0): K4 / K5, no K8, the
+     gate's dropped choices counted; (c) (a) under weight_quant int8
+     (every expert leaf dequantized a layer at a time, as JAX, then K8):
+     TTFT / TPOT p50, tokens/s, peak memory.
+ 49. GPT2MoE dense training: at 2 layers in fp32 the dense backend
+     without drops gives the ragged backend's loss, aux and gradients
+     (relative error norm 1e-4); the config's MoE defaults at 6 of 24
+     layers, bf16, micro 8 x 1024, through initialize -> train_batch, 4
+     steps: the loss falls, K1 / K2 one a layer and step (sm90), K3 two a
+     step, no K8; step time, tokens/s, peak memory, the dropped share;
+     one RSample step of a 2-layer model.
 Phases 7, 13, 20, 24, 32 and 33 also hold every bf16 K1 / K2 / K2-qmajor /
 K3 / K6 launch to the sm90 design (the wrappers' DESIGN_LAUNCHES); the
 serving slices count K4's launches by design (split / single), the
@@ -5371,12 +5389,13 @@ def child_zero_parity():
         del master
     out["staged"] = {k: list(v) for k, v in
                      comm.get_comms_logger().host_staged.items()}
-    out["moe"] = child_moe_zero_parity(cfg, batches[:2])
+    out["moe"] = child_moe_zero_parity(cfg, batches[:MOE_DP_STEPS])
     return out
 
 
-# phase 31's GPT2MoE: the 350M widths at 2 layers, E = 4, top-2, fp32
-MOE_DP_STEPS = 2
+# phase 31's GPT2MoE: the 350M widths at 2 layers, E = 4, top-2, fp32;
+# one step (the run's time limit)
+MOE_DP_STEPS = 1
 
 
 def child_moe_zero_parity(cfg, batches):
@@ -7400,7 +7419,9 @@ EP_RUNS = {
         "-dcn": {"zero_optimization": {"stage": 1, "mics_shard_size": 1},
                  "moe": {"dcn_quantize": True}}}),
 }
-EP_TOKENS = 1024        # T; each rank's micro batch is 2 x T (GPT2MoE), 1 x T
+# T (the run's time limit); each rank's micro batch is 2 x T (GPT2MoE),
+# 1 x T
+EP_TOKENS = 512
 EP_STEPS = 2            # the first held against ep = 1, the second timed
 
 
@@ -9131,6 +9152,368 @@ def phase_winner_cache(pa, seed=0):
     return launches
 
 
+# ------------------------------------------ GPT2MoE serving (phase 48)
+
+# phase 48: 8 requests of 64-992 tokens, 32 new each, phase 45's engine
+# settings; the parity engines at 2 layers in fp32
+GPT2MOE_SERVE = dict(requests=8, new=32, parity_layers=2, parity_new=8)
+# the JAX bench's MoE serving config (benchmarks/bench_engine.py:84-92)
+GPT2MOE_RAGGED = dict(num_experts=4, moe_top_k=2, moe_backend="ragged")
+
+
+class DropCounter:
+    """A capacity gate that counts, on the device, the choices it drops
+    (weight 0) and, on the host, the choices it routes."""
+
+    def __init__(self, gate):
+        self.gate = gate
+        self.dropped = None
+        self.choices = 0
+
+    def __call__(self, *args, **kwargs):
+        g = self.gate(*args, **kwargs)
+        d = (g.weights == 0).sum()
+        self.dropped = d if self.dropped is None else self.dropped + d
+        self.choices += g.weights.numel()
+        return g
+
+
+def prefill_logits(model, ids, BS=64):
+    """The fp32 logits (V,) of ``model.apply_paged_prefill`` over one
+    prompt ``ids`` (a fresh pool, the prompt bucketed to whole blocks)."""
+    T = len(ids)
+    T_pad = -(-T // BS) * BS
+    cache = model.init_paged_cache(T_pad // BS + 1, BS)
+    x = torch.zeros(1, T_pad, dtype=torch.int32, device="cuda")
+    x[0, :T] = torch.as_tensor(ids, dtype=torch.int32)
+    pos = torch.arange(T_pad, device="cuda")
+    tb = torch.where(pos < T, 1 + pos // BS, 0).to(torch.int32)
+    to = torch.where(pos < T, pos % BS, 0).to(torch.int32)
+    logits, _ = model.apply_paged_prefill(x, cache, tb, to, T)
+    return logits[0].float()
+
+
+def gpt2moe_serve_run(eng, prompts, new, pa, gm, mm, L, grouped):
+    """serve_run with GPT2MoE's launch gates: K4 / K5 as the forwards imply
+    (count_paged_designs), K8's grouped_gmm two a layer and forward when
+    ``grouped`` (the ragged experts' up and down; none under the dense
+    backend), no other grouped or K7 launch. Returns (streams, stats,
+    launches)."""
+    gm.reset_launch_counts()
+    mm.reset_launch_counts()
+    outs, stats, launches = serve_run(eng, prompts, new, pa)
+    assert launches == expected_launches(eng, L), launches
+    count_paged_designs(pa, launches)
+    fc = eng.forward_counts
+    want = {"grouped_swiglu_up": 0, "grouped_tgmm": 0,
+            "grouped_gmm": 2 * L * sum(fc.values()) if grouped else 0,
+            **NO_WQ}
+    assert gm.LAUNCHES == want, (dict(gm.LAUNCHES), want)
+    assert mm.LAUNCHES["wq_matmul"] == 0, dict(mm.LAUNCHES)
+    by = dict(gm.DESIGN_LAUNCHES["grouped_gmm"])
+    assert sum(by.values()) == want["grouped_gmm"] and not by["fp32"], by
+    count_designs("grouped_gmm", by)
+    launches["grouped_gmm"] = gm.LAUNCHES["grouped_gmm"]
+    stats["launches"] = launches
+    stats["launches_by_design"] = {
+        "paged_decode": {k: v for k, v in pa.DESIGN_LAUNCHES[
+            "paged_decode"].items() if v},
+        "paged_chunk": {k: v for k, v in pa.DESIGN_LAUNCHES[
+            "paged_chunk"].items() if v},
+        "grouped_gmm": {k: v for k, v in by.items() if v}}
+    for o in outs:
+        assert ((o >= 0) & (o < eng.model.config.vocab_size)).all()
+    assert pools_full(eng)
+    return outs, stats, launches
+
+
+def phase_gpt2moe_serve(pa, gm, mm, seed=0):
+    """Phase 48: GPT2MoE serving at the 350M widths. (0) At
+    GPT2MOE_SERVE["parity_layers"] layers in fp32: the ragged backend's
+    greedy streams with the paged kernels and K8 on equal those with
+    both off (paged_kernel=False, moe_grouped_kernel=False), split-fuse 256
+    and bucketed; the dense backend with moe_drop_tokens=False gives the
+    ragged backend's prefill logits (top-1, 8 experts, the same weights)
+    at FP32_TOL, and in bf16 within BF16_REL_NORM. Then all 24 layers in
+    bf16, 8 requests of 64-992 tokens, 32 new each (phase 45's settings):
+    (a) ragged, 4 experts, top-2 (the JAX bench's MoE config): K4 / K5 one
+    a layer and forward, K8's grouped_gmm two; (b) the config's own MoE
+    defaults (dense, 8 experts, top-1, eval capacity factor 2.0): K4 / K5
+    as (a), no K8, the gate's dropped choices counted; (c) (a) under
+    weight_quant="int8": every expert leaf dequantized a layer at a time,
+    then K8 in bf16 (as JAX), no K7 / K9. TTFT / TPOT p50, tokens/s, peak
+    memory. Returns {path: launches}."""
+    from deepspeed_tpu_torch import GPT2_PRESETS, GPT2MoE, InferenceEngineV2
+    gc.collect()
+    torch.cuda.empty_cache()
+    rs = np.random.RandomState(seed + 48)
+    P = GPT2MOE_SERVE
+    base350 = GPT2_PRESETS["350M"]
+    cfg = moe_cfg(base350, n_layer=P["parity_layers"], dtype="float32",
+                  **GPT2MOE_RAGGED)
+    prompts = [rs.randint(0, cfg.vocab_size, (n,)) for n in (7, 64, 300)]
+    conf = dict(dtype="float32", kv_block_size=64, max_batch_size=4)
+    model = GPT2MoE(cfg, device="cuda", dtype=torch.float32, seed=seed)
+    for splitfuse in (256, 0):
+        streams = {}
+        for on in (True, False):
+            model.moe.grouped_kernel = on
+            pa.reset_launch_counts()
+            gm.reset_launch_counts()
+            eng = InferenceEngineV2(model, dict(
+                conf, splitfuse_tokens=splitfuse, paged_kernel=on),
+                device="cuda")
+            streams[on] = eng.generate_all(prompts,
+                                           max_new_tokens=P["parity_new"])
+            assert (pa.LAUNCHES["paged_decode"] > 0) == on, dict(pa.LAUNCHES)
+            assert (pa.LAUNCHES["paged_chunk"] > 0) == on, dict(pa.LAUNCHES)
+            assert (gm.LAUNCHES["grouped_gmm"] > 0) == on, dict(gm.LAUNCHES)
+            del eng
+        for a, b in zip(streams[True], streams[False]):
+            np.testing.assert_array_equal(a, b)
+    del model
+    dropless = {}
+    for dt in (torch.float32, torch.bfloat16):
+        dense_cfg = moe_cfg(base350, n_layer=P["parity_layers"],
+                            dtype=str(dt).split(".")[-1],
+                            moe_drop_tokens=False)
+        dense = GPT2MoE(dense_cfg, device="cuda", dtype=dt, seed=seed)
+        ragged = GPT2MoE(dataclasses.replace(dense_cfg, moe_backend="ragged",
+                                             moe_grouped_kernel=True),
+                         device="cuda", dtype=dt, seed=seed + 1)
+        ragged.load_state_dict(dense.state_dict())
+        ld = prefill_logits(dense, prompts[2])
+        lr = prefill_logits(ragged, prompts[2])
+        rel = (torch.linalg.vector_norm(ld - lr)
+               / torch.linalg.vector_norm(lr)).item()
+        if dt == torch.float32:
+            torch.testing.assert_close(ld, lr, **FP32_TOL)
+        else:
+            assert rel <= BF16_REL_NORM, rel
+        dropless[str(dt).split(".")[-1]] = dict(
+            max_abs_err=(ld - lr).abs().max().item(), rel_norm=rel)
+        del dense, ragged
+    log(f"phase 48 parity ok: GPT2MoE 350M widths at {P['parity_layers']} "
+        f"layers, fp32: K4 / K5 / K8 on == off (split-fuse 256 and "
+        f"bucketed); dense without drops == ragged prefill logits "
+        f"{json.dumps(dropless)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    L = base350.n_layer
+    lens = rs.randint(64, base350.max_seq_len - P["new"] + 1, P["requests"])
+    prompts = [rs.randint(0, base350.vocab_size, (n,)) for n in lens]
+    base = dict(dtype="bfloat16", kv_block_size=64, max_batch_size=8,
+                splitfuse_tokens=256, decode_steps_per_dispatch=8)
+    paths = {}
+    ragged_outs = None
+    for tag, over, wq in (
+            ("gpt2moe-serve", GPT2MOE_RAGGED, "auto"),
+            ("gpt2moe-dense-serve", {}, "auto"),
+            ("gpt2moe-int8-serve", GPT2MOE_RAGGED, "int8")):
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = moe_cfg(base350, **over)
+        t0 = time.perf_counter()
+        model = GPT2MoE(cfg, device="cuda", dtype=torch.bfloat16, seed=seed)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        counter = None
+        if model.moe.gate is not None:
+            counter = model.moe.gate = DropCounter(model.moe.gate)
+        eng = InferenceEngineV2(model, dict(base, weight_quant=wq),
+                                device="cuda")
+        outs, stats, launches = gpt2moe_serve_run(
+            eng, prompts, P["new"], pa, gm, mm, L,
+            grouped=model.moe.gate is None)
+        stats.update(model=tag, backend=cfg.moe_backend,
+                     experts=cfg.num_experts, top_k=cfg.moe_top_k,
+                     n_layer=L, build_s=build_s,
+                     prompt_tokens=int(lens.sum()),
+                     quantized_leaves=sorted(model.qblocks),
+                     weight_gb=sum(
+                         p.numel() * p.element_size()
+                         for p in model.parameters()) / 1e9 + sum(
+                         w.q.numel() + 4 * w.scale.numel()
+                         for w in model.qblocks.values()) / 1e9)
+        if counter is not None:
+            forwards = sum(eng.forward_counts.values())
+            dropped = int(counter.dropped)
+            assert counter.choices > 0
+            stats.update(dropped_choices=dropped,
+                         routed_choices=counter.choices,
+                         dropped_share=dropped / counter.choices,
+                         dropped_per_forward=dropped / forwards,
+                         eval_capacity_factor=cfg.eval_capacity_factor)
+        if wq == "int8":
+            # at 350M widths every block leaf of 2^16 elements or more is
+            # quantized, the router (L, D, E) = 98,304 included (JAX's
+            # quantize_tree excludes only moe_gate); each is dequantized a
+            # layer at a time, so K8 runs in bf16 and no K7 / K9 launches
+            assert {"wqkv", "bqkv", "wo", "moe.gate_w", "moe.wi", "moe.bi",
+                    "moe.wo", "moe.bo"} <= set(model.qblocks), \
+                sorted(model.qblocks)
+            stats["streams_equal_bf16"] = sum(
+                int(np.array_equal(a, b)) for a, b in zip(outs, ragged_outs))
+        if tag == "gpt2moe-serve":
+            ragged_outs = outs
+        paths[tag] = launches
+        log("phase 48 slice " + json.dumps(stats))
+        del eng, model, counter
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths
+
+
+# ------------------------------------- GPT2MoE dense training (phase 49)
+
+# phase 49: GPT2MoE's own MoE config (dense, 8 experts, top-1, capacity
+# factor 1.25) over the 350M widths, cut to 6 of 24 layers for the run's
+# time limit; micro 8 x 1024
+GPT2MOE_TRAIN = dict(layers=6, micro=8, steps=4, parity_layers=2,
+                     parity_T=256)
+
+
+def phase_gpt2moe_dense_train(fa, fce, gm, seed=0):
+    """Phase 49: GPT2MoE's GShard capacity backend in training. (0) The
+    350M widths at GPT2MOE_TRAIN["parity_layers"] layers in fp32 with
+    moe_drop_tokens=False: the dense backend's loss, aux and every gradient
+    equal the ragged backend's (top-1, 8 experts, K8 on; the same
+    weights) at a relative error norm of 1e-4 (JAX's
+    test_dropless_vs_dense_dispatch_no_drops). Then the config's own MoE
+    defaults at GPT2MOE_TRAIN["layers"] layers, bf16, through initialize
+    -> train_batch (phase 13's engine config, micro 8 x 1024, save_flash,
+    the fused CE head), GPT2MOE_TRAIN["steps"] steps on one batch: the loss
+    finite and falling, exactly one K1 forward (sm90) and one K2 backward a
+    layer and step, two K3 calls a step, no K8 launch (the capacity
+    dispatch is batched products); step time, tokens/s, peak memory; one
+    step of a 2-layer model with noisy_gate_policy="RSample" (the engine's
+    per-step key through loss(rng=)). Returns {path: launches}."""
+    from deepspeed_tpu_torch import GPT2_PRESETS, GPT2MoE, initialize
+    gc.collect()
+    torch.cuda.empty_cache()
+    P = GPT2MOE_TRAIN
+    base350 = GPT2_PRESETS["350M"]
+    T = P["parity_T"]
+    pcfg = moe_cfg(base350, n_layer=P["parity_layers"], max_seq_len=T,
+                   dtype="float32", remat=False, use_flash_attention=True,
+                   moe_drop_tokens=False)
+    ids = torch.from_numpy(np.random.RandomState(seed).randint(
+        0, pcfg.vocab_size, (2, T))).cuda()
+    out = {}
+    dense = GPT2MoE(pcfg, device="cuda", dtype=torch.float32, seed=seed)
+    ragged = GPT2MoE(dataclasses.replace(pcfg, moe_backend="ragged",
+                                         moe_grouped_kernel=True),
+                     device="cuda", dtype=torch.float32, seed=seed + 1)
+    ragged.load_state_dict(dense.state_dict())
+    for name, model in (("dense", dense), ("ragged", ragged)):
+        gm.reset_launch_counts()
+        loss = model.loss({"input_ids": ids})
+        loss.backward()
+        with torch.no_grad():
+            aux = model.hidden_with_aux(ids, train=True)[1].item()
+        assert (gm.LAUNCHES["grouped_gmm"] > 0) == (name == "ragged"), \
+            dict(gm.LAUNCHES)
+        out[name] = (loss.item(), aux, {n: p.grad for n, p in
+                                        model.named_parameters()})
+    (l_d, a_d, g_d), (l_r, a_r, g_r) = out["dense"], out["ragged"]
+    assert abs(l_d - l_r) <= 1e-5 * abs(l_r), (l_d, l_r)
+    assert abs(a_d - a_r) <= 1e-5 * abs(a_r), (a_d, a_r)
+    worst = 0.0
+    for n, g in g_r.items():
+        rel = (torch.linalg.vector_norm(g_d[n] - g)
+               / torch.linalg.vector_norm(g)).item()
+        assert rel <= 1e-4, (n, rel)
+        worst = max(worst, rel)
+    log(f"phase 49 parity ok: dense without drops == ragged at "
+        f"{P['parity_layers']} layers, fp32: loss {l_d:.7f} vs {l_r:.7f}, "
+        f"aux {a_d:.7f} vs {a_r:.7f}, worst gradient relative error norm "
+        f"{worst:.3g}")
+    del dense, ragged, out, g_d, g_r
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    engine_cfg = {"train_micro_batch_size_per_gpu": P["micro"],
+                  "gradient_accumulation_steps": 1, "steps_per_print": 0,
+                  "optimizer": {"type": "AdamW", "params": {
+                      "lr": 2e-4, "weight_decay": 0.01}},
+                  "gradient_clipping": 1.0, "bf16": {"enabled": True},
+                  "zero_optimization": {"stage": 2}}
+    cfg = moe_cfg(
+        base350, n_layer=P["layers"], max_seq_len=1024,
+        use_flash_attention=True, flash_block_q=1024, flash_block_k=1024,
+        flash_block_h=1, remat=True, remat_policy="save_flash",
+        loss_chunk=512, fused_loss=True, fused_loss_kernel=True)
+    assert (cfg.moe_backend, cfg.num_experts, cfg.moe_top_k) == \
+        ("dense", 8, 1), cfg
+    t0 = time.perf_counter()
+    engine, *_ = initialize(model=GPT2MoE(cfg, device="cuda", seed=seed),
+                            config=engine_cfg)
+    torch.cuda.synchronize()
+    bsz = engine.config.train_batch_size
+    log(f"gpt2moe-350M dense (E=8, top-1, {cfg.n_layer} layers) engine "
+        f"built in {time.perf_counter() - t0:.1f} s: "
+        f"{cfg.num_params() / 1e6:.1f}M params, batch {bsz} x 1024")
+    batch = {"input_ids": np.random.RandomState(seed).randint(
+        0, cfg.vocab_size, (bsz, cfg.max_seq_len)).astype(np.int32)}
+    counter = engine.model.moe.gate = DropCounter(engine.model.moe.gate)
+    torch.cuda.reset_peak_memory_stats()
+    for mod in (fa, fce, gm):
+        mod.reset_launch_counts()
+    losses, times = [], []
+    for _ in range(P["steps"]):
+        t1 = time.perf_counter()
+        losses.append(float(engine.train_batch(batch)))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+    launches = {**fa.LAUNCHES, **fce.LAUNCHES, **gm.LAUNCHES}
+    L, steps = cfg.n_layer, P["steps"]
+    want = {"flash_fwd": L * steps, "flash_bwd": L * steps,
+            "flash_bwd_qmajor": 0, "flash_block_fwd": 0,
+            "fused_ce": 2 * steps, "grouped_swiglu_up": 0,
+            "grouped_gmm": 0, "grouped_tgmm": 0, **NO_WQ}
+    assert launches == want, (launches, want)
+    assert_sm90("gpt2moe dense train", fa, fce, main_path=True)
+    assert all(math.isfinite(x) for x in losses), losses
+    assert losses[-1] < losses[0], losses
+    # save_flash re-runs each layer's MLP in the backward: two gate calls a
+    # layer and step
+    assert counter.choices == 2 * L * steps * bsz * cfg.max_seq_len, \
+        counter.choices
+    dropped = int(counter.dropped)
+    step_s = float(np.median(times[1:]))
+    tokens = bsz * cfg.max_seq_len
+    stats = dict(
+        kind="gpt2moe-350m-dense", n_layer=L, experts=cfg.num_experts,
+        top_k=cfg.moe_top_k, capacity_factor=cfg.capacity_factor,
+        steps=steps, losses=losses, step_s=times,
+        step_s_median_after_first=step_s, tokens_per_s=tokens / step_s,
+        active_flops_per_token=active_flops_per_token(cfg),
+        model_tflops_per_s_active=active_flops_per_token(cfg) * tokens
+        / step_s / 1e12, launches=launches,
+        dropped_share=dropped / counter.choices,
+        max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log("phase 49 train " + json.dumps(stats))
+    del engine, counter
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    noisy = dataclasses.replace(cfg, n_layer=2, noisy_gate_policy="RSample")
+    engine, *_ = initialize(model=GPT2MoE(noisy, device="cuda", seed=seed),
+                            config=engine_cfg)
+    assert engine.model._requires_train_rng()
+    key0 = engine.rng_data.copy()
+    loss = float(engine.train_batch(batch))
+    assert math.isfinite(loss), loss
+    assert not np.array_equal(engine.rng_data, key0)
+    log(f"phase 49 RSample step ok: 2 layers, loss {loss:.5f}, key "
+        f"{key0.tolist()} -> {engine.rng_data.tolist()}")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"gpt2moe-dense-train": launches}
+
+
 def fresh_winner_cache():
     """Point the autotune winner cache (cache_only) at a fresh, empty file
     in a temporary directory, removed at exit, before any phase: a cache
@@ -9370,6 +9753,12 @@ def main(argv=None):
                f"{len(winner_searches())} searches, Llama-2-7B served "
                f"from the filled file at {WINNER_SERVE['layers']} layers, "
                f"refusals)")
+    paths.update(phase_gpt2moe_serve(pa, gm, mm))
+    phase_done("48 (GPT2MoE serving at the 350M widths, 24 layers: ragged, "
+               "dense, int8)")
+    paths.update(phase_gpt2moe_dense_train(fa, fce, gm))
+    phase_done(f"49 (GPT2MoE dense training, {GPT2MOE_TRAIN['layers']} "
+               f"layers; dense == ragged without drops; an RSample step)")
 
     kernels = []
     for name, r in rows.items():

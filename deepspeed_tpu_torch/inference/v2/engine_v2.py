@@ -11,8 +11,9 @@ Counterpart of ``deepspeed_tpu/inference/v2/engine_v2.py`` (the
     steps of every running sequence) and the fused decode
     (``decode_steps_per_dispatch`` steps, each fed the token sampled by the
     last). Attention in all of them goes through the Hopper paged kernels;
-    a Mixtral's expert FFN through the grouped-GEMM kernels. The Llama
-    family, Mixtral and the GPT-2 family (GPT-2, OPT, GPT-Neo) serve.
+    a Mixtral's expert FFN, and a ragged GPT2MoE's, through the
+    grouped-GEMM kernels. The Llama family, Mixtral, the GPT-2 family
+    (GPT-2, OPT, GPT-Neo) and GPT2MoE (both MoE backends) serve.
   * Scheduling is the JAX engine's: admit pending requests while slots and
     blocks allow, stream prompts through chunks (or bucketed prefill), then
     batched decode; sequences retire on EOS or max_new_tokens and their
@@ -275,8 +276,7 @@ class InferenceEngineV2:
     ``model``: the port's ``Llama`` (or one of the families built on it:
     ``Bloom``, ``Falcon``, ``GPTNeoX``, ``GPTJ``, ``InternLM``, ``Phi``,
     ``Qwen``), ``Mixtral``, or ``GPT2`` (or one of the families built on
-    it: ``OPT``, ``GPTNeo``; a ``GPT2MoE`` raises, its paged programs not
-    yet ported) (moved to ``device``
+    it: ``OPT``, ``GPTNeo``, ``GPT2MoE``) (moved to ``device``
     in ``config.dtype``, every floating parameter cast, the Mixtral router
     too, as the JAX engine's ``shard_params`` does); ``device`` defaults to
     the card and raises without one. ``monitor``: any object with
@@ -296,7 +296,11 @@ class InferenceEngineV2:
     every forward launches one paged kernel per layer (a verify forward
     one chunk kernel per slot and layer), and a Mixtral forward one fused
     gate/up and one down grouped kernel per layer (``model.grouped_kernel``;
-    the K9 pair under ``weight_quant``), a quantized Llama three K7
+    the K9 pair under ``weight_quant``), a GPT2MoE with the ragged backend
+    and its grouped kernel on two ``grouped_gmm`` per layer (up, down; the
+    same under ``weight_quant``, whose expert leaves are dequantized a
+    layer at a time as in JAX) and with the dense backend none (its
+    capacity dispatch is batched products), a quantized Llama three K7
     products per layer (two without the gate: GPT-J, Bloom, ...), a
     quantized GPT-2 two (``wup``, ``wdown``)."""
 
@@ -306,9 +310,6 @@ class InferenceEngineV2:
             config = RaggedInferenceEngineConfig(**{**config, **kwargs})
         elif config is None:
             config = RaggedInferenceEngineConfig(**kwargs)
-        todo = getattr(model, "serving_todo", None)
-        if todo:
-            raise _not_yet(todo)
         self.config = config
         self.telemetry = None
         if config.telemetry:

@@ -300,7 +300,8 @@ def scatter_kv(pool, blocks, offsets, vals):
 
 class QuantizedBlocks:
     """The serving engine's view of a model whose per-layer leaves are
-    stacked (L, ...) in ``self.blocks``: its JAX parameter tree
+    stacked (L, ...) in ``self.blocks`` (a nested dict's leaves, such as
+    GPT2MoE's ``moe.wi``, by their dotted names): its JAX parameter tree
     (``params_tree``), weight-only quantization in place (``quantize_``,
     the JAX ``quantize_tree`` rule), the engine's cast (``to_serving``), a
     ``load_state_dict`` that takes quantized leaves, and the per-layer read
@@ -320,8 +321,25 @@ class QuantizedBlocks:
         (tensors and quantized nodes), sharing storage."""
         tree = {k: getattr(self, k) for k in self.TOP_KEYS
                 if hasattr(self, k)}
-        tree["blocks"] = {**dict(self.blocks.items()), **self.qblocks}
+        blocks = {}
+        leaves = {**dict(self.blocks.named_parameters()), **self.qblocks}
+        for name, leaf in leaves.items():
+            *path, key = name.split(".")
+            node = blocks
+            for p in path:
+                node = node.setdefault(p, {})
+            node[key] = leaf
+        tree["blocks"] = blocks
         return tree
+
+    def _drop_block_leaf(self, name):
+        """Remove block leaf ``name`` (dotted for a nested dict) from the
+        module's parameters."""
+        *path, key = name.split(".")
+        node = self.blocks
+        for p in path:
+            node = getattr(node, p)
+        del node[key]
 
     def quantize_(self, mode):
         """Quantize the float model in place as the JAX engine's
@@ -332,11 +350,10 @@ class QuantizedBlocks:
             raise ValueError(f"model is already quantized "
                              f"({self.weight_quant})")
         bits = quant_bits(mode)
-        for k in list(self.blocks):
-            p = self.blocks[k]
-            if qualifies(k, p.shape, p.dtype):
+        for k, p in list(self.blocks.named_parameters()):
+            if qualifies(k.rsplit(".", 1)[-1], p.shape, p.dtype):
                 self.qblocks[k] = quantize_tensor(p.data, bits)
-                del self.blocks[k]
+                self._drop_block_leaf(k)
         self.weight_quant = mode
         return self
 
@@ -362,10 +379,11 @@ class QuantizedBlocks:
         ``convert`` gives them for a quantized JAX tree); each replaces the
         leaf's parameter."""
         state = dict(state_dict)
+        own = dict(self.blocks.named_parameters())
         for key in [k for k, v in state.items() if is_quantized(v)]:
             name = key[len("blocks."):]
-            if name in self.blocks:
-                del self.blocks[name]
+            if name in own:
+                self._drop_block_leaf(name)
             self.qblocks[name] = state.pop(key).to(self.device)
         if self.qblocks:
             self.weight_quant = "int4" if any(
@@ -382,6 +400,6 @@ class QuantizedBlocks:
             return i[name]
         w = self.qblocks.get(name)
         if w is None:
-            return self.blocks[name][i]
+            return self.blocks.get_parameter(name)[i]
         keep = self._weight_quant_fused and name in self._WQ_KEEP
         return layer_slice(w, i, self.dtype, keep=keep)

@@ -7,7 +7,7 @@ state share names and shapes, so conversion is a dtype/device move:
 ``model.load_state_dict(llama_params_from_numpy(tree, dev, dt))`` (or
 ``mixtral_params_from_numpy``, ``gpt2_params_from_numpy``,
 ``gpt2_moe_params_from_numpy``); the loaded parameters train as the
-model's own. A quantized Llama / Mixtral / GPT-2 tree (JAX
+model's own. A quantized Llama / Mixtral / GPT-2 / GPT2MoE tree (JAX
 ``Int8Weight`` / ``Int4Weight`` nodes, e.g. from ``quantize_tree``) carries
 across as it is: each node becomes the port's container of the same int8
 codes and fp32 scales.
@@ -53,17 +53,15 @@ def _tensor(a, device, dtype, quantized_ok=False):
         if quantized_ok:
             return _quantized(a, device)
         raise NotImplementedError(
-            "quantized leaves load only into the port's Llama, Mixtral and "
-            "GPT-2 families (weight_quant, K7/K9); GPT2MoE serving is not "
-            "ported yet (ROADMAP Queue 1, serving: GPT2MoE paged paths)")
+            f"a quantized leaf ({type(a).__name__}) outside the block "
+            f"weights: quantize_tree quantizes only the blocks")
     a = np.asarray(a)
     if a.dtype.kind == "V" or a.dtype.name == "bfloat16":
         a = a.astype(np.float32)      # ml_dtypes bf16 has no torch view
     return torch.from_numpy(np.array(a)).to(device=device, dtype=dtype)
 
 
-def _from_numpy(tree, device, dtype, top, blocks, model, quantized_ok=False,
-                fp32_blocks=()):
+def _from_numpy(tree, device, dtype, top, blocks, model, fp32_blocks=()):
     extra = sorted(set(tree) - set(top) - {"blocks"})
     extra += sorted(f"blocks.{k}" for k in set(tree["blocks"]) - set(blocks))
     if extra:
@@ -72,7 +70,7 @@ def _from_numpy(tree, device, dtype, top, blocks, model, quantized_ok=False,
     state = {k: _tensor(tree[k], device, dtype) for k in top if k in tree}
     for k, v in tree["blocks"].items():
         dt = torch.float32 if k in fp32_blocks else dtype
-        state[f"blocks.{k}"] = _tensor(v, device, dt, quantized_ok)
+        state[f"blocks.{k}"] = _tensor(v, device, dt, quantized_ok=True)
     return state
 
 
@@ -83,7 +81,7 @@ def llama_params_from_numpy(tree, device, dtype):
     shifts, the embedding norm) on ``device`` in ``dtype``; quantized
     leaves stay quantized. Raises on keys the port's Llama does not
     carry."""
-    return _from_numpy(tree, device, dtype, _TOP, _BLOCKS, "Llama", True)
+    return _from_numpy(tree, device, dtype, _TOP, _BLOCKS, "Llama")
 
 
 def mixtral_params_from_numpy(tree, device, dtype):
@@ -94,7 +92,7 @@ def mixtral_params_from_numpy(tree, device, dtype):
     the JAX ``Mixtral.init`` keeps it (mixtral.py:73-75); quantized leaves
     stay quantized. Raises on keys the port's Mixtral does not carry."""
     return _from_numpy(tree, device, dtype, _MIXTRAL_TOP, _MIXTRAL_BLOCKS,
-                       "Mixtral", True, fp32_blocks=("moe_gate",))
+                       "Mixtral", fp32_blocks=("moe_gate",))
 
 
 def gpt2_params_from_numpy(tree, device, dtype):
@@ -103,16 +101,17 @@ def gpt2_params_from_numpy(tree, device, dtype):
     on ``device`` in ``dtype``, with no renames or transposes; quantized
     leaves stay quantized. Raises on keys the port's GPT2 does not carry
     (MoE experts)."""
-    return _from_numpy(tree, device, dtype, _GPT2_TOP, _GPT2_BLOCKS, "GPT2",
-                       True)
+    return _from_numpy(tree, device, dtype, _GPT2_TOP, _GPT2_BLOCKS, "GPT2")
 
 
 def gpt2_moe_params_from_numpy(tree, device, dtype):
     """JAX GPT2MoE parameter tree of numpy arrays -> the port's state dict
     (``wte``, ``wpe``, ``lnf_*``, ``blocks.<name>``, ``blocks.moe.<name>``)
     on ``device`` in ``dtype``, except the router ``blocks.moe.gate_w``,
-    which stays fp32 as the JAX init keeps it. Raises on keys the port's
-    GPT2MoE does not carry and on quantized leaves."""
+    which stays fp32 as the JAX init keeps it; quantized leaves (the
+    experts, and the router where it passes ``min_size``: JAX's
+    ``quantize_tree`` excludes only ``moe_gate``) stay quantized. Raises on
+    keys the port's GPT2MoE does not carry."""
     moe = tree["blocks"].get("moe", {})
     extra = sorted(f"blocks.moe.{k}" for k in set(moe) - set(_MOE))
     if extra:
@@ -124,5 +123,6 @@ def gpt2_moe_params_from_numpy(tree, device, dtype):
                         "GPT2MoE")
     for k, v in moe.items():
         state[f"blocks.moe.{k}"] = _tensor(
-            v, device, torch.float32 if k == "gate_w" else dtype)
+            v, device, torch.float32 if k == "gate_w" else dtype,
+            quantized_ok=True)
     return state

@@ -94,7 +94,7 @@ from ..comm import comm
 from ..runtime.config import SequenceConfig
 from ..sequence.layer import DistributedAttention
 from ..sequence.ring import ring_attention
-from ..utils import groups
+from ..utils import groups, prng
 from ..utils.device import resolve_device
 from .common import (QuantizedBlocks, chunked_softmax_xent,
                      fused_linear_xent, fused_linear_xent_kernel, mm_f32,
@@ -445,14 +445,15 @@ class GPT2(QuantizedBlocks, nn.Module):
         return "down" if v is True else v
 
     def _mlp(self, x, ln2_scale, ln2_bias, wup, bup, wdown, bdown, *,
-             seq_sharded=False):
+             seq_sharded=False, rng=None, train=False):
         """ln2 + MLP: (B, T, D) -> ((B, T, D), aux); a dense MLP has no
-        aux (None). Quantized FFN weights (the engine's ``weight_quant``)
-        go through K7, ``wq_matmul`` (gpt2.py:712-719). With ``mlp_kernel``
-        the pre-activation is carried (B, F, T), as gpt2.py:755-769: the up
-        product through K6 emitting (B, F, T) in "both" (else a plain
-        einsum to that layout), the down product through K6 reading it
-        with ``x_t``."""
+        aux (None) and draws no noise (``rng`` / ``train`` reach an MoE
+        MLP, ``gpt2_moe.GPT2MoE``). Quantized FFN weights (the engine's
+        ``weight_quant``) go through K7, ``wq_matmul`` (gpt2.py:712-719).
+        With ``mlp_kernel`` the pre-activation is carried (B, F, T), as
+        gpt2.py:755-769: the up product through K6 emitting (B, F, T) in
+        "both" (else a plain einsum to that layout), the down product
+        through K6 reading it with ``x_t``."""
         act = _ACTS[self.config.activation]
         h = self._ln(x, ln2_scale, ln2_bias)
         if is_quantized(wup):
@@ -492,21 +493,38 @@ class GPT2(QuantizedBlocks, nn.Module):
         out, aux = self._mlp(mid, *layer[_POST], **mlp_kw)
         return mid + out, aux
 
-    def _block(self, x, *layer, seq_sharded=False, window=None):
-        """One transformer block: (B, T, D) -> ((B, T, D), aux)."""
+    def _block(self, x, *layer, seq_sharded=False, window=None, rng=None,
+               train=False):
+        """One transformer block: (B, T, D) -> ((B, T, D), aux); ``rng``:
+        this layer's key words, ``train`` the MLP's mode."""
         return self._block_core(
             x, layer,
             lambda q, k, v: self._attn(q, k, v, seq_sharded, window),
-            **({"seq_sharded": True} if seq_sharded else {}))
+            seq_sharded=seq_sharded, rng=rng, train=train)
 
-    def hidden_with_aux(self, ids, offset=0, seq_sharded=False):
+    def _requires_train_rng(self):
+        """True when a training forward is stochastic (gpt2.py:685;
+        GPT2MoE's noisy gating or top-2 sampling)."""
+        return self.config.dropout > 0
+
+    def hidden_with_aux(self, ids, offset=0, seq_sharded=False, rng=None,
+                        train=False):
         """Embedding + blocks: (B, T) -> ((B, T, D) before the final LN,
         the aux summed over layers or None); positions start at
-        ``offset``."""
+        ``offset``. ``rng``: threefry key words (numpy uint32 (2,), the
+        engine's micro-step key), split into one key a layer as
+        gpt2.py:413-414 does; ``train=True`` without it raises for a
+        model whose training forward draws noise (gpt2.py:489-495)."""
         cfg = self.config
         if self.qblocks:
             raise NotImplementedError(
                 f"a {self.weight_quant} weight-quantized model serves only")
+        if train and rng is None and self._requires_train_rng():
+            raise ValueError(
+                "train=True requires rng= (model uses stochastic "
+                "dropout/routing)")
+        keys = (prng.split(rng, cfg.n_layer) if rng is not None
+                else [None] * cfg.n_layer)
         x = self.embed(ids, offset)
         layers = [self.get_parameter(f"blocks.{k}").unbind(0)
                   for k in self.block_keys]
@@ -517,10 +535,11 @@ class GPT2(QuantizedBlocks, nn.Module):
             layer = [t[i] for t in layers]
             window = self._window(i)
             block = functools.partial(self._block, seq_sharded=seq_sharded,
-                                      window=window)
+                                      window=window, rng=keys[i], train=train)
             if (policy == "save_flash" and self.flash_on
                     and not seq_sharded and window is None):
-                x, aux = _SaveFlashBlock.apply(self, x, *layer)
+                x, aux = _SaveFlashBlock.apply(
+                    self, x, {"rng": keys[i], "train": train}, *layer)
             elif policy is not None:
                 x, aux = checkpoint(block, x, *layer, use_reentrant=False)
             else:
@@ -541,9 +560,9 @@ class GPT2(QuantizedBlocks, nn.Module):
     def loss(self, batch, *, rng=None, train=True, seq_sharded=False,
              ltd_keep=None):
         """Next-token cross entropy. batch: {"input_ids": (B, T) int};
-        ``seq_sharded``: the global batch on every rank of the ``seq``
-        group, this rank computing its sequence block (module
-        docstring)."""
+        ``rng`` / ``train`` as for ``hidden_with_aux``; ``seq_sharded``:
+        the global batch on every rank of the ``seq`` group, this rank
+        computing its sequence block (module docstring)."""
         if ltd_keep is not None:
             raise NotImplementedError(f"ltd_keep {_TODO['ltd']}")
         ids = batch["input_ids"]
@@ -555,7 +574,7 @@ class GPT2(QuantizedBlocks, nn.Module):
         cfg = self.config
         T = ids.shape[1]
         chunk = cfg.loss_chunk
-        x, aux = self.hidden_with_aux(ids)
+        x, aux = self.hidden_with_aux(ids, rng=rng, train=train)
         if chunk and T - 1 > chunk:
             loss = self._chunked_head_loss(x[:, :-1], ids[:, 1:], chunk)
         else:
@@ -800,11 +819,12 @@ class _SaveFlashBlock(torch.autograd.Function):
     ln1 + qkv and ln2 + MLP and runs the fused flash backward (query-major
     when ``model.flash_qmajor``) on the saved o/lse — the flash forward
     never runs again. Returns (out, aux) as
-    ``_block`` does; an MoE MLP's recomputed routing is deterministic, so it
-    equals the forward's."""
+    ``_block`` does; ``mlp_kw`` (the layer's key words and the mode) reach
+    the MLP in both passes, so an MoE MLP's recomputed routing, noise
+    included, equals the forward's."""
 
     @staticmethod
-    def forward(ctx, model, x, *layer):
+    def forward(ctx, model, x, mlp_kw, *layer):
         cfg = model.config
         B, T, D = x.shape
         scale = 1.0 / math.sqrt(cfg.d_head) if cfg.scale_attn else 1.0
@@ -813,8 +833,8 @@ class _SaveFlashBlock(torch.autograd.Function):
         o = o.transpose(1, 2).to(x.dtype)            # (B, T, H, hd)
         wo, bo = layer[_WO]
         mid = x + o.reshape(B, T, D) @ wo + bo
-        out, aux = model._mlp(mid, *layer[_POST])
-        ctx.model, ctx.scale = model, scale
+        out, aux = model._mlp(mid, *layer[_POST], **mlp_kw)
+        ctx.model, ctx.scale, ctx.mlp_kw = model, scale, mlp_kw
         ctx.save_for_backward(x, mid, o, lse, *layer)
         return mid + out, aux
 
@@ -826,7 +846,7 @@ class _SaveFlashBlock(torch.autograd.Function):
         with torch.enable_grad():
             mid_ = mid.detach().requires_grad_()
             post = [p.detach().requires_grad_() for p in layer[_POST]]
-            out, aux = model._mlp(mid_, *post)
+            out, aux = model._mlp(mid_, *post, **ctx.mlp_kw)
             outs, grads = [mid_ + out], [g]
             if aux is not None and g_aux is not None:
                 outs.append(aux)
@@ -850,5 +870,5 @@ class _SaveFlashBlock(torch.autograd.Function):
                 d_o.transpose(1, 2), causal=True)
             d_x, *d_pre = torch.autograd.grad([qs, k, v], [x_] + pre,
                                               [dqs, dk, dv])
-        return (None, d_x + g_mid, *d_pre, d_wo, d_bo.to(layer[5].dtype),
-                *d_post)
+        return (None, d_x + g_mid, None, *d_pre, d_wo,
+                d_bo.to(layer[5].dtype), *d_post)

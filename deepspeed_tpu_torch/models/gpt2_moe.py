@@ -1,4 +1,4 @@
-"""GPT-2 with dropless Mixture-of-Experts MLPs, for training.
+"""GPT-2 with Mixture-of-Experts MLPs, for training and v2 paged serving.
 
 Counterpart of ``deepspeed_tpu/models/gpt2_moe.py``: every block's dense
 MLP becomes a top-k routed MoE (``moe/layer.py``). The parameter tree is
@@ -13,13 +13,23 @@ under an engine at dp > 1 (``model._moe_dp_axes``, which the engine
 installs) each layer's aux loss is the global batch's, as in JAX; at
 ``expert_parallel_size`` > 1 the engine keeps this rank's experts of
 ``blocks.moe.{wi,bi,wo,bo}`` and the layers exchange their routed rows
-(``model._moe_ep``, ``moe_layer_ragged_ep``). The
-port carries the dropless ``moe_backend="ragged"``; the GShard capacity
-backend ("dense", the config's default) raises. The experts' activation
-is always gelu (tanh form): as in the JAX model, ``GPT2Config.activation``
-does not reach them. The serving engine refuses the model
-(``serving_todo`` names the ROADMAP item of its paged programs, which no
-JAX v2 serving test runs).
+(``model._moe_ep``, ``moe_layer_ragged_ep``). Both backends: the GShard
+capacity ``moe_backend="dense"`` (the config's default; top-1 / top-2
+over a capacity, noisy gating from the per-layer keys ``loss(rng=)``
+splits, the eval capacity factor and no noise with ``train=False``; its
+gate routes the global batch at dp > 1; at ``expert_parallel_size`` > 1
+it raises) and the dropless ``moe_backend="ragged"``. The experts'
+activation is always gelu (tanh form): as in the JAX model,
+``GPT2Config.activation`` does not reach them.
+
+Serving: GPT-2's four paged programs (``models/gpt2.py``) run this
+model's ``_mlp`` with ``train=False`` through ``_block_core``, as the JAX
+GPT2MoE inherits them; a dense gate then sees every row a program passes
+(the prompt bucket's pads, the decode batch's idle slots), as JAX's does.
+Under the engine's ``weight_quant`` no MoE leaf is in ``_WQ_KEEP``, so
+every quantized expert leaf (and a router large enough to pass
+``min_size``) is dequantized whole a layer at a time (``_w``) and the
+experts run their float products, as JAX's ``_layer_slice`` does.
 """
 
 from dataclasses import dataclass
@@ -42,8 +52,7 @@ class GPT2MoEConfig(GPT2Config):
     noisy_gate_policy: str = None        # None | 'RSample' | 'Jitter'
     moe_loss_coeff: float = 0.01
     moe_drop_tokens: bool = True
-    # 'dense' = GShard capacity dispatch (not ported); 'ragged' = dropless
-    # grouped GEMM
+    # 'dense' = GShard capacity dispatch; 'ragged' = dropless grouped GEMM
     moe_backend: str = "dense"
     # ragged backend's expert-product engine: "auto" | True (the Hopper
     # grouped kernels) | False (the ragged math)
@@ -63,9 +72,6 @@ class GPT2MoE(GPT2):
     non-"auto" ``grouped_kernel`` overrides ``moe_grouped_kernel``."""
 
     block_keys = BLOCK_KEYS[:8] + tuple(f"moe.{k}" for k in _MOE_KEYS)
-    # the ROADMAP Queue 1 serving item the engine names when it refuses
-    # the model
-    serving_todo = "GPT2MoE paged paths"
 
     def __init__(self, config: GPT2MoEConfig, device=None, dtype=None,
                  seed=0):
@@ -88,10 +94,23 @@ class GPT2MoE(GPT2):
         self.blocks.add_module("moe", nn.ParameterDict(
             {k: nn.Parameter(v) for k, v in params.items()}))
 
-    def _mlp(self, x, ln2_scale, ln2_bias, *moe):
+    def _requires_train_rng(self):
+        """A dense gate's noise or top-2 sampling needs the training key
+        (JAX gpt2_moe.py:86-93); ragged routing is deterministic."""
+        cfg = self.config
+        if self.moe.gate is None:
+            return super()._requires_train_rng()
+        return (super()._requires_train_rng()
+                or cfg.noisy_gate_policy is not None
+                or (cfg.moe_top_k == 2
+                    and self.moe.gate.top2_2nd_expert_sampling))
+
+    def _mlp(self, x, ln2_scale, ln2_bias, *moe, seq_sharded=False,
+             rng=None, train=False):
         """ln2 (through ``_ln``, so ``fused_layernorm`` reaches it as in
-        the JAX GPT2MoE) + the MoE layer -> (y, aux). ``mlp_kernel`` does
-        not reach the experts, in JAX as here."""
+        the JAX GPT2MoE) + the MoE layer -> (y, aux); ``rng`` (the layer's
+        key words) and ``train`` reach the gate. ``mlp_kernel`` does not
+        reach the experts, in JAX as here."""
         h = self._ln(x, ln2_scale, ln2_bias)
         # an explicit (non-"auto") engine 'moe' block setting overrides
         # the model-config knob (gpt2_moe.py:95-106)
@@ -100,7 +119,8 @@ class GPT2MoE(GPT2):
                     if moe_cfg is not None
                     and moe_cfg.grouped_kernel != "auto" else None)
         y, aux, _ = self.moe.apply(
-            dict(zip(_MOE_KEYS, moe)), h, grouped_kernel=override,
+            dict(zip(_MOE_KEYS, moe)), h, rng=rng, train=train,
+            grouped_kernel=override,
             dp_axes=getattr(self, "_moe_dp_axes", None),
             expert_parallel_size=getattr(self, "_moe_ep", 1))
         return y, aux

@@ -2,20 +2,20 @@
 
 Counterpart of ``deepspeed_tpu/moe/layer.py`` (``MoE``): the constructor's
 checks, ``init(stack=L, out_std=...)`` with the JAX parameter names and
-shapes, ``partition_specs`` and ``apply`` for the dropless
-``backend="ragged"`` (expert parallel through ``moe_layer_ragged_ep``
-when the engine runs an ``expert`` axis). Functional, as
-there: ``init`` returns a dict of tensors and ``apply(params, x)`` returns
-``(y, l_aux, exp_counts)``; the model that holds the parameters registers
-them (``models/gpt2_moe.py``).
+shapes, ``partition_specs`` and ``apply`` for both backends: the GShard
+capacity ``backend="dense"`` (``TopKGate`` + ``moe_layer``, with ``rng``
+and ``train``) and the dropless ``backend="ragged"`` (expert parallel
+through ``moe_layer_ragged_ep`` when the engine runs an ``expert``
+axis). Functional, as there: ``init`` returns a dict of tensors and
+``apply(params, x)`` returns ``(y, l_aux, exp_counts)``; the model that
+holds the parameters registers them (``models/gpt2_moe.py``).
 """
 
 import torch
 
-from .sharded_moe import gelu, moe_layer_ragged_ep
+from .sharded_moe import TopKGate, gelu, moe_layer, moe_layer_ragged_ep
 
-_TODO_DENSE = ("MoE dense (GShard capacity) backend (ROADMAP Queue 1, "
-               "M10)")
+_TODO_DENSE_EP = "ROADMAP Queue 1, M10: dense backend under expert parallelism"
 
 
 class MoE:
@@ -25,10 +25,10 @@ class MoE:
                  top2_2nd_expert_sampling=True, activation=gelu,
                  dtype=torch.bfloat16, backend="dense",
                  grouped_kernel="auto"):
-        """backend: 'ragged' = dropless grouped GEMM (the only backend the
-        port carries); 'dense' = the GShard static-capacity dispatch, not
-        ported yet. grouped_kernel: "auto" | True (the Hopper grouped
-        kernels) | False (the ragged math)."""
+        """backend: 'dense' = the GShard static-capacity dispatch (tokens
+        past an expert's capacity dropped); 'ragged' = dropless grouped
+        GEMM. grouped_kernel: the ragged backend's products, "auto" | True
+        (the Hopper grouped kernels) | False (the ragged math)."""
         self.hidden_size = hidden_size
         self.ffn_hidden_size = ffn_hidden_size or 4 * hidden_size
         self.num_experts = num_experts
@@ -39,20 +39,21 @@ class MoE:
                 f"grouped_kernel must be true|false|'auto', got "
                 f"{grouped_kernel!r}")
         self.grouped_kernel = grouped_kernel
-        if backend != "ragged":
-            raise NotImplementedError(
-                f"MoE backend={backend!r}: the {_TODO_DENSE} is not ported "
-                f"yet; use backend='ragged'")
-        # dropless routing has no capacity knobs (vacuous) but noisy
-        # gating would be silently ignored — reject, as the JAX MoE does
-        if noisy_gate_policy is not None:
-            raise ValueError(
-                "backend='ragged' uses deterministic top-k routing; "
-                f"noisy_gate_policy={noisy_gate_policy!r} is not "
-                "supported (use backend='dense')")
-        if k < 1:
-            raise ValueError("k must be >= 1")
-        self.gate = None
+        if backend == "ragged":
+            # dropless routing has no capacity knobs (vacuous) but noisy
+            # gating would be silently ignored — reject, as the JAX MoE does
+            if noisy_gate_policy is not None:
+                raise ValueError(
+                    "backend='ragged' uses deterministic top-k routing; "
+                    f"noisy_gate_policy={noisy_gate_policy!r} is not "
+                    "supported (use backend='dense')")
+            if k < 1:
+                raise ValueError("k must be >= 1")
+            self.gate = None
+        else:
+            self.gate = TopKGate(k, capacity_factor, eval_capacity_factor,
+                                 min_capacity, noisy_gate_policy,
+                                 drop_tokens, top2_2nd_expert_sampling)
         self.activation = activation
         self.dtype = dtype
 
@@ -96,15 +97,29 @@ class MoE:
             "bo": lead + ("expert", None),
         }
 
-    def apply(self, params, x, *, grouped_kernel=None, dp_axes=None,
-              expert_parallel_size=1):
-        """``grouped_kernel`` overrides the construction-time knob for this
-        dispatch (None keeps it): how an engine ``moe`` block reaches a
-        layer built before the engine. ``dp_axes``: the data-parallel axes
-        the aux loss sums its routing statistics over (``topk_routing``).
+    def apply(self, params, x, *, rng=None, train=True, grouped_kernel=None,
+              dp_axes=None, expert_parallel_size=1):
+        """``rng`` (threefry key words) and ``train`` reach the dense
+        backend's gate (noise, capacity factor); the ragged backend routes
+        deterministically. ``grouped_kernel`` overrides the
+        construction-time knob for this dispatch (None keeps it): how an
+        engine ``moe`` block reaches a layer built before the engine.
+        ``dp_axes``: the data-parallel axes the batch splits over, whose
+        global batch the gate routes (dense) or the aux loss sums its
+        routing statistics over (ragged, ``topk_routing``).
         ``expert_parallel_size`` > 1: ``params`` hold this rank's experts
         and the layer exchanges its routed rows over ``expert``
         (``moe_layer_ragged_ep``, JAX moe/layer.py:96-112)."""
+        if self.backend != "ragged":
+            if expert_parallel_size > 1:
+                raise NotImplementedError(
+                    f"MoE backend={self.backend!r} at expert_parallel_size="
+                    f"{expert_parallel_size} is not ported yet "
+                    f"({_TODO_DENSE_EP}); use backend='ragged'")
+            return moe_layer(x, params["gate_w"], params["wi"], params["bi"],
+                             params["wo"], params["bo"], self.gate, rng=rng,
+                             train=train, activation=self.activation,
+                             dp_axes=dp_axes)
         knob = self.grouped_kernel if grouped_kernel is None \
             else grouped_kernel
         return moe_layer_ragged_ep(

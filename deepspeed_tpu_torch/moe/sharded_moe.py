@@ -17,8 +17,28 @@ ragged_dot), and a card entry naming the ragged math is refused.
 Group sizes come from a fixed-size scatter_add, so no forward syncs the
 host. Under data parallelism the aux loss is taken over the global batch,
 as the JAX loss over a batch sharded on the data axes takes it
-(``topk_routing``'s ``dp_axes``). The GShard capacity gating
-(``top1gating``/``top2gating``, ``moe_layer``) is not ported yet.
+(``topk_routing``'s ``dp_axes``).
+
+The GShard capacity backend (``_capacity``, ``_gumbel``, ``top1gating``,
+``top2gating``, ``TopKGate``, ``moe_layer``; JAX sharded_moe.py:124-362):
+top-1 (Switch, with RSample or Jitter noise) and top-2 (the second queue
+after every first choice, optional gumbel second-expert sampling) gating
+over a static per-expert capacity C, the tokens past C dropped (their MoE
+output 0). JAX materialises (S, E, C) ``combine`` / ``dispatch`` tensors
+and contracts them in einsums; a capacity slot holds at most one token,
+so the port scatters each dispatched token into its (expert, slot) row of
+an (E, C', M) buffer, runs the expert FFN there as batched products, and
+gathers each token's rows weighted by its kept gates: the same values
+without the (S, E, C) tensors (84 M elements a layer at 8 x 1024 tokens,
+E 8, cf 1.25). The gates return that compact routing (``Gating``). Under
+data parallelism the gate is the global batch's, as the JAX gate over
+GSPMD's global (S, E) logits: C from the global token count, each token's
+queue position counted over the whole batch rank-major (the lower ranks'
+per-expert counts from one all_gather over ``dp_axes``), the second queue
+after every rank's first choices, the aux loss's means global, the noise
+this rank's rows of the global draw; the buffer holds only this rank's
+tokens (C' = min(C, S), each rank's slots of an expert renumbered from 0),
+so only they take expert compute.
 
 Expert parallelism (``*_ragged_ep``): each rank holds ``E / ep`` experts
 and routes its own tokens over all ``E``. Where the JAX ``shard_map``
@@ -38,6 +58,9 @@ then ``data_outer``, experts over the ``(data_outer, expert)`` grid, with
 clamp defines no gradient of its own).
 """
 
+import math
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as F
 
@@ -48,7 +71,7 @@ from ..ops.cuda.grouped_matmul import (grouped_matmul,
                                        grouped_swiglu, grouped_swiglu_wq,
                                        grouped_tgmm)
 from ..ops.int8_weights import is_quantized
-from ..utils import groups
+from ..utils import groups, prng
 
 _TODO_INT8 = "int8 expert compute (M11, ROADMAP Queue 1)"
 
@@ -229,6 +252,227 @@ def moe_layer_ragged(tokens, gate_w, wi, bi, wo, bo, k=1, *,
     unsorted = torch.zeros_like(out).index_copy(0, order, out)
     y = (unsorted * flat_w[:, None]).reshape(S, k, M).sum(dim=1)
     return y.to(tokens.dtype).reshape(orig_shape), l_aux, group_sizes
+
+
+# --------------------------------------------- GShard capacity backend
+
+def _capacity(num_tokens, num_experts, capacity_factor, min_capacity):
+    """Static per-expert capacity (JAX sharded_moe.py:124)."""
+    cap = int(math.ceil(num_tokens / num_experts * capacity_factor))
+    return max(cap, int(min_capacity))
+
+
+def _gumbel(rng, shape, offset=0, device=None):
+    """Gumbel noise from the threefry key words ``rng``, bitwise the
+    uniform draw of JAX's ``_gumbel`` (sharded_moe.py:130); ``offset``: the
+    flat index of this draw's first element in the global one."""
+    u = prng.uniform(rng, shape, 1e-20, 1.0 - 1e-20, offset, device)
+    return -torch.log(-torch.log(u))
+
+
+class Gating(NamedTuple):
+    """The compact routing of S tokens over k choices: ``experts`` (S, k)
+    int64; ``locations`` (S, k) int64, each choice's position in its
+    expert's global queue, 0 where dropped (JAX's ``loc_s``); ``slots``
+    (S, k) int64, its row in this rank's buffer (``locations`` at one
+    rank); ``weights`` (S, k) fp32, the combine weights, 0 where dropped
+    (a choice is dispatched where its weight is > 0, JAX's ``combine >
+    0``); ``capacity`` C; ``l_aux``; ``exp_counts`` (E,) fp32, every
+    choice before the drop, over the global batch."""
+    experts: torch.Tensor
+    locations: torch.Tensor
+    slots: torch.Tensor
+    weights: torch.Tensor
+    capacity: int
+    l_aux: torch.Tensor
+    exp_counts: torch.Tensor
+
+
+def _ranks(dp_axes):
+    """(ranks, this rank's index) over the data-parallel axes."""
+    if not dp_axes:
+        return 1, 0
+    topo = groups.get_topology()
+    return topo.axis_size(dp_axes), topo.axis_index(dp_axes)
+
+
+def _lower_and_total(counts, dp_axes):
+    """Per-expert counts (n, E) of this rank -> (the lower ranks' sum, every
+    rank's sum), one all_gather over ``dp_axes``."""
+    if not dp_axes:
+        return torch.zeros_like(counts), counts
+    allc = comm.all_gather(counts[None], dp_axes, gather_dimension=0)
+    r = groups.get_topology().axis_index(dp_axes)
+    return allc[:r].sum(0), allc.sum(0)
+
+
+def _queue(mask, idx):
+    """Each token's exclusive position among the tokens before it that
+    chose the same expert: (cumsum(mask) - mask) at the chosen column."""
+    return (torch.cumsum(mask, 0) - mask).gather(1, idx[:, None])[:, 0]
+
+
+def _aux(gates, first, S_global, dp_axes):
+    """E * sum(mean gates * first-choice fraction) over the global batch
+    (JAX ``l_aux``) from the global first-choice counts ``first`` (E,);
+    the gate sum differentiable across ranks."""
+    me = gates.sum(0)
+    if dp_axes:
+        me = _SumOverRanks.apply(me, dp_axes)
+    return torch.sum(me / S_global * (first.float() / S_global)) * \
+        gates.shape[1]
+
+
+def top1gating(logits, capacity_factor=1.0, min_capacity=4,
+               noisy_gate_policy=None, rng=None, drop_tokens=True,
+               dp_axes=None):
+    """Switch-style top-1 gating of fp32 logits (S, E) (JAX
+    sharded_moe.py:135): RSample adds gumbel noise and Jitter scales by
+    U(0.99, 1.01) before the argmax (the gates stay the clean softmax);
+    ``drop_tokens=False`` sets C to the global token count. Returns a
+    ``Gating``."""
+    S, E = logits.shape
+    R, r = _ranks(dp_axes)
+    C = _capacity(S * R, E, capacity_factor, min_capacity)
+    if not drop_tokens:
+        C = S * R
+    gates = torch.softmax(logits, dim=-1)
+    select = logits
+    if noisy_gate_policy in ("RSample", "Jitter"):
+        if rng is None:
+            raise ValueError(f"{noisy_gate_policy} noisy gating needs an "
+                             f"rng")
+        if noisy_gate_policy == "RSample":
+            select = logits + _gumbel(rng, (S, E), r * S * E, logits.device)
+        else:
+            select = logits * prng.uniform(rng, (S, E), 0.99, 1.01,
+                                           r * S * E, logits.device)
+    idx1 = torch.argmax(select, dim=-1)
+    mask1 = F.one_hot(idx1, E)
+    lower, total = _lower_and_total(mask1.sum(0), dp_axes)
+    l_aux = _aux(gates, total, S * R, dp_axes)
+    local = _queue(mask1, idx1)
+    pos = local + lower[idx1]
+    kept = pos < C
+    w = gates.gather(1, idx1[:, None])[:, 0] * kept
+    zero = torch.zeros_like(pos)
+    return Gating(idx1[:, None], torch.where(kept, pos, zero)[:, None],
+                  torch.where(kept, local, zero)[:, None], w[:, None], C,
+                  l_aux, total.float())
+
+
+def top2gating(logits, capacity_factor=1.0, min_capacity=4, rng=None,
+               drop_tokens=True, top2_2nd_expert_sampling=True,
+               dp_axes=None):
+    """GShard top-2 gating of fp32 logits (S, E) (JAX sharded_moe.py:181):
+    capacity for 2 * capacity_factor; the second expert the argmax of the
+    logits (plus gumbel noise when sampling) with the first masked; its
+    queue starts after every first choice; the kept pair's gates
+    renormalised. Returns a ``Gating``."""
+    S, E = logits.shape
+    R, r = _ranks(dp_axes)
+    C = _capacity(S * R, E, 2 * capacity_factor, min_capacity)
+    if not drop_tokens:
+        C = S * R
+    gates = torch.softmax(logits, dim=-1)
+    idx1 = torch.argmax(gates, dim=-1)
+    mask1 = F.one_hot(idx1, E)
+    logits2 = logits
+    if top2_2nd_expert_sampling:
+        if rng is None:
+            raise ValueError("top2 2nd-expert sampling needs an rng")
+        logits2 = logits + _gumbel(rng, (S, E), r * S * E, logits.device)
+    logits2 = logits2.masked_fill(mask1 > 0, float("-inf"))
+    idx2 = torch.argmax(logits2, dim=-1)
+    mask2 = F.one_hot(idx2, E)
+    n_local = torch.stack([mask1.sum(0), mask2.sum(0)])
+    lower, total = _lower_and_total(n_local, dp_axes)
+    l_aux = _aux(gates, total[0], S * R, dp_axes)
+    q1, q2 = _queue(mask1, idx1), _queue(mask2, idx2)
+    pos1 = q1 + lower[0][idx1]
+    pos2 = q2 + lower[1][idx2] + total[0][idx2]
+    kept1, kept2 = pos1 < C, pos2 < C
+    g1 = gates.gather(1, idx1[:, None])[:, 0] * kept1
+    g2 = gates.gather(1, idx2[:, None])[:, 0] * kept2
+    denom = torch.clamp(g1 + g2, min=1e-9)
+    zero = torch.zeros_like(pos1)
+    # this rank's buffer rows of an expert: its first choices, then its
+    # second choices
+    slot2 = n_local[0][idx2] + q2
+    return Gating(
+        torch.stack([idx1, idx2], 1),
+        torch.stack([torch.where(kept1, pos1, zero),
+                     torch.where(kept2, pos2, zero)], 1),
+        torch.stack([torch.where(kept1, q1, zero),
+                     torch.where(kept2, slot2, zero)], 1),
+        torch.stack([g1 / denom, g2 / denom], 1), C, l_aux,
+        (total[0] + total[1]).float())
+
+
+class TopKGate:
+    """Gate config + apply (JAX sharded_moe.py:230 ``TopKGate``): the
+    training capacity factor when ``train``, else the eval one; no noise
+    and no second-expert sampling in eval."""
+
+    def __init__(self, k=1, capacity_factor=1.0, eval_capacity_factor=1.0,
+                 min_capacity=4, noisy_gate_policy=None, drop_tokens=True,
+                 top2_2nd_expert_sampling=True):
+        if k not in (1, 2):
+            raise ValueError("only top-1 and top-2 gating supported")
+        self.k = k
+        self.capacity_factor = capacity_factor
+        self.eval_capacity_factor = eval_capacity_factor
+        self.min_capacity = min_capacity
+        self.noisy_gate_policy = noisy_gate_policy
+        self.drop_tokens = drop_tokens
+        self.top2_2nd_expert_sampling = top2_2nd_expert_sampling
+
+    def __call__(self, logits, rng=None, train=True, dp_axes=None):
+        cf = self.capacity_factor if train else self.eval_capacity_factor
+        if self.k == 1:
+            return top1gating(
+                logits, cf, self.min_capacity,
+                self.noisy_gate_policy if train else None, rng,
+                self.drop_tokens, dp_axes)
+        return top2gating(
+            logits, cf, self.min_capacity, rng, self.drop_tokens,
+            self.top2_2nd_expert_sampling and train and rng is not None,
+            dp_axes)
+
+
+def moe_layer(tokens, gate_w, wi, bi, wo, bo, gate, *, rng=None,
+              train=True, activation=gelu, dp_axes=None):
+    """The GShard capacity MoE layer (JAX sharded_moe.py:325): fp32 router
+    logits, ``gate``'s routing, each dispatched token copied into its
+    (expert, slot) row of an (E, C', M) buffer (C' = min(C, S) rows an
+    expert hold this rank's tokens), the expert FFN ``act(buf @ wi + bi)
+    @ wo + bo`` as batched products, and each token's output the sum of
+    its rows times its kept gates (fp32 products and sum), 0 for a token
+    every choice of which was dropped. tokens (..., M); gate_w (M, E);
+    wi (E, M, F); bi (E, F); wo (E, F, M); bo (E, M). Returns (y like
+    tokens, l_aux, exp_counts (E,) fp32)."""
+    orig_shape = tokens.shape
+    M = orig_shape[-1]
+    x = tokens.reshape(-1, M)
+    S = x.shape[0]
+    E = gate_w.shape[-1]
+    g = gate(x.float() @ gate_w.float(), rng=rng, train=train,
+             dp_axes=dp_axes)
+    k = g.experts.shape[1]
+    rows = min(g.capacity, S)
+    flat = g.experts * rows + g.slots                          # (S, k)
+    sent = g.weights > 0
+    # undispatched choices go to a spare last row, dropped after the copy
+    dest = torch.where(sent, flat, E * rows).reshape(-1)
+    src = x.repeat_interleave(k, dim=0) if k > 1 else x
+    buf = x.new_zeros(E * rows + 1, M).index_copy(0, dest, src)
+    buf = buf[:-1].view(E, rows, M)
+    h = activation(torch.bmm(buf, wi) + bi[:, None])
+    out = (torch.bmm(h, wo) + bo[:, None]).reshape(E * rows, M)
+    picked = out.index_select(0, torch.where(sent, flat, 0).reshape(-1))
+    w = g.weights.to(tokens.dtype).float()
+    y = (w[..., None] * picked.view(S, k, M).float()).sum(1)
+    return y.to(tokens.dtype).reshape(orig_shape), g.l_aux, g.exp_counts
 
 
 def resolve_hierarchical_a2a(knob, outer_size, E, ep):

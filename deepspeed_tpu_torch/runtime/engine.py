@@ -29,8 +29,15 @@ takes the fp32 master from those, as JAX's engine.py:468-474 does (so a
 router the model keeps in fp32 enters a bf16 engine's master rounded).
 It installs the config's ``moe`` block on the model as ``model._moe_cfg``
 and, at dp > 1, the live data-parallel axes as ``model._moe_dp_axes``
-(an MoE layer's aux loss then sums its routing statistics over them: the
-JAX loss runs over the global batch), and drives ``model.loss(batch)``.
+(an MoE layer's aux loss then sums its routing statistics over them, and
+a capacity gate routes the global batch: the JAX loss runs over the
+global batch), and drives ``model.loss(batch)``. The JAX state key
+(``rng_data``, the words of ``jax.random.key(seed + 1)``) is folded with 0
+after every optimizer step, a skipped one included (JAX engine.py:652),
+and micro step i's key is ``fold_in(rng_data, i)``; a model whose
+training forward draws noise (``model._requires_train_rng()``, GPT2MoE's
+noisy gating) gets it as ``loss(rng=)``, as JAX's ``_model_loss`` passes
+it (engine.py:564-574, :669, :680).
 
 A multi-process world (``utils/groups.py``) is built from the config as
 the JAX engine.py:130-141 builds its mesh: ``sequence_parallel_size``
@@ -226,7 +233,8 @@ class DeepSpeedEngine:
         self.skipped_steps = 0
         self._global_grad_norm = None
         # the JAX engine's state key, jax.random.key(seed + 1), as its two
-        # threefry words: checkpointed as rng_data, folded on a reshape
+        # threefry words: checkpointed as rng_data, folded after each step
+        # and on a reshape
         self.rng_data = prng.key_data(seed + 1)
         self.checkpoint_engine = create_checkpoint_engine(
             self.config.checkpoint_engine)
@@ -479,12 +487,12 @@ class DeepSpeedEngine:
                          * micro, micro)
         return x.to(self.device)
 
-    def _micro_loss_and_grads(self, micro, scale):
+    def _micro_loss_and_grads(self, micro, scale, rng):
         params = self.state["params"]
         self._gather_params()
         for p in params.values():
             p.grad = None
-        loss = self._model_loss(micro)
+        loss = self._model_loss(micro, rng)
         (loss * scale).backward()
         grads = {}
         for n in self._names:     # each autograd grad freed once cast
@@ -493,8 +501,13 @@ class DeepSpeedEngine:
         self._release_params()
         return loss.detach(), grads
 
-    def _model_loss(self, micro):
+    def _model_loss(self, micro, rng):
+        """The model's training loss of one micro batch; ``rng``: the
+        micro step's key words, passed where the model draws noise."""
         kwargs = {"seq_sharded": True} if self.seq_parallel > 1 else {}
+        needs = getattr(self.model, "_requires_train_rng", None)
+        if needs is not None and needs():
+            kwargs["rng"] = rng
         return self.model.loss(micro, train=True, **kwargs)
 
     def _unscale_clip(self, grads, scale):
@@ -545,7 +558,8 @@ class DeepSpeedEngine:
         losses, acc = [], None
         for i in range(gas):
             loss, grads = self._micro_loss_and_grads(
-                {k: v[i] for k, v in batch.items()}, scale)
+                {k: v[i] for k, v in batch.items()}, scale,
+                prng.fold_in(self.rng_data, i))
             losses.append(loss)
             if per_micro:
                 grads = self._reduce_grads(grads)
@@ -600,6 +614,7 @@ class DeepSpeedEngine:
                 self._refresh_params()
         state["scale"] = self.loss_scaler.update(state["scale"], overflow)
         state["step"] += 1
+        self.rng_data = prng.fold_in(self.rng_data, 0)
         return {"grad_norm": gnorm, "overflow": overflow,
                 "loss_scale": scale, "lr": lr}
 

@@ -463,6 +463,56 @@ def moe_dp(inp, rank, world):
     return {"res": _np(out)}
 
 
+@_suite
+def moe_dense_dp(inp, rank, world):
+    """The GShard capacity gate and GPT2MoE's dense backend over a
+    data-parallel world: each gate of ``inp["gates"]`` on this rank's rows
+    of its global logits with the batch axes (the global batch's routing),
+    then each run of ``inp["runs"]`` through initialize -> train_batch
+    with the losses, grad norms, key words and the gathered master."""
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.moe import sharded_moe as sm
+    from deepspeed_tpu_torch.utils import groups, prng
+    out = {}
+    topo = _topology()
+    axes = tuple(a for a in groups.BATCH_AXES if topo.axis_size(a) > 1)
+    r = topo.axis_index(axes)
+    for name, g in inp["gates"].items():
+        logits = torch.from_numpy(g["logits"])
+        S = logits.shape[0] // world
+        mine = logits[r * S:(r + 1) * S].clone().requires_grad_()
+        key = prng.key_data(g["seed"])
+        if g["k"] == 1:
+            got = sm.top1gating(mine, g["cf"], g["mc"], g["policy"], key,
+                                True, axes)
+        else:
+            got = sm.top2gating(mine, g["cf"], g["mc"], key, True,
+                                g["sampling"], axes)
+        got.l_aux.backward()
+        out.setdefault("gates", {})[name] = {"capacity": got.capacity, "experts": got.experts,
+                     "locations": got.locations, "slots": got.slots,
+                     "weights": got.weights.detach(),
+                     "l_aux": got.l_aux.detach(),
+                     "l_aux_grad": mine.grad,
+                     "exp_counts": got.exp_counts}
+    for name, run in inp["runs"].items():
+        groups.reset()
+        engine, *_ = deepspeed_tpu_torch.initialize(
+            model=_gpt2_moe(run["model"], run["params"]),
+            config=run["config"], device="cpu")
+        losses, norms = [], []
+        for b in run["batches"]:
+            losses.append(engine.train_batch(b))
+            norms.append(engine.get_global_grad_norm())
+        out.setdefault("runs", {})[name] = {
+            "losses": losses, "grad_norms": norms, "dp": engine.dp,
+            "rng_data": engine.rng_data.copy(),
+            "master": {n: m.clone()
+                       for n, m in engine.gathered_master().items()}}
+    return {"res": _np(out)}
+
+
 def _model(run):
     """The port model of a run: ``run["kind"]`` gpt2 | gpt2_moe | mixtral
     from the JAX parameter tree ``run["params"]``, fp32 on the CPU."""

@@ -7,7 +7,7 @@ second wave sharing the first's prefixes), a GPT-2 draft model, KV host
 offload, ``weight_quant`` int8 / int4 and ``quantize_weights``; one DSKV
 handoff each way between the packages, with the layout guard refusing a
 GPT-2 payload into a Llama cache on both sides; ``prefix_cache=True`` on
-GPT-Neo raising as in JAX; GPT2MoE refused. The prompts (5, 37 and 75
+GPT-Neo raising as in JAX; GPT2MoE served. The prompts (5, 37 and 75
 tokens) run past GPT-Neo's window-64 layer. One JAX engine a family and
 mode is built once and shared."""
 
@@ -211,10 +211,18 @@ def test_prefix_cache_on_windowed_model_raises_as_jax():
 
 
 def test_gpt2_moe_is_refused():
-    cfg = GPT2MoEConfig(n_layer=1, n_head=2, d_model=32, max_seq_len=32,
-                        vocab_size=64, num_experts=2, dtype="float32",
-                        moe_backend="ragged")
-    with pytest.raises(NotImplementedError,
-                       match="serving: GPT2MoE paged paths"):
-        InferenceEngineV2(GPT2MoE(cfg, device="cpu"), dict(BASE),
-                          device="cpu")
+    """GPT2MoE, which the engine refused before its paged programs were
+    ported, now serves with both MoE backends (its streams are held to
+    the JAX engine's in test_torch_gpt2_moe_engines.py): every request
+    completes and prefill and decode forwards ran."""
+    for backend in ("ragged", "dense"):
+        cfg = GPT2MoEConfig(n_layer=1, n_head=2, d_model=32, max_seq_len=32,
+                            vocab_size=64, num_experts=2, dtype="float32",
+                            moe_backend=backend)
+        eng = InferenceEngineV2(GPT2MoE(cfg, device="cpu"), dict(BASE),
+                                device="cpu")
+        outs = eng.generate_all([p[:5] % 64 for p in PROMPTS],
+                                max_new_tokens=3)
+        assert [len(o) for o in outs] == [3, 3, 3]
+        assert eng.forward_counts["prefill"] > 0
+        assert eng.forward_counts["decode"] > 0

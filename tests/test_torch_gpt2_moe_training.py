@@ -232,15 +232,29 @@ def test_engine_moe_block_overrides_the_model_knob(model_knob, block, want,
 
 
 def test_unported_moe_paths_raise():
-    """moe_backend='dense' (GShard capacity), an expert-parallel config
-    whose world cannot hold its expert axis, a quantized expert leaf and
-    ragged noisy gating raise; the moe block is validated as JAX's."""
-    with pytest.raises(NotImplementedError, match="GShard capacity"):
-        GPT2MoE(GPT2MoEConfig(**{**BASE, "moe_backend": "dense"}),
-                device="cpu")
-    with pytest.raises(NotImplementedError, match="GShard capacity"):
-        GPT2MoE(GPT2MoEConfig(n_layer=1, d_model=64, n_head=2,
-                              max_seq_len=16, vocab_size=64), device="cpu")
+    """moe_backend='dense' (GShard capacity) builds, the config's default
+    included, and raises only under expert parallelism (M10) and sequence
+    parallelism (M12); an expert-parallel config whose world cannot hold
+    its expert axis, an unknown quantized leaf and ragged noisy gating
+    raise; the moe block is validated as JAX's."""
+    dense = GPT2MoE(GPT2MoEConfig(**{**BASE, "moe_backend": "dense"}),
+                    device="cpu")
+    assert dense.moe.gate is not None and dense.moe.gate.k == 2
+    default = GPT2MoE(GPT2MoEConfig(n_layer=1, d_model=64, n_head=2,
+                                    max_seq_len=16, vocab_size=64),
+                      device="cpu")
+    assert default.moe.backend == "dense" and default.moe.gate.k == 1
+    params = {n[len("blocks.moe."):]: p[0] for n, p in
+              default.named_parameters() if n.startswith("blocks.moe.")}
+    with pytest.raises(NotImplementedError,
+                       match="M10: dense backend under expert parallelism"):
+        default.moe.apply(params, torch.zeros(2, 64),
+                          expert_parallel_size=2)
+    with pytest.raises(NotImplementedError,
+                       match="M12: MoE under sequence parallelism"):
+        default.loss({"input_ids": _ids(dict(vocab_size=64,
+                                             max_seq_len=16), 1)},
+                     seq_sharded=True)
     with pytest.raises(ValueError, match="noisy_gate_policy"):
         GPT2MoE(GPT2MoEConfig(**{**BASE, "noisy_gate_policy": "Jitter"}),
                 device="cpu")

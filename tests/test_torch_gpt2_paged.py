@@ -301,5 +301,15 @@ def test_gpt2_moe_refuses_quantized_leaves():
                       vocab_size=128, num_experts=2, dtype="float32"))
     tree = jax.tree.map(np.asarray, jm.init(jax.random.key(0)))
     qtree = jiw.quantize_tree(tree)
-    with pytest.raises(NotImplementedError, match="GPT2MoE paged paths"):
-        gpt2_moe_params_from_numpy(qtree, "cpu", torch.float32)
+    # quantized leaves, refused before GPT2MoE served, now load nested
+    # under moe (test_torch_gpt2_moe_paged.py serves them)
+    state = gpt2_moe_params_from_numpy(qtree, "cpu", torch.float32)
+    assert {k for k, v in state.items() if iw.is_quantized(v)} == {
+        "blocks.wqkv", "blocks.moe.wi", "blocks.moe.wo"}
+    from deepspeed_tpu_torch.models import GPT2MoE, GPT2MoEConfig
+    pm = GPT2MoE(GPT2MoEConfig(**jm.config.__dict__), device="cpu",
+                 dtype=torch.float32)
+    pm.load_state_dict(state)
+    assert set(pm.qblocks) == {"wqkv", "moe.wi", "moe.wo"}
+    np.testing.assert_array_equal(pm.qblocks["moe.wi"].q.numpy(),
+                                  np.asarray(qtree["blocks"]["moe"]["wi"].q))

@@ -299,9 +299,10 @@ def test_expert_bias_gradient_is_the_group_row_sum():
 def test_moe_module_checks_and_init():
     """The constructor's checks as JAX's MoE (ragged + noisy gating and
     k < 1 raise ValueError, a bad knob raises); the dense GShard backend
-    raises naming its ROADMAP item; init gives the JAX names and shapes,
-    the router in fp32, the JAX partition specs (experts over "expert");
-    EP > 1 without an expert axis of that size raises."""
+    (the default) builds its TopKGate and raises only under expert
+    parallelism, naming its ROADMAP item; init gives the JAX names and
+    shapes, the router in fp32, the JAX partition specs (experts over
+    "expert"); EP > 1 without an expert axis of that size raises."""
     with pytest.raises(ValueError, match="noisy_gate_policy"):
         MoE(32, num_experts=4, k=2, backend="ragged",
             noisy_gate_policy="RSample")
@@ -309,8 +310,8 @@ def test_moe_module_checks_and_init():
         MoE(32, num_experts=4, k=0, backend="ragged")
     with pytest.raises(ValueError, match="grouped_kernel"):
         MoE(32, backend="ragged", grouped_kernel="yes")
-    with pytest.raises(NotImplementedError, match="GShard capacity"):
-        MoE(32, num_experts=4, k=2)          # backend defaults to 'dense'
+    dense = MoE(32, num_experts=4, k=2)      # backend defaults to 'dense'
+    assert dense.backend == "dense" and dense.gate.k == 2
     layer = MoE(32, ffn_hidden_size=48, num_experts=4, k=2,
                 backend="ragged", dtype=torch.float32)
     params = layer.init(stack=3, out_std=0.01,
@@ -332,3 +333,6 @@ def test_moe_module_checks_and_init():
     with pytest.raises(ValueError, match="expert axis has 1 ranks"):
         moe.moe_layer_ragged_ep(x, *one.values(), k=2,
                                 expert_parallel_size=2)
+    with pytest.raises(NotImplementedError,
+                       match="M10: dense backend under expert parallelism"):
+        dense.apply(one, x, expert_parallel_size=2)
