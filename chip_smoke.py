@@ -34,7 +34,11 @@ Phases (any failure raises and the script exits nonzero):
      split's partial) that must fail; then each kernel timed with CUDA
      events beside its plain version, its bound and one library call
      (SDPA on the gathered K/V, a yardstick only), K4 also at Mixtral's
-     GQA G = 4 shape beside its bound and SDPA (kv heads repeated). K5's
+     GQA G = 4 shape beside its bound and SDPA (kv heads repeated); K4 on
+     a tensor-parallel rank's ALiBi heads (32 over 2 ranks, 24 over 3:
+     the head offset) bitwise the whole-head call's rows, equal to the
+     plain version, with a control (rank 1's heads at offset 0) that must
+     fail. K5's
      bf16 cases (block_c 16 and 64, start 0 / 1000 / 3800, true_len 256
      and 100, window 0 and 512, Mistral GQA with window 4096) all run on
      its sm90 design (counted), each repeated bitwise; fp32 cases on the
@@ -118,30 +122,29 @@ Phases (any failure raises and the script exits nonzero):
      (per layer and step: 6 gmm, all on sm90; 4 tgmm, wi and wo on sm90,
      the expert-bias row sums on mma_sync; one flash forward, on sm90, and
      one backward).
- 14. wq kernels: K7 (wq_matmul) at the Llama-2-7B FFN shapes (8 decode
-     rows, a 256-token chunk and 1, 200, 300 rows; D=4096 -> F=11008 and
-     back) on the design _wq_design picks (sm90 for bf16: every call
-     counted there, held also against its split-order plain version at
-     the plan's K split, repeated bitwise) and K9 (grouped_swiglu_up_wq,
-     grouped_gmm_wq) at phase 8's Mixtral-8x7B shapes and edge cases, int8
-     and int4, bf16 against their plain versions in fp32 on the same
-     inputs, fp32 at 1e-4, tails exactly 0; controls that must fail (K7's
-     scale shifted by one channel, one k slice of its codes skipped, int4
-     nibbles swapped, a K9 group on its neighbour expert's scales); each
-     timed beside its bound, plain version and library yardsticks (bf16
-     torch.matmul / torch._grouped_mm on the dequantized weights, and
-     torch._weight_int8pack_mm where this torch runs it), K7 also beside
-     its mma_sync design (wq_kernel) and the sm90 kernel at the plan's
-     other K split, each with its launches queued behind a device spin
-     (the eager call is about as long as its Python launch path: its
-     time and the host's launch path are logged beside). K9's every case
-     (int8 and int4: decode, chunk, empty groups, one expert, the 162-row
-     tail) on the design _wq_grouped_design picks (sm90 for bf16: counted),
-     repeated bitwise, tails exactly 0; its controls (a group on its
-     neighbour's scales, a group's codes with one k slice skipped) at the
-     decode and the chunk shapes; decode and chunk timed on both designs
-     (sm90 and wq_kernel, launches queued) beside the library calls and
-     the bound.
+ 14. wq kernels: K7 (wq_matmul) at the Llama-2-7B FFN shapes (8 decode rows, a
+     256-token chunk and 1, 200, 300 rows; D=4096 -> F=11008 and back; and a
+     tensor_parallel = 2 rank's slices, 4096 -> 5504 and back, at 8 and 256
+     rows) on the design _wq_design picks (sm90 for bf16: every call counted
+     there, held also against its split-order plain version at the plan's K
+     split, repeated bitwise) and K9 (grouped_swiglu_up_wq, grouped_gmm_wq) at
+     phase 8's Mixtral-8x7B shapes and edge cases, int8 and int4, bf16 against
+     their plain versions in fp32 on the same inputs, fp32 at 1e-4, tails
+     exactly 0; controls that must fail (K7's scale shifted by one channel, one
+     k slice of its codes skipped, int4 nibbles swapped, a K9 group on its
+     neighbour expert's scales); each timed beside its bound, plain version and
+     library yardsticks (bf16 torch.matmul / torch._grouped_mm on the
+     dequantized weights, and torch._weight_int8pack_mm where this torch runs
+     it), K7 also beside its mma_sync design (wq_kernel) and the sm90 kernel at
+     the plan's other K split, each with its launches queued behind a device
+     spin (the eager call is about as long as its Python launch path: its time
+     and the host's launch path are logged beside). K9's every case (int8 and
+     int4: decode, chunk, empty groups, one expert, the 162-row tail) on the
+     design _wq_grouped_design picks (sm90 for bf16: counted), repeated
+     bitwise, tails exactly 0; its controls (a group on its neighbour's scales,
+     a group's codes with one k slice skipped) at the decode and the chunk
+     shapes; decode and chunk timed on both designs (sm90 and wq_kernel,
+     launches queued) beside the library calls and the bound.
  15. wq parity: small fp32 Llama and Mixtral, int8 and int4, served with
      weight_quant give the same greedy streams as the same model with
      its dequantized weights served unquantized (split-fuse on and off).
@@ -403,7 +406,7 @@ Phases (any failure raises and the script exits nonzero):
      weight) and its bound.
  41. Bloom-7b1: its widths at 2 layers in fp32, greedy streams with K4
      (the ALiBi slopes in the kernel) equal those with K4's plain version;
-     then all 30 layers in bf16 serving 8 requests (64 new each): TTFT /
+     then 15 of its 30 layers in bf16 serving 8 requests (64 new each): TTFT /
      TPOT p50, tokens/s, peak memory, K4's launches by design and no K5
      (ALiBi prefill and chunk are dense, as in JAX).
  42. Bloom-7b1 training: its widths at 2 layers, fp32, T = 512: the loss
@@ -430,16 +433,16 @@ Phases (any failure raises and the script exits nonzero):
      the library call (SDPA with the causal / window mask at the model's
      scale; torch.matmul on the dequantized weight; cuBLAS h @ w^T) and
      its bound.
- 45. GPT-2 1.3B serving: its widths (and GPT-Neo-1.3B's, windows 0 /
-     256) at 2 layers in fp32, greedy streams with K4 / K5 on equal their
-     plain versions' (split-fuse and bucketed) and weight_quant int8 /
-     int4 (K7) equal the dequantized weights served unquantized; then all
-     24 layers in bf16, 8 requests (32 new each): bf16, weight_quant int8
-     and int4 (the 2-D bias leaves bqkv / bup quantized over L), and with
-     bucketed prefill plain and with GPT-2 125M as the draft: TTFT / TPOT
-     p50, tokens/s, peak memory, K4 / K5 / K7 launches by design, the
-     draft's tokens a verify and TPOT against plain decode.
- 46. OPT-1.3b and GPT-Neo-1.3B at their published widths and 24 layers,
+ 45. GPT-2 1.3B serving: its widths (and GPT-Neo-1.3B's, windows 0 / 256) at 2
+     layers in fp32, greedy streams with K4 / K5 on equal their plain versions'
+     (split-fuse and bucketed) and weight_quant int8 / int4 (K7) equal the
+     dequantized weights served unquantized; then 12 of its 24 layers in bf16,
+     8 requests (32 new each): bf16, weight_quant int8 and int4 (the 2-D bias
+     leaves bqkv / bup quantized over L), and with bucketed prefill plain and
+     with GPT-2 125M as the draft: TTFT / TPOT p50, tokens/s, peak memory, K4 /
+     K5 / K7 launches by design, the draft's tokens a verify and TPOT against
+     plain decode.
+ 46. OPT-1.3b and GPT-Neo-1.3B at their published widths and 12 of 24 layers,
      bf16, 8 requests each of 300-2016 tokens (GPT-Neo's window-256
      layers cut; its prefix cache resolves off): the same figures; then
      GPT-Neo at 4 layers through initialize -> train_batch (micro 1 x
@@ -470,16 +473,17 @@ Phases (any failure raises and the script exits nonzero):
      kind is refused (a miss) and an entry naming the dense path for the
      decode raises.
  48. GPT2MoE serving at the 350M widths: at 2 layers in fp32, the ragged
-     backend's greedy streams with K4 / K5 / K8 on equal those with all
-     off, and the dense backend without drops gives the ragged backend's
-     prefill logits (fp32 at 1e-4; bf16 within a relative error norm of
-     1e-2); at 24 layers in bf16, 8 requests of 64-992 tokens, 32 new
-     each: (a) ragged, 4 experts, top-2: K4 / K5 one a layer and forward,
-     K8's grouped_gmm two; (b) the config's MoE defaults (dense, 8
-     experts, top-1, eval capacity factor 2.0): K4 / K5, no K8, the
-     gate's dropped choices counted; (c) (a) under weight_quant int8
-     (every expert leaf dequantized a layer at a time, as JAX, then K8):
-     TTFT / TPOT p50, tokens/s, peak memory.
+     backend's greedy streams with K4 / K5 / K8 on equal those with all off,
+     and the dense backend without drops gives the ragged backend's prefill
+     logits (fp32 at 1e-4; bf16 within a relative error norm of 1e-2); at 12 of
+     its 24 layers in bf16 (the int8 run (c) at 24), 8 requests of 64-992
+     tokens, 32 new each: (a) ragged, 4 experts, top-2: K4 / K5 one a layer and
+     forward, K8's grouped_gmm two; (b) the config's MoE defaults (dense, 8
+     experts, top-1, eval capacity factor 2.0): K4 / K5, no K8, the gate's
+     dropped choices counted; (c) (a) under weight_quant int8 (exactly the
+     block leaves JAX's quantize_tree names, the router and the expert biases
+     included, each dequantized a layer at a time, as JAX, then K8): TTFT /
+     TPOT p50, tokens/s, peak memory.
  49. GPT2MoE dense training: at 2 layers in fp32 the dense backend
      without drops gives the ragged backend's loss, aux and gradients
      (relative error norm 1e-4); the config's MoE defaults at 6 of 24
@@ -487,6 +491,31 @@ Phases (any failure raises and the script exits nonzero):
      steps: the loss falls, K1 / K2 one a layer and step (sm90), K3 two a
      step, no K8; step time, tokens/s, peak memory, the dropped share;
      one RSample step of a 2-layer model.
+ 50. tensor-parallel serving in two processes sharing cuda:0 (a gloo
+     world, --child serve-tp): the v2 engine at tensor_parallel = 2, each
+     rank holding its slice (H / 2 heads, KVH / 2 KV heads and F / 2 FFN
+     columns; GPT-2's wqkv split per head) and summing over "tensor"
+     after each row-parallel product. At 2 layers in fp32 the tp = 2
+     greedy streams of Llama-2-7B (also under weight_quant int8 and
+     int4), GPT-2 1.3B and Bloom-7b1 widths equal a one-rank engine's on
+     the same weights; then in bf16, 8 requests of
+     64-1023 tokens, 32 new each, split-fuse 256: Llama-2-7B at 8 layers
+     (K4 / K5 at 16 local heads, one a layer and forward) and the same
+     under weight_quant int8 (K7 three a layer and forward on the rank's
+     5504 columns / rows), GPT-2 1.3B at 4, Bloom-7b1 at 2 (K4 with the
+     head offset: the global heads' ALiBi slopes): both ranks' streams
+     identical (and how many of a rank's own picks rank 0's broadcast
+     replaced), exact launch counts a rank, TTFT / TPOT p50, tokens/s,
+     peak GB a process, the comm layer's traffic a decode step (what went
+     through host memory, and each collective's calls and bytes). A
+     one-card world measures correctness and launch counts: its TPOT is
+     set by gloo's host staging, not by tensor parallelism on two cards.
+ 51. expert-parallel serving the same way (--child serve-ep):
+     Mixtral-8x7B widths at expert_parallel = 2, 4 experts a rank; at 1
+     layer in fp32 the ep = 2 streams equal one rank's; at 2 layers in
+     bf16 the rows of each forward split over the two ranks, exchanged to
+     the ranks of their experts (K8's grouped pair one each a layer and
+     forward on the received rows) and gathered back; the same figures.
 Phases 7, 13, 20, 24, 32 and 33 also hold every bf16 K1 / K2 / K2-qmajor /
 K3 / K6 launch to the sm90 design (the wrappers' DESIGN_LAUNCHES); the
 serving slices count K4's launches by design (split / single), the
@@ -995,6 +1024,54 @@ class KernelCases:
                     true_len=true_len, block_c=block_c)
 
 
+def decode_head_offset(pa, cases, H=32, tp=2):
+    """K4 on a tensor-parallel rank's heads (Bloom-7b1's 32 ALiBi heads
+    over tp = 2, and 24 heads over tp = 3: the power-of-two count 16 and
+    the interleaved rest, split between ranks): each rank's call with
+    ``alibi_offset`` = its first global head and ``alibi_heads`` = H is
+    bitwise the whole-head call's rows (each head's arithmetic is its own;
+    at offset 0 the kernel computes what it did before the offset
+    existed) and agrees with the plain version with the same arguments;
+    the control, rank 1's heads with offset 0's slopes, fails the bf16
+    check."""
+    bf = torch.bfloat16
+    for heads, parts in ((H, tp), (24, 3)):
+        lens = cases.rs.randint(1, 2048, 8)
+        d = cases.decode(8, heads, heads, 128, 64, 32, lens, bf, alibi=True)
+        args = [d[n] for n in ("q", "k", "v")]
+        whole = pa.paged_decode_attention(
+            *args, d["tables"], d["lengths"],
+            alibi_slopes=pa.alibi_slopes(heads))
+        Hl = heads // parts
+        for r in range(parts):
+            hs = slice(r * Hl, (r + 1) * Hl)
+            q, k, v = (t[:, hs].contiguous() for t in args)
+            kw = dict(alibi_slopes=pa.alibi_slopes(heads)[hs],
+                      alibi_offset=r * Hl, alibi_heads=heads)
+            out = pa.paged_decode_attention(q, k, v, d["tables"],
+                                            d["lengths"], **kw)
+            cases.check("paged_decode", out, lambda q, k, v, kw=kw:
+                        pa.paged_decode_attention_reference(
+                            q, k, v, d["tables"], d["lengths"], **kw),
+                        q, k, v)
+            assert torch.equal(out, whole[:, hs]), \
+                f"K4 head offset {r * Hl}: not the whole call's rows"
+        q, k, v = (t[:, Hl:2 * Hl].contiguous() for t in args)
+        ctrl = pa.paged_decode_attention(
+            q, k, v, d["tables"], d["lengths"],
+            alibi_slopes=pa.alibi_slopes(heads)[:Hl], alibi_offset=0,
+            alibi_heads=heads)
+        ref = pa.paged_decode_attention_reference(
+            q.float(), k.float(), v.float(), d["tables"], d["lengths"],
+            alibi_slopes=pa.alibi_slopes(heads)[Hl:2 * Hl],
+            alibi_offset=Hl, alibi_heads=heads)
+        why = bf16_mismatch(ctrl, ref)
+        assert why is not None, "bf16 check let offset 0's slopes pass"
+        log(f"K4 head offset ({heads} ALiBi heads over {parts} ranks): each "
+            f"rank's call bitwise the whole call's rows, equal to the plain "
+            f"version; control: rank 1's heads at offset 0 fail ({why})")
+
+
 def dense_kv(k, v, tables):
     """(B, MB) tables -> gathered (B, KVH, S, d) K/V for the library call."""
     B, MB = tables.shape
@@ -1026,6 +1103,7 @@ def phase_kernels(pa):
                  alibi_scale=1 / math.sqrt(128), alibi_bf16=True)
     log(f"decode cases ok, max bf16 |err| {cases.err['paged_decode']:.3g}, "
         f"worst row relative error norm {cases.rel['paged_decode']:.3g}")
+    decode_head_offset(pa, cases)
     d32 = [main_dec[n].float() for n in ("q", "k", "v")] + [
         main_dec["tables"], main_dec["lengths"]]
     dropped = decode_with_blocks_dropped(pa, *d32).to(bf)
@@ -2993,7 +3071,9 @@ def wq_controls(mm, gm, dense, grouped):
 
 def phase_wq_kernels(mm, gm, seed=0):
     """K7 at the Llama-2-7B FFN shapes (8 decode rows and a 256-token
-    chunk; D=4096 -> F=11008 and back) and K9 at the Mixtral-8x7B expert
+    chunk; D=4096 -> F=11008 and back, and a tensor_parallel = 2 rank's
+    slices, 4096 -> 5504 and back: 43 k tiles of 128 split over the plan's
+    K splits) and K9 at the Mixtral-8x7B expert
     shapes (phase 8's routed sizes and edge cases), int8 and int4:
     checked, controlled and timed. The main-path widths: K7 int4 (the
     Llama slice), K9 int8 (the Mixtral slice)."""
@@ -3009,11 +3089,14 @@ def phase_wq_kernels(mm, gm, seed=0):
     # kernel at the plan's other K split
     dense = {}
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    every = ((8, "decode"), (256, "chunk"), (1, "1 row"), (200, "200 rows"),
+             (300, "300 rows"))
     for bits in (4, 8):
-        for K, N, tag in ((D, Fl, "up"), (Fl, D, "down")):
+        for K, N, tag, Ms in ((D, Fl, "up", every), (Fl, D, "down", every),
+                              (D, Fl // 2, "up tp2", every[:2]),
+                              (Fl // 2, D, "down tp2", every[:2])):
             w = cases.quantized((K, N), bits)
-            for M, shape in ((8, "decode"), (256, "chunk"), (1, "1 row"),
-                             (200, "200 rows"), (300, "300 rows")):
+            for M, shape in Ms:
                 x = cases.randn((1, M, K))
                 x2 = x[0]
                 mm.reset_launch_counts()
@@ -3202,7 +3285,7 @@ def phase_wq_kernels(mm, gm, seed=0):
                f"{t['alt_splits_ms']:.4f}" if "alt_splits" in t else ""))
     for bits in (4, 8):
         for shape in ("decode", "chunk"):
-            for tag in ("up", "down"):
+            for tag in ("up", "down", "up tp2", "down tp2"):
                 t = timings[("wq_matmul", bits, shape, tag)]
                 faster = "sm90" if t["ms"] < t["mma_sync_ms"] else \
                     "mma_sync"
@@ -8012,7 +8095,10 @@ def phase_family_kernels(fa, pa, mm, seed=0):
 
 
 # phases 41-43: the families' serving and training runs
-BLOOM_SERVE = dict(requests=8, new=64, parity_layers=2, parity_new=16)
+# phase 41 serves at 15 of Bloom-7b1's 30 layers (the run's time limit:
+# since PR 27)
+BLOOM_SERVE = dict(requests=8, new=64, parity_layers=2, parity_new=16,
+                   layers=15)
 BLOOM_TRAIN = dict(layers=8, T=2048, steps=10, parity_layers=2,
                    parity_T=512)
 FAMILY_SERVE = dict(layers=4, requests=4, new=32)
@@ -8087,7 +8173,8 @@ def phase_bloom_serve(seed=0):
     and BLOOM_SERVE["parity_layers"] layers with K4 on (the slopes in the
     kernel) equal the streams with K4's plain version in its place (ALiBi
     families take K4 whatever paged_kernel says, so the plain version is
-    swapped in by name); then all 30 layers in bf16 serving 8 requests:
+    swapped in by name); then BLOOM_SERVE["layers"] of its 30 layers in
+    bf16 serving 8 requests:
     TTFT / TPOT p50, tokens/s, peak memory and K4 launches by design.
     Returns the serving run's launches."""
     from deepspeed_tpu_torch import BLOOM_PRESETS, Bloom, InferenceEngineV2
@@ -8128,6 +8215,7 @@ def phase_bloom_serve(seed=0):
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
+    base = dataclasses.replace(base, n_layer=BLOOM_SERVE["layers"])
     model = Bloom(base, device="cuda", dtype=torch.bfloat16, seed=seed)
     torch.cuda.synchronize()
     log(f"bloom-7b1 built in {time.perf_counter() - t0:.1f} s: "
@@ -8296,8 +8384,13 @@ GPT2_CHUNK_CASES = (("prefill", 512, 0), ("chunk", 256, 1024),
                     ("verify", 5, 1200))
 # K7 at GPT-2 1.3B's FFN: (leaf, K, N)
 GPT2_FFN_CASES = (("wup", 2048, 8192), ("wdown", 8192, 2048))
-GPT2_SERVE = dict(requests=8, new=32, parity_layers=2, parity_new=8)
-GPT2_FAMILY_SERVE = dict(requests=8, new=32, min_prompt=300)
+# phase 45's serving runs at 12 of GPT-2 1.3B's 24 layers (the run's time
+# limit: since PR 27)
+GPT2_SERVE = dict(requests=8, new=32, parity_layers=2, parity_new=8,
+                  layers=12)
+# phase 46's serving runs at 12 of the 24 layers (the run's time limit:
+# since PR 27)
+GPT2_FAMILY_SERVE = dict(requests=8, new=32, min_prompt=300, layers=12)
 GPTNEO_TRAIN = dict(layers=4, T=2048, steps=2, loss_chunk=512)
 
 
@@ -8571,9 +8664,10 @@ def phase_gpt2_serve(pa, mm, seed=0):
     bucketed and split-fuse; weight_quant int8 and int4 (K7 on wup / wdown)
     equal the same model's dequantized weights served unquantized; the
     same for GPT-Neo-1.3B's widths (unscaled scores, windows 0 / 256) at 2
-    layers. Then all 24 layers in bf16, 8 requests of 64-992 tokens, 32
-    new each (64-position blocks, batch 8, split-fuse 256, 8 decode steps
-    a dispatch): bf16, weight_quant int8, weight_quant int4 (2-D leaves
+    layers. Then GPT2_SERVE["layers"] of its 24 layers in bf16, 8 requests
+    of 64-992 tokens, 32 new each (64-position blocks, batch 8, split-fuse
+    256, 8 decode steps a dispatch): bf16, weight_quant int8, weight_quant
+    int4 (2-D leaves
     quantized over L: bqkv, bup), and speculative decoding with GPT-2 125M
     as the draft (with bucketed prefill, against plain decode with
     bucketed prefill): TTFT / TPOT p50, tokens/s, peak memory, K4 / K5 /
@@ -8637,7 +8731,7 @@ def phase_gpt2_serve(pa, mm, seed=0):
         gc.collect()
         torch.cuda.empty_cache()
 
-    cfg = GPT2_PRESETS["1.3B"]
+    cfg = dataclasses.replace(GPT2_PRESETS["1.3B"], n_layer=P["layers"])
     L = cfg.n_layer
     lens = rs.randint(64, cfg.max_seq_len - P["new"] + 1, P["requests"])
     prompts = [rs.randint(0, cfg.vocab_size, (n,)) for n in lens]
@@ -8724,7 +8818,8 @@ def phase_gpt2_serve(pa, mm, seed=0):
 
 def phase_gpt2_families(pa, mm, fa, fce, seed=0):
     """Phase 46: OPT-1.3b and GPT-Neo-1.3B at their published widths and
-    all 24 layers in bf16, serving 8 requests each of 300-2016 tokens (so
+    GPT2_FAMILY_SERVE["layers"] of their 24 layers in bf16, serving 8
+    requests each of 300-2016 tokens (so
     GPT-Neo's window-256 layers cut), 32 new each, phase 45's settings:
     TTFT / TPOT p50, tokens/s, peak memory, K4 / K5 launches by design
     (GPT-Neo's prefix cache resolves off). Then GPT-Neo-1.3B's widths at 4
@@ -8743,6 +8838,9 @@ def phase_gpt2_families(pa, mm, fa, fce, seed=0):
     for cls, cfg, tag in ((OPT, OPT_PRESETS["opt-1.3b"], "opt-1.3b"),
                           (GPTNeo, GPTNEO_PRESETS["gpt-neo-1.3b"],
                            "gpt-neo-1.3b")):
+        cut = cfg.attn_layer_windows[:P["layers"]]
+        cfg = dataclasses.replace(cfg, n_layer=P["layers"],
+                                  attn_layer_windows=cut)
         gc.collect()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
@@ -9156,7 +9254,16 @@ def phase_winner_cache(pa, seed=0):
 
 # phase 48: 8 requests of 64-992 tokens, 32 new each, phase 45's engine
 # settings; the parity engines at 2 layers in fp32
-GPT2MOE_SERVE = dict(requests=8, new=32, parity_layers=2, parity_new=8)
+# phase 48's serving runs at 12 of the 350M widths' 24 layers (the run's
+# time limit: since PR 27), the int8 run (c) at all 24: there the router
+# (L, D, E) and the expert biases reach quantize_tree's 2^16 elements
+GPT2MOE_SERVE = dict(requests=8, new=32, parity_layers=2, parity_new=8,
+                     layers=12, int8_layers=24)
+# the block leaves JAX's quantize_tree takes from GPT2MoE at the 350M
+# widths, 24 layers, 4 experts: every float leaf of >= 2 dims and 2^16
+# elements but moe_gate (deepspeed_tpu/ops/int8_weights.py:113-147)
+GPT2MOE_INT8_LEAVES = {"wqkv", "bqkv", "wo", "moe.gate_w", "moe.wi",
+                       "moe.bi", "moe.wo", "moe.bo"}
 # the JAX bench's MoE serving config (benchmarks/bench_engine.py:84-92)
 GPT2MOE_RAGGED = dict(num_experts=4, moe_top_k=2, moe_backend="ragged")
 
@@ -9234,15 +9341,17 @@ def phase_gpt2moe_serve(pa, gm, mm, seed=0):
     both off (paged_kernel=False, moe_grouped_kernel=False), split-fuse 256
     and bucketed; the dense backend with moe_drop_tokens=False gives the
     ragged backend's prefill logits (top-1, 8 experts, the same weights)
-    at FP32_TOL, and in bf16 within BF16_REL_NORM. Then all 24 layers in
-    bf16, 8 requests of 64-992 tokens, 32 new each (phase 45's settings):
+    at FP32_TOL, and in bf16 within BF16_REL_NORM. Then GPT2MOE_SERVE[
+    "layers"] of the 24 layers in bf16, 8 requests of 64-992 tokens, 32
+    new each (phase 45's settings):
     (a) ragged, 4 experts, top-2 (the JAX bench's MoE config): K4 / K5 one
     a layer and forward, K8's grouped_gmm two; (b) the config's own MoE
     defaults (dense, 8 experts, top-1, eval capacity factor 2.0): K4 / K5
-    as (a), no K8, the gate's dropped choices counted; (c) (a) under
-    weight_quant="int8": every expert leaf dequantized a layer at a time,
-    then K8 in bf16 (as JAX), no K7 / K9. TTFT / TPOT p50, tokens/s, peak
-    memory. Returns {path: launches}."""
+    as (a), no K8, the gate's dropped choices counted; (c) (a) at
+    GPT2MOE_SERVE["int8_layers"] layers under weight_quant="int8": exactly
+    the leaves GPT2MOE_INT8_LEAVES quantized, each dequantized a layer at
+    a time, then K8 in bf16 (as JAX), no K7 / K9. TTFT / TPOT p50,
+    tokens/s, peak memory. Returns {path: launches}."""
     from deepspeed_tpu_torch import GPT2_PRESETS, GPT2MoE, InferenceEngineV2
     gc.collect()
     torch.cuda.empty_cache()
@@ -9300,20 +9409,19 @@ def phase_gpt2moe_serve(pa, gm, mm, seed=0):
     gc.collect()
     torch.cuda.empty_cache()
 
-    L = base350.n_layer
     lens = rs.randint(64, base350.max_seq_len - P["new"] + 1, P["requests"])
     prompts = [rs.randint(0, base350.vocab_size, (n,)) for n in lens]
     base = dict(dtype="bfloat16", kv_block_size=64, max_batch_size=8,
                 splitfuse_tokens=256, decode_steps_per_dispatch=8)
     paths = {}
-    ragged_outs = None
-    for tag, over, wq in (
-            ("gpt2moe-serve", GPT2MOE_RAGGED, "auto"),
-            ("gpt2moe-dense-serve", {}, "auto"),
-            ("gpt2moe-int8-serve", GPT2MOE_RAGGED, "int8")):
+    for tag, over, wq, L in (
+            ("gpt2moe-serve", GPT2MOE_RAGGED, "auto", P["layers"]),
+            ("gpt2moe-dense-serve", {}, "auto", P["layers"]),
+            ("gpt2moe-int8-serve", GPT2MOE_RAGGED, "int8",
+             P["int8_layers"])):
         gc.collect()
         torch.cuda.empty_cache()
-        cfg = moe_cfg(base350, **over)
+        cfg = moe_cfg(base350, n_layer=L, **over)
         t0 = time.perf_counter()
         model = GPT2MoE(cfg, device="cuda", dtype=torch.bfloat16, seed=seed)
         torch.cuda.synchronize()
@@ -9346,17 +9454,12 @@ def phase_gpt2moe_serve(pa, gm, mm, seed=0):
                          dropped_per_forward=dropped / forwards,
                          eval_capacity_factor=cfg.eval_capacity_factor)
         if wq == "int8":
-            # at 350M widths every block leaf of 2^16 elements or more is
-            # quantized, the router (L, D, E) = 98,304 included (JAX's
-            # quantize_tree excludes only moe_gate); each is dequantized a
-            # layer at a time, so K8 runs in bf16 and no K7 / K9 launches
-            assert {"wqkv", "bqkv", "wo", "moe.gate_w", "moe.wi", "moe.bi",
-                    "moe.wo", "moe.bo"} <= set(model.qblocks), \
+            # exactly the block leaves JAX's quantize_tree takes, the router
+            # (L, D, E) = 98,304 elements and the expert biases included;
+            # each is dequantized a layer at a time, so K8 runs in bf16 and
+            # no K7 / K9 launches
+            assert L == 24 and set(model.qblocks) == GPT2MOE_INT8_LEAVES, \
                 sorted(model.qblocks)
-            stats["streams_equal_bf16"] = sum(
-                int(np.array_equal(a, b)) for a, b in zip(outs, ragged_outs))
-        if tag == "gpt2moe-serve":
-            ragged_outs = outs
         paths[tag] = launches
         log("phase 48 slice " + json.dumps(stats))
         del eng, model, counter
@@ -9514,6 +9617,325 @@ def phase_gpt2moe_dense_train(fa, fce, gm, seed=0):
     return {"gpt2moe-dense-train": launches}
 
 
+# ---------- multi-rank serving: two processes on cuda:0 over gloo (50-51)
+
+# Cuts (the run's time limit): Llama-2-7B at 8 of its 32 layers, GPT-2
+# 1.3B at 4 of 24, Bloom-7b1 at 2 of 30, Mixtral-8x7B at 2 of 32; the
+# fp32 parity at 2 layers (Mixtral's at 1: its fp32 experts are 5.6 GB a
+# layer whole)
+MR_SERVE = dict(layers=8, requests=8, new=32, parity_layers=2, parity_new=8,
+                gpt2_layers=4, bloom_layers=2, ep_layers=2,
+                ep_parity_layers=1)
+
+
+def mr_prompts(rs, cfg, n, new):
+    """``n`` random prompts of 64 tokens up to 1023 (and room for ``new``
+    more in ``cfg.max_seq_len``), from a numpy seed: every rank draws the
+    same."""
+    hi = min(1024, cfg.max_seq_len - new + 1)
+    return [rs.randint(0, cfg.vocab_size, (int(t),))
+            for t in rs.randint(64, hi, n)]
+
+
+def mr_serve_run(eng, prompts, new, L, tag, alibi=False, wq=0,
+                 experts=False):
+    """``serve_run`` on this rank of a multi-rank engine with the rank's
+    exact launch gates: K4 a layer each decode forward, K5 a layer each
+    chunk or prefill forward (none under ALiBi: dense, as in JAX), K7
+    ``wq`` a layer and forward (all sm90), K8's grouped pair one each a
+    layer and forward with ``experts``; each kernel's launches by design.
+    -> (streams as lists, stats)."""
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.ops.cuda import grouped_matmul as gm
+    from deepspeed_tpu_torch.ops.cuda import mlp_matmul as mm
+    from deepspeed_tpu_torch.ops.cuda import paged_attention as pa
+    mm.reset_launch_counts()
+    gm.reset_launch_counts()
+    comm.get_comms_logger().reset()
+    outs, stats, launches = serve_run(eng, prompts, new, pa)
+    fc = eng.forward_counts
+    fwd = sum(fc.values())
+    want = {"paged_decode": L * fc["decode"],
+            "paged_chunk": 0 if alibi else L * (fc["chunk"] + fc["prefill"])}
+    assert launches == want and launches["paged_decode"] > 0, \
+        (tag, launches, want)
+    launches["wq_matmul"] = mm.LAUNCHES["wq_matmul"]
+    assert launches["wq_matmul"] == wq * L * fwd, (tag, launches)
+    for k in ("grouped_swiglu_up", "grouped_gmm"):
+        launches[k] = gm.LAUNCHES[k]
+        assert launches[k] == (L * fwd if experts else 0), (tag, launches)
+    designs = {
+        n: {k: v for k, v in mod.DESIGN_LAUNCHES[n].items() if v}
+        for mod, names in ((pa, ("paged_decode", "paged_chunk")),
+                           (mm, ("wq_matmul",)),
+                           (gm, ("grouped_swiglu_up", "grouped_gmm")))
+        for n in names}
+    for n in ("paged_decode", "paged_chunk", "wq_matmul",
+              "grouped_swiglu_up", "grouped_gmm"):
+        assert sum(designs[n].values()) == launches[n], (tag, n, designs)
+    for n in ("paged_chunk", "wq_matmul"):
+        assert set(designs[n]) <= {"sm90"}, (tag, n, designs)
+    for o in outs:
+        assert len(o) == new and ((o >= 0) & (o < eng.model.config
+                                              .vocab_size)).all(), tag
+    assert pools_full(eng), tag
+    stats.update(tag=tag, n_layer=L, launches=launches,
+                 launches_by_design=designs, agreement=eng.agreement(),
+                 staged={k: list(v) for k, v in
+                         comm.get_comms_logger().host_staged.items()})
+    return [o.tolist() for o in outs], stats
+
+
+def mr_decode_window(eng, prompts):
+    """The comm layer's traffic a decode step of this rank: ``prompts``
+    admitted and prefilled (their chunks run until none is left), then one
+    decode dispatch with the comms logger on. -> per decode step, {op:
+    [calls, bytes]} staged through host memory and moved by each
+    collective."""
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.runtime.config import CommsLoggerConfig
+    n = eng.config.decode_steps_per_dispatch
+    uids = [eng.put(p, 2 * n + 2) for p in prompts]
+    while eng._pending or eng._prefill_q:
+        eng.step()
+    lg = comm.get_comms_logger()
+    lg.reset()
+    lg.configure(CommsLoggerConfig(enabled=True))
+    before = eng.forward_counts["decode"]
+    eng.step()
+    steps = eng.forward_counts["decode"] - before
+    lg.configure(CommsLoggerConfig(enabled=False))
+    assert steps == n, (steps, n)
+    out = {"decode_steps": steps,
+           "host_staged": {k: [v[0] / steps, v[1] / steps]
+                           for k, v in lg.host_staged.items()},
+           "collectives": {f"{op}:{ax}": [v[0] / steps, v[1] / steps]
+                           for op, axes in lg.comms_dict.items()
+                           for ax, v in axes.items()}}
+    while eng.has_work:
+        eng.step()
+    for u in uids:
+        eng.get(u)
+    return out
+
+
+def mr_parity(build, conf, prompts, new, rank, **common):
+    """fp32 greedy streams of a multi-rank engine (``conf``) and, on rank
+    0, of a one-rank engine on the same weights (``build()`` makes the
+    model from one seed on every rank), both with the engine settings
+    ``common`` (weight_quant). -> (multi-rank streams, one-rank streams or
+    None)."""
+    from deepspeed_tpu_torch import InferenceEngineV2, comm
+    from deepspeed_tpu_torch.ops.cuda import mlp_matmul as mm
+    base = dict(dtype="float32", kv_block_size=64, max_batch_size=4,
+                splitfuse_tokens=256, **common)
+    one = None
+    if rank == 0:
+        eng = InferenceEngineV2(build(), base, device="cuda:0")
+        one = [o.tolist() for o in eng.generate_all(prompts,
+                                                    max_new_tokens=new)]
+        del eng
+    comm.barrier()
+    mm.reset_launch_counts()
+    eng = InferenceEngineV2(build(), dict(base, **conf), device="cuda:0")
+    got = [o.tolist() for o in eng.generate_all(prompts, max_new_tokens=new)]
+    assert eng.multi_rank
+    # K7 three a layer and forward on the rank's slices when quantized
+    fwd = eng.model.config.n_layer * sum(eng.forward_counts.values())
+    wq = 3 * fwd if common.get("weight_quant") in ("int8", "int4") else 0
+    assert mm.LAUNCHES["wq_matmul"] == wq, (conf, common, dict(mm.LAUNCHES))
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return got, one
+
+
+def mr_model(cls_name, preset, n_layer, dtype, seed=0):
+    """A preset of ``deepspeed_tpu_torch`` at ``n_layer`` layers, built
+    whole on cuda:0 from ``seed`` (the same weights on every rank)."""
+    import deepspeed_tpu_torch as dt
+    cfg = dataclasses.replace(preset, n_layer=n_layer,
+                              dtype=str(dtype).split(".")[-1])
+    return getattr(dt, cls_name)(cfg, device="cuda:0", dtype=dtype,
+                                 seed=seed)
+
+
+def child_serve_tp():
+    """Phases 50a-b in one rank of a tensor_parallel = 2 world on cuda:0.
+    (a) Llama-2-7B widths: at MR_SERVE["parity_layers"] layers in fp32 the
+    tp = 2 greedy streams (rank 0's one-rank engine on the same weights
+    beside them), unquantized and under weight_quant int8 and int4 (the
+    one-rank engine quantized alike); MR_SERVE["layers"] layers in bf16
+    serving 8 prompts of
+    64-1023 tokens, 32 new each, split-fuse 256 (K4 / K5 at 16 local
+    heads), the rank's decode-step traffic, then the same under
+    weight_quant int8 (K7 on the rank's F / 2 = 5504 columns and rows).
+    (b) GPT-2 1.3B (the per-head wqkv split) and Bloom-7b1 (ALiBi: K4 with
+    the head offset) the same way at their cut depths. Reports streams,
+    stats (TTFT / TPOT p50, tokens/s, peak GB, launches by design) and the
+    comm layer's traffic."""
+    from deepspeed_tpu_torch import (BLOOM_PRESETS, GPT2_1_3B, LLAMA_PRESETS,
+                                     InferenceEngineV2)
+    from deepspeed_tpu_torch.ops.cuda import mlp_matmul as mm
+    rank, world = child_world()
+    P = MR_SERVE
+    tp = dict(tensor_parallel=world)
+    bf = dict(dtype="bfloat16", kv_block_size=64, max_batch_size=8,
+              splitfuse_tokens=256, decode_steps_per_dispatch=8,
+              tensor_parallel=world)
+    report = {"rank": rank, "parity": {}, "serve": {}}
+    rs = np.random.RandomState(50)
+    for tag, cls, preset in (
+            ("llama2-7b", "Llama", LLAMA_PRESETS["llama2-7b"]),
+            ("gpt2-1.3b", "GPT2", GPT2_1_3B),
+            ("bloom-7b1", "Bloom", BLOOM_PRESETS["bloom-7b1"])):
+        vocab = preset.vocab_size
+        prompts = [rs.randint(0, vocab, (n,)) for n in (7, 64, 300)]
+        quants = ("auto", "int8", "int4") if tag == "llama2-7b" else \
+            ("auto",)
+        for wq in quants:
+            # the quantized parities: the whole tree's int8 / int4 codes
+            # sliced (row shards on the global scale) and K7 on the
+            # rank's F / 2 columns and rows, in fp32
+            report["parity"][tag if wq == "auto" else f"{tag}-{wq}"] = \
+                mr_parity(lambda: mr_model(cls, preset, P["parity_layers"],
+                                           torch.float32),
+                          tp, prompts, P["parity_new"], rank,
+                          weight_quant=wq)
+        L = {"llama2-7b": P["layers"], "gpt2-1.3b": P["gpt2_layers"],
+             "bloom-7b1": P["bloom_layers"]}[tag]
+        prompts = mr_prompts(rs, preset, P["requests"], P["new"])
+        modes = ("bf16", "int8") if tag == "llama2-7b" else ("bf16",)
+        for mode in modes:
+            gc.collect()
+            torch.cuda.empty_cache()
+            model = mr_model(cls, preset, L, torch.bfloat16)
+            eng = InferenceEngineV2(model, dict(
+                bf, weight_quant="int8" if mode == "int8" else "auto"),
+                device="cuda:0")
+            streams, stats = mr_serve_run(
+                eng, prompts, P["new"], L, f"{tag}-tp{world}-{mode}",
+                alibi=getattr(preset, "alibi", False),
+                wq=(3 if mode == "int8" else 0))
+            stats["decode_window"] = mr_decode_window(eng, prompts)
+            stats["local_shapes"] = {
+                k: list(v.shape) for k, v in
+                {**dict(model.blocks.named_parameters()),
+                 **model.qblocks}.items()}
+            stats["pool"] = list(eng.cache["k"][0].shape)
+            if mode == "int8":
+                stats["wq_plan"] = {
+                    f"{M}x{K}x{N}": list(mm.wq_plan(M, K, N))
+                    for M in (8, 256) for K, N in (
+                        (preset.d_model, preset.ffn_dim // world),
+                        (preset.ffn_dim // world, preset.d_model))}
+            # "-tp2-" keeps the path apart from phase 45's gpt2-1.3b-bf16
+            report["serve"][f"{tag}-tp{world}-{mode}"] = dict(
+                streams=streams, stats=stats)
+            del eng, model
+    return report
+
+
+def child_serve_ep():
+    """Phase 51 in one rank of an expert_parallel = 2 world on cuda:0:
+    Mixtral-8x7B widths. At MR_SERVE["ep_parity_layers"] layers in fp32
+    the ep = 2 greedy streams (rank 0's one-rank engine beside them); then
+    MR_SERVE["ep_layers"] layers in bf16 serving 8 prompts, 32 new each,
+    split-fuse 256: 4 experts a rank, K8's grouped pair one each a layer
+    and forward on the rank's exchanged rows, K4 / K5 at all 32 heads; the
+    rank's decode-step traffic (the exchange and the gather staged through
+    host memory)."""
+    from deepspeed_tpu_torch import MIXTRAL_8X7B, InferenceEngineV2
+    rank, world = child_world()
+    P = MR_SERVE
+    rs = np.random.RandomState(51)
+    vocab = MIXTRAL_8X7B.vocab_size
+    report = {"rank": rank}
+    prompts = [rs.randint(0, vocab, (n,)) for n in (7, 64, 300)]
+    report["parity"] = {"mixtral-8x7b": mr_parity(
+        lambda: mr_model("Mixtral", MIXTRAL_8X7B, P["ep_parity_layers"],
+                         torch.float32), dict(expert_parallel=world),
+        prompts, P["parity_new"], rank)}
+    L = P["ep_layers"]
+    prompts = mr_prompts(rs, MIXTRAL_8X7B, P["requests"], P["new"])
+    model = mr_model("Mixtral", MIXTRAL_8X7B, L, torch.bfloat16)
+    eng = InferenceEngineV2(model, dict(
+        dtype="bfloat16", kv_block_size=64, max_batch_size=8,
+        splitfuse_tokens=256, decode_steps_per_dispatch=8,
+        expert_parallel=world), device="cuda:0")
+    streams, stats = mr_serve_run(eng, prompts, P["new"], L,
+                                  "mixtral-8x7b-ep2", experts=True)
+    stats["decode_window"] = mr_decode_window(eng, prompts)
+    stats["local_shapes"] = {k: list(v.shape) for k, v in
+                             model.blocks.named_parameters()}
+    report["serve"] = {"mixtral-8x7b-ep2": dict(streams=streams,
+                                                stats=stats)}
+    return report
+
+
+def mr_check(reps, role):
+    """Both ranks' streams identical in every run; each parity's
+    multi-rank streams equal rank 0's one-rank streams. Logs each run's
+    stats (rank 0's, with both ranks' peak GB) and returns {path:
+    launches} (rank 0's; rank 1's are the same, checked)."""
+    out = {}
+    for name, (got, one) in reps[0]["parity"].items():
+        for r in reps[1:]:
+            assert r["parity"][name][0] == got, f"{role} {name}: ranks differ"
+        assert got == one, f"{role} {name}: multi-rank != one rank"
+        log(f"phase {role} parity ok: {name}, fp32, the multi-rank greedy "
+            f"streams on every rank == the one-rank engine's "
+            f"({sum(len(t) for t in got)} tokens)")
+    for name, run in reps[0]["serve"].items():
+        for r in reps[1:]:
+            assert r["serve"][name]["streams"] == run["streams"], \
+                f"{role} {name}: ranks' streams differ"
+            assert r["serve"][name]["stats"]["launches"] == \
+                run["stats"]["launches"], f"{role} {name}: launches differ"
+        stats = dict(run["stats"])
+        stats["peak_gb_by_rank"] = [r["serve"][name]["stats"][
+            "max_memory_allocated_gb"] for r in reps]
+        # each rank's own picks that rank 0's broadcast replaced: the
+        # ranks' streams are equal by construction, this counts where
+        # their logits would have parted
+        stats["agreement_by_rank"] = [r["serve"][name]["stats"][
+            "agreement"] for r in reps]
+        log(f"phase {role} slice " + json.dumps(stats))
+        for k, by in stats["launches_by_design"].items():
+            count_designs(k, by)
+        out[f"{name}-serve"] = {k: v for k, v in stats["launches"].items()
+                                if v}
+    return out
+
+
+def phase_serve_tp(card):
+    """Phase 50: tensor-parallel serving in two processes on cuda:0
+    (child_serve_tp). One card measures correctness and launch counts:
+    its TPOT is set by gloo's host staging and says nothing of tensor
+    parallelism's speed on two cards."""
+    reps = run_children("serve-tp", timeout=600)
+    log(f"phase 50 card: {card} (a one-card world: TPOT set by gloo's "
+        f"host staging, not tensor parallelism's speed on two cards)")
+    return mr_check(reps, "50")
+
+
+def phase_serve_ep(card):
+    """Phase 51: expert-parallel serving in two processes on cuda:0
+    (child_serve_ep); the same caveat as phase 50."""
+    reps = run_children("serve-ep", timeout=600)
+    log(f"phase 51 card: {card} (a one-card world)")
+    return mr_check(reps, "51")
+
+
+def add_paths(paths, new):
+    """Merge a phase's {path: launches} into ``paths``; a path name an
+    earlier phase took raises (its launches would drop out of the kernels
+    line)."""
+    clash = set(new) & set(paths)
+    assert not clash, f"path names taken by an earlier phase: {sorted(clash)}"
+    paths.update(new)
+
+
 def fresh_winner_cache():
     """Point the autotune winner cache (cache_only) at a fresh, empty file
     in a temporary directory, removed at exit, before any phase: a cache
@@ -9538,9 +9960,9 @@ def main(argv=None):
     ap.add_argument("--profile", default="",
                     help="write a torch.profiler breakdown of the slice here")
     ap.add_argument("--child", choices=(
-        "parity", "train", "zero-parity", "zero-train",
-        *(f"ep:{name}" for name in EP_RUNS)),
-        help=argparse.SUPPRESS)      # phases 28-29, 31-32, 39
+        "parity", "train", "zero-parity", "zero-train", "serve-tp",
+        "serve-ep", *(f"ep:{name}" for name in EP_RUNS)),
+        help=argparse.SUPPRESS)      # phases 28-29, 31-32, 39, 50-51
     ap.add_argument("--child-out", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -9555,7 +9977,9 @@ def main(argv=None):
         else:
             report = {"parity": child_parity, "train": child_train,
                       "zero-parity": child_zero_parity,
-                      "zero-train": child_zero_train}[args.child]()
+                      "zero-train": child_zero_train,
+                      "serve-tp": child_serve_tp,
+                      "serve-ep": child_serve_ep}[args.child]()
         with open(args.child_out, "w") as f:
             json.dump(report, f)
         torch.distributed.barrier()
@@ -9731,7 +10155,7 @@ def main(argv=None):
     phase_done("40 (K1 / K2 with ALiBi, K1 / K2 / K4 / K5 at d = 80, 96, "
                "256, K4 / K5 at G = 71 and 7, K7 at the non-gated FFNs)")
     paths["bloom-serve"] = phase_bloom_serve()
-    phase_done("41 (Bloom-7b1 serving, all 30 layers)")
+    phase_done(f"41 (Bloom-7b1 serving, {BLOOM_SERVE['layers']} layers)")
     paths["bloom-train"] = phase_bloom_train()
     phase_done(f"42 (Bloom-7b1 training, {BLOOM_TRAIN['layers']} layers)")
     paths.update(phase_family_serve())
@@ -9743,10 +10167,11 @@ def main(argv=None):
     phase_done("44 (K4 / K5 at GPT-2 1.3B's and GPT-Neo-1.3B's attention, "
                "K7 at GPT-2 1.3B's FFN, K3 at GPT-Neo's vocabulary)")
     paths.update(phase_gpt2_serve(pa, mm))
-    phase_done("45 (GPT-2 1.3B serving, all 24 layers: bf16, int8, int4, "
-               "a GPT-2 125M draft)")
+    phase_done(f"45 (GPT-2 1.3B serving, {GPT2_SERVE['layers']} layers: "
+               f"bf16, int8, int4, a GPT-2 125M draft)")
     paths.update(phase_gpt2_families(pa, mm, fa, fce))
-    phase_done(f"46 (OPT-1.3b and GPT-Neo-1.3B serving, 24 layers; "
+    phase_done(f"46 (OPT-1.3b and GPT-Neo-1.3B serving, "
+               f"{GPT2_FAMILY_SERVE['layers']} layers; "
                f"GPT-Neo training, {GPTNEO_TRAIN['layers']} layers)")
     paths["llama-winner-cache"] = phase_winner_cache(pa)
     phase_done(f"47 (the autotune winner cache: cold resolvers, "
@@ -9754,11 +10179,22 @@ def main(argv=None):
                f"from the filled file at {WINNER_SERVE['layers']} layers, "
                f"refusals)")
     paths.update(phase_gpt2moe_serve(pa, gm, mm))
-    phase_done("48 (GPT2MoE serving at the 350M widths, 24 layers: ragged, "
-               "dense, int8)")
+    phase_done(f"48 (GPT2MoE serving at the 350M widths, "
+               f"{GPT2MOE_SERVE['layers']} layers: ragged, dense; int8 at "
+               f"{GPT2MOE_SERVE['int8_layers']})")
     paths.update(phase_gpt2moe_dense_train(fa, fce, gm))
     phase_done(f"49 (GPT2MoE dense training, {GPT2MOE_TRAIN['layers']} "
                f"layers; dense == ragged without drops; an RSample step)")
+    add_paths(paths, phase_serve_tp(card))
+    phase_done(f"50 (two processes on cuda:0: tensor_parallel = 2 serving, "
+               f"Llama-2-7B at {MR_SERVE['layers']} layers bf16 and int8, "
+               f"GPT-2 1.3B at {MR_SERVE['gpt2_layers']}, Bloom-7b1 at "
+               f"{MR_SERVE['bloom_layers']}; fp32 == one rank, unquantized "
+               f"and int8 / int4)")
+    add_paths(paths, phase_serve_ep(card))
+    phase_done(f"51 (two processes on cuda:0: expert_parallel = 2 serving, "
+               f"Mixtral-8x7B at {MR_SERVE['ep_layers']} layers; fp32 == "
+               f"one rank)")
 
     kernels = []
     for name, r in rows.items():

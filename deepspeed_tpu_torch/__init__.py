@@ -2,12 +2,14 @@
 
 Imports torch and never jax; nothing of the JAX package is imported."""
 
+__version__ = "0.1.0"
+
 from . import comm
 from .comm import init_distributed
 from .inference.v2 import (DeadlineExceeded, InferenceEngineV2, Overloaded,
                            RaggedInferenceEngineConfig, Replica, ReplicaDead,
                            Router, RouterConfig, kv_transfer)
-from .models import (GPT2, GPT2_PRESETS, LLAMA_PRESETS, MIXTRAL_8X7B,
+from .models import (GPT2, GPT2_1_3B, GPT2_125M, GPT2_PRESETS, LLAMA_PRESETS, MIXTRAL_8X7B,
                      MIXTRAL_TINY, GPT2Config, GPT2MoE, GPT2MoEConfig, Llama,
                      LlamaConfig, Mixtral, MixtralConfig,
                      gpt2_moe_params_from_numpy, gpt2_params_from_numpy,
@@ -74,6 +76,29 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     return engine, engine.optimizer, None, engine.lr_scheduler
 
 
+def init_inference(model=None, config=None, **kwargs):
+    """The v1 inference engine (the JAX package's ``init_inference``,
+    __init__.py:62): not ported; serve through ``InferenceEngineV2``."""
+    raise NotImplementedError(
+        "init_inference (the v1 InferenceEngine) is not ported yet "
+        "(ROADMAP Queue 1, M9: other inference and HF); serve through "
+        "InferenceEngineV2")
+
+
+def add_config_arguments(parser):
+    """argparse passthrough (the JAX package's ``add_config_arguments``,
+    __init__.py:72; reference deepspeed/__init__.py:245)."""
+    group = parser.add_argument_group("DeepSpeed-TPU",
+                                      "DeepSpeed-TPU configurations")
+    group.add_argument("--deepspeed", default=False, action="store_true",
+                       help="Enable DeepSpeed-TPU (helper flag)")
+    group.add_argument("--deepspeed_config", default=None, type=str,
+                       help="DeepSpeed-TPU json configuration file")
+    group.add_argument("--local_rank", type=int, default=-1,
+                       help="accepted for launcher compatibility")
+    return parser
+
+
 __all__ = ["InferenceEngineV2", "RaggedInferenceEngineConfig", "Replica",
            "ReplicaDead", "Router", "RouterConfig", "Overloaded",
            "DeadlineExceeded", "kv_transfer", "GPT2",
@@ -83,7 +108,8 @@ __all__ = ["InferenceEngineV2", "RaggedInferenceEngineConfig", "Replica",
            "gpt2_moe_params_from_numpy", "gpt2_params_from_numpy",
            "llama_params_from_numpy", "mixtral_params_from_numpy",
            "DeepSpeedConfig", "DeepSpeedEngine", "comm", "init_distributed",
-           "initialize", "Bloom", "BloomConfig", "BLOOM_PRESETS", "Falcon",
+           "initialize", "init_inference", "add_config_arguments",
+           "__version__", "GPT2_125M", "GPT2_1_3B", "Bloom", "BloomConfig", "BLOOM_PRESETS", "Falcon",
            "FalconConfig", "FALCON_PRESETS", "GPTNeoX", "GPTNeoXConfig",
            "GPTNEOX_PRESETS", "GPTJ", "GPTJConfig", "GPTJ_PRESETS",
            "InternLM", "InternLMConfig", "INTERNLM_PRESETS", "Phi",

@@ -63,6 +63,13 @@ _STATE = {
     "chain_lengths": (8, 24),
     "reps": 3,
     "searching": False,    # re-entrancy guard: a search never searches
+    # a multi-rank serving engine's agreement (``set_agreement``): None,
+    # or a callable with ``root`` that maps rank 0's winner to every rank;
+    # the keys resolved under it have a memo of their own, which every
+    # rank fills in the same order (a key this process resolved alone
+    # must not skip a collective the other ranks enter)
+    "agree": None,
+    "agreed": {},
 }
 
 
@@ -84,6 +91,7 @@ def configure(mode=None, cache_path=None, chain_lengths=None, reps=None):
         _STATE["reps"] = int(reps)
     _STATE["cache"] = None
     _STATE["resolved"] = {}
+    _STATE["agreed"] = {}
 
 
 def configure_from_config(cfg):
@@ -100,6 +108,7 @@ def configure_from_config(cfg):
     _STATE["reps"] = int(cfg.reps)
     _STATE["cache"] = None
     _STATE["resolved"] = {}
+    _STATE["agreed"] = {}
 
 
 def configure_serving(mode="", cache_path=""):
@@ -120,13 +129,24 @@ def configure_serving(mode="", cache_path=""):
     _STATE["cache_path"] = new_path
     _STATE["cache"] = None
     _STATE["resolved"] = {}
+    _STATE["agreed"] = {}
+
+
+def set_agreement(agree):
+    """Resolve every new key alike on all ranks of a multi-rank engine:
+    ``agree`` has ``root`` (True on the rank that resolves: its cache
+    lookup, or its measured search and the file write) and is called with
+    that rank's winner (None elsewhere), returning it on every rank. The
+    serving engine installs its own before each program runs (None on one
+    rank)."""
+    _STATE["agree"] = agree
 
 
 def reset():
     """Back to the pristine env-driven state (tests)."""
     _STATE.update(mode=None, cache_path=None, cache=None, resolved={},
                   reports={}, chain_lengths=(8, 24), reps=3,
-                  searching=False)
+                  searching=False, agree=None, agreed={})
 
 
 def current_mode():
@@ -189,15 +209,20 @@ def resolve(op, bucket, dtype, defaults, device=None):
     dev = _device(device)
     dk = device_kind(dev)
     key = entry_key(dk, op, bucket, str(dtype))
-    if key in _STATE["resolved"]:
-        winner = _STATE["resolved"][key]
+    agree = _STATE["agree"]
+    memo = _STATE["resolved" if agree is None else "agreed"]
+    if key in memo:
+        winner = memo[key]
     else:
         winner = None
-        if mode != "search":
-            winner = _cache().lookup(dk, op, bucket, str(dtype))
-        if winner is None and mode in ("on_first_use", "search"):
-            winner = _search_and_store(op, bucket, str(dtype), defaults,
-                                       dk, key, dev)
+        if agree is None or agree.root:
+            if mode != "search":
+                winner = _cache().lookup(dk, op, bucket, str(dtype))
+            if winner is None and mode in ("on_first_use", "search"):
+                winner = _search_and_store(op, bucket, str(dtype),
+                                           defaults, dk, key, dev)
+        if agree is not None:
+            winner = agree(winner)
         if winner is not None and dev.type == "cuda":
             from .kernel_registry import names_plain
             plain = names_plain(op, winner)
@@ -206,7 +231,7 @@ def resolve(op, bucket, dtype, defaults, device=None):
                     f"autotune: the winner for {key} names a plain "
                     f"(step-by-step) version ({plain}); on a card the "
                     f"kernels run: remove the entry from {cache_path()!r}")
-        _STATE["resolved"][key] = winner
+        memo[key] = winner
     if winner is None:
         return defaults
     return {**defaults,

@@ -15,7 +15,9 @@ read a tag written by either package:
   * ``inspect_checkpoint`` — key/shape/dtype listing.
 
 All functions take a checkpoint dir (with ``latest``), a tag dir, or a
-direct ``state.npz`` path.
+direct ``state.npz`` path. A bfloat16 leaf (Adam ``moments_dtype=
+"bfloat16"``) is listed and written as the JAX package writes one: its
+two-byte words under the npy descr ``'<V2'``, named "bfloat16".
 """
 
 import json
@@ -84,12 +86,14 @@ def ds_to_universal(ckpt, out_dir, tag=None):
     flat, header = _load(ckpt, tag)
     os.makedirs(out_dir, exist_ok=True)
     index = {}
-    for key, arr in flat.items():
+    for key, leaf in flat.items():
         safe = key.replace("/", "%2F")
         fname = f"{safe}.npy"
-        np.save(os.path.join(out_dir, fname), np.asarray(arr))
-        index[key] = {"file": fname, "shape": list(np.shape(arr)),
-                      "dtype": str(np.asarray(arr).dtype)}
+        arr = ser.to_numpy(leaf)
+        with open(os.path.join(out_dir, fname), "wb") as f:
+            ser.write_npy(f, arr)
+        index[key] = {"file": fname, "shape": list(arr.shape),
+                      "dtype": ser.dtype_name(leaf)}
     with open(os.path.join(out_dir, "index.json"), "w") as f:
         json.dump({"params": index, "extra": header.get("extra", {}),
                    "meta": header.get("meta", {})}, f, indent=2)
@@ -114,9 +118,10 @@ def inspect_checkpoint(ckpt, tag=None, file=None):
     flat, header = _load(ckpt, tag)
     total = 0
     for key in sorted(flat):
-        arr = np.asarray(flat[key])
+        arr = ser.to_numpy(flat[key])
         total += arr.nbytes
-        print(f"  {key:48s} {str(arr.shape):18s} {arr.dtype} "
+        name = ser.dtype_name(flat[key])
+        print(f"  {key:48s} {str(arr.shape):18s} {name} "
               f"{arr.nbytes / 1e6:8.2f}MB", file=f)
     extra = header.get("extra", {})
     print(f"total {total / 1e6:.2f}MB; step={extra.get('global_step')} "

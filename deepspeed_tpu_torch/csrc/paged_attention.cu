@@ -135,7 +135,8 @@ struct DecodeArgs {
   int window, alibi;
   float alibi_scale;
   int alibi_bf16;
-  float alibi_cp;       // leading power of two of H (the bloom slopes)
+  float alibi_cp;       // leading power of two of the model's heads
+  int alibi_h0;         // this rank's first global head (tensor parallel)
 };
 
 namespace {
@@ -383,14 +384,14 @@ __global__ void __launch_bounds__(DEC_NT) paged_decode_kernel(DecodeArgs a) {
 
   QTile<T, D> qt;
   qt.load(qs, LD);
-  // ALiBi slopes of rows g and g + 8 (the bloom formula from the head
-  // index, split at the leading power of two cp; paged_attention.py
-  // _decode_kernel)
+  // ALiBi slopes of rows g and g + 8 (the bloom formula from the global
+  // head index, split at the leading power of two cp of the model's heads;
+  // paged_attention.py _decode_kernel)
   float slope[2] = {0.f, 0.f};
   if (a.alibi) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const float hf = (float)(h0 + g + 8 * h), cp = a.alibi_cp;
+      const float hf = (float)(a.alibi_h0 + h0 + g + 8 * h), cp = a.alibi_cp;
       const float expo = hf < cp ? -(hf + 1.f) * (8.f / cp) : -(2.f * (hf - cp) + 1.f) * (4.f / cp);
       slope[h] = exp2f(expo);
     }

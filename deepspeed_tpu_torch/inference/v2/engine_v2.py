@@ -1,7 +1,9 @@
 """InferenceEngineV2 — continuous-batching serving over a paged KV cache.
 
 Counterpart of ``deepspeed_tpu/inference/v2/engine_v2.py`` (the
-``put()`` -> ``step()`` -> ``get()`` loop), in PyTorch on one card:
+``put()`` -> ``step()`` -> ``get()`` loop), in PyTorch on one card or, at
+``tensor_parallel`` / ``expert_parallel`` > 1, one process a rank of a
+world (see ``InferenceEngineV2``):
   * The blocked KV cache is a list of per-layer heads-major pools
     (num_blocks, KVH, block_size, hd) that the model updates in place;
     per-sequence block tables index them.
@@ -49,16 +51,20 @@ than ``jax.random`` from the same seed, so only greedy streams are
 comparable across the two packages.
 """
 
+import json
 from collections import Counter, deque
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from ...comm import comm
 from ...monitor.telemetry import ServingTelemetry
 from ...runtime.checkpoint_engine import serialization as ser
+from ...utils import groups
 from ...utils.device import resolve_device
 from ...utils.logging import log_dist
+from ..utils import shard_model
 from .blocked_allocator import BlockedAllocator
 from .kv_offload import OffloadKVPool
 from .prefix_cache import PrefixCache, resolve_prefix_cache
@@ -66,17 +72,21 @@ from .ragged import DSStateManager, RaggedBatchWrapper
 from .speculative import (SPEC_EMA_ALPHA, SPEC_MIN_ROUNDS, longest_accept,
                           resolve_spec)
 
-# fields of the JAX config the port does not carry yet: (allowed values,
-# the ROADMAP Queue 1 serving item that brings them)
-_NOT_YET = {
-    "tensor_parallel": ((1,), "tensor parallel"),
-    "expert_parallel": ((1,), "expert parallel"),
-}
+_TODO_REPLICAS = "(ROADMAP Queue 1, serving: multi-rank replicas)"
 
 
-def _not_yet(what):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue 1, serving: {what})")
+class _RankZeroWinners:
+    """The autotune winner cache's agreement across a multi-rank engine's
+    ranks (``kernel_dispatch.set_agreement``): rank 0 resolves each key
+    (its cache lookup, or its measured search), the others skip theirs and
+    take rank 0's winner, so every rank launches the same design."""
+
+    def __init__(self):
+        self.root = comm.get_rank() == 0
+
+    def __call__(self, winner):
+        got = comm.allgather_bytes(json.dumps(winner).encode())
+        return json.loads(got[0])
 
 
 @dataclass
@@ -87,9 +97,9 @@ class RaggedInferenceEngineConfig:
     quantize_weights, weight_quant, kv_host_offload, device_kv_blocks,
     paged_kernel, paged_block_c, prefix_cache, prefix_cache_blocks,
     prefix_cache_min_match, spec_draft, spec_k, autotune_mode,
-    autotune_cache, telemetry, telemetry_interval. tensor_parallel and
-    expert_parallel raise at a non-default value, naming their ROADMAP
-    item."""
+    autotune_cache, telemetry, telemetry_interval, tensor_parallel and
+    expert_parallel (a world of ``tensor_parallel * expert_parallel``
+    ranks or a multiple of it, see ``InferenceEngineV2``)."""
     dtype: str = "bfloat16"
     tensor_parallel: int = 1
     expert_parallel: int = 1
@@ -218,11 +228,12 @@ class RaggedInferenceEngineConfig:
             raise ValueError(
                 f"telemetry_interval must be an int >= 1, got "
                 f"{self.telemetry_interval!r}")
-        for name, (allowed, item) in _NOT_YET.items():
+        for name in ("tensor_parallel", "expert_parallel"):
             value = getattr(self, name)
-            if not any(value is a or (type(value) is type(a) and value == a)
-                       for a in allowed):
-                raise _not_yet(item)
+            if not isinstance(value, int) or isinstance(value, bool) \
+                    or value < 1:
+                raise ValueError(f"{name} must be an int >= 1, got "
+                                 f"{value!r}")
 
 
 def _host_leaf(t):
@@ -302,10 +313,36 @@ class InferenceEngineV2:
     layer at a time as in JAX) and with the dense backend none (its
     capacity dispatch is batched products), a quantized Llama three K7
     products per layer (two without the gate: GPT-J, Bloom, ...), a
-    quantized GPT-2 two (``wup``, ``wdown``)."""
+    quantized GPT-2 two (``wup``, ``wdown``).
+
+    Multi-rank serving (``tensor_parallel`` / ``expert_parallel`` > 1, the
+    JAX engine over its mesh): the engine joins the world as
+    ``initialize`` does (``comm.init_distributed``: ``env://``, a no-op
+    once joined) and builds its topology from the config
+    (``groups.initialize``: ``tensor`` innermost, ``expert`` next, data
+    parallelism over the rest of the world) unless given the one
+    ``groups.initialize`` made. Every rank constructs the engine with the
+    whole model (float or quantized, the same weights) and keeps its slice
+    (``inference/utils.shard_model``, after the whole-tree quantization):
+    the Llama family's and the GPT-2 family's heads and FFN columns over
+    ``tensor`` (a sum over ``tensor`` after each row-parallel product, its
+    bias added once after it), Mixtral's experts over ``expert`` and their
+    FFN columns over ``tensor``; embeddings, norms and the head stay whole,
+    so every rank computes the same logits. Its KV pools hold its KV heads.
+    Every rank is called with the same ``put`` / ``step`` / ``get`` /
+    ``generate_all`` arguments, as the JAX engine's single controller is:
+    the scheduler is host code and takes the same decisions on every rank.
+    The tokens every rank commits are rank 0's: each sampled token (and
+    each draft proposal and verify argmax) is broadcast from rank 0, so the
+    streams are identical, with sampling too. The autotune winner cache
+    resolves each key on rank 0 and shares its winner
+    (``_RankZeroWinners``). The prefix cache, split-fuse, draft
+    speculation (the draft sliced over the same topology) and KV host
+    offload (each rank's pool of its own heads) run as on one rank; the
+    KV handoff of a ``Replica`` / ``Router`` fleet does not (it raises)."""
 
     def __init__(self, model, config=None, device=None, monitor=None,
-                 draft_model=None, **kwargs):
+                 draft_model=None, topology=None, **kwargs):
         if isinstance(config, dict):
             config = RaggedInferenceEngineConfig(**{**config, **kwargs})
         elif config is None:
@@ -317,6 +354,14 @@ class InferenceEngineV2:
                 monitor=monitor, interval=config.telemetry_interval)
         self.device = resolve_device(device)
         self.dtype = getattr(torch, config.dtype)
+        self.topology = self._serving_topology(topology)
+        self.multi_rank = self.topology is not None
+        self._winners = _RankZeroWinners() if self.multi_rank else None
+        # this rank's own picks and how many of them rank 0's replaced
+        # (_agree, read by agreement())
+        self._picks = 0
+        self._overridden = torch.zeros((), dtype=torch.int64,
+                                       device=self.device)
         # weight_quant wins over quantize_weights (int8, nothing kept
         # quantized); "auto" resolves off
         fused = (config.weight_quant if config.weight_quant
@@ -331,6 +376,9 @@ class InferenceEngineV2:
                 f"{config.quantize_weights})")
         if quant and not built:
             model.quantize_(quant)
+        if self.multi_rank:
+            # the whole tree's quantization, then this rank's slice of it
+            shard_model(model, self.topology)
         self.model = model.to_serving(self.device, self.dtype)
         model._weight_quant_fused = fused is not None
         self.draft_model = None
@@ -410,6 +458,8 @@ class InferenceEngineV2:
                         f"draft token ids against target argmax, the "
                         f"vocabularies must be the same")
                 if draft_model is not model:
+                    if self.multi_rank:
+                        shard_model(draft_model, self.topology)
                     draft_model.to_serving(self.device, self.dtype)
                     draft_model._weight_quant_fused = False
                 self.draft_model = draft_model
@@ -577,6 +627,7 @@ class InferenceEngineV2:
         ``0..seen_tokens-2``, exactly what a colocated decode would
         attend: the last generated token's KV is written by the decode
         step that consumes it."""
+        self._refuse_multi_rank_handoff()
         if self.kv_pool is not None:
             raise RuntimeError(
                 "KV handoff is incompatible with kv_host_offload: "
@@ -624,6 +675,7 @@ class InferenceEngineV2:
         decode batch. Serving telemetry registers the request at its
         original submit stamp. Returns the uid."""
         from .kv_transfer import KVWireError
+        self._refuse_multi_rank_handoff()
         if self.kv_pool is not None:
             raise RuntimeError(
                 "KV handoff is incompatible with kv_host_offload: "
@@ -689,6 +741,12 @@ class InferenceEngineV2:
                 submit_ts=state.get("t_submit"))
         return uid
 
+    def _refuse_multi_rank_handoff(self):
+        if self.multi_rank:
+            raise NotImplementedError(
+                f"the KV handoff of a multi-rank engine (each rank holds "
+                f"its KV heads) is not ported yet {_TODO_REPLICAS}")
+
     def release_handoff(self, uid):
         """The decode side confirmed the import: drop the sequence here.
         ``retire`` inserts the verified prompt+first-token prefix into the
@@ -704,6 +762,54 @@ class InferenceEngineV2:
             self.telemetry.on_handoff_out(uid)
 
     # ------------------------------------------------------------- programs
+    def _serving_topology(self, topology):
+        """The topology of a multi-rank engine (None on one rank): join the
+        world (``comm.init_distributed``, a no-op once joined), then the
+        caller's topology, which must be the one ``groups.initialize``
+        installed (the comm layer and the MoE exchange read it), or one
+        built from ``tensor_parallel`` / ``expert_parallel`` as the JAX
+        engine builds its mesh (engine_v2.py:279-284)."""
+        cfg = self.config
+        if topology is None and cfg.tensor_parallel * cfg.expert_parallel \
+                == 1:
+            return None
+        comm.init_distributed(device=self.device, verbose=False)
+        if topology is None:
+            topology = groups.initialize(groups.TopologyConfig(
+                tensor_parallel_size=cfg.tensor_parallel,
+                expert_parallel_size=cfg.expert_parallel))
+        elif topology is not groups.get_topology():
+            raise ValueError(
+                "the engine's topology must be the one groups.initialize "
+                "installed: the comm layer and the MoE exchange read it")
+        for axis, want in (("tensor", cfg.tensor_parallel),
+                           ("expert", cfg.expert_parallel)):
+            if topology.axis_size(axis) != want:
+                raise ValueError(
+                    f"the topology's {axis} axis has "
+                    f"{topology.axis_size(axis)} ranks, the config asks "
+                    f"for {want}")
+        return topology if topology.world_size > 1 else None
+
+    def _agree(self, tokens):
+        """Rank 0's tokens on every rank of a multi-rank engine (a
+        broadcast over the world; ``tokens`` itself on one rank): every
+        rank commits the same stream whatever its logits round to."""
+        if not self.multi_rank:
+            return tokens
+        agreed = comm.broadcast(tokens, groups.MESH_AXES, 0)
+        self._picks += tokens.numel()
+        self._overridden += (agreed != tokens).sum()
+        return agreed
+
+    def agreement(self):
+        """{"picks": the tokens this rank picked since the engine was
+        built (one a batch slot each sample, draft proposal or verify
+        argmax), "overridden": how many of them rank 0's broadcast
+        replaced}: how far the ranks' logits (or their samplers) drift
+        apart. 0 and 0 on one rank."""
+        return {"picks": self._picks, "overridden": int(self._overridden)}
+
     def _resolve_prefix_cache(self, mcfg):
         """(enabled, min_match_blocks, evict_watermark_pct) of the prefix
         cache: off for a model with per-layer windows (GPT-Neo's
@@ -745,6 +851,7 @@ class InferenceEngineV2:
         cfg = self.config
         kernel_dispatch.configure_serving(mode=cfg.autotune_mode,
                                           cache_path=cfg.autotune_cache)
+        kernel_dispatch.set_agreement(self._winners)
         for m in (self.model, self.draft_model):
             if m is not None:
                 m.paged_kernel = cfg.paged_kernel
@@ -791,19 +898,19 @@ class InferenceEngineV2:
             logits, self.cache = model.apply_paged_decode(
                 tokens, lengths, self.cache, tables)
             self.forward_counts["decode"] += 1
-            tokens = self._sample_per_slot(logits, self._gen, temps, top_ks,
-                                           all_greedy)
+            tokens = self._agree(self._sample_per_slot(
+                logits, self._gen, temps, top_ks, all_greedy))
             lengths = lengths + 1
             toks.append(tokens)
         return torch.stack(toks)
 
     def _sample_one(self, logits, seq, all_greedy):
-        return self._sample_per_slot(
+        return self._agree(self._sample_per_slot(
             logits, self._gen,
             torch.tensor([seq.temperature], dtype=torch.float32,
                          device=self.device),
             torch.tensor([seq.top_k], dtype=torch.int32, device=self.device),
-            all_greedy)
+            all_greedy))
 
     def _chunk_forward(self, seq, ids, tb, to, off, true_len, table,
                        all_greedy):
@@ -1191,7 +1298,7 @@ class InferenceEngineV2:
                 logits, self.draft_cache = draft.apply_paged_decode(
                     cur, lengths, self.draft_cache, tables)
                 # only greedy sequences speculate: the draft is greedy too
-                cur = logits.argmax(dim=-1).to(torch.int32)
+                cur = self._agree(logits.argmax(dim=-1).to(torch.int32))
                 lengths = lengths + 1
                 props.append(cur)
             out = torch.stack(props, dim=1).cpu().numpy()
@@ -1208,7 +1315,8 @@ class InferenceEngineV2:
                 self._dev(vb.tokens), vb.lengths, self.cache,
                 self._dev(vb.block_tables))
             self.forward_counts["verify"] += 1
-            return logits.argmax(dim=-1).to(torch.int32).cpu().numpy()
+            return self._agree(logits.argmax(dim=-1).to(torch.int32)) \
+                .cpu().numpy()
 
     def _spec_round(self, uids):
         """One propose / verify round for the spec set. Each sequence

@@ -66,6 +66,11 @@ class Replica:
         if role not in ROLES:
             raise ValueError(
                 f"role must be one of {ROLES}, got {role!r}")
+        if getattr(engine, "multi_rank", False):
+            raise NotImplementedError(
+                "a replica whose engine spans ranks (tensor_parallel / "
+                "expert_parallel > 1) is not ported yet (ROADMAP Queue 1, "
+                "serving: multi-rank replicas)")
         self.name = name
         self.engine = engine
         self.role = role

@@ -14,6 +14,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..comm import comm
+
 from ..ops.cuda.fused_ce import unembed_logits_stats
 from ..ops.int8_weights import (EXCLUDE_KEYS, is_quantized, layer_slice,
                                 qualifies, quantize_tensor)
@@ -315,6 +317,31 @@ class QuantizedBlocks:
     TOP_KEYS = ()
     _WQ_KEEP = ()
     _weight_quant_fused = False
+    # a multi-rank serving engine's topology (``inference/utils.
+    # shard_model``): this rank holds H / _tp heads and F / _tp FFN
+    # columns, the _tp_index-th share of each
+    _tp = 1
+    _tp_index = 0
+    _serving_topo = None
+
+    def _check_serving_topology(self, topology):
+        """Raise where this model cannot serve on ``topology`` (a subclass
+        checks its head counts); ``inference/utils.shard_model`` calls it
+        before it slices anything."""
+
+    def _serving_topology_(self, topology):
+        """Adopt ``topology`` after the leaves were sliced to it."""
+        self._tp = topology.axis_size("tensor")
+        self._tp_index = topology.axis_index("tensor")
+        self._serving_topo = topology
+
+    def _tp_sum(self, x):
+        """A row-parallel product's partial sums summed over the
+        ``tensor`` ranks (``x`` itself at one rank); the row-parallel bias
+        is added after it, once."""
+        if self._tp == 1:
+            return x
+        return comm.all_reduce(x, "tensor")
 
     def params_tree(self):
         """The JAX parameter tree: the top-level leaves and ``blocks``

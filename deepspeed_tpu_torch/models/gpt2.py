@@ -209,6 +209,9 @@ class GPT2(QuantizedBlocks, nn.Module):
     TOP_KEYS = ("wte", "wpe", "lnf_scale", "lnf_bias")
     # FFN keys the fused path keeps quantized (engine weight_quant)
     _WQ_KEEP = ("wup", "wdown")
+    # the fused q / k / v columns, split per head by a tensor-parallel
+    # rank (inference/utils.shard_model)
+    _FUSED_SECTIONS = {"wqkv": 3, "bqkv": 3}
 
     def __init__(self, config: GPT2Config, device=None, dtype=None, seed=0):
         super().__init__()
@@ -281,6 +284,14 @@ class GPT2(QuantizedBlocks, nn.Module):
             "wdown": nrm((L, Fd, D), res_std),
             "bdown": const((L, D), 0.0),
         })
+
+    def _check_serving_topology(self, topology):
+        """A tensor-parallel rank holds whole heads of q, k and v."""
+        tp = topology.axis_size("tensor")
+        if self.config.n_head % tp:
+            raise ValueError(
+                f"n_head={self.config.n_head} does not divide over "
+                f"tensor_parallel={tp}: a rank holds whole heads")
 
     def partition_specs(self, topology=None):
         """The JAX model's tensor-parallel specs (gpt2.py:251-275) by
@@ -372,7 +383,9 @@ class GPT2(QuantizedBlocks, nn.Module):
         B, T = x.shape[0], x.shape[1]
         h = self._ln(x, ln1_scale, ln1_bias)
         qkv = h @ wqkv + bqkv
-        return qkv.view(B, T, 3, cfg.n_head, cfg.d_head).unbind(2)
+        # this rank's heads of q, k and v (all of them but under tensor
+        # parallelism, where wqkv holds H / tp heads of each)
+        return qkv.view(B, T, 3, -1, cfg.d_head).unbind(2)
 
     def _window(self, i):
         """Layer ``i``'s attention window: None without
@@ -458,7 +471,7 @@ class GPT2(QuantizedBlocks, nn.Module):
         h = self._ln(x, ln2_scale, ln2_bias)
         if is_quantized(wup):
             up = act(wq_matmul(h, wup) + bup)
-            return wq_matmul(up, wdown) + bdown, None
+            return self._tp_sum(wq_matmul(up, wdown)) + bdown, None
         mode = None if seq_sharded else self._mlp_kernel_mode()
         fuse = self.config.mlp_kernel_fuse_dw
         if mode == "auto":
@@ -476,20 +489,20 @@ class GPT2(QuantizedBlocks, nn.Module):
             else:
                 u = torch.einsum("btd,df->bft", h, wup)
             up = act(u + bup[None, :, None])
-            return mlp_matmul(up, wdown, x_t=True, fuse_dw=fuse) + bdown, \
-                None
+            return self._tp_sum(mlp_matmul(up, wdown, x_t=True,
+                                           fuse_dw=fuse)) + bdown, None
         up = act(h @ wup + bup)
-        return up @ wdown + bdown, None
+        return self._tp_sum(up @ wdown) + bdown, None
 
     def _block_core(self, x, layer, attend, **mlp_kw):
         """ln1 -> qkv -> ``attend`` -> output projection residual -> ln2
         -> MLP residual (gpt2.py:805-826): ``attend((B, T, H, hd) q, k, v)
         -> (B, T, H, hd)`` owns masking and any cache reads and writes.
         Returns ((B, T, D), aux)."""
-        B, T, D = x.shape
+        B, T = x.shape[:2]
         q, k, v = self._qkv(x, *layer[_PRE])
         wo, bo = layer[_WO]
-        mid = x + attend(q, k, v).reshape(B, T, D) @ wo + bo
+        mid = x + self._tp_sum(attend(q, k, v).reshape(B, T, -1) @ wo) + bo
         out, aux = self._mlp(mid, *layer[_POST], **mlp_kw)
         return mid + out, aux
 
@@ -627,10 +640,11 @@ class GPT2(QuantizedBlocks, nn.Module):
     def init_paged_cache(self, num_blocks, block_size, dtype=None):
         """LISTS of per-layer heads-major pools (NB, H, BS, hd), one K and
         one V a layer (gpt2.py:910-923); the paged programs update them in
-        place. Block 0 is the scratch block."""
+        place. Block 0 is the scratch block. A tensor-parallel rank's pools
+        hold its H / tp heads."""
         cfg = self.config
         dt = dtype if dtype is not None else self.dtype
-        shape = (num_blocks, cfg.n_head, block_size, cfg.d_head)
+        shape = (num_blocks, cfg.n_head // self._tp, block_size, cfg.d_head)
         return {"k": [torch.zeros(shape, dtype=dt, device=self.device)
                       for _ in range(cfg.n_layer)],
                 "v": [torch.zeros(shape, dtype=dt, device=self.device)
@@ -662,8 +676,8 @@ class GPT2(QuantizedBlocks, nn.Module):
         where ``paged_kernel`` resolves off."""
         cfg = self.config
         use, bc, splits = resolve_paged_chunk_levers(
-            self.paged_kernel, self.paged_block_c, C, MB, BS, cfg.n_head, 1,
-            cfg.d_head, dtype, device)
+            self.paged_kernel, self.paged_block_c, C, MB, BS,
+            cfg.n_head // self._tp, 1, cfg.d_head, dtype, device)
         if not use:
             return paged_chunk_attention_reference
         return functools.partial(paged_chunk_attention, block_c=bc,
@@ -745,8 +759,9 @@ class GPT2(QuantizedBlocks, nn.Module):
         dst_off = lengths % BS
         cfg = self.config
         use, sp = resolve_paged_decode_levers(
-            self.paged_kernel, lengths.shape[0], MB, BS, cfg.n_head, 1,
-            cfg.d_head, cache["k"][0].dtype, x.device)
+            self.paged_kernel, lengths.shape[0], MB, BS,
+            cfg.n_head // self._tp, 1, cfg.d_head, cache["k"][0].dtype,
+            x.device)
         attend = (functools.partial(paged_decode_attention,
                                     split_positions=sp) if use
                   else paged_decode_attention_reference)
@@ -786,13 +801,13 @@ class GPT2(QuantizedBlocks, nn.Module):
             .reshape(-1)
         fo = (linpos % BS).reshape(-1)
         attend = self._chunk_attend(C, MB, BS, cache["k"][0].dtype, dev)
-        H, hd = cfg.n_head, cfg.d_head
+        hd = cfg.d_head
         for i in range(cfg.n_layer):
             kc, vc = cache["k"][i], cache["v"][i]
 
             def fn(q, k, v, kc=kc, vc=vc, kw=self._paged_kw(i)):
-                scatter_kv(kc, fb, fo, k.reshape(B * C, H, hd))
-                scatter_kv(vc, fb, fo, v.reshape(B * C, H, hd))
+                scatter_kv(kc, fb, fo, k.reshape(B * C, -1, hd))
+                scatter_kv(vc, fb, fo, v.reshape(B * C, -1, hd))
                 return torch.stack([
                     attend(q[b].contiguous(), kc, vc, block_tables[b],
                            starts[b], C, **kw) for b in range(B)])

@@ -125,6 +125,14 @@ class GPT2MoE(GPT2):
             expert_parallel_size=getattr(self, "_moe_ep", 1))
         return y, aux
 
+    def _check_serving_topology(self, topology):
+        """The port serves GPT2MoE on one rank only."""
+        if topology.world_size > 1:
+            raise NotImplementedError(
+                f"GPT2MoE on a serving world of {topology.world_size} "
+                f"ranks is not ported yet (ROADMAP Queue 1, serving: "
+                f"GPT2MoE across ranks)")
+
     def partition_specs(self, topology=None):
         """GPT-2's specs with the dense MLP's replaced by the MoE layer's
         (JAX gpt2_moe.py:77-84): the experts over "expert"."""

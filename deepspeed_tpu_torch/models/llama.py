@@ -448,9 +448,10 @@ class Llama(QuantizedBlocks, nn.Module):
             q = q + self._w("bq", i)
             k = k + self._w("bk", i)
             v = v + self._w("bv", i)
-        return (q.reshape(B, T, cfg.n_head, cfg.d_head),
-                k.reshape(B, T, cfg.n_kv_heads, cfg.d_head),
-                v.reshape(B, T, cfg.n_kv_heads, cfg.d_head))
+        # this rank's heads (all of them but in a tensor-parallel world)
+        return (q.reshape(B, T, -1, cfg.d_head),
+                k.reshape(B, T, -1, cfg.d_head),
+                v.reshape(B, T, -1, cfg.d_head))
 
     def _rope(self, x, pos):
         """Rotary over the leading ``rotary_pct`` of each head (JAX
@@ -465,12 +466,19 @@ class Llama(QuantizedBlocks, nn.Module):
         return torch.cat([_rope(x[..., :rot], pos, cfg.rope_theta,
                                 interleaved=il), x[..., rot:]], dim=-1)
 
+    def _rank_slopes(self):
+        """The ALiBi slopes of this rank's heads: the slice of the model's
+        slopes that its global heads ``_tp_index * H / tp ...`` take."""
+        H = self.config.n_head // self._tp
+        h0 = self._tp_index * H
+        return alibi_slopes(self.config.n_head)[h0:h0 + H]
+
     def _alibi_bias(self, k_pos):
-        """(H, *k_pos.shape) fp32 additive score term slope_h * k_pos; under
-        ``alibi_inv_norm`` rounded through bf16 and divided by sqrt(hd)
-        (JAX llama.py:384-397)."""
+        """(H, *k_pos.shape) fp32 additive score term slope_h * k_pos (this
+        rank's heads); under ``alibi_inv_norm`` rounded through bf16 and
+        divided by sqrt(hd) (JAX llama.py:384-397)."""
         cfg = self.config
-        slopes = torch.tensor(alibi_slopes(cfg.n_head), dtype=torch.float32,
+        slopes = torch.tensor(self._rank_slopes(), dtype=torch.float32,
                               device=k_pos.device)
         bias = slopes.reshape(-1, *([1] * k_pos.dim())) * k_pos.float()[None]
         if cfg.alibi_inv_norm:
@@ -487,7 +495,7 @@ class Llama(QuantizedBlocks, nn.Module):
                     alibi_bf16=cfg.alibi_inv_norm)
 
     def _wo(self, attn, i):
-        out = attn @ self._w("wo", i)
+        out = self._tp_sum(attn @ self._w("wo", i))
         if self.config.o_bias_on:
             out = out + self._w("bo", i)
         return out
@@ -511,7 +519,7 @@ class Llama(QuantizedBlocks, nn.Module):
             if pb:
                 gt = gt + self._w("bgate", i)
             act = F.silu(gt) * u
-        out = mm(act, down)
+        out = self._tp_sum(mm(act, down))
         return out + self._w("bdown", i) if pb else out
 
     def _block_tail(self, x, attn, i):
@@ -536,8 +544,8 @@ class Llama(QuantizedBlocks, nn.Module):
             return self._dense_alibi_attend
         use, bc, splits = resolve_paged_chunk_levers(
             self.paged_kernel, self.paged_block_c, C, MB, BS,
-            cfg.n_kv_heads, cfg.n_head // cfg.n_kv_heads, cfg.d_head, dtype,
-            device)
+            cfg.n_kv_heads // self._tp, cfg.n_head // cfg.n_kv_heads,
+            cfg.d_head, dtype, device)
         if not use:
             return paged_chunk_attention_reference
         return functools.partial(paged_chunk_attention, block_c=bc,
@@ -552,8 +560,8 @@ class Llama(QuantizedBlocks, nn.Module):
         cfg = self.config
         use, sp = resolve_paged_decode_levers(
             True if cfg.alibi else self.paged_kernel, B, MB, BS,
-            cfg.n_kv_heads, cfg.n_head // cfg.n_kv_heads, cfg.d_head, dtype,
-            device)
+            cfg.n_kv_heads // self._tp, cfg.n_head // cfg.n_kv_heads,
+            cfg.d_head, dtype, device)
         if not use:
             return paged_decode_attention_reference
         return functools.partial(paged_decode_attention, split_positions=sp)
@@ -618,6 +626,18 @@ class Llama(QuantizedBlocks, nn.Module):
                 specs[key] = ()
         specs.update({f"blocks.{k}": v for k, v in blocks.items()})
         return specs
+
+    def _check_serving_topology(self, topology):
+        """A tensor-parallel rank holds whole query and KV heads (the JAX
+        ``paged_cache_specs`` shard the pools' KV heads over ``tensor``):
+        both counts must divide over the axis."""
+        tp, cfg = topology.axis_size("tensor"), self.config
+        for what, n in (("n_head", cfg.n_head),
+                        ("n_kv_heads", cfg.n_kv_heads)):
+            if n % tp:
+                raise ValueError(
+                    f"{what}={n} does not divide over tensor_parallel={tp}: "
+                    f"a rank holds whole heads")
 
     def _mlp_specs(self, topology=None):
         col, row = (None, None, "tensor"), (None, "tensor", None)
@@ -737,10 +757,12 @@ class Llama(QuantizedBlocks, nn.Module):
     def init_paged_cache(self, num_blocks, block_size, dtype=None):
         """LISTS of per-layer heads-major pools (NB, KVH, BS, hd); each is
         updated in place by the paged programs (the JAX package donates
-        per-layer pools for the same reason)."""
+        per-layer pools for the same reason). A tensor-parallel rank's
+        pools hold its KVH / tp heads (the JAX ``paged_cache_specs``)."""
         cfg = self.config
         dt = dtype if dtype is not None else self.dtype
-        shape = (num_blocks, cfg.n_kv_heads, block_size, cfg.d_head)
+        shape = (num_blocks, cfg.n_kv_heads // self._tp, block_size,
+                 cfg.d_head)
         return {"k": [torch.zeros(shape, dtype=dt, device=self.device)
                       for _ in range(cfg.n_layer)],
                 "v": [torch.zeros(shape, dtype=dt, device=self.device)
@@ -758,7 +780,6 @@ class Llama(QuantizedBlocks, nn.Module):
         cache)."""
         cfg = self.config
         T = input_ids.shape[1]
-        H, hd = cfg.n_head, cfg.d_head
         length = int(length)
         x = self._embed(input_ids)
         pos = torch.arange(T, device=input_ids.device)[None, :]
@@ -775,7 +796,7 @@ class Llama(QuantizedBlocks, nn.Module):
             scatter_kv(vc, token_blocks, token_offsets, v[0])
             attn = attend(q[0].contiguous(), kc, vc, prefill_table, 0, length,
                           window=cfg.sliding_window)
-            x = self._block_tail(x, attn.reshape(1, T, H * hd), i)
+            x = self._block_tail(x, attn.reshape(1, T, -1), i)
         last = x[:, max(length - 1, 0)]
         return self.head(last), cache
 
@@ -794,7 +815,6 @@ class Llama(QuantizedBlocks, nn.Module):
         (logits (1, V) fp32 at chunk position true_len-1, cache)."""
         cfg = self.config
         C = input_ids.shape[1]
-        H, hd = cfg.n_head, cfg.d_head
         start, true_len = int(start), int(true_len)
         x = self._embed(input_ids)
         pos = start + torch.arange(C, device=input_ids.device)[None, :]
@@ -811,7 +831,7 @@ class Llama(QuantizedBlocks, nn.Module):
             scatter_kv(vc, token_blocks, token_offsets, v[0])
             attn = attend(q[0].contiguous(), kc, vc, table, start, true_len,
                           window=cfg.sliding_window)
-            x = self._block_tail(x, attn.reshape(1, C, H * hd), i)
+            x = self._block_tail(x, attn.reshape(1, C, -1), i)
         last = x[:, max(true_len - 1, 0)]
         return self.head(last), cache
 
@@ -828,7 +848,7 @@ class Llama(QuantizedBlocks, nn.Module):
         cache)."""
         cfg = self.config
         B = tokens.shape[0]
-        H, hd = cfg.n_head, cfg.d_head
+        H = cfg.n_head
         BS = cache["k"][0].shape[2]
         MB = block_tables.shape[1]
         lengths = lengths.to(torch.int32).contiguous()
@@ -842,8 +862,9 @@ class Llama(QuantizedBlocks, nn.Module):
             block_tables.gather(1, blk_idx.clamp(max=MB - 1)[:, None])[:, 0],
             0)
         dst_off = lengths % BS
-        al = ({"alibi_slopes": alibi_slopes(H), **self._alibi_kw()}
-              if cfg.alibi else {})
+        al = ({"alibi_slopes": self._rank_slopes(),
+               "alibi_offset": self._tp_index * (H // self._tp),
+               "alibi_heads": H, **self._alibi_kw()} if cfg.alibi else {})
         attend = self._decode_attend(B, MB, BS, cache["k"][0].dtype,
                                      x.device)
         for i in range(cfg.n_layer):
@@ -855,7 +876,7 @@ class Llama(QuantizedBlocks, nn.Module):
             scatter_kv(vc, dst_block, dst_off, v[:, 0])
             attn = attend(q[:, 0].contiguous(), kc, vc, block_tables, lengths,
                           window=cfg.sliding_window, **al)
-            x = self._block_tail(x, attn.reshape(B, 1, H * hd), i)
+            x = self._block_tail(x, attn.reshape(B, 1, -1), i)
         return self.head(x)[:, 0], cache
 
     @torch.inference_mode()
@@ -876,7 +897,7 @@ class Llama(QuantizedBlocks, nn.Module):
         cache)."""
         cfg = self.config
         B, C = tokens.shape
-        H, KVH, hd = cfg.n_head, cfg.n_kv_heads, cfg.d_head
+        hd = cfg.d_head
         BS = cache["k"][0].shape[2]
         MB = block_tables.shape[1]
         starts = [int(n) for n in np.asarray(lengths).reshape(-1)]
@@ -895,11 +916,11 @@ class Llama(QuantizedBlocks, nn.Module):
             q, k, v = self._attn_proj(x, i)           # (B, C, ., hd)
             q = self._rope(q, pos)
             k = self._rope(k, pos)
-            scatter_kv(kc, fb, fo, k.reshape(B * C, KVH, hd))
-            scatter_kv(vc, fb, fo, v.reshape(B * C, KVH, hd))
+            scatter_kv(kc, fb, fo, k.reshape(B * C, -1, hd))
+            scatter_kv(vc, fb, fo, v.reshape(B * C, -1, hd))
             attn = torch.stack([
                 attend(q[b], kc, vc, block_tables[b], starts[b], C,
                        window=cfg.sliding_window)
                 for b in range(B)])
-            x = self._block_tail(x, attn.reshape(B, C, H * hd), i)
+            x = self._block_tail(x, attn.reshape(B, C, -1), i)
         return self.head(x), cache

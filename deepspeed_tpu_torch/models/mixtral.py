@@ -130,6 +130,10 @@ class Mixtral(Llama):
                 "moe_w3": (None, eaxis, None, "tensor"),
                 "moe_w2": (None, eaxis, "tensor", None)}
 
+    def _serving_topology_(self, topology):
+        super()._serving_topology_(topology)
+        self._moe_ep = topology.axis_size("expert")
+
     def _moe_knob(self, name, default):
         moe_cfg = getattr(self, "_moe_cfg", None)
         return default if moe_cfg is None else getattr(moe_cfg, name)
@@ -150,7 +154,10 @@ class Mixtral(Llama):
                 self._w("moe_w3", i), self._w("moe_w2", i), k=k,
                 hierarchical=self._moe_knob("hierarchical_a2a", "auto"),
                 dcn_quantize=self._moe_knob("dcn_quantize", False),
-                grouped_kernel=self._grouped_knob())
+                grouped_kernel=self._grouped_knob(),
+                # serving: every rank holds the same tokens (training
+                # splits the batch instead)
+                replicated=self._serving_topo is not None)
             return y.to(x.dtype)
         xs = h.reshape(-1, D)
         S = xs.shape[0]
@@ -158,11 +165,15 @@ class Mixtral(Llama):
         order, group_sizes = sort_by_expert(experts, E)
         # token-major repeat: routed row s*k + j is token s
         xr = xs.index_select(0, torch.div(order, k, rounding_mode="floor"))
-        params = resolve_grouped_params(self._grouped_knob(), S * k, E, D,
-                                        cfg.ffn_dim, xr.dtype, xr.device)
-        o = _grouped_swiglu_ffn(xr, self._w("moe_w1", i),
-                                self._w("moe_w3", i), self._w("moe_w2", i),
-                                group_sizes, params)
+        # the rank's F (F / tp columns under tensor parallelism)
+        params = resolve_grouped_params(
+            self._grouped_knob(), S * k, E, D,
+            self._w("moe_w1", i).shape[-1], xr.dtype, xr.device)
+        # under tensor parallelism the experts' F / tp columns give partial
+        # sums of the down products (JAX: GSPMD's psum over "tensor")
+        o = self._tp_sum(_grouped_swiglu_ffn(
+            xr, self._w("moe_w1", i), self._w("moe_w3", i),
+            self._w("moe_w2", i), group_sizes, params))
         unsorted = torch.empty_like(o).index_copy_(0, order, o)
         y = (unsorted * weights.reshape(-1, 1).to(x.dtype)).reshape(
             S, k, D).sum(dim=1)

@@ -527,14 +527,16 @@ def _expert_axes(hier):
     return ("data_outer", "expert") if hier else ("expert",)
 
 
-def _ep_exchange(x, flat_exp, k, E_loc, hier, dcn_quantize, ffn):
+def _ep_exchange(x, flat_exp, k, E_loc, hier, dcn_quantize, ffn,
+                 valid=None):
     """Route the ``S * k`` rows of ``x`` (S, M) (routed row ``s * k + j``
     is token s, its expert ``flat_exp[s * k + j]`` of all ``E``) to the
     ranks that hold their experts, run ``ffn(xs, es, group_sizes)`` there
     on the received rows sorted by local expert (ids ``es``; rows past
     ``sum(group_sizes)`` carry ``E_loc``) and bring its rows back: returns
     the (S * k, M) outputs in routed-row order and this rank's local
-    group sizes (E_loc,) int32."""
+    group sizes (E_loc,) int32. ``valid`` (S,) bool: a padding token's
+    rows travel with the invalid id ``E_loc``, outside every group."""
     topo = groups.get_topology()
     ep = topo.axis_size("expert")
     wo = topo.axis_size("data_outer") if hier else 1
@@ -546,6 +548,8 @@ def _ep_exchange(x, flat_exp, k, E_loc, hier, dcn_quantize, ffn):
     cap = int(s_cap.item()) * k
     dest = torch.div(flat_exp, E_loc, rounding_mode="floor")
     local_e = flat_exp - dest * E_loc
+    if valid is not None:
+        local_e = torch.where(valid.repeat_interleave(k), local_e, E_loc)
     order = torch.sort(dest, stable=True).indices
     dest_s = dest[order]
     pos = torch.arange(S * k, device=x.device) - torch.searchsorted(
@@ -593,7 +597,8 @@ def _ep_exchange(x, flat_exp, k, E_loc, hier, dcn_quantize, ffn):
 
 def moe_swiglu_ragged_ep(tokens, gate_w, w1, w3, w2, k=2, *,
                          hierarchical="auto", dcn_quantize=False,
-                         grouped_kernel="auto", return_counts=False):
+                         grouped_kernel="auto", return_counts=False,
+                         replicated=False):
     """Expert-parallel dropless SwiGLU MoE (Mixtral's experts; the JAX
     ``moe_swiglu_ragged_ep``): softmax, top-k, renormalised weights; the
     routed rows exchanged (``_ep_exchange``) to the rank of their expert,
@@ -603,7 +608,16 @@ def moe_swiglu_ragged_ep(tokens, gate_w, w1, w3, w2, k=2, *,
     w2 (E_loc, F, M) this rank's experts, ``E_loc = E / (ep * wo)`` with
     ``wo`` the ``data_outer`` size when the exchange stages
     (``resolve_hierarchical_a2a``), else 1. Returns y like tokens (and the
-    global per-expert counts (E,) int32 with ``return_counts``)."""
+    global per-expert counts (E,) int32 with ``return_counts``).
+
+    ``replicated``: every rank holds the same tokens (serving), and the
+    JAX function's split applies (sharded_moe.py:436-444, :589-591): the
+    flattened tokens padded to a multiple of the expert shards, this
+    rank's ``S / shards`` rows exchanged (a padding row's gate weight is
+    zero and its rows carry the invalid expert id) and the rows brought
+    back whole with ``all_gather``. Under a ``tensor`` axis > 1 the
+    experts hold F / tp columns and the down products' partial sums are
+    summed over ``tensor`` (the row-parallel reduction)."""
     topo = groups.get_topology()
     ep = topo.axis_size("expert")
     if ep == 1:
@@ -623,18 +637,32 @@ def moe_swiglu_ragged_ep(tokens, gate_w, w1, w3, w2, k=2, *,
     orig_shape = tokens.shape
     M = orig_shape[-1]
     x = tokens.reshape(-1, M)
+    S = x.shape[0]
+    valid = None
+    if replicated:
+        shard = topo.axis_index(_expert_axes(hier))
+        x = F.pad(x, (0, 0, 0, (-S) % ep_total))
+        S_loc = x.shape[0] // ep_total
+        x = x[shard * S_loc:(shard + 1) * S_loc]
+        valid = shard * S_loc + torch.arange(S_loc, device=x.device) < S
     weights, experts = route_top_k(x, gate_w, k)
+    if valid is not None:
+        weights = torch.where(valid[:, None], weights, 0.0)
+    tp = topo.axis_size("tensor")
 
     def ffn(xs, es, group_sizes):
         gp = resolve_grouped_params(grouped_kernel, xs.shape[0], E_loc, M,
                                     w1.shape[-1], x.dtype, x.device)
-        return _grouped_swiglu_ffn(xs, w1, w3, w2, group_sizes, gp)
+        out = _grouped_swiglu_ffn(xs, w1, w3, w2, group_sizes, gp)
+        return out if tp == 1 else comm.all_reduce(out, "tensor")
 
     out, group_sizes = _ep_exchange(
         x, experts.reshape(-1), k, E_loc, hier,
-        hier and resolve_dcn_quantize(dcn_quantize), ffn)
+        hier and resolve_dcn_quantize(dcn_quantize), ffn, valid)
     y = (out * weights.reshape(-1, 1).to(x.dtype)).reshape(
         -1, k, M).sum(dim=1)
+    if replicated:
+        y = comm.all_gather(y, _expert_axes(hier), 0)[:S]
     y = y.to(tokens.dtype).reshape(orig_shape)
     if not return_counts:
         return y

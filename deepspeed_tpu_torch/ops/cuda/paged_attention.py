@@ -173,10 +173,16 @@ def alibi_slopes(n_head):
             for h in range(n_head)]
 
 
-def _check_bloom_slopes(slopes, n_head, name):
+def _check_bloom_slopes(slopes, n_head, name, offset=0, heads=None):
     """The kernel computes bloom-formula slopes from the head index, so
-    it takes no others."""
-    expect = alibi_slopes(n_head)
+    it takes no others: the ``n_head`` slopes of global heads ``offset``
+    ... ``offset + n_head - 1`` of a model of ``heads`` heads (default
+    ``n_head``: a rank of a tensor-parallel world holds a slice of them)."""
+    heads = n_head if heads is None else heads
+    if not 0 <= offset <= heads - n_head:
+        raise ValueError(f"{name}: heads {offset} .. {offset + n_head - 1} "
+                         f"are not heads of a {heads}-head model")
+    expect = alibi_slopes(heads)[offset:offset + n_head]
     if len(slopes) != n_head or any(
             abs(a - b) > 1e-6 * max(abs(b), 1e-9)
             for a, b in zip(slopes, expect)):
@@ -193,7 +199,8 @@ class _DecodeArgs(ctypes.Structure):
                                        "bps")]
         + [("scale", ctypes.c_float), ("window", ctypes.c_int),
            ("alibi", ctypes.c_int), ("alibi_scale", ctypes.c_float),
-           ("alibi_bf16", ctypes.c_int), ("alibi_cp", ctypes.c_float)])
+           ("alibi_bf16", ctypes.c_int), ("alibi_cp", ctypes.c_float),
+           ("alibi_h0", ctypes.c_int)])
 
 
 _builder = None
@@ -269,6 +276,7 @@ def _raise_on(rc, name):
 def paged_decode_attention(q, k_cache, v_cache, block_tables, lengths, *,
                            scale=None, window=0, alibi_slopes=None,
                            alibi_scale=1.0, alibi_bf16=False,
+                           alibi_offset=0, alibi_heads=None,
                            split_positions=None):
     """One decode step of attention over a paged KV cache.
 
@@ -279,7 +287,10 @@ def paged_decode_attention(q, k_cache, v_cache, block_tables, lengths, *,
     ``window`` positions; ``alibi_slopes`` (len H, bloom formula only —
     the kernel computes them from the head index) adds slope_h * k_pos,
     optionally rounded through bf16 (``alibi_bf16``) and scaled
-    (``alibi_scale``). ``split_positions``: the cache positions a split of
+    (``alibi_scale``); a tensor-parallel rank's H heads are the global
+    heads ``alibi_offset`` ... of an ``alibi_heads``-head model (default
+    H), whose slopes the kernel computes (the power-of-two count from
+    ``alibi_heads``). ``split_positions``: the cache positions a split of
     the kernel covers (``decode_splits``; None = DECODE_SPLIT_POSITIONS, 0 =
     the whole table). Returns (B, H, d) in q's dtype."""
     name = "paged_decode_attention"
@@ -294,13 +305,15 @@ def paged_decode_attention(q, k_cache, v_cache, block_tables, lengths, *,
                          f"{tuple(lengths.shape)} {lengths.dtype}")
     if scale is None:
         scale = 1.0 / math.sqrt(d)
+    heads = H if alibi_heads is None else int(alibi_heads)
     if alibi_slopes is not None:
-        _check_bloom_slopes(alibi_slopes, H, name)
+        _check_bloom_slopes(alibi_slopes, H, name, alibi_offset, heads)
     if q.device.type == "cpu":
         return paged_decode_attention_reference(
             q, k_cache, v_cache, block_tables, lengths, scale=scale,
             window=window, alibi_slopes=alibi_slopes,
-            alibi_scale=alibi_scale, alibi_bf16=alibi_bf16)
+            alibi_scale=alibi_scale, alibi_bf16=alibi_bf16,
+            alibi_offset=alibi_offset, alibi_heads=alibi_heads)
     _check_cuda((q, k_cache, v_cache, block_tables, lengths), q, name)
     if q.dtype == torch.float32 and d == 256:
         raise NotImplementedError(
@@ -319,7 +332,7 @@ def paged_decode_attention(q, k_cache, v_cache, block_tables, lengths, *,
         None if part is None else part.data_ptr(), B, H, KVH, BS, MB, S,
         bps, float(scale), int(window), int(alibi_slopes is not None),
         float(alibi_scale), int(alibi_bf16),
-        float(2 ** math.floor(math.log2(H))))
+        float(2 ** math.floor(math.log2(heads))), int(alibi_offset))
     rc = _kernels().paged_decode_launch(
         ctypes.byref(args), d, _DTYPE_CODE[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
@@ -345,12 +358,18 @@ def decode_splits(MB, BS, split_positions=None):
 def paged_decode_attention_reference(q, k_cache, v_cache, block_tables,
                                      lengths, *, scale=None, window=0,
                                      alibi_slopes=None, alibi_scale=1.0,
-                                     alibi_bf16=False, split_positions=None):
+                                     alibi_bf16=False, alibi_offset=0,
+                                     alibi_heads=None, split_positions=None):
     """Dense-gather plain version (the JAX reference's math, plus the
     kernel's alibi_scale/alibi_bf16 options); it takes the kernel's
     ``split_positions`` and ignores it, so it can stand in for the kernel
-    wherever that is called with its levers."""
+    wherever that is called with its levers. ``alibi_slopes`` are the
+    slopes of its H heads, checked as the kernel checks them (global heads
+    ``alibi_offset`` ... of an ``alibi_heads``-head model)."""
     B, H, d = q.shape
+    if alibi_slopes is not None:
+        _check_bloom_slopes(alibi_slopes, H, "paged_decode_attention",
+                            alibi_offset, alibi_heads)
     NB, KVH, BS, _ = k_cache.shape
     MB = block_tables.shape[1]
     S = MB * BS
@@ -382,6 +401,7 @@ def paged_decode_attention_reference(q, k_cache, v_cache, block_tables,
 def paged_decode_split_partials(q, k_cache, v_cache, block_tables, lengths,
                                 *, scale=None, window=0, alibi_slopes=None,
                                 alibi_scale=1.0, alibi_bf16=False,
+                                alibi_offset=0, alibi_heads=None,
                                 splits=None):
     """The decode kernel's split partials, in torch: for each split s of
     ``splits`` = (S, bps) (default ``decode_splits``), its valid positions
@@ -402,6 +422,8 @@ def paged_decode_split_partials(q, k_cache, v_cache, block_tables, lengths,
     L = lengths.long()
     tb = block_tables.long()
     if alibi_slopes is not None:
+        _check_bloom_slopes(alibi_slopes, H, "paged_decode_attention",
+                            alibi_offset, alibi_heads)
         slopes = torch.tensor(alibi_slopes, dtype=torch.float32, device=dev)
     m = torch.full((B, H, S), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros(B, H, S, dtype=torch.float32, device=dev)

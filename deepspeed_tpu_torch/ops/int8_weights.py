@@ -13,8 +13,11 @@ The serving engine's ``weight_quant`` keeps the FFN weights quantized
 through the fused-dequant kernels (``ops/cuda/mlp_matmul.wq_matmul``,
 ``ops/cuda/grouped_matmul.grouped_swiglu_wq``); every other quantized
 leaf is dequantized one layer at a time (``quantize_weights``, the
-ZeRO-Inference capacity mode, dequantizes them all). Not ported:
-``quantized_shardings`` (tensor parallel, ROADMAP Queue 1).
+ZeRO-Inference capacity mode, dequantizes them all). A rank of a
+multi-rank serving engine holds a slice of each quantized leaf
+(``quantized_slice``, the placement of the JAX ``quantized_shardings``):
+the whole leaf is quantized first, then sliced, so a row-parallel shard
+keeps the global per-channel scale.
 """
 
 import torch
@@ -235,3 +238,33 @@ def layer_slice(w, i, dtype, keep=False):
         return (code * w.scale[0]).to(dtype)
     wi = type(w)(w.q[i], w.scale[i])
     return wi if keep else wi.dequant(dtype)
+
+
+def quantized_slice(w, dim, parts, index):
+    """Slice ``index`` of ``parts`` equal slices of a quantized weight
+    along its logical dim ``dim``, as the JAX ``quantized_shardings``
+    place it (ops/int8_weights.py:199-217): the codes along ``dim`` (an
+    int4 leaf's packed bytes along -2 hold two rows each, so a slice needs
+    an even row count), the per-channel scale along ``dim`` too, except on
+    the contracted dim -2, where it stays whole. The slices are bitwise
+    the whole leaf's quantization, sliced."""
+    shape = w.shape
+    d = dim % len(shape)
+    n = shape[d]
+    if n % parts:
+        raise ValueError(f"quantized dim {d} of {n} does not divide into "
+                         f"{parts} slices")
+    size = n // parts
+    if d != len(shape) - 2:
+        return type(w)(w.q.narrow(d, index * size, size).contiguous(),
+                       w.scale.narrow(d, index * size, size).contiguous())
+    if w.bits == 4:
+        if size % 2:
+            raise ValueError(
+                f"an int4 row slice of {size} rows: the codes pack two "
+                f"rows a byte, so the rows a slice ({n} / {parts}) must be "
+                f"even")
+        q = w.q.narrow(d, index * size // 2, size // 2)
+    else:
+        q = w.q.narrow(d, index * size, size)
+    return type(w)(q.contiguous(), w.scale)

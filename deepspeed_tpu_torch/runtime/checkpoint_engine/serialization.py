@@ -59,22 +59,59 @@ def _walk(tree, prefix=()):
         yield from _walk(v, prefix + (k,))
 
 
-def _check_dtype(t):
-    if t.dtype == torch.bfloat16:
-        raise NotImplementedError(
-            "a bfloat16 checkpoint leaf (optimizer moments_dtype "
-            "'bfloat16') has no numpy dtype; the port writes fp32 / int "
-            "moments only")
+# A bfloat16 leaf (optimizer ``moments_dtype="bfloat16"``) has no numpy
+# dtype without ml_dtypes, which the port does not import: it travels as
+# its two-byte words in a ``V2`` array, written with the npy descr
+# ``'<V2'`` that numpy gives an ml_dtypes bfloat16 array (the JAX tag's
+# record, byte for byte), and named "bfloat16" in the sharded index, as
+# the JAX package names it ``str(leaf.dtype)``.
+BF16 = "bfloat16"
+_WORDS = np.dtype("V2")
 
 
 def to_numpy(leaf):
     """A leaf as a host numpy array: a torch tensor is copied to host
-    memory (its own copy, never a view of live state); bfloat16, which
-    numpy has no dtype for, raises."""
+    memory (its own copy, never a view of live state); a bfloat16 tensor
+    becomes its words as a ``V2`` array."""
     if torch.is_tensor(leaf):
-        _check_dtype(leaf)
-        return leaf.detach().to("cpu", copy=True).numpy()
+        t = leaf.detach().to("cpu", copy=True)
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(_WORDS)
+        return t.numpy()
     return np.asarray(leaf)
+
+
+def write_npy(fid, val):
+    """``numpy.save``'s npy record of ``val`` into the open file ``fid``,
+    with a ``V2`` array's record under the descr ``'<V2'``."""
+    val = np.asanyarray(val)
+    if val.dtype != _WORDS:
+        np.lib.format.write_array(fid, val, allow_pickle=False)
+        return
+    val = np.ascontiguousarray(val)
+    head = {"descr": "<V2", "fortran_order": False, "shape": val.shape}
+    try:
+        np.lib.format.write_array_header_1_0(fid, head)
+    except ValueError:
+        np.lib.format.write_array_header_2_0(fid, head)
+    fid.write(val.tobytes())
+
+
+def _savez(file, arrays):
+    """``numpy.savez(file, **arrays)`` (the same zip, entries and npy
+    records), with a ``V2`` array's record under the descr ``'<V2'``."""
+    with zipfile.ZipFile(file, mode="w", compression=zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        for key, val in arrays.items():
+            with zf.open(key + ".npy", "w", force_zip64=True) as fid:
+                write_npy(fid, val)
+
+
+def _bf16(words):
+    """A reassembled ``V2`` / int16 array of bfloat16 words -> a bf16
+    tensor (host memory)."""
+    return torch.from_numpy(np.ascontiguousarray(words).view(np.int16)) \
+        .view(torch.bfloat16)
 
 
 def flatten_state(tree):
@@ -141,7 +178,7 @@ def save_file(path, tree, extra_meta=None):
         # in-memory target (the native engine serializes to bytes; its
         # C++ pool owns the byte write — and fires 'write' — plus its
         # own tmp/rename)
-        np.savez(path, **arrays)
+        _savez(path, arrays)
         return
     tmp = str(path) + ".tmp"
     # re-create the tag dir: a retrying attempt must heal even if the
@@ -150,7 +187,7 @@ def save_file(path, tree, extra_meta=None):
     try:
         with open(tmp, "wb") as f:
             fault_injection.fire("write")
-            np.savez(f, **arrays)
+            _savez(f, arrays)
             f.flush()
             os.fsync(f.fileno())
         fault_injection.fire("rename")
@@ -224,15 +261,16 @@ def load_file(path, verify=True):
 # --------------------------------------------------------- sharded layout
 
 def _leaf_entry(shape, dtype):
-    return {"shape": [int(s) for s in shape], "dtype": str(np.dtype(dtype)),
-            "chunks": []}
+    return {"shape": [int(s) for s in shape], "dtype": dtype, "chunks": []}
 
 
-def _np_dtype(leaf):
+def dtype_name(leaf):
+    """The index entry's dtype: numpy's name, "bfloat16" for bf16."""
     if torch.is_tensor(leaf):
-        _check_dtype(leaf)
-        return torch.empty((), dtype=leaf.dtype).numpy().dtype
-    return np.asarray(leaf).dtype
+        if leaf.dtype == torch.bfloat16:
+            return BF16
+        return str(torch.empty((), dtype=leaf.dtype).numpy().dtype)
+    return str(np.asarray(leaf).dtype)
 
 
 def extract_local_chunks(tree, partition=None, topology=None):
@@ -265,7 +303,7 @@ def extract_local_chunks(tree, partition=None, topology=None):
         shape = list(leaf.shape)
         for dim, axes in splits:
             shape[dim] *= topo.axis_size(axes)
-        entry = _leaf_entry(shape, _np_dtype(leaf))
+        entry = _leaf_entry(shape, dtype_name(leaf))
         held = {a for _, axes in splits for a in axes}
         others = [a for a in groups.MESH_AXES if a not in held]
         if all(topo.axis_index(a) == 0 for a in others):
@@ -290,7 +328,8 @@ def load_sharded(dirpath):
 
 def load_shard_files(files, where=None):
     """Reassemble the global logical arrays from an explicit list of
-    shard file paths. -> (flat dict path->array, normalized header)."""
+    shard file paths. -> (flat dict path->array, normalized header); a
+    leaf the index names "bfloat16" comes back as a bf16 tensor."""
     where = where or (os.path.dirname(files[0]) if files else "<empty>")
     merged = {}
     all_chunks = {}
@@ -319,13 +358,16 @@ def load_shard_files(files, where=None):
     for k, e in merged.items():
         total = int(np.prod(e["shape"], dtype=np.int64))
         filled = 0
-        arr = np.empty(e["shape"], np.dtype(e["dtype"]))
+        bf16 = e["dtype"] == BF16
+        arr = np.empty(e["shape"], np.int16 if bf16 else np.dtype(e["dtype"]))
         for c in e["chunks"]:
             if c["key"] not in all_chunks:
                 raise ValueError(
                     f"checkpoint {where}: leaf {k} chunk {c['key']} "
                     f"indexed but absent from every shard file")
             data = all_chunks[c["key"]]
+            if bf16:
+                data = data.view(np.int16)
             sl = tuple(slice(s, s + n) for s, n in zip(c["start"],
                                                        data.shape))
             arr[sl] = data
@@ -335,7 +377,7 @@ def load_shard_files(files, where=None):
                 f"checkpoint {where}: leaf {k} covered by "
                 f"{filled}/{total} elements — shard files missing or "
                 f"written by a torn save")
-        out[k] = arr
+        out[k] = _bf16(arr) if bf16 else arr
     extra = dict(header0["extra"])
     meta = extra.pop("__tree_meta__", {})
     extra.pop("index", None)

@@ -200,6 +200,12 @@ class DeepSpeedEngine:
                 f"(or comm.init_distributed) first")
         if topology is None:
             topology = groups.initialize(_topology_config(config))
+        if topology.axis_size("tensor") > 1:
+            raise NotImplementedError(
+                f"a tensor axis of {topology.axis_size('tensor')} ranks: the "
+                f"training engine does not carry tensor parallelism yet "
+                f"(ROADMAP Queue 1, M5: tensor parallel); the v2 serving "
+                f"engine does")
         dp = topology.get_data_parallel_world_size()
         self.config = (config if isinstance(config, DeepSpeedConfig)
                        else DeepSpeedConfig(config, dp_world_size=dp))
@@ -861,7 +867,8 @@ class DeepSpeedEngine:
 
         def local(arr, name):
             """This rank's experts of a whole leaf (the leaf otherwise)."""
-            x = torch.from_numpy(np.asarray(arr))
+            x = arr if torch.is_tensor(arr) else \
+                torch.from_numpy(np.asarray(arr))
             if name in self._expert:
                 dim, axes = self._expert[name]
                 x = shard(x, dim, axes, self.topology)

@@ -22,9 +22,10 @@ whole world is the default group. Without an initialized world the
 topology has one rank and no groups; the comm layer then computes each
 collective's one-rank result locally.
 
-The port runs the ``data``, ``data_outer``, ``expert`` and ``seq`` axes;
-a ``tensor`` or ``pipe`` axis of more than one rank raises, naming its
-ROADMAP item. The batch splits over ``BATCH_AXES`` (``expert`` included:
+The port runs the ``data``, ``data_outer``, ``expert``, ``seq`` and
+``tensor`` axes (``tensor`` in serving only: the training engine refuses
+it, naming ROADMAP Queue 1, M5); a ``pipe`` axis of more than one rank
+raises, naming its ROADMAP item. The batch splits over ``BATCH_AXES`` (``expert`` included:
 an expert-parallel rank is also a data-parallel one); non-expert
 parameters are replicated over ``DP_AXES``, expert parameters over
 ``EXPERT_DP_AXES``.
@@ -43,8 +44,7 @@ EXPERT_DP_AXES = ("data_outer", "data")       # expert-param data parallelism
 GRAD_REDUCE_AXES = ("data_outer", "data", "expert", "seq")
 BATCH_AXES = ("data_outer", "data", "expert")  # batch dim of the global batch
 
-_TODO = {"tensor_parallel_size": "(ROADMAP Queue 1, M5: tensor parallel)",
-         "pipe_parallel_size": "(ROADMAP Queue 1, M13: pipeline)"}
+_TODO = {"pipe_parallel_size": "(ROADMAP Queue 1, M13: pipeline)"}
 
 
 @dataclass(frozen=True)
@@ -83,8 +83,8 @@ class ParallelTopology:
         w, r = _world()
         n = w if world_size is None else world_size
         self.rank = r if rank is None else rank
-        ep = config.expert_parallel_size
-        fixed = config.seq_parallel_size * ep
+        ep, tp = config.expert_parallel_size, config.tensor_parallel_size
+        fixed = config.seq_parallel_size * ep * tp
         dp = config.data_parallel_size
         if dp == -1:
             if n % fixed != 0:
@@ -94,7 +94,7 @@ class ParallelTopology:
             dp = n // fixed
         if dp * fixed != n:
             raise ValueError(
-                f"data({dp}) * tensor(1) * pipe(1) * "
+                f"data({dp}) * tensor({tp}) * pipe(1) * "
                 f"seq({config.seq_parallel_size}) * expert({ep}) = "
                 f"{dp * fixed} != world size {n}")
         shard = config.zero_shard_size
@@ -105,10 +105,11 @@ class ParallelTopology:
                 f"zero_shard_size {shard} does not divide data-parallel "
                 f"size {dp}")
         self.config = TopologyConfig(
-            data_parallel_size=dp, seq_parallel_size=config.seq_parallel_size,
+            data_parallel_size=dp, tensor_parallel_size=tp,
+            seq_parallel_size=config.seq_parallel_size,
             expert_parallel_size=ep, zero_shard_size=shard)
         self.shape = (1, dp // shard, shard, ep, config.seq_parallel_size,
-                      1)
+                      tp)
         self.ranks = np.arange(n).reshape(self.shape)
         self.coords = dict(zip(MESH_AXES,
                                np.unravel_index(self.rank, self.shape)))

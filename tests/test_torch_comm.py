@@ -24,6 +24,8 @@ from deepspeed_tpu import comm as jcomm
 from deepspeed_tpu.comm import get_comms_logger as jlogger
 from deepspeed_tpu.runtime.config import CommsLoggerConfig as JLogCfg
 from deepspeed_tpu.utils import groups as jgroups
+from deepspeed_tpu_torch.models import GPT2, GPT2Config
+from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
 from deepspeed_tpu_torch.utils import groups
 from deepspeed_tpu_torch.utils.device import resolve_device
 from test_torch_dist_worker import comm_program, run_world
@@ -165,11 +167,21 @@ def test_topology_layout_matches_jax_mesh(cfg):
 
 
 def test_unported_axes_raise():
-    for name, item in (("tensor_parallel_size", "M5"),
-                       ("pipe_parallel_size", "M13")):
-        with pytest.raises(NotImplementedError, match=item):
-            groups.ParallelTopology(groups.TopologyConfig(**{name: 2}),
-                                    world_size=2, rank=0)
+    with pytest.raises(NotImplementedError, match="M13"):
+        groups.ParallelTopology(groups.TopologyConfig(pipe_parallel_size=2),
+                                world_size=2, rank=0)
+    # the tensor axis lays out (serving runs it); training refuses it
+    t = groups.ParallelTopology(groups.TopologyConfig(tensor_parallel_size=2),
+                                world_size=2, rank=1)
+    assert t.shape == (1, 1, 1, 1, 1, 2) and t.axis_index("tensor") == 1
+    with pytest.raises(NotImplementedError, match="M5: tensor parallel"):
+        DeepSpeedEngine(GPT2(GPT2Config(n_layer=1, n_head=2, d_model=16,
+                                        max_seq_len=8, vocab_size=32,
+                                        dtype="float32"), device="cpu"),
+                        {"train_micro_batch_size_per_gpu": 1,
+                         "optimizer": {"type": "AdamW",
+                                       "params": {"lr": 1e-3}}},
+                        device="cpu", topology=t)
     # the expert axis is ported: ranks (data_outer, expert) as JAX's mesh
     t = groups.ParallelTopology(groups.TopologyConfig(
         expert_parallel_size=2, zero_shard_size=1), world_size=4, rank=3)

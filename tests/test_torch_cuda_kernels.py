@@ -89,6 +89,37 @@ def test_decode_kernel(dtype, H, KVH, d, window, alibi):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,tp", [(12, 2), (12, 3), (8, 4)])
+def test_decode_kernel_alibi_head_offset(dtype, H, tp):
+    """K4 on a tensor-parallel rank's ALiBi heads (``alibi_offset`` = its
+    first global head, ``alibi_heads`` = H): bitwise the whole-head call's
+    rows (12 heads: the power-of-two count 8 and the interleaved rest),
+    and against the plain version with the same arguments."""
+    rs = np.random.RandomState(3)
+    B, BS, MB, d = 3, 16, 8, 64
+    NB = 1 + B * MB
+    q = _rand(rs, (B, H, d), dtype)
+    k, v = (_rand(rs, (NB, H, BS, d), dtype) for _ in range(2))
+    tables = rs.permutation(np.arange(1, NB)).reshape(B, MB).astype(np.int32)
+    tb = torch.from_numpy(tables).cuda()
+    ln = torch.tensor([5, 60, 127], dtype=torch.int32, device="cuda")
+    whole = pa.paged_decode_attention(q, k, v, tb, ln,
+                                      alibi_slopes=pa.alibi_slopes(H))
+    Hl = H // tp
+    for r in range(tp):
+        hs = slice(r * Hl, (r + 1) * Hl)
+        kw = dict(alibi_slopes=pa.alibi_slopes(H)[hs], alibi_offset=r * Hl,
+                  alibi_heads=H)
+        qr, kr, vr = (t[:, hs].contiguous() for t in (q, k, v))
+        out = pa.paged_decode_attention(qr, kr, vr, tb, ln, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(out, whole[:, hs]), r
+        _assert_matches(out, lambda q, k, v, kw=kw:
+                        pa.paged_decode_attention_reference(
+                            q, k, v, tb, ln, **kw), qr, kr, vr)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("H,KVH,d,window,alibi",
                          [(4, 2, 32, 0, False), (8, 8, 64, 10, False),
                           (8, 2, 128, 0, False), (6, 6, 128, 0, True),

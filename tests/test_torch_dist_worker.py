@@ -684,6 +684,82 @@ def kv_handoff(inp, rank, world):
     return out
 
 
+_CONVERT = {"llama": "llama_params_from_numpy",
+            "mixtral": "mixtral_params_from_numpy",
+            "gpt2": "gpt2_params_from_numpy"}
+
+
+def _serve_model(spec):
+    """A port model from ``spec``: ``cls`` (a class of
+    ``deepspeed_tpu_torch.models``), ``cfg`` (its config's fields),
+    ``conv`` (llama | mixtral | gpt2) and ``tree`` (the JAX parameter
+    tree as numpy), fp32 on the CPU."""
+    import torch
+    from deepspeed_tpu_torch import models
+    cls = getattr(models, spec["cls"])
+    cfg = getattr(models, spec["cls"] + "Config")(**spec["cfg"])
+    model = cls(cfg, device="cpu", dtype=torch.float32)
+    conv = getattr(models, _CONVERT[spec["conv"]])
+    model.load_state_dict(conv(spec["tree"], "cpu", torch.float32))
+    return model
+
+
+@_suite
+def serve(inp, rank, world):
+    """Multi-rank serving: each run of ``inp["runs"]`` builds the whole
+    model on every rank (``_serve_model``), an ``InferenceEngineV2`` at
+    the run's ``conf`` (tensor_parallel / expert_parallel) on the CPU,
+    with the run's draft model (``"self"`` for the model itself; with
+    ``seed_by_rank`` the sampler's seed is the config's plus the rank), and
+    serves ``prompts`` in ``waves`` (each wave one ``generate_all``).
+    Returns the streams, the forward counts, the rank's leaf shapes, KV
+    pool shape, prefix-cache and offload stats, and the host bytes the
+    collectives staged."""
+    import torch
+    from deepspeed_tpu_torch import InferenceEngineV2
+    from deepspeed_tpu_torch.autotuning import kernel_dispatch
+    from deepspeed_tpu_torch.utils import groups
+    out = {}
+    for name, run in inp["runs"].items():
+        groups.reset()
+        kernel_dispatch.reset()
+        model = _serve_model(run)
+        draft = run.get("draft")
+        if draft == "self":
+            draft = model
+        elif draft is not None:
+            draft = _serve_model(draft)
+        conf = dict(run["conf"])
+        if run.get("seed_by_rank"):     # each rank's sampler its own seed
+            conf["seed"] = conf.get("seed", 0) + rank
+        eng = InferenceEngineV2(model, conf, device="cpu",
+                                draft_model=draft)
+        torch.manual_seed(1000 + rank)       # no rank agrees by accident
+        streams = []
+        for wave in run["waves"]:
+            streams.extend(eng.generate_all(
+                [run["prompts"][i] for i in wave],
+                max_new_tokens=run["new"]))
+        res = {"streams": [list(map(int, t)) for t in streams],
+               "forward_counts": dict(eng.forward_counts),
+               "draft_forward_counts": dict(eng.draft_forward_counts),
+               "shapes": {k: tuple(v.shape) for k, v in
+                          {**dict(model.blocks.named_parameters()),
+                           **model.qblocks}.items()},
+               "pool": tuple(eng.cache["k"][0].shape),
+               "tp": model._tp, "tp_index": model._tp_index,
+               "ep": getattr(model, "_moe_ep", 1),
+               "multi_rank": eng.multi_rank,
+               "agreement": eng.agreement()}
+        if eng.prefix_cache is not None:
+            res["prefix"] = dict(eng.prefix_cache.stats())
+        if eng.kv_pool is not None:
+            res["offload"] = (eng.kv_pool.swapped_in,
+                              eng.kv_pool.swapped_out)
+        out[name] = res
+    return {"res": out}
+
+
 def main():
     suite, tmpdir = sys.argv[1], sys.argv[2]
     sys.path.insert(0, ROOT)

@@ -10,6 +10,7 @@ import os
 import re
 import subprocess
 import sys
+import types
 
 import pytest
 import torch
@@ -427,10 +428,19 @@ def test_training_rejects_unported_config():
 def test_engine_rejects_unported_config(tmp_path):
     model = Llama(dataclasses.replace(LLAMA_TINY, dtype="float32"),
                   device="cpu")
+    # tensor / expert parallel are ported: a process that joined no world
+    # cannot lay out their two ranks; a replica around a multi-rank engine
+    # is not ported (its ROADMAP item)
+    from deepspeed_tpu_torch import Replica
+    from deepspeed_tpu_torch.utils import groups
     for over in (dict(tensor_parallel=2), dict(expert_parallel=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        groups.reset()
+        with pytest.raises(ValueError, match="world size 1"):
             InferenceEngineV2(model, dict(dtype="float32", **over),
                               device="cpu")
+    groups.reset()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Replica("r0", types.SimpleNamespace(multi_rank=True))
     # the autotune winner cache's fields are ported: accepted
     from deepspeed_tpu_torch.autotuning import kernel_dispatch
     try:
